@@ -3,19 +3,26 @@
 
   python3 chip_smoke.py
 
-Builds the port's CUDA kernel from the checkout, holds it against its plain
-PyTorch version at the slice's shapes, drives the MAgNet[CNN] 1D eval
-rollout at full width through ``magnet_tpu_torch.eval.evaluate`` and checks
-that it went through the kernel.  Prints one JSON line per phase, the
-card's name and power limit, a ``{"kernels": [...]}`` line, and last
-``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero, and
-with no CUDA device it exits 1 before printing any result.
+Builds the port's two CUDA kernels from the checkout (the fused edge
+pipeline's forward and backward), holds each against its plain PyTorch
+version at the shapes of the paths that launch it, and drives both ported
+paths of MAgNet[CNN] 1D at full width: the eval rollout through
+``magnet_tpu_torch.eval.evaluate`` and a short training run through
+``magnet_tpu_torch.train.trainer.Trainer.fit`` on KS data made from a seed,
+with a checkpoint read back and a resume.  It checks that each path went
+through the kernels by their launch counts.  Prints one JSON line per
+phase (``device``, ``build``, ``kernel``, ``slice``, ``kernel_bwd``,
+``train``), the card's name and power limit, a ``{"kernels": [...]}`` line,
+and last ``{"ok": true, "device": {...}}``.  Any failed phase exits
+non-zero, and with no CUDA device it exits 1 before printing any result.
 """
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -29,6 +36,26 @@ KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-4
 # the whole rollout: 15 autoregressive windows of 10 steps carry those
 # differences forward
 SLICE_RTOL, SLICE_ATOL = 1e-3, 1e-4
+# backward kernel vs plain, per gradient: |err| <= BWD_RTOL*|want| +
+# BWD_ATOL_REL*max|want| (the gradients span three orders of magnitude
+# between operands, so the absolute part scales with each one's largest
+# entry).  relu is not smooth: the kernel recomputes the activations with
+# its sums in another order, so a pre-activation within rounding of 0 can
+# land on the other side of it and change that edge's gradient by O(1)
+# (a handful of the training shape's 17M pre-activations do; one such edge
+# moves a whole column of dW_e).  So at the training shape the elements
+# outside the bound are counted and reported, and each gradient is held to
+# a relative L2 error of BWD_L2; on the small graph, which has no such
+# tie, every element is held to the bound.
+BWD_RTOL, BWD_ATOL_REL, BWD_L2 = 1e-3, 1e-4, 1e-3
+# a whole training step, kernel path vs plain path: parameter gradients
+# are sums over 7 windows x 10 steps x ~67.7k edges, compared by relative
+# L2 error per parameter; the loss is the same forward on both paths
+TRAIN_GRAD_L2, TRAIN_LOSS_RTOL = 2e-3, 1e-5
+# the smoke run's training data: KS trajectories with a shortened burn-in
+# (the solver's default is 40.0), so that the host does not dominate the run
+SMOKE_DATA = {"source": "synthetic_ks", "n_train": 96, "n_val": 32,
+              "n_test": 1, "burn_in": 10.0, "data_seed": 0}
 
 
 def emit(obj) -> None:
@@ -60,6 +87,19 @@ def compare(got, want, rtol, atol) -> dict:
     }
 
 
+def compare_grad(got, want, elementwise: bool) -> dict:
+    got, want = got.double(), want.double()
+    err = (got - want).abs()
+    top = float(want.abs().max())
+    outside = err > BWD_RTOL * want.abs() + BWD_ATOL_REL * top
+    n_outside = int(outside.sum())
+    l2 = float(err.norm() / want.norm().clamp_min(1e-30))
+    return {"max_abs_err": float(err.max()), "max_abs_want": top,
+            "max_rel_err": float((err / want.abs().clamp_min(1e-30)).max()),
+            "rel_l2_err": l2, "n_outside": n_outside, "n": want.numel(),
+            "ok": l2 <= BWD_L2 and not (elementwise and n_outside)}
+
+
 def kernel_operands(graph, ce, h, c, l1, seed, dev):
     g = torch.Generator().manual_seed(seed)
 
@@ -72,29 +112,62 @@ def kernel_operands(graph, ce, h, c, l1, seed, dev):
             f(l1, h), f(h, c), f(c), 1 + f(c, scale=0.1), f(c, scale=0.1))
 
 
-def bound(graph, ce, h, c, l1) -> dict:
-    """Least time on the card for one call: 2·(multiply-adds of the four
-    matrix products) over the f32 peak, and each input read once plus the
-    output written once over the HBM rate."""
+def bound(kernel: str, graph, ce, h, c, l1) -> dict:
+    """Least time on the card for one call of the forward (``"fwd"``) or
+    backward (``"bwd"``) kernel: its operations over the f32 peak, and each
+    input read once plus each output written once over the HBM rate.  The
+    forward is 2·(multiply-adds of the four matrix products); the backward
+    recomputes them and forms the data and the weight gradients, three
+    times that."""
     n, e = graph.n_node, graph.n_edge
     flops = 2.0 * e * (ce * h + l1 * h * h + h * c)
     weights = ce * h + h + l1 * (h * h + h) + h * c + 3 * c
-    nbytes = 4.0 * (e * ce + e + (n + 1) + 2 * n * h + weights + n * c)
+    inputs = e * ce + e + (n + 1) + 2 * n * h + weights
+    if kernel == "fwd":
+        nbytes = 4.0 * (inputs + n * c)
+    elif kernel == "bwd":
+        flops *= 3.0
+        nbytes = 4.0 * (inputs + n * c + e * ce + 2 * n * h + weights)
+    else:
+        raise ValueError(kernel)
     t_ops, t_bytes = flops / F32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
     return {"flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def ptxas_lines(lib) -> list[str]:
+    report = lib.parent / f"{lib.stem}.ptxas.txt"
+    return [ln.strip() for ln in report.read_text().splitlines()
+            if "registers" in ln or "spill" in ln]
+
+
+def timed(fn) -> float:
+    """Host seconds of ``fn()`` with the device drained before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from magnet_tpu_torch.config import HEAT_TEST, MAGNET_CNN
+    from magnet_tpu_torch.config import (
+        DATAMODULE_IMPLICIT,
+        HEAT_TEST,
+        MAGNET_CNN,
+    )
+    from magnet_tpu_torch.data.datamodule import build_loaders
     from magnet_tpu_torch.data.heat import heat_batches
     from magnet_tpu_torch.eval import evaluate
     from magnet_tpu_torch.models.factory import create_model
     from magnet_tpu_torch.ops import fused_edge as fe
     from magnet_tpu_torch.ops.graph import csr_from_edges, radius_graph
+    from magnet_tpu_torch.train.checkpoint import load_checkpoint
+    from magnet_tpu_torch.train.trainer import Trainer
+    from magnet_tpu_torch.utils import to_device
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -110,14 +183,12 @@ def main() -> int:
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "tf32": "off (matmul and cudnn)"})
 
-    # 2. build
+    # 2. build: both kernels, one nvcc each, started together
     t0 = time.perf_counter()
-    lib = fe.build()
-    ptxas = lib.parent / f"{lib.stem}.ptxas.txt"
+    libs = fe.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "library": lib.name,
-          "ptxas": [ln.strip() for ln in ptxas.read_text().splitlines()
-                    if "registers" in ln or "spill" in ln]})
+          "libraries": {name: {"library": lib.name, "ptxas": ptxas_lines(lib)}
+                        for name, lib in libs.items()}})
 
     # 3. kernel vs plain at the slice's shapes: B=16 LR∪HR graphs flattened
     hp = dict(MAGNET_CNN)
@@ -150,7 +221,7 @@ def main() -> int:
     small["l1"] = 1
     ms = cuda_ms(lambda: fe.fused_edge_tail_agg(*ops), reps=50)
     plain_ms = cuda_ms(lambda: fe.fused_edge_tail_agg_plain(*ops), reps=20)
-    bnd = bound(graph, ce, h, c, l1)
+    bnd = bound("fwd", graph, ce, h, c, l1)
     kernel_ok = big["ok"] and small["ok"] and small["degree0_row_zero"]
     emit({"phase": "kernel", "n_node": graph.n_node, "n_edge": graph.n_edge,
           "ce": ce, "h": h, "c": c, "l1": l1, "slice_shape": big,
@@ -198,18 +269,195 @@ def main() -> int:
           "seconds_per_batch_plain": plain_s / len(batches),
           "peak_mem_bytes": peak, "ok": slice_ok})
 
-    # 5. kernels
+    if not slice_ok:
+        return 3
+    del preds, preds_plain
+
+    # 5. the backward kernel vs plain, every gradient, at the training
+    # shape (B=32 graphs of 128 LR + 32 HR nodes, flattened) and on the
+    # small graph above (degree-0 node, 64-edge receivers, L1=1)
+    data_cfg = {**DATAMODULE_IMPLICIT, **SMOKE_DATA}
+    t0 = time.perf_counter()
+    loaders = build_loaders(data_cfg, seed=0)
+    t_data = time.perf_counter() - t0
+    loaders["train"].set_epoch(0)
+    batch0 = to_device(next(iter(loaders["train"])), dev)
+    tgraph = model.build_graph(batch0)
+    g_gen = torch.Generator().manual_seed(5)
+    bwd = {}
+    for label, gr, ops_ in (("train_shape", tgraph,
+                             kernel_operands(tgraph, ce, h, c, l1, 3, dev)),
+                            ("small_case", small_graph, ops_s)):
+        g = torch.randn(gr.n_node, c, generator=g_gen).to(dev)
+        got_g = fe.fused_edge_tail_agg_bwd(*ops_, g)
+        torch.cuda.synchronize()
+        want_g = fe.fused_edge_tail_agg_bwd_plain(*ops_, g)
+        bwd[label] = {
+            name: compare_grad(a, b, elementwise=label == "small_case")
+            for name, a, b in zip(fe.GRAD_NAMES, got_g, want_g)}
+        if label == "train_shape":
+            ops_t, g_t = ops_, g
+        else:
+            bwd[label]["degree0_row_zero"] = {
+                "ok": bool((got_g[4][17] == 0).all())}
+    bwd_ms = cuda_ms(lambda: fe.fused_edge_tail_agg_bwd(*ops_t, g_t), reps=50)
+    bwd_plain_ms = cuda_ms(
+        lambda: fe.fused_edge_tail_agg_bwd_plain(*ops_t, g_t), reps=10)
+    fwd_t = compare(fe.fused_edge_tail_agg(*ops_t),
+                    fe.fused_edge_tail_agg_plain(*ops_t), KERNEL_RTOL,
+                    KERNEL_ATOL)
+    fwd_ms_t = cuda_ms(lambda: fe.fused_edge_tail_agg(*ops_t), reps=50)
+    fwd_plain_ms_t = cuda_ms(lambda: fe.fused_edge_tail_agg_plain(*ops_t),
+                             reps=20)
+    bnd_bwd = bound("bwd", tgraph, ce, h, c, l1)
+    bnd_fwd_t = bound("fwd", tgraph, ce, h, c, l1)
+    bwd_ok = fwd_t["ok"] and all(
+        v["ok"] for case in bwd.values() for v in case.values())
+    bwd_err = max(v["max_abs_err"] for case in bwd.values()
+                  for v in case.values() if "max_abs_err" in v)
+    emit({"phase": "kernel_bwd", "n_node": tgraph.n_node,
+          "n_edge": tgraph.n_edge,
+          "mean_degree": float(tgraph.degree.mean()),
+          "max_degree": int(tgraph.degree.max()), "l1": l1,
+          "tolerance": {"rtol": BWD_RTOL, "atol_rel_to_max": BWD_ATOL_REL,
+                        "max_rel_l2": BWD_L2,
+                        "elementwise": "small_case only"},
+          **bwd, "ms": bwd_ms, "plain_ms": bwd_plain_ms, "library_ms": None,
+          **bnd_bwd,
+          "forward_at_this_shape": {"vs_plain": fwd_t, "ms": fwd_ms_t,
+                                    "plain_ms": fwd_plain_ms_t, **bnd_fwd_t},
+          "ok": bwd_ok})
+    if not bwd_ok:
+        return 4
+
+    # 6. training: Trainer.fit at full width on seeded KS data
+    def fresh_model():
+        return create_model("magnet_cnn", hp, device=dev, seed=0)
+
+    def loss_and_grads(m, impl):
+        m.impl = impl
+        m.zero_grad(set_to_none=True)
+        loss, _ = m.loss(batch0, tgraph, train=True)
+        loss.backward()
+        m.impl = "kernel"
+        return loss.detach(), {k: p.grad.clone()
+                               for k, p in m.named_parameters()}
+
+    tmodel = fresh_model()
+    first_step_s = timed(lambda: loss_and_grads(tmodel, "kernel"))
+    loss_k, grads_k = loss_and_grads(tmodel, "kernel")
+    loss_p, grads_p = loss_and_grads(tmodel, "plain")
+    grad_l2 = {k: float((grads_k[k].double() - grads_p[k].double()).norm()
+                        / grads_p[k].double().norm().clamp_min(1e-30))
+               for k in grads_p}
+    worst = max(grad_l2, key=grad_l2.get)
+    grads_finite = all(bool(torch.isfinite(v).all()) for v in grads_k.values())
+    loss_rel = float((loss_k - loss_p).abs() / loss_p.abs())
+    vs_plain_ok = (grads_finite and grad_l2[worst] <= TRAIN_GRAD_L2
+                   and loss_rel <= TRAIN_LOSS_RTOL)
+
+    lr_, wd = hp["lr"], hp["weight_decay"]
+    n_epochs, steps = 2, len(loaders["train"])
+    val_batches = len(loaders["val"])
+    mp = hp["num_message_passing_steps"]
+    windows = (data_cfg["nt_train"] - hp["time_slice"]) // hp["time_slice"]
+    with tempfile.TemporaryDirectory() as workdir:
+        def trainer_for(m, max_epochs):
+            return Trainer(m, max_epochs=max_epochs, lr=lr_, weight_decay=wd,
+                           factor=hp["factor"], step_size=hp["step_size"],
+                           workdir=workdir, device=dev)
+
+        trainer = trainer_for(fresh_model(), n_epochs)
+        step_losses = []
+        inner_step = trainer.train_step
+
+        def recording_step(batch):
+            metrics = inner_step(batch)
+            step_losses.append(metrics["loss"])
+            return metrics
+
+        trainer.train_step = recording_step
+        fe.launches = fe.launches_bwd = 0
+        torch.cuda.reset_peak_memory_stats()
+        fit_s = timed(lambda: trainer.fit(loaders["train"], loaders["val"]))
+        train_launches, train_launches_bwd = fe.launches, fe.launches_bwd
+        peak_train = torch.cuda.max_memory_allocated()
+        want_bwd = windows * mp * steps * n_epochs
+        want_fwd = want_bwd + windows * mp * val_batches * n_epochs
+        with open(os.path.join(workdir, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        step_losses = [float(v) for v in step_losses]
+        losses_finite = (all(np.isfinite(v) for v in step_losses) and all(
+            np.isfinite(v) for r in rows for v in r.values()))
+        # the checkpoint, read back
+        last = os.path.join(workdir, "checkpoints", "last.pt")
+        state, meta = load_checkpoint(last, require=("model", "optimizer"))
+        ckpt_ok = (state["step"] == steps * n_epochs
+                   and meta.get("epoch") == n_epochs - 1
+                   and all(torch.equal(v.cpu(), state["model"][k])
+                           for k, v in trainer.model.state_dict().items()))
+        # resume continues at the next epoch
+        resumed = trainer_for(fresh_model(), n_epochs + 1)
+        resumed.fit(loaders["train"], loaders["val"], resume=last)
+        with open(os.path.join(workdir, "metrics.jsonl")) as f:
+            epochs = [json.loads(line)["epoch"] for line in f]
+        resume_ok = (epochs == list(range(n_epochs + 1))
+                     and resumed.optimizer.step_count == steps * (n_epochs + 1))
+        # seconds per step, steady: kernel path, then the plain path
+        host_batches = list(loaders["train"])
+        step_s = timed(lambda: [resumed.train_step(b)
+                                for b in host_batches]) / steps
+        resumed.model.impl = "plain"
+        step_plain_s = timed(lambda: [resumed.train_step(b)
+                                      for b in host_batches]) / steps
+        resumed.model.impl = "kernel"
+    train_ok = (train_launches == want_fwd and train_launches_bwd == want_bwd
+                and losses_finite and step_losses[-1] < step_losses[0]
+                and vs_plain_ok and ckpt_ok and resume_ok)
+    emit({"phase": "train", "batch_size": data_cfg["batch_size"],
+          "steps_per_epoch": steps, "epochs": n_epochs,
+          "val_batches_per_epoch": val_batches, "windows_per_step": windows,
+          "data": {**SMOKE_DATA, "seconds_to_make": t_data},
+          "launches": train_launches, "expected_launches": want_fwd,
+          "launches_bwd": train_launches_bwd,
+          "expected_launches_bwd": want_bwd,
+          "launches_per_train_step": {"fwd": windows * mp, "bwd": windows * mp},
+          "step_losses": step_losses, "rows": rows,
+          "losses_finite": losses_finite, "grads_finite": grads_finite,
+          "vs_plain": {"loss_kernel": float(loss_k), "loss_plain": float(loss_p),
+                       "loss_rel_err": loss_rel, "loss_rtol": TRAIN_LOSS_RTOL,
+                       "worst_grad_rel_l2": grad_l2[worst],
+                       "worst_grad": worst, "grad_rel_l2_tol": TRAIN_GRAD_L2,
+                       "ok": vs_plain_ok},
+          "checkpoint_ok": ckpt_ok, "resume_ok": resume_ok,
+          "resumed_epochs": epochs,
+          "seconds_first_loss_and_backward": first_step_s, "seconds_per_step": step_s,
+          "seconds_per_step_plain": step_plain_s, "seconds_fit": fit_s,
+          "peak_mem_bytes": peak_train, "ok": train_ok})
+
+    # 7. kernels: #8's times are those at the eval slice's shape
     emit({"kernels": [{
         "name": "fused_edge_tail_agg", "route": "cuda",
         "source": "magnet_tpu_torch/csrc/fused_edge_tail_agg.cu",
         "replaces": "magnet_tpu/ops/pallas_kernels.py:1356",
-        "launches": launches, "max_abs_err": max(big["max_abs_err"],
-                                                 small["max_abs_err"]),
+        "launches": launches + train_launches, "launches_eval": launches,
+        "launches_train": train_launches,
+        "max_abs_err": max(big["max_abs_err"], small["max_abs_err"],
+                           fwd_t["max_abs_err"]),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd["bound_ms"],
         "bound_by": bnd["bound_by"], "library_ms": None,
-        "ok": kernel_ok and slice_ok}]})
-    if not slice_ok:
-        return 3
+        "ms_train_shape": fwd_ms_t, "plain_ms_train_shape": fwd_plain_ms_t,
+        "bound_ms_train_shape": bnd_fwd_t["bound_ms"],
+        "ok": kernel_ok and slice_ok and train_ok}, {
+        "name": "fused_edge_tail_agg_bwd", "route": "cuda",
+        "source": "magnet_tpu_torch/csrc/fused_edge_tail_agg_bwd.cu",
+        "replaces": "magnet_tpu/ops/pallas_kernels.py:1665",
+        "launches": train_launches_bwd, "max_abs_err": bwd_err,
+        "ms": bwd_ms, "plain_ms": bwd_plain_ms,
+        "bound_ms": bnd_bwd["bound_ms"], "bound_by": bnd_bwd["bound_by"],
+        "library_ms": None, "ok": bwd_ok and train_ok}]})
+    if not train_ok:
+        return 5
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

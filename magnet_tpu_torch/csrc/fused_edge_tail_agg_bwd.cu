@@ -1,0 +1,595 @@
+// Fused InteractionNetwork edge pipeline, backward, fold-e form, f32.
+//
+// Replaces the TPU kernel magnet_tpu/ops/pallas_kernels.py:_fused2r_bwd_pallas
+// as _make_fused2r(fold_e=True).bwd calls it (public entry
+// fused_edge_tail_agg2rf).  The oracle is autodiff of _fused2re_ref_impl.
+//
+// Given the forward's operands and g (N, C), for every edge j -> i of a
+// receiver-grouped CSR graph it recomputes
+//
+//     z = e0[e] . W_e + b_e + pxj[j] + pxi[i];  h_0 = relu(z)
+//     h_k = relu(h_{k-1} . W_k + b_k)  for k = 1..L1
+//     y = h_L1 . W_out + b_out;  xhat = (y - mean) * rstd   (eps 1e-5)
+//
+// and returns, all f32:
+//     d_e0 (E, Ce) = dz . W_e^T          d_pxj[j] (N, H) += dz
+//     d_pxi[i] (N, H) += dz              and, packed into one buffer,
+//     dW_e, db_e, dW_k, db_k, dW_out, db_out, d_ln_s, d_ln_b.
+// relu's derivative at 0 is 0; a receiver of degree 0 has no edge, so its
+// d_pxi row stays 0.  No (E, H) array is written to device memory: the
+// activations are recomputed per tile in shared memory.
+//
+// Design.  The backward is three matrix products per layer (recompute, data
+// gradient, weight gradient), so it is written as tiled products, not as
+// one lane per edge (a lane that kept every layer's activation would need
+// 4 x 64 registers and spill):
+//   * a block of 256 threads (16 x 16) owns a tile of 64 consecutive CSR
+//     edges; tiles need not align with receivers, each edge finds its
+//     receiver by a binary search in rowptr;
+//   * all weights (67 KB) and the tile's activations h_0..h_L1 (65-float
+//     rows, so that row and column reads are both free of bank conflicts)
+//     live in dynamic shared memory, ~185 KB at L1 = 3: one block per SM;
+//   * every thread computes a 4 x 4 (or 4 x 2) register tile of each
+//     product; da_k overwrites the buffer of h_{k+1}, which is dead by then;
+//   * weight gradients: each thread keeps its 4 x 4 patch of every dW in
+//     registers across all tiles of its (persistent) block, so there are no
+//     shared-memory atomics and no per-warp reduction; a block writes its
+//     partial sums once, and a second small kernel in this file adds the
+//     blocks' partials in a fixed order, so the weight gradients are the
+//     same from run to run;
+//   * d_pxj is scattered over senders with f32 atomicAdd into a zeroed
+//     buffer; d_pxi is summed over each run of equal receivers inside a
+//     quarter tile and then added with one atomicAdd per run.  Both
+//     therefore differ in the last bits from run to run.
+//
+// What bounds it on an H100: recompute, data and weight gradients are each
+// the forward's 16,384 multiply-adds per edge (Ce = 32, H = 64, L1 = 3,
+// C = 32), 2 x E x 49,152 FLOP on the f32 CUDA cores, against e0 read and
+// d_e0 written once: bound by operations.  Each product step makes 8
+// shared-memory loads for 16 FMAs, so the shared-memory pipe, not the FMA
+// pipe, is the limit of this first version; wgmma is left for later.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
+//        -Xcompiler -fPIC (magnet_tpu_torch/ops/fused_edge.py does this).
+
+#include <cuda_runtime.h>
+
+#include <atomic>
+
+namespace {
+
+constexpr int kTE = 64;          // edges per tile
+constexpr int kThreads = 256;    // tx = tid & 15, ty = tid >> 4
+constexpr int kRows = kTE / 16;  // tile rows per thread
+constexpr float kLnEps = 1e-5f;
+
+// Offsets, in floats, into dynamic shared memory and into the packed
+// weight-gradient buffer.
+template <int CE, int H, int C, int L1>
+struct Layout {
+  static constexpr int ldE = CE + 1, ldH = H + 1, ldC = C + 1;
+  static constexpr int we = 0;                       // (CE, ldH)
+  static constexpr int wr = we + CE * ldH;           // (L1, H, ldH)
+  static constexpr int wo = wr + L1 * H * ldH;       // (H, ldC)
+  static constexpr int be = wo + H * ldC;            // (H)
+  static constexpr int br = be + H;                  // (L1, H)
+  static constexpr int bo = br + L1 * H;             // (C)
+  static constexpr int ls = bo + C;                  // (C)
+  static constexpr int e0 = ls + C;                  // (kTE, ldE)
+  static constexpr int act = e0 + kTE * ldE;         // (L1 + 2, kTE, ldH)
+  static constexpr int y = act + (L1 + 2) * kTE * ldH;  // (kTE, ldC)
+  static constexpr int gx = y + kTE * ldC;           // (kTE, ldC) g * xhat
+  static constexpr int gg = gx + kTE * ldC;          // (kTE, ldC) g
+  static constexpr int snd = gg + kTE * ldC;         // (kTE) int
+  static constexpr int rcv = snd + kTE;              // (kTE) int
+  static constexpr int smem_floats = rcv + kTE;
+
+  static constexpr int g_we = 0;
+  static constexpr int g_be = g_we + CE * H;
+  static constexpr int g_wr = g_be + H;
+  static constexpr int g_br = g_wr + L1 * H * H;
+  static constexpr int g_wo = g_br + L1 * H;
+  static constexpr int g_bo = g_wo + H * C;
+  static constexpr int g_ls = g_bo + C;
+  static constexpr int g_lb = g_ls + C;
+  static constexpr int g_total = g_lb + C;
+};
+
+// out(e, n) <- act(init(e, n) + sum_k A[e][k] * W[k][n]) for the thread's
+// rows e = ty + 16 i and columns n = tx + 16 j.
+template <int K, int N, bool RELU, class Init, class Store>
+__device__ __forceinline__ void mm_fwd(const float* __restrict__ A, int lda,
+                                       const float* __restrict__ W, int ldw,
+                                       Init init, Store store, int tx,
+                                       int ty) {
+  constexpr int NJ = N / 16;
+  float acc[kRows][NJ];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) acc[i][j] = init(ty + 16 * i, tx + 16 * j);
+#pragma unroll 8
+  for (int k = 0; k < K; ++k) {
+    float a[kRows], w[NJ];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) a[i] = A[(ty + 16 * i) * lda + k];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) w[j] = W[k * ldw + tx + 16 * j];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
+  }
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      store(ty + 16 * i, tx + 16 * j,
+            RELU ? fmaxf(acc[i][j], 0.f) : acc[i][j]);
+}
+
+// store(e, k, sum_n DA[e][n] * W[k][n]) for rows e = ty + 16 i and
+// k = tx + 16 j: the product with the transposed weight.
+template <int K, int N, class Store>
+__device__ __forceinline__ void mm_bwd_data(const float* __restrict__ DA,
+                                            int ldd,
+                                            const float* __restrict__ W,
+                                            int ldw, Store store, int tx,
+                                            int ty) {
+  constexpr int KJ = K / 16;
+  float acc[kRows][KJ];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) acc[i][j] = 0.f;
+#pragma unroll 8
+  for (int n = 0; n < N; ++n) {
+    float d[kRows], w[KJ];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) d[i] = DA[(ty + 16 * i) * ldd + n];
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) w[j] = W[(tx + 16 * j) * ldw + n];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int j = 0; j < KJ; ++j) acc[i][j] = fmaf(d[i], w[j], acc[i][j]);
+  }
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+#pragma unroll
+    for (int j = 0; j < KJ; ++j) store(ty + 16 * i, tx + 16 * j, acc[i][j]);
+}
+
+// acc[i][j] += sum_e A[e][ty + 16 i] * DA[e][tx + 16 j] over the tile, and
+// bacc[j] += sum_e DA[e][tx + 16 j] (the bias gradient; rows ty == 0 keep it).
+template <int K, int N>
+__device__ __forceinline__ void mm_bwd_w(const float* __restrict__ A, int lda,
+                                         const float* __restrict__ DA,
+                                         int ldd, float (&acc)[K / 16][N / 16],
+                                         float (&bacc)[N / 16], int tx,
+                                         int ty) {
+#pragma unroll 8
+  for (int e = 0; e < kTE; ++e) {
+    float a[K / 16], d[N / 16];
+#pragma unroll
+    for (int i = 0; i < K / 16; ++i) a[i] = A[e * lda + ty + 16 * i];
+#pragma unroll
+    for (int j = 0; j < N / 16; ++j) {
+      d[j] = DA[e * ldd + tx + 16 * j];
+      bacc[j] += d[j];
+    }
+#pragma unroll
+    for (int i = 0; i < K / 16; ++i)
+#pragma unroll
+      for (int j = 0; j < N / 16; ++j) acc[i][j] = fmaf(a[i], d[j], acc[i][j]);
+  }
+}
+
+template <int CE, int H, int C, int L1>
+__global__ void __launch_bounds__(kThreads, 1)
+fused_edge_tail_agg_bwd_kernel(
+    const float* __restrict__ e0, const float* __restrict__ we,
+    const float* __restrict__ be, const float* __restrict__ pxj,
+    const float* __restrict__ pxi, const int* __restrict__ senders,
+    const int* __restrict__ rowptr, const float* __restrict__ w_rest,
+    const float* __restrict__ b_rest, const float* __restrict__ w_out,
+    const float* __restrict__ b_out, const float* __restrict__ ln_s,
+    const float* __restrict__ g, float* __restrict__ d_e0,
+    float* __restrict__ d_pxj, float* __restrict__ d_pxi,
+    float* __restrict__ partial, int n_nodes, int n_edges) {
+  using L = Layout<CE, H, C, L1>;
+  static_assert(CE % 16 == 0 && H % 16 == 0 && C % 16 == 0,
+                "widths must be multiples of 16 (16 x 16 thread grid)");
+  static_assert(kTE * 4 == kThreads && C % 4 == 0,
+                "LayerNorm phase: four threads per edge");
+  static_assert(kThreads % H == 0 && kTE % (kThreads / H) == 0,
+                "d_pxi phase: one column per thread, equal edge ranges");
+  static_assert(2 * C <= kThreads, "LayerNorm column sums");
+  constexpr int ldE = L::ldE, ldH = L::ldH, ldC = L::ldC;
+  constexpr int NL = L1 > 0 ? L1 : 1;
+
+  extern __shared__ float smem[];
+  float* s_we = smem + L::we;
+  float* s_wr = smem + L::wr;
+  float* s_wo = smem + L::wo;
+  float* s_be = smem + L::be;
+  float* s_br = smem + L::br;
+  float* s_bo = smem + L::bo;
+  float* s_ls = smem + L::ls;
+  float* s_e0 = smem + L::e0;
+  float* s_act = smem + L::act;
+  float* s_y = smem + L::y;
+  float* s_gx = smem + L::gx;
+  float* s_gg = smem + L::gg;
+  int* s_snd = reinterpret_cast<int*>(smem + L::snd);
+  int* s_rcv = reinterpret_cast<int*>(smem + L::rcv);
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;
+
+  for (int k = tid; k < CE * H; k += kThreads)
+    s_we[(k / H) * ldH + k % H] = we[k];
+  for (int k = tid; k < L1 * H * H; k += kThreads)
+    s_wr[(k / H) * ldH + k % H] = w_rest[k];
+  for (int k = tid; k < H * C; k += kThreads)
+    s_wo[(k / C) * ldC + k % C] = w_out[k];
+  for (int k = tid; k < H; k += kThreads) s_be[k] = be[k];
+  for (int k = tid; k < L1 * H; k += kThreads) s_br[k] = b_rest[k];
+  for (int k = tid; k < C; k += kThreads) {
+    s_bo[k] = b_out[k];
+    s_ls[k] = ln_s[k];
+  }
+  __syncthreads();
+
+  // the thread's patches of the weight gradients, summed over its tiles
+  float acc_we[CE / 16][H / 16], acc_be[H / 16];
+  float acc_wr[NL][H / 16][H / 16], acc_br[NL][H / 16];
+  float acc_wo[H / 16][C / 16], acc_bo[C / 16];
+  float acc_ln = 0.f;  // tid < C: d_ln_s[tid]; tid < 2C: d_ln_b[tid - C]
+#pragma unroll
+  for (int j = 0; j < H / 16; ++j) {
+    acc_be[j] = 0.f;
+#pragma unroll
+    for (int i = 0; i < CE / 16; ++i) acc_we[i][j] = 0.f;
+#pragma unroll
+    for (int l = 0; l < NL; ++l) {
+      acc_br[l][j] = 0.f;
+#pragma unroll
+      for (int i = 0; i < H / 16; ++i) acc_wr[l][i][j] = 0.f;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < C / 16; ++j) {
+    acc_bo[j] = 0.f;
+#pragma unroll
+    for (int i = 0; i < H / 16; ++i) acc_wo[i][j] = 0.f;
+  }
+
+  const int n_tiles = (n_edges + kTE - 1) / kTE;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int base = tile * kTE;
+    const int n_valid = min(kTE, n_edges - base);
+
+    // the tile's indices and edge latents; rows past the end are zero
+    if (tid < kTE) {
+      int sv = 0, rv = 0;
+      if (tid < n_valid) {
+        const int e = base + tid;
+        sv = senders[e];
+        int lo = 0, hi = n_nodes;  // rowptr[lo] <= e < rowptr[hi]
+        while (hi - lo > 1) {
+          const int mid = (lo + hi) >> 1;
+          if (rowptr[mid] <= e) lo = mid; else hi = mid;
+        }
+        rv = lo;
+      }
+      s_snd[tid] = sv;
+      s_rcv[tid] = rv;
+    }
+    for (int k = tid; k < kTE * CE; k += kThreads) {
+      const int r = k / CE, c = k % CE;
+      s_e0[r * ldE + c] = r < n_valid ? e0[(size_t)(base + r) * CE + c] : 0.f;
+    }
+    __syncthreads();
+
+    // recompute: h_0 = relu(e0 . W_e + b_e + pxj[j] + pxi[i])
+    {
+      float* out = s_act;
+      mm_fwd<CE, H, true>(
+          s_e0, ldE, s_we, ldH,
+          [&](int e, int n) {
+            return e < n_valid ? s_be[n] + pxj[(size_t)s_snd[e] * H + n] +
+                                     pxi[(size_t)s_rcv[e] * H + n]
+                               : 0.f;
+          },
+          [&](int e, int n, float v) { out[e * ldH + n] = v; }, tx, ty);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 1; k <= L1; ++k) {
+      const float* b = s_br + (k - 1) * H;
+      float* out = s_act + k * kTE * ldH;
+      mm_fwd<H, H, true>(
+          s_act + (k - 1) * kTE * ldH, ldH, s_wr + (k - 1) * H * ldH, ldH,
+          [&](int, int n) { return b[n]; },
+          [&](int e, int n, float v) { out[e * ldH + n] = v; }, tx, ty);
+      __syncthreads();
+    }
+    mm_fwd<H, C, false>(
+        s_act + L1 * kTE * ldH, ldH, s_wo, ldC,
+        [&](int, int c) { return s_bo[c]; },
+        [&](int e, int c, float v) { s_y[e * ldC + c] = v; }, tx, ty);
+    __syncthreads();
+
+    // LayerNorm backward, four threads per edge: y -> dy in place, and the
+    // tile's g and g * xhat for the scale and bias gradients
+    {
+      constexpr int CP = C / 4;
+      const int e = tid >> 2, c0 = (tid & 3) * CP;
+      float* yr = s_y + e * ldC + c0;
+      float v[CP], dx[CP];
+      float mu = 0.f;
+#pragma unroll
+      for (int c = 0; c < CP; ++c) {
+        v[c] = yr[c];
+        mu += v[c];
+      }
+      mu += __shfl_xor_sync(0xffffffffu, mu, 1);
+      mu += __shfl_xor_sync(0xffffffffu, mu, 2);
+      mu *= 1.f / C;
+      float var = 0.f;
+#pragma unroll
+      for (int c = 0; c < CP; ++c) {
+        const float d = v[c] - mu;
+        var = fmaf(d, d, var);
+      }
+      var += __shfl_xor_sync(0xffffffffu, var, 1);
+      var += __shfl_xor_sync(0xffffffffu, var, 2);
+      var *= 1.f / C;
+      const float rstd = rsqrtf(var + kLnEps);
+      const bool valid = e < n_valid;
+      const float* gp = g + (size_t)s_rcv[e] * C + c0;
+      float m1 = 0.f, m2 = 0.f;
+#pragma unroll
+      for (int c = 0; c < CP; ++c) {
+        const float gv = valid ? gp[c] : 0.f;
+        const float xh = (v[c] - mu) * rstd;
+        dx[c] = gv * s_ls[c0 + c];
+        m1 += dx[c];
+        m2 = fmaf(dx[c], xh, m2);
+        s_gx[e * ldC + c0 + c] = gv * xh;
+        s_gg[e * ldC + c0 + c] = gv;
+        v[c] = xh;
+      }
+      m1 += __shfl_xor_sync(0xffffffffu, m1, 1);
+      m1 += __shfl_xor_sync(0xffffffffu, m1, 2);
+      m2 += __shfl_xor_sync(0xffffffffu, m2, 1);
+      m2 += __shfl_xor_sync(0xffffffffu, m2, 2);
+      m1 *= 1.f / C;
+      m2 *= 1.f / C;
+#pragma unroll
+      for (int c = 0; c < CP; ++c) yr[c] = rstd * (dx[c] - m1 - v[c] * m2);
+    }
+    __syncthreads();
+
+    // output layer: dW_out, db_out, d_ln_s, d_ln_b, and
+    // da_L1 = (dy . W_out^T) where h_L1 > 0, into the spare buffer
+    {
+      const float* h = s_act + L1 * kTE * ldH;
+      float* out = s_act + (L1 + 1) * kTE * ldH;
+      mm_bwd_w<H, C>(h, ldH, s_y, ldC, acc_wo, acc_bo, tx, ty);
+      if (tid < 2 * C) {
+        const float* src = (tid < C ? s_gx : s_gg) + tid % C;
+        float s = 0.f;
+        for (int e = 0; e < kTE; ++e) s += src[e * ldC];
+        acc_ln += s;
+      }
+      mm_bwd_data<H, C>(
+          s_y, ldC, s_wo, ldC,
+          [&](int e, int k, float v) {
+            out[e * ldH + k] = h[e * ldH + k] > 0.f ? v : 0.f;
+          },
+          tx, ty);
+    }
+    __syncthreads();
+
+    // tail layers, last to first; da_k sits in the buffer of h_{k+1}
+#pragma unroll
+    for (int k = L1; k >= 1; --k) {
+      const float* h = s_act + (k - 1) * kTE * ldH;
+      const float* da = s_act + (k + 1) * kTE * ldH;
+      float* out = s_act + k * kTE * ldH;
+      mm_bwd_w<H, H>(h, ldH, da, ldH, acc_wr[k - 1], acc_br[k - 1], tx, ty);
+      mm_bwd_data<H, H>(
+          da, ldH, s_wr + (k - 1) * H * ldH, ldH,
+          [&](int e, int n, float v) {
+            out[e * ldH + n] = h[e * ldH + n] > 0.f ? v : 0.f;
+          },
+          tx, ty);
+      __syncthreads();
+    }
+
+    // first layer: dz = da_0
+    {
+      const float* dz = s_act + kTE * ldH;
+      mm_bwd_w<CE, H>(s_e0, ldE, dz, ldH, acc_we, acc_be, tx, ty);
+      mm_bwd_data<CE, H>(
+          dz, ldH, s_we, ldH,
+          [&](int e, int c, float v) {
+            if (e < n_valid) d_e0[(size_t)(base + e) * CE + c] = v;
+          },
+          tx, ty);
+      for (int k = tid; k < n_valid * H; k += kThreads) {
+        const int e = k / H, n = k % H;
+        atomicAdd(d_pxj + (size_t)s_snd[e] * H + n, dz[e * ldH + n]);
+      }
+      constexpr int kPart = kTE / (kThreads / H);
+      const int n = tid % H;
+      const int e_beg = (tid / H) * kPart;
+      const int e_end = min(e_beg + kPart, n_valid);
+      if (e_beg < e_end) {
+        int cur = s_rcv[e_beg];
+        float s = 0.f;
+        for (int e = e_beg; e < e_end; ++e) {
+          const int r = s_rcv[e];
+          if (r != cur) {
+            atomicAdd(d_pxi + (size_t)cur * H + n, s);
+            s = 0.f;
+            cur = r;
+          }
+          s += dz[e * ldH + n];
+        }
+        atomicAdd(d_pxi + (size_t)cur * H + n, s);
+      }
+    }
+    __syncthreads();
+  }
+
+  // this block's partial weight gradients, in the packed layout
+  float* p = partial + (size_t)blockIdx.x * L::g_total;
+#pragma unroll
+  for (int j = 0; j < H / 16; ++j) {
+    const int n = tx + 16 * j;
+#pragma unroll
+    for (int i = 0; i < CE / 16; ++i)
+      p[L::g_we + (ty + 16 * i) * H + n] = acc_we[i][j];
+    if (ty == 0) p[L::g_be + n] = acc_be[j];
+#pragma unroll
+    for (int l = 0; l < L1; ++l) {
+#pragma unroll
+      for (int i = 0; i < H / 16; ++i)
+        p[L::g_wr + (l * H + ty + 16 * i) * H + n] = acc_wr[l][i][j];
+      if (ty == 0) p[L::g_br + l * H + n] = acc_br[l][j];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < C / 16; ++j) {
+    const int c = tx + 16 * j;
+#pragma unroll
+    for (int i = 0; i < H / 16; ++i)
+      p[L::g_wo + (ty + 16 * i) * C + c] = acc_wo[i][j];
+    if (ty == 0) p[L::g_bo + c] = acc_bo[j];
+  }
+  if (tid < C)
+    p[L::g_ls + tid] = acc_ln;
+  else if (tid < 2 * C)
+    p[L::g_lb + tid - C] = acc_ln;
+}
+
+// wgrad[p] = sum over blocks, in block order, of partial[b][p].
+__global__ void reduce_partials_kernel(const float* __restrict__ partial,
+                                       float* __restrict__ wgrad,
+                                       int n_blocks, int total) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= total) return;
+  float s = 0.f;
+  for (int b = 0; b < n_blocks; ++b) s += partial[(size_t)b * total + p];
+  wgrad[p] = s;
+}
+
+constexpr int kMaxDevices = 64;
+
+// The persistent grid's size (SMs x resident blocks per SM) on the current
+// device.  The shared-memory opt-in and the device queries run once per
+// device and instantiation; later launches read the cache.
+template <int CE, int H, int C, int L1>
+cudaError_t grid_cap(size_t smem_bytes, int* cap) {
+  static std::atomic<int> cache[kMaxDevices];  // 0: unset
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const bool cached = device < kMaxDevices;
+  if (cached && (*cap = cache[device].load(std::memory_order_relaxed)) > 0)
+    return cudaSuccess;
+  auto kernel = fused_edge_tail_agg_bwd_kernel<CE, H, C, L1>;
+  int optin = 0, n_sm = 0, per_sm = 0;
+  if ((err = cudaDeviceGetAttribute(
+           &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device)) !=
+      cudaSuccess)
+    return err;
+  if (smem_bytes > (size_t)optin) return cudaErrorInvalidValue;
+  if ((err = cudaFuncSetAttribute(
+           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+           (int)smem_bytes)) != cudaSuccess)
+    return err;
+  if ((err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
+                                    device)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, kThreads, smem_bytes)) != cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *cap = n_sm * per_sm;
+  if (cached) cache[device].store(*cap, std::memory_order_relaxed);
+  return cudaSuccess;
+}
+
+template <int CE, int H, int C, int L1>
+int launch(const float* e0, const float* we, const float* be,
+           const float* pxj, const float* pxi, const int* senders,
+           const int* rowptr, const float* w_rest, const float* b_rest,
+           const float* w_out, const float* b_out, const float* ln_s,
+           const float* g, float* d_e0, float* d_pxj, float* d_pxi,
+           float* wgrad, float* partial, int n_nodes, int n_edges,
+           int scratch_blocks, cudaStream_t stream) {
+  using L = Layout<CE, H, C, L1>;
+  const size_t smem_bytes = sizeof(float) * (size_t)L::smem_floats;
+  int cap = 0;
+  const cudaError_t err = grid_cap<CE, H, C, L1>(smem_bytes, &cap);
+  if (err != cudaSuccess) return (int)err;
+  const int n_tiles = (n_edges + kTE - 1) / kTE;
+  int blocks = n_tiles < cap ? n_tiles : cap;
+  if (blocks > scratch_blocks) blocks = scratch_blocks;
+  if (n_tiles > 0 && blocks < 1) return (int)cudaErrorInvalidValue;
+  if (n_nodes == 0) blocks = 0;
+  if (blocks > 0) {
+    fused_edge_tail_agg_bwd_kernel<CE, H, C, L1>
+        <<<blocks, kThreads, smem_bytes, stream>>>(
+            e0, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest, w_out,
+            b_out, ln_s, g, d_e0, d_pxj, d_pxi, partial, n_nodes, n_edges);
+    const cudaError_t launched = cudaGetLastError();
+    if (launched != cudaSuccess) return (int)launched;
+  }
+  reduce_partials_kernel<<<(L::g_total + 255) / 256, 256, 0, stream>>>(
+      partial, wgrad, blocks, L::g_total);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Returns a cudaError_t; 0 is success.  Launches on `stream` and does not
+// synchronise.  d_pxj and d_pxi must arrive zeroed; wgrad holds, packed,
+// dW_e (ce, h), db_e (h), dW_rest (l1, h, h), db_rest (l1, h), dW_out
+// (h, c), db_out (c), d_ln_s (c), d_ln_b (c); partial is scratch for
+// scratch_blocks x that many floats.  Compiled for (ce, h, c) =
+// (32, 64, 32) and l1 in 0..3; others return cudaErrorInvalidValue.
+int fused_edge_tail_agg_bwd_f32(
+    const float* e0, const float* we, const float* be, const float* pxj,
+    const float* pxi, const int* senders, const int* rowptr,
+    const float* w_rest, const float* b_rest, const float* w_out,
+    const float* b_out, const float* ln_s, const float* g, float* d_e0,
+    float* d_pxj, float* d_pxi, float* wgrad, float* partial, int n_nodes,
+    int n_edges, int ce, int h, int c, int l1, int scratch_blocks,
+    void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ce != 32 || h != 64 || c != 32) return (int)cudaErrorInvalidValue;
+#define MAGNET_BWD_CASE(L1V)                                               \
+  case L1V:                                                                \
+    return launch<32, 64, 32, L1V>(e0, we, be, pxj, pxi, senders, rowptr,  \
+                                   w_rest, b_rest, w_out, b_out, ln_s, g,  \
+                                   d_e0, d_pxj, d_pxi, wgrad, partial,     \
+                                   n_nodes, n_edges, scratch_blocks, s)
+  switch (l1) {
+    MAGNET_BWD_CASE(0);
+    MAGNET_BWD_CASE(1);
+    MAGNET_BWD_CASE(2);
+    MAGNET_BWD_CASE(3);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef MAGNET_BWD_CASE
+}
+
+}  // extern "C"

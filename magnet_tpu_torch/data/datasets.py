@@ -1,0 +1,93 @@
+"""Datasets with the reference reader's semantics (counterpart of
+``magnet_tpu/data/datasets.py:48-159``); MAgNet[CNN] 1D's so far.
+
+A split comes from an HDF5 file (group ``train``/``valid``/``test`` with
+``t`` and ``pde_<nt>-<nx>``; ``h5py`` is imported only when a file is
+read, and the split is read into memory whole) or from arrays already in
+memory, ``{"t", "pde_<nt>-<nx>"}``, as ``data.synthetic.make_split`` makes
+them.  ``__getitem__`` returns a dict of numpy arrays.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from magnet_tpu_torch.ops.interp import interpolate_linear_1d
+from magnet_tpu_torch.utils import make_coord_np
+
+MODES = ("train", "valid", "test")
+
+
+def read_h5_split(path: str, mode: str) -> dict:
+    """Every dataset of group ``mode`` of an HDF5 file, as numpy arrays."""
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        return {k: f[mode][k][:] for k in f[mode].keys()}
+
+
+class DatasetImplicit1D:
+    """MAgNet[CNN] samples: a half-resolution support (linear resize to
+    L//2) and HR queries.  Train mode draws ``samples`` sorted query
+    indices without replacement from the dataset's generator ('uniform',
+    or 'boundary': softmax weights growing towards both ends).  Eval modes
+    query every point; ``eval_support='full'`` makes the support the full
+    mesh too."""
+
+    def __init__(self, source, mode: str, nt: int, nx: int,
+                 sampling: str = "uniform", samples: int = 256,
+                 eval_support: str = "lr"):
+        if mode not in MODES:
+            raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+        if sampling not in ("uniform", "boundary"):
+            raise ValueError(f"unknown sampling {sampling!r}")
+        self.mode = mode
+        self.key = f"pde_{nt}-{nx}"
+        self.data = source if isinstance(source, dict) \
+            else read_h5_split(source, mode)
+        if self.key not in self.data:
+            raise KeyError(f"{self.key} not in the {mode} split "
+                           f"(it holds {sorted(self.data)})")
+        self.samples = samples
+        self.sampling = sampling
+        self.eval_support = eval_support
+        self.rng = np.random.default_rng(0)
+
+    def set_epoch(self, seed: int):
+        self.rng = np.random.default_rng(seed)
+
+    def __len__(self):
+        return self.data[self.key].shape[0]
+
+    def __getitem__(self, idx):
+        t = np.asarray(self.data["t"][idx], np.float32)
+        u_hr = np.asarray(self.data[self.key][idx], np.float32)[:, None, :]
+        L = u_hr.shape[-1]                                    # u_hr (T, 1, L)
+        full = self.mode != "train" and self.eval_support == "full"
+        u_lr = u_hr if full else interpolate_linear_1d(
+            torch.from_numpy(u_hr), L // 2).numpy()
+
+        full_coord = make_coord_np([L])                       # (L, 1)
+        if self.mode != "train":
+            sample_lst = np.arange(L)
+        elif self.sampling == "uniform":
+            sample_lst = np.sort(self.rng.choice(L, self.samples, replace=False))
+        else:
+            logits = (np.abs(np.arange(L) - L // 2) / L) ** 2 / 0.1
+            p = np.exp(logits - logits.max())
+            p = p / p.sum()
+            sample_lst = np.sort(
+                self.rng.choice(L, self.samples, p=p, replace=False))
+
+        hr_coord = full_coord[sample_lst]
+        out = {
+            "t": t,
+            "lr_frames": u_lr,
+            "hr_frames": u_hr,
+            "hr_points": u_hr[:, 0, sample_lst][:, :, None],   # (T, n, 1)
+            "coords": hr_coord,
+            "cells": np.full_like(hr_coord, 2.0 / L),
+        }
+        if self.mode == "train":
+            out["sample_idx"] = sample_lst.astype(np.int64)
+        return out

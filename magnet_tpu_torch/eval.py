@@ -3,7 +3,9 @@
 
 Usage (on the card; ``device=cpu`` runs the plain PyTorch path):
   python -m magnet_tpu_torch.eval [seed=0] [n_traj=16] [batch_size=16] \\
-      [device=cuda] [magnet_cnn_key=value ...]
+      [device=cuda] [ckpt=runs/x/checkpoints/best.pt] [magnet_cnn_key=value ...]
+
+Without ``ckpt`` a fresh initialisation is evaluated.
 """
 from __future__ import annotations
 
@@ -11,16 +13,13 @@ import json
 import sys
 
 import numpy as np
-import torch
 
 from magnet_tpu_torch.config import HEAT_TEST, MAGNET_CNN, parse_overrides
 from magnet_tpu_torch.data.heat import heat_batches
 from magnet_tpu_torch.models.common import nrmse
 from magnet_tpu_torch.models.factory import create_model, resolve_device
-
-
-def to_device(batch: dict, device) -> dict:
-    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+from magnet_tpu_torch.train.checkpoint import load_checkpoint
+from magnet_tpu_torch.utils import to_device
 
 
 def evaluate(model, batches, device="cuda", return_predictions: bool = False):
@@ -50,13 +49,17 @@ def evaluate(model, batches, device="cuda", return_predictions: bool = False):
 
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
-    run_keys = {"seed": 0, "n_traj": 16, "batch_size": 16, "device": "cuda"}
+    run_keys = {"seed": 0, "n_traj": 16, "batch_size": 16, "device": "cuda",
+                "ckpt": ""}
     run = parse_overrides(
         [a for a in argv if a.split("=")[0] in run_keys], run_keys)
     hp = parse_overrides(
         [a for a in argv if a.split("=")[0] not in run_keys], MAGNET_CNN)
     model = create_model("magnet_cnn", hp, device=run["device"],
                          seed=run["seed"])
+    if run["ckpt"]:
+        state, _ = load_checkpoint(run["ckpt"], require=("model",))
+        model.load_state_dict(state["model"])
     batches = heat_batches(run["n_traj"], run["batch_size"],
                            nt=HEAT_TEST["nt"], nx=HEAT_TEST["nx"],
                            seed=run["seed"])

@@ -1,4 +1,4 @@
-"""Shared model plumbing: the loss, nRMSE and time windows (counterpart of
+"""Shared model plumbing: the losses, nRMSE and time windows (counterpart of
 ``magnet_tpu/models/common.py:85-116, 289-295``)."""
 from __future__ import annotations
 
@@ -9,7 +9,16 @@ def l1_loss(pred, target):
     return torch.mean(torch.abs(pred - target))
 
 
-LOSSES = {"l1": l1_loss}
+def l2_loss(pred, target):
+    return torch.mean((pred - target) ** 2)
+
+
+def smooth_l1_loss(pred, target, beta: float = 1.0):
+    d = torch.abs(pred - target)
+    return torch.mean(torch.where(d < beta, 0.5 * d * d / beta, d - 0.5 * beta))
+
+
+LOSSES = {"l1": l1_loss, "l2": l2_loss, "smooth_l1": smooth_l1_loss}
 
 
 def nrmse(pred, target, eps: float = 1e-12):

@@ -1,5 +1,6 @@
-"""MAgNet[CNN] 1D, the flagship model: forward and the no-teacher-forcing
-eval rollout (counterpart of ``magnet_tpu/models/magnet_cnn_1d.py``).
+"""MAgNet[CNN] 1D, the flagship model: forward, the rollout over windows
+with its three feedback branches, and the training and eval losses
+(counterpart of ``magnet_tpu/models/magnet_cnn_1d.py``).
 
 Per window: EDSR features of the stacked LR frames -> INR decoder at the HR
 query coords -> projector seeds HR values -> GraphNet (encoder, processor,
@@ -99,7 +100,7 @@ class MAgNetCNN1DCore(nn.Module):
 
 
 class MAgNetCNN1D(MAgNetCNN1DCore):
-    """Task wrapper: host graph building, the eval rollout and its loss.
+    """Task wrapper: host graph building, the rollout and its losses.
 
     Batch dict of tensors: t (B, nt), lr_frames (B, nt, 1, L), hr_points
     (B, nt, N, 1), coords (B, N, 1), cells (B, N, 1).
@@ -119,6 +120,7 @@ class MAgNetCNN1D(MAgNetCNN1DCore):
             res_layers=int(hp.get("res_layers", 4)),
         )
         self.radius = float(hp.get("radius", 0.08))
+        self.teacher_forcing = bool(hp.get("teacher_forcing", True))
         self.criterion = LOSSES[hp.get("loss", "l1")]
 
     def build_graph(self, batch) -> CSRGraph:
@@ -134,26 +136,45 @@ class MAgNetCNN1D(MAgNetCNN1DCore):
                                    loop=True)
         return graph.to(next(self.parameters()).device)
 
-    @torch.no_grad()
-    def predict(self, batch, graph: CSRGraph):
-        """No-teacher-forcing rollout (eval / super-resolution): each
-        window's input is its predecessor's HR output resampled to the LR
-        length.  Returns (hr_hat (B, n*ts, N, 1), lr_hat (B, n*ts, L, 1))."""
+    def _rollout(self, batch, graph: CSRGraph, teacher_forcing: bool,
+                 val_feedback: bool):
+        """One core call per window.  The next window's input is the ground
+        truth (``teacher_forcing``), else the HR output resampled to the LR
+        length (``val_feedback``), else the LR output.  Returns (hr_seq
+        (B, n*ts, N, 1), lr_seq (B, n*ts, L, 1), pts_seq (B, n*ts, N, 1))."""
         ts = self.time_slice
         u, uv, t = batch["lr_frames"], batch["hr_points"], batch["t"]
         L = u.shape[-1]
         n_win = (u.shape[1] - ts) // ts
         t_win = time_windows(t, n_win, ts)                         # (B, n, 2ts)
         inp, hr_last = u[:, :ts], uv[:, ts - 1]
-        hr_seq, lr_seq = [], []
+        hr_seq, lr_seq, pts_seq = [], [], []
         for w in range(n_win):
-            out_hr, out_lr, _ = self(inp, batch["coords"], batch["cells"],
-                                     t_win[:, w], hr_last, graph)
-            inp = interpolate_linear_1d(out_hr[..., 0], L)[:, :, None, :]
-            hr_last = out_hr[:, -1]
+            out_hr, out_lr, hr_pts = self(inp, batch["coords"], batch["cells"],
+                                          t_win[:, w], hr_last, graph)
+            if teacher_forcing:
+                inp = u[:, (w + 1) * ts:(w + 2) * ts]
+                hr_last = uv[:, (w + 2) * ts - 1]
+            elif val_feedback:
+                inp = interpolate_linear_1d(out_hr[..., 0], L)[:, :, None, :]
+                hr_last = out_hr[:, -1]
+            else:
+                inp = out_lr.transpose(2, 3)                       # (B, T, 1, L)
+                hr_last = out_hr[:, -1]
             hr_seq.append(out_hr)
             lr_seq.append(out_lr)
-        return torch.cat(hr_seq, dim=1), torch.cat(lr_seq, dim=1)
+            pts_seq.append(hr_pts)
+        return (torch.cat(hr_seq, dim=1), torch.cat(lr_seq, dim=1),
+                torch.cat(pts_seq, dim=1))
+
+    @torch.no_grad()
+    def predict(self, batch, graph: CSRGraph):
+        """No-teacher-forcing rollout (eval / super-resolution): each
+        window's input is its predecessor's HR output resampled to the LR
+        length.  Returns (hr_hat (B, n*ts, N, 1), lr_hat (B, n*ts, L, 1))."""
+        hr_hat, lr_hat, _ = self._rollout(batch, graph, teacher_forcing=False,
+                                          val_feedback=True)
+        return hr_hat, lr_hat
 
     def rollout_target(self, batch, horizon: int):
         """Ground truth of the HR rollout: ``hr_points`` shifted by
@@ -167,9 +188,25 @@ class MAgNetCNN1D(MAgNetCNN1DCore):
         loss = self.criterion(hr_hat, target)
         return loss, {"loss": loss, "mae_loss": l1_loss(hr_hat, target)}
 
-    def loss(self, batch, graph: CSRGraph, train: bool = False):
-        """Eval loss of the rollout; training waits for the next slice."""
-        if train:
-            raise NotImplementedError("training is not ported yet")
-        hr_hat, _ = self.predict(batch, graph)
-        return self.eval_metrics(batch, hr_hat)
+    def loss(self, batch, graph: CSRGraph, train: bool = True):
+        """``train``: the differentiable training loss, the criterion on
+        the HR and LR outputs of every window plus the criterion on the
+        INR head's HR estimate of each window's own frames; metrics
+        ``loss``, ``mae_loss``, ``interp_loss``.  Otherwise the eval loss of
+        the no-teacher-forcing rollout, under ``no_grad``."""
+        if not train:
+            hr_hat, _ = self.predict(batch, graph)
+            return self.eval_metrics(batch, hr_hat)
+        ts = self.time_slice
+        u, uv = batch["lr_frames"], batch["hr_points"]
+        hr_hat, lr_hat, pts_hat = self._rollout(
+            batch, graph, self.teacher_forcing, val_feedback=False)
+        used = ts + hr_hat.shape[1]
+        y_hat = torch.cat([hr_hat, lr_hat], dim=2)
+        target = torch.cat([uv[:, ts:used], u[:, ts:used].transpose(2, 3)],
+                           dim=2)
+        interp_target = uv[:, :used - ts]
+        loss = self.criterion(y_hat, target) + self.criterion(pts_hat,
+                                                              interp_target)
+        return loss, {"loss": loss, "mae_loss": l1_loss(y_hat, target),
+                      "interp_loss": l1_loss(pts_hat, interp_target)}

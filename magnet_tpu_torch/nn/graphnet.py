@@ -1,5 +1,5 @@
 """GraphNet encoder / InteractionNetwork / processor / decoder (counterpart
-of ``magnet_tpu/nn/graphnet.py:39-470``), forward only.
+of ``magnet_tpu/nn/graphnet.py:39-470``).
 
 Every module works on one batch-flattened graph (``ops.graph.CSRGraph``):
 node rows (N, C) and edge rows (E, C) in receiver-CSR order.
@@ -49,7 +49,10 @@ class InteractionNetwork(nn.Module):
     The forward slices that weight: the x_i and x_j chunks are applied once
     to the N node rows (p_xi, p_xj) and gathered per edge inside the fused
     edge kernel, which also applies the e chunk to e0 (fold-e), runs the
-    tail MLP and LayerNorm and sums per receiver.
+    tail MLP and LayerNorm and sums per receiver.  The fused function is
+    differentiable in its float operands (its backward is a kernel too);
+    the gradient of the slicing, transposing, stacking and the edge scale
+    in ``edge_weights`` is autograd's.
     """
 
     def __init__(self, latent: int, mlp_layers: int, mlp_hidden: int):

@@ -1,9 +1,11 @@
-"""Fused InteractionNetwork edge pipeline (forward, fold-e form).
+"""Fused InteractionNetwork edge pipeline (fold-e form), forward and
+backward.
 
-``fused_edge_tail_agg`` is the port of the TPU kernel
-``magnet_tpu/ops/pallas_kernels.py:_fused2r_fwd_pallas`` as the JAX
-package calls it with ``we``/``be`` (``fused_edge_tail_agg2rf``).  Per edge
-j -> i of a receiver-grouped CSR graph it computes
+``fused_edge_tail_agg`` is the port of the JAX package's
+``fused_edge_tail_agg2rf`` (``magnet_tpu/ops/pallas_kernels.py``): the TPU
+kernels ``_fused2r_fwd_pallas`` and, for its gradient,
+``_fused2r_bwd_pallas``.  Per edge j -> i of a receiver-grouped CSR graph
+it computes
 
     z = e0·W_e + b_e + pxj[j] + pxi[i];  h = relu(z);
     h = relu(h·W_k + b_k) for each tail layer;  y = LN(h·W_out + b_out)
@@ -12,11 +14,15 @@ and returns out[i] = Σ y over the edges of i, (N, C) float32.  The mean
 over the degree is the caller's.
 
 * ``fused_edge_tail_agg_plain`` is the same function in plain PyTorch
-  (gather, MLP, ``index_add_``): the CPU path and the card-side reference.
-* On a CUDA tensor the wrapper launches the hand-written kernel
-  ``magnet_tpu_torch/csrc/fused_edge_tail_agg.cu`` (sm_90a, built with
+  (gather, MLP, ``index_add_``) and ``fused_edge_tail_agg_bwd_plain`` its
+  eleven gradients by autograd: the CPU path and the card-side reference.
+* On CUDA tensors the wrapper goes through ``FusedEdgeTailAgg``, a
+  ``torch.autograd.Function`` whose forward launches
+  ``csrc/fused_edge_tail_agg.cu`` and whose backward launches
+  ``csrc/fused_edge_tail_agg_bwd.cu`` (hand-written, sm_90a, built with
   ``nvcc`` into ``magnet_tpu_torch/_build/`` at first use, bound with
-  ``ctypes``) or raises.  Only CPU tensors take the plain version.
+  ``ctypes``), or raises.  Only CPU tensors take the plain version.  The
+  forward saves its operands and no activation: the backward recomputes.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -33,15 +40,28 @@ LN_EPS = 1e-5
 #: (Ce, H, C) widths the CUDA source is compiled for (magnet_cnn's).
 KERNEL_WIDTHS = {(32, 64, 32)}
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "fused_edge_tail_agg.cu"
+#: tail depths (L1) the backward CUDA source is compiled for.
+KERNEL_BWD_MAX_L1 = 3
+#: the eleven gradients of the backward, in the operands' order.
+GRAD_NAMES = ("e0", "we", "be", "pxj", "pxi", "w_rest", "b_rest", "w_out",
+              "b_out", "ln_s", "ln_b")
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+FWD, BWD = "fused_edge_tail_agg", "fused_edge_tail_agg_bwd"
 #: nvcc flags; the cached library's name hashes them with the source.
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
-_LIB = None
+_ARGTYPES = {
+    FWD: [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+    BWD: [ctypes.c_void_p] * 18 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+}
+_LIBS: dict = {}
 
-#: Kernel launches so far (the wrapper adds one per launch, nowhere else).
+#: Launches of the forward kernel so far (one per launch, nowhere else).
 launches = 0
+#: Launches of the backward kernel so far.
+launches_bwd = 0
 
 
 def _nvcc() -> str:
@@ -54,17 +74,19 @@ def _nvcc() -> str:
     return found
 
 
-def build() -> Path:
-    """Compile the kernel for sm_90a (once per source and flags) and return
-    the shared library's path."""
-    digest = hashlib.sha256(_SRC.read_bytes())
+def build(name: str = FWD) -> Path:
+    """Compile ``csrc/<name>.cu`` for sm_90a (once per source and flags)
+    and return the shared library's path; ptxas's report (registers,
+    spills) is kept beside it as ``<library stem>.ptxas.txt``."""
+    src = _CSRC / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes())
     digest.update("\0".join(_NVCC_FLAGS).encode())
-    lib = _BUILD_DIR / f"fused_edge_tail_agg_{digest.hexdigest()[:16]}.so"
+    lib = _BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
     if lib.exists():
         return lib
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)]
+    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(src)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(
@@ -74,15 +96,21 @@ def build() -> Path:
     return lib
 
 
-def _lib():
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        fn = lib.fused_edge_tail_agg_f32
-        fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+def build_all() -> dict[str, Path]:
+    """Build both kernels, one ``nvcc`` each, started together."""
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        futures = {name: pool.submit(build, name) for name in (FWD, BWD)}
+        return {name: f.result() for name, f in futures.items()}
+
+
+def _lib(name: str):
+    if name not in _LIBS:
+        lib = ctypes.CDLL(str(build(name)))
+        fn = getattr(lib, f"{name}_f32")
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+        _LIBS[name] = (lib, fn)  # the library stays referenced with it
+    return _LIBS[name][1]
 
 
 def fused_edge_tail_agg_plain(e0, we, be, pxj, pxi, senders, rowptr,
@@ -103,6 +131,23 @@ def fused_edge_tail_agg_plain(e0, we, be, pxj, pxi, senders, rowptr,
     y = (y - mu) * torch.rsqrt(var + LN_EPS) * ln_s + ln_b
     out = torch.zeros(n, y.shape[1], dtype=y.dtype, device=y.device)
     return out.index_add_(0, receivers, y)
+
+
+def fused_edge_tail_agg_bwd_plain(e0, we, be, pxj, pxi, senders, rowptr,
+                                  w_rest, b_rest, w_out, b_out, ln_s, ln_b,
+                                  g):
+    """Plain PyTorch version of the backward: the gradients of
+    ``sum(out * g)`` with respect to the eleven float operands, in
+    ``GRAD_NAMES`` order, by autograd through the plain forward."""
+    floats = [e0, we, be, pxj, pxi, w_rest, b_rest, w_out, b_out, ln_s, ln_b]
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_() for t in floats]
+        out = fused_edge_tail_agg_plain(*leaves[:5], senders, rowptr,
+                                        *leaves[5:])
+        grads = torch.autograd.grad(out, leaves, g, allow_unused=True)
+    # an operand with no element (w_rest, b_rest at L1 = 0) is unused
+    return tuple(torch.zeros_like(t) if d is None else d
+                 for t, d in zip(floats, grads))
 
 
 def _check(e0, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest, w_out,
@@ -138,40 +183,33 @@ def _check(e0, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest, w_out,
     return E, ce, h, c, l1, n
 
 
-def fused_edge_tail_agg(e0, we, be, pxj, pxi, senders, rowptr, w_rest,
-                        b_rest, w_out, b_out, ln_s, ln_b):
-    """Per-receiver sum of the fused edge MLP + LayerNorm, (N, C) f32.
+def _check_cuda(e0, widths, l1_max=None):
+    if e0.device.type != "cuda":
+        raise ValueError(f"no fused edge kernel for device {e0.device}")
+    ce, h, c, l1 = widths
+    if (ce, h, c) not in KERNEL_WIDTHS:
+        raise ValueError(
+            f"the CUDA kernels are compiled for (Ce, H, C) in "
+            f"{sorted(KERNEL_WIDTHS)}, got {(ce, h, c)}")
+    if l1_max is not None and l1 > l1_max:
+        raise ValueError(f"the backward CUDA kernel is compiled for at most "
+                         f"{l1_max} tail layers, got {l1}")
 
-    e0 (E, Ce) edge latents in receiver-CSR order; we (Ce, H) with any edge
-    scale already folded in, be (H,); pxj (N, H), pxi (N, H); senders (E,)
-    and rowptr (N+1,) int32; w_rest (L1, H, H), b_rest (L1, H); w_out
-    (H, C), b_out (C,); ln_s, ln_b (C,).  Weights are (in, out).
 
-    The kernel trusts the CSR (rowptr from 0 up to E, senders in [0, N)):
-    ``ops.graph.csr_from_edges`` checks that when the graph is built, so
-    no launch pays a device-to-host read for it.
-    """
+def _launch_fwd(e0, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest,
+                w_out, b_out, ln_s, ln_b):
     global launches
     _, ce, h, c, l1, n = _check(e0, we, be, pxj, pxi, senders, rowptr,
                                 w_rest, b_rest, w_out, b_out, ln_s, ln_b)
-    if e0.device.type == "cpu":
-        return fused_edge_tail_agg_plain(e0, we, be, pxj, pxi, senders,
-                                         rowptr, w_rest, b_rest, w_out,
-                                         b_out, ln_s, ln_b)
-    if e0.device.type != "cuda":
-        raise ValueError(f"no fused edge kernel for device {e0.device}")
-    if (ce, h, c) not in KERNEL_WIDTHS:
-        raise ValueError(
-            f"the CUDA kernel is compiled for (Ce, H, C) in "
-            f"{sorted(KERNEL_WIDTHS)}, got {(ce, h, c)}")
+    _check_cuda(e0, (ce, h, c, l1))
     for name, t in (("e0", e0), ("pxj", pxj), ("pxi", pxi)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (float4 rows)")
     out = torch.empty(n, c, dtype=torch.float32, device=e0.device)
-    lib = _lib()
+    fn = _lib(FWD)
     with torch.cuda.device(e0.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.fused_edge_tail_agg_f32(
+        err = fn(
             e0.data_ptr(), we.data_ptr(), be.data_ptr(), pxj.data_ptr(),
             pxi.data_ptr(), senders.data_ptr(), rowptr.data_ptr(),
             w_rest.data_ptr(), b_rest.data_ptr(), w_out.data_ptr(),
@@ -181,3 +219,96 @@ def fused_edge_tail_agg(e0, we, be, pxj, pxi, senders, rowptr, w_rest,
         raise RuntimeError(f"fused_edge_tail_agg launch failed: cudaError {err}")
     launches += 1
     return out
+
+
+def _launch_bwd(e0, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest,
+                w_out, b_out, ln_s, ln_b, g):
+    global launches_bwd
+    E, ce, h, c, l1, n = _check(e0, we, be, pxj, pxi, senders, rowptr,
+                                w_rest, b_rest, w_out, b_out, ln_s, ln_b)
+    _check_cuda(e0, (ce, h, c, l1), l1_max=KERNEL_BWD_MAX_L1)
+    if (g.device != e0.device or g.dtype != torch.float32
+            or tuple(g.shape) != (n, c) or not g.is_contiguous()):
+        raise ValueError(f"g must be a contiguous float32 ({n}, {c}) tensor "
+                         f"on {e0.device}")
+    dev = e0.device
+    sizes = [ce * h, h, l1 * h * h, l1 * h, h * c, c, c, c]
+    n_blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+    d_e0 = torch.empty_like(e0)
+    # the kernel adds into these with atomics (one fill for both)
+    d_pxj, d_pxi = torch.zeros(2, n, h, dtype=torch.float32, device=dev)
+    wgrad = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    partial = torch.empty(n_blocks, sum(sizes), dtype=torch.float32,
+                          device=dev)
+    fn = _lib(BWD)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(
+            e0.data_ptr(), we.data_ptr(), be.data_ptr(), pxj.data_ptr(),
+            pxi.data_ptr(), senders.data_ptr(), rowptr.data_ptr(),
+            w_rest.data_ptr(), b_rest.data_ptr(), w_out.data_ptr(),
+            b_out.data_ptr(), ln_s.data_ptr(), g.data_ptr(),
+            d_e0.data_ptr(), d_pxj.data_ptr(), d_pxi.data_ptr(),
+            wgrad.data_ptr(), partial.data_ptr(), n, E, ce, h, c, l1,
+            n_blocks, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"fused_edge_tail_agg_bwd launch failed: cudaError {err}")
+    launches_bwd += 1
+    d_we, d_be, d_wr, d_br, d_wo, d_bo, d_ls, d_lb = wgrad.split(sizes)
+    return (d_e0, d_we.view(ce, h), d_be, d_pxj, d_pxi, d_wr.view(l1, h, h),
+            d_br.view(l1, h), d_wo.view(h, c), d_bo, d_ls, d_lb)
+
+
+class FusedEdgeTailAgg(torch.autograd.Function):
+    """The two CUDA kernels as one differentiable function of the eleven
+    float operands (``senders`` and ``rowptr`` get no gradient)."""
+
+    @staticmethod
+    def forward(ctx, *operands):
+        operands = tuple(t.detach() for t in operands)
+        out = _launch_fwd(*operands)
+        ctx.save_for_backward(*operands)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        grads = _launch_bwd(*ctx.saved_tensors, g.contiguous())
+        return (*grads[:5], None, None, *grads[5:])
+
+
+def fused_edge_tail_agg(e0, we, be, pxj, pxi, senders, rowptr, w_rest,
+                        b_rest, w_out, b_out, ln_s, ln_b):
+    """Per-receiver sum of the fused edge MLP + LayerNorm, (N, C) f32,
+    differentiable in every float operand.
+
+    e0 (E, Ce) edge latents in receiver-CSR order; we (Ce, H) with any edge
+    scale already folded in, be (H,); pxj (N, H), pxi (N, H); senders (E,)
+    and rowptr (N+1,) int32; w_rest (L1, H, H), b_rest (L1, H); w_out
+    (H, C), b_out (C,); ln_s, ln_b (C,).  Weights are (in, out).
+
+    The kernels trust the CSR (rowptr from 0 up to E, senders in [0, N)):
+    ``ops.graph.csr_from_edges`` checks that when the graph is built, so
+    no launch pays a device-to-host read for it.
+    """
+    operands = (e0, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest,
+                w_out, b_out, ln_s, ln_b)
+    if e0.device.type == "cpu":
+        _check(*operands)
+        return fused_edge_tail_agg_plain(*operands)
+    return FusedEdgeTailAgg.apply(*operands)
+
+
+def fused_edge_tail_agg_bwd(e0, we, be, pxj, pxi, senders, rowptr, w_rest,
+                            b_rest, w_out, b_out, ln_s, ln_b, g):
+    """The eleven gradients of ``sum(fused_edge_tail_agg(...) * g)``, in
+    ``GRAD_NAMES`` order, all f32: the backward kernel on CUDA tensors, the
+    plain version on CPU tensors.  ``d_pxj`` and ``d_pxi`` are summed with
+    atomics on the card and so differ in the last bits from run to run."""
+    operands = (e0, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest,
+                w_out, b_out, ln_s, ln_b)
+    if e0.device.type == "cpu":
+        _check(*operands)
+        return fused_edge_tail_agg_bwd_plain(*operands, g)
+    return _launch_bwd(*operands, g.contiguous())

@@ -52,10 +52,12 @@ def main(argv=None) -> dict:
         torch.cuda.synchronize()
         wall_traced = time.perf_counter() - t0
     events = prof.key_averages()
-    # device-side events only: a host op's own device column repeats the
-    # time of the kernels it launched
+    # device-side kernels and copies only: a host op's own device column
+    # and an annotated region on the device (the optimizer's step) repeat
+    # the time of the kernels under them
     dev = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                  for e in events if e.device_type == DeviceType.CUDA),
+                  for e in events if e.device_type == DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)),
                  key=lambda r: -r[1])
     busy_ms = sum(ms for _, ms, _ in dev)
     if run["out"]:

@@ -1,4 +1,5 @@
-"""Coordinate helpers (counterpart of ``magnet_tpu/utils.py:24-62``)."""
+"""Coordinate helpers (counterpart of ``magnet_tpu/utils.py:24-62``) and
+the host-batch-to-device copy."""
 from __future__ import annotations
 
 from typing import Sequence
@@ -28,3 +29,8 @@ def make_coord(shape: Sequence[int], ranges=None, flatten: bool = True,
                device=None) -> torch.Tensor:
     """:func:`make_coord_np` as a tensor on ``device``."""
     return torch.from_numpy(make_coord_np(shape, ranges, flatten)).to(device)
+
+
+def to_device(batch: dict, device) -> dict:
+    """A host batch (numpy arrays or tensors) as tensors on ``device``."""
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}

@@ -87,10 +87,11 @@ def test_import_magnet_cnn_inverts_state_dict_from_jax(pair):
 def test_port_imports_no_jax_and_nothing_of_magnet_tpu():
     code = (
         "import sys, pkgutil, importlib, magnet_tpu_torch, chip_smoke\n"
-        "import magnet_tpu_torch.eval\n"
+        "import magnet_tpu_torch.eval, magnet_tpu_torch.run\n"
+        "import magnet_tpu_torch.trace_train\n"
         "for m in pkgutil.walk_packages(magnet_tpu_torch.__path__, 'magnet_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'magnet_tpu')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'h5py', 'magnet_tpu')]\n"
         "assert not bad, bad\n"
         "print('clean', len([m for m in sys.modules if m.startswith('magnet_tpu_torch')]))\n"
     )
@@ -107,3 +108,17 @@ def test_create_model_defaults_to_cuda():
     else:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             create_model("magnet_cnn", HP)
+
+
+def test_trainer_and_run_default_to_cuda():
+    from magnet_tpu_torch import run as port_run
+    from magnet_tpu_torch.train.trainer import Trainer
+
+    model = create_model("magnet_cnn", HP, device="cpu")
+    if torch.cuda.is_available():
+        assert Trainer(model, workdir="runs/test_default").device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Trainer(model)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            port_run.main(["trainer.max_epochs=1"])
