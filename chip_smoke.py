@@ -1,19 +1,24 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch / CUDA port on one NVIDIA card.
 
-  python3 chip_smoke.py
+  python3 chip_smoke.py                 every phase (the full check)
+  python3 chip_smoke.py GROUP [GROUP]   only the named groups of phases:
+                                        cnn, mpnn_kernels, mpnn_paths
 
-Builds the port's two CUDA kernels from the checkout (the fused edge
-pipeline's forward and backward), holds each against its plain PyTorch
-version at the shapes of the paths that launch it, and drives both ported
-paths of MAgNet[CNN] 1D at full width: the eval rollout through
-``magnet_tpu_torch.eval.evaluate`` and a short training run through
-``magnet_tpu_torch.train.trainer.Trainer.fit`` on KS data made from a seed,
-with a checkpoint read back and a resume.  It checks that each path went
-through the kernels by their launch counts.  Prints one JSON line per
-phase (``device``, ``build``, ``kernel``, ``slice``, ``kernel_bwd``,
-``train``), the card's name and power limit, a ``{"kernels": [...]}`` line,
-and last ``{"ok": true, "device": {...}}``.  Any failed phase exits
+Builds the port's four CUDA sources from the checkout (six kernels: the
+fused GraphNet edge pipeline's forward and backward, and the fused MPNN
+message path's forward and backward, each with its in-kernel-gather and
+its pre-gathered entry), holds each kernel against its plain PyTorch
+version at the shapes of the paths that launch it, and drives every ported
+path at full width on data made from a seed: MAgNet[CNN] 1D through
+``magnet_tpu_torch.eval.evaluate`` and ``Trainer.fit`` (with a checkpoint
+read back and a resume), MPNN-2D through the same two entry points, and
+one MPNN-1D training step on the pre-gathered kernels.  It checks that each
+path went through its kernels by their launch counts.  Prints one JSON line
+per phase (``device``, ``build``, ``kernel``, ``slice``, ``kernel_bwd``,
+``train``, ``mpnn_kernel``, ``mpnn_kernel_bwd``, ``mpnn_slice``,
+``mpnn_train``), the card's name and power limit, a ``{"kernels": [...]}``
+line, and last ``{"ok": true, "device": {...}}``.  Any failed phase exits
 non-zero, and with no CUDA device it exits 1 before printing any result.
 """
 from __future__ import annotations
@@ -24,6 +29,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -56,6 +62,25 @@ TRAIN_GRAD_L2, TRAIN_LOSS_RTOL = 2e-3, 1e-5
 # (the solver's default is 40.0), so that the host does not dominate the run
 SMOKE_DATA = {"source": "synthetic_ks", "n_train": 96, "n_val": 32,
               "n_test": 1, "burn_in": 10.0, "data_seed": 0}
+
+
+# the MPNN kernels vs plain at one call: f32 on both sides; a receiver sums
+# up to 32 messages with |h2| of order 1 and the H = 128 products are taken
+# in another order
+MPNN_RTOL, MPNN_ATOL = 1e-4, 1e-4
+# an MPNN-2D rollout: 4 autoregressive windows of 5 layers with an
+# InstanceNorm after each carry those differences forward
+MPNN_SLICE_RTOL, MPNN_SLICE_ATOL = 1e-3, 1e-4
+# the smoke run's MPNN-2D data: Burgers-2D trajectories at the datamodule's
+# shape (nt 50, 64 x 64, batch 4), fewer of them
+MPNN_2D_DATA = {"source": "synthetic_burgers_2d", "n_train": 12, "n_val": 4,
+                "n_test": 4, "data_seed": 0}
+# the MPNN-1D step's data: the combined equation at the datamodule's shape
+# (nt 250, nx 50), a smaller batch and half the solver's time steps, so
+# that the host does not dominate the run
+MPNN_1D_DATA = {"source": "synthetic_ce", "n_train": 8, "n_val": 1,
+                "n_test": 1, "batch_size": 8, "n_steps": 2000, "data_seed": 0}
+GROUPS = ("cnn", "mpnn_kernels", "mpnn_paths")
 
 
 def emit(obj) -> None:
@@ -150,17 +175,15 @@ def timed(fn) -> float:
     return time.perf_counter() - t0
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
+def cnn_phases(dev, data, groups) -> tuple[int, list]:
+    """Phases ``kernel``, ``slice``, ``kernel_bwd`` and ``train``: the fused
+    GraphNet edge kernels and the two MAgNet[CNN] 1D paths.  Returns the
+    exit code (0: all passed) and the two kernels' entries."""
     from magnet_tpu_torch.config import (
         DATAMODULE_IMPLICIT,
         HEAT_TEST,
         MAGNET_CNN,
     )
-    from magnet_tpu_torch.data.datamodule import build_loaders
-    from magnet_tpu_torch.data.heat import heat_batches
     from magnet_tpu_torch.eval import evaluate
     from magnet_tpu_torch.models.factory import create_model
     from magnet_tpu_torch.ops import fused_edge as fe
@@ -169,30 +192,9 @@ def main() -> int:
     from magnet_tpu_torch.train.trainer import Trainer
     from magnet_tpu_torch.utils import to_device
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
-
-    # 1. device
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-    emit({"phase": "device", "nvidia_smi": smi,
-          "kind": torch.cuda.get_device_name(0),
-          "count": torch.cuda.device_count(), "torch": torch.__version__,
-          "cuda": torch.version.cuda, "tf32": "off (matmul and cudnn)"})
-
-    # 2. build: both kernels, one nvcc each, started together
-    t0 = time.perf_counter()
-    libs = fe.build_all()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "libraries": {name: {"library": lib.name, "ptxas": ptxas_lines(lib)}
-                        for name, lib in libs.items()}})
-
     # 3. kernel vs plain at the slice's shapes: B=16 LR∪HR graphs flattened
     hp = dict(MAGNET_CNN)
-    batches = heat_batches(16, 16, nt=HEAT_TEST["nt"], nx=HEAT_TEST["nx"])
+    batches = data["heat"]
     model = create_model("magnet_cnn", hp, device=dev, seed=0)
     graph = model.build_graph(
         {k: torch.as_tensor(v) for k, v in batches[0].items()})
@@ -228,7 +230,7 @@ def main() -> int:
           "small_case": small, "ms": ms, "plain_ms": plain_ms,
           "library_ms": None, **bnd, "ok": kernel_ok})
     if not kernel_ok:
-        return 2
+        return 2, []
 
     # 4. the slice: evaluate() at full width on 16 Heat trajectories
     fe.launches = 0
@@ -270,16 +272,14 @@ def main() -> int:
           "peak_mem_bytes": peak, "ok": slice_ok})
 
     if not slice_ok:
-        return 3
+        return 3, []
     del preds, preds_plain
 
     # 5. the backward kernel vs plain, every gradient, at the training
     # shape (B=32 graphs of 128 LR + 32 HR nodes, flattened) and on the
     # small graph above (degree-0 node, 64-edge receivers, L1=1)
     data_cfg = {**DATAMODULE_IMPLICIT, **SMOKE_DATA}
-    t0 = time.perf_counter()
-    loaders = build_loaders(data_cfg, seed=0)
-    t_data = time.perf_counter() - t0
+    loaders, t_data = data["ks_loaders"], data["ks_seconds"]
     loaders["train"].set_epoch(0)
     batch0 = to_device(next(iter(loaders["train"])), dev)
     tgraph = model.build_graph(batch0)
@@ -328,7 +328,7 @@ def main() -> int:
                                     "plain_ms": fwd_plain_ms_t, **bnd_fwd_t},
           "ok": bwd_ok})
     if not bwd_ok:
-        return 4
+        return 4, []
 
     # 6. training: Trainer.fit at full width on seeded KS data
     def fresh_model():
@@ -435,8 +435,8 @@ def main() -> int:
           "seconds_per_step_plain": step_plain_s, "seconds_fit": fit_s,
           "peak_mem_bytes": peak_train, "ok": train_ok})
 
-    # 7. kernels: #8's times are those at the eval slice's shape
-    emit({"kernels": [{
+    # the kernels' entries: #8's times are those at the eval slice's shape
+    kernels = [{
         "name": "fused_edge_tail_agg", "route": "cuda",
         "source": "magnet_tpu_torch/csrc/fused_edge_tail_agg.cu",
         "replaces": "magnet_tpu/ops/pallas_kernels.py:1356",
@@ -455,9 +455,526 @@ def main() -> int:
         "launches": train_launches_bwd, "max_abs_err": bwd_err,
         "ms": bwd_ms, "plain_ms": bwd_plain_ms,
         "bound_ms": bnd_bwd["bound_ms"], "bound_by": bnd_bwd["bound_by"],
-        "library_ms": None, "ok": bwd_ok and train_ok}]})
-    if not train_ok:
-        return 5
+        "library_ms": None, "ok": bwd_ok and train_ok}]
+    return (0 if train_ok else 5), kernels
+
+
+def mpnn_operands(graph, h, seed, dev):
+    """(pxj, pr, w, b) for a graph: node tables of order 0.5, a weight of
+    order 1/sqrt(H), so that both pre-activations are of order 1."""
+    g = torch.Generator().manual_seed(seed)
+
+    def f(*shape, scale):
+        return (torch.randn(*shape, generator=g) * scale).to(dev)
+
+    n = graph.n_node
+    return (f(n, h, scale=0.5), f(n, h, scale=0.5), f(h, h, scale=0.15),
+            f(h, scale=0.1))
+
+
+def mpnn_bound(kernel: str, gather: bool, graph, h) -> dict:
+    """Least time on the card for one call of an MPNN message kernel: the
+    H x H product's 2·E·H² operations (three times that in the backward:
+    recompute, data gradient, weight gradient) over the f32 peak, and each
+    input read once plus each output written once over the HBM rate."""
+    n, e = graph.n_node, graph.n_edge
+    flops = 2.0 * e * h * h
+    src = n * h + e if gather else e * h      # the sender side (+ senders)
+    inputs = src + n * h + h * h + h + (n + 1)
+    if kernel == "fwd":
+        nbytes = 4.0 * (inputs + n * h)
+    elif kernel == "bwd":
+        flops *= 3.0
+        d_src = n * h if gather else e * h
+        nbytes = 4.0 * (inputs + n * h + d_src + n * h + h * h + h)
+    else:
+        raise ValueError(kernel)
+    t_ops, t_bytes = flops / F32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+    return {"flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def grid_coords(batch_size: int, width: int) -> np.ndarray:
+    """(B, W*W, 2) coordinates of the datamodule's regular 2D mesh."""
+    x = (np.arange(width) * (1.0 / width)).astype(np.float32)
+    grid = np.stack(np.meshgrid(x, x, indexing="ij"), -1).reshape(-1, 2)
+    return np.broadcast_to(grid, (batch_size, *grid.shape)).copy()
+
+
+def mpnn_phases(dev, data, groups) -> tuple[int, list]:
+    """Phases ``mpnn_kernel`` and ``mpnn_kernel_bwd`` (group
+    ``mpnn_kernels``), ``mpnn_slice`` and ``mpnn_train`` (group
+    ``mpnn_paths``): the four MPNN message kernels and the MPNN paths.
+    Returns the exit code (0: all passed) and the four kernels' entries."""
+    from magnet_tpu_torch.config import (
+        DATAMODULE_GRAPH,
+        DATAMODULE_GRAPH_2D,
+        MPNN,
+        MPNN_2D,
+    )
+    from magnet_tpu_torch.eval import evaluate
+    from magnet_tpu_torch.models.factory import create_model
+    from magnet_tpu_torch.ops import mpnn_edge as me
+    from magnet_tpu_torch.ops.graph import csr_from_edges, radius_graph
+    from magnet_tpu_torch.train.checkpoint import load_checkpoint
+    from magnet_tpu_torch.train.trainer import Trainer
+    from magnet_tpu_torch.utils import to_device
+
+    hp2 = dict(MPNN_2D)
+    h = hp2["hidden_features"]
+    bs2, res = DATAMODULE_GRAPH_2D["batch_size"], DATAMODULE_GRAPH_2D["res_train"]
+    model2 = create_model("mpnn_2d", hp2, device=dev, seed=0)
+    coords = grid_coords(bs2, res)
+    graph = model2.build_graph({"x": torch.from_numpy(coords)})
+    shape = {"n_node": graph.n_node, "n_edge": graph.n_edge, "h": h,
+             "radius": model2._radius(coords),
+             "mean_degree": float(graph.degree.mean()),
+             "max_degree": int(graph.degree.max()),
+             "max_out_degree": int(torch.bincount(
+                 graph.senders.long(), minlength=graph.n_node).max())}
+    # a small graph with a node of degree 0 (isolated, no self loop) and
+    # uneven degrees up to 64 (two 32-edge rounds of a warp in the forward)
+    pos = np.linspace(-1, 1, 200, dtype=np.float32)[:, None]
+    pos[17, 0] = 9.0
+    s, r = radius_graph(torch.from_numpy(pos), 0.4, loop=False,
+                        max_num_neighbors=64)
+    small_graph = csr_from_edges(s, r, 200).to(dev)
+    cases = (("path_shape", graph, mpnn_operands(graph, h, 11, dev)),
+             ("small_case", small_graph,
+              mpnn_operands(small_graph, h, 12, dev)))
+
+    def gathered(gr, ops):
+        """The pre-gathered entry's operands from the gather entry's."""
+        return (ops[0].index_select(0, gr.senders.long()), *ops[1:],
+                gr.rowptr)
+
+    entries = {}
+    rc = 0
+    if "mpnn_kernels" in groups:
+        # 7. the two forward entries vs plain
+        fwd = {"gather": {}, "pregathered": {}}
+        for label, gr, ops in cases:
+            got = me.fused_mpnn_edge_agg2r(*ops, gr.senders, gr.rowptr)
+            torch.cuda.synchronize()
+            want = me.fused_mpnn_edge_agg2r_plain(*ops, gr.senders, gr.rowptr)
+            fwd["gather"][label] = compare(got, want, MPNN_RTOL, MPNN_ATOL)
+            pre = gathered(gr, ops)
+            got = me.fused_mpnn_edge_agg(*pre)
+            torch.cuda.synchronize()
+            want = me.fused_mpnn_edge_agg_plain(*pre)
+            fwd["pregathered"][label] = compare(got, want, MPNN_RTOL,
+                                                MPNN_ATOL)
+            if label == "small_case":
+                fwd["gather"]["degree0_row_zero"] = {
+                    "ok": bool((me.fused_mpnn_edge_agg2r(
+                        *ops, gr.senders, gr.rowptr)[17] == 0).all())}
+                fwd["pregathered"]["degree0_row_zero"] = {
+                    "ok": bool((got[17] == 0).all())}
+        ops = cases[0][2]
+        pre = gathered(graph, ops)
+        times = {
+            "gather": {
+                "ms": cuda_ms(lambda: me.fused_mpnn_edge_agg2r(
+                    *ops, graph.senders, graph.rowptr), reps=20),
+                "plain_ms": cuda_ms(lambda: me.fused_mpnn_edge_agg2r_plain(
+                    *ops, graph.senders, graph.rowptr), reps=5),
+                **mpnn_bound("fwd", True, graph, h)},
+            "pregathered": {
+                "ms": cuda_ms(lambda: me.fused_mpnn_edge_agg(*pre), reps=20),
+                "plain_ms": cuda_ms(
+                    lambda: me.fused_mpnn_edge_agg_plain(*pre), reps=5),
+                **mpnn_bound("fwd", False, graph, h)}}
+        fwd_ok = all(v["ok"] for e in fwd.values() for v in e.values())
+        emit({"phase": "mpnn_kernel", **shape,
+              "small_case_max_degree": int(small_graph.degree.max()),
+              "tolerance": {"rtol": MPNN_RTOL, "atol": MPNN_ATOL},
+              "vs_plain": fwd, "times": times, "library_ms": None,
+              "library_ms_reason": "no single PyTorch call computes the "
+                                   "fused function", "ok": fwd_ok})
+        if not fwd_ok:
+            return 6, []
+
+        # 8. the two backward entries vs plain, every gradient elementwise
+        # at both shapes (swish is smooth: no tie can flip a gradient)
+        g_gen = torch.Generator().manual_seed(13)
+        bwd = {"gather": {}, "pregathered": {}}
+        for label, gr, ops_ in cases:
+            g = torch.randn(gr.n_node, h, generator=g_gen).to(dev)
+            got_g = me.fused_mpnn_edge_agg2r_bwd(*ops_, gr.senders,
+                                                 gr.rowptr, g)
+            torch.cuda.synchronize()
+            want_g = me.fused_mpnn_edge_agg2r_bwd_plain(*ops_, gr.senders,
+                                                        gr.rowptr, g)
+            bwd["gather"][label] = {
+                name: compare_grad(a, b, elementwise=True)
+                for name, a, b in zip(me.GRAD_NAMES_2R, got_g, want_g)}
+            pre_ = gathered(gr, ops_)
+            got_p = me.fused_mpnn_edge_agg_bwd(*pre_, g)
+            torch.cuda.synchronize()
+            want_p = me.fused_mpnn_edge_agg_bwd_plain(*pre_, g)
+            bwd["pregathered"][label] = {
+                name: compare_grad(a, b, elementwise=True)
+                for name, a, b in zip(me.GRAD_NAMES, got_p, want_p)}
+            if label == "path_shape":
+                g_t = g
+                # the d_pxj atomics from one launch to the next
+                again = me.fused_mpnn_edge_agg2r_bwd(*ops_, gr.senders,
+                                                     gr.rowptr, g)
+                atomics = {"d_pxj_max_abs_run_to_run": float(
+                    (again[0] - got_g[0]).abs().max()),
+                    "d_pr_max_abs_run_to_run": float(
+                    (again[1] - got_g[1]).abs().max()),
+                    "dw_equal_run_to_run": bool(
+                        torch.equal(again[2], got_g[2]))}
+            else:
+                for entry, grads in (("gather", got_g), ("pregathered", got_p)):
+                    bwd[entry]["degree0_row_zero"] = {"pr": {
+                        "ok": bool((grads[1][17] == 0).all())}}
+        times_b = {
+            "gather": {
+                "ms": cuda_ms(lambda: me.fused_mpnn_edge_agg2r_bwd(
+                    *ops, graph.senders, graph.rowptr, g_t), reps=10),
+                "plain_ms": cuda_ms(
+                    lambda: me.fused_mpnn_edge_agg2r_bwd_plain(
+                        *ops, graph.senders, graph.rowptr, g_t), reps=3),
+                **mpnn_bound("bwd", True, graph, h)},
+            "pregathered": {
+                "ms": cuda_ms(lambda: me.fused_mpnn_edge_agg_bwd(*pre, g_t),
+                              reps=10),
+                "plain_ms": cuda_ms(
+                    lambda: me.fused_mpnn_edge_agg_bwd_plain(*pre, g_t),
+                    reps=3),
+                **mpnn_bound("bwd", False, graph, h)}}
+        bwd_ok = all(v["ok"] for e in bwd.values() for case in e.values()
+                     for v in case.values())
+        emit({"phase": "mpnn_kernel_bwd", **shape,
+              "tolerance": {"rtol": BWD_RTOL, "atol_rel_to_max": BWD_ATOL_REL,
+                            "max_rel_l2": BWD_L2,
+                            "elementwise": "both shapes"},
+              "vs_plain": bwd, "atomics": atomics, "times": times_b,
+              "library_ms": None,
+              "library_ms_reason": "no single PyTorch call computes the "
+                                   "fused function", "ok": bwd_ok})
+        if not bwd_ok:
+            return 7, []
+
+        def worst(found):
+            """The largest max_abs_err anywhere in a nest of results."""
+            if not isinstance(found, dict):
+                return 0.0
+            return max([float(found.get("max_abs_err", 0.0))]
+                       + [worst(v) for v in found.values()])
+
+        for name, entry, kern, line, tt, errs in (
+                ("fused_mpnn_edge_agg2r", "gather", "fwd", 2364, times, fwd),
+                ("fused_mpnn_edge_agg2r_bwd", "gather", "bwd", 2453, times_b,
+                 bwd),
+                ("fused_mpnn_edge_agg", "pregathered", "fwd", 664, times, fwd),
+                ("fused_mpnn_edge_agg_bwd", "pregathered", "bwd", 733,
+                 times_b, bwd)):
+            suffix = "_bwd" if kern == "bwd" else ""
+            entries[f"{kern}_{entry}"] = {
+                "name": name, "route": "cuda",
+                "source": f"magnet_tpu_torch/csrc/fused_mpnn_edge_agg{suffix}.cu",
+                "entry": entry,
+                "replaces": f"magnet_tpu/ops/pallas_kernels.py:{line}",
+                "launches": 0, "max_abs_err": worst(errs[entry]),
+                "ms": tt[entry]["ms"], "plain_ms": tt[entry]["plain_ms"],
+                "bound_ms": tt[entry]["bound_ms"],
+                "bound_by": tt[entry]["bound_by"], "library_ms": None,
+                "ok": True}
+
+    if "mpnn_paths" in groups:
+        # 9. the MPNN-2D slice: evaluate() at full width on seeded
+        # Burgers-2D batches (the val and the test split's)
+        loaders = data["b2d_loaders"]
+        batches = list(loaders["val"]) + list(loaders["test"])
+        same_mesh = all(np.array_equal(b["x"], coords) for b in batches)
+        n_win = (DATAMODULE_GRAPH_2D["nt_test"] - hp2["time_window"]) \
+            // hp2["time_window"]
+        per_batch = n_win * hp2["hidden_layer"]
+        me.reset_launches()
+        t0 = time.perf_counter()
+        metrics, preds = evaluate(model2, batches, dev,
+                                  return_predictions=True)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counts = dict(me.launches)
+        want_counts = {"fwd_gather": per_batch * len(batches), "bwd_gather": 0,
+                       "fwd_pregathered": 0, "bwd_pregathered": 0}
+        torch.cuda.reset_peak_memory_stats()
+        steady_s = timed(lambda: evaluate(model2, batches, dev))
+        peak = torch.cuda.max_memory_allocated()
+        model2.impl = "plain"
+        t0 = time.perf_counter()
+        metrics_plain, preds_plain = evaluate(model2, batches, dev,
+                                              return_predictions=True)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        model2.impl = "kernel"
+        cmp = compare(torch.cat(preds), torch.cat(preds_plain),
+                      MPNN_SLICE_RTOL, MPNN_SLICE_ATOL)
+        finite = all(bool(torch.isfinite(p).all()) for p in preds) and all(
+            np.isfinite(v) for v in metrics.values())
+        horizon = n_win * hp2["time_window"]
+        shape_ok = all(tuple(p.shape) == (b["u"].shape[0], horizon, res * res)
+                       for p, b in zip(preds, batches))
+        slice_ok = (counts == want_counts and finite and shape_ok
+                    and same_mesh and cmp["ok"])
+        emit({"phase": "mpnn_slice", "model": "mpnn_2d",
+              "batches": len(batches), "batch_size": bs2,
+              "nt": DATAMODULE_GRAPH_2D["nt_test"], "res": res,
+              "windows": n_win, "layers": hp2["hidden_layer"], **shape,
+              "kernel_launches": counts, "expected_launches": want_counts,
+              "launches_per_batch": per_batch,
+              "graph_cache_hits": model2.graphs.hits,
+              "mesh_is_the_kernel_phases": same_mesh,
+              "finite": finite, "shape_ok": shape_ok, **metrics,
+              "plain_metrics": metrics_plain, "vs_plain": cmp,
+              "seconds_per_batch_first": first_s / len(batches),
+              "seconds_per_batch": steady_s / len(batches),
+              "seconds_per_batch_plain": plain_s / len(batches),
+              "seconds_to_make_data": data["b2d_seconds"],
+              "peak_mem_bytes": peak, "ok": slice_ok})
+        if not slice_ok:
+            return 8, list(entries.values())
+        del preds, preds_plain
+        slice_counts = counts
+
+        # 10. MPNN-2D training: Trainer.fit at full width, then one MPNN-1D
+        # step on the pre-gathered kernels
+        def loss_and_grads(m, batch, gr, impl, kernel_impl):
+            m.impl = impl
+            m.zero_grad(set_to_none=True)
+            loss, _ = m.loss(batch, gr, train=True)
+            loss.backward()
+            m.impl = kernel_impl
+            return loss.detach(), {k: p.grad.clone()
+                                   for k, p in m.named_parameters()}
+
+        def vs_plain(m, batch, gr, kernel_impl):
+            loss_k, grads_k = loss_and_grads(m, batch, gr, kernel_impl,
+                                             kernel_impl)
+            loss_p, grads_p = loss_and_grads(m, batch, gr, "plain",
+                                             kernel_impl)
+            l2 = {k: float((grads_k[k].double() - grads_p[k].double()).norm()
+                           / grads_p[k].double().norm().clamp_min(1e-30))
+                  for k in grads_p}
+            worst_k = max(l2, key=l2.get)
+            fin = all(bool(torch.isfinite(v).all()) for v in grads_k.values())
+            rel = float((loss_k - loss_p).abs() / loss_p.abs())
+            return {"loss_kernel": float(loss_k), "loss_plain": float(loss_p),
+                    "loss_rel_err": rel, "loss_rtol": TRAIN_LOSS_RTOL,
+                    "worst_grad_rel_l2": l2[worst_k], "worst_grad": worst_k,
+                    "grad_rel_l2_tol": TRAIN_GRAD_L2, "grads_finite": fin,
+                    "ok": (fin and l2[worst_k] <= TRAIN_GRAD_L2
+                           and rel <= TRAIN_LOSS_RTOL)}
+
+        loaders["train"].set_epoch(0)
+        batch0 = to_device(next(iter(loaders["train"])), dev)
+        tmodel = create_model("mpnn_2d", hp2, device=dev, seed=0)
+        tgraph = tmodel.build_graph(batch0)
+        first_step_s = timed(lambda: loss_and_grads(tmodel, batch0, tgraph,
+                                                    "kernel", "kernel"))
+        cmp2 = vs_plain(tmodel, batch0, tgraph, "kernel")
+
+        n_epochs, steps = 2, len(loaders["train"])
+        val_batches = len(loaders["val"])
+        with tempfile.TemporaryDirectory() as workdir:
+            trainer = Trainer(
+                create_model("mpnn_2d", hp2, device=dev, seed=0),
+                max_epochs=n_epochs, lr=hp2["lr"],
+                weight_decay=hp2["weight_decay"], factor=hp2["factor"],
+                step_size=hp2["step_size"], workdir=workdir, device=dev)
+            step_losses = []
+            inner_step = trainer.train_step
+
+            def recording_step(batch):
+                m = inner_step(batch)
+                step_losses.append(m["loss"])
+                return m
+
+            trainer.train_step = recording_step
+            me.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            fit_s = timed(lambda: trainer.fit(loaders["train"],
+                                              loaders["val"]))
+            fit_counts = dict(me.launches)
+            peak_train = torch.cuda.max_memory_allocated()
+            want_bwd = per_batch * steps * n_epochs
+            want_fit = {"fwd_gather": want_bwd
+                        + per_batch * val_batches * n_epochs,
+                        "bwd_gather": want_bwd, "fwd_pregathered": 0,
+                        "bwd_pregathered": 0}
+            with open(os.path.join(workdir, "metrics.jsonl")) as f:
+                rows = [json.loads(line) for line in f]
+            step_losses = [float(v) for v in step_losses]
+            losses_finite = (all(np.isfinite(v) for v in step_losses)
+                             and all(np.isfinite(v) for r_ in rows
+                                     for v in r_.values()))
+            last = os.path.join(workdir, "checkpoints", "last.pt")
+            state, meta = load_checkpoint(last, require=("model", "optimizer"))
+            ckpt_ok = (state["step"] == steps * n_epochs
+                       and meta.get("epoch") == n_epochs - 1
+                       and all(torch.equal(v.cpu(), state["model"][k])
+                               for k, v in trainer.model.state_dict().items()))
+            host_batches = list(loaders["train"])
+            step_s = timed(lambda: [inner_step(b)
+                                    for b in host_batches]) / steps
+            trainer.model.impl = "plain"
+            step_plain_s = timed(lambda: [inner_step(b)
+                                          for b in host_batches]) / steps
+            trainer.model.impl = "kernel"
+
+            # one MPNN-1D step with the sender rows gathered outside
+            hp1 = dict(MPNN)
+            ce = data["ce_loaders"]["train"]
+            ce.set_epoch(0)
+            batch1 = next(iter(ce))
+            model1 = create_model("mpnn", hp1, device=dev, seed=0)
+            model1.impl = "kernel_pregathered"
+            dbatch1 = to_device(batch1, dev)
+            graph1 = model1.build_graph(dbatch1)
+            cmp1 = vs_plain(model1, dbatch1, graph1, "kernel_pregathered")
+            trainer1 = Trainer(model1, lr=hp1["lr"],
+                               weight_decay=hp1["weight_decay"],
+                               factor=hp1["factor"],
+                               step_size=hp1["step_size"],
+                               workdir=os.path.join(workdir, "mpnn_1d"),
+                               device=dev)
+            trainer1.setup(1)
+            me.reset_launches()
+            m1 = trainer1.train_step(batch1)
+            torch.cuda.synchronize()
+            counts1 = dict(me.launches)
+            step1_s = timed(lambda: trainer1.train_step(batch1))
+        n_win1 = (DATAMODULE_GRAPH["nt_train"] - hp1["time_window"]) \
+            // hp1["time_window"]
+        per_step1 = n_win1 * hp1["hidden_layer"]
+        want1 = {"fwd_gather": 0, "bwd_gather": 0,
+                 "fwd_pregathered": per_step1, "bwd_pregathered": per_step1}
+        step1_ok = (counts1 == want1 and cmp1["ok"]
+                    and bool(torch.isfinite(m1["loss"])))
+        train_ok = (fit_counts == want_fit and losses_finite
+                    and step_losses[-1] < step_losses[0] and cmp2["ok"]
+                    and ckpt_ok and step1_ok)
+        emit({"phase": "mpnn_train", "model": "mpnn_2d", "batch_size": bs2,
+              "steps_per_epoch": steps, "epochs": n_epochs,
+              "val_batches_per_epoch": val_batches, "windows_per_step": n_win,
+              "data": {**MPNN_2D_DATA,
+                       "seconds_to_make": data["b2d_seconds"]},
+              "launches": fit_counts, "expected_launches": want_fit,
+              "launches_per_train_step": {"fwd": per_batch, "bwd": per_batch},
+              "step_losses": step_losses, "rows": rows,
+              "losses_finite": losses_finite, "vs_plain": cmp2,
+              "checkpoint_ok": ckpt_ok,
+              "seconds_first_loss_and_backward": first_step_s,
+              "seconds_per_step": step_s,
+              "seconds_per_step_plain": step_plain_s, "seconds_fit": fit_s,
+              "peak_mem_bytes": peak_train,
+              "mpnn_1d_step": {
+                  "impl": "kernel_pregathered",
+                  "data": {**MPNN_1D_DATA,
+                           "seconds_to_make": data["ce_seconds"]},
+                  "n_node": graph1.n_node, "n_edge": graph1.n_edge,
+                  "windows_per_step": n_win1, "launches": counts1,
+                  "expected_launches": want1, "loss": float(m1["loss"]),
+                  "vs_plain": cmp1, "seconds_per_step": step1_s,
+                  "ok": step1_ok},
+              "ok": train_ok})
+        for key in entries:
+            entries[key]["launches"] = (slice_counts[key] + fit_counts[key]
+                                        + counts1[key])
+            entries[key]["launches_eval"] = slice_counts[key]
+            entries[key]["launches_train"] = fit_counts[key] + counts1[key]
+            entries[key]["ok"] = train_ok
+        if not train_ok:
+            rc = 9
+    return rc, list(entries.values())
+
+
+def make_data(groups) -> dict:
+    """Everything the selected groups read, made on the host from seeds."""
+    from magnet_tpu_torch.config import (
+        DATAMODULE_GRAPH,
+        DATAMODULE_GRAPH_2D,
+        DATAMODULE_IMPLICIT,
+        HEAT_TEST,
+    )
+    from magnet_tpu_torch.data.datamodule import build_loaders
+    from magnet_tpu_torch.data.heat import heat_batches
+
+    data = {}
+    if "cnn" in groups:
+        data["heat"] = heat_batches(16, 16, nt=HEAT_TEST["nt"],
+                                    nx=HEAT_TEST["nx"])
+        t0 = time.perf_counter()
+        data["ks_loaders"] = build_loaders(
+            {**DATAMODULE_IMPLICIT, **SMOKE_DATA}, seed=0)
+        data["ks_seconds"] = time.perf_counter() - t0
+    if "mpnn_paths" in groups:
+        t0 = time.perf_counter()
+        data["b2d_loaders"] = build_loaders(
+            {**DATAMODULE_GRAPH_2D, **MPNN_2D_DATA}, seed=0,
+            shuffle_eval=False)
+        data["b2d_seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        data["ce_loaders"] = build_loaders(
+            {**DATAMODULE_GRAPH, **MPNN_1D_DATA}, seed=0)
+        data["ce_seconds"] = time.perf_counter() - t0
+    return data
+
+
+def main(argv) -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    groups = tuple(argv) or GROUPS
+    unknown = [g for g in groups if g not in GROUPS]
+    if unknown:
+        print(f"chip_smoke: unknown group {unknown} (groups: {GROUPS})",
+              file=sys.stderr)
+        return 1
+    from magnet_tpu_torch.ops import cuda_build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+
+    # 1. device
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    emit({"phase": "device", "nvidia_smi": smi,
+          "kind": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda, "tf32": "off (matmul and cudnn)",
+          "groups": groups})
+
+    # 2. build: one nvcc per source, all started together; the host makes
+    # the runs' data meanwhile
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        building = pool.submit(cuda_build.build_all)
+        data = make_data(groups)
+        t_data = time.perf_counter() - t0
+        libs = building.result()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "seconds_making_data_meanwhile": t_data,
+          "libraries": {name: {"library": lib.name, "ptxas": ptxas_lines(lib)}
+                        for name, lib in libs.items()}})
+
+    kernels = []
+    for group_names, phases in ((("cnn",), cnn_phases),
+                                (("mpnn_kernels", "mpnn_paths"), mpnn_phases)):
+        if set(group_names) & set(groups):
+            rc, entries = phases(dev, data, groups)
+            kernels += entries
+            if rc:
+                emit({"kernels": kernels})
+                return rc
+    emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
@@ -465,4 +982,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,7 +1,9 @@
 """Model, data, trainer and callback defaults as Python data, copied from
-``magnet_tpu/config/defaults``: ``MAGNET_CNN`` is ``model/magnet_cnn.yaml``,
-``DATAMODULE_IMPLICIT`` is ``datamodule/h5_datamodule_implicit.yaml`` (plus
-the keys of the ``synthetic_ks`` source, which stands in for the files),
+``magnet_tpu/config/defaults``: ``MAGNET_CNN``, ``MPNN`` and ``MPNN_2D`` are
+``model/{magnet_cnn,mpnn,mpnn_2d}.yaml``; ``DATAMODULE_IMPLICIT``,
+``DATAMODULE_GRAPH`` and ``DATAMODULE_GRAPH_2D`` are
+``datamodule/h5_datamodule_{implicit,graph,graph_2d}.yaml`` (each plus the
+keys of its synthetic source, which stands in for the files),
 ``TRAINER`` is ``trainer/default.yaml`` without the keys of what is not
 ported (``devices``, ``steps_per_call``, ``precision``, ``log_every``),
 ``CALLBACKS`` the early-stopping patience of ``callbacks/default.yaml``.
@@ -30,6 +32,21 @@ MAGNET_CNN = {
     "weight_decay": 0.0000001,
 }
 
+MPNN = {
+    "hidden_features": 128,
+    "hidden_layer": 5,
+    "time_window": 16,
+    "teacher_forcing": False,
+    "neighbors": 3,
+    "factor": 0.3,
+    "step_size": 50,
+    "loss": "l1",
+    "lr": 0.001,
+    "weight_decay": 0.0,
+}
+
+MPNN_2D = {**MPNN, "time_window": 10, "neighbors": 4}
+
 DATAMODULE_IMPLICIT = {
     "kind": "h5_implicit_1d",
     "name": "h5_datamodule_implicit",
@@ -54,6 +71,66 @@ DATAMODULE_IMPLICIT = {
     "data_seed": 0,
     "burn_in": 40.0,
 }
+
+DATAMODULE_GRAPH = {
+    "kind": "h5_graph_1d",
+    "name": "h5_datamodule_graph",
+    "source": "h5",          # or synthetic_ce: made from data_seed, no file
+    "train_path": "data/CE_train_E3.h5",
+    "val_path": "data/CE_valid_E3.h5",
+    "test_path": "data/CE_test_E3.h5",
+    "nt_train": 250,
+    "nx_train": 50,
+    "nt_val": 250,
+    "nx_val": 50,
+    "nt_test": 250,
+    "nx_test": 50,
+    "batch_size": 32,
+    # synthetic_ce only: trajectories per split, their seed, the combined
+    # equation's preset and its solver's time steps
+    "n_train": 64,
+    "n_val": 32,
+    "n_test": 32,
+    "data_seed": 0,
+    "eq": "E3",
+    "n_steps": 4000,
+}
+
+DATAMODULE_GRAPH_2D = {
+    "kind": "h5_graph_2d",
+    "name": "h5_datamodule_graph_2d",
+    "source": "h5",          # or synthetic_burgers_2d: from data_seed
+    "train_path": "data/B1/burgers_train_B1_64.h5",
+    "val_path": "data/B1/burgers_test_B1_64.h5",
+    "test_path": "data/B1/burgers_test_B1_64.h5",
+    "nt_train": 50,
+    "res_train": 64,
+    "nt_val": 50,
+    "res_val": 64,
+    "nt_test": 50,
+    "res_test": 64,
+    "train_regular": True,
+    "val_regular": True,
+    "test_regular": True,
+    "batch_size": 4,
+    # synthetic_burgers_2d only: trajectories per split and their seed
+    "n_train": 16,
+    "n_val": 4,
+    "n_test": 4,
+    "data_seed": 0,
+}
+
+#: model name -> (its defaults, its datamodule's defaults)
+MODELS = {
+    "magnet_cnn": (MAGNET_CNN, DATAMODULE_IMPLICIT),
+    "mpnn": (MPNN, DATAMODULE_GRAPH),
+    "mpnn_2d": (MPNN_2D, DATAMODULE_GRAPH_2D),
+}
+DATAMODULES = {d["name"]: d for _, d in MODELS.values()}
+#: the source that makes each datamodule's data from a seed
+SYNTHETIC_SOURCE = {"h5_implicit_1d": "synthetic_ks",
+                    "h5_graph_1d": "synthetic_ce",
+                    "h5_graph_2d": "synthetic_burgers_2d"}
 
 HEAT_TEST = {"nt": DATAMODULE_IMPLICIT["nt_test"],
              "nx": DATAMODULE_IMPLICIT["nx_test"]}
@@ -91,31 +168,54 @@ def parse_overrides(argv: list[str], defaults: dict) -> dict:
     return out
 
 
-def compose(argv: list[str]) -> dict:
-    """The run's config from ``key=value`` overrides: ``model.params.<k>``
-    (or ``model.<k>``), ``datamodule.<k>``, ``trainer.<k>``,
-    ``callbacks.early_stopping.patience`` and the top-level ``seed``,
-    ``name``, ``ckpt_path``, ``workdir``, ``device``.  ``model=magnet_cnn``
-    and ``datamodule=h5_datamodule_implicit`` are accepted as the one
-    choice there is."""
-    sections = {"model": MAGNET_CNN, "datamodule": DATAMODULE_IMPLICIT,
-                "trainer": TRAINER, "callbacks": CALLBACKS}
-    names = {"model": "magnet_cnn", "datamodule": DATAMODULE_IMPLICIT["name"]}
-    split: dict[str, list[str]] = {k: [] for k in (*sections, "run")}
+def split_model(argv: list[str]) -> tuple[str, list[str]]:
+    """Take ``model=<name>`` (default ``magnet_cnn``) out of ``argv``."""
+    name, rest = "magnet_cnn", []
     for arg in argv:
         key, _, val = arg.partition("=")
-        if key in names:
-            if val != names[key]:
-                raise ValueError(f"{key} must be {names[key]!r}, got {val!r}")
-            continue
-        head, _, rest = key.partition(".")
-        if head in sections and rest:
+        if key == "model":
+            name = val
+        else:
+            rest.append(arg)
+    if name not in MODELS:
+        raise ValueError(f"model must be one of {sorted(MODELS)}, got {name!r}")
+    return name, rest
+
+
+def compose(argv: list[str]) -> dict:
+    """The run's config from ``key=value`` overrides: ``model=<name>``
+    (``magnet_cnn`` by default) and ``datamodule=<name>`` (the model's own
+    by default) choose the defaults; then ``model.params.<k>`` (or
+    ``model.<k>``), ``datamodule.<k>``, ``trainer.<k>``,
+    ``callbacks.early_stopping.patience`` and the top-level ``seed``,
+    ``name``, ``ckpt_path``, ``workdir``, ``device``.  The model's name is
+    returned as ``model_name``."""
+    model_name, argv = split_model(argv)
+    model_defaults, dm_defaults = MODELS[model_name]
+    rest = []
+    for arg in argv:
+        key, _, val = arg.partition("=")
+        if key == "datamodule":
+            if val not in DATAMODULES:
+                raise ValueError(f"datamodule must be one of "
+                                 f"{sorted(DATAMODULES)}, got {val!r}")
+            dm_defaults = DATAMODULES[val]
+        else:
+            rest.append(arg)
+    sections = {"model": model_defaults, "datamodule": dm_defaults,
+                "trainer": TRAINER, "callbacks": CALLBACKS}
+    split: dict[str, list[str]] = {k: [] for k in (*sections, "run")}
+    for arg in rest:
+        key, _, val = arg.partition("=")
+        head, _, rest_key = key.partition(".")
+        if head in sections and rest_key:
             for prefix in ("params.", "early_stopping."):
-                rest = rest.removeprefix(prefix)
-            split[head].append(f"{rest}={val}")
+                rest_key = rest_key.removeprefix(prefix)
+            split[head].append(f"{rest_key}={val}")
         else:
             split["run"].append(arg)
     cfg = parse_overrides(split["run"], RUN)
+    cfg["model_name"] = model_name
     for head, defaults in sections.items():
         cfg[head] = parse_overrides(split[head], defaults)
     return cfg

@@ -35,7 +35,7 @@
 // later change.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
-//        -Xcompiler -fPIC (magnet_tpu_torch/ops/fused_edge.py does this).
+//        -Xcompiler -fPIC (magnet_tpu_torch/ops/cuda_build.py does this).
 
 #include <cuda_runtime.h>
 

@@ -1,11 +1,12 @@
 """Datasets with the reference reader's semantics (counterpart of
-``magnet_tpu/data/datasets.py:48-159``); MAgNet[CNN] 1D's so far.
+``magnet_tpu/data/datasets.py``): MAgNet[CNN] 1D's and the MPNN graph
+datasets, 1D and 2D.
 
 A split comes from an HDF5 file (group ``train``/``valid``/``test`` with
-``t`` and ``pde_<nt>-<nx>``; ``h5py`` is imported only when a file is
-read, and the split is read into memory whole) or from arrays already in
-memory, ``{"t", "pde_<nt>-<nx>"}``, as ``data.synthetic.make_split`` makes
-them.  ``__getitem__`` returns a dict of numpy arrays.
+``t``, ``x`` and ``pde_<nt>-<nx>``, in 2D also ``y`` or ``coords``;
+``h5py`` is imported only when a file is read, and the split is read into
+memory whole) or from arrays already in memory under the same keys, as
+``data.synthetic.make_split`` makes them.  ``__getitem__`` returns a dict of numpy arrays.
 """
 from __future__ import annotations
 
@@ -91,3 +92,59 @@ class DatasetImplicit1D:
         if self.mode == "train":
             out["sample_idx"] = sample_lst.astype(np.int64)
         return out
+
+
+class _Split:
+    """One split's arrays and the trajectory key ``pde_<nt>-<res>``."""
+
+    def __init__(self, source, mode: str, key: str):
+        if mode not in MODES:
+            raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+        self.mode, self.key = mode, key
+        self.data = source if isinstance(source, dict) \
+            else read_h5_split(source, mode)
+        if key not in self.data:
+            raise KeyError(f"{key} not in the {mode} split "
+                           f"(it holds {sorted(self.data)})")
+
+    def set_epoch(self, seed: int):
+        """The graph datasets draw nothing at random."""
+
+    def __len__(self):
+        return self.data[self.key].shape[0]
+
+
+class DatasetGraph1D(_Split):
+    """MPNN samples {u (N, T), x (N, 1), t (T,)}."""
+
+    def __init__(self, source, mode: str, nt: int, nx: int):
+        super().__init__(source, mode, f"pde_{nt}-{nx}")
+
+    def __getitem__(self, idx):
+        u = np.asarray(self.data[self.key][idx], np.float32)   # (T, N)
+        x = np.asarray(self.data["x"][idx], np.float32)[:, None]
+        t = np.asarray(self.data["t"][idx], np.float32)
+        return {"u": u.T, "x": x, "t": t}
+
+
+class DatasetGraph2D(_Split):
+    """MPNN-2D samples {u (N, T), x (N, 2), t (T,)}: ``regular`` meshes are
+    the 'ij' meshgrid of the stored ``x`` and ``y`` (N = W*W), irregular
+    ones read their stored ``coords``."""
+
+    def __init__(self, source, mode: str, nt: int, res: int,
+                 regular: bool = True):
+        super().__init__(source, mode, f"pde_{nt}-{res}")
+        self.regular = regular
+
+    def __getitem__(self, idx):
+        u = np.asarray(self.data[self.key][idx], np.float32)   # (T, W, W) | (T, N)
+        u = u.reshape(u.shape[0], -1).T                        # (N, T)
+        if self.regular:
+            x = np.asarray(self.data["x"][idx], np.float32)
+            y = np.asarray(self.data["y"][idx], np.float32)
+            coords = np.stack(np.meshgrid(x, y, indexing="ij"), -1).reshape(-1, 2)
+        else:
+            coords = np.asarray(self.data["coords"][idx], np.float32)
+        t = np.asarray(self.data["t"][idx], np.float32)
+        return {"u": u, "x": coords, "t": t}

@@ -1,13 +1,14 @@
 """Model registry (counterpart of ``magnet_tpu/models/factory.py``); the
-port has MAgNet[CNN] 1D so far."""
+port has MAgNet[CNN] 1D and MPNN 1D/2D so far."""
 from __future__ import annotations
 
 import torch
 
 from magnet_tpu_torch.models.magnet_cnn_1d import MAgNetCNN1D
+from magnet_tpu_torch.models.mpnn import MPNN, MPNN2D
 from magnet_tpu_torch.nn.core import init_torch_default
 
-FACTORY = {"magnet_cnn": MAgNetCNN1D}
+FACTORY = {"magnet_cnn": MAgNetCNN1D, "mpnn": MPNN, "mpnn_2d": MPNN2D}
 
 
 def resolve_device(device) -> torch.device:
@@ -25,6 +26,8 @@ def create_model(name: str, hparams: dict, device="cuda", seed: int = 0):
     """Build model ``name`` with torch-default init drawn from a generator
     seeded with ``seed``, on ``device``, in eval mode."""
     device = resolve_device(device)
+    if name not in FACTORY:
+        raise ValueError(f"unknown model {name!r} (ported: {sorted(FACTORY)})")
     model = FACTORY[name](hparams)
     init_torch_default(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval()

@@ -19,22 +19,17 @@ over the degree is the caller's.
 * On CUDA tensors the wrapper goes through ``FusedEdgeTailAgg``, a
   ``torch.autograd.Function`` whose forward launches
   ``csrc/fused_edge_tail_agg.cu`` and whose backward launches
-  ``csrc/fused_edge_tail_agg_bwd.cu`` (hand-written, sm_90a, built with
-  ``nvcc`` into ``magnet_tpu_torch/_build/`` at first use, bound with
-  ``ctypes``), or raises.  Only CPU tensors take the plain version.  The
+  ``csrc/fused_edge_tail_agg_bwd.cu`` (hand-written, sm_90a, built and
+  bound by ``ops.cuda_build``), or raises.  Only CPU tensors take the plain version.  The
   forward saves its operands and no activation: the backward recomputes.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from concurrent.futures import ThreadPoolExecutor
-from pathlib import Path
 
 import torch
+
+from magnet_tpu_torch.ops import cuda_build
 
 LN_EPS = 1e-5
 #: (Ce, H, C) widths the CUDA source is compiled for (magnet_cnn's).
@@ -46,71 +41,16 @@ KERNEL_BWD_MAX_L1 = 3
 GRAD_NAMES = ("e0", "we", "be", "pxj", "pxi", "w_rest", "b_rest", "w_out",
               "b_out", "ln_s", "ln_b")
 
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 FWD, BWD = "fused_edge_tail_agg", "fused_edge_tail_agg_bwd"
-#: nvcc flags; the cached library's name hashes them with the source.
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
 _ARGTYPES = {
     FWD: [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     BWD: [ctypes.c_void_p] * 18 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
 }
-_LIBS: dict = {}
 
 #: Launches of the forward kernel so far (one per launch, nowhere else).
 launches = 0
 #: Launches of the backward kernel so far.
 launches_bwd = 0
-
-
-def _nvcc() -> str:
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the CUDA kernel cannot be built")
-    return found
-
-
-def build(name: str = FWD) -> Path:
-    """Compile ``csrc/<name>.cu`` for sm_90a (once per source and flags)
-    and return the shared library's path; ptxas's report (registers,
-    spills) is kept beside it as ``<library stem>.ptxas.txt``."""
-    src = _CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes())
-    digest.update("\0".join(_NVCC_FLAGS).encode())
-    lib = _BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
-    if lib.exists():
-        return lib
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(src)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
-    (_BUILD_DIR / f"{lib.stem}.ptxas.txt").write_text(res.stderr)
-    os.replace(tmp, lib)
-    return lib
-
-
-def build_all() -> dict[str, Path]:
-    """Build both kernels, one ``nvcc`` each, started together."""
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        futures = {name: pool.submit(build, name) for name in (FWD, BWD)}
-        return {name: f.result() for name, f in futures.items()}
-
-
-def _lib(name: str):
-    if name not in _LIBS:
-        lib = ctypes.CDLL(str(build(name)))
-        fn = getattr(lib, f"{name}_f32")
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-        _LIBS[name] = (lib, fn)  # the library stays referenced with it
-    return _LIBS[name][1]
 
 
 def fused_edge_tail_agg_plain(e0, we, be, pxj, pxi, senders, rowptr,
@@ -206,7 +146,7 @@ def _launch_fwd(e0, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest,
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (float4 rows)")
     out = torch.empty(n, c, dtype=torch.float32, device=e0.device)
-    fn = _lib(FWD)
+    fn = cuda_build.function(FWD, _ARGTYPES[FWD])
     with torch.cuda.device(e0.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
@@ -240,7 +180,7 @@ def _launch_bwd(e0, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest,
     wgrad = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
     partial = torch.empty(n_blocks, sum(sizes), dtype=torch.float32,
                           device=dev)
-    fn = _lib(BWD)
+    fn = cuda_build.function(BWD, _ARGTYPES[BWD])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(

@@ -1,9 +1,10 @@
 """Training entry point (counterpart of the repo's ``run.py``).
 
 Usage (on the card; ``device=cpu`` runs the plain PyTorch path):
-  python -m magnet_tpu_torch.run [model=magnet_cnn] \\
-      [datamodule.source=synthetic_ks] [model.params.lr=1e-4] [seed=21] \\
-      [trainer.max_epochs=250] [name=run] [ckpt_path=.../last.pt]
+  python -m magnet_tpu_torch.run [model=magnet_cnn|mpnn|mpnn_2d] \\
+      [datamodule.source=synthetic_ks|synthetic_ce|synthetic_burgers_2d] \\
+      [model.params.lr=1e-4] [seed=21] [trainer.max_epochs=250] [name=run] \\
+      [ckpt_path=.../last.pt]
 
 Composes the config from ``magnet_tpu_torch.config`` and the overrides,
 builds loaders, model and trainer, saves the config under a time-stamped
@@ -30,7 +31,8 @@ def main(argv=None) -> Trainer:
     # f32 throughout, as the reference: no TF32 in matmuls or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(f"training magnet_cnn on {cfg['datamodule']['name']}", flush=True)
+    print(f"training {cfg['model_name']} on {cfg['datamodule']['name']}",
+          flush=True)
 
     workdir = cfg["workdir"].replace("${name}", cfg["name"])
     workdir = os.path.join(workdir, time.strftime("%Y-%m-%d_%H-%M-%S"))
@@ -40,7 +42,8 @@ def main(argv=None) -> Trainer:
 
     loaders = build_loaders(cfg["datamodule"], seed=cfg["seed"])
     hp, tr = cfg["model"], cfg["trainer"]
-    model = create_model("magnet_cnn", hp, device=device, seed=cfg["seed"])
+    model = create_model(cfg["model_name"], hp, device=device,
+                         seed=cfg["seed"])
     trainer = Trainer(
         model, max_epochs=tr["max_epochs"], lr=hp["lr"],
         weight_decay=hp["weight_decay"], factor=hp["factor"],

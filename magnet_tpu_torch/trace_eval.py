@@ -1,14 +1,16 @@
 """Where the eval slice's time goes on the card.
 
-  python -m magnet_tpu_torch.trace_eval [n_traj=16] [batch_size=16] [seed=0]
-      [out=PATH]
+  python -m magnet_tpu_torch.trace_eval [model=magnet_cnn] [n_traj=16]
+      [batch_size=16] [seed=0] [out=PATH]
 
-Runs ``evaluate`` once to warm up, once timed with no profiler, then once
+Evaluates ``model`` at full width on test batches made from the seed at the
+shape of its datamodule's test split (for ``mpnn_2d`` pass the
+datamodule's ``batch_size=4``).  Runs ``evaluate`` once to warm up, once timed with no profiler, then once
 under ``torch.profiler`` (CPU and CUDA activities).  Prints one JSON line:
 wall seconds per batch of both timed runs, the device's busy time (the sum
 of device-side events: kernels and copies) and its idle share against each
-wall time, the kernels that took the most device time, and the host ops
-that took the most CPU time.  With ``out=PATH`` the profiler's full table
+wall time, the port's own kernels' launches per batch, the kernels that
+took the most device time, and the host ops that took the most CPU time.  With ``out=PATH`` the profiler's full table
 is written there too.
 """
 from __future__ import annotations
@@ -22,29 +24,33 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from magnet_tpu_torch.config import HEAT_TEST, MAGNET_CNN, parse_overrides
-from magnet_tpu_torch.data.heat import heat_batches
+from magnet_tpu_torch.config import MODELS, parse_overrides, split_model
+from magnet_tpu_torch.data.datamodule import synthetic_test_batches
 from magnet_tpu_torch.eval import evaluate
 from magnet_tpu_torch.models.factory import create_model
+from magnet_tpu_torch.ops import fused_edge as fe
+from magnet_tpu_torch.ops import mpnn_edge as me
 
 
 def main(argv=None) -> dict:
-    run = parse_overrides(list(sys.argv[1:] if argv is None else argv),
-                          {"n_traj": 16, "batch_size": 16, "seed": 0,
-                           "out": ""})
+    name, argv = split_model(list(sys.argv[1:] if argv is None else argv))
+    run = parse_overrides(argv, {"n_traj": 16, "batch_size": 16, "seed": 0,
+                                 "out": ""})
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    model = create_model("magnet_cnn", MAGNET_CNN, device="cuda",
+    model = create_model(name, MODELS[name][0], device="cuda",
                          seed=run["seed"])
-    batches = heat_batches(run["n_traj"], run["batch_size"],
-                           nt=HEAT_TEST["nt"], nx=HEAT_TEST["nx"],
-                           seed=run["seed"])
+    batches = synthetic_test_batches(name, run["n_traj"], run["batch_size"],
+                                     seed=run["seed"])
     evaluate(model, batches)
     torch.cuda.synchronize()
+    fe.launches = 0
+    me.reset_launches()
     t0 = time.perf_counter()
     evaluate(model, batches)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    launches = {"fused_edge_fwd": fe.launches, **me.launches}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -66,13 +72,16 @@ def main(argv=None) -> dict:
         out.write_text(events.table(sort_by="self_device_time_total",
                                     row_limit=60))
     result = {
-        "device": torch.cuda.get_device_name(0),
+        "device": torch.cuda.get_device_name(0), "model": name,
         "batches": len(batches), "batch_size": run["batch_size"],
         "wall_s_per_batch": wall / len(batches),
         "wall_s_per_batch_traced": wall_traced / len(batches),
         "device_busy_ms_per_batch": busy_ms / len(batches),
         "device_idle_share": 1.0 - busy_ms / 1e3 / wall,
         "device_idle_share_traced": 1.0 - busy_ms / 1e3 / wall_traced,
+        "device_events_per_batch": sum(n for _, _, n in dev) / len(batches),
+        "kernel_launches_per_batch": {k: v / len(batches)
+                                      for k, v in launches.items()},
         "top_device_kernels": [
             {"name": k[:80], "ms_per_batch": ms / len(batches),
              "calls_per_batch": n / len(batches)} for k, ms, n in dev[:12]],

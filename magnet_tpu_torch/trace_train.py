@@ -1,16 +1,19 @@
 """Where a training step's time goes on the card.
 
-  python -m magnet_tpu_torch.trace_train [steps=3] [batch_size=32] [seed=0]
-      [burn_in=10.0] [out=PATH]
+  python -m magnet_tpu_torch.trace_train [model=magnet_cnn] [steps=3]
+      [seed=0] [datamodule_key=value ...] [out=PATH]
 
-Makes ``steps`` batches of KS training data from the seed, takes two
+Makes ``steps`` batches of ``model``'s training data from the seed with its
+datamodule's synthetic source (``datamodule_key=value`` replaces a key of
+the datamodule's defaults, for example ``burn_in=10.0`` to shorten the KS
+burn-in or ``n_steps=2000`` for the combined equation's solver), takes two
 optimizer steps to warm up, then ``steps`` steps timed with no profiler and
 ``steps`` more under ``torch.profiler`` (CPU and CUDA activities), all
-through ``Trainer.train_step`` at the full width of ``magnet_cnn``.  Prints
+through ``Trainer.train_step`` at the model's full width.  Prints
 one JSON line: wall seconds per step of both timed runs, the device's busy
 time per step (the sum of device-side events: kernels and copies) and its
 idle share against each wall time, device kernels launched per step, the
-fused edge kernels' launches per step, the kernels that took the most
+port's own kernels' launches per step, the kernels that took the most
 device time, and the host ops that took the most CPU time.  With
 ``out=PATH`` the profiler's full table is written there too.
 """
@@ -27,33 +30,34 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from magnet_tpu_torch.config import (
-    DATAMODULE_IMPLICIT,
-    MAGNET_CNN,
+    MODELS,
+    SYNTHETIC_SOURCE,
     parse_overrides,
+    split_model,
 )
-from magnet_tpu_torch.data.datasets import DatasetImplicit1D
-from magnet_tpu_torch.data.loader import DataLoader
-from magnet_tpu_torch.data.synthetic import make_split
+from magnet_tpu_torch.data.datamodule import build_loaders
 from magnet_tpu_torch.models.factory import create_model
 from magnet_tpu_torch.ops import fused_edge as fe
+from magnet_tpu_torch.ops import mpnn_edge as me
 from magnet_tpu_torch.train.trainer import Trainer
 
 
 def main(argv=None) -> dict:
-    run = parse_overrides(list(sys.argv[1:] if argv is None else argv),
-                          {"steps": 3, "batch_size": 32, "seed": 0,
-                           "burn_in": 10.0, "out": ""})
+    name, argv = split_model(list(sys.argv[1:] if argv is None else argv))
+    hp, dm = MODELS[name]
+    run_keys = {"steps": 3, "seed": 0, "out": ""}
+    run = parse_overrides(
+        [a for a in argv if a.split("=")[0] in run_keys], run_keys)
+    dm = parse_overrides(
+        [a for a in argv if a.split("=")[0] not in run_keys], dm)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    hp, dm = MAGNET_CNN, DATAMODULE_IMPLICIT
     steps = run["steps"]
-    model = create_model("magnet_cnn", hp, device="cuda", seed=run["seed"])
-    dataset = DatasetImplicit1D(
-        make_split("KS", steps * run["batch_size"], dm["nt_train"],
-                   dm["nx_train"], seed=run["seed"], burn_in=run["burn_in"]),
-        "train", nt=dm["nt_train"], nx=dm["nx_train"], sampling=dm["sampling"],
-        samples=dm["samples"])
-    loader = DataLoader(dataset, run["batch_size"], seed=run["seed"])
+    model = create_model(name, hp, device="cuda", seed=run["seed"])
+    loader = build_loaders(
+        {**dm, "source": SYNTHETIC_SOURCE[dm["kind"]],
+         "n_train": steps * dm["batch_size"], "n_val": 1, "n_test": 1,
+         "data_seed": run["seed"]}, seed=run["seed"])["train"]
     loader.set_epoch(0)
     batches = list(loader)
     with tempfile.TemporaryDirectory() as workdir:
@@ -71,10 +75,12 @@ def main(argv=None) -> dict:
         trainer.train_step(b)
     torch.cuda.synchronize()
     fe.launches = fe.launches_bwd = 0
+    me.reset_launches()
     t0 = time.perf_counter()
     run_steps()
     wall = time.perf_counter() - t0
-    fwd_launches, bwd_launches = fe.launches, fe.launches_bwd
+    launches = {"fused_edge_fwd": fe.launches,
+                "fused_edge_bwd": fe.launches_bwd, **me.launches}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -95,8 +101,8 @@ def main(argv=None) -> dict:
         out.write_text(events.table(sort_by="self_device_time_total",
                                     row_limit=80))
     result = {
-        "device": torch.cuda.get_device_name(0),
-        "steps": steps, "batch_size": run["batch_size"],
+        "device": torch.cuda.get_device_name(0), "model": name,
+        "steps": steps, "batch_size": dm["batch_size"],
         "loss_last_step": float(losses[-1]),
         "wall_s_per_step": wall / steps,
         "wall_s_per_step_traced": wall_traced / steps,
@@ -104,8 +110,8 @@ def main(argv=None) -> dict:
         "device_idle_share": 1.0 - busy_ms / 1e3 / wall,
         "device_idle_share_traced": 1.0 - busy_ms / 1e3 / wall_traced,
         "device_events_per_step": sum(n for _, _, n in dev) / steps,
-        "fused_edge_launches_per_step": {"fwd": fwd_launches / steps,
-                                         "bwd": bwd_launches / steps},
+        "kernel_launches_per_step": {k: v / steps
+                                     for k, v in launches.items()},
         "top_device_kernels": [
             {"name": k[:80], "ms_per_step": ms / steps,
              "calls_per_step": n / steps} for k, ms, n in dev[:16]],

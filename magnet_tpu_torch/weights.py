@@ -1,8 +1,10 @@
-"""JAX ``magnet_cnn`` params -> the port's ``state_dict``.
+"""JAX params -> the port's ``state_dict``, for ``magnet_cnn``, ``mpnn``
+and ``mpnn_2d``.
 
-The inverse of ``magnet_tpu/train/import_torch.py:import_magnet_cnn``: the
-port's modules carry the reference's torch key names, so that importer
-maps a port ``state_dict`` back onto the JAX tree leaf for leaf.
+The inverse of ``magnet_tpu/train/import_torch.py`` (``import_magnet_cnn``,
+``import_mpnn``): the port's modules carry the reference's torch key names,
+so those importers map a port ``state_dict`` back onto the JAX tree leaf
+for leaf.
 
 Conventions (the importer's, read backwards):
   * flax Dense kernel (in, out) -> torch Linear weight (out, in);
@@ -11,7 +13,9 @@ Conventions (the importer's, read backwards):
   * MLP Linears sit at even indices of ``layers``;
   * scanned stacks (processor steps, EDSR blocks) are split on axis 0;
   * the processor's split first edge layer ``e_w_xi | e_w_xj | e_w_e`` is
-    joined back into the unsplit (H, 3C) Linear, in that chunk order.
+    joined back into the unsplit (H, 3C) Linear, in that chunk order, and
+    the MPNN layer's ``msg1_xi | msg1_xj | msg1_u | msg1_pos | msg1_var``
+    into ``message_net_1.0``, whose bias is ``msg1_var``'s.
 """
 from __future__ import annotations
 
@@ -53,12 +57,60 @@ def _index(tree, i):
     return np.asarray(tree)[i]
 
 
-def state_dict_from_jax(params: Mapping[str, Any],
-                        hp: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+MSG1_CHUNKS = ("msg1_xi", "msg1_xj", "msg1_u", "msg1_pos", "msg1_var")
+
+
+def mpnn_layer_state_dict(layer: Mapping[str, Any],
+                          prefix: str = "") -> dict[str, torch.Tensor]:
+    """One JAX ``MPNNLayer``'s params as the ``state_dict`` of the port's
+    ``nn.gnn_layer.MPNNLayer``, keys starting with ``prefix``."""
+    sd: dict[str, torch.Tensor] = {}
+    w1 = np.concatenate([layer[k]["kernel"] for k in MSG1_CHUNKS], axis=0)
+    _lin(sd, f"{prefix}message_net_1.0",
+         {"kernel": w1, "bias": layer["msg1_var"]["bias"]})
+    _lin(sd, f"{prefix}message_net_2.0",
+         {"kernel": layer["msg2_w"], "bias": layer["msg2_b"]})
+    _lin(sd, f"{prefix}update_net_1.0", layer["upd1"]["Dense_0"])
+    _lin(sd, f"{prefix}update_net_2.0", layer["upd2"]["Dense_0"])
+    return sd
+
+
+def decoder_state_dict(dec: Mapping[str, Any], with_mid_swish: bool,
+                       prefix: str = "") -> dict[str, torch.Tensor]:
+    """A JAX ``TemporalBundlingDecoder``'s params as the ``state_dict`` of
+    the port's: the second Conv1d sits at index 2 behind the mid Swish, at
+    index 1 without it."""
+    sd: dict[str, torch.Tensor] = {}
+    _conv(sd, f"{prefix}0", dec["Conv_0"])
+    _conv(sd, f"{prefix}{2 if with_mid_swish else 1}", dec["Conv_1"])
+    return sd
+
+
+def _mpnn_state_dict(p, hp, is_2d: bool) -> dict[str, torch.Tensor]:
+    n_layers = int(hp.get("hidden_layer", 5))
+    tw = int(hp.get("time_window", 10 if is_2d else 16))
+    sd: dict[str, torch.Tensor] = {}
+    _lin(sd, "embedding_mlp.0", p["embed_0"]["Dense_0"])
+    _lin(sd, "embedding_mlp.2", p["embed_1"]["Dense_0"])
+    for i in range(n_layers):
+        sd.update(mpnn_layer_state_dict(_index(p["gnn_layers"]["layer"], i),
+                                        f"gnn_layers.{i}."))
+    # the 1D time_window == 10 decoder has no Swish between its convolutions
+    sd.update(decoder_state_dict(p["output_mlp"], is_2d or tw != 10,
+                                 "output_mlp."))
+    return sd
+
+
+def state_dict_from_jax(params: Mapping[str, Any], hp: Mapping[str, Any],
+                        model: str = "magnet_cnn") -> dict[str, torch.Tensor]:
     """``params`` is the JAX model's variables (``{'params': ...}``) or the
-    inner tree, leaves numpy arrays; returns a ``state_dict`` for
-    ``magnet_tpu_torch.models.magnet_cnn_1d.MAgNetCNN1D``."""
+    inner tree, leaves numpy arrays; returns a ``state_dict`` for the
+    port's model ``model`` (``magnet_cnn``, ``mpnn`` or ``mpnn_2d``)."""
     p = params.get("params", params)
+    if model in ("mpnn", "mpnn_2d"):
+        return _mpnn_state_dict(p, hp, is_2d=model == "mpnn_2d")
+    if model != "magnet_cnn":
+        raise ValueError(f"no weight bridge for model {model!r}")
     mlp_layers = int(hp.get("mlp_layers", 4))
     res_layers = int(hp.get("res_layers", 4))
     mp = int(hp.get("num_message_passing_steps", 10))

@@ -1,5 +1,6 @@
-"""The port's data path against magnet_tpu's: the KS solver copy, the
-implicit-1D dataset on one HDF5 file read by both packages, and the
+"""The port's data path against magnet_tpu's: the solver copies (KS, the
+combined equation, 2D Burgers), the implicit-1D and the graph datasets on
+HDF5 files read by both packages and on the same arrays in memory, and the
 loader's order and batch counts.
 
 Everything is compared exactly except ``lr_frames``: the linear resize is
@@ -14,7 +15,12 @@ from magnet_tpu.data import synthetic as jax_synthetic  # noqa: E402
 from magnet_tpu.data.loader import DataLoader as JaxDataLoader  # noqa: E402
 from magnet_tpu_torch.data import synthetic  # noqa: E402
 from magnet_tpu_torch.data.datamodule import build_loaders  # noqa: E402
-from magnet_tpu_torch.data.datasets import DatasetImplicit1D  # noqa: E402
+from magnet_tpu_torch.data.datasets import (  # noqa: E402
+    DatasetGraph1D,
+    DatasetGraph2D,
+    DatasetImplicit1D,
+    read_h5_split,
+)
 from magnet_tpu_torch.data.loader import DataLoader  # noqa: E402
 
 NT, NX = 32, 64
@@ -29,12 +35,46 @@ def test_solve_ks_1d_copy_equals_magnet_tpu():
         np.testing.assert_array_equal(g, w)
 
 
+@pytest.mark.parametrize("eq", ["E1", "E2", "E3"])
+def test_solve_combined_1d_copy_equals_magnet_tpu(eq):
+    kw = dict(eq=eq, nx_fine=64, nt_out=10, nx_out=16, n_steps=400)
+    got = synthetic.solve_combined_1d(np.random.default_rng(3), **kw)
+    want = jax_synthetic.solve_combined_1d(np.random.default_rng(3), **kw)
+    assert np.isfinite(got[0]).all() and np.abs(got[0]).max() > 0.1
+    for g, w in zip(got, want):
+        assert g.dtype == np.float32
+        np.testing.assert_array_equal(g, w)
+    with pytest.raises(ValueError, match="preset"):
+        synthetic.solve_combined_1d(np.random.default_rng(3), eq="E4")
+
+
+def test_solve_burgers_2d_copy_equals_magnet_tpu():
+    kw = dict(w_fine=16, nt_out=5, w_out=8)
+    got = synthetic.solve_burgers_2d(np.random.default_rng(8), **kw)
+    want = jax_synthetic.solve_burgers_2d(np.random.default_rng(8), **kw)
+    assert got[0].shape == (5, 8, 8)
+    for g, w in zip(got, want):
+        assert g.dtype == np.float32
+        np.testing.assert_array_equal(g, w)
+
+
+def test_make_split_of_the_graph_sources():
+    ce = synthetic.make_split("E2", 2, 10, 16, seed=1, n_steps=400)
+    assert ce["pde_10-16"].shape == (2, 10, 16)
+    assert ce["x"].shape == (2, 16) and ce["t"].shape == (2, 10)
+    b2 = synthetic.make_split("B2D", 2, 5, 64, seed=1)
+    assert b2["pde_5-64"].shape == (2, 5, 64, 64)
+    assert b2["x"].shape == b2["y"].shape == (2, 64)
+    again = synthetic.make_split("B2D", 2, 5, 64, seed=1)
+    np.testing.assert_array_equal(b2["pde_5-64"], again["pde_5-64"])
+
+
 def test_make_split_has_the_file_schema():
     split = synthetic.make_split("KS", 2, 16, 32, seed=1, t_end=1.0,
                                  burn_in=0.2)
     assert split["t"].shape == (2, 16) and split["pde_16-32"].shape == (2, 16, 32)
     with pytest.raises(ValueError):
-        synthetic.make_split("E1", 1, 16, 32)
+        synthetic.make_split("Burgers", 1, 16, 32)
 
 
 @pytest.fixture(scope="module")
@@ -78,6 +118,78 @@ def test_dataset_samples_equal_magnet_tpu(h5_file, mode, sampling,
         L = NX if eval_support == "full" else NX // 2
         assert got_ds[0]["lr_frames"].shape == (NT, 1, L)
         assert got_ds[0]["coords"].shape == (NX, 1)
+
+
+def _assert_items_equal(got_ds, want_ds):
+    assert len(got_ds) == len(want_ds) > 0
+    for i in range(len(want_ds)):
+        got, want = got_ds[i], want_ds[i]
+        assert set(got) == set(want) == {"u", "x", "t"}
+        for k in want:
+            assert got[k].dtype == want[k].dtype, k
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("mode", ["train", "valid", "test"])
+def test_graph_1d_items_equal_magnet_tpu(h5_file, mode):
+    from magnet_tpu.data.datasets import DatasetGraph1D as JaxDataset
+
+    want_ds = JaxDataset(h5_file, mode, nt=NT, nx=NX, load_all=True)
+    _assert_items_equal(DatasetGraph1D(h5_file, mode, nt=NT, nx=NX), want_ds)
+    in_memory = DatasetGraph1D(read_h5_split(h5_file, mode), mode, nt=NT, nx=NX)
+    _assert_items_equal(in_memory, want_ds)
+    assert in_memory[0]["u"].shape == (NX, NT)
+    assert in_memory[0]["x"].shape == (NX, 1)
+
+
+@pytest.mark.parametrize("regular", [True, False])
+def test_graph_2d_items_equal_magnet_tpu(tmp_path, regular):
+    pytest.importorskip("h5py")
+    from magnet_tpu.data.datasets import DatasetGraph2D as JaxDataset
+
+    res, n_nodes = 8, 20
+    path = jax_synthetic.generate_2d_file(
+        str(tmp_path / "b.h5"), n_train=2, n_valid=1, n_test=2, nt=6, res=res,
+        seed=3, irregular=not regular, n_nodes=None if regular else n_nodes)
+    key_res = res if regular else n_nodes
+    for mode in ("train", "test"):
+        want_ds = JaxDataset(path, mode, nt=6, res=key_res, regular=regular,
+                             load_all=True)
+        _assert_items_equal(
+            DatasetGraph2D(path, mode, nt=6, res=key_res, regular=regular),
+            want_ds)
+        in_memory = DatasetGraph2D(read_h5_split(path, mode), mode, nt=6,
+                                   res=key_res, regular=regular)
+        _assert_items_equal(in_memory, want_ds)
+        n = res * res if regular else n_nodes
+        assert in_memory[0]["u"].shape == (n, 6)
+        assert in_memory[0]["x"].shape == (n, 2)
+
+
+def test_graph_datamodules_from_a_seed():
+    """``synthetic_ce`` and ``synthetic_burgers_2d`` make the three splits;
+    the 2D val split is the group ``test``, the 1D one ``valid``."""
+    ce = dict(kind="h5_graph_1d", source="synthetic_ce", eq="E1", n_steps=400,
+              n_train=3, n_val=2, n_test=1, batch_size=2, data_seed=1)
+    b2 = dict(kind="h5_graph_2d", source="synthetic_burgers_2d", n_train=2,
+              n_val=1, n_test=1, batch_size=2, data_seed=1)
+    for split in ("train", "val", "test"):
+        ce.update({f"nt_{split}": 10, f"nx_{split}": 16})
+        b2.update({f"nt_{split}": 5, f"res_{split}": 64})
+    loaders = build_loaders(ce, seed=0)
+    assert [len(loaders[k]) for k in ("train", "val", "test")] == [1, 1, 1]
+    assert loaders["val"].dataset.mode == "valid"
+    loaders["train"].set_epoch(0)
+    batch = next(iter(loaders["train"]))
+    assert batch["u"].shape == (2, 16, 10) and batch["x"].shape == (2, 16, 1)
+    loaders2 = build_loaders(b2, seed=0)
+    assert loaders2["val"].dataset.mode == "test"
+    loaders2["train"].set_epoch(0)
+    batch2 = next(iter(loaders2["train"]))
+    assert batch2["u"].shape == (2, 64 * 64, 5)
+    assert batch2["x"].shape == (2, 64 * 64, 2)
+    with pytest.raises(ValueError, match="source"):
+        build_loaders(dict(ce, source="synthetic_ks"))
 
 
 def test_dataset_rejects_a_wrong_key_and_mode(h5_file):

@@ -88,7 +88,8 @@ def test_port_imports_no_jax_and_nothing_of_magnet_tpu():
     code = (
         "import sys, pkgutil, importlib, magnet_tpu_torch, chip_smoke\n"
         "import magnet_tpu_torch.eval, magnet_tpu_torch.run\n"
-        "import magnet_tpu_torch.trace_train\n"
+        "import magnet_tpu_torch.trace_train, magnet_tpu_torch.trace_eval\n"
+        "import magnet_tpu_torch.models.mpnn, magnet_tpu_torch.ops.mpnn_edge\n"
         "for m in pkgutil.walk_packages(magnet_tpu_torch.__path__, 'magnet_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'h5py', 'magnet_tpu')]\n"
@@ -99,6 +100,44 @@ def test_port_imports_no_jax_and_nothing_of_magnet_tpu():
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.startswith("clean")
+
+
+def test_evaluate_takes_a_predict_that_returns_a_tensor(pair):
+    """``evaluate`` reads the first output of a tuple (magnet_cnn) and a
+    bare tensor (the MPNN family) alike."""
+    _, _, _, _, tm, batch = pair
+
+    class TensorPredict:
+        def __getattr__(self, name):
+            return getattr(tm, name)
+
+        def predict(self, b, graph):
+            return tm.predict(b, graph)[0]
+
+    assert evaluate(TensorPredict(), [batch], "cpu") == evaluate(
+        tm, [batch], "cpu")
+
+
+def test_compose_takes_the_model_and_its_datamodule():
+    from magnet_tpu_torch.config import (
+        DATAMODULE_GRAPH_2D, MAGNET_CNN, MPNN_2D, compose)
+
+    cfg = compose(["trainer.max_epochs=3"])
+    assert cfg["model_name"] == "magnet_cnn" and cfg["model"] == MAGNET_CNN
+    assert cfg["datamodule"]["kind"] == "h5_implicit_1d"
+    cfg = compose(["model=mpnn_2d", "model.params.hidden_layer=2",
+                   "datamodule.source=synthetic_burgers_2d", "seed=3"])
+    assert cfg["model_name"] == "mpnn_2d" and cfg["seed"] == 3
+    assert cfg["model"] == {**MPNN_2D, "hidden_layer": 2}
+    assert cfg["datamodule"] == {**DATAMODULE_GRAPH_2D,
+                                 "source": "synthetic_burgers_2d"}
+    cfg = compose(["model=mpnn", "datamodule=h5_datamodule_graph"])
+    assert cfg["datamodule"]["kind"] == "h5_graph_1d"
+    assert cfg["model"]["time_window"] == 16
+    for bad in (["model=fno_1d"], ["datamodule=h5_datamodule_2d"],
+                ["model=mpnn", "model.params.latent_dim=8"]):
+        with pytest.raises(ValueError):
+            compose(bad)
 
 
 def test_create_model_defaults_to_cuda():
@@ -122,3 +161,7 @@ def test_trainer_and_run_default_to_cuda():
             Trainer(model)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             port_run.main(["trainer.max_epochs=1"])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            port_run.main(["model=mpnn_2d", "trainer.max_epochs=1"])
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            create_model("mpnn_2d", {})
