@@ -3,21 +3,25 @@
 
   python3 chip_smoke.py                 every phase (the full check)
   python3 chip_smoke.py GROUP [GROUP]   only the named groups of phases:
-                                        cnn, mpnn_kernels, mpnn_paths
+                                        cnn, mpnn_kernels, mpnn_paths, cnn2d
 
-Builds the port's four CUDA sources from the checkout (six kernels: the
-fused GraphNet edge pipeline's forward and backward, and the fused MPNN
-message path's forward and backward, each with its in-kernel-gather and
-its pre-gathered entry), holds each kernel against its plain PyTorch
-version at the shapes of the paths that launch it, and drives every ported
-path at full width on data made from a seed: MAgNet[CNN] 1D through
+Builds the port's five CUDA sources from the checkout (nine kernels: the
+fused GraphNet edge pipeline's forward and backward, each with its fold
+and its pre-gathered entry; the fused MPNN message path's forward and
+backward, each with its in-kernel-gather and its pre-gathered entry; the
+segment sum), holds each kernel against its plain PyTorch version at the
+shapes of the paths that launch it, and drives every ported path at full
+width on data made from a seed: MAgNet[CNN] 1D through
 ``magnet_tpu_torch.eval.evaluate`` and ``Trainer.fit`` (with a checkpoint
-read back and a resume), MPNN-2D through the same two entry points, and
-one MPNN-1D training step on the pre-gathered kernels.  It checks that each
-path went through its kernels by their launch counts.  Prints one JSON line
-per phase (``device``, ``build``, ``kernel``, ``slice``, ``kernel_bwd``,
+read back and a resume), MPNN-2D through the same two entry points, one
+MPNN-1D training step on the pre-gathered kernels, and MAgNet[CNN] 2D
+through ``evaluate`` (the fold lane) and ``Trainer.fit`` (the pre-gathered
+lane, with a checkpoint read back and a resume).  It checks that each path
+went through its kernels by their launch counts.  Prints one JSON line per
+phase (``device``, ``build``, ``kernel``, ``slice``, ``kernel_bwd``,
 ``train``, ``mpnn_kernel``, ``mpnn_kernel_bwd``, ``mpnn_slice``,
-``mpnn_train``), the card's name and power limit, a ``{"kernels": [...]}``
+``mpnn_train``, ``cnn2d_kernel``, ``cnn2d_kernel_bwd``, ``cnn2d_slice``,
+``cnn2d_train``), the card's name and power limit, a ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Any failed phase exits
 non-zero, and with no CUDA device it exits 1 before printing any result.
 """
@@ -80,7 +84,15 @@ MPNN_2D_DATA = {"source": "synthetic_burgers_2d", "n_train": 12, "n_val": 4,
 # that the host does not dominate the run
 MPNN_1D_DATA = {"source": "synthetic_ce", "n_train": 8, "n_val": 1,
                 "n_test": 1, "batch_size": 8, "n_steps": 2000, "data_seed": 0}
-GROUPS = ("cnn", "mpnn_kernels", "mpnn_paths")
+# MAgNet[CNN] 2D's training data: the MPNN-2D trajectories (Burgers-2D at
+# the datamodule's nt 50, 64 x 64) and 12 more from seed 3, in batches of 8
+# (the datamodule's 32, cut); validation and test are the MPNN-2D splits
+CNN2D_EXTRA_TRAIN, CNN2D_BATCH = 12, 8
+# the kernel phases' graph: the datamodule's full training batch
+CNN2D_KERNEL_BATCH = 32
+# segment sum vs plain: a few adds per row in another order
+SEG_RTOL, SEG_ATOL_REL = 1e-5, 1e-6
+GROUPS = ("cnn", "mpnn_kernels", "mpnn_paths", "cnn2d")
 
 
 def emit(obj) -> None:
@@ -175,10 +187,11 @@ def timed(fn) -> float:
     return time.perf_counter() - t0
 
 
-def cnn_phases(dev, data, groups) -> tuple[int, list]:
+def cnn_phases(dev, data, groups) -> tuple[int, list, dict]:
     """Phases ``kernel``, ``slice``, ``kernel_bwd`` and ``train``: the fused
     GraphNet edge kernels and the two MAgNet[CNN] 1D paths.  Returns the
-    exit code (0: all passed) and the two kernels' entries."""
+    exit code (0: all passed), the two kernels' entries and no launches of
+    another group's kernel."""
     from magnet_tpu_torch.config import (
         DATAMODULE_IMPLICIT,
         HEAT_TEST,
@@ -230,7 +243,7 @@ def cnn_phases(dev, data, groups) -> tuple[int, list]:
           "small_case": small, "ms": ms, "plain_ms": plain_ms,
           "library_ms": None, **bnd, "ok": kernel_ok})
     if not kernel_ok:
-        return 2, []
+        return 2, [], {}
 
     # 4. the slice: evaluate() at full width on 16 Heat trajectories
     fe.launches = 0
@@ -272,7 +285,7 @@ def cnn_phases(dev, data, groups) -> tuple[int, list]:
           "peak_mem_bytes": peak, "ok": slice_ok})
 
     if not slice_ok:
-        return 3, []
+        return 3, [], {}
     del preds, preds_plain
 
     # 5. the backward kernel vs plain, every gradient, at the training
@@ -328,7 +341,7 @@ def cnn_phases(dev, data, groups) -> tuple[int, list]:
                                     "plain_ms": fwd_plain_ms_t, **bnd_fwd_t},
           "ok": bwd_ok})
     if not bwd_ok:
-        return 4, []
+        return 4, [], {}
 
     # 6. training: Trainer.fit at full width on seeded KS data
     def fresh_model():
@@ -456,7 +469,7 @@ def cnn_phases(dev, data, groups) -> tuple[int, list]:
         "ms": bwd_ms, "plain_ms": bwd_plain_ms,
         "bound_ms": bnd_bwd["bound_ms"], "bound_by": bnd_bwd["bound_by"],
         "library_ms": None, "ok": bwd_ok and train_ok}]
-    return (0 if train_ok else 5), kernels
+    return (0 if train_ok else 5), kernels, {}
 
 
 def mpnn_operands(graph, h, seed, dev):
@@ -501,11 +514,12 @@ def grid_coords(batch_size: int, width: int) -> np.ndarray:
     return np.broadcast_to(grid, (batch_size, *grid.shape)).copy()
 
 
-def mpnn_phases(dev, data, groups) -> tuple[int, list]:
+def mpnn_phases(dev, data, groups) -> tuple[int, list, dict]:
     """Phases ``mpnn_kernel`` and ``mpnn_kernel_bwd`` (group
     ``mpnn_kernels``), ``mpnn_slice`` and ``mpnn_train`` (group
     ``mpnn_paths``): the four MPNN message kernels and the MPNN paths.
-    Returns the exit code (0: all passed) and the four kernels' entries."""
+    Returns the exit code (0: all passed), the four kernels' entries and
+    the segment sum's launches on the MPNN-1D step."""
     from magnet_tpu_torch.config import (
         DATAMODULE_GRAPH,
         DATAMODULE_GRAPH_2D,
@@ -515,6 +529,7 @@ def mpnn_phases(dev, data, groups) -> tuple[int, list]:
     from magnet_tpu_torch.eval import evaluate
     from magnet_tpu_torch.models.factory import create_model
     from magnet_tpu_torch.ops import mpnn_edge as me
+    from magnet_tpu_torch.ops import segment as seg
     from magnet_tpu_torch.ops.graph import csr_from_edges, radius_graph
     from magnet_tpu_torch.train.checkpoint import load_checkpoint
     from magnet_tpu_torch.train.trainer import Trainer
@@ -548,7 +563,7 @@ def mpnn_phases(dev, data, groups) -> tuple[int, list]:
         return (ops[0].index_select(0, gr.senders.long()), *ops[1:],
                 gr.rowptr)
 
-    entries = {}
+    entries, extra = {}, {}
     rc = 0
     if "mpnn_kernels" in groups:
         # 7. the two forward entries vs plain
@@ -592,7 +607,7 @@ def mpnn_phases(dev, data, groups) -> tuple[int, list]:
               "library_ms_reason": "no single PyTorch call computes the "
                                    "fused function", "ok": fwd_ok})
         if not fwd_ok:
-            return 6, []
+            return 6, [], {}
 
         # 8. the two backward entries vs plain, every gradient elementwise
         # at both shapes (swish is smooth: no tie can flip a gradient)
@@ -656,7 +671,7 @@ def mpnn_phases(dev, data, groups) -> tuple[int, list]:
               "library_ms_reason": "no single PyTorch call computes the "
                                    "fused function", "ok": bwd_ok})
         if not bwd_ok:
-            return 7, []
+            return 7, [], {}
 
         def worst(found):
             """The largest max_abs_err anywhere in a nest of results."""
@@ -737,7 +752,7 @@ def mpnn_phases(dev, data, groups) -> tuple[int, list]:
               "seconds_to_make_data": data["b2d_seconds"],
               "peak_mem_bytes": peak, "ok": slice_ok})
         if not slice_ok:
-            return 8, list(entries.values())
+            return 8, list(entries.values()), {}
         del preds, preds_plain
         slice_counts = counts
 
@@ -844,16 +859,19 @@ def mpnn_phases(dev, data, groups) -> tuple[int, list]:
                                device=dev)
             trainer1.setup(1)
             me.reset_launches()
+            seg.launches = 0
             m1 = trainer1.train_step(batch1)
             torch.cuda.synchronize()
             counts1 = dict(me.launches)
+            seg1 = seg.launches
             step1_s = timed(lambda: trainer1.train_step(batch1))
         n_win1 = (DATAMODULE_GRAPH["nt_train"] - hp1["time_window"]) \
             // hp1["time_window"]
         per_step1 = n_win1 * hp1["hidden_layer"]
         want1 = {"fwd_gather": 0, "bwd_gather": 0,
                  "fwd_pregathered": per_step1, "bwd_pregathered": per_step1}
-        step1_ok = (counts1 == want1 and cmp1["ok"]
+        # the sender gather's backward is the segment sum, once per layer
+        step1_ok = (counts1 == want1 and seg1 == per_step1 and cmp1["ok"]
                     and bool(torch.isfinite(m1["loss"])))
         train_ok = (fit_counts == want_fit and losses_finite
                     and step_losses[-1] < step_losses[0] and cmp2["ok"]
@@ -878,7 +896,10 @@ def mpnn_phases(dev, data, groups) -> tuple[int, list]:
                            "seconds_to_make": data["ce_seconds"]},
                   "n_node": graph1.n_node, "n_edge": graph1.n_edge,
                   "windows_per_step": n_win1, "launches": counts1,
-                  "expected_launches": want1, "loss": float(m1["loss"]),
+                  "expected_launches": want1,
+                  "segment_sum_launches": seg1,
+                  "expected_segment_sum_launches": per_step1,
+                  "loss": float(m1["loss"]),
                   "vs_plain": cmp1, "seconds_per_step": step1_s,
                   "ok": step1_ok},
               "ok": train_ok})
@@ -888,9 +909,439 @@ def mpnn_phases(dev, data, groups) -> tuple[int, list]:
             entries[key]["launches_eval"] = slice_counts[key]
             entries[key]["launches_train"] = fit_counts[key] + counts1[key]
             entries[key]["ok"] = train_ok
+        extra = {"segment_sum": {"launches_mpnn_1d_step": seg1}}
         if not train_ok:
             rc = 9
-    return rc, list(entries.values())
+    return rc, list(entries.values()), extra
+
+
+def cnn2d_graph(model, batch_size, seed):
+    """The MAgNet[CNN] 2D training graph of ``batch_size`` samples, each the
+    32 x 32 LR grid ∪ 32 queries drawn from the 64 x 64 mesh, as the
+    datamodule draws them."""
+    from magnet_tpu_torch.utils import make_coord_np
+
+    rng = np.random.default_rng(seed)
+    full = make_coord_np([64, 64])
+    coords = np.stack([full[np.sort(rng.choice(64 * 64, 32, replace=False))]
+                       for _ in range(batch_size)])
+    return model.build_graph({"coords": torch.from_numpy(coords),
+                              "lr_frames": torch.zeros(1, 1, 1, 32, 32)})
+
+
+def pregathered_operands(graph, h, c, l1, seed, dev):
+    """(h0, pxi, rowptr, w_rest, b_rest, w_out, b_out, ln_s, ln_b) for a
+    graph, of the fold operands' scales."""
+    g = torch.Generator().manual_seed(seed)
+
+    def f(*shape, scale=0.3):
+        return (torch.randn(*shape, generator=g) * scale).to(dev)
+
+    n, e = graph.n_node, graph.n_edge
+    return (f(e, h), f(n, h), graph.rowptr.to(dev), f(l1, h, h), f(l1, h),
+            f(h, c), f(c), 1 + f(c, scale=0.1), f(c, scale=0.1))
+
+
+def pregathered_bound(kernel: str, graph, h, c, l1) -> dict:
+    """Least time on the card for one call of the pre-gathered forward
+    (``"fwd"``) or backward (``"bwd"``) kernel: 2·E·(L1·H² + H·C) operations
+    (three times that backward), h0 and the node table read and the output
+    written once (backward: g read, d_h0, d_pxi and the weight gradients
+    written)."""
+    n, e = graph.n_node, graph.n_edge
+    flops = 2.0 * e * (l1 * h * h + h * c)
+    weights = l1 * (h * h + h) + h * c + 3 * c
+    inputs = e * h + (n + 1) + n * h + weights
+    if kernel == "fwd":
+        nbytes = 4.0 * (inputs + n * c)
+    else:
+        flops *= 3.0
+        nbytes = 4.0 * (inputs + n * c + e * h + n * h + weights)
+    t_ops, t_bytes = flops / F32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+    return {"flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def segment_bound(graph, h) -> dict:
+    """Least time for one segment sum over the sender CSR: the (E, H) rows,
+    perm and ptr read once and the (N, H) sums written once, against one
+    add per element."""
+    n, e = graph.n_node, graph.n_edge
+    flops = 1.0 * e * h
+    nbytes = 4.0 * (e * h + e + (n + 1) + n * h)
+    t_ops, t_bytes = flops / F32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+    return {"flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def cnn2d_phases(dev, data, groups) -> tuple[int, list, dict]:
+    """Phases ``cnn2d_kernel``, ``cnn2d_kernel_bwd``, ``cnn2d_slice`` and
+    ``cnn2d_train``: the pre-gathered GraphNet edge kernels (#2, #3), the
+    segment sum (#1) and the two MAgNet[CNN] 2D paths.  Returns the exit
+    code (0: all passed), the three kernels' entries and the launches of
+    the fold forward (#8) on the two paths."""
+    from magnet_tpu_torch.config import DATAMODULE_IMPLICIT_2D, MAGNET_CNN_2D
+    from magnet_tpu_torch.data.loader import DataLoader
+    from magnet_tpu_torch.eval import evaluate
+    from magnet_tpu_torch.models.factory import create_model
+    from magnet_tpu_torch.ops import fused_edge as fe
+    from magnet_tpu_torch.ops import segment as seg
+    from magnet_tpu_torch.ops.graph import csr_from_edges, radius_graph
+    from magnet_tpu_torch.train.checkpoint import load_checkpoint
+    from magnet_tpu_torch.train.trainer import Trainer
+    from magnet_tpu_torch.utils import to_device
+
+    hp = dict(MAGNET_CNN_2D)
+    h, c = hp["mlp_hidden"], hp["latent_dim"]
+    l1 = hp["mlp_layers"] - 1
+    mp = hp["num_message_passing_steps"]
+    ts = hp["time_slice"]
+    model = create_model("magnet_cnn_2d", hp, device=dev, seed=0)
+
+    # 11. #2 vs plain on the datamodule's full training graph (32 samples
+    # of 1,056 nodes), and on a small graph with a degree-0 node
+    graph = cnn2d_graph(model, CNN2D_KERNEL_BATCH, seed=7)
+    out_deg = torch.bincount(graph.senders.long(), minlength=graph.n_node)
+    shape = {"n_node": graph.n_node, "n_edge": graph.n_edge, "lane": graph.lane,
+             "h": h, "c": c, "l1": l1,
+             "mean_degree": float(graph.degree.mean()),
+             "max_degree": int(graph.degree.max()),
+             "max_out_degree": int(out_deg.max())}
+    pos = np.linspace(-1, 1, 200, dtype=np.float32)[:, None]
+    pos[17, 0] = 9.0
+    s_, r_ = radius_graph(torch.from_numpy(pos), 0.4, loop=False,
+                          max_num_neighbors=64)
+    small = csr_from_edges(s_, r_, 200).to(dev)
+    ops = pregathered_operands(graph, h, c, l1, seed=21, dev=dev)
+    ops_s = pregathered_operands(small, h, c, 1, seed=22, dev=dev)
+    fwd = {}
+    for label, o in (("train_shape", ops), ("small_case", ops_s)):
+        got = fe.fused_edge_tail_agg_pregathered(*o)
+        torch.cuda.synchronize()
+        fwd[label] = compare(got, fe.fused_edge_tail_agg_pregathered_plain(*o),
+                             KERNEL_RTOL, KERNEL_ATOL)
+    fwd["small_case"]["degree0_row_zero"] = bool((got[17] == 0).all())
+    fwd["small_case"]["l1"] = 1
+    fwd_ms = cuda_ms(lambda: fe.fused_edge_tail_agg_pregathered(*ops), reps=50)
+    fwd_plain_ms = cuda_ms(
+        lambda: fe.fused_edge_tail_agg_pregathered_plain(*ops), reps=20)
+    bnd_fwd = pregathered_bound("fwd", graph, h, c, l1)
+    kernel_ok = (shape["lane"] == "pregathered" and fwd["train_shape"]["ok"]
+                 and fwd["small_case"]["ok"]
+                 and fwd["small_case"]["degree0_row_zero"])
+    emit({"phase": "cnn2d_kernel", **shape,
+          "small_case_max_degree": int(small.degree.max()),
+          "tolerance": {"rtol": KERNEL_RTOL, "atol": KERNEL_ATOL},
+          "vs_plain": fwd, "ms": fwd_ms, "plain_ms": fwd_plain_ms,
+          "library_ms": None, **bnd_fwd, "ok": kernel_ok})
+    if not kernel_ok:
+        return 10, [], {}
+
+    # 12. #3 vs plain (every gradient; elementwise on the small graph, by
+    # relative L2 at the training shape, where relu ties flip a few
+    # edges), and #1 over the sender CSR vs plain and index_add_
+    g_gen = torch.Generator().manual_seed(23)
+    bwd = {}
+    for label, gr, o in (("train_shape", graph, ops), ("small_case", small,
+                                                       ops_s)):
+        g = torch.randn(gr.n_node, c, generator=g_gen).to(dev)
+        got_g = fe.fused_edge_tail_agg_pregathered_bwd(*o, g)
+        torch.cuda.synchronize()
+        want_g = fe.fused_edge_tail_agg_pregathered_bwd_plain(*o, g)
+        bwd[label] = {
+            name: compare_grad(a, b, elementwise=label == "small_case")
+            for name, a, b in zip(fe.GRAD_NAMES_PREGATHERED, got_g, want_g)}
+        if label == "train_shape":
+            g_t, d_h0 = g, got_g[0]
+        else:
+            bwd[label]["degree0_row_zero"] = {
+                "ok": bool((got_g[1][17] == 0).all())}
+    bwd_ms = cuda_ms(lambda: fe.fused_edge_tail_agg_pregathered_bwd(*ops, g_t),
+                     reps=20)
+    bwd_plain_ms = cuda_ms(
+        lambda: fe.fused_edge_tail_agg_pregathered_bwd_plain(*ops, g_t), reps=5)
+    bnd_bwd = pregathered_bound("bwd", graph, h, c, l1)
+    bwd_ok = all(v["ok"] for case in bwd.values() for v in case.values())
+
+    ptr, perm = graph.snd_ptr, graph.snd_perm
+    senders = graph.senders.long()
+    got_s = seg.segment_sum(d_h0, ptr, perm)
+    again = seg.segment_sum(d_h0, ptr, perm)
+    torch.cuda.synchronize()
+    want_s = seg.segment_sum_plain(d_h0, ptr, perm)
+
+    def library():
+        return torch.zeros(graph.n_node, h, device=dev).index_add_(
+            0, senders, d_h0)
+
+    lib_s = library()
+    err = (got_s.double() - want_s.double()).abs()
+    tol = SEG_RTOL * want_s.double().abs() + SEG_ATOL_REL * float(
+        want_s.abs().max())
+    seg_cmp = {"vs_plain": {"max_abs_err": float(err.max()),
+                            "ok": bool((err <= tol).all())},
+               "vs_index_add": {"max_abs_err": float(
+                   (got_s - lib_s).abs().max()),
+                   "ok": bool(((got_s.double() - lib_s.double()).abs()
+                               <= tol).all())},
+               "equal_bits_run_to_run": bool(torch.equal(got_s, again)),
+               "degree0_row_zero": bool((got_s[out_deg == 0] == 0).all()),
+               "tolerance": {"rtol": SEG_RTOL,
+                             "atol_rel_to_max": SEG_ATOL_REL}}
+    seg_ms = cuda_ms(lambda: seg.segment_sum(d_h0, ptr, perm), reps=50)
+    seg_plain_ms = cuda_ms(lambda: seg.segment_sum_plain(d_h0, ptr, perm),
+                           reps=20)
+    seg_lib_ms = cuda_ms(library, reps=50)
+    bnd_seg = segment_bound(graph, h)
+    seg_ok = (seg_cmp["vs_plain"]["ok"] and seg_cmp["vs_index_add"]["ok"]
+              and seg_cmp["equal_bits_run_to_run"])
+    emit({"phase": "cnn2d_kernel_bwd", **shape,
+          "tolerance": {"rtol": BWD_RTOL, "atol_rel_to_max": BWD_ATOL_REL,
+                        "max_rel_l2": BWD_L2,
+                        "elementwise": "small_case only"},
+          "vs_plain": bwd, "ms": bwd_ms, "plain_ms": bwd_plain_ms,
+          "library_ms": None, **bnd_bwd,
+          "segment_sum": {**seg_cmp, "ms": seg_ms, "plain_ms": seg_plain_ms,
+                          "library_ms": seg_lib_ms,
+                          "library": "torch.Tensor.index_add_", **bnd_seg,
+                          "ok": seg_ok},
+          "ok": bwd_ok and seg_ok})
+    if not (bwd_ok and seg_ok):
+        return 11, [], {}
+    del ops, d_h0, got_s, again, want_s, lib_s
+
+    # 13. the eval slice: evaluate() on 4 test trajectories at 64 x 64
+    loaders = data["cnn2d_loaders"]
+    batches = list(DataLoader(loaders["test"].dataset, 4, shuffle=False,
+                              drop_last=False))
+    nt = DATAMODULE_IMPLICIT_2D["nt_test"]
+    n_win = (nt - ts) // ts
+    per_batch = n_win * mp
+    egraph = model.build_graph({k: torch.as_tensor(v)
+                                for k, v in batches[0].items()})
+    fe.reset_launches()
+    seg.launches = 0
+    t0 = time.perf_counter()
+    metrics, preds = evaluate(model, batches, dev, return_predictions=True)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = {"fold": fe.launches, "fold_bwd": fe.launches_bwd,
+              "pregathered": fe.launches_pregathered,
+              "pregathered_bwd": fe.launches_pregathered_bwd,
+              "segment_sum": seg.launches}
+    want_counts = {"fold": per_batch * len(batches), "fold_bwd": 0,
+                   "pregathered": 0, "pregathered_bwd": 0, "segment_sum": 0}
+    torch.cuda.reset_peak_memory_stats()
+    steady_s = timed(lambda: evaluate(model, batches, dev))
+    peak = torch.cuda.max_memory_allocated()
+    model.impl = "plain"
+    t0 = time.perf_counter()
+    metrics_plain, preds_plain = evaluate(model, batches, dev,
+                                          return_predictions=True)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    model.impl = "kernel"
+    cmp = compare(torch.cat(preds), torch.cat(preds_plain), SLICE_RTOL,
+                  SLICE_ATOL)
+    finite = all(bool(torch.isfinite(p).all()) for p in preds) and all(
+        np.isfinite(v) for v in metrics.values())
+    shape_ok = all(tuple(p.shape) == (b["hr_points"].shape[0], n_win * ts,
+                                      64 * 64, 1)
+                   for p, b in zip(preds, batches))
+    slice_ok = (counts == want_counts and egraph.lane == "fold" and finite
+                and shape_ok and cmp["ok"])
+    emit({"phase": "cnn2d_slice", "model": "magnet_cnn_2d",
+          "batches": len(batches), "batch_size": 4, "nt": nt, "res": 64,
+          "support": 32, "windows": n_win, "n_node": egraph.n_node,
+          "n_edge": egraph.n_edge, "lane": egraph.lane,
+          "kernel_launches": counts, "expected_launches": want_counts,
+          "launches_per_batch": per_batch, "finite": finite,
+          "shape_ok": shape_ok, **metrics, "plain_metrics": metrics_plain,
+          "vs_plain": cmp, "seconds_per_batch_first": first_s / len(batches),
+          "seconds_per_batch": steady_s / len(batches),
+          "seconds_per_batch_plain": plain_s / len(batches),
+          "peak_mem_bytes": peak, "ok": slice_ok})
+    if not slice_ok:
+        return 12, [], {}
+    del preds, preds_plain
+    slice_fold = counts["fold"]
+
+    # 14. training: Trainer.fit at full width on the pre-gathered lane,
+    # kernel path vs plain path on one batch on both lanes
+    loaders["train"].set_epoch(0)
+    batch0 = to_device(next(iter(loaders["train"])), dev)
+
+    def loss_and_grads(m, gr, impl):
+        m.impl = impl
+        m.zero_grad(set_to_none=True)
+        loss, _ = m.loss(batch0, gr, train=True)
+        loss.backward()
+        m.impl = "kernel"
+        return loss.detach(), {k: p.grad.clone()
+                               for k, p in m.named_parameters()}
+
+    def vs_plain(m, gr, impl, want):
+        loss_k, grads_k = loss_and_grads(m, gr, impl)
+        loss_p, grads_p = want
+        l2 = {k: float((grads_k[k].double() - grads_p[k].double()).norm()
+                       / grads_p[k].double().norm().clamp_min(1e-30))
+              for k in grads_p}
+        worst_k = max(l2, key=l2.get)
+        fin = all(bool(torch.isfinite(v).all()) for v in grads_k.values())
+        rel = float((loss_k - loss_p).abs() / loss_p.abs())
+        return {"impl": impl, "loss_kernel": float(loss_k),
+                "loss_plain": float(loss_p), "loss_rel_err": rel,
+                "loss_rtol": TRAIN_LOSS_RTOL,
+                "worst_grad_rel_l2": l2[worst_k], "worst_grad": worst_k,
+                "grad_rel_l2_tol": TRAIN_GRAD_L2, "grads_finite": fin,
+                "ok": (fin and l2[worst_k] <= TRAIN_GRAD_L2
+                       and rel <= TRAIN_LOSS_RTOL)}
+
+    tmodel = create_model("magnet_cnn_2d", hp, device=dev, seed=0)
+    tgraph = tmodel.build_graph(batch0)
+    first_step_s = timed(lambda: loss_and_grads(tmodel, tgraph, "kernel"))
+    plain = loss_and_grads(tmodel, tgraph, "plain")
+    cmp_pre = vs_plain(tmodel, tgraph, "kernel", plain)
+    cmp_fold = vs_plain(tmodel, tgraph, "kernel_fold", plain)
+    del plain
+
+    n_epochs, steps = 2, len(loaders["train"])
+    val_batches = len(loaders["val"])
+    nt_train = DATAMODULE_IMPLICIT_2D["nt_train"]
+    per_step = ((nt_train - ts) // ts) * mp
+    with tempfile.TemporaryDirectory() as workdir:
+        def trainer_for(m, max_epochs):
+            return Trainer(m, max_epochs=max_epochs, lr=hp["lr"],
+                           weight_decay=hp["weight_decay"],
+                           factor=hp["factor"], step_size=hp["step_size"],
+                           workdir=workdir, device=dev)
+
+        fmodel = create_model("magnet_cnn_2d", hp, device=dev, seed=0)
+        trainer = trainer_for(fmodel, n_epochs)
+        step_losses, lanes = [], []
+        inner_step, inner_build = trainer.train_step, fmodel.build_graph
+
+        def recording_step(batch):
+            m = inner_step(batch)
+            step_losses.append(m["loss"])
+            return m
+
+        def recording_build(batch):
+            gr = inner_build(batch)
+            lanes.append(gr.lane)
+            return gr
+
+        trainer.train_step = recording_step
+        fmodel.build_graph = recording_build
+        fe.reset_launches()
+        seg.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        fit_s = timed(lambda: trainer.fit(loaders["train"], loaders["val"]))
+        fit_counts = {"fold": fe.launches, "fold_bwd": fe.launches_bwd,
+                      "pregathered": fe.launches_pregathered,
+                      "pregathered_bwd": fe.launches_pregathered_bwd,
+                      "segment_sum": seg.launches}
+        peak_train = torch.cuda.max_memory_allocated()
+        n_steps = steps * n_epochs
+        want_fit = {"fold": per_batch * val_batches * n_epochs, "fold_bwd": 0,
+                    "pregathered": per_step * n_steps,
+                    "pregathered_bwd": per_step * n_steps,
+                    "segment_sum": per_step * n_steps}
+        want_lanes = (["pregathered"] * steps + ["fold"] * val_batches) * n_epochs
+        with open(os.path.join(workdir, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        step_losses = [float(v) for v in step_losses]
+        losses_finite = (all(np.isfinite(v) for v in step_losses) and all(
+            np.isfinite(v) for r in rows for v in r.values()))
+        last = os.path.join(workdir, "checkpoints", "last.pt")
+        state, meta = load_checkpoint(last, require=("model", "optimizer"))
+        ckpt_ok = (state["step"] == n_steps
+                   and meta.get("epoch") == n_epochs - 1
+                   and all(torch.equal(v.cpu(), state["model"][k])
+                           for k, v in trainer.model.state_dict().items()))
+        resumed = trainer_for(create_model("magnet_cnn_2d", hp, device=dev,
+                                           seed=0), n_epochs + 1)
+        resumed.fit(loaders["train"], loaders["val"], resume=last)
+        with open(os.path.join(workdir, "metrics.jsonl")) as f:
+            epochs = [json.loads(line)["epoch"] for line in f]
+        resume_ok = (epochs == list(range(n_epochs + 1))
+                     and resumed.optimizer.step_count == steps * (n_epochs + 1))
+        # seconds per step, steady, on graphs the model has cached (a new
+        # batch's host graph is timed apart): kernel path, then plain path
+        host_batches = list(loaders["train"])
+        graph_s = timed(lambda: [resumed.model.build_graph(to_device(b, dev))
+                                 for b in host_batches]) / steps
+        step_s = timed(lambda: [resumed.train_step(b)
+                                for b in host_batches]) / steps
+        resumed.model.impl = "plain"
+        step_plain_s = timed(lambda: [resumed.train_step(b)
+                                      for b in host_batches]) / steps
+        resumed.model.impl = "kernel"
+    # the epochs' mean training loss falls (single steps see other
+    # trajectories and queries)
+    epoch_losses = [r["train_loss"] for r in rows]
+    train_ok = (tgraph.lane == "pregathered" and fit_counts == want_fit
+                and lanes == want_lanes and losses_finite
+                and epoch_losses[-1] < epoch_losses[0] and cmp_pre["ok"]
+                and cmp_fold["ok"] and ckpt_ok and resume_ok)
+    emit({"phase": "cnn2d_train", "model": "magnet_cnn_2d",
+          "batch_size": CNN2D_BATCH, "steps_per_epoch": steps,
+          "epochs": n_epochs, "val_batches_per_epoch": val_batches,
+          "windows_per_step": per_step // mp,
+          "data": {"train_trajectories": len(loaders["train"].dataset),
+                   "seconds_to_make": data["cnn2d_seconds"]},
+          "train_graph": {"n_node": tgraph.n_node, "n_edge": tgraph.n_edge,
+                          "lane": tgraph.lane},
+          "lanes": lanes, "expected_lanes": want_lanes,
+          "launches": fit_counts, "expected_launches": want_fit,
+          "launches_per_train_step": {"pregathered": per_step,
+                                      "pregathered_bwd": per_step,
+                                      "segment_sum": per_step},
+          "step_losses": step_losses, "epoch_train_losses": epoch_losses,
+          "rows": rows, "losses_finite": losses_finite,
+          "vs_plain": cmp_pre, "vs_plain_fold_forced": cmp_fold,
+          "checkpoint_ok": ckpt_ok, "resume_ok": resume_ok,
+          "resumed_epochs": epochs,
+          "seconds_first_loss_and_backward": first_step_s,
+          "seconds_host_graph_per_step": graph_s,
+          "seconds_per_step": step_s, "seconds_per_step_plain": step_plain_s,
+          "seconds_fit": fit_s, "peak_mem_bytes": peak_train, "ok": train_ok})
+
+    def worst(found):
+        """The largest max_abs_err anywhere in a nest of results."""
+        if not isinstance(found, dict):
+            return 0.0
+        return max([float(found.get("max_abs_err", 0.0))]
+                   + [worst(v) for v in found.values()])
+
+    kernels = [{
+        "name": "fused_edge_tail_agg_pregathered", "route": "cuda",
+        "source": "magnet_tpu_torch/csrc/fused_edge_tail_agg.cu",
+        "entry": "pregathered",
+        "replaces": "magnet_tpu/ops/pallas_kernels.py:278",
+        "launches": fit_counts["pregathered"], "max_abs_err": worst(fwd),
+        "ms": fwd_ms, "plain_ms": fwd_plain_ms,
+        "bound_ms": bnd_fwd["bound_ms"], "bound_by": bnd_fwd["bound_by"],
+        "library_ms": None, "ok": train_ok}, {
+        "name": "fused_edge_tail_agg_pregathered_bwd", "route": "cuda",
+        "source": "magnet_tpu_torch/csrc/fused_edge_tail_agg_bwd.cu",
+        "entry": "pregathered",
+        "replaces": "magnet_tpu/ops/pallas_kernels.py:376",
+        "launches": fit_counts["pregathered_bwd"], "max_abs_err": worst(bwd),
+        "ms": bwd_ms, "plain_ms": bwd_plain_ms,
+        "bound_ms": bnd_bwd["bound_ms"], "bound_by": bnd_bwd["bound_by"],
+        "library_ms": None, "ok": train_ok}, {
+        "name": "segment_sum", "route": "cuda",
+        "source": "magnet_tpu_torch/csrc/segment_sum.cu",
+        "replaces": "magnet_tpu/ops/pallas_kernels.py:79",
+        "launches": fit_counts["segment_sum"],
+        "max_abs_err": seg_cmp["vs_plain"]["max_abs_err"],
+        "ms": seg_ms, "plain_ms": seg_plain_ms,
+        "bound_ms": bnd_seg["bound_ms"], "bound_by": bnd_seg["bound_by"],
+        "library_ms": seg_lib_ms, "ok": train_ok}]
+    return ((0 if train_ok else 13), kernels,
+            {"fused_edge_tail_agg": {"launches_cnn2d":
+                                     slice_fold + fit_counts["fold"]}})
 
 
 def make_data(groups) -> dict:
@@ -899,10 +1350,12 @@ def make_data(groups) -> dict:
         DATAMODULE_GRAPH,
         DATAMODULE_GRAPH_2D,
         DATAMODULE_IMPLICIT,
+        DATAMODULE_IMPLICIT_2D,
         HEAT_TEST,
     )
     from magnet_tpu_torch.data.datamodule import build_loaders
     from magnet_tpu_torch.data.heat import heat_batches
+    from magnet_tpu_torch.data.synthetic import make_split
 
     data = {}
     if "cnn" in groups:
@@ -912,12 +1365,29 @@ def make_data(groups) -> dict:
         data["ks_loaders"] = build_loaders(
             {**DATAMODULE_IMPLICIT, **SMOKE_DATA}, seed=0)
         data["ks_seconds"] = time.perf_counter() - t0
-    if "mpnn_paths" in groups:
+    if {"mpnn_paths", "cnn2d"} & set(groups):
+        # the splits synthetic_burgers_2d makes from data_seed 0 (seeds 0,
+        # 1, 2), shared by the MPNN-2D and the MAgNet[CNN] 2D loaders
         t0 = time.perf_counter()
+        nt, res = DATAMODULE_GRAPH_2D["nt_train"], DATAMODULE_GRAPH_2D["res_train"]
+        b2d = {split: make_split("B2D", MPNN_2D_DATA[f"n_{split}"], nt, res,
+                                 seed=i)
+               for i, split in enumerate(("train", "val", "test"))}
+        paths = {f"{split}_path": arrays for split, arrays in b2d.items()}
         data["b2d_loaders"] = build_loaders(
-            {**DATAMODULE_GRAPH_2D, **MPNN_2D_DATA}, seed=0,
-            shuffle_eval=False)
+            {**DATAMODULE_GRAPH_2D, **MPNN_2D_DATA, "source": "h5", **paths},
+            seed=0, shuffle_eval=False)
         data["b2d_seconds"] = time.perf_counter() - t0
+    if "cnn2d" in groups:
+        t0 = time.perf_counter()
+        extra = make_split("B2D", CNN2D_EXTRA_TRAIN, nt, res, seed=3)
+        paths["train_path"] = {k: np.concatenate([b2d["train"][k], extra[k]])
+                               for k in extra}
+        data["cnn2d_loaders"] = build_loaders(
+            {**DATAMODULE_IMPLICIT_2D, "batch_size": CNN2D_BATCH, **paths},
+            seed=0, shuffle_eval=False)
+        data["cnn2d_seconds"] = time.perf_counter() - t0
+    if "mpnn_paths" in groups:
         t0 = time.perf_counter()
         data["ce_loaders"] = build_loaders(
             {**DATAMODULE_GRAPH, **MPNN_1D_DATA}, seed=0)
@@ -965,15 +1435,23 @@ def main(argv) -> int:
           "libraries": {name: {"library": lib.name, "ptxas": ptxas_lines(lib)}
                         for name, lib in libs.items()}})
 
-    kernels = []
+    kernels, extra = [], {}
     for group_names, phases in ((("cnn",), cnn_phases),
-                                (("mpnn_kernels", "mpnn_paths"), mpnn_phases)):
+                                (("mpnn_kernels", "mpnn_paths"), mpnn_phases),
+                                (("cnn2d",), cnn2d_phases)):
         if set(group_names) & set(groups):
-            rc, entries = phases(dev, data, groups)
+            rc, entries, more = phases(dev, data, groups)
             kernels += entries
+            for name, counts in more.items():
+                extra.setdefault(name, {}).update(counts)
             if rc:
                 emit({"kernels": kernels})
                 return rc
+    # a kernel's launches on the paths of another group
+    for entry in kernels:
+        for key, n in extra.get(entry["name"], {}).items():
+            entry[key] = n
+            entry["launches"] += n
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

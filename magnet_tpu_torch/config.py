@@ -1,9 +1,10 @@
 """Model, data, trainer and callback defaults as Python data, copied from
-``magnet_tpu/config/defaults``: ``MAGNET_CNN``, ``MPNN`` and ``MPNN_2D`` are
-``model/{magnet_cnn,mpnn,mpnn_2d}.yaml``; ``DATAMODULE_IMPLICIT``,
-``DATAMODULE_GRAPH`` and ``DATAMODULE_GRAPH_2D`` are
-``datamodule/h5_datamodule_{implicit,graph,graph_2d}.yaml`` (each plus the
-keys of its synthetic source, which stands in for the files),
+``magnet_tpu/config/defaults``: ``MAGNET_CNN``, ``MAGNET_CNN_2D``, ``MPNN``
+and ``MPNN_2D`` are ``model/{magnet_cnn,magnet_cnn_2d,mpnn,mpnn_2d}.yaml``;
+``DATAMODULE_IMPLICIT``, ``DATAMODULE_IMPLICIT_2D``, ``DATAMODULE_GRAPH``
+and ``DATAMODULE_GRAPH_2D`` are ``datamodule/h5_datamodule_{implicit,
+implicit_2d,graph,graph_2d}.yaml`` (each plus the keys of its synthetic
+source, which stands in for the files; ``num_workers`` is not ported),
 ``TRAINER`` is ``trainer/default.yaml`` without the keys of what is not
 ported (``devices``, ``steps_per_call``, ``precision``, ``log_every``),
 ``CALLBACKS`` the early-stopping patience of ``callbacks/default.yaml``.
@@ -31,6 +32,8 @@ MAGNET_CNN = {
     "lr": 0.001,
     "weight_decay": 0.0000001,
 }
+
+MAGNET_CNN_2D = {**MAGNET_CNN, "radius": 0.1, "res_layers": 16}
 
 MPNN = {
     "hidden_features": 128,
@@ -70,6 +73,28 @@ DATAMODULE_IMPLICIT = {
     "n_test": 16,
     "data_seed": 0,
     "burn_in": 40.0,
+}
+
+DATAMODULE_IMPLICIT_2D = {
+    "kind": "h5_implicit_2d",
+    "name": "h5_datamodule_implicit_2d",
+    "source": "h5",          # or synthetic_burgers_2d: from data_seed
+    "train_path": "data/B1/burgers_train_B1_64.h5",
+    "val_path": "data/B1/burgers_test_B1_64.h5",
+    "test_path": "data/B1/burgers_test_B1_64.h5",
+    "nt_train": 50,
+    "res_train": 64,
+    "nt_val": 50,
+    "res_val": 64,
+    "nt_test": 50,
+    "res_test": 64,
+    "samples": 32,
+    "batch_size": 32,
+    # synthetic_burgers_2d only: trajectories per split and their seed
+    "n_train": 64,
+    "n_val": 8,
+    "n_test": 8,
+    "data_seed": 0,
 }
 
 DATAMODULE_GRAPH = {
@@ -123,12 +148,14 @@ DATAMODULE_GRAPH_2D = {
 #: model name -> (its defaults, its datamodule's defaults)
 MODELS = {
     "magnet_cnn": (MAGNET_CNN, DATAMODULE_IMPLICIT),
+    "magnet_cnn_2d": (MAGNET_CNN_2D, DATAMODULE_IMPLICIT_2D),
     "mpnn": (MPNN, DATAMODULE_GRAPH),
     "mpnn_2d": (MPNN_2D, DATAMODULE_GRAPH_2D),
 }
 DATAMODULES = {d["name"]: d for _, d in MODELS.values()}
 #: the source that makes each datamodule's data from a seed
 SYNTHETIC_SOURCE = {"h5_implicit_1d": "synthetic_ks",
+                    "h5_implicit_2d": "synthetic_burgers_2d",
                     "h5_graph_1d": "synthetic_ce",
                     "h5_graph_2d": "synthetic_burgers_2d"}
 

@@ -1,23 +1,31 @@
-// Fused InteractionNetwork edge pipeline, backward, fold-e form, f32.
+// Fused InteractionNetwork edge pipeline, backward, f32, two entries.
 //
-// Replaces the TPU kernel magnet_tpu/ops/pallas_kernels.py:_fused2r_bwd_pallas
-// as _make_fused2r(fold_e=True).bwd calls it (public entry
-// fused_edge_tail_agg2rf).  The oracle is autodiff of _fused2re_ref_impl.
+// fold (FOLD = true) replaces the TPU kernel
+// magnet_tpu/ops/pallas_kernels.py:_fused2r_bwd_pallas as
+// _make_fused2r(fold_e=True).bwd calls it (public entry
+// fused_edge_tail_agg2rf; the oracle is autodiff of _fused2re_ref_impl);
+// pregathered (FOLD = false) replaces _fused_bwd_pallas, the VJP of
+// fused_edge_tail_agg (the oracle is _fused_ref_bwd).
 //
 // Given the forward's operands and g (N, C), for every edge j -> i of a
 // receiver-grouped CSR graph it recomputes
 //
-//     z = e0[e] . W_e + b_e + pxj[j] + pxi[i];  h_0 = relu(z)
+//     z = e0[e] . W_e + b_e + pxj[j] + pxi[i]     (fold)
+//     z = h0[e] + pxi[i]                          (pregathered)
+//     h_0 = relu(z)
 //     h_k = relu(h_{k-1} . W_k + b_k)  for k = 1..L1
 //     y = h_L1 . W_out + b_out;  xhat = (y - mean) * rstd   (eps 1e-5)
 //
 // and returns, all f32:
-//     d_e0 (E, Ce) = dz . W_e^T          d_pxj[j] (N, H) += dz
+//     fold:        d_e0 (E, Ce) = dz . W_e^T,  d_pxj[j] (N, H) += dz
+//     pregathered: d_h0 (E, H) = dz  (the sender gather's cotangent is the
+//                  caller's: a segment sum over the sender CSR)
 //     d_pxi[i] (N, H) += dz              and, packed into one buffer,
-//     dW_e, db_e, dW_k, db_k, dW_out, db_out, d_ln_s, d_ln_b.
+//     dW_e, db_e (fold only), dW_k, db_k, dW_out, db_out, d_ln_s, d_ln_b.
 // relu's derivative at 0 is 0; a receiver of degree 0 has no edge, so its
 // d_pxi row stays 0.  No (E, H) array is written to device memory: the
-// activations are recomputed per tile in shared memory.
+// activations are recomputed per tile in shared memory (the pregathered
+// entry writes its d_h0, which is its output).
 //
 // Design.  The backward is three matrix products per layer (recompute, data
 // gradient, weight gradient), so it is written as tiled products, not as
@@ -37,15 +45,18 @@
 //     partial sums once, and a second small kernel in this file adds the
 //     blocks' partials in a fixed order, so the weight gradients are the
 //     same from run to run;
-//   * d_pxj is scattered over senders with f32 atomicAdd into a zeroed
-//     buffer; d_pxi is summed over each run of equal receivers inside a
+//   * fold: d_pxj is scattered over senders with f32 atomicAdd into a
+//     zeroed buffer; the pregathered entry has no d_pxj; d_pxi is summed over each run of equal receivers inside a
 //     quarter tile and then added with one atomicAdd per run.  Both
-//     therefore differ in the last bits from run to run.
+//     therefore differ in the last bits from run to run (d_h0 does not).
 //
 // What bounds it on an H100: recompute, data and weight gradients are each
 // the forward's 16,384 multiply-adds per edge (Ce = 32, H = 64, L1 = 3,
 // C = 32), 2 x E x 49,152 FLOP on the f32 CUDA cores, against e0 read and
-// d_e0 written once: bound by operations.  Each product step makes 8
+// d_e0 written once: bound by operations (the pregathered entry: three
+// times 14,336 multiply-adds per edge against h0 read and d_h0 written,
+// ~154 MB at E ~ 299.8k, still bound by operations).  Each product step
+// makes 8
 // shared-memory loads for 16 FMAs, so the shared-memory pipe, not the FMA
 // pipe, is the limit of this first version; wgmma is left for later.
 //
@@ -66,18 +77,20 @@ constexpr float kLnEps = 1e-5f;
 
 // Offsets, in floats, into dynamic shared memory and into the packed
 // weight-gradient buffer.
-template <int CE, int H, int C, int L1>
+// The pregathered entry (FOLD = false) has no W_e, b_e and e0 tile.
+template <int CE, int H, int C, int L1, bool FOLD>
 struct Layout {
   static constexpr int ldE = CE + 1, ldH = H + 1, ldC = C + 1;
+  static constexpr int CEF = FOLD ? CE : 0, HF = FOLD ? H : 0;
   static constexpr int we = 0;                       // (CE, ldH)
-  static constexpr int wr = we + CE * ldH;           // (L1, H, ldH)
+  static constexpr int wr = we + CEF * ldH;          // (L1, H, ldH)
   static constexpr int wo = wr + L1 * H * ldH;       // (H, ldC)
   static constexpr int be = wo + H * ldC;            // (H)
   static constexpr int br = be + H;                  // (L1, H)
   static constexpr int bo = br + L1 * H;             // (C)
   static constexpr int ls = bo + C;                  // (C)
   static constexpr int e0 = ls + C;                  // (kTE, ldE)
-  static constexpr int act = e0 + kTE * ldE;         // (L1 + 2, kTE, ldH)
+  static constexpr int act = e0 + (FOLD ? kTE * ldE : 0);  // (L1+2, kTE, ldH)
   static constexpr int y = act + (L1 + 2) * kTE * ldH;  // (kTE, ldC)
   static constexpr int gx = y + kTE * ldC;           // (kTE, ldC) g * xhat
   static constexpr int gg = gx + kTE * ldC;          // (kTE, ldC) g
@@ -86,8 +99,8 @@ struct Layout {
   static constexpr int smem_floats = rcv + kTE;
 
   static constexpr int g_we = 0;
-  static constexpr int g_be = g_we + CE * H;
-  static constexpr int g_wr = g_be + H;
+  static constexpr int g_be = g_we + CEF * H;
+  static constexpr int g_wr = g_be + HF;
   static constexpr int g_br = g_wr + L1 * H * H;
   static constexpr int g_wo = g_br + L1 * H;
   static constexpr int g_bo = g_wo + H * C;
@@ -96,19 +109,19 @@ struct Layout {
   static constexpr int g_total = g_lb + C;
 };
 
-template <int CE, int H, int C, int L1>
+template <int CE, int H, int C, int L1, bool FOLD>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_edge_tail_agg_bwd_kernel(
-    const float* __restrict__ e0, const float* __restrict__ we,
+    const float* __restrict__ src, const float* __restrict__ we,
     const float* __restrict__ be, const float* __restrict__ pxj,
     const float* __restrict__ pxi, const int* __restrict__ senders,
     const int* __restrict__ rowptr, const float* __restrict__ w_rest,
     const float* __restrict__ b_rest, const float* __restrict__ w_out,
     const float* __restrict__ b_out, const float* __restrict__ ln_s,
-    const float* __restrict__ g, float* __restrict__ d_e0,
+    const float* __restrict__ g, float* __restrict__ d_src,
     float* __restrict__ d_pxj, float* __restrict__ d_pxi,
     float* __restrict__ partial, int n_nodes, int n_edges) {
-  using L = Layout<CE, H, C, L1>;
+  using L = Layout<CE, H, C, L1, FOLD>;
   static_assert(CE % 16 == 0 && H % 16 == 0 && C % 16 == 0,
                 "widths must be multiples of 16 (16 x 16 thread grid)");
   static_assert(kTE * 4 == kThreads && C % 4 == 0,
@@ -138,13 +151,15 @@ fused_edge_tail_agg_bwd_kernel(
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
 
-  for (int k = tid; k < CE * H; k += kThreads)
-    s_we[(k / H) * ldH + k % H] = we[k];
+  if (FOLD) {
+    for (int k = tid; k < CE * H; k += kThreads)
+      s_we[(k / H) * ldH + k % H] = we[k];
+    for (int k = tid; k < H; k += kThreads) s_be[k] = be[k];
+  }
   for (int k = tid; k < L1 * H * H; k += kThreads)
     s_wr[(k / H) * ldH + k % H] = w_rest[k];
   for (int k = tid; k < H * C; k += kThreads)
     s_wo[(k / C) * ldC + k % C] = w_out[k];
-  for (int k = tid; k < H; k += kThreads) s_be[k] = be[k];
   for (int k = tid; k < L1 * H; k += kThreads) s_br[k] = b_rest[k];
   for (int k = tid; k < C; k += kThreads) {
     s_bo[k] = b_out[k];
@@ -186,7 +201,7 @@ fused_edge_tail_agg_bwd_kernel(
       int sv = 0, rv = 0;
       if (tid < n_valid) {
         const int e = base + tid;
-        sv = senders[e];
+        sv = FOLD ? senders[e] : 0;
         int lo = 0, hi = n_nodes;  // rowptr[lo] <= e < rowptr[hi]
         while (hi - lo > 1) {
           const int mid = (lo + hi) >> 1;
@@ -197,14 +212,14 @@ fused_edge_tail_agg_bwd_kernel(
       s_snd[tid] = sv;
       s_rcv[tid] = rv;
     }
-    for (int k = tid; k < kTE * CE; k += kThreads) {
-      const int r = k / CE, c = k % CE;
-      s_e0[r * ldE + c] = r < n_valid ? e0[(size_t)(base + r) * CE + c] : 0.f;
-    }
-    __syncthreads();
-
-    // recompute: h_0 = relu(e0 . W_e + b_e + pxj[j] + pxi[i])
-    {
+    if constexpr (FOLD) {
+      for (int k = tid; k < kTE * CE; k += kThreads) {
+        const int r = k / CE, c = k % CE;
+        s_e0[r * ldE + c] =
+            r < n_valid ? src[(size_t)(base + r) * CE + c] : 0.f;
+      }
+      __syncthreads();
+      // recompute: h_0 = relu(e0 . W_e + b_e + pxj[j] + pxi[i])
       float* out = s_act;
       mm_fwd<CE, H, true>(
           s_e0, ldE, s_we, ldH,
@@ -214,6 +229,16 @@ fused_edge_tail_agg_bwd_kernel(
                                : 0.f;
           },
           [&](int e, int n, float v) { out[e * ldH + n] = v; }, tx, ty);
+    } else {
+      __syncthreads();
+      // recompute: h_0 = relu(h0[e] + pxi[i]); rows past the end are zero
+      for (int k = tid; k < kTE * H; k += kThreads) {
+        const int e = k / H, n = k % H;
+        const float z = e < n_valid ? src[(size_t)(base + e) * H + n] +
+                                          pxi[(size_t)s_rcv[e] * H + n]
+                                    : 0.f;
+        s_act[e * ldH + n] = fmaxf(z, 0.f);
+      }
     }
     __syncthreads();
 #pragma unroll
@@ -323,16 +348,23 @@ fused_edge_tail_agg_bwd_kernel(
     // first layer: dz = da_0
     {
       const float* dz = s_act + kTE * ldH;
-      mm_bwd_w<CE, H>(s_e0, ldE, dz, ldH, acc_we, acc_be, tx, ty);
-      mm_bwd_data<CE, H>(
-          dz, ldH, s_we, ldH,
-          [&](int e, int c, float v) {
-            if (e < n_valid) d_e0[(size_t)(base + e) * CE + c] = v;
-          },
-          tx, ty);
-      for (int k = tid; k < n_valid * H; k += kThreads) {
-        const int e = k / H, n = k % H;
-        atomicAdd(d_pxj + (size_t)s_snd[e] * H + n, dz[e * ldH + n]);
+      if constexpr (FOLD) {
+        mm_bwd_w<CE, H>(s_e0, ldE, dz, ldH, acc_we, acc_be, tx, ty);
+        mm_bwd_data<CE, H>(
+            dz, ldH, s_we, ldH,
+            [&](int e, int c, float v) {
+              if (e < n_valid) d_src[(size_t)(base + e) * CE + c] = v;
+            },
+            tx, ty);
+        for (int k = tid; k < n_valid * H; k += kThreads) {
+          const int e = k / H, n = k % H;
+          atomicAdd(d_pxj + (size_t)s_snd[e] * H + n, dz[e * ldH + n]);
+        }
+      } else {
+        for (int k = tid; k < n_valid * H; k += kThreads) {
+          const int e = k / H, n = k % H;
+          d_src[(size_t)(base + e) * H + n] = dz[e * ldH + n];
+        }
       }
       constexpr int kPart = kTE / (kThreads / H);
       const int n = tid % H;
@@ -361,10 +393,12 @@ fused_edge_tail_agg_bwd_kernel(
 #pragma unroll
   for (int j = 0; j < H / 16; ++j) {
     const int n = tx + 16 * j;
+    if (FOLD) {
 #pragma unroll
-    for (int i = 0; i < CE / 16; ++i)
-      p[L::g_we + (ty + 16 * i) * H + n] = acc_we[i][j];
-    if (ty == 0) p[L::g_be + n] = acc_be[j];
+      for (int i = 0; i < CE / 16; ++i)
+        p[L::g_we + (ty + 16 * i) * H + n] = acc_we[i][j];
+      if (ty == 0) p[L::g_be + n] = acc_be[j];
+    }
 #pragma unroll
     for (int l = 0; l < L1; ++l) {
 #pragma unroll
@@ -403,7 +437,7 @@ constexpr int kMaxDevices = 64;
 // The persistent grid's size (SMs x resident blocks per SM) on the current
 // device.  The shared-memory opt-in and the device queries run once per
 // device and instantiation; later launches read the cache.
-template <int CE, int H, int C, int L1>
+template <int CE, int H, int C, int L1, bool FOLD>
 cudaError_t grid_cap(size_t smem_bytes, int* cap) {
   static std::atomic<int> cache[kMaxDevices];  // 0: unset
   int device = 0;
@@ -412,7 +446,7 @@ cudaError_t grid_cap(size_t smem_bytes, int* cap) {
   const bool cached = device < kMaxDevices;
   if (cached && (*cap = cache[device].load(std::memory_order_relaxed)) > 0)
     return cudaSuccess;
-  auto kernel = fused_edge_tail_agg_bwd_kernel<CE, H, C, L1>;
+  auto kernel = fused_edge_tail_agg_bwd_kernel<CE, H, C, L1, FOLD>;
   int optin = 0, n_sm = 0, per_sm = 0;
   if ((err = cudaDeviceGetAttribute(
            &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device)) !=
@@ -435,18 +469,18 @@ cudaError_t grid_cap(size_t smem_bytes, int* cap) {
   return cudaSuccess;
 }
 
-template <int CE, int H, int C, int L1>
-int launch(const float* e0, const float* we, const float* be,
+template <int CE, int H, int C, int L1, bool FOLD>
+int launch(const float* src, const float* we, const float* be,
            const float* pxj, const float* pxi, const int* senders,
            const int* rowptr, const float* w_rest, const float* b_rest,
            const float* w_out, const float* b_out, const float* ln_s,
-           const float* g, float* d_e0, float* d_pxj, float* d_pxi,
+           const float* g, float* d_src, float* d_pxj, float* d_pxi,
            float* wgrad, float* partial, int n_nodes, int n_edges,
            int scratch_blocks, cudaStream_t stream) {
-  using L = Layout<CE, H, C, L1>;
+  using L = Layout<CE, H, C, L1, FOLD>;
   const size_t smem_bytes = sizeof(float) * (size_t)L::smem_floats;
   int cap = 0;
-  const cudaError_t err = grid_cap<CE, H, C, L1>(smem_bytes, &cap);
+  const cudaError_t err = grid_cap<CE, H, C, L1, FOLD>(smem_bytes, &cap);
   if (err != cudaSuccess) return (int)err;
   const int n_tiles = (n_edges + kTE - 1) / kTE;
   int blocks = n_tiles < cap ? n_tiles : cap;
@@ -454,10 +488,10 @@ int launch(const float* e0, const float* we, const float* be,
   if (n_tiles > 0 && blocks < 1) return (int)cudaErrorInvalidValue;
   if (n_nodes == 0) blocks = 0;
   if (blocks > 0) {
-    fused_edge_tail_agg_bwd_kernel<CE, H, C, L1>
+    fused_edge_tail_agg_bwd_kernel<CE, H, C, L1, FOLD>
         <<<blocks, kThreads, smem_bytes, stream>>>(
-            e0, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest, w_out,
-            b_out, ln_s, g, d_e0, d_pxj, d_pxi, partial, n_nodes, n_edges);
+            src, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest, w_out,
+            b_out, ln_s, g, d_src, d_pxj, d_pxi, partial, n_nodes, n_edges);
     const cudaError_t launched = cudaGetLastError();
     if (launched != cudaSuccess) return (int)launched;
   }
@@ -471,27 +505,38 @@ int launch(const float* e0, const float* we, const float* be,
 extern "C" {
 
 // Returns a cudaError_t; 0 is success.  Launches on `stream` and does not
-// synchronise.  d_pxj and d_pxi must arrive zeroed; wgrad holds, packed,
-// dW_e (ce, h), db_e (h), dW_rest (l1, h, h), db_rest (l1, h), dW_out
-// (h, c), db_out (c), d_ln_s (c), d_ln_b (c); partial is scratch for
-// scratch_blocks x that many floats.  Compiled for (ce, h, c) =
-// (32, 64, 32) and l1 in 0..3; others return cudaErrorInvalidValue.
+// synchronise.  fold != 0: src is e0 (n_edges, ce) and d_src its gradient,
+// we, be, pxj, senders and d_pxj are used; fold == 0: src is h0
+// (n_edges, h) and d_src its gradient, and those five are ignored (they
+// may be null).  d_pxj and d_pxi must arrive zeroed; wgrad holds, packed,
+// dW_e (ce, h) and db_e (h) (fold only), dW_rest (l1, h, h), db_rest
+// (l1, h), dW_out (h, c), db_out (c), d_ln_s (c), d_ln_b (c); partial is
+// scratch for scratch_blocks x that many floats.  Compiled for
+// (ce, h, c) = (32, 64, 32) and l1 in 0..3; others return
+// cudaErrorInvalidValue.
 int fused_edge_tail_agg_bwd_f32(
-    const float* e0, const float* we, const float* be, const float* pxj,
+    const float* src, const float* we, const float* be, const float* pxj,
     const float* pxi, const int* senders, const int* rowptr,
     const float* w_rest, const float* b_rest, const float* w_out,
-    const float* b_out, const float* ln_s, const float* g, float* d_e0,
+    const float* b_out, const float* ln_s, const float* g, float* d_src,
     float* d_pxj, float* d_pxi, float* wgrad, float* partial, int n_nodes,
-    int n_edges, int ce, int h, int c, int l1, int scratch_blocks,
+    int n_edges, int ce, int h, int c, int l1, int fold, int scratch_blocks,
     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (ce != 32 || h != 64 || c != 32) return (int)cudaErrorInvalidValue;
-#define MAGNET_BWD_CASE(L1V)                                               \
-  case L1V:                                                                \
-    return launch<32, 64, 32, L1V>(e0, we, be, pxj, pxi, senders, rowptr,  \
-                                   w_rest, b_rest, w_out, b_out, ln_s, g,  \
-                                   d_e0, d_pxj, d_pxi, wgrad, partial,     \
-                                   n_nodes, n_edges, scratch_blocks, s)
+  if (fold && (we == nullptr || be == nullptr || pxj == nullptr ||
+               senders == nullptr || d_pxj == nullptr))
+    return (int)cudaErrorInvalidValue;
+#define MAGNET_BWD_CASE(L1V)                                                 \
+  case L1V:                                                                  \
+    return fold ? launch<32, 64, 32, L1V, true>(                             \
+                      src, we, be, pxj, pxi, senders, rowptr, w_rest,        \
+                      b_rest, w_out, b_out, ln_s, g, d_src, d_pxj, d_pxi,    \
+                      wgrad, partial, n_nodes, n_edges, scratch_blocks, s)   \
+                : launch<32, 64, 32, L1V, false>(                            \
+                      src, we, be, pxj, pxi, senders, rowptr, w_rest,        \
+                      b_rest, w_out, b_out, ln_s, g, d_src, d_pxj, d_pxi,    \
+                      wgrad, partial, n_nodes, n_edges, scratch_blocks, s)
   switch (l1) {
     MAGNET_BWD_CASE(0);
     MAGNET_BWD_CASE(1);

@@ -1,13 +1,14 @@
 """Datamodule assembly: config -> train/val/test loaders (counterpart of
 ``magnet_tpu/data/datamodule.py``), for ``kind`` ``h5_implicit_1d``,
-``h5_graph_1d`` and ``h5_graph_2d``.
+``h5_implicit_2d``, ``h5_graph_1d`` and ``h5_graph_2d``.
 
 The 1D val split reads the group ``valid``, the 2D one ``test``.  Every
 split is shuffled, as in the reference, unless ``shuffle_eval`` is false.
 Where there are no files a synthetic ``source`` makes the three splits
 from ``data_seed``: ``synthetic_ks`` (KS train and valid, Heat test) for
 the implicit-1D kind, ``synthetic_ce`` (the combined equation's preset
-``eq``) for the 1D graphs, ``synthetic_burgers_2d`` for the 2D graphs.
+``eq``) for the 1D graphs, ``synthetic_burgers_2d`` for the 2D graphs and
+the implicit-2D kind.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from magnet_tpu_torch.data.datasets import (
     DatasetGraph1D,
     DatasetGraph2D,
     DatasetImplicit1D,
+    DatasetImplicit2D,
 )
 from magnet_tpu_torch.data.loader import DataLoader
 from magnet_tpu_torch.data.synthetic import make_split
@@ -55,6 +57,10 @@ def _dataset(cfg, split: str, data):
         return DatasetImplicit1D(
             data, mode, nt=nt, nx=res, sampling=cfg.get("sampling", "uniform"),
             samples=cfg.get("samples", 32),
+            eval_support=cfg.get("eval_support", "lr"))
+    if kind == "h5_implicit_2d":
+        return DatasetImplicit2D(
+            data, mode, nt=nt, res=res, samples=cfg.get("samples", 32),
             eval_support=cfg.get("eval_support", "lr"))
     if kind == "h5_graph_1d":
         return DatasetGraph1D(data, mode, nt=nt, nx=res)

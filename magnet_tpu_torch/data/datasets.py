@@ -1,6 +1,6 @@
 """Datasets with the reference reader's semantics (counterpart of
-``magnet_tpu/data/datasets.py``): MAgNet[CNN] 1D's and the MPNN graph
-datasets, 1D and 2D.
+``magnet_tpu/data/datasets.py``): MAgNet[CNN]'s, 1D and 2D, and the MPNN
+graph datasets, 1D and 2D.
 
 A split comes from an HDF5 file (group ``train``/``valid``/``test`` with
 ``t``, ``x`` and ``pde_<nt>-<nx>``, in 2D also ``y`` or ``coords``;
@@ -13,10 +13,20 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from magnet_tpu_torch.ops.interp import interpolate_linear_1d
+from magnet_tpu_torch.ops.interp import (
+    interpolate_bilinear_2d,
+    interpolate_linear_1d,
+)
 from magnet_tpu_torch.utils import make_coord_np
 
 MODES = ("train", "valid", "test")
+
+
+def bilinear_resize_2d_np(u: np.ndarray, size) -> np.ndarray:
+    """``F.interpolate(mode='bilinear', align_corners=False)`` of the last
+    two axes of a host array, on the CPU (``_np_bilinear_resize_2d``)."""
+    return interpolate_bilinear_2d(torch.from_numpy(np.asarray(u)),
+                                   size).numpy()
 
 
 def read_h5_split(path: str, mode: str) -> dict:
@@ -148,3 +158,46 @@ class DatasetGraph2D(_Split):
             coords = np.asarray(self.data["coords"][idx], np.float32)
         t = np.asarray(self.data["t"][idx], np.float32)
         return {"u": u, "x": coords, "t": t}
+
+
+class DatasetImplicit2D(_Split):
+    """MAgNet[CNN] 2D samples: a half-resolution support (bilinear resize
+    to W//2 x W//2) and HR queries over the W x W mesh.  Train mode draws
+    ``samples`` sorted query indices without replacement from the dataset's
+    generator; eval modes query every point, and ``eval_support='full'``
+    makes the support the full mesh too."""
+
+    def __init__(self, source, mode: str, nt: int, res: int,
+                 samples: int = 256, eval_support: str = "lr"):
+        super().__init__(source, mode, f"pde_{nt}-{res}")
+        self.samples = samples
+        self.eval_support = eval_support
+        self.rng = np.random.default_rng(0)
+
+    def set_epoch(self, seed: int):
+        self.rng = np.random.default_rng(seed)
+
+    def __getitem__(self, idx):
+        t = np.asarray(self.data["t"][idx], np.float32)
+        u_hr = np.asarray(self.data[self.key][idx], np.float32)[:, None]
+        T, _, W, _ = u_hr.shape                               # (T, 1, W, W)
+        full = self.mode != "train" and self.eval_support == "full"
+        u_lr = u_hr if full else bilinear_resize_2d_np(u_hr, (W // 2, W // 2))
+        full_coord = make_coord_np([W, W])                    # (W*W, 2)
+        if self.mode == "train":
+            sample_lst = np.sort(self.rng.choice(W * W, self.samples,
+                                                 replace=False))
+        else:
+            sample_lst = np.arange(W * W)
+        hr_coord = full_coord[sample_lst]
+        out = {
+            "t": t,
+            "lr_frames": u_lr,
+            "hr_frames": u_hr,
+            "hr_points": u_hr.reshape(T, -1)[:, sample_lst][:, :, None],
+            "coords": hr_coord,
+            "cells": np.full_like(hr_coord, 2.0 / W),
+        }
+        if self.mode == "train":
+            out["sample_idx"] = sample_lst.astype(np.int64)
+        return out

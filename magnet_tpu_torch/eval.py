@@ -1,7 +1,7 @@
 """Evaluation: no-teacher-forcing rollout metrics on test batches made
 from a seed at the shape of the model's test split (counterpart of the
 repo's ``eval.py``): Heat for ``magnet_cnn``, the combined equation for
-``mpnn``, 2D Burgers for ``mpnn_2d``.
+``mpnn``, 2D Burgers for ``mpnn_2d`` and ``magnet_cnn_2d``.
 
 Usage (on the card; ``device=cpu`` runs the plain PyTorch path):
   python -m magnet_tpu_torch.eval [model=magnet_cnn] [seed=0] [n_traj=16] \\

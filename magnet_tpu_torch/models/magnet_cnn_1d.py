@@ -1,6 +1,7 @@
 """MAgNet[CNN] 1D, the flagship model: forward, the rollout over windows
 with its three feedback branches, and the training and eval losses
-(counterpart of ``magnet_tpu/models/magnet_cnn_1d.py``).
+(counterpart of ``magnet_tpu/models/magnet_cnn_1d.py``).  The task side
+(``MAgNetCNNTask``) is shared with MAgNet[CNN] 2D.
 
 Per window: EDSR features of the stacked LR frames -> INR decoder at the HR
 query coords -> projector seeds HR values -> GraphNet (encoder, processor,
@@ -28,7 +29,7 @@ from magnet_tpu_torch.nn.graphnet import (
     GraphProcessor,
 )
 from magnet_tpu_torch.nn.inr import INRDecoder1D
-from magnet_tpu_torch.ops.graph import CSRGraph, radius_graph_batch
+from magnet_tpu_torch.ops.graph import CSRGraph, GraphCache
 from magnet_tpu_torch.ops.interp import interpolate_linear_1d
 from magnet_tpu_torch.utils import make_coord, make_coord_np
 
@@ -99,52 +100,64 @@ class MAgNetCNN1DCore(nn.Module):
         return outputs[:, :, L:], outputs[:, :, :L], hr_points.transpose(1, 2)
 
 
-class MAgNetCNN1D(MAgNetCNN1DCore):
-    """Task wrapper: host graph building, the rollout and its losses.
+class MAgNetCNNTask:
+    """The task side shared by MAgNet[CNN] 1D and 2D: host graph building,
+    the rollout with its three feedback branches, and the losses.  The
+    class it is mixed into is the core (an ``nn.Module`` whose forward is
+    one window) and gives ``ndim`` and the three shape hooks below.
 
-    Batch dict of tensors: t (B, nt), lr_frames (B, nt, 1, L), hr_points
-    (B, nt, N, 1), coords (B, N, 1), cells (B, N, 1).
+    Batch dict of tensors: t (B, nt), lr_frames (B, nt, 1, *grid),
+    hr_points (B, nt, N, 1), coords (B, N, ndim), cells (B, N, ndim).
     """
 
-    def __init__(self, hparams: dict[str, Any]):
-        hp = dict(hparams)
-        super().__init__(
-            time_slice=int(hp.get("time_slice", 16)),
-            latent_dim=int(hp.get("latent_dim", 32)),
-            num_message_passing_steps=int(hp.get("num_message_passing_steps", 10)),
-            mlp_layers=int(hp.get("mlp_layers", 4)),
-            mlp_hidden=int(hp.get("mlp_hidden", 64)),
-            n_chan=int(hp.get("n_chan", 128)),
-            kernel_size=int(hp.get("kernel_size", 3)),
-            res_scale=float(hp.get("res_scale", 1.0)),
-            res_layers=int(hp.get("res_layers", 4)),
-        )
-        self.radius = float(hp.get("radius", 0.08))
+    ndim = 1
+
+    def _task_init(self, hp: dict, radius: float) -> None:
+        self.radius = float(hp.get("radius", radius))
         self.teacher_forcing = bool(hp.get("teacher_forcing", True))
         self.criterion = LOSSES[hp.get("loss", "l1")]
+        self.graphs = GraphCache(
+            lane_rule=("graphnet", int(hp.get("mlp_hidden", 64))))
+
+    def _resampled_input(self, out_hr, size: int):
+        """The next window's input from this window's HR output, resampled
+        to the LR grid of side ``size`` (the validation feedback)."""
+        raise NotImplementedError
+
+    def _output_input(self, out_lr):
+        """The next window's input from this window's LR output."""
+        raise NotImplementedError
+
+    def _as_nodes(self, frames):
+        """LR frames (B, T, C, *grid) as node values (B, T, L, C)."""
+        raise NotImplementedError
+
+    def _output_nodes(self, lr_hat):
+        """The core's LR output as node values (B, T, L, 1)."""
+        raise NotImplementedError
 
     def build_graph(self, batch) -> CSRGraph:
         """The radius graph over LR ∪ HR coords of every sample, flattened
-        over the batch, on the model's device."""
-        coords = batch["coords"].detach().cpu().numpy()            # (B, N, 1)
-        L = batch["lr_frames"].shape[-1]
-        lr = make_coord_np([L])
+        over the batch, with its GraphNet lane, on the model's device (and
+        cached by its coordinates)."""
+        coords = batch["coords"].detach().cpu().numpy()            # (B, N, d)
+        lr = make_coord_np([batch["lr_frames"].shape[-1]] * self.ndim)
         all_coords = np.concatenate(
             [np.broadcast_to(lr[None], (coords.shape[0],) + lr.shape), coords],
             axis=1)
-        graph = radius_graph_batch(torch.from_numpy(all_coords), self.radius,
-                                   loop=True)
-        return graph.to(next(self.parameters()).device)
+        return self.graphs.radius_graph_batch(
+            all_coords, self.radius, loop=True,
+            device=next(self.parameters()).device)
 
     def _rollout(self, batch, graph: CSRGraph, teacher_forcing: bool,
                  val_feedback: bool):
         """One core call per window.  The next window's input is the ground
         truth (``teacher_forcing``), else the HR output resampled to the LR
-        length (``val_feedback``), else the LR output.  Returns (hr_seq
-        (B, n*ts, N, 1), lr_seq (B, n*ts, L, 1), pts_seq (B, n*ts, N, 1))."""
+        grid (``val_feedback``), else the LR output.  Returns (hr_seq
+        (B, n*ts, N, 1), lr_seq (the core's LR output, n*ts frames),
+        pts_seq (B, n*ts, N, 1))."""
         ts = self.time_slice
         u, uv, t = batch["lr_frames"], batch["hr_points"], batch["t"]
-        L = u.shape[-1]
         n_win = (u.shape[1] - ts) // ts
         t_win = time_windows(t, n_win, ts)                         # (B, n, 2ts)
         inp, hr_last = u[:, :ts], uv[:, ts - 1]
@@ -155,11 +168,9 @@ class MAgNetCNN1D(MAgNetCNN1DCore):
             if teacher_forcing:
                 inp = u[:, (w + 1) * ts:(w + 2) * ts]
                 hr_last = uv[:, (w + 2) * ts - 1]
-            elif val_feedback:
-                inp = interpolate_linear_1d(out_hr[..., 0], L)[:, :, None, :]
-                hr_last = out_hr[:, -1]
             else:
-                inp = out_lr.transpose(2, 3)                       # (B, T, 1, L)
+                inp = (self._resampled_input(out_hr, u.shape[-1])
+                       if val_feedback else self._output_input(out_lr))
                 hr_last = out_hr[:, -1]
             hr_seq.append(out_hr)
             lr_seq.append(out_lr)
@@ -171,7 +182,7 @@ class MAgNetCNN1D(MAgNetCNN1DCore):
     def predict(self, batch, graph: CSRGraph):
         """No-teacher-forcing rollout (eval / super-resolution): each
         window's input is its predecessor's HR output resampled to the LR
-        length.  Returns (hr_hat (B, n*ts, N, 1), lr_hat (B, n*ts, L, 1))."""
+        grid.  Returns (hr_hat (B, n*ts, N, 1), lr_hat)."""
         hr_hat, lr_hat, _ = self._rollout(batch, graph, teacher_forcing=False,
                                           val_feedback=True)
         return hr_hat, lr_hat
@@ -202,11 +213,43 @@ class MAgNetCNN1D(MAgNetCNN1DCore):
         hr_hat, lr_hat, pts_hat = self._rollout(
             batch, graph, self.teacher_forcing, val_feedback=False)
         used = ts + hr_hat.shape[1]
-        y_hat = torch.cat([hr_hat, lr_hat], dim=2)
-        target = torch.cat([uv[:, ts:used], u[:, ts:used].transpose(2, 3)],
+        y_hat = torch.cat([hr_hat, self._output_nodes(lr_hat)], dim=2)
+        target = torch.cat([uv[:, ts:used], self._as_nodes(u[:, ts:used])],
                            dim=2)
         interp_target = uv[:, :used - ts]
         loss = self.criterion(y_hat, target) + self.criterion(pts_hat,
                                                               interp_target)
         return loss, {"loss": loss, "mae_loss": l1_loss(y_hat, target),
                       "interp_loss": l1_loss(pts_hat, interp_target)}
+
+
+class MAgNetCNN1D(MAgNetCNNTask, MAgNetCNN1DCore):
+    """MAgNet[CNN] 1D: the core with the task side.  The core's LR output
+    is already per node, (B, T, L, 1)."""
+
+    def __init__(self, hparams: dict[str, Any]):
+        hp = dict(hparams)
+        super().__init__(
+            time_slice=int(hp.get("time_slice", 16)),
+            latent_dim=int(hp.get("latent_dim", 32)),
+            num_message_passing_steps=int(hp.get("num_message_passing_steps", 10)),
+            mlp_layers=int(hp.get("mlp_layers", 4)),
+            mlp_hidden=int(hp.get("mlp_hidden", 64)),
+            n_chan=int(hp.get("n_chan", 128)),
+            kernel_size=int(hp.get("kernel_size", 3)),
+            res_scale=float(hp.get("res_scale", 1.0)),
+            res_layers=int(hp.get("res_layers", 4)),
+        )
+        self._task_init(hp, radius=0.08)
+
+    def _resampled_input(self, out_hr, size: int):
+        return interpolate_linear_1d(out_hr[..., 0], size)[:, :, None, :]
+
+    def _output_input(self, out_lr):
+        return out_lr.transpose(2, 3)                               # (B, T, 1, L)
+
+    def _as_nodes(self, frames):
+        return frames.transpose(2, 3)
+
+    def _output_nodes(self, lr_hat):
+        return lr_hat

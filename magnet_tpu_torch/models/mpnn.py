@@ -87,7 +87,8 @@ class MPNN(MPNNCore):
         self.teacher_forcing = bool(hp.get("teacher_forcing", False))
         self.neighbors = int(hp["neighbors"])
         self.criterion = LOSSES[hp.get("loss", "l1")]
-        self.graphs = GraphCache()
+        self.graphs = GraphCache(
+            lane_rule=("mpnn", int(hp.get("hidden_features", 128))))
 
     @staticmethod
     def _mid_swish(time_window: int) -> bool:

@@ -1,6 +1,7 @@
 """Core layers (counterpart of ``magnet_tpu/nn/core.py:78-158``).
 
-PyTorch's own ``nn.Linear``, ``nn.Conv1d`` and ``nn.LayerNorm`` are the
+PyTorch's own ``nn.Linear``, ``nn.Conv1d`` / ``nn.Conv2d`` and
+``nn.LayerNorm`` are the
 semantics the JAX package reproduces (torch default init U(±1/sqrt(fan_in)),
 ``padding=k//2``, LayerNorm eps 1e-5 with the variance taken as
 E[(x-mu)^2]), so the port uses them directly.  ``MLP`` keeps the
@@ -16,10 +17,13 @@ import torch
 from torch import nn
 
 
-def Conv1d(in_chan: int, out_chan: int, kernel_size: int,
-           bias: bool = True) -> nn.Conv1d:
-    return nn.Conv1d(in_chan, out_chan, kernel_size,
-                     padding=kernel_size // 2, bias=bias)
+def Conv(ndim: int, in_chan: int, out_chan: int, kernel_size: int,
+         bias: bool = True) -> nn.Module:
+    """``nn.Conv1d`` (``ndim`` 1) or ``nn.Conv2d`` (2) with a square kernel
+    and ``padding=k//2``: the JAX package's 'SAME' for odd k."""
+    cls = {1: nn.Conv1d, 2: nn.Conv2d}[ndim]
+    return cls(in_chan, out_chan, kernel_size, padding=kernel_size // 2,
+               bias=bias)
 
 
 class MLP(nn.Module):
@@ -50,7 +54,7 @@ def init_torch_default(module: nn.Module, generator: torch.Generator) -> None:
     for LayerNorm."""
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (nn.Linear, nn.Conv1d)):
+            if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
                 fan_in = m.weight[0].numel()
                 bound = 1.0 / fan_in ** 0.5
                 m.weight.uniform_(-bound, bound, generator=generator)

@@ -11,18 +11,22 @@ import torch
 from torch import nn
 
 from magnet_tpu_torch.nn.segment import segment_instance_norm
-from magnet_tpu_torch.ops.graph import CSRGraph
+from magnet_tpu_torch.ops.graph import CSRGraph, lane_of
 from magnet_tpu_torch.ops.mpnn_edge import (
     fused_mpnn_edge_agg,
     fused_mpnn_edge_agg2r,
     fused_mpnn_edge_agg2r_plain,
 )
+from magnet_tpu_torch.ops.segment import gather_rows
 
-#: ``kernel``: both node gathers inside the fused kernel; ``kernel_pregathered``:
-#: the sender rows gathered with torch into an (E, H) array first, the
-#: counterpart of the JAX lane taken when the node table outgrows the TPU's
-#: fast memory; ``plain``: the plain PyTorch version on any device.
-IMPLS = ("kernel", "kernel_pregathered", "plain")
+#: ``kernel``: the graph's lane, the one the JAX package's MPNN layer takes
+#: on it: ``gather`` (both node gathers inside the fused kernel) where its
+#: sender table fits the TPU's fast memory, else ``pregathered`` (the
+#: sender rows gathered into an (E, H) array first, whose backward is the
+#: segment-sum kernel over the sender CSR); ``kernel_gather`` /
+#: ``kernel_pregathered``: that lane whatever the graph; ``plain``: the
+#: plain PyTorch version on any device.
+IMPLS = ("kernel", "kernel_gather", "kernel_pregathered", "plain")
 
 
 class MPNNLayer(nn.Module):
@@ -69,12 +73,13 @@ class MPNNLayer(nn.Module):
         recv_side, send_side = self.project(x, u, pos, variables)
         lin2 = self.message_net_2[0]
         w2 = lin2.weight.t().contiguous()                     # (in, out)
-        if impl == "kernel_pregathered":
-            h0 = send_side.index_select(0, graph.senders.long())
-            sums = fused_mpnn_edge_agg(h0, recv_side, w2, lin2.bias,
-                                       graph.rowptr)
+        lane = (lane_of(graph, "mpnn", self.hidden) if impl == "kernel"
+                 else impl.removeprefix("kernel_"))
+        if lane == "pregathered":
+            sums = fused_mpnn_edge_agg(gather_rows(send_side, graph),
+                                       recv_side, w2, lin2.bias, graph.rowptr)
         else:
-            fn = (fused_mpnn_edge_agg2r if impl == "kernel"
+            fn = (fused_mpnn_edge_agg2r if lane == "gather"
                   else fused_mpnn_edge_agg2r_plain)
             sums = fn(send_side, recv_side, w2, lin2.bias, graph.senders,
                       graph.rowptr)

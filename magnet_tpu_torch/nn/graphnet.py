@@ -10,6 +10,13 @@ features), so step k sees 2^k·e0, while the fresh edge messages only feed
 the node aggregation.  As in the JAX package the doubling is carried as a
 power-of-two scale folded into the edge projection weight W_e, so no
 (E, C) array is scaled per step.
+
+Which fused kernel a step runs is its lane (``ops.graph.lane_of``): the
+one the JAX package's GraphNet takes on the same graph.  ``fold`` gathers
+both node sides and projects e0 inside the kernel; ``pregathered`` forms
+h0 = p_xj[senders] + e0·W_e + b_e per edge first (the gather's backward is
+the segment-sum kernel over the sender CSR) and runs the kernel on h0.
+The lane decides which kernel runs, never what is computed.
 """
 from __future__ import annotations
 
@@ -20,10 +27,14 @@ from magnet_tpu_torch.nn.core import MLP
 from magnet_tpu_torch.ops.fused_edge import (
     fused_edge_tail_agg,
     fused_edge_tail_agg_plain,
+    fused_edge_tail_agg_pregathered,
 )
-from magnet_tpu_torch.ops.graph import CSRGraph
+from magnet_tpu_torch.ops.graph import CSRGraph, lane_of
+from magnet_tpu_torch.ops.segment import gather_rows
 
-IMPLS = ("kernel", "plain")
+#: ``kernel``: the graph's lane; ``kernel_fold`` / ``kernel_pregathered``:
+#: that lane whatever the graph; ``plain``: the plain PyTorch version.
+IMPLS = ("kernel", "kernel_fold", "kernel_pregathered", "plain")
 
 
 class GraphEncoder(nn.Module):
@@ -47,8 +58,9 @@ class InteractionNetwork(nn.Module):
     Linear (H, 3C) over ``[x_i | x_j | e]``.
 
     The forward slices that weight: the x_i and x_j chunks are applied once
-    to the N node rows (p_xi, p_xj) and gathered per edge inside the fused
-    edge kernel, which also applies the e chunk to e0 (fold-e), runs the
+    to the N node rows (p_xi, p_xj) and gathered per edge, inside the fused
+    edge kernel on the ``fold`` lane, which also applies the e chunk to e0
+    (fold-e), or before it on the ``pregathered`` lane; the kernel runs the
     tail MLP and LayerNorm and sums per receiver.  The fused function is
     differentiable in its float operands (its backward is a kernel too);
     the gradient of the slicing, transposing, stacking and the edge scale
@@ -88,17 +100,24 @@ class InteractionNetwork(nn.Module):
                 impl: str = "kernel"):
         """x (N, C) node latents; e0 (E, C) step-0 edge latents, the step's
         edge input being e_scale·e0.  Returns the updated node latents."""
+        if impl not in IMPLS:
+            raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
         w0 = self.edge_fn[0].linears[0].weight                   # (H, 3C)
         c = self.latent
         p_xi = x @ w0[:, :c].t()                                 # (N, H)
         p_xj = x @ w0[:, c:2 * c].t()                            # (N, H)
-        we, be, w_rest, b_rest, w_out, b_out, ln_s, ln_b = \
-            self.edge_weights(e_scale)
-        if impl not in IMPLS:
-            raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-        fn = fused_edge_tail_agg if impl == "kernel" else fused_edge_tail_agg_plain
-        agg_sum = fn(e0, we, be, p_xj, p_xi, graph.senders, graph.rowptr,
-                     w_rest, b_rest, w_out, b_out, ln_s, ln_b)
+        we, be, *tail = self.edge_weights(e_scale)
+        if impl == "plain":
+            agg_sum = fused_edge_tail_agg_plain(
+                e0, we, be, p_xj, p_xi, graph.senders, graph.rowptr, *tail)
+        elif (lane_of(graph, "graphnet", w0.shape[0]) if impl == "kernel"
+              else impl.removeprefix("kernel_")) == "fold":
+            agg_sum = fused_edge_tail_agg(e0, we, be, p_xj, p_xi,
+                                          graph.senders, graph.rowptr, *tail)
+        else:
+            h0 = gather_rows(p_xj, graph) + (e0 @ we + be)       # (E, H)
+            agg_sum = fused_edge_tail_agg_pregathered(h0, p_xi, graph.rowptr,
+                                                      *tail)
         agg = agg_sum / torch.clamp(graph.degree, min=1.0)[:, None]
         return x + self.node_fn(torch.cat([agg, x], dim=-1))
 

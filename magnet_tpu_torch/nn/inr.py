@@ -1,8 +1,9 @@
-"""Continuous (INR) decoder of MAgNet[CNN] 1D (counterpart of
-``magnet_tpu/nn/inr.py:38-91``), batched.
+"""Continuous (INR) decoders of MAgNet[CNN] 1D and 2D (counterpart of
+``magnet_tpu/nn/inr.py:38-157``), batched.
 
-Two-tap (±dx) nearest grid-sample of the EDSR features, an MLP +
+1D: two-tap (±dx) nearest grid-sample of the EDSR features, an MLP +
 LayerNorm head on each tap, and the area-weighted blend of the two.
+2D: the same over four corners, with the reference's diagonal area swap.
 """
 from __future__ import annotations
 
@@ -63,3 +64,54 @@ class INRDecoder1D(nn.Sequential):
         # its centre on the mesh edge: the blend is then that cell's value
         safe = torch.where(den > 0, den, torch.ones_like(den))
         return torch.where(den > 0, num / safe, preds[:, 0])
+
+
+class INRDecoder2D(nn.Sequential):
+    """The 2D ``proj_head = Sequential(MLP, LayerNorm)`` with its sampling:
+    four corners (vx, vy) = (-1,-1), (-1,1), (1,-1), (1,1) around each
+    query, a nearest sample of the features and field values at each, the
+    head on each, and the blend weighted by the area of the diagonally
+    opposite corner (the reference's swap ``[3, 2, 1, 0]``).
+
+    forward(x_t (B, T, C, W, W), feat (B, Cf, W, W), cell (B, N, 2),
+    coord_hr (B, N, 2), t (B, T_total)) -> (B, N, T, n_chan).
+    """
+
+    def __init__(self, n_chan: int, in_fields: int, mlp_layers: int,
+                 mlp_hidden: int):
+        # input per corner: features, field values, coord (2), cell (2), t
+        in_dim = n_chan + in_fields + 5
+        super().__init__(MLP(in_dim, [mlp_hidden] * mlp_layers, n_chan),
+                         nn.LayerNorm(n_chan))
+
+    def forward(self, x_t, feat, cell, coord_hr, t):
+        B, T, C, H, W = x_t.shape
+        N = coord_hr.shape[1]
+        K = 4
+        dx = 1.0 / W
+        dev = x_t.device
+        feat_coord = make_coord([W, W], device=dev)                 # (W*W, 2)
+        vx = torch.tensor([-1.0, -1.0, 1.0, 1.0], device=dev)[None, :, None]
+        vy = torch.tensor([-1.0, 1.0, -1.0, 1.0], device=dev)[None, :, None]
+        g0 = torch.clamp(coord_hr[:, None, :, 0] + vx * dx + 1e-6,
+                         -1 + 1e-6, 1 - 1e-6)                       # (B, 4, N)
+        g1 = torch.clamp(coord_hr[:, None, :, 1] + vy * dx + 1e-6,
+                         -1 + 1e-6, 1 - 1e-6)
+        lin = _nearest_index(g0, H) * W + _nearest_index(g1, W)     # (B, 4, N)
+        bi = torch.arange(B, device=dev)[:, None, None]
+        q_feat = feat.reshape(B, -1, H * W).transpose(1, 2)[bi, lin]
+        q_coord = feat_coord[lin]                                   # (B,4,N,2)
+        q_inp = x_t.reshape(B, T, C, H * W).permute(0, 3, 1, 2)[bi, lin]
+        final_coord = (coord_hr[:, None] - q_coord) * W             # (B,4,N,2)
+        final_cell = (cell[:, None] * W).expand(B, K, N, 2)
+        area = (final_coord[..., 0] * final_coord[..., 1]).abs() + 1e-9
+
+        def bt(a):                                      # (B,4,N,D) -> (B,4,N,T,D)
+            return a[:, :, :, None, :].expand(B, K, N, T, a.shape[-1])
+
+        tcol = t[:, None, None, :T, None].expand(B, K, N, T, 1)
+        inp = torch.cat(
+            [bt(q_feat), q_inp, bt(final_coord), bt(final_cell), tcol], dim=-1)
+        preds = super().forward(inp)                                # (B,4,N,T,nc)
+        weight = area[:, [3, 2, 1, 0]] / area.sum(1, keepdim=True)  # (B, 4, N)
+        return (preds * weight[..., None, None]).sum(1)

@@ -13,15 +13,40 @@ edge mask.  It takes the place of the TPU's tile packing
 ``GraphCache`` keeps the finished graphs of identical coordinate batches
 (``magnet_tpu/models/common.py:152-160``): a regular grid asks for the
 same graph at every step.
+
+Every graph also carries its sender CSR (``snd_ptr``, ``snd_perm``: the
+edges stably sorted by sender), which the backward of a sender gather
+reduces over, and, when built from coordinates, its ``TileLayout``: what
+the JAX package's host builder (``build_radius_graph_batch``,
+``block_graph``, ``_snd2_layout``) would find for the same batch.  The
+kernel lane a layer takes is decided from that layout with a copy of the
+JAX package's gates (``lane_of``), so the port runs the kernel the JAX
+package runs on the same graph.  The lane decides which kernel runs, never
+what is computed.
 """
 from __future__ import annotations
 
 import hashlib
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 
 import torch
+
+
+@dataclass(frozen=True)
+class TileLayout:
+    """The JAX package's tile layout of a batch, reduced to what its kernel
+    gates read: ``n_pad``, a sample's node count rounded up to the 128-row
+    tile; ``snd2``, whether the sender-tile layout of the in-kernel sender
+    gather exists (every edge chunk of every sample draws its senders from
+    at most ``SND2_K_CAP`` node tiles); ``snd_transpose``, whether the
+    sender-transpose layout is built (the out-degree skew rule)."""
+
+    n_pad: int
+    snd2: bool
+    snd_transpose: bool
 
 
 @dataclass
@@ -30,13 +55,22 @@ class CSRGraph:
 
     senders, receivers: (E,) int32, edge j -> i is senders[e] -> receivers[e];
     rowptr: (N+1,) int32, the edges of receiver i are rowptr[i]:rowptr[i+1];
-    degree: (N,) float32 in-degree.
+    degree: (N,) float32 in-degree;
+    snd_ptr (N+1,), snd_perm (E,) int32: the sender CSR, the edges of
+    sender j being snd_perm[snd_ptr[j]:snd_ptr[j+1]] in ascending order;
+    layout: the JAX package's tile layout of the batch (None for a graph
+    not built from coordinates); lane: the kernel lane of the model that
+    built it (``fold``, ``pregathered`` or ``gather``), or None.
     """
 
     senders: torch.Tensor
     receivers: torch.Tensor
     rowptr: torch.Tensor
     degree: torch.Tensor
+    snd_ptr: torch.Tensor
+    snd_perm: torch.Tensor
+    layout: Optional[TileLayout] = None
+    lane: Optional[str] = None
 
     @property
     def n_node(self) -> int:
@@ -49,7 +83,132 @@ class CSRGraph:
     def to(self, device) -> "CSRGraph":
         return CSRGraph(*(t.to(device) for t in
                           (self.senders, self.receivers, self.rowptr,
-                           self.degree)))
+                           self.degree, self.snd_ptr, self.snd_perm)),
+                        layout=self.layout, lane=self.lane)
+
+
+# ---- a copy of the JAX package's layout tests and kernel gates ----------
+# (magnet_tpu/ops/graph.py:187-202, 256-313; magnet_tpu/models/common.py:
+# 171-194, 225-238; magnet_tpu/ops/pallas_kernels.py:33-40, 64-76;
+# magnet_tpu/nn/graphnet.py:200-258, 295-302; magnet_tpu/nn/gnn_layer.py:
+# 111-116), without the TPU-only environment knobs.
+TILE_N = 128
+SND2_K_CAP = 8
+_MAX_E_CHUNK = 2048
+_MIB = 2 ** 20
+_DPXJ_TABLE_BYTES = 6 * _MIB
+_DPXJ_H0_BYTES = 9 * _MIB
+
+
+def _e_chunk(e: int) -> int:
+    """Largest multiple of 128 dividing ``e`` (itself a multiple of 128)
+    that is at most 2048: the JAX package's ``_e_chunk`` and, with the same
+    cap, its ``_chunk2_of``."""
+    if e <= _MAX_E_CHUNK:
+        return e
+    k = e // 128
+    for m in range(_MAX_E_CHUNK // 128, 0, -1):
+        if k % m == 0:
+            return 128 * m
+    return 128
+
+
+def _chunkable_e_tile(e_tile: int) -> int:
+    if e_tile <= _MAX_E_CHUNK:
+        return e_tile
+    while _e_chunk(e_tile) < 512:
+        e_tile += 128
+    return e_tile
+
+
+def _bucket(counts: np.ndarray) -> int:
+    return max(128, ((int(counts.max()) + 127) // 128) * 128)
+
+
+def _snd2_k(send: np.ndarray, recv: np.ndarray, n_tiles: int,
+            e_tile: int) -> int:
+    """The largest number of distinct sender tiles of one edge chunk, edges
+    packed by receiver tile, then sender (``_snd2_layout``'s K)."""
+    if not len(send):
+        return 0
+    chunk2 = _e_chunk(e_tile)
+    r_tile = recv // TILE_N
+    order = np.lexsort((send, r_tile))
+    tile = r_tile[order]
+    starts = np.zeros(n_tiles + 1, np.int64)
+    np.cumsum(np.bincount(tile, minlength=n_tiles), out=starts[1:])
+    chunk = (np.arange(len(order)) - starts[tile]) // chunk2
+    cell = tile * (e_tile // chunk2) + chunk
+    pairs = np.unique(cell * n_tiles + send[order] // TILE_N)
+    return int(np.bincount(pairs // n_tiles).max())
+
+
+def tile_layout(samples, n_node: int) -> TileLayout:
+    """The JAX package's tile layout of a batch of per-sample edge lists
+    ``samples`` [(send, recv), ...] (numpy, local node ids in
+    [0, n_node)): receiver- and sender-tile buckets as batch maxima rounded
+    to 128, the skew rule for the sender-transpose layout, and the K of the
+    sender-tile layout.  Decided per batch (the JAX package keeps its
+    buckets sticky across batches, which changes no result)."""
+    n_tiles = -(-n_node // TILE_N)
+    e_tile = e_tile_s = 128
+    for send, recv in samples:
+        if len(recv):
+            e_tile = max(e_tile, _bucket(np.bincount(recv // TILE_N,
+                                                     minlength=n_tiles)))
+            e_tile_s = max(e_tile_s, _bucket(np.bincount(send // TILE_N,
+                                                         minlength=n_tiles)))
+    e_tile = _chunkable_e_tile(e_tile)
+    e_tile_s = _chunkable_e_tile(e_tile_s)
+    snd2 = bool(samples)
+    prev = None
+    for send, recv in samples:
+        if prev is None or not (np.array_equal(send, prev[0])
+                                and np.array_equal(recv, prev[1])):
+            k = _snd2_k(send, recv, n_tiles, e_tile)
+            prev = (send, recv)
+        snd2 = snd2 and 0 < k <= SND2_K_CAP
+    return TileLayout(n_pad=n_tiles * TILE_N, snd2=snd2,
+                      snd_transpose=e_tile_s <= max(4 * e_tile, 4096))
+
+
+def graphnet_lane(layout: TileLayout, hidden: int) -> str:
+    """``pregathered`` where the JAX GraphNet's ``_fused2_mode`` is None (it
+    then gathers p_xj with XLA and runs ``fused_edge_tail_agg``), else
+    ``fold`` (every in-kernel-gather lane of the JAX package, f32).  With
+    the sender-tile layout the mode is 'vmem' or 'hbm' (its chunk list
+    exists); without the sender-transpose layout it is 'vmem' under the
+    5/6/8 MiB table gates, which imply the 'hbm' gate, so that gate alone
+    decides."""
+    if not layout.snd2:
+        return "pregathered"
+    if layout.snd_transpose or layout.n_pad * hidden * 4 <= _DPXJ_H0_BYTES:
+        return "fold"
+    return "pregathered"
+
+
+def mpnn_lane(layout: TileLayout, hidden: int) -> str:
+    """``gather`` where the JAX MPNN layer's ``use_v2r`` holds (the
+    sender-tile layout exists and the f32 sender table fits its budget),
+    else ``pregathered``."""
+    if layout.snd2 and layout.n_pad * hidden * 4 <= _DPXJ_TABLE_BYTES:
+        return "gather"
+    return "pregathered"
+
+
+LANE_RULES = {"graphnet": graphnet_lane, "mpnn": mpnn_lane}
+
+
+def lane_of(graph: "CSRGraph", family: str, hidden: int) -> str:
+    """The lane of a ``family`` (``graphnet`` or ``mpnn``) layer of width
+    ``hidden`` on ``graph``: the one cached with the graph, else decided
+    from its layout."""
+    if graph.lane is not None:
+        return graph.lane
+    if graph.layout is None:
+        raise ValueError("the graph has no tile layout to decide a lane from "
+                         "(build it with radius_graph_batch, or force a lane)")
+    return LANE_RULES[family](graph.layout, hidden)
 
 
 #: pair distances formed at a time by ``_radius_edges`` (float64 entries)
@@ -106,10 +265,12 @@ def radius_graph(pos, r: float, loop: bool = False,
     return send.to(torch.int32), recv.to(torch.int32)
 
 
-def csr_from_edges(senders, receivers, n_node: int) -> CSRGraph:
-    """Pack receiver-grouped edges (receivers non-decreasing) as CSR.
+def csr_from_edges(senders, receivers, n_node: int,
+                   layout: Optional[TileLayout] = None) -> CSRGraph:
+    """Pack receiver-grouped edges (receivers non-decreasing) as CSR, with
+    the sender CSR beside it.
 
-    The fused edge kernel trusts the CSR it is given, so the checks are
+    The fused edge kernels trust the CSR they are given, so the checks are
     made here, once per graph: every index lies in [0, n_node), hence
     rowptr starts at 0, never decreases and ends at the edge count.
     """
@@ -125,33 +286,56 @@ def csr_from_edges(senders, receivers, n_node: int) -> CSRGraph:
         if lo < 0 or hi >= n_node:
             raise ValueError(f"node index {lo if lo < 0 else hi} is outside "
                              f"[0, {n_node})")
-    counts = torch.bincount(receivers.long(), minlength=n_node)
-    rowptr = torch.zeros(n_node + 1, dtype=torch.int64)
-    torch.cumsum(counts, 0, out=rowptr[1:])
+
+    def ptr(index):
+        counts = torch.bincount(index.long(), minlength=n_node)
+        out = torch.zeros(n_node + 1, dtype=torch.int64)
+        torch.cumsum(counts, 0, out=out[1:])
+        return counts, out.to(torch.int32)
+
+    counts, rowptr = ptr(receivers)
+    _, snd_ptr = ptr(senders)
+    snd_perm = torch.sort(senders.long(), stable=True).indices
     return CSRGraph(
         senders=senders.to(torch.int32),
         receivers=receivers.to(torch.int32),
-        rowptr=rowptr.to(torch.int32),
+        rowptr=rowptr,
         degree=counts.to(torch.float32),
+        snd_ptr=snd_ptr,
+        snd_perm=snd_perm.to(torch.int32),
+        layout=layout,
     )
 
 
 def radius_graph_batch(pos, r: float, loop: bool = True,
-                       max_num_neighbors: int = 32) -> CSRGraph:
+                       max_num_neighbors: int = 32,
+                       lane_rule: Optional[tuple[str, int]] = None) -> CSRGraph:
     """Radius graphs of B samples pos (B, N, D), flattened into one CSR
-    graph over B*N nodes: sample b's node k is node b*N + k."""
+    graph over B*N nodes: sample b's node k is node b*N + k.  The graph
+    carries the batch's ``TileLayout``; with ``lane_rule`` = (family,
+    hidden) it also carries that layer's lane."""
     pos = torch.as_tensor(pos)
     b, recv, send = _radius_edges(pos, r, loop, max_num_neighbors)
     n = pos.shape[1]
-    return csr_from_edges(b * n + send, b * n + recv, pos.shape[0] * n)
+    cuts = torch.searchsorted(b, torch.arange(1, pos.shape[0])).tolist()
+    samples = list(zip(np.split(send.numpy(), cuts),
+                       np.split(recv.numpy(), cuts)))
+    graph = csr_from_edges(b * n + send, b * n + recv, pos.shape[0] * n,
+                           layout=tile_layout(samples, n))
+    if lane_rule is not None:
+        graph.lane = lane_of(graph, *lane_rule)
+    return graph
 
 
 class GraphCache:
     """The last few batched radius graphs, on their device, keyed by the
-    coordinates' bytes and the graph's parameters.  A model owns one."""
+    coordinates' bytes and the graph's parameters.  A model owns one, and
+    its lane rule with it."""
 
-    def __init__(self, max_entries: int = 8):
+    def __init__(self, max_entries: int = 8,
+                 lane_rule: Optional[tuple[str, int]] = None):
         self.max_entries = max_entries
+        self.lane_rule = lane_rule
         self._graphs: dict = {}
         self.hits = 0
 
@@ -168,7 +352,8 @@ class GraphCache:
             self.hits += 1
             return self._graphs[key]
         graph = radius_graph_batch(torch.from_numpy(pos), r, loop,
-                                   max_num_neighbors).to(device)
+                                   max_num_neighbors,
+                                   self.lane_rule).to(device)
         if len(self._graphs) >= self.max_entries:
             self._graphs.pop(next(iter(self._graphs)))
         self._graphs[key] = graph

@@ -1,5 +1,5 @@
-"""Nearest and linear resampling with torch's semantics
-(counterpart of ``magnet_tpu/ops/interp.py:19-65``)."""
+"""Nearest and (bi)linear resampling with torch's semantics
+(counterpart of ``magnet_tpu/ops/interp.py:19-74``)."""
 from __future__ import annotations
 
 import torch
@@ -30,3 +30,23 @@ def interpolate_linear_1d(x: torch.Tensor, size: int) -> torch.Tensor:
     # first pixel with no blend
     frac = torch.where(pos < 0, torch.zeros_like(frac), frac)
     return x[..., lo_i] * (1.0 - frac) + x[..., hi_i] * frac
+
+
+def grid_sample_nearest_2d(feat: torch.Tensor, g_row: torch.Tensor,
+                           g_col: torch.Tensor) -> torch.Tensor:
+    """feat (C, H, W); g_row / g_col (N,) normalised coordinates along the
+    H and W axes -> (N, C), as ``F.grid_sample(mode='nearest',
+    padding_mode='border', align_corners=False)`` on the reference's
+    flipped (row, col) coordinates."""
+    c, h, w = feat.shape
+    iy = _nearest_index(g_row, h)
+    ix = _nearest_index(g_col, w)
+    return feat.reshape(c, h * w)[:, iy * w + ix].t()
+
+
+def interpolate_bilinear_2d(x: torch.Tensor, size) -> torch.Tensor:
+    """x (..., H, W) -> (..., size[0], size[1]), as ``F.interpolate(
+    mode='bilinear', align_corners=False)``: the linear resampling along
+    each axis, no antialias."""
+    out = interpolate_linear_1d(x, size[1]).transpose(-1, -2)
+    return interpolate_linear_1d(out, size[0]).transpose(-1, -2)

@@ -4,8 +4,8 @@
       [batch_size=16] [seed=0] [out=PATH]
 
 Evaluates ``model`` at full width on test batches made from the seed at the
-shape of its datamodule's test split (for ``mpnn_2d`` pass the
-datamodule's ``batch_size=4``).  Runs ``evaluate`` once to warm up, once timed with no profiler, then once
+shape of its datamodule's test split (for ``mpnn_2d`` and
+``magnet_cnn_2d`` pass ``batch_size=4``).  Runs ``evaluate`` once to warm up, once timed with no profiler, then once
 under ``torch.profiler`` (CPU and CUDA activities).  Prints one JSON line:
 wall seconds per batch of both timed runs, the device's busy time (the sum
 of device-side events: kernels and copies) and its idle share against each
@@ -30,6 +30,7 @@ from magnet_tpu_torch.eval import evaluate
 from magnet_tpu_torch.models.factory import create_model
 from magnet_tpu_torch.ops import fused_edge as fe
 from magnet_tpu_torch.ops import mpnn_edge as me
+from magnet_tpu_torch.ops import segment as seg
 
 
 def main(argv=None) -> dict:
@@ -44,13 +45,16 @@ def main(argv=None) -> dict:
                                      seed=run["seed"])
     evaluate(model, batches)
     torch.cuda.synchronize()
-    fe.launches = 0
+    fe.reset_launches()
     me.reset_launches()
+    seg.launches = 0
     t0 = time.perf_counter()
     evaluate(model, batches)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"fused_edge_fwd": fe.launches, **me.launches}
+    launches = {"fused_edge_fwd": fe.launches,
+                "fused_edge_pregathered_fwd": fe.launches_pregathered,
+                "segment_sum": seg.launches, **me.launches}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()

@@ -6,7 +6,8 @@
 Makes ``steps`` batches of ``model``'s training data from the seed with its
 datamodule's synthetic source (``datamodule_key=value`` replaces a key of
 the datamodule's defaults, for example ``burn_in=10.0`` to shorten the KS
-burn-in or ``n_steps=2000`` for the combined equation's solver), takes two
+burn-in, ``n_steps=2000`` for the combined equation's solver or
+``batch_size=8`` for ``magnet_cnn_2d``), takes two
 optimizer steps to warm up, then ``steps`` steps timed with no profiler and
 ``steps`` more under ``torch.profiler`` (CPU and CUDA activities), all
 through ``Trainer.train_step`` at the model's full width.  Prints
@@ -39,6 +40,7 @@ from magnet_tpu_torch.data.datamodule import build_loaders
 from magnet_tpu_torch.models.factory import create_model
 from magnet_tpu_torch.ops import fused_edge as fe
 from magnet_tpu_torch.ops import mpnn_edge as me
+from magnet_tpu_torch.ops import segment as seg
 from magnet_tpu_torch.train.trainer import Trainer
 
 
@@ -74,13 +76,17 @@ def main(argv=None) -> dict:
     for b in batches[:2]:
         trainer.train_step(b)
     torch.cuda.synchronize()
-    fe.launches = fe.launches_bwd = 0
+    fe.reset_launches()
     me.reset_launches()
+    seg.launches = 0
     t0 = time.perf_counter()
     run_steps()
     wall = time.perf_counter() - t0
     launches = {"fused_edge_fwd": fe.launches,
-                "fused_edge_bwd": fe.launches_bwd, **me.launches}
+                "fused_edge_bwd": fe.launches_bwd,
+                "fused_edge_pregathered_fwd": fe.launches_pregathered,
+                "fused_edge_pregathered_bwd": fe.launches_pregathered_bwd,
+                "segment_sum": seg.launches, **me.launches}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()

@@ -1,5 +1,5 @@
-"""JAX params -> the port's ``state_dict``, for ``magnet_cnn``, ``mpnn``
-and ``mpnn_2d``.
+"""JAX params -> the port's ``state_dict``, for ``magnet_cnn``,
+``magnet_cnn_2d``, ``mpnn`` and ``mpnn_2d``.
 
 The inverse of ``magnet_tpu/train/import_torch.py`` (``import_magnet_cnn``,
 ``import_mpnn``): the port's modules carry the reference's torch key names,
@@ -8,7 +8,8 @@ for leaf.
 
 Conventions (the importer's, read backwards):
   * flax Dense kernel (in, out) -> torch Linear weight (out, in);
-  * flax Conv kernel (k, in, out) -> torch Conv1d weight (out, in, k);
+  * flax Conv kernel (k, in, out) -> torch Conv1d weight (out, in, k),
+    (kh, kw, in, out) -> torch Conv2d weight (out, in, kh, kw);
   * flax LayerNorm scale/bias -> torch weight/bias;
   * MLP Linears sit at even indices of ``layers``;
   * scanned stacks (processor steps, EDSR blocks) are split on axis 0;
@@ -40,7 +41,9 @@ def _ln(sd, prefix, ln):
 
 
 def _conv(sd, prefix, conv):
-    sd[f"{prefix}.weight"] = _t(np.asarray(conv["Conv_0"]["kernel"]).transpose(2, 1, 0))
+    k = np.asarray(conv["Conv_0"]["kernel"])
+    nd = k.ndim - 2
+    sd[f"{prefix}.weight"] = _t(k.transpose(nd + 1, nd, *range(nd)))
     sd[f"{prefix}.bias"] = _t(conv["Conv_0"]["bias"])
 
 
@@ -55,6 +58,21 @@ def _index(tree, i):
     if isinstance(tree, Mapping):
         return {k: _index(v, i) for k, v in tree.items()}
     return np.asarray(tree)[i]
+
+
+def edsr_state_dict(enc: Mapping[str, Any], res_layers: int,
+                    prefix: str = "") -> dict[str, torch.Tensor]:
+    """A JAX ``EDSR``'s params (1D or 2D) as the ``state_dict`` of the
+    port's ``nn.edsr.EDSR``, keys starting with ``prefix``."""
+    sd: dict[str, torch.Tensor] = {}
+    _conv(sd, f"{prefix}head_conv", enc["Conv_0"])
+    _conv(sd, f"{prefix}tail_conv", enc["Conv_1"])
+    blocks = enc["res_layers"]["ResBlock_0"]
+    for i in range(res_layers):
+        blk = _index(blocks, i)
+        _conv(sd, f"{prefix}res_layers.{i}.conv_1", blk["Conv_0"])
+        _conv(sd, f"{prefix}res_layers.{i}.conv_2", blk["Conv_1"])
+    return sd
 
 
 MSG1_CHUNKS = ("msg1_xi", "msg1_xj", "msg1_u", "msg1_pos", "msg1_var")
@@ -105,25 +123,20 @@ def state_dict_from_jax(params: Mapping[str, Any], hp: Mapping[str, Any],
                         model: str = "magnet_cnn") -> dict[str, torch.Tensor]:
     """``params`` is the JAX model's variables (``{'params': ...}``) or the
     inner tree, leaves numpy arrays; returns a ``state_dict`` for the
-    port's model ``model`` (``magnet_cnn``, ``mpnn`` or ``mpnn_2d``)."""
+    port's model ``model`` (``magnet_cnn``, ``magnet_cnn_2d``, ``mpnn`` or
+    ``mpnn_2d``); the two MAgNet[CNN] models share one layout, the 2D one
+    with Conv2d kernels."""
     p = params.get("params", params)
     if model in ("mpnn", "mpnn_2d"):
         return _mpnn_state_dict(p, hp, is_2d=model == "mpnn_2d")
-    if model != "magnet_cnn":
+    if model not in ("magnet_cnn", "magnet_cnn_2d"):
         raise ValueError(f"no weight bridge for model {model!r}")
     mlp_layers = int(hp.get("mlp_layers", 4))
-    res_layers = int(hp.get("res_layers", 4))
+    res_layers = int(hp.get("res_layers", 4 if model == "magnet_cnn" else 16))
     mp = int(hp.get("num_message_passing_steps", 10))
     sd: dict[str, torch.Tensor] = {}
 
-    enc = p["encoder"]
-    _conv(sd, "encoder.head_conv", enc["Conv_0"])
-    _conv(sd, "encoder.tail_conv", enc["Conv_1"])
-    blocks = enc["res_layers"]["ResBlock_0"]
-    for i in range(res_layers):
-        blk = _index(blocks, i)
-        _conv(sd, f"encoder.res_layers.{i}.conv_1", blk["Conv_0"])
-        _conv(sd, f"encoder.res_layers.{i}.conv_2", blk["Conv_1"])
+    sd.update(edsr_state_dict(p["encoder"], res_layers, "encoder."))
 
     cd = p["continuous_decoder"]
     _mlp(sd, "proj_head.0", cd["MLP_0"])
