@@ -3,25 +3,29 @@
 
   python3 chip_smoke.py                 every phase (the full check)
   python3 chip_smoke.py GROUP [GROUP]   only the named groups of phases:
-                                        cnn, mpnn_kernels, mpnn_paths, cnn2d
+                                        cnn, mpnn_kernels, mpnn_paths, cnn2d,
+                                        gnn
 
-Builds the port's five CUDA sources from the checkout (nine kernels: the
-fused GraphNet edge pipeline's forward and backward, each with its fold
-and its pre-gathered entry; the fused MPNN message path's forward and
-backward, each with its in-kernel-gather and its pre-gathered entry; the
-segment sum), holds each kernel against its plain PyTorch version at the
-shapes of the paths that launch it, and drives every ported path at full
-width on data made from a seed: MAgNet[CNN] 1D through
-``magnet_tpu_torch.eval.evaluate`` and ``Trainer.fit`` (with a checkpoint
-read back and a resume), MPNN-2D through the same two entry points, one
-MPNN-1D training step on the pre-gathered kernels, and MAgNet[CNN] 2D
-through ``evaluate`` (the fold lane) and ``Trainer.fit`` (the pre-gathered
-lane, with a checkpoint read back and a resume).  It checks that each path
+Builds the port's five CUDA sources from the checkout (all eleven TPU
+kernels: the fused GraphNet edge pipeline's forward and backward, each
+with its fold, pre-gathered and pe entry, the fold entry also at width
+128; the fused MPNN message path's forward and backward, each with its
+in-kernel-gather and its pre-gathered entry; the segment sum), holds each
+kernel against its plain PyTorch version at the shapes of the paths that
+launch it, and drives every ported path at full width on data made from a
+seed: MAgNet[CNN] 1D through ``magnet_tpu_torch.eval.evaluate`` and
+``Trainer.fit`` (with a checkpoint read back and a resume), MPNN-2D
+through the same two entry points, one MPNN-1D training step on the
+pre-gathered kernels, MAgNet[CNN] 2D through ``evaluate`` (the fold lane)
+and ``Trainer.fit`` (the pre-gathered lane, with a checkpoint read back and
+a resume), and MAgNet[GNN] 1D through ``evaluate`` and ``Trainer.fit`` on
+the fold lane at width 128 and on the pe lane.  It checks that each path
 went through its kernels by their launch counts.  Prints one JSON line per
 phase (``device``, ``build``, ``kernel``, ``slice``, ``kernel_bwd``,
 ``train``, ``mpnn_kernel``, ``mpnn_kernel_bwd``, ``mpnn_slice``,
 ``mpnn_train``, ``cnn2d_kernel``, ``cnn2d_kernel_bwd``, ``cnn2d_slice``,
-``cnn2d_train``), the card's name and power limit, a ``{"kernels": [...]}``
+``cnn2d_train``, ``gnn_kernel``, ``gnn_kernel_bwd``, ``gnn_slice``,
+``gnn_train``), the card's name and power limit, a ``{"kernels": [...]}``
 line, and last ``{"ok": true, "device": {...}}``.  Any failed phase exits
 non-zero, and with no CUDA device it exits 1 before printing any result.
 """
@@ -92,7 +96,12 @@ CNN2D_EXTRA_TRAIN, CNN2D_BATCH = 12, 8
 CNN2D_KERNEL_BATCH = 32
 # segment sum vs plain: a few adds per row in another order
 SEG_RTOL, SEG_ATOL_REL = 1e-5, 1e-6
-GROUPS = ("cnn", "mpnn_kernels", "mpnn_paths", "cnn2d")
+# MAgNet[GNN] 1D: the eval batch of 16 Heat trajectories at the test
+# split's shape (nt 256, nx 256), the smoke run's KS trajectories
+# (SMOKE_DATA) through the GNN datamodule (nt 128, 32 queries, batch 32),
+# and the width-128 kernels' small graph with one tail layer
+GNN_EVAL_TRAJ, GNN_SMALL_L1 = 16, 1
+GROUPS = ("cnn", "mpnn_kernels", "mpnn_paths", "cnn2d", "gnn")
 
 
 def emit(obj) -> None:
@@ -942,16 +951,17 @@ def pregathered_operands(graph, h, c, l1, seed, dev):
             f(h, c), f(c), 1 + f(c, scale=0.1), f(c, scale=0.1))
 
 
-def pregathered_bound(kernel: str, graph, h, c, l1) -> dict:
+def pregathered_bound(kernel: str, graph, h, c, l1, pe=False) -> dict:
     """Least time on the card for one call of the pre-gathered forward
     (``"fwd"``) or backward (``"bwd"``) kernel: 2·E·(L1·H² + H·C) operations
     (three times that backward), h0 and the node table read and the output
     written once (backward: g read, d_h0, d_pxi and the weight gradients
-    written)."""
+    written).  ``pe``: the pe entry (#6, #7), which also reads the senders
+    and the sender table pxj."""
     n, e = graph.n_node, graph.n_edge
     flops = 2.0 * e * (l1 * h * h + h * c)
     weights = l1 * (h * h + h) + h * c + 3 * c
-    inputs = e * h + (n + 1) + n * h + weights
+    inputs = e * h + (n + 1) + n * h + weights + (e + n * h if pe else 0)
     if kernel == "fwd":
         nbytes = 4.0 * (inputs + n * c)
     else:
@@ -1344,6 +1354,465 @@ def cnn2d_phases(dev, data, groups) -> tuple[int, list, dict]:
                                      slice_fold + fit_counts["fold"]}})
 
 
+def gnn_small_graph():
+    """A small graph for the width-128 kernels: 40 nodes on a line with
+    radius-0.12 neighbours, node 5 isolated (a receiver of degree 0), and
+    node 0 receiving four edges from each other node (156 edges: a receiver
+    that starts in one 64-edge tile of the forward, fills the next and ends
+    in a third)."""
+    from magnet_tpu_torch.ops.graph import csr_from_edges, radius_graph
+
+    n = 40
+    pos = np.linspace(-1, 1, n, dtype=np.float32)[:, None]
+    s, r = radius_graph(torch.from_numpy(pos), 0.12, loop=False)
+    keep = (r != 0) & (s != 5) & (r != 5)
+    hub = torch.tensor([j for j in range(n) if j != 5] * 4,
+                       dtype=torch.int32).sort().values
+    return csr_from_edges(torch.cat([hub, s[keep]]),
+                          torch.cat([torch.zeros_like(hub), r[keep]]), n)
+
+
+def gnn_operands(entry, graph, l1, seed, dev):
+    """The width-128 operands of the fold (``fused_edge_tail_agg``) or pe
+    (``fused_edge_tail_agg_pe``) entry on a graph, of the fold operands'
+    scales."""
+    h = 128
+    if entry == "fold":
+        return kernel_operands(graph, h, h, h, l1, seed, dev)
+    g = torch.Generator().manual_seed(seed)
+
+    def f(*shape, scale=0.3):
+        return (torch.randn(*shape, generator=g) * scale).to(dev)
+
+    gr = graph.to(dev)
+    n, e = graph.n_node, graph.n_edge
+    return (f(e, h), f(n, h), f(n, h), gr.senders, gr.rowptr, gr.snd_ptr,
+            gr.snd_perm, f(l1, h, h), f(l1, h), f(h, h), f(h),
+            1 + f(h, scale=0.1), f(h, scale=0.1))
+
+
+def tie_receivers(entry, ops, l1):
+    """The receivers of the edges whose recomputed pre-activations (any
+    layer, in float64) lie within 1e-5 of zero relative to that layer's
+    RMS: relu ties, where the kernel and the plain version may take the
+    other side of 0 and differ by O(1) in that edge's gradient."""
+    d = [t.double() if t.is_floating_point() else t for t in ops]
+    if entry == "fold":
+        e0, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest = d[:9]
+        z = e0 @ we + be + pxj[senders.long()]
+    else:
+        pe, pxj, pxi, senders, rowptr = d[:5]
+        w_rest, b_rest = d[7], d[8]
+        z = pe + pxj[senders.long()]
+    n = rowptr.numel() - 1
+    deg = (rowptr[1:] - rowptr[:-1]).long()
+    receivers = torch.repeat_interleave(torch.arange(n, device=z.device), deg)
+    z = z + pxi[receivers]
+    near = torch.zeros(z.shape[0], dtype=torch.bool, device=z.device)
+    for k in range(l1 + 1):
+        near |= (z.abs() < 1e-5 * z.pow(2).mean().sqrt()).any(1)
+        if k < l1:
+            z = torch.relu(z) @ w_rest[k] + b_rest[k]
+    return torch.unique(receivers[near])
+
+
+def gnn_phases(dev, data, groups) -> tuple[int, list, dict]:
+    """Phases ``gnn_kernel``, ``gnn_kernel_bwd``, ``gnn_slice`` and
+    ``gnn_train``: the width-128 fold kernels (#8, #9), the pe kernels (#6,
+    #7, with #1 for d_pxj) and the two MAgNet[GNN] 1D paths.  Returns the
+    exit code (0: all passed), the four kernels' entries and the launches
+    of the segment sum (#1) on these paths."""
+    from magnet_tpu_torch.config import MAGNET_GNN
+    from magnet_tpu_torch.eval import evaluate
+    from magnet_tpu_torch.models.factory import create_model
+    from magnet_tpu_torch.ops import fused_edge as fe
+    from magnet_tpu_torch.ops import segment as seg
+    from magnet_tpu_torch.train.checkpoint import load_checkpoint
+    from magnet_tpu_torch.train.trainer import Trainer
+    from magnet_tpu_torch.utils import to_device
+
+    hp = dict(MAGNET_GNN)
+    h = hp["mlp_hidden"]
+    l1 = hp["mlp_layers"] - 1
+    mp = hp["num_message_passing_steps"]
+    ts = hp["time_slice"]
+    model = create_model("magnet_gnn", hp, device=dev, seed=0)
+    eval_batches = data["gnn_eval"]
+    loaders = data["gnn_loaders"]
+    loaders["train"].set_epoch(0)
+    batch0 = to_device(next(iter(loaders["train"])), dev)
+    eg = model.build_graph(to_device(eval_batches[0], dev))
+    tg = model.build_graph(batch0)
+    graphs = {"eval_lr": eg.lr, "eval_all": eg.all, "train_lr": tg.lr,
+              "train_all": tg.all}
+    small = gnn_small_graph()
+    fns = {"fold": (fe.fused_edge_tail_agg, fe.fused_edge_tail_agg_plain,
+                    fe.fused_edge_tail_agg_bwd,
+                    fe.fused_edge_tail_agg_bwd_plain, fe.GRAD_NAMES),
+           "pe": (fe.fused_edge_tail_agg_pe, fe.fused_edge_tail_agg_pe_plain,
+                  fe.fused_edge_tail_agg_pe_bwd,
+                  fe.fused_edge_tail_agg_pe_bwd_plain, fe.GRAD_NAMES_PE)}
+
+    # 15. #8 at width 128 and #6 vs plain on the eval batch's and the
+    # training batch's LR and LR ∪ HR graphs, and on the small graph (a
+    # degree-0 receiver, a receiver over three tiles, and the last 7 edge
+    # rows cut off, so that the kernel clamps the last receiver's range)
+    fwd = {}
+    for entry, (fn, plain, *_) in fns.items():
+        rows = {}
+        for label, gr in graphs.items():
+            ops = gnn_operands(entry, gr, l1, seed=31, dev=dev)
+            got = fn(*ops)
+            torch.cuda.synchronize()
+            rows[label] = {
+                "n_node": gr.n_node, "n_edge": gr.n_edge, "lane": gr.lane,
+                "mean_degree": float(gr.degree.mean()),
+                "max_degree": int(gr.degree.max()),
+                **compare(got, plain(*ops), KERNEL_RTOL, KERNEL_ATOL),
+                "ms": cuda_ms(lambda: fn(*ops), reps=30),
+                "plain_ms": cuda_ms(lambda: plain(*ops), reps=10),
+                **(bound("fwd", gr, h, h, h, l1) if entry == "fold"
+                   else pregathered_bound("fwd", gr, h, h, l1, pe=True))}
+            del ops, got
+        ops = gnn_operands(entry, small, GNN_SMALL_L1, seed=32, dev=dev)
+        got = fn(*ops)
+        torch.cuda.synchronize()
+        rows["small_case"] = compare(got, plain(*ops), KERNEL_RTOL,
+                                     KERNEL_ATOL)
+        rows["small_case"]["degree0_row_zero"] = bool((got[5] == 0).all())
+        rows["small_case"]["max_degree"] = int(small.degree.max())
+        cut = small.n_edge - 7
+        rowptr = ops[6 if entry == "fold" else 4]
+        clamped = rowptr.clamp(max=cut)
+        if entry == "fold":
+            short = (ops[0][:cut], *ops[1:5], ops[5][:cut], rowptr, *ops[7:])
+            want = plain(*short[:6], clamped, *short[7:])
+            got = fn(*short)
+        else:
+            short = (ops[0][:cut], None, None, ops[1], ops[2], ops[3][:cut],
+                     rowptr, *ops[7:])
+            want = plain(ops[0][:cut], ops[1], ops[2], ops[3][:cut], clamped,
+                         None, None, *ops[7:])
+            got = fe._launch_fwd("pe", *short)
+        torch.cuda.synchronize()
+        rows["clamped_range"] = compare(got, want, KERNEL_RTOL, KERNEL_ATOL)
+        fwd[entry] = rows
+    kernel_ok = all(r["ok"] and r.get("degree0_row_zero", True)
+                    for rows in fwd.values() for r in rows.values()) and all(
+        gr.lane == "fold" for gr in graphs.values())
+    emit({"phase": "gnn_kernel", "h": h, "c": h, "ce": h, "l1": l1,
+          "small_case_l1": GNN_SMALL_L1,
+          "tolerance": {"rtol": KERNEL_RTOL, "atol": KERNEL_ATOL},
+          "fold_w128": fwd["fold"], "pe": fwd["pe"], "library_ms": None,
+          "ok": kernel_ok})
+    if not kernel_ok:
+        return 14, [], {}
+
+    # 16. #9 at width 128 and #7 (+ #1 for d_pxj) vs plain, every
+    # gradient: elementwise on the small graph, by relative L2 at the
+    # training batch's LR ∪ HR graph with the elements outside the bound
+    # counted; g is zero on the receivers of relu ties (tie_receivers)
+    g_gen = torch.Generator().manual_seed(33)
+    bwd = {}
+    for entry, (_, _, fn_bwd, plain_bwd, names) in fns.items():
+        rows = {}
+        for label, gr, l1_ in (("train_shape", tg.all, l1),
+                               ("small_case", small, GNN_SMALL_L1)):
+            ops = gnn_operands(entry, gr, l1_, seed=34, dev=dev)
+            g = torch.randn(gr.n_node, h, generator=g_gen).to(dev)
+            ties = tie_receivers(entry, ops, l1_)
+            g[ties] = 0.0
+            got_g = fn_bwd(*ops, g)
+            torch.cuda.synchronize()
+            want_g = plain_bwd(*ops, g)
+            rows[label] = {
+                name: compare_grad(a, b, elementwise=label == "small_case")
+                for name, a, b in zip(names, got_g, want_g)}
+            rows[label]["tie_receivers_zeroed"] = {"n": int(ties.numel()),
+                                                   "ok": True}
+            if label == "small_case":
+                rows[label]["degree0_row_zero"] = {
+                    "ok": bool((got_g[names.index("pxi")][5] == 0).all())}
+            else:
+                timing_ops, timing_g = ops, g
+        if entry == "fold":
+            ms = cuda_ms(lambda: fn_bwd(*timing_ops, timing_g), reps=20)
+            bnd = bound("bwd", tg.all, h, h, h, l1)
+        else:
+            o = timing_ops
+            kernel_only = (o[0], None, None, o[1], o[2], o[3], o[4], *o[7:],
+                           timing_g)
+            ms = cuda_ms(lambda: fe._launch_bwd("pe", *kernel_only), reps=20)
+            rows["with_segment_sum_ms"] = cuda_ms(
+                lambda: fn_bwd(*timing_ops, timing_g), reps=20)
+            bnd = pregathered_bound("bwd", tg.all, h, h, l1, pe=True)
+        rows.update(ms=ms, plain_ms=cuda_ms(
+            lambda: plain_bwd(*timing_ops, timing_g), reps=5), **bnd)
+        bwd[entry] = rows
+        del timing_ops, timing_g
+    bwd_ok = all(v["ok"] for rows in bwd.values() for case in rows.values()
+                 if isinstance(case, dict) for v in case.values())
+    emit({"phase": "gnn_kernel_bwd", "n_node": tg.all.n_node,
+          "n_edge": tg.all.n_edge, "l1": l1,
+          "tolerance": {"rtol": BWD_RTOL, "atol_rel_to_max": BWD_ATOL_REL,
+                        "max_rel_l2": BWD_L2,
+                        "elementwise": "small_case only"},
+          "fold_w128": bwd["fold"], "pe": bwd["pe"], "library_ms": None,
+          "ok": bwd_ok})
+    if not bwd_ok:
+        return 15, [], {}
+
+    # 17. the eval slice: evaluate() on 16 Heat trajectories in one batch,
+    # on the fold lane (the graph's), then on the pe lane; each vs plain
+    nt_test = data["gnn_eval"][0]["t"].shape[1]
+    n_win = (nt_test - ts) // ts
+    per_batch = n_win * 2 * mp
+    lanes = {}
+    for impl, counter in (("kernel", "fused_edge_fold128_fwd"),
+                          ("kernel_pe", "fused_edge_pe_fwd")):
+        model.impl = impl
+        fe.reset_launches()
+        seg.launches = 0
+        t0 = time.perf_counter()
+        metrics, preds = evaluate(model, eval_batches, dev,
+                                  return_predictions=True)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counts = {**fe.launch_counts(), "segment_sum": seg.launches}
+        want_counts = {k: (per_batch * len(eval_batches) if k == counter
+                           else 0) for k in counts}
+        torch.cuda.reset_peak_memory_stats()
+        steady_s = timed(lambda: evaluate(model, eval_batches, dev))
+        lanes[impl] = {"metrics": metrics, "preds": preds,
+                       "launches": counts, "expected_launches": want_counts,
+                       "seconds_per_batch_first": first_s / len(eval_batches),
+                       "seconds_per_batch": steady_s / len(eval_batches),
+                       "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    model.impl = "plain"
+    t0 = time.perf_counter()
+    metrics_plain, preds_plain = evaluate(model, eval_batches, dev,
+                                          return_predictions=True)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    model.impl = "kernel"
+    slice_ok = True
+    for impl, lane in lanes.items():
+        preds = lane.pop("preds")
+        lane["vs_plain"] = compare(torch.cat(preds), torch.cat(preds_plain),
+                                   SLICE_RTOL, SLICE_ATOL)
+        if impl == "kernel_pe":
+            lane["vs_fold_lane"] = compare(torch.cat(preds), fold_preds,
+                                           SLICE_RTOL, SLICE_ATOL)
+        fold_preds = torch.cat(preds)
+        lane["finite"] = all(bool(torch.isfinite(p).all()) for p in preds) \
+            and all(np.isfinite(v) for v in lane["metrics"].values())
+        lane["shape_ok"] = all(
+            tuple(p.shape) == (b["hr_points"].shape[0], n_win * ts, 128, 1)
+            for p, b in zip(preds, eval_batches))
+        lane["ok"] = (lane["launches"] == lane["expected_launches"]
+                      and lane["finite"] and lane["shape_ok"]
+                      and lane["vs_plain"]["ok"]
+                      and lane.get("vs_fold_lane", {"ok": True})["ok"])
+        slice_ok = slice_ok and lane["ok"]
+    del preds, preds_plain, fold_preds
+    emit({"phase": "gnn_slice", "model": "magnet_gnn",
+          "batches": len(eval_batches), "batch_size": GNN_EVAL_TRAJ,
+          "nt": nt_test, "nx": 256, "L": 128, "N": 128,
+          "windows": n_win, "launches_per_batch": per_batch,
+          "eval_lr_graph": {"n_node": eg.lr.n_node, "n_edge": eg.lr.n_edge},
+          "eval_all_graph": {"n_node": eg.all.n_node,
+                             "n_edge": eg.all.n_edge},
+          "lanes": lanes, "plain_metrics": metrics_plain,
+          "seconds_per_batch_plain": plain_s / len(eval_batches),
+          "ok": slice_ok})
+    if not slice_ok:
+        return 16, [], {}
+    slice_counts = {impl: lane["launches"] for impl, lane in lanes.items()}
+
+    # 18. training: Trainer.fit at full width on the fold lane (the
+    # graphs'); one step on the pe lane; both vs plain; one noisy step
+    def loss_and_grads(m, impl):
+        m.impl = impl
+        m.zero_grad(set_to_none=True)
+        loss, _ = m.loss(batch0, tg, train=True)
+        loss.backward()
+        m.impl = "kernel"
+        return loss.detach(), {k: p.grad.clone()
+                               for k, p in m.named_parameters()}
+
+    def vs_plain(m, impl, want):
+        fe.reset_launches()
+        seg.launches = 0
+        loss_k, grads_k = loss_and_grads(m, impl)
+        counts = {**fe.launch_counts(), "segment_sum": seg.launches}
+        loss_p, grads_p = want
+        l2 = {k: float((grads_k[k].double() - grads_p[k].double()).norm()
+                       / grads_p[k].double().norm().clamp_min(1e-30))
+              for k in grads_p}
+        worst_k = max(l2, key=l2.get)
+        fin = all(bool(torch.isfinite(v).all()) for v in grads_k.values())
+        rel = float((loss_k - loss_p).abs() / loss_p.abs())
+        return {"impl": impl, "launches": counts,
+                "loss_kernel": float(loss_k), "loss_plain": float(loss_p),
+                "loss_rel_err": rel, "loss_rtol": TRAIN_LOSS_RTOL,
+                "worst_grad_rel_l2": l2[worst_k], "worst_grad": worst_k,
+                "grad_rel_l2_tol": TRAIN_GRAD_L2, "grads_finite": fin,
+                "ok": (fin and l2[worst_k] <= TRAIN_GRAD_L2
+                       and rel <= TRAIN_LOSS_RTOL)}
+
+    nt_train = loaders["train"].dataset.data["t"].shape[1]
+    per_step = ((nt_train - ts) // ts) * 2 * mp
+    tmodel = create_model("magnet_gnn", hp, device=dev, seed=0)
+    first_step_s = timed(lambda: loss_and_grads(tmodel, "kernel"))
+    plain = loss_and_grads(tmodel, "plain")
+    cmp_fold = vs_plain(tmodel, "kernel", plain)
+    cmp_pe = vs_plain(tmodel, "kernel_pe", plain)
+    del plain
+    cmp_fold["expected_launches"] = {
+        k: per_step if k in ("fused_edge_fold128_fwd",
+                             "fused_edge_fold128_bwd") else 0
+        for k in cmp_fold["launches"]}
+    cmp_pe["expected_launches"] = {
+        k: per_step if k in ("fused_edge_pe_fwd", "fused_edge_pe_bwd",
+                             "segment_sum") else 0
+        for k in cmp_pe["launches"]}
+    for c in (cmp_fold, cmp_pe):
+        c["ok"] = c["ok"] and c["launches"] == c["expected_launches"]
+    noisy = create_model("magnet_gnn", {**hp, "noise": 0.01}, device=dev,
+                         seed=0)
+    with torch.no_grad():
+        noisy_loss = float(noisy.loss(batch0, tg, train=True)[0])
+        clean_loss = float(tmodel.loss(batch0, tg, train=True)[0])
+    noise_ok = bool(np.isfinite(noisy_loss)) and noisy_loss != clean_loss
+    del tmodel, noisy
+
+    n_epochs, steps = 2, len(loaders["train"])
+    val_batches = len(loaders["val"])
+    with tempfile.TemporaryDirectory() as workdir:
+        def trainer_for(m, max_epochs):
+            return Trainer(m, max_epochs=max_epochs, lr=hp["lr"],
+                           weight_decay=hp["weight_decay"],
+                           factor=hp["factor"], step_size=hp["step_size"],
+                           workdir=workdir, device=dev)
+
+        trainer = trainer_for(create_model("magnet_gnn", hp, device=dev,
+                                           seed=0), n_epochs)
+        fe.reset_launches()
+        seg.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        fit_s = timed(lambda: trainer.fit(loaders["train"], loaders["val"]))
+        fit_counts = {**fe.launch_counts(), "segment_sum": seg.launches}
+        peak_train = torch.cuda.max_memory_allocated()
+        n_steps = steps * n_epochs
+        want_fit = {k: 0 for k in fit_counts}
+        want_fit["fused_edge_fold128_fwd"] = per_step * (
+            n_steps + val_batches * n_epochs)
+        want_fit["fused_edge_fold128_bwd"] = per_step * n_steps
+        with open(os.path.join(workdir, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        losses_finite = all(np.isfinite(v) for r in rows for v in r.values())
+        last = os.path.join(workdir, "checkpoints", "last.pt")
+        state, meta = load_checkpoint(last, require=("model", "optimizer"))
+        ckpt_ok = (state["step"] == n_steps
+                   and meta.get("epoch") == n_epochs - 1
+                   and all(torch.equal(v.cpu(), state["model"][k])
+                           for k, v in trainer.model.state_dict().items()))
+        resumed = trainer_for(create_model("magnet_gnn", hp, device=dev,
+                                           seed=0), n_epochs + 1)
+        resumed.fit(loaders["train"], loaders["val"], resume=last)
+        with open(os.path.join(workdir, "metrics.jsonl")) as f:
+            epochs = [json.loads(line)["epoch"] for line in f]
+        resume_ok = (epochs == list(range(n_epochs + 1))
+                     and resumed.optimizer.step_count == steps * (n_epochs + 1))
+        host_batches = list(loaders["train"])
+        graph_s = timed(lambda: [resumed.model.build_graph(to_device(b, dev))
+                                 for b in host_batches]) / steps
+        step_s = timed(lambda: [resumed.train_step(b)
+                                for b in host_batches]) / steps
+        resumed.model.impl = "plain"
+        step_plain_s = timed(lambda: [resumed.train_step(b)
+                                      for b in host_batches]) / steps
+        resumed.model.impl = "kernel"
+    epoch_losses = [r["train_loss"] for r in rows]
+    train_ok = (fit_counts == want_fit and losses_finite and cmp_fold["ok"]
+                and cmp_pe["ok"] and noise_ok and ckpt_ok and resume_ok)
+    emit({"phase": "gnn_train", "model": "magnet_gnn",
+          "batch_size": loaders["train"].batch_size, "nt": nt_train,
+          "steps_per_epoch": steps, "epochs": n_epochs,
+          "val_batches_per_epoch": val_batches,
+          "windows_per_step": per_step // (2 * mp),
+          "data": {"train_trajectories": len(loaders["train"].dataset),
+                   "seconds_to_make": data["gnn_seconds"]},
+          "train_lr_graph": {"n_node": tg.lr.n_node, "n_edge": tg.lr.n_edge},
+          "train_all_graph": {"n_node": tg.all.n_node,
+                              "n_edge": tg.all.n_edge},
+          "launches": fit_counts, "expected_launches": want_fit,
+          "launches_per_train_step": per_step, "rows": rows,
+          "epoch_train_losses": epoch_losses, "losses_finite": losses_finite,
+          "vs_plain": cmp_fold, "vs_plain_pe_lane": cmp_pe,
+          "noise": {"scale": 0.01, "loss": noisy_loss,
+                    "loss_without": clean_loss, "ok": noise_ok},
+          "checkpoint_ok": ckpt_ok, "resume_ok": resume_ok,
+          "resumed_epochs": epochs,
+          "seconds_first_loss_and_backward": first_step_s,
+          "seconds_host_graph_per_step": graph_s,
+          "seconds_per_step": step_s, "seconds_per_step_plain": step_plain_s,
+          "seconds_fit": fit_s, "peak_mem_bytes": peak_train,
+          "ok": train_ok})
+
+    def worst(found):
+        if not isinstance(found, dict):
+            return 0.0
+        return max([float(found.get("max_abs_err", 0.0))]
+                   + [worst(v) for v in found.values()])
+
+    ev, ev_pe = fwd["fold"]["eval_all"], fwd["pe"]["eval_all"]
+    fold_launches = (slice_counts["kernel"]["fused_edge_fold128_fwd"]
+                     + fit_counts["fused_edge_fold128_fwd"])
+    pe_launches = (slice_counts["kernel_pe"]["fused_edge_pe_fwd"]
+                   + cmp_pe["launches"]["fused_edge_pe_fwd"])
+    kernels = [{
+        "name": "fused_edge_tail_agg_w128", "route": "cuda",
+        "source": "magnet_tpu_torch/csrc/fused_edge_tail_agg.cu",
+        "entry": "fold", "widths": [h, h, h],
+        "replaces": "magnet_tpu/ops/pallas_kernels.py:1356",
+        "launches": fold_launches, "max_abs_err": worst(fwd["fold"]),
+        "ms": ev["ms"], "plain_ms": ev["plain_ms"], "bound_ms": ev["bound_ms"],
+        "bound_by": ev["bound_by"], "library_ms": None,
+        "shape": "eval LR ∪ HR graph", "ok": train_ok}, {
+        "name": "fused_edge_tail_agg_bwd_w128", "route": "cuda",
+        "source": "magnet_tpu_torch/csrc/fused_edge_tail_agg_bwd.cu",
+        "entry": "fold", "widths": [h, h, h],
+        "replaces": "magnet_tpu/ops/pallas_kernels.py:1665",
+        "launches": fit_counts["fused_edge_fold128_bwd"],
+        "max_abs_err": worst(bwd["fold"]), "ms": bwd["fold"]["ms"],
+        "plain_ms": bwd["fold"]["plain_ms"],
+        "bound_ms": bwd["fold"]["bound_ms"],
+        "bound_by": bwd["fold"]["bound_by"], "library_ms": None,
+        "shape": "training LR ∪ HR graph", "ok": train_ok}, {
+        "name": "fused_edge_tail_agg_pe", "route": "cuda",
+        "source": "magnet_tpu_torch/csrc/fused_edge_tail_agg.cu",
+        "entry": "pe", "widths": [h, h],
+        "replaces": "magnet_tpu/ops/pallas_kernels.py:929",
+        "launches": pe_launches, "max_abs_err": worst(fwd["pe"]),
+        "ms": ev_pe["ms"], "plain_ms": ev_pe["plain_ms"],
+        "bound_ms": ev_pe["bound_ms"], "bound_by": ev_pe["bound_by"],
+        "library_ms": None,
+        "shape": "eval LR ∪ HR graph", "ok": train_ok}, {
+        "name": "fused_edge_tail_agg_pe_bwd", "route": "cuda",
+        "source": "magnet_tpu_torch/csrc/fused_edge_tail_agg_bwd.cu",
+        "entry": "pe", "widths": [h, h],
+        "replaces": "magnet_tpu/ops/pallas_kernels.py:1046",
+        "launches": cmp_pe["launches"]["fused_edge_pe_bwd"],
+        "max_abs_err": worst(bwd["pe"]), "ms": bwd["pe"]["ms"],
+        "plain_ms": bwd["pe"]["plain_ms"], "bound_ms": bwd["pe"]["bound_ms"],
+        "bound_by": bwd["pe"]["bound_by"], "library_ms": None,
+        "shape": "training LR ∪ HR graph", "ok": train_ok}]
+    return ((0 if train_ok else 17), kernels,
+            {"segment_sum": {"launches_gnn": cmp_pe["launches"]["segment_sum"]}})
+
+
+
 def make_data(groups) -> dict:
     """Everything the selected groups read, made on the host from seeds."""
     from magnet_tpu_torch.config import (
@@ -1351,9 +1820,13 @@ def make_data(groups) -> dict:
         DATAMODULE_GRAPH_2D,
         DATAMODULE_IMPLICIT,
         DATAMODULE_IMPLICIT_2D,
+        DATAMODULE_IMPLICIT_GNN,
         HEAT_TEST,
     )
-    from magnet_tpu_torch.data.datamodule import build_loaders
+    from magnet_tpu_torch.data.datamodule import (
+        build_loaders,
+        synthetic_test_batches,
+    )
     from magnet_tpu_torch.data.heat import heat_batches
     from magnet_tpu_torch.data.synthetic import make_split
 
@@ -1392,6 +1865,19 @@ def make_data(groups) -> dict:
         data["ce_loaders"] = build_loaders(
             {**DATAMODULE_GRAPH, **MPNN_1D_DATA}, seed=0)
         data["ce_seconds"] = time.perf_counter() - t0
+    if "gnn" in groups:
+        # the cnn group's KS and Heat trajectories when it made them, else
+        # the same ones from the same seeds
+        t0 = time.perf_counter()
+        cfg = {**DATAMODULE_IMPLICIT_GNN, **SMOKE_DATA}
+        if "ks_loaders" in data:
+            cfg.update(source="h5", **{
+                f"{split}_path": loader.dataset.data
+                for split, loader in data["ks_loaders"].items()})
+        data["gnn_loaders"] = build_loaders(cfg, seed=0)
+        data["gnn_eval"] = synthetic_test_batches(
+            "magnet_gnn", GNN_EVAL_TRAJ, GNN_EVAL_TRAJ, seed=0)
+        data["gnn_seconds"] = time.perf_counter() - t0
     return data
 
 
@@ -1438,7 +1924,8 @@ def main(argv) -> int:
     kernels, extra = [], {}
     for group_names, phases in ((("cnn",), cnn_phases),
                                 (("mpnn_kernels", "mpnn_paths"), mpnn_phases),
-                                (("cnn2d",), cnn2d_phases)):
+                                (("cnn2d",), cnn2d_phases),
+                                (("gnn",), gnn_phases)):
         if set(group_names) & set(groups):
             rc, entries, more = phases(dev, data, groups)
             kernels += entries

@@ -1,10 +1,12 @@
 """Model, data, trainer and callback defaults as Python data, copied from
-``magnet_tpu/config/defaults``: ``MAGNET_CNN``, ``MAGNET_CNN_2D``, ``MPNN``
-and ``MPNN_2D`` are ``model/{magnet_cnn,magnet_cnn_2d,mpnn,mpnn_2d}.yaml``;
-``DATAMODULE_IMPLICIT``, ``DATAMODULE_IMPLICIT_2D``, ``DATAMODULE_GRAPH``
-and ``DATAMODULE_GRAPH_2D`` are ``datamodule/h5_datamodule_{implicit,
-implicit_2d,graph,graph_2d}.yaml`` (each plus the keys of its synthetic
-source, which stands in for the files; ``num_workers`` is not ported),
+``magnet_tpu/config/defaults``: ``MAGNET_CNN``, ``MAGNET_CNN_2D``, ``MPNN``,
+``MPNN_2D`` and ``MAGNET_GNN`` are ``model/{magnet_cnn,magnet_cnn_2d,mpnn,
+mpnn_2d,magnet_gnn}.yaml``; ``DATAMODULE_IMPLICIT``,
+``DATAMODULE_IMPLICIT_2D``, ``DATAMODULE_GRAPH``, ``DATAMODULE_GRAPH_2D``
+and ``DATAMODULE_IMPLICIT_GNN`` are ``datamodule/h5_datamodule_{implicit,
+implicit_2d,graph,graph_2d,implicit_gnn}.yaml`` (each plus the keys of its
+synthetic source, which stands in for the files; ``num_workers`` is not
+ported),
 ``TRAINER`` is ``trainer/default.yaml`` without the keys of what is not
 ported (``devices``, ``steps_per_call``, ``precision``, ``log_every``),
 ``CALLBACKS`` the early-stopping patience of ``callbacks/default.yaml``.
@@ -50,6 +52,25 @@ MPNN = {
 
 MPNN_2D = {**MPNN, "time_window": 10, "neighbors": 4}
 
+MAGNET_GNN = {
+    "time_slice": 25,
+    "latent_dim": 128,
+    "num_message_passing_steps": 5,
+    "mlp_layers": 4,
+    "mlp_hidden": 128,
+    "radius": 0.08,
+    "n_chan": 128,
+    "teacher_forcing": True,
+    "codec_neighbors": 4,
+    "noise": 0.0,
+    "interpolation": "area",
+    "factor": 0.3,
+    "step_size": 50,
+    "loss": "l1",
+    "lr": 0.001,
+    "weight_decay": 0.0,
+}
+
 DATAMODULE_IMPLICIT = {
     "kind": "h5_implicit_1d",
     "name": "h5_datamodule_implicit",
@@ -73,6 +94,12 @@ DATAMODULE_IMPLICIT = {
     "n_test": 16,
     "data_seed": 0,
     "burn_in": 40.0,
+}
+
+DATAMODULE_IMPLICIT_GNN = {
+    **DATAMODULE_IMPLICIT,
+    "kind": "h5_implicit_gnn_1d",
+    "name": "h5_datamodule_implicit_gnn",
 }
 
 DATAMODULE_IMPLICIT_2D = {
@@ -151,10 +178,12 @@ MODELS = {
     "magnet_cnn_2d": (MAGNET_CNN_2D, DATAMODULE_IMPLICIT_2D),
     "mpnn": (MPNN, DATAMODULE_GRAPH),
     "mpnn_2d": (MPNN_2D, DATAMODULE_GRAPH_2D),
+    "magnet_gnn": (MAGNET_GNN, DATAMODULE_IMPLICIT_GNN),
 }
 DATAMODULES = {d["name"]: d for _, d in MODELS.values()}
 #: the source that makes each datamodule's data from a seed
 SYNTHETIC_SOURCE = {"h5_implicit_1d": "synthetic_ks",
+                    "h5_implicit_gnn_1d": "synthetic_ks",
                     "h5_implicit_2d": "synthetic_burgers_2d",
                     "h5_graph_1d": "synthetic_ce",
                     "h5_graph_2d": "synthetic_burgers_2d"}

@@ -1,17 +1,22 @@
-// Fused InteractionNetwork edge pipeline, forward, f32, two entries.
+// Fused InteractionNetwork edge pipeline, forward, f32, three entries.
 //
-// fold (FOLD = true) replaces the TPU kernel
+// fold (Entry kFold) replaces the TPU kernel
 // magnet_tpu/ops/pallas_kernels.py:_fused2r_fwd_pallas as called with
 // we/be (fold-e, public entry fused_edge_tail_agg2rf; the oracle is
 // _fused2re_ref_impl + _fused2_ref_impl + _tail_ref); pregathered
-// (FOLD = false) replaces _fused_fwd_pallas (public entry
+// (kPregathered) replaces _fused_fwd_pallas (public entry
 // fused_edge_tail_agg; the oracle is _fused_ref_impl), whose first-layer
-// input h0 = pxj[j] + W_e . e + b_e the caller has formed per edge.
-// Math:
+// input h0 = pxj[j] + W_e . e + b_e the caller has formed per edge; pe
+// (kPe) replaces _fused2_fwd_pallas (public entry fused_edge_tail_agg2;
+// the oracle is _fused2_ref_impl), which gathers the sender row itself and
+// adds the caller's pe = s (e . W_e) + b_e.  The pe entry also computes
+// what the JAX package's no-fold ragged lanes compute
+// (fused_edge_tail_agg2r / 2h).  Math:
 //
 //   for every edge j -> i of a receiver-grouped CSR graph
 //     z   = e0[e] . W_e + b_e + pxj[j] + pxi[i]     (fold)
 //     z   = h0[e] + pxi[i]                          (pregathered)
+//     z   = pe[e] + pxj[j] + pxi[i]                 (pe)
 //     h   = relu(z);  h = relu(h . W_k + b_k)   for k < L1
 //     y   = h . W_out + b_out
 //     y   = LayerNorm(y)      (two-pass f32 variance, eps 1e-5, affine)
@@ -20,8 +25,13 @@
 // The mean over the degree is taken by the caller.  A receiver of degree 0
 // gets a zero row; every edge range is clamped to the E rows given.
 //
-// Design.  Hopper gathers natively, so none of the TPU's one-hot gather
-// matmuls, sender-tile windows or live-chunk lists carry over:
+// Compiled builds, keyed by what each entry reads: fold (Ce, H, C) =
+// (32, 64, 32) (MAgNet[CNN]) and (128, 128, 128) (MAgNet[GNN]);
+// pregathered (H, C) = (64, 32) and (128, 128); pe (H, C) = (128, 128).
+//
+// Design at width 64 (fold, pregathered).  Hopper gathers natively, so
+// none of the TPU's one-hot gather matmuls, sender-tile windows or
+// live-chunk lists carry over:
 //   * all weights sit in dynamic shared memory, loaded once per block; the
 //     grid is persistent (a few blocks per SM) so the load is paid ~400
 //     times per launch, not once per receiver;
@@ -45,12 +55,38 @@
 // and the FMA pipe are both near their limit; wgmma/TMA are left for a
 // later change.
 //
+// Design at width 128 (all three entries).  The width-64 design does not
+// scale: the
+// f32 tail weights alone are 258-322 KB (the block's limit is 227 KB) and
+// a lane would hold 256 live activations.  So the products are tiled:
+//   * a block of 256 threads (16 x 16) owns a tile of 64 consecutive CSR
+//     edges; each edge finds its receiver by a binary search in rowptr;
+//   * the tile's activations live in one (64 x 129)-float shared buffer
+//     (row and column reads free of bank conflicts); each layer's weight
+//     (128 x 128) is streamed through one 66 KB shared buffer, and every
+//     thread computes a 4 x 8 register tile of the product, which goes
+//     back into the activation buffer after a barrier; ~99 KB a block,
+//     two blocks per SM;
+//   * the receiver sum runs over each run of equal receivers in CSR order:
+//     a receiver wholly inside the tile is written directly; a receiver
+//     that crosses a tile boundary leaves one partial row per tile, and a
+//     second small kernel adds those in tile order.  No atomics: the
+//     result is the same from run to run.
+// Bound at MAgNet[GNN]'s eval batch (84.3k LR u HR edges, L1 = 3): fold
+// 81,920 multiply-adds per edge = 13.8 GFLOP, 0.206 ms at the 67 TFLOP/s
+// f32 rate; pe 65,536 per edge, 0.165 ms against 43 MB of pe (0.013 ms):
+// both bound by operations.  Each step of a product makes 12 shared-memory
+// loads for 32 FMAs, so the shared-memory pipe is the limit of this first
+// version.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (magnet_tpu_torch/ops/cuda_build.py does this).
 
 #include <cuda_runtime.h>
 
 #include <atomic>
+
+#include "tile_mm.cuh"
 
 namespace {
 
@@ -309,35 +345,250 @@ int launch(const float* src, const float* we, const float* be,
   return (int)cudaGetLastError();
 }
 
+namespace w128 {
+
+using tile128::Entry;
+using tile128::kCols;
+using tile128::kFold;
+using tile128::kLd;
+using tile128::kPe;
+using tile128::kPregathered;
+using tile128::kThreads;
+using tile128::kW;
+constexpr int kTE = 64;                        // edges per tile
+constexpr int kRows = kTE / 16;                // register tile rows
+constexpr int kAct = 0;                        // (kTE, kLd) activations
+constexpr int kWt = kAct + kTE * kLd;          // (kW, kLd) one weight
+constexpr int kSnd = kWt + kW * kLd;           // (kTE) int
+constexpr int kRcv = kSnd + kTE;               // (kTE) int
+constexpr int kSmemFloats = kRcv + kTE;
+
+// One dense layer over the tile, in place: act <- f(act . W + bias) with
+// W (kW, kW) from device memory; relu when RELU.  Every thread enters with
+// the tile's activations written, and leaves with the new ones written.
+template <bool RELU>
+__device__ __forceinline__ void layer(float* s_act, float* s_w,
+                                      const float* __restrict__ w,
+                                      const float* __restrict__ bias, int tx,
+                                      int ty) {
+  tile128::load_weight(s_w, w);
+  __syncthreads();
+  float acc[kRows][kCols];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) acc[i][j] = __ldg(bias + tx + 16 * j);
+  tile128::mm_aw(s_act, s_w, acc, tx, ty);
+  __syncthreads();  // every read of s_act and s_w is done
+  tile128::store<RELU>(s_act, acc, tx, ty);
+}
+
+template <Entry E>
+__global__ void __launch_bounds__(kThreads, 2)
+edge_tail_kernel(const float* __restrict__ src, const float* __restrict__ we,
+                 const float* __restrict__ be, const float* __restrict__ pxj,
+                 const float* __restrict__ pxi,
+                 const int* __restrict__ senders,
+                 const int* __restrict__ rowptr,
+                 const float* __restrict__ w_rest,
+                 const float* __restrict__ b_rest,
+                 const float* __restrict__ w_out,
+                 const float* __restrict__ b_out,
+                 const float* __restrict__ ln_s,
+                 const float* __restrict__ ln_b, float* __restrict__ out,
+                 float* __restrict__ part, int n_nodes, int n_edges, int l1) {
+  static_assert(kTE * 4 == kThreads, "LayerNorm: four threads per edge");
+  extern __shared__ float smem[];
+  float* s_act = smem + kAct;
+  float* s_w = smem + kWt;
+  int* s_snd = reinterpret_cast<int*>(smem + kSnd);
+  int* s_rcv = reinterpret_cast<int*>(smem + kRcv);
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int base = blockIdx.x * kTE;
+  const int n_valid = min(kTE, n_edges - base);
+
+  tile128::load_indices<kTE, E>(s_snd, s_rcv, senders, rowptr, n_nodes,
+                                base, n_valid);
+  // the first layer's input; rows past the end are zero
+  if (E == kFold) {
+    // z = e0 . W_e + b_e + pxj[sender] + pxi[receiver]
+    tile128::load_rows<kTE>(s_act, src, base, n_valid);
+    tile128::load_weight(s_w, we);
+    __syncthreads();
+    float acc[kRows][kCols];
+    tile128::fold_init(acc, be, pxj, pxi, s_snd, s_rcv, n_valid, tx, ty);
+    tile128::mm_aw(s_act, s_w, acc, tx, ty);
+    __syncthreads();
+    tile128::store<true>(s_act, acc, tx, ty);
+  } else {
+    __syncthreads();  // s_snd, s_rcv
+    tile128::first_input<kTE, E>(s_act, src, pxj, pxi, s_snd, s_rcv, base,
+                                 n_valid);
+  }
+  for (int k = 0; k < l1; ++k)
+    layer<true>(s_act, s_w, w_rest + (size_t)k * kW * kW, b_rest + k * kW, tx,
+                ty);
+  layer<false>(s_act, s_w, w_out, b_out, tx, ty);
+  __syncthreads();
+
+  // LayerNorm (two-pass variance), four threads per edge, in place
+  {
+    constexpr int CP = kW / 4;
+    const int e = tid >> 2, c0 = (tid & 3) * CP;
+    float* yr = s_act + e * kLd + c0;
+    float v[CP];
+    float mu = 0.f;
+#pragma unroll
+    for (int c = 0; c < CP; ++c) {
+      v[c] = yr[c];
+      mu += v[c];
+    }
+    mu += __shfl_xor_sync(0xffffffffu, mu, 1);
+    mu += __shfl_xor_sync(0xffffffffu, mu, 2);
+    mu *= 1.f / kW;
+    float var = 0.f;
+#pragma unroll
+    for (int c = 0; c < CP; ++c) {
+      const float d = v[c] - mu;
+      var = fmaf(d, d, var);
+    }
+    var += __shfl_xor_sync(0xffffffffu, var, 1);
+    var += __shfl_xor_sync(0xffffffffu, var, 2);
+    var *= 1.f / kW;
+    const float rstd = rsqrtf(var + kLnEps);
+#pragma unroll
+    for (int c = 0; c < CP; ++c)
+      yr[c] = (v[c] - mu) * rstd * __ldg(ln_s + c0 + c) + __ldg(ln_b + c0 + c);
+  }
+  __syncthreads();
+
+  // the receiver sums, one thread per column, over each run of equal
+  // receivers in CSR order.  A receiver whose edges all lie in this tile
+  // is written; one that crosses a tile boundary leaves its partial row in
+  // part: row 2 t + 1 if it starts in tile t (the tile's last run), else
+  // row 2 t (the tile's first run)
+  if (tid < kW) {
+    const int c = tid;
+    int e = 0;
+    while (e < n_valid) {
+      const int r = s_rcv[e];
+      float s = 0.f;
+      for (; e < n_valid && s_rcv[e] == r; ++e) s += s_act[e * kLd + c];
+      const bool starts_here = rowptr[r] >= base;
+      const bool ends_here = min(rowptr[r + 1], n_edges) <= base + kTE;
+      if (starts_here && ends_here)
+        out[(size_t)r * kW + c] = s;
+      else
+        part[(size_t)(2 * blockIdx.x + (starts_here ? 1 : 0)) * kW + c] = s;
+    }
+  }
+}
+
+// out[r] for every receiver r whose edges cross a tile boundary: its
+// partial rows added in tile order.  Block b handles the boundary at edge
+// kTE (b + 1), which owns the receivers that cross it first.
+__global__ void __launch_bounds__(kW)
+cross_tile_sum_kernel(const int* __restrict__ rowptr,
+                      const float* __restrict__ part, float* __restrict__ out,
+                      int n_nodes, int n_edges) {
+  const int e = (blockIdx.x + 1) * kTE;
+  const int r = tile128::receiver_of(rowptr, n_nodes, e);
+  const int beg = rowptr[r];
+  if (beg >= e || beg < e - kTE) return;
+  const int t0 = beg / kTE, t1 = (min(rowptr[r + 1], n_edges) - 1) / kTE;
+  const int c = threadIdx.x;
+  float s = part[(size_t)(2 * t0 + 1) * kW + c];
+  for (int t = t0 + 1; t <= t1; ++t) s += part[(size_t)(2 * t) * kW + c];
+  out[(size_t)r * kW + c] = s;
+}
+
+template <Entry E>
+int launch(const float* src, const float* we, const float* be,
+           const float* pxj, const float* pxi, const int* senders,
+           const int* rowptr, const float* w_rest, const float* b_rest,
+           const float* w_out, const float* b_out, const float* ln_s,
+           const float* ln_b, float* out, float* part, int n_nodes,
+           int n_edges, int l1, cudaStream_t stream) {
+  // the shared-memory opt-in, once per device
+  static std::atomic<int> opted[kMaxDevices];
+  constexpr size_t smem = sizeof(float) * kSmemFloats;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  if (device >= kMaxDevices ||
+      !opted[device].load(std::memory_order_relaxed)) {
+    if ((err = cudaFuncSetAttribute(
+             edge_tail_kernel<E>,
+             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)) !=
+        cudaSuccess)
+      return (int)err;
+    if (device < kMaxDevices) opted[device].store(1, std::memory_order_relaxed);
+  }
+  if (n_nodes == 0 || n_edges <= 0) return (int)cudaSuccess;
+  const int n_tiles = (n_edges + kTE - 1) / kTE;
+  edge_tail_kernel<E><<<n_tiles, kThreads, smem, stream>>>(
+      src, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest, w_out, b_out,
+      ln_s, ln_b, out, part, n_nodes, n_edges, l1);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (n_tiles > 1)
+    cross_tile_sum_kernel<<<n_tiles - 1, kW, 0, stream>>>(rowptr, part, out,
+                                                          n_nodes, n_edges);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace w128
+
 }  // namespace
 
 extern "C" {
 
 // Returns a cudaError_t; 0 is success.  Launches on `stream` and does not
-// synchronise.  fold != 0: src is e0 (n_edges, ce), and we, be, pxj and
-// senders are read; fold == 0: src is h0 (n_edges, h), and those four are
-// ignored (they may be null).  Compiled widths (ce, h, c): (32, 64, 32),
-// the magnet_cnn configs'; others return cudaErrorInvalidValue.
+// synchronise.  entry (an Entry): kFold, src is e0 (n_edges, ce) and we,
+// be, pxj and senders are read; kPregathered, src is h0 (n_edges, h) and
+// those four are ignored (they may be null); kPe, src is pe (n_edges, h),
+// pxj and senders are read, we and be ignored.  out (n_nodes, c) must
+// arrive zeroed; part is scratch of 2 * ceil(n_edges / 64) rows of c
+// floats for the width-128 builds (null otherwise).  The compiled builds
+// are those of the header; other widths return cudaErrorInvalidValue.
 int fused_edge_tail_agg_f32(const float* src, const float* we, const float* be,
                             const float* pxj, const float* pxi,
                             const int* senders, const int* rowptr,
                             const float* w_rest, const float* b_rest,
                             const float* w_out, const float* b_out,
                             const float* ln_s, const float* ln_b, float* out,
-                            int n_nodes, int n_edges, int ce, int h, int c,
-                            int l1, int fold, void* stream) {
+                            float* part, int n_nodes, int n_edges, int ce,
+                            int h, int c, int l1, int entry, void* stream) {
+  using tile128::kFold;
+  using tile128::kPe;
+  using tile128::kPregathered;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ce != 32 || h != 64 || c != 32) return (int)cudaErrorInvalidValue;
-  if (fold) {
-    if (we == nullptr || be == nullptr || pxj == nullptr || senders == nullptr)
-      return (int)cudaErrorInvalidValue;
-    return launch<32, 64, 32, true>(src, we, be, pxj, pxi, senders, rowptr,
-                                    w_rest, b_rest, w_out, b_out, ln_s, ln_b,
-                                    out, n_nodes, n_edges, l1, s);
+  const bool narrow = h == 64 && c == 32, wide = h == 128 && c == 128;
+  const bool gathers = pxj != nullptr && senders != nullptr;
+  if (entry == kFold && gathers && we != nullptr && be != nullptr) {
+    if (ce == 32 && narrow)
+      return launch<32, 64, 32, true>(src, we, be, pxj, pxi, senders, rowptr,
+                                      w_rest, b_rest, w_out, b_out, ln_s,
+                                      ln_b, out, n_nodes, n_edges, l1, s);
+    if (ce == 128 && wide && part != nullptr)
+      return w128::launch<kFold>(src, we, be, pxj, pxi, senders, rowptr,
+                                 w_rest, b_rest, w_out, b_out, ln_s, ln_b,
+                                 out, part, n_nodes, n_edges, l1, s);
+  } else if (entry == kPregathered) {
+    if (narrow)
+      return launch<32, 64, 32, false>(src, we, be, pxj, pxi, senders, rowptr,
+                                       w_rest, b_rest, w_out, b_out, ln_s,
+                                       ln_b, out, n_nodes, n_edges, l1, s);
+    if (wide && part != nullptr)
+      return w128::launch<kPregathered>(src, we, be, pxj, pxi, senders,
+                                        rowptr, w_rest, b_rest, w_out, b_out,
+                                        ln_s, ln_b, out, part, n_nodes,
+                                        n_edges, l1, s);
+  } else if (entry == kPe && gathers && wide && part != nullptr) {
+    return w128::launch<kPe>(src, we, be, pxj, pxi, senders, rowptr, w_rest,
+                             b_rest, w_out, b_out, ln_s, ln_b, out, part,
+                             n_nodes, n_edges, l1, s);
   }
-  return launch<32, 64, 32, false>(src, we, be, pxj, pxi, senders, rowptr,
-                                   w_rest, b_rest, w_out, b_out, ln_s, ln_b,
-                                   out, n_nodes, n_edges, l1, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

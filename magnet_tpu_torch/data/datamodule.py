@@ -1,6 +1,7 @@
 """Datamodule assembly: config -> train/val/test loaders (counterpart of
 ``magnet_tpu/data/datamodule.py``), for ``kind`` ``h5_implicit_1d``,
-``h5_implicit_2d``, ``h5_graph_1d`` and ``h5_graph_2d``.
+``h5_implicit_2d``, ``h5_graph_1d``, ``h5_graph_2d`` and
+``h5_implicit_gnn_1d``.
 
 The 1D val split reads the group ``valid``, the 2D one ``test``.  Every
 split is shuffled, as in the reference, unless ``shuffle_eval`` is false.
@@ -8,7 +9,8 @@ Where there are no files a synthetic ``source`` makes the three splits
 from ``data_seed``: ``synthetic_ks`` (KS train and valid, Heat test) for
 the implicit-1D kind, ``synthetic_ce`` (the combined equation's preset
 ``eq``) for the 1D graphs, ``synthetic_burgers_2d`` for the 2D graphs and
-the implicit-2D kind.
+the implicit-2D kind; the implicit-GNN-1D kind takes ``synthetic_ks`` as
+the implicit-1D one does.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from magnet_tpu_torch.data.datasets import (
     DatasetGraph2D,
     DatasetImplicit1D,
     DatasetImplicit2D,
+    DatasetImplicitGNN1D,
 )
 from magnet_tpu_torch.data.loader import DataLoader
 from magnet_tpu_torch.data.synthetic import make_split
@@ -31,7 +34,7 @@ def _synthetic(cfg, split: str, seed: int) -> dict:
     """The arrays of one split of ``cfg``'s kind, made from ``seed``."""
     kind = cfg["kind"]
     n, (nt, res) = int(cfg[f"n_{split}"]), _shape(cfg, split)
-    if kind == "h5_implicit_1d":
+    if kind in ("h5_implicit_1d", "h5_implicit_gnn_1d"):
         if split == "test":
             return make_split("Heat", n, nt, res, seed=seed)
         return make_split("KS", n, nt, res, seed=seed,
@@ -53,8 +56,10 @@ def _dataset(cfg, split: str, data):
     mode = {"train": "train", "test": "test",
             "val": "valid" if kind.endswith("1d") else "test"}[split]
     nt, res = _shape(cfg, split)
-    if kind == "h5_implicit_1d":
-        return DatasetImplicit1D(
+    if kind in ("h5_implicit_1d", "h5_implicit_gnn_1d"):
+        cls = (DatasetImplicit1D if kind == "h5_implicit_1d"
+               else DatasetImplicitGNN1D)
+        return cls(
             data, mode, nt=nt, nx=res, sampling=cfg.get("sampling", "uniform"),
             samples=cfg.get("samples", 32),
             eval_support=cfg.get("eval_support", "lr"))

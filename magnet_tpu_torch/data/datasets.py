@@ -7,6 +7,7 @@ A split comes from an HDF5 file (group ``train``/``valid``/``test`` with
 ``h5py`` is imported only when a file is read, and the split is read into
 memory whole) or from arrays already in memory under the same keys, as
 ``data.synthetic.make_split`` makes them.  ``__getitem__`` returns a dict of numpy arrays.
+MAgNet[GNN]'s 1D samples are ``DatasetImplicitGNN1D``'s.
 """
 from __future__ import annotations
 
@@ -98,6 +99,43 @@ class DatasetImplicit1D:
             "hr_points": u_hr[:, 0, sample_lst][:, :, None],   # (T, n, 1)
             "coords": hr_coord,
             "cells": np.full_like(hr_coord, 2.0 / L),
+        }
+        if self.mode == "train":
+            out["sample_idx"] = sample_lst.astype(np.int64)
+        return out
+
+
+class DatasetImplicitGNN1D(DatasetImplicit1D):
+    """MAgNet[GNN] samples (``magnet_tpu/data/datasets.py:162-208``): x
+    normalised to [-1, 1]; the support is every second mesh node (the
+    stride-2 frames ``u[:, :, ::2]``), the queries the odd complement.
+    Train mode draws ``samples`` sorted queries from that complement
+    without replacement from the dataset's generator; eval modes query all
+    of it, and ``eval_support='full'`` makes the support and the queries
+    the whole mesh (``sampling`` is not read)."""
+
+    def __getitem__(self, idx):
+        x = np.asarray(self.data["x"][idx], np.float32)
+        x = 2 * (x - x.min()) / (x.max() - x.min()) - 1
+        t = np.asarray(self.data["t"][idx], np.float32)
+        u_hr = np.asarray(self.data[self.key][idx], np.float32)[:, None, :]
+        L = u_hr.shape[-1]                                    # u_hr (T, 1, L)
+        full = self.mode != "train" and self.eval_support == "full"
+        u_lr = u_hr if full else u_hr[:, :, ::2]
+        lr_coord = (x if full else x[::2])[:, None]
+        left = np.setdiff1d(np.arange(L), np.arange(L)[::2])
+        if self.mode == "train":
+            sample_lst = np.sort(self.rng.choice(left, self.samples,
+                                                 replace=False))
+        else:
+            sample_lst = np.arange(L) if full else left
+        out = {
+            "t": t,
+            "lr_frames": u_lr,
+            "hr_frames": u_hr,
+            "hr_points": u_hr[:, 0, sample_lst][:, :, None],   # (T, n, 1)
+            "coords_hr": x[sample_lst][:, None],
+            "coords_lr": lr_coord,
         }
         if self.mode == "train":
             out["sample_idx"] = sample_lst.astype(np.int64)

@@ -1,7 +1,8 @@
 """Evaluation: no-teacher-forcing rollout metrics on test batches made
 from a seed at the shape of the model's test split (counterpart of the
-repo's ``eval.py``): Heat for ``magnet_cnn``, the combined equation for
-``mpnn``, 2D Burgers for ``mpnn_2d`` and ``magnet_cnn_2d``.
+repo's ``eval.py``): Heat for ``magnet_cnn`` and ``magnet_gnn``, the
+combined equation for ``mpnn``, 2D Burgers for ``mpnn_2d`` and
+``magnet_cnn_2d``.
 
 Usage (on the card; ``device=cpu`` runs the plain PyTorch path):
   python -m magnet_tpu_torch.eval [model=magnet_cnn] [seed=0] [n_traj=16] \\
@@ -27,8 +28,9 @@ from magnet_tpu_torch.utils import to_device
 
 def evaluate(model, batches, device="cuda", return_predictions: bool = False):
     """``test_loss``, ``test_mae_loss`` (means over batches of
-    ``loss(train=False)``'s metrics) and ``test_nrmse`` (mean over batches
-    of the rollout's nRMSE), from one rollout per batch.  With
+    ``loss(train=False)``'s metrics, which each model's ``eval_metrics``
+    forms from its ``predict`` output) and ``test_nrmse`` (mean over
+    batches of the primary rollout's nRMSE), from one rollout per batch.  With
     ``return_predictions`` also the list of per-batch rollouts (of a model
     whose ``predict`` returns a tuple, its first, primary output)."""
     device = resolve_device(device)
@@ -39,7 +41,7 @@ def evaluate(model, batches, device="cuda", return_predictions: bool = False):
         graph = model.build_graph(batch)
         pred = model.predict(batch, graph)
         hr_hat = pred[0] if isinstance(pred, tuple) else pred
-        _, metrics = model.eval_metrics(batch, hr_hat)
+        _, metrics = model.eval_metrics(batch, pred)
         for k, v in metrics.items():
             agg[k] = agg.get(k, 0.0) + float(v)
         target = model.rollout_target(batch, int(hr_hat.shape[1]))

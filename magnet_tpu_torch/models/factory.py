@@ -1,16 +1,17 @@
 """Model registry (counterpart of ``magnet_tpu/models/factory.py``); the
-port has MAgNet[CNN] 1D/2D and MPNN 1D/2D so far."""
+port has MAgNet[CNN] 1D/2D, MPNN 1D/2D and MAgNet[GNN] 1D so far."""
 from __future__ import annotations
 
 import torch
 
 from magnet_tpu_torch.models.magnet_cnn_1d import MAgNetCNN1D
 from magnet_tpu_torch.models.magnet_cnn_2d import MAgNetCNN2D
+from magnet_tpu_torch.models.magnet_gnn import MAgNetGNN
 from magnet_tpu_torch.models.mpnn import MPNN, MPNN2D
 from magnet_tpu_torch.nn.core import init_torch_default
 
 FACTORY = {"magnet_cnn": MAgNetCNN1D, "magnet_cnn_2d": MAgNetCNN2D,
-           "mpnn": MPNN, "mpnn_2d": MPNN2D}
+           "mpnn": MPNN, "mpnn_2d": MPNN2D, "magnet_gnn": MAgNetGNN}
 
 
 def resolve_device(device) -> torch.device:

@@ -193,8 +193,10 @@ class MAgNetCNNTask:
         ts = self.time_slice
         return batch["hr_points"][:, ts:ts + horizon]
 
-    def eval_metrics(self, batch, hr_hat):
-        """``loss(train=False)``'s metrics from a finished rollout."""
+    def eval_metrics(self, batch, pred):
+        """``loss(train=False)``'s metrics from a finished rollout:
+        ``predict``'s output, or its HR part alone."""
+        hr_hat = pred[0] if isinstance(pred, tuple) else pred
         target = self.rollout_target(batch, hr_hat.shape[1])
         loss = self.criterion(hr_hat, target)
         return loss, {"loss": loss, "mae_loss": l1_loss(hr_hat, target)}

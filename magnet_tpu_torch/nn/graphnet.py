@@ -17,6 +17,15 @@ both node sides and projects e0 inside the kernel; ``pregathered`` forms
 h0 = p_xj[senders] + e0·W_e + b_e per edge first (the gather's backward is
 the segment-sum kernel over the sender CSR) and runs the kernel on h0.
 The lane decides which kernel runs, never what is computed.
+
+``impl="kernel_pe"`` forces a third lane, which the lane rule never picks
+by itself: pe = e0·W_e + b_e is formed per edge and the ``pe`` entry
+gathers the sender rows in its kernel (#6; backward #7, with d_p_xj by the
+segment-sum kernel #1).  It is the lane the JAX GraphNet takes on the same
+graphs under ``MAGNET_TPU_NO_FUSED2R`` (``fused_edge_tail_agg2``), and it
+also computes what the JAX package's no-fold ragged lanes
+(``fused_edge_tail_agg2r`` / ``2h``) compute; the port sends those lanes
+to ``fold``.
 """
 from __future__ import annotations
 
@@ -26,15 +35,17 @@ from torch import nn
 from magnet_tpu_torch.nn.core import MLP
 from magnet_tpu_torch.ops.fused_edge import (
     fused_edge_tail_agg,
+    fused_edge_tail_agg_pe,
     fused_edge_tail_agg_plain,
     fused_edge_tail_agg_pregathered,
 )
 from magnet_tpu_torch.ops.graph import CSRGraph, lane_of
 from magnet_tpu_torch.ops.segment import gather_rows
 
-#: ``kernel``: the graph's lane; ``kernel_fold`` / ``kernel_pregathered``:
-#: that lane whatever the graph; ``plain``: the plain PyTorch version.
-IMPLS = ("kernel", "kernel_fold", "kernel_pregathered", "plain")
+#: ``kernel``: the graph's lane; ``kernel_fold`` / ``kernel_pregathered`` /
+#: ``kernel_pe``: that lane whatever the graph; ``plain``: the plain
+#: PyTorch version.
+IMPLS = ("kernel", "kernel_fold", "kernel_pregathered", "plain", "kernel_pe")
 
 
 class GraphEncoder(nn.Module):
@@ -60,8 +71,11 @@ class InteractionNetwork(nn.Module):
     The forward slices that weight: the x_i and x_j chunks are applied once
     to the N node rows (p_xi, p_xj) and gathered per edge, inside the fused
     edge kernel on the ``fold`` lane, which also applies the e chunk to e0
-    (fold-e), or before it on the ``pregathered`` lane; the kernel runs the
-    tail MLP and LayerNorm and sums per receiver.  The fused function is
+    (fold-e), or before it on the ``pregathered`` lane; on the ``pe`` lane
+    the e chunk is applied before the kernel (pe = e0·W_e + b_e, a
+    ``torch.matmul``, as the JAX package's ``_project_edges`` leaves it to
+    XLA) and the kernel gathers p_xj.  The kernel runs the tail MLP and
+    LayerNorm and sums per receiver.  The fused function is
     differentiable in its float operands (its backward is a kernel too);
     the gradient of the slicing, transposing, stacking and the edge scale
     in ``edge_weights`` is autograd's.
@@ -110,6 +124,10 @@ class InteractionNetwork(nn.Module):
         if impl == "plain":
             agg_sum = fused_edge_tail_agg_plain(
                 e0, we, be, p_xj, p_xi, graph.senders, graph.rowptr, *tail)
+        elif impl == "kernel_pe":
+            agg_sum = fused_edge_tail_agg_pe(
+                e0 @ we + be, p_xj, p_xi, graph.senders, graph.rowptr,
+                graph.snd_ptr, graph.snd_perm, *tail)
         elif (lane_of(graph, "graphnet", w0.shape[0]) if impl == "kernel"
               else impl.removeprefix("kernel_")) == "fold":
             agg_sum = fused_edge_tail_agg(e0, we, be, p_xj, p_xi,

@@ -1,9 +1,11 @@
-"""Continuous (INR) decoders of MAgNet[CNN] 1D and 2D (counterpart of
-``magnet_tpu/nn/inr.py:38-157``), batched.
+"""Continuous (INR) decoders of MAgNet[CNN] 1D and 2D and of MAgNet[GNN]
+(counterpart of ``magnet_tpu/nn/inr.py:38-229``), batched.
 
 1D: two-tap (±dx) nearest grid-sample of the EDSR features, an MLP +
 LayerNorm head on each tap, and the area-weighted blend of the two.
 2D: the same over four corners, with the reference's diagonal area swap.
+k-NN (MAgNet[GNN]): one Linear on each of a query's k nearest support
+nodes and the blend of the first two.
 """
 from __future__ import annotations
 
@@ -115,3 +117,68 @@ class INRDecoder2D(nn.Sequential):
         preds = super().forward(inp)                                # (B,4,N,T,nc)
         weight = area[:, [3, 2, 1, 0]] / area.sum(1, keepdim=True)  # (B, 4, N)
         return (preds * weight[..., None, None]).sum(1)
+
+
+class KNNDecoder(nn.Linear):
+    """MAgNet[GNN]'s continuous decoder (``magnet_tpu/nn/inr.py:160-229``),
+    the reference's ``proj_head`` Linear with the k-NN sampling and blend
+    around it in ``forward``, so that its parameters keep the key names
+    ``proj_head.weight`` / ``bias``.
+
+    Per query: the latent, field values and coordinate offset of each of
+    its k nearest support nodes (``nbr_idx``, ascending distance), with the
+    window's times, through the Linear; then the blend of the FIRST TWO
+    neighbours by their squared distances d2: ``area`` weighs each by the
+    other's d2, ``knn`` by its own 1/d2, ``sph`` by (1 - L·d2)³.  Where a
+    query coincides with one of those two (min d2 = 0, e.g. under
+    ``eval_support='full'``) the result is the nearer one's latent, taken
+    by a where-in-where so that the gradients stay free of NaN.
+
+    forward(x_lr (B, T, C, L), lr_encoded (B, L, latent), lr_coords
+    (B, L, P), hr_coords (B, N, P), t (B, T_total), nbr_idx (B, N, k))
+    -> (B, N, T, n_chan).  The input width is latent + C + P + 1.
+    """
+
+    INTERPOLATIONS = ("area", "knn", "sph")
+
+    def __init__(self, in_dim: int, n_chan: int, interpolation: str = "area"):
+        if interpolation not in self.INTERPOLATIONS:
+            raise ValueError(f"interpolation must be one of "
+                             f"{self.INTERPOLATIONS}, got {interpolation!r}")
+        super().__init__(in_dim, n_chan)
+        self.interpolation = interpolation
+
+    def forward(self, x_lr, lr_encoded, lr_coords, hr_coords, t, nbr_idx):
+        B, T, C, L = x_lr.shape
+        N, K = nbr_idx.shape[1:]
+        idx = nbr_idx.long().transpose(1, 2)                        # (B, K, N)
+        bi = torch.arange(B, device=x_lr.device)[:, None, None]
+        q_feat = lr_encoded[bi, idx]                                # (B,K,N,lat)
+        q_inp = x_lr.permute(0, 3, 1, 2)[bi, idx]                   # (B,K,N,T,C)
+        final_coord = lr_coords[bi, idx] - hr_coords[:, None]       # (B,K,N,P)
+        d2 = (final_coord ** 2).sum(-1, keepdim=True)               # (B,K,N,1)
+        if self.interpolation == "area":
+            w = d2
+        elif self.interpolation == "knn":
+            w = 1.0 / torch.where(d2 > 0, d2, torch.ones_like(d2))
+        else:
+            w = (1.0 - L * d2) ** 3
+        weights = w[:, :, :, None, :]                               # (B,K,N,1,1)
+
+        def bt(a):                                      # (B,K,N,D) -> (B,K,N,T,D)
+            return a[:, :, :, None, :].expand(B, K, N, T, a.shape[-1])
+
+        tcol = t[:, None, None, :T, None].expand(B, K, N, T, 1)
+        inp = torch.cat([bt(q_feat), q_inp, bt(final_coord), tcol], dim=-1)
+        latents = super().forward(inp)                              # (B,K,N,T,nc)
+        if self.interpolation == "area":
+            num = latents[:, 0] * weights[:, 1] + latents[:, 1] * weights[:, 0]
+        else:
+            num = latents[:, 0] * weights[:, 0] + latents[:, 1] * weights[:, 1]
+        den = weights[:, 1] + weights[:, 0]                         # (B,N,1,1)
+        d2_01 = d2[:, :2]                                           # (B,2,N,1)
+        degen = (d2_01.min(dim=1).values <= 0)[:, :, None, :]       # (B,N,1,1)
+        safe = torch.where(den != 0, den, torch.ones_like(den))
+        nearest = (d2_01[:, 0] <= d2_01[:, 1])[:, :, None, :]
+        near_lat = torch.where(nearest, latents[:, 0], latents[:, 1])
+        return torch.where(degen, near_lat, num / safe)

@@ -1,4 +1,4 @@
-"""Fused InteractionNetwork edge pipeline, forward and backward, in two
+"""Fused InteractionNetwork edge pipeline, forward and backward, in three
 entries.
 
 Per edge j -> i of a receiver-grouped CSR graph the edge MLP's first-layer
@@ -7,6 +7,8 @@ pre-activation z is
     fold:         z = e0·W_e + b_e + pxj[j] + pxi[i]
     pregathered:  z = h0[e] + pxi[i]      (h0 = pxj[j] + W_e·e + b_e formed
                                            by the caller, one row per edge)
+    pe:           z = pe[e] + pxj[j] + pxi[i]   (pe = e·W_e + b_e formed by
+                                                 the caller)
 
 followed by h = relu(z), h = relu(h·W_k + b_k) for each tail layer,
 y = LN(h·W_out + b_out); the result is out[i] = Σ y over the edges of i,
@@ -15,19 +17,36 @@ y = LN(h·W_out + b_out); the result is out[i] = Σ y over the edges of i,
 * ``fused_edge_tail_agg`` (fold) is the port of the JAX package's
   ``fused_edge_tail_agg2rf`` (``magnet_tpu/ops/pallas_kernels.py``): the
   TPU kernels ``_fused2r_fwd_pallas`` and, for its gradient,
-  ``_fused2r_bwd_pallas``.
+  ``_fused2r_bwd_pallas`` (#8, #9).
 * ``fused_edge_tail_agg_pregathered`` is the port of its
-  ``fused_edge_tail_agg``: ``_fused_fwd_pallas`` and ``_fused_bwd_pallas``.
+  ``fused_edge_tail_agg``: ``_fused_fwd_pallas`` and ``_fused_bwd_pallas``
+  (#2, #3).
+* ``fused_edge_tail_agg_pe`` is the port of its ``fused_edge_tail_agg2``:
+  ``_fused2_fwd_pallas`` (#6) and ``_fused2_bwd_pallas`` (#7), whose d_pxj
+  the JAX VJP reduces outside the kernel over the sender-transpose layout;
+  here the segment sum (``ops.segment``, kernel #1) over the sender CSR
+  does it.  The oracles are ``_fused2_ref_impl`` and its autodiff.  The
+  entry also computes what the JAX package's no-fold ragged lanes
+  (``fused_edge_tail_agg2r`` / ``2h``) compute.
 * ``*_plain`` is each function in plain PyTorch (gather, MLP,
   ``index_add_``) and ``*_bwd_plain`` its gradients by autograd: the CPU
   path and the card-side reference.
-* On CUDA tensors the wrappers go through ``FusedEdgeTailAgg`` and
-  ``FusedEdgeTailAggPregathered``, ``torch.autograd.Function``s whose
-  forward launches ``csrc/fused_edge_tail_agg.cu`` and whose backward
-  launches ``csrc/fused_edge_tail_agg_bwd.cu`` (hand-written, sm_90a, one
-  template flag per entry, built and bound by ``ops.cuda_build``), or
-  raise.  Only CPU tensors take the plain version.  The forward saves its
-  operands and no activation: the backward recomputes.
+* On CUDA tensors the wrappers go through ``FusedEdgeTailAgg``,
+  ``FusedEdgeTailAggPregathered`` and ``FusedEdgeTailAggPe``,
+  ``torch.autograd.Function``s whose forward launches
+  ``csrc/fused_edge_tail_agg.cu`` and whose backward launches
+  ``csrc/fused_edge_tail_agg_bwd.cu`` (hand-written, sm_90a, one template
+  value per entry, built and bound by ``ops.cuda_build``), or raise.  Only
+  CPU tensors take the plain version.  The forward saves its operands and
+  no activation: the backward recomputes.
+
+Compiled builds (``KERNEL_WIDTHS``), keyed by what each entry reads: fold
+(Ce, H, C) = (32, 64, 32) (MAgNet[CNN]) and (128, 128, 128) (MAgNet[GNN]);
+pregathered (H, C) = (64, 32) and (128, 128); pe (H, C) = (128, 128).  The
+width-64 and width-128 builds are two designs (see the sources' headers).
+Bounds on an H100 at MAgNet[GNN]'s eval batch (84.3k LR ∪ HR edges,
+L1 = 3, 67 TFLOP/s f32): fold 81,920 multiply-adds per edge, 0.206 ms; pe
+65,536, 0.165 ms; both bound by operations.
 """
 from __future__ import annotations
 
@@ -36,11 +55,18 @@ import ctypes
 import torch
 
 from magnet_tpu_torch.ops import cuda_build
+from magnet_tpu_torch.ops.segment import segment_sum
 
 LN_EPS = 1e-5
-#: (Ce, H, C) widths the CUDA source is compiled for (magnet_cnn's); the
-#: pregathered entry reads only (H, C).
-KERNEL_WIDTHS = {(32, 64, 32)}
+#: the widths each entry's CUDA kernels are compiled for: (Ce, H, C) for
+#: fold, (H, C) for pregathered and pe.
+KERNEL_WIDTHS = {"fold": {(32, 64, 32), (128, 128, 128)},
+                 "pregathered": {(64, 32), (128, 128)},
+                 "pe": {(128, 128)}}
+#: the C entry's ``entry`` argument
+ENTRY = {"pregathered": 0, "fold": 1, "pe": 2}
+#: edges per tile of the width-128 forward (two scratch rows per tile)
+W128_TILE = 64
 
 #: tail depths (L1) the backward CUDA source is compiled for.
 KERNEL_BWD_MAX_L1 = 3
@@ -49,27 +75,51 @@ GRAD_NAMES = ("e0", "we", "be", "pxj", "pxi", "w_rest", "b_rest", "w_out",
               "b_out", "ln_s", "ln_b")
 GRAD_NAMES_PREGATHERED = ("h0", "pxi", "w_rest", "b_rest", "w_out", "b_out",
                           "ln_s", "ln_b")
+GRAD_NAMES_PE = ("pe", "pxj", "pxi", "w_rest", "b_rest", "w_out", "b_out",
+                 "ln_s", "ln_b")
 
 FWD, BWD = "fused_edge_tail_agg", "fused_edge_tail_agg_bwd"
 _ARGTYPES = {
-    FWD: [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    FWD: [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     BWD: [ctypes.c_void_p] * 18 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
 }
 
-#: Launches of the fold entry's forward and backward kernels so far (one
-#: per launch, nowhere else).
+#: Launches of each kernel so far (one per launch, nowhere else): the fold
+#: entry at width 64 (``launches``) and 128 (``launches_fold128``), the
+#: pregathered entry at either width, and the pe entry; ``*_bwd`` the
+#: backward's.
 launches = 0
 launches_bwd = 0
-#: Launches of the pregathered entry's forward and backward kernels.
+launches_fold128 = 0
+launches_fold128_bwd = 0
 launches_pregathered = 0
 launches_pregathered_bwd = 0
+launches_pe = 0
+launches_pe_bwd = 0
+#: each counter's name in ``launch_counts``
+_COUNTERS = {"launches": "fused_edge_fwd", "launches_bwd": "fused_edge_bwd",
+             "launches_fold128": "fused_edge_fold128_fwd",
+             "launches_fold128_bwd": "fused_edge_fold128_bwd",
+             "launches_pregathered": "fused_edge_pregathered_fwd",
+             "launches_pregathered_bwd": "fused_edge_pregathered_bwd",
+             "launches_pe": "fused_edge_pe_fwd",
+             "launches_pe_bwd": "fused_edge_pe_bwd"}
 
 
 def reset_launches() -> None:
-    global launches, launches_bwd, launches_pregathered
-    global launches_pregathered_bwd
-    launches = launches_bwd = 0
-    launches_pregathered = launches_pregathered_bwd = 0
+    globals().update(dict.fromkeys(_COUNTERS, 0))
+
+
+def launch_counts() -> dict[str, int]:
+    """Every counter above, by its name in the traces."""
+    return {key: globals()[name] for name, key in _COUNTERS.items()}
+
+
+def _count(entry: str, widths: tuple, bwd: bool) -> None:
+    """One launch of ``entry``'s kernel at ``widths``."""
+    name = ("launches_fold128" if entry == "fold" and widths[1] == 128
+            else "launches" if entry == "fold" else f"launches_{entry}")
+    globals()[name + ("_bwd" if bwd else "")] += 1
 
 
 def _receivers(rowptr):
@@ -112,6 +162,17 @@ def fused_edge_tail_agg_pregathered_plain(h0, pxi, rowptr, w_rest, b_rest,
                      ln_b)
 
 
+def fused_edge_tail_agg_pe_plain(pe, pxj, pxi, senders, rowptr, snd_ptr,
+                                 snd_perm, w_rest, b_rest, w_out, b_out, ln_s,
+                                 ln_b):
+    """Plain PyTorch version of the pe entry (the sender CSR ``snd_ptr``,
+    ``snd_perm`` is read only by the kernel path's backward)."""
+    receivers = _receivers(rowptr)
+    z = pe + pxj.index_select(0, senders) + pxi.index_select(0, receivers)
+    return _tail_sum(z, receivers, rowptr.numel() - 1, w_rest, b_rest, w_out,
+                     b_out, ln_s, ln_b)
+
+
 def _grads_by_autograd(fn, floats, ints, g, order):
     """Gradients of sum(fn(...) * g) with respect to ``floats``; ``order``
     places the integer operands among them as ``fn`` takes them."""
@@ -147,6 +208,18 @@ def fused_edge_tail_agg_pregathered_bwd_plain(h0, pxi, rowptr, w_rest,
         lambda f, i: [*f[:2], *i, *f[2:]])
 
 
+def fused_edge_tail_agg_pe_bwd_plain(pe, pxj, pxi, senders, rowptr, snd_ptr,
+                                     snd_perm, w_rest, b_rest, w_out, b_out,
+                                     ln_s, ln_b, g):
+    """Plain backward of the pe entry, ``GRAD_NAMES_PE`` order, by
+    autograd."""
+    return _grads_by_autograd(
+        fused_edge_tail_agg_pe_plain,
+        [pe, pxj, pxi, w_rest, b_rest, w_out, b_out, ln_s, ln_b],
+        [senders, rowptr, snd_ptr, snd_perm], g,
+        lambda f, i: [*f[:3], *i, *f[3:]])
+
+
 def _check_operands(floats: dict, ints: dict, want: dict) -> None:
     """Device, contiguity, dtype and shape of every operand."""
     dev = next(iter(floats.values())).device
@@ -174,9 +247,17 @@ def _tail_shapes(w_rest, w_out, h):
                        b_out=(c,), ln_s=(c,), ln_b=(c,))
 
 
+def _check_rows(src, rowptr, E):
+    # on the card this would cost a read from the device per launch: there
+    # the kernels clamp every edge range to the E rows they were given
+    if src.device.type == "cpu" and int(rowptr[-1]) != E:
+        raise ValueError(f"rowptr ends at {int(rowptr[-1])}, but there are "
+                         f"{E} edge rows")
+
+
 def _check(e0, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest, w_out,
            b_out, ln_s, ln_b):
-    """The fold entry's operands; returns (E, Ce, H, C, L1, N)."""
+    """The fold entry's operands; returns (E, (Ce, H, C), L1, N)."""
     E, ce = e0.shape
     h = we.shape[1]
     n = rowptr.shape[0] - 1
@@ -187,12 +268,12 @@ def _check(e0, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest, w_out,
         dict(senders=senders, rowptr=rowptr),
         dict(we=(ce, h), be=(h,), pxj=(n, h), pxi=(n, h), senders=(E,),
              **tail))
-    return E, ce, h, c, l1, n
+    return E, (ce, h, c), l1, n
 
 
 def _check_pregathered(h0, pxi, rowptr, w_rest, b_rest, w_out, b_out, ln_s,
                        ln_b):
-    """The pregathered entry's operands; returns (E, H, C, L1, N)."""
+    """The pregathered entry's operands; returns (E, (H, C), L1, N)."""
     if h0.dim() != 2 or rowptr.dim() != 1:
         raise ValueError("h0 must be (E, H) and rowptr (N+1,)")
     E, h = h0.shape
@@ -202,79 +283,108 @@ def _check_pregathered(h0, pxi, rowptr, w_rest, b_rest, w_out, b_out, ln_s,
         dict(h0=h0, pxi=pxi, w_rest=w_rest, b_rest=b_rest, w_out=w_out,
              b_out=b_out, ln_s=ln_s, ln_b=ln_b),
         dict(rowptr=rowptr), dict(pxi=(n, h), **tail))
-    # on the card this would cost a read from the device per launch: there
-    # the kernels clamp every edge range to the E rows they were given
-    if h0.device.type == "cpu" and int(rowptr[-1]) != E:
-        raise ValueError(f"rowptr ends at {int(rowptr[-1])}, but there are "
-                         f"{E} edge rows")
-    return E, h, c, l1, n
+    _check_rows(h0, rowptr, E)
+    return E, (h, c), l1, n
 
 
-def _check_cuda(t, widths, l1_max=None):
+def _check_pe(pe, pxj, pxi, senders, rowptr, snd_ptr, snd_perm, w_rest,
+              b_rest, w_out, b_out, ln_s, ln_b):
+    """The pe entry's operands; returns (E, (H, C), L1, N).  ``snd_ptr`` and
+    ``snd_perm`` None: the kernels' operands alone."""
+    if pe.dim() != 2 or rowptr.dim() != 1:
+        raise ValueError("pe must be (E, H) and rowptr (N+1,)")
+    E, h = pe.shape
+    n = rowptr.shape[0] - 1
+    l1, c, tail = _tail_shapes(w_rest, w_out, h)
+    ints = dict(senders=senders, rowptr=rowptr)
+    want = dict(pxj=(n, h), pxi=(n, h), senders=(E,), **tail)
+    if snd_ptr is not None:
+        ints.update(snd_ptr=snd_ptr, snd_perm=snd_perm)
+        want.update(snd_ptr=(n + 1,), snd_perm=(E,))
+    _check_operands(
+        dict(pe=pe, pxj=pxj, pxi=pxi, w_rest=w_rest, b_rest=b_rest,
+             w_out=w_out, b_out=b_out, ln_s=ln_s, ln_b=ln_b), ints, want)
+    _check_rows(pe, rowptr, E)
+    return E, (h, c), l1, n
+
+
+def _check_device(t):
     if t.device.type != "cuda":
         raise ValueError(f"no fused edge kernel for device {t.device}")
-    ce, h, c, l1 = widths
-    if (ce, h, c) not in KERNEL_WIDTHS:
+
+
+def _check_build(entry: str, widths: tuple, l1: int, bwd: bool) -> None:
+    """Raise unless ``entry``'s kernels are compiled for ``widths`` ((Ce, H,
+    C) for fold, (H, C) for the others) and, backward, for ``l1``."""
+    if widths not in KERNEL_WIDTHS[entry]:
+        names = "(Ce, H, C)" if entry == "fold" else "(H, C)"
         raise ValueError(
-            f"the CUDA kernels are compiled for (Ce, H, C) in "
-            f"{sorted(KERNEL_WIDTHS)}, got {(ce, h, c)}")
-    if l1_max is not None and l1 > l1_max:
+            f"the {entry} entry's CUDA kernels are compiled for {names} in "
+            f"{sorted(KERNEL_WIDTHS[entry])}, got {widths}")
+    if bwd and l1 > KERNEL_BWD_MAX_L1:
         raise ValueError(f"the backward CUDA kernel is compiled for at most "
-                         f"{l1_max} tail layers, got {l1}")
+                         f"{KERNEL_BWD_MAX_L1} tail layers, got {l1}")
 
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _widths(src, we, be, pxj, pxi, senders, rowptr, tail):
-    """(E, Ce, H, C, L1, N) of either entry; the pregathered entry (``we``
-    None) takes the compiled Ce, which it does not read."""
-    if we is not None:
+def _operands(entry, src, we, be, pxj, pxi, senders, rowptr, tail):
+    """(E, widths, L1, N) of ``entry``'s operands, checked."""
+    if entry == "fold":
         return _check(src, we, be, pxj, pxi, senders, rowptr, *tail)
-    E, h, c, l1, n = _check_pregathered(src, pxi, rowptr, *tail)
-    return E, next(iter(KERNEL_WIDTHS))[0], h, c, l1, n
+    if entry == "pregathered":
+        return _check_pregathered(src, pxi, rowptr, *tail)
+    return _check_pe(src, pxj, pxi, senders, rowptr, None, None, *tail)
 
 
-def _launch_fwd(src, we, be, pxj, pxi, senders, rowptr, *tail):
-    """The forward kernel; ``we``, ``be``, ``pxj``, ``senders`` None select
-    the pregathered entry (``src`` is h0), else the fold entry (e0)."""
-    global launches, launches_pregathered
-    fold = we is not None
-    E, ce, h, c, l1, n = _widths(src, we, be, pxj, pxi, senders, rowptr, tail)
-    _check_cuda(src, (ce, h, c, l1))
+def _launch_fwd(entry, src, we, be, pxj, pxi, senders, rowptr, *tail):
+    """The forward kernel of ``entry`` (``fold``: src is e0; ``pregathered``:
+    h0, and ``we``, ``be``, ``pxj``, ``senders`` are None; ``pe``: pe, and
+    ``we``, ``be`` are None).  The widths are checked before the device, so
+    that a build mismatch is found whatever the device."""
+    E, widths, l1, n = _operands(entry, src, we, be, pxj, pxi, senders,
+                                 rowptr, tail)
+    _check_build(entry, widths, l1, bwd=False)
+    _check_device(src)
     for name, t in (("src", src), ("pxj", pxj), ("pxi", pxi)):
         if t is not None and t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (float4 rows)")
-    out = torch.empty(n, c, dtype=torch.float32, device=src.device)
+    h, c = widths[-2:]
+    ce = widths[0] if entry == "fold" else h
+    dev = src.device
+    out = torch.zeros(n, c, dtype=torch.float32, device=dev)
+    part = (torch.empty(2 * (-(-E // W128_TILE)), c, dtype=torch.float32,
+                        device=dev) if h == 128 else None)
     fn = cuda_build.function(FWD, _ARGTYPES[FWD])
     w_rest, b_rest, w_out, b_out, ln_s, ln_b = tail
-    with torch.cuda.device(src.device):
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             src.data_ptr(), _ptr(we), _ptr(be), _ptr(pxj), pxi.data_ptr(),
             _ptr(senders), rowptr.data_ptr(), w_rest.data_ptr(),
             b_rest.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
-            ln_s.data_ptr(), ln_b.data_ptr(), out.data_ptr(), n, E, ce, h, c,
-            l1, int(fold), stream)
+            ln_s.data_ptr(), ln_b.data_ptr(), out.data_ptr(), _ptr(part), n,
+            E, ce, h, c, l1, ENTRY[entry], stream)
     if err != 0:
         raise RuntimeError(f"fused_edge_tail_agg launch failed: cudaError {err}")
-    if fold:
-        launches += 1
-    else:
-        launches_pregathered += 1
+    _count(entry, widths, bwd=False)
     return out
 
 
-def _launch_bwd(src, we, be, pxj, pxi, senders, rowptr, *tail_and_g):
+def _launch_bwd(entry, src, we, be, pxj, pxi, senders, rowptr, *tail_and_g):
     """The backward kernel, entries as ``_launch_fwd``.  Returns the
-    gradients in ``GRAD_NAMES`` (fold) or ``GRAD_NAMES_PREGATHERED``
-    order."""
-    global launches_bwd, launches_pregathered_bwd
+    gradients in ``GRAD_NAMES`` (fold) or ``GRAD_NAMES_PREGATHERED`` order
+    (pregathered, and pe, whose d_pxj is the caller's)."""
     *tail, g = tail_and_g
-    fold = we is not None
-    E, ce, h, c, l1, n = _widths(src, we, be, pxj, pxi, senders, rowptr, tail)
-    _check_cuda(src, (ce, h, c, l1), l1_max=KERNEL_BWD_MAX_L1)
+    fold = entry == "fold"
+    E, widths, l1, n = _operands(entry, src, we, be, pxj, pxi, senders,
+                                 rowptr, tail)
+    _check_build(entry, widths, l1, bwd=True)
+    _check_device(src)
+    h, c = widths[-2:]
+    ce = widths[0] if fold else h
     if (g.device != src.device or g.dtype != torch.float32
             or tuple(g.shape) != (n, c) or not g.is_contiguous()):
         raise ValueError(f"g must be a contiguous float32 ({n}, {c}) tensor "
@@ -301,19 +411,18 @@ def _launch_bwd(src, we, be, pxj, pxi, senders, rowptr, *tail_and_g):
             b_rest.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
             ln_s.data_ptr(), g.data_ptr(), d_src.data_ptr(), _ptr(d_pxj),
             d_pxi.data_ptr(), wgrad.data_ptr(), partial.data_ptr(), n, E, ce,
-            h, c, l1, int(fold), n_blocks, stream)
+            h, c, l1, ENTRY[entry], n_blocks, stream)
     if err != 0:
         raise RuntimeError(
             f"fused_edge_tail_agg_bwd launch failed: cudaError {err}")
+    _count(entry, widths, bwd=True)
     parts = list(wgrad.split(sizes))
     d_wr, d_br, d_wo, d_bo, d_ls, d_lb = parts[-6:]
     tail_grads = (d_wr.view(l1, h, h), d_br.view(l1, h), d_wo.view(h, c),
                   d_bo, d_ls, d_lb)
     if fold:
-        launches_bwd += 1
         return (d_src, parts[0].view(ce, h), parts[1], d_pxj, d_pxi,
                 *tail_grads)
-    launches_pregathered_bwd += 1
     return (d_src, d_pxi, *tail_grads)
 
 
@@ -324,15 +433,16 @@ class FusedEdgeTailAgg(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, *operands):
+        _check_device(operands[0])
         operands = tuple(t.detach() for t in operands)
-        out = _launch_fwd(*operands)
+        out = _launch_fwd("fold", *operands)
         ctx.save_for_backward(*operands)
         return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        grads = _launch_bwd(*ctx.saved_tensors, g.contiguous())
+        grads = _launch_bwd("fold", *ctx.saved_tensors, g.contiguous())
         return (*grads[:5], None, None, *grads[5:])
 
 
@@ -343,9 +453,11 @@ class FusedEdgeTailAggPregathered(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, h0, pxi, rowptr, *tail):
+        _check_device(h0)
         operands = tuple(t.detach() for t in (h0, pxi, rowptr, *tail))
         h0, pxi, rowptr, *tail = operands
-        out = _launch_fwd(h0, None, None, None, pxi, None, rowptr, *tail)
+        out = _launch_fwd("pregathered", h0, None, None, None, pxi, None,
+                          rowptr, *tail)
         ctx.save_for_backward(*operands)
         return out
 
@@ -353,9 +465,41 @@ class FusedEdgeTailAggPregathered(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         h0, pxi, rowptr, *tail = ctx.saved_tensors
-        d_h0, d_pxi, *d_tail = _launch_bwd(h0, None, None, None, pxi, None,
-                                           rowptr, *tail, g.contiguous())
+        d_h0, d_pxi, *d_tail = _launch_bwd("pregathered", h0, None, None,
+                                           None, pxi, None, rowptr, *tail,
+                                           g.contiguous())
         return (d_h0, d_pxi, None, *d_tail)
+
+
+class FusedEdgeTailAggPe(torch.autograd.Function):
+    """The pe entry as one differentiable function of (pe, pxj, pxi,
+    w_rest, b_rest, w_out, b_out, ln_s, ln_b): the forward is kernel #6;
+    the backward is kernel #7, which writes d_pe = dz per edge, and then
+    the segment-sum kernel #1 over the sender CSR (``snd_ptr``,
+    ``snd_perm``) for d_pxj, as the JAX VJP reduces it outside its kernel.
+    The integer operands get no gradient."""
+
+    @staticmethod
+    def forward(ctx, pe, pxj, pxi, senders, rowptr, snd_ptr, snd_perm, *tail):
+        _check_device(pe)
+        operands = tuple(t.detach() for t in (pe, pxj, pxi, senders, rowptr,
+                                              snd_ptr, snd_perm, *tail))
+        pe, pxj, pxi, senders, rowptr, _, _, *tail = operands
+        out = _launch_fwd("pe", pe, None, None, pxj, pxi, senders, rowptr,
+                          *tail)
+        ctx.save_for_backward(*operands)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        pe, pxj, pxi, senders, rowptr, snd_ptr, snd_perm, *tail = (
+            ctx.saved_tensors)
+        d_pe, d_pxi, *d_tail = _launch_bwd("pe", pe, None, None, pxj, pxi,
+                                           senders, rowptr, *tail,
+                                           g.contiguous())
+        d_pxj = segment_sum(d_pe, snd_ptr, snd_perm)
+        return (d_pe, d_pxj, d_pxi, None, None, None, None, *d_tail)
 
 
 def fused_edge_tail_agg(e0, we, be, pxj, pxi, senders, rowptr, w_rest,
@@ -393,6 +537,23 @@ def fused_edge_tail_agg_pregathered(h0, pxi, rowptr, w_rest, b_rest, w_out,
     return FusedEdgeTailAggPregathered.apply(*operands)
 
 
+def fused_edge_tail_agg_pe(pe, pxj, pxi, senders, rowptr, snd_ptr, snd_perm,
+                           w_rest, b_rest, w_out, b_out, ln_s, ln_b):
+    """The same per-receiver sum from the edge projection formed
+    beforehand, pe (E, H) = e·W_e + b_e in receiver-CSR order, with the
+    sender rows of pxj (N, H) gathered in the kernel: pxi (N, H); senders
+    (E,) and rowptr (N+1,) int32; the sender CSR snd_ptr (N+1,), snd_perm
+    (E,) int32 (``CSRGraph.snd_ptr``, ``snd_perm``), read by the backward;
+    the tail weights as ``fused_edge_tail_agg``'s.  (N, C) f32,
+    differentiable in every float operand."""
+    operands = (pe, pxj, pxi, senders, rowptr, snd_ptr, snd_perm, w_rest,
+                b_rest, w_out, b_out, ln_s, ln_b)
+    if pe.device.type == "cpu":
+        _check_pe(*operands)
+        return fused_edge_tail_agg_pe_plain(*operands)
+    return FusedEdgeTailAggPe.apply(*operands)
+
+
 def fused_edge_tail_agg_bwd(e0, we, be, pxj, pxi, senders, rowptr, w_rest,
                             b_rest, w_out, b_out, ln_s, ln_b, g):
     """The eleven gradients of ``sum(fused_edge_tail_agg(...) * g)``, in
@@ -404,7 +565,7 @@ def fused_edge_tail_agg_bwd(e0, we, be, pxj, pxi, senders, rowptr, w_rest,
     if e0.device.type == "cpu":
         _check(*operands)
         return fused_edge_tail_agg_bwd_plain(*operands, g)
-    return _launch_bwd(*operands, g.contiguous())
+    return _launch_bwd("fold", *operands, g.contiguous())
 
 
 def fused_edge_tail_agg_pregathered_bwd(h0, pxi, rowptr, w_rest, b_rest,
@@ -416,5 +577,23 @@ def fused_edge_tail_agg_pregathered_bwd(h0, pxi, rowptr, w_rest, b_rest,
     if h0.device.type == "cpu":
         _check_pregathered(*operands)
         return fused_edge_tail_agg_pregathered_bwd_plain(*operands, g)
-    return _launch_bwd(h0, None, None, None, pxi, None, rowptr,
+    return _launch_bwd("pregathered", h0, None, None, None, pxi, None, rowptr,
                        *operands[3:], g.contiguous())
+
+
+def fused_edge_tail_agg_pe_bwd(pe, pxj, pxi, senders, rowptr, snd_ptr,
+                               snd_perm, w_rest, b_rest, w_out, b_out, ln_s,
+                               ln_b, g):
+    """The nine gradients of ``sum(fused_edge_tail_agg_pe(...) * g)`` in
+    ``GRAD_NAMES_PE`` order: on the card kernel #7, then d_pxj by the
+    segment-sum kernel #1 over the sender CSR; ``d_pxi`` is summed with
+    atomics there."""
+    operands = (pe, pxj, pxi, senders, rowptr, snd_ptr, snd_perm, w_rest,
+                b_rest, w_out, b_out, ln_s, ln_b)
+    if pe.device.type == "cpu":
+        _check_pe(*operands)
+        return fused_edge_tail_agg_pe_bwd_plain(*operands, g)
+    d_pe, d_pxi, *d_tail = _launch_bwd("pe", pe, None, None, pxj, pxi,
+                                       senders, rowptr, *operands[7:],
+                                       g.contiguous())
+    return (d_pe, segment_sum(d_pe, snd_ptr, snd_perm), d_pxi, *d_tail)

@@ -1,4 +1,5 @@
-"""Host graph building: radius graphs and the batched CSR layout.
+"""Host graph building: radius graphs, k nearest neighbours and the
+batched CSR layout.
 
 ``radius_graph`` has the semantics of ``magnet_tpu/ops/graph.py:43-79``
 (torch_cluster's): float64 positions, inclusive ``<= r``, optional self
@@ -263,6 +264,20 @@ def radius_graph(pos, r: float, loop: bool = False,
     pos = torch.as_tensor(pos)
     _, recv, send = _radius_edges(pos[None], r, loop, max_num_neighbors)
     return send.to(torch.int32), recv.to(torch.int32)
+
+
+def knn(x, y, k: int) -> torch.Tensor:
+    """For each query row of ``y`` (M, D), the indices of the ``k`` nearest
+    rows of ``x`` (N, D) in ascending distance: (M, k) int32, the port's
+    copy of ``magnet_tpu/ops/graph.py:knn_np``.  Squared distances are
+    taken in float64 and ties go to the lower index, as the JAX package's
+    native neighbour search breaks them (its numpy fallback, an
+    ``argpartition``, may order a tie otherwise)."""
+    x = torch.as_tensor(x).to(torch.float64).cpu()
+    y = torch.as_tensor(y).to(torch.float64).cpu()
+    d2 = ((y[:, None, :] - x[None, :, :]) ** 2).sum(-1)           # (M, N)
+    order = torch.sort(d2, dim=1, stable=True).indices
+    return order[:, :min(int(k), x.shape[0])].to(torch.int32)
 
 
 def csr_from_edges(senders, receivers, n_node: int,

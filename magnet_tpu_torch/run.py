@@ -1,7 +1,8 @@
 """Training entry point (counterpart of the repo's ``run.py``).
 
 Usage (on the card; ``device=cpu`` runs the plain PyTorch path):
-  python -m magnet_tpu_torch.run [model=magnet_cnn|magnet_cnn_2d|mpnn|mpnn_2d] \\
+  python -m magnet_tpu_torch.run \\
+      [model=magnet_cnn|magnet_cnn_2d|mpnn|mpnn_2d|magnet_gnn] \\
       [datamodule.source=synthetic_ks|synthetic_ce|synthetic_burgers_2d] \\
       [model.params.lr=1e-4] [seed=21] [trainer.max_epochs=250] [name=run] \\
       [ckpt_path=.../last.pt]

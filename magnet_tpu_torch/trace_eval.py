@@ -1,11 +1,12 @@
 """Where the eval slice's time goes on the card.
 
   python -m magnet_tpu_torch.trace_eval [model=magnet_cnn] [n_traj=16]
-      [batch_size=16] [seed=0] [out=PATH]
+      [batch_size=16] [seed=0] [impl=kernel] [out=PATH]
 
 Evaluates ``model`` at full width on test batches made from the seed at the
 shape of its datamodule's test split (for ``mpnn_2d`` and
-``magnet_cnn_2d`` pass ``batch_size=4``).  Runs ``evaluate`` once to warm up, once timed with no profiler, then once
+``magnet_cnn_2d`` pass ``batch_size=4``); ``impl`` sets the model's
+kernel lane (``kernel_pe`` for ``magnet_gnn``'s pe lane).  Runs ``evaluate`` once to warm up, once timed with no profiler, then once
 under ``torch.profiler`` (CPU and CUDA activities).  Prints one JSON line:
 wall seconds per batch of both timed runs, the device's busy time (the sum
 of device-side events: kernels and copies) and its idle share against each
@@ -36,11 +37,12 @@ from magnet_tpu_torch.ops import segment as seg
 def main(argv=None) -> dict:
     name, argv = split_model(list(sys.argv[1:] if argv is None else argv))
     run = parse_overrides(argv, {"n_traj": 16, "batch_size": 16, "seed": 0,
-                                 "out": ""})
+                                 "impl": "kernel", "out": ""})
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     model = create_model(name, MODELS[name][0], device="cuda",
                          seed=run["seed"])
+    model.impl = run["impl"]
     batches = synthetic_test_batches(name, run["n_traj"], run["batch_size"],
                                      seed=run["seed"])
     evaluate(model, batches)
@@ -52,9 +54,8 @@ def main(argv=None) -> dict:
     evaluate(model, batches)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"fused_edge_fwd": fe.launches,
-                "fused_edge_pregathered_fwd": fe.launches_pregathered,
-                "segment_sum": seg.launches, **me.launches}
+    launches = {**fe.launch_counts(), "segment_sum": seg.launches,
+                **me.launches}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -77,7 +78,7 @@ def main(argv=None) -> dict:
                                     row_limit=60))
     result = {
         "device": torch.cuda.get_device_name(0), "model": name,
-        "batches": len(batches), "batch_size": run["batch_size"],
+        "impl": run["impl"], "batches": len(batches), "batch_size": run["batch_size"],
         "wall_s_per_batch": wall / len(batches),
         "wall_s_per_batch_traced": wall_traced / len(batches),
         "device_busy_ms_per_batch": busy_ms / len(batches),

@@ -1,13 +1,14 @@
 """Where a training step's time goes on the card.
 
   python -m magnet_tpu_torch.trace_train [model=magnet_cnn] [steps=3]
-      [seed=0] [datamodule_key=value ...] [out=PATH]
+      [seed=0] [impl=kernel] [datamodule_key=value ...] [out=PATH]
 
 Makes ``steps`` batches of ``model``'s training data from the seed with its
 datamodule's synthetic source (``datamodule_key=value`` replaces a key of
 the datamodule's defaults, for example ``burn_in=10.0`` to shorten the KS
 burn-in, ``n_steps=2000`` for the combined equation's solver or
-``batch_size=8`` for ``magnet_cnn_2d``), takes two
+``batch_size=8`` for ``magnet_cnn_2d``; ``impl`` sets the model's kernel
+lane, ``kernel_pe`` for ``magnet_gnn``'s pe lane), takes two
 optimizer steps to warm up, then ``steps`` steps timed with no profiler and
 ``steps`` more under ``torch.profiler`` (CPU and CUDA activities), all
 through ``Trainer.train_step`` at the model's full width.  Prints
@@ -47,7 +48,7 @@ from magnet_tpu_torch.train.trainer import Trainer
 def main(argv=None) -> dict:
     name, argv = split_model(list(sys.argv[1:] if argv is None else argv))
     hp, dm = MODELS[name]
-    run_keys = {"steps": 3, "seed": 0, "out": ""}
+    run_keys = {"steps": 3, "seed": 0, "impl": "kernel", "out": ""}
     run = parse_overrides(
         [a for a in argv if a.split("=")[0] in run_keys], run_keys)
     dm = parse_overrides(
@@ -56,6 +57,7 @@ def main(argv=None) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     steps = run["steps"]
     model = create_model(name, hp, device="cuda", seed=run["seed"])
+    model.impl = run["impl"]
     loader = build_loaders(
         {**dm, "source": SYNTHETIC_SOURCE[dm["kind"]],
          "n_train": steps * dm["batch_size"], "n_val": 1, "n_test": 1,
@@ -82,11 +84,8 @@ def main(argv=None) -> dict:
     t0 = time.perf_counter()
     run_steps()
     wall = time.perf_counter() - t0
-    launches = {"fused_edge_fwd": fe.launches,
-                "fused_edge_bwd": fe.launches_bwd,
-                "fused_edge_pregathered_fwd": fe.launches_pregathered,
-                "fused_edge_pregathered_bwd": fe.launches_pregathered_bwd,
-                "segment_sum": seg.launches, **me.launches}
+    launches = {**fe.launch_counts(), "segment_sum": seg.launches,
+                **me.launches}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -108,7 +107,7 @@ def main(argv=None) -> dict:
                                     row_limit=80))
     result = {
         "device": torch.cuda.get_device_name(0), "model": name,
-        "steps": steps, "batch_size": dm["batch_size"],
+        "impl": run["impl"], "steps": steps, "batch_size": dm["batch_size"],
         "loss_last_step": float(losses[-1]),
         "wall_s_per_step": wall / steps,
         "wall_s_per_step_traced": wall_traced / steps,

@@ -1,8 +1,9 @@
 """JAX params -> the port's ``state_dict``, for ``magnet_cnn``,
-``magnet_cnn_2d``, ``mpnn`` and ``mpnn_2d``.
+``magnet_cnn_2d``, ``mpnn``, ``mpnn_2d`` and ``magnet_gnn``.
 
 The inverse of ``magnet_tpu/train/import_torch.py`` (``import_magnet_cnn``,
-``import_mpnn``): the port's modules carry the reference's torch key names,
+``import_mpnn``, ``import_magnet_gnn``): the port's modules carry the
+reference's torch key names,
 so those importers map a port ``state_dict`` back onto the JAX tree leaf
 for leaf.
 
@@ -119,40 +120,18 @@ def _mpnn_state_dict(p, hp, is_2d: bool) -> dict[str, torch.Tensor]:
     return sd
 
 
-def state_dict_from_jax(params: Mapping[str, Any], hp: Mapping[str, Any],
-                        model: str = "magnet_cnn") -> dict[str, torch.Tensor]:
-    """``params`` is the JAX model's variables (``{'params': ...}``) or the
-    inner tree, leaves numpy arrays; returns a ``state_dict`` for the
-    port's model ``model`` (``magnet_cnn``, ``magnet_cnn_2d``, ``mpnn`` or
-    ``mpnn_2d``); the two MAgNet[CNN] models share one layout, the 2D one
-    with Conv2d kernels."""
-    p = params.get("params", params)
-    if model in ("mpnn", "mpnn_2d"):
-        return _mpnn_state_dict(p, hp, is_2d=model == "mpnn_2d")
-    if model not in ("magnet_cnn", "magnet_cnn_2d"):
-        raise ValueError(f"no weight bridge for model {model!r}")
-    mlp_layers = int(hp.get("mlp_layers", 4))
-    res_layers = int(hp.get("res_layers", 4 if model == "magnet_cnn" else 16))
-    mp = int(hp.get("num_message_passing_steps", 10))
-    sd: dict[str, torch.Tensor] = {}
+def _graph_encoder(sd, prefix, ge):
+    _mlp(sd, f"{prefix}.node_fn.0", ge["MLP_0"])
+    _ln(sd, f"{prefix}.node_fn.1", ge["LayerNorm_0"]["LayerNorm_0"])
+    _mlp(sd, f"{prefix}.edge_fn.0", ge["MLP_1"])
+    _ln(sd, f"{prefix}.edge_fn.1", ge["LayerNorm_1"]["LayerNorm_0"])
 
-    sd.update(edsr_state_dict(p["encoder"], res_layers, "encoder."))
 
-    cd = p["continuous_decoder"]
-    _mlp(sd, "proj_head.0", cd["MLP_0"])
-    _ln(sd, "proj_head.1", cd["LayerNorm_0"]["LayerNorm_0"])
-    _mlp(sd, "projector", p["projector"])
-
-    ge = p["_encoder"]
-    _mlp(sd, "_encoder.node_fn.0", ge["MLP_0"])
-    _ln(sd, "_encoder.node_fn.1", ge["LayerNorm_0"]["LayerNorm_0"])
-    _mlp(sd, "_encoder.edge_fn.0", ge["MLP_1"])
-    _ln(sd, "_encoder.edge_fn.1", ge["LayerNorm_1"]["LayerNorm_0"])
-
-    steps = p["_processor"]["steps"]["step"]
+def _processor(sd, prefix, proc, mp, mlp_layers):
+    steps = proc["steps"]["step"]
     for i in range(mp):
         st = _index(steps, i)
-        pre = f"_processor.gnn_stacks.{i}"
+        pre = f"{prefix}.gnn_stacks.{i}"
         w0 = np.concatenate([st["e_w_xi"]["kernel"], st["e_w_xj"]["kernel"],
                              st["e_w_e"]["kernel"]], axis=0)  # (3C, H)
         _lin(sd, f"{pre}.edge_fn.0.layers.0",
@@ -167,5 +146,40 @@ def state_dict_from_jax(params: Mapping[str, Any], hp: Mapping[str, Any],
         _mlp(sd, f"{pre}.node_fn.0", st["node_fn"]["layers_0"])
         _ln(sd, f"{pre}.node_fn.1", st["node_fn"]["layers_1"]["LayerNorm_0"])
 
+
+def state_dict_from_jax(params: Mapping[str, Any], hp: Mapping[str, Any],
+                        model: str = "magnet_cnn") -> dict[str, torch.Tensor]:
+    """``params`` is the JAX model's variables (``{'params': ...}``) or the
+    inner tree, leaves numpy arrays; returns a ``state_dict`` for the
+    port's model ``model`` (``magnet_cnn``, ``magnet_cnn_2d``, ``mpnn``,
+    ``mpnn_2d`` or ``magnet_gnn``); the two MAgNet[CNN] models share one
+    layout, the 2D one with Conv2d kernels.  MAgNet[GNN] has two
+    encoder / processor pairs (``encoder``, ``processor`` over the LR nodes;
+    ``_encoder``, ``_processor`` over LR ∪ HR) and its ``proj_head`` is one
+    Linear."""
+    p = params.get("params", params)
+    if model in ("mpnn", "mpnn_2d"):
+        return _mpnn_state_dict(p, hp, is_2d=model == "mpnn_2d")
+    if model not in ("magnet_cnn", "magnet_cnn_2d", "magnet_gnn"):
+        raise ValueError(f"no weight bridge for model {model!r}")
+    gnn = model == "magnet_gnn"
+    mlp_layers = int(hp.get("mlp_layers", 4))
+    mp = int(hp.get("num_message_passing_steps", 5 if gnn else 10))
+    sd: dict[str, torch.Tensor] = {}
+
+    if gnn:
+        _graph_encoder(sd, "encoder", p["encoder"])
+        _processor(sd, "processor", p["processor"], mp, mlp_layers)
+        _lin(sd, "proj_head", p["continuous_decoder"]["Linear_0"]["Dense_0"])
+    else:
+        res_layers = int(hp.get("res_layers",
+                                4 if model == "magnet_cnn" else 16))
+        sd.update(edsr_state_dict(p["encoder"], res_layers, "encoder."))
+        cd = p["continuous_decoder"]
+        _mlp(sd, "proj_head.0", cd["MLP_0"])
+        _ln(sd, "proj_head.1", cd["LayerNorm_0"]["LayerNorm_0"])
+    _mlp(sd, "projector", p["projector"])
+    _graph_encoder(sd, "_encoder", p["_encoder"])
+    _processor(sd, "_processor", p["_processor"], mp, mlp_layers)
     _mlp(sd, "_decoder.node_fn", p["_decoder"]["MLP_0"])
     return sd

@@ -67,6 +67,19 @@ def _cnn_coords(support, queries, batch, seed):
     return np.stack([np.concatenate([lr, full[p]]) for p in pick])
 
 
+def _gnn_coords(queries, batch, seed):
+    """MAgNet[GNN] 1D's node sets on a 256-node mesh normalised to
+    [-1, 1]: the stride-2 support alone (``queries`` 0), or with
+    ``queries`` of the odd complement (None: all of it)."""
+    rng = np.random.default_rng(seed)
+    mesh = np.linspace(-1, 1, 256, dtype=np.float32)[:, None]
+    lr, odd = mesh[::2], mesh[1::2]
+    pick = [np.arange(len(odd)) if queries is None
+            else np.sort(rng.choice(len(odd), queries, replace=False))
+            for _ in range(batch)]
+    return np.stack([np.concatenate([lr, odd[p]]) for p in pick])
+
+
 def _mpnn_2d_coords(width):
     x = (np.arange(width) / width).astype(np.float32)
     grid = np.stack(np.meshgrid(x, x, indexing="ij"), -1).reshape(-1, 2)
@@ -85,6 +98,12 @@ CASES = {
                                     0.08, 64, "fold"),
     "magnet_cnn_1d_eval": lambda: ("graphnet", _cnn_coords([128], None, 1, 1),
                                    0.08, 64, "fold"),
+    "magnet_gnn_lr": lambda: ("graphnet", _gnn_coords(0, 16, 2), 0.08, 128,
+                              "fold"),
+    "magnet_gnn_train": lambda: ("graphnet", _gnn_coords(32, 32, 2), 0.08,
+                                 128, "fold"),
+    "magnet_gnn_eval": lambda: ("graphnet", _gnn_coords(None, 16, 2), 0.08,
+                                128, "fold"),
     "mpnn_2d_64": lambda: ("mpnn", *_mpnn_2d_coords(64), 128, "gather"),
     "mpnn_2d_128": lambda: ("mpnn", *_mpnn_2d_coords(128), 128, "pregathered"),
 }
