@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 F32_PEAK = 67e12    # H100 SXM f32 FLOP/s outside the tensor cores (data sheet)
+TF32_PEAK = 495e12  # H100 SXM dense TF32 tensor-core FLOP/s (data sheet)
 HBM_RATE = 3.35e12  # H100 SXM HBM3 bytes/s (data sheet)
 # kernel vs plain at one call: f32 on both sides, the matmuls and the
 # ~30-edge receiver sums of LayerNorm outputs (|y| ~ 1) taken in another order
@@ -179,6 +180,16 @@ def bound(kernel: str, graph, ce, h, c, l1) -> dict:
     t_ops, t_bytes = flops / F32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
     return {"flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def tc_bound(b: dict) -> dict:
+    """The bound of a kernel whose f32 products run on the tensor cores in
+    error-compensated TF32 (csrc/tile_mm.cuh, tf32x3): three TF32 products
+    per f32 product at the TF32 peak, against the same bytes as ``b``'s f32
+    bound."""
+    t_ops, t_bytes = 3.0 * b["flops"] / TF32_PEAK * 1e3, b["bytes"] / HBM_RATE * 1e3
+    return {"tc_bound_ms": max(t_ops, t_bytes),
+            "tc_bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
 def ptxas_lines(lib) -> list[str]:
@@ -537,6 +548,7 @@ def mpnn_phases(dev, data, groups) -> tuple[int, list, dict]:
     )
     from magnet_tpu_torch.eval import evaluate
     from magnet_tpu_torch.models.factory import create_model
+    from magnet_tpu_torch.ops import cuda_build
     from magnet_tpu_torch.ops import mpnn_edge as me
     from magnet_tpu_torch.ops import segment as seg
     from magnet_tpu_torch.ops.graph import csr_from_edges, radius_graph
@@ -661,14 +673,16 @@ def mpnn_phases(dev, data, groups) -> tuple[int, list, dict]:
                 "plain_ms": cuda_ms(
                     lambda: me.fused_mpnn_edge_agg2r_bwd_plain(
                         *ops, graph.senders, graph.rowptr, g_t), reps=3),
-                **mpnn_bound("bwd", True, graph, h)},
+                **mpnn_bound("bwd", True, graph, h),
+                **tc_bound(mpnn_bound("bwd", True, graph, h))},
             "pregathered": {
                 "ms": cuda_ms(lambda: me.fused_mpnn_edge_agg_bwd(*pre, g_t),
                               reps=10),
                 "plain_ms": cuda_ms(
                     lambda: me.fused_mpnn_edge_agg_bwd_plain(*pre, g_t),
                     reps=3),
-                **mpnn_bound("bwd", False, graph, h)}}
+                **mpnn_bound("bwd", False, graph, h),
+                **tc_bound(mpnn_bound("bwd", False, graph, h))}}
         bwd_ok = all(v["ok"] for e in bwd.values() for case in e.values()
                      for v in case.values())
         emit({"phase": "mpnn_kernel_bwd", **shape,
@@ -676,6 +690,7 @@ def mpnn_phases(dev, data, groups) -> tuple[int, list, dict]:
                             "max_rel_l2": BWD_L2,
                             "elementwise": "both shapes"},
               "vs_plain": bwd, "atomics": atomics, "times": times_b,
+              "ptxas": ptxas_lines(cuda_build.build("fused_mpnn_edge_agg_bwd")),
               "library_ms": None,
               "library_ms_reason": "no single PyTorch call computes the "
                                    "fused function", "ok": bwd_ok})
@@ -706,6 +721,9 @@ def mpnn_phases(dev, data, groups) -> tuple[int, list, dict]:
                 "ms": tt[entry]["ms"], "plain_ms": tt[entry]["plain_ms"],
                 "bound_ms": tt[entry]["bound_ms"],
                 "bound_by": tt[entry]["bound_by"], "library_ms": None,
+                **({"tc_bound_ms": tt[entry]["tc_bound_ms"],
+                    "tc_bound_by": tt[entry]["tc_bound_by"]}
+                   if kern == "bwd" else {}),
                 "ok": True}
 
     if "mpnn_paths" in groups:
@@ -1425,6 +1443,7 @@ def gnn_phases(dev, data, groups) -> tuple[int, list, dict]:
     from magnet_tpu_torch.config import MAGNET_GNN
     from magnet_tpu_torch.eval import evaluate
     from magnet_tpu_torch.models.factory import create_model
+    from magnet_tpu_torch.ops import cuda_build
     from magnet_tpu_torch.ops import fused_edge as fe
     from magnet_tpu_torch.ops import segment as seg
     from magnet_tpu_torch.train.checkpoint import load_checkpoint
@@ -1547,7 +1566,8 @@ def gnn_phases(dev, data, groups) -> tuple[int, list, dict]:
                 lambda: fn_bwd(*timing_ops, timing_g), reps=20)
             bnd = pregathered_bound("bwd", tg.all, h, h, l1, pe=True)
         rows.update(ms=ms, plain_ms=cuda_ms(
-            lambda: plain_bwd(*timing_ops, timing_g), reps=5), **bnd)
+            lambda: plain_bwd(*timing_ops, timing_g), reps=5), **bnd,
+            **tc_bound(bnd))
         bwd[entry] = rows
         del timing_ops, timing_g
     bwd_ok = all(v["ok"] for rows in bwd.values() for case in rows.values()
@@ -1557,8 +1577,9 @@ def gnn_phases(dev, data, groups) -> tuple[int, list, dict]:
           "tolerance": {"rtol": BWD_RTOL, "atol_rel_to_max": BWD_ATOL_REL,
                         "max_rel_l2": BWD_L2,
                         "elementwise": "small_case only"},
-          "fold_w128": bwd["fold"], "pe": bwd["pe"], "library_ms": None,
-          "ok": bwd_ok})
+          "fold_w128": bwd["fold"], "pe": bwd["pe"],
+          "ptxas": ptxas_lines(cuda_build.build("fused_edge_tail_agg_bwd")),
+          "library_ms": None, "ok": bwd_ok})
     if not bwd_ok:
         return 15, [], {}
 
@@ -1789,6 +1810,8 @@ def gnn_phases(dev, data, groups) -> tuple[int, list, dict]:
         "plain_ms": bwd["fold"]["plain_ms"],
         "bound_ms": bwd["fold"]["bound_ms"],
         "bound_by": bwd["fold"]["bound_by"], "library_ms": None,
+        "tc_bound_ms": bwd["fold"]["tc_bound_ms"],
+        "tc_bound_by": bwd["fold"]["tc_bound_by"],
         "shape": "training LR ∪ HR graph", "ok": train_ok}, {
         "name": "fused_edge_tail_agg_pe", "route": "cuda",
         "source": "magnet_tpu_torch/csrc/fused_edge_tail_agg.cu",
@@ -1807,6 +1830,8 @@ def gnn_phases(dev, data, groups) -> tuple[int, list, dict]:
         "max_abs_err": worst(bwd["pe"]), "ms": bwd["pe"]["ms"],
         "plain_ms": bwd["pe"]["plain_ms"], "bound_ms": bwd["pe"]["bound_ms"],
         "bound_by": bwd["pe"]["bound_by"], "library_ms": None,
+        "tc_bound_ms": bwd["pe"]["tc_bound_ms"],
+        "tc_bound_by": bwd["pe"]["tc_bound_by"],
         "shape": "training LR ∪ HR graph", "ok": train_ok}]
     return ((0 if train_ok else 17), kernels,
             {"segment_sum": {"launches_gnn": cmp_pe["launches"]["segment_sum"]}})
@@ -1939,6 +1964,14 @@ def main(argv) -> int:
         for key, n in extra.get(entry["name"], {}).items():
             entry[key] = n
             entry["launches"] += n
+    # each row's share of its bound: the tensor-core bound where the kernel
+    # issues its products there (tf32x3), else the f32 one
+    for entry in kernels:
+        tc = "tc_bound_ms" in entry
+        entry["share_of_bound"] = (entry["tc_bound_ms" if tc else "bound_ms"]
+                                   / entry["ms"])
+        entry["share_against"] = ("tc_bound_ms (tf32x3, 495 TFLOP/s)" if tc
+                                  else "bound_ms (f32, 67 TFLOP/s)")
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -29,14 +29,14 @@
 //     d_pxi[i] (N, H) += dz              and, packed into one buffer,
 //     dW_e, db_e (fold only), dW_k, db_k, dW_out, db_out, d_ln_s, d_ln_b.
 // relu's derivative at 0 is 0; a receiver of degree 0 has no edge, so its
-// d_pxi row stays 0.  No (E, H) activation is written to device memory:
-// the activations are recomputed per tile in shared memory (the
-// pregathered and pe entries write their d_h0 / d_pe, which is their
-// output).
+// d_pxi row stays 0.  At width 64 no (E, H) activation is written to device
+// memory: the activations are recomputed per tile in shared memory (the
+// pregathered entry writes its d_h0, which is its output); at width 128
+// they go through a scratch buffer (below).
 //
 // Compiled builds: fold (Ce, H, C) = (32, 64, 32) and (128, 128, 128);
 // pregathered (H, C) = (64, 32) and (128, 128); pe (H, C) = (128, 128);
-// L1 in 0..3.
+// L1 in 0..3.  The width-64 and width-128 builds are two designs.
 //
 // Design at width 64.  The backward is three matrix products per layer
 // (recompute, data gradient, weight gradient), so it is written as tiled
@@ -72,26 +72,55 @@
 // the FMA pipe, is the limit of this first version; wgmma is left for
 // later.
 //
-// Design at width 128 (all three entries).  Neither the weights
-// (258-322 KB) nor every dW as register patches (320 registers a thread)
-// fit, so:
-//   * a block of 256 threads owns a tile of 32 consecutive CSR edges and
-//     keeps h_0..h_L1 and y (then dy) in shared memory (129-float rows,
-//     ~83 KB at L1 = 3); each weight is streamed through one 66 KB shared
-//     buffer when a product needs it (~149 KB in all: one block per SM);
-//   * products are 2 x 8 register tiles (rows ty + 16 i, columns
-//     tx + 16 j); da_k overwrites h_k in place, masked by h_k > 0;
-//   * weight gradients: per tile, each thread forms an 8 x 8 patch of each
-//     dW (and the bias sums) in registers and adds it into its block's
-//     partial in device memory, which only that thread touches, in tile
-//     order; the same second-pass reduce adds the blocks' partials in
-//     block order, so the weight gradients are the same from run to run;
-//   * d_pxj (fold) and d_pxi as at width 64: atomics, the last bits vary.
-// Bound at MAgNet[GNN]'s training batch (~67.3k LR u HR edges, L1 = 3):
-// fold 3 x 81,920 multiply-adds per edge = 33 GFLOP, ~0.49 ms at 67
-// TFLOP/s; pe 3 x 65,536: both bound by operations.  The per-tile partial
-// read-modify-write (64 KB per weight per 32 edges, from L2) and the
-// shared-memory loads (10 per 16 FMAs) limit this first version.
+// Design at width 128 (all three entries, Ce = H = C = 128, L1 <= 3).
+// Five f32 weight gradients (320 KB at L1 = 3) fit neither a block's
+// 227 KB of shared memory nor its registers, and neither do the five
+// weights the recompute and the data gradients need, so the backward is
+// two hand-written kernels in one launch sequence, not one fused kernel:
+//   (a) the recompute and the data-gradient chain, as one pass per layer
+//       over every edge (edge_pass_kernel): h_0 (fold: e0 . W_e + b_e +
+//       pxj[j] + pxi[i]; pregathered, pe: an elementwise kernel), h_1..h_L1,
+//       y and LayerNorm's backward to dy, then da_L1..da_1 and dz through
+//       each W^T masked by h > 0, and, fold, d_e0 = dz . W_e^T.  Each pass
+//       keeps its one weight resident in shared memory for the whole launch
+//       (no weight is reloaded per tile), walks 32-edge tiles on a
+//       persistent grid, and fetches the next tile's rows with cp.async
+//       while the current tile computes; 103 KB of shared memory and at
+//       most 128 registers, so two blocks of 8 warps share an SM (splitting the weight and each tile once in shared memory would
+//       save the warps' repeated splits but needs 203 KB, one block per SM,
+//       and these passes are held by latency more than by the splits).
+//       Each h_k and each layer's output gradient (dz, da_1..da_L1,
+//       dy) is written once to a scratch buffer the wrapper allocates: at
+//       MAgNet[GNN]'s training batch (67,572 edges, L1 = 3) 9 planes of 512 B
+//       per edge, 311 MB written and read back, ~0.19 ms at 3.35 TB/s, in
+//       place of the per-tile read-modify-write of every dW partial in
+//       device memory (~1.35 GB a launch) of the design before;
+//   (b) wgrad_kernel, a tall-skinny product dW_k = sum_e h_k[e]^T da_k[e]
+//       (with db_k = sum_e da_k[e]) for every weight at once: the edges are
+//       split into ranges over the blocks, each block keeps its 128 x 128
+//       result in 64 f32 accumulators a thread across its range (32-edge
+//       slabs double-buffered with cp.async, 70 KB), and writes it once; a
+//       last
+//       kernel adds the ranges' partials in range order, so the weight
+//       gradients are the same from run to run.  d_ln_s / d_ln_b are summed
+//       per block in the LN pass and added the same way.
+// d_pxj (fold) and d_pxi are scattered from dz by scatter_kernel with f32
+// atomics (one per element for d_pxj, one per run of equal receivers in a
+// half tile for d_pxi): their last bits vary from run to run.
+// Every product runs on the tensor cores in error-compensated TF32
+// (tf32x3, csrc/tile_mm.cuh): ~2^-21 relative per product, so a recomputed
+// pre-activation stays far closer to the f32 one than the relu-tie band
+// that chip_smoke.py guards (1e-5 of the layer's RMS); one TF32 pass
+// (~5e-4) would not.  mma.sync m16n8k8 and not wgmma: the passes read W as
+// stored (forward) and transposed (backward) and kernel (b) reads both
+// tiles down their columns, while wgmma's tf32 form reads only K-major
+// operands from shared memory; mma.sync's fragments are loaded by threads
+// from f32 shared memory at any strides and split into hi / lo in
+// registers, so no lo plane doubles a weight.
+// Bound at MAgNet[GNN]'s training batch (~67.6k LR u HR edges, L1 = 3):
+// fold 3 x 81,920 multiply-adds per edge = 33 GFLOP, ~0.49 ms at 67 TFLOP/s
+// on the f32 CUDA cores, or 99 GFLOP as issued in three TF32 products,
+// ~0.20 ms at 495 TFLOP/s; pe 3 x 65,536.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (magnet_tpu_torch/ops/cuda_build.py does this).
@@ -536,181 +565,187 @@ int launch(const float* src, const float* we, const float* be,
 namespace w128 {
 
 using tile128::Entry;
-using tile128::kCols;
 using tile128::kFold;
-using tile128::kLd;
 using tile128::kPe;
 using tile128::kPregathered;
-using tile128::kThreads;
 using tile128::kW;
-constexpr int kTE = 32;             // edges per tile
-constexpr int kRows = kTE / 16;     // register tile rows
-constexpr int kBuf = kTE * kLd;     // floats of one activation buffer
+constexpr int kThreads = 256;  // 8 warps
+constexpr int kTE = 32;        // edges per tile of a pass
+constexpr int kLd = kW + 4;    // shared row stride of an edge tile, floats
+constexpr int kLdT = kW + 8;   // the same, for tiles read down their columns
+constexpr int kTile = kTE * kLd;
 
-// shared memory, in floats: the weight, then L1 + 2 activation buffers
-// (h_0..h_L1, then y / dy / the e0 tile), then indices and row statistics
-__host__ __device__ constexpr int smem_floats(int l1) {
-  return kW * kLd + (l1 + 2) * kBuf + 4 * kTE;
-}
-
-// the packed weight-gradient layout, in floats
-struct Packed {
-  int we, be, wr, br, wo, bo, ls, lb, total;
-  __host__ __device__ Packed(bool fold, int l1) {
-    we = 0;
-    be = we + (fold ? kW * kW : 0);
-    wr = be + (fold ? kW : 0);
-    br = wr + l1 * kW * kW;
-    wo = br + l1 * kW;
-    bo = wo + kW * kW;
-    ls = bo + kW;
-    lb = ls + kW;
-    total = lb + kW;
-  }
+// The passes of kernel (a), each one product of one layer over every edge.
+enum Pass : int {
+  kFirst,      // h_0 = relu(e0 . W_e + b_e + pxj[s] + pxi[r])      (fold)
+  kForward,    // h_k = relu(h_{k-1} . W_k + b_k)
+  kOutput,     // y = h_L1 . W_out + b_out, then dy (LayerNorm backward)
+  kBack,       // da_{k-1} = (da_k . W_k^T) where h_{k-1} > 0
+  kBackPlain,  // d_e0 = dz . W_e^T                                 (fold)
 };
 
-// P[a][b] (+)= sum_e A[e][a] * D[e][b] over the tile, for a = ty + 16 i,
-// b = tx + 16 j (i, j < 8), and pb[b] (+)= sum_e D[e][b] (threads ty == 0):
-// written on the block's first tile, added after.  Only this thread
-// touches these entries of the block's partial.
-__device__ __forceinline__ void wgrad(const float* __restrict__ A,
-                                      const float* __restrict__ D,
-                                      float* __restrict__ P,
-                                      float* __restrict__ pb, bool first,
-                                      int tx, int ty) {
-  float acc[kCols][kCols], bacc[kCols];
-#pragma unroll
-  for (int j = 0; j < kCols; ++j) {
-    bacc[j] = 0.f;
-#pragma unroll
-    for (int i = 0; i < kCols; ++i) acc[i][j] = 0.f;
-  }
-#pragma unroll 2
-  for (int e = 0; e < kTE; ++e) {
-    float a[kCols], d[kCols];
-#pragma unroll
-    for (int i = 0; i < kCols; ++i) a[i] = A[e * kLd + ty + 16 * i];
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      d[j] = D[e * kLd + tx + 16 * j];
-      bacc[j] += d[j];
-    }
-#pragma unroll
-    for (int i = 0; i < kCols; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) acc[i][j] = fmaf(a[i], d[j], acc[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < kCols; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      float* p = P + (ty + 16 * i) * kW + tx + 16 * j;
-      *p = first ? acc[i][j] : *p + acc[i][j];
-    }
-  if (ty == 0) {
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      float* p = pb + tx + 16 * j;
-      *p = first ? bacc[j] : *p + bacc[j];
-    }
-  }
+struct PassArgs {
+  const float* x;     // (E, kW) the product's input rows
+  const float* w;     // (kW, kW) the weight, (in, out)
+  const float* bias;  // (kW) kFirst, kForward, kOutput
+  const float* mask;  // (E, kW) kBack: the output is kept where mask > 0
+  float* out;         // (E, kW)
+  const float* pxj;   // kFirst
+  const float* pxi;   // kFirst
+  const int* senders;  // kFirst
+  const int* rowptr;   // kFirst, kOutput
+  const float* g;      // kOutput: (N, kW) the output's cotangent
+  const float* ln_s;   // kOutput
+  float* ln_part;      // kOutput: block b writes its d_ln_s, d_ln_b sums
+                       // (2 kW floats) at ln_part + b * 2 kW
+  int n_nodes, n_edges;
+};
+
+// the weight's row stride: forward passes read W[k][n] down the rows of k,
+// backward passes W[n][k] along them; each stride keeps its reads free of
+// bank conflicts
+template <Pass P>
+__host__ __device__ constexpr int weight_ld() {
+  return P == kBack || P == kBackPlain ? kLd : kLdT;
 }
 
-// dst[e][a] <- acc where keep[e][a] > 0, else 0 (dst may be keep).
-__device__ __forceinline__ void store_masked(float* dst, const float* keep,
-                                             const float (&acc)[kRows][kCols],
-                                             int tx, int ty) {
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const int o = (ty + 16 * i) * kLd + tx + 16 * j;
-      dst[o] = keep[o] > 0.f ? acc[i][j] : 0.f;
-    }
+// shared memory: the weight (68-70 KB), two input tiles and the tile's
+// indices: 103 KB, so that two blocks share an SM
+template <Pass P>
+__host__ __device__ constexpr int pass_smem_floats() {
+  return kW * weight_ld<P>() + 2 * kTile + 2 * kTE;
 }
 
-template <Entry E>
-__global__ void __launch_bounds__(kThreads, 1)
-edge_tail_bwd_kernel(
-    const float* __restrict__ src, const float* __restrict__ we,
-    const float* __restrict__ be, const float* __restrict__ pxj,
-    const float* __restrict__ pxi, const int* __restrict__ senders,
-    const int* __restrict__ rowptr, const float* __restrict__ w_rest,
-    const float* __restrict__ b_rest, const float* __restrict__ w_out,
-    const float* __restrict__ b_out, const float* __restrict__ ln_s,
-    const float* __restrict__ g, float* __restrict__ d_src,
-    float* __restrict__ d_pxj, float* __restrict__ d_pxi,
-    float* __restrict__ partial, int n_nodes, int n_edges, int l1) {
-  static_assert(kTE * 8 == kThreads, "LayerNorm: eight threads per edge");
-  constexpr bool FOLD = E == kFold;
-  const Packed L(FOLD, l1);
-  extern __shared__ float smem[];
-  float* s_w = smem;
-  float* s_act = smem + kW * kLd;               // buffer k: s_act + k * kBuf
-  float* s_x = s_act + (l1 + 1) * kBuf;         // y, dy, or the e0 tile
-  int* s_snd = reinterpret_cast<int*>(s_x + kBuf);
+// One pass: a persistent block keeps the layer's weight in shared memory
+// for the whole launch and walks 32-edge tiles, each tile's input rows
+// fetched with cp.async into a second buffer while the previous tile
+// computes; the product is a tf32x3 32 x 128 tile (a warp owns 16
+// columns), split as its fragments are loaded.
+template <Pass P>
+__global__ void __launch_bounds__(kThreads, 2) edge_pass_kernel(PassArgs a) {
+  using namespace tf32x3;
+  constexpr bool kBwd = P == kBack || P == kBackPlain;
+  constexpr int ldw = weight_ld<P>();
+  extern __shared__ __align__(16) float w128_smem[];
+  float* s_w = w128_smem;
+  float* s_x = s_w + kW * ldw;   // two tiles (kOutput: then y, xhat)
+  int* s_snd = reinterpret_cast<int*>(s_x + 2 * kTile);
   int* s_rcv = s_snd + kTE;
-  float* s_mu = reinterpret_cast<float*>(s_rcv + kTE);
-  float* s_rstd = s_mu + kTE;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  float* p = partial + (size_t)blockIdx.x * L.total;
-  float acc_ln = 0.f;  // tid < kW: d_ln_s[tid]; else d_ln_b[tid - kW]
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const Raw w_op = kBwd ? Raw{s_w, 1, ldw} : Raw{s_w, ldw, 1};  // W^T or W
 
-  const int n_tiles = (n_edges + kTE - 1) / kTE;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const bool first = tile == (int)blockIdx.x;
-    const int base = tile * kTE;
-    const int n_valid = min(kTE, n_edges - base);
-    tile128::load_indices<kTE, E>(s_snd, s_rcv, senders, rowptr, n_nodes,
-                                  base, n_valid);
+  for (int k = tid; k < kW * kW / 4; k += kThreads)
+    *reinterpret_cast<float4*>(s_w + (k >> 5) * ldw + (k & 31) * 4) =
+        __ldg(reinterpret_cast<const float4*>(a.w) + k);
 
-    // recompute h_0; rows past the end are zero
-    if (FOLD) {
-      tile128::load_rows<kTE>(s_x, src, base, n_valid);
-      tile128::load_weight(s_w, we);
-      __syncthreads();
-      float acc[kRows][kCols];
-      tile128::fold_init(acc, be, pxj, pxi, s_snd, s_rcv, n_valid, tx, ty);
-      tile128::mm_aw(s_x, s_w, acc, tx, ty);
-      tile128::store<true>(s_act, acc, tx, ty);
-    } else {
-      __syncthreads();  // s_snd, s_rcv
-      tile128::first_input<kTE, E>(s_act, src, pxj, pxi, s_snd, s_rcv, base,
-                                   n_valid);
+  const int n_tiles = (a.n_edges + kTE - 1) / kTE;
+  auto prefetch = [&](int tile, int buf) {
+    const int base = tile * kTE, n_valid = min(kTE, a.n_edges - base);
+    rows_async<kTE>(s_x + buf * kTile, kLd, a.x, [&](int r) {
+      return r < n_valid ? a.x + (size_t)(base + r) * kW : nullptr;
+    });
+    cp_async_commit();
+  };
+  float acc_ln = 0.f;  // kOutput: tid < kW d_ln_s[tid], else d_ln_b[tid - kW]
+
+  if ((int)blockIdx.x < n_tiles) prefetch(blockIdx.x, 0);
+  int it = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++it) {
+    const int cur = it & 1;
+    const int base = tile * kTE, n_valid = min(kTE, a.n_edges - base);
+    const float* x = s_x + cur * kTile;
+    if (tile + (int)gridDim.x < n_tiles)
+      prefetch(tile + gridDim.x, cur ^ 1);
+    else
+      cp_async_commit();  // an empty group keeps the count
+    if ((P == kFirst || P == kOutput) && warp == 0) {
+      const int rv =
+          tile128::warp_receiver(a.rowptr, a.n_nodes, base, n_valid);
+      const bool valid = tid < n_valid;
+      s_snd[tid] = P == kFirst && valid ? a.senders[base + tid] : 0;
+      s_rcv[tid] = valid ? rv : 0;
     }
-    // recompute h_1..h_L1, then y into s_x
-    for (int k = 0; k <= l1; ++k) {
-      const bool out_layer = k == l1;
-      __syncthreads();  // s_w free; the previous layer written
-      tile128::load_weight(s_w,
-                           out_layer ? w_out : w_rest + (size_t)k * kW * kW);
-      __syncthreads();
-      const float* bias = out_layer ? b_out : b_rest + k * kW;
-      float acc[kRows][kCols];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) acc[i][j] = __ldg(bias + tx + 16 * j);
-      tile128::mm_aw(s_act + k * kBuf, s_w, acc, tx, ty);
-      if (out_layer)
-        tile128::store<false>(s_x, acc, tx, ty);
-      else
-        tile128::store<true>(s_act + (k + 1) * kBuf, acc, tx, ty);
-    }
+    cp_async_wait<1>();
     __syncthreads();
 
-    // LayerNorm backward, eight threads per edge: row statistics and the
-    // row means of dx = g * ln_s and dx * xhat, kept in registers
-    constexpr int CP = kW / 8;
-    const int le = tid >> 3, c0 = (tid & 7) * CP;
-    float v[CP], gv[CP];
-    float mu = 0.f, rstd, m1 = 0.f, m2 = 0.f;
-    {
+    // what the epilogue reads from device memory, loaded before the product
+    // so that the loads' latency hides behind it: the bias and, kFirst, the
+    // gathered node rows, added after the product; kBack, the mask
+    float pre[2][2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int e = acc_row(16 * mi, c);
+          const int n = acc_col(16 * warp + 8 * ni, c);
+          float v = 0.f;
+          if (P == kFirst && e < n_valid)
+            v = __ldg(a.bias + n) + __ldg(a.pxj + (size_t)s_snd[e] * kW + n) +
+                __ldg(a.pxi + (size_t)s_rcv[e] * kW + n);
+          else if (P == kForward || P == kOutput)
+            v = __ldg(a.bias + n);
+          else if (P == kBack && e < n_valid)
+            v = __ldg(a.mask + (size_t)(base + e) * kW + n);
+          pre[mi][ni][c] = v;
+        }
+    float acc[2][2][4] = {};
+    mm_rows32<kW>(acc, Raw{x, kLd, 1}, w_op);
+    if (P == kFirst || P == kForward || P == kOutput)
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[mi][ni][c] += pre[mi][ni][c];
+
+    if (P != kOutput) {
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {  // elements 2h, 2h + 1: one row
+            const int e = acc_row(16 * mi, 2 * h);
+            if (e >= n_valid) continue;
+            const size_t o =
+                (size_t)(base + e) * kW + acc_col(16 * warp + 8 * ni, 0);
+            float2 v = make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+            if (P == kFirst || P == kForward) {
+              v.x = fmaxf(v.x, 0.f);
+              v.y = fmaxf(v.y, 0.f);
+            } else if (P == kBack) {
+              v.x = pre[mi][ni][2 * h] > 0.f ? v.x : 0.f;
+              v.y = pre[mi][ni][2 * h + 1] > 0.f ? v.y : 0.f;
+            }
+            *reinterpret_cast<float2*>(a.out + o) = v;
+          }
+    } else {
+      // y over the input tile, once every warp has read it
+      float* s_y = s_x + cur * kTile;
+      __syncthreads();
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            s_y[acc_row(16 * mi, c) * kLd + acc_col(16 * warp + 8 * ni, c)] =
+                acc[mi][ni][c];
+      __syncthreads();
+      // LayerNorm backward, eight threads per edge: the row's mean and rstd,
+      // xhat over y in place, and
+      // dy = rstd * (dx - mean(dx) - xhat * mean(dx * xhat)), dx = g * ln_s
+      constexpr int CP = kW / 8;
+      const int le = tid >> 3, c0 = (tid & 7) * CP;
       const bool valid = le < n_valid;
-      const float* gp = g + (size_t)s_rcv[le] * kW + c0;
+      const float* gp = a.g + (size_t)s_rcv[le] * kW + c0;
+      float v[CP], gv[CP];
+      float mu = 0.f, m1 = 0.f, m2 = 0.f;
 #pragma unroll
       for (int c = 0; c < CP; ++c) {
-        v[c] = s_x[le * kLd + c0 + c];
+        v[c] = s_y[le * kLd + c0 + c];
         gv[c] = valid ? __ldg(gp + c) : 0.f;
         mu += v[c];
       }
@@ -727,11 +762,12 @@ edge_tail_bwd_kernel(
       for (int o = 1; o < 8; o <<= 1)
         var += __shfl_xor_sync(0xffffffffu, var, o);
       var *= 1.f / kW;
-      rstd = rsqrtf(var + kLnEps);
+      const float rstd = rsqrtf(var + kLnEps);
 #pragma unroll
       for (int c = 0; c < CP; ++c) {
         v[c] = (v[c] - mu) * rstd;  // xhat
-        const float dx = gv[c] * __ldg(ln_s + c0 + c);
+        s_y[le * kLd + c0 + c] = v[c];
+        const float dx = gv[c] * __ldg(a.ln_s + c0 + c);
         m1 += dx;
         m2 = fmaf(dx, v[c], m2);
       }
@@ -742,159 +778,409 @@ edge_tail_bwd_kernel(
       }
       m1 *= 1.f / kW;
       m2 *= 1.f / kW;
-      if ((tid & 7) == 0) {
-        s_mu[le] = mu;
-        s_rstd[le] = rstd;
+      if (valid) {
+        float* dy = a.out + (size_t)(base + le) * kW + c0;
+#pragma unroll
+        for (int c = 0; c < CP; c += 4) {
+          float4 d;
+          d.x = rstd * (gv[c] * __ldg(a.ln_s + c0 + c) - m1 - v[c] * m2);
+          d.y = rstd * (gv[c + 1] * __ldg(a.ln_s + c0 + c + 1) - m1 -
+                        v[c + 1] * m2);
+          d.z = rstd * (gv[c + 2] * __ldg(a.ln_s + c0 + c + 2) - m1 -
+                        v[c + 2] * m2);
+          d.w = rstd * (gv[c + 3] * __ldg(a.ln_s + c0 + c + 3) - m1 -
+                        v[c + 3] * m2);
+          *reinterpret_cast<float4*>(dy + c) = d;
+        }
       }
-    }
-    __syncthreads();
-    // d_ln_s, d_ln_b: column sums over the tile's edges, one thread each
-    {
+      __syncthreads();  // xhat written
+      // d_ln_s, d_ln_b: column sums over the tile's edges, one thread each
       const int c = tid & (kW - 1);
       float s = 0.f;
       for (int e = 0; e < n_valid; ++e) {
-        const float ge = __ldg(g + (size_t)s_rcv[e] * kW + c);
-        s += tid < kW ? ge * (s_x[e * kLd + c] - s_mu[e]) * s_rstd[e] : ge;
+        const float ge = __ldg(a.g + (size_t)s_rcv[e] * kW + c);
+        s += tid < kW ? ge * s_y[e * kLd + c] : ge;
       }
       acc_ln += s;
     }
-    __syncthreads();  // y read by every thread
-    // dy = rstd * (dx - mean(dx) - xhat * mean(dx * xhat)), in place
-#pragma unroll
-    for (int c = 0; c < CP; ++c) {
-      const float dx = gv[c] * __ldg(ln_s + c0 + c);
-      s_x[le * kLd + c0 + c] = rstd * (dx - m1 - v[c] * m2);
-    }
-    __syncthreads();
-
-    // output layer: dW_out, db_out; da_L1 = (dy . W_out^T) where h_L1 > 0,
-    // over h_L1 in place (W_out is still in s_w)
-    {
-      float* h = s_act + l1 * kBuf;
-      wgrad(h, s_x, p + L.wo, p + L.bo, first, tx, ty);
-      float acc[kRows][kCols] = {};
-      tile128::mm_dwt(s_x, s_w, acc, tx, ty);
-      __syncthreads();  // every read of h is done
-      store_masked(h, h, acc, tx, ty);
-    }
-    // tail layers, last to first: da_{k-1} over h_{k-1} in place
-    for (int k = l1; k >= 1; --k) {
-      float* h = s_act + (k - 1) * kBuf;
-      const float* da = s_act + k * kBuf;
-      __syncthreads();  // da written; s_w free
-      tile128::load_weight(s_w, w_rest + (size_t)(k - 1) * kW * kW);
-      wgrad(h, da, p + L.wr + (k - 1) * kW * kW, p + L.br + (k - 1) * kW,
-            first, tx, ty);
-      __syncthreads();  // s_w loaded; every read of h is done
-      float acc[kRows][kCols] = {};
-      tile128::mm_dwt(da, s_w, acc, tx, ty);
-      store_masked(h, h, acc, tx, ty);
-    }
-    __syncthreads();  // dz = da_0 in buffer 0
-
-    const float* dz = s_act;
-    if (FOLD) {
-      // dW_e, db_e from the e0 tile (into s_x: dy is dead), d_e0 = dz . W_e^T,
-      // d_pxj scattered over senders
-      tile128::load_rows<kTE>(s_x, src, base, n_valid);
-      tile128::load_weight(s_w, we);
-      for (int k = tid; k < n_valid * kW; k += kThreads) {
-        const int e = k >> 7, n = k & (kW - 1);
-        atomicAdd(d_pxj + (size_t)s_snd[e] * kW + n, dz[e * kLd + n]);
-      }
-      __syncthreads();
-      wgrad(s_x, dz, p + L.we, p + L.be, first, tx, ty);
-      float acc[kRows][kCols] = {};
-      tile128::mm_dwt(dz, s_w, acc, tx, ty);
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const int e = ty + 16 * i;
-        if (e < n_valid)
-#pragma unroll
-          for (int j = 0; j < kCols; ++j)
-            d_src[(size_t)(base + e) * kW + tx + 16 * j] = acc[i][j];
-      }
-    } else {
-      for (int k = tid; k < n_valid * kW; k += kThreads) {
-        const int e = k >> 7, n = k & (kW - 1);
-        d_src[(size_t)(base + e) * kW + n] = dz[e * kLd + n];
-      }
-    }
-    // d_pxi: one atomicAdd per run of equal receivers in each half tile
-    {
-      constexpr int kHalf = kTE / 2;
-      const int n = tid & (kW - 1);
-      const int e_beg = (tid >> 7) * kHalf;
-      const int e_end = min(e_beg + kHalf, n_valid);
-      if (e_beg < e_end) {
-        int cur = s_rcv[e_beg];
-        float s = 0.f;
-        for (int e = e_beg; e < e_end; ++e) {
-          const int r = s_rcv[e];
-          if (r != cur) {
-            atomicAdd(d_pxi + (size_t)cur * kW + n, s);
-            s = 0.f;
-            cur = r;
-          }
-          s += dz[e * kLd + n];
-        }
-        atomicAdd(d_pxi + (size_t)cur * kW + n, s);
-      }
-    }
-    __syncthreads();  // before the next tile overwrites shared memory
+    __syncthreads();  // before the next prefetch overwrites this tile
   }
-  if (tid < kW)
-    p[L.ls + tid] = acc_ln;
-  else
-    p[L.lb + tid - kW] = acc_ln;
+  cp_async_wait<0>();
+  if (P == kOutput) a.ln_part[(size_t)blockIdx.x * 2 * kW + tid] = acc_ln;
 }
 
+// h_0 = relu(src[e] + pxi[r]), plus pxj[s] for the pe entry: the
+// pregathered and pe entries' first layer, one warp per edge.
+template <Entry E>
+__global__ void __launch_bounds__(kThreads) first_input_kernel(
+    const float* __restrict__ src, const float* __restrict__ pxj,
+    const float* __restrict__ pxi, const int* __restrict__ senders,
+    const int* __restrict__ rowptr, float* __restrict__ h0, int n_nodes,
+    int n_edges) {
+  const int lane = threadIdx.x & 31;
+  for (int e = (blockIdx.x * kThreads + threadIdx.x) >> 5; e < n_edges;
+       e += (gridDim.x * kThreads) >> 5) {
+    const int r = tile128::receiver_of(rowptr, n_nodes, e);
+    float4 z = __ldg(reinterpret_cast<const float4*>(src + (size_t)e * kW) + lane);
+    const float4 q =
+        __ldg(reinterpret_cast<const float4*>(pxi + (size_t)r * kW) + lane);
+    z.x += q.x;
+    z.y += q.y;
+    z.z += q.z;
+    z.w += q.w;
+    if (E == kPe) {
+      const float4 p = __ldg(
+          reinterpret_cast<const float4*>(pxj + (size_t)senders[e] * kW) + lane);
+      z.x += p.x;
+      z.y += p.y;
+      z.z += p.z;
+      z.w += p.w;
+    }
+    z.x = fmaxf(z.x, 0.f);
+    z.y = fmaxf(z.y, 0.f);
+    z.z = fmaxf(z.z, 0.f);
+    z.w = fmaxf(z.w, 0.f);
+    reinterpret_cast<float4*>(h0 + (size_t)e * kW)[lane] = z;
+  }
+}
+
+// d_pxi[r] += dz over the receivers (one atomicAdd per run of equal
+// receivers in each half of a 32-edge tile) and, fold, d_pxj[s] += dz with
+// one atomicAdd per element.
+template <bool FOLD>
+__global__ void __launch_bounds__(kThreads) scatter_kernel(
+    const float* __restrict__ dz, const int* __restrict__ senders,
+    const int* __restrict__ rowptr, float* __restrict__ d_pxj,
+    float* __restrict__ d_pxi, int n_nodes, int n_edges) {
+  __shared__ int s_snd[kTE], s_rcv[kTE];
+  const int tid = threadIdx.x, n = tid & (kW - 1);
+  const int n_tiles = (n_edges + kTE - 1) / kTE;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int base = tile * kTE, n_valid = min(kTE, n_edges - base);
+    if (tid < kTE) {  // warp 0
+      const int rv = tile128::warp_receiver(rowptr, n_nodes, base, n_valid);
+      if (tid < n_valid) {
+        s_snd[tid] = FOLD ? senders[base + tid] : 0;
+        s_rcv[tid] = rv;
+      }
+    }
+    __syncthreads();
+    constexpr int kHalf = kTE / 2;
+    const int e_beg = (tid >> 7) * kHalf;
+    const int e_end = min(e_beg + kHalf, n_valid);
+    if (e_beg < e_end) {
+      int at = s_rcv[e_beg];
+      float s = 0.f;
+      for (int e = e_beg; e < e_end; ++e) {
+        const float v = __ldg(dz + (size_t)(base + e) * kW + n);
+        if (FOLD) atomicAdd(d_pxj + (size_t)s_snd[e] * kW + n, v);
+        if (s_rcv[e] != at) {
+          atomicAdd(d_pxi + (size_t)at * kW + n, s);
+          s = 0.f;
+          at = s_rcv[e];
+        }
+        s += v;
+      }
+      atomicAdd(d_pxi + (size_t)at * kW + n, s);
+    }
+    __syncthreads();
+  }
+}
+
+// The packed weight-gradient layout, in floats; d_ln_s and d_ln_b follow
+// at ls.
+struct Packed {
+  int we, be, wr, br, wo, bo, ls;
+  __host__ __device__ Packed(bool fold, int l1) {
+    we = 0;
+    be = we + (fold ? kW * kW : 0);
+    wr = be + (fold ? kW : 0);
+    br = wr + l1 * kW * kW;
+    wo = br + l1 * kW;
+    bo = wo + kW * kW;
+    ls = bo + kW;
+  }
+};
+
+constexpr int kMaxPairs = 5;  // W_e, three tail weights, W_out
+
+// Kernel (b): dW = sum_e A[e]^T D[e] and db = sum_e D[e] for each weight
+// (blockIdx.y) over one edge range (blockIdx.x); the block writes its
+// partial at partial + blockIdx.x * stride + off_w / off_b.
+struct WgradArgs {
+  const float* a[kMaxPairs];  // (E, kW) the layer's input rows
+  const float* d[kMaxPairs];  // (E, kW) its output's gradient rows
+  int off_w[kMaxPairs], off_b[kMaxPairs];
+  float* partial;
+  int stride, chunk, n_edges;
+};
+
+constexpr int kSlab = 32;  // edges per slab of kernel (b)
+constexpr int kSlabTile = kSlab * kLdT;
+
+// A 128 x 128 tf32x3 product over each 32-edge slab, both slabs read down
+// their columns (hence the kLdT stride), split as fragments are loaded; 64
+// f32 accumulators a thread over the block's whole edge range; slabs
+// double-buffered with cp.async (70 KB: two blocks share an SM).
+__global__ void __launch_bounds__(kThreads, 1) wgrad_kernel(WgradArgs args) {
+  using namespace tf32x3;
+  extern __shared__ __align__(16) float w128_smem[];
+  float* s_a = w128_smem;                  // two slabs
+  float* s_d = w128_smem + 2 * kSlabTile;  // two slabs
+  __shared__ float s_bsum[kW];
+  const int tid = threadIdx.x, warp = tid >> 5, pair = blockIdx.y;
+  const float* A = args.a[pair];
+  const float* D = args.d[pair];
+  const int e_beg = blockIdx.x * args.chunk;
+  const int e_end = min(args.n_edges, e_beg + args.chunk);
+  const int n_slabs = e_end > e_beg ? (e_end - e_beg + kSlab - 1) / kSlab : 0;
+  auto prefetch = [&](int slab, int buf) {
+    const int base = e_beg + slab * kSlab;
+    rows_async<kSlab>(s_a + buf * kSlabTile, kLdT, A, [&](int r) {
+      return base + r < e_end ? A + (size_t)(base + r) * kW : nullptr;
+    });
+    rows_async<kSlab>(s_d + buf * kSlabTile, kLdT, D, [&](int r) {
+      return base + r < e_end ? D + (size_t)(base + r) * kW : nullptr;
+    });
+    cp_async_commit();
+  };
+  float acc[2][8][4] = {};
+  float bsum = 0.f;  // column tid & 127 over rows (tid >> 7) * 16 .. + 15
+  if (n_slabs > 0) prefetch(0, 0);
+  for (int slab = 0; slab < n_slabs; ++slab) {
+    const int cur = slab & 1;
+    if (slab + 1 < n_slabs)
+      prefetch(slab + 1, cur ^ 1);
+    else
+      cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    const float* a = s_a + cur * kSlabTile;
+    const float* d = s_d + cur * kSlabTile;
+    mm_square128<kSlab>(acc, Raw{a, 1, kLdT}, Raw{d, kLdT, 1});  // A^T . D
+    for (int e = (tid >> 7) * 16; e < (tid >> 7) * 16 + 16; ++e)
+      bsum += d[e * kLdT + (tid & (kW - 1))];
+    __syncthreads();  // before the next prefetch overwrites this slab
+  }
+  cp_async_wait<0>();
+  float* p = args.partial + (size_t)blockIdx.x * args.stride;
+  float* pw = p + args.off_w[pair];
+  const int m0 = 32 * (warp & 3), n0 = 64 * (warp >> 2);
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        pw[acc_row(m0 + 16 * mi, c) * kW + acc_col(n0 + 8 * ni, c)] =
+            acc[mi][ni][c];
+  if (tid >= kW) s_bsum[tid - kW] = bsum;
+  __syncthreads();
+  if (tid < kW) p[args.off_b[pair] + tid] = bsum + s_bsum[tid];
+}
+
+// Resident blocks of `kernel` per SM and the SM count on the current device
+// at `smem` bytes of dynamic shared memory; the opt-in and the queries run
+// once per device and kernel.
+template <auto Kernel>
+cudaError_t resident(size_t smem, int* per_sm, int* n_sm) {
+  static std::atomic<int> cache[kMaxDevices];  // per_sm << 16 | n_sm; 0 unset
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  int v = device < kMaxDevices ? cache[device].load(std::memory_order_relaxed)
+                               : 0;
+  if (v == 0) {
+    int sms = 0, blocks = 0;
+    if ((err = cudaFuncSetAttribute(Kernel,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)smem)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      device)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &blocks, Kernel, kThreads, smem)) != cudaSuccess)
+      return err;
+    if (blocks < 1) return cudaErrorInvalidConfiguration;
+    v = blocks << 16 | sms;
+    if (device < kMaxDevices) cache[device].store(v, std::memory_order_relaxed);
+  }
+  *per_sm = v >> 16;
+  *n_sm = v & 0xffff;
+  return cudaSuccess;
+}
+
+// One pass over every edge on a persistent grid of at most `max_blocks`
+// blocks (0: as many as are resident); returns the blocks launched.
+template <Pass P>
+cudaError_t run_pass(const PassArgs& a, int max_blocks, cudaStream_t stream,
+                     int* launched = nullptr) {
+  const size_t smem = sizeof(float) * (size_t)pass_smem_floats<P>();
+  int per_sm = 0, n_sm = 0;
+  cudaError_t err = resident<edge_pass_kernel<P>>(smem, &per_sm, &n_sm);
+  if (err != cudaSuccess) return err;
+  const int n_tiles = (a.n_edges + kTE - 1) / kTE;
+  int blocks = per_sm * n_sm;
+  if (max_blocks > 0 && blocks > max_blocks) blocks = max_blocks;
+  if (blocks > n_tiles) blocks = n_tiles;
+  if (launched) *launched = blocks;
+  if (blocks == 0) return cudaSuccess;
+  edge_pass_kernel<P><<<blocks, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// The backward as one launch sequence: kernel (a) as 2 L1 + 4 passes
+// (pregathered, pe: an elementwise first layer and 2 L1 + 2 passes) that
+// recompute h_0..h_L1, run LayerNorm's backward and the data gradients down
+// to dz, each h_k and each layer's output gradient written to `scratch`;
+// the scatter of dz; kernel (b) for every weight gradient; the fixed-order
+// sums of the block partials.
 template <Entry E>
 int launch(const float* src, const float* we, const float* be,
            const float* pxj, const float* pxi, const int* senders,
            const int* rowptr, const float* w_rest, const float* b_rest,
            const float* w_out, const float* b_out, const float* ln_s,
            const float* g, float* d_src, float* d_pxj, float* d_pxi,
-           float* wgrad_out, float* partial, int n_nodes, int n_edges, int l1,
-           int scratch_blocks, cudaStream_t stream) {
-  static std::atomic<int> cache[kMaxDevices];  // blocks per SM; 0: unset
-  const size_t smem = sizeof(float) * (size_t)smem_floats(3);
-  const Packed L(E == kFold, l1);
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return (int)err;
-  int cap = device < kMaxDevices ? cache[device].load(std::memory_order_relaxed)
-                                 : 0;
-  if (cap == 0) {
-    auto kernel = edge_tail_bwd_kernel<E>;
-    int n_sm = 0, per_sm = 0;
-    if ((err = cudaFuncSetAttribute(
-             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-             (int)smem)) != cudaSuccess ||
-        (err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount,
-                                      device)) != cudaSuccess ||
-        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, kernel, kThreads, smem)) != cudaSuccess)
-      return (int)err;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    cap = n_sm * per_sm;
-    if (device < kMaxDevices) cache[device].store(cap, std::memory_order_relaxed);
+           float* wgrad_out, float* partial, float* scratch, int n_nodes,
+           int n_edges, int l1, int scratch_blocks, cudaStream_t stream) {
+  constexpr bool FOLD = E == kFold;
+  const Packed L(FOLD, l1);
+  const size_t plane = (size_t)n_edges * kW;
+  if (n_nodes == 0) n_edges = 0;
+  // act[k] = h_k, k = 0..L1; grad[k] = da_k (grad[0] = dz, grad[L1 + 1] =
+  // dy); the pregathered and pe entries' dz is their d_src
+  float* act[4];
+  float* grad[5];
+  for (int k = 0; k <= l1; ++k) act[k] = scratch + k * plane;
+  float* next = scratch + (l1 + 1) * plane;
+  for (int k = 0; k <= l1 + 1; ++k) {
+    if (k == 0 && !FOLD) {
+      grad[0] = d_src;
+      continue;
+    }
+    grad[k] = next;
+    next += plane;
   }
-  const int n_tiles = (n_edges + kTE - 1) / kTE;
-  int blocks = n_tiles < cap ? n_tiles : cap;
-  if (blocks > scratch_blocks) blocks = scratch_blocks;
-  if (n_tiles > 0 && blocks < 1) return (int)cudaErrorInvalidValue;
-  if (n_nodes == 0) blocks = 0;
-  if (blocks > 0) {
-    edge_tail_bwd_kernel<E><<<blocks, kThreads,
-                              sizeof(float) * (size_t)smem_floats(l1),
-                              stream>>>(
-        src, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest, w_out, b_out,
-        ln_s, g, d_src, d_pxj, d_pxi, partial, n_nodes, n_edges, l1);
+  const float* w_of[5];  // w_of[k]: the weight whose output gradient is grad[k]
+  const float* b_of[5];
+  w_of[0] = we;
+  b_of[0] = be;
+  for (int k = 1; k <= l1; ++k) {
+    w_of[k] = w_rest + (size_t)(k - 1) * kW * kW;
+    b_of[k] = b_rest + (size_t)(k - 1) * kW;
+  }
+  w_of[l1 + 1] = w_out;
+  b_of[l1 + 1] = b_out;
+
+  PassArgs a{};
+  a.pxj = pxj;
+  a.pxi = pxi;
+  a.senders = senders;
+  a.rowptr = rowptr;
+  a.g = g;
+  a.ln_s = ln_s;
+  // the LN pass's block partials follow the planes in the scratch
+  float* ln_part = next;
+  a.ln_part = ln_part;
+  a.n_nodes = n_nodes;
+  a.n_edges = n_edges;
+  cudaError_t err = cudaSuccess;
+  int ln_blocks = 0;
+  if (n_edges > 0) {
+    // recompute h_0
+    if (FOLD) {
+      a.x = src;
+      a.w = we;
+      a.bias = be;
+      a.out = act[0];
+      if ((err = run_pass<kFirst>(a, 0, stream)) != cudaSuccess)
+        return (int)err;
+    } else {
+      int per_sm = 0, n_sm = 0;
+      if ((err = resident<first_input_kernel<E>>(0, &per_sm, &n_sm)) !=
+          cudaSuccess)
+        return (int)err;
+      first_input_kernel<E><<<per_sm * n_sm, kThreads, 0, stream>>>(
+          src, pxj, pxi, senders, rowptr, act[0], n_nodes, n_edges);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    }
+    // h_1..h_L1
+    for (int k = 1; k <= l1; ++k) {
+      a.x = act[k - 1];
+      a.w = w_of[k];
+      a.bias = b_of[k];
+      a.out = act[k];
+      if ((err = run_pass<kForward>(a, 0, stream)) != cudaSuccess)
+        return (int)err;
+    }
+    // y, then dy and the blocks' d_ln_s, d_ln_b (one partial row a block)
+    a.x = act[l1];
+    a.w = w_out;
+    a.bias = b_out;
+    a.out = grad[l1 + 1];
+    if ((err = run_pass<kOutput>(a, 2 * scratch_blocks, stream,
+                                 &ln_blocks)) !=
+        cudaSuccess)
+      return (int)err;
+    // da_L1 .. da_0 = dz
+    for (int k = l1 + 1; k >= 1; --k) {
+      a.x = grad[k];
+      a.w = w_of[k];
+      a.mask = act[k - 1];
+      a.out = grad[k - 1];
+      if ((err = run_pass<kBack>(a, 0, stream)) != cudaSuccess)
+        return (int)err;
+    }
+    if (FOLD) {  // d_e0 = dz . W_e^T
+      a.x = grad[0];
+      a.w = we;
+      a.out = d_src;
+      if ((err = run_pass<kBackPlain>(a, 0, stream)) != cudaSuccess)
+        return (int)err;
+    }
+    int per_sm = 0, n_sm = 0;
+    if ((err = resident<scatter_kernel<FOLD>>(0, &per_sm, &n_sm)) !=
+        cudaSuccess)
+      return (int)err;
+    const int n_tiles = (n_edges + kTE - 1) / kTE;
+    const int sblocks = n_tiles < per_sm * n_sm ? n_tiles : per_sm * n_sm;
+    scatter_kernel<FOLD><<<sblocks, kThreads, 0, stream>>>(
+        grad[0], senders, rowptr, d_pxj, d_pxi, n_nodes, n_edges);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
-  reduce_partials_kernel<<<(L.total + 255) / 256, 256, 0, stream>>>(
-      partial, wgrad_out, blocks, L.total);
+
+  // kernel (b): one partial row per edge range, as many ranges as fill the
+  // card once (at most scratch_blocks rows)
+  WgradArgs wa{};
+  int pairs = 0;
+  for (int k = FOLD ? 0 : 1; k <= l1 + 1; ++k, ++pairs) {
+    wa.a[pairs] = k == 0 ? src : act[k - 1];
+    wa.d[pairs] = grad[k];
+    wa.off_w[pairs] = k == 0 ? L.we : k <= l1 ? L.wr + (k - 1) * kW * kW : L.wo;
+    wa.off_b[pairs] = k == 0 ? L.be : k <= l1 ? L.br + (k - 1) * kW : L.bo;
+  }
+  int splits = 0;
+  if (n_edges > 0) {
+    const size_t smem = sizeof(float) * 4 * (size_t)kSlabTile;
+    int per_sm = 0, n_sm = 0;
+    if ((err = resident<wgrad_kernel>(smem, &per_sm, &n_sm)) != cudaSuccess)
+      return (int)err;
+    int want = per_sm * n_sm / pairs;
+    if (want > scratch_blocks) want = scratch_blocks;
+    if (want < 1) want = 1;
+    const int n_slabs = (n_edges + kSlab - 1) / kSlab;
+    wa.chunk = (n_slabs + want - 1) / want * kSlab;
+    splits = (n_edges + wa.chunk - 1) / wa.chunk;
+    wa.partial = partial;
+    wa.stride = L.ls;
+    wa.n_edges = n_edges;
+    wgrad_kernel<<<dim3(splits, pairs), kThreads, smem, stream>>>(wa);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  reduce_partials_kernel<<<(L.ls + 255) / 256, 256, 0, stream>>>(
+      partial, wgrad_out, splits, L.ls);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  reduce_partials_kernel<<<1, 2 * kW, 0, stream>>>(
+      ln_part, wgrad_out + L.ls, ln_blocks, 2 * kW);
   return (int)cudaGetLastError();
 }
 
@@ -913,16 +1199,19 @@ extern "C" {
 // d_pxi must arrive zeroed; wgrad holds, packed, dW_e (ce, h) and db_e (h)
 // (fold only), dW_rest (l1, h, h), db_rest (l1, h), dW_out (h, c), db_out
 // (c), d_ln_s (c), d_ln_b (c); partial is scratch for scratch_blocks x
-// that many floats.  The compiled builds are those of the header, each for
+// that many floats; scratch (width 128 only, else ignored) holds
+// (2 l1 + 3) (fold) or (2 l1 + 2) planes of n_edges x 128 floats, then
+// 2 scratch_blocks rows of 256.  Every float array is 16-byte aligned.
+// The compiled builds are those of the header, each for
 // l1 in 0..3; others return cudaErrorInvalidValue.
 int fused_edge_tail_agg_bwd_f32(
     const float* src, const float* we, const float* be, const float* pxj,
     const float* pxi, const int* senders, const int* rowptr,
     const float* w_rest, const float* b_rest, const float* w_out,
     const float* b_out, const float* ln_s, const float* g, float* d_src,
-    float* d_pxj, float* d_pxi, float* wgrad, float* partial, int n_nodes,
-    int n_edges, int ce, int h, int c, int l1, int entry, int scratch_blocks,
-    void* stream) {
+    float* d_pxj, float* d_pxi, float* wgrad, float* partial, float* scratch,
+    int n_nodes, int n_edges, int ce, int h, int c, int l1, int entry,
+    int scratch_blocks, void* stream) {
   using tile128::kFold;
   using tile128::kPe;
   using tile128::kPregathered;
@@ -934,21 +1223,22 @@ int fused_edge_tail_agg_bwd_f32(
       (!gathers || we == nullptr || be == nullptr || d_pxj == nullptr))
     return (int)cudaErrorInvalidValue;
   if (entry == kPe && !gathers) return (int)cudaErrorInvalidValue;
+  if (wide && scratch == nullptr) return (int)cudaErrorInvalidValue;
   if (entry == kFold && ce == 128 && wide)
     return w128::launch<kFold>(src, we, be, pxj, pxi, senders, rowptr, w_rest,
                                b_rest, w_out, b_out, ln_s, g, d_src, d_pxj,
-                               d_pxi, wgrad, partial, n_nodes, n_edges, l1,
-                               scratch_blocks, s);
+                               d_pxi, wgrad, partial, scratch, n_nodes, n_edges,
+                               l1, scratch_blocks, s);
   if (entry == kPregathered && wide)
     return w128::launch<kPregathered>(
         src, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest, w_out, b_out,
-        ln_s, g, d_src, d_pxj, d_pxi, wgrad, partial, n_nodes, n_edges, l1,
-        scratch_blocks, s);
+        ln_s, g, d_src, d_pxj, d_pxi, wgrad, partial, scratch, n_nodes, n_edges,
+        l1, scratch_blocks, s);
   if (entry == kPe && wide)
     return w128::launch<kPe>(src, we, be, pxj, pxi, senders, rowptr, w_rest,
                              b_rest, w_out, b_out, ln_s, g, d_src, d_pxj,
-                             d_pxi, wgrad, partial, n_nodes, n_edges, l1,
-                             scratch_blocks, s);
+                             d_pxi, wgrad, partial, scratch, n_nodes, n_edges,
+                             l1, scratch_blocks, s);
   const bool fold = entry == kFold;
   if (!(narrow && (fold ? ce == 32 : entry == kPregathered)))
     return (int)cudaErrorInvalidValue;

@@ -1,4 +1,5 @@
-// Fused MPNN message path, backward by recompute, f32.
+// Fused MPNN message path, backward by recompute, f32 operands, products on
+// the tensor cores in error-compensated TF32.
 //
 // Replaces two TPU kernels of magnet_tpu/ops/pallas_kernels.py:
 //   GATHER = true   _mpnn2r_bwd_pallas (gradient of fused_mpnn_edge_agg2r;
@@ -22,33 +23,38 @@
 // 0 has no edge, so its d_pr row stays 0.  No (E, H) array is written to
 // device memory except d_h0, which is an output of the pre-gathered entry.
 //
-// Design (that of fused_edge_tail_agg_bwd.cu, at twice its width):
-//   * a block of 256 threads (16 x 16) owns a tile of 64 consecutive CSR
-//     edges; tiles need not align with receivers, each edge finds its
-//     receiver by a binary search in rowptr;
-//   * W (129-float rows) and three tile buffers, z1 (then d_z1 in place),
-//     h1 and d_z2 (64 x 129 each), live in ~166 KB of dynamic shared
-//     memory: one block per SM;
-//   * the three products (recompute, data gradient, weight gradient) are
-//     register tiles of 4 x 8 (8 x 8 for dW) per thread, from tile_mm.cuh;
-//   * each thread keeps its 8 x 8 patch of dW and its 8 sums of db in
-//     registers across all tiles of its persistent block; a block writes
-//     its partial once and a second small kernel adds the blocks' partials
-//     in a fixed order, so dW and db are the same from run to run;
+// What bounds it on an H100: recompute, data gradient and weight gradient
+// are each H * H multiply-adds per edge.  Issued as three TF32 products per
+// f32 product that is 18 E H^2 FLOP at 495 TFLOP/s (0.31 ms at MPNN-2D's
+// 524,256 edges, H = 128), against node tables read once and written once
+// (GATHER) or h0 read and d_h0 written once: bound by operations.
+//
+// Design (one kernel, H = 128):
+//   * a persistent block of 256 threads (8 warps, one block per SM) walks
+//     tiles of 32 consecutive CSR edges; warp 0 finds the tile's receivers
+//     in rowptr (tile128::warp_receiver);
+//   * W (132-float rows) stays in shared memory for the whole launch; the
+//     tile's sender and receiver rows are gathered with cp.async into a
+//     second pair of buffers while the current tile computes, so the
+//     gathers of tile t + 1 overlap the products of tile t;
+//   * the three products are tf32x3 tensor-core products (csrc/tile_mm.cuh):
+//     z2 = h1 . W and d_h1 = d_z2 . W^T as 32 x 128 tiles (a warp owns 16
+//     columns), dW += h1^T . d_z2 as a 128 x 128 result whose 64 f32
+//     accumulators a thread keeps across all tiles of its block; h1 and
+//     d_z2, which every warp reads, are split into hi / lo once as they are
+//     formed, W as its fragments are loaded (204 KB of shared memory);
+//   * mma.sync and not wgmma: the three products read W as stored and
+//     transposed and h1 / d_z2 row-major and transposed, while wgmma's tf32
+//     form reads only K-major operands from shared memory; mma.sync's
+//     fragments are loaded by threads at any strides from one copy;
+//   * a block writes its dW and db once; a second small kernel adds the
+//     blocks' partials in a fixed order, so dW and db are the same from run
+//     to run;
 //   * d_pxj is scattered over senders with f32 atomicAdd into a zeroed
 //     buffer; d_pr is summed over each run of equal receivers inside half a
 //     tile and added with one atomicAdd per run.  Both therefore differ in
-//     the last bits from run to run.  On a graph where a few senders serve
-//     most receivers (the lowest-index neighbour cap on a regular 2D grid)
-//     the d_pxj atomics of many blocks meet on the same rows.
-//
-// What bounds it on an H100: recompute, data gradient and weight gradient
-// are each H * H multiply-adds per edge, 6 E H^2 FLOP on the f32 CUDA
-// cores, against node tables read once and written once (GATHER) or h0
-// read and d_h0 written once: bound by operations.  Each product step
-// makes 12 (16 for dW) shared-memory loads for 32 (64) FMAs, so the
-// shared-memory pipe is the limit of this first version; wgmma is left for
-// later.
+//     the last bits from run to run.  (The scatter's share of the launch is
+//     measured by magnet_tpu_torch/probe_atomics.py.)
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (magnet_tpu_torch/ops/cuda_build.py does this).
@@ -61,10 +67,14 @@
 
 namespace {
 
-using namespace tile_mm;  // kTE, kThreads, kRows, mm_fwd, mm_bwd_data, mm_bwd_w
+constexpr int kH = 128;        // the compiled hidden width
+constexpr int kTE = 32;        // edges per tile
+constexpr int kThreads = 256;  // 8 warps
 
+// sigmoid by the fast exponential (a few ulp) and a correctly rounded
+// reciprocal: 48 of them a thread per tile
 __device__ __forceinline__ float sigmoidf(float z) {
-  return 1.f / (1.f + expf(-z));
+  return __frcp_rn(1.f + __expf(-z));
 }
 
 __device__ __forceinline__ float dswish(float z) {
@@ -72,23 +82,22 @@ __device__ __forceinline__ float dswish(float z) {
   return s * (1.f + z * (1.f - s));
 }
 
-// Offsets, in floats, into dynamic shared memory.
-template <int H>
+// Offsets, in floats, into dynamic shared memory: 115,200 bytes, so that
+// two blocks share an SM's 228 KB.
 struct Layout {
-  static constexpr int ld = H + 1;
-  static constexpr int w = 0;                  // (H, ld)
-  static constexpr int b = w + H * ld;         // (H)
-  static constexpr int z1 = b + H;             // (kTE, ld) z1, then d_z1
-  static constexpr int h1 = z1 + kTE * ld;     // (kTE, ld)
-  static constexpr int d2 = h1 + kTE * ld;     // (kTE, ld) d_z2
-  static constexpr int snd = d2 + kTE * ld;    // (kTE) int
-  static constexpr int rcv = snd + kTE;        // (kTE) int
-  static constexpr int smem_floats = rcv + kTE;
-  static constexpr int g_total = H * H + H;    // packed dW (H, H), db (H)
+  static constexpr int tile = kTE * kH;          // a swizzled (kTE, kH) tile
+  static constexpr int w = 0;                    // (kH, kH) swizzled
+  static constexpr int s = w + kH * kH;          // send rows, z1, then d_z1
+  static constexpr int r = s + tile;             // pr rows, then h1
+  static constexpr int d2 = r + tile;            // d_z2
+  static constexpr int snd = d2 + tile;          // 2 x (kTE) int, two tiles
+  static constexpr int rcv = snd + 2 * kTE;      // 2 x (kTE) int
+  static constexpr int smem_floats = rcv + 2 * kTE;
+  static constexpr int g_total = kH * kH + kH;   // packed dW (H, H), db (H)
 };
 
-template <int H, bool GATHER>
-__global__ void __launch_bounds__(kThreads, 1)
+template <bool GATHER>
+__global__ void __launch_bounds__(kThreads, 2)
 fused_mpnn_edge_agg_bwd_kernel(
     const float* __restrict__ src, const float* __restrict__ pr,
     const float* __restrict__ w, const float* __restrict__ b,
@@ -96,137 +105,182 @@ fused_mpnn_edge_agg_bwd_kernel(
     const float* __restrict__ g, float* __restrict__ d_src,
     float* __restrict__ d_pr, float* __restrict__ partial, int n_nodes,
     int n_edges) {
-  using L = Layout<H>;
-  static_assert(H % 16 == 0, "H must be a multiple of 16 (16 x 16 threads)");
-  static_assert(kThreads % H == 0 && kTE % (kThreads / H) == 0,
-                "d_pr phase: one column per thread, equal edge ranges");
-  constexpr int ld = L::ld;
-  constexpr int NJ = H / 16;
-
-  extern __shared__ float smem[];
+  using L = Layout;
+  using namespace tf32x3;
+  extern __shared__ __align__(16) float smem[];
   float* s_w = smem + L::w;
-  float* s_b = smem + L::b;
-  float* s_z1 = smem + L::z1;
-  float* s_h1 = smem + L::h1;
+  float* s_z1 = smem + L::s;
+  float* s_h1 = smem + L::r;
   float* s_d2 = smem + L::d2;
   int* s_snd = reinterpret_cast<int*>(smem + L::snd);
   int* s_rcv = reinterpret_cast<int*>(smem + L::rcv);
+  const Swz w_rows{s_w, false}, w_cols{s_w, true};  // W and W^T
+  const Swz h1_rows{s_h1, false}, h1_cols{s_h1, true};
+  const Swz d2_rows{s_d2, false};
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  for (int k = tid; k < kH * kH / 4; k += kThreads)
+    *reinterpret_cast<float4*>(s_w + swz_at(k >> 5, (k & 31) * 4)) =
+        __ldg(reinterpret_cast<const float4*>(w) + k);
 
-  for (int k = tid; k < H * H; k += kThreads) s_w[(k / H) * ld + k % H] = w[k];
-  for (int k = tid; k < H; k += kThreads) s_b[k] = b[k];
-  __syncthreads();
-
-  // the thread's patch of dW and its sums of db, over all its tiles
-  float acc_w[NJ][NJ], acc_b[NJ];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    acc_b[j] = 0.f;
-#pragma unroll
-    for (int i = 0; i < NJ; ++i) acc_w[i][j] = 0.f;
-  }
-
+  // the block's tiles are consecutive, so each tile's receivers are found
+  // from the last receiver of the one before (warp 0)
   const int n_tiles = (n_edges + kTE - 1) / kTE;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+  const int per_block = (n_tiles + gridDim.x - 1) / gridDim.x;
+  const int t_beg = blockIdx.x * per_block;
+  const int t_end = min(n_tiles, t_beg + per_block);
+  auto indices = [&](int tile, int buf, int hint) {
+    const int base = tile * kTE, n_valid = min(kTE, n_edges - base);
+    const int rv =
+        tile128::warp_receiver(rowptr, n_nodes, base, n_valid, hint);
+    const bool valid = tid < n_valid;
+    s_snd[buf * kTE + tid] = !valid ? 0 : GATHER ? senders[base + tid]
+                                                 : base + tid;
+    s_rcv[buf * kTE + tid] = valid ? rv : 0;
+  };
+  // the sender rows (into z1's buffer) or the receiver rows (into h1's) of
+  // tile `tile`, whose indices are in buffer `buf`; one committed group
+  auto gather = [&](float* dst, const float* table, const int* idx,
+                    int tile) {
+    const int n_valid = min(kTE, n_edges - tile * kTE);
+    rows_async<kTE>(dst, 0, table, [&](int r) {
+      return r < n_valid ? table + (size_t)idx[r] * kH : nullptr;
+    });
+    cp_async_commit();
+  };
+
+  // the thread's part of dW (rows 32 (w & 3) + ..., columns 64 (w >> 2) +
+  // ...) and, threads < kH, db[tid], over all its tiles
+  float acc_w[2][8][4] = {};
+  float acc_b = 0.f;
+
+  if (t_beg < t_end) {
+    if (warp == 0) indices(t_beg, 0, -1);
+    __syncthreads();
+    gather(s_z1, src, s_snd, t_beg);
+    gather(s_h1, pr, s_rcv, t_beg);
+  }
+  for (int tile = t_beg, it = 0; tile < t_end; ++tile, ++it) {
+    const int cur = it & 1, nxt = cur ^ 1;
     const int base = tile * kTE;
     const int n_valid = min(kTE, n_edges - base);
-
-    // the tile's sender rows and receivers; rows past the end are zero
-    if (tid < kTE) {
-      int sv = 0, rv = 0;
-      if (tid < n_valid) {
-        const int e = base + tid;
-        sv = GATHER ? senders[e] : e;
-        int lo = 0, hi = n_nodes;  // rowptr[lo] <= e < rowptr[hi]
-        while (hi - lo > 1) {
-          const int mid = (lo + hi) >> 1;
-          if (rowptr[mid] <= e) lo = mid; else hi = mid;
-        }
-        rv = lo;
-      }
-      s_snd[tid] = sv;
-      s_rcv[tid] = rv;
-    }
+    const int* snd = s_snd + cur * kTE;
+    const int* rcv = s_rcv + cur * kTE;
+    const bool more = tile + 1 < t_end;
+    if (more && warp == 0) indices(tile + 1, nxt, rcv[n_valid - 1]);
+    cp_async_wait<0>();
     __syncthreads();
 
-    // recompute z1 = send + pr[i] and h1 = swish(z1)
-    for (int k = tid; k < kTE * H; k += kThreads) {
-      const int r = k / H, c = k % H;
-      float z = 0.f;
-      if (r < n_valid)
-        z = src[(size_t)s_snd[r] * H + c] + pr[(size_t)s_rcv[r] * H + c];
-      s_z1[r * ld + c] = z;
-      s_h1[r * ld + c] = z * sigmoidf(z);
+    // z1 = send + pr[i] and h1 = swish(z1) (zero rows stay zero)
+    for (int k = tid; k < kTE * kH; k += kThreads) {
+      const int o = swz_at(k >> 7, k & (kH - 1));
+      const float z = s_z1[o] + s_h1[o];
+      s_z1[o] = z;
+      s_h1[o] = z * sigmoidf(z);
     }
     __syncthreads();
 
     // z2 = h1 . W + b, stored as d_z2 = g[i] * swish'(z2)
-    mm_fwd<H, H, false>(
-        s_h1, ld, s_w, ld, [&](int, int n) { return s_b[n]; },
-        [&](int e, int n, float v) {
-          const float gv = e < n_valid ? g[(size_t)s_rcv[e] * H + n] : 0.f;
-          s_d2[e * ld + n] = gv * dswish(v);
-        },
-        tx, ty);
+    {
+      float acc[2][2][4];
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float bias = __ldg(b + acc_col(16 * warp + 8 * ni, c));
+          acc[0][ni][c] = bias;
+          acc[1][ni][c] = bias;
+        }
+      mm_rows32<kH>(acc, h1_rows, w_rows);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int e = acc_row(16 * mi, c);
+            const int n = acc_col(16 * warp + 8 * ni, c);
+            const float gv =
+                e < n_valid ? __ldg(g + (size_t)rcv[e] * kH + n) : 0.f;
+            s_d2[swz_at(e, n)] = gv * dswish(acc[mi][ni][c]);
+          }
+    }
     __syncthreads();
 
-    // dW += h1^T . d_z2, db += sum d_z2; d_z1 = (d_z2 . W^T) * swish'(z1),
-    // in place over z1 (each element is read and written by one thread)
-    mm_bwd_w<H, H>(s_h1, ld, s_d2, ld, acc_w, acc_b, tx, ty);
-    mm_bwd_data<H, H>(
-        s_d2, ld, s_w, ld,
-        [&](int e, int k, float v) {
-          s_z1[e * ld + k] = v * dswish(s_z1[e * ld + k]);
-        },
-        tx, ty);
+    // dW += h1^T . d_z2 and db += sum d_z2
+    mm_square128<kTE>(acc_w, h1_cols, d2_rows);
+    if (tid < kH)
+      for (int e = 0; e < kTE; ++e) acc_b += s_d2[swz_at(e, tid)];
+    __syncthreads();  // h1 read for the last time
+    if (more) gather(s_h1, pr, s_rcv + nxt * kTE, tile + 1);
+
+    // d_h1 = d_z2 . W^T, and d_z1 = d_h1 * swish'(z1) over z1 in place
+    // (each element is read and written by one thread)
+    {
+      float acc[2][2][4] = {};
+      mm_rows32<kH>(acc, d2_rows, w_cols);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int o = swz_at(acc_row(16 * mi, c),
+                                 acc_col(16 * warp + 8 * ni, c));
+            s_z1[o] = acc[mi][ni][c] * dswish(s_z1[o]);
+          }
+    }
     __syncthreads();
 
     // scatter d_z1: the sender side, then the receiver side
     if (GATHER) {
-      for (int k = tid; k < n_valid * H; k += kThreads) {
-        const int e = k / H, n = k % H;
-        atomicAdd(d_src + (size_t)s_snd[e] * H + n, s_z1[e * ld + n]);
+      for (int k = tid; k < n_valid * kH; k += kThreads) {
+        const int e = k >> 7, n = k & (kH - 1);
+        atomicAdd(d_src + (size_t)snd[e] * kH + n, s_z1[swz_at(e, n)]);
       }
     } else {
-      for (int k = tid; k < n_valid * H; k += kThreads) {
-        const int e = k / H, n = k % H;
-        d_src[(size_t)(base + e) * H + n] = s_z1[e * ld + n];
+      for (int k = tid; k < n_valid * kH / 4; k += kThreads) {
+        const int e = k >> 5, c = (k & 31) * 4;
+        *reinterpret_cast<float4*>(d_src + (size_t)(base + e) * kH + c) =
+            *reinterpret_cast<const float4*>(s_z1 + swz_at(e, c));
       }
     }
     {
-      constexpr int kPart = kTE / (kThreads / H);
-      const int n = tid % H;
-      const int e_beg = (tid / H) * kPart;
-      const int e_end = min(e_beg + kPart, n_valid);
+      constexpr int kHalf = kTE / 2;
+      const int n = tid & (kH - 1);
+      const int e_beg = (tid >> 7) * kHalf;
+      const int e_end = min(e_beg + kHalf, n_valid);
       if (e_beg < e_end) {
-        int cur = s_rcv[e_beg];
+        int at = rcv[e_beg];
         float s = 0.f;
         for (int e = e_beg; e < e_end; ++e) {
-          const int r = s_rcv[e];
-          if (r != cur) {
-            atomicAdd(d_pr + (size_t)cur * H + n, s);
+          if (rcv[e] != at) {
+            atomicAdd(d_pr + (size_t)at * kH + n, s);
             s = 0.f;
-            cur = r;
+            at = rcv[e];
           }
-          s += s_z1[e * ld + n];
+          s += s_z1[swz_at(e, n)];
         }
-        atomicAdd(d_pr + (size_t)cur * H + n, s);
+        atomicAdd(d_pr + (size_t)at * kH + n, s);
       }
     }
-    __syncthreads();
+    __syncthreads();  // d_z1 read for the last time
+    if (more) gather(s_z1, src, s_snd + nxt * kTE, tile + 1);
   }
+  cp_async_wait<0>();
 
   // this block's partial dW and db, in the packed layout
   float* p = partial + (size_t)blockIdx.x * L::g_total;
+  const int m0 = 32 * (warp & 3), n0 = 64 * (warp >> 2);
 #pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int n = tx + 16 * j;
+  for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int i = 0; i < NJ; ++i) p[(ty + 16 * i) * H + n] = acc_w[i][j];
-    if (ty == 0) p[H * H + n] = acc_b[j];
-  }
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        p[acc_row(m0 + 16 * mi, c) * kH + acc_col(n0 + 8 * ni, c)] =
+            acc_w[mi][ni][c];
+  if (tid < kH) p[kH * kH + tid] = acc_b;
 }
 
 // wgrad[p] = sum over blocks, in block order, of partial[b][p].
@@ -245,7 +299,7 @@ constexpr int kMaxDevices = 64;
 // The persistent grid's size (SMs x resident blocks per SM) on the current
 // device.  The shared-memory opt-in and the device queries run once per
 // device and instantiation; later launches read the cache.
-template <int H, bool GATHER>
+template <bool GATHER>
 cudaError_t grid_cap(size_t smem_bytes, int* cap) {
   static std::atomic<int> cache[kMaxDevices];  // 0: unset
   int device = 0;
@@ -254,7 +308,7 @@ cudaError_t grid_cap(size_t smem_bytes, int* cap) {
   const bool cached = device < kMaxDevices;
   if (cached && (*cap = cache[device].load(std::memory_order_relaxed)) > 0)
     return cudaSuccess;
-  auto kernel = fused_mpnn_edge_agg_bwd_kernel<H, GATHER>;
+  auto kernel = fused_mpnn_edge_agg_bwd_kernel<GATHER>;
   int optin = 0, n_sm = 0, per_sm = 0;
   if ((err = cudaDeviceGetAttribute(
            &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device)) !=
@@ -277,16 +331,16 @@ cudaError_t grid_cap(size_t smem_bytes, int* cap) {
   return cudaSuccess;
 }
 
-template <int H, bool GATHER>
+template <bool GATHER>
 int launch(const float* src, const float* pr, const float* w, const float* b,
            const int* senders, const int* rowptr, const float* g,
            float* d_src, float* d_pr, float* wgrad, float* partial,
            int n_nodes, int n_edges, int scratch_blocks,
            cudaStream_t stream) {
-  using L = Layout<H>;
+  using L = Layout;
   const size_t smem_bytes = sizeof(float) * (size_t)L::smem_floats;
   int cap = 0;
-  const cudaError_t err = grid_cap<H, GATHER>(smem_bytes, &cap);
+  const cudaError_t err = grid_cap<GATHER>(smem_bytes, &cap);
   if (err != cudaSuccess) return (int)err;
   const int n_tiles = (n_edges + kTE - 1) / kTE;
   int blocks = n_tiles < cap ? n_tiles : cap;
@@ -294,7 +348,7 @@ int launch(const float* src, const float* pr, const float* w, const float* b,
   if (n_tiles > 0 && blocks < 1) return (int)cudaErrorInvalidValue;
   if (n_nodes == 0) blocks = 0;
   if (blocks > 0) {
-    fused_mpnn_edge_agg_bwd_kernel<H, GATHER>
+    fused_mpnn_edge_agg_bwd_kernel<GATHER>
         <<<blocks, kThreads, smem_bytes, stream>>>(
             src, pr, w, b, senders, rowptr, g, d_src, d_pr, partial, n_nodes,
             n_edges);
@@ -316,7 +370,8 @@ extern "C" {
 // src is h0 (E, h), senders is ignored and d_src is d_h0 (E, h), written
 // whole.  d_pr (n_nodes, h) must arrive zeroed; wgrad holds, packed, dW
 // (h, h) then db (h); partial is scratch for scratch_blocks x (h*h + h)
-// floats.  Compiled for h = 128; others return cudaErrorInvalidValue.
+// floats.  Every float array is 16-byte aligned.  Compiled for h = 128;
+// others return cudaErrorInvalidValue.
 int fused_mpnn_edge_agg_bwd_f32(const float* src, const float* pr,
                                 const float* w, const float* b,
                                 const int* senders, const int* rowptr,
@@ -325,16 +380,14 @@ int fused_mpnn_edge_agg_bwd_f32(const float* src, const float* pr,
                                 int n_edges, int h, int gather,
                                 int scratch_blocks, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (h != 128) return (int)cudaErrorInvalidValue;
+  if (h != kH) return (int)cudaErrorInvalidValue;
   if (gather) {
     if (senders == nullptr) return (int)cudaErrorInvalidValue;
-    return launch<128, true>(src, pr, w, b, senders, rowptr, g, d_src, d_pr,
-                             wgrad, partial, n_nodes, n_edges, scratch_blocks,
-                             s);
+    return launch<true>(src, pr, w, b, senders, rowptr, g, d_src, d_pr,
+                        wgrad, partial, n_nodes, n_edges, scratch_blocks, s);
   }
-  return launch<128, false>(src, pr, w, b, senders, rowptr, g, d_src, d_pr,
-                            wgrad, partial, n_nodes, n_edges, scratch_blocks,
-                            s);
+  return launch<false>(src, pr, w, b, senders, rowptr, g, d_src, d_pr, wgrad,
+                       partial, n_nodes, n_edges, scratch_blocks, s);
 }
 
 }  // extern "C"

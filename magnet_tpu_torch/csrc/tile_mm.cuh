@@ -11,7 +11,12 @@
 // 16 x 16 grid over a tile of TE consecutive CSR edges and one (128 x 128)
 // weight, both in shared memory with rows of kLd floats; each thread holds
 // an R x 8 register tile (R = TE / 16): rows ty + 16 i, columns tx + 16 j.
+//
+// tf32x3 (the width-128 backward kernels and the MPNN backward kernels):
+// f32 products on the tensor cores in error-compensated TF32, see below.
 #pragma once
+
+#include <cstdint>
 
 namespace tile_mm {
 
@@ -132,6 +137,39 @@ __device__ __forceinline__ int receiver_of(const int* __restrict__ rowptr,
   return lo;
 }
 
+// The receiver of edge base + lane, for a whole warp whose edges base ..
+// base + 31 are consecutive: a 32-way search for the receiver of `base`
+// (three rounds of loads at 16k nodes, where receiver_of takes fourteen),
+// skipped when the caller knows a receiver `hint` >= 0 of an edge before
+// `base`; then one load of the next 32 row starts, which place every edge
+// whose receiver lies among them; an edge past them (a run of receivers of
+// degree 0) takes receiver_of.  Lanes past n_valid get an unspecified
+// value.
+__device__ __forceinline__ int warp_receiver(const int* __restrict__ rowptr,
+                                             int n_nodes, int base,
+                                             int n_valid, int hint = -1) {
+  const int lane = threadIdx.x & 31;
+  int lo = hint < 0 ? 0 : hint;  // rowptr[lo] <= base < rowptr[hi]
+  int hi = hint < 0 ? n_nodes : lo;
+  while (hi - lo > 1) {
+    const int step = (hi - lo + 31) >> 5;
+    const int i = lo + lane * step;
+    const unsigned le =
+        __ballot_sync(0xffffffffu, i < hi && __ldg(rowptr + i) <= base);
+    lo += (31 - __clz(le)) * step;  // lane 0 (i = lo) always holds
+    hi = min(hi, lo + step);
+  }
+  const int e = base + lane;
+  const int j = lo + 1 + lane;
+  const int start = j <= n_nodes ? __ldg(rowptr + j) : 0x7fffffff;
+  int r = lo;
+#pragma unroll
+  for (int s = 0; s < 32; ++s) r += __shfl_sync(0xffffffffu, start, s) <= e;
+  const int window_end = __shfl_sync(0xffffffffu, start, 31);  // every lane
+  if (lane < n_valid && e >= window_end) r = receiver_of(rowptr, n_nodes, e);
+  return r;
+}
+
 // s_w[k][n] = w[k * kW + n].
 __device__ __forceinline__ void load_weight(float* __restrict__ s_w,
                                             const float* __restrict__ w) {
@@ -232,26 +270,6 @@ __device__ __forceinline__ void mm_aw(const float* __restrict__ A,
   }
 }
 
-// acc[i][j] += sum_n D[ty + 16 i][n] * W[tx + 16 j][n]   (D . W^T)
-template <int R>
-__device__ __forceinline__ void mm_dwt(const float* __restrict__ D,
-                                       const float* __restrict__ W,
-                                       float (&acc)[R][kCols], int tx,
-                                       int ty) {
-#pragma unroll 4
-  for (int n = 0; n < kW; ++n) {
-    float d[R], w[kCols];
-#pragma unroll
-    for (int i = 0; i < R; ++i) d[i] = D[(ty + 16 * i) * kLd + n];
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) w[j] = W[(tx + 16 * j) * kLd + n];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) acc[i][j] = fmaf(d[i], w[j], acc[i][j]);
-  }
-}
-
 // dst[e][n] = acc, through relu when RELU, on the thread's rows and columns.
 template <bool RELU, int R>
 __device__ __forceinline__ void store(float* dst,
@@ -266,3 +284,199 @@ __device__ __forceinline__ void store(float* dst,
 }
 
 }  // namespace tile128
+
+// Error-compensated TF32 ("3xTF32") products on the tensor cores, through
+// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32.
+//
+// Each f32 operand x is split into hi = tf32(x) (cvt.rna: round to
+// nearest, ties away from zero, to a 10-bit mantissa) and lo = tf32(x - hi),
+// and a . b is accumulated as a_lo . b_hi + a_hi . b_lo, then a_hi . b_hi,
+// in f32 accumulators.  The dropped a_lo . b_lo and the rounding of lo
+// leave ~2^-21 of |a b| per product, close to f32; one TF32 product alone
+// leaves ~2^-11 (tests/test_torch_tf32_split.py shows both at the kernels'
+// depths).  Fragments are read by threads from f32 shared memory at any
+// strides and split in registers, so one stored tile serves a product, its
+// transpose and the weight gradient alike (wgmma's tf32 form reads only
+// K-major operands from shared memory, and a stored lo plane would double
+// every tile and halve the blocks an SM holds); why mma.sync and not wgmma
+// is in each kernel's note.
+//
+// Fragment layout (PTX ISA, m16n8k8 .tf32), lane = 4 g + t:
+//   A (16 x 8): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
+//   B (8 x 8):  b0 (t, g), b1 (t + 4, g)
+//   C (16 x 8): c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1)
+// The products below assume blocks of 8 warps.
+namespace tf32x3 {
+
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo + O(2^-22 |x|), both TF32.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = tf32(x - __uint_as_float(hi));
+}
+
+// d += a . b on one 16 x 8 x 8 tile.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+struct FragA {
+  uint32_t hi[4], lo[4];
+};
+struct FragB {
+  uint32_t hi[2], lo[2];
+};
+
+// Operands in shared memory, split as their fragments are loaded.
+// Raw: element (i, j) at p[i * is + j * js].  Swz: rows of 128 floats with
+// the XOR swizzle of swz(); element (i, j) is row i, column j, or with tr
+// row j, column i.  A Swz tile is read free of bank conflicts along its
+// rows and down its columns alike, and keeps 16-byte chunks whole (for
+// cp.async).
+struct Raw {
+  const float* p;
+  int is, js;
+};
+struct Swz {
+  const float* p;
+  bool tr;
+};
+
+// The column offset of row r of a swizzled tile: bits 2-4 only.
+__device__ __forceinline__ int swz(int r) { return ((r & 3) << 3) | (r & 4); }
+__device__ __forceinline__ int swz_at(int r, int c) {
+  return r * 128 + (c ^ swz(r));
+}
+
+__device__ __forceinline__ float elem(const Raw& o, int i, int j) {
+  return o.p[i * o.is + j * o.js];
+}
+__device__ __forceinline__ float elem(const Swz& o, int i, int j) {
+  return o.tr ? o.p[swz_at(j, i)] : o.p[swz_at(i, j)];
+}
+
+// Rows m0..m0+15, columns k0..k0+7 of A(m, k).
+template <class Op>
+__device__ __forceinline__ void load_a(FragA& f, const Op& a, int m0,
+                                       int k0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  split(elem(a, m0 + g, k0 + t), f.hi[0], f.lo[0]);
+  split(elem(a, m0 + g + 8, k0 + t), f.hi[1], f.lo[1]);
+  split(elem(a, m0 + g, k0 + t + 4), f.hi[2], f.lo[2]);
+  split(elem(a, m0 + g + 8, k0 + t + 4), f.hi[3], f.lo[3]);
+}
+
+// Rows k0..k0+7, columns n0..n0+7 of B(k, n).
+template <class Op>
+__device__ __forceinline__ void load_b(FragB& f, const Op& b, int k0,
+                                       int n0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  split(elem(b, k0 + t, n0 + g), f.hi[0], f.lo[0]);
+  split(elem(b, k0 + t + 4, n0 + g), f.hi[1], f.lo[1]);
+}
+
+// d += a . b in three TF32 products, the small terms first.
+__device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
+                                     const FragB& b) {
+  mma(d, a.lo, b.hi);
+  mma(d, a.hi, b.lo);
+  mma(d, a.hi, b.hi);
+}
+
+// The row and column of accumulator element c of the 16 x 8 tile whose
+// corner is (m0, n0).
+__device__ __forceinline__ int acc_row(int m0, int c) {
+  return m0 + ((threadIdx.x & 31) >> 2) + 8 * (c >> 1);
+}
+__device__ __forceinline__ int acc_col(int n0, int c) {
+  return n0 + 2 * (threadIdx.x & 3) + (c & 1);
+}
+
+// acc += A . B for a 32-row tile: A(m, k) (32 x K), B(k, n) (K x 128).
+// Warp w owns columns 16 w .. 16 w + 15: acc[mi][ni] is the 16 x 8 tile at
+// rows 16 mi, columns 16 w + 8 ni.
+template <int K, class OA, class OB>
+__device__ __forceinline__ void mm_rows32(float (&acc)[2][2][4],
+                                          const OA& a, const OB& b) {
+  const int n0 = (threadIdx.x >> 5) * 16;
+#pragma unroll 2
+  for (int k0 = 0; k0 < K; k0 += 8) {
+    FragA fa[2];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) load_a(fa[mi], a, 16 * mi, k0);
+#pragma unroll
+    for (int ni = 0; ni < 2; ++ni) {
+      FragB fb;
+      load_b(fb, b, k0, n0 + 8 * ni);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) mma3(acc[mi][ni], fa[mi], fb);
+    }
+  }
+}
+
+// acc += A . B for a 128 x 128 result: A(m, k) (128 x K), B(k, n)
+// (K x 128), K a multiple of 8.  Warp w owns rows 32 (w & 3) .. + 31 and
+// columns 64 (w >> 2) .. + 63: acc[mi][ni] is the 16 x 8 tile at rows
+// 32 (w & 3) + 16 mi, columns 64 (w >> 2) + 8 ni.
+template <int K, class OA, class OB>
+__device__ __forceinline__ void mm_square128(float (&acc)[2][8][4],
+                                             const OA& a, const OB& b) {
+  const int w = threadIdx.x >> 5, m0 = 32 * (w & 3), n0 = 64 * (w >> 2);
+#pragma unroll 1
+  for (int k0 = 0; k0 < K; k0 += 8) {
+    FragA fa[2];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) load_a(fa[mi], a, m0 + 16 * mi, k0);
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni) {
+      FragB fb;
+      load_b(fb, b, k0, n0 + 8 * ni);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) mma3(acc[mi][ni], fa[mi], fb);
+    }
+  }
+}
+
+// 16 bytes from global to shared memory without passing through registers;
+// zeros where !valid (src is then not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// Wait until at most N committed groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// dst[r][0..127] <- row(r) for r < TE, zeros where row(r) is null, without
+// waiting (the caller commits the group).  dst rows are ld floats apart,
+// ld a multiple of 4, or (ld == 0) dst is a Swz tile; `any` is a readable
+// global address, named in place of a null row (no byte of it is read).
+template <int TE, class Row>
+__device__ __forceinline__ void rows_async(float* dst, int ld,
+                                           const float* any, Row row) {
+  for (int k = threadIdx.x; k < TE * 32; k += 256) {
+    const int r = k >> 5, c = (k & 31) * 4;
+    const float* src = row(r);
+    cp_async16(dst + (ld ? r * ld + c : swz_at(r, c)), src ? src + c : any,
+               src != nullptr);
+  }
+}
+
+}  // namespace tf32x3

@@ -94,11 +94,9 @@ def build_loaders(cfg: dict[str, Any], seed: int = 0,
     return {
         "train": DataLoader(ds["train"], bs, shuffle=True, seed=seed),
         "val": DataLoader(ds["val"], min(bs, len(ds["val"])),
-                          shuffle=shuffle_eval, seed=seed + 1,
-                          drop_last=False),
+                          shuffle=shuffle_eval, seed=seed + 1),
         "test": DataLoader(ds["test"], min(bs, len(ds["test"])),
-                           shuffle=shuffle_eval, seed=seed + 2,
-                           drop_last=False),
+                           shuffle=shuffle_eval, seed=seed + 2),
     }
 
 

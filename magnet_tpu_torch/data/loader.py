@@ -15,8 +15,8 @@ class DataLoader:
     """Map-style loader: shuffle, batch, collate.
 
     ``dataset`` has ``__len__``, ``__getitem__`` -> dict and
-    ``set_epoch(seed)``.  ``drop_last`` drops the trailing partial batch
-    (the train split's setting; eval splits keep it).
+    ``set_epoch(seed)``.  ``drop_last`` drops the trailing partial batch,
+    on every split of ``build_loaders`` as in ``magnet_tpu``.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,

@@ -36,13 +36,15 @@ def _nvcc() -> str:
     return found
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` for sm_90a (once per source, shared
+def build(name: str, csrc: Path = _CSRC) -> Path:
+    """Compile ``<csrc>/<name>.cu`` for sm_90a (once per source, shared
     headers and flags) and return the shared library's path; ptxas's report
-    (registers, spills) is kept beside it as ``<library stem>.ptxas.txt``."""
-    src = _CSRC / f"{name}.cu"
+    (registers, spills) is kept beside it as ``<library stem>.ptxas.txt``.
+    ``csrc`` is the package's ``csrc/`` unless a probe builds an altered
+    copy."""
+    src = csrc / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes())
-    for header in sorted(_CSRC.glob("*.cuh")):
+    for header in sorted(csrc.glob("*.cuh")):
         digest.update(header.read_bytes())
     digest.update("\0".join(_NVCC_FLAGS).encode())
     lib = _BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"

@@ -81,7 +81,7 @@ GRAD_NAMES_PE = ("pe", "pxj", "pxi", "w_rest", "b_rest", "w_out", "b_out",
 FWD, BWD = "fused_edge_tail_agg", "fused_edge_tail_agg_bwd"
 _ARGTYPES = {
     FWD: [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
-    BWD: [ctypes.c_void_p] * 18 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    BWD: [ctypes.c_void_p] * 19 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
 }
 
 #: Launches of each kernel so far (one per launch, nowhere else): the fold
@@ -373,6 +373,13 @@ def _launch_fwd(entry, src, we, be, pxj, pxi, senders, rowptr, *tail):
     return out
 
 
+def bwd_scratch_planes(entry: str, l1: int) -> int:
+    """(E, H) planes of the width-128 backward's scratch: h_0..h_L1 and the
+    gradients dy, da_L1..da_1 and, fold, dz (the other entries write dz as
+    their d_src)."""
+    return 2 * l1 + (3 if entry == "fold" else 2)
+
+
 def _launch_bwd(entry, src, we, be, pxj, pxi, senders, rowptr, *tail_and_g):
     """The backward kernel, entries as ``_launch_fwd``.  Returns the
     gradients in ``GRAD_NAMES`` (fold) or ``GRAD_NAMES_PREGATHERED`` order
@@ -401,6 +408,13 @@ def _launch_bwd(entry, src, we, be, pxj, pxi, senders, rowptr, *tail_and_g):
     wgrad = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
     partial = torch.empty(n_blocks, sum(sizes), dtype=torch.float32,
                           device=dev)
+    # width 128: each h_k and each layer's output gradient, one (E, H) plane
+    # each (``bwd_scratch_planes``), written and read back once, then the
+    # LayerNorm pass's block partials (two blocks per SM, 2 H floats each)
+    scratch = (torch.empty(bwd_scratch_planes(entry, l1) * E * h
+                           + 2 * n_blocks * 2 * h, dtype=torch.float32,
+                           device=dev)
+               if h == 128 else None)
     fn = cuda_build.function(BWD, _ARGTYPES[BWD])
     w_rest, b_rest, w_out, b_out, ln_s, _ = tail
     with torch.cuda.device(dev):
@@ -410,8 +424,8 @@ def _launch_bwd(entry, src, we, be, pxj, pxi, senders, rowptr, *tail_and_g):
             _ptr(senders), rowptr.data_ptr(), w_rest.data_ptr(),
             b_rest.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
             ln_s.data_ptr(), g.data_ptr(), d_src.data_ptr(), _ptr(d_pxj),
-            d_pxi.data_ptr(), wgrad.data_ptr(), partial.data_ptr(), n, E, ce,
-            h, c, l1, ENTRY[entry], n_blocks, stream)
+            d_pxi.data_ptr(), wgrad.data_ptr(), partial.data_ptr(),
+            _ptr(scratch), n, E, ce, h, c, l1, ENTRY[entry], n_blocks, stream)
     if err != 0:
         raise RuntimeError(
             f"fused_edge_tail_agg_bwd launch failed: cudaError {err}")

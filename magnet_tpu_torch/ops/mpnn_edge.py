@@ -173,6 +173,12 @@ def _launch_fwd(src, pr, w, b, senders, rowptr):
     return out
 
 
+def bwd_blocks(dev) -> int:
+    """Rows of the backward's partial weight gradients: one per block of
+    its persistent grid, two blocks per SM."""
+    return 2 * torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def _launch_bwd(src, pr, w, b, senders, rowptr, g):
     n, e, h = _check(src, pr, w, b, senders, rowptr)
     _check_cuda(src, h)
@@ -182,7 +188,7 @@ def _launch_bwd(src, pr, w, b, senders, rowptr, g):
                          f"on {src.device}")
     dev = src.device
     gather = senders is not None
-    n_blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_blocks = bwd_blocks(dev)
     # the kernel adds into the node tables with atomics; d_h0 it writes
     d_pr = torch.zeros(n, h, dtype=torch.float32, device=dev)
     d_src = torch.zeros_like(src) if gather else torch.empty_like(src)
