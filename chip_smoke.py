@@ -126,11 +126,13 @@ def cuda_ms(fn, reps: int) -> float:
 def compare(got, want, rtol, atol) -> dict:
     got, want = got.double(), want.double()
     err = (got - want).abs()
+    bound = atol + rtol * want.abs()
     return {
         "max_abs_err": float(err.max()),
         "max_rel_err": float((err / want.abs().clamp_min(1e-30)).max()),
+        "max_err_over_bound": float((err / bound).max()),
         "rtol": rtol, "atol": atol,
-        "ok": bool((err <= atol + rtol * want.abs()).all()),
+        "ok": bool((err <= bound).all()),
     }
 
 
@@ -193,9 +195,11 @@ def tc_bound(b: dict) -> dict:
 
 
 def ptxas_lines(lib) -> list[str]:
+    """ptxas's report of each kernel of a library: its name, registers,
+    spills."""
     report = lib.parent / f"{lib.stem}.ptxas.txt"
     return [ln.strip() for ln in report.read_text().splitlines()
-            if "registers" in ln or "spill" in ln]
+            if "registers" in ln or "spill" in ln or "entry function" in ln]
 
 
 def timed(fn) -> float:
@@ -527,6 +531,30 @@ def mpnn_bound(kernel: str, gather: bool, graph, h) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
+def tile_edges_graph(te: int, seed: int):
+    """A graph whose edges meet the tiled forward kernels' tiles of ``te``
+    consecutive edges in every way their receiver sums must handle:
+    receiver 3 takes 3 te + 7 edges from mid-tile (it spans four tiles);
+    receiver 5 ends exactly on a tile boundary, with receivers of degree 0
+    on both sides of it (6, 7 and 9); receiver 8 fills a tile; and the edge
+    count is one past a multiple of te.  Built from an explicit edge list,
+    since radius_graph caps the degree; senders drawn from a seed."""
+    from magnet_tpu_torch.ops.graph import csr_from_edges
+
+    rng = np.random.default_rng(seed)
+    deg = [0, 5, 0, 3 * te + 7, 0]
+    deg.append(-sum(deg) % te or te)
+    deg += [0, 0, te, 0]
+    deg += list(rng.integers(1, 2 * te, 12))
+    deg.append((1 - sum(deg)) % te or te)
+    deg += [0, 0]
+    n = len(deg)
+    receivers = np.repeat(np.arange(n), deg)
+    senders = rng.integers(0, n, receivers.size)
+    return csr_from_edges(torch.from_numpy(senders).int(),
+                          torch.from_numpy(receivers).int(), n)
+
+
 def grid_coords(batch_size: int, width: int) -> np.ndarray:
     """(B, W*W, 2) coordinates of the datamodule's regular 2D mesh."""
     x = (np.arange(width) * (1.0 / width)).astype(np.float32)
@@ -578,6 +606,8 @@ def mpnn_phases(dev, data, groups) -> tuple[int, list, dict]:
     cases = (("path_shape", graph, mpnn_operands(graph, h, 11, dev)),
              ("small_case", small_graph,
               mpnn_operands(small_graph, h, 12, dev)))
+    # the forward's tiles of FWD_TILE edges, crossed in every way
+    tile_graph = tile_edges_graph(me.FWD_TILE, seed=15).to(dev)
 
     def gathered(gr, ops):
         """The pre-gathered entry's operands from the gather entry's."""
@@ -589,7 +619,9 @@ def mpnn_phases(dev, data, groups) -> tuple[int, list, dict]:
     if "mpnn_kernels" in groups:
         # 7. the two forward entries vs plain
         fwd = {"gather": {}, "pregathered": {}}
-        for label, gr, ops in cases:
+        for label, gr, ops in cases + (
+                ("tile_edges", tile_graph,
+                 mpnn_operands(tile_graph, h, 14, dev)),):
             got = me.fused_mpnn_edge_agg2r(*ops, gr.senders, gr.rowptr)
             torch.cuda.synchronize()
             want = me.fused_mpnn_edge_agg2r_plain(*ops, gr.senders, gr.rowptr)
@@ -606,25 +638,51 @@ def mpnn_phases(dev, data, groups) -> tuple[int, list, dict]:
                         *ops, gr.senders, gr.rowptr)[17] == 0).all())}
                 fwd["pregathered"]["degree0_row_zero"] = {
                     "ok": bool((got[17] == 0).all())}
+            if label == "tile_edges":
+                zero = gr.degree == 0
+                fwd["gather"]["tile_edges"]["degree0_rows_zero"] = bool(
+                    (me.fused_mpnn_edge_agg2r(*ops, gr.senders, gr.rowptr)
+                     [zero] == 0).all())
+                fwd["pregathered"]["tile_edges"]["degree0_rows_zero"] = bool(
+                    (got[zero] == 0).all())
+                for entry in fwd.values():
+                    entry["tile_edges"].update(
+                        n_edge=gr.n_edge, tile=me.FWD_TILE,
+                        max_degree=int(gr.degree.max()),
+                        n_degree0=int(zero.sum()))
+                    entry["tile_edges"]["ok"] &= entry["tile_edges"][
+                        "degree0_rows_zero"]
         ops = cases[0][2]
         pre = gathered(graph, ops)
+        # no atomics: two launches give the same bits
+        fwd["gather"]["bits_equal_run_to_run"] = {"ok": torch.equal(
+            me.fused_mpnn_edge_agg2r(*ops, graph.senders, graph.rowptr),
+            me.fused_mpnn_edge_agg2r(*ops, graph.senders, graph.rowptr))}
+        fwd["pregathered"]["bits_equal_run_to_run"] = {"ok": torch.equal(
+            me.fused_mpnn_edge_agg(*pre), me.fused_mpnn_edge_agg(*pre))}
         times = {
             "gather": {
                 "ms": cuda_ms(lambda: me.fused_mpnn_edge_agg2r(
                     *ops, graph.senders, graph.rowptr), reps=20),
                 "plain_ms": cuda_ms(lambda: me.fused_mpnn_edge_agg2r_plain(
                     *ops, graph.senders, graph.rowptr), reps=5),
-                **mpnn_bound("fwd", True, graph, h)},
+                **mpnn_bound("fwd", True, graph, h),
+                **tc_bound(mpnn_bound("fwd", True, graph, h))},
             "pregathered": {
                 "ms": cuda_ms(lambda: me.fused_mpnn_edge_agg(*pre), reps=20),
                 "plain_ms": cuda_ms(
                     lambda: me.fused_mpnn_edge_agg_plain(*pre), reps=5),
-                **mpnn_bound("fwd", False, graph, h)}}
+                **mpnn_bound("fwd", False, graph, h),
+                **tc_bound(mpnn_bound("fwd", False, graph, h))}}
+        for t in times.values():
+            t["share_of_tc_bound"] = t["tc_bound_ms"] / t["ms"]
         fwd_ok = all(v["ok"] for e in fwd.values() for v in e.values())
         emit({"phase": "mpnn_kernel", **shape,
               "small_case_max_degree": int(small_graph.degree.max()),
               "tolerance": {"rtol": MPNN_RTOL, "atol": MPNN_ATOL},
-              "vs_plain": fwd, "times": times, "library_ms": None,
+              "vs_plain": fwd, "times": times,
+              "ptxas": ptxas_lines(cuda_build.build("fused_mpnn_edge_agg")),
+              "library_ms": None,
               "library_ms_reason": "no single PyTorch call computes the "
                                    "fused function", "ok": fwd_ok})
         if not fwd_ok:
@@ -721,10 +779,8 @@ def mpnn_phases(dev, data, groups) -> tuple[int, list, dict]:
                 "ms": tt[entry]["ms"], "plain_ms": tt[entry]["plain_ms"],
                 "bound_ms": tt[entry]["bound_ms"],
                 "bound_by": tt[entry]["bound_by"], "library_ms": None,
-                **({"tc_bound_ms": tt[entry]["tc_bound_ms"],
-                    "tc_bound_by": tt[entry]["tc_bound_by"]}
-                   if kern == "bwd" else {}),
-                "ok": True}
+                "tc_bound_ms": tt[entry]["tc_bound_ms"],
+                "tc_bound_by": tt[entry]["tc_bound_by"], "ok": True}
 
     if "mpnn_paths" in groups:
         # 9. the MPNN-2D slice: evaluate() at full width on seeded
@@ -1012,6 +1068,7 @@ def cnn2d_phases(dev, data, groups) -> tuple[int, list, dict]:
     from magnet_tpu_torch.data.loader import DataLoader
     from magnet_tpu_torch.eval import evaluate
     from magnet_tpu_torch.models.factory import create_model
+    from magnet_tpu_torch.ops import cuda_build
     from magnet_tpu_torch.ops import fused_edge as fe
     from magnet_tpu_torch.ops import segment as seg
     from magnet_tpu_torch.ops.graph import csr_from_edges, radius_graph
@@ -1027,7 +1084,8 @@ def cnn2d_phases(dev, data, groups) -> tuple[int, list, dict]:
     model = create_model("magnet_cnn_2d", hp, device=dev, seed=0)
 
     # 11. #2 vs plain on the datamodule's full training graph (32 samples
-    # of 1,056 nodes), and on a small graph with a degree-0 node
+    # of 1,056 nodes), on a small graph with a degree-0 node, and on a graph
+    # that crosses the forward's tiles in every way
     graph = cnn2d_graph(model, CNN2D_KERNEL_BATCH, seed=7)
     out_deg = torch.bincount(graph.senders.long(), minlength=graph.n_node)
     shape = {"n_node": graph.n_node, "n_edge": graph.n_edge, "lane": graph.lane,
@@ -1042,26 +1100,46 @@ def cnn2d_phases(dev, data, groups) -> tuple[int, list, dict]:
     small = csr_from_edges(s_, r_, 200).to(dev)
     ops = pregathered_operands(graph, h, c, l1, seed=21, dev=dev)
     ops_s = pregathered_operands(small, h, c, 1, seed=22, dev=dev)
+    tiles = tile_edges_graph(fe.FWD_TILE, seed=25).to(dev)
+    ops_t = pregathered_operands(tiles, h, c, l1, seed=24, dev=dev)
     fwd = {}
-    for label, o in (("train_shape", ops), ("small_case", ops_s)):
+    for label, o in (("train_shape", ops), ("small_case", ops_s),
+                     ("tile_edges", ops_t)):
         got = fe.fused_edge_tail_agg_pregathered(*o)
         torch.cuda.synchronize()
         fwd[label] = compare(got, fe.fused_edge_tail_agg_pregathered_plain(*o),
                              KERNEL_RTOL, KERNEL_ATOL)
-    fwd["small_case"]["degree0_row_zero"] = bool((got[17] == 0).all())
-    fwd["small_case"]["l1"] = 1
+        if label == "small_case":
+            fwd[label]["degree0_row_zero"] = bool((got[17] == 0).all())
+            fwd[label]["l1"] = 1
+    zero = tiles.degree == 0
+    fwd["tile_edges"].update(
+        n_edge=tiles.n_edge, tile=fe.FWD_TILE,
+        max_degree=int(tiles.degree.max()), n_degree0=int(zero.sum()),
+        degree0_rows_zero=bool((got[zero] == 0).all()))
+    # no atomics: two launches give the same bits
+    fwd["bits_equal_run_to_run"] = torch.equal(
+        fe.fused_edge_tail_agg_pregathered(*ops),
+        fe.fused_edge_tail_agg_pregathered(*ops))
     fwd_ms = cuda_ms(lambda: fe.fused_edge_tail_agg_pregathered(*ops), reps=50)
     fwd_plain_ms = cuda_ms(
         lambda: fe.fused_edge_tail_agg_pregathered_plain(*ops), reps=20)
-    bnd_fwd = pregathered_bound("fwd", graph, h, c, l1)
+    bnd_fwd = {**pregathered_bound("fwd", graph, h, c, l1),
+               **tc_bound(pregathered_bound("fwd", graph, h, c, l1))}
     kernel_ok = (shape["lane"] == "pregathered" and fwd["train_shape"]["ok"]
                  and fwd["small_case"]["ok"]
-                 and fwd["small_case"]["degree0_row_zero"])
+                 and fwd["small_case"]["degree0_row_zero"]
+                 and fwd["tile_edges"]["ok"]
+                 and fwd["tile_edges"]["degree0_rows_zero"]
+                 and fwd["bits_equal_run_to_run"])
     emit({"phase": "cnn2d_kernel", **shape,
           "small_case_max_degree": int(small.degree.max()),
           "tolerance": {"rtol": KERNEL_RTOL, "atol": KERNEL_ATOL},
           "vs_plain": fwd, "ms": fwd_ms, "plain_ms": fwd_plain_ms,
-          "library_ms": None, **bnd_fwd, "ok": kernel_ok})
+          "library_ms": None, **bnd_fwd,
+          "share_of_tc_bound": bnd_fwd["tc_bound_ms"] / fwd_ms,
+          "ptxas": ptxas_lines(cuda_build.build("fused_edge_tail_agg")),
+          "ok": kernel_ok})
     if not kernel_ok:
         return 10, [], {}
 
@@ -1350,6 +1428,8 @@ def cnn2d_phases(dev, data, groups) -> tuple[int, list, dict]:
         "launches": fit_counts["pregathered"], "max_abs_err": worst(fwd),
         "ms": fwd_ms, "plain_ms": fwd_plain_ms,
         "bound_ms": bnd_fwd["bound_ms"], "bound_by": bnd_fwd["bound_by"],
+        "tc_bound_ms": bnd_fwd["tc_bound_ms"],
+        "tc_bound_by": bnd_fwd["tc_bound_by"],
         "library_ms": None, "ok": train_ok}, {
         "name": "fused_edge_tail_agg_pregathered_bwd", "route": "cuda",
         "source": "magnet_tpu_torch/csrc/fused_edge_tail_agg_bwd.cu",

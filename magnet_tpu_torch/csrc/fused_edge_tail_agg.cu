@@ -29,9 +29,9 @@
 // (32, 64, 32) (MAgNet[CNN]) and (128, 128, 128) (MAgNet[GNN]);
 // pregathered (H, C) = (64, 32) and (128, 128); pe (H, C) = (128, 128).
 //
-// Design at width 64 (fold, pregathered).  Hopper gathers natively, so
-// none of the TPU's one-hot gather matmuls, sender-tile windows or
-// live-chunk lists carry over:
+// Design of the fold entry at width 64.  Hopper gathers natively, so none
+// of the TPU's one-hot gather matmuls, sender-tile windows or live-chunk
+// lists carry over:
 //   * all weights sit in dynamic shared memory, loaded once per block; the
 //     grid is persistent (a few blocks per SM) so the load is paid ~400
 //     times per launch, not once per receiver;
@@ -42,23 +42,49 @@
 //     memory, so the (E, H) activations never reach device memory;
 //   * the receiver sum is a warp butterfly over the lanes, with no
 //     atomics, since CSR keeps a receiver's edges together.
-//
 // What bounds it on an H100: at the slice's shapes (E ~ 186.6k edges,
 // Ce = 32, H = 64, L1 = 3, C = 32) one launch does E * 16,384
 // multiply-adds ~ 6.1 GFLOP on the f32 CUDA cores, against ~25 MB of
-// input (mostly e0), so it is bound by operations, not bytes.  The
-// pregathered entry skips the (Ce x H) product (14,336 multiply-adds per
-// edge remain) but reads an (E, H) h0 instead of e0, twice the bytes; at the
-// MAgNet[CNN] 2D training shape (E ~ 299.8k) that is ~77 MB against
-// 8.6 GFLOP, still bound by operations.  Each
+// input (mostly e0), so it is bound by operations, not bytes.  Each
 // float4 weight load feeds four FMAs of a lane, so the shared-memory pipe
-// and the FMA pipe are both near their limit; wgmma/TMA are left for a
-// later change.
+// and the FMA pipe are both near their limit.
 //
-// Design at width 128 (all three entries).  The width-64 design does not
-// scale: the
-// f32 tail weights alone are 258-322 KB (the block's limit is 227 KB) and
-// a lane would hold 256 live activations.  So the products are tiled:
+// Design of the pregathered entry at width 64 (namespace w64).  The fold
+// design above idled ~72% of its lanes here: MAgNet[CNN] 2D's training
+// graph (a 32 x 32 grid and 32 queries a sample) has a mean in-degree of
+// 8.9, and a lane held ~200 live floats.  The pregathered entry skips the
+// (Ce x H) product (14,336 multiply-adds per edge remain) and reads an
+// (E, H) h0: at E = 299,894 that is 8.6 GFLOP against ~90 MB.  Issued as
+// three TF32 products per f32 product on the tensor cores (tf32x3,
+// csrc/tile_mm.cuh) it is bound by operations, 0.052 ms at 495 TFLOP/s,
+// against 0.027 ms of bytes.  So:
+//   * a persistent block of 256 threads (8 warps) walks consecutive tiles of
+//     TE = 64 CSR edges, whatever the degrees; warps 0 and 1 find the next
+//     tile's receivers from the last receiver of this one;
+//   * every weight (three 64 x 64, one 64 x 32: 56 KB, transposed and
+//     XOR-swizzled) stays in shared memory for the whole launch; the tile's
+//     h0 and pxi rows arrive by cp.async into staging buffers that are free
+//     again once the first layer's input is formed, so the next tile's rows
+//     load while this one's layers run;
+//   * each layer is a tf32x3 product of the 64-row tile (mm_rows64: a warp
+//     owns 32 rows and 16 or 8 columns; fragments by ldmatrix, split by
+//     split_fast), written back over the tile's activations; LayerNorm
+//     takes four threads an edge;
+//   * 108,160 bytes of shared memory at L1 = 3 and at most 128 registers a
+//     thread: two blocks share an SM;
+//   * the receiver sums as at width 128, below (csr_tile): deterministic,
+//     partial rows for receivers that cross a tile, no atomics.
+// What still holds it (measured, H100): as the MPNN forward's (csrc/
+// fused_mpnn_edge_agg.cu), the instructions around each mma and the
+// latency that 16 warps an SM leave exposed, with four barriers a layer.
+// The first layer's input is one step of its own (first_input), so that
+// the fold entry's e0 . W_e + b_e + pxj[s] + pxi[i] can later take its
+// place as one more product.
+//
+// Design at width 128 (all three entries).  The width-64 fold design does
+// not scale: the f32 tail weights alone are 258-322 KB (the block's limit
+// is 227 KB) and a lane would hold 256 live activations.  So the products
+// are tiled:
 //   * a block of 256 threads (16 x 16) owns a tile of 64 consecutive CSR
 //     edges; each edge finds its receiver by a binary search in rowptr;
 //   * the tile's activations live in one (64 x 129)-float shared buffer
@@ -67,11 +93,11 @@
 //     thread computes a 4 x 8 register tile of the product, which goes
 //     back into the activation buffer after a barrier; ~99 KB a block,
 //     two blocks per SM;
-//   * the receiver sum runs over each run of equal receivers in CSR order:
-//     a receiver wholly inside the tile is written directly; a receiver
-//     that crosses a tile boundary leaves one partial row per tile, and a
-//     second small kernel adds those in tile order.  No atomics: the
-//     result is the same from run to run.
+//   * the receiver sum runs over each run of equal receivers in CSR order
+//     (csr_tile, csrc/tile_mm.cuh): a receiver wholly inside the tile is
+//     written directly; a receiver that crosses a tile boundary leaves one
+//     partial row per tile, and a second small kernel adds those in tile
+//     order.  No atomics: the result is the same from run to run.
 // Bound at MAgNet[GNN]'s eval batch (84.3k LR u HR edges, L1 = 3): fold
 // 81,920 multiply-adds per edge = 13.8 GFLOP, 0.206 ms at the 67 TFLOP/s
 // f32 rate; pe 65,536 per edge, 0.165 ms against 43 MB of pe (0.013 ms):
@@ -114,14 +140,14 @@ __device__ __forceinline__ void axpy_row(float (&acc)[M], float a,
   }
 }
 
-// Offsets, in floats, of the weights in dynamic shared memory; the
-// pregathered entry has no W_e and no b_e.
-template <int CE, int H, int C, bool FOLD>
+// Offsets, in floats, of the fold entry's weights in dynamic shared
+// memory.
+template <int CE, int H, int C>
 struct Smem {
   static constexpr int we = 0;                     // (CE, H)
-  static constexpr int wo = we + (FOLD ? CE * H : 0);  // (H, C)
+  static constexpr int wo = we + CE * H;           // (H, C)
   static constexpr int be = wo + H * C;            // (H,)
-  static constexpr int bo = be + (FOLD ? H : 0);   // (C,)
+  static constexpr int bo = be + H;                // (C,)
   static constexpr int ls = bo + C;                // (C,)
   static constexpr int lb = ls + C;                // (C,)
   static constexpr int wr = lb + C;                // (L1, H, H), then (L1, H)
@@ -130,7 +156,7 @@ struct Smem {
   }
 };
 
-template <int CE, int H, int C, bool FOLD>
+template <int CE, int H, int C>
 __global__ void __launch_bounds__(kThreads)
 fused_edge_tail_agg_kernel(const float* __restrict__ src,
                            const float* __restrict__ we,
@@ -149,7 +175,7 @@ fused_edge_tail_agg_kernel(const float* __restrict__ src,
                            int l1) {
   static_assert(CE % 4 == 0 && H % 4 == 0 && C % 4 == 0,
                 "widths must be multiples of 4 (float4 rows)");
-  using S = Smem<CE, H, C, FOLD>;
+  using S = Smem<CE, H, C>;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* s_we = smem + S::we;
@@ -160,10 +186,8 @@ fused_edge_tail_agg_kernel(const float* __restrict__ src,
   float* s_lb = smem + S::lb;
   float* s_wr = smem + S::wr;
   float* s_br = s_wr + l1 * H * H;
-  if (FOLD) {
-    copy_to_smem(s_we, we, CE * H);
-    copy_to_smem(s_be, be, H);
-  }
+  copy_to_smem(s_we, we, CE * H);
+  copy_to_smem(s_be, be, H);
   copy_to_smem(s_wo, w_out, H * C);
   copy_to_smem(s_bo, b_out, C);
   copy_to_smem(s_ls, ln_s, C);
@@ -190,41 +214,27 @@ fused_edge_tail_agg_kernel(const float* __restrict__ src,
       if (e < end) {
         float h[H];
         const float4* pi = reinterpret_cast<const float4*>(pxi + (size_t)i * H);
-        if (FOLD) {
-          // z = b_e + pxj[sender] + pxi[receiver] + e0[e] . W_e
-          const float4* pj =
-              reinterpret_cast<const float4*>(pxj + (size_t)senders[e] * H);
-          const float4* b4 = reinterpret_cast<const float4*>(s_be);
+        // z = b_e + pxj[sender] + pxi[receiver] + e0[e] . W_e
+        const float4* pj =
+            reinterpret_cast<const float4*>(pxj + (size_t)senders[e] * H);
+        const float4* b4 = reinterpret_cast<const float4*>(s_be);
 #pragma unroll
-          for (int q = 0; q < H / 4; ++q) {
-            const float4 a = __ldg(pj + q), b = __ldg(pi + q), c = b4[q];
-            h[4 * q + 0] = a.x + b.x + c.x;
-            h[4 * q + 1] = a.y + b.y + c.y;
-            h[4 * q + 2] = a.z + b.z + c.z;
-            h[4 * q + 3] = a.w + b.w + c.w;
-          }
-          const float4* pe =
-              reinterpret_cast<const float4*>(src + (size_t)e * CE);
+        for (int q = 0; q < H / 4; ++q) {
+          const float4 a = __ldg(pj + q), b = __ldg(pi + q), c = b4[q];
+          h[4 * q + 0] = a.x + b.x + c.x;
+          h[4 * q + 1] = a.y + b.y + c.y;
+          h[4 * q + 2] = a.z + b.z + c.z;
+          h[4 * q + 3] = a.w + b.w + c.w;
+        }
+        const float4* pe =
+            reinterpret_cast<const float4*>(src + (size_t)e * CE);
 #pragma unroll
-          for (int k4 = 0; k4 < CE / 4; ++k4) {
-            const float4 v = __ldg(pe + k4);
-            axpy_row<H>(h, v.x, s_we + (4 * k4 + 0) * H);
-            axpy_row<H>(h, v.y, s_we + (4 * k4 + 1) * H);
-            axpy_row<H>(h, v.z, s_we + (4 * k4 + 2) * H);
-            axpy_row<H>(h, v.w, s_we + (4 * k4 + 3) * H);
-          }
-        } else {
-          // z = h0[e] + pxi[receiver]
-          const float4* ph =
-              reinterpret_cast<const float4*>(src + (size_t)e * H);
-#pragma unroll
-          for (int q = 0; q < H / 4; ++q) {
-            const float4 a = __ldg(ph + q), b = __ldg(pi + q);
-            h[4 * q + 0] = a.x + b.x;
-            h[4 * q + 1] = a.y + b.y;
-            h[4 * q + 2] = a.z + b.z;
-            h[4 * q + 3] = a.w + b.w;
-          }
+        for (int k4 = 0; k4 < CE / 4; ++k4) {
+          const float4 v = __ldg(pe + k4);
+          axpy_row<H>(h, v.x, s_we + (4 * k4 + 0) * H);
+          axpy_row<H>(h, v.y, s_we + (4 * k4 + 1) * H);
+          axpy_row<H>(h, v.z, s_we + (4 * k4 + 2) * H);
+          axpy_row<H>(h, v.w, s_we + (4 * k4 + 3) * H);
         }
 #pragma unroll
         for (int k = 0; k < H; ++k) h[k] = fmaxf(h[k], 0.f);
@@ -285,22 +295,24 @@ fused_edge_tail_agg_kernel(const float* __restrict__ src,
 constexpr int kMaxDevices = 64;
 constexpr int kMaxCachedL1 = 16;
 
-// The persistent grid's size (SMs x resident blocks per SM) for `l1` tail
-// layers on the current device.  The device queries, the occupancy query
-// and the shared-memory opt-in run once per (device, l1) and entry; later
-// launches only read the cache.  The opt-in is always the device's
+using GridCache = std::atomic<int>[kMaxDevices][kMaxCachedL1 + 1];
+
+// The persistent grid's size (SMs x resident blocks per SM) of `kernel`
+// (blocks of `threads`) for `l1` tail layers on the current device.  The
+// device queries, the occupancy query and the shared-memory opt-in run
+// once per (device, l1) and kernel, whose `cache` (zeros: unset) keeps the
+// result; later launches only read it.  The opt-in is always the device's
 // maximum, so a later call for a smaller l1 never lowers it below what a
 // larger one needs.
-template <int CE, int H, int C, bool FOLD>
-cudaError_t grid_cap(int l1, size_t smem, int* cap) {
-  static std::atomic<int> cache[kMaxDevices][kMaxCachedL1 + 1];  // 0: unset
+template <class Kernel>
+cudaError_t grid_cap(Kernel kernel, int threads, GridCache& cache, int l1,
+                     size_t smem, int* cap) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   const bool cached = device < kMaxDevices && l1 <= kMaxCachedL1;
   if (cached && (*cap = cache[device][l1].load(std::memory_order_relaxed)) > 0)
     return cudaSuccess;
-  auto kernel = fused_edge_tail_agg_kernel<CE, H, C, FOLD>;
   int optin = 0, n_sm = 0, per_sm = 0;
   if ((err = cudaDeviceGetAttribute(
            &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device)) !=
@@ -315,7 +327,7 @@ cudaError_t grid_cap(int l1, size_t smem, int* cap) {
                                     device)) != cudaSuccess)
     return err;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, kernel, kThreads, smem)) != cudaSuccess)
+           &per_sm, kernel, threads, smem)) != cudaSuccess)
     return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   *cap = n_sm * per_sm;
@@ -323,21 +335,23 @@ cudaError_t grid_cap(int l1, size_t smem, int* cap) {
   return cudaSuccess;
 }
 
-template <int CE, int H, int C, bool FOLD>
+template <int CE, int H, int C>
 int launch(const float* src, const float* we, const float* be,
            const float* pxj, const float* pxi, const int* senders,
            const int* rowptr, const float* w_rest, const float* b_rest,
            const float* w_out, const float* b_out, const float* ln_s,
            const float* ln_b, float* out, int n_nodes, int n_edges, int l1,
            cudaStream_t stream) {
-  const size_t smem = Smem<CE, H, C, FOLD>::bytes(l1);
+  static GridCache cache;
+  const size_t smem = Smem<CE, H, C>::bytes(l1);
   int cap = 0;
-  const cudaError_t err = grid_cap<CE, H, C, FOLD>(l1, smem, &cap);
+  const cudaError_t err = grid_cap(fused_edge_tail_agg_kernel<CE, H, C>,
+                                   kThreads, cache, l1, smem, &cap);
   if (err != cudaSuccess) return (int)err;
   if (n_nodes == 0) return (int)cudaSuccess;
   int blocks = (n_nodes + kWarps - 1) / kWarps;
   if (blocks > cap) blocks = cap;
-  fused_edge_tail_agg_kernel<CE, H, C, FOLD>
+  fused_edge_tail_agg_kernel<CE, H, C>
       <<<blocks, kThreads, smem, stream>>>(src, we, be, pxj, pxi, senders,
                                            rowptr, w_rest, b_rest, w_out,
                                            b_out, ln_s, ln_b, out, n_nodes,
@@ -462,44 +476,11 @@ edge_tail_kernel(const float* __restrict__ src, const float* __restrict__ we,
   }
   __syncthreads();
 
-  // the receiver sums, one thread per column, over each run of equal
-  // receivers in CSR order.  A receiver whose edges all lie in this tile
-  // is written; one that crosses a tile boundary leaves its partial row in
-  // part: row 2 t + 1 if it starts in tile t (the tile's last run), else
-  // row 2 t (the tile's first run)
-  if (tid < kW) {
-    const int c = tid;
-    int e = 0;
-    while (e < n_valid) {
-      const int r = s_rcv[e];
-      float s = 0.f;
-      for (; e < n_valid && s_rcv[e] == r; ++e) s += s_act[e * kLd + c];
-      const bool starts_here = rowptr[r] >= base;
-      const bool ends_here = min(rowptr[r + 1], n_edges) <= base + kTE;
-      if (starts_here && ends_here)
-        out[(size_t)r * kW + c] = s;
-      else
-        part[(size_t)(2 * blockIdx.x + (starts_here ? 1 : 0)) * kW + c] = s;
-    }
-  }
-}
-
-// out[r] for every receiver r whose edges cross a tile boundary: its
-// partial rows added in tile order.  Block b handles the boundary at edge
-// kTE (b + 1), which owns the receivers that cross it first.
-__global__ void __launch_bounds__(kW)
-cross_tile_sum_kernel(const int* __restrict__ rowptr,
-                      const float* __restrict__ part, float* __restrict__ out,
-                      int n_nodes, int n_edges) {
-  const int e = (blockIdx.x + 1) * kTE;
-  const int r = tile128::receiver_of(rowptr, n_nodes, e);
-  const int beg = rowptr[r];
-  if (beg >= e || beg < e - kTE) return;
-  const int t0 = beg / kTE, t1 = (min(rowptr[r + 1], n_edges) - 1) / kTE;
-  const int c = threadIdx.x;
-  float s = part[(size_t)(2 * t0 + 1) * kW + c];
-  for (int t = t0 + 1; t <= t1; ++t) s += part[(size_t)(2 * t) * kW + c];
-  out[(size_t)r * kW + c] = s;
+  // the receiver sums over each run of equal receivers; partial rows for
+  // the receivers that cross a tile boundary
+  csr_tile::receiver_sums<kTE, kW>(
+      [&](int e, int c) -> float& { return s_act[e * kLd + c]; }, s_rcv,
+      rowptr, n_edges, blockIdx.x, n_valid, out, part);
 }
 
 template <Entry E>
@@ -531,12 +512,254 @@ int launch(const float* src, const float* we, const float* be,
       ln_s, ln_b, out, part, n_nodes, n_edges, l1);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if (n_tiles > 1)
-    cross_tile_sum_kernel<<<n_tiles - 1, kW, 0, stream>>>(rowptr, part, out,
-                                                          n_nodes, n_edges);
+    csr_tile::cross_tile_sum_kernel<kTE, kW>
+        <<<n_tiles - 1, kW, 0, stream>>>(rowptr, part, out, n_nodes,
+                                         n_edges);
   return (int)cudaGetLastError();
 }
 
 }  // namespace w128
+
+namespace w64 {
+
+using tile128::Entry;
+using tile128::kPregathered;
+constexpr int kH = 64;          // hidden width
+constexpr int kC = 32;          // output width
+constexpr int kTE = 64;         // edges per tile
+constexpr int kThreads = 256;   // 8 warps
+
+// Offsets, in floats, into dynamic shared memory: the tiles, then the
+// weights, all XOR-swizzled (tf32x3::swz_at); 108,160 bytes at L1 = 3.
+struct Layout {
+  static constexpr int tile = kTE * kH;      // a (kTE, kH) tile
+  static constexpr int src = 0;              // the tile's h0 rows
+  static constexpr int pxi = src + tile;     // the tile's pxi rows
+  static constexpr int act = pxi + tile;     // activations, then y (kTE, kC)
+  static constexpr int rcv = act + tile;     // 2 x (kTE) int, two tiles
+  static constexpr int wo = rcv + 2 * kTE;   // (kC, kH): W_out transposed
+  static constexpr int bo = wo + kH * kC;    // (kC)
+  static constexpr int ls = bo + kC;         // (kC)
+  static constexpr int lb = ls + kC;         // (kC)
+  static constexpr int wr = lb + kC;         // L1 x (kH, kH) transposed,
+                                             // then (L1, kH)
+  static size_t bytes(int l1) {
+    return sizeof(float) * (size_t)(wr + l1 * (kH * kH + kH));
+  }
+};
+
+// dst <- the transposes of n_mat (kH x N) weights w, each an (N x kH)
+// XOR-swizzled tile (row n holds column n of its weight), so that
+// ldmatrix reads their fragments as it reads the activations'.
+template <int N>
+__device__ __forceinline__ void load_transposed(float* dst,
+                                                const float* __restrict__ w,
+                                                int n_mat) {
+  for (int k = threadIdx.x; k < n_mat * kH * N; k += kThreads) {
+    const int m = k / (kH * N), kk = (k / N) % kH, n = k % N;
+    dst[m * kH * N + tf32x3::swz_at<kH>(n, kk)] = __ldg(w + k);
+  }
+}
+
+// The first layer's input over the tile, act = relu(h0[e] + pxi[i]), from
+// the staging rows (zero past n_valid, and so zero in act).
+template <Entry E>
+__device__ __forceinline__ void first_input(float* s_act, const float* s_src,
+                                            const float* s_pxi) {
+  static_assert(E == kPregathered, "the width-64 tiled body: pregathered");
+  for (int k = threadIdx.x; k < kTE * kH / 4; k += kThreads) {
+    const int o = tf32x3::swz_at<kH>(k >> 4, (k & 15) * 4);
+    const float4 a = *reinterpret_cast<const float4*>(s_src + o);
+    const float4 b = *reinterpret_cast<const float4*>(s_pxi + o);
+    *reinterpret_cast<float4*>(s_act + o) =
+        make_float4(fmaxf(a.x + b.x, 0.f), fmaxf(a.y + b.y, 0.f),
+                    fmaxf(a.z + b.z, 0.f), fmaxf(a.w + b.w, 0.f));
+  }
+}
+
+// One dense layer over the tile: act (kTE, K) <- f(act . W + bias) as a
+// (kTE, N) tile, relu when RELU; W (K, N) in shared memory, transposed.
+// Every thread enters with the tile's activations written, and leaves with
+// the new ones written.
+template <int N, int K, bool RELU>
+__device__ __forceinline__ void layer(float* s_act, const float* s_w,
+                                      const float* s_bias) {
+  using namespace tf32x3;
+  constexpr int NI = N / 32;
+  const int w = threadIdx.x >> 5, m0 = 32 * (w & 1), n0 = (N / 4) * (w >> 1);
+  float acc[2][NI][4];
+#pragma unroll
+  for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float bias = s_bias[acc_col(n0 + 8 * ni, c)];
+      acc[0][ni][c] = bias;
+      acc[1][ni][c] = bias;
+    }
+  mm_rows64<N, K>(acc, LdsmRows<K>{s_act}, LdsmCols<K>{s_w});
+  __syncthreads();  // every warp has read the tile
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float v = acc[mi][ni][c];
+        s_act[swz_at<N>(acc_row(m0 + 16 * mi, c), acc_col(n0 + 8 * ni, c))] =
+            RELU ? fmaxf(v, 0.f) : v;
+      }
+  __syncthreads();
+}
+
+template <Entry E>
+__global__ void __launch_bounds__(kThreads, 2)
+edge_tail_kernel(const float* __restrict__ src, const float* __restrict__ pxi,
+                 const int* __restrict__ rowptr,
+                 const float* __restrict__ w_rest,
+                 const float* __restrict__ b_rest,
+                 const float* __restrict__ w_out,
+                 const float* __restrict__ b_out,
+                 const float* __restrict__ ln_s,
+                 const float* __restrict__ ln_b, float* __restrict__ out,
+                 float* __restrict__ part, int n_nodes, int n_edges, int l1) {
+  static_assert(kTE * 4 == kThreads, "LayerNorm: four threads per edge");
+  using L = Layout;
+  using namespace tf32x3;
+  extern __shared__ __align__(16) float w64_smem[];
+  float* s_src = w64_smem + L::src;
+  float* s_pxi = w64_smem + L::pxi;
+  float* s_act = w64_smem + L::act;
+  int* s_rcv = reinterpret_cast<int*>(w64_smem + L::rcv);
+  float* s_wo = w64_smem + L::wo;
+  float* s_bo = w64_smem + L::bo;
+  float* s_ls = w64_smem + L::ls;
+  float* s_lb = w64_smem + L::lb;
+  float* s_wr = w64_smem + L::wr;
+  float* s_br = s_wr + l1 * kH * kH;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  load_transposed<kH>(s_wr, w_rest, l1);
+  load_transposed<kC>(s_wo, w_out, 1);
+  for (int k = tid; k < l1 * kH; k += kThreads) s_br[k] = __ldg(b_rest + k);
+  if (tid < kC) {
+    s_bo[tid] = __ldg(b_out + tid);
+    s_ls[tid] = __ldg(ln_s + tid);
+    s_lb[tid] = __ldg(ln_b + tid);
+  }
+
+  // the block's tiles are consecutive, so each tile's receivers are found
+  // from the last receiver of the one before (warps 0 and 1, 32 edges each)
+  const int n_tiles = (n_edges + kTE - 1) / kTE;
+  const int per_block = (n_tiles + gridDim.x - 1) / gridDim.x;
+  const int t_beg = blockIdx.x * per_block;
+  const int t_end = min(n_tiles, t_beg + per_block);
+  auto indices = [&](int tile, int buf, int hint) {
+    const int base = tile * kTE + 32 * warp;
+    const int n_valid = min(32, n_edges - base);
+    const int rv =
+        tile128::warp_receiver(rowptr, n_nodes, base, n_valid, hint);
+    const int lane = tid & 31;
+    s_rcv[buf * kTE + 32 * warp + lane] = lane < n_valid ? rv : 0;
+  };
+  // the h0 and pxi rows of tile `tile`, whose receivers are in buffer
+  // `buf`: one committed group
+  auto gather = [&](int tile, int buf) {
+    const int base = tile * kTE, n_valid = min(kTE, n_edges - base);
+    const int* rcv = s_rcv + buf * kTE;
+    rows_async<kTE, kH>(s_src, 0, src, [&](int e) {
+      return e < n_valid ? src + (size_t)(base + e) * kH : nullptr;
+    });
+    rows_async<kTE, kH>(s_pxi, 0, pxi, [&](int e) {
+      return e < n_valid ? pxi + (size_t)rcv[e] * kH : nullptr;
+    });
+    cp_async_commit();
+  };
+
+  if (t_beg < t_end) {
+    if (warp < 2) indices(t_beg, 0, -1);
+    __syncthreads();
+    gather(t_beg, 0);
+  }
+  for (int tile = t_beg, it = 0; tile < t_end; ++tile, ++it) {
+    const int cur = it & 1, nxt = cur ^ 1;
+    const int n_valid = min(kTE, n_edges - tile * kTE);
+    const int* rcv = s_rcv + cur * kTE;
+    const bool more = tile + 1 < t_end;
+    cp_async_wait<0>();
+    __syncthreads();  // the rows are in; the last tile's sums are done
+
+    first_input<E>(s_act, s_src, s_pxi);
+    if (more && warp < 2) indices(tile + 1, nxt, rcv[n_valid - 1]);
+    __syncthreads();  // act written, the staging buffers free
+    if (more) gather(tile + 1, nxt);
+
+    for (int k = 0; k < l1; ++k)
+      layer<kH, kH, true>(s_act, s_wr + k * kH * kH, s_br + k * kH);
+    layer<kC, kH, false>(s_act, s_wo, s_bo);
+
+    // LayerNorm (two-pass variance), four threads per edge, in place
+    {
+      constexpr int CP = kC / 4;
+      const int e = tid >> 2, c0 = (tid & 3) * CP;
+      float v[CP];
+      float mu = 0.f;
+#pragma unroll
+      for (int c = 0; c < CP; ++c) {
+        v[c] = s_act[swz_at<kC>(e, c0 + c)];
+        mu += v[c];
+      }
+      mu += __shfl_xor_sync(0xffffffffu, mu, 1);
+      mu += __shfl_xor_sync(0xffffffffu, mu, 2);
+      mu *= 1.f / kC;
+      float var = 0.f;
+#pragma unroll
+      for (int c = 0; c < CP; ++c) {
+        const float d = v[c] - mu;
+        var = fmaf(d, d, var);
+      }
+      var += __shfl_xor_sync(0xffffffffu, var, 1);
+      var += __shfl_xor_sync(0xffffffffu, var, 2);
+      var *= 1.f / kC;
+      const float rstd = rsqrtf(var + kLnEps);
+#pragma unroll
+      for (int c = 0; c < CP; ++c)
+        s_act[swz_at<kC>(e, c0 + c)] =
+            (v[c] - mu) * rstd * s_ls[c0 + c] + s_lb[c0 + c];
+    }
+    __syncthreads();
+
+    csr_tile::receiver_sums<kTE, kC>(
+        [&](int e, int c) -> float& { return s_act[swz_at<kC>(e, c)]; },
+        rcv, rowptr, n_edges, tile, n_valid, out, part);
+  }
+}
+
+template <Entry E>
+int launch(const float* src, const float* pxi, const int* rowptr,
+           const float* w_rest, const float* b_rest, const float* w_out,
+           const float* b_out, const float* ln_s, const float* ln_b,
+           float* out, float* part, int n_nodes, int n_edges, int l1,
+           cudaStream_t stream) {
+  static GridCache cache;
+  const size_t smem = Layout::bytes(l1);
+  int cap = 0;
+  cudaError_t err =
+      grid_cap(edge_tail_kernel<E>, kThreads, cache, l1, smem, &cap);
+  if (err != cudaSuccess) return (int)err;
+  if (n_nodes == 0 || n_edges <= 0) return (int)cudaSuccess;
+  const int n_tiles = (n_edges + kTE - 1) / kTE;
+  const int blocks = n_tiles < cap ? n_tiles : cap;
+  edge_tail_kernel<E><<<blocks, kThreads, smem, stream>>>(
+      src, pxi, rowptr, w_rest, b_rest, w_out, b_out, ln_s, ln_b, out, part,
+      n_nodes, n_edges, l1);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (n_tiles > 1)
+    csr_tile::cross_tile_sum_kernel<kTE, kC>
+        <<<n_tiles - 1, kC, 0, stream>>>(rowptr, part, out, n_nodes,
+                                         n_edges);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace w64
 
 }  // namespace
 
@@ -548,8 +771,9 @@ extern "C" {
 // those four are ignored (they may be null); kPe, src is pe (n_edges, h),
 // pxj and senders are read, we and be ignored.  out (n_nodes, c) must
 // arrive zeroed; part is scratch of 2 * ceil(n_edges / 64) rows of c
-// floats for the width-128 builds (null otherwise).  The compiled builds
-// are those of the header; other widths return cudaErrorInvalidValue.
+// floats for the tiled builds, all but the width-64 fold entry (which
+// ignores it).  The compiled builds are those of the header; other widths
+// return cudaErrorInvalidValue.
 int fused_edge_tail_agg_f32(const float* src, const float* we, const float* be,
                             const float* pxj, const float* pxi,
                             const int* senders, const int* rowptr,
@@ -566,18 +790,18 @@ int fused_edge_tail_agg_f32(const float* src, const float* we, const float* be,
   const bool gathers = pxj != nullptr && senders != nullptr;
   if (entry == kFold && gathers && we != nullptr && be != nullptr) {
     if (ce == 32 && narrow)
-      return launch<32, 64, 32, true>(src, we, be, pxj, pxi, senders, rowptr,
-                                      w_rest, b_rest, w_out, b_out, ln_s,
-                                      ln_b, out, n_nodes, n_edges, l1, s);
+      return launch<32, 64, 32>(src, we, be, pxj, pxi, senders, rowptr,
+                                w_rest, b_rest, w_out, b_out, ln_s, ln_b,
+                                out, n_nodes, n_edges, l1, s);
     if (ce == 128 && wide && part != nullptr)
       return w128::launch<kFold>(src, we, be, pxj, pxi, senders, rowptr,
                                  w_rest, b_rest, w_out, b_out, ln_s, ln_b,
                                  out, part, n_nodes, n_edges, l1, s);
   } else if (entry == kPregathered) {
-    if (narrow)
-      return launch<32, 64, 32, false>(src, we, be, pxj, pxi, senders, rowptr,
-                                       w_rest, b_rest, w_out, b_out, ln_s,
-                                       ln_b, out, n_nodes, n_edges, l1, s);
+    if (narrow && part != nullptr)
+      return w64::launch<kPregathered>(src, pxi, rowptr, w_rest, b_rest,
+                                       w_out, b_out, ln_s, ln_b, out, part,
+                                       n_nodes, n_edges, l1, s);
     if (wide && part != nullptr)
       return w128::launch<kPregathered>(src, we, be, pxj, pxi, senders,
                                         rowptr, w_rest, b_rest, w_out, b_out,

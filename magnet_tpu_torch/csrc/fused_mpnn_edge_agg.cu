@@ -1,4 +1,5 @@
-// Fused MPNN message path, forward, f32.
+// Fused MPNN message path, forward, f32 operands, the product on the tensor
+// cores in error-compensated TF32.
 //
 // Replaces two TPU kernels of magnet_tpu/ops/pallas_kernels.py:
 //   GATHER = true   _mpnn2r_fwd_pallas (public entry fused_mpnn_edge_agg2r),
@@ -14,30 +15,47 @@
 //   out[i] = sum of h2 over the edges of i            (N, H) f32
 //
 // swish(z) = z * sigmoid(z).  The mean over the degree is the caller's.  A
-// receiver of degree 0 gets a zero row.
+// receiver of degree 0 gets a zero row; every edge range is clamped to the
+// E rows given.
 //
-// Design.  Hopper gathers natively, so none of the TPU's one-hot gather
-// matmuls, 128-row tiles, sender-tile windows or live-chunk lists carry
-// over:
-//   * W (H x H, 64 KB at H = 128) and b sit in dynamic shared memory, loaded
-//     once per block of a persistent grid;
-//   * one warp owns one receiver at a time; lane k runs edge rowptr[i] + k
-//     (a loop of 32-edge rounds covers any degree);
-//   * a lane keeps its edge's h1 (H floats) in registers and forms z2 in
-//     chunks of 32 output columns (H + 32 live floats, not 2 H), reading
-//     each weight row as float4 broadcasts from shared memory, so no (E, H)
-//     activation reaches device memory;
-//   * the receiver sum is a warp butterfly over the lanes, with no atomics,
-//     since CSR keeps a receiver's edges together; lane q keeps column
-//     32 c + q of chunk c.
+// What bounds it on an H100: H * H = 16,384 multiply-adds per edge.  Issued
+// as three TF32 products per f32 product (see csrc/tile_mm.cuh, tf32x3)
+// that is 6 E H^2 FLOP at 495 TFLOP/s: 0.104 ms at MPNN-2D's 524,256 edges
+// against 0.008 ms for the node tables read once and out written once
+// (GATHER; h0 read once, 0.08 ms, for the pre-gathered entry): bound by the
+// tensor cores' operations.
 //
-// What bounds it on an H100: H * H = 16,384 multiply-adds per edge on the
-// f32 CUDA cores (2 E H^2 FLOP) against pxj and pr read once (GATHER) or h0
-// read once: bound by operations for the gather entry at every degree above
-// ~1, and for the pre-gathered entry too (512 B per edge at 3.35 TB/s is
-// 0.15 ns, the product 0.49 ns at 67 TFLOP/s).  Each float4 weight load
-// feeds four FMAs of a lane, so the shared-memory pipe and the FMA pipe are
-// both near their limit; wgmma/TMA are left for a later change.
+// Design (H = 128).  The first design gave each receiver a warp and each
+// edge a lane that held h1 (128 floats) in registers and formed z2 on the
+// f32 CUDA cores from float4 broadcasts of W: ~190 live registers, one
+// block per SM, the shared-memory and FMA pipes both near their limit.
+// Now:
+//   * a persistent block of 256 threads (8 warps) walks consecutive tiles of
+//     TE = 32 CSR edges (the MPNN graphs' mean in-degree is ~32, so a tile
+//     holds about one receiver, and 32 rows feed the m16n8k8 products with
+//     no padding); warp 0 finds the next tile's receivers from the last
+//     receiver of this one (tile128::warp_receiver);
+//   * W (64 KB, transposed and XOR-swizzled) stays in shared memory for the
+//     whole launch; the tile's sender and receiver rows arrive by cp.async
+//     into staging
+//     buffers, which are free again as soon as h1 is formed, so the next
+//     tile's rows load while this one's product and sums run;
+//   * z2 = h1 . W is a tf32x3 product of a 32 x 128 tile (mm_rows32, a warp
+//     owns 16 columns; fragments by ldmatrix, split by split_fast);
+//     h2 = swish(z2) goes back into h1's buffer;
+//   * 115,072 bytes of shared memory and at most 128 registers a thread:
+//     two blocks share an SM, so one block's loads and sums overlap the
+//     other's products;
+//   * the receiver sums are deterministic (csr_tile, csrc/tile_mm.cuh): each
+//     run of equal receivers summed in CSR order, a thread per column and
+//     half-tile, then the halves joined; a receiver wholly inside a tile is
+//     written directly, one that crosses a tile boundary leaves partial
+//     rows that a second small kernel adds in tile order.  No atomics: out
+//     has the same bits from run to run.
+// What still holds it (measured, H100): the product phase issues ~4.6
+// instructions per mma (fragment loads, the hi/lo splits) and 16 warps an
+// SM (shared memory allows two blocks) hide too little latency; the swish
+// passes, the sums and the gathers take about a third of the time.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (magnet_tpu_torch/ops/cuda_build.py does this).
@@ -46,108 +64,141 @@
 
 #include <atomic>
 
+#include "tile_mm.cuh"
+
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kChunk = 32;  // output columns formed at a time
+constexpr int kH = 128;        // the compiled hidden width
+constexpr int kTE = 32;        // edges per tile
+constexpr int kThreads = 256;  // 8 warps
 
+// z sigmoid(z) by the fast exponential and division (a few ulp each; 0
+// where exp(-z) overflows)
 __device__ __forceinline__ float swish(float z) {
-  return z / (1.f + expf(-z));
+  return __fdividef(z, 1.f + __expf(-z));
 }
 
-// acc[0:M] += a * w[0:M] for one weight row w in shared memory.
-template <int M>
-__device__ __forceinline__ void axpy_row(float (&acc)[M], float a,
-                                         const float* __restrict__ w) {
-  const float4* w4 = reinterpret_cast<const float4*>(w);
-#pragma unroll
-  for (int q = 0; q < M / 4; ++q) {
-    const float4 v = w4[q];
-    acc[4 * q + 0] = fmaf(a, v.x, acc[4 * q + 0]);
-    acc[4 * q + 1] = fmaf(a, v.y, acc[4 * q + 1]);
-    acc[4 * q + 2] = fmaf(a, v.z, acc[4 * q + 2]);
-    acc[4 * q + 3] = fmaf(a, v.w, acc[4 * q + 3]);
-  }
-}
+// Offsets, in floats, into dynamic shared memory: 115,072 bytes, so that
+// two blocks share an SM's 228 KB.
+struct Layout {
+  static constexpr int tile = kTE * kH;       // a swizzled (kTE, kH) tile
+  static constexpr int w = 0;                 // (kH, kH) swizzled
+  static constexpr int s = w + kH * kH;       // the tile's send rows
+  static constexpr int r = s + tile;          // the tile's pr rows
+  static constexpr int h = r + tile;          // h1, then h2
+  static constexpr int snd = h + tile;        // (kTE) int: send row indices
+  static constexpr int rcv = snd + kTE;       // 2 x (kTE) int, two tiles
+  static constexpr int smem_floats = rcv + 2 * kTE;
+};
 
-template <int H, bool GATHER>
-__global__ void __launch_bounds__(kThreads)
+template <bool GATHER>
+__global__ void __launch_bounds__(kThreads, 2)
 fused_mpnn_edge_agg_kernel(const float* __restrict__ src,
                            const float* __restrict__ pr,
                            const float* __restrict__ w,
                            const float* __restrict__ b,
                            const int* __restrict__ senders,
                            const int* __restrict__ rowptr,
-                           float* __restrict__ out, int n_nodes,
-                           int n_edges) {
-  static_assert(H % kChunk == 0, "H must be a multiple of 32");
-  constexpr int NC = H / kChunk;
-  extern __shared__ float4 smem4[];
-  float* s_w = reinterpret_cast<float*>(smem4);  // (H, H)
-  float* s_b = s_w + H * H;                      // (H,)
-  for (int k = threadIdx.x; k < H * H; k += kThreads) s_w[k] = w[k];
-  for (int k = threadIdx.x; k < H; k += kThreads) s_b[k] = b[k];
-  __syncthreads();
+                           float* __restrict__ out, float* __restrict__ part,
+                           int n_nodes, int n_edges) {
+  using L = Layout;
+  using namespace tf32x3;
+  extern __shared__ __align__(16) float smem[];
+  float* s_w = smem + L::w;
+  float* s_s = smem + L::s;
+  float* s_r = smem + L::r;
+  float* s_h = smem + L::h;
+  int* s_snd = reinterpret_cast<int*>(smem + L::snd);
+  int* s_rcv = reinterpret_cast<int*>(smem + L::rcv);
+  // W is stored transposed (row n holds column n of W), so that ldmatrix
+  // reads its fragments as it reads h1's
+  const LdsmRows<kH> h_rows{s_h};
+  const LdsmCols<kH> w_cols{s_w};
 
-  const int lane = threadIdx.x & 31;
-  const int n_warps = gridDim.x * kWarps;
-  for (int i = blockIdx.x * kWarps + (threadIdx.x >> 5); i < n_nodes;
-       i += n_warps) {
-    // rowptr is trusted to be a CSR; the clamp keeps every read inside the
-    // E rows that src (or senders) has, whatever rowptr says
-    const int beg = rowptr[i];
-    const int end = min(rowptr[i + 1], n_edges);
-    float sum[NC];  // this lane's column of every chunk
-#pragma unroll
-    for (int c = 0; c < NC; ++c) sum[c] = 0.f;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  for (int k = tid; k < kH * kH; k += kThreads)
+    s_w[swz_at(k & (kH - 1), k >> 7)] = __ldg(w + k);
 
-    for (int base = beg; base < end; base += 32) {
-      const int e = base + lane;
-      const bool valid = e < end;
-      float h1[H];
-      if (valid) {
-        const size_t row = GATHER ? (size_t)senders[e] : (size_t)e;
-        const float4* ps = reinterpret_cast<const float4*>(src + row * H);
-        const float4* pi = reinterpret_cast<const float4*>(pr + (size_t)i * H);
-#pragma unroll
-        for (int q = 0; q < H / 4; ++q) {
-          const float4 a = __ldg(ps + q), r = __ldg(pi + q);
-          h1[4 * q + 0] = swish(a.x + r.x);
-          h1[4 * q + 1] = swish(a.y + r.y);
-          h1[4 * q + 2] = swish(a.z + r.z);
-          h1[4 * q + 3] = swish(a.w + r.w);
-        }
-      } else {
-#pragma unroll
-        for (int k = 0; k < H; ++k) h1[k] = 0.f;
-      }
-#pragma unroll 1
-      for (int c = 0; c < NC; ++c) {
-        float z2[kChunk];
-#pragma unroll
-        for (int q = 0; q < kChunk; ++q) z2[q] = s_b[c * kChunk + q];
-#pragma unroll
-        for (int k = 0; k < H; ++k)
-          axpy_row<kChunk>(z2, h1[k], s_w + k * H + c * kChunk);
-        // receiver sum over the 32 lanes of this round
-        float mine = 0.f;
-#pragma unroll
-        for (int q = 0; q < kChunk; ++q) {
-          float v = valid ? swish(z2[q]) : 0.f;
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            v += __shfl_xor_sync(0xffffffffu, v, off);
-          if (q == lane) mine = v;
-        }
-#pragma unroll
-        for (int cc = 0; cc < NC; ++cc)
-          if (cc == c) sum[cc] += mine;
-      }
+  // the block's tiles are consecutive, so each tile's receivers are found
+  // from the last receiver of the one before (warp 0)
+  const int n_tiles = (n_edges + kTE - 1) / kTE;
+  const int per_block = (n_tiles + gridDim.x - 1) / gridDim.x;
+  const int t_beg = blockIdx.x * per_block;
+  const int t_end = min(n_tiles, t_beg + per_block);
+  auto indices = [&](int tile, int buf, int hint) {
+    const int base = tile * kTE, n_valid = min(kTE, n_edges - base);
+    const int rv =
+        tile128::warp_receiver(rowptr, n_nodes, base, n_valid, hint);
+    const bool valid = tid < n_valid;
+    s_snd[tid] = !valid ? 0 : GATHER ? __ldg(senders + base + tid)
+                                     : base + tid;
+    s_rcv[buf * kTE + tid] = valid ? rv : 0;
+  };
+  // the send and pr rows of tile `tile`, whose indices are in s_snd and
+  // receiver buffer `buf`: one committed group
+  auto gather = [&](int tile, int buf) {
+    const int n_valid = min(kTE, n_edges - tile * kTE);
+    const int* rcv = s_rcv + buf * kTE;
+    rows_async<kTE>(s_s, 0, src, [&](int e) {
+      return e < n_valid ? src + (size_t)s_snd[e] * kH : nullptr;
+    });
+    rows_async<kTE>(s_r, 0, pr, [&](int e) {
+      return e < n_valid ? pr + (size_t)rcv[e] * kH : nullptr;
+    });
+    cp_async_commit();
+  };
+
+  if (t_beg < t_end) {
+    if (warp == 0) indices(t_beg, 0, -1);
+    __syncthreads();
+    gather(t_beg, 0);
+  }
+  for (int tile = t_beg, it = 0; tile < t_end; ++tile, ++it) {
+    const int cur = it & 1, nxt = cur ^ 1;
+    const int n_valid = min(kTE, n_edges - tile * kTE);
+    const int* rcv = s_rcv + cur * kTE;
+    const bool more = tile + 1 < t_end;
+    cp_async_wait<0>();
+    __syncthreads();  // the rows are in; the last tile's sums are done
+
+    // h1 = swish(send + pr[i]) (rows past n_valid are zero and stay zero)
+    for (int k = tid; k < kTE * kH / 4; k += kThreads) {
+      const int o = swz_at(k >> 5, (k & 31) * 4);
+      const float4 a = *reinterpret_cast<const float4*>(s_s + o);
+      const float4 r = *reinterpret_cast<const float4*>(s_r + o);
+      *reinterpret_cast<float4*>(s_h + o) =
+          make_float4(swish(a.x + r.x), swish(a.y + r.y), swish(a.z + r.z),
+                      swish(a.w + r.w));
     }
+    if (more && warp == 0) indices(tile + 1, nxt, rcv[n_valid - 1]);
+    __syncthreads();  // h1 written, the staging buffers free
+    if (more) gather(tile + 1, nxt);
+
+    // z2 = h1 . W + b, then h2 = swish(z2) over h1
+    float acc[2][2][4];
 #pragma unroll
-    for (int c = 0; c < NC; ++c)
-      out[(size_t)i * H + c * kChunk + lane] = sum[c];
+    for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float bias = __ldg(b + acc_col(16 * warp + 8 * ni, c));
+        acc[0][ni][c] = bias;
+        acc[1][ni][c] = bias;
+      }
+    mm_rows32<kH>(acc, h_rows, w_cols);
+    __syncthreads();  // every warp has read h1
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          s_h[swz_at(acc_row(16 * mi, c), acc_col(16 * warp + 8 * ni, c))] =
+              swish(acc[mi][ni][c]);
+    __syncthreads();
+
+    csr_tile::receiver_sums<kTE, kH>(
+        [&](int e, int c) -> float& { return s_h[swz_at(e, c)]; }, rcv,
+        rowptr, n_edges, tile, n_valid, out, part);
   }
 }
 
@@ -156,7 +207,7 @@ constexpr int kMaxDevices = 64;
 // The persistent grid's size (SMs x resident blocks per SM) on the current
 // device.  The shared-memory opt-in and the device queries run once per
 // device and instantiation; later launches read the cache.
-template <int H, bool GATHER>
+template <bool GATHER>
 cudaError_t grid_cap(size_t smem, int* cap) {
   static std::atomic<int> cache[kMaxDevices];  // 0: unset
   int device = 0;
@@ -165,7 +216,7 @@ cudaError_t grid_cap(size_t smem, int* cap) {
   const bool cached = device < kMaxDevices;
   if (cached && (*cap = cache[device].load(std::memory_order_relaxed)) > 0)
     return cudaSuccess;
-  auto kernel = fused_mpnn_edge_agg_kernel<H, GATHER>;
+  auto kernel = fused_mpnn_edge_agg_kernel<GATHER>;
   int optin = 0, n_sm = 0, per_sm = 0;
   if ((err = cudaDeviceGetAttribute(
            &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device)) !=
@@ -188,19 +239,25 @@ cudaError_t grid_cap(size_t smem, int* cap) {
   return cudaSuccess;
 }
 
-template <int H, bool GATHER>
+template <bool GATHER>
 int launch(const float* src, const float* pr, const float* w, const float* b,
-           const int* senders, const int* rowptr, float* out, int n_nodes,
-           int n_edges, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)(H * H + H);
+           const int* senders, const int* rowptr, float* out, float* part,
+           int n_nodes, int n_edges, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (size_t)Layout::smem_floats;
   int cap = 0;
-  const cudaError_t err = grid_cap<H, GATHER>(smem, &cap);
+  cudaError_t err = grid_cap<GATHER>(smem, &cap);
   if (err != cudaSuccess) return (int)err;
-  if (n_nodes == 0) return (int)cudaSuccess;
-  int blocks = (n_nodes + kWarps - 1) / kWarps;
-  if (blocks > cap) blocks = cap;
-  fused_mpnn_edge_agg_kernel<H, GATHER><<<blocks, kThreads, smem, stream>>>(
-      src, pr, w, b, senders, rowptr, out, n_nodes, n_edges);
+  if (n_nodes == 0 || n_edges <= 0) return (int)cudaSuccess;
+  if (part == nullptr) return (int)cudaErrorInvalidValue;
+  const int n_tiles = (n_edges + kTE - 1) / kTE;
+  const int blocks = n_tiles < cap ? n_tiles : cap;
+  fused_mpnn_edge_agg_kernel<GATHER><<<blocks, kThreads, smem, stream>>>(
+      src, pr, w, b, senders, rowptr, out, part, n_nodes, n_edges);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if (n_tiles > 1)
+    csr_tile::cross_tile_sum_kernel<kTE, kH>
+        <<<n_tiles - 1, kH, 0, stream>>>(rowptr, part, out, n_nodes,
+                                         n_edges);
   return (int)cudaGetLastError();
 }
 
@@ -210,21 +267,24 @@ extern "C" {
 
 // Returns a cudaError_t; 0 is success.  Launches on `stream` and does not
 // synchronise.  gather != 0: src is pxj (n_nodes, h) and senders (n_edges,)
-// is read; gather == 0: src is h0 (n_edges, h) and senders is ignored.
-// Compiled for h = 128; other widths return cudaErrorInvalidValue.
+// is read; gather == 0: src is h0 (n_edges, h) and senders is ignored.  out
+// (n_nodes, h) must arrive zeroed; part is scratch of 2 * ceil(n_edges /
+// 32) rows of h floats.  src and pr are 16-byte aligned.  Compiled for
+// h = 128; other widths return cudaErrorInvalidValue.
 int fused_mpnn_edge_agg_f32(const float* src, const float* pr, const float* w,
                             const float* b, const int* senders,
-                            const int* rowptr, float* out, int n_nodes,
-                            int n_edges, int h, int gather, void* stream) {
+                            const int* rowptr, float* out, float* part,
+                            int n_nodes, int n_edges, int h, int gather,
+                            void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (h != 128) return (int)cudaErrorInvalidValue;
+  if (h != kH) return (int)cudaErrorInvalidValue;
   if (gather) {
     if (senders == nullptr) return (int)cudaErrorInvalidValue;
-    return launch<128, true>(src, pr, w, b, senders, rowptr, out, n_nodes,
-                             n_edges, s);
+    return launch<true>(src, pr, w, b, senders, rowptr, out, part, n_nodes,
+                        n_edges, s);
   }
-  return launch<128, false>(src, pr, w, b, senders, rowptr, out, n_nodes,
-                            n_edges, s);
+  return launch<false>(src, pr, w, b, senders, rowptr, out, part, n_nodes,
+                       n_edges, s);
 }
 
 }  // extern "C"

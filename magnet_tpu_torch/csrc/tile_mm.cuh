@@ -12,8 +12,14 @@
 // weight, both in shared memory with rows of kLd floats; each thread holds
 // an R x 8 register tile (R = TE / 16): rows ty + 16 i, columns tx + 16 j.
 //
-// tf32x3 (the width-128 backward kernels and the MPNN backward kernels):
-// f32 products on the tensor cores in error-compensated TF32, see below.
+// tf32x3 (the width-128 backward kernels, both MPNN kernels and the
+// width-64 pre-gathered forward): f32 products on the tensor cores in
+// error-compensated TF32, see below; the forwards split their operands in
+// integer arithmetic (split_fast).
+//
+// csr_tile (every forward that walks a CSR graph in tiles of consecutive
+// edges): the receiver sums of a tile and the sum of the partial rows that
+// a receiver leaves in each tile it crosses.
 #pragma once
 
 #include <cstdint>
@@ -320,6 +326,17 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   lo = tf32(x - __uint_as_float(hi));
 }
 
+// The forward kernels' split, in three instructions: hi = x rounded to
+// TF32 in integer arithmetic (to nearest, ties away from zero, as cvt.rna
+// rounds every finite x), lo = x - hi (exact in f32), whose low 13 bits
+// the tensor cores drop as they read it as TF32.  Within a few 2^-22 of
+// |a b| per product, as split().
+__device__ __forceinline__ void split_fast(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
 // d += a . b on one 16 x 8 x 8 tile.
 __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
                                     const uint32_t (&b)[2]) {
@@ -352,10 +369,13 @@ struct Swz {
   bool tr;
 };
 
-// The column offset of row r of a swizzled tile: bits 2-4 only.
+// The column offset of row r of a swizzled tile: bits 2-4 only, so a row
+// of W = 32, 64 or 128 floats keeps its columns.
 __device__ __forceinline__ int swz(int r) { return ((r & 3) << 3) | (r & 4); }
+template <int W = 128>
 __device__ __forceinline__ int swz_at(int r, int c) {
-  return r * 128 + (c ^ swz(r));
+  static_assert(W % 32 == 0, "swizzled rows are a multiple of 32 floats");
+  return r * W + (c ^ swz(r));
 }
 
 __device__ __forceinline__ float elem(const Raw& o, int i, int j) {
@@ -363,6 +383,36 @@ __device__ __forceinline__ float elem(const Raw& o, int i, int j) {
 }
 __device__ __forceinline__ float elem(const Swz& o, int i, int j) {
   return o.tr ? o.p[swz_at(j, i)] : o.p[swz_at(i, j)];
+}
+
+// Swizzled tiles (rows of W floats) whose fragments are read by ldmatrix,
+// one instruction a fragment, and split by split_fast (the forward
+// kernels' operands): LdsmRows, A(m, k) = row m, column k; LdsmCols,
+// B(k, n) = row n, column k (B stored transposed).  ldmatrix
+// reads 8 x 8 16-bit blocks, that is 8 x 4 f32 blocks: lane l names a row
+// of block l / 8 and receives element (l / 4, l % 4) of each block, an
+// m16n8k8 .tf32 fragment's layout.
+template <int W>
+struct LdsmRows {
+  const float* p;
+};
+template <int W>
+struct LdsmCols {
+  const float* p;
+};
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const float* row) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const float* row) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(a));
 }
 
 // Rows m0..m0+15, columns k0..k0+7 of A(m, k).
@@ -383,6 +433,31 @@ __device__ __forceinline__ void load_b(FragB& f, const Op& b, int k0,
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
   split(elem(b, k0 + t, n0 + g), f.hi[0], f.lo[0]);
   split(elem(b, k0 + t + 4, n0 + g), f.hi[1], f.lo[1]);
+}
+
+// The same fragments by ldmatrix: blocks (m0, k0), (m0 + 8, k0),
+// (m0, k0 + 4), (m0 + 8, k0 + 4) are a0..a3; (n0, k0), (n0, k0 + 4) of
+// the transposed B are b0, b1 (lanes 16-31 name the rows again).
+template <int W>
+__device__ __forceinline__ void load_a(FragA& f, const LdsmRows<W>& a,
+                                       int m0, int k0) {
+  const int lane = threadIdx.x & 31, blk = lane >> 3;
+  uint32_t r[4];
+  ldsm_x4(r, a.p + swz_at<W>(m0 + (lane & 7) + 8 * (blk & 1),
+                             k0 + 4 * (blk >> 1)));
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    split_fast(__uint_as_float(r[q]), f.hi[q], f.lo[q]);
+}
+template <int W>
+__device__ __forceinline__ void load_b(FragB& f, const LdsmCols<W>& b,
+                                       int k0, int n0) {
+  const int lane = threadIdx.x & 31;
+  uint32_t r[2];
+  ldsm_x2(r, b.p + swz_at<W>(n0 + (lane & 7), k0 + 4 * ((lane >> 3) & 1)));
+#pragma unroll
+  for (int q = 0; q < 2; ++q)
+    split_fast(__uint_as_float(r[q]), f.hi[q], f.lo[q]);
 }
 
 // d += a . b in three TF32 products, the small terms first.
@@ -416,6 +491,32 @@ __device__ __forceinline__ void mm_rows32(float (&acc)[2][2][4],
     for (int mi = 0; mi < 2; ++mi) load_a(fa[mi], a, 16 * mi, k0);
 #pragma unroll
     for (int ni = 0; ni < 2; ++ni) {
+      FragB fb;
+      load_b(fb, b, k0, n0 + 8 * ni);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) mma3(acc[mi][ni], fa[mi], fb);
+    }
+  }
+}
+
+// acc += A . B for a 64-row tile: A(m, k) (64 x K), B(k, n) (K x N), N = 64
+// or 32.  Warp w owns rows 32 (w & 1) .. + 31 and columns (N / 4) (w >> 1)
+// .. + N / 4 - 1: acc[mi][ni] is the 16 x 8 tile at rows 32 (w & 1) +
+// 16 mi, columns (N / 4) (w >> 1) + 8 ni.  Each A fragment serves N / 32
+// tiles, each B fragment two.
+template <int N, int K, class OA, class OB>
+__device__ __forceinline__ void mm_rows64(float (&acc)[2][N / 32][4],
+                                          const OA& a, const OB& b) {
+  static_assert(N == 64 || N == 32, "mm_rows64 forms 64 or 32 columns");
+  constexpr int NI = N / 32;
+  const int w = threadIdx.x >> 5, m0 = 32 * (w & 1), n0 = (N / 4) * (w >> 1);
+#pragma unroll 2
+  for (int k0 = 0; k0 < K; k0 += 8) {
+    FragA fa[2];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) load_a(fa[mi], a, m0 + 16 * mi, k0);
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni) {
       FragB fb;
       load_b(fb, b, k0, n0 + 8 * ni);
 #pragma unroll
@@ -464,19 +565,143 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// dst[r][0..127] <- row(r) for r < TE, zeros where row(r) is null, without
+// dst[r][0..W-1] <- row(r) for r < TE, zeros where row(r) is null, without
 // waiting (the caller commits the group).  dst rows are ld floats apart,
-// ld a multiple of 4, or (ld == 0) dst is a Swz tile; `any` is a readable
-// global address, named in place of a null row (no byte of it is read).
-template <int TE, class Row>
+// ld a multiple of 4, or (ld == 0) dst is a SwzW<W> tile; `any` is a
+// readable global address, named in place of a null row (no byte of it is
+// read).
+template <int TE, int W = 128, class Row>
 __device__ __forceinline__ void rows_async(float* dst, int ld,
                                            const float* any, Row row) {
-  for (int k = threadIdx.x; k < TE * 32; k += 256) {
-    const int r = k >> 5, c = (k & 31) * 4;
+  constexpr int kChunks = W / 4;  // 16-byte chunks a row
+  for (int k = threadIdx.x; k < TE * kChunks; k += 256) {
+    const int r = k / kChunks, c = (k % kChunks) * 4;
     const float* src = row(r);
-    cp_async16(dst + (ld ? r * ld + c : swz_at(r, c)), src ? src + c : any,
+    cp_async16(dst + (ld ? r * ld + c : swz_at<W>(r, c)), src ? src + c : any,
                src != nullptr);
   }
 }
 
 }  // namespace tf32x3
+
+// The receiver sums of a forward that walks a receiver-grouped CSR graph
+// in tiles of TE consecutive edges (tile t holds edges TE t .. TE t +
+// TE - 1), without atomics.  Within a tile, each run of equal receivers is
+// summed in CSR order; a receiver whose edges all lie in the tile is
+// written to out, and one that crosses a tile boundary leaves one partial
+// row per tile in part: row 2 t + 1 if it starts in tile t (the tile's
+// last run), else row 2 t (the tile's first run).  cross_tile_sum_kernel
+// then adds each such receiver's partial rows in tile order.  Every sum has
+// the same association from run to run, so out has the same bits; a
+// receiver of degree 0 is never written (out arrives zeroed).  Blocks of
+// kThreads threads (the kernels) and of C threads (the partial-row sum).
+namespace csr_tile {
+
+constexpr int kThreads = 256;
+
+// The sums of tile `tile` (n_valid of its edges exist) over the values
+// ref(e, c) of its rows e and columns c < C, whose receivers are s_rcv[e],
+// in two steps.  (1) Thread (c, q) = (tid % C, tid / C) sums column c over
+// segment q, rows S q .. S q + S - 1 (Q = kThreads / C segments of S = TE /
+// Q rows), in order: a run that starts and ends inside the segment is
+// written to out; the segment's first and last run leave their sums in
+// place of the segment's first and last value.  (2) Threads c < C join the
+// segments in order.  ref(e, c) is a float& into the block's tile, read
+// and written by thread (c, q) alone in step 1.  Every thread enters (a
+// barrier separates the steps).
+template <int TE, int C, class Ref>
+__device__ __forceinline__ void receiver_sums(Ref ref, const int* s_rcv,
+                                              const int* __restrict__ rowptr,
+                                              int n_edges, int tile,
+                                              int n_valid,
+                                              float* __restrict__ out,
+                                              float* __restrict__ part) {
+  constexpr int Q = kThreads / C, S = TE / Q;
+  static_assert(kThreads % C == 0 && TE % Q == 0 && S >= 2,
+                "segments of two rows or more");
+  const int c = threadIdx.x % C, q = threadIdx.x / C;
+  const int base = tile * TE;
+  // a run's whole sum in this tile: to out, or to the tile's partial row
+  auto flush = [&](int r, float s) {
+    const bool starts = __ldg(rowptr + r) >= base;
+    const bool ends = min(__ldg(rowptr + r + 1), n_edges) <= base + TE;
+    float* dst = starts && ends
+                     ? out + (size_t)r * C
+                     : part + (size_t)(2 * tile + (starts ? 1 : 0)) * C;
+    dst[c] = s;
+  };
+
+  const int e0 = q * S, e1 = min(e0 + S, n_valid);
+  if (e0 < e1) {
+    int r = s_rcv[e0];
+    float s = 0.f, first = 0.f;
+    bool in_first = true;
+#pragma unroll 4
+    for (int e = e0; e < e1; ++e) {
+      const int re = s_rcv[e];
+      const float v = ref(e, c);
+      if (re != r) {
+        if (in_first)
+          first = s;
+        else
+          out[(size_t)r * C + c] = s;  // starts and ends in the segment
+        in_first = false;
+        r = re;
+        s = 0.f;
+      }
+      s += v;
+    }
+    if (in_first) {
+      ref(e0, c) = s;
+    } else {
+      ref(e0, c) = first;
+      ref(e1 - 1, c) = s;
+    }
+  }
+  __syncthreads();
+  if (q == 0) {
+    int cur = -1;
+    float acc = 0.f;
+    for (int k = 0; k < Q && k * S < n_valid; ++k) {
+      const int a = k * S, z = min(a + S, n_valid) - 1;
+      const int rf = s_rcv[a], rl = s_rcv[z];
+      const float f = ref(a, c);
+      if (rf == cur) {
+        acc += f;
+      } else {
+        if (cur >= 0) flush(cur, acc);
+        cur = rf;
+        acc = f;
+      }
+      if (rl != rf) {
+        flush(cur, acc);
+        cur = rl;
+        acc = ref(z, c);
+      }
+    }
+    if (cur >= 0) flush(cur, acc);
+  }
+}
+
+// The receiver that crosses the boundary at edge TE (b + 1) (block b) and
+// starts in the tile before it: out[r] = its partial rows added in tile
+// order.  A receiver that crosses several boundaries is summed by the
+// block of its first; a block whose boundary starts a receiver writes
+// nothing.  Launched with n_tiles - 1 blocks of C threads.
+template <int TE, int C>
+__global__ void __launch_bounds__(C)
+cross_tile_sum_kernel(const int* __restrict__ rowptr,
+                      const float* __restrict__ part, float* __restrict__ out,
+                      int n_nodes, int n_edges) {
+  const int e = (blockIdx.x + 1) * TE;
+  const int r = tile128::receiver_of(rowptr, n_nodes, e);
+  const int beg = rowptr[r];
+  if (beg >= e || beg < e - TE) return;
+  const int t0 = beg / TE, t1 = (min(rowptr[r + 1], n_edges) - 1) / TE;
+  const int c = threadIdx.x;
+  float s = part[(size_t)(2 * t0 + 1) * C + c];
+  for (int t = t0 + 1; t <= t1; ++t) s += part[(size_t)(2 * t) * C + c];
+  out[(size_t)r * C + c] = s;
+}
+
+}  // namespace csr_tile

@@ -43,7 +43,11 @@ y = LN(h·W_out + b_out); the result is out[i] = Σ y over the edges of i,
 Compiled builds (``KERNEL_WIDTHS``), keyed by what each entry reads: fold
 (Ce, H, C) = (32, 64, 32) (MAgNet[CNN]) and (128, 128, 128) (MAgNet[GNN]);
 pregathered (H, C) = (64, 32) and (128, 128); pe (H, C) = (128, 128).  The
-width-64 and width-128 builds are two designs (see the sources' headers).
+width-64 fold build is a warp per receiver; every other forward build walks
+tiles of ``FWD_TILE`` consecutive CSR edges and leaves partial rows
+(``ops.graph.part_rows``) for the receivers that cross a tile, the width-64
+pre-gathered one with its products on the tensor cores in 3xTF32 (see the
+source's header).
 Bounds on an H100 at MAgNet[GNN]'s eval batch (84.3k LR ∪ HR edges,
 L1 = 3, 67 TFLOP/s f32): fold 81,920 multiply-adds per edge, 0.206 ms; pe
 65,536, 0.165 ms; both bound by operations.
@@ -55,6 +59,7 @@ import ctypes
 import torch
 
 from magnet_tpu_torch.ops import cuda_build
+from magnet_tpu_torch.ops.graph import part_rows
 from magnet_tpu_torch.ops.segment import segment_sum
 
 LN_EPS = 1e-5
@@ -65,8 +70,9 @@ KERNEL_WIDTHS = {"fold": {(32, 64, 32), (128, 128, 128)},
                  "pe": {(128, 128)}}
 #: the C entry's ``entry`` argument
 ENTRY = {"pregathered": 0, "fold": 1, "pe": 2}
-#: edges per tile of the width-128 forward (two scratch rows per tile)
-W128_TILE = 64
+#: edges per tile of the tiled forward builds, every build but the width-64
+#: fold entry (two scratch rows per tile)
+FWD_TILE = 64
 
 #: tail depths (L1) the backward CUDA source is compiled for.
 KERNEL_BWD_MAX_L1 = 3
@@ -355,8 +361,9 @@ def _launch_fwd(entry, src, we, be, pxj, pxi, senders, rowptr, *tail):
     ce = widths[0] if entry == "fold" else h
     dev = src.device
     out = torch.zeros(n, c, dtype=torch.float32, device=dev)
-    part = (torch.empty(2 * (-(-E // W128_TILE)), c, dtype=torch.float32,
-                        device=dev) if h == 128 else None)
+    part = (torch.empty(part_rows(E, FWD_TILE), c, dtype=torch.float32,
+                        device=dev) if h == 128 or entry == "pregathered"
+            else None)
     fn = cuda_build.function(FWD, _ARGTYPES[FWD])
     w_rest, b_rest, w_out, b_out, ln_s, ln_b = tail
     with torch.cuda.device(dev):

@@ -322,6 +322,15 @@ def csr_from_edges(senders, receivers, n_node: int,
     )
 
 
+def part_rows(n_edges: int, tile: int) -> int:
+    """Rows of the partial-sum scratch of a forward kernel that walks a CSR
+    graph in tiles of ``tile`` consecutive edges (``csr_tile`` in
+    ``csrc/tile_mm.cuh``): two a tile, one for a receiver that crosses into
+    the tile (row 2 t) and one for a receiver that crosses out of it (row
+    2 t + 1)."""
+    return 2 * (-(-n_edges // tile))
+
+
 def radius_graph_batch(pos, r: float, loop: bool = True,
                        max_num_neighbors: int = 32,
                        lane_rule: Optional[tuple[str, int]] = None) -> CSRGraph:

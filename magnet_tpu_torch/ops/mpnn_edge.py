@@ -32,12 +32,15 @@ import ctypes
 import torch
 
 from magnet_tpu_torch.ops import cuda_build
+from magnet_tpu_torch.ops.graph import part_rows
 
 #: hidden widths the CUDA sources are compiled for (both MPNN configs).
 KERNEL_WIDTHS = {128}
+#: edges per tile of the forward kernel (two partial rows a tile)
+FWD_TILE = 32
 FWD, BWD = "fused_mpnn_edge_agg", "fused_mpnn_edge_agg_bwd"
 _ARGTYPES = {
-    FWD: [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    FWD: [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     BWD: [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
 }
 #: the four gradients of each backward, in the operands' order.
@@ -159,14 +162,18 @@ def _launch_fwd(src, pr, w, b, senders, rowptr):
     for name, t in (("src", src), ("pr", pr)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (float4 rows)")
-    out = torch.empty(n, h, dtype=torch.float32, device=src.device)
+    # a receiver of degree 0 is never written; a receiver that crosses a
+    # tile boundary leaves partial rows for the kernel's second pass
+    out = torch.zeros(n, h, dtype=torch.float32, device=src.device)
+    part = torch.empty(part_rows(e, FWD_TILE), h, dtype=torch.float32,
+                       device=src.device)
     fn = cuda_build.function(FWD, _ARGTYPES[FWD])
     gather = senders is not None
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(src.data_ptr(), pr.data_ptr(), w.data_ptr(), b.data_ptr(),
-                 _ptr(senders), rowptr.data_ptr(), out.data_ptr(), n, e, h,
-                 int(gather), stream)
+                 _ptr(senders), rowptr.data_ptr(), out.data_ptr(),
+                 part.data_ptr(), n, e, h, int(gather), stream)
     if err != 0:
         raise RuntimeError(f"fused_mpnn_edge_agg launch failed: cudaError {err}")
     launches["fwd_gather" if gather else "fwd_pregathered"] += 1
