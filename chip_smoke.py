@@ -223,6 +223,7 @@ def cnn_phases(dev, data, groups) -> tuple[int, list, dict]:
     )
     from magnet_tpu_torch.eval import evaluate
     from magnet_tpu_torch.models.factory import create_model
+    from magnet_tpu_torch.ops import cuda_build
     from magnet_tpu_torch.ops import fused_edge as fe
     from magnet_tpu_torch.ops.graph import csr_from_edges, radius_graph
     from magnet_tpu_torch.train.checkpoint import load_checkpoint
@@ -258,14 +259,35 @@ def cnn_phases(dev, data, groups) -> tuple[int, list, dict]:
     small["degree0_row_zero"] = bool((got_s[17] == 0).all())
     small["max_degree"] = int(small_graph.degree.max())
     small["l1"] = 1
+    # a graph that crosses the forward's tiles in every way
+    tiles = tile_edges_graph(fe.FWD_TILE, seed=26)
+    ops_t = kernel_operands(tiles, ce, h, c, l1, seed=27, dev=dev)
+    got_t = fe.fused_edge_tail_agg(*ops_t)
+    tile_case = compare(got_t, fe.fused_edge_tail_agg_plain(*ops_t),
+                        KERNEL_RTOL, KERNEL_ATOL)
+    zero = tiles.degree.to(dev) == 0
+    tile_case.update(n_edge=tiles.n_edge, tile=fe.FWD_TILE,
+                     max_degree=int(tiles.degree.max()),
+                     n_degree0=int(zero.sum()),
+                     degree0_rows_zero=bool((got_t[zero] == 0).all()))
+    # no atomics: two launches give the same bits
+    bits_equal = torch.equal(fe.fused_edge_tail_agg(*ops),
+                             fe.fused_edge_tail_agg(*ops))
     ms = cuda_ms(lambda: fe.fused_edge_tail_agg(*ops), reps=50)
     plain_ms = cuda_ms(lambda: fe.fused_edge_tail_agg_plain(*ops), reps=20)
     bnd = bound("fwd", graph, ce, h, c, l1)
-    kernel_ok = big["ok"] and small["ok"] and small["degree0_row_zero"]
+    bnd.update(tc_bound(bnd))
+    kernel_ok = (big["ok"] and small["ok"] and small["degree0_row_zero"]
+                 and tile_case["ok"] and tile_case["degree0_rows_zero"]
+                 and bits_equal)
     emit({"phase": "kernel", "n_node": graph.n_node, "n_edge": graph.n_edge,
           "ce": ce, "h": h, "c": c, "l1": l1, "slice_shape": big,
-          "small_case": small, "ms": ms, "plain_ms": plain_ms,
-          "library_ms": None, **bnd, "ok": kernel_ok})
+          "small_case": small, "tile_edges": tile_case,
+          "bits_equal_run_to_run": bits_equal, "ms": ms,
+          "plain_ms": plain_ms, "library_ms": None, **bnd,
+          "share_of_tc_bound": bnd["tc_bound_ms"] / ms,
+          "ptxas": ptxas_lines(cuda_build.build("fused_edge_tail_agg")),
+          "ok": kernel_ok})
     if not kernel_ok:
         return 2, [], {}
 
@@ -348,6 +370,9 @@ def cnn_phases(dev, data, groups) -> tuple[int, list, dict]:
                              reps=20)
     bnd_bwd = bound("bwd", tgraph, ce, h, c, l1)
     bnd_fwd_t = bound("fwd", tgraph, ce, h, c, l1)
+    bnd_fwd_t.update(tc_bound(bnd_fwd_t),
+                     share_of_tc_bound=tc_bound(bnd_fwd_t)["tc_bound_ms"]
+                     / fwd_ms_t)
     bwd_ok = fwd_t["ok"] and all(
         v["ok"] for case in bwd.values() for v in case.values())
     bwd_err = max(v["max_abs_err"] for case in bwd.values()
@@ -480,11 +505,13 @@ def cnn_phases(dev, data, groups) -> tuple[int, list, dict]:
         "launches": launches + train_launches, "launches_eval": launches,
         "launches_train": train_launches,
         "max_abs_err": max(big["max_abs_err"], small["max_abs_err"],
-                           fwd_t["max_abs_err"]),
+                           tile_case["max_abs_err"], fwd_t["max_abs_err"]),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd["bound_ms"],
-        "bound_by": bnd["bound_by"], "library_ms": None,
+        "bound_by": bnd["bound_by"], "tc_bound_ms": bnd["tc_bound_ms"],
+        "tc_bound_by": bnd["tc_bound_by"], "library_ms": None,
         "ms_train_shape": fwd_ms_t, "plain_ms_train_shape": fwd_plain_ms_t,
         "bound_ms_train_shape": bnd_fwd_t["bound_ms"],
+        "tc_bound_ms_train_shape": bnd_fwd_t["tc_bound_ms"],
         "ok": kernel_ok and slice_ok and train_ok}, {
         "name": "fused_edge_tail_agg_bwd", "route": "cuda",
         "source": "magnet_tpu_torch/csrc/fused_edge_tail_agg_bwd.cu",
@@ -1225,6 +1252,20 @@ def cnn2d_phases(dev, data, groups) -> tuple[int, list, dict]:
     per_batch = n_win * mp
     egraph = model.build_graph({k: torch.as_tensor(v)
                                 for k, v in batches[0].items()})
+    # #8 vs plain at the eval graph's shape, timed (the fold lane's launches)
+    ce = hp["latent_dim"]
+    ops_e = kernel_operands(egraph, ce, h, c, l1, seed=28, dev=dev)
+    fold_2d = compare(fe.fused_edge_tail_agg(*ops_e),
+                      fe.fused_edge_tail_agg_plain(*ops_e), KERNEL_RTOL,
+                      KERNEL_ATOL)
+    bnd_2d = bound("fwd", egraph, ce, h, c, l1)
+    fold_2d.update(n_edge=egraph.n_edge, ce=ce, h=h, c=c, l1=l1,
+                   ms=cuda_ms(lambda: fe.fused_edge_tail_agg(*ops_e), reps=30),
+                   plain_ms=cuda_ms(
+                       lambda: fe.fused_edge_tail_agg_plain(*ops_e), reps=5),
+                   **bnd_2d, **tc_bound(bnd_2d))
+    fold_2d["share_of_tc_bound"] = fold_2d["tc_bound_ms"] / fold_2d["ms"]
+    del ops_e
     fe.reset_launches()
     seg.launches = 0
     t0 = time.perf_counter()
@@ -1255,7 +1296,7 @@ def cnn2d_phases(dev, data, groups) -> tuple[int, list, dict]:
                                       64 * 64, 1)
                    for p, b in zip(preds, batches))
     slice_ok = (counts == want_counts and egraph.lane == "fold" and finite
-                and shape_ok and cmp["ok"])
+                and shape_ok and cmp["ok"] and fold_2d["ok"])
     emit({"phase": "cnn2d_slice", "model": "magnet_cnn_2d",
           "batches": len(batches), "batch_size": 4, "nt": nt, "res": 64,
           "support": 32, "windows": n_win, "n_node": egraph.n_node,
@@ -1266,7 +1307,8 @@ def cnn2d_phases(dev, data, groups) -> tuple[int, list, dict]:
           "vs_plain": cmp, "seconds_per_batch_first": first_s / len(batches),
           "seconds_per_batch": steady_s / len(batches),
           "seconds_per_batch_plain": plain_s / len(batches),
-          "peak_mem_bytes": peak, "ok": slice_ok})
+          "peak_mem_bytes": peak, "fold_kernel_at_eval_shape": fold_2d,
+          "ok": slice_ok})
     if not slice_ok:
         return 12, [], {}
     del preds, preds_plain
@@ -1448,8 +1490,13 @@ def cnn2d_phases(dev, data, groups) -> tuple[int, list, dict]:
         "bound_ms": bnd_seg["bound_ms"], "bound_by": bnd_seg["bound_by"],
         "library_ms": seg_lib_ms, "ok": train_ok}]
     return ((0 if train_ok else 13), kernels,
-            {"fused_edge_tail_agg": {"launches_cnn2d":
-                                     slice_fold + fit_counts["fold"]}})
+            {"fused_edge_tail_agg": {
+                "launches_cnn2d": slice_fold + fit_counts["fold"],
+                "max_abs_err_2d_eval_shape": fold_2d["max_abs_err"],
+                "ms_2d_eval_shape": fold_2d["ms"],
+                "plain_ms_2d_eval_shape": fold_2d["plain_ms"],
+                "bound_ms_2d_eval_shape": fold_2d["bound_ms"],
+                "tc_bound_ms_2d_eval_shape": fold_2d["tc_bound_ms"]}})
 
 
 def gnn_small_graph():
@@ -1553,9 +1600,13 @@ def gnn_phases(dev, data, groups) -> tuple[int, list, dict]:
                   fe.fused_edge_tail_agg_pe_bwd_plain, fe.GRAD_NAMES_PE)}
 
     # 15. #8 at width 128 and #6 vs plain on the eval batch's and the
-    # training batch's LR and LR ∪ HR graphs, and on the small graph (a
-    # degree-0 receiver, a receiver over three tiles, and the last 7 edge
-    # rows cut off, so that the kernel clamps the last receiver's range)
+    # training batch's LR and LR ∪ HR graphs, on a graph that crosses the
+    # forward's tiles in every way, and on the small graph (a degree-0
+    # receiver, a receiver over three tiles, and the last 7 edge rows cut
+    # off, so that the kernel clamps the last receiver's range); both
+    # entries give the same bits run to run
+    tiles = tile_edges_graph(fe.FWD_TILE, seed=35)
+    tile_zero = tiles.degree.to(dev) == 0
     fwd = {}
     for entry, (fn, plain, *_) in fns.items():
         rows = {}
@@ -1563,6 +1614,8 @@ def gnn_phases(dev, data, groups) -> tuple[int, list, dict]:
             ops = gnn_operands(entry, gr, l1, seed=31, dev=dev)
             got = fn(*ops)
             torch.cuda.synchronize()
+            b = (bound("fwd", gr, h, h, h, l1) if entry == "fold"
+                 else pregathered_bound("fwd", gr, h, h, l1, pe=True))
             rows[label] = {
                 "n_node": gr.n_node, "n_edge": gr.n_edge, "lane": gr.lane,
                 "mean_degree": float(gr.degree.mean()),
@@ -1570,9 +1623,22 @@ def gnn_phases(dev, data, groups) -> tuple[int, list, dict]:
                 **compare(got, plain(*ops), KERNEL_RTOL, KERNEL_ATOL),
                 "ms": cuda_ms(lambda: fn(*ops), reps=30),
                 "plain_ms": cuda_ms(lambda: plain(*ops), reps=10),
-                **(bound("fwd", gr, h, h, h, l1) if entry == "fold"
-                   else pregathered_bound("fwd", gr, h, h, l1, pe=True))}
+                **b, **tc_bound(b)}
+            rows[label]["share_of_tc_bound"] = (rows[label]["tc_bound_ms"]
+                                                / rows[label]["ms"])
+            if label == "eval_all":
+                rows["bits_equal_run_to_run"] = {
+                    "ok": torch.equal(fn(*ops), fn(*ops))}
             del ops, got
+        ops = gnn_operands(entry, tiles, l1, seed=36, dev=dev)
+        got = fn(*ops)
+        rows["tile_edges"] = compare(got, plain(*ops), KERNEL_RTOL,
+                                     KERNEL_ATOL)
+        rows["tile_edges"].update(
+            n_edge=tiles.n_edge, tile=fe.FWD_TILE,
+            max_degree=int(tiles.degree.max()),
+            n_degree0=int(tile_zero.sum()),
+            degree0_row_zero=bool((got[tile_zero] == 0).all()))
         ops = gnn_operands(entry, small, GNN_SMALL_L1, seed=32, dev=dev)
         got = fn(*ops)
         torch.cuda.synchronize()
@@ -1596,13 +1662,27 @@ def gnn_phases(dev, data, groups) -> tuple[int, list, dict]:
         torch.cuda.synchronize()
         rows["clamped_range"] = compare(got, want, KERNEL_RTOL, KERNEL_ATOL)
         fwd[entry] = rows
+    # the width-128 pre-gathered entry rides on the same body; no path
+    # launches it, so it is held against plain here alone
+    pre = {}
+    for label, gr, l1_ in (("small_case", small, GNN_SMALL_L1),
+                           ("tile_edges", tiles, l1)):
+        o = pregathered_operands(gr, h, h, l1_, seed=37, dev=dev)
+        got = fe.fused_edge_tail_agg_pregathered(*o)
+        pre[label] = compare(got, fe.fused_edge_tail_agg_pregathered_plain(*o),
+                             KERNEL_RTOL, KERNEL_ATOL)
+        zero = gr.degree.to(dev) == 0
+        pre[label]["degree0_row_zero"] = bool((got[zero] == 0).all())
+    fwd["pregathered_w128"] = pre
     kernel_ok = all(r["ok"] and r.get("degree0_row_zero", True)
                     for rows in fwd.values() for r in rows.values()) and all(
         gr.lane == "fold" for gr in graphs.values())
     emit({"phase": "gnn_kernel", "h": h, "c": h, "ce": h, "l1": l1,
           "small_case_l1": GNN_SMALL_L1,
           "tolerance": {"rtol": KERNEL_RTOL, "atol": KERNEL_ATOL},
-          "fold_w128": fwd["fold"], "pe": fwd["pe"], "library_ms": None,
+          "fold_w128": fwd["fold"], "pe": fwd["pe"],
+          "pregathered_w128": pre, "library_ms": None,
+          "ptxas": ptxas_lines(cuda_build.build("fused_edge_tail_agg")),
           "ok": kernel_ok})
     if not kernel_ok:
         return 14, [], {}
@@ -1879,7 +1959,8 @@ def gnn_phases(dev, data, groups) -> tuple[int, list, dict]:
         "replaces": "magnet_tpu/ops/pallas_kernels.py:1356",
         "launches": fold_launches, "max_abs_err": worst(fwd["fold"]),
         "ms": ev["ms"], "plain_ms": ev["plain_ms"], "bound_ms": ev["bound_ms"],
-        "bound_by": ev["bound_by"], "library_ms": None,
+        "bound_by": ev["bound_by"], "tc_bound_ms": ev["tc_bound_ms"],
+        "tc_bound_by": ev["tc_bound_by"], "library_ms": None,
         "shape": "eval LR ∪ HR graph", "ok": train_ok}, {
         "name": "fused_edge_tail_agg_bwd_w128", "route": "cuda",
         "source": "magnet_tpu_torch/csrc/fused_edge_tail_agg_bwd.cu",
@@ -1900,7 +1981,9 @@ def gnn_phases(dev, data, groups) -> tuple[int, list, dict]:
         "launches": pe_launches, "max_abs_err": worst(fwd["pe"]),
         "ms": ev_pe["ms"], "plain_ms": ev_pe["plain_ms"],
         "bound_ms": ev_pe["bound_ms"], "bound_by": ev_pe["bound_by"],
-        "library_ms": None,
+        "tc_bound_ms": ev_pe["tc_bound_ms"],
+        "tc_bound_by": ev_pe["tc_bound_by"], "library_ms": None,
+        "rides_on": "fused_edge_tail_agg_w128 (the width-128 body of #8)",
         "shape": "eval LR ∪ HR graph", "ok": train_ok}, {
         "name": "fused_edge_tail_agg_pe_bwd", "route": "cuda",
         "source": "magnet_tpu_torch/csrc/fused_edge_tail_agg_bwd.cu",
@@ -2039,11 +2122,12 @@ def main(argv) -> int:
             if rc:
                 emit({"kernels": kernels})
                 return rc
-    # a kernel's launches on the paths of another group
+    # a kernel's launches (and times) on the paths of another group
     for entry in kernels:
         for key, n in extra.get(entry["name"], {}).items():
             entry[key] = n
-            entry["launches"] += n
+            if key.startswith("launches"):
+                entry["launches"] += n
     # each row's share of its bound: the tensor-core bound where the kernel
     # issues its products there (tf32x3), else the f32 one
     for entry in kernels:

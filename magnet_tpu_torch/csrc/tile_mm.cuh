@@ -7,15 +7,13 @@
 // reads are both free of bank conflicts with scalar loads.  Each thread
 // computes a kRows x (N / 16) register tile of a product.
 //
-// tile128 (the width-128 builds of csrc/fused_edge_tail_agg*.cu): the same
-// 16 x 16 grid over a tile of TE consecutive CSR edges and one (128 x 128)
-// weight, both in shared memory with rows of kLd floats; each thread holds
-// an R x 8 register tile (R = TE / 16): rows ty + 16 i, columns tx + 16 j.
+// tile128: the entries' names and the receiver search that every kernel
+// walking a CSR graph in tiles of consecutive edges shares.
 //
-// tf32x3 (the width-128 backward kernels, both MPNN kernels and the
-// width-64 pre-gathered forward): f32 products on the tensor cores in
-// error-compensated TF32, see below; the forwards split their operands in
-// integer arithmetic (split_fast).
+// tf32x3 (the width-128 backward kernels, both MPNN kernels and every
+// GraphNet forward): f32 products on the tensor cores in error-compensated
+// TF32, see below; the forwards split their operands in integer arithmetic
+// (split_fast).
 //
 // csr_tile (every forward that walks a CSR graph in tiles of consecutive
 // edges): the receiver sums of a tile and the sum of the partial rows that
@@ -127,10 +125,7 @@ namespace tile128 {
 // Values of the C entries' `entry` argument.
 enum Entry : int { kPregathered = 0, kFold = 1, kPe = 2 };
 
-constexpr int kW = 128;          // Ce = H = C
-constexpr int kLd = kW + 1;      // shared-memory row stride, in floats
-constexpr int kThreads = 256;    // tx = tid & 15, ty = tid >> 4
-constexpr int kCols = kW / 16;   // register tile columns tx + 16 j
+constexpr int kW = 128;          // Ce = H = C of the width-128 builds
 
 // The receiver of edge e: the last i with rowptr[i] <= e.
 __device__ __forceinline__ int receiver_of(const int* __restrict__ rowptr,
@@ -174,119 +169,6 @@ __device__ __forceinline__ int warp_receiver(const int* __restrict__ rowptr,
   const int window_end = __shfl_sync(0xffffffffu, start, 31);  // every lane
   if (lane < n_valid && e >= window_end) r = receiver_of(rowptr, n_nodes, e);
   return r;
-}
-
-// s_w[k][n] = w[k * kW + n].
-__device__ __forceinline__ void load_weight(float* __restrict__ s_w,
-                                            const float* __restrict__ w) {
-  for (int k = threadIdx.x; k < kW * kW; k += kThreads)
-    s_w[(k >> 7) * kLd + (k & (kW - 1))] = __ldg(w + k);
-}
-
-// dst[r][c] = src[base + r][c] for the tile's TE rows, zero past n_valid.
-template <int TE>
-__device__ __forceinline__ void load_rows(float* __restrict__ dst,
-                                          const float* __restrict__ src,
-                                          int base, int n_valid) {
-  for (int k = threadIdx.x; k < TE * kW; k += kThreads) {
-    const int r = k >> 7, c = k & (kW - 1);
-    dst[r * kLd + c] = r < n_valid ? src[(size_t)(base + r) * kW + c] : 0.f;
-  }
-}
-
-// The tile's senders (none for the pregathered entry) and receivers, zero
-// past n_valid.
-template <int TE, Entry E>
-__device__ __forceinline__ void load_indices(int* s_snd, int* s_rcv,
-                                             const int* __restrict__ senders,
-                                             const int* __restrict__ rowptr,
-                                             int n_nodes, int base,
-                                             int n_valid) {
-  const int t = threadIdx.x;
-  if (t < TE) {
-    int sv = 0, rv = 0;
-    if (t < n_valid) {
-      if (E != kPregathered) sv = senders[base + t];
-      rv = receiver_of(rowptr, n_nodes, base + t);
-    }
-    s_snd[t] = sv;
-    s_rcv[t] = rv;
-  }
-}
-
-// h_0 = relu(src[e] + pxi[receiver]), plus pxj[sender] for the pe entry:
-// the pregathered and pe entries' first layer over the tile, zero past
-// n_valid.
-template <int TE, Entry E>
-__device__ __forceinline__ void first_input(
-    float* __restrict__ s_act, const float* __restrict__ src,
-    const float* __restrict__ pxj, const float* __restrict__ pxi,
-    const int* s_snd, const int* s_rcv, int base, int n_valid) {
-  for (int k = threadIdx.x; k < TE * kW; k += kThreads) {
-    const int r = k >> 7, c = k & (kW - 1);
-    float z = 0.f;
-    if (r < n_valid) {
-      z = src[(size_t)(base + r) * kW + c] +
-          __ldg(pxi + (size_t)s_rcv[r] * kW + c);
-      if (E == kPe) z += __ldg(pxj + (size_t)s_snd[r] * kW + c);
-    }
-    s_act[r * kLd + c] = fmaxf(z, 0.f);
-  }
-}
-
-// acc = b_e + pxj[sender] + pxi[receiver] on the thread's rows and columns,
-// zero past n_valid: the start of the fold entry's first product.
-template <int R>
-__device__ __forceinline__ void fold_init(float (&acc)[R][kCols],
-                                          const float* __restrict__ be,
-                                          const float* __restrict__ pxj,
-                                          const float* __restrict__ pxi,
-                                          const int* s_snd, const int* s_rcv,
-                                          int n_valid, int tx, int ty) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int e = ty + 16 * i;
-    const bool valid = e < n_valid;
-    const float* pj = pxj + (size_t)s_snd[e] * kW;
-    const float* pi = pxi + (size_t)s_rcv[e] * kW;
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) {
-      const int n = tx + 16 * j;
-      acc[i][j] = valid ? __ldg(be + n) + __ldg(pj + n) + __ldg(pi + n) : 0.f;
-    }
-  }
-}
-
-// acc[i][j] += sum_k A[ty + 16 i][k] * W[k][tx + 16 j]   (A . W)
-template <int R>
-__device__ __forceinline__ void mm_aw(const float* __restrict__ A,
-                                      const float* __restrict__ W,
-                                      float (&acc)[R][kCols], int tx, int ty) {
-#pragma unroll 4
-  for (int k = 0; k < kW; ++k) {
-    float a[R], w[kCols];
-#pragma unroll
-    for (int i = 0; i < R; ++i) a[i] = A[(ty + 16 * i) * kLd + k];
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) w[j] = W[k * kLd + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-  }
-}
-
-// dst[e][n] = acc, through relu when RELU, on the thread's rows and columns.
-template <bool RELU, int R>
-__device__ __forceinline__ void store(float* dst,
-                                      const float (&acc)[R][kCols], int tx,
-                                      int ty) {
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j)
-      dst[(ty + 16 * i) * kLd + tx + 16 * j] =
-          RELU ? fmaxf(acc[i][j], 0.f) : acc[i][j];
 }
 
 }  // namespace tile128
@@ -401,6 +283,15 @@ struct LdsmCols {
   const float* p;
 };
 
+// B(k, n) = row k, column n of a swizzled tile of rows of W floats (a
+// weight as stored, (in, out)), read by scalar loads (ldmatrix cannot
+// transpose 32-bit elements) and split by split_fast: lanes (g, t) read
+// rows k0 + t, columns n0 + g, 32 banks.
+template <int W>
+struct RowsB {
+  const float* p;
+};
+
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const float* row) {
   const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
   asm volatile(
@@ -460,11 +351,35 @@ __device__ __forceinline__ void load_b(FragB& f, const LdsmCols<W>& b,
     split_fast(__uint_as_float(r[q]), f.hi[q], f.lo[q]);
 }
 
+template <int W>
+__device__ __forceinline__ void load_b(FragB& f, const RowsB<W>& b, int k0,
+                                       int n0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  split_fast(b.p[swz_at<W>(k0 + t, n0 + g)], f.hi[0], f.lo[0]);
+  split_fast(b.p[swz_at<W>(k0 + t + 4, n0 + g)], f.hi[1], f.lo[1]);
+}
+
 // d += a . b in three TF32 products, the small terms first.
 __device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
                                      const FragB& b) {
   mma(d, a.lo, b.hi);
   mma(d, a.hi, b.lo);
+  mma(d, a.hi, b.hi);
+}
+
+// d += a_hi . b_hi and corr += a_lo . b_hi + a_hi . b_lo, the caller adding
+// corr into d once the product is done.  The tensor cores add the products
+// of a block to the accumulator aligned to the largest addend and truncate
+// the rest, so every small term added to a large accumulator loses its low
+// bits toward zero, and over a layer and a receiver's edges those losses
+// add up on one side; the small terms kept apart lose bits only at their
+// own scale (emulated: the worst element of a 199-edge receiver at width
+// 128 falls from 1.0 to 0.16 of the 1e-4 bound, against 0.20 with every
+// sum rounded to nearest; tests/test_torch_fold_tiles.py).
+__device__ __forceinline__ void mma3_apart(float (&d)[4], float (&corr)[4],
+                                           const FragA& a, const FragB& b) {
+  mma(corr, a.lo, b.hi);
+  mma(corr, a.hi, b.lo);
   mma(d, a.hi, b.hi);
 }
 
@@ -499,15 +414,18 @@ __device__ __forceinline__ void mm_rows32(float (&acc)[2][2][4],
   }
 }
 
-// acc += A . B for a 64-row tile: A(m, k) (64 x K), B(k, n) (K x N), N = 64
-// or 32.  Warp w owns rows 32 (w & 1) .. + 31 and columns (N / 4) (w >> 1)
-// .. + N / 4 - 1: acc[mi][ni] is the 16 x 8 tile at rows 32 (w & 1) +
-// 16 mi, columns (N / 4) (w >> 1) + 8 ni.  Each A fragment serves N / 32
-// tiles, each B fragment two.
+// acc + corr += A . B for a 64-row tile: A(m, k) (64 x K), B(k, n) (K x
+// N), N = 128, 64 or 32, the small terms in corr (mma3_apart).  Warp w owns
+// rows 32 (w & 1) .. + 31 and columns (N / 4) (w >> 1) .. + N / 4 - 1:
+// acc[mi][ni] is the 16 x 8 tile at rows 32 (w & 1) + 16 mi, columns
+// (N / 4) (w >> 1) + 8 ni.  Each A fragment serves N / 32 tiles, each B
+// fragment two.
 template <int N, int K, class OA, class OB>
 __device__ __forceinline__ void mm_rows64(float (&acc)[2][N / 32][4],
+                                          float (&corr)[2][N / 32][4],
                                           const OA& a, const OB& b) {
-  static_assert(N == 64 || N == 32, "mm_rows64 forms 64 or 32 columns");
+  static_assert(N == 128 || N == 64 || N == 32,
+                "mm_rows64 forms 128, 64 or 32 columns");
   constexpr int NI = N / 32;
   const int w = threadIdx.x >> 5, m0 = 32 * (w & 1), n0 = (N / 4) * (w >> 1);
 #pragma unroll 2
@@ -520,7 +438,8 @@ __device__ __forceinline__ void mm_rows64(float (&acc)[2][N / 32][4],
       FragB fb;
       load_b(fb, b, k0, n0 + 8 * ni);
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi) mma3(acc[mi][ni], fa[mi], fb);
+      for (int mi = 0; mi < 2; ++mi)
+        mma3_apart(acc[mi][ni], corr[mi][ni], fa[mi], fb);
     }
   }
 }

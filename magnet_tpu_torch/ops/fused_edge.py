@@ -42,15 +42,14 @@ y = LN(h·W_out + b_out); the result is out[i] = Σ y over the edges of i,
 
 Compiled builds (``KERNEL_WIDTHS``), keyed by what each entry reads: fold
 (Ce, H, C) = (32, 64, 32) (MAgNet[CNN]) and (128, 128, 128) (MAgNet[GNN]);
-pregathered (H, C) = (64, 32) and (128, 128); pe (H, C) = (128, 128).  The
-width-64 fold build is a warp per receiver; every other forward build walks
-tiles of ``FWD_TILE`` consecutive CSR edges and leaves partial rows
-(``ops.graph.part_rows``) for the receivers that cross a tile, the width-64
-pre-gathered one with its products on the tensor cores in 3xTF32 (see the
-source's header).
-Bounds on an H100 at MAgNet[GNN]'s eval batch (84.3k LR ∪ HR edges,
-L1 = 3, 67 TFLOP/s f32): fold 81,920 multiply-adds per edge, 0.206 ms; pe
-65,536, 0.165 ms; both bound by operations.
+pregathered (H, C) = (64, 32) and (128, 128); pe (H, C) = (128, 128).  Every
+forward build walks tiles of ``FWD_TILE`` consecutive CSR edges with its
+products on the tensor cores in 3xTF32 and leaves partial rows
+(``ops.graph.part_rows``) for the receivers that cross a tile (see the
+source's header).  Bounds on an H100 at MAgNet[GNN]'s eval batch (84.3k LR
+∪ HR edges, L1 = 3, three TF32 products at 495 TFLOP/s): fold 81,920
+multiply-adds per edge, 0.084 ms; pe 65,536, 0.067 ms; both bound by
+operations.
 """
 from __future__ import annotations
 
@@ -70,8 +69,7 @@ KERNEL_WIDTHS = {"fold": {(32, 64, 32), (128, 128, 128)},
                  "pe": {(128, 128)}}
 #: the C entry's ``entry`` argument
 ENTRY = {"pregathered": 0, "fold": 1, "pe": 2}
-#: edges per tile of the tiled forward builds, every build but the width-64
-#: fold entry (two scratch rows per tile)
+#: edges per tile of every forward build (two scratch rows per tile)
 FWD_TILE = 64
 
 #: tail depths (L1) the backward CUDA source is compiled for.
@@ -361,9 +359,8 @@ def _launch_fwd(entry, src, we, be, pxj, pxi, senders, rowptr, *tail):
     ce = widths[0] if entry == "fold" else h
     dev = src.device
     out = torch.zeros(n, c, dtype=torch.float32, device=dev)
-    part = (torch.empty(part_rows(E, FWD_TILE), c, dtype=torch.float32,
-                        device=dev) if h == 128 or entry == "pregathered"
-            else None)
+    part = torch.empty(part_rows(E, FWD_TILE), c, dtype=torch.float32,
+                       device=dev)
     fn = cuda_build.function(FWD, _ARGTYPES[FWD])
     w_rest, b_rest, w_out, b_out, ln_s, ln_b = tail
     with torch.cuda.device(dev):
@@ -372,8 +369,8 @@ def _launch_fwd(entry, src, we, be, pxj, pxi, senders, rowptr, *tail):
             src.data_ptr(), _ptr(we), _ptr(be), _ptr(pxj), pxi.data_ptr(),
             _ptr(senders), rowptr.data_ptr(), w_rest.data_ptr(),
             b_rest.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
-            ln_s.data_ptr(), ln_b.data_ptr(), out.data_ptr(), _ptr(part), n,
-            E, ce, h, c, l1, ENTRY[entry], stream)
+            ln_s.data_ptr(), ln_b.data_ptr(), out.data_ptr(),
+            part.data_ptr(), n, E, ce, h, c, l1, ENTRY[entry], stream)
     if err != 0:
         raise RuntimeError(f"fused_edge_tail_agg launch failed: cudaError {err}")
     _count(entry, widths, bwd=False)

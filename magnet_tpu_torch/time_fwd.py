@@ -1,0 +1,199 @@
+"""The fused GraphNet forward of this checkout against another tree's, in
+turns on one card: #8 at width 64 and 128, #6, and #2 at width 128.
+
+  python -m magnet_tpu_torch.time_fwd [baseline=DIR]
+
+On the card only.  Builds ``csrc/fused_edge_tail_agg.cu`` of this checkout
+and, with ``baseline=DIR``, of the ``csrc/`` directory DIR of another tree
+of the repo (a parent commit unpacked with ``git archive``, say; its C
+entry must take the same arguments).  Makes each main path's graph from
+its coordinates: MAgNet[CNN] 1D's eval batch (16 Heat trajectories) and a
+training batch (32 samples of 32 queries drawn from a seed), MAgNet[CNN]
+2D's eval batch (4 samples at 64²), MAgNet[GNN]'s eval LR ∪ HR graph (16
+trajectories; #6 and #2 there too), with operands drawn from a seed at
+``chip_smoke.py``'s scales.  Holds each library against the plain version
+there (max abs error) and times it with CUDA events over ``REPS``
+launches, in turns: baseline, this, this, baseline.  Prints the card's
+name and power limit, then one JSON line per kernel and shape: the edge
+count, the times, each library's mean, the bounds (f32 CUDA cores and
+three TF32 products on the tensor cores) and the errors.
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from magnet_tpu_torch.config import (
+    HEAT_TEST,
+    MAGNET_CNN,
+    MAGNET_CNN_2D,
+    MAGNET_GNN,
+)
+from magnet_tpu_torch.data.datamodule import synthetic_test_batches
+from magnet_tpu_torch.data.heat import heat_batches
+from magnet_tpu_torch.models.factory import create_model
+from magnet_tpu_torch.ops import cuda_build
+from magnet_tpu_torch.ops import fused_edge as fe
+from magnet_tpu_torch.ops.graph import part_rows
+from magnet_tpu_torch.utils import make_coord_np
+
+F32_PEAK, TF32_PEAK = 67e12, 495e12  # H100 SXM data sheet, FLOP/s
+REPS = 20  # launches a timed run
+#: each entry's TPU kernel (magnet_tpu/ops/pallas_kernels.py)
+KERNEL_NUMBER = {"fold": "#8", "pe": "#6", "pregathered": "#2"}
+
+
+def graphs():
+    """(label, model name, graph) of each main path's #8 / #6 launches, on
+    the CPU."""
+    def build(name, hp, batch):
+        model = create_model(name, dict(hp), device="cpu", seed=0)
+        return model.build_graph({k: torch.as_tensor(v)
+                                  for k, v in batch.items()})
+
+    heat = heat_batches(16, 16, nt=HEAT_TEST["nt"], nx=HEAT_TEST["nx"])[0]
+    rng = np.random.default_rng(0)
+    grid = make_coord_np([256])
+    queries = np.stack([grid[np.sort(rng.choice(256, 32, replace=False))]
+                        for _ in range(32)])
+    train = {"coords": queries, "lr_frames": np.zeros((32, 1, 1, 128))}
+    mesh = make_coord_np([64, 64])
+    eval_2d = {"coords": np.broadcast_to(mesh, (4, *mesh.shape)).copy(),
+               "lr_frames": np.zeros((1, 1, 1, 32, 32))}
+    gnn = synthetic_test_batches("magnet_gnn", 16, 16, seed=0)[0]
+    g_gnn = build("magnet_gnn", MAGNET_GNN, gnn).all
+    return [("cnn_1d_eval", MAGNET_CNN, build("magnet_cnn", MAGNET_CNN, heat)),
+            ("cnn_1d_train", MAGNET_CNN,
+             build("magnet_cnn", MAGNET_CNN, train)),
+            ("cnn_2d_eval", MAGNET_CNN_2D,
+             build("magnet_cnn_2d", MAGNET_CNN_2D, eval_2d)),
+            ("gnn_eval_all", MAGNET_GNN, g_gnn)]
+
+
+def operands(entry, graph, ce, h, c, l1, seed, dev):
+    """The C entry's operands (src, we, be, pxj, pxi, senders, rowptr,
+    tail...) at chip_smoke.py's scales; we and be are None but for the
+    fold (the pregathered entry reads neither pxj nor senders)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def f(*shape, scale=0.3):
+        return (torch.randn(*shape, generator=g) * scale).to(dev)
+
+    n, e = graph.n_node, graph.n_edge
+    src = f(e, ce if entry == "fold" else h)
+    we, be = (f(ce, h), f(h)) if entry == "fold" else (None, None)
+    return (src, we, be, f(n, h), f(n, h), graph.senders.to(dev),
+            graph.rowptr.to(dev), f(l1, h, h), f(l1, h), f(h, c), f(c),
+            1 + f(c, scale=0.1), f(c, scale=0.1))
+
+
+def bind(lib):
+    fn = getattr(ctypes.CDLL(str(lib)), f"{fe.FWD}_f32")
+    fn.argtypes = fe._ARGTYPES[fe.FWD]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def runner(fn, entry, ops, widths):
+    """A closure that launches ``fn`` on ``ops`` as the wrapper does (out
+    zeroed, the partial-row scratch) and returns out."""
+    src, we, be, pxj, pxi, senders, rowptr, *tail = ops
+    ce, h, c = widths
+    n, e, l1 = rowptr.numel() - 1, src.shape[0], tail[0].shape[0]
+    part = torch.empty(part_rows(e, fe.FWD_TILE), c, device=src.device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    def run():
+        out = torch.zeros(n, c, device=src.device)
+        err = fn(src.data_ptr(), ptr(we), ptr(be), pxj.data_ptr(),
+                 pxi.data_ptr(), senders.data_ptr(), rowptr.data_ptr(),
+                 *(t.data_ptr() for t in tail), out.data_ptr(),
+                 part.data_ptr(), n, e, ce, h, c, l1, fe.ENTRY[entry],
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"launch failed: cudaError {err}")
+        return out
+    return run
+
+
+def cuda_ms(fn):
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(REPS):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / REPS
+
+
+def main(argv) -> int:
+    if not torch.cuda.is_available():
+        print("time_fwd: no CUDA device", file=sys.stderr)
+        return 1
+    args = dict(a.split("=", 1) for a in argv)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(smi.splitlines()[0], flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    libs = {"this": cuda_build.build(fe.FWD)}
+    if "baseline" in args:
+        libs["baseline"] = cuda_build.build(fe.FWD,
+                                            csrc=Path(args["baseline"]))
+    fns = {k: bind(v) for k, v in libs.items()}
+    for label, hp, graph in graphs():
+        h = hp["mlp_hidden"]
+        ce = c = hp["latent_dim"]
+        l1 = hp["mlp_layers"] - 1
+        entries = ("fold", "pe", "pregathered") if h == 128 else ("fold",)
+        for entry in entries:
+            ops = operands(entry, graph, ce, h, c, l1, seed=41, dev=dev)
+            src, _, _, pxj, pxi, senders, rowptr, *tail = ops
+            if entry == "fold":
+                want = fe.fused_edge_tail_agg_plain(*ops)
+            elif entry == "pe":
+                want = fe.fused_edge_tail_agg_pe_plain(
+                    src, pxj, pxi, senders, rowptr, None, None, *tail)
+            else:
+                want = fe.fused_edge_tail_agg_pregathered_plain(
+                    src, pxi, rowptr, *tail)
+            runs = {k: runner(fn, entry, ops, (ce, h, c))
+                    for k, fn in fns.items()}
+            err = {k: float((run() - want).abs().max())
+                   for k, run in runs.items()}
+            order = (["baseline", "this", "this", "baseline"]
+                     if "baseline" in runs else ["this", "this"])
+            times = [cuda_ms(runs[k]) for k in order]
+            mean = {k: float(np.mean([t for o, t in zip(order, times)
+                                      if o == k])) for k in runs}
+            macs = (ce * h if entry == "fold" else 0) + l1 * h * h + h * c
+            flops = 2.0 * graph.n_edge * macs
+            print(json.dumps({
+                "kernel": KERNEL_NUMBER[entry], "entry": entry,
+                "widths": [ce, h, c] if entry == "fold" else [h, c],
+                "shape": label, "n_node": graph.n_node,
+                "n_edge": graph.n_edge, "l1": l1, "reps": REPS,
+                "order": order, "ms": times, "mean_ms": mean,
+                "f32_bound_ms": flops / F32_PEAK * 1e3,
+                "tc_bound_ms": 3 * flops / TF32_PEAK * 1e3,
+                "max_abs_err_vs_plain": err,
+                "device": torch.cuda.get_device_name(0)}), flush=True)
+            del ops, want, runs
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
