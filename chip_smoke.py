@@ -202,6 +202,107 @@ def ptxas_lines(lib) -> list[str]:
             if "registers" in ln or "spill" in ln or "entry function" in ln]
 
 
+def bwd_w64_build() -> list[dict]:
+    """Each width-64 backward instantiation (entry, L1): ptxas's lines
+    (registers, spills) and the dynamic shared memory a block takes."""
+    import ctypes
+    import re
+
+    from magnet_tpu_torch.ops import cuda_build
+    from magnet_tpu_torch.ops import fused_edge as fe
+
+    lib = cuda_build.build(fe.BWD)
+    smem = ctypes.CDLL(str(lib)).fused_edge_tail_agg_bwd_w64_smem
+    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    found, lines = [], []
+    for ln in ptxas_lines(lib) + ["entry function (end)"]:
+        if "entry function" in ln:
+            m = re.search(r"edge_tail_bwd_kernelILi(\d)ELb([01])E", lines[0]
+                          if lines else "")
+            if m:
+                entry = "fold" if m.group(2) == "1" else "pregathered"
+                found.append({"entry": entry, "l1": int(m.group(1)),
+                              "smem_bytes": smem(fe.ENTRY[entry],
+                                                 int(m.group(1))),
+                              "ptxas": lines[1:]})
+            lines = []
+        lines.append(ln)
+    return sorted(found, key=lambda f: (f["entry"], f["l1"]))
+
+
+def bits_equal_bwd(fn, ops, g, names) -> dict:
+    """Two launches of a backward give the same bits in every gradient but
+    the node tables the kernels sum with atomics (d_pxj, d_pxi)."""
+    a, b = fn(*ops, g), fn(*ops, g)
+    checked = [n for n in names if n not in ("pxj", "pxi")]
+    return {"checked": checked,
+            "ok": all(torch.equal(x, y) for n, x, y in zip(names, a, b)
+                      if n in checked)}
+
+
+def check_bwd_w64(entry, cases, g_gen, c) -> tuple[dict, tuple]:
+    """The width-64 backward of ``entry`` (fold or pregathered) vs plain,
+    every gradient, on each (label, graph, operands) of ``cases``: by
+    relative L2 at ``train_shape``, where it is also bit-equal from launch
+    to launch but the atomic node sums, and elementwise elsewhere with the
+    degree-0 d_pxi rows zero.  g (N, c) is drawn from ``g_gen``; at
+    ``train_shape`` it is zero on the receivers of relu ties
+    (tie_receivers, counted): the tensor cores' recompute lands more
+    near-zero pre-activations on the other side of 0 than an f32 one, enough
+    to put that shape's relative L2 over BWD_L2 without the guard.  Returns
+    the results and the training shape's (g, gradients)."""
+    from magnet_tpu_torch.ops import fused_edge as fe
+
+    fold = entry == "fold"
+    fn, plain, names = ((fe.fused_edge_tail_agg_bwd,
+                         fe.fused_edge_tail_agg_bwd_plain, fe.GRAD_NAMES)
+                        if fold else
+                        (fe.fused_edge_tail_agg_pregathered_bwd,
+                         fe.fused_edge_tail_agg_pregathered_bwd_plain,
+                         fe.GRAD_NAMES_PREGATHERED))
+    out, train = {}, None
+    for label, gr, ops in cases:
+        dev = ops[0].device
+        g = torch.randn(gr.n_node, c, generator=g_gen).to(dev)
+        train_shape = label == "train_shape"
+        if train_shape:
+            ties = tie_receivers(entry, ops, ops[7 if fold else 3].shape[0])
+            g[ties] = 0.0
+        got = fn(*ops, g)
+        torch.cuda.synchronize()
+        want = plain(*ops, g)
+        out[label] = {name: compare_grad(a, b, elementwise=not train_shape)
+                      for name, a, b in zip(names, got, want)}
+        if train_shape:
+            out[label]["tie_receivers_zeroed"] = int(ties.numel())
+            out[label]["bits_equal_run_to_run"] = bits_equal_bwd(fn, ops, g,
+                                                                 names)
+            train = (g, got)
+        else:
+            zero = gr.degree.to(dev) == 0
+            out[label]["degree0_rows_zero"] = {
+                "ok": bool((got[names.index("pxi")][zero] == 0).all()),
+                "n_degree0": int(zero.sum())}
+    return out, train
+
+
+def bwd_tile_edges(sms: int, seed: int):
+    """``tile_edges_graph`` at the width-64 backward's tile, with more than
+    2 ``sms`` tiles: the grid of at most one block an SM gives every block
+    3 consecutive tiles (the last block fewer), its receiver hint carried
+    from tile to tile.  Returns the graph and its tiling."""
+    from magnet_tpu_torch.ops import fused_edge as fe
+
+    graph = tile_edges_graph(fe.BWD_TILE, seed,
+                             n_edge_min=2 * sms * fe.BWD_TILE + 1)
+    n_tiles = -(-graph.n_edge // fe.BWD_TILE)
+    per_block = -(-n_tiles // sms)
+    return graph, {"n_edge": graph.n_edge, "tile": fe.BWD_TILE,
+                   "n_tiles": n_tiles, "tiles_per_block": per_block,
+                   "blocks": -(-n_tiles // per_block),
+                   "max_degree": int(graph.degree.max())}
+
+
 def timed(fn) -> float:
     """Host seconds of ``fn()`` with the device drained before and after."""
     torch.cuda.synchronize()
@@ -335,30 +436,24 @@ def cnn_phases(dev, data, groups) -> tuple[int, list, dict]:
     del preds, preds_plain
 
     # 5. the backward kernel vs plain, every gradient, at the training
-    # shape (B=32 graphs of 128 LR + 32 HR nodes, flattened) and on the
-    # small graph above (degree-0 node, 64-edge receivers, L1=1)
+    # shape (B=32 graphs of 128 LR + 32 HR nodes, flattened), on the small
+    # graph above (degree-0 node, 64-edge receivers, L1=1) and on a graph
+    # that crosses the backward's tiles in every way (check_bwd_w64)
     data_cfg = {**DATAMODULE_IMPLICIT, **SMOKE_DATA}
     loaders, t_data = data["ks_loaders"], data["ks_seconds"]
     loaders["train"].set_epoch(0)
     batch0 = to_device(next(iter(loaders["train"])), dev)
     tgraph = model.build_graph(batch0)
-    g_gen = torch.Generator().manual_seed(5)
-    bwd = {}
-    for label, gr, ops_ in (("train_shape", tgraph,
-                             kernel_operands(tgraph, ce, h, c, l1, 3, dev)),
-                            ("small_case", small_graph, ops_s)):
-        g = torch.randn(gr.n_node, c, generator=g_gen).to(dev)
-        got_g = fe.fused_edge_tail_agg_bwd(*ops_, g)
-        torch.cuda.synchronize()
-        want_g = fe.fused_edge_tail_agg_bwd_plain(*ops_, g)
-        bwd[label] = {
-            name: compare_grad(a, b, elementwise=label == "small_case")
-            for name, a, b in zip(fe.GRAD_NAMES, got_g, want_g)}
-        if label == "train_shape":
-            ops_t, g_t = ops_, g
-        else:
-            bwd[label]["degree0_row_zero"] = {
-                "ok": bool((got_g[4][17] == 0).all())}
+    bwd_tiles, tiles_info = bwd_tile_edges(
+        torch.cuda.get_device_properties(dev).multi_processor_count, seed=29)
+    ops_t = kernel_operands(tgraph, ce, h, c, l1, 3, dev)
+    bwd, (g_t, _) = check_bwd_w64(
+        "fold", (("train_shape", tgraph, ops_t),
+                 ("small_case", small_graph, ops_s),
+                 ("tile_edges", bwd_tiles,
+                  kernel_operands(bwd_tiles, ce, h, c, l1, 30, dev))),
+        torch.Generator().manual_seed(5), c)
+    bwd["tile_edges"]["graph"] = tiles_info
     bwd_ms = cuda_ms(lambda: fe.fused_edge_tail_agg_bwd(*ops_t, g_t), reps=50)
     bwd_plain_ms = cuda_ms(
         lambda: fe.fused_edge_tail_agg_bwd_plain(*ops_t, g_t), reps=10)
@@ -369,23 +464,27 @@ def cnn_phases(dev, data, groups) -> tuple[int, list, dict]:
     fwd_plain_ms_t = cuda_ms(lambda: fe.fused_edge_tail_agg_plain(*ops_t),
                              reps=20)
     bnd_bwd = bound("bwd", tgraph, ce, h, c, l1)
+    bnd_bwd.update(tc_bound(bnd_bwd))
     bnd_fwd_t = bound("fwd", tgraph, ce, h, c, l1)
     bnd_fwd_t.update(tc_bound(bnd_fwd_t),
                      share_of_tc_bound=tc_bound(bnd_fwd_t)["tc_bound_ms"]
                      / fwd_ms_t)
     bwd_ok = fwd_t["ok"] and all(
-        v["ok"] for case in bwd.values() for v in case.values())
+        v["ok"] for case in bwd.values() for v in case.values()
+        if isinstance(v, dict) and "ok" in v)
     bwd_err = max(v["max_abs_err"] for case in bwd.values()
-                  for v in case.values() if "max_abs_err" in v)
+                  for v in case.values()
+                  if isinstance(v, dict) and "max_abs_err" in v)
     emit({"phase": "kernel_bwd", "n_node": tgraph.n_node,
           "n_edge": tgraph.n_edge,
           "mean_degree": float(tgraph.degree.mean()),
           "max_degree": int(tgraph.degree.max()), "l1": l1,
           "tolerance": {"rtol": BWD_RTOL, "atol_rel_to_max": BWD_ATOL_REL,
                         "max_rel_l2": BWD_L2,
-                        "elementwise": "small_case only"},
+                        "elementwise": "small_case and tile_edges"},
           **bwd, "ms": bwd_ms, "plain_ms": bwd_plain_ms, "library_ms": None,
-          **bnd_bwd,
+          **bnd_bwd, "share_of_tc_bound": bnd_bwd["tc_bound_ms"] / bwd_ms,
+          "build": bwd_w64_build(),
           "forward_at_this_shape": {"vs_plain": fwd_t, "ms": fwd_ms_t,
                                     "plain_ms": fwd_plain_ms_t, **bnd_fwd_t},
           "ok": bwd_ok})
@@ -519,6 +618,8 @@ def cnn_phases(dev, data, groups) -> tuple[int, list, dict]:
         "launches": train_launches_bwd, "max_abs_err": bwd_err,
         "ms": bwd_ms, "plain_ms": bwd_plain_ms,
         "bound_ms": bnd_bwd["bound_ms"], "bound_by": bnd_bwd["bound_by"],
+        "tc_bound_ms": bnd_bwd["tc_bound_ms"],
+        "tc_bound_by": bnd_bwd["tc_bound_by"],
         "library_ms": None, "ok": bwd_ok and train_ok}]
     return (0 if train_ok else 5), kernels, {}
 
@@ -558,14 +659,16 @@ def mpnn_bound(kernel: str, gather: bool, graph, h) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def tile_edges_graph(te: int, seed: int):
-    """A graph whose edges meet the tiled forward kernels' tiles of ``te``
+def tile_edges_graph(te: int, seed: int, n_edge_min: int = 0):
+    """A graph whose edges meet the tiled kernels' tiles of ``te``
     consecutive edges in every way their receiver sums must handle:
     receiver 3 takes 3 te + 7 edges from mid-tile (it spans four tiles);
     receiver 5 ends exactly on a tile boundary, with receivers of degree 0
     on both sides of it (6, 7 and 9); receiver 8 fills a tile; and the edge
-    count is one past a multiple of te.  Built from an explicit edge list,
-    since radius_graph caps the degree; senders drawn from a seed."""
+    count is one past a multiple of te.  With ``n_edge_min``, receivers of
+    0 to 2 te - 1 edges are added until there are at least that many edges.
+    Built from an explicit edge list, since radius_graph caps the degree;
+    senders drawn from a seed."""
     from magnet_tpu_torch.ops.graph import csr_from_edges
 
     rng = np.random.default_rng(seed)
@@ -573,6 +676,8 @@ def tile_edges_graph(te: int, seed: int):
     deg.append(-sum(deg) % te or te)
     deg += [0, 0, te, 0]
     deg += list(rng.integers(1, 2 * te, 12))
+    while sum(deg) < n_edge_min:
+        deg += list(rng.integers(0, 2 * te, 64))
     deg.append((1 - sum(deg)) % te or te)
     deg += [0, 0]
     n = len(deg)
@@ -1170,31 +1275,27 @@ def cnn2d_phases(dev, data, groups) -> tuple[int, list, dict]:
     if not kernel_ok:
         return 10, [], {}
 
-    # 12. #3 vs plain (every gradient; elementwise on the small graph, by
-    # relative L2 at the training shape, where relu ties flip a few
-    # edges), and #1 over the sender CSR vs plain and index_add_
-    g_gen = torch.Generator().manual_seed(23)
-    bwd = {}
-    for label, gr, o in (("train_shape", graph, ops), ("small_case", small,
-                                                       ops_s)):
-        g = torch.randn(gr.n_node, c, generator=g_gen).to(dev)
-        got_g = fe.fused_edge_tail_agg_pregathered_bwd(*o, g)
-        torch.cuda.synchronize()
-        want_g = fe.fused_edge_tail_agg_pregathered_bwd_plain(*o, g)
-        bwd[label] = {
-            name: compare_grad(a, b, elementwise=label == "small_case")
-            for name, a, b in zip(fe.GRAD_NAMES_PREGATHERED, got_g, want_g)}
-        if label == "train_shape":
-            g_t, d_h0 = g, got_g[0]
-        else:
-            bwd[label]["degree0_row_zero"] = {
-                "ok": bool((got_g[1][17] == 0).all())}
+    # 12. #3 vs plain (every gradient, as phase 5: check_bwd_w64), and #1
+    # over the sender CSR vs plain and index_add_
+    bwd_tiles, tiles_info = bwd_tile_edges(
+        torch.cuda.get_device_properties(dev).multi_processor_count, seed=38)
+    bwd_tiles = bwd_tiles.to(dev)
+    bwd, (g_t, (d_h0, *_)) = check_bwd_w64(
+        "pregathered", (("train_shape", graph, ops),
+                        ("small_case", small, ops_s),
+                        ("tile_edges", bwd_tiles,
+                         pregathered_operands(bwd_tiles, h, c, l1, seed=39,
+                                              dev=dev))),
+        torch.Generator().manual_seed(23), c)
+    bwd["tile_edges"]["graph"] = tiles_info
     bwd_ms = cuda_ms(lambda: fe.fused_edge_tail_agg_pregathered_bwd(*ops, g_t),
                      reps=20)
     bwd_plain_ms = cuda_ms(
         lambda: fe.fused_edge_tail_agg_pregathered_bwd_plain(*ops, g_t), reps=5)
     bnd_bwd = pregathered_bound("bwd", graph, h, c, l1)
-    bwd_ok = all(v["ok"] for case in bwd.values() for v in case.values())
+    bnd_bwd.update(tc_bound(bnd_bwd))
+    bwd_ok = all(v["ok"] for case in bwd.values() for v in case.values()
+                 if isinstance(v, dict) and "ok" in v)
 
     ptr, perm = graph.snd_ptr, graph.snd_perm
     senders = graph.senders.long()
@@ -1231,9 +1332,11 @@ def cnn2d_phases(dev, data, groups) -> tuple[int, list, dict]:
     emit({"phase": "cnn2d_kernel_bwd", **shape,
           "tolerance": {"rtol": BWD_RTOL, "atol_rel_to_max": BWD_ATOL_REL,
                         "max_rel_l2": BWD_L2,
-                        "elementwise": "small_case only"},
+                        "elementwise": "small_case and tile_edges"},
           "vs_plain": bwd, "ms": bwd_ms, "plain_ms": bwd_plain_ms,
           "library_ms": None, **bnd_bwd,
+          "share_of_tc_bound": bnd_bwd["tc_bound_ms"] / bwd_ms,
+          "build": bwd_w64_build(),
           "segment_sum": {**seg_cmp, "ms": seg_ms, "plain_ms": seg_plain_ms,
                           "library_ms": seg_lib_ms,
                           "library": "torch.Tensor.index_add_", **bnd_seg,
@@ -1480,6 +1583,8 @@ def cnn2d_phases(dev, data, groups) -> tuple[int, list, dict]:
         "launches": fit_counts["pregathered_bwd"], "max_abs_err": worst(bwd),
         "ms": bwd_ms, "plain_ms": bwd_plain_ms,
         "bound_ms": bnd_bwd["bound_ms"], "bound_by": bnd_bwd["bound_by"],
+        "tc_bound_ms": bnd_bwd["tc_bound_ms"],
+        "tc_bound_by": bnd_bwd["tc_bound_by"],
         "library_ms": None, "ok": train_ok}, {
         "name": "segment_sum", "route": "cuda",
         "source": "magnet_tpu_torch/csrc/segment_sum.cu",
@@ -1540,11 +1645,14 @@ def tie_receivers(entry, ops, l1):
     """The receivers of the edges whose recomputed pre-activations (any
     layer, in float64) lie within 1e-5 of zero relative to that layer's
     RMS: relu ties, where the kernel and the plain version may take the
-    other side of 0 and differ by O(1) in that edge's gradient."""
+    other side of 0 and differ by O(1) in that edge's gradient.  ``ops``
+    are the fold, pre-gathered or pe entry's operands."""
     d = [t.double() if t.is_floating_point() else t for t in ops]
     if entry == "fold":
         e0, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest = d[:9]
         z = e0 @ we + be + pxj[senders.long()]
+    elif entry == "pregathered":
+        z, pxi, rowptr, w_rest, b_rest = d[:5]
     else:
         pe, pxj, pxi, senders, rowptr = d[:5]
         w_rest, b_rest = d[7], d[8]

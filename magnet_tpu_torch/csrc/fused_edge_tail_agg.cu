@@ -161,35 +161,6 @@ cudaError_t grid_cap(Kernel kernel, int threads, GridCache& cache, int l1,
   return cudaSuccess;
 }
 
-// The tiles of a persistent block: consecutive, [*t_beg, *t_end).
-__device__ __forceinline__ void block_tiles(int n_edges, int* t_beg,
-                                            int* t_end) {
-  const int n_tiles = (n_edges + kTE - 1) / kTE;
-  const int per_block = (n_tiles + gridDim.x - 1) / gridDim.x;
-  *t_beg = blockIdx.x * per_block;
-  *t_end = min(n_tiles, *t_beg + per_block);
-}
-
-// The receivers (and, GATHERS, the senders) of tile `tile`'s edges into
-// s_rcv / s_snd (zero past the edge count), found from `hint`, a receiver
-// of an edge before the tile (or -1).  Warps 0 and 1, 32 edges each; every
-// lane of both enters.
-template <bool GATHERS>
-__device__ __forceinline__ void tile_indices(int* s_rcv, int* s_snd,
-                                             const int* __restrict__ senders,
-                                             const int* __restrict__ rowptr,
-                                             int n_nodes, int n_edges,
-                                             int tile, int hint) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int base = tile * kTE + 32 * warp;
-  const int n_valid = min(32, n_edges - base);
-  const int rv = tile128::warp_receiver(rowptr, n_nodes, base, n_valid, hint);
-  const bool valid = lane < n_valid;
-  s_rcv[32 * warp + lane] = valid ? rv : 0;
-  if (GATHERS)
-    s_snd[32 * warp + lane] = valid ? __ldg(senders + base + lane) : 0;
-}
-
 // acc += corr, and corr = 0 (the small products' accumulator, mm_rows64).
 template <int N>
 __device__ __forceinline__ void add_apart(float (&acc)[2][N / 32][4],
@@ -378,7 +349,7 @@ edge_tail_kernel(const float* __restrict__ src, const float* __restrict__ we,
   const int tid = threadIdx.x, warp = tid >> 5;
 
   int t_beg, t_end;
-  block_tiles(n_edges, &t_beg, &t_end);
+  tile128::block_tiles<kTE>(n_edges, &t_beg, &t_end);
   if (t_beg >= t_end) return;  // the whole block
 
   // The weight chain, one step a chunk: W_e (fold), W_1 .. W_L1, W_out.
@@ -417,8 +388,8 @@ edge_tail_kernel(const float* __restrict__ src, const float* __restrict__ we,
       (kPieces + n_steps - stage_from - 1) / (n_steps - stage_from);
 
   if (warp < 2)
-    tile_indices<kGathers>(s_rcv, s_snd, senders, rowptr, n_nodes, n_edges,
-                           t_beg, -1);
+    tile128::tile_indices<kTE, kGathers>(s_rcv, s_snd, senders, rowptr,
+                                         n_nodes, n_edges, t_beg, -1);
   stage(t_beg, 0, kPieces);
   load_chunk(0);
   cp_async_commit();
@@ -469,9 +440,9 @@ edge_tail_kernel(const float* __restrict__ src, const float* __restrict__ we,
       // with the last tile's sums, and has written the last layer
       __syncthreads();
       if (s == 0 && more && warp < 2)
-        tile_indices<kGathers>(s_rcv + nxt * kTE, s_snd + nxt * kTE, senders,
-                               rowptr, n_nodes, n_edges, tile + 1,
-                               rcv[n_valid - 1]);
+        tile128::tile_indices<kTE, kGathers>(
+            s_rcv + nxt * kTE, s_snd + nxt * kTE, senders, rowptr, n_nodes,
+            n_edges, tile + 1, rcv[n_valid - 1]);
       if (s + 1 < n_steps)
         load_chunk(s + 1);
       else if (more)
@@ -618,7 +589,7 @@ edge_tail_kernel(const float* __restrict__ src, const float* __restrict__ we,
   if (tid < kC) s_bo[tid] = __ldg(b_out + tid);
 
   int t_beg, t_end;
-  block_tiles(n_edges, &t_beg, &t_end);
+  tile128::block_tiles<kTE>(n_edges, &t_beg, &t_end);
   // the input rows of tile `tile`, whose receivers are in buffer `buf`:
   // h0 and pxi (pregathered) or e0 (fold), one committed group
   auto gather = [&](int tile, int buf) {
@@ -637,8 +608,8 @@ edge_tail_kernel(const float* __restrict__ src, const float* __restrict__ we,
 
   if (t_beg < t_end) {
     if (warp < 2)
-      tile_indices<kFoldE>(s_rcv, s_snd, senders, rowptr, n_nodes, n_edges,
-                           t_beg, -1);
+      tile128::tile_indices<kTE, kFoldE>(s_rcv, s_snd, senders, rowptr,
+                                         n_nodes, n_edges, t_beg, -1);
     __syncthreads();
     gather(t_beg, 0);
   }
@@ -673,9 +644,9 @@ edge_tail_kernel(const float* __restrict__ src, const float* __restrict__ we,
       }
     }
     if (more && warp < 2)
-      tile_indices<kFoldE>(s_rcv + nxt * kTE, s_snd + nxt * kTE, senders,
-                           rowptr, n_nodes, n_edges, tile + 1,
-                           rcv[n_valid - 1]);
+      tile128::tile_indices<kTE, kFoldE>(
+          s_rcv + nxt * kTE, s_snd + nxt * kTE, senders, rowptr, n_nodes,
+          n_edges, tile + 1, rcv[n_valid - 1]);
     __syncthreads();  // act written, the staging buffers free
     if (more) gather(tile + 1, nxt);
 

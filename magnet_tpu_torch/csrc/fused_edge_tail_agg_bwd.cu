@@ -27,50 +27,73 @@
 //                  segment sum of dz over the sender CSR, as the JAX VJP
 //                  reduces it outside the kernel)
 //     d_pxi[i] (N, H) += dz              and, packed into one buffer,
-//     dW_e, db_e (fold only), dW_k, db_k, dW_out, db_out, d_ln_s, d_ln_b.
-// relu's derivative at 0 is 0; a receiver of degree 0 has no edge, so its
-// d_pxi row stays 0.  At width 64 no (E, H) activation is written to device
-// memory: the activations are recomputed per tile in shared memory (the
-// pregathered entry writes its d_h0, which is its output); at width 128
-// they go through a scratch buffer (below).
+//     dW_e, db_e (fold only), dW_k, db_k, dW_out, db_out, d_ln_s, d_ln_b,
+// with dy = rstd (g ln_s - mean(g ln_s) - xhat mean(g ln_s xhat)),
+// da_L1 = (dy . W_out^T) [h_L1 > 0], da_{k-1} = (da_k . W_k^T) [h_{k-1} >
+// 0], dz = da_0, dW_k = h_{k-1}^T . da_k, db_k = sum da_k (and likewise
+// for W_out from h_L1 and dy, for W_e from e0 and dz).  relu's derivative
+// at 0 is 0; a receiver of degree 0 has no edge, so its d_pxi row stays 0.
 //
 // Compiled builds: fold (Ce, H, C) = (32, 64, 32) and (128, 128, 128);
 // pregathered (H, C) = (64, 32) and (128, 128); pe (H, C) = (128, 128);
 // L1 in 0..3.  The width-64 and width-128 builds are two designs.
 //
-// Design at width 64.  The backward is three matrix products per layer
-// (recompute, data gradient, weight gradient), so it is written as tiled
-// products, not as one lane per edge (a lane that kept every layer's
-// activation would need 4 x 64 registers and spill):
-//   * a block of 256 threads (16 x 16) owns a tile of 64 consecutive CSR
-//     edges; tiles need not align with receivers, each edge finds its
-//     receiver by a binary search in rowptr;
-//   * all weights (67 KB) and the tile's activations h_0..h_L1 (65-float
-//     rows, so that row and column reads are both free of bank conflicts)
-//     live in dynamic shared memory, ~185 KB at L1 = 3: one block per SM;
-//   * every thread computes a 4 x 4 (or 4 x 2) register tile of each
-//     product; da_k overwrites the buffer of h_{k+1}, which is dead by then;
-//   * weight gradients: each thread keeps its 4 x 4 patch of every dW in
-//     registers across all tiles of its (persistent) block, so there are no
-//     shared-memory atomics and no per-warp reduction; a block writes its
-//     partial sums once, and a second small kernel in this file adds the
-//     blocks' partials in a fixed order, so the weight gradients are the
-//     same from run to run;
+// Design at width 64 (namespace w64; fold (32, 64, 32), pregathered
+// (64, 32)): one kernel, every product on the tensor cores.
+//   * A persistent block of 512 threads (16 warps, one block per SM) walks
+//     consecutive tiles of 64 CSR edges (tile128::block_tiles); warps 0 and
+//     1 find the next tile's receivers (and senders) from the last receiver
+//     of this one (tile128::warp_receiver).
+//   * Every weight stays in shared memory for the whole launch, as stored
+//     (in, out) and XOR-swizzled: one copy serves W (RowsB, scalar loads)
+//     and W^T (LdsmCols, ldmatrix).  The tile's activations h_0..h_L1 and
+//     one more plane live in swizzled (64, 64) planes, y and dy in a
+//     (64, 32) tile; nothing of (E, H) reaches device memory but the
+//     pregathered entry's d_h0, its output.  The next tile's input rows
+//     (e0 or h0) arrive by cp.async while this tile computes.  The fold's
+//     first-layer accumulators start at b_e + pxj[s] + pxi[i], read through
+//     L2; the pregathered entry forms relu(h0 + pxi[i]) with pxi read
+//     likewise.  178,432 bytes of shared memory (fold) and 169,472
+//     (pregathered) at L1 = 3.
+//   * Each layer of the backward is one phase between two barriers: the
+//     weight gradient h_{k-1}^T . da_k (A read down the columns of the
+//     activation plane by scalar loads, ColsA, free of bank conflicts on
+//     the swizzle) and the data gradient da_{k-1} = (da_k . W_k^T) [h_{k-1}
+//     > 0] into the plane of h_k, dead by then (so da_j sits in plane
+//     j + 1 and dz in plane 1): one barrier a layer, with one plane more
+//     than the activations.
+//   * Products: 3xTF32 (tf32x3::mm_warp, mma.sync m16n8k8, operands split
+//     by split_fast, the small products in an accumulator of their own);
+//     warp w forms 16 rows and 16 columns of a 64 x 64 result (8 of a
+//     64 x 32 or 32 x 64 one).
+//   * Weight gradients: the tensor cores truncate what they add to a large
+//     accumulator, and a block's running sums span its whole edge range
+//     (~510 edges at MAgNet[CNN] 1D's training graph, ~2,270 at 2D's
+//     batch-32 graph), so each tile's dW is formed in fresh accumulators
+//     and added to the thread's running f32 sums (32 registers at L1 = 3)
+//     with ordinary adds.  The bias gradients are column sums of the
+//     gradient planes, a thread a column and an eighth of the rows
+//     (d_ln_s, d_ln_b: a shuffle sum over a warp's four edges, kept per
+//     warp in shared memory).  A block writes its partial sums once, and a
+//     second small kernel adds the blocks' partials in block order, so the
+//     weight gradients are the same from run to run.
 //   * fold: d_pxj is scattered over senders with f32 atomicAdd into a
-//     zeroed buffer; the pregathered entry has no d_pxj; d_pxi is summed
-//     over each run of equal receivers inside a quarter tile and then added
-//     with one atomicAdd per run.  Both therefore differ in the last bits
-//     from run to run (d_h0 does not).
-//
+//     zeroed buffer; d_pxi is summed over each run of equal receivers in an
+//     eighth of a tile and added with one atomicAdd per run.  Both differ
+//     in the last bits from run to run; d_e0 / d_h0 and the weight
+//     gradients do not.
 // What bounds it on an H100: recompute, data and weight gradients are each
-// the forward's 16,384 multiply-adds per edge (Ce = 32, H = 64, L1 = 3,
-// C = 32), 2 x E x 49,152 FLOP on the f32 CUDA cores, against e0 read and
-// d_e0 written once: bound by operations (the pregathered entry: three
-// times 14,336 multiply-adds per edge against h0 read and d_h0 written,
-// ~154 MB at E ~ 299.8k, still bound by operations).  Each product step
-// makes 8 shared-memory loads for 16 FMAs, so the shared-memory pipe, not
-// the FMA pipe, is the limit of this first version; wgmma is left for
-// later.
+// the forward's multiply-adds: 3 x 16,384 an edge for the fold at L1 = 3
+// (3 x 14,336 pregathered), against e0 read and d_e0 written once (256 B an
+// edge): bound by operations.  At MAgNet[CNN] 1D's training graph (67,680
+// edges) 6.65 GFLOP, 0.0993 ms on the f32 CUDA cores or 0.0403 ms as three
+// TF32 products at 495 TFLOP/s; the pregathered entry at 2D's batch-32
+// graph (299,894 edges) 0.385 / 0.156 ms.  mma.sync and not wgmma: the
+// products read W as stored and transposed and the activation planes along
+// their rows and down their columns, while wgmma's tf32 form reads only
+// K-major operands from shared memory.  One block of 16 warps an SM and
+// not two of 8: two would hold the weights twice (2 x 65 KB), forcing
+// 32-edge tiles and 64 running dW registers a thread.
 //
 // Design at width 128 (all three entries, Ce = H = C = 128, L1 <= 3).
 // Five f32 weight gradients (320 KB at L1 = 3) fit neither a block's
@@ -125,6 +148,7 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (magnet_tpu_torch/ops/cuda_build.py does this).
 
+
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -133,355 +157,8 @@
 
 namespace {
 
-using namespace tile_mm;  // kTE, kThreads, kRows, mm_fwd, mm_bwd_data, mm_bwd_w
-
 constexpr float kLnEps = 1e-5f;
-
-// Offsets, in floats, into dynamic shared memory and into the packed
-// weight-gradient buffer.
-// The pregathered entry (FOLD = false) has no W_e, b_e and e0 tile.
-template <int CE, int H, int C, int L1, bool FOLD>
-struct Layout {
-  static constexpr int ldE = CE + 1, ldH = H + 1, ldC = C + 1;
-  static constexpr int CEF = FOLD ? CE : 0, HF = FOLD ? H : 0;
-  static constexpr int we = 0;                       // (CE, ldH)
-  static constexpr int wr = we + CEF * ldH;          // (L1, H, ldH)
-  static constexpr int wo = wr + L1 * H * ldH;       // (H, ldC)
-  static constexpr int be = wo + H * ldC;            // (H)
-  static constexpr int br = be + H;                  // (L1, H)
-  static constexpr int bo = br + L1 * H;             // (C)
-  static constexpr int ls = bo + C;                  // (C)
-  static constexpr int e0 = ls + C;                  // (kTE, ldE)
-  static constexpr int act = e0 + (FOLD ? kTE * ldE : 0);  // (L1+2, kTE, ldH)
-  static constexpr int y = act + (L1 + 2) * kTE * ldH;  // (kTE, ldC)
-  static constexpr int gx = y + kTE * ldC;           // (kTE, ldC) g * xhat
-  static constexpr int gg = gx + kTE * ldC;          // (kTE, ldC) g
-  static constexpr int snd = gg + kTE * ldC;         // (kTE) int
-  static constexpr int rcv = snd + kTE;              // (kTE) int
-  static constexpr int smem_floats = rcv + kTE;
-
-  static constexpr int g_we = 0;
-  static constexpr int g_be = g_we + CEF * H;
-  static constexpr int g_wr = g_be + HF;
-  static constexpr int g_br = g_wr + L1 * H * H;
-  static constexpr int g_wo = g_br + L1 * H;
-  static constexpr int g_bo = g_wo + H * C;
-  static constexpr int g_ls = g_bo + C;
-  static constexpr int g_lb = g_ls + C;
-  static constexpr int g_total = g_lb + C;
-};
-
-template <int CE, int H, int C, int L1, bool FOLD>
-__global__ void __launch_bounds__(kThreads, 1)
-fused_edge_tail_agg_bwd_kernel(
-    const float* __restrict__ src, const float* __restrict__ we,
-    const float* __restrict__ be, const float* __restrict__ pxj,
-    const float* __restrict__ pxi, const int* __restrict__ senders,
-    const int* __restrict__ rowptr, const float* __restrict__ w_rest,
-    const float* __restrict__ b_rest, const float* __restrict__ w_out,
-    const float* __restrict__ b_out, const float* __restrict__ ln_s,
-    const float* __restrict__ g, float* __restrict__ d_src,
-    float* __restrict__ d_pxj, float* __restrict__ d_pxi,
-    float* __restrict__ partial, int n_nodes, int n_edges) {
-  using L = Layout<CE, H, C, L1, FOLD>;
-  static_assert(CE % 16 == 0 && H % 16 == 0 && C % 16 == 0,
-                "widths must be multiples of 16 (16 x 16 thread grid)");
-  static_assert(kTE * 4 == kThreads && C % 4 == 0,
-                "LayerNorm phase: four threads per edge");
-  static_assert(kThreads % H == 0 && kTE % (kThreads / H) == 0,
-                "d_pxi phase: one column per thread, equal edge ranges");
-  static_assert(2 * C <= kThreads, "LayerNorm column sums");
-  constexpr int ldE = L::ldE, ldH = L::ldH, ldC = L::ldC;
-  constexpr int NL = L1 > 0 ? L1 : 1;
-
-  extern __shared__ float smem[];
-  float* s_we = smem + L::we;
-  float* s_wr = smem + L::wr;
-  float* s_wo = smem + L::wo;
-  float* s_be = smem + L::be;
-  float* s_br = smem + L::br;
-  float* s_bo = smem + L::bo;
-  float* s_ls = smem + L::ls;
-  float* s_e0 = smem + L::e0;
-  float* s_act = smem + L::act;
-  float* s_y = smem + L::y;
-  float* s_gx = smem + L::gx;
-  float* s_gg = smem + L::gg;
-  int* s_snd = reinterpret_cast<int*>(smem + L::snd);
-  int* s_rcv = reinterpret_cast<int*>(smem + L::rcv);
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-
-  if (FOLD) {
-    for (int k = tid; k < CE * H; k += kThreads)
-      s_we[(k / H) * ldH + k % H] = we[k];
-    for (int k = tid; k < H; k += kThreads) s_be[k] = be[k];
-  }
-  for (int k = tid; k < L1 * H * H; k += kThreads)
-    s_wr[(k / H) * ldH + k % H] = w_rest[k];
-  for (int k = tid; k < H * C; k += kThreads)
-    s_wo[(k / C) * ldC + k % C] = w_out[k];
-  for (int k = tid; k < L1 * H; k += kThreads) s_br[k] = b_rest[k];
-  for (int k = tid; k < C; k += kThreads) {
-    s_bo[k] = b_out[k];
-    s_ls[k] = ln_s[k];
-  }
-  __syncthreads();
-
-  // the thread's patches of the weight gradients, summed over its tiles
-  float acc_we[CE / 16][H / 16], acc_be[H / 16];
-  float acc_wr[NL][H / 16][H / 16], acc_br[NL][H / 16];
-  float acc_wo[H / 16][C / 16], acc_bo[C / 16];
-  float acc_ln = 0.f;  // tid < C: d_ln_s[tid]; tid < 2C: d_ln_b[tid - C]
-#pragma unroll
-  for (int j = 0; j < H / 16; ++j) {
-    acc_be[j] = 0.f;
-#pragma unroll
-    for (int i = 0; i < CE / 16; ++i) acc_we[i][j] = 0.f;
-#pragma unroll
-    for (int l = 0; l < NL; ++l) {
-      acc_br[l][j] = 0.f;
-#pragma unroll
-      for (int i = 0; i < H / 16; ++i) acc_wr[l][i][j] = 0.f;
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < C / 16; ++j) {
-    acc_bo[j] = 0.f;
-#pragma unroll
-    for (int i = 0; i < H / 16; ++i) acc_wo[i][j] = 0.f;
-  }
-
-  const int n_tiles = (n_edges + kTE - 1) / kTE;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int base = tile * kTE;
-    const int n_valid = min(kTE, n_edges - base);
-
-    // the tile's indices and edge latents; rows past the end are zero
-    if (tid < kTE) {
-      int sv = 0, rv = 0;
-      if (tid < n_valid) {
-        const int e = base + tid;
-        sv = FOLD ? senders[e] : 0;
-        int lo = 0, hi = n_nodes;  // rowptr[lo] <= e < rowptr[hi]
-        while (hi - lo > 1) {
-          const int mid = (lo + hi) >> 1;
-          if (rowptr[mid] <= e) lo = mid; else hi = mid;
-        }
-        rv = lo;
-      }
-      s_snd[tid] = sv;
-      s_rcv[tid] = rv;
-    }
-    if constexpr (FOLD) {
-      for (int k = tid; k < kTE * CE; k += kThreads) {
-        const int r = k / CE, c = k % CE;
-        s_e0[r * ldE + c] =
-            r < n_valid ? src[(size_t)(base + r) * CE + c] : 0.f;
-      }
-      __syncthreads();
-      // recompute: h_0 = relu(e0 . W_e + b_e + pxj[j] + pxi[i])
-      float* out = s_act;
-      mm_fwd<CE, H, true>(
-          s_e0, ldE, s_we, ldH,
-          [&](int e, int n) {
-            return e < n_valid ? s_be[n] + pxj[(size_t)s_snd[e] * H + n] +
-                                     pxi[(size_t)s_rcv[e] * H + n]
-                               : 0.f;
-          },
-          [&](int e, int n, float v) { out[e * ldH + n] = v; }, tx, ty);
-    } else {
-      __syncthreads();
-      // recompute: h_0 = relu(h0[e] + pxi[i]); rows past the end are zero
-      for (int k = tid; k < kTE * H; k += kThreads) {
-        const int e = k / H, n = k % H;
-        const float z = e < n_valid ? src[(size_t)(base + e) * H + n] +
-                                          pxi[(size_t)s_rcv[e] * H + n]
-                                    : 0.f;
-        s_act[e * ldH + n] = fmaxf(z, 0.f);
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 1; k <= L1; ++k) {
-      const float* b = s_br + (k - 1) * H;
-      float* out = s_act + k * kTE * ldH;
-      mm_fwd<H, H, true>(
-          s_act + (k - 1) * kTE * ldH, ldH, s_wr + (k - 1) * H * ldH, ldH,
-          [&](int, int n) { return b[n]; },
-          [&](int e, int n, float v) { out[e * ldH + n] = v; }, tx, ty);
-      __syncthreads();
-    }
-    mm_fwd<H, C, false>(
-        s_act + L1 * kTE * ldH, ldH, s_wo, ldC,
-        [&](int, int c) { return s_bo[c]; },
-        [&](int e, int c, float v) { s_y[e * ldC + c] = v; }, tx, ty);
-    __syncthreads();
-
-    // LayerNorm backward, four threads per edge: y -> dy in place, and the
-    // tile's g and g * xhat for the scale and bias gradients
-    {
-      constexpr int CP = C / 4;
-      const int e = tid >> 2, c0 = (tid & 3) * CP;
-      float* yr = s_y + e * ldC + c0;
-      float v[CP], dx[CP];
-      float mu = 0.f;
-#pragma unroll
-      for (int c = 0; c < CP; ++c) {
-        v[c] = yr[c];
-        mu += v[c];
-      }
-      mu += __shfl_xor_sync(0xffffffffu, mu, 1);
-      mu += __shfl_xor_sync(0xffffffffu, mu, 2);
-      mu *= 1.f / C;
-      float var = 0.f;
-#pragma unroll
-      for (int c = 0; c < CP; ++c) {
-        const float d = v[c] - mu;
-        var = fmaf(d, d, var);
-      }
-      var += __shfl_xor_sync(0xffffffffu, var, 1);
-      var += __shfl_xor_sync(0xffffffffu, var, 2);
-      var *= 1.f / C;
-      const float rstd = rsqrtf(var + kLnEps);
-      const bool valid = e < n_valid;
-      const float* gp = g + (size_t)s_rcv[e] * C + c0;
-      float m1 = 0.f, m2 = 0.f;
-#pragma unroll
-      for (int c = 0; c < CP; ++c) {
-        const float gv = valid ? gp[c] : 0.f;
-        const float xh = (v[c] - mu) * rstd;
-        dx[c] = gv * s_ls[c0 + c];
-        m1 += dx[c];
-        m2 = fmaf(dx[c], xh, m2);
-        s_gx[e * ldC + c0 + c] = gv * xh;
-        s_gg[e * ldC + c0 + c] = gv;
-        v[c] = xh;
-      }
-      m1 += __shfl_xor_sync(0xffffffffu, m1, 1);
-      m1 += __shfl_xor_sync(0xffffffffu, m1, 2);
-      m2 += __shfl_xor_sync(0xffffffffu, m2, 1);
-      m2 += __shfl_xor_sync(0xffffffffu, m2, 2);
-      m1 *= 1.f / C;
-      m2 *= 1.f / C;
-#pragma unroll
-      for (int c = 0; c < CP; ++c) yr[c] = rstd * (dx[c] - m1 - v[c] * m2);
-    }
-    __syncthreads();
-
-    // output layer: dW_out, db_out, d_ln_s, d_ln_b, and
-    // da_L1 = (dy . W_out^T) where h_L1 > 0, into the spare buffer
-    {
-      const float* h = s_act + L1 * kTE * ldH;
-      float* out = s_act + (L1 + 1) * kTE * ldH;
-      mm_bwd_w<H, C>(h, ldH, s_y, ldC, acc_wo, acc_bo, tx, ty);
-      if (tid < 2 * C) {
-        const float* src = (tid < C ? s_gx : s_gg) + tid % C;
-        float s = 0.f;
-        for (int e = 0; e < kTE; ++e) s += src[e * ldC];
-        acc_ln += s;
-      }
-      mm_bwd_data<H, C>(
-          s_y, ldC, s_wo, ldC,
-          [&](int e, int k, float v) {
-            out[e * ldH + k] = h[e * ldH + k] > 0.f ? v : 0.f;
-          },
-          tx, ty);
-    }
-    __syncthreads();
-
-    // tail layers, last to first; da_k sits in the buffer of h_{k+1}
-#pragma unroll
-    for (int k = L1; k >= 1; --k) {
-      const float* h = s_act + (k - 1) * kTE * ldH;
-      const float* da = s_act + (k + 1) * kTE * ldH;
-      float* out = s_act + k * kTE * ldH;
-      mm_bwd_w<H, H>(h, ldH, da, ldH, acc_wr[k - 1], acc_br[k - 1], tx, ty);
-      mm_bwd_data<H, H>(
-          da, ldH, s_wr + (k - 1) * H * ldH, ldH,
-          [&](int e, int n, float v) {
-            out[e * ldH + n] = h[e * ldH + n] > 0.f ? v : 0.f;
-          },
-          tx, ty);
-      __syncthreads();
-    }
-
-    // first layer: dz = da_0
-    {
-      const float* dz = s_act + kTE * ldH;
-      if constexpr (FOLD) {
-        mm_bwd_w<CE, H>(s_e0, ldE, dz, ldH, acc_we, acc_be, tx, ty);
-        mm_bwd_data<CE, H>(
-            dz, ldH, s_we, ldH,
-            [&](int e, int c, float v) {
-              if (e < n_valid) d_src[(size_t)(base + e) * CE + c] = v;
-            },
-            tx, ty);
-        for (int k = tid; k < n_valid * H; k += kThreads) {
-          const int e = k / H, n = k % H;
-          atomicAdd(d_pxj + (size_t)s_snd[e] * H + n, dz[e * ldH + n]);
-        }
-      } else {
-        for (int k = tid; k < n_valid * H; k += kThreads) {
-          const int e = k / H, n = k % H;
-          d_src[(size_t)(base + e) * H + n] = dz[e * ldH + n];
-        }
-      }
-      constexpr int kPart = kTE / (kThreads / H);
-      const int n = tid % H;
-      const int e_beg = (tid / H) * kPart;
-      const int e_end = min(e_beg + kPart, n_valid);
-      if (e_beg < e_end) {
-        int cur = s_rcv[e_beg];
-        float s = 0.f;
-        for (int e = e_beg; e < e_end; ++e) {
-          const int r = s_rcv[e];
-          if (r != cur) {
-            atomicAdd(d_pxi + (size_t)cur * H + n, s);
-            s = 0.f;
-            cur = r;
-          }
-          s += dz[e * ldH + n];
-        }
-        atomicAdd(d_pxi + (size_t)cur * H + n, s);
-      }
-    }
-    __syncthreads();
-  }
-
-  // this block's partial weight gradients, in the packed layout
-  float* p = partial + (size_t)blockIdx.x * L::g_total;
-#pragma unroll
-  for (int j = 0; j < H / 16; ++j) {
-    const int n = tx + 16 * j;
-    if (FOLD) {
-#pragma unroll
-      for (int i = 0; i < CE / 16; ++i)
-        p[L::g_we + (ty + 16 * i) * H + n] = acc_we[i][j];
-      if (ty == 0) p[L::g_be + n] = acc_be[j];
-    }
-#pragma unroll
-    for (int l = 0; l < L1; ++l) {
-#pragma unroll
-      for (int i = 0; i < H / 16; ++i)
-        p[L::g_wr + (l * H + ty + 16 * i) * H + n] = acc_wr[l][i][j];
-      if (ty == 0) p[L::g_br + l * H + n] = acc_br[l][j];
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < C / 16; ++j) {
-    const int c = tx + 16 * j;
-#pragma unroll
-    for (int i = 0; i < H / 16; ++i)
-      p[L::g_wo + (ty + 16 * i) * C + c] = acc_wo[i][j];
-    if (ty == 0) p[L::g_bo + c] = acc_bo[j];
-  }
-  if (tid < C)
-    p[L::g_ls + tid] = acc_ln;
-  else if (tid < 2 * C)
-    p[L::g_lb + tid - C] = acc_ln;
-}
+constexpr int kMaxDevices = 64;
 
 // wgrad[p] = sum over blocks, in block order, of partial[b][p].
 __global__ void reduce_partials_kernel(const float* __restrict__ partial,
@@ -494,12 +171,502 @@ __global__ void reduce_partials_kernel(const float* __restrict__ partial,
   wgrad[p] = s;
 }
 
-constexpr int kMaxDevices = 64;
+namespace w64 {
 
-// The persistent grid's size (SMs x resident blocks per SM) on the current
+constexpr int kCe = 32;          // the fold's edge-latent width
+constexpr int kH = 64;           // hidden width
+constexpr int kC = 32;           // output width
+constexpr int kTE = 64;          // edges per tile
+constexpr int kThreads = 512;    // 16 warps, one block per SM
+constexpr int kWarps = kThreads / 32;
+
+// Offsets, in floats, into dynamic shared memory and into the packed
+// weight-gradient buffer; the pregathered entry (FOLD = false) has no W_e,
+// b_e and senders, and stages one tile of h0 rows where the fold keeps two
+// of e0.
+template <int L1, bool FOLD>
+struct Layout {
+  static constexpr int plane = kTE * kH;          // a swizzled (kTE, kH) tile
+  static constexpr int we = 0;                    // (kCe, kH), swizzled
+  static constexpr int wr = we + (FOLD ? kCe * kH : 0);  // L1 x (kH, kH)
+  static constexpr int wo = wr + L1 * kH * kH;    // (kH, kC)
+  static constexpr int be = wo + kH * kC;         // (kH)
+  static constexpr int br = be + (FOLD ? kH : 0);  // (L1, kH)
+  static constexpr int bo = br + L1 * kH;         // (kC)
+  static constexpr int ls = bo + kC;              // (kC)
+  static constexpr int act = ls + kC;             // L1 + 2 planes
+  static constexpr int y = act + (L1 + 2) * plane;  // (kTE, kC): y, then dy
+  static constexpr int src = y + kTE * kC;        // 2 x (kTE, kCe) or (kTE, kH)
+  static constexpr int ln = src + (FOLD ? 2 * kTE * kCe : plane);
+  static constexpr int rcv = ln + kWarps * 2 * kC;  // 2 x (kTE) int, two tiles
+  static constexpr int snd = rcv + 2 * kTE;       // 2 x (kTE) int
+  static constexpr int floats = snd + (FOLD ? 2 * kTE : 0);
+
+  static constexpr int g_we = 0;
+  static constexpr int g_be = g_we + (FOLD ? kCe * kH : 0);
+  static constexpr int g_wr = g_be + (FOLD ? kH : 0);
+  static constexpr int g_br = g_wr + L1 * kH * kH;
+  static constexpr int g_wo = g_br + L1 * kH;
+  static constexpr int g_bo = g_wo + kH * kC;
+  static constexpr int g_ls = g_bo + kC;
+  static constexpr int g_lb = g_ls + kC;
+  static constexpr int g_total = g_lb + kC;
+};
+
+// The part of an (R x N) product that a warp forms: rows 16 (w % (R / 16))
+// .. + 15 and columns 8 NI (w / (R / 16)) .. + 8 NI - 1 of the result,
+// acc[0][ni] the 16 x 8 tile at column 8 ni of them.
+template <int R, int N>
+struct Prod {
+  static constexpr int NI = R * N / (kWarps * 128);
+  static_assert(NI >= 1 && R % 16 == 0 && kWarps % (R / 16) == 0,
+                "the warps cover the result");
+  float acc[1][NI][4], corr[1][NI][4];
+  int m0, n0;
+
+  __device__ __forceinline__ Prod() {
+    const int w = threadIdx.x >> 5;
+    m0 = 16 * (w % (R / 16));
+    n0 = 8 * NI * (w / (R / 16));
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[0][ni][c] = corr[0][ni][c] = 0.f;
+  }
+  // acc = f(row, column) on the thread's elements
+  template <class F>
+  __device__ __forceinline__ void init(F f) {
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        acc[0][ni][c] = f(tf32x3::acc_row(m0, c),
+                          tf32x3::acc_col(n0 + 8 * ni, c));
+  }
+  // acc += A . B, A(m, k) (R x K), B(k, n) (K x N), in 3xTF32
+  template <int K, class OA, class OB>
+  __device__ __forceinline__ void run(const OA& a, const OB& b) {
+    tf32x3::mm_warp<1, NI, K>(acc, corr, a, b, m0, n0);
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[0][ni][c] += corr[0][ni][c];
+  }
+  // f(row, column, v0, v1) on the thread's pairs of adjacent elements
+  template <class F>
+  __device__ __forceinline__ void pairs(F f) const {
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        f(tf32x3::acc_row(m0, 2 * h), tf32x3::acc_col(n0 + 8 * ni, 0),
+          acc[0][ni][2 * h], acc[0][ni][2 * h + 1]);
+  }
+  // a swizzled (R, N) tile <- acc, through relu when RELU, or where
+  // mask > 0 (the same place of a tile of the same shape) when mask is set
+  template <bool RELU>
+  __device__ __forceinline__ void store(float* t,
+                                        const float* mask = nullptr) const {
+    pairs([&](int r, int c, float v0, float v1) {
+      const int o = tf32x3::swz_at<N>(r, c);
+      if (RELU) {
+        v0 = fmaxf(v0, 0.f);
+        v1 = fmaxf(v1, 0.f);
+      } else if (mask != nullptr) {
+        const float2 m = *reinterpret_cast<const float2*>(mask + o);
+        v0 = m.x > 0.f ? v0 : 0.f;
+        v1 = m.y > 0.f ? v1 : 0.f;
+      }
+      *reinterpret_cast<float2*>(t + o) = make_float2(v0, v1);
+    });
+  }
+  // run += acc: a tile's weight gradient into the running sums
+  __device__ __forceinline__ void add_to(float (&run)[1][NI][4]) const {
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) run[0][ni][c] += acc[0][ni][c];
+  }
+  // out[row * N + column] = run, the running sums in this part's places
+  __device__ __forceinline__ void write(float* out,
+                                        const float (&run)[1][NI][4]) const {
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        out[tf32x3::acc_row(m0, c) * N + tf32x3::acc_col(n0 + 8 * ni, c)] =
+            run[0][ni][c];
+  }
+};
+
+// dst <- n_mat (K x N) weights w as stored, each a swizzled tile of rows of
+// N floats.
+template <int K, int N>
+__device__ __forceinline__ void load_weights(float* dst,
+                                             const float* __restrict__ w,
+                                             int n_mat) {
+  for (int k = threadIdx.x; k < n_mat * K * N; k += kThreads)
+    dst[(k / (K * N)) * K * N + tf32x3::swz_at<N>((k / N) % K, k % N)] =
+        __ldg(w + k);
+}
+
+// The thread's column sum over the tile's part of a swizzled (kTE, W)
+// tile: column tid % W, rows (tid / W) R .. + R - 1 with R = kTE W /
+// kThreads (the bias gradients; a warp reads one row's 32 columns).
+template <int W>
+__device__ __forceinline__ float column_part(const float* t) {
+  constexpr int R = kTE * W / kThreads;
+  const int c = threadIdx.x % W, r0 = (threadIdx.x / W) * R;
+  float s = 0.f;
+#pragma unroll
+  for (int r = 0; r < R; ++r) s += t[tf32x3::swz_at<W>(r0 + r, c)];
+  return s;
+}
+
+// The sum, in row-part order, of column c's parts that column_part<W> left
+// at sums[tid] (one float a thread).
+template <int W>
+__device__ __forceinline__ float column_total(const float* sums, int c) {
+  float s = 0.f;
+  for (int q = 0; q < kThreads / W; ++q) s += sums[q * W + c];
+  return s;
+}
+
+// LayerNorm's backward over the tile's y (a swizzled (kTE, kC) tile), in
+// place: dy = rstd (dx - mean(dx) - xhat mean(dx xhat)), dx = g ln_s, with
+// the row's mean and rstd recomputed (two-pass variance, eps 1e-5).  Eight
+// threads an edge, thread q of edge e holding columns q + 8 j (free of bank
+// conflicts); gv holds g[i] on them (zero past the tile's edges).  The
+// tile's g xhat and g, summed over each warp's four edges, are added to
+// the warp's row of s_ln (d_ln_s, then d_ln_b).
+__device__ __forceinline__ void layer_norm_bwd(float* s_y, const float* s_ls,
+                                               const float (&gv)[kC / 8],
+                                               float* s_ln) {
+  constexpr int CP = kC / 8;
+  const int e = threadIdx.x >> 3, q = threadIdx.x & 7;
+  float v[CP];
+  float mu = 0.f;
+#pragma unroll
+  for (int j = 0; j < CP; ++j) {
+    v[j] = s_y[tf32x3::swz_at<kC>(e, q + 8 * j)];
+    mu += v[j];
+  }
+#pragma unroll
+  for (int o = 1; o < 8; o <<= 1) mu += __shfl_xor_sync(0xffffffffu, mu, o);
+  mu *= 1.f / kC;
+  float var = 0.f;
+#pragma unroll
+  for (int j = 0; j < CP; ++j) {
+    const float d = v[j] - mu;
+    var = fmaf(d, d, var);
+  }
+#pragma unroll
+  for (int o = 1; o < 8; o <<= 1) var += __shfl_xor_sync(0xffffffffu, var, o);
+  var *= 1.f / kC;
+  const float rstd = rsqrtf(var + kLnEps);
+  float m1 = 0.f, m2 = 0.f, dx[CP], gx[CP], gs[CP];
+#pragma unroll
+  for (int j = 0; j < CP; ++j) {
+    v[j] = (v[j] - mu) * rstd;  // xhat
+    dx[j] = gv[j] * s_ls[q + 8 * j];
+    m1 += dx[j];
+    m2 = fmaf(dx[j], v[j], m2);
+    gx[j] = gv[j] * v[j];
+    gs[j] = gv[j];
+  }
+#pragma unroll
+  for (int o = 1; o < 8; o <<= 1) {
+    m1 += __shfl_xor_sync(0xffffffffu, m1, o);
+    m2 += __shfl_xor_sync(0xffffffffu, m2, o);
+  }
+  m1 *= 1.f / kC;
+  m2 *= 1.f / kC;
+#pragma unroll
+  for (int j = 0; j < CP; ++j)
+    s_y[tf32x3::swz_at<kC>(e, q + 8 * j)] = rstd * (dx[j] - m1 - v[j] * m2);
+#pragma unroll
+  for (int j = 0; j < CP; ++j)
+#pragma unroll
+    for (int o = 8; o < 32; o <<= 1) {
+      gx[j] += __shfl_xor_sync(0xffffffffu, gx[j], o);
+      gs[j] += __shfl_xor_sync(0xffffffffu, gs[j], o);
+    }
+  if ((threadIdx.x & 31) < 8) {
+    float* row = s_ln + (threadIdx.x >> 5) * 2 * kC;
+#pragma unroll
+    for (int j = 0; j < CP; ++j) {
+      row[q + 8 * j] += gx[j];
+      row[kC + q + 8 * j] += gs[j];
+    }
+  }
+}
+
+template <int L1, bool FOLD>
+__global__ void __launch_bounds__(kThreads, 1)
+edge_tail_bwd_kernel(const float* __restrict__ src,
+                     const float* __restrict__ we,
+                     const float* __restrict__ be,
+                     const float* __restrict__ pxj,
+                     const float* __restrict__ pxi,
+                     const int* __restrict__ senders,
+                     const int* __restrict__ rowptr,
+                     const float* __restrict__ w_rest,
+                     const float* __restrict__ b_rest,
+                     const float* __restrict__ w_out,
+                     const float* __restrict__ b_out,
+                     const float* __restrict__ ln_s,
+                     const float* __restrict__ g, float* __restrict__ d_src,
+                     float* __restrict__ d_pxj, float* __restrict__ d_pxi,
+                     float* __restrict__ partial, int n_nodes, int n_edges) {
+  using L = Layout<L1, FOLD>;
+  using namespace tf32x3;
+  constexpr int NL = L1 > 0 ? L1 : 1;
+  constexpr int kIn = FOLD ? kCe : kH;  // the staged rows' width
+  extern __shared__ __align__(16) float w64_smem[];
+  float* s_we = w64_smem + L::we;
+  float* s_wr = w64_smem + L::wr;
+  float* s_wo = w64_smem + L::wo;
+  float* s_be = w64_smem + L::be;
+  float* s_br = w64_smem + L::br;
+  float* s_bo = w64_smem + L::bo;
+  float* s_ls = w64_smem + L::ls;
+  float* s_y = w64_smem + L::y;
+  float* s_ln = w64_smem + L::ln;
+  int* s_rcv = reinterpret_cast<int*>(w64_smem + L::rcv);
+  int* s_snd = reinterpret_cast<int*>(w64_smem + L::snd);
+  // plane k: h_k, and the gradient da_{k-1} once h_k is dead
+  auto plane = [&](int k) { return w64_smem + L::act + k * L::plane; };
+  // the staged rows of tile buffer `buf` (the fold keeps two)
+  auto staged = [&](int buf) {
+    return w64_smem + L::src + (FOLD ? buf * kTE * kCe : 0);
+  };
+  const int tid = threadIdx.x, warp = tid >> 5;
+
+  if (FOLD) {
+    load_weights<kCe, kH>(s_we, we, 1);
+    if (tid < kH) s_be[tid] = __ldg(be + tid);
+  }
+  load_weights<kH, kH>(s_wr, w_rest, L1);
+  load_weights<kH, kC>(s_wo, w_out, 1);
+  for (int k = tid; k < L1 * kH; k += kThreads) s_br[k] = __ldg(b_rest + k);
+  if (tid < kC) {
+    s_bo[tid] = __ldg(b_out + tid);
+    s_ls[tid] = __ldg(ln_s + tid);
+  }
+  for (int k = tid; k < kWarps * 2 * kC; k += kThreads) s_ln[k] = 0.f;
+
+  // the thread's parts of the weight gradients, summed over its tiles in
+  // f32 (Prod's places), and of the bias gradients (column_part's)
+  float run_wr[NL][1][Prod<kH, kH>::NI][4] = {};
+  float run_wo[1][Prod<kH, kC>::NI][4] = {};
+  float run_we[1][Prod<kCe, kH>::NI][4] = {};
+  float run_br[NL] = {}, run_bo = 0.f, run_be = 0.f;
+
+  int t_beg, t_end;
+  tile128::block_tiles<kTE>(n_edges, &t_beg, &t_end);
+  // tile `tile`'s input rows (e0 or h0) into `dst`, one committed group
+  auto stage = [&](int tile, float* dst) {
+    const int base = tile * kTE, n_valid = min(kTE, n_edges - base);
+    rows_async<kTE, kIn, kThreads>(dst, 0, src, [&](int e) {
+      return e < n_valid ? src + (size_t)(base + e) * kIn : nullptr;
+    });
+    cp_async_commit();
+  };
+  if (t_beg < t_end) {
+    if (warp < 2)
+      tile128::tile_indices<kTE, FOLD>(s_rcv, s_snd, senders, rowptr,
+                                       n_nodes, n_edges, t_beg, -1);
+    stage(t_beg, staged(0));
+  }
+  __syncthreads();  // the weights and the first tile's indices
+
+  for (int tile = t_beg, it = 0; tile < t_end; ++tile, ++it) {
+    const int cur = it & 1, nxt = cur ^ 1;
+    const int base = tile * kTE, n_valid = min(kTE, n_edges - base);
+    const int* rcv = s_rcv + cur * kTE;
+    const int* snd = s_snd + cur * kTE;
+    const bool more = tile + 1 < t_end;
+
+    // h_0: fold, relu(e0 . W_e + z0) with z0 = b_e + pxj[s] + pxi[i]
+    // loaded while the rows arrive; pregathered, relu(h0 + pxi[i])
+    {
+      Prod<kTE, kH> p;
+      if (FOLD)
+        p.init([&](int e, int n) {
+          return e < n_valid ? s_be[n] + __ldg(pxj + (size_t)snd[e] * kH + n) +
+                                   __ldg(pxi + (size_t)rcv[e] * kH + n)
+                             : 0.f;
+        });
+      cp_async_wait<0>();
+      __syncthreads();  // the rows are in; the last tile is done
+      if (more && warp < 2)
+        tile128::tile_indices<kTE, FOLD>(
+            s_rcv + nxt * kTE, s_snd + nxt * kTE, senders, rowptr, n_nodes,
+            n_edges, tile + 1, rcv[n_valid - 1]);
+      if (FOLD) {
+        if (more) stage(tile + 1, staged(nxt));  // read last by dW_e
+        p.template run<kCe>(LdsmRows<kCe>{staged(cur)}, RowsB<kH>{s_we});
+        p.template store<true>(plane(0));
+      } else {
+        for (int k = tid; k < kTE * kH / 4; k += kThreads) {
+          const int e = k >> 4, c = (k & 15) * 4, o = swz_at<kH>(e, c);
+          float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (e < n_valid) {
+            const float4 a = *reinterpret_cast<const float4*>(staged(0) + o);
+            const float4 b = __ldg(
+                reinterpret_cast<const float4*>(pxi + (size_t)rcv[e] * kH + c));
+            z = make_float4(fmaxf(a.x + b.x, 0.f), fmaxf(a.y + b.y, 0.f),
+                            fmaxf(a.z + b.z, 0.f), fmaxf(a.w + b.w, 0.f));
+          }
+          *reinterpret_cast<float4*>(plane(0) + o) = z;
+        }
+      }
+    }
+    __syncthreads();  // h_0 written; the pregathered staging tile is free
+    if (!FOLD && more) stage(tile + 1, staged(0));
+
+    // h_1 .. h_L1
+#pragma unroll
+    for (int k = 1; k <= L1; ++k) {
+      Prod<kTE, kH> p;
+      const float* b = s_br + (k - 1) * kH;
+      p.init([&](int, int n) { return b[n]; });
+      p.template run<kH>(LdsmRows<kH>{plane(k - 1)},
+                         RowsB<kH>{s_wr + (k - 1) * kH * kH});
+      p.template store<true>(plane(k));
+      __syncthreads();
+    }
+
+    // y = h_L1 . W_out + b_out; g[i] for LayerNorm's backward, loaded
+    // before the product so that its latency hides behind it
+    float gv[kC / 8];
+    {
+      const int e = tid >> 3, q = tid & 7;
+#pragma unroll
+      for (int j = 0; j < kC / 8; ++j)
+        gv[j] = e < n_valid ? __ldg(g + (size_t)rcv[e] * kC + q + 8 * j) : 0.f;
+      Prod<kTE, kC> p;
+      p.init([&](int, int c) { return s_bo[c]; });
+      p.template run<kH>(LdsmRows<kH>{plane(L1)}, RowsB<kC>{s_wo});
+      p.template store<false>(s_y);
+    }
+    __syncthreads();
+    layer_norm_bwd(s_y, s_ls, gv, s_ln);  // dy over y
+    __syncthreads();
+
+    // the output layer: dW_out += h_L1^T . dy, db_out, and da_L1 = (dy .
+    // W_out^T) where h_L1 > 0, into plane L1 + 1
+    {
+      Prod<kH, kC> w;
+      w.template run<kTE>(ColsA<kH>{plane(L1)}, RowsB<kC>{s_y});
+      w.add_to(run_wo);
+      run_bo += column_part<kC>(s_y);
+      Prod<kTE, kH> d;
+      d.template run<kC>(LdsmRows<kC>{s_y}, LdsmCols<kC>{s_wo});
+      d.template store<false>(plane(L1 + 1), plane(L1));
+    }
+    __syncthreads();
+
+    // the tail layers, last to first: dW_k += h_{k-1}^T . da_k, db_k, and
+    // da_{k-1} = (da_k . W_k^T) where h_{k-1} > 0, over h_k (plane k)
+#pragma unroll
+    for (int k = L1; k >= 1; --k) {
+      Prod<kH, kH> w;
+      w.template run<kTE>(ColsA<kH>{plane(k - 1)}, RowsB<kH>{plane(k + 1)});
+      w.add_to(run_wr[k - 1]);
+      run_br[k - 1] += column_part<kH>(plane(k + 1));
+      Prod<kTE, kH> d;
+      d.template run<kH>(LdsmRows<kH>{plane(k + 1)},
+                         LdsmCols<kH>{s_wr + (k - 1) * kH * kH});
+      d.template store<false>(plane(k), plane(k - 1));
+      __syncthreads();
+    }
+
+    // dz = da_0, in plane 1: fold, dW_e += e0^T . dz, db_e, d_e0 = dz .
+    // W_e^T and d_pxj[s] += dz; pregathered, d_h0 = dz; then d_pxi[i] += dz
+    const float* dz = plane(1);
+    if (FOLD) {
+      Prod<kCe, kH> w;
+      w.template run<kTE>(ColsA<kCe>{staged(cur)}, RowsB<kH>{dz});
+      w.add_to(run_we);
+      run_be += column_part<kH>(dz);
+      Prod<kTE, kCe> d;
+      d.template run<kH>(LdsmRows<kH>{dz}, LdsmCols<kH>{s_we});
+      d.pairs([&](int e, int c, float v0, float v1) {
+        if (e < n_valid)
+          *reinterpret_cast<float2*>(d_src + (size_t)(base + e) * kCe + c) =
+              make_float2(v0, v1);
+      });
+      for (int k = tid; k < n_valid * kH; k += kThreads) {
+        const int e = k >> 6, n = k & (kH - 1);
+        atomicAdd(d_pxj + (size_t)snd[e] * kH + n, dz[swz_at<kH>(e, n)]);
+      }
+    } else {
+      for (int k = tid; k < n_valid * kH / 4; k += kThreads) {
+        const int e = k >> 4, c = (k & 15) * 4;
+        *reinterpret_cast<float4*>(d_src + (size_t)(base + e) * kH + c) =
+            *reinterpret_cast<const float4*>(dz + swz_at<kH>(e, c));
+      }
+    }
+    {
+      constexpr int kPart = kTE * kH / kThreads;  // edges of an eighth
+      const int n = tid & (kH - 1);
+      const int e_beg = (tid / kH) * kPart;
+      const int e_end = min(e_beg + kPart, n_valid);
+      if (e_beg < e_end) {
+        int at = rcv[e_beg];
+        float s = 0.f;
+        for (int e = e_beg; e < e_end; ++e) {
+          if (rcv[e] != at) {
+            atomicAdd(d_pxi + (size_t)at * kH + n, s);
+            s = 0.f;
+            at = rcv[e];
+          }
+          s += dz[swz_at<kH>(e, n)];
+        }
+        atomicAdd(d_pxi + (size_t)at * kH + n, s);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every plane is free: the bias parts go through plane 0
+
+  // this block's partial gradients, in the packed layout
+  float* p = partial + (size_t)blockIdx.x * L::g_total;
+  float* sums = plane(0);  // one row of kThreads parts a bias gradient
+#pragma unroll
+  for (int k = 0; k < L1; ++k) {
+    Prod<kH, kH>().write(p + L::g_wr + k * kH * kH, run_wr[k]);
+    sums[k * kThreads + tid] = run_br[k];
+  }
+  Prod<kH, kC>().write(p + L::g_wo, run_wo);
+  sums[L1 * kThreads + tid] = run_bo;
+  if (FOLD) {
+    Prod<kCe, kH>().write(p + L::g_we, run_we);
+    sums[(L1 + 1) * kThreads + tid] = run_be;
+  }
+  __syncthreads();
+  if (tid < L1 * kH) {
+    p[L::g_br + tid] =
+        column_total<kH>(sums + (tid / kH) * kThreads, tid % kH);
+  } else if (tid < L1 * kH + kC) {
+    p[L::g_bo + tid - L1 * kH] =
+        column_total<kC>(sums + L1 * kThreads, tid - L1 * kH);
+  } else if (tid < L1 * kH + 3 * kC) {  // d_ln_s, then d_ln_b
+    const int c = tid - L1 * kH - kC;
+    float s = 0.f;
+    for (int w = 0; w < kWarps; ++w) s += s_ln[w * 2 * kC + c];
+    p[L::g_ls + c] = s;
+  } else if (FOLD && tid < L1 * kH + 3 * kC + kH) {
+    const int c = tid - L1 * kH - 3 * kC;
+    p[L::g_be + c] = column_total<kH>(sums + (L1 + 1) * kThreads, c);
+  }
+}
+
+// The persistent grid's cap (SMs x resident blocks per SM) on the current
 // device.  The shared-memory opt-in and the device queries run once per
 // device and instantiation; later launches read the cache.
-template <int CE, int H, int C, int L1, bool FOLD>
+template <int L1, bool FOLD>
 cudaError_t grid_cap(size_t smem_bytes, int* cap) {
   static std::atomic<int> cache[kMaxDevices];  // 0: unset
   int device = 0;
@@ -508,7 +675,7 @@ cudaError_t grid_cap(size_t smem_bytes, int* cap) {
   const bool cached = device < kMaxDevices;
   if (cached && (*cap = cache[device].load(std::memory_order_relaxed)) > 0)
     return cudaSuccess;
-  auto kernel = fused_edge_tail_agg_bwd_kernel<CE, H, C, L1, FOLD>;
+  auto kernel = edge_tail_bwd_kernel<L1, FOLD>;
   int optin = 0, n_sm = 0, per_sm = 0;
   if ((err = cudaDeviceGetAttribute(
            &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device)) !=
@@ -531,7 +698,15 @@ cudaError_t grid_cap(size_t smem_bytes, int* cap) {
   return cudaSuccess;
 }
 
-template <int CE, int H, int C, int L1, bool FOLD>
+template <int L1, bool FOLD>
+size_t smem_bytes() {
+  return sizeof(float) * (size_t)Layout<L1, FOLD>::floats;
+}
+
+// The kernel on a persistent grid of at most scratch_blocks blocks, each a
+// run of consecutive tiles (every block at least one), then the
+// fixed-order sum of the blocks' partials.
+template <int L1, bool FOLD>
 int launch(const float* src, const float* we, const float* be,
            const float* pxj, const float* pxi, const int* senders,
            const int* rowptr, const float* w_rest, const float* b_rest,
@@ -539,21 +714,20 @@ int launch(const float* src, const float* we, const float* be,
            const float* g, float* d_src, float* d_pxj, float* d_pxi,
            float* wgrad, float* partial, int n_nodes, int n_edges,
            int scratch_blocks, cudaStream_t stream) {
-  using L = Layout<CE, H, C, L1, FOLD>;
-  const size_t smem_bytes = sizeof(float) * (size_t)L::smem_floats;
+  using L = Layout<L1, FOLD>;
+  const size_t smem = smem_bytes<L1, FOLD>();
   int cap = 0;
-  const cudaError_t err = grid_cap<CE, H, C, L1, FOLD>(smem_bytes, &cap);
+  const cudaError_t err = grid_cap<L1, FOLD>(smem, &cap);
   if (err != cudaSuccess) return (int)err;
-  const int n_tiles = (n_edges + kTE - 1) / kTE;
-  int blocks = n_tiles < cap ? n_tiles : cap;
-  if (blocks > scratch_blocks) blocks = scratch_blocks;
-  if (n_tiles > 0 && blocks < 1) return (int)cudaErrorInvalidValue;
-  if (n_nodes == 0) blocks = 0;
+  if (cap > scratch_blocks) cap = scratch_blocks;
+  const int n_tiles = n_nodes > 0 ? (n_edges + kTE - 1) / kTE : 0;
+  if (n_tiles > 0 && cap < 1) return (int)cudaErrorInvalidValue;
+  const int per_block = n_tiles > 0 ? (n_tiles + cap - 1) / cap : 1;
+  const int blocks = (n_tiles + per_block - 1) / per_block;
   if (blocks > 0) {
-    fused_edge_tail_agg_bwd_kernel<CE, H, C, L1, FOLD>
-        <<<blocks, kThreads, smem_bytes, stream>>>(
-            src, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest, w_out,
-            b_out, ln_s, g, d_src, d_pxj, d_pxi, partial, n_nodes, n_edges);
+    edge_tail_bwd_kernel<L1, FOLD><<<blocks, kThreads, smem, stream>>>(
+        src, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest, w_out, b_out,
+        ln_s, g, d_src, d_pxj, d_pxi, partial, n_nodes, n_edges);
     const cudaError_t launched = cudaGetLastError();
     if (launched != cudaSuccess) return (int)launched;
   }
@@ -561,6 +735,8 @@ int launch(const float* src, const float* we, const float* be,
       partial, wgrad, blocks, L::g_total);
   return (int)cudaGetLastError();
 }
+
+}  // namespace w64
 
 namespace w128 {
 
@@ -1244,11 +1420,11 @@ int fused_edge_tail_agg_bwd_f32(
     return (int)cudaErrorInvalidValue;
 #define MAGNET_BWD_CASE(L1V)                                                 \
   case L1V:                                                                  \
-    return fold ? launch<32, 64, 32, L1V, true>(                             \
+    return fold ? w64::launch<L1V, true>(                                    \
                       src, we, be, pxj, pxi, senders, rowptr, w_rest,        \
                       b_rest, w_out, b_out, ln_s, g, d_src, d_pxj, d_pxi,    \
                       wgrad, partial, n_nodes, n_edges, scratch_blocks, s)   \
-                : launch<32, 64, 32, L1V, false>(                            \
+                : w64::launch<L1V, false>(                                   \
                       src, we, be, pxj, pxi, senders, rowptr, w_rest,        \
                       b_rest, w_out, b_out, ln_s, g, d_src, d_pxj, d_pxi,    \
                       wgrad, partial, n_nodes, n_edges, scratch_blocks, s)
@@ -1261,6 +1437,26 @@ int fused_edge_tail_agg_bwd_f32(
       return (int)cudaErrorInvalidValue;
   }
 #undef MAGNET_BWD_CASE
+}
+
+// Bytes of dynamic shared memory a block of the width-64 backward takes for
+// entry kFold or kPregathered at l1 in 0..3; -1 for any other build.
+int fused_edge_tail_agg_bwd_w64_smem(int entry, int l1) {
+  const bool fold = entry == tile128::kFold;
+  if (!fold && entry != tile128::kPregathered) return -1;
+#define MAGNET_SMEM_CASE(L1V)                     \
+  case L1V:                                       \
+    return (int)(fold ? w64::smem_bytes<L1V, true>() \
+                      : w64::smem_bytes<L1V, false>())
+  switch (l1) {
+    MAGNET_SMEM_CASE(0);
+    MAGNET_SMEM_CASE(1);
+    MAGNET_SMEM_CASE(2);
+    MAGNET_SMEM_CASE(3);
+    default:
+      return -1;
+  }
+#undef MAGNET_SMEM_CASE
 }
 
 }  // extern "C"

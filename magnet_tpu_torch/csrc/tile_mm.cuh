@@ -1,18 +1,12 @@
-// Register-tiled products over shared memory for the edge kernels.
+// Helpers of the edge kernels that walk a receiver-grouped CSR graph.
 //
-// tile_mm (the width-64 backward kernels): a block of kThreads = 256
-// threads, seen as a 16 x 16 grid (tx = tid & 15, ty = tid >> 4), owns a
-// tile of kTE = 64 edges.  Every operand lives in shared memory with a
-// leading dimension of (width + 1) floats, so that row reads and column
-// reads are both free of bank conflicts with scalar loads.  Each thread
-// computes a kRows x (N / 16) register tile of a product.
+// tile128: the entries' names, the receiver search, and the tiles of
+// consecutive edges a persistent block walks (every kernel that walks a CSR
+// graph in tiles of consecutive edges).
 //
-// tile128: the entries' names and the receiver search that every kernel
-// walking a CSR graph in tiles of consecutive edges shares.
-//
-// tf32x3 (the width-128 backward kernels, both MPNN kernels and every
-// GraphNet forward): f32 products on the tensor cores in error-compensated
-// TF32, see below; the forwards split their operands in integer arithmetic
+// tf32x3 (every GraphNet and MPNN kernel): f32 products on the tensor cores
+// in error-compensated TF32, see below; the forwards and the width-64
+// GraphNet backward split their operands in integer arithmetic
 // (split_fast).
 //
 // csr_tile (every forward that walks a CSR graph in tiles of consecutive
@@ -21,104 +15,6 @@
 #pragma once
 
 #include <cstdint>
-
-namespace tile_mm {
-
-constexpr int kTE = 64;          // edges per tile
-constexpr int kThreads = 256;    // tx = tid & 15, ty = tid >> 4
-constexpr int kRows = kTE / 16;  // tile rows per thread
-
-// out(e, n) <- act(init(e, n) + sum_k A[e][k] * W[k][n]) for the thread's
-// rows e = ty + 16 i and columns n = tx + 16 j.
-template <int K, int N, bool RELU, class Init, class Store>
-__device__ __forceinline__ void mm_fwd(const float* __restrict__ A, int lda,
-                                       const float* __restrict__ W, int ldw,
-                                       Init init, Store store, int tx,
-                                       int ty) {
-  constexpr int NJ = N / 16;
-  float acc[kRows][NJ];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = init(ty + 16 * i, tx + 16 * j);
-#pragma unroll 8
-  for (int k = 0; k < K; ++k) {
-    float a[kRows], w[NJ];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) a[i] = A[(ty + 16 * i) * lda + k];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) w[j] = W[k * ldw + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      store(ty + 16 * i, tx + 16 * j,
-            RELU ? fmaxf(acc[i][j], 0.f) : acc[i][j]);
-}
-
-// store(e, k, sum_n DA[e][n] * W[k][n]) for rows e = ty + 16 i and
-// k = tx + 16 j: the product with the transposed weight.
-template <int K, int N, class Store>
-__device__ __forceinline__ void mm_bwd_data(const float* __restrict__ DA,
-                                            int ldd,
-                                            const float* __restrict__ W,
-                                            int ldw, Store store, int tx,
-                                            int ty) {
-  constexpr int KJ = K / 16;
-  float acc[kRows][KJ];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int j = 0; j < KJ; ++j) acc[i][j] = 0.f;
-#pragma unroll 8
-  for (int n = 0; n < N; ++n) {
-    float d[kRows], w[KJ];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) d[i] = DA[(ty + 16 * i) * ldd + n];
-#pragma unroll
-    for (int j = 0; j < KJ; ++j) w[j] = W[(tx + 16 * j) * ldw + n];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < KJ; ++j) acc[i][j] = fmaf(d[i], w[j], acc[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int j = 0; j < KJ; ++j) store(ty + 16 * i, tx + 16 * j, acc[i][j]);
-}
-
-// acc[i][j] += sum_e A[e][ty + 16 i] * DA[e][tx + 16 j] over the tile, and
-// bacc[j] += sum_e DA[e][tx + 16 j] (the bias gradient; rows ty == 0 keep it).
-template <int K, int N>
-__device__ __forceinline__ void mm_bwd_w(const float* __restrict__ A, int lda,
-                                         const float* __restrict__ DA,
-                                         int ldd, float (&acc)[K / 16][N / 16],
-                                         float (&bacc)[N / 16], int tx,
-                                         int ty) {
-#pragma unroll 8
-  for (int e = 0; e < kTE; ++e) {
-    float a[K / 16], d[N / 16];
-#pragma unroll
-    for (int i = 0; i < K / 16; ++i) a[i] = A[e * lda + ty + 16 * i];
-#pragma unroll
-    for (int j = 0; j < N / 16; ++j) {
-      d[j] = DA[e * ldd + tx + 16 * j];
-      bacc[j] += d[j];
-    }
-#pragma unroll
-    for (int i = 0; i < K / 16; ++i)
-#pragma unroll
-      for (int j = 0; j < N / 16; ++j) acc[i][j] = fmaf(a[i], d[j], acc[i][j]);
-  }
-}
-
-}  // namespace tile_mm
 
 namespace tile128 {
 
@@ -171,6 +67,39 @@ __device__ __forceinline__ int warp_receiver(const int* __restrict__ rowptr,
   return r;
 }
 
+// The tiles of TE edges of a persistent block: consecutive, [*t_beg,
+// *t_end), so that each tile's receivers are found from the last receiver
+// of the tile before.
+template <int TE>
+__device__ __forceinline__ void block_tiles(int n_edges, int* t_beg,
+                                            int* t_end) {
+  const int n_tiles = (n_edges + TE - 1) / TE;
+  const int per_block = (n_tiles + gridDim.x - 1) / gridDim.x;
+  *t_beg = blockIdx.x * per_block;
+  *t_end = min(n_tiles, *t_beg + per_block);
+}
+
+// The receivers (and, GATHERS, the senders) of tile `tile`'s TE = 64
+// edges into s_rcv / s_snd (zero past the edge count), found from `hint`, a
+// receiver of an edge before the tile (or -1).  Warps 0 and 1, 32 edges
+// each; every lane of both enters.
+template <int TE, bool GATHERS>
+__device__ __forceinline__ void tile_indices(int* s_rcv, int* s_snd,
+                                             const int* __restrict__ senders,
+                                             const int* __restrict__ rowptr,
+                                             int n_nodes, int n_edges,
+                                             int tile, int hint) {
+  static_assert(TE == 64, "two warps of 32 edges");
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int base = tile * TE + 32 * warp;
+  const int n_valid = min(32, n_edges - base);
+  const int rv = warp_receiver(rowptr, n_nodes, base, n_valid, hint);
+  const bool valid = lane < n_valid;
+  s_rcv[32 * warp + lane] = valid ? rv : 0;
+  if (GATHERS)
+    s_snd[32 * warp + lane] = valid ? __ldg(senders + base + lane) : 0;
+}
+
 }  // namespace tile128
 
 // Error-compensated TF32 ("3xTF32") products on the tensor cores, through
@@ -193,7 +122,8 @@ __device__ __forceinline__ int warp_receiver(const int* __restrict__ rowptr,
 //   A (16 x 8): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)
 //   B (8 x 8):  b0 (t, g), b1 (t + 4, g)
 //   C (16 x 8): c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1)
-// The products below assume blocks of 8 warps.
+// mm_rows32, mm_rows64 and mm_square128 assume blocks of 8 warps; mm_warp
+// takes the warp's place in the result from its caller.
 namespace tf32x3 {
 
 __device__ __forceinline__ uint32_t tf32(float x) {
@@ -359,6 +289,24 @@ __device__ __forceinline__ void load_b(FragB& f, const RowsB<W>& b, int k0,
   split_fast(b.p[swz_at<W>(k0 + t + 4, n0 + g)], f.hi[1], f.lo[1]);
 }
 
+// A(m, k) = row k, column m of a swizzled tile of rows of W floats (an
+// activation tile read down its columns, the weight gradients' A), by
+// scalar loads and split_fast: lanes (g, t) read rows k0 + t, columns
+// m0 + g, 32 banks, as RowsB.
+template <int W>
+struct ColsA {
+  const float* p;
+};
+template <int W>
+__device__ __forceinline__ void load_a(FragA& f, const ColsA<W>& a, int m0,
+                                       int k0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  split_fast(a.p[swz_at<W>(k0 + t, m0 + g)], f.hi[0], f.lo[0]);
+  split_fast(a.p[swz_at<W>(k0 + t, m0 + g + 8)], f.hi[1], f.lo[1]);
+  split_fast(a.p[swz_at<W>(k0 + t + 4, m0 + g)], f.hi[2], f.lo[2]);
+  split_fast(a.p[swz_at<W>(k0 + t + 4, m0 + g + 8)], f.hi[3], f.lo[3]);
+}
+
 // d += a . b in three TF32 products, the small terms first.
 __device__ __forceinline__ void mma3(float (&d)[4], const FragA& a,
                                      const FragB& b) {
@@ -414,34 +362,44 @@ __device__ __forceinline__ void mm_rows32(float (&acc)[2][2][4],
   }
 }
 
-// acc + corr += A . B for a 64-row tile: A(m, k) (64 x K), B(k, n) (K x
-// N), N = 128, 64 or 32, the small terms in corr (mma3_apart).  Warp w owns
-// rows 32 (w & 1) .. + 31 and columns (N / 4) (w >> 1) .. + N / 4 - 1:
+// acc + corr += A . B on one warp's MI x NI tiles of 16 x 8, at rows m0 +
+// 16 mi and columns n0 + 8 ni of the result: A(m, k) (.. x K), B(k, n)
+// (K x ..), K a multiple of 8, the small terms in corr (mma3_apart).  Each
+// A fragment serves NI tiles, each B fragment MI.
+template <int MI, int NI, int K, class OA, class OB>
+__device__ __forceinline__ void mm_warp(float (&acc)[MI][NI][4],
+                                        float (&corr)[MI][NI][4],
+                                        const OA& a, const OB& b, int m0,
+                                        int n0) {
+#pragma unroll 2
+  for (int k0 = 0; k0 < K; k0 += 8) {
+    FragA fa[MI];
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi) load_a(fa[mi], a, m0 + 16 * mi, k0);
+#pragma unroll
+    for (int ni = 0; ni < NI; ++ni) {
+      FragB fb;
+      load_b(fb, b, k0, n0 + 8 * ni);
+#pragma unroll
+      for (int mi = 0; mi < MI; ++mi)
+        mma3_apart(acc[mi][ni], corr[mi][ni], fa[mi], fb);
+    }
+  }
+}
+
+// acc + corr += A . B for a 64-row tile in blocks of 8 warps: A(m, k)
+// (64 x K), B(k, n) (K x N), N = 128, 64 or 32.  Warp w owns rows
+// 32 (w & 1) .. + 31 and columns (N / 4) (w >> 1) .. + N / 4 - 1:
 // acc[mi][ni] is the 16 x 8 tile at rows 32 (w & 1) + 16 mi, columns
-// (N / 4) (w >> 1) + 8 ni.  Each A fragment serves N / 32 tiles, each B
-// fragment two.
+// (N / 4) (w >> 1) + 8 ni.
 template <int N, int K, class OA, class OB>
 __device__ __forceinline__ void mm_rows64(float (&acc)[2][N / 32][4],
                                           float (&corr)[2][N / 32][4],
                                           const OA& a, const OB& b) {
   static_assert(N == 128 || N == 64 || N == 32,
                 "mm_rows64 forms 128, 64 or 32 columns");
-  constexpr int NI = N / 32;
-  const int w = threadIdx.x >> 5, m0 = 32 * (w & 1), n0 = (N / 4) * (w >> 1);
-#pragma unroll 2
-  for (int k0 = 0; k0 < K; k0 += 8) {
-    FragA fa[2];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) load_a(fa[mi], a, m0 + 16 * mi, k0);
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni) {
-      FragB fb;
-      load_b(fb, b, k0, n0 + 8 * ni);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        mma3_apart(acc[mi][ni], corr[mi][ni], fa[mi], fb);
-    }
-  }
+  const int w = threadIdx.x >> 5;
+  mm_warp<2, N / 32, K>(acc, corr, a, b, 32 * (w & 1), (N / 4) * (w >> 1));
 }
 
 // acc += A . B for a 128 x 128 result: A(m, k) (128 x K), B(k, n)
@@ -485,15 +443,15 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // dst[r][0..W-1] <- row(r) for r < TE, zeros where row(r) is null, without
-// waiting (the caller commits the group).  dst rows are ld floats apart,
-// ld a multiple of 4, or (ld == 0) dst is a SwzW<W> tile; `any` is a
-// readable global address, named in place of a null row (no byte of it is
-// read).
-template <int TE, int W = 128, class Row>
+// waiting (the caller commits the group), by a block of Threads threads.
+// dst rows are ld floats apart, ld a multiple of 4, or (ld == 0) dst is a
+// SwzW<W> tile; `any` is a readable global address, named in place of a
+// null row (no byte of it is read).
+template <int TE, int W = 128, int Threads = 256, class Row>
 __device__ __forceinline__ void rows_async(float* dst, int ld,
                                            const float* any, Row row) {
   constexpr int kChunks = W / 4;  // 16-byte chunks a row
-  for (int k = threadIdx.x; k < TE * kChunks; k += 256) {
+  for (int k = threadIdx.x; k < TE * kChunks; k += Threads) {
     const int r = k / kChunks, c = (k % kChunks) * 4;
     const float* src = row(r);
     cp_async16(dst + (ld ? r * ld + c : swz_at<W>(r, c)), src ? src + c : any,

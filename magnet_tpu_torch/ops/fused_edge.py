@@ -45,11 +45,12 @@ Compiled builds (``KERNEL_WIDTHS``), keyed by what each entry reads: fold
 pregathered (H, C) = (64, 32) and (128, 128); pe (H, C) = (128, 128).  Every
 forward build walks tiles of ``FWD_TILE`` consecutive CSR edges with its
 products on the tensor cores in 3xTF32 and leaves partial rows
-(``ops.graph.part_rows``) for the receivers that cross a tile (see the
-source's header).  Bounds on an H100 at MAgNet[GNN]'s eval batch (84.3k LR
-∪ HR edges, L1 = 3, three TF32 products at 495 TFLOP/s): fold 81,920
-multiply-adds per edge, 0.084 ms; pe 65,536, 0.067 ms; both bound by
-operations.
+(``ops.graph.part_rows``) for the receivers that cross a tile; the width-64
+backward builds walk tiles of ``BWD_TILE`` edges the same way, one block
+an SM (see the sources' headers).  Bounds on an H100 at MAgNet[GNN]'s eval
+batch (84.3k LR ∪ HR edges, L1 = 3, three TF32 products at 495 TFLOP/s):
+fold 81,920 multiply-adds per edge, 0.084 ms; pe 65,536, 0.067 ms; both
+bound by operations.
 """
 from __future__ import annotations
 
@@ -71,6 +72,8 @@ KERNEL_WIDTHS = {"fold": {(32, 64, 32), (128, 128, 128)},
 ENTRY = {"pregathered": 0, "fold": 1, "pe": 2}
 #: edges per tile of every forward build (two scratch rows per tile)
 FWD_TILE = 64
+#: edges per tile of the width-64 backward builds
+BWD_TILE = 64
 
 #: tail depths (L1) the backward CUDA source is compiled for.
 KERNEL_BWD_MAX_L1 = 3
@@ -330,6 +333,14 @@ def _check_build(entry: str, widths: tuple, l1: int, bwd: bool) -> None:
                          f"{KERNEL_BWD_MAX_L1} tail layers, got {l1}")
 
 
+def _check_aligned(**tensors):
+    """The rows the kernels read as float4 (or by cp.async) start 16-byte
+    aligned; None is an operand the entry does not read."""
+    for name, t in tensors.items():
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned (float4 rows)")
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -352,9 +363,7 @@ def _launch_fwd(entry, src, we, be, pxj, pxi, senders, rowptr, *tail):
                                  rowptr, tail)
     _check_build(entry, widths, l1, bwd=False)
     _check_device(src)
-    for name, t in (("src", src), ("pxj", pxj), ("pxi", pxi)):
-        if t is not None and t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned (float4 rows)")
+    _check_aligned(src=src, pxj=pxj, pxi=pxi)
     h, c = widths[-2:]
     ce = widths[0] if entry == "fold" else h
     dev = src.device
@@ -394,6 +403,7 @@ def _launch_bwd(entry, src, we, be, pxj, pxi, senders, rowptr, *tail_and_g):
                                  rowptr, tail)
     _check_build(entry, widths, l1, bwd=True)
     _check_device(src)
+    _check_aligned(src=src, pxj=pxj, pxi=pxi)
     h, c = widths[-2:]
     ce = widths[0] if fold else h
     if (g.device != src.device or g.dtype != torch.float32

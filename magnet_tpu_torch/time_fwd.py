@@ -16,7 +16,8 @@ there (max abs error) and times it with CUDA events over ``REPS``
 launches, in turns: baseline, this, this, baseline.  Prints the card's
 name and power limit, then one JSON line per kernel and shape: the edge
 count, the times, each library's mean, the bounds (f32 CUDA cores and
-three TF32 products on the tensor cores) and the errors.
+three TF32 products on the tensor cores) and the errors.  Its graphs,
+library binding and in-turn timing serve ``time_bwd`` too.
 """
 from __future__ import annotations
 
@@ -49,30 +50,38 @@ REPS = 20  # launches a timed run
 KERNEL_NUMBER = {"fold": "#8", "pe": "#6", "pregathered": "#2"}
 
 
-def graphs():
-    """(label, model name, graph) of each main path's #8 / #6 launches, on
-    the CPU."""
-    def build(name, hp, batch):
-        model = create_model(name, dict(hp), device="cpu", seed=0)
-        return model.build_graph({k: torch.as_tensor(v)
-                                  for k, v in batch.items()})
+def build_graph(name, hp, batch):
+    """``name``'s graph of one batch, on the CPU."""
+    model = create_model(name, dict(hp), device="cpu", seed=0)
+    return model.build_graph({k: torch.as_tensor(v) for k, v in batch.items()})
 
-    heat = heat_batches(16, 16, nt=HEAT_TEST["nt"], nx=HEAT_TEST["nx"])[0]
+
+def cnn_1d_train_graph():
+    """A MAgNet[CNN] 1D training batch's graph: 32 samples of 32 queries
+    drawn from the 256-point mesh from a seed."""
     rng = np.random.default_rng(0)
     grid = make_coord_np([256])
     queries = np.stack([grid[np.sort(rng.choice(256, 32, replace=False))]
                         for _ in range(32)])
-    train = {"coords": queries, "lr_frames": np.zeros((32, 1, 1, 128))}
+    return build_graph("magnet_cnn", MAGNET_CNN,
+                       {"coords": queries,
+                        "lr_frames": np.zeros((32, 1, 1, 128))})
+
+
+def graphs():
+    """(label, model name, graph) of each main path's #8 / #6 launches, on
+    the CPU."""
+    heat = heat_batches(16, 16, nt=HEAT_TEST["nt"], nx=HEAT_TEST["nx"])[0]
     mesh = make_coord_np([64, 64])
     eval_2d = {"coords": np.broadcast_to(mesh, (4, *mesh.shape)).copy(),
                "lr_frames": np.zeros((1, 1, 1, 32, 32))}
     gnn = synthetic_test_batches("magnet_gnn", 16, 16, seed=0)[0]
-    g_gnn = build("magnet_gnn", MAGNET_GNN, gnn).all
-    return [("cnn_1d_eval", MAGNET_CNN, build("magnet_cnn", MAGNET_CNN, heat)),
-            ("cnn_1d_train", MAGNET_CNN,
-             build("magnet_cnn", MAGNET_CNN, train)),
+    g_gnn = build_graph("magnet_gnn", MAGNET_GNN, gnn).all
+    return [("cnn_1d_eval", MAGNET_CNN,
+             build_graph("magnet_cnn", MAGNET_CNN, heat)),
+            ("cnn_1d_train", MAGNET_CNN, cnn_1d_train_graph()),
             ("cnn_2d_eval", MAGNET_CNN_2D,
-             build("magnet_cnn_2d", MAGNET_CNN_2D, eval_2d)),
+             build_graph("magnet_cnn_2d", MAGNET_CNN_2D, eval_2d)),
             ("gnn_eval_all", MAGNET_GNN, g_gnn)]
 
 
@@ -93,11 +102,30 @@ def operands(entry, graph, ce, h, c, l1, seed, dev):
             1 + f(c, scale=0.1), f(c, scale=0.1))
 
 
-def bind(lib):
-    fn = getattr(ctypes.CDLL(str(lib)), f"{fe.FWD}_f32")
-    fn.argtypes = fe._ARGTYPES[fe.FWD]
+def bind(lib, name):
+    """The C entry ``<name>_f32`` of a library built from any tree."""
+    fn = getattr(ctypes.CDLL(str(lib)), f"{name}_f32")
+    fn.argtypes = fe._ARGTYPES[name]
     fn.restype = ctypes.c_int
     return fn
+
+
+def libraries(name, args):
+    """{"this": this checkout's library ``name``, "baseline": DIR's, when
+    args names ``baseline=DIR``}, bound."""
+    libs = {"this": cuda_build.build(name)}
+    if "baseline" in args:
+        libs["baseline"] = cuda_build.build(name, csrc=Path(args["baseline"]))
+    return {k: bind(v, name) for k, v in libs.items()}
+
+
+def card():
+    """Prints the card's name and power limit (nvidia-smi)."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True,
+                         check=True).stdout.strip()
+    print(smi.splitlines()[0], flush=True)
 
 
 def runner(fn, entry, ops, widths):
@@ -138,22 +166,26 @@ def cuda_ms(fn):
     return start.elapsed_time(stop) / REPS
 
 
+def in_turns(runs):
+    """Times of ``runs`` ({"this": fn, "baseline": fn}) in turns, baseline,
+    this, this, baseline: (order, ms of each, mean ms of each run)."""
+    order = (["baseline", "this", "this", "baseline"]
+             if "baseline" in runs else ["this", "this"])
+    times = [cuda_ms(runs[k]) for k in order]
+    mean = {k: float(np.mean([t for o, t in zip(order, times) if o == k]))
+            for k in runs}
+    return order, times, mean
+
+
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("time_fwd: no CUDA device", file=sys.stderr)
         return 1
     args = dict(a.split("=", 1) for a in argv)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    print(smi.splitlines()[0], flush=True)
+    card()
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    libs = {"this": cuda_build.build(fe.FWD)}
-    if "baseline" in args:
-        libs["baseline"] = cuda_build.build(fe.FWD,
-                                            csrc=Path(args["baseline"]))
-    fns = {k: bind(v) for k, v in libs.items()}
+    fns = libraries(fe.FWD, args)
     for label, hp, graph in graphs():
         h = hp["mlp_hidden"]
         ce = c = hp["latent_dim"]
@@ -174,11 +206,7 @@ def main(argv) -> int:
                     for k, fn in fns.items()}
             err = {k: float((run() - want).abs().max())
                    for k, run in runs.items()}
-            order = (["baseline", "this", "this", "baseline"]
-                     if "baseline" in runs else ["this", "this"])
-            times = [cuda_ms(runs[k]) for k in order]
-            mean = {k: float(np.mean([t for o, t in zip(order, times)
-                                      if o == k])) for k in runs}
+            order, times, mean = in_turns(runs)
             macs = (ce * h if entry == "fold" else 0) + l1 * h * h + h * c
             flops = 2.0 * graph.n_edge * macs
             print(json.dumps({
