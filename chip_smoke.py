@@ -4,7 +4,7 @@
   python3 chip_smoke.py                 every phase (the full check)
   python3 chip_smoke.py GROUP [GROUP]   only the named groups of phases:
                                         cnn, mpnn_kernels, mpnn_paths, cnn2d,
-                                        gnn
+                                        gnn, gnn2d, fno
 
 Builds the port's five CUDA sources from the checkout (all eleven TPU
 kernels: the fused GraphNet edge pipeline's forward and backward, each
@@ -18,15 +18,19 @@ seed: MAgNet[CNN] 1D through ``magnet_tpu_torch.eval.evaluate`` and
 through the same two entry points, one MPNN-1D training step on the
 pre-gathered kernels, MAgNet[CNN] 2D through ``evaluate`` (the fold lane)
 and ``Trainer.fit`` (the pre-gathered lane, with a checkpoint read back and
-a resume), and MAgNet[GNN] 1D through ``evaluate`` and ``Trainer.fit`` on
-the fold lane at width 128 and on the pe lane.  It checks that each path
-went through its kernels by their launch counts.  Prints one JSON line per
-phase (``device``, ``build``, ``kernel``, ``slice``, ``kernel_bwd``,
-``train``, ``mpnn_kernel``, ``mpnn_kernel_bwd``, ``mpnn_slice``,
-``mpnn_train``, ``cnn2d_kernel``, ``cnn2d_kernel_bwd``, ``cnn2d_slice``,
-``cnn2d_train``, ``gnn_kernel``, ``gnn_kernel_bwd``, ``gnn_slice``,
-``gnn_train``), the card's name and power limit, a ``{"kernels": [...]}``
-line, and last ``{"ok": true, "device": {...}}``.  Any failed phase exits
+a resume), MAgNet[GNN] 1D and 2D (the published 512-node irregular
+configuration) through ``evaluate`` and ``Trainer.fit`` on the fold lane
+at width 128 and on the pe lane, and FNO-1D and FNO-2D (no kernel of
+their own) through the same two entry points, each against the CPU path.
+It checks that each path went through its kernels by their launch counts.
+Prints one JSON line per phase (``device``, ``build``, ``kernel``,
+``slice``, ``kernel_bwd``, ``train``, ``mpnn_kernel``, ``mpnn_kernel_bwd``,
+``mpnn_slice``, ``mpnn_train``, ``cnn2d_kernel``, ``cnn2d_kernel_bwd``,
+``cnn2d_slice``, ``cnn2d_train``, ``gnn_kernel``, ``gnn_kernel_bwd``,
+``gnn_slice``, ``gnn_train``, ``gnn2d_kernel``, ``gnn2d_slice``,
+``gnn2d_train``, ``fno_1d``, ``fno_2d``), the card's name and power limit,
+a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
+Any failed phase exits
 non-zero, and with no CUDA device it exits 1 before printing any result.
 """
 from __future__ import annotations
@@ -37,7 +41,8 @@ import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+from multiprocessing import get_context
 
 import numpy as np
 import torch
@@ -102,7 +107,30 @@ SEG_RTOL, SEG_ATOL_REL = 1e-5, 1e-6
 # (SMOKE_DATA) through the GNN datamodule (nt 128, 32 queries, batch 32),
 # and the width-128 kernels' small graph with one tail layer
 GNN_EVAL_TRAJ, GNN_SMALL_L1 = 16, 1
-GROUPS = ("cnn", "mpnn_kernels", "mpnn_paths", "cnn2d", "gnn")
+# MAgNet[GNN] 2D is the published 512-node irregular script
+# (scripts/magnet_gnn/magnet_gnn_2d_b1_512_irregular.sh): batch 32, 256
+# queries, time_slice 10; FNO-2D is h5_datamodule_2d's batch 32 at 64 x 64.
+# Each trains on 32 Burgers-2D solves at nt 50 and 64 x 64, and both
+# evaluate on 32 more (the datamodules' trajectory counts, cut): MAgNet[GNN]
+# 2D trains on its datamodule's seeded irregular source (512 uniform nodes
+# drawn from each of its own solves) and evaluates on the eval solves'
+# regular 32 x 32 grid (every second row and column, the solver's own
+# 32 x 32 output), FNO-2D on its own solves and the eval solves at 64 x 64
+GNN2D_HP = {"time_slice": 10}
+GNN2D_DATA = {"res_train": 512, "samples": 256}
+B2D_TRAJ = 32
+# FNO-1D: 32 E3 trajectories at the datamodule's nt 250 and nx 50 with half
+# the solver's time steps (as MPNN_1D_DATA), which it trains and evaluates on
+CE_TRAJ, CE_STEPS = 32, 2000
+# every solve runs in a pool of worker processes while the kernels build;
+# the new groups' trajectories in chunks, each from a seed of its own
+DATA_WORKERS, DATA_CHUNK = 6, 4
+# an FNO's eval loss on the card against the CPU path: f32 on both sides,
+# cuFFT against pocketfft and the 1x1 convolutions summed in another order,
+# carried over 9 (1D) or 4 (2D) autoregressive windows
+FNO_LOSS_RTOL = 1e-4
+GROUPS = ("cnn", "mpnn_kernels", "mpnn_paths", "cnn2d", "gnn", "gnn2d",
+          "fno")
 
 
 def emit(obj) -> None:
@@ -312,6 +340,60 @@ def timed(fn) -> float:
     return time.perf_counter() - t0
 
 
+def fit_checkpoint_resume(make_model, hp, loaders, dev, n_epochs, reset,
+                          counts, prepare=None) -> tuple[dict, object]:
+    """``Trainer.fit`` of ``make_model()`` for ``n_epochs`` on ``loaders``
+    with ``hp``'s optimiser settings, its last checkpoint read back, and a
+    second new model resumed from it for one epoch more.  ``prepare``, where
+    given, instruments the first trainer before its fit; ``counts()``, read
+    after ``reset()`` and the first fit, gives its kernel launches.  Returns
+    that fit's record (launches, seconds, peak memory; the metrics rows of
+    both fits and their training losses; whether the checkpoint holds the
+    fitted model at its last step and epoch, and whether the resume went on
+    from there) and the resumed trainer, for timing steps."""
+    from magnet_tpu_torch.train.checkpoint import load_checkpoint
+    from magnet_tpu_torch.train.trainer import Trainer
+
+    steps = len(loaders["train"])
+    with tempfile.TemporaryDirectory() as workdir:
+        def trainer_for(max_epochs):
+            return Trainer(make_model(), max_epochs=max_epochs, lr=hp["lr"],
+                           weight_decay=hp["weight_decay"],
+                           factor=hp["factor"], step_size=hp["step_size"],
+                           workdir=workdir, device=dev)
+
+        trainer = trainer_for(n_epochs)
+        if prepare is not None:
+            prepare(trainer)
+        reset()
+        torch.cuda.reset_peak_memory_stats()
+        fit_s = timed(lambda: trainer.fit(loaders["train"], loaders["val"]))
+        launches = counts()
+        peak = torch.cuda.max_memory_allocated()
+        last = os.path.join(workdir, "checkpoints", "last.pt")
+        state, meta = load_checkpoint(last, require=("model", "optimizer"))
+        ckpt_ok = (state["step"] == steps * n_epochs
+                   and meta.get("epoch") == n_epochs - 1
+                   and all(torch.equal(v.cpu(), state["model"][k])
+                           for k, v in trainer.model.state_dict().items()))
+        resumed = trainer_for(n_epochs + 1)
+        resumed.fit(loaders["train"], loaders["val"], resume=last)
+        with open(os.path.join(workdir, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+    epochs = [r["epoch"] for r in rows]
+    return {"launches": launches, "steps_per_epoch": steps,
+            "epochs": n_epochs, "rows": rows,
+            "epoch_train_losses": [r["train_loss"] for r in rows],
+            "losses_finite": all(np.isfinite(v) for r in rows
+                                 for v in r.values()),
+            "checkpoint_ok": ckpt_ok,
+            "resume_ok": (epochs == list(range(n_epochs + 1))
+                          and resumed.optimizer.step_count
+                          == steps * (n_epochs + 1)),
+            "resumed_epochs": epochs, "seconds_fit": fit_s,
+            "peak_mem_bytes": peak}, resumed
+
+
 def cnn_phases(dev, data, groups) -> tuple[int, list, dict]:
     """Phases ``kernel``, ``slice``, ``kernel_bwd`` and ``train``: the fused
     GraphNet edge kernels and the two MAgNet[CNN] 1D paths.  Returns the
@@ -327,8 +409,6 @@ def cnn_phases(dev, data, groups) -> tuple[int, list, dict]:
     from magnet_tpu_torch.ops import cuda_build
     from magnet_tpu_torch.ops import fused_edge as fe
     from magnet_tpu_torch.ops.graph import csr_from_edges, radius_graph
-    from magnet_tpu_torch.train.checkpoint import load_checkpoint
-    from magnet_tpu_torch.train.trainer import Trainer
     from magnet_tpu_torch.utils import to_device
 
     # 3. kernel vs plain at the slice's shapes: B=16 LR∪HR graphs flattened
@@ -517,19 +597,13 @@ def cnn_phases(dev, data, groups) -> tuple[int, list, dict]:
     vs_plain_ok = (grads_finite and grad_l2[worst] <= TRAIN_GRAD_L2
                    and loss_rel <= TRAIN_LOSS_RTOL)
 
-    lr_, wd = hp["lr"], hp["weight_decay"]
     n_epochs, steps = 2, len(loaders["train"])
     val_batches = len(loaders["val"])
     mp = hp["num_message_passing_steps"]
     windows = (data_cfg["nt_train"] - hp["time_slice"]) // hp["time_slice"]
-    with tempfile.TemporaryDirectory() as workdir:
-        def trainer_for(m, max_epochs):
-            return Trainer(m, max_epochs=max_epochs, lr=lr_, weight_decay=wd,
-                           factor=hp["factor"], step_size=hp["step_size"],
-                           workdir=workdir, device=dev)
+    step_losses = []
 
-        trainer = trainer_for(fresh_model(), n_epochs)
-        step_losses = []
+    def record_steps(trainer):
         inner_step = trainer.train_step
 
         def recording_step(batch):
@@ -538,63 +612,46 @@ def cnn_phases(dev, data, groups) -> tuple[int, list, dict]:
             return metrics
 
         trainer.train_step = recording_step
+
+    def reset():
         fe.launches = fe.launches_bwd = 0
-        torch.cuda.reset_peak_memory_stats()
-        fit_s = timed(lambda: trainer.fit(loaders["train"], loaders["val"]))
-        train_launches, train_launches_bwd = fe.launches, fe.launches_bwd
-        peak_train = torch.cuda.max_memory_allocated()
-        want_bwd = windows * mp * steps * n_epochs
-        want_fwd = want_bwd + windows * mp * val_batches * n_epochs
-        with open(os.path.join(workdir, "metrics.jsonl")) as f:
-            rows = [json.loads(line) for line in f]
-        step_losses = [float(v) for v in step_losses]
-        losses_finite = (all(np.isfinite(v) for v in step_losses) and all(
-            np.isfinite(v) for r in rows for v in r.values()))
-        # the checkpoint, read back
-        last = os.path.join(workdir, "checkpoints", "last.pt")
-        state, meta = load_checkpoint(last, require=("model", "optimizer"))
-        ckpt_ok = (state["step"] == steps * n_epochs
-                   and meta.get("epoch") == n_epochs - 1
-                   and all(torch.equal(v.cpu(), state["model"][k])
-                           for k, v in trainer.model.state_dict().items()))
-        # resume continues at the next epoch
-        resumed = trainer_for(fresh_model(), n_epochs + 1)
-        resumed.fit(loaders["train"], loaders["val"], resume=last)
-        with open(os.path.join(workdir, "metrics.jsonl")) as f:
-            epochs = [json.loads(line)["epoch"] for line in f]
-        resume_ok = (epochs == list(range(n_epochs + 1))
-                     and resumed.optimizer.step_count == steps * (n_epochs + 1))
-        # seconds per step, steady: kernel path, then the plain path
-        host_batches = list(loaders["train"])
-        step_s = timed(lambda: [resumed.train_step(b)
-                                for b in host_batches]) / steps
-        resumed.model.impl = "plain"
-        step_plain_s = timed(lambda: [resumed.train_step(b)
-                                      for b in host_batches]) / steps
-        resumed.model.impl = "kernel"
+
+    fit, resumed = fit_checkpoint_resume(
+        fresh_model, hp, loaders, dev, n_epochs, reset,
+        lambda: (fe.launches, fe.launches_bwd), prepare=record_steps)
+    train_launches, train_launches_bwd = fit.pop("launches")
+    want_bwd = windows * mp * steps * n_epochs
+    want_fwd = want_bwd + windows * mp * val_batches * n_epochs
+    step_losses = [float(v) for v in step_losses]
+    losses_finite = (all(np.isfinite(v) for v in step_losses)
+                     and fit["losses_finite"])
+    # seconds per step, steady: kernel path, then the plain path
+    host_batches = list(loaders["train"])
+    step_s = timed(lambda: [resumed.train_step(b)
+                            for b in host_batches]) / steps
+    resumed.model.impl = "plain"
+    step_plain_s = timed(lambda: [resumed.train_step(b)
+                                  for b in host_batches]) / steps
+    resumed.model.impl = "kernel"
     train_ok = (train_launches == want_fwd and train_launches_bwd == want_bwd
                 and losses_finite and step_losses[-1] < step_losses[0]
-                and vs_plain_ok and ckpt_ok and resume_ok)
+                and vs_plain_ok and fit["checkpoint_ok"] and fit["resume_ok"])
     emit({"phase": "train", "batch_size": data_cfg["batch_size"],
-          "steps_per_epoch": steps, "epochs": n_epochs,
           "val_batches_per_epoch": val_batches, "windows_per_step": windows,
           "data": {**SMOKE_DATA, "seconds_to_make": t_data},
           "launches": train_launches, "expected_launches": want_fwd,
           "launches_bwd": train_launches_bwd,
           "expected_launches_bwd": want_bwd,
           "launches_per_train_step": {"fwd": windows * mp, "bwd": windows * mp},
-          "step_losses": step_losses, "rows": rows,
+          "step_losses": step_losses, **fit,
           "losses_finite": losses_finite, "grads_finite": grads_finite,
           "vs_plain": {"loss_kernel": float(loss_k), "loss_plain": float(loss_p),
                        "loss_rel_err": loss_rel, "loss_rtol": TRAIN_LOSS_RTOL,
                        "worst_grad_rel_l2": grad_l2[worst],
                        "worst_grad": worst, "grad_rel_l2_tol": TRAIN_GRAD_L2,
                        "ok": vs_plain_ok},
-          "checkpoint_ok": ckpt_ok, "resume_ok": resume_ok,
-          "resumed_epochs": epochs,
           "seconds_first_loss_and_backward": first_step_s, "seconds_per_step": step_s,
-          "seconds_per_step_plain": step_plain_s, "seconds_fit": fit_s,
-          "peak_mem_bytes": peak_train, "ok": train_ok})
+          "seconds_per_step_plain": step_plain_s, "ok": train_ok})
 
     # the kernels' entries: #8's times are those at the eval slice's shape
     kernels = [{
@@ -1204,8 +1261,6 @@ def cnn2d_phases(dev, data, groups) -> tuple[int, list, dict]:
     from magnet_tpu_torch.ops import fused_edge as fe
     from magnet_tpu_torch.ops import segment as seg
     from magnet_tpu_torch.ops.graph import csr_from_edges, radius_graph
-    from magnet_tpu_torch.train.checkpoint import load_checkpoint
-    from magnet_tpu_torch.train.trainer import Trainer
     from magnet_tpu_torch.utils import to_device
 
     hp = dict(MAGNET_CNN_2D)
@@ -1460,17 +1515,10 @@ def cnn2d_phases(dev, data, groups) -> tuple[int, list, dict]:
     val_batches = len(loaders["val"])
     nt_train = DATAMODULE_IMPLICIT_2D["nt_train"]
     per_step = ((nt_train - ts) // ts) * mp
-    with tempfile.TemporaryDirectory() as workdir:
-        def trainer_for(m, max_epochs):
-            return Trainer(m, max_epochs=max_epochs, lr=hp["lr"],
-                           weight_decay=hp["weight_decay"],
-                           factor=hp["factor"], step_size=hp["step_size"],
-                           workdir=workdir, device=dev)
+    step_losses, lanes = [], []
 
-        fmodel = create_model("magnet_cnn_2d", hp, device=dev, seed=0)
-        trainer = trainer_for(fmodel, n_epochs)
-        step_losses, lanes = [], []
-        inner_step, inner_build = trainer.train_step, fmodel.build_graph
+    def record_steps_and_lanes(trainer):
+        inner_step, inner_build = trainer.train_step, trainer.model.build_graph
 
         def recording_step(batch):
             m = inner_step(batch)
@@ -1483,80 +1531,69 @@ def cnn2d_phases(dev, data, groups) -> tuple[int, list, dict]:
             return gr
 
         trainer.train_step = recording_step
-        fmodel.build_graph = recording_build
+        trainer.model.build_graph = recording_build
+
+    def reset():
         fe.reset_launches()
         seg.launches = 0
-        torch.cuda.reset_peak_memory_stats()
-        fit_s = timed(lambda: trainer.fit(loaders["train"], loaders["val"]))
-        fit_counts = {"fold": fe.launches, "fold_bwd": fe.launches_bwd,
-                      "pregathered": fe.launches_pregathered,
-                      "pregathered_bwd": fe.launches_pregathered_bwd,
-                      "segment_sum": seg.launches}
-        peak_train = torch.cuda.max_memory_allocated()
-        n_steps = steps * n_epochs
-        want_fit = {"fold": per_batch * val_batches * n_epochs, "fold_bwd": 0,
-                    "pregathered": per_step * n_steps,
-                    "pregathered_bwd": per_step * n_steps,
-                    "segment_sum": per_step * n_steps}
-        want_lanes = (["pregathered"] * steps + ["fold"] * val_batches) * n_epochs
-        with open(os.path.join(workdir, "metrics.jsonl")) as f:
-            rows = [json.loads(line) for line in f]
-        step_losses = [float(v) for v in step_losses]
-        losses_finite = (all(np.isfinite(v) for v in step_losses) and all(
-            np.isfinite(v) for r in rows for v in r.values()))
-        last = os.path.join(workdir, "checkpoints", "last.pt")
-        state, meta = load_checkpoint(last, require=("model", "optimizer"))
-        ckpt_ok = (state["step"] == n_steps
-                   and meta.get("epoch") == n_epochs - 1
-                   and all(torch.equal(v.cpu(), state["model"][k])
-                           for k, v in trainer.model.state_dict().items()))
-        resumed = trainer_for(create_model("magnet_cnn_2d", hp, device=dev,
-                                           seed=0), n_epochs + 1)
-        resumed.fit(loaders["train"], loaders["val"], resume=last)
-        with open(os.path.join(workdir, "metrics.jsonl")) as f:
-            epochs = [json.loads(line)["epoch"] for line in f]
-        resume_ok = (epochs == list(range(n_epochs + 1))
-                     and resumed.optimizer.step_count == steps * (n_epochs + 1))
-        # seconds per step, steady, on graphs the model has cached (a new
-        # batch's host graph is timed apart): kernel path, then plain path
-        host_batches = list(loaders["train"])
-        graph_s = timed(lambda: [resumed.model.build_graph(to_device(b, dev))
-                                 for b in host_batches]) / steps
-        step_s = timed(lambda: [resumed.train_step(b)
-                                for b in host_batches]) / steps
-        resumed.model.impl = "plain"
-        step_plain_s = timed(lambda: [resumed.train_step(b)
-                                      for b in host_batches]) / steps
-        resumed.model.impl = "kernel"
-    # the epochs' mean training loss falls (single steps see other
-    # trajectories and queries)
-    epoch_losses = [r["train_loss"] for r in rows]
+
+    def counts():
+        return {"fold": fe.launches, "fold_bwd": fe.launches_bwd,
+                "pregathered": fe.launches_pregathered,
+                "pregathered_bwd": fe.launches_pregathered_bwd,
+                "segment_sum": seg.launches}
+
+    fit, resumed = fit_checkpoint_resume(
+        lambda: create_model("magnet_cnn_2d", hp, device=dev, seed=0), hp,
+        loaders, dev, n_epochs, reset, counts,
+        prepare=record_steps_and_lanes)
+    fit_counts = fit["launches"]
+    n_steps = steps * n_epochs
+    want_fit = {"fold": per_batch * val_batches * n_epochs, "fold_bwd": 0,
+                "pregathered": per_step * n_steps,
+                "pregathered_bwd": per_step * n_steps,
+                "segment_sum": per_step * n_steps}
+    want_lanes = (["pregathered"] * steps + ["fold"] * val_batches) * n_epochs
+    step_losses = [float(v) for v in step_losses]
+    losses_finite = (all(np.isfinite(v) for v in step_losses)
+                     and fit["losses_finite"])
+    # seconds per step, steady, on graphs the model has cached (a new
+    # batch's host graph is timed apart): kernel path, then plain path
+    host_batches = list(loaders["train"])
+    graph_s = timed(lambda: [resumed.model.build_graph(to_device(b, dev))
+                             for b in host_batches]) / steps
+    step_s = timed(lambda: [resumed.train_step(b)
+                            for b in host_batches]) / steps
+    resumed.model.impl = "plain"
+    step_plain_s = timed(lambda: [resumed.train_step(b)
+                                  for b in host_batches]) / steps
+    resumed.model.impl = "kernel"
+    # the first fit's epochs' mean training loss falls (single steps see
+    # other trajectories and queries)
+    epoch_losses = fit["epoch_train_losses"][:n_epochs]
     train_ok = (tgraph.lane == "pregathered" and fit_counts == want_fit
                 and lanes == want_lanes and losses_finite
                 and epoch_losses[-1] < epoch_losses[0] and cmp_pre["ok"]
-                and cmp_fold["ok"] and ckpt_ok and resume_ok)
+                and cmp_fold["ok"] and fit["checkpoint_ok"]
+                and fit["resume_ok"])
     emit({"phase": "cnn2d_train", "model": "magnet_cnn_2d",
-          "batch_size": CNN2D_BATCH, "steps_per_epoch": steps,
-          "epochs": n_epochs, "val_batches_per_epoch": val_batches,
+          "batch_size": CNN2D_BATCH, "val_batches_per_epoch": val_batches,
           "windows_per_step": per_step // mp,
           "data": {"train_trajectories": len(loaders["train"].dataset),
                    "seconds_to_make": data["cnn2d_seconds"]},
           "train_graph": {"n_node": tgraph.n_node, "n_edge": tgraph.n_edge,
                           "lane": tgraph.lane},
           "lanes": lanes, "expected_lanes": want_lanes,
-          "launches": fit_counts, "expected_launches": want_fit,
+          **fit, "expected_launches": want_fit,
           "launches_per_train_step": {"pregathered": per_step,
                                       "pregathered_bwd": per_step,
                                       "segment_sum": per_step},
-          "step_losses": step_losses, "epoch_train_losses": epoch_losses,
-          "rows": rows, "losses_finite": losses_finite,
+          "step_losses": step_losses, "losses_finite": losses_finite,
           "vs_plain": cmp_pre, "vs_plain_fold_forced": cmp_fold,
-          "checkpoint_ok": ckpt_ok, "resume_ok": resume_ok,
-          "resumed_epochs": epochs,
           "seconds_first_loss_and_backward": first_step_s,
           "seconds_host_graph_per_step": graph_s,
           "seconds_per_step": step_s, "seconds_per_step_plain": step_plain_s,
-          "seconds_fit": fit_s, "peak_mem_bytes": peak_train, "ok": train_ok})
+          "ok": train_ok})
 
     def worst(found):
         """The largest max_abs_err anywhere in a nest of results."""
@@ -1669,6 +1706,44 @@ def tie_receivers(entry, ops, l1):
     return torch.unique(receivers[near])
 
 
+def gnn_loss_and_grads(m, impl, batch, graphs):
+    """A MAgNet[GNN] model's training loss on ``batch`` and every
+    parameter's gradient, on lane ``impl``."""
+    m.impl = impl
+    m.zero_grad(set_to_none=True)
+    loss, _ = m.loss(batch, graphs, train=True)
+    loss.backward()
+    m.impl = "kernel"
+    return loss.detach(), {k: p.grad.clone()
+                           for k, p in m.named_parameters()}
+
+
+def gnn_vs_plain(m, impl, want, batch, graphs) -> dict:
+    """``gnn_loss_and_grads`` on lane ``impl`` against ``want``, the plain
+    path's, with the kernels' launches in that step."""
+    from magnet_tpu_torch.ops import fused_edge as fe
+    from magnet_tpu_torch.ops import segment as seg
+
+    fe.reset_launches()
+    seg.launches = 0
+    loss_k, grads_k = gnn_loss_and_grads(m, impl, batch, graphs)
+    counts = {**fe.launch_counts(), "segment_sum": seg.launches}
+    loss_p, grads_p = want
+    l2 = {k: float((grads_k[k].double() - grads_p[k].double()).norm()
+                   / grads_p[k].double().norm().clamp_min(1e-30))
+          for k in grads_p}
+    worst_k = max(l2, key=l2.get)
+    fin = all(bool(torch.isfinite(v).all()) for v in grads_k.values())
+    rel = float((loss_k - loss_p).abs() / loss_p.abs())
+    return {"impl": impl, "launches": counts,
+            "loss_kernel": float(loss_k), "loss_plain": float(loss_p),
+            "loss_rel_err": rel, "loss_rtol": TRAIN_LOSS_RTOL,
+            "worst_grad_rel_l2": l2[worst_k], "worst_grad": worst_k,
+            "grad_rel_l2_tol": TRAIN_GRAD_L2, "grads_finite": fin,
+            "ok": (fin and l2[worst_k] <= TRAIN_GRAD_L2
+                   and rel <= TRAIN_LOSS_RTOL)}
+
+
 def gnn_phases(dev, data, groups) -> tuple[int, list, dict]:
     """Phases ``gnn_kernel``, ``gnn_kernel_bwd``, ``gnn_slice`` and
     ``gnn_train``: the width-128 fold kernels (#8, #9), the pe kernels (#6,
@@ -1681,8 +1756,6 @@ def gnn_phases(dev, data, groups) -> tuple[int, list, dict]:
     from magnet_tpu_torch.ops import cuda_build
     from magnet_tpu_torch.ops import fused_edge as fe
     from magnet_tpu_torch.ops import segment as seg
-    from magnet_tpu_torch.train.checkpoint import load_checkpoint
-    from magnet_tpu_torch.train.trainer import Trainer
     from magnet_tpu_torch.utils import to_device
 
     hp = dict(MAGNET_GNN)
@@ -1920,42 +1993,14 @@ def gnn_phases(dev, data, groups) -> tuple[int, list, dict]:
 
     # 18. training: Trainer.fit at full width on the fold lane (the
     # graphs'); one step on the pe lane; both vs plain; one noisy step
-    def loss_and_grads(m, impl):
-        m.impl = impl
-        m.zero_grad(set_to_none=True)
-        loss, _ = m.loss(batch0, tg, train=True)
-        loss.backward()
-        m.impl = "kernel"
-        return loss.detach(), {k: p.grad.clone()
-                               for k, p in m.named_parameters()}
-
-    def vs_plain(m, impl, want):
-        fe.reset_launches()
-        seg.launches = 0
-        loss_k, grads_k = loss_and_grads(m, impl)
-        counts = {**fe.launch_counts(), "segment_sum": seg.launches}
-        loss_p, grads_p = want
-        l2 = {k: float((grads_k[k].double() - grads_p[k].double()).norm()
-                       / grads_p[k].double().norm().clamp_min(1e-30))
-              for k in grads_p}
-        worst_k = max(l2, key=l2.get)
-        fin = all(bool(torch.isfinite(v).all()) for v in grads_k.values())
-        rel = float((loss_k - loss_p).abs() / loss_p.abs())
-        return {"impl": impl, "launches": counts,
-                "loss_kernel": float(loss_k), "loss_plain": float(loss_p),
-                "loss_rel_err": rel, "loss_rtol": TRAIN_LOSS_RTOL,
-                "worst_grad_rel_l2": l2[worst_k], "worst_grad": worst_k,
-                "grad_rel_l2_tol": TRAIN_GRAD_L2, "grads_finite": fin,
-                "ok": (fin and l2[worst_k] <= TRAIN_GRAD_L2
-                       and rel <= TRAIN_LOSS_RTOL)}
-
     nt_train = loaders["train"].dataset.data["t"].shape[1]
     per_step = ((nt_train - ts) // ts) * 2 * mp
     tmodel = create_model("magnet_gnn", hp, device=dev, seed=0)
-    first_step_s = timed(lambda: loss_and_grads(tmodel, "kernel"))
-    plain = loss_and_grads(tmodel, "plain")
-    cmp_fold = vs_plain(tmodel, "kernel", plain)
-    cmp_pe = vs_plain(tmodel, "kernel_pe", plain)
+    first_step_s = timed(lambda: gnn_loss_and_grads(tmodel, "kernel",
+                                                      batch0, tg))
+    plain = gnn_loss_and_grads(tmodel, "plain", batch0, tg)
+    cmp_fold = gnn_vs_plain(tmodel, "kernel", plain, batch0, tg)
+    cmp_pe = gnn_vs_plain(tmodel, "kernel_pe", plain, batch0, tg)
     del plain
     cmp_fold["expected_launches"] = {
         k: per_step if k in ("fused_edge_fold128_fwd",
@@ -1977,57 +2022,35 @@ def gnn_phases(dev, data, groups) -> tuple[int, list, dict]:
 
     n_epochs, steps = 2, len(loaders["train"])
     val_batches = len(loaders["val"])
-    with tempfile.TemporaryDirectory() as workdir:
-        def trainer_for(m, max_epochs):
-            return Trainer(m, max_epochs=max_epochs, lr=hp["lr"],
-                           weight_decay=hp["weight_decay"],
-                           factor=hp["factor"], step_size=hp["step_size"],
-                           workdir=workdir, device=dev)
 
-        trainer = trainer_for(create_model("magnet_gnn", hp, device=dev,
-                                           seed=0), n_epochs)
+    def reset():
         fe.reset_launches()
         seg.launches = 0
-        torch.cuda.reset_peak_memory_stats()
-        fit_s = timed(lambda: trainer.fit(loaders["train"], loaders["val"]))
-        fit_counts = {**fe.launch_counts(), "segment_sum": seg.launches}
-        peak_train = torch.cuda.max_memory_allocated()
-        n_steps = steps * n_epochs
-        want_fit = {k: 0 for k in fit_counts}
-        want_fit["fused_edge_fold128_fwd"] = per_step * (
-            n_steps + val_batches * n_epochs)
-        want_fit["fused_edge_fold128_bwd"] = per_step * n_steps
-        with open(os.path.join(workdir, "metrics.jsonl")) as f:
-            rows = [json.loads(line) for line in f]
-        losses_finite = all(np.isfinite(v) for r in rows for v in r.values())
-        last = os.path.join(workdir, "checkpoints", "last.pt")
-        state, meta = load_checkpoint(last, require=("model", "optimizer"))
-        ckpt_ok = (state["step"] == n_steps
-                   and meta.get("epoch") == n_epochs - 1
-                   and all(torch.equal(v.cpu(), state["model"][k])
-                           for k, v in trainer.model.state_dict().items()))
-        resumed = trainer_for(create_model("magnet_gnn", hp, device=dev,
-                                           seed=0), n_epochs + 1)
-        resumed.fit(loaders["train"], loaders["val"], resume=last)
-        with open(os.path.join(workdir, "metrics.jsonl")) as f:
-            epochs = [json.loads(line)["epoch"] for line in f]
-        resume_ok = (epochs == list(range(n_epochs + 1))
-                     and resumed.optimizer.step_count == steps * (n_epochs + 1))
-        host_batches = list(loaders["train"])
-        graph_s = timed(lambda: [resumed.model.build_graph(to_device(b, dev))
-                                 for b in host_batches]) / steps
-        step_s = timed(lambda: [resumed.train_step(b)
-                                for b in host_batches]) / steps
-        resumed.model.impl = "plain"
-        step_plain_s = timed(lambda: [resumed.train_step(b)
-                                      for b in host_batches]) / steps
-        resumed.model.impl = "kernel"
-    epoch_losses = [r["train_loss"] for r in rows]
-    train_ok = (fit_counts == want_fit and losses_finite and cmp_fold["ok"]
-                and cmp_pe["ok"] and noise_ok and ckpt_ok and resume_ok)
+
+    fit, resumed = fit_checkpoint_resume(
+        lambda: create_model("magnet_gnn", hp, device=dev, seed=0), hp,
+        loaders, dev, n_epochs, reset,
+        lambda: {**fe.launch_counts(), "segment_sum": seg.launches})
+    fit_counts = fit["launches"]
+    n_steps = steps * n_epochs
+    want_fit = {k: 0 for k in fit_counts}
+    want_fit["fused_edge_fold128_fwd"] = per_step * (
+        n_steps + val_batches * n_epochs)
+    want_fit["fused_edge_fold128_bwd"] = per_step * n_steps
+    host_batches = list(loaders["train"])
+    graph_s = timed(lambda: [resumed.model.build_graph(to_device(b, dev))
+                             for b in host_batches]) / steps
+    step_s = timed(lambda: [resumed.train_step(b)
+                            for b in host_batches]) / steps
+    resumed.model.impl = "plain"
+    step_plain_s = timed(lambda: [resumed.train_step(b)
+                                  for b in host_batches]) / steps
+    resumed.model.impl = "kernel"
+    train_ok = (fit_counts == want_fit and fit["losses_finite"]
+                and cmp_fold["ok"] and cmp_pe["ok"] and noise_ok
+                and fit["checkpoint_ok"] and fit["resume_ok"])
     emit({"phase": "gnn_train", "model": "magnet_gnn",
           "batch_size": loaders["train"].batch_size, "nt": nt_train,
-          "steps_per_epoch": steps, "epochs": n_epochs,
           "val_batches_per_epoch": val_batches,
           "windows_per_step": per_step // (2 * mp),
           "data": {"train_trajectories": len(loaders["train"].dataset),
@@ -2035,18 +2058,14 @@ def gnn_phases(dev, data, groups) -> tuple[int, list, dict]:
           "train_lr_graph": {"n_node": tg.lr.n_node, "n_edge": tg.lr.n_edge},
           "train_all_graph": {"n_node": tg.all.n_node,
                               "n_edge": tg.all.n_edge},
-          "launches": fit_counts, "expected_launches": want_fit,
-          "launches_per_train_step": per_step, "rows": rows,
-          "epoch_train_losses": epoch_losses, "losses_finite": losses_finite,
+          **fit, "expected_launches": want_fit,
+          "launches_per_train_step": per_step,
           "vs_plain": cmp_fold, "vs_plain_pe_lane": cmp_pe,
           "noise": {"scale": 0.01, "loss": noisy_loss,
                     "loss_without": clean_loss, "ok": noise_ok},
-          "checkpoint_ok": ckpt_ok, "resume_ok": resume_ok,
-          "resumed_epochs": epochs,
           "seconds_first_loss_and_backward": first_step_s,
           "seconds_host_graph_per_step": graph_s,
           "seconds_per_step": step_s, "seconds_per_step_plain": step_plain_s,
-          "seconds_fit": fit_s, "peak_mem_bytes": peak_train,
           "ok": train_ok})
 
     def worst(found):
@@ -2109,71 +2128,533 @@ def gnn_phases(dev, data, groups) -> tuple[int, list, dict]:
 
 
 
+def falls(epoch_losses) -> bool:
+    """Whether a fit's training loss fell below its first epoch's.  With
+    one step an epoch the loss need not fall every step: MAgNet[GNN] 2D's
+    INR term overshoots on Adam's second step at lr 1e-3 and comes back
+    (``gnn2d_train``'s ``epoch_train_losses``)."""
+    return min(epoch_losses[1:]) < epoch_losses[0]
+
+
+def gnn2d_phases(dev, data, groups) -> tuple[int, list, dict]:
+    """Phases ``gnn2d_kernel``, ``gnn2d_slice`` and ``gnn2d_train``:
+    MAgNet[GNN] 2D (P = 2) at the published 512-node irregular
+    configuration, on the width-128 fold kernels (#8, #9) and the pe lane
+    (#6, #7 with #1).  The kernels' rows are the ``gnn`` group's; this group
+    returns its launches and its times at its own graphs for them."""
+    from magnet_tpu_torch.config import MAGNET_GNN
+    from magnet_tpu_torch.eval import evaluate
+    from magnet_tpu_torch.models.factory import create_model
+    from magnet_tpu_torch.ops import fused_edge as fe
+    from magnet_tpu_torch.ops import segment as seg
+    from magnet_tpu_torch.utils import to_device
+
+    hp = {**MAGNET_GNN, **GNN2D_HP}
+    h, l1 = hp["mlp_hidden"], hp["mlp_layers"] - 1
+    mp, ts = hp["num_message_passing_steps"], hp["time_slice"]
+    kind = "h5_implicit_gnn_2d"
+
+    def new_model(**extra):
+        return create_model("magnet_gnn", {**hp, **extra}, device=dev, seed=0,
+                            kind=kind)
+
+    model = new_model()
+    eval_batches = data["gnn2d_eval"]
+    loaders = data["gnn2d_loaders"]
+    loaders["train"].set_epoch(0)
+    batch0 = to_device(next(iter(loaders["train"])), dev)
+    eg = model.build_graph(to_device(eval_batches[0], dev))
+    tg = model.build_graph(batch0)
+    graphs = {"eval_all": eg.all, "eval_lr": eg.lr, "train_all": tg.all,
+              "train_lr": tg.lr}
+
+    t_phase = time.perf_counter()
+    # 19. #8 at width 128 vs plain on the four graphs of this path (the eval
+    # batch's regular LR and LR ∪ HR graphs, every receiver of degree 3 or
+    # 5; the training batch's irregular ones, receivers of degree 1 to 11),
+    # timed, bit-equal run to run at the largest; #9 vs plain at both
+    # training graphs by relative L2 with g zero on the receivers of relu
+    # ties, timed at LR ∪ HR
+    fwd = {}
+    for label, gr in graphs.items():
+        ops = gnn_operands("fold", gr, l1, seed=41, dev=dev)
+        got = fe.fused_edge_tail_agg(*ops)
+        torch.cuda.synchronize()
+        b = bound("fwd", gr, h, h, h, l1)
+        row = {"n_node": gr.n_node, "n_edge": gr.n_edge, "lane": gr.lane,
+               "mean_degree": float(gr.degree.mean()),
+               "max_degree": int(gr.degree.max()),
+               "n_degree1": int((gr.degree == 1).sum()),
+               **compare(got, fe.fused_edge_tail_agg_plain(*ops),
+                         KERNEL_RTOL, KERNEL_ATOL),
+               "ms": cuda_ms(lambda: fe.fused_edge_tail_agg(*ops), reps=30),
+               "plain_ms": cuda_ms(
+                   lambda: fe.fused_edge_tail_agg_plain(*ops), reps=10),
+               **b, **tc_bound(b)}
+        row["share_of_tc_bound"] = row["tc_bound_ms"] / row["ms"]
+        if label == "eval_all":
+            row["bits_equal_run_to_run"] = torch.equal(
+                fe.fused_edge_tail_agg(*ops), fe.fused_edge_tail_agg(*ops))
+            row["ok"] = row["ok"] and row["bits_equal_run_to_run"]
+        fwd[label] = row
+        del ops, got
+    g_gen = torch.Generator().manual_seed(43)
+    bwd = {}
+    for label in ("train_all", "train_lr"):
+        gr = graphs[label]
+        ops = gnn_operands("fold", gr, l1, seed=44, dev=dev)
+        g = torch.randn(gr.n_node, h, generator=g_gen).to(dev)
+        ties = tie_receivers("fold", ops, l1)
+        g[ties] = 0.0
+        got_g = fe.fused_edge_tail_agg_bwd(*ops, g)
+        torch.cuda.synchronize()
+        want_g = fe.fused_edge_tail_agg_bwd_plain(*ops, g)
+        row = {name: compare_grad(a, b, elementwise=False)
+               for name, a, b in zip(fe.GRAD_NAMES, got_g, want_g)}
+        row["ok"] = all(v["ok"] for v in row.values())
+        row.update(n_node=gr.n_node, n_edge=gr.n_edge,
+                   tie_receivers_zeroed=int(ties.numel()))
+        if label == "train_all":
+            b = bound("bwd", gr, h, h, h, l1)
+            row.update(
+                ms=cuda_ms(lambda: fe.fused_edge_tail_agg_bwd(*ops, g),
+                           reps=20),
+                plain_ms=cuda_ms(
+                    lambda: fe.fused_edge_tail_agg_bwd_plain(*ops, g), reps=5),
+                **b, **tc_bound(b))
+            row["share_of_tc_bound"] = row["tc_bound_ms"] / row["ms"]
+        bwd[label] = row
+        del ops, g, got_g, want_g
+    kernel_ok = (all(r["ok"] for r in fwd.values())
+                 and all(r["ok"] for r in bwd.values())
+                 and all(gr.lane == "fold" for gr in graphs.values()))
+    emit({"phase": "gnn2d_kernel", "h": h, "c": h, "ce": h, "l1": l1,
+          "tolerance": {"fwd": {"rtol": KERNEL_RTOL, "atol": KERNEL_ATOL},
+                        "bwd": {"rtol": BWD_RTOL,
+                                "atol_rel_to_max": BWD_ATOL_REL,
+                                "max_rel_l2": BWD_L2,
+                                "elementwise": "no (training shapes)"}},
+          "fold_w128": fwd, "fold_w128_bwd": bwd, "library_ms": None,
+          "seconds": time.perf_counter() - t_phase, "ok": kernel_ok})
+    if not kernel_ok:
+        return 18, [], {}
+
+    # 20. the eval slice: evaluate() on the regular 32 x 32 test batch of
+    # 32 on the fold lane (the graphs'), then on the pe lane; each vs plain
+    t_phase = time.perf_counter()
+    nt_test = eval_batches[0]["t"].shape[1]
+    n_win = (nt_test - ts) // ts
+    per_batch = n_win * 2 * mp
+    n_query = eval_batches[0]["hr_points"].shape[2]
+    lanes = {}
+    for impl, counter in (("kernel", "fused_edge_fold128_fwd"),
+                          ("kernel_pe", "fused_edge_pe_fwd")):
+        model.impl = impl
+        fe.reset_launches()
+        seg.launches = 0
+        t0 = time.perf_counter()
+        metrics, preds = evaluate(model, eval_batches, dev,
+                                  return_predictions=True)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counts = {**fe.launch_counts(), "segment_sum": seg.launches}
+        want_counts = {k: (per_batch * len(eval_batches) if k == counter
+                           else 0) for k in counts}
+        torch.cuda.reset_peak_memory_stats()
+        steady_s = timed(lambda: evaluate(model, eval_batches, dev))
+        lanes[impl] = {"metrics": metrics, "preds": preds,
+                       "launches": counts, "expected_launches": want_counts,
+                       "seconds_per_batch_first": first_s / len(eval_batches),
+                       "seconds_per_batch": steady_s / len(eval_batches),
+                       "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    model.impl = "plain"
+    t0 = time.perf_counter()
+    metrics_plain, preds_plain = evaluate(model, eval_batches, dev,
+                                          return_predictions=True)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    model.impl = "kernel"
+    slice_ok = True
+    for impl, lane in lanes.items():
+        preds = lane.pop("preds")
+        lane["vs_plain"] = compare(torch.cat(preds), torch.cat(preds_plain),
+                                   SLICE_RTOL, SLICE_ATOL)
+        if impl == "kernel_pe":
+            lane["vs_fold_lane"] = compare(torch.cat(preds), fold_preds,
+                                           SLICE_RTOL, SLICE_ATOL)
+        fold_preds = torch.cat(preds)
+        lane["finite"] = all(bool(torch.isfinite(p).all()) for p in preds) \
+            and all(np.isfinite(v) for v in lane["metrics"].values())
+        lane["shape_ok"] = all(
+            tuple(p.shape) == (b["hr_points"].shape[0], n_win * ts, n_query, 1)
+            for p, b in zip(preds, eval_batches))
+        lane["ok"] = (lane["launches"] == lane["expected_launches"]
+                      and lane["finite"] and lane["shape_ok"]
+                      and lane["vs_plain"]["ok"]
+                      and lane.get("vs_fold_lane", {"ok": True})["ok"])
+        slice_ok = slice_ok and lane["ok"]
+    del preds, preds_plain, fold_preds
+    emit({"phase": "gnn2d_slice", "model": "magnet_gnn", "pos_dim": 2,
+          "datamodule": "h5_datamodule_implicit_gnn_2d", "grid": "32 x 32",
+          "batches": len(eval_batches),
+          "batch_size": eval_batches[0]["t"].shape[0], "nt": nt_test,
+          "time_slice": ts, "L": eval_batches[0]["coords_lr"].shape[1],
+          "N": n_query, "windows": n_win, "launches_per_batch": per_batch,
+          "eval_lr_graph": {"n_node": eg.lr.n_node, "n_edge": eg.lr.n_edge},
+          "eval_all_graph": {"n_node": eg.all.n_node,
+                             "n_edge": eg.all.n_edge},
+          "lanes": lanes, "plain_metrics": metrics_plain,
+          "seconds_per_batch_plain": plain_s / len(eval_batches),
+          "seconds": time.perf_counter() - t_phase, "ok": slice_ok})
+    if not slice_ok:
+        return 19, [], {}
+    slice_counts = {impl: lane["launches"] for impl, lane in lanes.items()}
+
+    # 21. training: Trainer.fit on the irregular split at batch 32 on the
+    # fold lane (the graphs'); the first step's loss and gradients on the
+    # kernel path and on the pe lane, each vs plain
+    t_phase = time.perf_counter()
+    nt_train = batch0["t"].shape[1]
+    per_step = ((nt_train - ts) // ts) * 2 * mp
+    tmodel = new_model()
+    first_step_s = timed(lambda: gnn_loss_and_grads(tmodel, "kernel",
+                                                      batch0, tg))
+    plain = gnn_loss_and_grads(tmodel, "plain", batch0, tg)
+    cmp_fold = gnn_vs_plain(tmodel, "kernel", plain, batch0, tg)
+    cmp_pe = gnn_vs_plain(tmodel, "kernel_pe", plain, batch0, tg)
+    del plain, tmodel
+    cmp_fold["expected_launches"] = {
+        k: per_step if k in ("fused_edge_fold128_fwd",
+                             "fused_edge_fold128_bwd") else 0
+        for k in cmp_fold["launches"]}
+    cmp_pe["expected_launches"] = {
+        k: per_step if k in ("fused_edge_pe_fwd", "fused_edge_pe_bwd",
+                             "segment_sum") else 0
+        for k in cmp_pe["launches"]}
+    for c in (cmp_fold, cmp_pe):
+        c["ok"] = c["ok"] and c["launches"] == c["expected_launches"]
+
+    n_epochs, steps = 2, len(loaders["train"])
+    val_batches = len(loaders["val"])
+
+    def reset():
+        fe.reset_launches()
+        seg.launches = 0
+
+    fit, resumed = fit_checkpoint_resume(
+        new_model, hp, loaders, dev, n_epochs, reset,
+        lambda: {**fe.launch_counts(), "segment_sum": seg.launches})
+    fit_counts = fit["launches"]
+    n_steps = steps * n_epochs
+    want_fit = {k: 0 for k in fit_counts}
+    want_fit["fused_edge_fold128_fwd"] = per_step * (
+        n_steps + val_batches * n_epochs)
+    want_fit["fused_edge_fold128_bwd"] = per_step * n_steps
+    # every training batch misses the graph cache: each trajectory
+    # has a mesh of its own, and the batch's order changes every epoch
+    host_batches = [to_device(b, dev) for b in loaders["train"]]
+
+    def new_graphs():
+        for b in host_batches:
+            resumed.model.graphs.clear()
+            resumed.model.build_graph(b)
+
+    graph_s = timed(new_graphs) / steps
+    step_s = timed(lambda: [resumed.train_step(b)
+                            for b in host_batches]) / steps
+    resumed.model.impl = "plain"
+    step_plain_s = timed(lambda: [resumed.train_step(b)
+                                  for b in host_batches]) / steps
+    resumed.model.impl = "kernel"
+    loss_falls = falls(fit["epoch_train_losses"])
+    train_ok = (fit_counts == want_fit and fit["losses_finite"] and loss_falls
+                and cmp_fold["ok"] and cmp_pe["ok"] and fit["checkpoint_ok"]
+                and fit["resume_ok"])
+    emit({"phase": "gnn2d_train", "model": "magnet_gnn", "pos_dim": 2,
+          "batch_size": loaders["train"].batch_size, "nt": nt_train,
+          "time_slice": ts, "samples": batch0["coords_hr"].shape[1],
+          "n_nodes": batch0["hr_frames"].shape[-1],
+          "val_batches_per_epoch": val_batches,
+          "windows_per_step": per_step // (2 * mp),
+          "data": {"train_trajectories": len(loaders["train"].dataset),
+                   "seconds_to_make": data["gnn2d_seconds"]},
+          "train_lr_graph": {"n_node": tg.lr.n_node, "n_edge": tg.lr.n_edge},
+          "train_all_graph": {"n_node": tg.all.n_node,
+                              "n_edge": tg.all.n_edge},
+          **fit, "expected_launches": want_fit,
+          "launches_per_train_step": per_step, "loss_falls": loss_falls,
+          "vs_plain": cmp_fold, "vs_plain_pe_lane": cmp_pe,
+          "seconds_first_loss_and_backward": first_step_s,
+          "seconds_host_graph_per_new_batch": graph_s,
+          "seconds_per_step": step_s, "seconds_per_step_plain": step_plain_s,
+          "seconds": time.perf_counter() - t_phase, "ok": train_ok})
+
+    def shape_keys(row, label):
+        return {f"{k}_gnn2d_{label}": row[k]
+                for k in ("n_edge", "ms", "plain_ms", "bound_ms",
+                          "tc_bound_ms", "max_abs_err")}
+
+    extra = {
+        "fused_edge_tail_agg_w128": {
+            "launches_gnn2d": (slice_counts["kernel"]["fused_edge_fold128_fwd"]
+                               + fit_counts["fused_edge_fold128_fwd"]),
+            **shape_keys(fwd["eval_all"], "eval_all"),
+            **shape_keys(fwd["eval_lr"], "eval_lr"),
+            **shape_keys(fwd["train_all"], "train_all")},
+        "fused_edge_tail_agg_bwd_w128": {
+            "launches_gnn2d": fit_counts["fused_edge_fold128_bwd"],
+            **{f"{k}_gnn2d_train_all": bwd["train_all"][k]
+               for k in ("n_edge", "ms", "plain_ms", "bound_ms",
+                         "tc_bound_ms")}},
+        "fused_edge_tail_agg_pe": {
+            "launches_gnn2d": (slice_counts["kernel_pe"]["fused_edge_pe_fwd"]
+                               + cmp_pe["launches"]["fused_edge_pe_fwd"])},
+        "fused_edge_tail_agg_pe_bwd": {
+            "launches_gnn2d": cmp_pe["launches"]["fused_edge_pe_bwd"]},
+        "segment_sum": {"launches_gnn2d": cmp_pe["launches"]["segment_sum"]}}
+    return (0 if train_ok else 20), [], extra
+
+
+def fno_phases(dev, data, groups) -> tuple[int, list, dict]:
+    """Phases ``fno_1d`` and ``fno_2d``: each FNO at full width and batch 32
+    through ``evaluate`` (its eval loss against the CPU path's on the same
+    batch) and ``Trainer.fit`` (falling loss, checkpoint, resume).  FNO runs
+    none of the port's kernels: every launch count stays 0."""
+    from magnet_tpu_torch.config import FNO_1D, FNO_2D
+    from magnet_tpu_torch.eval import evaluate
+    from magnet_tpu_torch.models.factory import create_model
+    from magnet_tpu_torch.ops import fused_edge as fe
+    from magnet_tpu_torch.ops import mpnn_edge as me
+    from magnet_tpu_torch.ops import segment as seg
+    from magnet_tpu_torch.utils import to_device
+
+    def reset():
+        fe.reset_launches()
+        me.reset_launches()
+        seg.launches = 0
+
+    def counts():
+        return {**fe.launch_counts(), **me.launches,
+                "segment_sum": seg.launches}
+
+    for name, hp in (("fno_1d", FNO_1D), ("fno_2d", FNO_2D)):
+        t_phase = time.perf_counter()
+        loaders = data[f"{name}_loaders"]
+        eval_batches = list(loaders["test"])
+        model = create_model(name, hp, device=dev, seed=0)
+        reset()
+        t0 = time.perf_counter()
+        metrics, preds = evaluate(model, eval_batches, dev,
+                                  return_predictions=True)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        eval_counts = counts()
+        torch.cuda.reset_peak_memory_stats()
+        steady_s = timed(lambda: evaluate(model, eval_batches, dev))
+        peak_eval = torch.cuda.max_memory_allocated()
+        cpu_metrics, cpu_preds = evaluate(
+            create_model(name, hp, device="cpu", seed=0), eval_batches, "cpu",
+            return_predictions=True)
+        vs_cpu = {k: {"card": metrics[k], "cpu": cpu_metrics[k],
+                      "rel_err": abs(metrics[k] - cpu_metrics[k])
+                      / abs(cpu_metrics[k])}
+                  for k in ("test_loss", "test_mae_loss")}
+        pred, pred_cpu = torch.cat(preds).cpu().double(), \
+            torch.cat(cpu_preds).double()
+        vs_cpu["predictions_rel_l2"] = float((pred - pred_cpu).norm()
+                                             / pred_cpu.norm())
+        eval_ok = (all(v["rel_err"] <= FNO_LOSS_RTOL for k, v in
+                       vs_cpu.items() if k.startswith("test_"))
+                   and bool(torch.isfinite(pred).all())
+                   and pred.shape == pred_cpu.shape)
+        del preds, cpu_preds, pred, pred_cpu
+
+        n_epochs, steps = 2, len(loaders["train"])
+        fit, resumed = fit_checkpoint_resume(
+            lambda: create_model(name, hp, device=dev, seed=0), hp, loaders,
+            dev, n_epochs, reset, counts)
+        host_batches = [to_device(b, dev) for b in loaders["train"]]
+        step_s = timed(lambda: [resumed.train_step(b)
+                                for b in host_batches]) / steps
+        # every launch since the first fit began: both fits and the steps
+        fit["launches"] = counts()
+        del resumed, host_batches
+        loss_falls = falls(fit["epoch_train_losses"])
+        no_launches = (not any(eval_counts.values())
+                       and not any(fit["launches"].values()))
+        ok = (eval_ok and fit["losses_finite"] and loss_falls
+              and fit["checkpoint_ok"] and fit["resume_ok"] and no_launches)
+        u = eval_batches[0]["u"]
+        emit({"phase": name, "model": name, "width": hp["width"],
+              "num_layers": hp["num_layers"],
+              "time_history": hp["time_history"],
+              "batch_size": u.shape[0], "u_shape": list(u.shape),
+              "windows": (u.shape[1] - hp["time_history"])
+              // hp["time_future"], "eval_batches": len(eval_batches),
+              "metrics": metrics, "vs_cpu": vs_cpu,
+              "loss_rtol_vs_cpu": FNO_LOSS_RTOL,
+              "launches_eval": eval_counts,
+              "no_kernel_launches": no_launches,
+              "seconds_per_batch_first": first_s / len(eval_batches),
+              "seconds_per_batch": steady_s / len(eval_batches),
+              "peak_mem_bytes_eval": peak_eval, **fit,
+              "loss_falls": loss_falls, "seconds_per_step": step_s,
+              "seconds": time.perf_counter() - t_phase, "ok": ok})
+        if not ok:
+            return 21, [], {}
+    return 0, [], {}
+
+
+def regular_32(eval64: dict) -> dict:
+    """MAgNet[GNN] 2D's eval split: every second row and column of the eval
+    solves' 64 x 64 grid, the solver's own 32 x 32 output."""
+    nt = eval64["t"].shape[1]
+    return {"t": eval64["t"], "x": eval64["x"][:, ::2],
+            "y": eval64["y"][:, ::2],
+            f"pde_{nt}-32": eval64[f"pde_{nt}-64"][:, :, ::2, ::2]}
+
+
 def make_data(groups) -> dict:
-    """Everything the selected groups read, made on the host from seeds."""
+    """Everything the selected groups read, made on the host from seeds.
+    Every solve is a task of a pool of ``DATA_WORKERS`` processes, all of
+    them submitted first, so that they run while the kernels build; the
+    loaders are assembled here from their results.  Each ``*_seconds`` is
+    the time from the start until that group's data was ready."""
     from magnet_tpu_torch.config import (
+        DATAMODULE_1D,
+        DATAMODULE_2D,
         DATAMODULE_GRAPH,
         DATAMODULE_GRAPH_2D,
         DATAMODULE_IMPLICIT,
         DATAMODULE_IMPLICIT_2D,
         DATAMODULE_IMPLICIT_GNN,
+        DATAMODULE_IMPLICIT_GNN_2D,
         HEAT_TEST,
     )
     from magnet_tpu_torch.data.datamodule import (
+        SPLITS,
         build_loaders,
+        synthetic_split,
         synthetic_test_batches,
     )
     from magnet_tpu_torch.data.heat import heat_batches
     from magnet_tpu_torch.data.synthetic import make_split
 
+    groups = set(groups)
+    t0 = time.perf_counter()
     data = {}
-    if "cnn" in groups:
-        data["heat"] = heat_batches(16, 16, nt=HEAT_TEST["nt"],
-                                    nx=HEAT_TEST["nx"])
-        t0 = time.perf_counter()
-        data["ks_loaders"] = build_loaders(
-            {**DATAMODULE_IMPLICIT, **SMOKE_DATA}, seed=0)
-        data["ks_seconds"] = time.perf_counter() - t0
-    if {"mpnn_paths", "cnn2d"} & set(groups):
-        # the splits synthetic_burgers_2d makes from data_seed 0 (seeds 0,
-        # 1, 2), shared by the MPNN-2D and the MAgNet[CNN] 2D loaders
-        t0 = time.perf_counter()
+    with ProcessPoolExecutor(DATA_WORKERS, mp_context=get_context("spawn")) \
+            as pool:
+        def splits(cfg):
+            """The three splits of ``cfg``'s synthetic source, as tasks."""
+            return {split: pool.submit(synthetic_split, cfg, split)
+                    for split in SPLITS}
+
+        def arrays(jobs):
+            return {f"{split}_path": job.result()
+                    for split, job in jobs.items()}
+
+        def joined(jobs):
+            parts = [job.result() for job in jobs]
+            return {k: np.concatenate([p[k] for p in parts])
+                    for k in parts[0]}
+
+        # the KS and Heat trajectories of the cnn and gnn groups; the
+        # Burgers-2D splits (seeds 0, 1, 2) shared by the MPNN-2D and the
+        # MAgNet[CNN] 2D loaders and 12 more from seed 3; the combined
+        # equation of the MPNN-1D step; the new groups' solves in chunks
+        ks_cfg = {**DATAMODULE_IMPLICIT, **SMOKE_DATA}
+        gnn2d_cfg = {**DATAMODULE_IMPLICIT_GNN_2D, **GNN2D_DATA,
+                     "source": "synthetic_burgers_2d"}
         nt, res = DATAMODULE_GRAPH_2D["nt_train"], DATAMODULE_GRAPH_2D["res_train"]
-        b2d = {split: make_split("B2D", MPNN_2D_DATA[f"n_{split}"], nt, res,
-                                 seed=i)
-               for i, split in enumerate(("train", "val", "test"))}
-        paths = {f"{split}_path": arrays for split, arrays in b2d.items()}
-        data["b2d_loaders"] = build_loaders(
-            {**DATAMODULE_GRAPH_2D, **MPNN_2D_DATA, "source": "h5", **paths},
-            seed=0, shuffle_eval=False)
-        data["b2d_seconds"] = time.perf_counter() - t0
-    if "cnn2d" in groups:
-        t0 = time.perf_counter()
-        extra = make_split("B2D", CNN2D_EXTRA_TRAIN, nt, res, seed=3)
-        paths["train_path"] = {k: np.concatenate([b2d["train"][k], extra[k]])
-                               for k in extra}
-        data["cnn2d_loaders"] = build_loaders(
-            {**DATAMODULE_IMPLICIT_2D, "batch_size": CNN2D_BATCH, **paths},
-            seed=0, shuffle_eval=False)
-        data["cnn2d_seconds"] = time.perf_counter() - t0
-    if "mpnn_paths" in groups:
-        t0 = time.perf_counter()
-        data["ce_loaders"] = build_loaders(
-            {**DATAMODULE_GRAPH, **MPNN_1D_DATA}, seed=0)
-        data["ce_seconds"] = time.perf_counter() - t0
-    if "gnn" in groups:
-        # the cnn group's KS and Heat trajectories when it made them, else
-        # the same ones from the same seeds
-        t0 = time.perf_counter()
-        cfg = {**DATAMODULE_IMPLICIT_GNN, **SMOKE_DATA}
-        if "ks_loaders" in data:
-            cfg.update(source="h5", **{
-                f"{split}_path": loader.dataset.data
-                for split, loader in data["ks_loaders"].items()})
-        data["gnn_loaders"] = build_loaders(cfg, seed=0)
-        data["gnn_eval"] = synthetic_test_batches(
-            "magnet_gnn", GNN_EVAL_TRAJ, GNN_EVAL_TRAJ, seed=0)
-        data["gnn_seconds"] = time.perf_counter() - t0
+        jobs = {}
+        if {"cnn", "gnn"} & groups:
+            jobs["ks"] = splits(ks_cfg)
+        if {"mpnn_paths", "cnn2d"} & groups:
+            jobs["b2d"] = {split: pool.submit(
+                make_split, "B2D", MPNN_2D_DATA[f"n_{split}"], nt, res, seed=i)
+                for i, split in enumerate(SPLITS)}
+        if "cnn2d" in groups:
+            jobs["b2d_extra"] = pool.submit(make_split, "B2D",
+                                            CNN2D_EXTRA_TRAIN, nt, res, seed=3)
+        if "mpnn_paths" in groups:
+            jobs["ce"] = splits({**DATAMODULE_GRAPH, **MPNN_1D_DATA})
+        chunks = B2D_TRAJ // DATA_CHUNK
+        nt2, res2 = DATAMODULE_2D["nt_train"], DATAMODULE_2D["res_train"]
+        if "gnn2d" in groups:
+            # the datamodule's own seeded irregular source, a chunk a task
+            jobs["gnn2d_train"] = [pool.submit(synthetic_split, {
+                **gnn2d_cfg, "n_train": DATA_CHUNK, "data_seed": 100 + i},
+                "train") for i in range(chunks)]
+        if {"gnn2d", "fno"} & groups:
+            jobs["b2d64_eval"] = [pool.submit(make_split, "B2D", DATA_CHUNK,
+                                              nt2, res2, seed=100 + chunks + i)
+                                  for i in range(chunks)]
+        if "fno" in groups:
+            jobs["b2d64_train"] = [pool.submit(make_split, "B2D", DATA_CHUNK,
+                                               nt2, res2, seed=100 + i)
+                                   for i in range(chunks)]
+        if "fno" in groups:
+            nt1, nx1 = DATAMODULE_1D["nt_train"], DATAMODULE_1D["nx_train"]
+            jobs["e3"] = [pool.submit(make_split, "E3", DATA_CHUNK, nt1, nx1,
+                                      seed=200 + i, n_steps=CE_STEPS)
+                          for i in range(CE_TRAJ // DATA_CHUNK)]
+
+        if "cnn" in groups:
+            data["heat"] = heat_batches(16, 16, nt=HEAT_TEST["nt"],
+                                        nx=HEAT_TEST["nx"])
+            data["ks_loaders"] = build_loaders(
+                {**ks_cfg, "source": "h5", **arrays(jobs["ks"])}, seed=0)
+            data["ks_seconds"] = time.perf_counter() - t0
+        if "b2d" in jobs:
+            paths = arrays(jobs["b2d"])
+            data["b2d_loaders"] = build_loaders(
+                {**DATAMODULE_GRAPH_2D, **MPNN_2D_DATA, "source": "h5",
+                 **paths}, seed=0, shuffle_eval=False)
+            data["b2d_seconds"] = time.perf_counter() - t0
+        if "cnn2d" in groups:
+            extra = jobs["b2d_extra"].result()
+            train = paths["train_path"]
+            data["cnn2d_loaders"] = build_loaders(
+                {**DATAMODULE_IMPLICIT_2D, "batch_size": CNN2D_BATCH, **paths,
+                 "train_path": {k: np.concatenate([train[k], extra[k]])
+                                for k in extra}},
+                seed=0, shuffle_eval=False)
+            data["cnn2d_seconds"] = time.perf_counter() - t0
+        if "mpnn_paths" in groups:
+            data["ce_loaders"] = build_loaders(
+                {**DATAMODULE_GRAPH, **MPNN_1D_DATA, "source": "h5",
+                 **arrays(jobs["ce"])}, seed=0)
+            data["ce_seconds"] = time.perf_counter() - t0
+        if "gnn" in groups:
+            # the cnn group's KS and Heat trajectories
+            data["gnn_loaders"] = build_loaders(
+                {**DATAMODULE_IMPLICIT_GNN, **SMOKE_DATA, "source": "h5",
+                 **arrays(jobs["ks"])}, seed=0)
+            data["gnn_eval"] = synthetic_test_batches(
+                "magnet_gnn", GNN_EVAL_TRAJ, GNN_EVAL_TRAJ, seed=0)
+            data["gnn_seconds"] = time.perf_counter() - t0
+        if "b2d64_eval" in jobs:
+            eval64 = joined(jobs["b2d64_eval"])
+        if "gnn2d" in groups:
+            regular = regular_32(eval64)
+            data["gnn2d_loaders"] = build_loaders(
+                {**gnn2d_cfg, "source": "h5",
+                 "train_path": joined(jobs["gnn2d_train"]),
+                 "val_path": regular, "test_path": regular},
+                seed=0, shuffle_eval=False)
+            data["gnn2d_eval"] = list(data["gnn2d_loaders"]["test"])
+            data["gnn2d_seconds"] = time.perf_counter() - t0
+        if "fno" in groups:
+            data["fno_2d_loaders"] = build_loaders(
+                {**DATAMODULE_2D, "train_path": joined(jobs["b2d64_train"]),
+                 "val_path": eval64, "test_path": eval64},
+                seed=0, shuffle_eval=False)
+            e3 = joined(jobs["e3"])
+            data["fno_1d_loaders"] = build_loaders(
+                {**DATAMODULE_1D, **{f"{split}_path": e3 for split in SPLITS}},
+                seed=0, shuffle_eval=False)
+            data["fno_seconds"] = time.perf_counter() - t0
     return data
 
 
@@ -2207,13 +2688,19 @@ def main(argv) -> int:
     # 2. build: one nvcc per source, all started together; the host makes
     # the runs' data meanwhile
     t0 = time.perf_counter()
+    def build_all():
+        libs = cuda_build.build_all()
+        return libs, time.perf_counter() - t0
+
     with ThreadPoolExecutor(max_workers=1) as pool:
-        building = pool.submit(cuda_build.build_all)
+        building = pool.submit(build_all)
         data = make_data(groups)
         t_data = time.perf_counter() - t0
-        libs = building.result()
+        libs, t_build = building.result()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "seconds_building": t_build,
           "seconds_making_data_meanwhile": t_data,
+          "data_workers": DATA_WORKERS,
           "libraries": {name: {"library": lib.name, "ptxas": ptxas_lines(lib)}
                         for name, lib in libs.items()}})
 
@@ -2221,7 +2708,9 @@ def main(argv) -> int:
     for group_names, phases in ((("cnn",), cnn_phases),
                                 (("mpnn_kernels", "mpnn_paths"), mpnn_phases),
                                 (("cnn2d",), cnn2d_phases),
-                                (("gnn",), gnn_phases)):
+                                (("gnn",), gnn_phases),
+                                (("gnn2d",), gnn2d_phases),
+                                (("fno",), fno_phases)):
         if set(group_names) & set(groups):
             rc, entries, more = phases(dev, data, groups)
             kernels += entries

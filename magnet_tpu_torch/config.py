@@ -1,12 +1,14 @@
 """Model, data, trainer and callback defaults as Python data, copied from
 ``magnet_tpu/config/defaults``: ``MAGNET_CNN``, ``MAGNET_CNN_2D``, ``MPNN``,
-``MPNN_2D`` and ``MAGNET_GNN`` are ``model/{magnet_cnn,magnet_cnn_2d,mpnn,
-mpnn_2d,magnet_gnn}.yaml``; ``DATAMODULE_IMPLICIT``,
-``DATAMODULE_IMPLICIT_2D``, ``DATAMODULE_GRAPH``, ``DATAMODULE_GRAPH_2D``
-and ``DATAMODULE_IMPLICIT_GNN`` are ``datamodule/h5_datamodule_{implicit,
-implicit_2d,graph,graph_2d,implicit_gnn}.yaml`` (each plus the keys of its
-synthetic source, which stands in for the files; ``num_workers`` is not
-ported),
+``MPNN_2D``, ``MAGNET_GNN``, ``FNO_1D`` and ``FNO_2D`` are ``model/
+{magnet_cnn,magnet_cnn_2d,mpnn,mpnn_2d,magnet_gnn,fno_1d,fno_2d}.yaml``;
+``DATAMODULE_IMPLICIT``, ``DATAMODULE_IMPLICIT_2D``, ``DATAMODULE_GRAPH``,
+``DATAMODULE_GRAPH_2D``, ``DATAMODULE_IMPLICIT_GNN``,
+``DATAMODULE_IMPLICIT_GNN_2D``, ``DATAMODULE_1D`` and ``DATAMODULE_2D`` are
+``datamodule/h5_datamodule_{implicit,implicit_2d,graph,graph_2d,
+implicit_gnn,implicit_gnn_2d}.yaml``, ``h5_datamodule.yaml`` and
+``h5_datamodule_2d.yaml`` (each plus the keys of its synthetic source,
+which stands in for the files; ``num_workers`` is not ported),
 ``TRAINER`` is ``trainer/default.yaml`` without the keys of what is not
 ported (``devices``, ``steps_per_call``, ``precision``, ``log_every``),
 ``CALLBACKS`` the early-stopping patience of ``callbacks/default.yaml``.
@@ -64,6 +66,35 @@ MAGNET_GNN = {
     "codec_neighbors": 4,
     "noise": 0.0,
     "interpolation": "area",
+    "factor": 0.3,
+    "step_size": 50,
+    "loss": "l1",
+    "lr": 0.001,
+    "weight_decay": 0.0,
+}
+
+FNO_1D = {
+    "modes": 12,
+    "width": 256,
+    "num_layers": 5,
+    "time_history": 25,
+    "time_future": 25,
+    "teacher_forcing": True,
+    "factor": 0.3,
+    "step_size": 50,
+    "loss": "l1",
+    "lr": 0.001,
+    "weight_decay": 0.0,
+}
+
+FNO_2D = {
+    "modes_1": 12,
+    "modes_2": 12,
+    "width": 256,
+    "num_layers": 5,
+    "time_history": 10,
+    "time_future": 10,
+    "teacher_forcing": True,
     "factor": 0.3,
     "step_size": 50,
     "loss": "l1",
@@ -172,6 +203,65 @@ DATAMODULE_GRAPH_2D = {
     "data_seed": 0,
 }
 
+DATAMODULE_IMPLICIT_GNN_2D = {
+    "kind": "h5_implicit_gnn_2d",
+    "name": "h5_datamodule_implicit_gnn_2d",
+    "source": "h5",          # or synthetic_burgers_2d: from data_seed
+    "train_path": "data/B1/uniform/burgers_train_irregular_B1_512.h5",
+    "val_path": "data/B1/burgers_test_B1_32.h5",
+    "test_path": "data/B1/burgers_test_B1_32.h5",
+    "nt_train": 50,
+    "res_train": 64,
+    "nt_val": 50,
+    "res_val": 32,
+    "nt_test": 50,
+    "res_test": 32,
+    "samples": 32,
+    "train_regular": False,
+    "val_regular": True,
+    "test_regular": True,
+    # an irregular split's key is pde_<nt>-<n_nodes_train>, else
+    # pde_<nt>-<res_train> (the published 512-node script sets
+    # res_train=512)
+    "n_nodes_train": None,
+    "batch_size": 32,
+    # synthetic_burgers_2d only: trajectories per split and their seed; an
+    # irregular split's nodes are drawn from a 64 x 64 grid, uniform or
+    # concentrated around a random point
+    "n_train": 64,
+    "n_val": 8,
+    "n_test": 8,
+    "data_seed": 0,
+    "concentrated": False,
+}
+
+DATAMODULE_1D = {
+    **DATAMODULE_GRAPH,
+    "kind": "h5_1d",
+    "name": "h5_datamodule",
+}
+
+DATAMODULE_2D = {
+    "kind": "h5_2d",
+    "name": "h5_datamodule_2d",
+    "source": "h5",          # or synthetic_burgers_2d: from data_seed
+    "train_path": "data/B1/burgers_train_B1_64.h5",
+    "val_path": "data/B1/burgers_test_B1_64.h5",
+    "test_path": "data/B1/burgers_test_B1_64.h5",
+    "nt_train": 50,
+    "res_train": 64,
+    "nt_val": 50,
+    "res_val": 64,
+    "nt_test": 50,
+    "res_test": 64,
+    "batch_size": 32,
+    # synthetic_burgers_2d only: trajectories per split and their seed
+    "n_train": 64,
+    "n_val": 8,
+    "n_test": 8,
+    "data_seed": 0,
+}
+
 #: model name -> (its defaults, its datamodule's defaults)
 MODELS = {
     "magnet_cnn": (MAGNET_CNN, DATAMODULE_IMPLICIT),
@@ -179,14 +269,22 @@ MODELS = {
     "mpnn": (MPNN, DATAMODULE_GRAPH),
     "mpnn_2d": (MPNN_2D, DATAMODULE_GRAPH_2D),
     "magnet_gnn": (MAGNET_GNN, DATAMODULE_IMPLICIT_GNN),
+    "fno_1d": (FNO_1D, DATAMODULE_1D),
+    "fno_2d": (FNO_2D, DATAMODULE_2D),
 }
-DATAMODULES = {d["name"]: d for _, d in MODELS.values()}
+#: every datamodule ``datamodule=<name>`` reaches, the models' own and
+#: MAgNet[GNN]'s 2D one
+DATAMODULES = {d["name"]: d for d in (
+    *(dm for _, dm in MODELS.values()), DATAMODULE_IMPLICIT_GNN_2D)}
 #: the source that makes each datamodule's data from a seed
 SYNTHETIC_SOURCE = {"h5_implicit_1d": "synthetic_ks",
                     "h5_implicit_gnn_1d": "synthetic_ks",
+                    "h5_implicit_gnn_2d": "synthetic_burgers_2d",
                     "h5_implicit_2d": "synthetic_burgers_2d",
                     "h5_graph_1d": "synthetic_ce",
-                    "h5_graph_2d": "synthetic_burgers_2d"}
+                    "h5_graph_2d": "synthetic_burgers_2d",
+                    "h5_1d": "synthetic_ce",
+                    "h5_2d": "synthetic_burgers_2d"}
 
 HEAT_TEST = {"nt": DATAMODULE_IMPLICIT["nt_test"],
              "nx": DATAMODULE_IMPLICIT["nx_test"]}
@@ -208,7 +306,8 @@ RUN = {"seed": 42, "name": "run", "ckpt_path": "", "workdir": "runs/${name}",
 
 def parse_overrides(argv: list[str], defaults: dict) -> dict:
     """``key=value`` strings over ``defaults``; each value takes the type
-    of the default it replaces (bool from true/false)."""
+    of the default it replaces (bool from true/false); a default of None
+    takes null or an int."""
     out = dict(defaults)
     for arg in argv:
         key, sep, val = arg.partition("=")
@@ -219,6 +318,8 @@ def parse_overrides(argv: list[str], defaults: dict) -> dict:
             if val.lower() not in ("true", "false"):
                 raise ValueError(f"{key} takes true or false, got {val!r}")
             out[key] = val.lower() == "true"
+        elif old is None:
+            out[key] = None if val.lower() in ("null", "none") else int(val)
         else:
             out[key] = type(old)(val)
     return out
@@ -238,6 +339,30 @@ def split_model(argv: list[str]) -> tuple[str, list[str]]:
     return name, rest
 
 
+def split_datamodule(model_name: str,
+                     argv: list[str]) -> tuple[dict, list[str]]:
+    """Take ``datamodule=<name>`` out of ``argv``: that datamodule's
+    defaults (``model_name``'s own without it) and the other arguments."""
+    dm, rest = MODELS[model_name][1], []
+    for arg in argv:
+        key, _, val = arg.partition("=")
+        if key == "datamodule":
+            if val not in DATAMODULES:
+                raise ValueError(f"datamodule must be one of "
+                                 f"{sorted(DATAMODULES)}, got {val!r}")
+            dm = DATAMODULES[val]
+        else:
+            rest.append(arg)
+    return dm, rest
+
+
+def take_prefixed(argv: list[str], prefix: str) -> tuple[list[str], list[str]]:
+    """The arguments of ``argv`` that start with ``prefix``, without it,
+    and the others."""
+    return ([a.removeprefix(prefix) for a in argv if a.startswith(prefix)],
+            [a for a in argv if not a.startswith(prefix)])
+
+
 def compose(argv: list[str]) -> dict:
     """The run's config from ``key=value`` overrides: ``model=<name>``
     (``magnet_cnn`` by default) and ``datamodule=<name>`` (the model's own
@@ -247,18 +372,8 @@ def compose(argv: list[str]) -> dict:
     ``name``, ``ckpt_path``, ``workdir``, ``device``.  The model's name is
     returned as ``model_name``."""
     model_name, argv = split_model(argv)
-    model_defaults, dm_defaults = MODELS[model_name]
-    rest = []
-    for arg in argv:
-        key, _, val = arg.partition("=")
-        if key == "datamodule":
-            if val not in DATAMODULES:
-                raise ValueError(f"datamodule must be one of "
-                                 f"{sorted(DATAMODULES)}, got {val!r}")
-            dm_defaults = DATAMODULES[val]
-        else:
-            rest.append(arg)
-    sections = {"model": model_defaults, "datamodule": dm_defaults,
+    dm_defaults, rest = split_datamodule(model_name, argv)
+    sections = {"model": MODELS[model_name][0], "datamodule": dm_defaults,
                 "trainer": TRAINER, "callbacks": CALLBACKS}
     split: dict[str, list[str]] = {k: [] for k in (*sections, "run")}
     for arg in rest:

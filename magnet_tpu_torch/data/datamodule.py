@@ -1,16 +1,17 @@
 """Datamodule assembly: config -> train/val/test loaders (counterpart of
-``magnet_tpu/data/datamodule.py``), for ``kind`` ``h5_implicit_1d``,
-``h5_implicit_2d``, ``h5_graph_1d``, ``h5_graph_2d`` and
-``h5_implicit_gnn_1d``.
+``magnet_tpu/data/datamodule.py``), for every kind: ``h5_implicit_1d``,
+``h5_implicit_2d``, ``h5_graph_1d``, ``h5_graph_2d``,
+``h5_implicit_gnn_1d``, ``h5_implicit_gnn_2d``, ``h5_1d`` and ``h5_2d``.
 
 The 1D val split reads the group ``valid``, the 2D one ``test``.  Every
 split is shuffled, as in the reference, unless ``shuffle_eval`` is false.
 Where there are no files a synthetic ``source`` makes the three splits
 from ``data_seed``: ``synthetic_ks`` (KS train and valid, Heat test) for
-the implicit-1D kind, ``synthetic_ce`` (the combined equation's preset
-``eq``) for the 1D graphs, ``synthetic_burgers_2d`` for the 2D graphs and
-the implicit-2D kind; the implicit-GNN-1D kind takes ``synthetic_ks`` as
-the implicit-1D one does.
+the implicit-1D kinds, ``synthetic_ce`` (the combined equation's preset
+``eq``) for the 1D graphs and FNO-1D, ``synthetic_burgers_2d`` for the
+other 2D kinds; a split of the implicit-GNN-2D kind that is not regular is
+the irregular subsample of an ``IRREGULAR_GRID``-square grid, as
+``generate_2d_file`` writes it.
 """
 from __future__ import annotations
 
@@ -18,16 +19,21 @@ from typing import Any
 
 from magnet_tpu_torch.config import MODELS, SYNTHETIC_SOURCE
 from magnet_tpu_torch.data.datasets import (
+    Dataset1D,
+    Dataset2D,
     DatasetGraph1D,
     DatasetGraph2D,
     DatasetImplicit1D,
     DatasetImplicit2D,
     DatasetImplicitGNN1D,
+    DatasetImplicitGNN2D,
 )
 from magnet_tpu_torch.data.loader import DataLoader
 from magnet_tpu_torch.data.synthetic import make_split
 
 SPLITS = ("train", "val", "test")
+# the fine grid an irregular synthetic split's nodes are drawn from
+IRREGULAR_GRID = 64
 
 
 def _synthetic(cfg, split: str, seed: int) -> dict:
@@ -39,10 +45,22 @@ def _synthetic(cfg, split: str, seed: int) -> dict:
             return make_split("Heat", n, nt, res, seed=seed)
         return make_split("KS", n, nt, res, seed=seed,
                           burn_in=cfg.get("burn_in", 40.0))
-    if kind == "h5_graph_1d":
+    if kind in ("h5_graph_1d", "h5_1d"):
         return make_split(cfg.get("eq", "E3"), n, nt, res, seed=seed,
                           n_steps=int(cfg.get("n_steps", 4000)))
+    if kind == "h5_implicit_gnn_2d" and not cfg.get(f"{split}_regular", True):
+        return make_split("B2D", n, nt, IRREGULAR_GRID,
+                          seed=seed, n_nodes=_n_nodes(cfg, split),
+                          concentrated=bool(cfg.get("concentrated", False)))
     return make_split("B2D", n, nt, res, seed=seed)
+
+
+def _n_nodes(cfg, split: str) -> int:
+    """The node count of an irregular implicit-GNN-2D split, its key's
+    (``magnet_tpu/data/datasets.py:292-293``: every split reads
+    ``n_nodes_train``)."""
+    n_nodes = cfg.get("n_nodes_train")
+    return int(cfg[f"res_{split}"] if n_nodes is None else n_nodes)
 
 
 def _shape(cfg, split: str) -> tuple[int, int]:
@@ -67,10 +85,28 @@ def _dataset(cfg, split: str, data):
         return DatasetImplicit2D(
             data, mode, nt=nt, res=res, samples=cfg.get("samples", 32),
             eval_support=cfg.get("eval_support", "lr"))
+    if kind == "h5_implicit_gnn_2d":
+        return DatasetImplicitGNN2D(
+            data, mode, nt=nt, res=res,
+            regular=cfg.get(f"{split}_regular", True),
+            samples=cfg.get("samples", 32),
+            eval_support=cfg.get("eval_support", "lr"),
+            n_nodes=cfg.get("n_nodes_train"))
     if kind == "h5_graph_1d":
         return DatasetGraph1D(data, mode, nt=nt, nx=res)
+    if kind == "h5_1d":
+        return Dataset1D(data, mode, nt=nt, nx=res)
+    if kind == "h5_2d":
+        return Dataset2D(data, mode, nt=nt, res=res)
     return DatasetGraph2D(data, mode, nt=nt, res=res,
                           regular=cfg.get(f"{split}_regular", True))
+
+
+def synthetic_split(cfg: dict[str, Any], split: str) -> dict:
+    """The arrays ``cfg``'s synthetic source makes for ``split``: the
+    three splits take seeds ``3 * data_seed`` + 0, 1, 2."""
+    seed = int(cfg.get("data_seed", 0)) * 3 + SPLITS.index(split)
+    return _synthetic(cfg, split, seed)
 
 
 def build_datasets(cfg: dict[str, Any]) -> dict:
@@ -81,10 +117,9 @@ def build_datasets(cfg: dict[str, Any]) -> dict:
     if source not in ("h5", SYNTHETIC_SOURCE[kind]):
         raise ValueError(f"unknown source {source!r} for datamodule kind "
                          f"{kind!r} (h5 or {SYNTHETIC_SOURCE[kind]})")
-    seed = int(cfg.get("data_seed", 0)) * 3
     return {split: _dataset(cfg, split, cfg[f"{split}_path"] if source == "h5"
-                            else _synthetic(cfg, split, seed + i))
-            for i, split in enumerate(SPLITS)}
+                            else synthetic_split(cfg, split))
+            for split in SPLITS}
 
 
 def build_loaders(cfg: dict[str, Any], seed: int = 0,
@@ -101,11 +136,14 @@ def build_loaders(cfg: dict[str, Any], seed: int = 0,
 
 
 def synthetic_test_batches(model_name: str, n_traj: int, batch_size: int,
-                           seed: int = 0) -> list[dict]:
-    """``n_traj`` test trajectories of ``model_name``'s datamodule, made
-    from ``seed`` at the test split's shape, as eval batches of numpy
-    arrays in order (the last batch may be smaller)."""
-    cfg = {**MODELS[model_name][1], "n_test": n_traj}
+                           seed: int = 0,
+                           datamodule: dict | None = None) -> list[dict]:
+    """``n_traj`` test trajectories of the datamodule config ``datamodule``
+    (by default ``model_name``'s own), made from ``seed`` at the test
+    split's shape, as eval batches of numpy arrays in order.  The batch is
+    ``min(batch_size, n_traj)`` and the trailing partial batch is dropped,
+    as the repo's ``eval.py`` batches its test split."""
+    dm = MODELS[model_name][1] if datamodule is None else datamodule
+    cfg = {**dm, "n_test": n_traj}
     dataset = _dataset(cfg, "test", _synthetic(cfg, "test", seed))
-    return list(DataLoader(dataset, batch_size, shuffle=False,
-                           drop_last=False))
+    return list(DataLoader(dataset, min(batch_size, n_traj), shuffle=False))

@@ -1,13 +1,12 @@
 """Datasets with the reference reader's semantics (counterpart of
-``magnet_tpu/data/datasets.py``): MAgNet[CNN]'s, 1D and 2D, and the MPNN
-graph datasets, 1D and 2D.
+``magnet_tpu/data/datasets.py``): all eight, MAgNet[CNN]'s, MAgNet[GNN]'s,
+the MPNN graph datasets and FNO's, each 1D and 2D.
 
 A split comes from an HDF5 file (group ``train``/``valid``/``test`` with
 ``t``, ``x`` and ``pde_<nt>-<nx>``, in 2D also ``y`` or ``coords``;
 ``h5py`` is imported only when a file is read, and the split is read into
 memory whole) or from arrays already in memory under the same keys, as
 ``data.synthetic.make_split`` makes them.  ``__getitem__`` returns a dict of numpy arrays.
-MAgNet[GNN]'s 1D samples are ``DatasetImplicitGNN1D``'s.
 """
 from __future__ import annotations
 
@@ -238,4 +237,92 @@ class DatasetImplicit2D(_Split):
         }
         if self.mode == "train":
             out["sample_idx"] = sample_lst.astype(np.int64)
+        return out
+
+
+class DatasetImplicitGNN2D(_Split):
+    """MAgNet[GNN] 2D samples (``magnet_tpu/data/datasets.py:288-339``):
+    ``regular`` meshes are the 'ij' meshgrid of the stored ``x`` and ``y``
+    (the field flattened to N = W*W nodes), irregular ones the stored
+    ``coords`` with the field at those nodes; the trajectory key of an
+    irregular split is ``pde_<nt>-<n_nodes>`` when ``n_nodes`` is given,
+    else ``pde_<nt>-<res>``.  Coordinates are scaled per sample and axis to
+    [-1, 1].  The support is every second node, the queries the rest:
+    train mode draws ``samples`` sorted queries from them without
+    replacement from the dataset's generator; eval modes query all of them,
+    and ``eval_support='full'`` makes the support and the queries the whole
+    mesh."""
+
+    def __init__(self, source, mode: str, nt: int, res: int,
+                 regular: bool = True, samples: int = 256,
+                 eval_support: str = "lr", n_nodes=None):
+        key_res = res if regular or n_nodes is None else n_nodes
+        super().__init__(source, mode, f"pde_{nt}-{key_res}")
+        self.regular = regular
+        self.samples = samples
+        self.eval_support = eval_support
+        self.rng = np.random.default_rng(0)
+
+    def set_epoch(self, seed: int):
+        self.rng = np.random.default_rng(seed)
+
+    def __getitem__(self, idx):
+        u_hr = np.asarray(self.data[self.key][idx], np.float32)
+        u_hr = u_hr.reshape(u_hr.shape[0], 1, -1)                 # (T, 1, N)
+        if self.regular:
+            x = np.asarray(self.data["x"][idx], np.float32)
+            y = np.asarray(self.data["y"][idx], np.float32)
+            coords = np.stack(np.meshgrid(x, y, indexing="ij"), -1).reshape(-1, 2)
+        else:
+            coords = np.asarray(self.data["coords"][idx], np.float32)
+        coords = (2 * (coords - coords.min(0))
+                  / (coords.max(0) - coords.min(0)) - 1).astype(np.float32)
+        t = np.asarray(self.data["t"][idx], np.float32)
+        N = u_hr.shape[-1]
+        full = self.mode != "train" and self.eval_support == "full"
+        left = np.setdiff1d(np.arange(N), np.arange(N)[::2])
+        if self.mode == "train":
+            sample_lst = np.sort(self.rng.choice(left, self.samples,
+                                                 replace=False))
+        else:
+            sample_lst = np.arange(N) if full else left
+        out = {
+            "t": t,
+            "lr_frames": u_hr if full else u_hr[:, :, ::2],
+            "hr_frames": u_hr,
+            "hr_points": u_hr[:, 0, sample_lst][:, :, None],   # (T, n, 1)
+            "coords_hr": coords[sample_lst],
+            "coords_lr": coords if full else coords[::2],
+        }
+        if self.mode == "train":
+            out["sample_idx"] = sample_lst.astype(np.int64)
+        return out
+
+
+class Dataset1D(_Split):
+    """FNO samples {u (T, N), dx, dt} (``magnet_tpu/data/datasets.py:
+    71-85``): the spacings of the stored ``x`` and ``t``."""
+
+    def __init__(self, source, mode: str, nt: int, nx: int):
+        super().__init__(source, mode, f"pde_{nt}-{nx}")
+
+    def __getitem__(self, idx):
+        x = np.asarray(self.data["x"][idx], np.float32)
+        t = np.asarray(self.data["t"][idx], np.float32)
+        return {"u": np.asarray(self.data[self.key][idx], np.float32),
+                "dx": np.float32(x[1] - x[0]), "dt": np.float32(t[1] - t[0])}
+
+
+class Dataset2D(_Split):
+    """FNO-2D samples {u (T, W, W), dx, dy, dt} (``magnet_tpu/data/
+    datasets.py:214-227``): the spacings as stored, one row per
+    trajectory."""
+
+    def __init__(self, source, mode: str, nt: int, res: int):
+        super().__init__(source, mode, f"pde_{nt}-{res}")
+
+    def __getitem__(self, idx):
+        out = {"u": np.asarray(self.data[self.key][idx], np.float32)}
+        for k in ("dx", "dy", "dt"):
+            out[k] = np.float32(self.data[k][idx][0])
         return out

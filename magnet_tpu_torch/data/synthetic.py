@@ -2,8 +2,10 @@
 copies of ``magnet_tpu/data/synthetic.py``'s ``_initial_condition_1d``,
 ``solve_ks_1d`` (the training PDE of the implicit-1D protocol),
 ``solve_heat_1d`` (its zero-shot transfer test), ``solve_combined_1d`` with
-its forcing, presets and WENO5 flux (the E1/E2/E3 sets MPNN 1D trains on)
-and ``solve_burgers_2d`` (MPNN 2D's B1 set)."""
+its forcing, presets and WENO5 flux (the E1/E2/E3 sets MPNN 1D and FNO-1D
+train on) and ``solve_burgers_2d`` (the B1 set of the 2D models), with the
+irregular subsample of ``generate_2d_file`` (``magnet_tpu/data/
+synthetic.py:480-546``) in memory."""
 from __future__ import annotations
 
 import numpy as np
@@ -269,16 +271,39 @@ def solve_burgers_2d(
     return u_out.astype(np.float32), x, x.copy(), t
 
 
+def irregular_nodes(rng, x, y, n_nodes: int, concentrated: bool):
+    """``n_nodes`` sorted flat indices of the len(x) x len(y) grid and
+    their coordinates, drawn as ``generate_2d_file`` draws them: uniform,
+    or weighted by a Gaussian (sigma 0.15) around a random grid point."""
+    grid = np.stack(np.meshgrid(x, y, indexing="ij"), -1).reshape(-1, 2)
+    n_grid = grid.shape[0]
+    if concentrated:
+        focus = grid[rng.integers(n_grid)]
+        w = np.exp(-((grid - focus) ** 2).sum(-1) / (2 * 0.15**2))
+        sel = np.sort(rng.choice(n_grid, n_nodes, replace=False, p=w / w.sum()))
+    else:
+        sel = np.sort(rng.choice(n_grid, n_nodes, replace=False))
+    return sel, grid[sel]
+
+
 def make_split(eq: str, n: int, nt: int, nx: int, seed: int = 0,
+               n_nodes: int | None = None, concentrated: bool = False,
                **solver_kw) -> dict:
     """``n`` trajectories of ``eq`` from ``seed`` as one split's arrays,
     the in-memory form of one group of the HDF5 schema.  'KS', 'Heat' and
     the combined equation's 'E1'/'E2'/'E3' give ``{"t": (n, nt), "x":
     (n, nx), "pde_<nt>-<nx>": (n, nt, nx)}``; 'B2D' (2D Burgers on an
-    nx x nx grid) gives ``{"t", "x": (n, nx), "y": (n, nx),
-    "pde_<nt>-<nx>": (n, nt, nx, nx)}``."""
+    nx x nx grid) gives ``{"t", "x": (n, nx), "y": (n, nx), "dx", "dy",
+    "dt": (n, 1), "pde_<nt>-<nx>": (n, nt, nx, nx)}``.  With ``n_nodes``
+    a 'B2D' split is irregular, as ``generate_2d_file(irregular=True)``
+    writes it: after each solve ``n_nodes`` nodes of the nx x nx grid are
+    drawn from the same generator (``concentrated``: around a random focus
+    point), and the split holds ``coords`` (n, n_nodes, 2) and
+    ``pde_<nt>-<n_nodes>`` (n, nt, n_nodes) in place of the grid's field."""
     if eq not in ("KS", "Heat", "E1", "E2", "E3", "B2D"):
         raise ValueError(f"unknown equation {eq!r}")
+    if n_nodes is not None and eq != "B2D":
+        raise ValueError("only a 'B2D' split is irregular")
     rng = np.random.default_rng(seed)
     cols: dict[str, list] = {"u": [], "x": [], "t": []}
     for _ in range(n):
@@ -291,6 +316,11 @@ def make_split(eq: str, n: int, nt: int, nx: int, seed: int = 0,
             u, x, y, t = solve_burgers_2d(rng, w_fine=max(64, nx), nt_out=nt,
                                           w_out=nx, **solver_kw)
             cols.setdefault("y", []).append(y)
+            if n_nodes is not None:
+                sel, coords = irregular_nodes(rng, x, y, n_nodes,
+                                               concentrated)
+                cols.setdefault("coords", []).append(coords)
+                u = u.reshape(nt, -1)[:, sel]
         else:
             u, x, t = solve_combined_1d(
                 rng, eq=eq, nx_fine=nx * max(8, -(-256 // nx)), nt_out=nt,
@@ -298,5 +328,13 @@ def make_split(eq: str, n: int, nt: int, nx: int, seed: int = 0,
         for k, v in (("u", u), ("x", x), ("t", t)):
             cols[k].append(v)
     out = {k: np.stack(v) for k, v in cols.items()}
-    out[f"pde_{nt}-{nx}"] = out.pop("u")
+    out[f"pde_{nt}-{nx if n_nodes is None else n_nodes}"] = out.pop("u")
+    if eq == "B2D":
+        # the FNO-2D reader's spacings, one row per trajectory, from the
+        # first trajectory as the file writer takes them
+        out["dx"] = np.full((n, 1), float(out["x"][0, 1] - out["x"][0, 0]),
+                            np.float32)
+        out["dy"] = out["dx"].copy()
+        out["dt"] = np.full((n, 1), float(out["t"][0, 1] - out["t"][0, 0]),
+                            np.float32)
     return out

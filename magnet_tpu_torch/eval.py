@@ -1,15 +1,20 @@
 """Evaluation: no-teacher-forcing rollout metrics on test batches made
-from a seed at the shape of the model's test split (counterpart of the
-repo's ``eval.py``): Heat for ``magnet_cnn`` and ``magnet_gnn``, the
-combined equation for ``mpnn``, 2D Burgers for ``mpnn_2d`` and
-``magnet_cnn_2d``.
+from a seed at the shape of the datamodule's test split (counterpart of
+the repo's ``eval.py``): Heat for ``magnet_cnn`` and ``magnet_gnn``, the
+combined equation for ``mpnn`` and ``fno_1d``, 2D Burgers for
+``mpnn_2d``, ``magnet_cnn_2d`` and ``fno_2d``, and for ``magnet_gnn`` with
+``datamodule=h5_datamodule_implicit_gnn_2d`` 2D Burgers on its regular
+32 x 32 test grid.
 
 Usage (on the card; ``device=cpu`` runs the plain PyTorch path):
-  python -m magnet_tpu_torch.eval [model=magnet_cnn] [seed=0] [n_traj=16] \\
-      [batch_size=16] [device=cuda] [ckpt=runs/x/checkpoints/best.pt] \\
+  python -m magnet_tpu_torch.eval [model=magnet_cnn] [datamodule=NAME] \\
+      [seed=0] [n_traj=16] [batch_size=16] [device=cuda] \\
+      [ckpt=runs/x/checkpoints/best.pt] [datamodule.key=value ...] \\
       [model_key=value ...]
 
-Without ``ckpt`` a fresh initialisation is evaluated.
+Without ``ckpt`` a fresh initialisation is evaluated.  The batch is
+``min(batch_size, n_traj)`` and a trailing partial batch is dropped, as
+the repo's ``eval.py`` does.
 """
 from __future__ import annotations
 
@@ -18,7 +23,13 @@ import sys
 
 import numpy as np
 
-from magnet_tpu_torch.config import MODELS, parse_overrides, split_model
+from magnet_tpu_torch.config import (
+    MODELS,
+    parse_overrides,
+    split_datamodule,
+    split_model,
+    take_prefixed,
+)
 from magnet_tpu_torch.data.datamodule import synthetic_test_batches
 from magnet_tpu_torch.models.common import nrmse
 from magnet_tpu_torch.models.factory import create_model, resolve_device
@@ -56,18 +67,22 @@ def evaluate(model, batches, device="cuda", return_predictions: bool = False):
 
 def main(argv=None):
     name, argv = split_model(list(sys.argv[1:] if argv is None else argv))
+    dm, argv = split_datamodule(name, argv)
+    dm_args, argv = take_prefixed(argv, "datamodule.")
+    dm = parse_overrides(dm_args, dm)
     run_keys = {"seed": 0, "n_traj": 16, "batch_size": 16, "device": "cuda",
                 "ckpt": ""}
     run = parse_overrides(
         [a for a in argv if a.split("=")[0] in run_keys], run_keys)
     hp = parse_overrides(
         [a for a in argv if a.split("=")[0] not in run_keys], MODELS[name][0])
-    model = create_model(name, hp, device=run["device"], seed=run["seed"])
+    model = create_model(name, hp, device=run["device"], seed=run["seed"],
+                         kind=dm["kind"])
     if run["ckpt"]:
         state, _ = load_checkpoint(run["ckpt"], require=("model",))
         model.load_state_dict(state["model"])
     batches = synthetic_test_batches(name, run["n_traj"], run["batch_size"],
-                                     seed=run["seed"])
+                                     seed=run["seed"], datamodule=dm)
     out = evaluate(model, batches, run["device"])
     print(json.dumps(out))
     return out

@@ -1,9 +1,11 @@
 """Model registry (counterpart of ``magnet_tpu/models/factory.py``); the
-port has MAgNet[CNN] 1D/2D, MPNN 1D/2D and MAgNet[GNN] 1D so far."""
+port has MAgNet[CNN] 1D/2D, MPNN 1D/2D, MAgNet[GNN] 1D/2D and FNO 1D/2D
+so far (7 of the 8 models)."""
 from __future__ import annotations
 
 import torch
 
+from magnet_tpu_torch.models.fno import FNO1D, FNO2D
 from magnet_tpu_torch.models.magnet_cnn_1d import MAgNetCNN1D
 from magnet_tpu_torch.models.magnet_cnn_2d import MAgNetCNN2D
 from magnet_tpu_torch.models.magnet_gnn import MAgNetGNN
@@ -11,7 +13,10 @@ from magnet_tpu_torch.models.mpnn import MPNN, MPNN2D
 from magnet_tpu_torch.nn.core import init_torch_default
 
 FACTORY = {"magnet_cnn": MAgNetCNN1D, "magnet_cnn_2d": MAgNetCNN2D,
-           "mpnn": MPNN, "mpnn_2d": MPNN2D, "magnet_gnn": MAgNetGNN}
+           "mpnn": MPNN, "mpnn_2d": MPNN2D, "magnet_gnn": MAgNetGNN,
+           "fno_1d": FNO1D, "fno_2d": FNO2D}
+#: MAgNet[GNN]'s position dimension by datamodule kind (1 for any other)
+POS_DIM = {"h5_implicit_gnn_2d": 2}
 
 
 def resolve_device(device) -> torch.device:
@@ -25,12 +30,18 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def create_model(name: str, hparams: dict, device="cuda", seed: int = 0):
+def create_model(name: str, hparams: dict, device="cuda", seed: int = 0,
+                 kind: str | None = None):
     """Build model ``name`` with torch-default init drawn from a generator
-    seeded with ``seed``, on ``device``, in eval mode."""
+    seeded with ``seed``, on ``device``, in eval mode.  ``kind`` is the
+    datamodule's kind, which sets MAgNet[GNN]'s position dimension
+    (``POS_DIM``); the JAX model reads it off the coordinates."""
     device = resolve_device(device)
     if name not in FACTORY:
         raise ValueError(f"unknown model {name!r} (ported: {sorted(FACTORY)})")
-    model = FACTORY[name](hparams)
+    if name == "magnet_gnn":
+        model = MAgNetGNN(hparams, pos_dim=POS_DIM.get(kind, 1))
+    else:
+        model = FACTORY[name](hparams)
     init_torch_default(model, torch.Generator().manual_seed(seed))
     return model.to(device).eval()

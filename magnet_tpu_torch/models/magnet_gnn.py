@@ -1,6 +1,9 @@
-"""MAgNet[GNN] 1D, the fully graph-based flavour: forward, the rollout over
-windows with teacher forcing and training noise, and the training and eval
-losses (counterpart of ``magnet_tpu/models/magnet_gnn.py:38-312``).
+"""MAgNet[GNN], the fully graph-based flavour, in 1D and 2D: forward, the
+rollout over windows with teacher forcing and training noise, and the
+training and eval losses (counterpart of ``magnet_tpu/models/
+magnet_gnn.py:38-312``).  The position dimension P (1 or 2) sizes the two
+encoders' inputs and the k-NN head's; the JAX model reads it off the
+coordinates at ``init``, the port takes it as ``pos_dim``.
 
 Per window: a first GraphNet pass (encoder, processor) over the LR support
 nodes -> the k-NN INR decoder interpolates their latents to the HR query
@@ -34,7 +37,6 @@ from magnet_tpu_torch.nn.inr import KNNDecoder
 from magnet_tpu_torch.ops.graph import CSRGraph, GraphCache, knn
 
 N_FIELDS = 1  # one scalar field
-POS_DIM = 1   # the 1D model (the 2D variant is not ported)
 NOISE_SEED = 0  # the seed of a model's own noise generator
 
 
@@ -56,17 +58,18 @@ class MAgNetGNNCore(nn.Module):
     def __init__(self, time_slice: int = 25, latent_dim: int = 128,
                  num_message_passing_steps: int = 5, mlp_layers: int = 4,
                  mlp_hidden: int = 128, n_chan: int = 128,
-                 interpolation: str = "area"):
+                 interpolation: str = "area", pos_dim: int = 1):
         super().__init__()
         tc = time_slice * N_FIELDS
         self.time_slice = time_slice
+        self.pos_dim = pos_dim
         self.impl = "kernel"
-        enc = (tc + POS_DIM + 1, tc + POS_DIM, latent_dim, latent_dim,
+        enc = (tc + pos_dim + 1, tc + pos_dim, latent_dim, latent_dim,
                mlp_layers, mlp_hidden)
         proc = (latent_dim, num_message_passing_steps, mlp_layers, mlp_hidden)
         self.encoder = GraphEncoder(*enc)
         self.processor = GraphProcessor(*proc)
-        self.proj_head = KNNDecoder(latent_dim + N_FIELDS + POS_DIM + 1,
+        self.proj_head = KNNDecoder(latent_dim + N_FIELDS + pos_dim + 1,
                                     n_chan, interpolation)
         self.projector = MLP(n_chan, [mlp_hidden] * mlp_layers, 1)
         self._encoder = GraphEncoder(*enc)
@@ -131,15 +134,16 @@ class MAgNetGNNCore(nn.Module):
 
 class MAgNetGNN(MAgNetGNNCore):
     """MAgNet[GNN]: the core with the task side.  Batch dict of tensors
-    (``DatasetImplicitGNN1D``): t (B, nt), lr_frames (B, nt, 1, L),
-    hr_points (B, nt, N, 1), coords_hr (B, N, P), coords_lr (B, L, P).
+    (``DatasetImplicitGNN1D`` at ``pos_dim`` 1, ``DatasetImplicitGNN2D`` at
+    2): t (B, nt), lr_frames (B, nt, 1, L), hr_points (B, nt, N, 1),
+    coords_hr (B, N, P), coords_lr (B, L, P).
 
     ``noise`` > 0 adds Gaussian noise of that scale to each training
     window's input frames and last HR values (reference magnet_gnn.py:
     401-426), drawn from ``loss``'s ``generator`` (by default the model's
     own, seeded with ``NOISE_SEED``) through ``draw_noise``."""
 
-    def __init__(self, hparams: dict[str, Any]):
+    def __init__(self, hparams: dict[str, Any], pos_dim: int = 1):
         hp = dict(hparams)
         super().__init__(
             time_slice=int(hp.get("time_slice", 25)),
@@ -149,6 +153,7 @@ class MAgNetGNN(MAgNetGNNCore):
             mlp_hidden=int(hp.get("mlp_hidden", 128)),
             n_chan=int(hp.get("n_chan", 128)),
             interpolation=hp.get("interpolation", "area"),
+            pos_dim=pos_dim,
         )
         self.radius = float(hp.get("radius", 0.08))
         self.teacher_forcing = bool(hp.get("teacher_forcing", True))

@@ -51,7 +51,8 @@ class MLP(nn.Module):
 def init_torch_default(module: nn.Module, generator: torch.Generator) -> None:
     """Redraw every parameter with torch's default init from ``generator``:
     U(±1/sqrt(fan_in)) for Linear/Conv weights and biases, ones and zeros
-    for LayerNorm."""
+    for LayerNorm; a module with its own ``init_from`` (the spectral
+    convolutions) draws its parameters itself."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
@@ -63,3 +64,5 @@ def init_torch_default(module: nn.Module, generator: torch.Generator) -> None:
             elif isinstance(m, nn.LayerNorm):
                 m.weight.fill_(1.0)
                 m.bias.fill_(0.0)
+            elif hasattr(m, "init_from"):
+                m.init_from(generator)

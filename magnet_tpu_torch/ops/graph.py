@@ -363,6 +363,9 @@ class GraphCache:
         self._graphs: dict = {}
         self.hits = 0
 
+    def clear(self) -> None:
+        self._graphs.clear()
+
     def radius_graph_batch(self, pos, r: float, loop: bool = True,
                            max_num_neighbors: int = 32,
                            device="cpu") -> CSRGraph:

@@ -2,7 +2,8 @@
 
 Usage (on the card; ``device=cpu`` runs the plain PyTorch path):
   python -m magnet_tpu_torch.run \\
-      [model=magnet_cnn|magnet_cnn_2d|mpnn|mpnn_2d|magnet_gnn] \\
+      [model=magnet_cnn|magnet_cnn_2d|mpnn|mpnn_2d|magnet_gnn|fno_1d|fno_2d] \\
+      [datamodule=NAME] \\
       [datamodule.source=synthetic_ks|synthetic_ce|synthetic_burgers_2d] \\
       [model.params.lr=1e-4] [seed=21] [trainer.max_epochs=250] [name=run] \\
       [ckpt_path=.../last.pt]
@@ -44,7 +45,7 @@ def main(argv=None) -> Trainer:
     loaders = build_loaders(cfg["datamodule"], seed=cfg["seed"])
     hp, tr = cfg["model"], cfg["trainer"]
     model = create_model(cfg["model_name"], hp, device=device,
-                         seed=cfg["seed"])
+                         seed=cfg["seed"], kind=cfg["datamodule"]["kind"])
     trainer = Trainer(
         model, max_epochs=tr["max_epochs"], lr=hp["lr"],
         weight_decay=hp["weight_decay"], factor=hp["factor"],

@@ -1,18 +1,21 @@
 """Where the eval slice's time goes on the card.
 
-  python -m magnet_tpu_torch.trace_eval [model=magnet_cnn] [n_traj=16]
-      [batch_size=16] [seed=0] [impl=kernel] [out=PATH]
+  python -m magnet_tpu_torch.trace_eval [model=magnet_cnn] [datamodule=NAME]
+      [n_traj=16] [batch_size=16] [seed=0] [impl=kernel] [out=PATH]
+      [model.params.key=value ...] [datamodule.key=value ...]
 
 Evaluates ``model`` at full width on test batches made from the seed at the
-shape of its datamodule's test split (for ``mpnn_2d`` and
-``magnet_cnn_2d`` pass ``batch_size=4``); ``impl`` sets the model's
-kernel lane (``kernel_pe`` for ``magnet_gnn``'s pe lane).  Runs ``evaluate`` once to warm up, once timed with no profiler, then once
-under ``torch.profiler`` (CPU and CUDA activities).  Prints one JSON line:
-wall seconds per batch of both timed runs, the device's busy time (the sum
-of device-side events: kernels and copies) and its idle share against each
-wall time, the port's own kernels' launches per batch, the kernels that
-took the most device time, and the host ops that took the most CPU time.  With ``out=PATH`` the profiler's full table
-is written there too.
+shape of its datamodule's test split (the model's own unless
+``datamodule=`` names another; for ``mpnn_2d`` and ``magnet_cnn_2d`` pass
+``batch_size=4``); ``impl`` sets the model's kernel lane (``kernel_pe``
+for ``magnet_gnn``'s pe lane).  Runs ``evaluate`` once to warm up, once
+timed with no profiler, then once under ``torch.profiler`` (CPU and CUDA
+activities).  Prints one JSON line: wall seconds per batch of both timed
+runs, the device's busy time (the sum of device-side events: kernels and
+copies) and its idle share against each wall time, the port's own
+kernels' launches per batch, the kernels that took the most device time,
+and the host ops that took the most CPU time.  With ``out=PATH`` the
+profiler's full table is written there too.
 """
 from __future__ import annotations
 
@@ -25,7 +28,13 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from magnet_tpu_torch.config import MODELS, parse_overrides, split_model
+from magnet_tpu_torch.config import (
+    MODELS,
+    parse_overrides,
+    split_datamodule,
+    split_model,
+    take_prefixed,
+)
 from magnet_tpu_torch.data.datamodule import synthetic_test_batches
 from magnet_tpu_torch.eval import evaluate
 from magnet_tpu_torch.models.factory import create_model
@@ -36,15 +45,20 @@ from magnet_tpu_torch.ops import segment as seg
 
 def main(argv=None) -> dict:
     name, argv = split_model(list(sys.argv[1:] if argv is None else argv))
+    dm, argv = split_datamodule(name, argv)
+    dm_args, argv = take_prefixed(argv, "datamodule.")
+    hp_args, argv = take_prefixed(argv, "model.params.")
+    dm = parse_overrides(dm_args, dm)
+    hp = parse_overrides(hp_args, MODELS[name][0])
     run = parse_overrides(argv, {"n_traj": 16, "batch_size": 16, "seed": 0,
                                  "impl": "kernel", "out": ""})
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    model = create_model(name, MODELS[name][0], device="cuda",
-                         seed=run["seed"])
+    model = create_model(name, hp, device="cuda", seed=run["seed"],
+                         kind=dm["kind"])
     model.impl = run["impl"]
     batches = synthetic_test_batches(name, run["n_traj"], run["batch_size"],
-                                     seed=run["seed"])
+                                     seed=run["seed"], datamodule=dm)
     evaluate(model, batches)
     torch.cuda.synchronize()
     fe.reset_launches()
@@ -78,7 +92,8 @@ def main(argv=None) -> dict:
                                     row_limit=60))
     result = {
         "device": torch.cuda.get_device_name(0), "model": name,
-        "impl": run["impl"], "batches": len(batches), "batch_size": run["batch_size"],
+        "datamodule": dm["name"], "impl": run["impl"],
+        "batches": len(batches), "batch_size": run["batch_size"],
         "wall_s_per_batch": wall / len(batches),
         "wall_s_per_batch_traced": wall_traced / len(batches),
         "device_busy_ms_per_batch": busy_ms / len(batches),

@@ -1,14 +1,17 @@
 """Where a training step's time goes on the card.
 
-  python -m magnet_tpu_torch.trace_train [model=magnet_cnn] [steps=3]
-      [seed=0] [impl=kernel] [datamodule_key=value ...] [out=PATH]
+  python -m magnet_tpu_torch.trace_train [model=magnet_cnn] [datamodule=NAME]
+      [steps=3] [seed=0] [impl=kernel] [datamodule_key=value ...]
+      [model.params.key=value ...] [out=PATH]
 
 Makes ``steps`` batches of ``model``'s training data from the seed with its
-datamodule's synthetic source (``datamodule_key=value`` replaces a key of
+datamodule's synthetic source (the model's own datamodule unless
+``datamodule=`` names another; ``datamodule_key=value`` replaces a key of
 the datamodule's defaults, for example ``burn_in=10.0`` to shorten the KS
 burn-in, ``n_steps=2000`` for the combined equation's solver or
-``batch_size=8`` for ``magnet_cnn_2d``; ``impl`` sets the model's kernel
-lane, ``kernel_pe`` for ``magnet_gnn``'s pe lane), takes two
+``batch_size=8`` for ``magnet_cnn_2d``; ``model.params.key=value`` one of
+the model's; ``impl`` sets the model's kernel lane, ``kernel_pe`` for
+``magnet_gnn``'s pe lane), takes two
 optimizer steps to warm up, then ``steps`` steps timed with no profiler and
 ``steps`` more under ``torch.profiler`` (CPU and CUDA activities), all
 through ``Trainer.train_step`` at the model's full width.  Prints
@@ -35,7 +38,9 @@ from magnet_tpu_torch.config import (
     MODELS,
     SYNTHETIC_SOURCE,
     parse_overrides,
+    split_datamodule,
     split_model,
+    take_prefixed,
 )
 from magnet_tpu_torch.data.datamodule import build_loaders
 from magnet_tpu_torch.models.factory import create_model
@@ -47,7 +52,9 @@ from magnet_tpu_torch.train.trainer import Trainer
 
 def main(argv=None) -> dict:
     name, argv = split_model(list(sys.argv[1:] if argv is None else argv))
-    hp, dm = MODELS[name]
+    dm, argv = split_datamodule(name, argv)
+    hp_args, argv = take_prefixed(argv, "model.params.")
+    hp = parse_overrides(hp_args, MODELS[name][0])
     run_keys = {"steps": 3, "seed": 0, "impl": "kernel", "out": ""}
     run = parse_overrides(
         [a for a in argv if a.split("=")[0] in run_keys], run_keys)
@@ -56,7 +63,8 @@ def main(argv=None) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     steps = run["steps"]
-    model = create_model(name, hp, device="cuda", seed=run["seed"])
+    model = create_model(name, hp, device="cuda", seed=run["seed"],
+                         kind=dm["kind"])
     model.impl = run["impl"]
     loader = build_loaders(
         {**dm, "source": SYNTHETIC_SOURCE[dm["kind"]],
@@ -107,7 +115,8 @@ def main(argv=None) -> dict:
                                     row_limit=80))
     result = {
         "device": torch.cuda.get_device_name(0), "model": name,
-        "impl": run["impl"], "steps": steps, "batch_size": dm["batch_size"],
+        "datamodule": dm["name"], "impl": run["impl"], "steps": steps,
+        "batch_size": dm["batch_size"],
         "loss_last_step": float(losses[-1]),
         "wall_s_per_step": wall / steps,
         "wall_s_per_step_traced": wall_traced / steps,

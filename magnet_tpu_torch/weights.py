@@ -1,9 +1,11 @@
 """JAX params -> the port's ``state_dict``, for ``magnet_cnn``,
-``magnet_cnn_2d``, ``mpnn``, ``mpnn_2d`` and ``magnet_gnn``.
+``magnet_cnn_2d``, ``mpnn``, ``mpnn_2d``, ``magnet_gnn`` (1D and 2D),
+``fno_1d`` and ``fno_2d``.
 
 The inverse of ``magnet_tpu/train/import_torch.py`` (``import_magnet_cnn``,
-``import_mpnn``, ``import_magnet_gnn``): the port's modules carry the
-reference's torch key names,
+``import_mpnn``, ``import_magnet_gnn``, ``import_fno_1d``,
+``import_fno_2d``): the port's modules carry the reference's torch key
+names,
 so those importers map a port ``state_dict`` back onto the JAX tree leaf
 for leaf.
 
@@ -17,7 +19,10 @@ Conventions (the importer's, read backwards):
   * the processor's split first edge layer ``e_w_xi | e_w_xj | e_w_e`` is
     joined back into the unsplit (H, 3C) Linear, in that chunk order, and
     the MPNN layer's ``msg1_xi | msg1_xj | msg1_u | msg1_pos | msg1_var``
-    into ``message_net_1.0``, whose bias is ``msg1_var``'s.
+    into ``message_net_1.0``, whose bias is ``msg1_var``'s;
+  * an FNO's ``weights*_real`` + 1j ``weights*_imag`` pair -> one complex
+    parameter, its ``conv_{i}`` Dense kernel (in, out) -> the 1x1
+    convolution's weight (out, in, 1) or (out, in, 1, 1).
 """
 from __future__ import annotations
 
@@ -147,19 +152,66 @@ def _processor(sd, prefix, proc, mp, mlp_layers):
         _ln(sd, f"{pre}.node_fn.1", st["node_fn"]["layers_1"]["LayerNorm_0"])
 
 
+def _fno_state_dict(p, hp) -> dict[str, torch.Tensor]:
+    sd: dict[str, torch.Tensor] = {}
+    for name in ("fc0", "fc1", "fc2"):
+        _lin(sd, name, p[name]["Dense_0"])
+    for i in range(int(hp.get("num_layers", 5))):
+        spec = p[f"fourier_{i}"]
+        nd = np.ndim(next(iter(spec.values()))) - 2          # space axes
+        for key in sorted(k[:-5] for k in spec if k.endswith("_real")):
+            sd[f"fourier_layers.{i}.{key}"] = torch.complex(
+                _t(spec[f"{key}_real"]), _t(spec[f"{key}_imag"]))
+        dense = p[f"conv_{i}"]["Dense_0"]
+        w = np.asarray(dense["kernel"]).T.reshape(
+            np.shape(dense["kernel"])[::-1] + (1,) * nd)
+        sd[f"conv_layers.{i}.weight"] = _t(w)
+        sd[f"conv_layers.{i}.bias"] = _t(dense["bias"])
+    return sd
+
+
+def gnn_pos_dim(params: Mapping[str, Any], hp: Mapping[str, Any]) -> int:
+    """MAgNet[GNN]'s position dimension P, read off the JAX params'
+    kernel shapes: the first encoder's node input (time_slice + P + 1),
+    its edge input (time_slice + P) and the k-NN head's input (latent + 1 +
+    P + 1).  Raises if they disagree."""
+    p = params.get("params", params)
+    ts = int(hp.get("time_slice", 25))
+    latent = int(hp.get("latent_dim", 128))
+    enc = p["encoder"]
+    rows = {"node": np.shape(enc["MLP_0"]["Linear_0"]["Dense_0"]["kernel"])[0]
+            - ts - 1,
+            "edge": np.shape(enc["MLP_1"]["Linear_0"]["Dense_0"]["kernel"])[0]
+            - ts,
+            "proj_head": np.shape(p["continuous_decoder"]["Linear_0"][
+                "Dense_0"]["kernel"])[0] - latent - 2}
+    if len(set(rows.values())) != 1:
+        raise ValueError(f"the JAX params' position dimensions disagree: {rows}")
+    return rows["node"]
+
+
 def state_dict_from_jax(params: Mapping[str, Any], hp: Mapping[str, Any],
-                        model: str = "magnet_cnn") -> dict[str, torch.Tensor]:
+                        model: str = "magnet_cnn",
+                        pos_dim: int | None = None) -> dict[str, torch.Tensor]:
     """``params`` is the JAX model's variables (``{'params': ...}``) or the
     inner tree, leaves numpy arrays; returns a ``state_dict`` for the
     port's model ``model`` (``magnet_cnn``, ``magnet_cnn_2d``, ``mpnn``,
-    ``mpnn_2d`` or ``magnet_gnn``); the two MAgNet[CNN] models share one
-    layout, the 2D one with Conv2d kernels.  MAgNet[GNN] has two
-    encoder / processor pairs (``encoder``, ``processor`` over the LR nodes;
-    ``_encoder``, ``_processor`` over LR ∪ HR) and its ``proj_head`` is one
-    Linear."""
+    ``mpnn_2d``, ``magnet_gnn``, ``fno_1d`` or ``fno_2d``); the two
+    MAgNet[CNN] models share one layout, the 2D one with Conv2d kernels.
+    MAgNet[GNN] has two encoder / processor pairs (``encoder``,
+    ``processor`` over the LR nodes; ``_encoder``, ``_processor`` over LR ∪
+    HR) and its ``proj_head`` is one Linear; its P is read off the params
+    (``gnn_pos_dim``) and must equal ``pos_dim``, the port model's, where
+    that is given."""
     p = params.get("params", params)
     if model in ("mpnn", "mpnn_2d"):
         return _mpnn_state_dict(p, hp, is_2d=model == "mpnn_2d")
+    if model in ("fno_1d", "fno_2d"):
+        return _fno_state_dict(p, hp)
+    if model == "magnet_gnn" and pos_dim is not None \
+            and gnn_pos_dim(p, hp) != pos_dim:
+        raise ValueError(f"the JAX params are MAgNet[GNN] at P = "
+                         f"{gnn_pos_dim(p, hp)}, the model at P = {pos_dim}")
     if model not in ("magnet_cnn", "magnet_cnn_2d", "magnet_gnn"):
         raise ValueError(f"no weight bridge for model {model!r}")
     gnn = model == "magnet_gnn"

@@ -252,4 +252,4 @@ def test_build_loaders_from_files_and_from_a_seed(h5_file):
     np.testing.assert_array_equal(a["val"].dataset.data[f"pde_{NT}-{NX}"],
                                   b["val"].dataset.data[f"pde_{NT}-{NX}"])
     with pytest.raises(ValueError):
-        build_loaders(dict(cfg, kind="h5_2d"))
+        build_loaders(dict(cfg, kind="h5_none"))

@@ -90,6 +90,8 @@ def test_port_imports_no_jax_and_nothing_of_magnet_tpu():
         "import magnet_tpu_torch.eval, magnet_tpu_torch.run\n"
         "import magnet_tpu_torch.trace_train, magnet_tpu_torch.trace_eval\n"
         "import magnet_tpu_torch.models.mpnn, magnet_tpu_torch.ops.mpnn_edge\n"
+        "import magnet_tpu_torch.models.fno, magnet_tpu_torch.nn.spectral\n"
+        "import magnet_tpu_torch.models.magnet_gnn, magnet_tpu_torch.weights\n"
         "for m in pkgutil.walk_packages(magnet_tpu_torch.__path__, 'magnet_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'h5py', 'magnet_tpu')]\n"
@@ -134,7 +136,7 @@ def test_compose_takes_the_model_and_its_datamodule():
     cfg = compose(["model=mpnn", "datamodule=h5_datamodule_graph"])
     assert cfg["datamodule"]["kind"] == "h5_graph_1d"
     assert cfg["model"]["time_window"] == 16
-    for bad in (["model=fno_1d"], ["datamodule=h5_datamodule_2d"],
+    for bad in (["model=not_a_model"], ["datamodule=h5_datamodule_none"],
                 ["model=mpnn", "model.params.latent_dim=8"]):
         with pytest.raises(ValueError):
             compose(bad)
