@@ -4,7 +4,7 @@
   python3 chip_smoke.py                 every phase (the full check)
   python3 chip_smoke.py GROUP [GROUP]   only the named groups of phases:
                                         cnn, mpnn_kernels, mpnn_paths, cnn2d,
-                                        gnn, gnn2d, fno
+                                        gnn, gnn2d, fno, no_interaction
 
 Builds the port's five CUDA sources from the checkout (all eleven TPU
 kernels: the fused GraphNet edge pipeline's forward and backward, each
@@ -20,18 +20,19 @@ pre-gathered kernels, MAgNet[CNN] 2D through ``evaluate`` (the fold lane)
 and ``Trainer.fit`` (the pre-gathered lane, with a checkpoint read back and
 a resume), MAgNet[GNN] 1D and 2D (the published 512-node irregular
 configuration) through ``evaluate`` and ``Trainer.fit`` on the fold lane
-at width 128 and on the pe lane, and FNO-1D and FNO-2D (no kernel of
-their own) through the same two entry points, each against the CPU path.
+at width 128 and on the pe lane, and FNO-1D, FNO-2D and the MAgNet[CNN]
+no-interaction ablation (no kernel of their own) through the same two
+entry points, each against the CPU path.
 It checks that each path went through its kernels by their launch counts.
 Prints one JSON line per phase (``device``, ``build``, ``kernel``,
 ``slice``, ``kernel_bwd``, ``train``, ``mpnn_kernel``, ``mpnn_kernel_bwd``,
 ``mpnn_slice``, ``mpnn_train``, ``cnn2d_kernel``, ``cnn2d_kernel_bwd``,
 ``cnn2d_slice``, ``cnn2d_train``, ``gnn_kernel``, ``gnn_kernel_bwd``,
 ``gnn_slice``, ``gnn_train``, ``gnn2d_kernel``, ``gnn2d_slice``,
-``gnn2d_train``, ``fno_1d``, ``fno_2d``), the card's name and power limit,
-a ``{"kernels": [...]}`` line, and last ``{"ok": true, "device": {...}}``.
-Any failed phase exits
-non-zero, and with no CUDA device it exits 1 before printing any result.
+``gnn2d_train``, ``fno_1d``, ``fno_2d``, ``ni_slice``, ``ni_train``), the
+card's name and power limit, a ``{"kernels": [...]}`` line, and last
+``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero, and
+with no CUDA device it exits 1 before printing any result.
 """
 from __future__ import annotations
 
@@ -129,8 +130,16 @@ DATA_WORKERS, DATA_CHUNK = 6, 4
 # cuFFT against pocketfft and the 1x1 convolutions summed in another order,
 # carried over 9 (1D) or 4 (2D) autoregressive windows
 FNO_LOSS_RTOL = 1e-4
+# MAgNet[CNN] no-interaction at its published width: eval on the cnn
+# group's 16 Heat trajectories (one batch, 15 windows), and against the CPU
+# path on a cut of that batch (NI_CPU_TRAJ trajectories, the first
+# NI_CPU_NT times: 3 windows) with the same latents on both sides, its eval
+# loss within NI_LOSS_RTOL (f32 on both sides, cuDNN's LSTM and
+# convolutions against the CPU's, carried over 3 autoregressive windows of
+# 16 + 16 recurrent steps); training on the cnn group's KS data
+NI_CPU_TRAJ, NI_CPU_NT, NI_LOSS_RTOL = 2, 64, 1e-4
 GROUPS = ("cnn", "mpnn_kernels", "mpnn_paths", "cnn2d", "gnn", "gnn2d",
-          "fno")
+          "fno", "no_interaction")
 
 
 def emit(obj) -> None:
@@ -1844,16 +1853,28 @@ def gnn_phases(dev, data, groups) -> tuple[int, list, dict]:
         rows["clamped_range"] = compare(got, want, KERNEL_RTOL, KERNEL_ATOL)
         fwd[entry] = rows
     # the width-128 pre-gathered entry rides on the same body; no path
-    # launches it, so it is held against plain here alone
+    # launches it, so it is held against plain here alone, and timed with
+    # its plain version at the eval LR ∪ HR graph
     pre = {}
     for label, gr, l1_ in (("small_case", small, GNN_SMALL_L1),
-                           ("tile_edges", tiles, l1)):
+                           ("tile_edges", tiles, l1),
+                           ("eval_all", graphs["eval_all"], l1)):
         o = pregathered_operands(gr, h, h, l1_, seed=37, dev=dev)
         got = fe.fused_edge_tail_agg_pregathered(*o)
         pre[label] = compare(got, fe.fused_edge_tail_agg_pregathered_plain(*o),
                              KERNEL_RTOL, KERNEL_ATOL)
         zero = gr.degree.to(dev) == 0
         pre[label]["degree0_row_zero"] = bool((got[zero] == 0).all())
+        if label == "eval_all":
+            b = pregathered_bound("fwd", gr, h, h, l1_)
+            pre[label].update(
+                n_edge=gr.n_edge,
+                ms=cuda_ms(lambda: fe.fused_edge_tail_agg_pregathered(*o),
+                           reps=30),
+                plain_ms=cuda_ms(
+                    lambda: fe.fused_edge_tail_agg_pregathered_plain(*o),
+                    reps=10), **b, **tc_bound(b))
+        del o, got
     fwd["pregathered_w128"] = pre
     kernel_ok = all(r["ok"] and r.get("degree0_row_zero", True)
                     for rows in fwd.values() for r in rows.values()) and all(
@@ -2415,6 +2436,26 @@ def gnn2d_phases(dev, data, groups) -> tuple[int, list, dict]:
     return (0 if train_ok else 20), [], extra
 
 
+def reset_every_launch() -> None:
+    """Set the launch count of every kernel of the port to 0."""
+    from magnet_tpu_torch.ops import fused_edge as fe
+    from magnet_tpu_torch.ops import mpnn_edge as me
+    from magnet_tpu_torch.ops import segment as seg
+
+    fe.reset_launches()
+    me.reset_launches()
+    seg.launches = 0
+
+
+def every_launch() -> dict:
+    """The launch count of every kernel of the port, by name."""
+    from magnet_tpu_torch.ops import fused_edge as fe
+    from magnet_tpu_torch.ops import mpnn_edge as me
+    from magnet_tpu_torch.ops import segment as seg
+
+    return {**fe.launch_counts(), **me.launches, "segment_sum": seg.launches}
+
+
 def fno_phases(dev, data, groups) -> tuple[int, list, dict]:
     """Phases ``fno_1d`` and ``fno_2d``: each FNO at full width and batch 32
     through ``evaluate`` (its eval loss against the CPU path's on the same
@@ -2423,32 +2464,20 @@ def fno_phases(dev, data, groups) -> tuple[int, list, dict]:
     from magnet_tpu_torch.config import FNO_1D, FNO_2D
     from magnet_tpu_torch.eval import evaluate
     from magnet_tpu_torch.models.factory import create_model
-    from magnet_tpu_torch.ops import fused_edge as fe
-    from magnet_tpu_torch.ops import mpnn_edge as me
-    from magnet_tpu_torch.ops import segment as seg
     from magnet_tpu_torch.utils import to_device
-
-    def reset():
-        fe.reset_launches()
-        me.reset_launches()
-        seg.launches = 0
-
-    def counts():
-        return {**fe.launch_counts(), **me.launches,
-                "segment_sum": seg.launches}
 
     for name, hp in (("fno_1d", FNO_1D), ("fno_2d", FNO_2D)):
         t_phase = time.perf_counter()
         loaders = data[f"{name}_loaders"]
         eval_batches = list(loaders["test"])
         model = create_model(name, hp, device=dev, seed=0)
-        reset()
+        reset_every_launch()
         t0 = time.perf_counter()
         metrics, preds = evaluate(model, eval_batches, dev,
                                   return_predictions=True)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
-        eval_counts = counts()
+        eval_counts = every_launch()
         torch.cuda.reset_peak_memory_stats()
         steady_s = timed(lambda: evaluate(model, eval_batches, dev))
         peak_eval = torch.cuda.max_memory_allocated()
@@ -2472,12 +2501,12 @@ def fno_phases(dev, data, groups) -> tuple[int, list, dict]:
         n_epochs, steps = 2, len(loaders["train"])
         fit, resumed = fit_checkpoint_resume(
             lambda: create_model(name, hp, device=dev, seed=0), hp, loaders,
-            dev, n_epochs, reset, counts)
+            dev, n_epochs, reset_every_launch, every_launch)
         host_batches = [to_device(b, dev) for b in loaders["train"]]
         step_s = timed(lambda: [resumed.train_step(b)
                                 for b in host_batches]) / steps
         # every launch since the first fit began: both fits and the steps
-        fit["launches"] = counts()
+        fit["launches"] = every_launch()
         del resumed, host_batches
         loss_falls = falls(fit["epoch_train_losses"])
         no_launches = (not any(eval_counts.values())
@@ -2502,6 +2531,158 @@ def fno_phases(dev, data, groups) -> tuple[int, list, dict]:
               "seconds": time.perf_counter() - t_phase, "ok": ok})
         if not ok:
             return 21, [], {}
+    return 0, [], {}
+
+
+def host_latents(model, seed: int) -> None:
+    """Make ``model`` draw its latents on the host from a generator seeded
+    ``seed`` here, in order, whatever its device: two models so prepared
+    and run alike take the same latents."""
+    gen = torch.Generator().manual_seed(seed)
+    model.draw_latent = lambda shape, generator: torch.randn(
+        shape, generator=gen).to(generator.device)
+
+
+def no_interaction_phases(dev, data, groups) -> tuple[int, list, dict]:
+    """Phases ``ni_slice`` and ``ni_train``: MAgNet[CNN] no-interaction at
+    its published width through ``evaluate`` (the 16 Heat trajectories;
+    its eval loss against the CPU path's on a cut batch with the same
+    latents) and ``Trainer.fit`` (the scatter branch, falling loss,
+    checkpoint, resume; one teacher-forcing step).  It runs none of the
+    port's kernels: every launch count stays 0."""
+    from magnet_tpu_torch.config import MAGNET_CNN_NO_INTERACTION as hp
+    from magnet_tpu_torch.eval import evaluate
+    from magnet_tpu_torch.models.factory import create_model
+    from magnet_tpu_torch.utils import to_device
+
+    name = "magnet_cnn_no_interaction"
+
+    def make(device, **over):
+        return create_model(name, {**hp, **over}, device=device, seed=0)
+
+    # ni_slice
+    t_phase = time.perf_counter()
+    eval_batches = data["heat"]
+    model = make(dev)
+    reset_every_launch()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics, preds = evaluate(model, eval_batches, dev,
+                              return_predictions=True)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    eval_counts = every_launch()
+    steady_s = timed(lambda: evaluate(model, eval_batches, dev))
+    peak_eval = torch.cuda.max_memory_allocated()
+    pred = torch.cat(preds)
+    ts = hp["time_slice"]
+    b0 = eval_batches[0]
+    n_traj, nt, _, nx = b0["hr_frames"].shape
+    # one decoder step's attention alone (AttnSeq2Seq.attend: attn_1 over
+    # (M, T, 3H), tanh, attn_2, softmax, context) at this batch's shape;
+    # the batch runs it time_slice times a window
+    g = torch.Generator(device=dev).manual_seed(2)
+    m_seq, width = n_traj * nx, hp["lstm_hidden"]
+    enc = torch.randn(m_seq, ts, width, generator=g, device=dev)
+    state = tuple(torch.randn(hp["lstm_layers"], m_seq, width, generator=g,
+                              device=dev) for _ in range(2))
+    with torch.no_grad():
+        attend_ms = cuda_ms(lambda: model.attend(state, enc), reps=20)
+    attend_calls = (nt - ts) // ts * ts
+    del enc, state
+    pred_ok = (bool(torch.isfinite(pred).all())
+               and tuple(pred.shape) == (n_traj, (nt - ts) // ts * ts, nx, 1))
+    del preds, pred
+    # card vs CPU: the first NI_CPU_TRAJ trajectories, first NI_CPU_NT times
+    cut = [{k: (v[:NI_CPU_TRAJ, :NI_CPU_NT] if k in (
+        "t", "lr_frames", "hr_frames", "hr_points") else v[:NI_CPU_TRAJ])
+        for k, v in b0.items()}]
+    on_card, on_cpu = make(dev), make("cpu")
+    host_latents(on_card, seed=1)
+    host_latents(on_cpu, seed=1)
+    card_metrics, card_preds = evaluate(on_card, cut, dev,
+                                        return_predictions=True)
+    t0 = time.perf_counter()
+    cpu_metrics, cpu_preds = evaluate(on_cpu, cut, "cpu",
+                                      return_predictions=True)
+    cpu_s = time.perf_counter() - t0
+    vs_cpu = {k: {"card": card_metrics[k], "cpu": cpu_metrics[k],
+                  "rel_err": abs(card_metrics[k] - cpu_metrics[k])
+                  / abs(cpu_metrics[k])}
+              for k in ("test_loss", "test_mae_loss")}
+    got, want = card_preds[0].cpu().double(), cpu_preds[0].double()
+    vs_cpu["predictions_rel_l2"] = float((got - want).norm() / want.norm())
+    vs_cpu["predictions_max_abs_err"] = float((got - want).abs().max())
+    eval_ok = (pred_ok and all(np.isfinite(v) for v in metrics.values())
+               and all(v["rel_err"] <= NI_LOSS_RTOL for k, v in
+                       vs_cpu.items() if k.startswith("test_")))
+    no_launches = not any(eval_counts.values())
+    ok = eval_ok and no_launches
+    emit({"phase": "ni_slice", "model": name,
+          "lstm_hidden": hp["lstm_hidden"], "lstm_layers": hp["lstm_layers"],
+          "res_layers": hp["res_layers"], "n_chan": hp["n_chan"],
+          "time_slice": ts, "batch_size": n_traj, "nt": nt, "nx": nx,
+          "sequences_per_window": n_traj * nx,
+          "windows": (nt - ts) // ts, "eval_batches": len(eval_batches),
+          "metrics": metrics, "predictions_ok": pred_ok,
+          "vs_cpu": vs_cpu, "vs_cpu_cut": {"trajectories": NI_CPU_TRAJ,
+                                           "nt": NI_CPU_NT,
+                                           "cpu_seconds": cpu_s},
+          "loss_rtol_vs_cpu": NI_LOSS_RTOL, "launches_eval": eval_counts,
+          "no_kernel_launches": no_launches,
+          "seconds_per_batch_first": first_s / len(eval_batches),
+          "seconds_per_batch": steady_s / len(eval_batches),
+          "peak_mem_bytes_eval": peak_eval,
+          "attend_ms": attend_ms, "attend_calls_per_batch": attend_calls,
+          "attend_share_of_batch": attend_ms * attend_calls / 1e3
+          / (steady_s / len(eval_batches)),
+          "seconds": time.perf_counter() - t_phase, "ok": ok})
+    del model, on_card, on_cpu, card_preds, cpu_preds
+    if not ok:
+        return 22, [], {}
+
+    # ni_train
+    t_phase = time.perf_counter()
+    loaders = data["ks_loaders"]
+    n_epochs, steps = 2, len(loaders["train"])
+    fit, resumed = fit_checkpoint_resume(
+        lambda: make(dev), hp, loaders, dev, n_epochs, reset_every_launch,
+        every_launch)
+    host_batches = [to_device(b, dev) for b in loaders["train"]]
+    torch.cuda.reset_peak_memory_stats()
+    step_s = timed(lambda: [resumed.train_step(b)
+                            for b in host_batches]) / steps
+    peak_step = torch.cuda.max_memory_allocated()
+    # both training branches on one batch: the scatter branch (the YAML's
+    # teacher_forcing false, which the fit ran) and teacher forcing
+    branches = {}
+    for tf in (False, True):
+        m = make(dev, teacher_forcing=tf).train()
+        loss, _ = m.loss(host_batches[0], None, train=True)
+        loss.backward()
+        branches["teacher_forcing" if tf else "scatter"] = {
+            "loss": loss.item(),
+            "grads_finite": all(bool(torch.isfinite(p.grad).all())
+                                for p in m.parameters())}
+    # every launch since the first fit began: both fits, the steps and
+    # the two branches
+    fit["launches"] = every_launch()
+    b, nt, n, _ = host_batches[0]["hr_points"].shape
+    del resumed, host_batches, m
+    branches_ok = all(np.isfinite(b["loss"]) and b["grads_finite"]
+                      for b in branches.values())
+    loss_falls = falls(fit["epoch_train_losses"])
+    no_launches = not any(fit["launches"].values())
+    ok = (fit["losses_finite"] and loss_falls and fit["checkpoint_ok"]
+          and fit["resume_ok"] and branches_ok and no_launches)
+    emit({"phase": "ni_train", "model": name, "batch_size": b,
+          "queries": n, "nt": nt, "windows": (nt - ts) // ts, **fit,
+          "loss_falls": loss_falls, "branches": branches,
+          "no_kernel_launches": no_launches, "seconds_per_step": step_s,
+          "peak_mem_bytes_step": peak_step,
+          "seconds": time.perf_counter() - t_phase, "ok": ok})
+    if not ok:
+        return 23, [], {}
     return 0, [], {}
 
 
@@ -2559,16 +2740,17 @@ def make_data(groups) -> dict:
             return {k: np.concatenate([p[k] for p in parts])
                     for k in parts[0]}
 
-        # the KS and Heat trajectories of the cnn and gnn groups; the
-        # Burgers-2D splits (seeds 0, 1, 2) shared by the MPNN-2D and the
-        # MAgNet[CNN] 2D loaders and 12 more from seed 3; the combined
-        # equation of the MPNN-1D step; the new groups' solves in chunks
+        # the KS and Heat trajectories of the cnn, gnn and no_interaction
+        # groups; the Burgers-2D splits (seeds 0, 1, 2) shared by the
+        # MPNN-2D and the MAgNet[CNN] 2D loaders and 12 more from seed 3;
+        # the combined equation of the MPNN-1D step; the new groups' solves
+        # in chunks
         ks_cfg = {**DATAMODULE_IMPLICIT, **SMOKE_DATA}
         gnn2d_cfg = {**DATAMODULE_IMPLICIT_GNN_2D, **GNN2D_DATA,
                      "source": "synthetic_burgers_2d"}
         nt, res = DATAMODULE_GRAPH_2D["nt_train"], DATAMODULE_GRAPH_2D["res_train"]
         jobs = {}
-        if {"cnn", "gnn"} & groups:
+        if {"cnn", "gnn", "no_interaction"} & groups:
             jobs["ks"] = splits(ks_cfg)
         if {"mpnn_paths", "cnn2d"} & groups:
             jobs["b2d"] = {split: pool.submit(
@@ -2600,7 +2782,7 @@ def make_data(groups) -> dict:
                                       seed=200 + i, n_steps=CE_STEPS)
                           for i in range(CE_TRAJ // DATA_CHUNK)]
 
-        if "cnn" in groups:
+        if {"cnn", "no_interaction"} & groups:
             data["heat"] = heat_batches(16, 16, nt=HEAT_TEST["nt"],
                                         nx=HEAT_TEST["nx"])
             data["ks_loaders"] = build_loaders(
@@ -2710,7 +2892,8 @@ def main(argv) -> int:
                                 (("cnn2d",), cnn2d_phases),
                                 (("gnn",), gnn_phases),
                                 (("gnn2d",), gnn2d_phases),
-                                (("fno",), fno_phases)):
+                                (("fno",), fno_phases),
+                                (("no_interaction",), no_interaction_phases)):
         if set(group_names) & set(groups):
             rc, entries, more = phases(dev, data, groups)
             kernels += entries

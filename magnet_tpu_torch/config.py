@@ -1,7 +1,10 @@
 """Model, data, trainer and callback defaults as Python data, copied from
 ``magnet_tpu/config/defaults``: ``MAGNET_CNN``, ``MAGNET_CNN_2D``, ``MPNN``,
-``MPNN_2D``, ``MAGNET_GNN``, ``FNO_1D`` and ``FNO_2D`` are ``model/
-{magnet_cnn,magnet_cnn_2d,mpnn,mpnn_2d,magnet_gnn,fno_1d,fno_2d}.yaml``;
+``MPNN_2D``, ``MAGNET_GNN``, ``FNO_1D``, ``FNO_2D`` and
+``MAGNET_CNN_NO_INTERACTION`` are ``model/{magnet_cnn,magnet_cnn_2d,mpnn,
+mpnn_2d,magnet_gnn,fno_1d,fno_2d,magnet_cnn_no_interaction}.yaml`` (the
+last one's ``use_lstm`` and ``interpolation`` are kept but not read, as in
+the JAX model);
 ``DATAMODULE_IMPLICIT``, ``DATAMODULE_IMPLICIT_2D``, ``DATAMODULE_GRAPH``,
 ``DATAMODULE_GRAPH_2D``, ``DATAMODULE_IMPLICIT_GNN``,
 ``DATAMODULE_IMPLICIT_GNN_2D``, ``DATAMODULE_1D`` and ``DATAMODULE_2D`` are
@@ -100,6 +103,27 @@ FNO_2D = {
     "loss": "l1",
     "lr": 0.001,
     "weight_decay": 0.0,
+}
+
+MAGNET_CNN_NO_INTERACTION = {
+    "time_slice": 16,
+    "use_lstm": True,
+    "lstm_hidden": 256,
+    "lstm_layers": 4,
+    "mlp_layers": 1,
+    "mlp_hidden": 32,
+    "scales": 1,
+    "n_chan": 128,
+    "kernel_size": 3,
+    "teacher_forcing": False,
+    "res_scale": 1,
+    "res_layers": 16,
+    "interpolation": "area",
+    "factor": 0.6,
+    "step_size": 50,
+    "loss": "l1",
+    "lr": 0.0005,
+    "weight_decay": 0.0001,
 }
 
 DATAMODULE_IMPLICIT = {
@@ -271,6 +295,8 @@ MODELS = {
     "magnet_gnn": (MAGNET_GNN, DATAMODULE_IMPLICIT_GNN),
     "fno_1d": (FNO_1D, DATAMODULE_1D),
     "fno_2d": (FNO_2D, DATAMODULE_2D),
+    "magnet_cnn_no_interaction": (MAGNET_CNN_NO_INTERACTION,
+                                  DATAMODULE_IMPLICIT),
 }
 #: every datamodule ``datamodule=<name>`` reaches, the models' own and
 #: MAgNet[GNN]'s 2D one

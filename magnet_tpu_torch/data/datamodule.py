@@ -147,3 +147,19 @@ def synthetic_test_batches(model_name: str, n_traj: int, batch_size: int,
     cfg = {**dm, "n_test": n_traj}
     dataset = _dataset(cfg, "test", _synthetic(cfg, "test", seed))
     return list(DataLoader(dataset, min(batch_size, n_traj), shuffle=False))
+
+
+def eval_batches(model_name: str, n_traj: int, batch_size: int,
+                 seed: int = 0, datamodule: dict | None = None) -> list[dict]:
+    """The eval batches of the datamodule config ``datamodule``'s (by
+    default ``model_name``'s own) test split, as the repo's ``eval.py``
+    reads it: the file at ``test_path`` in order where ``source`` is
+    ``h5``, else ``synthetic_test_batches``; the batch is ``min(batch_size,
+    n)`` and the trailing partial batch is dropped."""
+    dm = MODELS[model_name][1] if datamodule is None else datamodule
+    if dm.get("source", "h5") != "h5":
+        return synthetic_test_batches(model_name, n_traj, batch_size,
+                                      seed=seed, datamodule=dm)
+    dataset = _dataset(dm, "test", dm["test_path"])
+    return list(DataLoader(dataset, min(batch_size, len(dataset)),
+                           shuffle=False))

@@ -1,10 +1,12 @@
-"""Evaluation: no-teacher-forcing rollout metrics on test batches made
-from a seed at the shape of the datamodule's test split (counterpart of
-the repo's ``eval.py``): Heat for ``magnet_cnn`` and ``magnet_gnn``, the
-combined equation for ``mpnn`` and ``fno_1d``, 2D Burgers for
-``mpnn_2d``, ``magnet_cnn_2d`` and ``fno_2d``, and for ``magnet_gnn`` with
-``datamodule=h5_datamodule_implicit_gnn_2d`` 2D Burgers on its regular
-32 x 32 test grid.
+"""Evaluation: no-teacher-forcing rollout metrics on the datamodule's test
+split (counterpart of the repo's ``eval.py``).  With ``datamodule.source=
+h5`` (the default) that is the file at ``datamodule.test_path``, in order;
+with a synthetic source it is ``n_traj`` trajectories made from the seed at
+the test split's shape: Heat for ``magnet_cnn``, ``magnet_gnn`` and
+``magnet_cnn_no_interaction``, the combined equation for ``mpnn`` and
+``fno_1d``, 2D Burgers for ``mpnn_2d``, ``magnet_cnn_2d`` and ``fno_2d``,
+and for ``magnet_gnn`` with ``datamodule=h5_datamodule_implicit_gnn_2d``
+2D Burgers on its regular 32 x 32 test grid.
 
 Usage (on the card; ``device=cpu`` runs the plain PyTorch path):
   python -m magnet_tpu_torch.eval [model=magnet_cnn] [datamodule=NAME] \\
@@ -13,8 +15,10 @@ Usage (on the card; ``device=cpu`` runs the plain PyTorch path):
       [model_key=value ...]
 
 Without ``ckpt`` a fresh initialisation is evaluated.  The batch is
-``min(batch_size, n_traj)`` and a trailing partial batch is dropped, as
-the repo's ``eval.py`` does.
+``min(batch_size, n)`` for a split of n trajectories (``n_traj`` of a
+synthetic source; a file's test split is read whole) and a trailing
+partial batch is dropped, as the repo's ``eval.py`` does.  TF32 is off in
+matmuls and convolutions: f32 throughout, as in training.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import json
 import sys
 
 import numpy as np
+import torch
 
 from magnet_tpu_torch.config import (
     MODELS,
@@ -30,7 +35,7 @@ from magnet_tpu_torch.config import (
     split_model,
     take_prefixed,
 )
-from magnet_tpu_torch.data.datamodule import synthetic_test_batches
+from magnet_tpu_torch.data.datamodule import eval_batches
 from magnet_tpu_torch.models.common import nrmse
 from magnet_tpu_torch.models.factory import create_model, resolve_device
 from magnet_tpu_torch.train.checkpoint import load_checkpoint
@@ -76,13 +81,16 @@ def main(argv=None):
         [a for a in argv if a.split("=")[0] in run_keys], run_keys)
     hp = parse_overrides(
         [a for a in argv if a.split("=")[0] not in run_keys], MODELS[name][0])
+    # f32 throughout, as in training: no TF32 in matmuls or convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     model = create_model(name, hp, device=run["device"], seed=run["seed"],
                          kind=dm["kind"])
     if run["ckpt"]:
         state, _ = load_checkpoint(run["ckpt"], require=("model",))
         model.load_state_dict(state["model"])
-    batches = synthetic_test_batches(name, run["n_traj"], run["batch_size"],
-                                     seed=run["seed"], datamodule=dm)
+    batches = eval_batches(name, run["n_traj"], run["batch_size"],
+                           seed=run["seed"], datamodule=dm)
     out = evaluate(model, batches, run["device"])
     print(json.dumps(out))
     return out

@@ -1,5 +1,6 @@
 """Shared model plumbing: the losses, nRMSE and time windows (counterpart of
-``magnet_tpu/models/common.py:85-116, 289-295``)."""
+``magnet_tpu/models/common.py:85-116, 289-295``), and a model's own random
+generator."""
 from __future__ import annotations
 
 import torch
@@ -33,3 +34,22 @@ def time_windows(t: torch.Tensor, n_windows: int, slice_len: int) -> torch.Tenso
     idx = (torch.arange(n_windows)[:, None] * slice_len
            + torch.arange(2 * slice_len)[None, :])
     return t[:, idx.to(t.device)]
+
+
+GENERATOR_SEED = 0  # the seed of a model's own generator
+
+
+class OwnGenerator:
+    """Mixin for an ``nn.Module`` that draws random numbers in training
+    (MAgNet[GNN]'s noise, the no-interaction ablation's latents):
+    ``default_generator`` is the model's own generator on its device,
+    seeded with ``GENERATOR_SEED`` when first asked for."""
+
+    _generator = None
+
+    def default_generator(self) -> torch.Generator:
+        dev = next(self.parameters()).device
+        if self._generator is None or self._generator.device != dev:
+            self._generator = torch.Generator(device=dev).manual_seed(
+                GENERATOR_SEED)
+        return self._generator

@@ -1,6 +1,6 @@
-"""Model registry (counterpart of ``magnet_tpu/models/factory.py``); the
-port has MAgNet[CNN] 1D/2D, MPNN 1D/2D, MAgNet[GNN] 1D/2D and FNO 1D/2D
-so far (7 of the 8 models)."""
+"""Model registry (counterpart of ``magnet_tpu/models/factory.py``): all
+8 of its models, MAgNet[CNN] 1D/2D, MPNN 1D/2D, MAgNet[GNN] 1D/2D, FNO
+1D/2D and the MAgNet[CNN] no-interaction ablation."""
 from __future__ import annotations
 
 import torch
@@ -8,13 +8,17 @@ import torch
 from magnet_tpu_torch.models.fno import FNO1D, FNO2D
 from magnet_tpu_torch.models.magnet_cnn_1d import MAgNetCNN1D
 from magnet_tpu_torch.models.magnet_cnn_2d import MAgNetCNN2D
+from magnet_tpu_torch.models.magnet_cnn_no_interaction import (
+    MAgNetCNNNoInteraction,
+)
 from magnet_tpu_torch.models.magnet_gnn import MAgNetGNN
 from magnet_tpu_torch.models.mpnn import MPNN, MPNN2D
 from magnet_tpu_torch.nn.core import init_torch_default
 
 FACTORY = {"magnet_cnn": MAgNetCNN1D, "magnet_cnn_2d": MAgNetCNN2D,
            "mpnn": MPNN, "mpnn_2d": MPNN2D, "magnet_gnn": MAgNetGNN,
-           "fno_1d": FNO1D, "fno_2d": FNO2D}
+           "fno_1d": FNO1D, "fno_2d": FNO2D,
+           "magnet_cnn_no_interaction": MAgNetCNNNoInteraction}
 #: MAgNet[GNN]'s position dimension by datamodule kind (1 for any other)
 POS_DIM = {"h5_implicit_gnn_2d": 2}
 

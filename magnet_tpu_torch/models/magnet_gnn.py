@@ -26,7 +26,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from magnet_tpu_torch.models.common import LOSSES, l1_loss, time_windows
+from magnet_tpu_torch.models.common import (
+    LOSSES,
+    OwnGenerator,
+    l1_loss,
+    time_windows,
+)
 from magnet_tpu_torch.nn.core import MLP
 from magnet_tpu_torch.nn.graphnet import (
     GraphDecoder,
@@ -37,7 +42,6 @@ from magnet_tpu_torch.nn.inr import KNNDecoder
 from magnet_tpu_torch.ops.graph import CSRGraph, GraphCache, knn
 
 N_FIELDS = 1  # one scalar field
-NOISE_SEED = 0  # the seed of a model's own noise generator
 
 
 @dataclass
@@ -132,7 +136,7 @@ class MAgNetGNNCore(nn.Module):
         return outputs[:, :, L:], outputs[:, :, :L], hr_points.transpose(1, 2)
 
 
-class MAgNetGNN(MAgNetGNNCore):
+class MAgNetGNN(OwnGenerator, MAgNetGNNCore):
     """MAgNet[GNN]: the core with the task side.  Batch dict of tensors
     (``DatasetImplicitGNN1D`` at ``pos_dim`` 1, ``DatasetImplicitGNN2D`` at
     2): t (B, nt), lr_frames (B, nt, 1, L), hr_points (B, nt, N, 1),
@@ -141,7 +145,7 @@ class MAgNetGNN(MAgNetGNNCore):
     ``noise`` > 0 adds Gaussian noise of that scale to each training
     window's input frames and last HR values (reference magnet_gnn.py:
     401-426), drawn from ``loss``'s ``generator`` (by default the model's
-    own, seeded with ``NOISE_SEED``) through ``draw_noise``."""
+    own, ``default_generator``) through ``draw_noise``."""
 
     def __init__(self, hparams: dict[str, Any], pos_dim: int = 1):
         hp = dict(hparams)
@@ -162,7 +166,6 @@ class MAgNetGNN(MAgNetGNNCore):
         self.codec_neighbors = int(hp.get("codec_neighbors", 4))
         self.graphs = GraphCache(
             lane_rule=("graphnet", int(hp.get("mlp_hidden", 128))))
-        self._generator: Optional[torch.Generator] = None
 
     # ---------- host-side ----------
     def build_graph(self, batch) -> GNNGraphs:
@@ -187,15 +190,6 @@ class MAgNetGNN(MAgNetGNNCore):
         place it is drawn."""
         return torch.randn(shape, generator=generator,
                            device=generator.device)
-
-    def default_generator(self) -> torch.Generator:
-        """The model's own noise generator on its device, seeded with
-        ``NOISE_SEED`` when first asked for."""
-        dev = next(self.parameters()).device
-        if self._generator is None or self._generator.device != dev:
-            self._generator = torch.Generator(device=dev).manual_seed(
-                NOISE_SEED)
-        return self._generator
 
     def _rollout(self, batch, graphs: GNNGraphs, teacher_forcing: bool,
                  generator: Optional[torch.Generator] = None):

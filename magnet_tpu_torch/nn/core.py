@@ -51,8 +51,9 @@ class MLP(nn.Module):
 def init_torch_default(module: nn.Module, generator: torch.Generator) -> None:
     """Redraw every parameter with torch's default init from ``generator``:
     U(±1/sqrt(fan_in)) for Linear/Conv weights and biases, ones and zeros
-    for LayerNorm; a module with its own ``init_from`` (the spectral
-    convolutions) draws its parameters itself."""
+    for LayerNorm, U(±1/sqrt(hidden)) for every LSTM weight and bias (as
+    ``nn.LSTM.reset_parameters``); a module with its own ``init_from`` (the
+    spectral convolutions) draws its parameters itself."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
@@ -61,6 +62,10 @@ def init_torch_default(module: nn.Module, generator: torch.Generator) -> None:
                 m.weight.uniform_(-bound, bound, generator=generator)
                 if m.bias is not None:
                     m.bias.uniform_(-bound, bound, generator=generator)
+            elif isinstance(m, nn.LSTM):
+                bound = 1.0 / m.hidden_size ** 0.5
+                for p in m.parameters():
+                    p.uniform_(-bound, bound, generator=generator)
             elif isinstance(m, nn.LayerNorm):
                 m.weight.fill_(1.0)
                 m.bias.fill_(0.0)

@@ -2,7 +2,8 @@
 
 Usage (on the card; ``device=cpu`` runs the plain PyTorch path):
   python -m magnet_tpu_torch.run \\
-      [model=magnet_cnn|magnet_cnn_2d|mpnn|mpnn_2d|magnet_gnn|fno_1d|fno_2d] \\
+      [model=magnet_cnn|magnet_cnn_2d|mpnn|mpnn_2d|magnet_gnn|fno_1d|fno_2d|
+             magnet_cnn_no_interaction] \\
       [datamodule=NAME] \\
       [datamodule.source=synthetic_ks|synthetic_ce|synthetic_burgers_2d] \\
       [model.params.lr=1e-4] [seed=21] [trainer.max_epochs=250] [name=run] \\

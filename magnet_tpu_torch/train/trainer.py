@@ -3,7 +3,9 @@ train and validation steps, the epoch loop, early stopping, checkpoints
 and the metric log, on one device.
 
 A train step is ``loss(train=True)`` -> backward -> global-norm clip ->
-optimizer.  Metrics stay on the device and are read once per epoch.
+optimizer, with the model in training mode (cuDNN's LSTM takes its
+backward only there); validation puts it back in eval mode.  Metrics stay
+on the device and are read once per epoch.
 """
 from __future__ import annotations
 
@@ -81,6 +83,7 @@ class Trainer:
         """One optimizer step on a host batch; the metrics, on the device."""
         batch = to_device(batch, self.device)
         graph = self.model.build_graph(batch)
+        self.model.train()
         self.optimizer.zero_grad()
         loss, metrics = self.model.loss(batch, graph, train=True)
         loss.backward()
@@ -152,6 +155,7 @@ class Trainer:
 
     def evaluate(self, loader) -> dict[str, float]:
         """Means of ``loss(train=False)``'s metrics over the loader."""
+        self.model.eval()
         pending = []
         for batch in loader:
             batch = to_device(batch, self.device)

@@ -1,13 +1,12 @@
 """JAX params -> the port's ``state_dict``, for ``magnet_cnn``,
 ``magnet_cnn_2d``, ``mpnn``, ``mpnn_2d``, ``magnet_gnn`` (1D and 2D),
-``fno_1d`` and ``fno_2d``.
+``fno_1d``, ``fno_2d`` and ``magnet_cnn_no_interaction``.
 
 The inverse of ``magnet_tpu/train/import_torch.py`` (``import_magnet_cnn``,
 ``import_mpnn``, ``import_magnet_gnn``, ``import_fno_1d``,
-``import_fno_2d``): the port's modules carry the reference's torch key
-names,
-so those importers map a port ``state_dict`` back onto the JAX tree leaf
-for leaf.
+``import_fno_2d``, ``import_no_interaction``): the port's modules carry
+the reference's torch key names, so those importers map a port
+``state_dict`` back onto the JAX tree leaf for leaf.
 
 Conventions (the importer's, read backwards):
   * flax Dense kernel (in, out) -> torch Linear weight (out, in);
@@ -22,7 +21,10 @@ Conventions (the importer's, read backwards):
     into ``message_net_1.0``, whose bias is ``msg1_var``'s;
   * an FNO's ``weights*_real`` + 1j ``weights*_imag`` pair -> one complex
     parameter, its ``conv_{i}`` Dense kernel (in, out) -> the 1x1
-    convolution's weight (out, in, 1) or (out, in, 1, 1).
+    convolution's weight (out, in, 1) or (out, in, 1, 1);
+  * an LSTM layer's ``w_ih`` (in, 4H) and ``w_hh`` (H, 4H) -> ``nn.LSTM``'s
+    ``weight_ih_l{k}`` (4H, in) and ``weight_hh_l{k}`` (4H, H), its
+    ``b_ih`` and ``b_hh`` as they are (the same gate order i, f, g, o).
 """
 from __future__ import annotations
 
@@ -170,6 +172,45 @@ def _fno_state_dict(p, hp) -> dict[str, torch.Tensor]:
     return sd
 
 
+def lstm_state_dict(lstm: Mapping[str, Any], num_layers: int,
+                    prefix: str = "") -> dict[str, torch.Tensor]:
+    """A JAX ``LSTM``'s params as the ``state_dict`` of ``nn.LSTM``, keys
+    starting with ``prefix``."""
+    sd: dict[str, torch.Tensor] = {}
+    for k in range(num_layers):
+        layer = lstm[f"layer_{k}"]
+        sd[f"{prefix}weight_ih_l{k}"] = _t(np.asarray(layer["w_ih"]).T)
+        sd[f"{prefix}weight_hh_l{k}"] = _t(np.asarray(layer["w_hh"]).T)
+        sd[f"{prefix}bias_ih_l{k}"] = _t(layer["b_ih"])
+        sd[f"{prefix}bias_hh_l{k}"] = _t(layer["b_hh"])
+    return sd
+
+
+def seq2seq_state_dict(seq: Mapping[str, Any], num_layers: int,
+                       prefix: str = "") -> dict[str, torch.Tensor]:
+    """A JAX ``AttnSeq2Seq``'s params as the ``state_dict`` of the port's
+    ``nn.lstm.AttnSeq2Seq``, keys starting with ``prefix``."""
+    dec = seq["att_decoder"]
+    sd = {**lstm_state_dict(seq["lstm_encoder"], num_layers,
+                            f"{prefix}lstm_encoder."),
+          **lstm_state_dict(dec["lstm_decoder"], num_layers,
+                            f"{prefix}lstm_decoder.")}
+    _lin(sd, f"{prefix}attn.0", dec["attn_1"]["Dense_0"])
+    sd[f"{prefix}attn.2.weight"] = _t(np.asarray(dec["attn_2"]["kernel"]).T)
+    return sd
+
+
+def _no_interaction_state_dict(p, hp) -> dict[str, torch.Tensor]:
+    sd = edsr_state_dict(p["encoder"], int(hp.get("res_layers", 16)),
+                         "encoder.")
+    _lin(sd, "proj_head",
+         p["recurrent_inr"]["rec_step"]["proj_head"]["Dense_0"])
+    sd.update(seq2seq_state_dict(p["seq2seq"], int(hp.get("lstm_layers", 4))))
+    _ln(sd, "layernorm", p["layernorm"]["LayerNorm_0"])
+    _mlp(sd, "decoder", p["decoder"])
+    return sd
+
+
 def gnn_pos_dim(params: Mapping[str, Any], hp: Mapping[str, Any]) -> int:
     """MAgNet[GNN]'s position dimension P, read off the JAX params'
     kernel shapes: the first encoder's node input (time_slice + P + 1),
@@ -196,7 +237,8 @@ def state_dict_from_jax(params: Mapping[str, Any], hp: Mapping[str, Any],
     """``params`` is the JAX model's variables (``{'params': ...}``) or the
     inner tree, leaves numpy arrays; returns a ``state_dict`` for the
     port's model ``model`` (``magnet_cnn``, ``magnet_cnn_2d``, ``mpnn``,
-    ``mpnn_2d``, ``magnet_gnn``, ``fno_1d`` or ``fno_2d``); the two
+    ``mpnn_2d``, ``magnet_gnn``, ``fno_1d``, ``fno_2d`` or
+    ``magnet_cnn_no_interaction``); the two
     MAgNet[CNN] models share one layout, the 2D one with Conv2d kernels.
     MAgNet[GNN] has two encoder / processor pairs (``encoder``,
     ``processor`` over the LR nodes; ``_encoder``, ``_processor`` over LR ∪
@@ -208,6 +250,8 @@ def state_dict_from_jax(params: Mapping[str, Any], hp: Mapping[str, Any],
         return _mpnn_state_dict(p, hp, is_2d=model == "mpnn_2d")
     if model in ("fno_1d", "fno_2d"):
         return _fno_state_dict(p, hp)
+    if model == "magnet_cnn_no_interaction":
+        return _no_interaction_state_dict(p, hp)
     if model == "magnet_gnn" and pos_dim is not None \
             and gnn_pos_dim(p, hp) != pos_dim:
         raise ValueError(f"the JAX params are MAgNet[GNN] at P = "

@@ -367,7 +367,8 @@ def test_datamodules_and_entry_points(files):
         c = compose([f"model={name}", "model.params.width=8"])
         assert c["datamodule"]["kind"] == dm and c["model"]["width"] == 8
         assert c["datamodule"]["source"] == "h5"
-    out = port_eval.main(["model=fno_1d", "device=cpu", "n_traj=2",
+    out = port_eval.main(["model=fno_1d", "datamodule.source=synthetic_ce",
+                          "device=cpu", "n_traj=2",
                           "batch_size=2", "width=8", "num_layers=1",
                           "modes=5", "datamodule.nt_test=60",
                           "datamodule.nx_test=16", "datamodule.eq=E2",

@@ -282,6 +282,7 @@ def test_datamodule_compose_and_eval():
     val = next(iter(loaders["val"]))
     assert val["coords_lr"].shape == val["coords_hr"].shape == (1, 32, 2)
     out = port_eval.main(["model=magnet_gnn", f"datamodule={cfg['name']}",
+                          "datamodule.source=synthetic_burgers_2d",
                           "device=cpu", "n_traj=2", "batch_size=2",
                           "datamodule.nt_test=12", "datamodule.res_test=8",
                           *[f"{k}={v}" for k, v in HP.items()]])

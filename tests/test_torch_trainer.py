@@ -173,7 +173,8 @@ def test_run_main_trains_and_eval_loads_the_checkpoint(tmp_path, capsys):
     assert "best checkpoint at" in capsys.readouterr().out
     # eval with ckpt= differs from eval of the fresh initialisation
     hp_args = [f"{k}={v}" for k, v in HP.items()]
-    common = hp_args + ["n_traj=2", "batch_size=2", "device=cpu", "seed=3"]
+    common = hp_args + ["datamodule.source=synthetic_ks", "n_traj=2",
+                        "batch_size=2", "device=cpu", "seed=3"]
     fresh = port_eval.main(common)
     loaded = port_eval.main(common + [f"ckpt={trainer.ckpt.best_path}"])
     assert np.isfinite(loaded["test_nrmse"])
