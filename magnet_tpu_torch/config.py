@@ -298,6 +298,13 @@ MODELS = {
     "magnet_cnn_no_interaction": (MAGNET_CNN_NO_INTERACTION,
                                   DATAMODULE_IMPLICIT),
 }
+#: hp keys a model reads beyond its YAML, with their defaults (the JAX
+#: ``run.py`` takes any dotted key, ``magnet_tpu/config/core.py``): the
+#: GraphNet models' compute dtype ``graph_dtype`` (float32 or bf16,
+#: ``models.common.parse_dtype``).  A run's model config holds such a key
+#: only where it was given.
+MODEL_EXTRAS = {name: {"graph_dtype": "float32"}
+                for name in ("magnet_cnn", "magnet_cnn_2d", "magnet_gnn")}
 #: every datamodule ``datamodule=<name>`` reaches, the models' own and
 #: MAgNet[GNN]'s 2D one
 DATAMODULES = {d["name"]: d for d in (
@@ -349,6 +356,15 @@ def parse_overrides(argv: list[str], defaults: dict) -> dict:
         else:
             out[key] = type(old)(val)
     return out
+
+
+def model_overrides(name: str, argv: list[str]) -> dict:
+    """Model ``name``'s hyperparameters: its defaults under the ``key=value``
+    overrides ``argv``, which may also set its ``MODEL_EXTRAS``."""
+    defaults = MODELS[name][0]
+    given = {arg.partition("=")[0] for arg in argv}
+    hp = parse_overrides(argv, {**defaults, **MODEL_EXTRAS.get(name, {})})
+    return {k: v for k, v in hp.items() if k in defaults or k in given}
 
 
 def split_model(argv: list[str]) -> tuple[str, list[str]]:
@@ -414,5 +430,7 @@ def compose(argv: list[str]) -> dict:
     cfg = parse_overrides(split["run"], RUN)
     cfg["model_name"] = model_name
     for head, defaults in sections.items():
-        cfg[head] = parse_overrides(split[head], defaults)
+        cfg[head] = (model_overrides(model_name, split[head])
+                     if head == "model" else
+                     parse_overrides(split[head], defaults))
     return cfg

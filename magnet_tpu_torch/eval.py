@@ -12,7 +12,7 @@ Usage (on the card; ``device=cpu`` runs the plain PyTorch path):
   python -m magnet_tpu_torch.eval [model=magnet_cnn] [datamodule=NAME] \\
       [seed=0] [n_traj=16] [batch_size=16] [device=cuda] \\
       [ckpt=runs/x/checkpoints/best.pt] [datamodule.key=value ...] \\
-      [model_key=value ...]
+      [model_key=value | model.model_key=value ...]
 
 Without ``ckpt`` a fresh initialisation is evaluated.  The batch is
 ``min(batch_size, n)`` for a split of n trajectories (``n_traj`` of a
@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from magnet_tpu_torch.config import (
-    MODELS,
+    model_overrides,
     parse_overrides,
     split_datamodule,
     split_model,
@@ -79,8 +79,9 @@ def main(argv=None):
                 "ckpt": ""}
     run = parse_overrides(
         [a for a in argv if a.split("=")[0] in run_keys], run_keys)
-    hp = parse_overrides(
-        [a for a in argv if a.split("=")[0] not in run_keys], MODELS[name][0])
+    hp = model_overrides(name, [
+        a.removeprefix("model.params.").removeprefix("model.")
+        for a in argv if a.split("=")[0] not in run_keys])
     # f32 throughout, as in training: no TF32 in matmuls or convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

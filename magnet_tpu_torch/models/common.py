@@ -1,6 +1,6 @@
-"""Shared model plumbing: the losses, nRMSE and time windows (counterpart of
-``magnet_tpu/models/common.py:85-116, 289-295``), and a model's own random
-generator."""
+"""Shared model plumbing: the losses, the ``graph_dtype`` knob, nRMSE and
+time windows (counterpart of ``magnet_tpu/models/common.py:85-116,
+289-295``), and a model's own random generator."""
 from __future__ import annotations
 
 import torch
@@ -20,6 +20,28 @@ def smooth_l1_loss(pred, target, beta: float = 1.0):
 
 
 LOSSES = {"l1": l1_loss, "l2": l2_loss, "smooth_l1": smooth_l1_loss}
+
+
+def parse_dtype(name):
+    """The ``graph_dtype`` hyperparameter as a compute dtype: None,
+    ``none``, ``float32`` and ``fp32`` keep f32 (None); ``bf16`` and
+    ``bfloat16`` give torch.bfloat16, the GraphNet stage's bf16 lane."""
+    if name in (None, "none", "float32", "fp32"):
+        return None
+    if name in ("bf16", "bfloat16"):
+        return torch.bfloat16
+    raise ValueError(f"unknown dtype {name!r} (use float32 or bf16)")
+
+
+def f32_graph_only(model: str, hp: dict) -> None:
+    """Read ``graph_dtype`` for a model whose GraphNet stage runs in f32
+    only: raise on bf16, whose kernels are not built at its widths and
+    lanes yet, rather than compute in f32 what the JAX model computes in
+    bf16."""
+    if parse_dtype(hp.get("graph_dtype")) is not None:
+        raise NotImplementedError(
+            f"{model}: graph_dtype={hp['graph_dtype']} has no bf16 build of "
+            f"its GraphNet kernels yet (ROADMAP.md B.1.1)")
 
 
 def nrmse(pred, target, eps: float = 1e-12):

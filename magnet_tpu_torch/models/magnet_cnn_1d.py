@@ -20,7 +20,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from magnet_tpu_torch.models.common import LOSSES, l1_loss, time_windows
+from magnet_tpu_torch.models.common import (
+    LOSSES,
+    l1_loss,
+    parse_dtype,
+    time_windows,
+)
 from magnet_tpu_torch.nn.core import MLP
 from magnet_tpu_torch.nn.edsr import EDSR
 from magnet_tpu_torch.nn.graphnet import (
@@ -38,12 +43,17 @@ N_FIELDS = 1  # one scalar field in 1D
 
 class MAgNetCNN1DCore(nn.Module):
     """Single-window forward over a batch.  Submodule names are the
-    reference's, so the state_dict keys are too."""
+    reference's, so the state_dict keys are too.  ``graph_dtype`` is the
+    compute dtype of the GraphNet stage alone (encoder, processor,
+    decoder; None: f32): the EDSR and INR front end stays f32, and the
+    decoder's bf16 output meets the f32 Euler update by type promotion, as
+    in the JAX model."""
 
     def __init__(self, time_slice: int = 16, latent_dim: int = 32,
                  num_message_passing_steps: int = 10, mlp_layers: int = 4,
                  mlp_hidden: int = 64, n_chan: int = 128, kernel_size: int = 3,
-                 res_scale: float = 1.0, res_layers: int = 4):
+                 res_scale: float = 1.0, res_layers: int = 4,
+                 graph_dtype=None):
         super().__init__()
         tc = time_slice * N_FIELDS
         self.time_slice = time_slice
@@ -55,11 +65,11 @@ class MAgNetCNN1DCore(nn.Module):
         # node features: values, coord, t; edge features: value and coord
         # differences
         self._encoder = GraphEncoder(tc + 2, tc + 1, latent_dim, latent_dim,
-                                     mlp_layers, mlp_hidden)
+                                     mlp_layers, mlp_hidden, graph_dtype)
         self._processor = GraphProcessor(latent_dim, num_message_passing_steps,
-                                         mlp_layers, mlp_hidden)
+                                         mlp_layers, mlp_hidden, graph_dtype)
         self._decoder = GraphDecoder(latent_dim, time_slice, mlp_layers,
-                                     mlp_hidden)
+                                     mlp_hidden, graph_dtype)
 
     def forward(self, x_t, coords, cell, t, hr_last, graph: CSRGraph):
         """x_t (B, T, C, L) LR frames, T == time_slice; coords, cell
@@ -241,6 +251,7 @@ class MAgNetCNN1D(MAgNetCNNTask, MAgNetCNN1DCore):
             kernel_size=int(hp.get("kernel_size", 3)),
             res_scale=float(hp.get("res_scale", 1.0)),
             res_layers=int(hp.get("res_layers", 4)),
+            graph_dtype=parse_dtype(hp.get("graph_dtype")),
         )
         self._task_init(hp, radius=0.08)
 

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from magnet_tpu_torch.models.common import f32_graph_only
 from magnet_tpu_torch.models.magnet_cnn_1d import MAgNetCNNTask
 from magnet_tpu_torch.nn.core import MLP
 from magnet_tpu_torch.nn.edsr import EDSR
@@ -106,6 +107,7 @@ class MAgNetCNN2D(MAgNetCNNTask, MAgNetCNN2DCore):
 
     def __init__(self, hparams: dict[str, Any]):
         hp = dict(hparams)
+        f32_graph_only("magnet_cnn_2d", hp)
         super().__init__(
             time_slice=int(hp.get("time_slice", 16)),
             latent_dim=int(hp.get("latent_dim", 32)),

@@ -29,6 +29,7 @@ from torch import nn
 from magnet_tpu_torch.models.common import (
     LOSSES,
     OwnGenerator,
+    f32_graph_only,
     l1_loss,
     time_windows,
 )
@@ -149,6 +150,7 @@ class MAgNetGNN(OwnGenerator, MAgNetGNNCore):
 
     def __init__(self, hparams: dict[str, Any], pos_dim: int = 1):
         hp = dict(hparams)
+        f32_graph_only("magnet_gnn", hp)
         super().__init__(
             time_slice=int(hp.get("time_slice", 25)),
             latent_dim=int(hp.get("latent_dim", 128)),

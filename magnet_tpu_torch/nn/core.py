@@ -8,6 +8,14 @@ E[(x-mu)^2]), so the port uses them directly.  ``MLP`` keeps the
 reference's ``layers`` ModuleList (Linear, ReLU, ..., Linear), whose
 Linears sit at even indices: that is the state_dict layout
 ``magnet_tpu/train/import_torch.py`` reads.
+
+``MLP`` and ``LayerNorm`` take a compute ``dtype`` (None: f32) with the
+semantics of flax's ``Dense(dtype=...)`` and ``LayerNorm(dtype=...)``, as
+the JAX package's ``Linear`` and ``LayerNorm`` use them: the parameters
+stay f32 and are rounded where they are used; a Dense layer takes its
+input and weight in ``dtype`` and gives its product, and then the product
+plus the bias, in ``dtype``; a LayerNorm takes its statistics in f32
+(two-pass variance) and rounds its result to ``dtype``.
 """
 from __future__ import annotations
 
@@ -26,10 +34,22 @@ def Conv(ndim: int, in_chan: int, out_chan: int, kernel_size: int,
                bias=bias)
 
 
-class MLP(nn.Module):
-    """Linear + ReLU per hidden width, then a final Linear."""
+def dense(x: torch.Tensor, linear: nn.Linear, dtype=None) -> torch.Tensor:
+    """``linear`` applied to x in compute dtype ``dtype`` (None: f32, the
+    Linear itself) as flax's ``Dense(dtype=...)``: operands rounded to
+    ``dtype``, the product in ``dtype``, then the bias added in ``dtype``."""
+    if dtype is None:
+        return linear(x)
+    y = x.to(dtype) @ linear.weight.to(dtype).t()
+    return y if linear.bias is None else y + linear.bias.to(dtype)
 
-    def __init__(self, in_dim: int, hidden_list: Sequence[int], out_dim: int):
+
+class MLP(nn.Module):
+    """Linear + ReLU per hidden width, then a final Linear, in compute
+    ``dtype`` (see ``dense``)."""
+
+    def __init__(self, in_dim: int, hidden_list: Sequence[int], out_dim: int,
+                 dtype=None):
         super().__init__()
         dims = [in_dim, *hidden_list]
         layers: list[nn.Module] = []
@@ -37,15 +57,37 @@ class MLP(nn.Module):
             layers += [nn.Linear(a, b), nn.ReLU()]
         layers.append(nn.Linear(dims[-1], out_dim))
         self.layers = nn.ModuleList(layers)
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for layer in self.layers:
-            x = layer(x)
+            x = (dense(x, layer, self.dtype) if isinstance(layer, nn.Linear)
+                 else layer(x))
         return x
 
     @property
     def linears(self) -> list[nn.Linear]:
         return [m for m in self.layers if isinstance(m, nn.Linear)]
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` (eps 1e-5, affine) in compute ``dtype``: None is
+    ``nn.LayerNorm`` itself; otherwise flax's ``LayerNorm(dtype=...)``:
+    mean and two-pass variance of the input in f32, (x - mean) times
+    rsqrt(var + eps) * weight, plus bias, in f32, rounded to ``dtype``."""
+
+    def __init__(self, width: int, dtype=None):
+        super().__init__(width)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype is None:
+            return super().forward(x)
+        x = x.float()
+        mu = x.mean(-1, keepdim=True)
+        var = ((x - mu) * (x - mu)).mean(-1, keepdim=True)
+        y = (x - mu) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        return y.to(self.dtype)
 
 
 def init_torch_default(module: nn.Module, generator: torch.Generator) -> None:

@@ -26,15 +26,28 @@ graphs under ``MAGNET_TPU_NO_FUSED2R`` (``fused_edge_tail_agg2``), and it
 also computes what the JAX package's no-fold ragged lanes
 (``fused_edge_tail_agg2r`` / ``2h``) compute; the port sends those lanes
 to ``fold``.
+
+Every module takes a compute ``dtype`` (None: f32), the JAX models'
+``graph_dtype``.  In bf16 (``magnet_tpu/nn/graphnet.py``, the flax modules'
+``dtype=jnp.bfloat16``) the parameters stay f32 and are rounded to bf16
+where they are used; the MLPs and LayerNorms follow flax's dtype semantics
+(``nn.core.dense``, ``nn.core.LayerNorm``); the processor casts the node
+and edge latents to bf16 at its entry, so the node stream is bf16 across
+its steps; each step's edge kernel is the fold entry's bf16 build
+(``fused_edge_tail_agg_bf16``: bf16 operands, f32 accumulation, LayerNorm
+and receiver sums, an f32 result), whose per-receiver mean is rounded to
+bf16 before the node MLP, and the residual is a bf16 add.  Only the
+``fold`` lane has a bf16 build; any other lane raises.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from magnet_tpu_torch.nn.core import MLP
+from magnet_tpu_torch.nn.core import MLP, LayerNorm
 from magnet_tpu_torch.ops.fused_edge import (
     fused_edge_tail_agg,
+    fused_edge_tail_agg_bf16,
     fused_edge_tail_agg_pe,
     fused_edge_tail_agg_plain,
     fused_edge_tail_agg_pregathered,
@@ -52,13 +65,14 @@ class GraphEncoder(nn.Module):
     """Independent node and edge embedders, each MLP + LayerNorm."""
 
     def __init__(self, node_in: int, edge_in: int, node_out: int,
-                 edge_out: int, mlp_layers: int, mlp_hidden: int):
+                 edge_out: int, mlp_layers: int, mlp_hidden: int,
+                 dtype=None):
         super().__init__()
         hidden = [mlp_hidden] * mlp_layers
-        self.node_fn = nn.Sequential(MLP(node_in, hidden, node_out),
-                                     nn.LayerNorm(node_out))
-        self.edge_fn = nn.Sequential(MLP(edge_in, hidden, edge_out),
-                                     nn.LayerNorm(edge_out))
+        self.node_fn = nn.Sequential(MLP(node_in, hidden, node_out, dtype),
+                                     LayerNorm(node_out, dtype))
+        self.edge_fn = nn.Sequential(MLP(edge_in, hidden, edge_out, dtype),
+                                     LayerNorm(edge_out, dtype))
 
     def forward(self, node_feats, edge_feats):
         return self.node_fn(node_feats), self.edge_fn(edge_feats)
@@ -78,25 +92,33 @@ class InteractionNetwork(nn.Module):
     LayerNorm and sums per receiver.  The fused function is
     differentiable in its float operands (its backward is a kernel too);
     the gradient of the slicing, transposing, stacking and the edge scale
-    in ``edge_weights`` is autograd's.
+    in ``edge_weights`` is autograd's.  In bf16 the step runs the fold
+    entry's bf16 build (module docstring); p_xi and p_xj are bias-free
+    bf16 Dense outputs, as the JAX step's ``e_w_xi`` / ``e_w_xj``.
     """
 
-    def __init__(self, latent: int, mlp_layers: int, mlp_hidden: int):
+    def __init__(self, latent: int, mlp_layers: int, mlp_hidden: int,
+                 dtype=None):
         super().__init__()
         hidden = [mlp_hidden] * mlp_layers
         self.latent = latent
+        self.dtype = dtype
         self.edge_fn = nn.Sequential(MLP(3 * latent, hidden, latent),
                                      nn.LayerNorm(latent))
-        self.node_fn = nn.Sequential(MLP(2 * latent, hidden, latent),
-                                     nn.LayerNorm(latent))
+        self.node_fn = nn.Sequential(MLP(2 * latent, hidden, latent, dtype),
+                                     LayerNorm(latent, dtype))
 
     def edge_weights(self, e_scale: float):
         """The fused kernel's weight operands, all (in, out):
         (we, be, w_rest, b_rest, w_out, b_out, ln_s, ln_b), with the edge
-        scale folded into we (exact: e_scale is a power of two)."""
+        scale folded into we (exact: e_scale is a power of two).  In bf16
+        every one but ln_s and ln_b is rounded to bf16 (the scale after the
+        rounding, as the JAX step folds it)."""
         lin = self.edge_fn[0].linears
         c = self.latent
-        we = (lin[0].weight[:, 2 * c:].t() * e_scale).contiguous()
+        cast = ((lambda t: t) if self.dtype is None
+                else (lambda t: t.to(self.dtype)))
+        we = (cast(lin[0].weight[:, 2 * c:].t()) * e_scale).contiguous()
         hid = lin[1:-1]
         h = lin[0].weight.shape[0]
         if hid:
@@ -106,9 +128,29 @@ class InteractionNetwork(nn.Module):
             w_rest = lin[0].weight.new_zeros(0, h, h)
             b_rest = lin[0].weight.new_zeros(0, h)
         ln = self.edge_fn[1]
-        return (we, lin[0].bias, w_rest, b_rest,
-                lin[-1].weight.t().contiguous(), lin[-1].bias, ln.weight,
-                ln.bias)
+        return (we, cast(lin[0].bias), cast(w_rest), cast(b_rest),
+                cast(lin[-1].weight.t().contiguous()), cast(lin[-1].bias),
+                ln.weight, ln.bias)
+
+    def _forward_bf16(self, x, e0, graph: CSRGraph, e_scale, impl):
+        """The bf16 step: x and e0 bf16; only the fold lane."""
+        w0 = self.edge_fn[0].linears[0].weight                   # (H, 3C)
+        lane = ("plain" if impl == "plain"
+                else lane_of(graph, "graphnet", w0.shape[0])
+                if impl == "kernel" else impl.removeprefix("kernel_"))
+        if lane not in ("plain", "fold"):
+            raise NotImplementedError(
+                f"the {lane} lane has no bf16 build (graph_dtype=bf16 runs "
+                f"the fold lane only; ROADMAP.md B.1.1)")
+        c = self.latent
+        p_xi = x @ w0[:, :c].t().to(self.dtype)                  # (N, H)
+        p_xj = x @ w0[:, c:2 * c].t().to(self.dtype)             # (N, H)
+        we, be, *tail = self.edge_weights(e_scale)
+        agg_sum = fused_edge_tail_agg_bf16(
+            e0, we, be, p_xj, p_xi, graph.senders, graph.rowptr, *tail,
+            plain=lane == "plain")
+        agg = agg_sum / torch.clamp(graph.degree, min=1.0)[:, None]
+        return x + self.node_fn(torch.cat([agg.to(x.dtype), x], dim=-1))
 
     def forward(self, x, e0, graph: CSRGraph, e_scale: float = 1.0,
                 impl: str = "kernel"):
@@ -116,6 +158,8 @@ class InteractionNetwork(nn.Module):
         edge input being e_scale·e0.  Returns the updated node latents."""
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+        if self.dtype is not None:
+            return self._forward_bf16(x, e0, graph, e_scale, impl)
         w0 = self.edge_fn[0].linears[0].weight                   # (H, 3C)
         c = self.latent
         p_xi = x @ w0[:, :c].t()                                 # (N, H)
@@ -141,18 +185,23 @@ class InteractionNetwork(nn.Module):
 
 
 class GraphProcessor(nn.Module):
-    """A stack of InteractionNetworks; step k gets the edge scale 2^k."""
+    """A stack of InteractionNetworks; step k gets the edge scale 2^k.  In
+    a compute ``dtype`` the node and edge latents are cast to it at the
+    entry."""
 
     def __init__(self, latent: int, num_steps: int, mlp_layers: int,
-                 mlp_hidden: int):
+                 mlp_hidden: int, dtype=None):
         super().__init__()
+        self.dtype = dtype
         self.gnn_stacks = nn.ModuleList(
-            InteractionNetwork(latent, mlp_layers, mlp_hidden)
+            InteractionNetwork(latent, mlp_layers, mlp_hidden, dtype)
             for _ in range(num_steps))
 
     def forward(self, x, e0, graph: CSRGraph, impl: str = "kernel"):
         """Returns the node latents.  The reference's edge output,
         e0·2^num_steps, is read by no caller and is not formed."""
+        if self.dtype is not None:
+            x, e0 = x.to(self.dtype), e0.to(self.dtype).contiguous()
         scale = 1.0
         for step in self.gnn_stacks:
             x = step(x, e0, graph, e_scale=scale, impl=impl)
@@ -161,12 +210,12 @@ class GraphProcessor(nn.Module):
 
 
 class GraphDecoder(nn.Module):
-    """Node MLP head."""
+    """Node MLP head, in compute ``dtype``."""
 
     def __init__(self, latent: int, node_out: int, mlp_layers: int,
-                 mlp_hidden: int):
+                 mlp_hidden: int, dtype=None):
         super().__init__()
-        self.node_fn = MLP(latent, [mlp_hidden] * mlp_layers, node_out)
+        self.node_fn = MLP(latent, [mlp_hidden] * mlp_layers, node_out, dtype)
 
     def forward(self, x):
         return self.node_fn(x)

@@ -19,7 +19,8 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 #: every kernel source of the port (``csrc/<name>.cu``).
 KERNELS = ("fused_edge_tail_agg", "fused_edge_tail_agg_bwd",
-           "fused_mpnn_edge_agg", "fused_mpnn_edge_agg_bwd", "segment_sum")
+           "fused_edge_tail_agg_bf16", "fused_mpnn_edge_agg",
+           "fused_mpnn_edge_agg_bwd", "segment_sum")
 #: nvcc flags; the cached library's name hashes them with the sources.
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
@@ -69,13 +70,14 @@ def build_all(names=KERNELS) -> dict[str, Path]:
         return {name: f.result() for name, f in futures.items()}
 
 
-def function(name: str, argtypes: list):
-    """The C function ``<name>_f32`` of library ``name`` (built if need
-    be), returning a ``cudaError_t`` as an int."""
-    if name not in _FUNCTIONS:
+def function(name: str, argtypes: list, symbol: str | None = None):
+    """The C function ``symbol`` (``<name>_f32`` unless named) of library
+    ``name`` (built if need be), returning a ``cudaError_t`` as an int."""
+    symbol = symbol or f"{name}_f32"
+    if symbol not in _FUNCTIONS:
         lib = ctypes.CDLL(str(build(name)))
-        fn = getattr(lib, f"{name}_f32")
+        fn = getattr(lib, symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _FUNCTIONS[name] = (lib, fn)  # the library stays referenced with it
-    return _FUNCTIONS[name][1]
+        _FUNCTIONS[symbol] = (lib, fn)  # the library stays referenced with it
+    return _FUNCTIONS[symbol][1]

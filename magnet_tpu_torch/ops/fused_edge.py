@@ -31,6 +31,25 @@ y = LN(h·W_out + b_out); the result is out[i] = Σ y over the edges of i,
 * ``*_plain`` is each function in plain PyTorch (gather, MLP,
   ``index_add_``) and ``*_bwd_plain`` its gradients by autograd: the CPU
   path and the card-side reference.
+* ``fused_edge_tail_agg_bf16`` is the fold entry in the bf16 lane, the
+  JAX package's ``fused_edge_tail_agg2rf`` on bf16 operands (its models'
+  ``graph_dtype=bf16``): e0, W_e (scale folded, exact), b_e, p_xj, p_xi and
+  the tail weights in bf16, ln_s and ln_b in f32.  It computes what the TPU
+  kernels compute there, rounding where they round
+  (``_fused2r_fwd_pallas`` with ``we``/``be``, ``pallas_kernels.py:
+  1541-1572``; ``_fused2r_bwd_pallas(dpxj_in_kernel=True)``, ``:1872-
+  1960``): every product on bf16 operands with f32 accumulation, each
+  activation rounded to bf16 after its relu, LayerNorm in f32, y rounded
+  to bf16 before the f32 receiver sum; backward, g and d_y rounded to bf16
+  before any product, each d_h rounded to bf16 before its products and
+  its receiver and sender sums (the bias gradients sum it unrounded),
+  d_e0 written in bf16, the weight and node gradients summed in f32 and
+  then, as the JAX VJP does, every gradient cast to its operand's dtype.
+  ``fused_edge_tail_agg_bf16_plain`` and ``fused_edge_tail_agg_bf16_bwd_
+  plain`` are its plain versions, the backward written step by step (not
+  autograd through the bf16 forward, which rounds elsewhere); the
+  kernels are ``csrc/fused_edge_tail_agg_bf16.cu`` (``FusedEdgeTailAggBf16``),
+  compiled for (Ce, H, C) = (32, 64, 32) only.
 * On CUDA tensors the wrappers go through ``FusedEdgeTailAgg``,
   ``FusedEdgeTailAggPregathered`` and ``FusedEdgeTailAggPe``,
   ``torch.autograd.Function``s whose forward launches
@@ -67,7 +86,8 @@ LN_EPS = 1e-5
 #: fold, (H, C) for pregathered and pe.
 KERNEL_WIDTHS = {"fold": {(32, 64, 32), (128, 128, 128)},
                  "pregathered": {(64, 32), (128, 128)},
-                 "pe": {(128, 128)}}
+                 "pe": {(128, 128)},
+                 "fold_bf16": {(32, 64, 32)}}
 #: the C entry's ``entry`` argument
 ENTRY = {"pregathered": 0, "fold": 1, "pe": 2}
 #: edges per tile of every forward build (two scratch rows per tile)
@@ -85,16 +105,27 @@ GRAD_NAMES_PREGATHERED = ("h0", "pxi", "w_rest", "b_rest", "w_out", "b_out",
 GRAD_NAMES_PE = ("pe", "pxj", "pxi", "w_rest", "b_rest", "w_out", "b_out",
                  "ln_s", "ln_b")
 
+#: the gradients of the bf16 backward that leave in f32 (their operands'
+#: dtype); every other one leaves in bf16
+GRAD_F32_BF16 = ("ln_s", "ln_b")
+
 FWD, BWD = "fused_edge_tail_agg", "fused_edge_tail_agg_bwd"
+#: the bf16 lane's library and its two C functions
+BF16 = "fused_edge_tail_agg_bf16"
+BF16_FWD, BF16_BWD = f"{BF16}_fwd", f"{BF16}_bwd"
 _ARGTYPES = {
     FWD: [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     BWD: [ctypes.c_void_p] * 19 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
+    BF16_FWD: [ctypes.c_void_p] * 15 + [ctypes.c_int] * 6
+    + [ctypes.c_void_p],
+    BF16_BWD: [ctypes.c_void_p] * 18 + [ctypes.c_int] * 7
+    + [ctypes.c_void_p],
 }
 
 #: Launches of each kernel so far (one per launch, nowhere else): the fold
 #: entry at width 64 (``launches``) and 128 (``launches_fold128``), the
-#: pregathered entry at either width, and the pe entry; ``*_bwd`` the
-#: backward's.
+#: pregathered entry at either width, the pe entry, and the fold entry's
+#: bf16 build (``launches_bf16``); ``*_bwd`` the backward's.
 launches = 0
 launches_bwd = 0
 launches_fold128 = 0
@@ -103,6 +134,8 @@ launches_pregathered = 0
 launches_pregathered_bwd = 0
 launches_pe = 0
 launches_pe_bwd = 0
+launches_bf16 = 0
+launches_bf16_bwd = 0
 #: each counter's name in ``launch_counts``
 _COUNTERS = {"launches": "fused_edge_fwd", "launches_bwd": "fused_edge_bwd",
              "launches_fold128": "fused_edge_fold128_fwd",
@@ -110,7 +143,9 @@ _COUNTERS = {"launches": "fused_edge_fwd", "launches_bwd": "fused_edge_bwd",
              "launches_pregathered": "fused_edge_pregathered_fwd",
              "launches_pregathered_bwd": "fused_edge_pregathered_bwd",
              "launches_pe": "fused_edge_pe_fwd",
-             "launches_pe_bwd": "fused_edge_pe_bwd"}
+             "launches_pe_bwd": "fused_edge_pe_bwd",
+             "launches_bf16": "fused_edge_bf16_fwd",
+             "launches_bf16_bwd": "fused_edge_bf16_bwd"}
 
 
 def reset_launches() -> None:
@@ -227,8 +262,10 @@ def fused_edge_tail_agg_pe_bwd_plain(pe, pxj, pxi, senders, rowptr, snd_ptr,
         lambda f, i: [*f[:3], *i, *f[3:]])
 
 
-def _check_operands(floats: dict, ints: dict, want: dict) -> None:
-    """Device, contiguity, dtype and shape of every operand."""
+def _check_operands(floats: dict, ints: dict, want: dict,
+                    dtypes: dict | None = None) -> None:
+    """Device, contiguity, dtype and shape of every operand; a float
+    operand's dtype is float32 unless ``dtypes`` names another."""
     dev = next(iter(floats.values())).device
     for name, t in {**floats, **ints}.items():
         if t.device != dev:
@@ -237,8 +274,9 @@ def _check_operands(floats: dict, ints: dict, want: dict) -> None:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     for name, t in floats.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32 (got {t.dtype})")
+        dtype = (dtypes or {}).get(name, torch.float32)
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype} (got {t.dtype})")
     for name, t in ints.items():
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32 (got {t.dtype})")
@@ -263,8 +301,9 @@ def _check_rows(src, rowptr, E):
 
 
 def _check(e0, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest, w_out,
-           b_out, ln_s, ln_b):
-    """The fold entry's operands; returns (E, (Ce, H, C), L1, N)."""
+           b_out, ln_s, ln_b, dtype=torch.float32):
+    """The fold entry's operands, all f32 or (``dtype`` bf16) the bf16
+    lane's; returns (E, (Ce, H, C), L1, N)."""
     E, ce = e0.shape
     h = we.shape[1]
     n = rowptr.shape[0] - 1
@@ -274,7 +313,8 @@ def _check(e0, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest, w_out,
              b_rest=b_rest, w_out=w_out, b_out=b_out, ln_s=ln_s, ln_b=ln_b),
         dict(senders=senders, rowptr=rowptr),
         dict(we=(ce, h), be=(h,), pxj=(n, h), pxi=(n, h), senders=(E,),
-             **tail))
+             **tail),
+        {name: dtype for name in GRAD_NAMES if name not in GRAD_F32_BF16})
     return E, (ce, h, c), l1, n
 
 
@@ -625,3 +665,219 @@ def fused_edge_tail_agg_pe_bwd(pe, pxj, pxi, senders, rowptr, snd_ptr,
                                        senders, rowptr, *operands[7:],
                                        g.contiguous())
     return (d_pe, segment_sum(d_pe, snd_ptr, snd_perm), d_pxi, *d_tail)
+
+
+# ---- the fold entry's bf16 lane -----------------------------------------
+
+def _bf16_chain(e0, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest,
+                w_out, b_out):
+    """The bf16 lane's recompute, as the TPU kernel rounds it: (receivers,
+    [h_0 .. h_L1] bf16, y = h_L1 . W_out + b_out f32 before LayerNorm).
+    bf16 operands meet in f32 products (exact) with f32 sums."""
+    f = torch.Tensor.float
+    receivers = _receivers(rowptr)
+    z = ((f(e0) @ f(we) + f(be))
+         + (f(pxj).index_select(0, senders) + f(pxi).index_select(0, receivers)))
+    hs = [torch.relu(z).bfloat16()]
+    for k in range(w_rest.shape[0]):
+        hs.append(torch.relu(f(hs[-1]) @ f(w_rest[k])
+                             + f(b_rest[k])).bfloat16())
+    return receivers, hs, f(hs[-1]) @ f(w_out) + f(b_out)
+
+
+def _ln_stats(y):
+    """(xhat, rstd) of LayerNorm over the last axis, two-pass variance."""
+    mu = y.mean(-1, keepdim=True)
+    var = ((y - mu) * (y - mu)).mean(-1, keepdim=True)
+    inv = torch.rsqrt(var + LN_EPS)
+    return (y - mu) * inv, inv
+
+
+def fused_edge_tail_agg_bf16_plain(e0, we, be, pxj, pxi, senders, rowptr,
+                                   w_rest, b_rest, w_out, b_out, ln_s, ln_b):
+    """Plain PyTorch version of the fold entry's bf16 build: the kernel's
+    operands (module docstring) and its (N, C) f32 result."""
+    receivers, _, y = _bf16_chain(e0, we, be, pxj, pxi, senders, rowptr,
+                                  w_rest, b_rest, w_out, b_out)
+    xhat, _ = _ln_stats(y)
+    y = (xhat * ln_s + ln_b).bfloat16().float()
+    out = torch.zeros(rowptr.numel() - 1, y.shape[1], dtype=torch.float32,
+                      device=y.device)
+    return out.index_add_(0, receivers, y)
+
+
+def fused_edge_tail_agg_bf16_bwd_plain(e0, we, be, pxj, pxi, senders, rowptr,
+                                       w_rest, b_rest, w_out, b_out, ln_s,
+                                       ln_b, g):
+    """Plain backward of the bf16 build: the gradients of ``sum(out * g)``
+    in ``GRAD_NAMES`` order, each in its operand's dtype, step by step at
+    the rounding points of ``_fused2r_bwd_pallas`` (module docstring)."""
+    f = torch.Tensor.float
+
+    def rnd(t):
+        return t.bfloat16().float()
+
+    receivers, hs, y = _bf16_chain(e0, we, be, pxj, pxi, senders, rowptr,
+                                   w_rest, b_rest, w_out, b_out)
+    xhat, inv = _ln_stats(y)
+    d_out = rnd(g).index_select(0, receivers)
+    d_ls, d_lb = (d_out * xhat).sum(0), d_out.sum(0)
+    d_xhat = d_out * ln_s
+    d_y = inv * (d_xhat - d_xhat.mean(-1, keepdim=True)
+                 - xhat * (d_xhat * xhat).mean(-1, keepdim=True))
+    d_wo, d_bo = f(hs[-1]).t() @ rnd(d_y), d_y.sum(0)
+    d_h = rnd(d_y) @ f(w_out).t()
+    l1, h = w_rest.shape[0], we.shape[1]
+    d_wr, d_br = [None] * l1, [None] * l1
+    for k in reversed(range(l1)):
+        d_h = d_h * (hs[k + 1] > 0)
+        d_wr[k], d_br[k] = f(hs[k]).t() @ rnd(d_h), d_h.sum(0)
+        d_h = rnd(d_h) @ f(w_rest[k]).t()
+    d_h = d_h * (hs[0] > 0)
+    d16 = rnd(d_h)
+    n = rowptr.numel() - 1
+    nodes = torch.zeros(2, n, h, dtype=torch.float32, device=d16.device)
+    nodes[0].index_add_(0, senders.long(), d16)
+    nodes[1].index_add_(0, receivers, d16)
+    grads = (d16 @ f(we).t(), f(e0).t() @ d16, d_h.sum(0), nodes[0],
+             nodes[1],
+             torch.stack(d_wr) if l1 else d16.new_zeros(0, h, h),
+             torch.stack(d_br) if l1 else d16.new_zeros(0, h),
+             d_wo, d_bo, d_ls, d_lb)
+    operands = (e0, we, be, pxj, pxi, w_rest, b_rest, w_out, b_out, ln_s,
+                ln_b)
+    return tuple(d.to(t.dtype) for d, t in zip(grads, operands))
+
+
+def _check_bf16(*operands):
+    """The bf16 fold entry's operands; returns (E, (Ce, H, C), L1, N)."""
+    return _check(*operands, dtype=torch.bfloat16)
+
+
+def _check_build_bf16(widths: tuple, l1: int) -> None:
+    """Raise unless the bf16 kernels are compiled for (Ce, H, C)
+    ``widths`` and ``l1`` tail layers."""
+    if widths not in KERNEL_WIDTHS["fold_bf16"] or l1 > KERNEL_BWD_MAX_L1:
+        raise NotImplementedError(
+            f"the fold entry's bf16 CUDA kernels are compiled for (Ce, H, C) "
+            f"in {sorted(KERNEL_WIDTHS['fold_bf16'])} with at most "
+            f"{KERNEL_BWD_MAX_L1} tail layers, got {widths} and L1 = {l1}: "
+            f"no bf16 build at that width (ROADMAP.md B.1.1)")
+
+
+def _launch_bf16_fwd(e0, we, be, pxj, pxi, senders, rowptr, *tail):
+    """The bf16 forward kernel; (N, C) f32."""
+    E, widths, l1, n = _check_bf16(e0, we, be, pxj, pxi, senders, rowptr,
+                                   *tail)
+    _check_build_bf16(widths, l1)
+    _check_device(e0)
+    _check_aligned(e0=e0, pxj=pxj, pxi=pxi)
+    ce, h, c = widths
+    dev = e0.device
+    out = torch.zeros(n, c, dtype=torch.float32, device=dev)
+    part = torch.empty(part_rows(E, FWD_TILE), c, dtype=torch.float32,
+                       device=dev)
+    fn = cuda_build.function(BF16, _ARGTYPES[BF16_FWD], symbol=BF16_FWD)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*(t.data_ptr() for t in (e0, we, be, pxj, pxi, senders,
+                                          rowptr, *tail, out, part)),
+                 n, E, ce, h, c, l1, stream)
+    if err != 0:
+        raise RuntimeError(f"{BF16_FWD} launch failed: cudaError {err}")
+    globals()["launches_bf16"] += 1
+    return out
+
+
+def _launch_bf16_bwd(e0, we, be, pxj, pxi, senders, rowptr, *tail_and_g):
+    """The bf16 backward kernel: the gradients in ``GRAD_NAMES`` order, each
+    in its operand's dtype."""
+    *tail, g = tail_and_g
+    E, widths, l1, n = _check_bf16(e0, we, be, pxj, pxi, senders, rowptr,
+                                   *tail)
+    _check_build_bf16(widths, l1)
+    _check_device(e0)
+    _check_aligned(e0=e0, pxj=pxj, pxi=pxi)
+    ce, h, c = widths
+    if (g.device != e0.device or g.dtype != torch.float32
+            or tuple(g.shape) != (n, c) or not g.is_contiguous()):
+        raise ValueError(f"g must be a contiguous float32 ({n}, {c}) tensor "
+                         f"on {e0.device}")
+    dev = e0.device
+    sizes = [ce * h, h, l1 * h * h, l1 * h, h * c, c, c, c]
+    n_blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+    d_e0 = torch.empty_like(e0)
+    # the kernel adds into these with atomics (one fill for both)
+    d_nodes = torch.zeros(2, n, h, dtype=torch.float32, device=dev)
+    wgrad = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    partial = torch.empty(n_blocks, sum(sizes), dtype=torch.float32,
+                          device=dev)
+    fn = cuda_build.function(BF16, _ARGTYPES[BF16_BWD], symbol=BF16_BWD)
+    w_rest, b_rest, w_out, b_out, ln_s, _ = tail
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*(t.data_ptr() for t in (
+            e0, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest, w_out,
+            b_out, ln_s, g, d_e0, d_nodes[0], d_nodes[1], wgrad, partial)),
+            n, E, ce, h, c, l1, n_blocks, stream)
+    if err != 0:
+        raise RuntimeError(f"{BF16_BWD} launch failed: cudaError {err}")
+    globals()["launches_bf16_bwd"] += 1
+    d_we, d_be, d_wr, d_br, d_wo, d_bo, d_ls, d_lb = wgrad.split(sizes)
+    bf = torch.bfloat16
+    return (d_e0, d_we.view(ce, h).to(bf), d_be.to(bf), d_nodes[0].to(bf),
+            d_nodes[1].to(bf), d_wr.view(l1, h, h).to(bf),
+            d_br.view(l1, h).to(bf), d_wo.view(h, c).to(bf), d_bo.to(bf),
+            d_ls, d_lb)
+
+
+class FusedEdgeTailAggBf16(torch.autograd.Function):
+    """The fold entry's bf16 build as one differentiable function of the
+    eleven float operands, its gradients in their operands' dtypes: the two
+    CUDA kernels, or (``plain``) the two plain versions."""
+
+    @staticmethod
+    def forward(ctx, plain, *operands):
+        operands = tuple(t.detach() for t in operands)
+        ctx.plain = plain
+        ctx.save_for_backward(*operands)
+        if plain:
+            return fused_edge_tail_agg_bf16_plain(*operands)
+        return _launch_bf16_fwd(*operands)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        bwd = (fused_edge_tail_agg_bf16_bwd_plain if ctx.plain
+               else _launch_bf16_bwd)
+        grads = bwd(*ctx.saved_tensors, g.contiguous())
+        return (None, *grads[:5], None, None, *grads[5:])
+
+
+def fused_edge_tail_agg_bf16(e0, we, be, pxj, pxi, senders, rowptr, w_rest,
+                             b_rest, w_out, b_out, ln_s, ln_b,
+                             plain: bool = False):
+    """``fused_edge_tail_agg`` in the bf16 lane: the same operands, all
+    bf16 but ln_s and ln_b (f32); (N, C) f32, differentiable in every float
+    operand with its gradient in that operand's dtype.  CUDA tensors
+    launch the bf16 kernels (or raise: only (Ce, H, C) = (32, 64, 32) is
+    built); CPU tensors, or ``plain``, take the plain versions."""
+    operands = (e0, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest,
+                w_out, b_out, ln_s, ln_b)
+    _check_bf16(*operands)
+    return FusedEdgeTailAggBf16.apply(plain or e0.device.type == "cpu",
+                                      *operands)
+
+
+def fused_edge_tail_agg_bf16_bwd(e0, we, be, pxj, pxi, senders, rowptr,
+                                 w_rest, b_rest, w_out, b_out, ln_s, ln_b, g):
+    """The eleven gradients of ``sum(fused_edge_tail_agg_bf16(...) * g)``
+    in ``GRAD_NAMES`` order: the bf16 backward kernel on CUDA tensors
+    (``d_pxj`` and ``d_pxi`` summed with atomics, so their last f32 bits
+    vary before the rounding to bf16), the plain version on CPU tensors."""
+    operands = (e0, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest,
+                w_out, b_out, ln_s, ln_b)
+    if e0.device.type == "cpu":
+        _check_bf16(*operands)
+        return fused_edge_tail_agg_bf16_bwd_plain(*operands, g)
+    return _launch_bf16_bwd(*operands, g.contiguous())

@@ -1,7 +1,8 @@
 """The fused GraphNet forward of this checkout against another tree's, in
-turns on one card: #8 at width 64 and 128, #6, and #2 at width 128.
+turns on one card: #8 at width 64 and 128, #6, and #2 at width 128; or,
+with ``dtype=bf16``, #8's bf16 build against its f32 build.
 
-  python -m magnet_tpu_torch.time_fwd [baseline=DIR]
+  python -m magnet_tpu_torch.time_fwd [baseline=DIR] [dtype=bf16]
 
 On the card only.  Builds ``csrc/fused_edge_tail_agg.cu`` of this checkout
 and, with ``baseline=DIR``, of the ``csrc/`` directory DIR of another tree
@@ -16,8 +17,13 @@ there (max abs error) and times it with CUDA events over ``REPS``
 launches, in turns: baseline, this, this, baseline.  Prints the card's
 name and power limit, then one JSON line per kernel and shape: the edge
 count, the times, each library's mean, the bounds (f32 CUDA cores and
-three TF32 products on the tensor cores) and the errors.  Its graphs,
-library binding and in-turn timing serve ``time_bwd`` too.
+three TF32 products on the tensor cores) and the errors.  With
+``dtype=bf16`` it times, at MAgNet[CNN] 1D's eval and training graphs,
+this checkout's f32 fold build (``f32``) and its bf16 build
+(``csrc/fused_edge_tail_agg_bf16.cu``, ``bf16``, on the same operands
+rounded to bf16) in turns: f32, bf16, bf16, f32, each against its own
+plain version, with the bf16 bound (one product at 989 TFLOP/s).  Its
+graphs, library binding and in-turn timing serve ``time_bwd`` too.
 """
 from __future__ import annotations
 
@@ -44,7 +50,8 @@ from magnet_tpu_torch.ops import fused_edge as fe
 from magnet_tpu_torch.ops.graph import part_rows
 from magnet_tpu_torch.utils import make_coord_np
 
-F32_PEAK, TF32_PEAK = 67e12, 495e12  # H100 SXM data sheet, FLOP/s
+# H100 SXM data sheet, FLOP/s: f32 CUDA cores, TF32 and bf16 tensor cores
+F32_PEAK, TF32_PEAK, BF16_PEAK = 67e12, 495e12, 989e12
 REPS = 20  # launches a timed run
 #: each entry's TPU kernel (magnet_tpu/ops/pallas_kernels.py)
 KERNEL_NUMBER = {"fold": "#8", "pe": "#6", "pregathered": "#2"}
@@ -152,6 +159,34 @@ def runner(fn, entry, ops, widths):
     return run
 
 
+def to_bf16(ops):
+    """The fold entry's operands in the bf16 lane: every float operand
+    rounded to bf16 but ln_s and ln_b (the last two)."""
+    return tuple(t.bfloat16() if t.is_floating_point() and i < len(ops) - 2
+                 else t for i, t in enumerate(ops))
+
+
+def runner_bf16(ops):
+    """A closure that launches the bf16 forward's C entry on ``ops`` (bf16,
+    ``to_bf16``) as its wrapper does and returns out."""
+    fn = cuda_build.function(fe.BF16, fe._ARGTYPES[fe.BF16_FWD],
+                             symbol=fe.BF16_FWD)
+    e0, we, _, _, _, _, rowptr, *tail = ops
+    n, e, l1 = rowptr.numel() - 1, e0.shape[0], tail[0].shape[0]
+    c = tail[2].shape[1]
+    part = torch.empty(part_rows(e, fe.FWD_TILE), c, device=e0.device)
+
+    def run():
+        out = torch.zeros(n, c, device=e0.device)
+        err = fn(*(t.data_ptr() for t in ops), out.data_ptr(),
+                 part.data_ptr(), n, e, e0.shape[1], we.shape[1], c, l1,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"launch failed: cudaError {err}")
+        return out
+    return run
+
+
 def cuda_ms(fn):
     for _ in range(3):
         fn()
@@ -166,11 +201,10 @@ def cuda_ms(fn):
     return start.elapsed_time(stop) / REPS
 
 
-def in_turns(runs):
-    """Times of ``runs`` ({"this": fn, "baseline": fn}) in turns, baseline,
-    this, this, baseline: (order, ms of each, mean ms of each run)."""
-    order = (["baseline", "this", "this", "baseline"]
-             if "baseline" in runs else ["this", "this"])
+def in_turns(runs, first="baseline", then="this"):
+    """Times of ``runs`` ({then: fn, first: fn}) in turns, first, then,
+    then, first: (order, ms of each, mean ms of each run)."""
+    order = ([first, then, then, first] if first in runs else [then, then])
     times = [cuda_ms(runs[k]) for k in order]
     mean = {k: float(np.mean([t for o, t in zip(order, times) if o == k]))
             for k in runs}
@@ -186,6 +220,8 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     fns = libraries(fe.FWD, args)
+    if args.get("dtype") == "bf16":
+        return main_bf16(fns["this"], dev)
     for label, hp, graph in graphs():
         h = hp["mlp_hidden"]
         ce = c = hp["latent_dim"]
@@ -220,6 +256,34 @@ def main(argv) -> int:
                 "max_abs_err_vs_plain": err,
                 "device": torch.cuda.get_device_name(0)}), flush=True)
             del ops, want, runs
+    return 0
+
+
+def main_bf16(fn32, dev) -> int:
+    """#8's f32 and bf16 builds in turns at MAgNet[CNN] 1D's graphs."""
+    ce = c = MAGNET_CNN["latent_dim"]
+    h, l1 = MAGNET_CNN["mlp_hidden"], MAGNET_CNN["mlp_layers"] - 1
+    for label, _, graph in graphs()[:2]:
+        ops = operands("fold", graph, ce, h, c, l1, seed=41, dev=dev)
+        ops_bf = to_bf16(ops)
+        runs = {"f32": runner(fn32, "fold", ops, (ce, h, c)),
+                "bf16": runner_bf16(ops_bf)}
+        err = {"f32": float((runs["f32"]()
+                             - fe.fused_edge_tail_agg_plain(*ops)).abs().max()),
+               "bf16": float((runs["bf16"]()
+                              - fe.fused_edge_tail_agg_bf16_plain(*ops_bf))
+                             .abs().max())}
+        order, times, mean = in_turns(runs, first="f32", then="bf16")
+        flops = 2.0 * graph.n_edge * (ce * h + l1 * h * h + h * c)
+        print(json.dumps({
+            "kernel": "#8", "entry": "fold", "widths": [ce, h, c],
+            "shape": label, "n_node": graph.n_node, "n_edge": graph.n_edge,
+            "l1": l1, "reps": REPS, "order": order, "ms": times,
+            "mean_ms": mean, "tc_bound_ms": 3 * flops / TF32_PEAK * 1e3,
+            "bf16_bound_ms": flops / BF16_PEAK * 1e3,
+            "max_abs_err_vs_plain": err,
+            "device": torch.cuda.get_device_name(0)}), flush=True)
+        del ops, ops_bf, runs
     return 0
 
 

@@ -29,7 +29,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from magnet_tpu_torch.config import (
-    MODELS,
+    model_overrides,
     parse_overrides,
     split_datamodule,
     split_model,
@@ -49,7 +49,7 @@ def main(argv=None) -> dict:
     dm_args, argv = take_prefixed(argv, "datamodule.")
     hp_args, argv = take_prefixed(argv, "model.params.")
     dm = parse_overrides(dm_args, dm)
-    hp = parse_overrides(hp_args, MODELS[name][0])
+    hp = model_overrides(name, hp_args)
     run = parse_overrides(argv, {"n_traj": 16, "batch_size": 16, "seed": 0,
                                  "impl": "kernel", "out": ""})
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -35,7 +35,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from magnet_tpu_torch.config import (
-    MODELS,
+    model_overrides,
     SYNTHETIC_SOURCE,
     parse_overrides,
     split_datamodule,
@@ -54,7 +54,7 @@ def main(argv=None) -> dict:
     name, argv = split_model(list(sys.argv[1:] if argv is None else argv))
     dm, argv = split_datamodule(name, argv)
     hp_args, argv = take_prefixed(argv, "model.params.")
-    hp = parse_overrides(hp_args, MODELS[name][0])
+    hp = model_overrides(name, hp_args)
     run_keys = {"steps": 3, "seed": 0, "impl": "kernel", "out": ""}
     run = parse_overrides(
         [a for a in argv if a.split("=")[0] in run_keys], run_keys)
