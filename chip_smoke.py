@@ -5,14 +5,15 @@
   python3 chip_smoke.py GROUP [GROUP]   only the named groups of phases:
                                         cnn, mpnn_kernels, mpnn_paths, cnn2d,
                                         gnn, gnn2d, fno, no_interaction,
-                                        cnn_bf16
+                                        cnn_bf16, cnn2d_bf16
 
 Builds the port's six CUDA sources from the checkout (all eleven TPU
 kernels: the fused GraphNet edge pipeline's forward and backward, each
 with its fold, pre-gathered and pe entry, the fold entry also at width
-128 and in bf16 at width 64; the fused MPNN message path's forward and
-backward, each with its in-kernel-gather and its pre-gathered entry; the
-segment sum), holds each kernel against its plain PyTorch version at the
+128, the fold and pre-gathered entries also in bf16 at width 64; the
+fused MPNN message path's forward and backward, each with its
+in-kernel-gather and its pre-gathered entry; the segment sum, in f32 and
+bf16), holds each kernel against its plain PyTorch version at the
 shapes of the paths that launch it, and drives every ported path at full width on data made from a
 seed: MAgNet[CNN] 1D through ``magnet_tpu_torch.eval.evaluate`` and
 ``Trainer.fit`` (with a checkpoint read back and a resume), MPNN-2D
@@ -25,7 +26,9 @@ at width 128 and on the pe lane, and FNO-1D, FNO-2D and the MAgNet[CNN]
 no-interaction ablation (no kernel of their own) through the same two
 entry points, each against the CPU path, and MAgNet[CNN] 1D's bf16 lane
 (``graph_dtype=bf16``) through ``evaluate`` and ``Trainer.fit`` on the
-fold entry's bf16 kernels.
+fold entry's bf16 kernels, and MAgNet[CNN] 2D's through the same two
+entry points, its eval on the fold entry's bf16 #8 and its training on
+the pre-gathered entry's bf16 #2/#3 and the bf16 segment sum #1.
 It checks that each path went through its kernels by their launch counts.
 Prints one JSON line per phase (``device``, ``build``, ``kernel``,
 ``slice``, ``kernel_bwd``, ``train``, ``mpnn_kernel``, ``mpnn_kernel_bwd``,
@@ -33,7 +36,9 @@ Prints one JSON line per phase (``device``, ``build``, ``kernel``,
 ``cnn2d_slice``, ``cnn2d_train``, ``gnn_kernel``, ``gnn_kernel_bwd``,
 ``gnn_slice``, ``gnn_train``, ``gnn2d_kernel``, ``gnn2d_slice``,
 ``gnn2d_train``, ``fno_1d``, ``fno_2d``, ``ni_slice``, ``ni_train``,
-``bf16_kernel``, ``bf16_kernel_bwd``, ``bf16_slice``, ``bf16_train``), the
+``bf16_kernel``, ``bf16_kernel_bwd``, ``bf16_slice``, ``bf16_train``,
+``bf16_2d_kernel``, ``bf16_2d_kernel_bwd``, ``bf16_2d_slice``,
+``bf16_2d_train``), the
 card's name and power limit, a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero, and
 with no CUDA device it exits 1 before printing any result.
@@ -170,8 +175,14 @@ BF16_BWD_L2, BF16_BWD_ATOL_REL = 1e-2, 1e-3
 BF16_VS_F32_RTOL = BF16_VS_F32_ATOL = 5e-2
 BF16_VS_F32_GRAD_L2, BF16_VS_F32_DEPTH, BF16_VS_F32_DEEP = 0.08, 1, 1.25
 BF16_LOSS_RTOL = 5e-2
+# MAgNet[CNN] 2D's bf16 lane: the pregathered entry's bf16 build (#2/#3)
+# against its bf16 plain versions at the BF16_* bounds above; the bf16
+# segment sum (#1) elementwise within BF16_SEG_RTOL |want| + SEG_ATOL_REL
+# max|want| (each sum rounded once to bf16 from f32 sums taken in another
+# order: at most the neighbouring bf16 value, 2^-8 relative)
+BF16_SEG_RTOL = 1e-2
 GROUPS = ("cnn", "mpnn_kernels", "mpnn_paths", "cnn2d", "gnn", "gnn2d",
-          "fno", "no_interaction", "cnn_bf16")
+          "fno", "no_interaction", "cnn_bf16", "cnn2d_bf16")
 
 
 def emit(obj) -> None:
@@ -768,26 +779,44 @@ def compare_bf16(got, want) -> dict:
     return out
 
 
+def worst(found) -> float:
+    """The largest max_abs_err anywhere in a nest of results."""
+    if not isinstance(found, dict):
+        return 0.0
+    return max([float(found.get("max_abs_err", 0.0))]
+               + [worst(v) for v in found.values()])
+
+
 def rel_l2(got, want) -> float:
     got, want = got.double(), want.double()
     return float((got - want).norm() / want.norm().clamp_min(1e-30))
 
 
-def tie_receivers_bf16(ops, l1):
+def tie_receivers_bf16(ops, l1, pregathered=False):
     """``tie_receivers`` on the bf16 lane's recompute (the plain version's
     f32 pre-activations, each activation rounded to bf16): the receivers of
     the edges with a pre-activation within 1e-5 of zero relative to its
     layer's RMS, where the kernel's sums in another order may take the
-    other side of 0."""
-    e0, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest = (
-        t.float() if t.is_floating_point() else t for t in ops[:9])
+    other side of 0.  ``ops`` are the fold entry's, or (``pregathered``)
+    the pregathered entry's, whose first pre-activation h0 + pxi[i] is the
+    same f32 sum of two bf16 values in the kernel and the plain version (no
+    product), so only the tail layers' are searched."""
+    if pregathered:
+        h0, pxi, rowptr, w_rest, b_rest = (
+            t.float() if t.is_floating_point() else t for t in ops[:5])
+    else:
+        e0, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest = (
+            t.float() if t.is_floating_point() else t for t in ops[:9])
     n = rowptr.numel() - 1
     deg = (rowptr[1:] - rowptr[:-1]).long()
-    receivers = torch.repeat_interleave(torch.arange(n, device=e0.device), deg)
-    z = e0 @ we + be + (pxj[senders.long()] + pxi[receivers])
+    receivers = torch.repeat_interleave(torch.arange(n, device=pxi.device),
+                                        deg)
+    z = (h0 + pxi[receivers] if pregathered
+         else e0 @ we + be + (pxj[senders.long()] + pxi[receivers]))
     near = torch.zeros(z.shape[0], dtype=torch.bool, device=z.device)
     for k in range(l1 + 1):
-        near |= (z.abs() < 1e-5 * z.pow(2).mean().sqrt()).any(1)
+        if k or not pregathered:
+            near |= (z.abs() < 1e-5 * z.pow(2).mean().sqrt()).any(1)
         if k < l1:
             z = torch.relu(z).bfloat16().float() @ w_rest[k] + b_rest[k]
     return torch.unique(receivers[near])
@@ -795,7 +824,8 @@ def tie_receivers_bf16(ops, l1):
 
 def bf16_ptxas() -> dict:
     """The bf16 library's ptxas lines and each kernel's dynamic shared
-    memory (forward and backward, by L1)."""
+    memory (the fold and pregathered entries' forward and backward, by
+    L1)."""
     import ctypes
 
     from magnet_tpu_torch.ops import cuda_build
@@ -806,7 +836,9 @@ def bf16_ptxas() -> dict:
     smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
     return {"ptxas": ptxas_lines(lib),
             "smem_bytes": {which: {l1: smem(i, l1) for l1 in range(4)}
-                           for i, which in enumerate(("fwd", "bwd"))}}
+                           for i, which in enumerate((
+                               "fwd", "bwd", "pregathered_fwd",
+                               "pregathered_bwd"))}}
 
 
 def cnn_bf16_phases(dev, data, groups) -> tuple[int, list, dict]:
@@ -1148,6 +1180,490 @@ def cnn_bf16_phases(dev, data, groups) -> tuple[int, list, dict]:
     return (0 if train_ok else 27), kernels, {}
 
 
+def pregathered_bf16_bound(kernel: str, graph, h, c, l1) -> dict:
+    """Least time on the card for one call of the bf16 pregathered forward
+    (``"fwd"``) or backward (``"bwd"``): 2·E·(L1·H² + H·C) operations
+    (three times that backward) at the dense bf16 rate, against each input
+    read once and each output written once over the HBM rate: h0, pxi, the
+    weights and (backward) d_h0, d_pxi and the weight gradients at 2 bytes,
+    ln_s, ln_b, out, g and d_ln at 4, rowptr at 4."""
+    n, e = graph.n_node, graph.n_edge
+    flops = 2.0 * e * (l1 * h * h + h * c)
+    weights = l1 * (h * h + h) + h * c + c
+    inputs = 2.0 * (e * h + n * h + weights) + 4.0 * (2 * c + n + 1)
+    if kernel == "fwd":
+        nbytes = inputs + 4.0 * n * c
+    elif kernel == "bwd":
+        flops *= 3.0
+        nbytes = (inputs + 4.0 * n * c + 2.0 * (e * h + n * h + weights)
+                  + 4.0 * 2 * c)
+    else:
+        raise ValueError(kernel)
+    t_ops, t_bytes = flops / BF16_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+    return {"flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def cnn2d_bf16_kernel_phases(dev) -> tuple[int, dict]:
+    """Phases ``bf16_2d_kernel`` and ``bf16_2d_kernel_bwd``: the
+    pregathered entry's bf16 build (#2, #3) and the bf16 segment sum (#1)
+    against their bf16 plain versions at MAgNet[CNN] 2D's training graph
+    (the datamodule's batch of 32), the small line graph and the tile
+    graphs, and the fold entry's bf16 #8 at the 2D eval graph; each timed in
+    turns with its f32 build, with its bf16 bound.  Returns the exit code
+    and each kernel's numbers for the ``kernels`` line."""
+    from magnet_tpu_torch.config import MAGNET_CNN_2D
+    from magnet_tpu_torch.models.factory import create_model
+    from magnet_tpu_torch.ops import cuda_build
+    from magnet_tpu_torch.ops import fused_edge as fe
+    from magnet_tpu_torch.ops import segment as seg
+    from magnet_tpu_torch.time_bwd import runner as bwd_runner
+    from magnet_tpu_torch.time_bwd import runner_pregathered_bf16 as bwd_bf16
+    from magnet_tpu_torch.time_bwd import runner_segment
+    from magnet_tpu_torch.time_fwd import (
+        bind,
+        in_turns,
+        runner,
+        runner_bf16,
+        runner_pregathered_bf16,
+        to_bf16,
+    )
+    from magnet_tpu_torch.utils import make_coord_np
+
+    hp = dict(MAGNET_CNN_2D)
+    h, c = hp["mlp_hidden"], hp["latent_dim"]
+    l1 = hp["mlp_layers"] - 1
+    model = create_model("magnet_cnn_2d", {**hp, "graph_dtype": "bf16"},
+                         device=dev, seed=0)
+    graph = cnn2d_graph(model, CNN2D_KERNEL_BATCH, seed=7)
+    mesh = make_coord_np([64, 64])
+    egraph = model.build_graph(
+        {"coords": torch.from_numpy(np.broadcast_to(mesh, (4, *mesh.shape))
+                                    .copy()),
+         "lr_frames": torch.zeros(1, 1, 1, 32, 32)})
+    small = small_line_graph()
+    tiles = tile_edges_graph(fe.FWD_TILE, seed=45)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bwd_tiles, tiles_info = bwd_tile_edges(sms, seed=46)
+    build = bf16_ptxas()
+    fn32 = bind(cuda_build.build(fe.FWD), fe.FWD)
+    fn32_bwd = bind(cuda_build.build(fe.BWD), fe.BWD)
+
+    def as_f32_entry(ops, gr):
+        """The f32 C entry's 13 operands of pregathered operands: pxj and
+        senders are not read by the pregathered entry."""
+        h0, pxi, rowptr, *tail = ops
+        return (h0, None, None, pxi, pxi, gr.senders.to(dev), rowptr, *tail)
+
+    # bf16_2d_kernel: #2 bf16 vs its plain version at the training graph,
+    # the small graph (degree-0 receiver, L1 = 1) and the forward's tile
+    # graph; bit-equal launches; the receiver means against the f32 kernel
+    # on the unrounded operands; then #8 bf16 at the 2D eval graph
+    t_phase = time.perf_counter()
+    fwd, ops = {}, {}
+    for label, gr, l1c, seed in (("train_shape", graph, l1, 47),
+                                 ("small_case", small, 1, 48),
+                                 ("tile_edges", tiles, l1, 49)):
+        ops[label] = pregathered_operands(gr, h, c, l1c, seed, dev)
+        ops_bf = to_bf16(ops[label])
+        got = fe.fused_edge_tail_agg_pregathered_bf16(*ops_bf)
+        torch.cuda.synchronize()
+        res = compare_bf16(
+            got, fe.fused_edge_tail_agg_pregathered_bf16_plain(*ops_bf))
+        deg = gr.degree.to(dev).clamp_min(1.0)[:, None]
+        got32 = fe.fused_edge_tail_agg_pregathered(*ops[label])
+        res["vs_f32_kernel"] = compare(got / deg, got32 / deg,
+                                       BF16_VS_F32_RTOL, BF16_VS_F32_ATOL)
+        res["vs_f32_kernel"]["sums_max_abs_err"] = float(
+            (got - got32).abs().max())
+        zero = gr.degree.to(dev) == 0
+        res.update(n_edge=gr.n_edge, l1=l1c, max_degree=int(gr.degree.max()),
+                   n_degree0=int(zero.sum()),
+                   degree0_rows_zero=bool((got[zero] == 0).all()))
+        fwd[label] = res
+    ops_bf = to_bf16(ops["train_shape"])
+    bits_equal = torch.equal(fe.fused_edge_tail_agg_pregathered_bf16(*ops_bf),
+                             fe.fused_edge_tail_agg_pregathered_bf16(*ops_bf))
+    order, times, mean = in_turns(
+        {"f32": runner(fn32, "pregathered",
+                       as_f32_entry(ops["train_shape"], graph), (h, h, c)),
+         "bf16": runner_pregathered_bf16(ops_bf)}, first="f32", then="bf16")
+    pre_timing = {"order": order, "ms": times, "mean_ms": mean,
+                  "plain_ms": cuda_ms(
+                      lambda: fe.fused_edge_tail_agg_pregathered_bf16_plain(
+                          *ops_bf), reps=20),
+                  **pregathered_bf16_bound("fwd", graph, h, c, l1)}
+    # #8 bf16 at the 2D eval graph (the bf16 eval's launches)
+    ops_e = kernel_operands(egraph, c, h, c, l1, 50, dev)
+    ops_e_bf = to_bf16(ops_e)
+    got = fe.fused_edge_tail_agg_bf16(*ops_e_bf)
+    torch.cuda.synchronize()
+    fold_2d = compare_bf16(got, fe.fused_edge_tail_agg_bf16_plain(*ops_e_bf))
+    fold_2d["bits_equal_run_to_run"] = torch.equal(
+        got, fe.fused_edge_tail_agg_bf16(*ops_e_bf))
+    order, times, mean = in_turns(
+        {"f32": runner(fn32, "fold", ops_e, (c, h, c)),
+         "bf16": runner_bf16(ops_e_bf)}, first="f32", then="bf16")
+    fold_2d.update(n_edge=egraph.n_edge, lane=egraph.lane, order=order,
+                   ms=times, mean_ms=mean,
+                   plain_ms=cuda_ms(lambda: fe.fused_edge_tail_agg_bf16_plain(
+                       *ops_e_bf), reps=5),
+                   **bf16_bound("fwd", egraph, c, h, c, l1))
+    del ops_e, ops_e_bf, got
+    fwd_ok = (graph.lane == "pregathered" and egraph.lane == "fold"
+              and bits_equal and fold_2d["ok"]
+              and fold_2d["bits_equal_run_to_run"]
+              and all(r["ok"] and r["vs_f32_kernel"]["ok"]
+                      and r["degree0_rows_zero"] for r in fwd.values()))
+    emit({"phase": "bf16_2d_kernel", "h": h, "c": c, "l1": l1,
+          "train_graph": {"n_node": graph.n_node, "n_edge": graph.n_edge,
+                          "lane": graph.lane},
+          "tolerance": {"vs_plain": {"rtol": BF16_RTOL, "atol": BF16_ATOL,
+                                     "max_rel_l2": BF16_L2},
+                        "vs_f32_kernel_receiver_means": {
+                            "rtol": BF16_VS_F32_RTOL,
+                            "atol": BF16_VS_F32_ATOL}},
+          **fwd, "bits_equal_run_to_run": bits_equal,
+          "timing": pre_timing, "library_ms": None,
+          "fold_bf16_at_2d_eval_shape": fold_2d, **build,
+          "seconds": time.perf_counter() - t_phase, "ok": fwd_ok})
+    if not fwd_ok:
+        return 28, {}
+
+    # bf16_2d_kernel_bwd: #3 bf16 vs its plain version (every gradient, in
+    # its operand's dtype) at the training graph (g zero on the receivers
+    # of relu ties, counted), the small graph and the backward's tile graph;
+    # then #1 bf16 over the training graph's sender CSR on #3's d_h0
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(51)
+    names = fe.GRAD_NAMES_PREGATHERED
+    bwd, train_g, d_h0 = {}, None, None
+    for label, gr, ops32 in (
+            ("train_shape", graph, ops["train_shape"]),
+            ("small_case", small, ops["small_case"]),
+            ("tile_edges", bwd_tiles,
+             pregathered_operands(bwd_tiles, h, c, l1, 52, dev))):
+        ops_bf = to_bf16(ops32)
+        g = torch.randn(gr.n_node, c, generator=gen).to(dev)
+        res = {}
+        if label == "train_shape":
+            ties = tie_receivers_bf16(ops_bf, l1, pregathered=True)
+            g[ties] = 0.0
+            res["tie_receivers_zeroed"] = int(ties.numel())
+            train_g = g
+        got = fe.fused_edge_tail_agg_pregathered_bf16_bwd(*ops_bf, g)
+        torch.cuda.synchronize()
+        want = fe.fused_edge_tail_agg_pregathered_bf16_bwd_plain(*ops_bf, g)
+        for name, a, b in zip(names, got, want):
+            res[name] = compare_grad(a, b, elementwise=False, rtol=BF16_RTOL,
+                                     atol_rel=BF16_BWD_ATOL_REL,
+                                     max_l2=BF16_BWD_L2)
+        res["dtypes_ok"] = ([a.dtype for a in got]
+                            == [t.dtype for t in ops_bf
+                                if t.is_floating_point()])
+        zero = gr.degree.to(dev) == 0
+        res["degree0_rows_zero"] = bool((got[1][zero] == 0).all())
+        res["n_edge"] = gr.n_edge
+        if label == "train_shape":
+            res["bits_equal_run_to_run"] = bits_equal_bwd(
+                fe.fused_edge_tail_agg_pregathered_bf16_bwd, ops_bf, g, names)
+            d_h0 = got[0]
+        bwd[label] = res
+    bwd["tile_edges"]["graph"] = tiles_info
+    ops_bf = to_bf16(ops["train_shape"])
+    order, times, mean = in_turns(
+        {"f32": bwd_runner(fn32_bwd, "pregathered",
+                           as_f32_entry(ops["train_shape"], graph), train_g,
+                           (h, h, c)),
+         "bf16": bwd_bf16(ops_bf, train_g)}, first="f32", then="bf16")
+    bwd_timing = {"order": order, "ms": times, "mean_ms": mean,
+                  "plain_ms": cuda_ms(
+                      lambda: fe.fused_edge_tail_agg_pregathered_bf16_bwd_plain(
+                          *ops_bf, train_g), reps=10),
+                  **pregathered_bf16_bound("bwd", graph, h, c, l1)}
+    bwd_ok = all(
+        all(v["ok"] for v in r.values() if isinstance(v, dict) and "ok" in v)
+        and r["dtypes_ok"] and r["degree0_rows_zero"] for r in bwd.values())
+    bwd_ok = bwd_ok and bwd["train_shape"]["bits_equal_run_to_run"]["ok"]
+
+    # #1 bf16: the sender gather's backward at the training graph
+    ptr, perm = graph.snd_ptr.to(dev), graph.snd_perm.to(dev)
+    senders = graph.senders.to(dev).long()
+    got_s = seg.segment_sum(d_h0, ptr, perm)
+    again = seg.segment_sum(d_h0, ptr, perm)
+    torch.cuda.synchronize()
+    want_s = seg.segment_sum_plain(d_h0, ptr, perm)
+
+    def library():
+        """The library's sum: f32 index_add_, then rounded (two calls)."""
+        return torch.zeros(graph.n_node, h, device=dev).index_add_(
+            0, senders, d_h0.float()).bfloat16()
+
+    lib_s = library()
+    out_deg = torch.bincount(senders, minlength=graph.n_node)
+    tol = (BF16_SEG_RTOL * want_s.double().abs()
+           + SEG_ATOL_REL * float(want_s.float().abs().max()))
+    err = (got_s.double() - want_s.double()).abs()
+    seg_cmp = {"vs_plain": {"max_abs_err": float(err.max()),
+                            "n_differing": int((got_s != want_s).sum()),
+                            "ok": bool((err <= tol).all())},
+               "vs_index_add": {
+                   "max_abs_err": float((got_s.double() - lib_s.double())
+                                        .abs().max()),
+                   "ok": bool(((got_s.double() - lib_s.double()).abs()
+                               <= tol).all())},
+               "dtype": str(got_s.dtype),
+               "equal_bits_run_to_run": bool(torch.equal(got_s, again)),
+               "degree0_row_zero": bool((got_s[out_deg == 0] == 0).all()),
+               "tolerance": {"rtol": BF16_SEG_RTOL,
+                             "atol_rel_to_max": SEG_ATOL_REL}}
+    order, times, mean = in_turns(
+        {"f32": runner_segment(d_h0.float(), ptr, perm),
+         "bf16": runner_segment(d_h0, ptr, perm)}, first="f32", then="bf16")
+    seg_timing = {"order": order, "ms": times, "mean_ms": mean,
+                  "plain_ms": cuda_ms(
+                      lambda: seg.segment_sum_plain(d_h0, ptr, perm), reps=20),
+                  "library_ms": cuda_ms(library, reps=50),
+                  "library": "index_add_ in f32, then .bfloat16() (two calls)",
+                  **segment_bound(graph, h, size=2.0)}
+    seg_ok = (seg_cmp["vs_plain"]["ok"] and seg_cmp["vs_index_add"]["ok"]
+              and seg_cmp["equal_bits_run_to_run"]
+              and seg_cmp["degree0_row_zero"]
+              and got_s.dtype == torch.bfloat16)
+    emit({"phase": "bf16_2d_kernel_bwd", "l1": l1,
+          "tolerance": {"vs_plain": {"max_rel_l2": BF16_BWD_L2,
+                                     "counted_outside": {
+                                         "rtol": BF16_RTOL,
+                                         "atol_rel_to_max": BF16_BWD_ATOL_REL}}},
+          **bwd, "timing": bwd_timing, "library_ms": None,
+          "segment_sum_bf16": {**seg_cmp, "timing": seg_timing,
+                               "ok": seg_ok},
+          "seconds": time.perf_counter() - t_phase,
+          "ok": bwd_ok and seg_ok})
+    if not (bwd_ok and seg_ok):
+        return 29, {}
+
+    return 0, {"fwd": {"timing": pre_timing, "max_abs_err": worst(fwd)},
+               "bwd": {"timing": bwd_timing, "max_abs_err": worst(bwd)},
+               "seg": {"timing": seg_timing,
+                       "max_abs_err": seg_cmp["vs_plain"]["max_abs_err"]},
+               "fold_2d": fold_2d}
+
+
+def cnn2d_bf16_phases(dev, data, groups) -> tuple[int, list, dict]:
+    """Phases ``bf16_2d_kernel``, ``bf16_2d_kernel_bwd``, ``bf16_2d_slice``
+    and ``bf16_2d_train``: MAgNet[CNN] 2D's bf16 lane
+    (``graph_dtype=bf16``), its kernels (``cnn2d_bf16_kernel_phases``),
+    ``evaluate`` on the ``cnn2d`` group's eval batch (the fold lane's bf16
+    #8) and ``Trainer.fit`` at its training shape (the pregathered lane's
+    bf16 #2, #3 and #1), each on bf16 kernels alone.  Returns the exit
+    code, the three new kernels' entries and the bf16 #8's launches and
+    times at the 2D graphs."""
+    from magnet_tpu_torch.config import DATAMODULE_IMPLICIT_2D, MAGNET_CNN_2D
+    from magnet_tpu_torch.data.loader import DataLoader
+    from magnet_tpu_torch.eval import evaluate
+    from magnet_tpu_torch.models.factory import create_model
+    from magnet_tpu_torch.train.trainer import Trainer
+    from magnet_tpu_torch.utils import to_device
+
+    rc, kern = cnn2d_bf16_kernel_phases(dev)
+    if rc:
+        return rc, [], {}
+    hp = dict(MAGNET_CNN_2D)
+    hp_bf = {**hp, "graph_dtype": "bf16"}
+    mp, ts = hp["num_message_passing_steps"], hp["time_slice"]
+
+    def fresh(params=hp_bf):
+        return create_model("magnet_cnn_2d", params, device=dev, seed=0)
+
+    # bf16_2d_slice: evaluate() on the cnn2d group's eval batch (4 at 64²),
+    # on the bf16 #8 alone; its eval loss against the f32 lane's
+    t_phase = time.perf_counter()
+    loaders = data["cnn2d_loaders"]
+    batches = list(DataLoader(loaders["test"].dataset, 4, shuffle=False,
+                              drop_last=False))
+    nt = DATAMODULE_IMPLICIT_2D["nt_test"]
+    n_win = (nt - ts) // ts
+    per_batch = n_win * mp
+    model = fresh()
+    reset_every_launch()
+    t0 = time.perf_counter()
+    metrics, preds = evaluate(model, batches, dev, return_predictions=True)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    eval_counts = every_launch()
+    torch.cuda.reset_peak_memory_stats()
+    steady_s = timed(lambda: evaluate(model, batches, dev))
+    peak = torch.cuda.max_memory_allocated()
+    model32 = fresh(hp)
+    metrics32 = evaluate(model32, batches, dev)
+    steady32_s = timed(lambda: evaluate(model32, batches, dev))
+    del model32
+    loss_rel = (abs(metrics["test_loss"] - metrics32["test_loss"])
+                / abs(metrics32["test_loss"]))
+    want_launches = per_batch * len(batches)
+    launches_ok = (eval_counts["fused_edge_bf16_fwd"] == want_launches
+                   and not any(v for k, v in eval_counts.items()
+                               if k != "fused_edge_bf16_fwd"))
+    finite = (all(bool(torch.isfinite(p).all()) for p in preds)
+              and all(np.isfinite(v) for v in metrics.values()))
+    shape_ok = all(tuple(p.shape) == (b["hr_points"].shape[0], n_win * ts,
+                                      64 * 64, 1)
+                   for p, b in zip(preds, batches))
+    del preds
+    slice_ok = (launches_ok and finite and shape_ok
+                and loss_rel <= BF16_LOSS_RTOL)
+    emit({"phase": "bf16_2d_slice", "graph_dtype": "bf16",
+          "batches": len(batches), "batch_size": 4, "nt": nt, "res": 64,
+          "metrics": metrics, "metrics_f32": metrics32,
+          "loss_rel_err_vs_f32": loss_rel, "loss_rtol_vs_f32": BF16_LOSS_RTOL,
+          "launches": eval_counts, "expected_bf16_launches": want_launches,
+          "launches_per_batch": per_batch, "finite": finite,
+          "shape_ok": shape_ok,
+          "seconds_per_batch_first": first_s / len(batches),
+          "seconds_per_batch": steady_s / len(batches),
+          "seconds_per_batch_f32": steady32_s / len(batches),
+          "peak_mem_bytes": peak,
+          "seconds": time.perf_counter() - t_phase, "ok": slice_ok})
+    if not slice_ok:
+        return 30, [], {}
+
+    # bf16_2d_train: Trainer.fit at the cnn2d group's training shape (batch
+    # 8) on the bf16 kernels alone: the pregathered lane's #2, #3 and #1 a
+    # step and the fold lane's #8 a validation batch; falling loss, finite
+    # gradients, checkpoint and resume; one step against the plain versions
+    # of the same lane; seconds a step beside the f32 lane's
+    t_phase = time.perf_counter()
+    loaders["train"].set_epoch(0)
+    batch0 = to_device(next(iter(loaders["train"])), dev)
+
+    def loss_and_grads(m, gr, impl):
+        m.impl = impl
+        m.zero_grad(set_to_none=True)
+        loss, _ = m.loss(batch0, gr, train=True)
+        loss.backward()
+        m.impl = "kernel"
+        return loss.item(), {k: p.grad.clone()
+                             for k, p in m.named_parameters()}
+
+    tmodel = fresh()
+    tgraph = tmodel.build_graph(batch0)
+    loss_k, grads_k = loss_and_grads(tmodel, tgraph, "kernel")
+    loss_p, grads_p = loss_and_grads(tmodel, tgraph, "plain")
+    del tmodel
+    # the JAX step's bf16 pe = s·pe + (1 − s)·b_e: where 1 − s rounds to −s
+    # in bf16 (s = 2^9), b_e's two paths cancel exactly and its gradient is
+    # zero in both packages; every other gradient is nonzero
+    frozen = {f"_processor.gnn_stacks.{k}.edge_fn.0.layers.0.bias"
+              for k in range(mp)
+              if float(torch.tensor(1.0 - 2.0 ** k, dtype=torch.bfloat16))
+              == -2.0 ** k}
+    zero = {k for k, v in grads_k.items() if not v.abs().max() > 0}
+    grads_ok = (all(bool(torch.isfinite(v).all()) for v in grads_k.values())
+                and zero == frozen)
+    grad_l2 = {k: rel_l2(grads_k[k], grads_p[k]) for k in grads_p}
+    worst_g = max(grad_l2, key=grad_l2.get)
+    step_vs_plain = {"loss_kernel": loss_k, "loss_plain": loss_p,
+                     "loss_rel_err": abs(loss_k - loss_p) / abs(loss_p),
+                     "worst_grad_rel_l2": grad_l2[worst_g],
+                     "worst_grad": worst_g}
+    del grads_k, grads_p
+    step_losses = []
+
+    def record_steps(trainer):
+        inner = trainer.train_step
+
+        def recording_step(batch):
+            m = inner(batch)
+            step_losses.append(float(m["loss"]))
+            return m
+
+        trainer.train_step = recording_step
+
+    n_epochs, steps = 2, len(loaders["train"])
+    val_batches = len(loaders["val"])
+    fit, resumed = fit_checkpoint_resume(
+        fresh, hp, loaders, dev, n_epochs, reset_every_launch, every_launch,
+        prepare=record_steps)
+    counts = fit.pop("launches")
+    nt_train = DATAMODULE_IMPLICIT_2D["nt_train"]
+    per_step = ((nt_train - ts) // ts) * mp
+    want_step = per_step * steps * n_epochs
+    want = {"fused_edge_pregathered_bf16_fwd": want_step,
+            "fused_edge_pregathered_bf16_bwd": want_step,
+            "segment_sum_bf16": want_step,
+            "fused_edge_bf16_fwd": per_batch * val_batches * n_epochs}
+    launches_ok = all(counts[k] == v for k, v in want.items()) and not any(
+        v for k, v in counts.items() if k not in want)
+    host_batches = list(loaders["train"])
+    step_s = timed(lambda: [resumed.train_step(b)
+                            for b in host_batches]) / steps
+    with tempfile.TemporaryDirectory() as workdir:
+        trainer32 = Trainer(fresh(hp), max_epochs=1, lr=hp["lr"],
+                            weight_decay=hp["weight_decay"],
+                            factor=hp["factor"], step_size=hp["step_size"],
+                            device=dev, workdir=workdir)
+        trainer32.setup(steps)
+        trainer32.train_step(host_batches[0])
+        step32_s = timed(lambda: [trainer32.train_step(b)
+                                  for b in host_batches]) / steps
+        del trainer32
+    losses_finite = (all(np.isfinite(v) for v in step_losses)
+                     and fit["losses_finite"])
+    loss_falls = falls(fit["epoch_train_losses"])
+    train_ok = (tgraph.lane == "pregathered" and launches_ok
+                and losses_finite and grads_ok and loss_falls
+                and step_vs_plain["loss_rel_err"] <= 1e-3
+                and fit["checkpoint_ok"] and fit["resume_ok"])
+    emit({"phase": "bf16_2d_train", "graph_dtype": "bf16",
+          "batch_size": CNN2D_BATCH, "val_batches_per_epoch": val_batches,
+          "train_graph": {"n_node": tgraph.n_node, "n_edge": tgraph.n_edge,
+                          "lane": tgraph.lane},
+          "launches": counts, "expected_launches": want,
+          "launches_per_train_step": per_step, "step_losses": step_losses,
+          **fit, "loss_falls": loss_falls, "grads_finite_nonzero": grads_ok,
+          "zero_grads": sorted(zero), "zero_grads_expected": sorted(frozen),
+          "step_vs_plain": step_vs_plain,
+          "seconds_per_step": step_s, "seconds_per_step_f32": step32_s,
+          "seconds": time.perf_counter() - t_phase, "ok": train_ok})
+
+    def row(name, part, replaces, launches):
+        t = kern[part]["timing"]
+        return {"name": name, "route": "cuda",
+                "source": "magnet_tpu_torch/csrc/" + (
+                    "segment_sum.cu" if part == "seg"
+                    else "fused_edge_tail_agg_bf16.cu"),
+                "replaces": f"magnet_tpu/ops/pallas_kernels.py:{replaces}",
+                "launches": launches,
+                "max_abs_err": kern[part]["max_abs_err"],
+                "ms": t["mean_ms"]["bf16"],
+                "ms_f32_build_in_turns": t["mean_ms"]["f32"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"],
+                "library_ms": t.get("library_ms"),
+                "share_of_bound": t["bound_ms"] / t["mean_ms"]["bf16"],
+                "share_against": "bound_ms (bf16, 989 TFLOP/s; 3.35 TB/s)",
+                "ok": train_ok}
+
+    kernels = [
+        row("fused_edge_tail_agg_pregathered_bf16", "fwd", 278,
+            counts["fused_edge_pregathered_bf16_fwd"]),
+        row("fused_edge_tail_agg_pregathered_bf16_bwd", "bwd", 376,
+            counts["fused_edge_pregathered_bf16_bwd"]),
+        {**row("segment_sum_bf16", "seg", 79, counts["segment_sum_bf16"]),
+         "library": kern["seg"]["timing"]["library"]}]
+    fold_2d = kern["fold_2d"]
+    return ((0 if train_ok else 31), kernels,
+            {"fused_edge_tail_agg_bf16": {
+                "launches_cnn2d_bf16": eval_counts["fused_edge_bf16_fwd"]
+                + counts["fused_edge_bf16_fwd"],
+                "max_abs_err_2d_eval_shape": fold_2d["max_abs_err"],
+                "ms_2d_eval_shape": fold_2d["mean_ms"]["bf16"],
+                "ms_f32_build_2d_eval_shape": fold_2d["mean_ms"]["f32"],
+                "plain_ms_2d_eval_shape": fold_2d["plain_ms"],
+                "bound_ms_2d_eval_shape": fold_2d["bound_ms"]}})
+
+
 def mpnn_operands(graph, h, seed, dev):
     """(pxj, pr, w, b) for a graph: node tables of order 0.5, a weight of
     order 1/sqrt(H), so that both pre-activations are of order 1."""
@@ -1405,13 +1921,6 @@ def mpnn_phases(dev, data, groups) -> tuple[int, list, dict]:
                                    "fused function", "ok": bwd_ok})
         if not bwd_ok:
             return 7, [], {}
-
-        def worst(found):
-            """The largest max_abs_err anywhere in a nest of results."""
-            if not isinstance(found, dict):
-                return 0.0
-            return max([float(found.get("max_abs_err", 0.0))]
-                       + [worst(v) for v in found.values()])
 
         for name, entry, kern, line, tt, errs in (
                 ("fused_mpnn_edge_agg2r", "gather", "fwd", 2364, times, fwd),
@@ -1697,13 +2206,14 @@ def pregathered_bound(kernel: str, graph, h, c, l1, pe=False) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def segment_bound(graph, h) -> dict:
+def segment_bound(graph, h, size=4.0) -> dict:
     """Least time for one segment sum over the sender CSR: the (E, H) rows,
-    perm and ptr read once and the (N, H) sums written once, against one
-    add per element."""
+    perm and ptr read once and the (N, H) sums written once (rows and sums
+    of ``size`` bytes an element: 4 f32, 2 bf16), against one add per
+    element."""
     n, e = graph.n_node, graph.n_edge
     flops = 1.0 * e * h
-    nbytes = 4.0 * (e * h + e + (n + 1) + n * h)
+    nbytes = size * (e * h + n * h) + 4.0 * (e + (n + 1))
     t_ops, t_bytes = flops / F32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
     return {"flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
@@ -2056,13 +2566,6 @@ def cnn2d_phases(dev, data, groups) -> tuple[int, list, dict]:
           "seconds_host_graph_per_step": graph_s,
           "seconds_per_step": step_s, "seconds_per_step_plain": step_plain_s,
           "ok": train_ok})
-
-    def worst(found):
-        """The largest max_abs_err anywhere in a nest of results."""
-        if not isinstance(found, dict):
-            return 0.0
-        return max([float(found.get("max_abs_err", 0.0))]
-                   + [worst(v) for v in found.values()])
 
     kernels = [{
         "name": "fused_edge_tail_agg_pregathered", "route": "cuda",
@@ -2542,12 +3045,6 @@ def gnn_phases(dev, data, groups) -> tuple[int, list, dict]:
           "seconds_per_step": step_s, "seconds_per_step_plain": step_plain_s,
           "ok": train_ok})
 
-    def worst(found):
-        if not isinstance(found, dict):
-            return 0.0
-        return max([float(found.get("max_abs_err", 0.0))]
-                   + [worst(v) for v in found.values()])
-
     ev, ev_pe = fwd["fold"]["eval_all"], fwd["pe"]["eval_all"]
     fold_launches = (slice_counts["kernel"]["fused_edge_fold128_fwd"]
                      + fit_counts["fused_edge_fold128_fwd"])
@@ -2897,7 +3394,7 @@ def reset_every_launch() -> None:
 
     fe.reset_launches()
     me.reset_launches()
-    seg.launches = 0
+    seg.launches = seg.launches_bf16 = 0
 
 
 def every_launch() -> dict:
@@ -2906,7 +3403,8 @@ def every_launch() -> dict:
     from magnet_tpu_torch.ops import mpnn_edge as me
     from magnet_tpu_torch.ops import segment as seg
 
-    return {**fe.launch_counts(), **me.launches, "segment_sum": seg.launches}
+    return {**fe.launch_counts(), **me.launches, "segment_sum": seg.launches,
+            "segment_sum_bf16": seg.launches_bf16}
 
 
 def fno_phases(dev, data, groups) -> tuple[int, list, dict]:
@@ -3205,11 +3703,11 @@ def make_data(groups) -> dict:
         jobs = {}
         if {"cnn", "gnn", "no_interaction", "cnn_bf16"} & groups:
             jobs["ks"] = splits(ks_cfg)
-        if {"mpnn_paths", "cnn2d"} & groups:
+        if {"mpnn_paths", "cnn2d", "cnn2d_bf16"} & groups:
             jobs["b2d"] = {split: pool.submit(
                 make_split, "B2D", MPNN_2D_DATA[f"n_{split}"], nt, res, seed=i)
                 for i, split in enumerate(SPLITS)}
-        if "cnn2d" in groups:
+        if {"cnn2d", "cnn2d_bf16"} & groups:
             jobs["b2d_extra"] = pool.submit(make_split, "B2D",
                                             CNN2D_EXTRA_TRAIN, nt, res, seed=3)
         if "mpnn_paths" in groups:
@@ -3247,7 +3745,7 @@ def make_data(groups) -> dict:
                 {**DATAMODULE_GRAPH_2D, **MPNN_2D_DATA, "source": "h5",
                  **paths}, seed=0, shuffle_eval=False)
             data["b2d_seconds"] = time.perf_counter() - t0
-        if "cnn2d" in groups:
+        if "b2d_extra" in jobs:
             extra = jobs["b2d_extra"].result()
             train = paths["train_path"]
             data["cnn2d_loaders"] = build_loaders(
@@ -3347,7 +3845,8 @@ def main(argv) -> int:
                                 (("gnn2d",), gnn2d_phases),
                                 (("fno",), fno_phases),
                                 (("no_interaction",), no_interaction_phases),
-                                (("cnn_bf16",), cnn_bf16_phases)):
+                                (("cnn_bf16",), cnn_bf16_phases),
+                                (("cnn2d_bf16",), cnn2d_bf16_phases)):
         if set(group_names) & set(groups):
             rc, entries, more = phases(dev, data, groups)
             kernels += entries

@@ -1,17 +1,22 @@
-// Fused InteractionNetwork edge pipeline, fold entry, bf16 operands:
-// forward and backward at (Ce, H, C) = (32, 64, 32), L1 in 0..3.
+// Fused InteractionNetwork edge pipeline, bf16 operands, in two entries:
+// fold at (Ce, H, C) = (32, 64, 32) and pre-gathered at (H, C) = (64, 32),
+// forward and backward, L1 in 0..3.
 //
-// Replaces the TPU kernels magnet_tpu/ops/pallas_kernels.py:
-// _fused2r_fwd_pallas (#8) and _fused2r_bwd_pallas (#9, with
-// dpxj_in_kernel=True) as the fold-e public entry fused_edge_tail_agg2rf
-// calls them on bf16 operands: the JAX models' graph_dtype=bf16, whose
-// GraphNet stage rounds its inputs and weights to bf16 (e0, W_e with the
-// edge scale folded in, b_e, pxj, pxi, W_k, b_k, W_out, b_out; ln_s and
-// ln_b stay f32).  The arithmetic is the TPU kernel's, rounding where it
-// rounds:
+// Replaces the TPU kernels of magnet_tpu/ops/pallas_kernels.py on bf16
+// operands (the JAX models' graph_dtype=bf16, whose GraphNet stage rounds
+// its inputs and weights to bf16; ln_s and ln_b stay f32):
+//   * fold: _fused2r_fwd_pallas (#8) and _fused2r_bwd_pallas (#9, with
+//     dpxj_in_kernel=True) as the fold-e public entry fused_edge_tail_agg2rf
+//     calls them (operands e0, W_e with the edge scale folded in, b_e, pxj,
+//     pxi, W_k, b_k, W_out, b_out);
+//   * pregathered: _fused_fwd_pallas (#2) and _fused_bwd_pallas (#3), the
+//     public entry fused_edge_tail_agg (operands h0, the first layer's input
+//     gathered per edge by the caller, pxi, W_k, b_k, W_out, b_out).
+// The arithmetic is the TPU kernels', rounding where they round:
 //
 //   forward, for every edge j -> i of a receiver-grouped CSR graph
-//     z    = f32(e0[e] . W_e) + b_e + pxj[j] + pxi[i]      (f32)
+//     z    = f32(e0[e] . W_e) + b_e + pxj[j] + pxi[i]      (fold, f32)
+//     z    = h0[e] + pxi[i]                                (pregathered, f32)
 //     h_0  = bf16(relu(z));  h_k = bf16(relu(f32(h_{k-1} . W_k) + b_k))
 //     y    = f32(h_L1 . W_out) + b_out;  y = LayerNorm(y)  (f32, two-pass)
 //     out[i] = sum over the edges of i of bf16(y), in f32     (N, C) f32
@@ -21,18 +26,21 @@
 //     da_L1 = (bf16(dy) . W_out^T) [h_L1 > 0];
 //     dW_k = h_{k-1}^T . bf16(da_k), db_k = sum da_k,
 //     da_{k-1} = (bf16(da_k) . W_k^T) [h_{k-1} > 0];   dz = da_0;
-//     d_e0 = bf16(bf16(dz) . W_e^T) (E, Ce) bf16;
-//     dW_e = e0^T . bf16(dz), db_e = sum dz;
-//     d_pxi[i] += bf16(dz), d_pxj[j] += bf16(dz)   (f32 sums);
+//     fold: d_e0 = bf16(bf16(dz) . W_e^T) (E, Ce) bf16;
+//           dW_e = e0^T . bf16(dz), db_e = sum dz;  d_pxj[j] += bf16(dz);
+//     pregathered: d_h0 = bf16(dz) (E, H) bf16;
+//     d_pxi[i] += bf16(dz) (f32 sums);
 //     d_ln_s = sum bf16(g) xhat, d_ln_b = sum bf16(g);
 // every product on bf16 operands with f32 accumulation, every weight
 // gradient summed in f32; the caller casts each gradient to its operand's
-// dtype, as the JAX VJP does.  The plain versions are
-// magnet_tpu_torch/ops/fused_edge.py:fused_edge_tail_agg_bf16_plain and
-// fused_edge_tail_agg_bf16_bwd_plain.
+// dtype, as the JAX VJPs do.  The plain versions are
+// magnet_tpu_torch/ops/fused_edge.py:fused_edge_tail_agg_bf16_plain /
+// _bwd_plain (fold) and fused_edge_tail_agg_pregathered_bf16_plain /
+// _bwd_plain.
 //
 // Design: the f32 builds' walk (csrc/fused_edge_tail_agg.cu and
-// fused_edge_tail_agg_bwd.cu, namespace w64), with bf16 products:
+// fused_edge_tail_agg_bwd.cu, namespace w64), with bf16 products; one
+// template per kernel holds both entries (PRE: pregathered):
 //   * persistent blocks walk consecutive tiles of TE = 64 CSR edges
 //     (tile128::block_tiles); warps 0 and 1 find the next tile's receivers
 //     and senders from the last receiver of this one (tile_indices); the
@@ -62,15 +70,25 @@
 //     same from run to run; d_pxj and d_pxi are f32 atomics (one per
 //     element for d_pxj, one per run of equal receivers in an eighth of a
 //     tile for d_pxi), whose last f32 bits vary before the caller's
-//     rounding to bf16.
-// Forward: 256 threads, 63,104 bytes of shared memory at L1 = 3, two
-// blocks an SM.  Backward: 512 threads, 172,288 bytes at L1 = 3, one block
-// an SM.  fused_edge_tail_agg_bf16_smem reports both for each L1.
+//     rounding to bf16;
+//   * pregathered: h_0 is formed elementwise from the tile's h0 rows and
+//     its receivers' pxi rows (16-byte loads), in place of the fold's
+//     first product; there is no W_e, e0, pxj or sender, and the backward
+//     writes d_h0 = bf16(dz) per edge with plain stores (its d_pxi as the
+//     fold's).
+// Forward: 256 threads, 63,104 bytes of shared memory at L1 = 3 (both
+// entries: the pre-gathered one leaves the fold's W_e and e0 tiles
+// unused), two blocks an SM.  Backward: 512 threads, 172,288 bytes at L1
+// = 3 (fold) and 152,064 (pregathered), one block an SM.
+// fused_edge_tail_agg_bf16_smem reports each for each L1.
 // What bounds it on an H100: Ce H + L1 H^2 + H C = 16,384 multiply-adds an
-// edge at L1 = 3 in the forward, three times that in the backward; at
+// edge at L1 = 3 in the fold forward, three times that in the backward; at
 // MAgNet[CNN] 1D's eval graph (186,624 edges) 6.1 GFLOP, 0.0062 ms at the
 // dense bf16 rate of 989 TFLOP/s, against 11.9 MB of e0 (0.0036 ms at 3.35
-// TB/s): bound by operations.  mma.sync and not wgmma, as in the f32
+// TB/s): bound by operations.  The pregathered forward does L1 H^2 + H C =
+// 14,336 an edge and reads an (E, 64) bf16 h0: at MAgNet[CNN] 2D's
+// training graph (299,894 edges) 8.6 GFLOP (0.0087 ms) against 38.4 MB of
+// h0 (0.0115 ms): bound by bytes.  mma.sync and not wgmma, as in the f32
 // builds: the products read their operands from padded tiles at any
 // stride, transposed or not.
 //
@@ -138,6 +156,12 @@ __device__ __forceinline__ float round_bf16(float x) {
 }
 __device__ __forceinline__ float2 ld_bf16x2(const bf16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+// bf16(relu(f32(a) + f32(b))) of two pairs of bf16 values
+__device__ __forceinline__ uint32_t relu_sum(uint32_t a, uint32_t b) {
+  const float2 x = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&a));
+  const float2 y = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&b));
+  return pack_rn(fmaxf(x.x + y.x, 0.f), fmaxf(x.y + y.y, 0.f));
 }
 
 __device__ __forceinline__ int lane_g() { return (threadIdx.x & 31) >> 2; }
@@ -354,6 +378,32 @@ __device__ __forceinline__ float fold_z(const float* s_be,
                     __bfloat162float(pxi[(size_t)rcv[e] * kH + n]));
 }
 
+// The pregathered entry's h_0 = bf16(relu(f32(h0[e]) + f32(pxi[rcv[e]])))
+// of the tile's edges into dst (bf16 rows of kLdH), zeros past n_valid:
+// 16-byte pieces of 8 columns, by a block of THREADS threads.  The rows of
+// h0 and pxi start 16-byte aligned.
+template <int THREADS>
+__device__ __forceinline__ void pregathered_h0(bf16* dst,
+                                               const bf16* __restrict__ h0,
+                                               const bf16* __restrict__ pxi,
+                                               const int* rcv, int n_valid,
+                                               int base) {
+  constexpr int kPieces = kH / 8;  // 16-byte pieces a row
+  for (int p = threadIdx.x; p < kTE * kPieces; p += THREADS) {
+    const int e = p / kPieces, c = (p % kPieces) * 8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (e < n_valid) {
+      const uint4 a = __ldg(
+          reinterpret_cast<const uint4*>(h0 + (size_t)(base + e) * kH + c));
+      const uint4 b = __ldg(
+          reinterpret_cast<const uint4*>(pxi + (size_t)rcv[e] * kH + c));
+      v = make_uint4(relu_sum(a.x, b.x), relu_sum(a.y, b.y),
+                     relu_sum(a.z, b.z), relu_sum(a.w, b.w));
+    }
+    *reinterpret_cast<uint4*>(dst + e * kLdH + c) = v;
+  }
+}
+
 // The persistent grid's cap (SMs x resident blocks per SM) of `kernel` on
 // the current device; the queries and the shared-memory opt-in run once per
 // device (`cache`, zeros: unset).
@@ -453,8 +503,11 @@ __device__ __forceinline__ void layer_norm_bf16(float* s_y,
   }
 }
 
+// PRE: the pregathered entry (src is h0; we, be, pxj, senders are null);
+// else the fold entry (src is e0).
+template <bool PRE>
 __global__ void __launch_bounds__(kThreads, 2)
-edge_tail_kernel(const bf16* __restrict__ e0, const bf16* __restrict__ we,
+edge_tail_kernel(const bf16* __restrict__ src, const bf16* __restrict__ we,
                  const bf16* __restrict__ be, const bf16* __restrict__ pxj,
                  const bf16* __restrict__ pxi,
                  const int* __restrict__ senders,
@@ -482,10 +535,12 @@ edge_tail_kernel(const bf16* __restrict__ e0, const bf16* __restrict__ we,
   bf16* s_wtr = reinterpret_cast<bf16*>(sm + L::wtr(l1));
   const int tid = threadIdx.x, warp = tid >> 5;
 
-  load_weights<kCe, kH, true>(s_wte, we, 1, kLdC, 0, kThreads);
+  if constexpr (!PRE) {
+    load_weights<kCe, kH, true>(s_wte, we, 1, kLdC, 0, kThreads);
+    load_f32(s_be, be, kH, kThreads);
+  }
   load_weights<kH, kH, true>(s_wtr, w_rest, l1, kLdH, kH * kLdH, kThreads);
   load_weights<kH, kC, true>(s_wto, w_out, 1, kLdH, 0, kThreads);
-  load_f32(s_be, be, kH, kThreads);
   load_f32(s_br, b_rest, l1 * kH, kThreads);
   load_f32(s_bo, b_out, kC, kThreads);
 
@@ -493,10 +548,12 @@ edge_tail_kernel(const bf16* __restrict__ e0, const bf16* __restrict__ we,
   tile128::block_tiles<kTE>(n_edges, &t_beg, &t_end);
   if (t_beg < t_end) {
     if (warp < 2)
-      tile128::tile_indices<kTE, true>(s_rcv, s_snd, senders, rowptr, n_nodes,
-                                       n_edges, t_beg, -1);
-    stage_e0(s_src, e0, n_edges, t_beg, kThreads);
-    tf32x3::cp_async_commit();
+      tile128::tile_indices<kTE, !PRE>(s_rcv, s_snd, senders, rowptr,
+                                       n_nodes, n_edges, t_beg, -1);
+    if constexpr (!PRE) {
+      stage_e0(s_src, src, n_edges, t_beg, kThreads);
+      tf32x3::cp_async_commit();
+    }
   }
   __syncthreads();  // the weights and the first tile's indices
 
@@ -507,25 +564,36 @@ edge_tail_kernel(const bf16* __restrict__ e0, const bf16* __restrict__ we,
     const int* snd = s_snd + cur * kTE;
     const bool more = tile + 1 < t_end;
 
-    // h_0 = bf16(relu(z + e0 . W_e)); z loaded while the rows arrive
-    {
-      Prod<kTE, kH, kWarps> p;
-      p.init([&](int e, int n) {
-        return fold_z(s_be, pxj, pxi, snd, rcv, n_valid, e, n);
-      });
-      tf32x3::cp_async_wait<0>();
-      __syncthreads();  // the rows are in; the last tile's sums are done
-      p.run<kCe>(ARows{s_src, kLdC}, BNK{s_wte, kLdC});
-      p.store_relu(s_act, kLdH);
-    }
-    if (more && warp < 2)
-      tile128::tile_indices<kTE, true>(s_rcv + nxt * kTE, s_snd + nxt * kTE,
-                                       senders, rowptr, n_nodes, n_edges,
-                                       tile + 1, rcv[n_valid - 1]);
-    __syncthreads();  // h_0 written, the staging rows free
-    if (more) {
-      stage_e0(s_src, e0, n_edges, tile + 1, kThreads);
-      tf32x3::cp_async_commit();
+    if constexpr (PRE) {
+      // h_0 = bf16(relu(h0 + pxi[i]))
+      pregathered_h0<kThreads>(s_act, src, pxi, rcv, n_valid, tile * kTE);
+      __syncthreads();  // h_0 written; the last tile's sums are done
+      if (more && warp < 2)
+        tile128::tile_indices<kTE, false>(s_rcv + nxt * kTE, nullptr,
+                                          nullptr, rowptr, n_nodes, n_edges,
+                                          tile + 1, rcv[n_valid - 1]);
+    } else {
+      // h_0 = bf16(relu(z + e0 . W_e)); z loaded while the rows arrive
+      {
+        Prod<kTE, kH, kWarps> p;
+        p.init([&](int e, int n) {
+          return fold_z(s_be, pxj, pxi, snd, rcv, n_valid, e, n);
+        });
+        tf32x3::cp_async_wait<0>();
+        __syncthreads();  // the rows are in; the last tile's sums are done
+        p.run<kCe>(ARows{s_src, kLdC}, BNK{s_wte, kLdC});
+        p.store_relu(s_act, kLdH);
+      }
+      if (more && warp < 2)
+        tile128::tile_indices<kTE, true>(s_rcv + nxt * kTE,
+                                         s_snd + nxt * kTE, senders, rowptr,
+                                         n_nodes, n_edges, tile + 1,
+                                         rcv[n_valid - 1]);
+      __syncthreads();  // h_0 written, the staging rows free
+      if (more) {
+        stage_e0(s_src, src, n_edges, tile + 1, kThreads);
+        tf32x3::cp_async_commit();
+      }
     }
 
     // h_k = bf16(relu(h_{k-1} . W_k + b_k))
@@ -554,7 +622,8 @@ edge_tail_kernel(const bf16* __restrict__ e0, const bf16* __restrict__ we,
   }
 }
 
-int launch(const bf16* e0, const bf16* we, const bf16* be, const bf16* pxj,
+template <bool PRE>
+int launch(const bf16* src, const bf16* we, const bf16* be, const bf16* pxj,
            const bf16* pxi, const int* senders, const int* rowptr,
            const bf16* w_rest, const bf16* b_rest, const bf16* w_out,
            const bf16* b_out, const float* ln_s, const float* ln_b, float* out,
@@ -563,13 +632,14 @@ int launch(const bf16* e0, const bf16* we, const bf16* be, const bf16* pxj,
   static std::atomic<int> cache[kMaxDevices];
   const size_t smem = Layout::bytes(kMaxL1);  // one opt-in for every l1
   int cap = 0;
-  cudaError_t err = grid_cap(edge_tail_kernel, kThreads, smem, cache, &cap);
+  cudaError_t err =
+      grid_cap(edge_tail_kernel<PRE>, kThreads, smem, cache, &cap);
   if (err != cudaSuccess) return (int)err;
   if (n_nodes == 0 || n_edges <= 0) return (int)cudaSuccess;
   const int n_tiles = (n_edges + kTE - 1) / kTE;
   const int blocks = n_tiles < cap ? n_tiles : cap;
-  edge_tail_kernel<<<blocks, kThreads, Layout::bytes(l1), stream>>>(
-      e0, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest, w_out, b_out,
+  edge_tail_kernel<PRE><<<blocks, kThreads, Layout::bytes(l1), stream>>>(
+      src, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest, w_out, b_out,
       ln_s, ln_b, out, part, n_nodes, n_edges, l1);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if (n_tiles > 1)
@@ -588,33 +658,35 @@ constexpr int kThreads = 512;  // 16 warps, one block an SM
 constexpr int kWarps = kThreads / 32;
 
 // Offsets, in bytes, into dynamic shared memory, and, in floats, into the
-// packed weight-gradient buffer.
-template <int L1>
+// packed weight-gradient buffer; the fold's W_e, e0 tiles, dW_e and db_e
+// take no room in the pregathered entry's (PRE).
+template <int L1, bool PRE>
 struct Layout {
+  static constexpr int F = PRE ? 0 : 1;            // the fold's parts
   static constexpr int plane = kTE * kLdH * 2;     // a bf16 (kTE, kLdH) tile
   static constexpr int gplane = kTE * kLdHf * 4;   // an f32 (kTE, kLdHf) tile
   static constexpr int wte = 0;                    // W_e^T (kH, kLdC)
-  static constexpr int we = wte + kH * kLdC * 2;   // W_e (kCe, kLdH)
-  static constexpr int wtr = we + kCe * kLdH * 2;  // L1 x W_k^T (kH, kLdH)
+  static constexpr int we = wte + F * kH * kLdC * 2;   // W_e (kCe, kLdH)
+  static constexpr int wtr = we + F * kCe * kLdH * 2;  // L1 x W_k^T
   static constexpr int wr = wtr + L1 * plane;      // L1 x W_k (kH, kLdH)
   static constexpr int wto = wr + L1 * plane;      // W_out^T (kC, kLdH)
   static constexpr int wo = wto + kC * kLdH * 2;   // W_out (kH, kLdC)
   static constexpr int be = wo + kH * kLdC * 2;    // f32 (kH)
-  static constexpr int br = be + kH * 4;           // f32 (L1, kH)
+  static constexpr int br = be + F * kH * 4;       // f32 (L1, kH)
   static constexpr int bo = br + L1 * kH * 4;      // f32 (kC)
   static constexpr int ls = bo + kC * 4;           // f32 (kC)
   static constexpr int act = ls + kC * 4;          // L1 + 1 bf16 planes
   static constexpr int grad = act + (L1 + 1) * plane;  // 2 f32 planes
   static constexpr int y = grad + 2 * gplane;      // f32 (kTE, kLdCf): y, dy
   static constexpr int src = y + kTE * kLdCf * 4;  // 2 x bf16 (kTE, kLdC)
-  static constexpr int ln = src + 2 * kTE * kLdC * 2;  // f32 kWarps x 2 kC
+  static constexpr int ln = src + F * 2 * kTE * kLdC * 2;  // kWarps x 2 kC
   static constexpr int rcv = ln + kWarps * 2 * kC * 4;  // 2 x (kTE) int
   static constexpr int snd = rcv + 2 * kTE * 4;    // 2 x (kTE) int
   static constexpr int bytes = snd + 2 * kTE * 4;
 
   static constexpr int g_we = 0;
-  static constexpr int g_be = g_we + kCe * kH;
-  static constexpr int g_wr = g_be + kH;
+  static constexpr int g_be = g_we + F * kCe * kH;
+  static constexpr int g_wr = g_be + F * kH;
   static constexpr int g_br = g_wr + L1 * kH * kH;
   static constexpr int g_wo = g_br + L1 * kH;
   static constexpr int g_bo = g_wo + kH * kC;
@@ -712,9 +784,11 @@ __device__ __forceinline__ void layer_norm_bwd(float* s_y, const float* s_ls,
   }
 }
 
-template <int L1>
+// PRE: the pregathered entry (src is h0, d_src d_h0 (E, kH); we, be, pxj,
+// senders, d_pxj are null); else the fold entry (src is e0, d_src d_e0).
+template <int L1, bool PRE>
 __global__ void __launch_bounds__(kThreads, 1)
-edge_tail_bwd_kernel(const bf16* __restrict__ e0, const bf16* __restrict__ we,
+edge_tail_bwd_kernel(const bf16* __restrict__ src, const bf16* __restrict__ we,
                      const bf16* __restrict__ be, const bf16* __restrict__ pxj,
                      const bf16* __restrict__ pxi,
                      const int* __restrict__ senders,
@@ -724,10 +798,10 @@ edge_tail_bwd_kernel(const bf16* __restrict__ e0, const bf16* __restrict__ we,
                      const bf16* __restrict__ w_out,
                      const bf16* __restrict__ b_out,
                      const float* __restrict__ ln_s,
-                     const float* __restrict__ g, bf16* __restrict__ d_e0,
+                     const float* __restrict__ g, bf16* __restrict__ d_src,
                      float* __restrict__ d_pxj, float* __restrict__ d_pxi,
                      float* __restrict__ partial, int n_nodes, int n_edges) {
-  using L = Layout<L1>;
+  using L = Layout<L1, PRE>;
   constexpr int NL = L1 > 0 ? L1 : 1;
   extern __shared__ __align__(16) unsigned char bf16_bwd_smem[];
   unsigned char* sm = bf16_bwd_smem;
@@ -757,13 +831,15 @@ edge_tail_bwd_kernel(const bf16* __restrict__ e0, const bf16* __restrict__ we,
   };
   const int tid = threadIdx.x, warp = tid >> 5;
 
-  load_weights<kCe, kH, true>(s_wte, we, 1, kLdC, 0, kThreads);
-  load_weights<kCe, kH, false>(s_we, we, 1, kLdH, 0, kThreads);
+  if constexpr (!PRE) {
+    load_weights<kCe, kH, true>(s_wte, we, 1, kLdC, 0, kThreads);
+    load_weights<kCe, kH, false>(s_we, we, 1, kLdH, 0, kThreads);
+    load_f32(s_be, be, kH, kThreads);
+  }
   load_weights<kH, kH, true>(s_wtr, w_rest, L1, kLdH, kH * kLdH, kThreads);
   load_weights<kH, kH, false>(s_wr, w_rest, L1, kLdH, kH * kLdH, kThreads);
   load_weights<kH, kC, true>(s_wto, w_out, 1, kLdH, 0, kThreads);
   load_weights<kH, kC, false>(s_wo, w_out, 1, kLdC, 0, kThreads);
-  load_f32(s_be, be, kH, kThreads);
   load_f32(s_br, b_rest, L1 * kH, kThreads);
   load_f32(s_bo, b_out, kC, kThreads);
   for (int k = tid; k < kC; k += kThreads) s_ls[k] = __ldg(ln_s + k);
@@ -780,10 +856,12 @@ edge_tail_bwd_kernel(const bf16* __restrict__ e0, const bf16* __restrict__ we,
   tile128::block_tiles<kTE>(n_edges, &t_beg, &t_end);
   if (t_beg < t_end) {
     if (warp < 2)
-      tile128::tile_indices<kTE, true>(s_rcv, s_snd, senders, rowptr, n_nodes,
-                                       n_edges, t_beg, -1);
-    stage_e0(staged(0), e0, n_edges, t_beg, kThreads);
-    tf32x3::cp_async_commit();
+      tile128::tile_indices<kTE, !PRE>(s_rcv, s_snd, senders, rowptr,
+                                       n_nodes, n_edges, t_beg, -1);
+    if constexpr (!PRE) {
+      stage_e0(staged(0), src, n_edges, t_beg, kThreads);
+      tf32x3::cp_async_commit();
+    }
   }
   __syncthreads();  // the weights and the first tile's indices
 
@@ -794,26 +872,36 @@ edge_tail_bwd_kernel(const bf16* __restrict__ e0, const bf16* __restrict__ we,
     const int* snd = s_snd + cur * kTE;
     const bool more = tile + 1 < t_end;
 
-    // h_0 = bf16(relu(e0 . W_e + z)), z loaded while the rows arrive
-    {
-      Prod<kTE, kH, kWarps> p;
-      p.init([&](int e, int n) {
-        return fold_z(s_be, pxj, pxi, snd, rcv, n_valid, e, n);
-      });
-      tf32x3::cp_async_wait<0>();
-      __syncthreads();  // the rows are in; the last tile is done
+    if constexpr (PRE) {
+      // h_0 = bf16(relu(h0 + pxi[i]))
+      pregathered_h0<kThreads>(plane(0), src, pxi, rcv, n_valid, base);
+      __syncthreads();  // h_0 written; the last tile is done
       if (more && warp < 2)
-        tile128::tile_indices<kTE, true>(
-            s_rcv + nxt * kTE, s_snd + nxt * kTE, senders, rowptr, n_nodes,
-            n_edges, tile + 1, rcv[n_valid - 1]);
-      if (more) {  // into the buffer the last tile's dW_e read
-        stage_e0(staged(nxt), e0, n_edges, tile + 1, kThreads);
-        tf32x3::cp_async_commit();
+        tile128::tile_indices<kTE, false>(s_rcv + nxt * kTE, nullptr,
+                                          nullptr, rowptr, n_nodes, n_edges,
+                                          tile + 1, rcv[n_valid - 1]);
+    } else {
+      // h_0 = bf16(relu(e0 . W_e + z)), z loaded while the rows arrive
+      {
+        Prod<kTE, kH, kWarps> p;
+        p.init([&](int e, int n) {
+          return fold_z(s_be, pxj, pxi, snd, rcv, n_valid, e, n);
+        });
+        tf32x3::cp_async_wait<0>();
+        __syncthreads();  // the rows are in; the last tile is done
+        if (more && warp < 2)
+          tile128::tile_indices<kTE, true>(
+              s_rcv + nxt * kTE, s_snd + nxt * kTE, senders, rowptr, n_nodes,
+              n_edges, tile + 1, rcv[n_valid - 1]);
+        if (more) {  // into the buffer the last tile's dW_e read
+          stage_e0(staged(nxt), src, n_edges, tile + 1, kThreads);
+          tf32x3::cp_async_commit();
+        }
+        p.template run<kCe>(ARows{staged(cur), kLdC}, BNK{s_wte, kLdC});
+        p.store_relu(plane(0), kLdH);
       }
-      p.template run<kCe>(ARows{staged(cur), kLdC}, BNK{s_wte, kLdC});
-      p.store_relu(plane(0), kLdH);
+      __syncthreads();
     }
-    __syncthreads();
 
     // h_1 .. h_L1
 #pragma unroll
@@ -875,27 +963,37 @@ edge_tail_bwd_kernel(const bf16* __restrict__ e0, const bf16* __restrict__ we,
       __syncthreads();
     }
 
-    // dz = da_0: dW_e += e0^T . bf16(dz), db_e += sum dz, d_e0 =
-    // bf16(bf16(dz) . W_e^T), d_pxj[s] += bf16(dz), d_pxi[i] += bf16(dz)
     const float* dz = grad(L1 & 1);
-    {
-      Prod<kCe, kH, kWarps> w;
-      w.template run<kTE>(ACols{staged(cur), kLdC}, BKNF{dz, kLdHf});
-      w.add_to(run_we);
-      run_be += column_part<kH>(dz, kLdHf);
-      Prod<kTE, kCe, kWarps> d;
-      d.template run<kH>(ARowsF{dz, kLdHf}, BNK{s_we, kLdH});
-      d.pairs([&](int e, int c, float v0, float v1) {
-        if (e < n_valid)
-          *reinterpret_cast<uint32_t*>(d_e0 + (size_t)(base + e) * kCe + c) =
-              pack_rn(v0, v1);
-      });
+    if constexpr (PRE) {
+      // dz = da_0: d_h0 = bf16(dz), a pair of columns a thread per step
+      for (int k = tid; k < n_valid * (kH / 2); k += kThreads) {
+        const int e = k / (kH / 2), n = 2 * (k % (kH / 2));
+        *reinterpret_cast<uint32_t*>(d_src + (size_t)(base + e) * kH + n) =
+            pack_rn(dz[e * kLdHf + n], dz[e * kLdHf + n + 1]);
+      }
+    } else {
+      // dz = da_0: dW_e += e0^T . bf16(dz), db_e += sum dz, d_e0 =
+      // bf16(bf16(dz) . W_e^T), d_pxj[s] += bf16(dz)
+      {
+        Prod<kCe, kH, kWarps> w;
+        w.template run<kTE>(ACols{staged(cur), kLdC}, BKNF{dz, kLdHf});
+        w.add_to(run_we);
+        run_be += column_part<kH>(dz, kLdHf);
+        Prod<kTE, kCe, kWarps> d;
+        d.template run<kH>(ARowsF{dz, kLdHf}, BNK{s_we, kLdH});
+        d.pairs([&](int e, int c, float v0, float v1) {
+          if (e < n_valid)
+            *reinterpret_cast<uint32_t*>(d_src + (size_t)(base + e) * kCe +
+                                         c) = pack_rn(v0, v1);
+        });
+      }
+      for (int k = tid; k < n_valid * kH; k += kThreads) {
+        const int e = k >> 6, n = k & (kH - 1);
+        atomicAdd(d_pxj + (size_t)snd[e] * kH + n,
+                  round_bf16(dz[e * kLdHf + n]));
+      }
     }
-    for (int k = tid; k < n_valid * kH; k += kThreads) {
-      const int e = k >> 6, n = k & (kH - 1);
-      atomicAdd(d_pxj + (size_t)snd[e] * kH + n, round_bf16(dz[e * kLdHf + n]));
-    }
-    {
+    {  // d_pxi[i] += bf16(dz), a sum a run of equal receivers
       constexpr int kPart = kTE * kH / kThreads;  // edges of an eighth
       const int n = tid & (kH - 1);
       const int e_beg = (tid / kH) * kPart;
@@ -928,8 +1026,10 @@ edge_tail_bwd_kernel(const bf16* __restrict__ e0, const bf16* __restrict__ we,
   }
   Prod<kH, kC, kWarps>().write(p + L::g_wo, run_wo);
   sums[L1 * kThreads + tid] = run_bo;
-  Prod<kCe, kH, kWarps>().write(p + L::g_we, run_we);
-  sums[(L1 + 1) * kThreads + tid] = run_be;
+  if constexpr (!PRE) {
+    Prod<kCe, kH, kWarps>().write(p + L::g_we, run_we);
+    sums[(L1 + 1) * kThreads + tid] = run_be;
+  }
   __syncthreads();
   if (tid < L1 * kH) {
     p[L::g_br + tid] =
@@ -942,7 +1042,7 @@ edge_tail_bwd_kernel(const bf16* __restrict__ e0, const bf16* __restrict__ we,
     float s = 0.f;
     for (int w = 0; w < kWarps; ++w) s += s_ln[w * 2 * kC + c];
     p[L::g_ls + c] = s;
-  } else if (tid < L1 * kH + 3 * kC + kH) {
+  } else if (!PRE && tid < L1 * kH + 3 * kC + kH) {
     const int c = tid - L1 * kH - 3 * kC;
     p[L::g_be + c] = column_total<kH>(sums + (L1 + 1) * kThreads, c);
   }
@@ -962,18 +1062,18 @@ __global__ void reduce_partials_kernel(const float* __restrict__ partial,
 // The kernel on a persistent grid of at most scratch_blocks blocks, each a
 // run of consecutive tiles (every block at least one), then the
 // fixed-order sum of the blocks' partials.
-template <int L1>
-int launch(const bf16* e0, const bf16* we, const bf16* be, const bf16* pxj,
+template <int L1, bool PRE>
+int launch(const bf16* src, const bf16* we, const bf16* be, const bf16* pxj,
            const bf16* pxi, const int* senders, const int* rowptr,
            const bf16* w_rest, const bf16* b_rest, const bf16* w_out,
-           const bf16* b_out, const float* ln_s, const float* g, bf16* d_e0,
+           const bf16* b_out, const float* ln_s, const float* g, bf16* d_src,
            float* d_pxj, float* d_pxi, float* wgrad, float* partial,
            int n_nodes, int n_edges, int scratch_blocks,
            cudaStream_t stream) {
-  using L = Layout<L1>;
+  using L = Layout<L1, PRE>;
   static std::atomic<int> cache[kMaxDevices];
   int cap = 0;
-  const cudaError_t err = grid_cap(edge_tail_bwd_kernel<L1>, kThreads,
+  const cudaError_t err = grid_cap(edge_tail_bwd_kernel<L1, PRE>, kThreads,
                                    (size_t)L::bytes, cache, &cap);
   if (err != cudaSuccess) return (int)err;
   if (cap > scratch_blocks) cap = scratch_blocks;
@@ -982,15 +1082,51 @@ int launch(const bf16* e0, const bf16* we, const bf16* be, const bf16* pxj,
   const int per_block = n_tiles > 0 ? (n_tiles + cap - 1) / cap : 1;
   const int blocks = (n_tiles + per_block - 1) / per_block;
   if (blocks > 0) {
-    edge_tail_bwd_kernel<L1><<<blocks, kThreads, L::bytes, stream>>>(
-        e0, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest, w_out, b_out,
-        ln_s, g, d_e0, d_pxj, d_pxi, partial, n_nodes, n_edges);
+    edge_tail_bwd_kernel<L1, PRE><<<blocks, kThreads, L::bytes, stream>>>(
+        src, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest, w_out, b_out,
+        ln_s, g, d_src, d_pxj, d_pxi, partial, n_nodes, n_edges);
     const cudaError_t launched = cudaGetLastError();
     if (launched != cudaSuccess) return (int)launched;
   }
   reduce_partials_kernel<<<(L::g_total + 255) / 256, 256, 0, stream>>>(
       partial, wgrad, blocks, L::g_total);
   return (int)cudaGetLastError();
+}
+
+// launch<L1, PRE> at a run-time l1 in 0..kMaxL1
+template <bool PRE>
+int launch_l1(int l1, const bf16* src, const bf16* we, const bf16* be,
+              const bf16* pxj, const bf16* pxi, const int* senders,
+              const int* rowptr, const bf16* w_rest, const bf16* b_rest,
+              const bf16* w_out, const bf16* b_out, const float* ln_s,
+              const float* g, bf16* d_src, float* d_pxj, float* d_pxi,
+              float* wgrad, float* partial, int n_nodes, int n_edges,
+              int scratch_blocks, cudaStream_t stream) {
+#define MAGNET_BF16_BWD_CASE(L1V)                                            \
+  case L1V:                                                                  \
+    return launch<L1V, PRE>(src, we, be, pxj, pxi, senders, rowptr, w_rest,  \
+                            b_rest, w_out, b_out, ln_s, g, d_src, d_pxj,     \
+                            d_pxi, wgrad, partial, n_nodes, n_edges,         \
+                            scratch_blocks, stream)
+  switch (l1) {
+    MAGNET_BF16_BWD_CASE(0);
+    MAGNET_BF16_BWD_CASE(1);
+    MAGNET_BF16_BWD_CASE(2);
+    MAGNET_BF16_BWD_CASE(3);
+  }
+#undef MAGNET_BF16_BWD_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// the dynamic shared memory of launch<l1, PRE>'s kernel
+template <bool PRE>
+int smem_bytes(int l1) {
+  switch (l1) {
+    case 0: return Layout<0, PRE>::bytes;
+    case 1: return Layout<1, PRE>::bytes;
+    case 2: return Layout<2, PRE>::bytes;
+    default: return Layout<3, PRE>::bytes;
+  }
 }
 
 }  // namespace bwd
@@ -1003,12 +1139,13 @@ bool built(int ce, int h, int c, int l1) {
 
 extern "C" {
 
-// The forward.  Returns a cudaError_t; 0 is success.  Launches on `stream`
-// and does not synchronise.  e0 (n_edges, ce), pxj and pxi (n_nodes, h)
-// are 16-byte aligned bf16; we, be, w_rest, b_rest, w_out, b_out bf16;
-// ln_s, ln_b f32; out (n_nodes, c) f32 must arrive zeroed; part is f32
-// scratch of 2 * ceil(n_edges / 64) rows of c.  Built for (ce, h, c) =
-// (32, 64, 32) and l1 in 0..3; others return cudaErrorInvalidValue.
+// The fold forward.  Returns a cudaError_t; 0 is success.  Launches on
+// `stream` and does not synchronise.  e0 (n_edges, ce), pxj and pxi
+// (n_nodes, h) are 16-byte aligned bf16; we, be, w_rest, b_rest, w_out,
+// b_out bf16; ln_s, ln_b f32; out (n_nodes, c) f32 must arrive zeroed;
+// part is f32 scratch of 2 * ceil(n_edges / 64) rows of c.  Built for (ce,
+// h, c) = (32, 64, 32) and l1 in 0..3; others return
+// cudaErrorInvalidValue.
 int fused_edge_tail_agg_bf16_fwd(const bf16* e0, const bf16* we,
                                  const bf16* be, const bf16* pxj,
                                  const bf16* pxi, const int* senders,
@@ -1020,17 +1157,18 @@ int fused_edge_tail_agg_bf16_fwd(const bf16* e0, const bf16* we,
                                  int c, int l1, void* stream) {
   if (!built(ce, h, c, l1) || part == nullptr)
     return (int)cudaErrorInvalidValue;
-  return fwd::launch(e0, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest,
-                     w_out, b_out, ln_s, ln_b, out, part, n_nodes, n_edges,
-                     l1, static_cast<cudaStream_t>(stream));
+  return fwd::launch<false>(e0, we, be, pxj, pxi, senders, rowptr, w_rest,
+                            b_rest, w_out, b_out, ln_s, ln_b, out, part,
+                            n_nodes, n_edges, l1,
+                            static_cast<cudaStream_t>(stream));
 }
 
-// The backward, its operands as the forward's, and g (n_nodes, c) f32.
-// Writes d_e0 (n_edges, ce) bf16; adds into d_pxj and d_pxi (n_nodes, h)
-// f32, which must arrive zeroed; wgrad (f32) holds, packed, dW_e (ce, h),
-// db_e (h), dW_rest (l1, h, h), db_rest (l1, h), dW_out (h, c), db_out
-// (c), d_ln_s (c), d_ln_b (c); partial is f32 scratch for scratch_blocks
-// x that many floats.
+// The fold backward, its operands as the forward's, and g (n_nodes, c)
+// f32.  Writes d_e0 (n_edges, ce) bf16; adds into d_pxj and d_pxi
+// (n_nodes, h) f32, which must arrive zeroed; wgrad (f32) holds, packed,
+// dW_e (ce, h), db_e (h), dW_rest (l1, h, h), db_rest (l1, h), dW_out (h,
+// c), db_out (c), d_ln_s (c), d_ln_b (c); partial is f32 scratch for
+// scratch_blocks x that many floats.
 int fused_edge_tail_agg_bf16_bwd(
     const bf16* e0, const bf16* we, const bf16* be, const bf16* pxj,
     const bf16* pxi, const int* senders, const int* rowptr,
@@ -1039,35 +1177,56 @@ int fused_edge_tail_agg_bf16_bwd(
     float* d_pxj, float* d_pxi, float* wgrad, float* partial, int n_nodes,
     int n_edges, int ce, int h, int c, int l1, int scratch_blocks,
     void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!built(ce, h, c, l1)) return (int)cudaErrorInvalidValue;
-#define MAGNET_BF16_BWD_CASE(L1V)                                            \
-  case L1V:                                                                  \
-    return bwd::launch<L1V>(e0, we, be, pxj, pxi, senders, rowptr, w_rest,   \
-                            b_rest, w_out, b_out, ln_s, g, d_e0, d_pxj,      \
-                            d_pxi, wgrad, partial, n_nodes, n_edges,         \
-                            scratch_blocks, s)
-  switch (l1) {
-    MAGNET_BF16_BWD_CASE(0);
-    MAGNET_BF16_BWD_CASE(1);
-    MAGNET_BF16_BWD_CASE(2);
-    MAGNET_BF16_BWD_CASE(3);
-  }
-#undef MAGNET_BF16_BWD_CASE
-  return (int)cudaErrorInvalidValue;
+  return bwd::launch_l1<false>(l1, e0, we, be, pxj, pxi, senders, rowptr,
+                               w_rest, b_rest, w_out, b_out, ln_s, g, d_e0,
+                               d_pxj, d_pxi, wgrad, partial, n_nodes,
+                               n_edges, scratch_blocks,
+                               static_cast<cudaStream_t>(stream));
 }
 
-// Dynamic shared memory a block of the forward (which = 0) or the
-// backward (1) takes at l1 tail layers; -1 for an l1 not built.
+// The pregathered forward: h0 (n_edges, h) and pxi (n_nodes, h) 16-byte
+// aligned bf16, the rest as the fold forward's.  Built for (h, c) = (64,
+// 32) and l1 in 0..3.
+int fused_edge_tail_agg_bf16_pregathered_fwd(
+    const bf16* h0, const bf16* pxi, const int* rowptr, const bf16* w_rest,
+    const bf16* b_rest, const bf16* w_out, const bf16* b_out,
+    const float* ln_s, const float* ln_b, float* out, float* part,
+    int n_nodes, int n_edges, int h, int c, int l1, void* stream) {
+  if (!built(kCe, h, c, l1) || part == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return fwd::launch<true>(h0, nullptr, nullptr, nullptr, pxi, nullptr,
+                           rowptr, w_rest, b_rest, w_out, b_out, ln_s, ln_b,
+                           out, part, n_nodes, n_edges, l1,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// The pregathered backward, its operands as its forward's, and g (n_nodes,
+// c) f32.  Writes d_h0 (n_edges, h) bf16; adds into d_pxi (n_nodes, h)
+// f32, which must arrive zeroed; wgrad (f32) holds, packed, dW_rest (l1,
+// h, h), db_rest (l1, h), dW_out (h, c), db_out (c), d_ln_s (c), d_ln_b
+// (c); partial is f32 scratch for scratch_blocks x that many floats.
+int fused_edge_tail_agg_bf16_pregathered_bwd(
+    const bf16* h0, const bf16* pxi, const int* rowptr, const bf16* w_rest,
+    const bf16* b_rest, const bf16* w_out, const bf16* b_out,
+    const float* ln_s, const float* g, bf16* d_h0, float* d_pxi,
+    float* wgrad, float* partial, int n_nodes, int n_edges, int h, int c,
+    int l1, int scratch_blocks, void* stream) {
+  if (!built(kCe, h, c, l1)) return (int)cudaErrorInvalidValue;
+  return bwd::launch_l1<true>(l1, h0, nullptr, nullptr, nullptr, pxi,
+                              nullptr, rowptr, w_rest, b_rest, w_out, b_out,
+                              ln_s, g, d_h0, nullptr, d_pxi, wgrad, partial,
+                              n_nodes, n_edges, scratch_blocks,
+                              static_cast<cudaStream_t>(stream));
+}
+
+// Dynamic shared memory a block takes at l1 tail layers: the fold forward
+// (which = 0), the fold backward (1), the pregathered forward (2) and
+// backward (3); -1 for an l1 not built.
 int fused_edge_tail_agg_bf16_smem(int which, int l1) {
-  if (l1 < 0 || l1 > kMaxL1) return -1;
-  if (which == 0) return (int)fwd::Layout::bytes(l1);
-  switch (l1) {
-    case 0: return bwd::Layout<0>::bytes;
-    case 1: return bwd::Layout<1>::bytes;
-    case 2: return bwd::Layout<2>::bytes;
-    default: return bwd::Layout<3>::bytes;
-  }
+  if (l1 < 0 || l1 > kMaxL1 || which < 0 || which > 3) return -1;
+  if (which == 0 || which == 2) return (int)fwd::Layout::bytes(l1);
+  return which == 1 ? bwd::smem_bytes<false>(l1) : bwd::smem_bytes<true>(l1);
 }
 
 }  // extern "C"

@@ -35,13 +35,13 @@ def parse_dtype(name):
 
 def f32_graph_only(model: str, hp: dict) -> None:
     """Read ``graph_dtype`` for a model whose GraphNet stage runs in f32
-    only: raise on bf16, whose kernels are not built at its widths and
-    lanes yet, rather than compute in f32 what the JAX model computes in
-    bf16."""
+    only (MAgNet[GNN], whose width-128 bf16 forms are not built yet; the
+    MAgNet[CNN] models run bf16): raise on bf16 rather than compute in f32
+    what the JAX model computes in bf16."""
     if parse_dtype(hp.get("graph_dtype")) is not None:
         raise NotImplementedError(
             f"{model}: graph_dtype={hp['graph_dtype']} has no bf16 build of "
-            f"its GraphNet kernels yet (ROADMAP.md B.1.1)")
+            f"its GraphNet kernels yet (ROADMAP.md B.1.1 (b))")
 
 
 def nrmse(pred, target, eps: float = 1e-12):

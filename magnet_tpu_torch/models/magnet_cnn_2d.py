@@ -3,7 +3,10 @@ the 1D model's architecture with a 2D EDSR encoder and the four-corner INR
 decoder, over the graph of the W×W LR grid ∪ the N HR queries of every
 sample.  The task side (graph, rollout, losses) is ``MAgNetCNNTask``'s;
 the validation feedback reshapes the HR prediction to its √N × √N grid and
-resizes it bilinearly to W × W.
+resizes it bilinearly to W × W.  ``graph_dtype`` is the GraphNet stage's
+compute dtype, as in 1D (``MAgNetCNN1DCore``): in bf16 its training graph
+runs the pregathered lane's bf16 kernels and its eval graph the fold
+lane's.
 """
 from __future__ import annotations
 
@@ -13,7 +16,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from magnet_tpu_torch.models.common import f32_graph_only
+from magnet_tpu_torch.models.common import parse_dtype
 from magnet_tpu_torch.models.magnet_cnn_1d import MAgNetCNNTask
 from magnet_tpu_torch.nn.core import MLP
 from magnet_tpu_torch.nn.edsr import EDSR
@@ -32,12 +35,15 @@ N_FIELDS = 1  # one scalar field
 
 class MAgNetCNN2DCore(nn.Module):
     """Single-window forward over a batch.  Submodule names are the
-    reference's, so the state_dict keys are too."""
+    reference's, so the state_dict keys are too.  ``graph_dtype`` is the
+    compute dtype of the GraphNet stage alone (None: f32), as
+    ``MAgNetCNN1DCore``'s."""
 
     def __init__(self, time_slice: int = 16, latent_dim: int = 32,
                  num_message_passing_steps: int = 10, mlp_layers: int = 4,
                  mlp_hidden: int = 64, n_chan: int = 128, kernel_size: int = 3,
-                 res_scale: float = 1.0, res_layers: int = 16):
+                 res_scale: float = 1.0, res_layers: int = 16,
+                 graph_dtype=None):
         super().__init__()
         tc = time_slice * N_FIELDS
         self.time_slice = time_slice
@@ -50,11 +56,11 @@ class MAgNetCNN2DCore(nn.Module):
         # node features: values, coords (2), t; edge features: value and
         # coord differences
         self._encoder = GraphEncoder(tc + 3, tc + 2, latent_dim, latent_dim,
-                                     mlp_layers, mlp_hidden)
+                                     mlp_layers, mlp_hidden, graph_dtype)
         self._processor = GraphProcessor(latent_dim, num_message_passing_steps,
-                                         mlp_layers, mlp_hidden)
+                                         mlp_layers, mlp_hidden, graph_dtype)
         self._decoder = GraphDecoder(latent_dim, time_slice, mlp_layers,
-                                     mlp_hidden)
+                                     mlp_hidden, graph_dtype)
 
     def forward(self, x_t, coords, cell, t, hr_last, graph: CSRGraph):
         """x_t (B, T, C, W, W) LR frames, T == time_slice; coords, cell
@@ -107,7 +113,6 @@ class MAgNetCNN2D(MAgNetCNNTask, MAgNetCNN2DCore):
 
     def __init__(self, hparams: dict[str, Any]):
         hp = dict(hparams)
-        f32_graph_only("magnet_cnn_2d", hp)
         super().__init__(
             time_slice=int(hp.get("time_slice", 16)),
             latent_dim=int(hp.get("latent_dim", 32)),
@@ -118,6 +123,7 @@ class MAgNetCNN2D(MAgNetCNNTask, MAgNetCNN2DCore):
             kernel_size=int(hp.get("kernel_size", 3)),
             res_scale=float(hp.get("res_scale", 1.0)),
             res_layers=int(hp.get("res_layers", 16)),
+            graph_dtype=parse_dtype(hp.get("graph_dtype")),
         )
         self._task_init(hp, radius=0.1)
 

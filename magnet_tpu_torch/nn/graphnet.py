@@ -33,11 +33,17 @@ Every module takes a compute ``dtype`` (None: f32), the JAX models'
 where they are used; the MLPs and LayerNorms follow flax's dtype semantics
 (``nn.core.dense``, ``nn.core.LayerNorm``); the processor casts the node
 and edge latents to bf16 at its entry, so the node stream is bf16 across
-its steps; each step's edge kernel is the fold entry's bf16 build
-(``fused_edge_tail_agg_bf16``: bf16 operands, f32 accumulation, LayerNorm
-and receiver sums, an f32 result), whose per-receiver mean is rounded to
-bf16 before the node MLP, and the residual is a bf16 add.  Only the
-``fold`` lane has a bf16 build; any other lane raises.
+its steps; each step's edge kernel is the bf16 build of its lane's entry
+(``fused_edge_tail_agg_bf16`` on ``fold``,
+``fused_edge_tail_agg_pregathered_bf16`` on ``pregathered``: bf16
+operands, f32 accumulation, LayerNorm and receiver sums, an f32 result),
+whose per-receiver mean is rounded to bf16 before the node MLP, and the
+residual is a bf16 add.  On the ``pregathered`` lane h0 is formed as the
+JAX step forms it in bf16 (``_project_edges``, ``graphnet.py:175-189,
+357-360``): pe = bf16 Dense(e0) with its bias, then s·pe + (1 − s)·b_e,
+then h0 = p_xj[senders] + pe, every operation in bf16 (the f32 lane's
+fold of s into W_e would round the bias term elsewhere).  The ``pe`` lane
+has no bf16 build and raises.
 """
 from __future__ import annotations
 
@@ -51,13 +57,14 @@ from magnet_tpu_torch.ops.fused_edge import (
     fused_edge_tail_agg_pe,
     fused_edge_tail_agg_plain,
     fused_edge_tail_agg_pregathered,
+    fused_edge_tail_agg_pregathered_bf16,
 )
 from magnet_tpu_torch.ops.graph import CSRGraph, lane_of
 from magnet_tpu_torch.ops.segment import gather_rows
 
 #: ``kernel``: the graph's lane; ``kernel_fold`` / ``kernel_pregathered`` /
 #: ``kernel_pe``: that lane whatever the graph; ``plain``: the plain
-#: PyTorch version.
+#: PyTorch version (in bf16, of the graph's lane).
 IMPLS = ("kernel", "kernel_fold", "kernel_pregathered", "plain", "kernel_pe")
 
 
@@ -94,7 +101,9 @@ class InteractionNetwork(nn.Module):
     the gradient of the slicing, transposing, stacking and the edge scale
     in ``edge_weights`` is autograd's.  In bf16 the step runs the fold
     entry's bf16 build (module docstring); p_xi and p_xj are bias-free
-    bf16 Dense outputs, as the JAX step's ``e_w_xi`` / ``e_w_xj``.
+    bf16 Dense outputs, as the JAX step's ``e_w_xi`` / ``e_w_xj``; on the
+    ``pregathered`` lane the pregathered entry's bf16 build takes h0 formed
+    in bf16 (module docstring).
     """
 
     def __init__(self, latent: int, mlp_layers: int, mlp_hidden: int,
@@ -116,9 +125,19 @@ class InteractionNetwork(nn.Module):
         rounding, as the JAX step folds it)."""
         lin = self.edge_fn[0].linears
         c = self.latent
+        we = lin[0].weight[:, 2 * c:].t()
+        be = lin[0].bias
+        if self.dtype is not None:
+            we, be = we.to(self.dtype), be.to(self.dtype)
+        return ((we * e_scale).contiguous(), be, *self.tail_weights())
+
+    def tail_weights(self):
+        """The fused kernel's tail operands (w_rest, b_rest, w_out, b_out,
+        ln_s, ln_b), all (in, out); in bf16 all but ln_s and ln_b rounded
+        to bf16."""
+        lin = self.edge_fn[0].linears
         cast = ((lambda t: t) if self.dtype is None
                 else (lambda t: t.to(self.dtype)))
-        we = (cast(lin[0].weight[:, 2 * c:].t()) * e_scale).contiguous()
         hid = lin[1:-1]
         h = lin[0].weight.shape[0]
         if hid:
@@ -128,27 +147,51 @@ class InteractionNetwork(nn.Module):
             w_rest = lin[0].weight.new_zeros(0, h, h)
             b_rest = lin[0].weight.new_zeros(0, h)
         ln = self.edge_fn[1]
-        return (we, cast(lin[0].bias), cast(w_rest), cast(b_rest),
+        return (cast(w_rest), cast(b_rest),
                 cast(lin[-1].weight.t().contiguous()), cast(lin[-1].bias),
                 ln.weight, ln.bias)
 
+    def _pe_bf16(self, e0, e_scale):
+        """The JAX step's bf16 ``_project_edges``: pe = bf16 Dense(e0)
+        (product, then bias, each rounded), then s·pe + (1 − s)·b_e with s
+        and b_e in bf16, every operation rounded to bf16: (E, H) bf16."""
+        lin = self.edge_fn[0].linears[0]
+        c, dt = self.latent, self.dtype
+        b = lin.bias.to(dt)
+        pe = e0 @ lin.weight[:, 2 * c:].t().to(dt) + b
+        s = torch.tensor(e_scale, dtype=dt, device=e0.device)
+        return s * pe + (1 - s) * b
+
     def _forward_bf16(self, x, e0, graph: CSRGraph, e_scale, impl):
-        """The bf16 step: x and e0 bf16; only the fold lane."""
+        """The bf16 step: x and e0 bf16; the fold and pregathered lanes.
+        In bf16 the lanes round differently, so ``plain`` runs the plain
+        versions of the graph's own lane (the sender gather through f32, so
+        that autograd's ``index_add_`` sums its backward in f32 and rounds
+        once, as the segment sum does)."""
         w0 = self.edge_fn[0].linears[0].weight                   # (H, 3C)
-        lane = ("plain" if impl == "plain"
-                else lane_of(graph, "graphnet", w0.shape[0])
-                if impl == "kernel" else impl.removeprefix("kernel_"))
-        if lane not in ("plain", "fold"):
+        lane = (lane_of(graph, "graphnet", w0.shape[0])
+                if impl in ("kernel", "plain")
+                else impl.removeprefix("kernel_"))
+        if lane not in ("fold", "pregathered"):
             raise NotImplementedError(
                 f"the {lane} lane has no bf16 build (graph_dtype=bf16 runs "
-                f"the fold lane only; ROADMAP.md B.1.1)")
+                f"the fold and pregathered lanes; ROADMAP.md B.1.1 (b))")
+        plain = impl == "plain"
         c = self.latent
         p_xi = x @ w0[:, :c].t().to(self.dtype)                  # (N, H)
         p_xj = x @ w0[:, c:2 * c].t().to(self.dtype)             # (N, H)
-        we, be, *tail = self.edge_weights(e_scale)
-        agg_sum = fused_edge_tail_agg_bf16(
-            e0, we, be, p_xj, p_xi, graph.senders, graph.rowptr, *tail,
-            plain=lane == "plain")
+        if lane == "pregathered":
+            gathered = (p_xj.float().index_select(0, graph.senders)
+                        .to(self.dtype) if plain
+                        else gather_rows(p_xj, graph))
+            h0 = gathered + self._pe_bf16(e0, e_scale)
+            agg_sum = fused_edge_tail_agg_pregathered_bf16(
+                h0, p_xi, graph.rowptr, *self.tail_weights(), plain=plain)
+        else:
+            we, be, *tail = self.edge_weights(e_scale)
+            agg_sum = fused_edge_tail_agg_bf16(
+                e0, we, be, p_xj, p_xi, graph.senders, graph.rowptr, *tail,
+                plain=plain)
         agg = agg_sum / torch.clamp(graph.degree, min=1.0)[:, None]
         return x + self.node_fn(torch.cat([agg.to(x.dtype), x], dim=-1))
 

@@ -50,6 +50,18 @@ y = LN(h·W_out + b_out); the result is out[i] = Σ y over the edges of i,
   autograd through the bf16 forward, which rounds elsewhere); the
   kernels are ``csrc/fused_edge_tail_agg_bf16.cu`` (``FusedEdgeTailAggBf16``),
   compiled for (Ce, H, C) = (32, 64, 32) only.
+* ``fused_edge_tail_agg_pregathered_bf16`` is the pregathered entry in the
+  bf16 lane, the JAX package's ``fused_edge_tail_agg`` on bf16 operands
+  (``_fused_fwd_pallas``, ``pallas_kernels.py:278``; ``_fused_bwd_pallas``,
+  376): h0, p_xi and the tail weights in bf16, ln_s and ln_b in f32, the
+  same rounding points as the fold entry's bf16 build after its first
+  pre-activation z = f32(h0) + f32(p_xi[i]); backward, d_h0 is the
+  unrounded d_h rounded once to bf16 and d_pxi the f32 sum of bf16(d_h)
+  rounded once.  ``fused_edge_tail_agg_pregathered_bf16_plain`` and
+  ``_bwd_plain`` are its plain versions; the kernels are the pregathered
+  entry of ``csrc/fused_edge_tail_agg_bf16.cu``
+  (``FusedEdgeTailAggPregatheredBf16``), compiled for (H, C) = (64, 32)
+  only.
 * On CUDA tensors the wrappers go through ``FusedEdgeTailAgg``,
   ``FusedEdgeTailAggPregathered`` and ``FusedEdgeTailAggPe``,
   ``torch.autograd.Function``s whose forward launches
@@ -87,7 +99,8 @@ LN_EPS = 1e-5
 KERNEL_WIDTHS = {"fold": {(32, 64, 32), (128, 128, 128)},
                  "pregathered": {(64, 32), (128, 128)},
                  "pe": {(128, 128)},
-                 "fold_bf16": {(32, 64, 32)}}
+                 "fold_bf16": {(32, 64, 32)},
+                 "pregathered_bf16": {(64, 32)}}
 #: the C entry's ``entry`` argument
 ENTRY = {"pregathered": 0, "fold": 1, "pe": 2}
 #: edges per tile of every forward build (two scratch rows per tile)
@@ -110,9 +123,10 @@ GRAD_NAMES_PE = ("pe", "pxj", "pxi", "w_rest", "b_rest", "w_out", "b_out",
 GRAD_F32_BF16 = ("ln_s", "ln_b")
 
 FWD, BWD = "fused_edge_tail_agg", "fused_edge_tail_agg_bwd"
-#: the bf16 lane's library and its two C functions
+#: the bf16 lane's library and its C functions: fold, then pregathered
 BF16 = "fused_edge_tail_agg_bf16"
 BF16_FWD, BF16_BWD = f"{BF16}_fwd", f"{BF16}_bwd"
+BF16_PRE_FWD, BF16_PRE_BWD = f"{BF16}_pregathered_fwd", f"{BF16}_pregathered_bwd"
 _ARGTYPES = {
     FWD: [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     BWD: [ctypes.c_void_p] * 19 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
@@ -120,12 +134,17 @@ _ARGTYPES = {
     + [ctypes.c_void_p],
     BF16_BWD: [ctypes.c_void_p] * 18 + [ctypes.c_int] * 7
     + [ctypes.c_void_p],
+    BF16_PRE_FWD: [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+    + [ctypes.c_void_p],
+    BF16_PRE_BWD: [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
+    + [ctypes.c_void_p],
 }
 
 #: Launches of each kernel so far (one per launch, nowhere else): the fold
 #: entry at width 64 (``launches``) and 128 (``launches_fold128``), the
-#: pregathered entry at either width, the pe entry, and the fold entry's
-#: bf16 build (``launches_bf16``); ``*_bwd`` the backward's.
+#: pregathered entry at either width, the pe entry, and the bf16 builds of
+#: the fold entry (``launches_bf16``) and of the pregathered entry
+#: (``launches_pregathered_bf16``); ``*_bwd`` the backward's.
 launches = 0
 launches_bwd = 0
 launches_fold128 = 0
@@ -136,6 +155,8 @@ launches_pe = 0
 launches_pe_bwd = 0
 launches_bf16 = 0
 launches_bf16_bwd = 0
+launches_pregathered_bf16 = 0
+launches_pregathered_bf16_bwd = 0
 #: each counter's name in ``launch_counts``
 _COUNTERS = {"launches": "fused_edge_fwd", "launches_bwd": "fused_edge_bwd",
              "launches_fold128": "fused_edge_fold128_fwd",
@@ -145,7 +166,10 @@ _COUNTERS = {"launches": "fused_edge_fwd", "launches_bwd": "fused_edge_bwd",
              "launches_pe": "fused_edge_pe_fwd",
              "launches_pe_bwd": "fused_edge_pe_bwd",
              "launches_bf16": "fused_edge_bf16_fwd",
-             "launches_bf16_bwd": "fused_edge_bf16_bwd"}
+             "launches_bf16_bwd": "fused_edge_bf16_bwd",
+             "launches_pregathered_bf16": "fused_edge_pregathered_bf16_fwd",
+             "launches_pregathered_bf16_bwd":
+                 "fused_edge_pregathered_bf16_bwd"}
 
 
 def reset_launches() -> None:
@@ -319,8 +343,9 @@ def _check(e0, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest, w_out,
 
 
 def _check_pregathered(h0, pxi, rowptr, w_rest, b_rest, w_out, b_out, ln_s,
-                       ln_b):
-    """The pregathered entry's operands; returns (E, (H, C), L1, N)."""
+                       ln_b, dtype=torch.float32):
+    """The pregathered entry's operands, all f32 or (``dtype`` bf16) the
+    bf16 lane's; returns (E, (H, C), L1, N)."""
     if h0.dim() != 2 or rowptr.dim() != 1:
         raise ValueError("h0 must be (E, H) and rowptr (N+1,)")
     E, h = h0.shape
@@ -329,7 +354,9 @@ def _check_pregathered(h0, pxi, rowptr, w_rest, b_rest, w_out, b_out, ln_s,
     _check_operands(
         dict(h0=h0, pxi=pxi, w_rest=w_rest, b_rest=b_rest, w_out=w_out,
              b_out=b_out, ln_s=ln_s, ln_b=ln_b),
-        dict(rowptr=rowptr), dict(pxi=(n, h), **tail))
+        dict(rowptr=rowptr), dict(pxi=(n, h), **tail),
+        {name: dtype for name in GRAD_NAMES_PREGATHERED
+         if name not in GRAD_F32_BF16})
     _check_rows(h0, rowptr, E)
     return E, (h, c), l1, n
 
@@ -669,20 +696,36 @@ def fused_edge_tail_agg_pe_bwd(pe, pxj, pxi, senders, rowptr, snd_ptr,
 
 # ---- the fold entry's bf16 lane -----------------------------------------
 
-def _bf16_chain(e0, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest,
-                w_out, b_out):
-    """The bf16 lane's recompute, as the TPU kernel rounds it: (receivers,
-    [h_0 .. h_L1] bf16, y = h_L1 . W_out + b_out f32 before LayerNorm).
-    bf16 operands meet in f32 products (exact) with f32 sums."""
+def _bf16_tail(z, w_rest, b_rest, w_out, b_out):
+    """The bf16 lane's tail from the first pre-activation z (f32), as the
+    TPU kernels round it: ([h_0 .. h_L1] bf16, y = h_L1 . W_out + b_out f32
+    before LayerNorm).  bf16 operands meet in f32 products (exact) with f32
+    sums."""
     f = torch.Tensor.float
-    receivers = _receivers(rowptr)
-    z = ((f(e0) @ f(we) + f(be))
-         + (f(pxj).index_select(0, senders) + f(pxi).index_select(0, receivers)))
     hs = [torch.relu(z).bfloat16()]
     for k in range(w_rest.shape[0]):
         hs.append(torch.relu(f(hs[-1]) @ f(w_rest[k])
                              + f(b_rest[k])).bfloat16())
-    return receivers, hs, f(hs[-1]) @ f(w_out) + f(b_out)
+    return hs, f(hs[-1]) @ f(w_out) + f(b_out)
+
+
+def _bf16_chain(e0, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest,
+                w_out, b_out):
+    """The fold entry's bf16 recompute: (receivers, [h_0 .. h_L1] bf16, y
+    f32 before LayerNorm)."""
+    f = torch.Tensor.float
+    receivers = _receivers(rowptr)
+    z = ((f(e0) @ f(we) + f(be))
+         + (f(pxj).index_select(0, senders) + f(pxi).index_select(0, receivers)))
+    return (receivers, *_bf16_tail(z, w_rest, b_rest, w_out, b_out))
+
+
+def _bf16_pregathered_chain(h0, pxi, rowptr, w_rest, b_rest, w_out, b_out):
+    """The pregathered entry's bf16 recompute, z = f32(h0) + f32(pxi[i]):
+    (receivers, [h_0 .. h_L1] bf16, y f32 before LayerNorm)."""
+    receivers = _receivers(rowptr)
+    z = h0.float() + pxi.float().index_select(0, receivers)
+    return (receivers, *_bf16_tail(z, w_rest, b_rest, w_out, b_out))
 
 
 def _ln_stats(y):
@@ -693,17 +736,51 @@ def _ln_stats(y):
     return (y - mu) * inv, inv
 
 
+def _bf16_out(receivers, y, n, ln_s, ln_b):
+    """out[i] = Σ bf16(LayerNorm(y)) over the edges of i, in f32: (n, C)."""
+    xhat, _ = _ln_stats(y)
+    y = (xhat * ln_s + ln_b).bfloat16().float()
+    out = torch.zeros(n, y.shape[1], dtype=torch.float32, device=y.device)
+    return out.index_add_(0, receivers, y)
+
+
+def _rnd(t):
+    """t rounded to bf16, as f32."""
+    return t.bfloat16().float()
+
+
+def _bf16_tail_bwd(receivers, hs, y, g, w_rest, w_out, ln_s):
+    """The bf16 tail's backward, step by step at the TPU kernels' rounding
+    points: (d_h, (d_wr, d_br, d_wo, d_bo, d_ls, d_lb)), d_h the unrounded
+    f32 gradient of the first pre-activation z, the rest f32."""
+    f = torch.Tensor.float
+    xhat, inv = _ln_stats(y)
+    d_out = _rnd(g).index_select(0, receivers)
+    d_ls, d_lb = (d_out * xhat).sum(0), d_out.sum(0)
+    d_xhat = d_out * ln_s
+    d_y = inv * (d_xhat - d_xhat.mean(-1, keepdim=True)
+                 - xhat * (d_xhat * xhat).mean(-1, keepdim=True))
+    d_wo, d_bo = f(hs[-1]).t() @ _rnd(d_y), d_y.sum(0)
+    d_h = _rnd(d_y) @ f(w_out).t()
+    l1, h = w_rest.shape[0], w_out.shape[0]
+    d_wr, d_br = [None] * l1, [None] * l1
+    for k in reversed(range(l1)):
+        d_h = d_h * (hs[k + 1] > 0)
+        d_wr[k], d_br[k] = f(hs[k]).t() @ _rnd(d_h), d_h.sum(0)
+        d_h = _rnd(d_h) @ f(w_rest[k]).t()
+    d_h = d_h * (hs[0] > 0)
+    return d_h, (torch.stack(d_wr) if l1 else d_h.new_zeros(0, h, h),
+                 torch.stack(d_br) if l1 else d_h.new_zeros(0, h),
+                 d_wo, d_bo, d_ls, d_lb)
+
+
 def fused_edge_tail_agg_bf16_plain(e0, we, be, pxj, pxi, senders, rowptr,
                                    w_rest, b_rest, w_out, b_out, ln_s, ln_b):
     """Plain PyTorch version of the fold entry's bf16 build: the kernel's
     operands (module docstring) and its (N, C) f32 result."""
     receivers, _, y = _bf16_chain(e0, we, be, pxj, pxi, senders, rowptr,
                                   w_rest, b_rest, w_out, b_out)
-    xhat, _ = _ln_stats(y)
-    y = (xhat * ln_s + ln_b).bfloat16().float()
-    out = torch.zeros(rowptr.numel() - 1, y.shape[1], dtype=torch.float32,
-                      device=y.device)
-    return out.index_add_(0, receivers, y)
+    return _bf16_out(receivers, y, rowptr.numel() - 1, ln_s, ln_b)
 
 
 def fused_edge_tail_agg_bf16_bwd_plain(e0, we, be, pxj, pxi, senders, rowptr,
@@ -713,40 +790,47 @@ def fused_edge_tail_agg_bf16_bwd_plain(e0, we, be, pxj, pxi, senders, rowptr,
     in ``GRAD_NAMES`` order, each in its operand's dtype, step by step at
     the rounding points of ``_fused2r_bwd_pallas`` (module docstring)."""
     f = torch.Tensor.float
-
-    def rnd(t):
-        return t.bfloat16().float()
-
     receivers, hs, y = _bf16_chain(e0, we, be, pxj, pxi, senders, rowptr,
                                    w_rest, b_rest, w_out, b_out)
-    xhat, inv = _ln_stats(y)
-    d_out = rnd(g).index_select(0, receivers)
-    d_ls, d_lb = (d_out * xhat).sum(0), d_out.sum(0)
-    d_xhat = d_out * ln_s
-    d_y = inv * (d_xhat - d_xhat.mean(-1, keepdim=True)
-                 - xhat * (d_xhat * xhat).mean(-1, keepdim=True))
-    d_wo, d_bo = f(hs[-1]).t() @ rnd(d_y), d_y.sum(0)
-    d_h = rnd(d_y) @ f(w_out).t()
-    l1, h = w_rest.shape[0], we.shape[1]
-    d_wr, d_br = [None] * l1, [None] * l1
-    for k in reversed(range(l1)):
-        d_h = d_h * (hs[k + 1] > 0)
-        d_wr[k], d_br[k] = f(hs[k]).t() @ rnd(d_h), d_h.sum(0)
-        d_h = rnd(d_h) @ f(w_rest[k]).t()
-    d_h = d_h * (hs[0] > 0)
-    d16 = rnd(d_h)
-    n = rowptr.numel() - 1
+    d_h, tail = _bf16_tail_bwd(receivers, hs, y, g, w_rest, w_out, ln_s)
+    d16 = _rnd(d_h)
+    n, h = rowptr.numel() - 1, we.shape[1]
     nodes = torch.zeros(2, n, h, dtype=torch.float32, device=d16.device)
     nodes[0].index_add_(0, senders.long(), d16)
     nodes[1].index_add_(0, receivers, d16)
     grads = (d16 @ f(we).t(), f(e0).t() @ d16, d_h.sum(0), nodes[0],
-             nodes[1],
-             torch.stack(d_wr) if l1 else d16.new_zeros(0, h, h),
-             torch.stack(d_br) if l1 else d16.new_zeros(0, h),
-             d_wo, d_bo, d_ls, d_lb)
+             nodes[1], *tail)
     operands = (e0, we, be, pxj, pxi, w_rest, b_rest, w_out, b_out, ln_s,
                 ln_b)
     return tuple(d.to(t.dtype) for d, t in zip(grads, operands))
+
+
+def fused_edge_tail_agg_pregathered_bf16_plain(h0, pxi, rowptr, w_rest,
+                                               b_rest, w_out, b_out, ln_s,
+                                               ln_b):
+    """Plain PyTorch version of the pregathered entry's bf16 build: the
+    kernel's operands (module docstring) and its (N, C) f32 result."""
+    receivers, _, y = _bf16_pregathered_chain(h0, pxi, rowptr, w_rest, b_rest,
+                                              w_out, b_out)
+    return _bf16_out(receivers, y, rowptr.numel() - 1, ln_s, ln_b)
+
+
+def fused_edge_tail_agg_pregathered_bf16_bwd_plain(h0, pxi, rowptr, w_rest,
+                                                   b_rest, w_out, b_out,
+                                                   ln_s, ln_b, g):
+    """Plain backward of the pregathered entry's bf16 build: the gradients
+    of ``sum(out * g)`` in ``GRAD_NAMES_PREGATHERED`` order, each in its
+    operand's dtype, at the rounding points of ``_fused_bwd_pallas``: d_h0
+    the unrounded d_h, d_pxi the f32 sum of bf16(d_h), each then cast to
+    bf16 as the JAX VJP casts them (``pallas_kernels.py:617-622``)."""
+    receivers, hs, y = _bf16_pregathered_chain(h0, pxi, rowptr, w_rest,
+                                               b_rest, w_out, b_out)
+    d_h, tail = _bf16_tail_bwd(receivers, hs, y, g, w_rest, w_out, ln_s)
+    d_pxi = torch.zeros(rowptr.numel() - 1, h0.shape[1], dtype=torch.float32,
+                        device=d_h.device).index_add_(0, receivers, _rnd(d_h))
+    operands = (h0, pxi, w_rest, b_rest, w_out, b_out, ln_s, ln_b)
+    return tuple(d.to(t.dtype)
+                 for d, t in zip((d_h, d_pxi, *tail), operands))
 
 
 def _check_bf16(*operands):
@@ -754,22 +838,38 @@ def _check_bf16(*operands):
     return _check(*operands, dtype=torch.bfloat16)
 
 
-def _check_build_bf16(widths: tuple, l1: int) -> None:
-    """Raise unless the bf16 kernels are compiled for (Ce, H, C)
-    ``widths`` and ``l1`` tail layers."""
-    if widths not in KERNEL_WIDTHS["fold_bf16"] or l1 > KERNEL_BWD_MAX_L1:
+def _check_pregathered_bf16(*operands):
+    """The bf16 pregathered entry's operands; returns (E, (H, C), L1, N)."""
+    return _check_pregathered(*operands, dtype=torch.bfloat16)
+
+
+def _check_build_bf16(entry: str, widths: tuple, l1: int) -> None:
+    """Raise unless ``entry``'s bf16 kernels (``fold`` or
+    ``pregathered``) are compiled for ``widths`` ((Ce, H, C) for fold, (H,
+    C) for pregathered) and ``l1`` tail layers."""
+    built = KERNEL_WIDTHS[f"{entry}_bf16"]
+    if widths not in built or l1 > KERNEL_BWD_MAX_L1:
+        names = "(Ce, H, C)" if entry == "fold" else "(H, C)"
         raise NotImplementedError(
-            f"the fold entry's bf16 CUDA kernels are compiled for (Ce, H, C) "
-            f"in {sorted(KERNEL_WIDTHS['fold_bf16'])} with at most "
-            f"{KERNEL_BWD_MAX_L1} tail layers, got {widths} and L1 = {l1}: "
-            f"no bf16 build at that width (ROADMAP.md B.1.1)")
+            f"the {entry} entry's bf16 CUDA kernels are compiled for {names} "
+            f"in {sorted(built)} with at most {KERNEL_BWD_MAX_L1} tail "
+            f"layers, got {widths} and L1 = {l1}: no bf16 build at that "
+            f"width (ROADMAP.md B.1.1 (b))")
+
+
+def _check_g(g, dev, n, c):
+    """The cotangent of a bf16 forward's result: f32 (n, c) on ``dev``."""
+    if (g.device != dev or g.dtype != torch.float32
+            or tuple(g.shape) != (n, c) or not g.is_contiguous()):
+        raise ValueError(f"g must be a contiguous float32 ({n}, {c}) tensor "
+                         f"on {dev}")
 
 
 def _launch_bf16_fwd(e0, we, be, pxj, pxi, senders, rowptr, *tail):
     """The bf16 forward kernel; (N, C) f32."""
     E, widths, l1, n = _check_bf16(e0, we, be, pxj, pxi, senders, rowptr,
                                    *tail)
-    _check_build_bf16(widths, l1)
+    _check_build_bf16("fold", widths, l1)
     _check_device(e0)
     _check_aligned(e0=e0, pxj=pxj, pxi=pxi)
     ce, h, c = widths
@@ -795,14 +895,11 @@ def _launch_bf16_bwd(e0, we, be, pxj, pxi, senders, rowptr, *tail_and_g):
     *tail, g = tail_and_g
     E, widths, l1, n = _check_bf16(e0, we, be, pxj, pxi, senders, rowptr,
                                    *tail)
-    _check_build_bf16(widths, l1)
+    _check_build_bf16("fold", widths, l1)
     _check_device(e0)
     _check_aligned(e0=e0, pxj=pxj, pxi=pxi)
     ce, h, c = widths
-    if (g.device != e0.device or g.dtype != torch.float32
-            or tuple(g.shape) != (n, c) or not g.is_contiguous()):
-        raise ValueError(f"g must be a contiguous float32 ({n}, {c}) tensor "
-                         f"on {e0.device}")
+    _check_g(g, e0.device, n, c)
     dev = e0.device
     sizes = [ce * h, h, l1 * h * h, l1 * h, h * c, c, c, c]
     n_blocks = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -881,3 +978,116 @@ def fused_edge_tail_agg_bf16_bwd(e0, we, be, pxj, pxi, senders, rowptr,
         _check_bf16(*operands)
         return fused_edge_tail_agg_bf16_bwd_plain(*operands, g)
     return _launch_bf16_bwd(*operands, g.contiguous())
+
+
+# ---- the pregathered entry's bf16 lane ----------------------------------
+
+def _launch_pregathered_bf16_fwd(h0, pxi, rowptr, *tail):
+    """The bf16 pregathered forward kernel; (N, C) f32."""
+    E, widths, l1, n = _check_pregathered_bf16(h0, pxi, rowptr, *tail)
+    _check_build_bf16("pregathered", widths, l1)
+    _check_device(h0)
+    _check_aligned(h0=h0, pxi=pxi)
+    h, c = widths
+    dev = h0.device
+    out = torch.zeros(n, c, dtype=torch.float32, device=dev)
+    part = torch.empty(part_rows(E, FWD_TILE), c, dtype=torch.float32,
+                       device=dev)
+    fn = cuda_build.function(BF16, _ARGTYPES[BF16_PRE_FWD],
+                             symbol=BF16_PRE_FWD)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*(t.data_ptr() for t in (h0, pxi, rowptr, *tail, out, part)),
+                 n, E, h, c, l1, stream)
+    if err != 0:
+        raise RuntimeError(f"{BF16_PRE_FWD} launch failed: cudaError {err}")
+    globals()["launches_pregathered_bf16"] += 1
+    return out
+
+
+def _launch_pregathered_bf16_bwd(h0, pxi, rowptr, *tail_and_g):
+    """The bf16 pregathered backward kernel: the gradients in
+    ``GRAD_NAMES_PREGATHERED`` order, each in its operand's dtype."""
+    *tail, g = tail_and_g
+    E, widths, l1, n = _check_pregathered_bf16(h0, pxi, rowptr, *tail)
+    _check_build_bf16("pregathered", widths, l1)
+    _check_device(h0)
+    _check_aligned(h0=h0, pxi=pxi)
+    h, c = widths
+    _check_g(g, h0.device, n, c)
+    dev = h0.device
+    sizes = [l1 * h * h, l1 * h, h * c, c, c, c]
+    n_blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+    d_h0 = torch.empty_like(h0)
+    d_pxi = torch.zeros(n, h, dtype=torch.float32, device=dev)  # atomics
+    wgrad = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    partial = torch.empty(n_blocks, sum(sizes), dtype=torch.float32,
+                          device=dev)
+    fn = cuda_build.function(BF16, _ARGTYPES[BF16_PRE_BWD],
+                             symbol=BF16_PRE_BWD)
+    w_rest, b_rest, w_out, b_out, ln_s, _ = tail
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*(t.data_ptr() for t in (
+            h0, pxi, rowptr, w_rest, b_rest, w_out, b_out, ln_s, g, d_h0,
+            d_pxi, wgrad, partial)), n, E, h, c, l1, n_blocks, stream)
+    if err != 0:
+        raise RuntimeError(f"{BF16_PRE_BWD} launch failed: cudaError {err}")
+    globals()["launches_pregathered_bf16_bwd"] += 1
+    d_wr, d_br, d_wo, d_bo, d_ls, d_lb = wgrad.split(sizes)
+    bf = torch.bfloat16
+    return (d_h0, d_pxi.to(bf), d_wr.view(l1, h, h).to(bf),
+            d_br.view(l1, h).to(bf), d_wo.view(h, c).to(bf), d_bo.to(bf),
+            d_ls, d_lb)
+
+
+class FusedEdgeTailAggPregatheredBf16(torch.autograd.Function):
+    """The pregathered entry's bf16 build as one differentiable function of
+    (h0, pxi, w_rest, b_rest, w_out, b_out, ln_s, ln_b), its gradients in
+    their operands' dtypes (``rowptr`` gets none): the two CUDA kernels,
+    or (``plain``) the two plain versions."""
+
+    @staticmethod
+    def forward(ctx, plain, h0, pxi, rowptr, *tail):
+        operands = tuple(t.detach() for t in (h0, pxi, rowptr, *tail))
+        ctx.plain = plain
+        ctx.save_for_backward(*operands)
+        if plain:
+            return fused_edge_tail_agg_pregathered_bf16_plain(*operands)
+        return _launch_pregathered_bf16_fwd(*operands)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        bwd = (fused_edge_tail_agg_pregathered_bf16_bwd_plain if ctx.plain
+               else _launch_pregathered_bf16_bwd)
+        d_h0, d_pxi, *d_tail = bwd(*ctx.saved_tensors, g.contiguous())
+        return (None, d_h0, d_pxi, None, *d_tail)
+
+
+def fused_edge_tail_agg_pregathered_bf16(h0, pxi, rowptr, w_rest, b_rest,
+                                         w_out, b_out, ln_s, ln_b,
+                                         plain: bool = False):
+    """``fused_edge_tail_agg_pregathered`` in the bf16 lane: the same
+    operands, all bf16 but ln_s and ln_b (f32); (N, C) f32, differentiable
+    in every float operand with its gradient in that operand's dtype.  CUDA
+    tensors launch the bf16 kernels (or raise: only (H, C) = (64, 32) is
+    built); CPU tensors, or ``plain``, take the plain versions."""
+    operands = (h0, pxi, rowptr, w_rest, b_rest, w_out, b_out, ln_s, ln_b)
+    _check_pregathered_bf16(*operands)
+    return FusedEdgeTailAggPregatheredBf16.apply(
+        plain or h0.device.type == "cpu", *operands)
+
+
+def fused_edge_tail_agg_pregathered_bf16_bwd(h0, pxi, rowptr, w_rest, b_rest,
+                                             w_out, b_out, ln_s, ln_b, g):
+    """The eight gradients of ``sum(fused_edge_tail_agg_pregathered_bf16(
+    ...) * g)`` in ``GRAD_NAMES_PREGATHERED`` order: the bf16 backward
+    kernel on CUDA tensors (``d_pxi`` summed with atomics, so its last f32
+    bits vary before the rounding to bf16), the plain version on CPU
+    tensors."""
+    operands = (h0, pxi, rowptr, w_rest, b_rest, w_out, b_out, ln_s, ln_b)
+    if h0.device.type == "cpu":
+        _check_pregathered_bf16(*operands)
+        return fused_edge_tail_agg_pregathered_bf16_bwd_plain(*operands, g)
+    return _launch_pregathered_bf16_bwd(*operands, g.contiguous())

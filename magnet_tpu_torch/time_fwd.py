@@ -1,6 +1,6 @@
 """The fused GraphNet forward of this checkout against another tree's, in
 turns on one card: #8 at width 64 and 128, #6, and #2 at width 128; or,
-with ``dtype=bf16``, #8's bf16 build against its f32 build.
+with ``dtype=bf16``, #8's and #2's bf16 builds against their f32 builds.
 
   python -m magnet_tpu_torch.time_fwd [baseline=DIR] [dtype=bf16]
 
@@ -18,11 +18,13 @@ launches, in turns: baseline, this, this, baseline.  Prints the card's
 name and power limit, then one JSON line per kernel and shape: the edge
 count, the times, each library's mean, the bounds (f32 CUDA cores and
 three TF32 products on the tensor cores) and the errors.  With
-``dtype=bf16`` it times, at MAgNet[CNN] 1D's eval and training graphs,
-this checkout's f32 fold build (``f32``) and its bf16 build
-(``csrc/fused_edge_tail_agg_bf16.cu``, ``bf16``, on the same operands
-rounded to bf16) in turns: f32, bf16, bf16, f32, each against its own
-plain version, with the bf16 bound (one product at 989 TFLOP/s).  Its
+``dtype=bf16`` it times, at MAgNet[CNN] 1D's eval and training graphs and
+MAgNet[CNN] 2D's eval graph, this checkout's f32 fold build (``f32``) and
+its bf16 build (``csrc/fused_edge_tail_agg_bf16.cu``, ``bf16``, on the
+same operands rounded to bf16), and at MAgNet[CNN] 2D's training graph
+(32 samples) the pregathered entry's two builds (#2), in turns: f32, bf16,
+bf16, f32, each against its own plain version, with the bf16 bound (one
+product at 989 TFLOP/s; the pregathered forward is bound by bytes).  Its
 graphs, library binding and in-turn timing serve ``time_bwd`` too.
 """
 from __future__ import annotations
@@ -50,8 +52,10 @@ from magnet_tpu_torch.ops import fused_edge as fe
 from magnet_tpu_torch.ops.graph import part_rows
 from magnet_tpu_torch.utils import make_coord_np
 
-# H100 SXM data sheet, FLOP/s: f32 CUDA cores, TF32 and bf16 tensor cores
+# H100 SXM data sheet, FLOP/s: f32 CUDA cores, TF32 and bf16 tensor cores;
+# HBM3 bytes/s
 F32_PEAK, TF32_PEAK, BF16_PEAK = 67e12, 495e12, 989e12
+HBM_RATE = 3.35e12
 REPS = 20  # launches a timed run
 #: each entry's TPU kernel (magnet_tpu/ops/pallas_kernels.py)
 KERNEL_NUMBER = {"fold": "#8", "pe": "#6", "pregathered": "#2"}
@@ -73,6 +77,18 @@ def cnn_1d_train_graph():
     return build_graph("magnet_cnn", MAGNET_CNN,
                        {"coords": queries,
                         "lr_frames": np.zeros((32, 1, 1, 128))})
+
+
+def cnn_2d_train_graph(batch_size, seed):
+    """A MAgNet[CNN] 2D training graph: ``batch_size`` samples, each the
+    32 x 32 LR grid and 32 queries drawn from the 64 x 64 mesh."""
+    rng = np.random.default_rng(seed)
+    full = make_coord_np([64, 64])
+    coords = np.stack([full[np.sort(rng.choice(64 * 64, 32, replace=False))]
+                       for _ in range(batch_size)])
+    return build_graph("magnet_cnn_2d", MAGNET_CNN_2D,
+                       {"coords": coords,
+                        "lr_frames": np.zeros((1, 1, 1, 32, 32))})
 
 
 def graphs():
@@ -187,6 +203,34 @@ def runner_bf16(ops):
     return run
 
 
+def pregathered_bf16(ops):
+    """The pregathered entry's operands (h0, pxi, rowptr, tail...) of
+    ``operands("pregathered", ...)``, in the bf16 lane (``to_bf16``)."""
+    src, _, _, _, pxi, _, rowptr, *tail = ops
+    return to_bf16((src, pxi, rowptr, *tail))
+
+
+def runner_pregathered_bf16(ops):
+    """A closure that launches the bf16 pregathered forward's C entry on
+    ``ops`` (``pregathered_bf16``) as its wrapper does and returns out."""
+    fn = cuda_build.function(fe.BF16, fe._ARGTYPES[fe.BF16_PRE_FWD],
+                             symbol=fe.BF16_PRE_FWD)
+    h0, _, rowptr, *tail = ops
+    n, e, l1 = rowptr.numel() - 1, h0.shape[0], tail[0].shape[0]
+    c = tail[2].shape[1]
+    part = torch.empty(part_rows(e, fe.FWD_TILE), c, device=h0.device)
+
+    def run():
+        out = torch.zeros(n, c, device=h0.device)
+        err = fn(*(t.data_ptr() for t in ops), out.data_ptr(),
+                 part.data_ptr(), n, e, h0.shape[1], c, l1,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"launch failed: cudaError {err}")
+        return out
+    return run
+
+
 def cuda_ms(fn):
     for _ in range(3):
         fn()
@@ -260,10 +304,12 @@ def main(argv) -> int:
 
 
 def main_bf16(fn32, dev) -> int:
-    """#8's f32 and bf16 builds in turns at MAgNet[CNN] 1D's graphs."""
+    """#8's f32 and bf16 builds in turns at MAgNet[CNN] 1D's graphs and
+    2D's eval graph, then #2's at 2D's training graph (both models' GraphNet
+    widths are (32, 64, 32), L1 = 3)."""
     ce = c = MAGNET_CNN["latent_dim"]
     h, l1 = MAGNET_CNN["mlp_hidden"], MAGNET_CNN["mlp_layers"] - 1
-    for label, _, graph in graphs()[:2]:
+    for label, _, graph in graphs()[:3]:
         ops = operands("fold", graph, ce, h, c, l1, seed=41, dev=dev)
         ops_bf = to_bf16(ops)
         runs = {"f32": runner(fn32, "fold", ops, (ce, h, c)),
@@ -284,6 +330,31 @@ def main_bf16(fn32, dev) -> int:
             "max_abs_err_vs_plain": err,
             "device": torch.cuda.get_device_name(0)}), flush=True)
         del ops, ops_bf, runs
+    graph = cnn_2d_train_graph(32, seed=7)
+    ops = operands("pregathered", graph, h, h, c, l1, seed=41, dev=dev)
+    ops_bf = pregathered_bf16(ops)
+    src, _, _, _, pxi, _, rowptr, *tail = ops
+    runs = {"f32": runner(fn32, "pregathered", ops, (h, h, c)),
+            "bf16": runner_pregathered_bf16(ops_bf)}
+    err = {"f32": float((runs["f32"]()
+                         - fe.fused_edge_tail_agg_pregathered_plain(
+                             src, pxi, rowptr, *tail)).abs().max()),
+           "bf16": float((runs["bf16"]()
+                          - fe.fused_edge_tail_agg_pregathered_bf16_plain(
+                              *ops_bf)).abs().max())}
+    order, times, mean = in_turns(runs, first="f32", then="bf16")
+    e, n = graph.n_edge, graph.n_node
+    flops = 2.0 * e * (l1 * h * h + h * c)
+    nbytes = (2.0 * (e * h + n * h + l1 * (h * h + h) + h * c + c)
+              + 4.0 * (n + 1 + 2 * c + n * c))
+    print(json.dumps({
+        "kernel": "#2", "entry": "pregathered", "widths": [h, c],
+        "shape": "cnn_2d_train", "n_node": n, "n_edge": e, "l1": l1,
+        "reps": REPS, "order": order, "ms": times, "mean_ms": mean,
+        "tc_bound_ms": 3 * flops / TF32_PEAK * 1e3,
+        "bf16_bound_ms": max(flops / BF16_PEAK, nbytes / HBM_RATE) * 1e3,
+        "max_abs_err_vs_plain": err,
+        "device": torch.cuda.get_device_name(0)}), flush=True)
     return 0
 
 

@@ -63,12 +63,13 @@ def main(argv=None) -> dict:
     torch.cuda.synchronize()
     fe.reset_launches()
     me.reset_launches()
-    seg.launches = 0
+    seg.launches = seg.launches_bf16 = 0
     t0 = time.perf_counter()
     evaluate(model, batches)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {**fe.launch_counts(), "segment_sum": seg.launches,
+                "segment_sum_bf16": seg.launches_bf16,
                 **me.launches}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:

@@ -11,8 +11,8 @@ graph of ``test_torch_fused_edge.py`` (a receiver of degree 0), packed
 twice.  Then flax's ``Dense``/``LayerNorm`` with ``dtype=bf16``, one
 ``InteractionNetwork`` step and MAgNet[CNN] 1D as a whole against the JAX
 modules in interpret mode on the same parameters, the model's training
-loss and gradients, the models and lanes without a bf16 build, and the
-``graph_dtype`` override through the entry points.
+loss and gradients, the models, lanes and widths without a bf16 build,
+and the ``graph_dtype`` override through the entry points.
 
 Tolerances (both sides bf16 with the same rounding points, f32 sums taken
 in another order, so a value can round to the neighbouring bf16 number,
@@ -33,6 +33,8 @@ in another order, so a value can round to the neighbouring bf16 number,
     of many terms of either sign;
   * against the f32 lane, the bound of ``tests/test_models.py``: the loss
     within 5e-2 relative.
+MAgNet[CNN] 2D's bf16 lane (the pregathered entry's bf16 build) is
+``tests/test_torch_bf16_2d.py``'s.
 """
 import numpy as np
 import pytest
@@ -57,6 +59,7 @@ from magnet_tpu_torch.models.factory import create_model  # noqa: E402
 from magnet_tpu_torch.nn.core import MLP, LayerNorm  # noqa: E402
 from magnet_tpu_torch.nn.graphnet import InteractionNetwork  # noqa: E402
 from magnet_tpu_torch.ops import fused_edge as fe  # noqa: E402
+from magnet_tpu_torch.ops.graph import csr_from_edges  # noqa: E402
 from magnet_tpu_torch.utils import to_device  # noqa: E402
 from magnet_tpu_torch.weights import _processor, state_dict_from_jax  # noqa: E402
 from test_torch_fused_edge import _jax_side, _port_args, _problem  # noqa: E402
@@ -253,8 +256,6 @@ def test_kernels_refuse_cpu_tensors_unbuilt_widths_and_mixed_dtypes():
     as by the f32 kernels), at the one compiled build (32, 64, 32): another
     width raises ``NotImplementedError`` naming the missing build; every
     operand must be in the lane's dtype."""
-    from magnet_tpu_torch.ops.graph import csr_from_edges
-
     z = torch.zeros
     graph = csr_from_edges(torch.tensor([1, 2, 0]), torch.tensor([0, 1, 2]),
                            3)
@@ -423,22 +424,43 @@ def test_bf16_training_loss_trains_and_stays_near_f32(models):
 
 
 def test_bf16_raises_where_there_is_no_bf16_build():
-    """MAgNet[CNN] 2D and MAgNet[GNN] refuse bf16 rather than compute in
-    f32; so does a step on a lane other than fold."""
+    """MAgNet[GNN] refuses bf16 rather than compute in f32, and MAgNet[CNN]
+    2D builds in bf16; a step on the pe lane refuses it, the fold and
+    pregathered lanes run it; the pregathered entry's bf16 kernels refuse
+    the width-128 form, which has no build, and CPU tensors at the built
+    one."""
+    with pytest.raises(NotImplementedError, match="B.1.1"):
+        create_model("magnet_gnn", {"graph_dtype": "bf16"}, device="cpu")
     for name in ("magnet_cnn_2d", "magnet_gnn"):
-        with pytest.raises(NotImplementedError, match="B.1.1"):
-            create_model(name, {"graph_dtype": "bf16"}, device="cpu")
         assert create_model(name, {"graph_dtype": "float32"}, device="cpu")
+    cnn2d = create_model("magnet_cnn_2d", {"graph_dtype": "bf16"},
+                         device="cpu")
+    assert cnn2d._processor.dtype == torch.bfloat16
     with pytest.raises(ValueError, match="unknown dtype"):
         create_model("magnet_cnn", {"graph_dtype": "fp16"}, device="cpu")
     _, tg, x, _, e_csr = _graph_pair(seed=14)
     step = InteractionNetwork(8, 2, 16, dtype=torch.bfloat16)
     xb = torch.from_numpy(x.reshape(-1, 8)).bfloat16()
     eb = torch.from_numpy(e_csr).bfloat16()
-    for impl in ("kernel_pregathered", "kernel_pe"):
+    with pytest.raises(NotImplementedError, match="no bf16 build"):
+        step(xb, eb, tg, impl="kernel_pe")
+    for impl in ("kernel_fold", "kernel_pregathered"):
+        assert step(xb, eb, tg, impl=impl).dtype == torch.bfloat16
+    assert (64, 32) in fe.KERNEL_WIDTHS["pregathered_bf16"]
+    fe._check_build_bf16("pregathered", (64, 32), 3)
+    for widths, l1 in (((128, 128), 3), ((64, 32), 4)):
         with pytest.raises(NotImplementedError, match="no bf16 build"):
-            step(xb, eb, tg, impl=impl)
-    assert step(xb, eb, tg, impl="kernel_fold").dtype == torch.bfloat16
+            fe._check_build_bf16("pregathered", widths, l1)
+    bf, z = torch.bfloat16, torch.zeros
+    graph = csr_from_edges(torch.tensor([1, 2, 0]), torch.tensor([0, 1, 2]),
+                           3)
+    ops = (z(3, 64, dtype=bf), z(3, 64, dtype=bf), graph.rowptr,
+           z(3, 64, 64, dtype=bf), z(3, 64, dtype=bf), z(64, 32, dtype=bf),
+           z(32, dtype=bf), z(32), z(32))
+    with pytest.raises(ValueError, match="no fused edge kernel"):
+        fe._launch_pregathered_bf16_fwd(*ops)
+    with pytest.raises(ValueError, match="no fused edge kernel"):
+        fe._launch_pregathered_bf16_bwd(*ops, z(3, 32))
 
 
 def test_graph_dtype_override_through_the_entry_points(tmp_path):
