@@ -182,7 +182,7 @@ BF16_LOSS_RTOL = 5e-2
 # order: at most the neighbouring bf16 value, 2^-8 relative)
 BF16_SEG_RTOL = 1e-2
 GROUPS = ("cnn", "mpnn_kernels", "mpnn_paths", "cnn2d", "gnn", "gnn2d",
-          "fno", "no_interaction", "cnn_bf16", "cnn2d_bf16")
+          "fno", "no_interaction", "cnn_bf16", "cnn2d_bf16", "gnn_bf16")
 
 
 def emit(obj) -> None:
@@ -792,30 +792,38 @@ def rel_l2(got, want) -> float:
     return float((got - want).norm() / want.norm().clamp_min(1e-30))
 
 
-def tie_receivers_bf16(ops, l1, pregathered=False):
+def tie_receivers_bf16(ops, l1, entry="fold"):
     """``tie_receivers`` on the bf16 lane's recompute (the plain version's
     f32 pre-activations, each activation rounded to bf16): the receivers of
     the edges with a pre-activation within 1e-5 of zero relative to its
     layer's RMS, where the kernel's sums in another order may take the
-    other side of 0.  ``ops`` are the fold entry's, or (``pregathered``)
-    the pregathered entry's, whose first pre-activation h0 + pxi[i] is the
-    same f32 sum of two bf16 values in the kernel and the plain version (no
-    product), so only the tail layers' are searched."""
-    if pregathered:
-        h0, pxi, rowptr, w_rest, b_rest = (
-            t.float() if t.is_floating_point() else t for t in ops[:5])
+    other side of 0.  ``ops`` are the wrapper's operands of ``entry``
+    (fold, pregathered or pe).  The pregathered and pe entries' first
+    pre-activation, h0 + pxi[i] or (pe + pxj[j]) + pxi[i], is the same f32
+    sum of bf16 values in the kernel and the plain version (no product), so
+    only the tail layers' are searched there."""
+    f = [t.float() if t is not None and t.is_floating_point() else t
+         for t in ops]
+    if entry == "fold":
+        e0, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest = f[:9]
+    elif entry == "pregathered":
+        h0, pxi, rowptr, w_rest, b_rest = f[:5]
     else:
-        e0, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest = (
-            t.float() if t.is_floating_point() else t for t in ops[:9])
+        pe, pxj, pxi, senders, rowptr = f[:5]
+        w_rest, b_rest = f[7], f[8]
     n = rowptr.numel() - 1
     deg = (rowptr[1:] - rowptr[:-1]).long()
     receivers = torch.repeat_interleave(torch.arange(n, device=pxi.device),
                                         deg)
-    z = (h0 + pxi[receivers] if pregathered
-         else e0 @ we + be + (pxj[senders.long()] + pxi[receivers]))
+    if entry == "fold":
+        z = e0 @ we + be + (pxj[senders.long()] + pxi[receivers])
+    elif entry == "pregathered":
+        z = h0 + pxi[receivers]
+    else:
+        z = (pe + pxj[senders.long()]) + pxi[receivers]
     near = torch.zeros(z.shape[0], dtype=torch.bool, device=z.device)
     for k in range(l1 + 1):
-        if k or not pregathered:
+        if k or entry == "fold":
             near |= (z.abs() < 1e-5 * z.pow(2).mean().sqrt()).any(1)
         if k < l1:
             z = torch.relu(z).bfloat16().float() @ w_rest[k] + b_rest[k]
@@ -1347,7 +1355,7 @@ def cnn2d_bf16_kernel_phases(dev) -> tuple[int, dict]:
         g = torch.randn(gr.n_node, c, generator=gen).to(dev)
         res = {}
         if label == "train_shape":
-            ties = tie_receivers_bf16(ops_bf, l1, pregathered=True)
+            ties = tie_receivers_bf16(ops_bf, l1, entry="pregathered")
             g[ties] = 0.0
             res["tie_receivers_zeroed"] = int(ties.numel())
             train_g = g
@@ -1662,6 +1670,508 @@ def cnn2d_bf16_phases(dev, data, groups) -> tuple[int, list, dict]:
                 "ms_f32_build_2d_eval_shape": fold_2d["mean_ms"]["f32"],
                 "plain_ms_2d_eval_shape": fold_2d["plain_ms"],
                 "bound_ms_2d_eval_shape": fold_2d["bound_ms"]}})
+
+
+def pe_bf16_bound(kernel: str, graph, h, c, l1) -> dict:
+    """``bf16_bound`` for the pe entry's bf16 build (#6, #7): its
+    operations 2·E·(L1·H² + H·C) at the dense bf16 rate (three times that
+    backward), against pe, the node tables and the bf16 weights read at 2
+    bytes, ln_s, ln_b, g, out, the indices and d_ln at 4, and backward
+    d_pe (bf16) and dz (f32) written per edge."""
+    n, e = graph.n_node, graph.n_edge
+    flops = 2.0 * e * (l1 * h * h + h * c)
+    weights = l1 * (h * h + h) + h * c + c
+    inputs = 2.0 * (e * h + 2 * n * h + weights) + 4.0 * (2 * c + e + n + 1)
+    if kernel == "fwd":
+        nbytes = inputs + 4.0 * n * c
+    elif kernel == "bwd":
+        flops *= 3.0
+        nbytes = (inputs + 4.0 * n * c + 2.0 * (e * h + n * h + weights)
+                  + 4.0 * (e * h + 2 * c))
+    else:
+        raise ValueError(kernel)
+    t_ops, t_bytes = flops / BF16_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+    return {"flops": flops, "bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def bf16_w128_build() -> dict:
+    """The width-128 bf16 library's ptxas lines and each kernel's dynamic
+    shared memory."""
+    import ctypes
+
+    from magnet_tpu_torch.ops import cuda_build
+    from magnet_tpu_torch.ops import fused_edge as fe
+
+    lib = cuda_build.build(fe.BF16_W128)
+    smem = ctypes.CDLL(str(lib)).fused_edge_tail_agg_bf16_w128_smem
+    smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
+    return {"ptxas": ptxas_lines(lib),
+            "smem_bytes": {which: smem(i) for i, which in enumerate((
+                "fwd", "bwd_pass", "bwd_layer_norm_pass", "bwd_wgrad"))}}
+
+
+def gnn_bf16_phases(dev, data, groups) -> tuple[int, list, dict]:
+    """Phases ``gnn_bf16_kernel``, ``gnn_bf16_kernel_bwd``,
+    ``gnn_bf16_slice``, ``gnn_bf16_train``, ``gnn2d_bf16_slice`` and
+    ``gnn2d_bf16_train``: MAgNet[GNN]'s bf16 lane (``graph_dtype=bf16``) at
+    its published width, its four kernels (the width-128 bf16 builds of #8,
+    #9, #6 and #7 in ``csrc/fused_edge_tail_agg_bf16_w128.cu``) against
+    their bf16 plain versions and the f32 kernels, then MAgNet[GNN] 1D
+    through ``evaluate`` and ``Trainer.fit`` (and the pe lane), and 2D at
+    the published 512-node irregular configuration, each on the bf16
+    kernels alone and its eval loss against the f32 lane's.  Returns the
+    exit code, the four kernels' entries and no launches of another
+    group's kernel."""
+    from magnet_tpu_torch.config import MAGNET_GNN
+    from magnet_tpu_torch.eval import evaluate
+    from magnet_tpu_torch.models.factory import create_model
+    from magnet_tpu_torch.ops import fused_edge as fe
+    from magnet_tpu_torch.ops import cuda_build
+    from magnet_tpu_torch.time_fwd import bind, in_turns
+    from magnet_tpu_torch.time_fwd import operands as c_operands
+    from magnet_tpu_torch.time_fwd import runner, runner_bf16_w128, to_bf16
+    from magnet_tpu_torch.utils import to_device
+
+    hp = {**MAGNET_GNN, "graph_dtype": "bf16"}
+    hp2d = {**hp, **GNN2D_HP}
+    h, l1 = hp["mlp_hidden"], hp["mlp_layers"] - 1
+    mp, ts = hp["num_message_passing_steps"], hp["time_slice"]
+    kind2d = "h5_implicit_gnn_2d"
+    model = create_model("magnet_gnn", hp, device=dev, seed=0)
+    eval_batches = data["gnn_eval"]
+    loaders = data["gnn_loaders"]
+    loaders["train"].set_epoch(0)
+    batch0 = to_device(next(iter(loaders["train"])), dev)
+    eg = model.build_graph(to_device(eval_batches[0], dev))
+    tg = model.build_graph(batch0)
+    model2d = create_model("magnet_gnn", hp2d, device=dev, seed=0,
+                           kind=kind2d)
+    eg2d = model2d.build_graph(to_device(data["gnn2d_eval"][0], dev))
+    graphs = {"eval_lr": eg.lr, "eval_all": eg.all, "train_lr": tg.lr,
+              "train_all": tg.all, "gnn2d_eval_all": eg2d.all}
+    small = gnn_small_graph()
+    tiles = tile_edges_graph(fe.FWD_TILE, seed=51)
+    fn32 = bind(cuda_build.build(fe.FWD), fe.FWD)
+    build = bf16_w128_build()
+
+    def wrapper_ops(entry, ops, graph):
+        """The wrapper's operands of the C entry's ``ops``."""
+        if entry == "fold":
+            return ops
+        src, _, _, pxj, pxi, senders, rowptr, *tail = ops
+        return (src, pxj, pxi, senders, rowptr, graph.snd_ptr.to(dev),
+                graph.snd_perm.to(dev), *tail)
+
+    fns = {"fold": (fe.fused_edge_tail_agg_bf16,
+                    fe.fused_edge_tail_agg_bf16_plain,
+                    fe.fused_edge_tail_agg, fe.fused_edge_tail_agg_bf16_bwd,
+                    fe.fused_edge_tail_agg_bf16_bwd_plain,
+                    fe.fused_edge_tail_agg_bwd,
+                    fe.fused_edge_tail_agg_bwd_plain, fe.GRAD_NAMES),
+           "pe": (fe.fused_edge_tail_agg_pe_bf16,
+                  fe.fused_edge_tail_agg_pe_bf16_plain,
+                  fe.fused_edge_tail_agg_pe,
+                  fe.fused_edge_tail_agg_pe_bf16_bwd,
+                  fe.fused_edge_tail_agg_pe_bf16_bwd_plain,
+                  fe.fused_edge_tail_agg_pe_bwd,
+                  fe.fused_edge_tail_agg_pe_bwd_plain, fe.GRAD_NAMES_PE)}
+
+    def bound_of(kernel, entry, graph):
+        return (bf16_bound(kernel, graph, h, h, h, l1) if entry == "fold"
+                else pe_bf16_bound(kernel, graph, h, h, l1))
+
+    # gnn_bf16_kernel: the width-128 bf16 #8 and #6 vs their bf16 plain
+    # versions and vs the f32 kernels on the unrounded operands (receiver
+    # means), at MAgNet[GNN] 1D's eval and training graphs, the 2D eval
+    # graph, the small graph (a degree-0 receiver, a receiver over three
+    # tiles, L1 = 1) and the forward's tile graph; bit-equal launches; times
+    # in turns with the f32 builds
+    t_phase = time.perf_counter()
+    fwd = {}
+    for entry, (fn, plain, fn32_w, *_) in fns.items():
+        rows = {}
+        cases = [(label, gr, l1) for label, gr in graphs.items()]
+        cases += [("small_case", small, GNN_SMALL_L1), ("tile_edges", tiles, l1)]
+        for label, gr, l1c in cases:
+            ops32 = c_operands(entry, gr, h, h, h, l1c, seed=52, dev=dev)
+            ops_bf = to_bf16(ops32)
+            wops_bf = wrapper_ops(entry, ops_bf, gr)
+            got = fn(*wops_bf)
+            torch.cuda.synchronize()
+            res = compare_bf16(got, plain(*wops_bf))
+            deg = gr.degree.to(dev).clamp_min(1.0)[:, None]
+            got32 = fn32_w(*wrapper_ops(entry, ops32, gr))
+            res["vs_f32_kernel"] = compare(got / deg, got32 / deg,
+                                           BF16_VS_F32_RTOL, BF16_VS_F32_ATOL)
+            res["vs_f32_kernel"]["sums_max_abs_err"] = float(
+                (got - got32).abs().max())
+            zero = gr.degree.to(dev) == 0
+            res.update(n_node=gr.n_node, n_edge=gr.n_edge, l1=l1c,
+                       lane=gr.lane, max_degree=int(gr.degree.max()),
+                       n_degree0=int(zero.sum()),
+                       degree0_rows_zero=bool((got[zero] == 0).all()))
+            if label in ("eval_all", "train_all"):
+                order, times, mean = in_turns(
+                    {"f32": runner(fn32, entry, ops32, (h, h, h)),
+                     "bf16": runner_bf16_w128(entry, ops_bf)},
+                    first="f32", then="bf16")
+                res["timing"] = {
+                    "order": order, "ms": times, "mean_ms": mean,
+                    "plain_ms": cuda_ms(lambda: plain(*wops_bf), reps=10),
+                    **bound_of("fwd", entry, gr)}
+            if label == "eval_all":
+                res["bits_equal_run_to_run"] = torch.equal(fn(*wops_bf),
+                                                           fn(*wops_bf))
+            rows[label] = res
+            del ops32, ops_bf, wops_bf, got, got32
+        fwd[entry] = rows
+    fwd_ok = all(r["ok"] and r["vs_f32_kernel"]["ok"] and r["degree0_rows_zero"]
+                 and r.get("bits_equal_run_to_run", True)
+                 for rows in fwd.values() for r in rows.values()) and all(
+        gr.lane == "fold" for gr in graphs.values())
+    emit({"phase": "gnn_bf16_kernel", "ce": h, "h": h, "c": h, "l1": l1,
+          "small_case_l1": GNN_SMALL_L1,
+          "tolerance": {"vs_plain": {"rtol": BF16_RTOL, "atol": BF16_ATOL,
+                                     "max_rel_l2": BF16_L2},
+                        "vs_f32_kernel": {"rtol": BF16_VS_F32_RTOL,
+                                          "atol": BF16_VS_F32_ATOL,
+                                          "of": "receiver means"}},
+          "fold_bf16_w128": fwd["fold"], "pe_bf16": fwd["pe"],
+          "library_ms": None, **build,
+          "seconds": time.perf_counter() - t_phase, "ok": fwd_ok})
+    if not fwd_ok:
+        return 34, [], {}
+
+    # gnn_bf16_kernel_bwd: the width-128 bf16 #9 and #7 (+ the f32 #1 for
+    # the pe entry's d_pxj) vs their bf16 plain versions, every gradient in
+    # its operand's dtype, and vs the f32 kernels, at the training graphs (g
+    # zero on the receivers of relu ties, counted), the small graph and the
+    # tile graph; bit-equal launches; times in turns with the f32 builds
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(53)
+    bwd = {}
+    for entry, (*_, fn_bwd, plain_bwd, fn32_bwd, plain32_bwd,
+                names) in fns.items():
+        rows = {}
+        for label, gr, l1c in (("train_all", tg.all, l1),
+                               ("train_lr", tg.lr, l1),
+                               ("small_case", small, GNN_SMALL_L1),
+                               ("tile_edges", tiles, l1)):
+            ops32 = c_operands(entry, gr, h, h, h, l1c, seed=54, dev=dev)
+            ops_bf = to_bf16(ops32)
+            wops32 = wrapper_ops(entry, ops32, gr)
+            wops_bf = wrapper_ops(entry, ops_bf, gr)
+            g = torch.randn(gr.n_node, h, generator=gen).to(dev)
+            res = {}
+            if label.startswith("train"):
+                ties = tie_receivers_bf16(wops_bf, l1c, entry)
+                g[ties] = 0.0
+                res["tie_receivers_zeroed"] = int(ties.numel())
+            got = fn_bwd(*wops_bf, g)
+            torch.cuda.synchronize()
+            want = plain_bwd(*wops_bf, g)
+            want32 = fn32_bwd(*wops32, g)
+            plain32 = plain32_bwd(*wops32, g)
+            deep = l1c > BF16_VS_F32_DEPTH
+            for name, a, b, b32, p32 in zip(names, got, want, want32,
+                                            plain32):
+                res[name] = compare_grad(a, b, elementwise=False,
+                                         rtol=BF16_RTOL,
+                                         atol_rel=BF16_BWD_ATOL_REL,
+                                         max_l2=BF16_BWD_L2)
+                if b32.numel():
+                    l2, l2_plain = rel_l2(a, b32), rel_l2(b, p32)
+                    res[name].update(
+                        vs_f32_kernel_rel_l2=l2,
+                        plain_bf16_vs_plain_f32_rel_l2=l2_plain,
+                        vs_f32_ok=l2 < BF16_VS_F32_GRAD_L2 or (
+                            deep and l2 <= BF16_VS_F32_DEEP * l2_plain))
+            res["dtypes_ok"] = ([a.dtype for a in got]
+                                == [b.dtype for b in want])
+            res["vs_f32_kernel_ok"] = all(
+                v.get("vs_f32_ok", True) for v in res.values()
+                if isinstance(v, dict))
+            zero = gr.degree.to(dev) == 0
+            res["degree0_rows_zero"] = bool(
+                (got[names.index("pxi")][zero] == 0).all())
+            res.update(n_node=gr.n_node, n_edge=gr.n_edge, l1=l1c)
+            if label == "train_all":
+                res["bits_equal_run_to_run"] = bits_equal_bwd(
+                    fn_bwd, wops_bf, g, names)
+                order, times, mean = in_turns(
+                    {"f32": lambda: fe._launch_bwd(entry, *ops32, g),
+                     "bf16": lambda: fe._launch_bf16_w128_bwd(entry, *ops_bf,
+                                                              g)},
+                    first="f32", then="bf16")
+                res["timing"] = {
+                    "order": order, "ms": times, "mean_ms": mean,
+                    "of": "the kernels' launch sequences (pe: #7 without #1)",
+                    "with_segment_sum_ms": (cuda_ms(
+                        lambda: fn_bwd(*wops_bf, g), reps=10)
+                        if entry == "pe" else None),
+                    "plain_ms": cuda_ms(lambda: plain_bwd(*wops_bf, g),
+                                        reps=5),
+                    **bound_of("bwd", entry, gr)}
+            rows[label] = res
+            del ops32, ops_bf, wops32, wops_bf, got, want, want32, plain32
+        bwd[entry] = rows
+    bwd_ok = all(
+        all(v["ok"] for v in r.values() if isinstance(v, dict) and "ok" in v)
+        and r["dtypes_ok"] and r["vs_f32_kernel_ok"] and r["degree0_rows_zero"]
+        for rows in bwd.values() for r in rows.values())
+    emit({"phase": "gnn_bf16_kernel_bwd", "l1": l1,
+          "tolerance": {"vs_plain": {"max_rel_l2": BF16_BWD_L2,
+                                     "counted_outside": {
+                                         "rtol": BF16_RTOL,
+                                         "atol_rel_to_max": BF16_BWD_ATOL_REL}},
+                        "vs_f32_kernel_max_rel_l2": BF16_VS_F32_GRAD_L2,
+                        "vs_f32_kernel_deeper_than_l1": BF16_VS_F32_DEPTH,
+                        "vs_f32_kernel_deep_times_plain": BF16_VS_F32_DEEP},
+          "fold_bf16_w128": bwd["fold"], "pe_bf16": bwd["pe"],
+          "library_ms": None, "seconds": time.perf_counter() - t_phase,
+          "ok": bwd_ok})
+    if not bwd_ok:
+        return 35, [], {}
+
+    def eval_lane(m, batches, impl, expect):
+        """``evaluate`` of ``m`` on ``batches`` on lane ``impl``, its
+        launches (every counter 0 but ``expect``'s) and times."""
+        m.impl = impl
+        reset_every_launch()
+        t0 = time.perf_counter()
+        metrics, preds = evaluate(m, batches, dev, return_predictions=True)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counts = every_launch()
+        m.impl = "kernel"
+        finite = (all(bool(torch.isfinite(p).all()) for p in preds)
+                  and all(np.isfinite(v) for v in metrics.values()))
+        return {"metrics": metrics, "launches": counts,
+                "expected_launches": {k: expect.get(k, 0) for k in counts},
+                "finite": finite, "seconds_per_batch_first":
+                first_s / len(batches),
+                "shapes": [list(p.shape) for p in preds[:1]]}
+
+    def eval_vs_f32(m, m32, batches):
+        """The bf16 model's eval on ``batches`` (its launches counted)
+        against the f32 model's: loss within BF16_LOSS_RTOL, seconds per
+        batch of each in turns."""
+        n_win = (batches[0]["t"].shape[1] - m.time_slice) // m.time_slice
+        want = n_win * 2 * mp * len(batches)
+        lane = eval_lane(m, batches, "kernel",
+                         {"fused_edge_fold128_bf16_fwd": want})
+        metrics32 = evaluate(m32, batches, dev)
+        order = ["f32", "bf16", "bf16", "f32"]
+        secs = [timed(lambda: evaluate(m32 if o == "f32" else m, batches,
+                                       dev)) / len(batches) for o in order]
+        loss_rel = (abs(lane["metrics"]["test_loss"] - metrics32["test_loss"])
+                    / abs(metrics32["test_loss"]))
+        lane.update(metrics_f32=metrics32, loss_rel_err_vs_f32=loss_rel,
+                    loss_rtol_vs_f32=BF16_LOSS_RTOL,
+                    launches_per_batch=n_win * 2 * mp,
+                    seconds_per_batch_in_turns={"order": order,
+                                                "seconds": secs},
+                    ok=(lane["launches"] == lane["expected_launches"]
+                        and lane["finite"] and loss_rel <= BF16_LOSS_RTOL))
+        return lane
+
+    # gnn_bf16_slice: evaluate() on the 16 Heat trajectories on the bf16
+    # fold kernels alone (90 launches a batch), its eval loss against the
+    # f32 lane's; then the batch on the pe lane's bf16 kernels
+    t_phase = time.perf_counter()
+    model32 = create_model("magnet_gnn", MAGNET_GNN, device=dev, seed=0)
+    slice_1d = eval_vs_f32(model, model32, eval_batches)
+    n_win = (eval_batches[0]["t"].shape[1] - ts) // ts
+    pe_lane = eval_lane(model, eval_batches[:1], "kernel_pe",
+                        {"fused_edge_pe_bf16_fwd": n_win * 2 * mp})
+    pe_lane["loss_rel_err_vs_fold_lane"] = (
+        abs(pe_lane["metrics"]["test_loss"]
+            - slice_1d["metrics"]["test_loss"])
+        / abs(slice_1d["metrics"]["test_loss"]))
+    pe_lane["ok"] = (pe_lane["launches"] == pe_lane["expected_launches"]
+                     and pe_lane["finite"]
+                     and pe_lane["loss_rel_err_vs_fold_lane"] <= BF16_LOSS_RTOL)
+    del model32
+    slice_ok = slice_1d["ok"] and pe_lane["ok"]
+    emit({"phase": "gnn_bf16_slice", "model": "magnet_gnn",
+          "graph_dtype": "bf16", "batches": len(eval_batches),
+          "batch_size": GNN_EVAL_TRAJ,
+          "eval_lr_graph": {"n_node": eg.lr.n_node, "n_edge": eg.lr.n_edge},
+          "eval_all_graph": {"n_node": eg.all.n_node,
+                             "n_edge": eg.all.n_edge},
+          "fold_lane": slice_1d, "pe_lane": pe_lane,
+          "seconds": time.perf_counter() - t_phase, "ok": slice_ok})
+    if not slice_ok:
+        return 36, [], {}
+    eval_launches = (slice_1d["launches"]["fused_edge_fold128_bf16_fwd"],
+                     pe_lane["launches"]["fused_edge_pe_bf16_fwd"])
+
+    def bf16_step(cmp):
+        """``gnn_vs_plain``'s record of a bf16 step, held as the cnn_bf16
+        group holds its step: finite gradients and the loss within 1e-3 of
+        the plain path's (the kernels and the plain versions round at the
+        same points, their f32 sums in another order; the worst gradient's
+        relative L2 is reported)."""
+        cmp.pop("grad_rel_l2_tol")
+        cmp["loss_rtol"] = 1e-3
+        cmp["ok"] = cmp["grads_finite"] and cmp["loss_rel_err"] <= 1e-3
+        return cmp["ok"]
+
+    def fit_bf16(new_model, hp_, loaders_, per_step):
+        """``fit_checkpoint_resume`` over two epochs on the bf16 fold
+        kernels alone, its launches checked; the first step's loss and
+        gradients on the kernels against the plain versions; seconds a step
+        beside the f32 lane's, in turns."""
+        tmodel = new_model(hp_)
+        loaders_["train"].set_epoch(0)
+        b0 = to_device(next(iter(loaders_["train"])), dev)
+        g0 = tmodel.build_graph(b0)
+        plain = gnn_loss_and_grads(tmodel, "plain", b0, g0)
+        step_vs_plain = gnn_vs_plain(tmodel, "kernel", plain, b0, g0)
+        del tmodel
+        n_epochs, steps = 2, len(loaders_["train"])
+        val_batches = len(loaders_["val"])
+        fit, resumed = fit_checkpoint_resume(
+            lambda: new_model(hp_), hp_, loaders_, dev, n_epochs,
+            reset_every_launch, every_launch)
+        counts = fit.pop("launches")
+        want = {k: 0 for k in counts}
+        want["fused_edge_fold128_bf16_fwd"] = per_step * (
+            steps * n_epochs + val_batches * n_epochs)
+        want["fused_edge_fold128_bf16_bwd"] = per_step * steps * n_epochs
+        host_batches = [to_device(b, dev) for b in loaders_["train"]]
+        with tempfile.TemporaryDirectory() as workdir:
+            from magnet_tpu_torch.train.trainer import Trainer
+
+            f32_hp = {k: v for k, v in hp_.items() if k != "graph_dtype"}
+            trainer32 = Trainer(new_model(f32_hp), max_epochs=1,
+                                lr=hp_["lr"], weight_decay=hp_["weight_decay"],
+                                factor=hp_["factor"],
+                                step_size=hp_["step_size"], device=dev,
+                                workdir=workdir)
+            trainer32.setup(steps)
+            trainer32.train_step(host_batches[0])
+            order = ["f32", "bf16", "bf16", "f32"]
+            secs = [timed(lambda: [(trainer32 if o == "f32" else resumed)
+                                   .train_step(b) for b in host_batches])
+                    / steps for o in order]
+            del trainer32
+        bf16_step(step_vs_plain)
+        ok = (counts == want and fit["losses_finite"] and step_vs_plain["ok"]
+              and fit["checkpoint_ok"] and fit["resume_ok"])
+        return {"launches": counts, "expected_launches": want,
+                "launches_per_train_step": per_step, **fit,
+                "loss_falls": falls(fit["epoch_train_losses"]),
+                "step_vs_plain": step_vs_plain,
+                "seconds_per_step_in_turns": {"order": order,
+                                              "seconds": secs},
+                "ok": ok}
+
+    # gnn_bf16_train: Trainer.fit on the KS data through the GNN
+    # datamodule on the bf16 fold kernels alone (40 + 40 launches a step),
+    # checkpoint read back, resume; then one step on the pe lane's bf16
+    # kernels (40 each of #6, #7 and of the f32 #1 for d_pxj)
+    t_phase = time.perf_counter()
+    nt_train = loaders["train"].dataset.data["t"].shape[1]
+    per_step = ((nt_train - ts) // ts) * 2 * mp
+
+    def new_1d(params):
+        return create_model("magnet_gnn", params, device=dev, seed=0)
+
+    train_1d = fit_bf16(new_1d, hp, loaders, per_step)
+    tmodel = new_1d(hp)
+    plain = gnn_loss_and_grads(tmodel, "plain", batch0, tg)
+    reset_every_launch()
+    cmp_pe = gnn_vs_plain(tmodel, "kernel_pe", plain, batch0, tg)
+    cmp_pe["launches"] = every_launch()
+    cmp_pe["expected_launches"] = {
+        k: per_step if k in ("fused_edge_pe_bf16_fwd", "fused_edge_pe_bf16_bwd",
+                             "segment_sum") else 0
+        for k in cmp_pe["launches"]}
+    cmp_pe["ok"] = (bf16_step(cmp_pe)
+                    and cmp_pe["launches"] == cmp_pe["expected_launches"])
+    del tmodel, plain
+    train_ok = train_1d["ok"] and cmp_pe["ok"]
+    emit({"phase": "gnn_bf16_train", "model": "magnet_gnn",
+          "graph_dtype": "bf16", "batch_size": loaders["train"].batch_size,
+          "nt": nt_train,
+          "train_all_graph": {"n_node": tg.all.n_node,
+                              "n_edge": tg.all.n_edge},
+          **train_1d, "pe_lane_step": cmp_pe,
+          "seconds": time.perf_counter() - t_phase, "ok": train_ok})
+    if not train_ok:
+        return 37, [], {}
+
+    # gnn2d_bf16_slice / gnn2d_bf16_train: MAgNet[GNN] 2D at the published
+    # 512-node irregular configuration: one eval batch of the regular 32 x
+    # 32 test grid against the f32 lane, then Trainer.fit on the irregular
+    # split (one step an epoch), each on the bf16 fold kernels alone
+    t_phase = time.perf_counter()
+    model2d32 = create_model("magnet_gnn", {**MAGNET_GNN, **GNN2D_HP},
+                             device=dev, seed=0, kind=kind2d)
+    slice_2d = eval_vs_f32(model2d, model2d32, data["gnn2d_eval"][:1])
+    del model2d32
+    emit({"phase": "gnn2d_bf16_slice", "model": "magnet_gnn", "pos_dim": 2,
+          "graph_dtype": "bf16",
+          "eval_all_graph": {"n_node": eg2d.all.n_node,
+                             "n_edge": eg2d.all.n_edge},
+          **slice_2d, "seconds": time.perf_counter() - t_phase,
+          "ok": slice_2d["ok"]})
+    if not slice_2d["ok"]:
+        return 38, [], {}
+    t_phase = time.perf_counter()
+    loaders2d = data["gnn2d_loaders"]
+    nt2d = loaders2d["train"].dataset.data["t"].shape[1]
+    per_step_2d = ((nt2d - hp2d["time_slice"]) // hp2d["time_slice"]) * 2 * mp
+
+    def new_2d(params):
+        return create_model("magnet_gnn", params, device=dev, seed=0,
+                            kind=kind2d)
+
+    train_2d = fit_bf16(new_2d, hp2d, loaders2d, per_step_2d)
+    emit({"phase": "gnn2d_bf16_train", "model": "magnet_gnn", "pos_dim": 2,
+          "graph_dtype": "bf16",
+          "batch_size": loaders2d["train"].batch_size, **train_2d,
+          "seconds": time.perf_counter() - t_phase, "ok": train_2d["ok"]})
+    if not train_2d["ok"]:
+        return 39, [], {}
+
+    def row(name, entry, direction, replaces, launches, found, timing):
+        return {
+            "name": name, "route": "cuda",
+            "source": "magnet_tpu_torch/csrc/fused_edge_tail_agg_bf16_w128.cu",
+            "entry": entry, "widths": [h, h, h] if entry == "fold" else [h, h],
+            "replaces": f"magnet_tpu/ops/pallas_kernels.py:{replaces}",
+            "launches": launches, "max_abs_err": worst(found),
+            "ms": timing["mean_ms"]["bf16"],
+            "ms_f32_build_in_turns": timing["mean_ms"]["f32"],
+            "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
+            "bound_by": timing["bound_by"], "library_ms": None,
+            "share_of_bound": timing["bound_ms"] / timing["mean_ms"]["bf16"],
+            "share_against": "bound_ms (bf16, 989 TFLOP/s)",
+            "shape": ("eval LR ∪ HR graph" if direction == "fwd"
+                      else "training LR ∪ HR graph"), "ok": True}
+
+    fold_fwd = (eval_launches[0]
+                + train_1d["launches"]["fused_edge_fold128_bf16_fwd"]
+                + slice_2d["launches"]["fused_edge_fold128_bf16_fwd"]
+                + train_2d["launches"]["fused_edge_fold128_bf16_fwd"])
+    fold_bwd = (train_1d["launches"]["fused_edge_fold128_bf16_bwd"]
+                + train_2d["launches"]["fused_edge_fold128_bf16_bwd"])
+    kernels = [
+        row("fused_edge_tail_agg_bf16_w128", "fold", "fwd", 1356, fold_fwd,
+            fwd["fold"], fwd["fold"]["eval_all"]["timing"]),
+        row("fused_edge_tail_agg_bf16_w128_bwd", "fold", "bwd", 1665,
+            fold_bwd, bwd["fold"], bwd["fold"]["train_all"]["timing"]),
+        row("fused_edge_tail_agg_pe_bf16", "pe", "fwd", 929,
+            eval_launches[1] + cmp_pe["launches"]["fused_edge_pe_bf16_fwd"],
+            fwd["pe"], fwd["pe"]["eval_all"]["timing"]),
+        row("fused_edge_tail_agg_pe_bf16_bwd", "pe", "bwd", 1046,
+            cmp_pe["launches"]["fused_edge_pe_bf16_bwd"], bwd["pe"],
+            bwd["pe"]["train_all"]["timing"])]
+    return 0, kernels, {
+        "segment_sum": {"launches_gnn_bf16": cmp_pe["launches"]["segment_sum"]}}
 
 
 def mpnn_operands(graph, h, seed, dev):
@@ -3701,7 +4211,7 @@ def make_data(groups) -> dict:
                      "source": "synthetic_burgers_2d"}
         nt, res = DATAMODULE_GRAPH_2D["nt_train"], DATAMODULE_GRAPH_2D["res_train"]
         jobs = {}
-        if {"cnn", "gnn", "no_interaction", "cnn_bf16"} & groups:
+        if {"cnn", "gnn", "no_interaction", "cnn_bf16", "gnn_bf16"} & groups:
             jobs["ks"] = splits(ks_cfg)
         if {"mpnn_paths", "cnn2d", "cnn2d_bf16"} & groups:
             jobs["b2d"] = {split: pool.submit(
@@ -3714,12 +4224,12 @@ def make_data(groups) -> dict:
             jobs["ce"] = splits({**DATAMODULE_GRAPH, **MPNN_1D_DATA})
         chunks = B2D_TRAJ // DATA_CHUNK
         nt2, res2 = DATAMODULE_2D["nt_train"], DATAMODULE_2D["res_train"]
-        if "gnn2d" in groups:
+        if {"gnn2d", "gnn_bf16"} & groups:
             # the datamodule's own seeded irregular source, a chunk a task
             jobs["gnn2d_train"] = [pool.submit(synthetic_split, {
                 **gnn2d_cfg, "n_train": DATA_CHUNK, "data_seed": 100 + i},
                 "train") for i in range(chunks)]
-        if {"gnn2d", "fno"} & groups:
+        if {"gnn2d", "fno", "gnn_bf16"} & groups:
             jobs["b2d64_eval"] = [pool.submit(make_split, "B2D", DATA_CHUNK,
                                               nt2, res2, seed=100 + chunks + i)
                                   for i in range(chunks)]
@@ -3759,7 +4269,7 @@ def make_data(groups) -> dict:
                 {**DATAMODULE_GRAPH, **MPNN_1D_DATA, "source": "h5",
                  **arrays(jobs["ce"])}, seed=0)
             data["ce_seconds"] = time.perf_counter() - t0
-        if "gnn" in groups:
+        if {"gnn", "gnn_bf16"} & groups:
             # the cnn group's KS and Heat trajectories
             data["gnn_loaders"] = build_loaders(
                 {**DATAMODULE_IMPLICIT_GNN, **SMOKE_DATA, "source": "h5",
@@ -3769,7 +4279,7 @@ def make_data(groups) -> dict:
             data["gnn_seconds"] = time.perf_counter() - t0
         if "b2d64_eval" in jobs:
             eval64 = joined(jobs["b2d64_eval"])
-        if "gnn2d" in groups:
+        if {"gnn2d", "gnn_bf16"} & groups:
             regular = regular_32(eval64)
             data["gnn2d_loaders"] = build_loaders(
                 {**gnn2d_cfg, "source": "h5",
@@ -3846,7 +4356,8 @@ def main(argv) -> int:
                                 (("fno",), fno_phases),
                                 (("no_interaction",), no_interaction_phases),
                                 (("cnn_bf16",), cnn_bf16_phases),
-                                (("cnn2d_bf16",), cnn2d_bf16_phases)):
+                                (("cnn2d_bf16",), cnn2d_bf16_phases),
+                                (("gnn_bf16",), gnn_bf16_phases)):
         if set(group_names) & set(groups):
             rc, entries, more = phases(dev, data, groups)
             kernels += entries

@@ -33,17 +33,6 @@ def parse_dtype(name):
     raise ValueError(f"unknown dtype {name!r} (use float32 or bf16)")
 
 
-def f32_graph_only(model: str, hp: dict) -> None:
-    """Read ``graph_dtype`` for a model whose GraphNet stage runs in f32
-    only (MAgNet[GNN], whose width-128 bf16 forms are not built yet; the
-    MAgNet[CNN] models run bf16): raise on bf16 rather than compute in f32
-    what the JAX model computes in bf16."""
-    if parse_dtype(hp.get("graph_dtype")) is not None:
-        raise NotImplementedError(
-            f"{model}: graph_dtype={hp['graph_dtype']} has no bf16 build of "
-            f"its GraphNet kernels yet (ROADMAP.md B.1.1 (b))")
-
-
 def nrmse(pred, target, eps: float = 1e-12):
     """Normalised RMSE over the whole tensor."""
     num = torch.sqrt(torch.mean((pred - target) ** 2))

@@ -13,9 +13,12 @@ coordinates -> the projector seeds HR values -> a second GraphNet pass
 Both radius graphs and the k-NN table are built once per batch on the host
 (coordinates do not change over the rollout) and flattened over the batch,
 so every processor step is one fused-edge kernel launch for the whole
-batch.  Not ported: the graph-partitioned path (``build_graph_partitioned``,
-``forward_partitioned``, ``loss_partitioned``), ``remat`` and
-``graph_dtype``.
+batch.  ``graph_dtype`` (None: f32; bf16) is the compute dtype of both
+GraphNet stages (the two encoders, the two processors and the decoder),
+as the JAX core's ``gk``/``pk`` pass it; the k-NN head and the projector
+stay f32.  Not ported: the graph-partitioned path
+(``build_graph_partitioned``, ``forward_partitioned``,
+``loss_partitioned``) and ``remat``.
 """
 from __future__ import annotations
 
@@ -29,8 +32,8 @@ from torch import nn
 from magnet_tpu_torch.models.common import (
     LOSSES,
     OwnGenerator,
-    f32_graph_only,
     l1_loss,
+    parse_dtype,
     time_windows,
 )
 from magnet_tpu_torch.nn.core import MLP
@@ -58,20 +61,26 @@ class GNNGraphs:
 
 class MAgNetGNNCore(nn.Module):
     """Single-window forward over a batch.  Submodule names are the
-    reference's, so the state_dict keys are too."""
+    reference's, so the state_dict keys are too.  ``graph_dtype`` is the
+    compute dtype of both GraphNet stages (None: f32): where their bf16
+    latents meet the f32 k-NN head and the decoder's bf16 output meets the
+    f32 Euler update, each is cast to f32, as flax promotes bf16 with f32
+    in the JAX model (an exact cast)."""
 
     def __init__(self, time_slice: int = 25, latent_dim: int = 128,
                  num_message_passing_steps: int = 5, mlp_layers: int = 4,
                  mlp_hidden: int = 128, n_chan: int = 128,
-                 interpolation: str = "area", pos_dim: int = 1):
+                 interpolation: str = "area", pos_dim: int = 1,
+                 graph_dtype=None):
         super().__init__()
         tc = time_slice * N_FIELDS
         self.time_slice = time_slice
         self.pos_dim = pos_dim
         self.impl = "kernel"
         enc = (tc + pos_dim + 1, tc + pos_dim, latent_dim, latent_dim,
-               mlp_layers, mlp_hidden)
-        proc = (latent_dim, num_message_passing_steps, mlp_layers, mlp_hidden)
+               mlp_layers, mlp_hidden, graph_dtype)
+        proc = (latent_dim, num_message_passing_steps, mlp_layers, mlp_hidden,
+                graph_dtype)
         self.encoder = GraphEncoder(*enc)
         self.processor = GraphProcessor(*proc)
         self.proj_head = KNNDecoder(latent_dim + N_FIELDS + pos_dim + 1,
@@ -80,7 +89,7 @@ class MAgNetGNNCore(nn.Module):
         self._encoder = GraphEncoder(*enc)
         self._processor = GraphProcessor(*proc)
         self._decoder = GraphDecoder(latent_dim, time_slice, mlp_layers,
-                                     mlp_hidden)
+                                     mlp_hidden, graph_dtype)
 
     @staticmethod
     def _features(feats, coords, t_last, graph: CSRGraph):
@@ -114,8 +123,8 @@ class MAgNetGNNCore(nn.Module):
         lr_encoded = self.processor(nf, ef, graphs.lr, impl=self.impl)
 
         # k-NN INR decode and projector
-        z = self.proj_head(x_lr, lr_encoded.reshape(B, L, -1), lr_coords,
-                           hr_coords, t, graphs.nbr)               # (B,N,T,nc)
+        z = self.proj_head(x_lr, lr_encoded.float().reshape(B, L, -1),
+                           lr_coords, hr_coords, t, graphs.nbr)    # (B,N,T,nc)
         hr_points = self.projector(z)                              # (B,N,T,1)
 
         # second pass over LR ∪ HR
@@ -126,7 +135,7 @@ class MAgNetGNNCore(nn.Module):
             t_last[:, None].expand(B, M, 1).reshape(B * M, 1), graphs.all)
         nf, ef = self._encoder(nf, ef)
         nf = self._processor(nf, ef, graphs.all, impl=self.impl)
-        ret = self._decoder(nf).reshape(B, M, -1)                  # (B, M, T_out)
+        ret = self._decoder(nf).float().reshape(B, M, -1)          # (B, M, T_out)
 
         # Euler update
         last_values = torch.cat(
@@ -150,7 +159,6 @@ class MAgNetGNN(OwnGenerator, MAgNetGNNCore):
 
     def __init__(self, hparams: dict[str, Any], pos_dim: int = 1):
         hp = dict(hparams)
-        f32_graph_only("magnet_gnn", hp)
         super().__init__(
             time_slice=int(hp.get("time_slice", 25)),
             latent_dim=int(hp.get("latent_dim", 128)),
@@ -160,6 +168,7 @@ class MAgNetGNN(OwnGenerator, MAgNetGNNCore):
             n_chan=int(hp.get("n_chan", 128)),
             interpolation=hp.get("interpolation", "area"),
             pos_dim=pos_dim,
+            graph_dtype=parse_dtype(hp.get("graph_dtype")),
         )
         self.radius = float(hp.get("radius", 0.08))
         self.teacher_forcing = bool(hp.get("teacher_forcing", True))

@@ -42,8 +42,11 @@ residual is a bf16 add.  On the ``pregathered`` lane h0 is formed as the
 JAX step forms it in bf16 (``_project_edges``, ``graphnet.py:175-189,
 357-360``): pe = bf16 Dense(e0) with its bias, then s·pe + (1 − s)·b_e,
 then h0 = p_xj[senders] + pe, every operation in bf16 (the f32 lane's
-fold of s into W_e would round the bias term elsewhere).  The ``pe`` lane
-has no bf16 build and raises.
+fold of s into W_e would round the bias term elsewhere).  On the ``pe``
+lane (``impl="kernel_pe"``) pe is formed the same way and the pe entry's
+bf16 build (``fused_edge_tail_agg_pe_bf16``, width 128) gathers p_xj in its
+kernel; its d_p_xj is the f32 segment sum of the unrounded dz, rounded
+once, as the JAX VJP of ``fused_edge_tail_agg2`` forms it.
 """
 from __future__ import annotations
 
@@ -55,6 +58,7 @@ from magnet_tpu_torch.ops.fused_edge import (
     fused_edge_tail_agg,
     fused_edge_tail_agg_bf16,
     fused_edge_tail_agg_pe,
+    fused_edge_tail_agg_pe_bf16,
     fused_edge_tail_agg_plain,
     fused_edge_tail_agg_pregathered,
     fused_edge_tail_agg_pregathered_bf16,
@@ -103,7 +107,7 @@ class InteractionNetwork(nn.Module):
     entry's bf16 build (module docstring); p_xi and p_xj are bias-free
     bf16 Dense outputs, as the JAX step's ``e_w_xi`` / ``e_w_xj``; on the
     ``pregathered`` lane the pregathered entry's bf16 build takes h0 formed
-    in bf16 (module docstring).
+    in bf16 (module docstring), and so does the ``pe`` lane its pe.
     """
 
     def __init__(self, latent: int, mlp_layers: int, mlp_hidden: int,
@@ -163,24 +167,25 @@ class InteractionNetwork(nn.Module):
         return s * pe + (1 - s) * b
 
     def _forward_bf16(self, x, e0, graph: CSRGraph, e_scale, impl):
-        """The bf16 step: x and e0 bf16; the fold and pregathered lanes.
-        In bf16 the lanes round differently, so ``plain`` runs the plain
-        versions of the graph's own lane (the sender gather through f32, so
-        that autograd's ``index_add_`` sums its backward in f32 and rounds
-        once, as the segment sum does)."""
+        """The bf16 step: x and e0 bf16; the fold, pregathered and pe
+        lanes.  In bf16 the lanes round differently, so ``plain`` runs the
+        plain versions of the graph's own lane (the sender gather through
+        f32, so that autograd's ``index_add_`` sums its backward in f32 and
+        rounds once, as the segment sum does)."""
         w0 = self.edge_fn[0].linears[0].weight                   # (H, 3C)
         lane = (lane_of(graph, "graphnet", w0.shape[0])
                 if impl in ("kernel", "plain")
                 else impl.removeprefix("kernel_"))
-        if lane not in ("fold", "pregathered"):
-            raise NotImplementedError(
-                f"the {lane} lane has no bf16 build (graph_dtype=bf16 runs "
-                f"the fold and pregathered lanes; ROADMAP.md B.1.1 (b))")
         plain = impl == "plain"
         c = self.latent
         p_xi = x @ w0[:, :c].t().to(self.dtype)                  # (N, H)
         p_xj = x @ w0[:, c:2 * c].t().to(self.dtype)             # (N, H)
-        if lane == "pregathered":
+        if lane == "pe":
+            agg_sum = fused_edge_tail_agg_pe_bf16(
+                self._pe_bf16(e0, e_scale), p_xj, p_xi, graph.senders,
+                graph.rowptr, graph.snd_ptr, graph.snd_perm,
+                *self.tail_weights())
+        elif lane == "pregathered":
             gathered = (p_xj.float().index_select(0, graph.senders)
                         .to(self.dtype) if plain
                         else gather_rows(p_xj, graph))

@@ -19,8 +19,8 @@ _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 #: every kernel source of the port (``csrc/<name>.cu``).
 KERNELS = ("fused_edge_tail_agg", "fused_edge_tail_agg_bwd",
-           "fused_edge_tail_agg_bf16", "fused_mpnn_edge_agg",
-           "fused_mpnn_edge_agg_bwd", "segment_sum")
+           "fused_edge_tail_agg_bf16", "fused_edge_tail_agg_bf16_w128",
+           "fused_mpnn_edge_agg", "fused_mpnn_edge_agg_bwd", "segment_sum")
 #: nvcc flags; the cached library's name hashes them with the sources.
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")

@@ -48,8 +48,9 @@ y = LN(h·W_out + b_out); the result is out[i] = Σ y over the edges of i,
   ``fused_edge_tail_agg_bf16_plain`` and ``fused_edge_tail_agg_bf16_bwd_
   plain`` are its plain versions, the backward written step by step (not
   autograd through the bf16 forward, which rounds elsewhere); the
-  kernels are ``csrc/fused_edge_tail_agg_bf16.cu`` (``FusedEdgeTailAggBf16``),
-  compiled for (Ce, H, C) = (32, 64, 32) only.
+  kernels are ``csrc/fused_edge_tail_agg_bf16.cu`` (``FusedEdgeTailAggBf16``)
+  at (Ce, H, C) = (32, 64, 32) and ``csrc/fused_edge_tail_agg_bf16_w128.cu``
+  at (128, 128, 128).
 * ``fused_edge_tail_agg_pregathered_bf16`` is the pregathered entry in the
   bf16 lane, the JAX package's ``fused_edge_tail_agg`` on bf16 operands
   (``_fused_fwd_pallas``, ``pallas_kernels.py:278``; ``_fused_bwd_pallas``,
@@ -62,6 +63,20 @@ y = LN(h·W_out + b_out); the result is out[i] = Σ y over the edges of i,
   entry of ``csrc/fused_edge_tail_agg_bf16.cu``
   (``FusedEdgeTailAggPregatheredBf16``), compiled for (H, C) = (64, 32)
   only.
+* ``fused_edge_tail_agg_pe_bf16`` is the pe entry in the bf16 lane, the JAX
+  package's ``fused_edge_tail_agg2`` on bf16 operands (``_fused2_fwd_pallas``,
+  ``pallas_kernels.py:929``; ``_fused2_bwd_pallas``, 1046, and its VJP
+  ``_fused2_bwd``, 1292-1330): pe, p_xj, p_xi and the tail weights in bf16,
+  ln_s and ln_b in f32; z = (f32(pe) + f32(pxj[j])) + f32(pxi[i]) (``pe +
+  g0 + gath``), then the fold entry's bf16 tail.  Backward, as #7 rounds:
+  dz stays unrounded f32, d_pe = bf16(dz), d_pxi the f32 sum of bf16(dz)
+  rounded once, and d_pxj = bf16(the f32 segment sum of the f32 dz over
+  the sender CSR), the f32 #1 on f32 rows and one cast (not the fold
+  lane's sum of bf16(dz)).  ``fused_edge_tail_agg_pe_bf16_plain`` and
+  ``_bwd_plain`` are its plain versions; the kernels are
+  ``csrc/fused_edge_tail_agg_bf16_w128.cu`` (``FusedEdgeTailAggPeBf16``),
+  compiled for (H, C) = (128, 128) only, the source that also holds the
+  fold entry's bf16 build at (128, 128, 128).
 * On CUDA tensors the wrappers go through ``FusedEdgeTailAgg``,
   ``FusedEdgeTailAggPregathered`` and ``FusedEdgeTailAggPe``,
   ``torch.autograd.Function``s whose forward launches
@@ -73,9 +88,10 @@ y = LN(h·W_out + b_out); the result is out[i] = Σ y over the edges of i,
 
 Compiled builds (``KERNEL_WIDTHS``), keyed by what each entry reads: fold
 (Ce, H, C) = (32, 64, 32) (MAgNet[CNN]) and (128, 128, 128) (MAgNet[GNN]);
-pregathered (H, C) = (64, 32) and (128, 128); pe (H, C) = (128, 128).  Every
-forward build walks tiles of ``FWD_TILE`` consecutive CSR edges with its
-products on the tensor cores in 3xTF32 and leaves partial rows
+pregathered (H, C) = (64, 32) and (128, 128); pe (H, C) = (128, 128); in
+bf16 fold (32, 64, 32) and (128, 128, 128), pregathered (64, 32), pe (128,
+128).  Every forward build walks tiles of ``FWD_TILE`` consecutive CSR edges with its
+products on the tensor cores (in 3xTF32, or bf16) and leaves partial rows
 (``ops.graph.part_rows``) for the receivers that cross a tile; the width-64
 backward builds walk tiles of ``BWD_TILE`` edges the same way, one block
 an SM (see the sources' headers).  Bounds on an H100 at MAgNet[GNN]'s eval
@@ -99,8 +115,9 @@ LN_EPS = 1e-5
 KERNEL_WIDTHS = {"fold": {(32, 64, 32), (128, 128, 128)},
                  "pregathered": {(64, 32), (128, 128)},
                  "pe": {(128, 128)},
-                 "fold_bf16": {(32, 64, 32)},
-                 "pregathered_bf16": {(64, 32)}}
+                 "fold_bf16": {(32, 64, 32), (128, 128, 128)},
+                 "pregathered_bf16": {(64, 32)},
+                 "pe_bf16": {(128, 128)}}
 #: the C entry's ``entry`` argument
 ENTRY = {"pregathered": 0, "fold": 1, "pe": 2}
 #: edges per tile of every forward build (two scratch rows per tile)
@@ -123,10 +140,13 @@ GRAD_NAMES_PE = ("pe", "pxj", "pxi", "w_rest", "b_rest", "w_out", "b_out",
 GRAD_F32_BF16 = ("ln_s", "ln_b")
 
 FWD, BWD = "fused_edge_tail_agg", "fused_edge_tail_agg_bwd"
-#: the bf16 lane's library and its C functions: fold, then pregathered
+#: the bf16 lane's libraries and their C functions: at width 64 fold, then
+#: pregathered; at width 128 fold and pe (one function each way, by entry)
 BF16 = "fused_edge_tail_agg_bf16"
 BF16_FWD, BF16_BWD = f"{BF16}_fwd", f"{BF16}_bwd"
 BF16_PRE_FWD, BF16_PRE_BWD = f"{BF16}_pregathered_fwd", f"{BF16}_pregathered_bwd"
+BF16_W128 = "fused_edge_tail_agg_bf16_w128"
+BF16_W128_FWD, BF16_W128_BWD = f"{BF16_W128}_fwd", f"{BF16_W128}_bwd"
 _ARGTYPES = {
     FWD: [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     BWD: [ctypes.c_void_p] * 19 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
@@ -138,13 +158,19 @@ _ARGTYPES = {
     + [ctypes.c_void_p],
     BF16_PRE_BWD: [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
     + [ctypes.c_void_p],
+    BF16_W128_FWD: [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4
+    + [ctypes.c_void_p],
+    BF16_W128_BWD: [ctypes.c_void_p] * 20 + [ctypes.c_int] * 5
+    + [ctypes.c_void_p],
 }
 
 #: Launches of each kernel so far (one per launch, nowhere else): the fold
 #: entry at width 64 (``launches``) and 128 (``launches_fold128``), the
 #: pregathered entry at either width, the pe entry, and the bf16 builds of
-#: the fold entry (``launches_bf16``) and of the pregathered entry
-#: (``launches_pregathered_bf16``); ``*_bwd`` the backward's.
+#: the fold entry at width 64 (``launches_bf16``) and 128
+#: (``launches_fold128_bf16``), of the pregathered entry
+#: (``launches_pregathered_bf16``) and of the pe entry
+#: (``launches_pe_bf16``); ``*_bwd`` the backward's.
 launches = 0
 launches_bwd = 0
 launches_fold128 = 0
@@ -157,6 +183,10 @@ launches_bf16 = 0
 launches_bf16_bwd = 0
 launches_pregathered_bf16 = 0
 launches_pregathered_bf16_bwd = 0
+launches_fold128_bf16 = 0
+launches_fold128_bf16_bwd = 0
+launches_pe_bf16 = 0
+launches_pe_bf16_bwd = 0
 #: each counter's name in ``launch_counts``
 _COUNTERS = {"launches": "fused_edge_fwd", "launches_bwd": "fused_edge_bwd",
              "launches_fold128": "fused_edge_fold128_fwd",
@@ -169,7 +199,11 @@ _COUNTERS = {"launches": "fused_edge_fwd", "launches_bwd": "fused_edge_bwd",
              "launches_bf16_bwd": "fused_edge_bf16_bwd",
              "launches_pregathered_bf16": "fused_edge_pregathered_bf16_fwd",
              "launches_pregathered_bf16_bwd":
-                 "fused_edge_pregathered_bf16_bwd"}
+                 "fused_edge_pregathered_bf16_bwd",
+             "launches_fold128_bf16": "fused_edge_fold128_bf16_fwd",
+             "launches_fold128_bf16_bwd": "fused_edge_fold128_bf16_bwd",
+             "launches_pe_bf16": "fused_edge_pe_bf16_fwd",
+             "launches_pe_bf16_bwd": "fused_edge_pe_bf16_bwd"}
 
 
 def reset_launches() -> None:
@@ -362,9 +396,10 @@ def _check_pregathered(h0, pxi, rowptr, w_rest, b_rest, w_out, b_out, ln_s,
 
 
 def _check_pe(pe, pxj, pxi, senders, rowptr, snd_ptr, snd_perm, w_rest,
-              b_rest, w_out, b_out, ln_s, ln_b):
-    """The pe entry's operands; returns (E, (H, C), L1, N).  ``snd_ptr`` and
-    ``snd_perm`` None: the kernels' operands alone."""
+              b_rest, w_out, b_out, ln_s, ln_b, dtype=torch.float32):
+    """The pe entry's operands, all f32 or (``dtype`` bf16) the bf16
+    lane's; returns (E, (H, C), L1, N).  ``snd_ptr`` and ``snd_perm`` None:
+    the kernels' operands alone."""
     if pe.dim() != 2 or rowptr.dim() != 1:
         raise ValueError("pe must be (E, H) and rowptr (N+1,)")
     E, h = pe.shape
@@ -377,7 +412,8 @@ def _check_pe(pe, pxj, pxi, senders, rowptr, snd_ptr, snd_perm, w_rest,
         want.update(snd_ptr=(n + 1,), snd_perm=(E,))
     _check_operands(
         dict(pe=pe, pxj=pxj, pxi=pxi, w_rest=w_rest, b_rest=b_rest,
-             w_out=w_out, b_out=b_out, ln_s=ln_s, ln_b=ln_b), ints, want)
+             w_out=w_out, b_out=b_out, ln_s=ln_s, ln_b=ln_b), ints, want,
+        {name: dtype for name in GRAD_NAMES_PE if name not in GRAD_F32_BF16})
     _check_rows(pe, rowptr, E)
     return E, (h, c), l1, n
 
@@ -844,9 +880,9 @@ def _check_pregathered_bf16(*operands):
 
 
 def _check_build_bf16(entry: str, widths: tuple, l1: int) -> None:
-    """Raise unless ``entry``'s bf16 kernels (``fold`` or
-    ``pregathered``) are compiled for ``widths`` ((Ce, H, C) for fold, (H,
-    C) for pregathered) and ``l1`` tail layers."""
+    """Raise unless ``entry``'s bf16 kernels (``fold``, ``pregathered`` or
+    ``pe``) are compiled for ``widths`` ((Ce, H, C) for fold, (H, C) for the
+    others) and ``l1`` tail layers."""
     built = KERNEL_WIDTHS[f"{entry}_bf16"]
     if widths not in built or l1 > KERNEL_BWD_MAX_L1:
         names = "(Ce, H, C)" if entry == "fold" else "(H, C)"
@@ -854,7 +890,7 @@ def _check_build_bf16(entry: str, widths: tuple, l1: int) -> None:
             f"the {entry} entry's bf16 CUDA kernels are compiled for {names} "
             f"in {sorted(built)} with at most {KERNEL_BWD_MAX_L1} tail "
             f"layers, got {widths} and L1 = {l1}: no bf16 build at that "
-            f"width (ROADMAP.md B.1.1 (b))")
+            f"width (ROADMAP.md B.1.1)")
 
 
 def _check_g(g, dev, n, c):
@@ -866,12 +902,15 @@ def _check_g(g, dev, n, c):
 
 
 def _launch_bf16_fwd(e0, we, be, pxj, pxi, senders, rowptr, *tail):
-    """The bf16 forward kernel; (N, C) f32."""
+    """The bf16 forward kernel (width 64, or width 128's); (N, C) f32."""
     E, widths, l1, n = _check_bf16(e0, we, be, pxj, pxi, senders, rowptr,
                                    *tail)
     _check_build_bf16("fold", widths, l1)
     _check_device(e0)
     _check_aligned(e0=e0, pxj=pxj, pxi=pxi)
+    if widths[1] == 128:
+        return _launch_bf16_w128_fwd("fold", e0, we, be, pxj, pxi, senders,
+                                     rowptr, *tail)
     ce, h, c = widths
     dev = e0.device
     out = torch.zeros(n, c, dtype=torch.float32, device=dev)
@@ -890,8 +929,9 @@ def _launch_bf16_fwd(e0, we, be, pxj, pxi, senders, rowptr, *tail):
 
 
 def _launch_bf16_bwd(e0, we, be, pxj, pxi, senders, rowptr, *tail_and_g):
-    """The bf16 backward kernel: the gradients in ``GRAD_NAMES`` order, each
-    in its operand's dtype."""
+    """The bf16 backward kernel (width 64, or width 128's launch
+    sequence): the gradients in ``GRAD_NAMES`` order, each in its operand's
+    dtype."""
     *tail, g = tail_and_g
     E, widths, l1, n = _check_bf16(e0, we, be, pxj, pxi, senders, rowptr,
                                    *tail)
@@ -900,6 +940,9 @@ def _launch_bf16_bwd(e0, we, be, pxj, pxi, senders, rowptr, *tail_and_g):
     _check_aligned(e0=e0, pxj=pxj, pxi=pxi)
     ce, h, c = widths
     _check_g(g, e0.device, n, c)
+    if h == 128:
+        return _launch_bf16_w128_bwd("fold", e0, we, be, pxj, pxi, senders,
+                                     rowptr, *tail, g)
     dev = e0.device
     sizes = [ce * h, h, l1 * h * h, l1 * h, h * c, c, c, c]
     n_blocks = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -957,8 +1000,9 @@ def fused_edge_tail_agg_bf16(e0, we, be, pxj, pxi, senders, rowptr, w_rest,
     """``fused_edge_tail_agg`` in the bf16 lane: the same operands, all
     bf16 but ln_s and ln_b (f32); (N, C) f32, differentiable in every float
     operand with its gradient in that operand's dtype.  CUDA tensors
-    launch the bf16 kernels (or raise: only (Ce, H, C) = (32, 64, 32) is
-    built); CPU tensors, or ``plain``, take the plain versions."""
+    launch the bf16 kernels (or raise: (Ce, H, C) = (32, 64, 32) and (128,
+    128, 128) are built); CPU tensors, or ``plain``, take the plain
+    versions."""
     operands = (e0, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest,
                 w_out, b_out, ln_s, ln_b)
     _check_bf16(*operands)
@@ -1091,3 +1135,214 @@ def fused_edge_tail_agg_pregathered_bf16_bwd(h0, pxi, rowptr, w_rest, b_rest,
         _check_pregathered_bf16(*operands)
         return fused_edge_tail_agg_pregathered_bf16_bwd_plain(*operands, g)
     return _launch_pregathered_bf16_bwd(*operands, g.contiguous())
+
+
+# ---- the bf16 lane at width 128: the fold and pe entries ------------------
+
+def _bf16_pe_chain(pe, pxj, pxi, senders, rowptr, w_rest, b_rest, w_out,
+                   b_out):
+    """The pe entry's bf16 recompute, z = (f32(pe) + f32(pxj[j])) +
+    f32(pxi[i]) as ``_fused2_fwd_pallas`` sums it (``pe + g0 + gath``):
+    (receivers, [h_0 .. h_L1] bf16, y f32 before LayerNorm)."""
+    f = torch.Tensor.float
+    receivers = _receivers(rowptr)
+    z = (f(pe) + f(pxj).index_select(0, senders)) + f(pxi).index_select(
+        0, receivers)
+    return (receivers, *_bf16_tail(z, w_rest, b_rest, w_out, b_out))
+
+
+def fused_edge_tail_agg_pe_bf16_plain(pe, pxj, pxi, senders, rowptr, snd_ptr,
+                                      snd_perm, w_rest, b_rest, w_out, b_out,
+                                      ln_s, ln_b):
+    """Plain PyTorch version of the pe entry's bf16 build: the kernel's
+    operands (module docstring; the sender CSR is read only by the kernel
+    path's backward) and its (N, C) f32 result."""
+    receivers, _, y = _bf16_pe_chain(pe, pxj, pxi, senders, rowptr, w_rest,
+                                     b_rest, w_out, b_out)
+    return _bf16_out(receivers, y, rowptr.numel() - 1, ln_s, ln_b)
+
+
+def fused_edge_tail_agg_pe_bf16_bwd_plain(pe, pxj, pxi, senders, rowptr,
+                                          snd_ptr, snd_perm, w_rest, b_rest,
+                                          w_out, b_out, ln_s, ln_b, g):
+    """Plain backward of the pe entry's bf16 build: the gradients of
+    ``sum(out * g)`` in ``GRAD_NAMES_PE`` order, each in its operand's
+    dtype, at the rounding points of ``_fused2_bwd_pallas`` and its VJP:
+    d_pe = bf16(dz), d_pxi the f32 sum of bf16(dz), d_pxj the f32 sum of
+    the unrounded dz over the senders, each rounded once."""
+    receivers, hs, y = _bf16_pe_chain(pe, pxj, pxi, senders, rowptr, w_rest,
+                                      b_rest, w_out, b_out)
+    dz, tail = _bf16_tail_bwd(receivers, hs, y, g, w_rest, w_out, ln_s)
+    nodes = torch.zeros(2, rowptr.numel() - 1, pe.shape[1],
+                        dtype=torch.float32, device=dz.device)
+    nodes[0].index_add_(0, senders.long(), dz)
+    nodes[1].index_add_(0, receivers, _rnd(dz))
+    operands = (pe, pxj, pxi, w_rest, b_rest, w_out, b_out, ln_s, ln_b)
+    return tuple(d.to(t.dtype) for d, t in zip((dz, *nodes, *tail), operands))
+
+
+def _launch_bf16_w128_fwd(entry, src, we, be, pxj, pxi, senders, rowptr,
+                          *tail):
+    """The width-128 bf16 forward of ``entry`` (``fold``: src is e0;
+    ``pe``: pe, and ``we``, ``be`` are None), its operands checked by the
+    caller; (N, 128) f32."""
+    E, n, l1 = src.shape[0], rowptr.numel() - 1, tail[0].shape[0]
+    dev = src.device
+    out = torch.zeros(n, 128, dtype=torch.float32, device=dev)
+    part = torch.empty(part_rows(E, FWD_TILE), 128, dtype=torch.float32,
+                       device=dev)
+    fn = cuda_build.function(BF16_W128, _ARGTYPES[BF16_W128_FWD],
+                             symbol=BF16_W128_FWD)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(src.data_ptr(), _ptr(we), _ptr(be),
+                 *(t.data_ptr() for t in (pxj, pxi, senders, rowptr, *tail,
+                                          out, part)),
+                 n, E, l1, ENTRY[entry], stream)
+    if err != 0:
+        raise RuntimeError(f"{BF16_W128_FWD} launch failed: cudaError {err}")
+    globals()["launches_fold128_bf16" if entry == "fold"
+              else "launches_pe_bf16"] += 1
+    return out
+
+
+def _launch_bf16_w128_bwd(entry, src, we, be, pxj, pxi, senders, rowptr,
+                          *tail_and_g):
+    """The width-128 bf16 backward of ``entry``, operands as
+    ``_launch_bf16_w128_fwd``'s, checked by the caller, and g (N, 128) f32.
+    fold: the gradients in ``GRAD_NAMES`` order, each in its operand's
+    dtype; pe: (d_pe, dz, d_pxi, d_w_rest, d_b_rest, d_w_out, d_b_out,
+    d_ln_s, d_ln_b), dz the unrounded f32 (E, 128) from which the caller
+    sums d_pxj."""
+    *tail, g = tail_and_g
+    fold, h = entry == "fold", 128
+    E, n, l1 = src.shape[0], rowptr.numel() - 1, tail[0].shape[0]
+    dev = src.device
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_w = int(fold) + l1 + 1  # the weights with a gradient, then their biases
+    weights, biases = n_w * h * h, (n_w + 2) * h
+    d_src = torch.empty_like(src)
+    dz = None if fold else torch.empty(E, h, dtype=torch.float32, device=dev)
+    # the kernels add into these with atomics (one fill for both)
+    d_nodes = torch.zeros(2 if fold else 1, n, h, dtype=torch.float32,
+                          device=dev)
+    wgrad = torch.empty(weights + biases, dtype=torch.float32, device=dev)
+    # the weight-gradient ranges' partials (n_sm rows), then the passes'
+    # bias partials (2 n_sm rows)
+    partial = torch.empty(n_sm * weights + 2 * n_sm * biases,
+                          dtype=torch.float32, device=dev)
+    # each h_k and each bf16(da_k), one (E, H) bf16 plane each
+    scratch = torch.empty(max(1, bwd_scratch_planes(entry, l1) * E * h),
+                          dtype=torch.bfloat16, device=dev)
+    fn = cuda_build.function(BF16_W128, _ARGTYPES[BF16_W128_BWD],
+                             symbol=BF16_W128_BWD)
+    w_rest, b_rest, w_out, b_out, ln_s, _ = tail
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(src.data_ptr(), _ptr(we), _ptr(be),
+                 *(t.data_ptr() for t in (pxj, pxi, senders, rowptr, w_rest,
+                                          b_rest, w_out, b_out, ln_s, g,
+                                          d_src)),
+                 _ptr(dz), d_nodes[0].data_ptr() if fold else None,
+                 d_nodes[-1].data_ptr(), wgrad.data_ptr(), partial.data_ptr(),
+                 scratch.data_ptr(), n, E, l1, ENTRY[entry], n_sm, stream)
+    if err != 0:
+        raise RuntimeError(f"{BF16_W128_BWD} launch failed: cudaError {err}")
+    globals()["launches_fold128_bf16_bwd" if fold
+              else "launches_pe_bf16_bwd"] += 1
+    bf = torch.bfloat16
+    d_w = wgrad[:weights].view(n_w, h, h)
+    d_b = wgrad[weights:].view(n_w + 2, h)
+    k = int(fold)  # the first tail weight's place
+    tail_grads = (d_w[k:k + l1].to(bf), d_b[k:k + l1].to(bf), d_w[-1].to(bf),
+                  d_b[n_w - 1].to(bf), d_b[n_w], d_b[n_w + 1])
+    if fold:
+        return (d_src, d_w[0].to(bf), d_b[0].to(bf), d_nodes[0].to(bf),
+                d_nodes[1].to(bf), *tail_grads)
+    return (d_src, dz, d_nodes[0].to(bf), *tail_grads)
+
+
+def _launch_pe_bf16_fwd(pe, pxj, pxi, senders, rowptr, snd_ptr, snd_perm,
+                        *tail):
+    """The pe entry's bf16 forward kernel; (N, C) f32."""
+    _, widths, l1, _ = _check_pe(pe, pxj, pxi, senders, rowptr, snd_ptr,
+                                 snd_perm, *tail, dtype=torch.bfloat16)
+    _check_build_bf16("pe", widths, l1)
+    _check_device(pe)
+    _check_aligned(pe=pe, pxj=pxj, pxi=pxi)
+    return _launch_bf16_w128_fwd("pe", pe, None, None, pxj, pxi, senders,
+                                 rowptr, *tail)
+
+
+def _launch_pe_bf16_bwd(pe, pxj, pxi, senders, rowptr, snd_ptr, snd_perm,
+                        *tail_and_g):
+    """The pe entry's bf16 backward on the card: kernel #7's bf16 build,
+    then d_pxj by the f32 segment-sum kernel #1 over the sender CSR on the
+    unrounded dz, rounded once; the gradients in ``GRAD_NAMES_PE`` order,
+    each in its operand's dtype."""
+    *tail, g = tail_and_g
+    _, (h, c), l1, n = _check_pe(pe, pxj, pxi, senders, rowptr, snd_ptr,
+                                 snd_perm, *tail, dtype=torch.bfloat16)
+    _check_build_bf16("pe", (h, c), l1)
+    _check_device(pe)
+    _check_aligned(pe=pe, pxj=pxj, pxi=pxi)
+    _check_g(g, pe.device, n, c)
+    d_pe, dz, d_pxi, *d_tail = _launch_bf16_w128_bwd(
+        "pe", pe, None, None, pxj, pxi, senders, rowptr, *tail, g)
+    d_pxj = segment_sum(dz, snd_ptr, snd_perm).to(torch.bfloat16)
+    return (d_pe, d_pxj, d_pxi, *d_tail)
+
+
+class FusedEdgeTailAggPeBf16(torch.autograd.Function):
+    """The pe entry's bf16 build as one differentiable function of (pe,
+    pxj, pxi, w_rest, b_rest, w_out, b_out, ln_s, ln_b), its gradients in
+    their operands' dtypes (the integer operands get none): kernels #6 and
+    #7 with #1 for d_pxj, or (``plain``) the two plain versions."""
+
+    @staticmethod
+    def forward(ctx, plain, *operands):
+        operands = tuple(t.detach() for t in operands)
+        ctx.plain = plain
+        ctx.save_for_backward(*operands)
+        if plain:
+            return fused_edge_tail_agg_pe_bf16_plain(*operands)
+        return _launch_pe_bf16_fwd(*operands)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        bwd = (fused_edge_tail_agg_pe_bf16_bwd_plain if ctx.plain
+               else _launch_pe_bf16_bwd)
+        grads = bwd(*ctx.saved_tensors, g.contiguous())
+        return (None, *grads[:3], None, None, None, None, *grads[3:])
+
+
+def fused_edge_tail_agg_pe_bf16(pe, pxj, pxi, senders, rowptr, snd_ptr,
+                                snd_perm, w_rest, b_rest, w_out, b_out, ln_s,
+                                ln_b, plain: bool = False):
+    """``fused_edge_tail_agg_pe`` in the bf16 lane: the same operands, all
+    bf16 but ln_s and ln_b (f32) and the integer ones; (N, C) f32,
+    differentiable in every float operand with its gradient in that
+    operand's dtype.  CUDA tensors launch the bf16 kernels (or raise: only
+    (H, C) = (128, 128) is built); CPU tensors, or ``plain``, take the plain
+    versions."""
+    operands = (pe, pxj, pxi, senders, rowptr, snd_ptr, snd_perm, w_rest,
+                b_rest, w_out, b_out, ln_s, ln_b)
+    _check_pe(*operands, dtype=torch.bfloat16)
+    return FusedEdgeTailAggPeBf16.apply(plain or pe.device.type == "cpu",
+                                        *operands)
+
+
+def fused_edge_tail_agg_pe_bf16_bwd(pe, pxj, pxi, senders, rowptr, snd_ptr,
+                                    snd_perm, w_rest, b_rest, w_out, b_out,
+                                    ln_s, ln_b, g):
+    """The nine gradients of ``sum(fused_edge_tail_agg_pe_bf16(...) * g)``
+    in ``GRAD_NAMES_PE`` order: on CUDA tensors the bf16 #7 and the f32 #1
+    (``d_pxi`` summed with atomics, so its last f32 bits vary before the
+    rounding to bf16), the plain version on CPU tensors."""
+    operands = (pe, pxj, pxi, senders, rowptr, snd_ptr, snd_perm, w_rest,
+                b_rest, w_out, b_out, ln_s, ln_b)
+    if pe.device.type == "cpu":
+        _check_pe(*operands, dtype=torch.bfloat16)
+        return fused_edge_tail_agg_pe_bf16_bwd_plain(*operands, g)
+    return _launch_pe_bf16_bwd(*operands, g.contiguous())

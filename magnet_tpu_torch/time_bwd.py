@@ -1,7 +1,7 @@
 """The width-64 GraphNet backward of this checkout against another tree's,
 in turns on one card: #9 at width 64 (the fold entry) and #3 (the
-pre-gathered entry); or, with ``dtype=bf16``, the bf16 builds of #9, #3
-and #1 (the segment sum) against their f32 builds.
+pre-gathered entry); or, with ``dtype=bf16``, the bf16 builds of #9 (both
+widths), #7, #3 and #1 (the segment sum) against their f32 builds.
 
   python -m magnet_tpu_torch.time_bwd [baseline=DIR] [dtype=bf16]
 
@@ -23,8 +23,13 @@ and its bf16 build (on the same operands rounded to bf16) in turns, f32,
 bf16, bf16, f32, each against its own plain version; then #1 over the
 32-sample graph's sender CSR on the f32 and the bf16 rows of #3's d_h0,
 in turns, with ``index_add_`` (f32, then rounded to bf16: two calls) for
-the library's time.  Shares its graphs, libraries and timing with
-``time_fwd``.
+the library's time; then #9 and #7 at width 128 at MAgNet[GNN]'s eval and
+training graphs (``time_fwd``'s), the f32 launch sequence
+(``csrc/fused_edge_tail_agg_bwd.cu``) against the bf16 one
+(``csrc/fused_edge_tail_agg_bf16_w128.cu``) through their launchers (#7
+without the segment sum of its d_pxj), in the same turns, the bf16 one
+against its plain version by relative L2 per gradient.  Shares its graphs,
+libraries and timing with ``time_fwd``.
 """
 from __future__ import annotations
 
@@ -34,7 +39,7 @@ import sys
 import numpy as np
 import torch
 
-from magnet_tpu_torch.config import MAGNET_CNN, MAGNET_CNN_2D
+from magnet_tpu_torch.config import MAGNET_CNN, MAGNET_CNN_2D, MAGNET_GNN
 from magnet_tpu_torch.ops import cuda_build
 from magnet_tpu_torch.ops import fused_edge as fe
 from magnet_tpu_torch.ops import segment as seg
@@ -48,6 +53,8 @@ from magnet_tpu_torch.time_fwd import (
     cnn_1d_train_graph,
     cnn_2d_train_graph,
     cuda_ms,
+    gnn_train_graph,
+    graphs,
     in_turns,
     libraries,
     operands,
@@ -56,8 +63,7 @@ from magnet_tpu_torch.time_fwd import (
 )
 
 #: each entry's TPU kernel (magnet_tpu/ops/pallas_kernels.py)
-KERNEL_NUMBER = {"fold": "#9", "pregathered": "#3"}
-
+KERNEL_NUMBER = {"fold": "#9", "pregathered": "#3", "pe": "#7"}
 
 
 def cases():
@@ -317,6 +323,58 @@ def main_bf16(fn32, dev) -> int:
                      for k, size in (("f32", 4.0), ("bf16", 2.0))},
         "max_abs_err_vs_plain": err,
         "device": torch.cuda.get_device_name(0)}), flush=True)
+    return main_bf16_w128(dev)
+
+
+def bf16_w128_vs_plain(entry, ops_bf, g, graph):
+    """The width-128 bf16 backward of ``entry`` on ``ops_bf`` against its
+    plain version: {gradient: relative L2} in the plain version's order
+    (the pe entry's d_pxj summed by the f32 segment sum from dz)."""
+    src, _, _, pxj, pxi, senders, rowptr, *tail = ops_bf
+    got = list(fe._launch_bf16_w128_bwd(entry, *ops_bf, g))
+    if entry == "fold":
+        names, want = fe.GRAD_NAMES, fe.fused_edge_tail_agg_bf16_bwd_plain(
+            *ops_bf, g)
+    else:
+        dev = src.device
+        got[1] = seg.segment_sum(got[1], graph.snd_ptr.to(dev),
+                                 graph.snd_perm.to(dev)).bfloat16()
+        names, want = fe.GRAD_NAMES_PE, fe.fused_edge_tail_agg_pe_bf16_bwd_plain(
+            src, pxj, pxi, senders, rowptr, None, None, *tail, g)
+    return {name: float((a.double() - b.double()).norm()
+                        / b.double().norm().clamp_min(1e-30))
+            for name, a, b in zip(names, got, want) if b.numel()}
+
+
+def main_bf16_w128(dev) -> int:
+    """#9's and #7's f32 and bf16 builds at width 128 in turns at
+    MAgNet[GNN]'s eval and training graphs, through their launchers."""
+    w, l1 = MAGNET_GNN["mlp_hidden"], MAGNET_GNN["mlp_layers"] - 1
+    for label, graph in (("gnn_eval_all", graphs()[3][2]),
+                         ("gnn_train_all", gnn_train_graph())):
+        g = torch.randn(graph.n_node, w,
+                        generator=torch.Generator().manual_seed(44)).to(dev)
+        for entry in ("fold", "pe"):
+            ops = operands(entry, graph, w, w, w, l1, seed=43, dev=dev)
+            ops_bf = to_bf16(ops)
+            runs = {"f32": lambda: fe._launch_bwd(entry, *ops, g),
+                    "bf16": lambda: fe._launch_bf16_w128_bwd(entry, *ops_bf,
+                                                             g)}
+            err = bf16_w128_vs_plain(entry, ops_bf, g, graph)
+            order, times, mean = in_turns(runs, first="f32", then="bf16")
+            macs = (w * w if entry == "fold" else 0) + l1 * w * w + w * w
+            flops = 3 * 2.0 * graph.n_edge * macs
+            print(json.dumps({
+                "kernel": KERNEL_NUMBER[entry], "entry": entry,
+                "widths": [w, w, w] if entry == "fold" else [w, w],
+                "shape": label, "n_node": graph.n_node,
+                "n_edge": graph.n_edge, "l1": l1, "reps": REPS,
+                "order": order, "ms": times, "mean_ms": mean,
+                "tc_bound_ms": 3 * flops / TF32_PEAK * 1e3,
+                "bf16_bound_ms": flops / BF16_PEAK * 1e3,
+                "bf16_vs_plain_rel_l2": err,
+                "device": torch.cuda.get_device_name(0)}), flush=True)
+            del ops, ops_bf, runs
     return 0
 
 

@@ -1,6 +1,7 @@
 """The fused GraphNet forward of this checkout against another tree's, in
 turns on one card: #8 at width 64 and 128, #6, and #2 at width 128; or,
-with ``dtype=bf16``, #8's and #2's bf16 builds against their f32 builds.
+with ``dtype=bf16``, the bf16 builds of #8 (both widths), #6 and #2 against
+their f32 builds.
 
   python -m magnet_tpu_torch.time_fwd [baseline=DIR] [dtype=bf16]
 
@@ -24,7 +25,11 @@ its bf16 build (``csrc/fused_edge_tail_agg_bf16.cu``, ``bf16``, on the
 same operands rounded to bf16), and at MAgNet[CNN] 2D's training graph
 (32 samples) the pregathered entry's two builds (#2), in turns: f32, bf16,
 bf16, f32, each against its own plain version, with the bf16 bound (one
-product at 989 TFLOP/s; the pregathered forward is bound by bytes).  Its
+product at 989 TFLOP/s; the pregathered forward is bound by bytes); then
+at MAgNet[GNN]'s eval LR ∪ HR graph and a training batch's (32 samples of
+32 queries from a seed) the fold and pe entries at width 128, the f32
+build (``csrc/fused_edge_tail_agg.cu``) against the bf16 one
+(``csrc/fused_edge_tail_agg_bf16_w128.cu``) in the same turns.  Its
 graphs, library binding and in-turn timing serve ``time_bwd`` too.
 """
 from __future__ import annotations
@@ -89,6 +94,19 @@ def cnn_2d_train_graph(batch_size, seed):
     return build_graph("magnet_cnn_2d", MAGNET_CNN_2D,
                        {"coords": coords,
                         "lr_frames": np.zeros((1, 1, 1, 32, 32))})
+
+
+def gnn_train_graph():
+    """A MAgNet[GNN] 1D training batch's LR ∪ HR graph: 32 samples, each the
+    128 support nodes of the 256-node mesh on [-1, 1] and 32 queries drawn
+    from its odd complement from a seed (``DatasetImplicitGNN1D``)."""
+    rng = np.random.default_rng(0)
+    mesh = np.linspace(-1, 1, 256, dtype=np.float32)[:, None]
+    queries = np.stack([mesh[1::2][np.sort(rng.choice(128, 32, replace=False))]
+                        for _ in range(32)])
+    lr = np.broadcast_to(mesh[::2], (32, 128, 1)).copy()
+    return build_graph("magnet_gnn", MAGNET_GNN,
+                       {"coords_lr": lr, "coords_hr": queries}).all
 
 
 def graphs():
@@ -176,10 +194,10 @@ def runner(fn, entry, ops, widths):
 
 
 def to_bf16(ops):
-    """The fold entry's operands in the bf16 lane: every float operand
-    rounded to bf16 but ln_s and ln_b (the last two)."""
-    return tuple(t.bfloat16() if t.is_floating_point() and i < len(ops) - 2
-                 else t for i, t in enumerate(ops))
+    """An entry's operands (``operands``) in the bf16 lane: every float
+    operand rounded to bf16 but ln_s and ln_b (the last two)."""
+    return tuple(t.bfloat16() if t is not None and t.is_floating_point()
+                 and i < len(ops) - 2 else t for i, t in enumerate(ops))
 
 
 def runner_bf16(ops):
@@ -196,6 +214,29 @@ def runner_bf16(ops):
         out = torch.zeros(n, c, device=e0.device)
         err = fn(*(t.data_ptr() for t in ops), out.data_ptr(),
                  part.data_ptr(), n, e, e0.shape[1], we.shape[1], c, l1,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"launch failed: cudaError {err}")
+        return out
+    return run
+
+
+def runner_bf16_w128(entry, ops):
+    """A closure that launches the width-128 bf16 forward's C entry for
+    ``entry`` (fold or pe) on ``ops`` (``to_bf16``) as its wrapper does and
+    returns out."""
+    fn = cuda_build.function(fe.BF16_W128, fe._ARGTYPES[fe.BF16_W128_FWD],
+                             symbol=fe.BF16_W128_FWD)
+    src, we, be, pxj, pxi, senders, rowptr, *tail = ops
+    n, e, l1 = rowptr.numel() - 1, src.shape[0], tail[0].shape[0]
+    part = torch.empty(part_rows(e, fe.FWD_TILE), 128, device=src.device)
+
+    def run():
+        out = torch.zeros(n, 128, device=src.device)
+        err = fn(src.data_ptr(), fe._ptr(we), fe._ptr(be),
+                 *(t.data_ptr() for t in (pxj, pxi, senders, rowptr, *tail,
+                                          out, part)),
+                 n, e, l1, fe.ENTRY[entry],
                  torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"launch failed: cudaError {err}")
@@ -306,10 +347,12 @@ def main(argv) -> int:
 def main_bf16(fn32, dev) -> int:
     """#8's f32 and bf16 builds in turns at MAgNet[CNN] 1D's graphs and
     2D's eval graph, then #2's at 2D's training graph (both models' GraphNet
-    widths are (32, 64, 32), L1 = 3)."""
+    widths are (32, 64, 32), L1 = 3), then #8's and #6's at width 128 at
+    MAgNet[GNN]'s graphs."""
     ce = c = MAGNET_CNN["latent_dim"]
     h, l1 = MAGNET_CNN["mlp_hidden"], MAGNET_CNN["mlp_layers"] - 1
-    for label, _, graph in graphs()[:3]:
+    main_graphs = graphs()
+    for label, _, graph in main_graphs[:3]:
         ops = operands("fold", graph, ce, h, c, l1, seed=41, dev=dev)
         ops_bf = to_bf16(ops)
         runs = {"f32": runner(fn32, "fold", ops, (ce, h, c)),
@@ -355,6 +398,38 @@ def main_bf16(fn32, dev) -> int:
         "bf16_bound_ms": max(flops / BF16_PEAK, nbytes / HBM_RATE) * 1e3,
         "max_abs_err_vs_plain": err,
         "device": torch.cuda.get_device_name(0)}), flush=True)
+    del ops, ops_bf, runs
+    w, l1 = MAGNET_GNN["mlp_hidden"], MAGNET_GNN["mlp_layers"] - 1
+    for label, graph in (("gnn_eval_all", main_graphs[3][2]),
+                         ("gnn_train_all", gnn_train_graph())):
+        for entry in ("fold", "pe"):
+            ops = operands(entry, graph, w, w, w, l1, seed=41, dev=dev)
+            ops_bf = to_bf16(ops)
+            src, _, _, pxj, pxi, senders, rowptr, *tail = ops_bf
+            want = (fe.fused_edge_tail_agg_bf16_plain(*ops_bf)
+                    if entry == "fold" else fe.fused_edge_tail_agg_pe_bf16_plain(
+                        src, pxj, pxi, senders, rowptr, None, None, *tail))
+            want32 = (fe.fused_edge_tail_agg_plain(*ops) if entry == "fold"
+                      else fe.fused_edge_tail_agg_pe_plain(
+                          ops[0], *ops[3:7], None, None, *ops[7:]))
+            runs = {"f32": runner(fn32, entry, ops, (w, w, w)),
+                    "bf16": runner_bf16_w128(entry, ops_bf)}
+            err = {"f32": float((runs["f32"]() - want32).abs().max()),
+                   "bf16": float((runs["bf16"]() - want).abs().max())}
+            order, times, mean = in_turns(runs, first="f32", then="bf16")
+            macs = (w * w if entry == "fold" else 0) + l1 * w * w + w * w
+            flops = 2.0 * graph.n_edge * macs
+            print(json.dumps({
+                "kernel": KERNEL_NUMBER[entry], "entry": entry,
+                "widths": [w, w, w] if entry == "fold" else [w, w],
+                "shape": label, "n_node": graph.n_node,
+                "n_edge": graph.n_edge, "l1": l1, "reps": REPS,
+                "order": order, "ms": times, "mean_ms": mean,
+                "tc_bound_ms": 3 * flops / TF32_PEAK * 1e3,
+                "bf16_bound_ms": flops / BF16_PEAK * 1e3,
+                "max_abs_err_vs_plain": err,
+                "device": torch.cuda.get_device_name(0)}), flush=True)
+            del ops, ops_bf, runs, want, want32
     return 0
 
 

@@ -253,9 +253,9 @@ def test_wrapper_on_cpu_is_the_plain_pair_with_operand_dtypes(L1):
 
 def test_kernels_refuse_cpu_tensors_unbuilt_widths_and_mixed_dtypes():
     """The bf16 launches take CUDA tensors only (a CPU tensor is refused,
-    as by the f32 kernels), at the one compiled build (32, 64, 32): another
-    width raises ``NotImplementedError`` naming the missing build; every
-    operand must be in the lane's dtype."""
+    as by the f32 kernels), at the compiled builds (32, 64, 32) and (128,
+    128, 128): another width raises ``NotImplementedError`` naming the
+    missing build; every operand must be in the lane's dtype."""
     z = torch.zeros
     graph = csr_from_edges(torch.tensor([1, 2, 0]), torch.tensor([0, 1, 2]),
                            3)
@@ -275,8 +275,12 @@ def test_kernels_refuse_cpu_tensors_unbuilt_widths_and_mixed_dtypes():
         fe._launch_bf16_bwd(*built, z(3, 32))
     with pytest.raises(ValueError, match="no fused edge kernel"):
         fe.FusedEdgeTailAggBf16.apply(False, *built)
-    for unbuilt in (operands(128, 128, 128, 3), operands(16, 32, 8, 1),
-                    operands(32, 64, 32, 4)):
+    # MAgNet[GNN]'s width is built: its launches stop at the device too
+    assert (128, 128, 128) in fe.KERNEL_WIDTHS["fold_bf16"]
+    with pytest.raises(ValueError, match="no fused edge kernel"):
+        fe._launch_bf16_fwd(*operands(128, 128, 128, 3))
+    for unbuilt in (operands(16, 32, 8, 1), operands(32, 64, 32, 4),
+                    operands(128, 128, 128, 4)):
         with pytest.raises(NotImplementedError, match="no bf16 build"):
             fe._launch_bf16_fwd(*unbuilt)
     mixed = list(built)
@@ -424,28 +428,25 @@ def test_bf16_training_loss_trains_and_stays_near_f32(models):
 
 
 def test_bf16_raises_where_there_is_no_bf16_build():
-    """MAgNet[GNN] refuses bf16 rather than compute in f32, and MAgNet[CNN]
-    2D builds in bf16; a step on the pe lane refuses it, the fold and
-    pregathered lanes run it; the pregathered entry's bf16 kernels refuse
-    the width-128 form, which has no build, and CPU tensors at the built
-    one."""
-    with pytest.raises(NotImplementedError, match="B.1.1"):
-        create_model("magnet_gnn", {"graph_dtype": "bf16"}, device="cpu")
+    """MAgNet[GNN] and MAgNet[CNN] 2D build in bf16; a step runs it on the
+    fold, pregathered and pe lanes (on CPU tensors their plain versions);
+    the pe entry's bf16 kernels refuse the width-64 form and the
+    pregathered entry's the width-128 form and L1 = 4, which have no
+    build, and CPU tensors at the built one."""
     for name in ("magnet_cnn_2d", "magnet_gnn"):
         assert create_model(name, {"graph_dtype": "float32"}, device="cpu")
-    cnn2d = create_model("magnet_cnn_2d", {"graph_dtype": "bf16"},
-                         device="cpu")
-    assert cnn2d._processor.dtype == torch.bfloat16
+        model = create_model(name, {"graph_dtype": "bf16"}, device="cpu")
+        assert model._processor.dtype == torch.bfloat16
     with pytest.raises(ValueError, match="unknown dtype"):
         create_model("magnet_cnn", {"graph_dtype": "fp16"}, device="cpu")
     _, tg, x, _, e_csr = _graph_pair(seed=14)
     step = InteractionNetwork(8, 2, 16, dtype=torch.bfloat16)
     xb = torch.from_numpy(x.reshape(-1, 8)).bfloat16()
     eb = torch.from_numpy(e_csr).bfloat16()
-    with pytest.raises(NotImplementedError, match="no bf16 build"):
-        step(xb, eb, tg, impl="kernel_pe")
-    for impl in ("kernel_fold", "kernel_pregathered"):
+    for impl in ("kernel_fold", "kernel_pregathered", "kernel_pe"):
         assert step(xb, eb, tg, impl=impl).dtype == torch.bfloat16
+    with pytest.raises(NotImplementedError, match="no bf16 build"):
+        fe._check_build_bf16("pe", (64, 32), 3)
     assert (64, 32) in fe.KERNEL_WIDTHS["pregathered_bf16"]
     fe._check_build_bf16("pregathered", (64, 32), 3)
     for widths, l1 in (((128, 128), 3), ((64, 32), 4)):
