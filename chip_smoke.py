@@ -5,12 +5,14 @@
   python3 chip_smoke.py GROUP [GROUP]   only the named groups of phases:
                                         cnn, mpnn_kernels, mpnn_paths, cnn2d,
                                         gnn, gnn2d, fno, no_interaction,
-                                        cnn_bf16, cnn2d_bf16
+                                        cnn_bf16, cnn2d_bf16, gnn_bf16,
+                                        cnn_pe
 
-Builds the port's six CUDA sources from the checkout (all eleven TPU
+Builds the port's seven CUDA sources from the checkout (all eleven TPU
 kernels: the fused GraphNet edge pipeline's forward and backward, each
-with its fold, pre-gathered and pe entry, the fold entry also at width
-128, the fold and pre-gathered entries also in bf16 at width 64; the
+with its fold, pre-gathered and pe entry at width 64 and 128, the fold,
+pre-gathered and pe entries also in bf16 at width 64 and the fold and pe
+entries in bf16 at width 128; the
 fused MPNN message path's forward and backward, each with its
 in-kernel-gather and its pre-gathered entry; the segment sum, in f32 and
 bf16), holds each kernel against its plain PyTorch version at the
@@ -28,7 +30,11 @@ entry points, each against the CPU path, and MAgNet[CNN] 1D's bf16 lane
 (``graph_dtype=bf16``) through ``evaluate`` and ``Trainer.fit`` on the
 fold entry's bf16 kernels, and MAgNet[CNN] 2D's through the same two
 entry points, its eval on the fold entry's bf16 #8 and its training on
-the pre-gathered entry's bf16 #2/#3 and the bf16 segment sum #1.
+the pre-gathered entry's bf16 #2/#3 and the bf16 segment sum #1, and
+MAgNet[CNN]'s pe lane (``impl="kernel_pe"``, the JAX package's lane
+under ``MAGNET_TPU_NO_FUSED2R``) at (H, C) = (64, 32), in f32 and bf16:
+1D through ``evaluate`` and ``Trainer.fit`` (checkpoint, resume) and 2D
+through ``evaluate``, on #6/#7 with the f32 #1 for d_pxj.
 It checks that each path went through its kernels by their launch counts.
 Prints one JSON line per phase (``device``, ``build``, ``kernel``,
 ``slice``, ``kernel_bwd``, ``train``, ``mpnn_kernel``, ``mpnn_kernel_bwd``,
@@ -38,7 +44,10 @@ Prints one JSON line per phase (``device``, ``build``, ``kernel``,
 ``gnn2d_train``, ``fno_1d``, ``fno_2d``, ``ni_slice``, ``ni_train``,
 ``bf16_kernel``, ``bf16_kernel_bwd``, ``bf16_slice``, ``bf16_train``,
 ``bf16_2d_kernel``, ``bf16_2d_kernel_bwd``, ``bf16_2d_slice``,
-``bf16_2d_train``), the
+``bf16_2d_train``, ``gnn_bf16_kernel``, ``gnn_bf16_kernel_bwd``,
+``gnn_bf16_slice``, ``gnn_bf16_train``, ``gnn2d_bf16_slice``,
+``gnn2d_bf16_train``, ``pe64_kernel``, ``pe64_kernel_bwd``,
+``pe64_slice``, ``pe64_train``), the
 card's name and power limit, a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero, and
 with no CUDA device it exits 1 before printing any result.
@@ -182,7 +191,8 @@ BF16_LOSS_RTOL = 5e-2
 # order: at most the neighbouring bf16 value, 2^-8 relative)
 BF16_SEG_RTOL = 1e-2
 GROUPS = ("cnn", "mpnn_kernels", "mpnn_paths", "cnn2d", "gnn", "gnn2d",
-          "fno", "no_interaction", "cnn_bf16", "cnn2d_bf16", "gnn_bf16")
+          "fno", "no_interaction", "cnn_bf16", "cnn2d_bf16", "gnn_bf16",
+          "cnn_pe")
 
 
 def emit(obj) -> None:
@@ -312,12 +322,13 @@ def bwd_w64_build() -> list[dict]:
     smem = ctypes.CDLL(str(lib)).fused_edge_tail_agg_bwd_w64_smem
     smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
     found, lines = [], []
+    names = {v: k for k, v in fe.ENTRY.items()}
     for ln in ptxas_lines(lib) + ["entry function (end)"]:
         if "entry function" in ln:
-            m = re.search(r"edge_tail_bwd_kernelILi(\d)ELb([01])E", lines[0]
-                          if lines else "")
+            m = re.search(r"edge_tail_bwd_kernelILi(\d)ELN7tile1285EntryE(\d)E",
+                          lines[0] if lines else "")
             if m:
-                entry = "fold" if m.group(2) == "1" else "pregathered"
+                entry = names[int(m.group(2))]
                 found.append({"entry": entry, "l1": int(m.group(1)),
                               "smem_bytes": smem(fe.ENTRY[entry],
                                                  int(m.group(1))),
@@ -338,7 +349,8 @@ def bits_equal_bwd(fn, ops, g, names) -> dict:
 
 
 def check_bwd_w64(entry, cases, g_gen, c) -> tuple[dict, tuple]:
-    """The width-64 backward of ``entry`` (fold or pregathered) vs plain,
+    """The width-64 backward of ``entry`` (fold, pregathered, or pe with
+    the segment sum #1 for d_pxj) vs plain,
     every gradient, on each (label, graph, operands) of ``cases``: by
     relative L2 at ``train_shape``, where it is also bit-equal from launch
     to launch but the atomic node sums, and elementwise elsewhere with the
@@ -350,20 +362,23 @@ def check_bwd_w64(entry, cases, g_gen, c) -> tuple[dict, tuple]:
     the results and the training shape's (g, gradients)."""
     from magnet_tpu_torch.ops import fused_edge as fe
 
-    fold = entry == "fold"
-    fn, plain, names = ((fe.fused_edge_tail_agg_bwd,
-                         fe.fused_edge_tail_agg_bwd_plain, fe.GRAD_NAMES)
-                        if fold else
-                        (fe.fused_edge_tail_agg_pregathered_bwd,
-                         fe.fused_edge_tail_agg_pregathered_bwd_plain,
-                         fe.GRAD_NAMES_PREGATHERED))
+    fn, plain, names = {
+        "fold": (fe.fused_edge_tail_agg_bwd, fe.fused_edge_tail_agg_bwd_plain,
+                 fe.GRAD_NAMES),
+        "pregathered": (fe.fused_edge_tail_agg_pregathered_bwd,
+                        fe.fused_edge_tail_agg_pregathered_bwd_plain,
+                        fe.GRAD_NAMES_PREGATHERED),
+        "pe": (fe.fused_edge_tail_agg_pe_bwd,
+               fe.fused_edge_tail_agg_pe_bwd_plain, fe.GRAD_NAMES_PE)}[entry]
+    # w_rest's place among the operands (after the integer ones)
+    w_rest_at = {"fold": 7, "pregathered": 3, "pe": 7}[entry]
     out, train = {}, None
     for label, gr, ops in cases:
         dev = ops[0].device
         g = torch.randn(gr.n_node, c, generator=g_gen).to(dev)
         train_shape = label == "train_shape"
         if train_shape:
-            ties = tie_receivers(entry, ops, ops[7 if fold else 3].shape[0])
+            ties = tie_receivers(entry, ops, ops[w_rest_at].shape[0])
             g[ties] = 0.0
         got = fn(*ops, g)
         torch.cuda.synchronize()
@@ -832,7 +847,7 @@ def tie_receivers_bf16(ops, l1, entry="fold"):
 
 def bf16_ptxas() -> dict:
     """The bf16 library's ptxas lines and each kernel's dynamic shared
-    memory (the fold and pregathered entries' forward and backward, by
+    memory (the fold, pregathered and pe entries' forward and backward, by
     L1)."""
     import ctypes
 
@@ -846,7 +861,7 @@ def bf16_ptxas() -> dict:
             "smem_bytes": {which: {l1: smem(i, l1) for l1 in range(4)}
                            for i, which in enumerate((
                                "fwd", "bwd", "pregathered_fwd",
-                               "pregathered_bwd"))}}
+                               "pregathered_bwd", "pe_fwd", "pe_bwd"))}}
 
 
 def cnn_bf16_phases(dev, data, groups) -> tuple[int, list, dict]:
@@ -2172,6 +2187,490 @@ def gnn_bf16_phases(dev, data, groups) -> tuple[int, list, dict]:
             bwd["pe"]["train_all"]["timing"])]
     return 0, kernels, {
         "segment_sum": {"launches_gnn_bf16": cmp_pe["launches"]["segment_sum"]}}
+
+
+def cnn_pe_phases(dev, data, groups) -> tuple[int, list, dict]:
+    """Phases ``pe64_kernel``, ``pe64_kernel_bwd``, ``pe64_slice`` and
+    ``pe64_train``: MAgNet[CNN]'s pe lane (``impl="kernel_pe"``, the JAX
+    package's lane under ``MAGNET_TPU_NO_FUSED2R``) at its published
+    widths, its four kernels (#6 and #7 at (H, C) = (64, 32), f32 in
+    ``csrc/fused_edge_tail_agg.cu`` / ``fused_edge_tail_agg_bwd.cu`` and
+    bf16 in ``csrc/fused_edge_tail_agg_bf16.cu``) against their plain
+    versions, then MAgNet[CNN] 1D through ``evaluate`` and ``Trainer.fit``
+    and 2D through ``evaluate``, in f32 and in bf16, each on the pe kernels
+    alone (with the f32 #1 for d_pxj).  Returns the exit code, the four
+    kernels' entries and the segment sum's launches."""
+    from magnet_tpu_torch.config import (
+        DATAMODULE_IMPLICIT,
+        DATAMODULE_IMPLICIT_2D,
+        HEAT_TEST,
+        MAGNET_CNN,
+        MAGNET_CNN_2D,
+    )
+    from magnet_tpu_torch.data.loader import DataLoader
+    from magnet_tpu_torch.eval import evaluate
+    from magnet_tpu_torch.models.factory import create_model
+    from magnet_tpu_torch.ops import fused_edge as fe
+    from magnet_tpu_torch.ops import cuda_build
+    from magnet_tpu_torch.time_bwd import runner as bwd_runner
+    from magnet_tpu_torch.time_bwd import runner_pe64_bf16 as bwd_runner_bf16
+    from magnet_tpu_torch.time_fwd import bind, in_turns
+    from magnet_tpu_torch.time_fwd import operands as c_operands
+    from magnet_tpu_torch.time_fwd import runner, runner_pe64_bf16, to_bf16
+    from magnet_tpu_torch.train.trainer import Trainer
+    from magnet_tpu_torch.utils import to_device
+
+    hp, hp2d = dict(MAGNET_CNN), dict(MAGNET_CNN_2D)
+    h, c, l1 = hp["mlp_hidden"], hp["latent_dim"], hp["mlp_layers"] - 1
+    mp, ts = hp["num_message_passing_steps"], hp["time_slice"]
+    batches, loaders = data["heat"], data["ks_loaders"]
+    loaders2d = data["cnn2d_loaders"]
+    batches2d = list(DataLoader(loaders2d["test"].dataset, 4, shuffle=False,
+                                drop_last=False))
+
+    def new(name, params, dtype, impl="kernel_pe"):
+        m = create_model(name, {**params, "graph_dtype": dtype}, device=dev,
+                         seed=0)
+        m.impl = impl
+        return m
+
+    model = new("magnet_cnn", hp, "float32")
+    egraph = model.build_graph(
+        {k: torch.as_tensor(v) for k, v in batches[0].items()})
+    loaders["train"].set_epoch(0)
+    batch0 = to_device(next(iter(loaders["train"])), dev)
+    tgraph = model.build_graph(batch0)
+    model2d = new("magnet_cnn_2d", hp2d, "float32")
+    egraph2d = model2d.build_graph(
+        {k: torch.as_tensor(v) for k, v in batches2d[0].items()})
+    fn32, fn32_bwd = (bind(cuda_build.build(name), name)
+                      for name in (fe.FWD, fe.BWD))
+    small = small_line_graph()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    bwd_tiles, tiles_info = bwd_tile_edges(sms, seed=61)
+    graphs = {"eval_1d": (egraph, l1), "train_1d": (tgraph, l1),
+              "eval_2d": (egraph2d, l1), "small_case": (small, 1),
+              "tile_edges": (tile_edges_graph(fe.FWD_TILE, seed=62), l1)}
+
+    def pe_ops(graph, l1c, seed):
+        """The C entry's f32 operands (src, None, None, pxj, pxi, senders,
+        rowptr, tail...) and the wrapper's, f32 and bf16."""
+        ops = c_operands("pe", graph, h, h, c, l1c, seed, dev)
+        src, _, _, pxj, pxi, senders, rowptr, *tail = ops
+
+        def wrapper(o):
+            src_, _, _, pxj_, pxi_, _, _, *tail_ = o
+            return (src_, pxj_, pxi_, senders, rowptr,
+                    graph.snd_ptr.to(dev), graph.snd_perm.to(dev), *tail_)
+
+        return ops, wrapper(ops), wrapper(to_bf16(ops))
+
+    # pe64_kernel: #6 at (64, 32), f32 and bf16, vs its plain version (the
+    # bf16 build also vs the f32 kernel, receiver means) at MAgNet[CNN]
+    # 1D's eval and training graphs, 2D's eval graph, the small graph (a
+    # degree-0 receiver, 64-edge receivers, L1 = 1) and the forward's tile
+    # graph; bit-equal launches; times at the three main-path graphs, the
+    # two builds in turns
+    t_phase = time.perf_counter()
+    fwd = {"f32": {}, "bf16": {}}
+    for label, (graph, l1c) in graphs.items():
+        ops, wops, wops_bf = pe_ops(graph, l1c, seed=63)
+        zero = graph.degree.to(dev) == 0
+        info = dict(n_node=graph.n_node, n_edge=graph.n_edge, l1=l1c,
+                    max_degree=int(graph.degree.max()),
+                    n_degree0=int(zero.sum()))
+        got32 = fe.fused_edge_tail_agg_pe(*wops)
+        torch.cuda.synchronize()
+        r32 = compare(got32, fe.fused_edge_tail_agg_pe_plain(*wops),
+                      KERNEL_RTOL, KERNEL_ATOL)
+        r32.update(info, degree0_rows_zero=bool((got32[zero] == 0).all()))
+        got = fe.fused_edge_tail_agg_pe_bf16(*wops_bf)
+        torch.cuda.synchronize()
+        rbf = compare_bf16(got, fe.fused_edge_tail_agg_pe_bf16_plain(*wops_bf))
+        deg = graph.degree.to(dev).clamp_min(1.0)[:, None]
+        rbf["vs_f32_kernel"] = compare(got / deg, got32 / deg,
+                                       BF16_VS_F32_RTOL, BF16_VS_F32_ATOL)
+        rbf["vs_f32_kernel"]["sums_max_abs_err"] = float(
+            (got - got32).abs().max())
+        rbf.update(info, degree0_rows_zero=bool((got[zero] == 0).all()))
+        if label == "eval_1d":
+            r32["bits_equal_run_to_run"] = torch.equal(
+                fe.fused_edge_tail_agg_pe(*wops), fe.fused_edge_tail_agg_pe(*wops))
+            rbf["bits_equal_run_to_run"] = torch.equal(
+                fe.fused_edge_tail_agg_pe_bf16(*wops_bf),
+                fe.fused_edge_tail_agg_pe_bf16(*wops_bf))
+        if label in ("eval_1d", "train_1d", "eval_2d"):
+            order, times, mean = in_turns(
+                {"f32": runner(fn32, "pe", ops, (h, h, c)),
+                 "bf16": runner_pe64_bf16(to_bf16(ops))},
+                first="f32", then="bf16")
+            b32 = pregathered_bound("fwd", graph, h, c, l1c, pe=True)
+            b32.update(tc_bound(b32))
+            r32["timing"] = {
+                "order": order, "ms": times, "mean_ms": mean["f32"],
+                "plain_ms": cuda_ms(
+                    lambda: fe.fused_edge_tail_agg_pe_plain(*wops), reps=10),
+                **b32}
+            rbf["timing"] = {
+                "order": order, "ms": times, "mean_ms": mean["bf16"],
+                "plain_ms": cuda_ms(
+                    lambda: fe.fused_edge_tail_agg_pe_bf16_plain(*wops_bf),
+                    reps=10),
+                **pe_bf16_bound("fwd", graph, h, c, l1c)}
+        fwd["f32"][label], fwd["bf16"][label] = r32, rbf
+        del ops, wops, wops_bf, got, got32
+    fwd_ok = all(r["ok"] and r["degree0_rows_zero"]
+                 and r.get("bits_equal_run_to_run", True)
+                 and r.get("vs_f32_kernel", {"ok": True})["ok"]
+                 for rows in fwd.values() for r in rows.values())
+    emit({"phase": "pe64_kernel", "h": h, "c": c, "l1": l1,
+          "tolerance": {"f32_vs_plain": {"rtol": KERNEL_RTOL,
+                                         "atol": KERNEL_ATOL},
+                        "bf16_vs_plain": {"rtol": BF16_RTOL,
+                                          "atol": BF16_ATOL,
+                                          "max_rel_l2": BF16_L2},
+                        "bf16_vs_f32_kernel": {"rtol": BF16_VS_F32_RTOL,
+                                               "atol": BF16_VS_F32_ATOL,
+                                               "of": "receiver means"}},
+          "pe64": fwd["f32"], "pe64_bf16": fwd["bf16"], "library_ms": None,
+          "seconds": time.perf_counter() - t_phase, "ok": fwd_ok})
+    if not fwd_ok:
+        return 40, [], {}
+
+    # pe64_kernel_bwd: #7 at (64, 32) with #1 for d_pxj, f32 and bf16, every
+    # gradient vs the plain versions (the bf16 build also vs the f32 kernel)
+    # at the 1D training graph (g zero on the receivers of relu ties,
+    # counted; by relative L2), the small graph and the backward's tile
+    # graph (elementwise in f32); bit-equal launches; times of #7 alone in
+    # turns, and with #1
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(64)
+    cases = {"train_shape": (tgraph, l1, 65), "small_case": (small, 1, 66),
+             "tile_edges": (bwd_tiles, l1, 67)}
+    bwd32, train32 = check_bwd_w64(
+        "pe", [(label, gr, pe_ops(gr, l1c, seed)[1])
+               for label, (gr, l1c, seed) in cases.items()], gen, c)
+    bwd32["tile_edges"]["graph"] = tiles_info
+    bwd_bf = {}
+    for label, (graph, l1c, seed) in cases.items():
+        ops, wops, wops_bf = pe_ops(graph, l1c, seed)
+        g = (train32[0] if label == "train_shape"
+             else torch.randn(graph.n_node, c, generator=gen).to(dev))
+        res = {}
+        if label == "train_shape":
+            ties = tie_receivers_bf16(wops_bf, l1c, "pe")
+            g = g.clone()
+            g[ties] = 0.0
+            res["tie_receivers_zeroed"] = int(ties.numel())
+        got = fe.fused_edge_tail_agg_pe_bf16_bwd(*wops_bf, g)
+        torch.cuda.synchronize()
+        want = fe.fused_edge_tail_agg_pe_bf16_bwd_plain(*wops_bf, g)
+        want32 = fe.fused_edge_tail_agg_pe_bwd(*wops, g)
+        plain32 = fe.fused_edge_tail_agg_pe_bwd_plain(*wops, g)
+        deep = l1c > BF16_VS_F32_DEPTH
+        for name, a, b, b32, p32 in zip(fe.GRAD_NAMES_PE, got, want, want32,
+                                        plain32):
+            res[name] = compare_grad(a, b, elementwise=False, rtol=BF16_RTOL,
+                                     atol_rel=BF16_BWD_ATOL_REL,
+                                     max_l2=BF16_BWD_L2)
+            if b32.numel():
+                l2, l2_plain = rel_l2(a, b32), rel_l2(b, p32)
+                res[name].update(
+                    vs_f32_kernel_rel_l2=l2,
+                    plain_bf16_vs_plain_f32_rel_l2=l2_plain,
+                    vs_f32_ok=l2 < BF16_VS_F32_GRAD_L2 or (
+                        deep and l2 <= BF16_VS_F32_DEEP * l2_plain))
+        res["dtypes_ok"] = [a.dtype for a in got] == [b.dtype for b in want]
+        res["vs_f32_kernel_ok"] = all(v.get("vs_f32_ok", True)
+                                      for v in res.values()
+                                      if isinstance(v, dict))
+        zero = graph.degree.to(dev) == 0
+        res["degree0_rows_zero"] = bool(
+            (got[fe.GRAD_NAMES_PE.index("pxi")][zero] == 0).all())
+        res.update(n_node=graph.n_node, n_edge=graph.n_edge, l1=l1c)
+        if label == "train_shape":
+            res["bits_equal_run_to_run"] = bits_equal_bwd(
+                fe.fused_edge_tail_agg_pe_bf16_bwd, wops_bf, g,
+                fe.GRAD_NAMES_PE)
+            # #7 alone: the C entries as their wrappers launch them
+            order, times, mean = in_turns(
+                {"f32": bwd_runner(fn32_bwd, "pe", ops, g, (h, h, c)),
+                 "bf16": bwd_runner_bf16(to_bf16(ops), g)},
+                first="f32", then="bf16")
+            b32 = pregathered_bound("bwd", graph, h, c, l1c, pe=True)
+            b32.update(tc_bound(b32))
+            bwd32["timing"] = {
+                "order": order, "ms": times, "mean_ms": mean["f32"],
+                "of": "#7 alone (d_pxj's #1 not included)",
+                "with_segment_sum_ms": cuda_ms(
+                    lambda: fe.fused_edge_tail_agg_pe_bwd(*wops, g), reps=20),
+                "plain_ms": cuda_ms(
+                    lambda: fe.fused_edge_tail_agg_pe_bwd_plain(*wops, g),
+                    reps=5), **b32}
+            res["timing"] = {
+                "order": order, "ms": times, "mean_ms": mean["bf16"],
+                "of": "#7 alone (d_pxj's #1 not included)",
+                "with_segment_sum_ms": cuda_ms(
+                    lambda: fe.fused_edge_tail_agg_pe_bf16_bwd(*wops_bf, g),
+                    reps=20),
+                "plain_ms": cuda_ms(
+                    lambda: fe.fused_edge_tail_agg_pe_bf16_bwd_plain(
+                        *wops_bf, g), reps=5),
+                **pe_bf16_bound("bwd", graph, h, c, l1c)}
+        bwd_bf[label] = res
+        del ops, wops, wops_bf, got, want, want32, plain32
+    bwd_ok = all(
+        v["ok"] for case in bwd32.values() if isinstance(case, dict)
+        for v in case.values() if isinstance(v, dict) and "ok" in v) and all(
+        all(v["ok"] for v in r.values() if isinstance(v, dict) and "ok" in v)
+        and r["dtypes_ok"] and r["vs_f32_kernel_ok"] and r["degree0_rows_zero"]
+        for r in bwd_bf.values())
+    emit({"phase": "pe64_kernel_bwd", "l1": l1,
+          "tolerance": {"f32_vs_plain": {
+                            "rtol": BWD_RTOL, "atol_rel_to_max": BWD_ATOL_REL,
+                            "max_rel_l2": BWD_L2,
+                            "elementwise": "small_case and tile_edges"},
+                        "bf16_vs_plain": {
+                            "max_rel_l2": BF16_BWD_L2,
+                            "counted_outside": {
+                                "rtol": BF16_RTOL,
+                                "atol_rel_to_max": BF16_BWD_ATOL_REL}},
+                        "bf16_vs_f32_kernel_max_rel_l2": BF16_VS_F32_GRAD_L2,
+                        "bf16_vs_f32_kernel_deeper_than_l1": BF16_VS_F32_DEPTH,
+                        "bf16_vs_f32_kernel_deep_times_plain":
+                            BF16_VS_F32_DEEP},
+          "pe64_bwd": bwd32, "pe64_bf16_bwd": bwd_bf, "library_ms": None,
+          "build": bwd_w64_build(), "bf16_build": bf16_ptxas(),
+          "seconds": time.perf_counter() - t_phase, "ok": bwd_ok})
+    if not bwd_ok:
+        return 41, [], {}
+
+    def eval_pe(m, bs, expect):
+        """``evaluate`` of ``m`` (its lane set) on ``bs``: metrics,
+        predictions, launches (every counter 0 but ``expect``'s) and the
+        first call's seconds a batch."""
+        reset_every_launch()
+        t0 = time.perf_counter()
+        metrics, preds = evaluate(m, bs, dev, return_predictions=True)
+        torch.cuda.synchronize()
+        first_s = (time.perf_counter() - t0) / len(bs)
+        counts = every_launch()
+        want = {k: expect.get(k, 0) for k in counts}
+        finite = (all(bool(torch.isfinite(p).all()) for p in preds)
+                  and all(np.isfinite(v) for v in metrics.values()))
+        return metrics, preds, {"launches": counts, "expected_launches": want,
+                                "launches_ok": counts == want,
+                                "finite": finite,
+                                "seconds_per_batch_first": first_s}
+
+    def in_turns_s(runs, order):
+        """Host seconds of each run in ``order`` (each warmed up first)."""
+        for fn in runs.values():
+            fn()
+        secs = [timed(runs[o]) for o in order]
+        return {"order": order, "seconds": secs,
+                "mean": {k: float(np.mean([s for o, s in zip(order, secs)
+                                           if o == k])) for k in runs}}
+
+    # pe64_slice: evaluate() on MAgNet[CNN] 1D's 16 Heat trajectories (150
+    # launches of #6 a batch) and 2D's 4 test trajectories at 64² (20 a
+    # batch), f32 and bf16, on the pe kernels alone; f32 against the plain
+    # path's rollout, bf16 against the f32 pe lane's loss; seconds a batch of
+    # each beside the f32 fold lane's, in turns
+    t_phase = time.perf_counter()
+    slices = {}
+    for name, params, bs, nt, points in (
+            ("magnet_cnn", hp, batches, HEAT_TEST["nt"], HEAT_TEST["nx"]),
+            ("magnet_cnn_2d", hp2d, batches2d,
+             DATAMODULE_IMPLICIT_2D["nt_test"], 64 * 64)):
+        ts_m = params["time_slice"]
+        n_win = (nt - ts_m) // ts_m
+        per_batch = n_win * params["num_message_passing_steps"]
+        m32 = model if name == "magnet_cnn" else model2d
+        m_bf = new(name, params, "bf16")
+        met32, preds32, rec32 = eval_pe(
+            m32, bs, {"fused_edge_pe64_fwd": per_batch * len(bs)})
+        met_bf, preds_bf, rec_bf = eval_pe(
+            m_bf, bs, {"fused_edge_pe64_bf16_fwd": per_batch * len(bs)})
+        m32.impl = "plain"
+        met_p, preds_p = evaluate(m32, bs, dev, return_predictions=True)
+        m32.impl = "kernel"
+        met_fold = evaluate(m32, bs, dev)
+        cmp = compare(torch.cat(preds32), torch.cat(preds_p), SLICE_RTOL,
+                      SLICE_ATOL)
+        loss_rel = (abs(met_bf["test_loss"] - met32["test_loss"])
+                    / abs(met32["test_loss"]))
+        shape_ok = all(
+            tuple(p.shape) == (b["hr_points"].shape[0], n_win * ts_m, points,
+                               1)
+            for preds in (preds32, preds_bf) for p, b in zip(preds, bs))
+        del preds32, preds_bf, preds_p
+
+        def run(m, impl):
+            def go():
+                m.impl = impl
+                evaluate(m, bs, dev)
+            return go
+
+        turns = in_turns_s({"f32_fold": run(m32, "kernel"),
+                            "f32_pe": run(m32, "kernel_pe"),
+                            "bf16_pe": run(m_bf, "kernel_pe")},
+                           ["f32_fold", "f32_pe", "bf16_pe", "bf16_pe",
+                            "f32_pe", "f32_fold"])
+        m32.impl = "kernel_pe"
+        del m_bf
+        ok = (rec32["launches_ok"] and rec_bf["launches_ok"]
+              and rec32["finite"] and rec_bf["finite"] and cmp["ok"]
+              and shape_ok and loss_rel <= BF16_LOSS_RTOL)
+        slices[name] = {
+            "batches": len(bs), "batch_size": bs[0]["hr_points"].shape[0],
+            "windows": n_win, "launches_per_batch": per_batch,
+            "graph": {"n_node": (egraph if name == "magnet_cnn"
+                                 else egraph2d).n_node,
+                      "n_edge": (egraph if name == "magnet_cnn"
+                                 else egraph2d).n_edge},
+            "f32": {**rec32, "metrics": met32, "vs_plain": cmp,
+                    "plain_metrics": met_p, "fold_lane_metrics": met_fold},
+            "bf16": {**rec_bf, "metrics": met_bf,
+                     "loss_rel_err_vs_f32_pe": loss_rel,
+                     "loss_rtol_vs_f32": BF16_LOSS_RTOL},
+            "shape_ok": shape_ok,
+            "seconds_per_batch_in_turns": {
+                "order": turns["order"],
+                "seconds": [s / len(bs) for s in turns["seconds"]],
+                "mean": {k: v / len(bs) for k, v in turns["mean"].items()}},
+            "ok": ok}
+    slice_ok = all(v["ok"] for v in slices.values())
+    emit({"phase": "pe64_slice", **slices,
+          "seconds": time.perf_counter() - t_phase, "ok": slice_ok})
+    if not slice_ok:
+        return 42, [], {}
+    del model2d
+
+    # pe64_train: Trainer.fit on MAgNet[CNN] 1D on the pe lane, f32 and
+    # bf16 (70 launches each of #6, #7 and the f32 #1 a step), checkpoint
+    # read back, resume; the first step's loss and gradients against the
+    # plain path; seconds a step beside the f32 fold lane's, in turns
+    t_phase = time.perf_counter()
+    nt = DATAMODULE_IMPLICIT["nt_train"]
+    per_step = (nt - ts) // ts * mp
+    n_epochs, steps = 2, len(loaders["train"])
+    val_batches = len(loaders["val"])
+    trains, resumed = {}, {}
+    for dtype, suffix in (("float32", ""), ("bf16", "_bf16")):
+        tmodel = new("magnet_cnn", hp, dtype)
+        plain = gnn_loss_and_grads(tmodel, "plain", batch0, tgraph)
+        step = gnn_vs_plain(tmodel, "kernel_pe", plain, batch0, tgraph)
+        del tmodel, plain
+        if dtype == "bf16":
+            # the plain path is the fold lane's bf16 plain versions, which
+            # round elsewhere: the loss within 1e-3, gradients finite
+            step.pop("grad_rel_l2_tol")
+            step["loss_rtol"] = 1e-3
+            step["ok"] = step["grads_finite"] and step["loss_rel_err"] <= 1e-3
+        fit, resumed[dtype] = fit_checkpoint_resume(
+            lambda: new("magnet_cnn", hp, dtype), hp, loaders, dev, n_epochs,
+            reset_every_launch, every_launch)
+        counts = fit.pop("launches")
+        want = {k: 0 for k in counts}
+        want[f"fused_edge_pe64{suffix}_fwd"] = per_step * (
+            steps + val_batches) * n_epochs
+        want[f"fused_edge_pe64{suffix}_bwd"] = per_step * steps * n_epochs
+        want["segment_sum"] = per_step * steps * n_epochs
+        trains[dtype] = {
+            "launches": counts, "expected_launches": want, **fit,
+            "loss_falls": falls(fit["epoch_train_losses"]),
+            "step_vs_plain": step,
+            "ok": (counts == want and fit["losses_finite"] and step["ok"]
+                   and falls(fit["epoch_train_losses"])
+                   and fit["checkpoint_ok"] and fit["resume_ok"])}
+    host_batches = [to_device(b, dev) for b in loaders["train"]]
+
+    def steps_of(trainer):
+        return lambda: [trainer.train_step(b) for b in host_batches]
+
+    with tempfile.TemporaryDirectory() as workdir:
+        fold32 = Trainer(new("magnet_cnn", hp, "float32", impl="kernel"),
+                         max_epochs=1, lr=hp["lr"],
+                         weight_decay=hp["weight_decay"], factor=hp["factor"],
+                         step_size=hp["step_size"], device=dev,
+                         workdir=workdir)
+        fold32.setup(steps)
+        turns = in_turns_s({"f32_fold": steps_of(fold32),
+                            "f32_pe": steps_of(resumed["float32"]),
+                            "bf16_pe": steps_of(resumed["bf16"])},
+                           ["f32_fold", "f32_pe", "bf16_pe", "bf16_pe",
+                            "f32_pe", "f32_fold"])
+    del fold32, resumed
+    train_ok = all(v["ok"] for v in trains.values())
+    emit({"phase": "pe64_train", "model": "magnet_cnn",
+          "batch_size": loaders["train"].batch_size,
+          "train_graph": {"n_node": tgraph.n_node, "n_edge": tgraph.n_edge},
+          "launches_per_train_step": per_step, **trains,
+          "seconds_per_step_in_turns": {
+              "order": turns["order"],
+              "seconds": [s / steps for s in turns["seconds"]],
+              "mean": {k: v / steps for k, v in turns["mean"].items()}},
+          "seconds": time.perf_counter() - t_phase, "ok": train_ok})
+    if not train_ok:
+        return 43, [], {}
+
+    def fwd_err(rows):
+        return max(r["max_abs_err"] for r in rows.values())
+
+    def bwd_err(rows):
+        return max(v["max_abs_err"] for r in rows.values()
+                   if isinstance(r, dict) for v in r.values()
+                   if isinstance(v, dict) and "max_abs_err" in v)
+
+    def row(name, source, replaces, launches, err, timing, shape, tc):
+        entry = {
+            "name": name, "route": "cuda",
+            "source": f"magnet_tpu_torch/csrc/{source}", "entry": "pe",
+            "widths": [h, c],
+            "replaces": f"magnet_tpu/ops/pallas_kernels.py:{replaces}",
+            "launches": launches, "max_abs_err": err,
+            "ms": timing["mean_ms"], "plain_ms": timing["plain_ms"],
+            "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
+            "library_ms": None, "shape": shape, "ok": True}
+        if tc:
+            entry.update(tc_bound_ms=timing["tc_bound_ms"],
+                         tc_bound_by=timing["tc_bound_by"])
+        else:
+            entry.update(share_of_bound=timing["bound_ms"] / timing["mean_ms"],
+                         share_against="bound_ms (bf16, 989 TFLOP/s)")
+        return entry
+
+    def launches_of(key):
+        return (sum(s[dt]["launches"][key] for s in slices.values()
+                    for dt in ("f32", "bf16"))
+                + sum(t["launches"][key] for t in trains.values()))
+
+    shapes = ("MAgNet[CNN] 1D eval graph", "MAgNet[CNN] 1D training graph")
+    kernels = [
+        row("fused_edge_tail_agg_pe64", "fused_edge_tail_agg.cu", 929,
+            launches_of("fused_edge_pe64_fwd"), fwd_err(fwd["f32"]),
+            fwd["f32"]["eval_1d"]["timing"], shapes[0], True),
+        row("fused_edge_tail_agg_pe64_bwd", "fused_edge_tail_agg_bwd.cu",
+            1046, launches_of("fused_edge_pe64_bwd"), bwd_err(bwd32),
+            bwd32["timing"], shapes[1], True),
+        row("fused_edge_tail_agg_pe64_bf16", "fused_edge_tail_agg_bf16.cu",
+            929, launches_of("fused_edge_pe64_bf16_fwd"), fwd_err(fwd["bf16"]),
+            fwd["bf16"]["eval_1d"]["timing"], shapes[0], False),
+        row("fused_edge_tail_agg_pe64_bf16_bwd", "fused_edge_tail_agg_bf16.cu",
+            1046, launches_of("fused_edge_pe64_bf16_bwd"), bwd_err(bwd_bf),
+            bwd_bf["train_shape"]["timing"], shapes[1], False)]
+    kernels[0].update(ms_train_1d=fwd["f32"]["train_1d"]["timing"]["mean_ms"],
+                      ms_eval_2d=fwd["f32"]["eval_2d"]["timing"]["mean_ms"],
+                      bound_ms_eval_2d=fwd["f32"]["eval_2d"]["timing"]
+                      ["bound_ms"])
+    kernels[2].update(ms_train_1d=fwd["bf16"]["train_1d"]["timing"]["mean_ms"],
+                      ms_eval_2d=fwd["bf16"]["eval_2d"]["timing"]["mean_ms"],
+                      bound_ms_eval_2d=fwd["bf16"]["eval_2d"]["timing"]
+                      ["bound_ms"])
+    return 0, kernels, {"segment_sum": {
+        "launches_cnn_pe": sum(t["launches"]["segment_sum"]
+                               for t in trains.values())}}
 
 
 def mpnn_operands(graph, h, seed, dev):
@@ -4211,13 +4710,14 @@ def make_data(groups) -> dict:
                      "source": "synthetic_burgers_2d"}
         nt, res = DATAMODULE_GRAPH_2D["nt_train"], DATAMODULE_GRAPH_2D["res_train"]
         jobs = {}
-        if {"cnn", "gnn", "no_interaction", "cnn_bf16", "gnn_bf16"} & groups:
+        if {"cnn", "gnn", "no_interaction", "cnn_bf16", "gnn_bf16",
+                "cnn_pe"} & groups:
             jobs["ks"] = splits(ks_cfg)
-        if {"mpnn_paths", "cnn2d", "cnn2d_bf16"} & groups:
+        if {"mpnn_paths", "cnn2d", "cnn2d_bf16", "cnn_pe"} & groups:
             jobs["b2d"] = {split: pool.submit(
                 make_split, "B2D", MPNN_2D_DATA[f"n_{split}"], nt, res, seed=i)
                 for i, split in enumerate(SPLITS)}
-        if {"cnn2d", "cnn2d_bf16"} & groups:
+        if {"cnn2d", "cnn2d_bf16", "cnn_pe"} & groups:
             jobs["b2d_extra"] = pool.submit(make_split, "B2D",
                                             CNN2D_EXTRA_TRAIN, nt, res, seed=3)
         if "mpnn_paths" in groups:
@@ -4243,7 +4743,7 @@ def make_data(groups) -> dict:
                                       seed=200 + i, n_steps=CE_STEPS)
                           for i in range(CE_TRAJ // DATA_CHUNK)]
 
-        if {"cnn", "no_interaction", "cnn_bf16"} & groups:
+        if {"cnn", "no_interaction", "cnn_bf16", "cnn_pe"} & groups:
             data["heat"] = heat_batches(16, 16, nt=HEAT_TEST["nt"],
                                         nx=HEAT_TEST["nx"])
             data["ks_loaders"] = build_loaders(
@@ -4357,7 +4857,8 @@ def main(argv) -> int:
                                 (("no_interaction",), no_interaction_phases),
                                 (("cnn_bf16",), cnn_bf16_phases),
                                 (("cnn2d_bf16",), cnn2d_bf16_phases),
-                                (("gnn_bf16",), gnn_bf16_phases)):
+                                (("gnn_bf16",), gnn_bf16_phases),
+                                (("cnn_pe",), cnn_pe_phases)):
         if set(group_names) & set(groups):
             rc, entries, more = phases(dev, data, groups)
             kernels += entries

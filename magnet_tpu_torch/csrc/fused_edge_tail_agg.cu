@@ -27,7 +27,8 @@
 //
 // Compiled builds, keyed by what each entry reads: fold (Ce, H, C) =
 // (32, 64, 32) (MAgNet[CNN]) and (128, 128, 128) (MAgNet[GNN]);
-// pregathered (H, C) = (64, 32) and (128, 128); pe (H, C) = (128, 128).
+// pregathered (H, C) = (64, 32) and (128, 128); pe (H, C) = (64, 32)
+// (MAgNet[CNN]) and (128, 128) (MAgNet[GNN]).
 //
 // Every build walks the graph the same way.  Hopper gathers natively, so
 // none of the TPU's one-hot gather matmuls, sender-tile windows or
@@ -52,18 +53,24 @@
 //     second small kernel adds those in tile order.  No atomics: out has the
 //     same bits from run to run.
 //
-// Width 64 (namespace w64; fold (32, 64, 32) and pregathered (64, 32)).
+// Width 64 (namespace w64; fold (32, 64, 32), pregathered and pe (64,
+// 32)).
 // Every weight (three 64 x 64, one 64 x 32, and the fold's 32 x 64 W_e;
 // transposed and XOR-swizzled, so that ldmatrix reads their fragments)
 // stays in shared memory for the whole launch.  The tile's input rows arrive
 // by cp.async into staging buffers that are free again once the first
 // layer is formed, so the next tile's rows load while this one's layers
 // run: the pregathered entry stages h0 and pxi rows and forms relu(h0 +
-// pxi[i]); the fold entry stages its e0 rows (64 x 32) and forms the first
+// pxi[i]); the pe entry stages pe and pxi rows the same way and its
+// sender ids beside the receivers, and forms relu((pe + pxj[s]) + pxi[i])
+// with the sender rows read through L2 as the staged rows are read (a
+// third (64, 64) staging tile for them would leave one block an SM); the
+// fold entry stages its e0 rows (64 x 32) and forms the first
 // layer as one more product, e0 . W_e, whose accumulators start at b_e +
 // pxj[s] + pxi[i] read through L2 (the node tables are small and stay
-// there).  92,032 bytes of shared memory (fold) and 107,904 (pregathered)
-// at L1 = 3, at most 128 registers a thread: two blocks share an SM.
+// there).  92,032 bytes of shared memory (fold), 107,904 (pregathered) and
+// 108,416 (pe) at L1 = 3, at most 128 registers a thread: two blocks share
+// an SM.
 // Bound at the main paths' shapes (L1 = 3): the fold does Ce H + L1 H^2 +
 // H C = 16,384 multiply-adds an edge, issued as three TF32 products: at
 // MAgNet[CNN] 1D's eval graph (186,624 edges) 0.037 ms at 495 TFLOP/s
@@ -71,7 +78,8 @@
 // MAgNet[CNN] 2D's eval graph (647,664) 0.129, against ~24 MB of e0 a
 // launch at 1D eval (0.007 ms): bound by operations.  The pregathered
 // entry does 14,336 an edge (0.052 ms at 2D training's 299,894 edges,
-// against 0.027 ms of h0).
+// against 0.027 ms of h0), and so does the pe entry (0.032 ms at 1D's eval
+// graph, against 47.8 MB of pe, 0.014 ms; 0.113 ms at 2D's eval graph).
 //
 // Width 128 (namespace w128; all three entries, Ce = H = C = 128).  The
 // five 128 x 128 weights (320 KB) do not fit a block, so each is streamed
@@ -500,18 +508,19 @@ constexpr int kH = 64;          // hidden width
 constexpr int kC = 32;          // output width
 
 // Offsets, in floats, into dynamic shared memory: the tiles, then the
-// weights, all XOR-swizzled (tf32x3::swz_at); 92,032 bytes (fold) and
-// 107,904 (pregathered) at L1 = 3.
+// weights, all XOR-swizzled (tf32x3::swz_at); 92,032 bytes (fold), 107,904
+// (pregathered) and 108,416 (pe) at L1 = 3.
 template <Entry E>
 struct Layout {
   static constexpr bool fold = E == kFold;
+  static constexpr bool gathers = E != kPregathered;  // stages senders
   static constexpr int tile = kTE * kH;          // a (kTE, kH) tile
-  static constexpr int src = 0;                  // the tile's h0 / e0 rows
+  static constexpr int src = 0;                  // the tile's h0 / pe / e0
   static constexpr int pxi = src + (fold ? kTE * kCe : tile);  // its pxi
   static constexpr int act = pxi + (fold ? 0 : tile);  // h, then y (kTE, kC)
   static constexpr int rcv = act + tile;         // 2 x (kTE) int, two tiles
-  static constexpr int snd = rcv + 2 * kTE;      // fold: 2 x (kTE) int
-  static constexpr int we = snd + (fold ? 2 * kTE : 0);  // fold: (kH, kCe)
+  static constexpr int snd = rcv + 2 * kTE;      // fold, pe: 2 x (kTE) int
+  static constexpr int we = snd + (gathers ? 2 * kTE : 0);  // fold: (kH, kCe)
   static constexpr int wo = we + (fold ? kH * kCe : 0);  // (kC, kH)
   static constexpr int bo = wo + kH * kC;        // (kC)
   static constexpr int wr = bo + kC;             // L1 x (kH, kH), (L1, kH)
@@ -564,11 +573,10 @@ edge_tail_kernel(const float* __restrict__ src, const float* __restrict__ we,
                  const float* __restrict__ ln_s,
                  const float* __restrict__ ln_b, float* __restrict__ out,
                  float* __restrict__ part, int n_nodes, int n_edges, int l1) {
-  static_assert(E == kFold || E == kPregathered,
-                "width 64: fold and pregathered");
   using L = Layout<E>;
   using namespace tf32x3;
   constexpr bool kFoldE = E == kFold;
+  constexpr bool kGathers = L::gathers;   // reads senders and pxj
   constexpr int kIn = kFoldE ? kCe : kH;  // the staged rows' width
   extern __shared__ __align__(16) float w64_smem[];
   float* s_src = w64_smem + L::src;
@@ -591,7 +599,7 @@ edge_tail_kernel(const float* __restrict__ src, const float* __restrict__ we,
   int t_beg, t_end;
   tile128::block_tiles<kTE>(n_edges, &t_beg, &t_end);
   // the input rows of tile `tile`, whose receivers are in buffer `buf`:
-  // h0 and pxi (pregathered) or e0 (fold), one committed group
+  // h0 (pregathered) or pe (pe) and pxi, or e0 (fold), one committed group
   auto gather = [&](int tile, int buf) {
     const int base = tile * kTE, n_valid = min(kTE, n_edges - base);
     rows_async<kTE, kIn>(s_src, 0, src, [&](int e) {
@@ -608,8 +616,8 @@ edge_tail_kernel(const float* __restrict__ src, const float* __restrict__ we,
 
   if (t_beg < t_end) {
     if (warp < 2)
-      tile128::tile_indices<kTE, kFoldE>(s_rcv, s_snd, senders, rowptr,
-                                         n_nodes, n_edges, t_beg, -1);
+      tile128::tile_indices<kTE, kGathers>(s_rcv, s_snd, senders, rowptr,
+                                           n_nodes, n_edges, t_beg, -1);
     __syncthreads();
     gather(t_beg, 0);
   }
@@ -632,11 +640,18 @@ edge_tail_kernel(const float* __restrict__ src, const float* __restrict__ we,
       add_apart<kH>(acc, corr);
       store_acc<kH, true>(s_act, acc);
     } else {
-      // act = relu(h0[e] + pxi[i]) from the staging rows (zero past
-      // n_valid, and so zero in act)
+      // act = relu(h0[e] + pxi[i]), or relu((pe[e] + pxj[s]) + pxi[i]) with
+      // pxj read through L2, from the staging rows (zero past n_valid, and
+      // so zero in act)
+      const int* snd = s_snd + cur * kTE;
       for (int k = tid; k < kTE * kH / 4; k += kThreads) {
-        const int o = swz_at<kH>(k >> 4, (k & 15) * 4);
-        const float4 a = *reinterpret_cast<const float4*>(s_src + o);
+        const int e = k >> 4, c = (k & 15) * 4, o = swz_at<kH>(e, c);
+        float4 a = *reinterpret_cast<const float4*>(s_src + o);
+        if (E == kPe && e < n_valid) {
+          const float4 j = __ldg(
+              reinterpret_cast<const float4*>(pxj + (size_t)snd[e] * kH + c));
+          a = make_float4(a.x + j.x, a.y + j.y, a.z + j.z, a.w + j.w);
+        }
         const float4 b = *reinterpret_cast<const float4*>(s_pxi + o);
         *reinterpret_cast<float4*>(s_act + o) =
             make_float4(fmaxf(a.x + b.x, 0.f), fmaxf(a.y + b.y, 0.f),
@@ -644,7 +659,7 @@ edge_tail_kernel(const float* __restrict__ src, const float* __restrict__ we,
       }
     }
     if (more && warp < 2)
-      tile128::tile_indices<kTE, kFoldE>(
+      tile128::tile_indices<kTE, kGathers>(
           s_rcv + nxt * kTE, s_snd + nxt * kTE, senders, rowptr, n_nodes,
           n_edges, tile + 1, rcv[n_valid - 1]);
     __syncthreads();  // act written, the staging buffers free
@@ -723,10 +738,15 @@ int fused_edge_tail_agg_f32(const float* src, const float* we, const float* be,
                                         rowptr, w_rest, b_rest, w_out, b_out,
                                         ln_s, ln_b, out, part, n_nodes,
                                         n_edges, l1, s);
-  } else if (entry == kPe && gathers && wide) {
-    return w128::launch<kPe>(src, we, be, pxj, pxi, senders, rowptr, w_rest,
-                             b_rest, w_out, b_out, ln_s, ln_b, out, part,
-                             n_nodes, n_edges, l1, s);
+  } else if (entry == kPe && gathers) {
+    if (narrow)
+      return w64::launch<kPe>(src, we, be, pxj, pxi, senders, rowptr, w_rest,
+                              b_rest, w_out, b_out, ln_s, ln_b, out, part,
+                              n_nodes, n_edges, l1, s);
+    if (wide)
+      return w128::launch<kPe>(src, we, be, pxj, pxi, senders, rowptr,
+                               w_rest, b_rest, w_out, b_out, ln_s, ln_b, out,
+                               part, n_nodes, n_edges, l1, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,6 +1,6 @@
-// Fused InteractionNetwork edge pipeline, bf16 operands, in two entries:
-// fold at (Ce, H, C) = (32, 64, 32) and pre-gathered at (H, C) = (64, 32),
-// forward and backward, L1 in 0..3.
+// Fused InteractionNetwork edge pipeline, bf16 operands, in three entries:
+// fold at (Ce, H, C) = (32, 64, 32), pre-gathered and pe at (H, C) = (64,
+// 32), forward and backward, L1 in 0..3.
 //
 // Replaces the TPU kernels of magnet_tpu/ops/pallas_kernels.py on bf16
 // operands (the JAX models' graph_dtype=bf16, whose GraphNet stage rounds
@@ -11,12 +11,17 @@
 //     pxi, W_k, b_k, W_out, b_out);
 //   * pregathered: _fused_fwd_pallas (#2) and _fused_bwd_pallas (#3), the
 //     public entry fused_edge_tail_agg (operands h0, the first layer's input
-//     gathered per edge by the caller, pxi, W_k, b_k, W_out, b_out).
+//     gathered per edge by the caller, pxi, W_k, b_k, W_out, b_out);
+//   * pe: _fused2_fwd_pallas (#6) and _fused2_bwd_pallas (#7) with its VJP
+//     _fused2_bwd, the public entry fused_edge_tail_agg2 (operands pe, the
+//     edge projection formed per edge by the caller, pxj gathered in the
+//     kernel, pxi, W_k, b_k, W_out, b_out).
 // The arithmetic is the TPU kernels', rounding where they round:
 //
 //   forward, for every edge j -> i of a receiver-grouped CSR graph
 //     z    = f32(e0[e] . W_e) + b_e + pxj[j] + pxi[i]      (fold, f32)
 //     z    = h0[e] + pxi[i]                                (pregathered, f32)
+//     z    = (pe[e] + pxj[j]) + pxi[i]                     (pe, f32)
 //     h_0  = bf16(relu(z));  h_k = bf16(relu(f32(h_{k-1} . W_k) + b_k))
 //     y    = f32(h_L1 . W_out) + b_out;  y = LayerNorm(y)  (f32, two-pass)
 //     out[i] = sum over the edges of i of bf16(y), in f32     (N, C) f32
@@ -29,18 +34,21 @@
 //     fold: d_e0 = bf16(bf16(dz) . W_e^T) (E, Ce) bf16;
 //           dW_e = e0^T . bf16(dz), db_e = sum dz;  d_pxj[j] += bf16(dz);
 //     pregathered: d_h0 = bf16(dz) (E, H) bf16;
+//     pe: d_pe = bf16(dz) (E, H) bf16 and dz (E, H) f32 unrounded, from
+//         which the caller sums d_pxj over the sender CSR (the f32 segment
+//         sum, then one rounding, as the JAX VJP reduces it);
 //     d_pxi[i] += bf16(dz) (f32 sums);
 //     d_ln_s = sum bf16(g) xhat, d_ln_b = sum bf16(g);
 // every product on bf16 operands with f32 accumulation, every weight
 // gradient summed in f32; the caller casts each gradient to its operand's
 // dtype, as the JAX VJPs do.  The plain versions are
 // magnet_tpu_torch/ops/fused_edge.py:fused_edge_tail_agg_bf16_plain /
-// _bwd_plain (fold) and fused_edge_tail_agg_pregathered_bf16_plain /
-// _bwd_plain.
+// _bwd_plain (fold), fused_edge_tail_agg_pregathered_bf16_plain /
+// _bwd_plain and fused_edge_tail_agg_pe_bf16_plain / _bwd_plain.
 //
 // Design: the f32 builds' walk (csrc/fused_edge_tail_agg.cu and
 // fused_edge_tail_agg_bwd.cu, namespace w64), with bf16 products; one
-// template per kernel holds both entries (PRE: pregathered):
+// template per kernel holds the three entries (an Entry value):
 //   * persistent blocks walk consecutive tiles of TE = 64 CSR edges
 //     (tile128::block_tiles); warps 0 and 1 find the next tile's receivers
 //     and senders from the last receiver of this one (tile_indices); the
@@ -75,11 +83,17 @@
 //     its receivers' pxi rows (16-byte loads), in place of the fold's
 //     first product; there is no W_e, e0, pxj or sender, and the backward
 //     writes d_h0 = bf16(dz) per edge with plain stores (its d_pxi as the
-//     fold's).
-// Forward: 256 threads, 63,104 bytes of shared memory at L1 = 3 (both
-// entries: the pre-gathered one leaves the fold's W_e and e0 tiles
+//     fold's);
+//   * pe: as pregathered, with the sender row of pxj added to each pe row
+//     before pxi's (16-byte loads of all three, the order of the TPU
+//     kernel's pe + g0 + gath); the sender ids are staged beside the
+//     receivers, as the fold's; the backward writes d_pe = bf16(dz) and the
+//     unrounded dz with plain stores (no d_pxj atomics: the caller's
+//     segment sum over the sender CSR reads dz).
+// Forward: 256 threads, 63,104 bytes of shared memory at L1 = 3 (every
+// entry: the pre-gathered and pe ones leave the fold's W_e and e0 tiles
 // unused), two blocks an SM.  Backward: 512 threads, 172,288 bytes at L1
-// = 3 (fold) and 152,064 (pregathered), one block an SM.
+// = 3 (fold) and 152,064 (pregathered and pe), one block an SM.
 // fused_edge_tail_agg_bf16_smem reports each for each L1.
 // What bounds it on an H100: Ce H + L1 H^2 + H C = 16,384 multiply-adds an
 // edge at L1 = 3 in the fold forward, three times that in the backward; at
@@ -88,7 +102,10 @@
 // TB/s): bound by operations.  The pregathered forward does L1 H^2 + H C =
 // 14,336 an edge and reads an (E, 64) bf16 h0: at MAgNet[CNN] 2D's
 // training graph (299,894 edges) 8.6 GFLOP (0.0087 ms) against 38.4 MB of
-// h0 (0.0115 ms): bound by bytes.  mma.sync and not wgmma, as in the f32
+// h0 (0.0115 ms): bound by bytes.  The pe forward does the same work and
+// reads an (E, 64) bf16 pe: at 1D's eval graph 23.9 MB (0.0071 ms) against
+// 5.35 GFLOP (0.0054 ms), bound by bytes; its backward moves ~512 B an edge
+// (pe, d_pe, dz), 0.010 ms at 1D's training graph (67,680 edges).  mma.sync and not wgmma, as in the f32
 // builds: the products read their operands from padded tiles at any
 // stride, transposed or not.
 //
@@ -106,6 +123,10 @@
 namespace {
 
 using bf16 = __nv_bfloat16;
+using tile128::Entry;
+using tile128::kFold;
+using tile128::kPe;
+using tile128::kPregathered;
 
 constexpr float kLnEps = 1e-5f;
 constexpr int kTE = 64;         // edges per tile
@@ -157,11 +178,19 @@ __device__ __forceinline__ float round_bf16(float x) {
 __device__ __forceinline__ float2 ld_bf16x2(const bf16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
+__device__ __forceinline__ float2 unpack(uint32_t a) {
+  return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&a));
+}
 // bf16(relu(f32(a) + f32(b))) of two pairs of bf16 values
 __device__ __forceinline__ uint32_t relu_sum(uint32_t a, uint32_t b) {
-  const float2 x = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&a));
-  const float2 y = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&b));
+  const float2 x = unpack(a), y = unpack(b);
   return pack_rn(fmaxf(x.x + y.x, 0.f), fmaxf(x.y + y.y, 0.f));
+}
+// bf16(relu((f32(a) + f32(j)) + f32(b))) of three pairs of bf16 values
+__device__ __forceinline__ uint32_t relu_sum3(uint32_t a, uint32_t j,
+                                              uint32_t b) {
+  const float2 x = unpack(a), z = unpack(j), y = unpack(b);
+  return pack_rn(fmaxf((x.x + z.x) + y.x, 0.f), fmaxf((x.y + z.y) + y.y, 0.f));
 }
 
 __device__ __forceinline__ int lane_g() { return (threadIdx.x & 31) >> 2; }
@@ -378,27 +407,36 @@ __device__ __forceinline__ float fold_z(const float* s_be,
                     __bfloat162float(pxi[(size_t)rcv[e] * kH + n]));
 }
 
-// The pregathered entry's h_0 = bf16(relu(f32(h0[e]) + f32(pxi[rcv[e]])))
-// of the tile's edges into dst (bf16 rows of kLdH), zeros past n_valid:
-// 16-byte pieces of 8 columns, by a block of THREADS threads.  The rows of
-// h0 and pxi start 16-byte aligned.
-template <int THREADS>
-__device__ __forceinline__ void pregathered_h0(bf16* dst,
-                                               const bf16* __restrict__ h0,
-                                               const bf16* __restrict__ pxi,
-                                               const int* rcv, int n_valid,
-                                               int base) {
+// The pregathered entry's h_0 = bf16(relu(f32(h0[e]) + f32(pxi[rcv[e]]))),
+// or (PE) the pe entry's bf16(relu((f32(pe[e]) + f32(pxj[snd[e]])) +
+// f32(pxi[rcv[e]]))), of the tile's edges into dst (bf16 rows of kLdH),
+// zeros past n_valid: 16-byte pieces of 8 columns, by a block of THREADS
+// threads.  The rows of src, pxj and pxi start 16-byte aligned.
+template <int THREADS, bool PE>
+__device__ __forceinline__ void first_h0(bf16* dst,
+                                         const bf16* __restrict__ src,
+                                         const bf16* __restrict__ pxj,
+                                         const bf16* __restrict__ pxi,
+                                         const int* snd, const int* rcv,
+                                         int n_valid, int base) {
   constexpr int kPieces = kH / 8;  // 16-byte pieces a row
   for (int p = threadIdx.x; p < kTE * kPieces; p += THREADS) {
     const int e = p / kPieces, c = (p % kPieces) * 8;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
     if (e < n_valid) {
       const uint4 a = __ldg(
-          reinterpret_cast<const uint4*>(h0 + (size_t)(base + e) * kH + c));
+          reinterpret_cast<const uint4*>(src + (size_t)(base + e) * kH + c));
       const uint4 b = __ldg(
           reinterpret_cast<const uint4*>(pxi + (size_t)rcv[e] * kH + c));
-      v = make_uint4(relu_sum(a.x, b.x), relu_sum(a.y, b.y),
-                     relu_sum(a.z, b.z), relu_sum(a.w, b.w));
+      if constexpr (PE) {
+        const uint4 j = __ldg(
+            reinterpret_cast<const uint4*>(pxj + (size_t)snd[e] * kH + c));
+        v = make_uint4(relu_sum3(a.x, j.x, b.x), relu_sum3(a.y, j.y, b.y),
+                       relu_sum3(a.z, j.z, b.z), relu_sum3(a.w, j.w, b.w));
+      } else {
+        v = make_uint4(relu_sum(a.x, b.x), relu_sum(a.y, b.y),
+                       relu_sum(a.z, b.z), relu_sum(a.w, b.w));
+      }
     }
     *reinterpret_cast<uint4*>(dst + e * kLdH + c) = v;
   }
@@ -503,9 +541,9 @@ __device__ __forceinline__ void layer_norm_bf16(float* s_y,
   }
 }
 
-// PRE: the pregathered entry (src is h0; we, be, pxj, senders are null);
-// else the fold entry (src is e0).
-template <bool PRE>
+// E: the fold entry (src is e0), the pregathered entry (src is h0; we, be,
+// pxj, senders are null) or the pe entry (src is pe; we, be are null).
+template <Entry E>
 __global__ void __launch_bounds__(kThreads, 2)
 edge_tail_kernel(const bf16* __restrict__ src, const bf16* __restrict__ we,
                  const bf16* __restrict__ be, const bf16* __restrict__ pxj,
@@ -534,8 +572,9 @@ edge_tail_kernel(const bf16* __restrict__ src, const bf16* __restrict__ we,
   float* s_br = reinterpret_cast<float*>(sm + L::br);
   bf16* s_wtr = reinterpret_cast<bf16*>(sm + L::wtr(l1));
   const int tid = threadIdx.x, warp = tid >> 5;
+  constexpr bool FOLD = E == kFold, GATHERS = E != kPregathered;
 
-  if constexpr (!PRE) {
+  if constexpr (FOLD) {
     load_weights<kCe, kH, true>(s_wte, we, 1, kLdC, 0, kThreads);
     load_f32(s_be, be, kH, kThreads);
   }
@@ -548,9 +587,9 @@ edge_tail_kernel(const bf16* __restrict__ src, const bf16* __restrict__ we,
   tile128::block_tiles<kTE>(n_edges, &t_beg, &t_end);
   if (t_beg < t_end) {
     if (warp < 2)
-      tile128::tile_indices<kTE, !PRE>(s_rcv, s_snd, senders, rowptr,
-                                       n_nodes, n_edges, t_beg, -1);
-    if constexpr (!PRE) {
+      tile128::tile_indices<kTE, GATHERS>(s_rcv, s_snd, senders, rowptr,
+                                          n_nodes, n_edges, t_beg, -1);
+    if constexpr (FOLD) {
       stage_e0(s_src, src, n_edges, t_beg, kThreads);
       tf32x3::cp_async_commit();
     }
@@ -564,14 +603,15 @@ edge_tail_kernel(const bf16* __restrict__ src, const bf16* __restrict__ we,
     const int* snd = s_snd + cur * kTE;
     const bool more = tile + 1 < t_end;
 
-    if constexpr (PRE) {
-      // h_0 = bf16(relu(h0 + pxi[i]))
-      pregathered_h0<kThreads>(s_act, src, pxi, rcv, n_valid, tile * kTE);
+    if constexpr (!FOLD) {
+      // h_0 = bf16(relu(h0 + pxi[i])) or bf16(relu((pe + pxj[s]) + pxi[i]))
+      first_h0<kThreads, E == kPe>(s_act, src, pxj, pxi, snd, rcv, n_valid,
+                                   tile * kTE);
       __syncthreads();  // h_0 written; the last tile's sums are done
       if (more && warp < 2)
-        tile128::tile_indices<kTE, false>(s_rcv + nxt * kTE, nullptr,
-                                          nullptr, rowptr, n_nodes, n_edges,
-                                          tile + 1, rcv[n_valid - 1]);
+        tile128::tile_indices<kTE, GATHERS>(
+            s_rcv + nxt * kTE, s_snd + nxt * kTE, senders, rowptr, n_nodes,
+            n_edges, tile + 1, rcv[n_valid - 1]);
     } else {
       // h_0 = bf16(relu(z + e0 . W_e)); z loaded while the rows arrive
       {
@@ -622,7 +662,7 @@ edge_tail_kernel(const bf16* __restrict__ src, const bf16* __restrict__ we,
   }
 }
 
-template <bool PRE>
+template <Entry E>
 int launch(const bf16* src, const bf16* we, const bf16* be, const bf16* pxj,
            const bf16* pxi, const int* senders, const int* rowptr,
            const bf16* w_rest, const bf16* b_rest, const bf16* w_out,
@@ -633,12 +673,12 @@ int launch(const bf16* src, const bf16* we, const bf16* be, const bf16* pxj,
   const size_t smem = Layout::bytes(kMaxL1);  // one opt-in for every l1
   int cap = 0;
   cudaError_t err =
-      grid_cap(edge_tail_kernel<PRE>, kThreads, smem, cache, &cap);
+      grid_cap(edge_tail_kernel<E>, kThreads, smem, cache, &cap);
   if (err != cudaSuccess) return (int)err;
   if (n_nodes == 0 || n_edges <= 0) return (int)cudaSuccess;
   const int n_tiles = (n_edges + kTE - 1) / kTE;
   const int blocks = n_tiles < cap ? n_tiles : cap;
-  edge_tail_kernel<PRE><<<blocks, kThreads, Layout::bytes(l1), stream>>>(
+  edge_tail_kernel<E><<<blocks, kThreads, Layout::bytes(l1), stream>>>(
       src, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest, w_out, b_out,
       ln_s, ln_b, out, part, n_nodes, n_edges, l1);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
@@ -659,10 +699,10 @@ constexpr int kWarps = kThreads / 32;
 
 // Offsets, in bytes, into dynamic shared memory, and, in floats, into the
 // packed weight-gradient buffer; the fold's W_e, e0 tiles, dW_e and db_e
-// take no room in the pregathered entry's (PRE).
-template <int L1, bool PRE>
+// take no room in the pregathered and pe entries'.
+template <int L1, Entry E>
 struct Layout {
-  static constexpr int F = PRE ? 0 : 1;            // the fold's parts
+  static constexpr int F = E == kFold ? 1 : 0;     // the fold's parts
   static constexpr int plane = kTE * kLdH * 2;     // a bf16 (kTE, kLdH) tile
   static constexpr int gplane = kTE * kLdHf * 4;   // an f32 (kTE, kLdHf) tile
   static constexpr int wte = 0;                    // W_e^T (kH, kLdC)
@@ -784,9 +824,11 @@ __device__ __forceinline__ void layer_norm_bwd(float* s_y, const float* s_ls,
   }
 }
 
-// PRE: the pregathered entry (src is h0, d_src d_h0 (E, kH); we, be, pxj,
-// senders, d_pxj are null); else the fold entry (src is e0, d_src d_e0).
-template <int L1, bool PRE>
+// E: the fold entry (src is e0, d_src d_e0), the pregathered entry (src is
+// h0, d_src d_h0 (E, kH); we, be, pxj, senders, d_pxj are null) or the pe
+// entry (src is pe, d_src d_pe (E, kH) and dz_out dz (E, kH) f32; we, be,
+// d_pxj are null).  dz_out is null but for pe.
+template <int L1, Entry E>
 __global__ void __launch_bounds__(kThreads, 1)
 edge_tail_bwd_kernel(const bf16* __restrict__ src, const bf16* __restrict__ we,
                      const bf16* __restrict__ be, const bf16* __restrict__ pxj,
@@ -799,9 +841,11 @@ edge_tail_bwd_kernel(const bf16* __restrict__ src, const bf16* __restrict__ we,
                      const bf16* __restrict__ b_out,
                      const float* __restrict__ ln_s,
                      const float* __restrict__ g, bf16* __restrict__ d_src,
-                     float* __restrict__ d_pxj, float* __restrict__ d_pxi,
-                     float* __restrict__ partial, int n_nodes, int n_edges) {
-  using L = Layout<L1, PRE>;
+                     float* __restrict__ dz_out, float* __restrict__ d_pxj,
+                     float* __restrict__ d_pxi, float* __restrict__ partial,
+                     int n_nodes, int n_edges) {
+  using L = Layout<L1, E>;
+  constexpr bool FOLD = E == kFold, GATHERS = E != kPregathered;
   constexpr int NL = L1 > 0 ? L1 : 1;
   extern __shared__ __align__(16) unsigned char bf16_bwd_smem[];
   unsigned char* sm = bf16_bwd_smem;
@@ -831,7 +875,7 @@ edge_tail_bwd_kernel(const bf16* __restrict__ src, const bf16* __restrict__ we,
   };
   const int tid = threadIdx.x, warp = tid >> 5;
 
-  if constexpr (!PRE) {
+  if constexpr (FOLD) {
     load_weights<kCe, kH, true>(s_wte, we, 1, kLdC, 0, kThreads);
     load_weights<kCe, kH, false>(s_we, we, 1, kLdH, 0, kThreads);
     load_f32(s_be, be, kH, kThreads);
@@ -856,9 +900,9 @@ edge_tail_bwd_kernel(const bf16* __restrict__ src, const bf16* __restrict__ we,
   tile128::block_tiles<kTE>(n_edges, &t_beg, &t_end);
   if (t_beg < t_end) {
     if (warp < 2)
-      tile128::tile_indices<kTE, !PRE>(s_rcv, s_snd, senders, rowptr,
-                                       n_nodes, n_edges, t_beg, -1);
-    if constexpr (!PRE) {
+      tile128::tile_indices<kTE, GATHERS>(s_rcv, s_snd, senders, rowptr,
+                                          n_nodes, n_edges, t_beg, -1);
+    if constexpr (FOLD) {
       stage_e0(staged(0), src, n_edges, t_beg, kThreads);
       tf32x3::cp_async_commit();
     }
@@ -872,14 +916,15 @@ edge_tail_bwd_kernel(const bf16* __restrict__ src, const bf16* __restrict__ we,
     const int* snd = s_snd + cur * kTE;
     const bool more = tile + 1 < t_end;
 
-    if constexpr (PRE) {
-      // h_0 = bf16(relu(h0 + pxi[i]))
-      pregathered_h0<kThreads>(plane(0), src, pxi, rcv, n_valid, base);
+    if constexpr (!FOLD) {
+      // h_0 = bf16(relu(h0 + pxi[i])) or bf16(relu((pe + pxj[s]) + pxi[i]))
+      first_h0<kThreads, E == kPe>(plane(0), src, pxj, pxi, snd, rcv,
+                                   n_valid, base);
       __syncthreads();  // h_0 written; the last tile is done
       if (more && warp < 2)
-        tile128::tile_indices<kTE, false>(s_rcv + nxt * kTE, nullptr,
-                                          nullptr, rowptr, n_nodes, n_edges,
-                                          tile + 1, rcv[n_valid - 1]);
+        tile128::tile_indices<kTE, GATHERS>(
+            s_rcv + nxt * kTE, s_snd + nxt * kTE, senders, rowptr, n_nodes,
+            n_edges, tile + 1, rcv[n_valid - 1]);
     } else {
       // h_0 = bf16(relu(e0 . W_e + z)), z loaded while the rows arrive
       {
@@ -964,12 +1009,16 @@ edge_tail_bwd_kernel(const bf16* __restrict__ src, const bf16* __restrict__ we,
     }
 
     const float* dz = grad(L1 & 1);
-    if constexpr (PRE) {
-      // dz = da_0: d_h0 = bf16(dz), a pair of columns a thread per step
+    if constexpr (!FOLD) {
+      // dz = da_0: d_h0 / d_pe = bf16(dz), and (pe) dz itself, a pair of
+      // columns a thread per step
       for (int k = tid; k < n_valid * (kH / 2); k += kThreads) {
         const int e = k / (kH / 2), n = 2 * (k % (kH / 2));
+        const float2 v = *reinterpret_cast<const float2*>(dz + e * kLdHf + n);
         *reinterpret_cast<uint32_t*>(d_src + (size_t)(base + e) * kH + n) =
-            pack_rn(dz[e * kLdHf + n], dz[e * kLdHf + n + 1]);
+            pack_rn(v.x, v.y);
+        if constexpr (E == kPe)
+          *reinterpret_cast<float2*>(dz_out + (size_t)(base + e) * kH + n) = v;
       }
     } else {
       // dz = da_0: dW_e += e0^T . bf16(dz), db_e += sum dz, d_e0 =
@@ -1026,7 +1075,7 @@ edge_tail_bwd_kernel(const bf16* __restrict__ src, const bf16* __restrict__ we,
   }
   Prod<kH, kC, kWarps>().write(p + L::g_wo, run_wo);
   sums[L1 * kThreads + tid] = run_bo;
-  if constexpr (!PRE) {
+  if constexpr (FOLD) {
     Prod<kCe, kH, kWarps>().write(p + L::g_we, run_we);
     sums[(L1 + 1) * kThreads + tid] = run_be;
   }
@@ -1042,7 +1091,7 @@ edge_tail_bwd_kernel(const bf16* __restrict__ src, const bf16* __restrict__ we,
     float s = 0.f;
     for (int w = 0; w < kWarps; ++w) s += s_ln[w * 2 * kC + c];
     p[L::g_ls + c] = s;
-  } else if (!PRE && tid < L1 * kH + 3 * kC + kH) {
+  } else if (FOLD && tid < L1 * kH + 3 * kC + kH) {
     const int c = tid - L1 * kH - 3 * kC;
     p[L::g_be + c] = column_total<kH>(sums + (L1 + 1) * kThreads, c);
   }
@@ -1062,18 +1111,18 @@ __global__ void reduce_partials_kernel(const float* __restrict__ partial,
 // The kernel on a persistent grid of at most scratch_blocks blocks, each a
 // run of consecutive tiles (every block at least one), then the
 // fixed-order sum of the blocks' partials.
-template <int L1, bool PRE>
+template <int L1, Entry E>
 int launch(const bf16* src, const bf16* we, const bf16* be, const bf16* pxj,
            const bf16* pxi, const int* senders, const int* rowptr,
            const bf16* w_rest, const bf16* b_rest, const bf16* w_out,
            const bf16* b_out, const float* ln_s, const float* g, bf16* d_src,
-           float* d_pxj, float* d_pxi, float* wgrad, float* partial,
-           int n_nodes, int n_edges, int scratch_blocks,
+           float* dz_out, float* d_pxj, float* d_pxi, float* wgrad,
+           float* partial, int n_nodes, int n_edges, int scratch_blocks,
            cudaStream_t stream) {
-  using L = Layout<L1, PRE>;
+  using L = Layout<L1, E>;
   static std::atomic<int> cache[kMaxDevices];
   int cap = 0;
-  const cudaError_t err = grid_cap(edge_tail_bwd_kernel<L1, PRE>, kThreads,
+  const cudaError_t err = grid_cap(edge_tail_bwd_kernel<L1, E>, kThreads,
                                    (size_t)L::bytes, cache, &cap);
   if (err != cudaSuccess) return (int)err;
   if (cap > scratch_blocks) cap = scratch_blocks;
@@ -1082,9 +1131,9 @@ int launch(const bf16* src, const bf16* we, const bf16* be, const bf16* pxj,
   const int per_block = n_tiles > 0 ? (n_tiles + cap - 1) / cap : 1;
   const int blocks = (n_tiles + per_block - 1) / per_block;
   if (blocks > 0) {
-    edge_tail_bwd_kernel<L1, PRE><<<blocks, kThreads, L::bytes, stream>>>(
+    edge_tail_bwd_kernel<L1, E><<<blocks, kThreads, L::bytes, stream>>>(
         src, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest, w_out, b_out,
-        ln_s, g, d_src, d_pxj, d_pxi, partial, n_nodes, n_edges);
+        ln_s, g, d_src, dz_out, d_pxj, d_pxi, partial, n_nodes, n_edges);
     const cudaError_t launched = cudaGetLastError();
     if (launched != cudaSuccess) return (int)launched;
   }
@@ -1093,21 +1142,21 @@ int launch(const bf16* src, const bf16* we, const bf16* be, const bf16* pxj,
   return (int)cudaGetLastError();
 }
 
-// launch<L1, PRE> at a run-time l1 in 0..kMaxL1
-template <bool PRE>
+// launch<L1, E> at a run-time l1 in 0..kMaxL1
+template <Entry E>
 int launch_l1(int l1, const bf16* src, const bf16* we, const bf16* be,
               const bf16* pxj, const bf16* pxi, const int* senders,
               const int* rowptr, const bf16* w_rest, const bf16* b_rest,
               const bf16* w_out, const bf16* b_out, const float* ln_s,
-              const float* g, bf16* d_src, float* d_pxj, float* d_pxi,
-              float* wgrad, float* partial, int n_nodes, int n_edges,
-              int scratch_blocks, cudaStream_t stream) {
+              const float* g, bf16* d_src, float* dz_out, float* d_pxj,
+              float* d_pxi, float* wgrad, float* partial, int n_nodes,
+              int n_edges, int scratch_blocks, cudaStream_t stream) {
 #define MAGNET_BF16_BWD_CASE(L1V)                                            \
   case L1V:                                                                  \
-    return launch<L1V, PRE>(src, we, be, pxj, pxi, senders, rowptr, w_rest,  \
-                            b_rest, w_out, b_out, ln_s, g, d_src, d_pxj,     \
-                            d_pxi, wgrad, partial, n_nodes, n_edges,         \
-                            scratch_blocks, stream)
+    return launch<L1V, E>(src, we, be, pxj, pxi, senders, rowptr, w_rest,    \
+                          b_rest, w_out, b_out, ln_s, g, d_src, dz_out,      \
+                          d_pxj, d_pxi, wgrad, partial, n_nodes, n_edges,    \
+                          scratch_blocks, stream)
   switch (l1) {
     MAGNET_BF16_BWD_CASE(0);
     MAGNET_BF16_BWD_CASE(1);
@@ -1118,14 +1167,14 @@ int launch_l1(int l1, const bf16* src, const bf16* we, const bf16* be,
   return (int)cudaErrorInvalidValue;
 }
 
-// the dynamic shared memory of launch<l1, PRE>'s kernel
-template <bool PRE>
+// the dynamic shared memory of launch<l1, E>'s kernel
+template <Entry E>
 int smem_bytes(int l1) {
   switch (l1) {
-    case 0: return Layout<0, PRE>::bytes;
-    case 1: return Layout<1, PRE>::bytes;
-    case 2: return Layout<2, PRE>::bytes;
-    default: return Layout<3, PRE>::bytes;
+    case 0: return Layout<0, E>::bytes;
+    case 1: return Layout<1, E>::bytes;
+    case 2: return Layout<2, E>::bytes;
+    default: return Layout<3, E>::bytes;
   }
 }
 
@@ -1157,7 +1206,7 @@ int fused_edge_tail_agg_bf16_fwd(const bf16* e0, const bf16* we,
                                  int c, int l1, void* stream) {
   if (!built(ce, h, c, l1) || part == nullptr)
     return (int)cudaErrorInvalidValue;
-  return fwd::launch<false>(e0, we, be, pxj, pxi, senders, rowptr, w_rest,
+  return fwd::launch<kFold>(e0, we, be, pxj, pxi, senders, rowptr, w_rest,
                             b_rest, w_out, b_out, ln_s, ln_b, out, part,
                             n_nodes, n_edges, l1,
                             static_cast<cudaStream_t>(stream));
@@ -1178,9 +1227,9 @@ int fused_edge_tail_agg_bf16_bwd(
     int n_edges, int ce, int h, int c, int l1, int scratch_blocks,
     void* stream) {
   if (!built(ce, h, c, l1)) return (int)cudaErrorInvalidValue;
-  return bwd::launch_l1<false>(l1, e0, we, be, pxj, pxi, senders, rowptr,
+  return bwd::launch_l1<kFold>(l1, e0, we, be, pxj, pxi, senders, rowptr,
                                w_rest, b_rest, w_out, b_out, ln_s, g, d_e0,
-                               d_pxj, d_pxi, wgrad, partial, n_nodes,
+                               nullptr, d_pxj, d_pxi, wgrad, partial, n_nodes,
                                n_edges, scratch_blocks,
                                static_cast<cudaStream_t>(stream));
 }
@@ -1195,7 +1244,7 @@ int fused_edge_tail_agg_bf16_pregathered_fwd(
     int n_nodes, int n_edges, int h, int c, int l1, void* stream) {
   if (!built(kCe, h, c, l1) || part == nullptr)
     return (int)cudaErrorInvalidValue;
-  return fwd::launch<true>(h0, nullptr, nullptr, nullptr, pxi, nullptr,
+  return fwd::launch<kPregathered>(h0, nullptr, nullptr, nullptr, pxi, nullptr,
                            rowptr, w_rest, b_rest, w_out, b_out, ln_s, ln_b,
                            out, part, n_nodes, n_edges, l1,
                            static_cast<cudaStream_t>(stream));
@@ -1213,20 +1262,61 @@ int fused_edge_tail_agg_bf16_pregathered_bwd(
     float* wgrad, float* partial, int n_nodes, int n_edges, int h, int c,
     int l1, int scratch_blocks, void* stream) {
   if (!built(kCe, h, c, l1)) return (int)cudaErrorInvalidValue;
-  return bwd::launch_l1<true>(l1, h0, nullptr, nullptr, nullptr, pxi,
-                              nullptr, rowptr, w_rest, b_rest, w_out, b_out,
-                              ln_s, g, d_h0, nullptr, d_pxi, wgrad, partial,
-                              n_nodes, n_edges, scratch_blocks,
-                              static_cast<cudaStream_t>(stream));
+  return bwd::launch_l1<kPregathered>(
+      l1, h0, nullptr, nullptr, nullptr, pxi, nullptr, rowptr, w_rest, b_rest,
+      w_out, b_out, ln_s, g, d_h0, nullptr, nullptr, d_pxi, wgrad, partial,
+      n_nodes, n_edges, scratch_blocks, static_cast<cudaStream_t>(stream));
+}
+
+// The pe forward: pe (n_edges, h), pxj and pxi (n_nodes, h) 16-byte aligned
+// bf16, senders the sender of each edge, the rest as the fold forward's.
+// Built for (h, c) = (64, 32) and l1 in 0..3.
+int fused_edge_tail_agg_bf16_pe_fwd(
+    const bf16* pe, const bf16* pxj, const bf16* pxi, const int* senders,
+    const int* rowptr, const bf16* w_rest, const bf16* b_rest,
+    const bf16* w_out, const bf16* b_out, const float* ln_s,
+    const float* ln_b, float* out, float* part, int n_nodes, int n_edges,
+    int h, int c, int l1, void* stream) {
+  if (!built(kCe, h, c, l1) || part == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return fwd::launch<kPe>(pe, nullptr, nullptr, pxj, pxi, senders, rowptr,
+                          w_rest, b_rest, w_out, b_out, ln_s, ln_b, out, part,
+                          n_nodes, n_edges, l1,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// The pe backward, its operands as its forward's, and g (n_nodes, c) f32.
+// Writes d_pe (n_edges, h) bf16 and dz (n_edges, h) f32, the unrounded
+// first pre-activation's gradient, from which the caller sums d_pxj over
+// the sender CSR; adds into d_pxi (n_nodes, h) f32, which must arrive
+// zeroed; wgrad (f32) holds, packed, dW_rest (l1, h, h), db_rest (l1, h),
+// dW_out (h, c), db_out (c), d_ln_s (c), d_ln_b (c); partial is f32
+// scratch for scratch_blocks x that many floats.
+int fused_edge_tail_agg_bf16_pe_bwd(
+    const bf16* pe, const bf16* pxj, const bf16* pxi, const int* senders,
+    const int* rowptr, const bf16* w_rest, const bf16* b_rest,
+    const bf16* w_out, const bf16* b_out, const float* ln_s, const float* g,
+    bf16* d_pe, float* dz, float* d_pxi, float* wgrad, float* partial,
+    int n_nodes, int n_edges, int h, int c, int l1, int scratch_blocks,
+    void* stream) {
+  if (!built(kCe, h, c, l1)) return (int)cudaErrorInvalidValue;
+  return bwd::launch_l1<kPe>(l1, pe, nullptr, nullptr, pxj, pxi, senders,
+                             rowptr, w_rest, b_rest, w_out, b_out, ln_s, g,
+                             d_pe, dz, nullptr, d_pxi, wgrad, partial,
+                             n_nodes, n_edges, scratch_blocks,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // Dynamic shared memory a block takes at l1 tail layers: the fold forward
 // (which = 0), the fold backward (1), the pregathered forward (2) and
-// backward (3); -1 for an l1 not built.
+// backward (3), the pe forward (4) and backward (5); -1 for an l1 not
+// built.
 int fused_edge_tail_agg_bf16_smem(int which, int l1) {
-  if (l1 < 0 || l1 > kMaxL1 || which < 0 || which > 3) return -1;
-  if (which == 0 || which == 2) return (int)fwd::Layout::bytes(l1);
-  return which == 1 ? bwd::smem_bytes<false>(l1) : bwd::smem_bytes<true>(l1);
+  if (l1 < 0 || l1 > kMaxL1 || which < 0 || which > 5) return -1;
+  if (which % 2 == 0) return (int)fwd::Layout::bytes(l1);
+  return which == 1   ? bwd::smem_bytes<kFold>(l1)
+         : which == 3 ? bwd::smem_bytes<kPregathered>(l1)
+                      : bwd::smem_bytes<kPe>(l1);
 }
 
 }  // extern "C"

@@ -35,11 +35,11 @@
 // at 0 is 0; a receiver of degree 0 has no edge, so its d_pxi row stays 0.
 //
 // Compiled builds: fold (Ce, H, C) = (32, 64, 32) and (128, 128, 128);
-// pregathered (H, C) = (64, 32) and (128, 128); pe (H, C) = (128, 128);
-// L1 in 0..3.  The width-64 and width-128 builds are two designs.
+// pregathered and pe (H, C) = (64, 32) and (128, 128); L1 in 0..3.  The
+// width-64 and width-128 builds are two designs.
 //
-// Design at width 64 (namespace w64; fold (32, 64, 32), pregathered
-// (64, 32)): one kernel, every product on the tensor cores.
+// Design at width 64 (namespace w64; fold (32, 64, 32), pregathered and
+// pe (64, 32)): one kernel, every product on the tensor cores.
 //   * A persistent block of 512 threads (16 warps, one block per SM) walks
 //     consecutive tiles of 64 CSR edges (tile128::block_tiles); warps 0 and
 //     1 find the next tile's receivers (and senders) from the last receiver
@@ -49,12 +49,15 @@
 //     and W^T (LdsmCols, ldmatrix).  The tile's activations h_0..h_L1 and
 //     one more plane live in swizzled (64, 64) planes, y and dy in a
 //     (64, 32) tile; nothing of (E, H) reaches device memory but the
-//     pregathered entry's d_h0, its output.  The next tile's input rows
-//     (e0 or h0) arrive by cp.async while this tile computes.  The fold's
-//     first-layer accumulators start at b_e + pxj[s] + pxi[i], read through
-//     L2; the pregathered entry forms relu(h0 + pxi[i]) with pxi read
-//     likewise.  178,432 bytes of shared memory (fold) and 169,472
-//     (pregathered) at L1 = 3.
+//     pregathered entry's d_h0 and the pe entry's d_pe, their outputs.
+//     The next tile's input rows (e0, h0 or pe) arrive by cp.async while
+//     this tile computes.  The fold's first-layer accumulators start at
+//     b_e + pxj[s] + pxi[i], read through L2; the pregathered entry forms
+//     relu(h0 + pxi[i]) with pxi read likewise, and the pe entry
+//     relu((pe + pxj[s]) + pxi[i]) with both node rows read likewise (the
+//     forward's order of the sums, so the recompute has its bits), its
+//     sender ids staged beside the receivers.  178,432 bytes of shared
+//     memory (fold), 169,472 (pregathered) and 169,984 (pe) at L1 = 3.
 //   * Each layer of the backward is one phase between two barriers: the
 //     weight gradient h_{k-1}^T . da_k (A read down the columns of the
 //     activation plane by scalar loads, ColsA, free of bank conflicts on
@@ -80,15 +83,17 @@
 //   * fold: d_pxj is scattered over senders with f32 atomicAdd into a
 //     zeroed buffer; d_pxi is summed over each run of equal receivers in an
 //     eighth of a tile and added with one atomicAdd per run.  Both differ
-//     in the last bits from run to run; d_e0 / d_h0 and the weight
-//     gradients do not.
+//     in the last bits from run to run; d_e0 / d_h0 / d_pe and the weight
+//     gradients do not.  pe: d_pe = dz is the caller's to sum over the
+//     sender CSR for d_pxj (no atomics), as the JAX VJP does.
 // What bounds it on an H100: recompute, data and weight gradients are each
 // the forward's multiply-adds: 3 x 16,384 an edge for the fold at L1 = 3
 // (3 x 14,336 pregathered), against e0 read and d_e0 written once (256 B an
 // edge): bound by operations.  At MAgNet[CNN] 1D's training graph (67,680
 // edges) 6.65 GFLOP, 0.0993 ms on the f32 CUDA cores or 0.0403 ms as three
 // TF32 products at 495 TFLOP/s; the pregathered entry at 2D's batch-32
-// graph (299,894 edges) 0.385 / 0.156 ms.  mma.sync and not wgmma: the
+// graph (299,894 edges) 0.385 / 0.156 ms; the pe entry (3 x 14,336, pe read
+// and d_pe written, 512 B an edge) at 1D's training graph 0.087 / 0.035 ms.  mma.sync and not wgmma: the
 // products read W as stored and transposed and the activation planes along
 // their rows and down their columns, while wgmma's tf32 form reads only
 // K-major operands from shared memory.  One block of 16 warps an SM and
@@ -173,6 +178,11 @@ __global__ void reduce_partials_kernel(const float* __restrict__ partial,
 
 namespace w64 {
 
+using tile128::Entry;
+using tile128::kFold;
+using tile128::kPe;
+using tile128::kPregathered;
+
 constexpr int kCe = 32;          // the fold's edge-latent width
 constexpr int kH = 64;           // hidden width
 constexpr int kC = 32;           // output width
@@ -181,11 +191,13 @@ constexpr int kThreads = 512;    // 16 warps, one block per SM
 constexpr int kWarps = kThreads / 32;
 
 // Offsets, in floats, into dynamic shared memory and into the packed
-// weight-gradient buffer; the pregathered entry (FOLD = false) has no W_e,
-// b_e and senders, and stages one tile of h0 rows where the fold keeps two
-// of e0.
-template <int L1, bool FOLD>
+// weight-gradient buffer; the pregathered and pe entries have no W_e and
+// b_e and stage one tile of h0 or pe rows where the fold keeps two of e0;
+// the pregathered entry has no senders.
+template <int L1, Entry E>
 struct Layout {
+  static constexpr bool FOLD = E == kFold;
+  static constexpr bool GATHERS = E != kPregathered;
   static constexpr int plane = kTE * kH;          // a swizzled (kTE, kH) tile
   static constexpr int we = 0;                    // (kCe, kH), swizzled
   static constexpr int wr = we + (FOLD ? kCe * kH : 0);  // L1 x (kH, kH)
@@ -200,7 +212,7 @@ struct Layout {
   static constexpr int ln = src + (FOLD ? 2 * kTE * kCe : plane);
   static constexpr int rcv = ln + kWarps * 2 * kC;  // 2 x (kTE) int, two tiles
   static constexpr int snd = rcv + 2 * kTE;       // 2 x (kTE) int
-  static constexpr int floats = snd + (FOLD ? 2 * kTE : 0);
+  static constexpr int floats = snd + (GATHERS ? 2 * kTE : 0);
 
   static constexpr int g_we = 0;
   static constexpr int g_be = g_we + (FOLD ? kCe * kH : 0);
@@ -401,7 +413,7 @@ __device__ __forceinline__ void layer_norm_bwd(float* s_y, const float* s_ls,
   }
 }
 
-template <int L1, bool FOLD>
+template <int L1, Entry E>
 __global__ void __launch_bounds__(kThreads, 1)
 edge_tail_bwd_kernel(const float* __restrict__ src,
                      const float* __restrict__ we,
@@ -418,8 +430,9 @@ edge_tail_bwd_kernel(const float* __restrict__ src,
                      const float* __restrict__ g, float* __restrict__ d_src,
                      float* __restrict__ d_pxj, float* __restrict__ d_pxi,
                      float* __restrict__ partial, int n_nodes, int n_edges) {
-  using L = Layout<L1, FOLD>;
+  using L = Layout<L1, E>;
   using namespace tf32x3;
+  constexpr bool FOLD = L::FOLD, GATHERS = L::GATHERS;
   constexpr int NL = L1 > 0 ? L1 : 1;
   constexpr int kIn = FOLD ? kCe : kH;  // the staged rows' width
   extern __shared__ __align__(16) float w64_smem[];
@@ -464,7 +477,7 @@ edge_tail_bwd_kernel(const float* __restrict__ src,
 
   int t_beg, t_end;
   tile128::block_tiles<kTE>(n_edges, &t_beg, &t_end);
-  // tile `tile`'s input rows (e0 or h0) into `dst`, one committed group
+  // tile `tile`'s input rows (e0, h0 or pe) into `dst`, one committed group
   auto stage = [&](int tile, float* dst) {
     const int base = tile * kTE, n_valid = min(kTE, n_edges - base);
     rows_async<kTE, kIn, kThreads>(dst, 0, src, [&](int e) {
@@ -474,8 +487,8 @@ edge_tail_bwd_kernel(const float* __restrict__ src,
   };
   if (t_beg < t_end) {
     if (warp < 2)
-      tile128::tile_indices<kTE, FOLD>(s_rcv, s_snd, senders, rowptr,
-                                       n_nodes, n_edges, t_beg, -1);
+      tile128::tile_indices<kTE, GATHERS>(s_rcv, s_snd, senders, rowptr,
+                                          n_nodes, n_edges, t_beg, -1);
     stage(t_beg, staged(0));
   }
   __syncthreads();  // the weights and the first tile's indices
@@ -488,7 +501,8 @@ edge_tail_bwd_kernel(const float* __restrict__ src,
     const bool more = tile + 1 < t_end;
 
     // h_0: fold, relu(e0 . W_e + z0) with z0 = b_e + pxj[s] + pxi[i]
-    // loaded while the rows arrive; pregathered, relu(h0 + pxi[i])
+    // loaded while the rows arrive; pregathered, relu(h0 + pxi[i]); pe,
+    // relu((pe + pxj[s]) + pxi[i])
     {
       Prod<kTE, kH> p;
       if (FOLD)
@@ -500,7 +514,7 @@ edge_tail_bwd_kernel(const float* __restrict__ src,
       cp_async_wait<0>();
       __syncthreads();  // the rows are in; the last tile is done
       if (more && warp < 2)
-        tile128::tile_indices<kTE, FOLD>(
+        tile128::tile_indices<kTE, GATHERS>(
             s_rcv + nxt * kTE, s_snd + nxt * kTE, senders, rowptr, n_nodes,
             n_edges, tile + 1, rcv[n_valid - 1]);
       if (FOLD) {
@@ -512,7 +526,12 @@ edge_tail_bwd_kernel(const float* __restrict__ src,
           const int e = k >> 4, c = (k & 15) * 4, o = swz_at<kH>(e, c);
           float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
           if (e < n_valid) {
-            const float4 a = *reinterpret_cast<const float4*>(staged(0) + o);
+            float4 a = *reinterpret_cast<const float4*>(staged(0) + o);
+            if (E == kPe) {
+              const float4 j = __ldg(reinterpret_cast<const float4*>(
+                  pxj + (size_t)snd[e] * kH + c));
+              a = make_float4(a.x + j.x, a.y + j.y, a.z + j.z, a.w + j.w);
+            }
             const float4 b = __ldg(
                 reinterpret_cast<const float4*>(pxi + (size_t)rcv[e] * kH + c));
             z = make_float4(fmaxf(a.x + b.x, 0.f), fmaxf(a.y + b.y, 0.f),
@@ -522,7 +541,7 @@ edge_tail_bwd_kernel(const float* __restrict__ src,
         }
       }
     }
-    __syncthreads();  // h_0 written; the pregathered staging tile is free
+    __syncthreads();  // h_0 written; the h0 / pe staging tile is free
     if (!FOLD && more) stage(tile + 1, staged(0));
 
     // h_1 .. h_L1
@@ -583,7 +602,8 @@ edge_tail_bwd_kernel(const float* __restrict__ src,
     }
 
     // dz = da_0, in plane 1: fold, dW_e += e0^T . dz, db_e, d_e0 = dz .
-    // W_e^T and d_pxj[s] += dz; pregathered, d_h0 = dz; then d_pxi[i] += dz
+    // W_e^T and d_pxj[s] += dz; pregathered, d_h0 = dz; pe, d_pe = dz; then
+    // d_pxi[i] += dz
     const float* dz = plane(1);
     if (FOLD) {
       Prod<kCe, kH> w;
@@ -666,7 +686,7 @@ edge_tail_bwd_kernel(const float* __restrict__ src,
 // The persistent grid's cap (SMs x resident blocks per SM) on the current
 // device.  The shared-memory opt-in and the device queries run once per
 // device and instantiation; later launches read the cache.
-template <int L1, bool FOLD>
+template <int L1, Entry E>
 cudaError_t grid_cap(size_t smem_bytes, int* cap) {
   static std::atomic<int> cache[kMaxDevices];  // 0: unset
   int device = 0;
@@ -675,7 +695,7 @@ cudaError_t grid_cap(size_t smem_bytes, int* cap) {
   const bool cached = device < kMaxDevices;
   if (cached && (*cap = cache[device].load(std::memory_order_relaxed)) > 0)
     return cudaSuccess;
-  auto kernel = edge_tail_bwd_kernel<L1, FOLD>;
+  auto kernel = edge_tail_bwd_kernel<L1, E>;
   int optin = 0, n_sm = 0, per_sm = 0;
   if ((err = cudaDeviceGetAttribute(
            &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device)) !=
@@ -698,15 +718,15 @@ cudaError_t grid_cap(size_t smem_bytes, int* cap) {
   return cudaSuccess;
 }
 
-template <int L1, bool FOLD>
+template <int L1, Entry E>
 size_t smem_bytes() {
-  return sizeof(float) * (size_t)Layout<L1, FOLD>::floats;
+  return sizeof(float) * (size_t)Layout<L1, E>::floats;
 }
 
 // The kernel on a persistent grid of at most scratch_blocks blocks, each a
 // run of consecutive tiles (every block at least one), then the
 // fixed-order sum of the blocks' partials.
-template <int L1, bool FOLD>
+template <int L1, Entry E>
 int launch(const float* src, const float* we, const float* be,
            const float* pxj, const float* pxi, const int* senders,
            const int* rowptr, const float* w_rest, const float* b_rest,
@@ -714,10 +734,10 @@ int launch(const float* src, const float* we, const float* be,
            const float* g, float* d_src, float* d_pxj, float* d_pxi,
            float* wgrad, float* partial, int n_nodes, int n_edges,
            int scratch_blocks, cudaStream_t stream) {
-  using L = Layout<L1, FOLD>;
-  const size_t smem = smem_bytes<L1, FOLD>();
+  using L = Layout<L1, E>;
+  const size_t smem = smem_bytes<L1, E>();
   int cap = 0;
-  const cudaError_t err = grid_cap<L1, FOLD>(smem, &cap);
+  const cudaError_t err = grid_cap<L1, E>(smem, &cap);
   if (err != cudaSuccess) return (int)err;
   if (cap > scratch_blocks) cap = scratch_blocks;
   const int n_tiles = n_nodes > 0 ? (n_edges + kTE - 1) / kTE : 0;
@@ -725,7 +745,7 @@ int launch(const float* src, const float* we, const float* be,
   const int per_block = n_tiles > 0 ? (n_tiles + cap - 1) / cap : 1;
   const int blocks = (n_tiles + per_block - 1) / per_block;
   if (blocks > 0) {
-    edge_tail_bwd_kernel<L1, FOLD><<<blocks, kThreads, smem, stream>>>(
+    edge_tail_bwd_kernel<L1, E><<<blocks, kThreads, smem, stream>>>(
         src, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest, w_out, b_out,
         ln_s, g, d_src, d_pxj, d_pxi, partial, n_nodes, n_edges);
     const cudaError_t launched = cudaGetLastError();
@@ -1415,19 +1435,18 @@ int fused_edge_tail_agg_bwd_f32(
                              b_rest, w_out, b_out, ln_s, g, d_src, d_pxj,
                              d_pxi, wgrad, partial, scratch, n_nodes, n_edges,
                              l1, scratch_blocks, s);
-  const bool fold = entry == kFold;
-  if (!(narrow && (fold ? ce == 32 : entry == kPregathered)))
+  if (!narrow || (entry == kFold ? ce != 32
+                                  : entry != kPregathered && entry != kPe))
     return (int)cudaErrorInvalidValue;
-#define MAGNET_BWD_CASE(L1V)                                                 \
-  case L1V:                                                                  \
-    return fold ? w64::launch<L1V, true>(                                    \
-                      src, we, be, pxj, pxi, senders, rowptr, w_rest,        \
-                      b_rest, w_out, b_out, ln_s, g, d_src, d_pxj, d_pxi,    \
-                      wgrad, partial, n_nodes, n_edges, scratch_blocks, s)   \
-                : w64::launch<L1V, false>(                                   \
-                      src, we, be, pxj, pxi, senders, rowptr, w_rest,        \
+#define MAGNET_BWD_ENTRY(L1V, E)                                             \
+  w64::launch<L1V, E>(src, we, be, pxj, pxi, senders, rowptr, w_rest,        \
                       b_rest, w_out, b_out, ln_s, g, d_src, d_pxj, d_pxi,    \
                       wgrad, partial, n_nodes, n_edges, scratch_blocks, s)
+#define MAGNET_BWD_CASE(L1V)                                                 \
+  case L1V:                                                                  \
+    return entry == kFold  ? MAGNET_BWD_ENTRY(L1V, kFold)                    \
+           : entry == kPe ? MAGNET_BWD_ENTRY(L1V, kPe)                       \
+                          : MAGNET_BWD_ENTRY(L1V, kPregathered)
   switch (l1) {
     MAGNET_BWD_CASE(0);
     MAGNET_BWD_CASE(1);
@@ -1437,17 +1456,21 @@ int fused_edge_tail_agg_bwd_f32(
       return (int)cudaErrorInvalidValue;
   }
 #undef MAGNET_BWD_CASE
+#undef MAGNET_BWD_ENTRY
 }
 
 // Bytes of dynamic shared memory a block of the width-64 backward takes for
-// entry kFold or kPregathered at l1 in 0..3; -1 for any other build.
+// entry kFold, kPregathered or kPe at l1 in 0..3; -1 for any other build.
 int fused_edge_tail_agg_bwd_w64_smem(int entry, int l1) {
-  const bool fold = entry == tile128::kFold;
-  if (!fold && entry != tile128::kPregathered) return -1;
-#define MAGNET_SMEM_CASE(L1V)                     \
-  case L1V:                                       \
-    return (int)(fold ? w64::smem_bytes<L1V, true>() \
-                      : w64::smem_bytes<L1V, false>())
+  using tile128::kFold;
+  using tile128::kPe;
+  using tile128::kPregathered;
+  if (entry != kFold && entry != kPregathered && entry != kPe) return -1;
+#define MAGNET_SMEM_CASE(L1V)                                          \
+  case L1V:                                                            \
+    return (int)(entry == kFold  ? w64::smem_bytes<L1V, kFold>()       \
+                 : entry == kPe ? w64::smem_bytes<L1V, kPe>()          \
+                                : w64::smem_bytes<L1V, kPregathered>())
   switch (l1) {
     MAGNET_SMEM_CASE(0);
     MAGNET_SMEM_CASE(1);

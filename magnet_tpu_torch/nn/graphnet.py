@@ -21,8 +21,11 @@ The lane decides which kernel runs, never what is computed.
 ``impl="kernel_pe"`` forces a third lane, which the lane rule never picks
 by itself: pe = e0·W_e + b_e is formed per edge and the ``pe`` entry
 gathers the sender rows in its kernel (#6; backward #7, with d_p_xj by the
-segment-sum kernel #1).  It is the lane the JAX GraphNet takes on the same
-graphs under ``MAGNET_TPU_NO_FUSED2R`` (``fused_edge_tail_agg2``), and it
+segment-sum kernel #1), at both widths: (H, C) = (64, 32) for MAgNet[CNN]
+1D and 2D, (128, 128) for MAgNet[GNN].  It is the lane the JAX GraphNet
+takes on the same graphs under ``MAGNET_TPU_NO_FUSED2R``
+(``fused_edge_tail_agg2``, wherever its ``_fused2_mode`` finds the
+sender-tile layout: MAgNet[CNN] 1D's graphs and 2D's eval graph), and it
 also computes what the JAX package's no-fold ragged lanes
 (``fused_edge_tail_agg2r`` / ``2h``) compute; the port sends those lanes
 to ``fold``.
@@ -44,9 +47,10 @@ JAX step forms it in bf16 (``_project_edges``, ``graphnet.py:175-189,
 then h0 = p_xj[senders] + pe, every operation in bf16 (the f32 lane's
 fold of s into W_e would round the bias term elsewhere).  On the ``pe``
 lane (``impl="kernel_pe"``) pe is formed the same way and the pe entry's
-bf16 build (``fused_edge_tail_agg_pe_bf16``, width 128) gathers p_xj in its
-kernel; its d_p_xj is the f32 segment sum of the unrounded dz, rounded
-once, as the JAX VJP of ``fused_edge_tail_agg2`` forms it.
+bf16 build (``fused_edge_tail_agg_pe_bf16``, width 64 for MAgNet[CNN] and 128 for
+MAgNet[GNN]) gathers p_xj in its kernel; its d_p_xj is the f32 segment sum
+of the unrounded dz, rounded once, as the JAX VJP of
+``fused_edge_tail_agg2`` forms it.
 """
 from __future__ import annotations
 

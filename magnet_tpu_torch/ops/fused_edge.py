@@ -73,10 +73,13 @@ y = LN(h·W_out + b_out); the result is out[i] = Σ y over the edges of i,
   rounded once, and d_pxj = bf16(the f32 segment sum of the f32 dz over
   the sender CSR), the f32 #1 on f32 rows and one cast (not the fold
   lane's sum of bf16(dz)).  ``fused_edge_tail_agg_pe_bf16_plain`` and
-  ``_bwd_plain`` are its plain versions; the kernels are
-  ``csrc/fused_edge_tail_agg_bf16_w128.cu`` (``FusedEdgeTailAggPeBf16``),
-  compiled for (H, C) = (128, 128) only, the source that also holds the
-  fold entry's bf16 build at (128, 128, 128).
+  ``_bwd_plain`` are its plain versions (width-agnostic); the kernels
+  (``FusedEdgeTailAggPeBf16``) are the pe entry of
+  ``csrc/fused_edge_tail_agg_bf16.cu`` at (H, C) = (64, 32) (MAgNet[CNN],
+  beside that source's fold and pregathered entries) and of
+  ``csrc/fused_edge_tail_agg_bf16_w128.cu`` at (128, 128) (MAgNet[GNN],
+  beside the fold entry's bf16 build at (128, 128, 128)); both write the
+  unrounded dz beside d_pe for the caller's d_pxj.
 * On CUDA tensors the wrappers go through ``FusedEdgeTailAgg``,
   ``FusedEdgeTailAggPregathered`` and ``FusedEdgeTailAggPe``,
   ``torch.autograd.Function``s whose forward launches
@@ -88,16 +91,18 @@ y = LN(h·W_out + b_out); the result is out[i] = Σ y over the edges of i,
 
 Compiled builds (``KERNEL_WIDTHS``), keyed by what each entry reads: fold
 (Ce, H, C) = (32, 64, 32) (MAgNet[CNN]) and (128, 128, 128) (MAgNet[GNN]);
-pregathered (H, C) = (64, 32) and (128, 128); pe (H, C) = (128, 128); in
-bf16 fold (32, 64, 32) and (128, 128, 128), pregathered (64, 32), pe (128,
-128).  Every forward build walks tiles of ``FWD_TILE`` consecutive CSR edges with its
-products on the tensor cores (in 3xTF32, or bf16) and leaves partial rows
+pregathered (H, C) = (64, 32) and (128, 128); pe (H, C) = (64, 32) and
+(128, 128); in bf16 fold (32, 64, 32) and (128, 128, 128), pregathered (64,
+32), pe (64, 32) and (128, 128).  Every forward build walks tiles of
+``FWD_TILE`` consecutive CSR edges with its products on the tensor cores
+(in 3xTF32, or bf16) and leaves partial rows
 (``ops.graph.part_rows``) for the receivers that cross a tile; the width-64
 backward builds walk tiles of ``BWD_TILE`` edges the same way, one block
 an SM (see the sources' headers).  Bounds on an H100 at MAgNet[GNN]'s eval
 batch (84.3k LR ∪ HR edges, L1 = 3, three TF32 products at 495 TFLOP/s):
 fold 81,920 multiply-adds per edge, 0.084 ms; pe 65,536, 0.067 ms; both
-bound by operations.
+bound by operations.  At width 64 the pe entry does 14,336 an edge: 0.032
+ms at MAgNet[CNN] 1D's eval graph (186,624 edges), bound by operations.
 """
 from __future__ import annotations
 
@@ -114,10 +119,10 @@ LN_EPS = 1e-5
 #: fold, (H, C) for pregathered and pe.
 KERNEL_WIDTHS = {"fold": {(32, 64, 32), (128, 128, 128)},
                  "pregathered": {(64, 32), (128, 128)},
-                 "pe": {(128, 128)},
+                 "pe": {(64, 32), (128, 128)},
                  "fold_bf16": {(32, 64, 32), (128, 128, 128)},
                  "pregathered_bf16": {(64, 32)},
-                 "pe_bf16": {(128, 128)}}
+                 "pe_bf16": {(64, 32), (128, 128)}}
 #: the C entry's ``entry`` argument
 ENTRY = {"pregathered": 0, "fold": 1, "pe": 2}
 #: edges per tile of every forward build (two scratch rows per tile)
@@ -140,11 +145,13 @@ GRAD_NAMES_PE = ("pe", "pxj", "pxi", "w_rest", "b_rest", "w_out", "b_out",
 GRAD_F32_BF16 = ("ln_s", "ln_b")
 
 FWD, BWD = "fused_edge_tail_agg", "fused_edge_tail_agg_bwd"
-#: the bf16 lane's libraries and their C functions: at width 64 fold, then
-#: pregathered; at width 128 fold and pe (one function each way, by entry)
+#: the bf16 lane's libraries and their C functions: at width 64 fold,
+#: pregathered and pe; at width 128 fold and pe (one function each way, by
+#: entry)
 BF16 = "fused_edge_tail_agg_bf16"
 BF16_FWD, BF16_BWD = f"{BF16}_fwd", f"{BF16}_bwd"
 BF16_PRE_FWD, BF16_PRE_BWD = f"{BF16}_pregathered_fwd", f"{BF16}_pregathered_bwd"
+BF16_PE_FWD, BF16_PE_BWD = f"{BF16}_pe_fwd", f"{BF16}_pe_bwd"
 BF16_W128 = "fused_edge_tail_agg_bf16_w128"
 BF16_W128_FWD, BF16_W128_BWD = f"{BF16_W128}_fwd", f"{BF16_W128}_bwd"
 _ARGTYPES = {
@@ -158,6 +165,10 @@ _ARGTYPES = {
     + [ctypes.c_void_p],
     BF16_PRE_BWD: [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
     + [ctypes.c_void_p],
+    BF16_PE_FWD: [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
+    + [ctypes.c_void_p],
+    BF16_PE_BWD: [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6
+    + [ctypes.c_void_p],
     BF16_W128_FWD: [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4
     + [ctypes.c_void_p],
     BF16_W128_BWD: [ctypes.c_void_p] * 20 + [ctypes.c_int] * 5
@@ -166,11 +177,13 @@ _ARGTYPES = {
 
 #: Launches of each kernel so far (one per launch, nowhere else): the fold
 #: entry at width 64 (``launches``) and 128 (``launches_fold128``), the
-#: pregathered entry at either width, the pe entry, and the bf16 builds of
-#: the fold entry at width 64 (``launches_bf16``) and 128
+#: pregathered entry at either width, the pe entry at width 128
+#: (``launches_pe``) and 64 (``launches_pe64``), and the bf16 builds of the
+#: fold entry at width 64 (``launches_bf16``) and 128
 #: (``launches_fold128_bf16``), of the pregathered entry
-#: (``launches_pregathered_bf16``) and of the pe entry
-#: (``launches_pe_bf16``); ``*_bwd`` the backward's.
+#: (``launches_pregathered_bf16``) and of the pe entry at width 128
+#: (``launches_pe_bf16``) and 64 (``launches_pe64_bf16``); ``*_bwd`` the
+#: backward's.
 launches = 0
 launches_bwd = 0
 launches_fold128 = 0
@@ -187,6 +200,10 @@ launches_fold128_bf16 = 0
 launches_fold128_bf16_bwd = 0
 launches_pe_bf16 = 0
 launches_pe_bf16_bwd = 0
+launches_pe64 = 0
+launches_pe64_bwd = 0
+launches_pe64_bf16 = 0
+launches_pe64_bf16_bwd = 0
 #: each counter's name in ``launch_counts``
 _COUNTERS = {"launches": "fused_edge_fwd", "launches_bwd": "fused_edge_bwd",
              "launches_fold128": "fused_edge_fold128_fwd",
@@ -203,7 +220,11 @@ _COUNTERS = {"launches": "fused_edge_fwd", "launches_bwd": "fused_edge_bwd",
              "launches_fold128_bf16": "fused_edge_fold128_bf16_fwd",
              "launches_fold128_bf16_bwd": "fused_edge_fold128_bf16_bwd",
              "launches_pe_bf16": "fused_edge_pe_bf16_fwd",
-             "launches_pe_bf16_bwd": "fused_edge_pe_bf16_bwd"}
+             "launches_pe_bf16_bwd": "fused_edge_pe_bf16_bwd",
+             "launches_pe64": "fused_edge_pe64_fwd",
+             "launches_pe64_bwd": "fused_edge_pe64_bwd",
+             "launches_pe64_bf16": "fused_edge_pe64_bf16_fwd",
+             "launches_pe64_bf16_bwd": "fused_edge_pe64_bf16_bwd"}
 
 
 def reset_launches() -> None:
@@ -218,7 +239,9 @@ def launch_counts() -> dict[str, int]:
 def _count(entry: str, widths: tuple, bwd: bool) -> None:
     """One launch of ``entry``'s kernel at ``widths``."""
     name = ("launches_fold128" if entry == "fold" and widths[1] == 128
-            else "launches" if entry == "fold" else f"launches_{entry}")
+            else "launches" if entry == "fold"
+            else "launches_pe64" if entry == "pe" and widths[0] == 64
+            else f"launches_{entry}")
     globals()[name + ("_bwd" if bwd else "")] += 1
 
 
@@ -1262,22 +1285,82 @@ def _launch_bf16_w128_bwd(entry, src, we, be, pxj, pxi, senders, rowptr,
     return (d_src, dz, d_nodes[0].to(bf), *tail_grads)
 
 
+def _launch_pe64_bf16_fwd(pe, pxj, pxi, senders, rowptr, *tail):
+    """The width-64 bf16 pe forward, its operands checked by the caller;
+    (N, C) f32."""
+    (E, h), n, l1 = pe.shape, rowptr.numel() - 1, tail[0].shape[0]
+    c = tail[2].shape[1]
+    dev = pe.device
+    out = torch.zeros(n, c, dtype=torch.float32, device=dev)
+    part = torch.empty(part_rows(E, FWD_TILE), c, dtype=torch.float32,
+                       device=dev)
+    fn = cuda_build.function(BF16, _ARGTYPES[BF16_PE_FWD], symbol=BF16_PE_FWD)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*(t.data_ptr() for t in (pe, pxj, pxi, senders, rowptr,
+                                          *tail, out, part)),
+                 n, E, h, c, l1, stream)
+    if err != 0:
+        raise RuntimeError(f"{BF16_PE_FWD} launch failed: cudaError {err}")
+    globals()["launches_pe64_bf16"] += 1
+    return out
+
+
+def _launch_pe64_bf16_bwd(pe, pxj, pxi, senders, rowptr, *tail_and_g):
+    """The width-64 bf16 pe backward, its operands checked by the caller,
+    and g (N, C) f32: (d_pe, dz, d_pxi, d_w_rest, d_b_rest, d_w_out,
+    d_b_out, d_ln_s, d_ln_b), dz the unrounded f32 (E, H) from which the
+    caller sums d_pxj, the rest each in its operand's dtype."""
+    *tail, g = tail_and_g
+    (E, h), n, l1 = pe.shape, rowptr.numel() - 1, tail[0].shape[0]
+    c = tail[2].shape[1]
+    dev = pe.device
+    sizes = [l1 * h * h, l1 * h, h * c, c, c, c]
+    n_blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+    d_pe = torch.empty_like(pe)
+    dz = torch.empty(E, h, dtype=torch.float32, device=dev)
+    d_pxi = torch.zeros(n, h, dtype=torch.float32, device=dev)  # atomics
+    wgrad = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    partial = torch.empty(n_blocks, sum(sizes), dtype=torch.float32,
+                          device=dev)
+    fn = cuda_build.function(BF16, _ARGTYPES[BF16_PE_BWD], symbol=BF16_PE_BWD)
+    w_rest, b_rest, w_out, b_out, ln_s, _ = tail
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*(t.data_ptr() for t in (
+            pe, pxj, pxi, senders, rowptr, w_rest, b_rest, w_out, b_out, ln_s,
+            g, d_pe, dz, d_pxi, wgrad, partial)), n, E, h, c, l1, n_blocks,
+            stream)
+    if err != 0:
+        raise RuntimeError(f"{BF16_PE_BWD} launch failed: cudaError {err}")
+    globals()["launches_pe64_bf16_bwd"] += 1
+    d_wr, d_br, d_wo, d_bo, d_ls, d_lb = wgrad.split(sizes)
+    bf = torch.bfloat16
+    return (d_pe, dz, d_pxi.to(bf), d_wr.view(l1, h, h).to(bf),
+            d_br.view(l1, h).to(bf), d_wo.view(h, c).to(bf), d_bo.to(bf),
+            d_ls, d_lb)
+
+
 def _launch_pe_bf16_fwd(pe, pxj, pxi, senders, rowptr, snd_ptr, snd_perm,
                         *tail):
-    """The pe entry's bf16 forward kernel; (N, C) f32."""
+    """The pe entry's bf16 forward kernel (width 64, or width 128's);
+    (N, C) f32."""
     _, widths, l1, _ = _check_pe(pe, pxj, pxi, senders, rowptr, snd_ptr,
                                  snd_perm, *tail, dtype=torch.bfloat16)
     _check_build_bf16("pe", widths, l1)
     _check_device(pe)
     _check_aligned(pe=pe, pxj=pxj, pxi=pxi)
+    if widths[0] == 64:
+        return _launch_pe64_bf16_fwd(pe, pxj, pxi, senders, rowptr, *tail)
     return _launch_bf16_w128_fwd("pe", pe, None, None, pxj, pxi, senders,
                                  rowptr, *tail)
 
 
 def _launch_pe_bf16_bwd(pe, pxj, pxi, senders, rowptr, snd_ptr, snd_perm,
                         *tail_and_g):
-    """The pe entry's bf16 backward on the card: kernel #7's bf16 build,
-    then d_pxj by the f32 segment-sum kernel #1 over the sender CSR on the
+    """The pe entry's bf16 backward on the card: kernel #7's bf16 build
+    (width 64, or width 128's launch sequence), then d_pxj by the f32
+    segment-sum kernel #1 over the sender CSR on the
     unrounded dz, rounded once; the gradients in ``GRAD_NAMES_PE`` order,
     each in its operand's dtype."""
     *tail, g = tail_and_g
@@ -1287,8 +1370,12 @@ def _launch_pe_bf16_bwd(pe, pxj, pxi, senders, rowptr, snd_ptr, snd_perm,
     _check_device(pe)
     _check_aligned(pe=pe, pxj=pxj, pxi=pxi)
     _check_g(g, pe.device, n, c)
-    d_pe, dz, d_pxi, *d_tail = _launch_bf16_w128_bwd(
-        "pe", pe, None, None, pxj, pxi, senders, rowptr, *tail, g)
+    if h == 64:
+        d_pe, dz, d_pxi, *d_tail = _launch_pe64_bf16_bwd(
+            pe, pxj, pxi, senders, rowptr, *tail, g)
+    else:
+        d_pe, dz, d_pxi, *d_tail = _launch_bf16_w128_bwd(
+            "pe", pe, None, None, pxj, pxi, senders, rowptr, *tail, g)
     d_pxj = segment_sum(dz, snd_ptr, snd_perm).to(torch.bfloat16)
     return (d_pe, d_pxj, d_pxi, *d_tail)
 
@@ -1323,9 +1410,9 @@ def fused_edge_tail_agg_pe_bf16(pe, pxj, pxi, senders, rowptr, snd_ptr,
     """``fused_edge_tail_agg_pe`` in the bf16 lane: the same operands, all
     bf16 but ln_s and ln_b (f32) and the integer ones; (N, C) f32,
     differentiable in every float operand with its gradient in that
-    operand's dtype.  CUDA tensors launch the bf16 kernels (or raise: only
-    (H, C) = (128, 128) is built); CPU tensors, or ``plain``, take the plain
-    versions."""
+    operand's dtype.  CUDA tensors launch the bf16 kernels (or raise: (H,
+    C) = (64, 32) and (128, 128) are built); CPU tensors, or ``plain``, take
+    the plain versions."""
     operands = (pe, pxj, pxi, senders, rowptr, snd_ptr, snd_perm, w_rest,
                 b_rest, w_out, b_out, ln_s, ln_b)
     _check_pe(*operands, dtype=torch.bfloat16)

@@ -166,6 +166,38 @@ def runner_pregathered_bf16(ops, g):
     return run
 
 
+def runner_pe64_bf16(ops, g):
+    """A closure that launches the width-64 bf16 pe backward's C entry
+    (#7 alone, without the caller's segment sum) on the C-entry operands
+    ``ops`` (``operands("pe", ...)`` through ``to_bf16``) and g as its
+    wrapper does and returns (d_pe, dz, d_pxi, the packed weight
+    gradients), all in f32."""
+    fn = cuda_build.function(fe.BF16, fe._ARGTYPES[fe.BF16_PE_BWD],
+                             symbol=fe.BF16_PE_BWD)
+    pe, _, _, pxj, pxi, senders, rowptr, *tail = ops
+    n, (e, h) = rowptr.numel() - 1, pe.shape
+    l1, c = tail[0].shape[0], tail[2].shape[1]
+    dev = pe.device
+    total = l1 * (h * h + h) + h * c + 3 * c
+    blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+    partial = torch.empty(blocks, total, device=dev)
+
+    def run():
+        d_pe = torch.empty_like(pe)
+        dz = torch.empty(e, h, device=dev)
+        d_pxi = torch.zeros(n, h, device=dev)
+        wgrad = torch.empty(total, device=dev)
+        err = fn(*(t.data_ptr() for t in (pe, pxj, pxi, senders, rowptr,
+                                          *tail[:5])),
+                 g.data_ptr(), d_pe.data_ptr(), dz.data_ptr(),
+                 d_pxi.data_ptr(), wgrad.data_ptr(), partial.data_ptr(), n,
+                 e, h, c, l1, blocks, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"launch failed: cudaError {err}")
+        return d_pe.float(), dz, d_pxi, wgrad
+    return run
+
+
 def runner_segment(x, ptr, perm):
     """A closure that launches the segment sum's C entry for x's dtype (f32
     or bf16) over the CSR (ptr, perm) and returns the sums."""

@@ -244,6 +244,28 @@ def runner_bf16_w128(entry, ops):
     return run
 
 
+def runner_pe64_bf16(ops):
+    """A closure that launches the width-64 bf16 pe forward's C entry on the
+    C-entry operands ``ops`` (``operands("pe", ...)`` through ``to_bf16``)
+    as its wrapper does and returns out."""
+    fn = cuda_build.function(fe.BF16, fe._ARGTYPES[fe.BF16_PE_FWD],
+                             symbol=fe.BF16_PE_FWD)
+    pe, _, _, pxj, pxi, senders, rowptr, *tail = ops
+    n, (e, h), l1 = rowptr.numel() - 1, pe.shape, tail[0].shape[0]
+    c = tail[2].shape[1]
+    part = torch.empty(part_rows(e, fe.FWD_TILE), c, device=pe.device)
+
+    def run():
+        out = torch.zeros(n, c, device=pe.device)
+        err = fn(*(t.data_ptr() for t in (pe, pxj, pxi, senders, rowptr,
+                                          *tail, out, part)),
+                 n, e, h, c, l1, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"launch failed: cudaError {err}")
+        return out
+    return run
+
+
 def pregathered_bf16(ops):
     """The pregathered entry's operands (h0, pxi, rowptr, tail...) of
     ``operands("pregathered", ...)``, in the bf16 lane (``to_bf16``)."""

@@ -11,7 +11,7 @@ the datamodule's defaults, for example ``burn_in=10.0`` to shorten the KS
 burn-in, ``n_steps=2000`` for the combined equation's solver or
 ``batch_size=8`` for ``magnet_cnn_2d``; ``model.params.key=value`` one of
 the model's; ``impl`` sets the model's kernel lane, ``kernel_pe`` for
-``magnet_gnn``'s pe lane), takes two
+the pe lane of ``magnet_cnn`` or ``magnet_gnn``), takes two
 optimizer steps to warm up, then ``steps`` steps timed with no profiler and
 ``steps`` more under ``torch.profiler`` (CPU and CUDA activities), all
 through ``Trainer.train_step`` at the model's full width.  Prints

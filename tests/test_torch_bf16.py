@@ -430,9 +430,10 @@ def test_bf16_training_loss_trains_and_stays_near_f32(models):
 def test_bf16_raises_where_there_is_no_bf16_build():
     """MAgNet[GNN] and MAgNet[CNN] 2D build in bf16; a step runs it on the
     fold, pregathered and pe lanes (on CPU tensors their plain versions);
-    the pe entry's bf16 kernels refuse the width-64 form and the
-    pregathered entry's the width-128 form and L1 = 4, which have no
-    build, and CPU tensors at the built one."""
+    the pe entry's bf16 kernels are built at width 64 and refuse L1 = 4 and
+    an unbuilt width there, the pregathered entry's refuse the width-128
+    form and L1 = 4, which have no build, and CPU tensors at the built
+    one."""
     for name in ("magnet_cnn_2d", "magnet_gnn"):
         assert create_model(name, {"graph_dtype": "float32"}, device="cpu")
         model = create_model(name, {"graph_dtype": "bf16"}, device="cpu")
@@ -445,8 +446,11 @@ def test_bf16_raises_where_there_is_no_bf16_build():
     eb = torch.from_numpy(e_csr).bfloat16()
     for impl in ("kernel_fold", "kernel_pregathered", "kernel_pe"):
         assert step(xb, eb, tg, impl=impl).dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="no bf16 build"):
-        fe._check_build_bf16("pe", (64, 32), 3)
+    assert (64, 32) in fe.KERNEL_WIDTHS["pe_bf16"]
+    fe._check_build_bf16("pe", (64, 32), 3)
+    for widths, l1 in (((64, 32), 4), ((64, 64), 3)):
+        with pytest.raises(NotImplementedError, match="no bf16 build"):
+            fe._check_build_bf16("pe", widths, l1)
     assert (64, 32) in fe.KERNEL_WIDTHS["pregathered_bf16"]
     fe._check_build_bf16("pregathered", (64, 32), 3)
     for widths, l1 in (((128, 128), 3), ((64, 32), 4)):

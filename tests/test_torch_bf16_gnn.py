@@ -268,10 +268,10 @@ def test_pe_bf16_wrapper_on_cpu_is_the_plain_pair(L1):
 
 
 def test_bf16_builds_at_width_128_and_the_widths_still_refused():
-    """The bf16 launchers take the width-128 fold and pe builds (a CPU
-    tensor then stops at the device) and refuse every other unbuilt width
-    and depth with ``NotImplementedError``, and operands outside the
-    lane's dtypes."""
+    """The bf16 launchers take the width-128 fold and pe builds and the
+    width-64 pe build (a CPU tensor then stops at the device) and refuse
+    every other unbuilt width and depth with ``NotImplementedError``, and
+    operands outside the lane's dtypes."""
     bf, z = torch.bfloat16, torch.zeros
     graph = csr_from_edges(torch.tensor([1, 2, 0]), torch.tensor([0, 1, 2]),
                            3)
@@ -289,16 +289,18 @@ def test_bf16_builds_at_width_128_and_the_widths_still_refused():
                 z(c, dtype=bf), z(c), z(c))
 
     assert (128, 128, 128) in fe.KERNEL_WIDTHS["fold_bf16"]
-    assert fe.KERNEL_WIDTHS["pe_bf16"] == {(128, 128)}
+    assert fe.KERNEL_WIDTHS["pe_bf16"] == {(64, 32), (128, 128)}
     for launch, ops in ((fe._launch_bf16_fwd, fold(128, 128, 128, 3)),
-                        (fe._launch_pe_bf16_fwd, pe(128, 128, 3))):
+                        (fe._launch_pe_bf16_fwd, pe(128, 128, 3)),
+                        (fe._launch_pe_bf16_fwd, pe(64, 32, 3))):
         with pytest.raises(ValueError, match="no fused edge kernel"):
             launch(*ops)
     with pytest.raises(ValueError, match="no fused edge kernel"):
         fe._launch_bf16_bwd(*fold(128, 128, 128, 3), z(3, 128))
-    with pytest.raises(ValueError, match="no fused edge kernel"):
-        fe._launch_pe_bf16_bwd(*pe(128, 128, 3), z(3, 128))
-    for ops in (pe(64, 32, 3), pe(128, 128, 4), pe(128, 64, 1)):
+    for h, c in ((128, 128), (64, 32)):
+        with pytest.raises(ValueError, match="no fused edge kernel"):
+            fe._launch_pe_bf16_bwd(*pe(h, c, 3), z(3, c))
+    for ops in (pe(64, 32, 4), pe(128, 128, 4), pe(128, 64, 1)):
         with pytest.raises(NotImplementedError, match="no bf16 build"):
             fe._launch_pe_bf16_fwd(*ops)
     for ops in (fold(128, 128, 128, 4), fold(64, 128, 128, 3)):

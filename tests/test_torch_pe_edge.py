@@ -214,7 +214,7 @@ def test_interaction_step_kernel_pe_matches_jax_no_fused2r(monkeypatch):
 @pytest.mark.parametrize("entry,widths", [
     ("fold", (128, 128, 128)), ("fold", (32, 64, 32)),
     ("pregathered", (128, 128)), ("pregathered", (64, 32)),
-    ("pe", (128, 128))])
+    ("pe", (128, 128)), ("pe", (64, 32))])
 def test_width_dispatch_keys_each_entry_by_what_it_reads(entry, widths):
     """Every compiled build passes the width check and the launch stops
     only at the device (there is no CUDA device here); a width-128
