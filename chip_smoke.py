@@ -6,13 +6,12 @@
                                         cnn, mpnn_kernels, mpnn_paths, cnn2d,
                                         gnn, gnn2d, fno, no_interaction,
                                         cnn_bf16, cnn2d_bf16, gnn_bf16,
-                                        cnn_pe
+                                        cnn_pe, gnn_pre
 
 Builds the port's seven CUDA sources from the checkout (all eleven TPU
 kernels: the fused GraphNet edge pipeline's forward and backward, each
 with its fold, pre-gathered and pe entry at width 64 and 128, the fold,
-pre-gathered and pe entries also in bf16 at width 64 and the fold and pe
-entries in bf16 at width 128; the
+pre-gathered and pe entries also in bf16 at width 64 and 128; the
 fused MPNN message path's forward and backward, each with its
 in-kernel-gather and its pre-gathered entry; the segment sum, in f32 and
 bf16), holds each kernel against its plain PyTorch version at the
@@ -34,7 +33,13 @@ the pre-gathered entry's bf16 #2/#3 and the bf16 segment sum #1, and
 MAgNet[CNN]'s pe lane (``impl="kernel_pe"``, the JAX package's lane
 under ``MAGNET_TPU_NO_FUSED2R``) at (H, C) = (64, 32), in f32 and bf16:
 1D through ``evaluate`` and ``Trainer.fit`` (checkpoint, resume) and 2D
-through ``evaluate``, on #6/#7 with the f32 #1 for d_pxj.
+through ``evaluate``, on #6/#7 with the f32 #1 for d_pxj, and
+MAgNet[GNN]'s pre-gathered lane (``impl="kernel_pregathered"``, the JAX
+package's lane under ``MAGNET_TPU_NO_FUSED2``) at (H, C) = (128, 128), in
+f32 and bf16: 1D and 2D through ``evaluate`` and ``Trainer.fit``
+(checkpoint, resume) on #2/#3 with #1 for the sender gather, and one
+MAgNet[CNN] 2D ``kernel_pe`` step at its training graph, which the pe
+lane rule sends to the pre-gathered (64, 32) builds.
 It checks that each path went through its kernels by their launch counts.
 Prints one JSON line per phase (``device``, ``build``, ``kernel``,
 ``slice``, ``kernel_bwd``, ``train``, ``mpnn_kernel``, ``mpnn_kernel_bwd``,
@@ -47,7 +52,9 @@ Prints one JSON line per phase (``device``, ``build``, ``kernel``,
 ``bf16_2d_train``, ``gnn_bf16_kernel``, ``gnn_bf16_kernel_bwd``,
 ``gnn_bf16_slice``, ``gnn_bf16_train``, ``gnn2d_bf16_slice``,
 ``gnn2d_bf16_train``, ``pe64_kernel``, ``pe64_kernel_bwd``,
-``pe64_slice``, ``pe64_train``), the
+``pe64_slice``, ``pe64_train``, ``gnn_pre_kernel``,
+``gnn_pre_kernel_bwd``, ``gnn_pre_slice``, ``gnn_pre_train``,
+``gnn_pre_c6``), the
 card's name and power limit, a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero, and
 with no CUDA device it exits 1 before printing any result.
@@ -190,9 +197,13 @@ BF16_LOSS_RTOL = 5e-2
 # max|want| (each sum rounded once to bf16 from f32 sums taken in another
 # order: at most the neighbouring bf16 value, 2^-8 relative)
 BF16_SEG_RTOL = 1e-2
+# MAgNet[GNN]'s pre-gathered lane (gnn_pre): 1D trains on 32 of the KS
+# trajectories (one batch of the GNN datamodule's 32, one step an epoch)
+# and validates on 32
+GNN_PRE_TRAJ = 32
 GROUPS = ("cnn", "mpnn_kernels", "mpnn_paths", "cnn2d", "gnn", "gnn2d",
           "fno", "no_interaction", "cnn_bf16", "cnn2d_bf16", "gnn_bf16",
-          "cnn_pe")
+          "cnn_pe", "gnn_pre")
 
 
 def emit(obj) -> None:
@@ -2022,17 +2033,6 @@ def gnn_bf16_phases(dev, data, groups) -> tuple[int, list, dict]:
     eval_launches = (slice_1d["launches"]["fused_edge_fold128_bf16_fwd"],
                      pe_lane["launches"]["fused_edge_pe_bf16_fwd"])
 
-    def bf16_step(cmp):
-        """``gnn_vs_plain``'s record of a bf16 step, held as the cnn_bf16
-        group holds its step: finite gradients and the loss within 1e-3 of
-        the plain path's (the kernels and the plain versions round at the
-        same points, their f32 sums in another order; the worst gradient's
-        relative L2 is reported)."""
-        cmp.pop("grad_rel_l2_tol")
-        cmp["loss_rtol"] = 1e-3
-        cmp["ok"] = cmp["grads_finite"] and cmp["loss_rel_err"] <= 1e-3
-        return cmp["ok"]
-
     def fit_bf16(new_model, hp_, loaders_, per_step):
         """``fit_checkpoint_resume`` over two epochs on the bf16 fold
         kernels alone, its launches checked; the first step's loss and
@@ -2187,6 +2187,495 @@ def gnn_bf16_phases(dev, data, groups) -> tuple[int, list, dict]:
             bwd["pe"]["train_all"]["timing"])]
     return 0, kernels, {
         "segment_sum": {"launches_gnn_bf16": cmp_pe["launches"]["segment_sum"]}}
+
+
+def gnn_pre_phases(dev, data, groups) -> tuple[int, list, dict]:
+    """Phases ``gnn_pre_kernel``, ``gnn_pre_kernel_bwd``, ``gnn_pre_slice``,
+    ``gnn_pre_train`` and ``gnn_pre_c6``: MAgNet[GNN]'s pre-gathered lane
+    (``impl="kernel_pregathered"``, the JAX package's lane under
+    ``MAGNET_TPU_NO_FUSED2``) at its published width, in f32 and bf16.  Its
+    kernels (#2 and #3 at (H, C) = (128, 128): the f32 builds of
+    ``csrc/fused_edge_tail_agg.cu`` / ``fused_edge_tail_agg_bwd.cu`` and the
+    bf16 builds of ``csrc/fused_edge_tail_agg_bf16_w128.cu``) against their
+    plain versions and each other; MAgNet[GNN] 1D and 2D through
+    ``evaluate`` and ``Trainer.fit`` on that lane alone (#2, #3 and the
+    sender gather's #1), its eval loss against the fold lane's and its
+    seconds a batch and a step in turns with the fold lane's; and one
+    MAgNet[CNN] 2D training step on ``impl="kernel_pe"`` at its training
+    graph, which has no sender-tile layout, so that the pe lane rule sends
+    it to the pre-gathered (64, 32) builds, as the JAX step under
+    ``MAGNET_TPU_NO_FUSED2R`` goes.  Returns the exit code, the four
+    width-128 kernels' entries and the launches of the other groups'
+    kernels (#1, and #2/#3 at width 64) on these paths."""
+    from magnet_tpu_torch.config import (
+        DATAMODULE_IMPLICIT_2D,
+        MAGNET_CNN_2D,
+        MAGNET_GNN,
+    )
+    from magnet_tpu_torch.eval import evaluate
+    from magnet_tpu_torch.models.factory import create_model
+    from magnet_tpu_torch.ops import cuda_build
+    from magnet_tpu_torch.ops import fused_edge as fe
+    from magnet_tpu_torch.time_fwd import bind, in_turns
+    from magnet_tpu_torch.time_fwd import operands as c_operands
+    from magnet_tpu_torch.time_fwd import runner, runner_bf16_w128, to_bf16
+    from magnet_tpu_torch.utils import to_device
+
+    hp32 = dict(MAGNET_GNN)
+    h, l1 = hp32["mlp_hidden"], hp32["mlp_layers"] - 1
+    mp, ts = hp32["num_message_passing_steps"], hp32["time_slice"]
+    hps = {"f32": hp32, "bf16": {**hp32, "graph_dtype": "bf16"}}
+    kind2d = "h5_implicit_gnn_2d"
+    eval_batches = data["gnn_eval"][:1]
+    loaders = data["gnn_pre_loaders"]
+    loaders["train"].set_epoch(0)
+    batch0 = to_device(next(iter(loaders["train"])), dev)
+    model = create_model("magnet_gnn", hp32, device=dev, seed=0)
+    eg = model.build_graph(to_device(eval_batches[0], dev))
+    tg = model.build_graph(batch0)
+    del model
+    small = gnn_small_graph()
+    tiles = tile_edges_graph(fe.FWD_TILE, seed=61)
+    fn32 = bind(cuda_build.build(fe.FWD), fe.FWD)
+    build = bf16_w128_build()
+    # every MAgNet[GNN] graph has both sender layouts: the JAX package sums
+    # the sender gather's cotangent in f32 there, as the port's #1 does
+    layouts_ok = all(gr.layout.snd2 and gr.layout.snd_transpose
+                     for gr in (eg.lr, eg.all, tg.lr, tg.all))
+    ts_of = {1: ts, 2: GNN2D_HP["time_slice"]}
+
+    def wrapper_ops(ops):
+        """The pregathered wrapper's operands of the C entry's ``ops``."""
+        return (ops[0], ops[4], ops[6], *ops[7:])
+
+    # gnn_pre_kernel: bf16 #2 at (128, 128) vs its bf16 plain version and
+    # vs the f32 #2 at width 128 on the unrounded operands (receiver
+    # means), the f32 #2 vs its plain version, at MAgNet[GNN] 1D's eval and
+    # training LR ∪ HR graphs, the small graph (a degree-0 receiver, a
+    # receiver over three tiles, L1 = 1) and the forward's tile graph;
+    # bit-equal launches; times in turns with the f32 build
+    t_phase = time.perf_counter()
+    fwd = {}
+    for label, gr, l1c in (("eval_all", eg.all, l1), ("train_all", tg.all, l1),
+                           ("small_case", small, GNN_SMALL_L1),
+                           ("tile_edges", tiles, l1)):
+        ops32 = c_operands("pregathered", gr, h, h, h, l1c, seed=62, dev=dev)
+        ops_bf = to_bf16(ops32)
+        w32, wbf = wrapper_ops(ops32), wrapper_ops(ops_bf)
+        got = fe.fused_edge_tail_agg_pregathered_bf16(*wbf)
+        torch.cuda.synchronize()
+        res = compare_bf16(got, fe.fused_edge_tail_agg_pregathered_bf16_plain(
+            *wbf))
+        got32 = fe.fused_edge_tail_agg_pregathered(*w32)
+        res["f32_vs_plain"] = compare(
+            got32, fe.fused_edge_tail_agg_pregathered_plain(*w32),
+            KERNEL_RTOL, KERNEL_ATOL)
+        deg = gr.degree.to(dev).clamp_min(1.0)[:, None]
+        res["vs_f32_kernel"] = compare(got / deg, got32 / deg,
+                                       BF16_VS_F32_RTOL, BF16_VS_F32_ATOL)
+        res["vs_f32_kernel"]["sums_max_abs_err"] = float(
+            (got - got32).abs().max())
+        zero = gr.degree.to(dev) == 0
+        res.update(n_node=gr.n_node, n_edge=gr.n_edge, l1=l1c,
+                   max_degree=int(gr.degree.max()),
+                   n_degree0=int(zero.sum()),
+                   degree0_rows_zero=bool((got[zero] == 0).all()
+                                          and (got32[zero] == 0).all()))
+        if label == "eval_all":
+            order, times, mean = in_turns(
+                {"f32": runner(fn32, "pregathered", ops32, (h, h, h)),
+                 "bf16": runner_bf16_w128("pregathered", ops_bf)},
+                first="f32", then="bf16")
+            b32 = pregathered_bound("fwd", gr, h, h, l1)
+            res["timing"] = {
+                "order": order, "ms": times, "mean_ms": mean,
+                "plain_ms": cuda_ms(lambda: fe.
+                                    fused_edge_tail_agg_pregathered_bf16_plain(
+                                        *wbf), reps=10),
+                "f32_plain_ms": cuda_ms(
+                    lambda: fe.fused_edge_tail_agg_pregathered_plain(*w32),
+                    reps=10),
+                **pregathered_bf16_bound("fwd", gr, h, h, l1),
+                "f32_bound": {**b32, **tc_bound(b32)}}
+            res["bits_equal_run_to_run"] = (
+                torch.equal(fe.fused_edge_tail_agg_pregathered_bf16(*wbf),
+                            fe.fused_edge_tail_agg_pregathered_bf16(*wbf))
+                and torch.equal(fe.fused_edge_tail_agg_pregathered(*w32),
+                                fe.fused_edge_tail_agg_pregathered(*w32)))
+        fwd[label] = res
+        del ops32, ops_bf, w32, wbf, got, got32
+    fwd_ok = layouts_ok and all(
+        r["ok"] and r["f32_vs_plain"]["ok"] and r["vs_f32_kernel"]["ok"]
+        and r["degree0_rows_zero"] and r.get("bits_equal_run_to_run", True)
+        for r in fwd.values())
+    emit({"phase": "gnn_pre_kernel", "h": h, "c": h, "l1": l1,
+          "small_case_l1": GNN_SMALL_L1, "layouts_ok": layouts_ok,
+          "tolerance": {"vs_plain": {"rtol": BF16_RTOL, "atol": BF16_ATOL,
+                                     "max_rel_l2": BF16_L2},
+                        "f32_vs_plain": {"rtol": KERNEL_RTOL,
+                                         "atol": KERNEL_ATOL},
+                        "vs_f32_kernel": {"rtol": BF16_VS_F32_RTOL,
+                                          "atol": BF16_VS_F32_ATOL,
+                                          "of": "receiver means"}},
+          "pregathered_bf16_w128": fwd, "library_ms": None, **build,
+          "seconds": time.perf_counter() - t_phase, "ok": fwd_ok})
+    if not fwd_ok:
+        return 41, [], {}
+
+    # gnn_pre_kernel_bwd: bf16 #3 at (128, 128) vs its bf16 plain version,
+    # every gradient in its operand's dtype, and vs the f32 #3 at width
+    # 128, the f32 #3 vs its plain version, at the training LR ∪ HR and LR
+    # graphs (g zero on the receivers of relu ties of either recompute,
+    # counted), the small graph and the tile graph; bit-equal launches;
+    # times in turns with the f32 build
+    t_phase = time.perf_counter()
+    gen = torch.Generator().manual_seed(63)
+    names = fe.GRAD_NAMES_PREGATHERED
+    bwd = {}
+    for label, gr, l1c in (("train_all", tg.all, l1), ("train_lr", tg.lr, l1),
+                           ("small_case", small, GNN_SMALL_L1),
+                           ("tile_edges", tiles, l1)):
+        ops32 = c_operands("pregathered", gr, h, h, h, l1c, seed=64, dev=dev)
+        ops_bf = to_bf16(ops32)
+        w32, wbf = wrapper_ops(ops32), wrapper_ops(ops_bf)
+        g = torch.randn(gr.n_node, h, generator=gen).to(dev)
+        res = {}
+        if label.startswith("train"):
+            ties = torch.unique(torch.cat([
+                tie_receivers_bf16(wbf, l1c, "pregathered"),
+                tie_receivers("pregathered", w32, l1c)]))
+            g[ties] = 0.0
+            res["tie_receivers_zeroed"] = int(ties.numel())
+        got = fe.fused_edge_tail_agg_pregathered_bf16_bwd(*wbf, g)
+        torch.cuda.synchronize()
+        want = fe.fused_edge_tail_agg_pregathered_bf16_bwd_plain(*wbf, g)
+        got32 = fe.fused_edge_tail_agg_pregathered_bwd(*w32, g)
+        plain32 = fe.fused_edge_tail_agg_pregathered_bwd_plain(*w32, g)
+        elementwise32 = not label.startswith("train")
+        deep = l1c > BF16_VS_F32_DEPTH
+        for name, a, b, a32, p32 in zip(names, got, want, got32, plain32):
+            res[name] = compare_grad(a, b, elementwise=False, rtol=BF16_RTOL,
+                                     atol_rel=BF16_BWD_ATOL_REL,
+                                     max_l2=BF16_BWD_L2)
+            res[name]["f32_vs_plain"] = compare_grad(
+                a32, p32, elementwise=elementwise32)
+            if a32.numel():
+                l2, l2_plain = rel_l2(a, a32), rel_l2(b, p32)
+                res[name].update(
+                    vs_f32_kernel_rel_l2=l2,
+                    plain_bf16_vs_plain_f32_rel_l2=l2_plain,
+                    vs_f32_ok=l2 < BF16_VS_F32_GRAD_L2 or (
+                        deep and l2 <= BF16_VS_F32_DEEP * l2_plain))
+        res["dtypes_ok"] = [a.dtype for a in got] == [b.dtype for b in want]
+        res["vs_f32_kernel_ok"] = all(
+            v.get("vs_f32_ok", True) for v in res.values()
+            if isinstance(v, dict))
+        res["f32_vs_plain_ok"] = all(
+            v["f32_vs_plain"]["ok"] for v in res.values()
+            if isinstance(v, dict))
+        zero = gr.degree.to(dev) == 0
+        res["degree0_rows_zero"] = bool(
+            (got[1][zero] == 0).all() and (got32[1][zero] == 0).all())
+        res.update(n_node=gr.n_node, n_edge=gr.n_edge, l1=l1c)
+        if label == "train_all":
+            res["bits_equal_run_to_run"] = (
+                bits_equal_bwd(fe.fused_edge_tail_agg_pregathered_bf16_bwd,
+                               wbf, g, names)["ok"]
+                and bits_equal_bwd(fe.fused_edge_tail_agg_pregathered_bwd,
+                                   w32, g, names)["ok"])
+            order, times, mean = in_turns(
+                {"f32": lambda: fe._launch_bwd("pregathered", *ops32, g),
+                 "bf16": lambda: fe._launch_bf16_w128_bwd("pregathered",
+                                                          *ops_bf, g)},
+                first="f32", then="bf16")
+            b32 = pregathered_bound("bwd", gr, h, h, l1)
+            res["timing"] = {
+                "order": order, "ms": times, "mean_ms": mean,
+                "of": "the kernels' launch sequences",
+                "plain_ms": cuda_ms(lambda: fe.
+                                    fused_edge_tail_agg_pregathered_bf16_bwd_plain(
+                                        *wbf, g), reps=5),
+                "f32_plain_ms": cuda_ms(
+                    lambda: fe.fused_edge_tail_agg_pregathered_bwd_plain(
+                        *w32, g), reps=5),
+                **pregathered_bf16_bound("bwd", gr, h, h, l1),
+                "f32_bound": {**b32, **tc_bound(b32)}}
+        bwd[label] = res
+        del ops32, ops_bf, w32, wbf, got, want, got32, plain32
+    bwd_ok = all(
+        all(v["ok"] for v in r.values() if isinstance(v, dict) and "ok" in v)
+        and r["dtypes_ok"] and r["vs_f32_kernel_ok"] and r["f32_vs_plain_ok"]
+        and r["degree0_rows_zero"] and r.get("bits_equal_run_to_run", True)
+        for r in bwd.values())
+    emit({"phase": "gnn_pre_kernel_bwd", "l1": l1,
+          "tolerance": {"vs_plain": {"max_rel_l2": BF16_BWD_L2,
+                                     "counted_outside": {
+                                         "rtol": BF16_RTOL,
+                                         "atol_rel_to_max": BF16_BWD_ATOL_REL}},
+                        "f32_vs_plain": {
+                            "rtol": BWD_RTOL, "atol_rel_to_max": BWD_ATOL_REL,
+                            "max_rel_l2": BWD_L2,
+                            "elementwise": "small and tile graphs"},
+                        "vs_f32_kernel_max_rel_l2": BF16_VS_F32_GRAD_L2,
+                        "vs_f32_kernel_deeper_than_l1": BF16_VS_F32_DEPTH,
+                        "vs_f32_kernel_deep_times_plain": BF16_VS_F32_DEEP},
+          "pregathered_bf16_w128": bwd, "library_ms": None,
+          "seconds": time.perf_counter() - t_phase, "ok": bwd_ok})
+    if not bwd_ok:
+        return 42, [], {}
+
+    counters = {"f32": ("fused_edge_pregathered128_fwd",
+                        "fused_edge_pregathered128_bwd", "segment_sum"),
+                "bf16": ("fused_edge_pregathered128_bf16_fwd",
+                         "fused_edge_pregathered128_bf16_bwd",
+                         "segment_sum_bf16")}
+    loss_rtol = {"f32": 1e-5, "bf16": BF16_LOSS_RTOL}
+
+    def new_model(dtype, pos_dim, impl="kernel_pregathered"):
+        params = {**hps[dtype], **(GNN2D_HP if pos_dim == 2 else {})}
+        m = create_model("magnet_gnn", params, device=dev, seed=0,
+                         **({"kind": kind2d} if pos_dim == 2 else {}))
+        m.impl = impl
+        return m
+
+    def eval_pre(dtype, pos_dim, batches):
+        """``evaluate`` on the pre-gathered lane (#2 alone), its eval loss
+        against the fold lane's, seconds a batch in turns with it."""
+        m = new_model(dtype, pos_dim)
+        fwd_key = counters[dtype][0]
+        n_win = (batches[0]["t"].shape[1] - m.time_slice) // m.time_slice
+        reset_every_launch()
+        metrics, preds = evaluate(m, batches, dev, return_predictions=True)
+        torch.cuda.synchronize()
+        counts = every_launch()
+        want = {k: n_win * 2 * mp * len(batches) if k == fwd_key else 0
+                for k in counts}
+        m.impl = "kernel"
+        metrics_fold = evaluate(m, batches, dev)
+        order = ["fold", "pregathered", "pregathered", "fold"]
+        secs = []
+        for o in order:
+            m.impl = "kernel" if o == "fold" else "kernel_pregathered"
+            secs.append(timed(lambda: evaluate(m, batches, dev))
+                        / len(batches))
+        m.impl = "kernel"
+        loss_rel = (abs(metrics["test_loss"] - metrics_fold["test_loss"])
+                    / abs(metrics_fold["test_loss"]))
+        finite = (all(bool(torch.isfinite(p).all()) for p in preds)
+                  and all(np.isfinite(v) for v in metrics.values()))
+        return {"metrics": metrics, "metrics_fold_lane": metrics_fold,
+                "loss_rel_err_vs_fold_lane": loss_rel,
+                "loss_rtol_vs_fold_lane": loss_rtol[dtype],
+                "launches": counts, "expected_launches": want,
+                "launches_per_batch": n_win * 2 * mp, "finite": finite,
+                "shapes": [list(p.shape) for p in preds[:1]],
+                "seconds_per_batch_in_turns": {"order": order,
+                                               "seconds": secs},
+                "ok": (counts == want and finite
+                       and loss_rel <= loss_rtol[dtype])}
+
+    # gnn_pre_slice: one eval batch of MAgNet[GNN] 1D (16 Heat
+    # trajectories) and of 2D (the regular 32 x 32 test grid), each in f32
+    # and bf16, on #2 at width 128 alone
+    t_phase = time.perf_counter()
+    slices = {f"{dtype}_{pos_dim}d": eval_pre(dtype, pos_dim, batches)
+              for pos_dim, batches in ((1, eval_batches),
+                                       (2, data["gnn2d_eval"][:1]))
+              for dtype in ("f32", "bf16")}
+    slice_ok = all(s["ok"] for s in slices.values())
+    emit({"phase": "gnn_pre_slice", "model": "magnet_gnn",
+          "impl": "kernel_pregathered",
+          "eval_all_graph_1d": {"n_node": eg.all.n_node,
+                                "n_edge": eg.all.n_edge},
+          **slices, "seconds": time.perf_counter() - t_phase,
+          "ok": slice_ok})
+    if not slice_ok:
+        return 43, [], {}
+
+    def train_pre(dtype, pos_dim, loaders_):
+        """``Trainer.fit`` on the pre-gathered lane alone over two epochs of
+        one step (#2, #3 and the sender gather's #1 a layer call, #2 a
+        validation batch), the checkpoint read back and one resumed step;
+        the first step against the plain path; seconds a step in turns with
+        the fold lane's."""
+        fwd_key, bwd_key, seg_key = counters[dtype]
+        tm = new_model(dtype, pos_dim)
+        loaders_["train"].set_epoch(0)
+        b0 = to_device(next(iter(loaders_["train"])), dev)
+        g0 = tm.build_graph(b0)
+        plain = gnn_loss_and_grads(tm, "plain", b0, g0)
+        reset_every_launch()
+        step = gnn_vs_plain(tm, "kernel_pregathered", plain, b0, g0)
+        step["launches"] = every_launch()
+        del tm, plain
+        nt = loaders_["train"].dataset.data["t"].shape[1]
+        per_step = ((nt - ts_of[pos_dim]) // ts_of[pos_dim]) * 2 * mp
+        step["expected_launches"] = {
+            k: per_step if k in (fwd_key, bwd_key, seg_key) else 0
+            for k in step["launches"]}
+        if dtype == "bf16":
+            bf16_step(step)
+        step["ok"] = step["ok"] and (step["launches"]
+                                     == step["expected_launches"])
+        n_epochs, steps = 2, len(loaders_["train"])
+        val_batches = len(loaders_["val"])
+        fit, resumed = fit_checkpoint_resume(
+            lambda: new_model(dtype, pos_dim), hps[dtype], loaders_, dev,
+            n_epochs, reset_every_launch, every_launch)
+        counts = fit.pop("launches")
+        want = {k: 0 for k in counts}
+        want[fwd_key] = per_step * (steps + val_batches) * n_epochs
+        want[bwd_key] = want[seg_key] = per_step * steps * n_epochs
+        host_batches = [to_device(b, dev) for b in loaders_["train"]]
+        order = ["fold", "pregathered", "pregathered", "fold"]
+        secs = []
+        for o in order:
+            resumed.model.impl = ("kernel" if o == "fold"
+                                  else "kernel_pregathered")
+            secs.append(timed(lambda: [resumed.train_step(b)
+                                       for b in host_batches]) / steps)
+        del resumed
+        ok = (counts == want and fit["losses_finite"] and step["ok"]
+              and fit["checkpoint_ok"] and fit["resume_ok"])
+        return {"launches": counts, "expected_launches": want,
+                "launches_per_train_step": per_step,
+                "train_all_graph": {"n_node": g0.all.n_node,
+                                    "n_edge": g0.all.n_edge},
+                **fit, "loss_falls": falls(fit["epoch_train_losses"]),
+                "step_vs_plain": step,
+                "seconds_per_step_in_turns": {"order": order,
+                                              "seconds": secs},
+                "ok": ok}
+
+    # gnn_pre_train: Trainer.fit (2 steps, then 1 resumed) of MAgNet[GNN]
+    # 1D on 32 KS trajectories through the GNN datamodule and of 2D at the
+    # published 512-node irregular configuration, each in f32 and bf16
+    t_phase = time.perf_counter()
+    trains = {f"{dtype}_{pos_dim}d": train_pre(dtype, pos_dim, loaders_)
+              for pos_dim, loaders_ in ((1, loaders),
+                                        (2, data["gnn2d_loaders"]))
+              for dtype in ("f32", "bf16")}
+    train_ok = all(t["ok"] for t in trains.values())
+    emit({"phase": "gnn_pre_train", "model": "magnet_gnn",
+          "impl": "kernel_pregathered",
+          "batch_size": loaders["train"].batch_size, **trains,
+          "seconds": time.perf_counter() - t_phase, "ok": train_ok})
+    if not train_ok:
+        return 44, [], {}
+
+    # gnn_pre_c6: one MAgNet[CNN] 2D training step on impl="kernel_pe" at
+    # the cnn2d group's training graph (batch 8), f32 and bf16, against the
+    # plain path: no sender-tile layout there, so the pe lane rule runs the
+    # pre-gathered (64, 32) builds (#2, #3, #1) and no pe kernel
+    t_phase = time.perf_counter()
+    loaders2d = data["cnn2d_loaders"]
+    loaders2d["train"].set_epoch(0)
+    cb0 = to_device(next(iter(loaders2d["train"])), dev)
+    hp_c = dict(MAGNET_CNN_2D)
+    nt_c = DATAMODULE_IMPLICIT_2D["nt_train"]
+    per_step_c = ((nt_c - hp_c["time_slice"]) // hp_c["time_slice"]) * (
+        hp_c["num_message_passing_steps"])
+    c6 = {}
+    for dtype, keys in (("f32", ("fused_edge_pregathered_fwd",
+                                 "fused_edge_pregathered_bwd", "segment_sum")),
+                        ("bf16", ("fused_edge_pregathered_bf16_fwd",
+                                  "fused_edge_pregathered_bf16_bwd",
+                                  "segment_sum_bf16"))):
+        cm = create_model("magnet_cnn_2d",
+                          {**hp_c, **({"graph_dtype": "bf16"}
+                                      if dtype == "bf16" else {})},
+                          device=dev, seed=0)
+        cg = cm.build_graph(cb0)
+        plain = gnn_loss_and_grads(cm, "plain", cb0, cg)
+        reset_every_launch()
+        rec = gnn_vs_plain(cm, "kernel_pe", plain, cb0, cg)
+        rec["launches"] = every_launch()
+        rec["expected_launches"] = {k: per_step_c if k in keys else 0
+                                    for k in rec["launches"]}
+        if dtype == "bf16":
+            bf16_step(rec)
+        rec.update(n_node=cg.n_node, n_edge=cg.n_edge, lane=cg.lane,
+                   snd2=cg.layout.snd2, snd_transpose=cg.layout.snd_transpose)
+        rec["ok"] = (rec["ok"] and not cg.layout.snd2
+                     and rec["launches"] == rec["expected_launches"])
+        c6[dtype] = rec
+        del cm, plain
+    c6_ok = all(r["ok"] for r in c6.values())
+    emit({"phase": "gnn_pre_c6", "model": "magnet_cnn_2d",
+          "impl": "kernel_pe", "batch_size": CNN2D_BATCH, **c6,
+          "seconds": time.perf_counter() - t_phase, "ok": c6_ok})
+    if not c6_ok:
+        return 45, [], {}
+
+    def launches(key):
+        return (sum(s["launches"][key] for s in slices.values())
+                + sum(t["launches"][key] + t["step_vs_plain"]["launches"][key]
+                      for t in trains.values()))
+
+    fw, bw = fwd["eval_all"]["timing"], bwd["train_all"]["timing"]
+
+    def row(name, source, replaces, key, found, t, dtype):
+        if dtype == "bf16":
+            ms, plain_ms, b = t["mean_ms"]["bf16"], t["plain_ms"], t
+            other = {"ms_f32_build_in_turns": t["mean_ms"]["f32"],
+                     "share_of_bound": t["bound_ms"] / ms,
+                     "share_against": "bound_ms (bf16, 989 TFLOP/s)"}
+        else:
+            ms, plain_ms, b = t["mean_ms"]["f32"], t["f32_plain_ms"], \
+                t["f32_bound"]
+            other = {"tc_bound_ms": b["tc_bound_ms"],
+                     "tc_bound_by": b["tc_bound_by"],
+                     "ms_bf16_build_in_turns": t["mean_ms"]["bf16"]}
+        return {"name": name, "route": "cuda",
+                "source": f"magnet_tpu_torch/csrc/{source}",
+                "entry": "pregathered", "widths": [h, h],
+                "replaces": f"magnet_tpu/ops/pallas_kernels.py:{replaces}",
+                "launches": launches(key), "max_abs_err": found,
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": b["bound_ms"],
+                "bound_by": b["bound_by"], "library_ms": None, **other,
+                "shape": ("eval LR ∪ HR graph" if replaces == 278
+                          else "training LR ∪ HR graph"), "ok": True}
+
+    def worst_grad(f32):
+        """The largest max_abs_err of the bf16 (or f32) #3 against its plain
+        version over every gradient and graph."""
+        return max(float((v["f32_vs_plain"] if f32 else v)["max_abs_err"])
+                   for r in bwd.values() for v in r.values()
+                   if isinstance(v, dict) and "f32_vs_plain" in v)
+
+    kernels = [
+        row("fused_edge_tail_agg_pregathered_bf16_w128",
+            "fused_edge_tail_agg_bf16_w128.cu", 278,
+            "fused_edge_pregathered128_bf16_fwd",
+            max(float(r["max_abs_err"]) for r in fwd.values()), fw, "bf16"),
+        row("fused_edge_tail_agg_pregathered_bf16_w128_bwd",
+            "fused_edge_tail_agg_bf16_w128.cu", 376,
+            "fused_edge_pregathered128_bf16_bwd", worst_grad(False), bw,
+            "bf16"),
+        row("fused_edge_tail_agg_pregathered_w128", "fused_edge_tail_agg.cu",
+            278, "fused_edge_pregathered128_fwd",
+            max(float(r["f32_vs_plain"]["max_abs_err"]) for r in fwd.values()),
+            fw, "f32"),
+        row("fused_edge_tail_agg_pregathered_bwd_w128",
+            "fused_edge_tail_agg_bwd.cu", 376,
+            "fused_edge_pregathered128_bwd", worst_grad(True), bw, "f32")]
+    c6_counts = {k: sum(r["launches"][k] for r in c6.values())
+                 for k in c6["f32"]["launches"]}
+    return 0, kernels, {
+        "segment_sum": {"launches_gnn_pre": launches("segment_sum")
+                        + c6_counts["segment_sum"]},
+        "segment_sum_bf16": {"launches_gnn_pre": launches("segment_sum_bf16")
+                             + c6_counts["segment_sum_bf16"]},
+        "fused_edge_tail_agg_pregathered": {
+            "launches_gnn_pre_c6": c6_counts["fused_edge_pregathered_fwd"]},
+        "fused_edge_tail_agg_pregathered_bwd": {
+            "launches_gnn_pre_c6": c6_counts["fused_edge_pregathered_bwd"]},
+        "fused_edge_tail_agg_pregathered_bf16": {
+            "launches_gnn_pre_c6":
+                c6_counts["fused_edge_pregathered_bf16_fwd"]},
+        "fused_edge_tail_agg_pregathered_bf16_bwd": {
+            "launches_gnn_pre_c6":
+                c6_counts["fused_edge_pregathered_bf16_bwd"]}}
 
 
 def cnn_pe_phases(dev, data, groups) -> tuple[int, list, dict]:
@@ -3718,6 +4207,18 @@ def gnn_vs_plain(m, impl, want, batch, graphs) -> dict:
                    and rel <= TRAIN_LOSS_RTOL)}
 
 
+def bf16_step(cmp) -> bool:
+    """``gnn_vs_plain``'s record of a bf16 step, held as the cnn_bf16 group
+    holds its step: finite gradients and the loss within 1e-3 of the plain
+    path's (the kernels and the plain versions round at the same points,
+    their f32 sums in another order; the worst gradient's relative L2 is
+    reported)."""
+    cmp.pop("grad_rel_l2_tol")
+    cmp["loss_rtol"] = 1e-3
+    cmp["ok"] = cmp["grads_finite"] and cmp["loss_rel_err"] <= 1e-3
+    return cmp["ok"]
+
+
 def gnn_phases(dev, data, groups) -> tuple[int, list, dict]:
     """Phases ``gnn_kernel``, ``gnn_kernel_bwd``, ``gnn_slice`` and
     ``gnn_train``: the width-128 fold kernels (#8, #9), the pe kernels (#6,
@@ -4711,25 +5212,26 @@ def make_data(groups) -> dict:
         nt, res = DATAMODULE_GRAPH_2D["nt_train"], DATAMODULE_GRAPH_2D["res_train"]
         jobs = {}
         if {"cnn", "gnn", "no_interaction", "cnn_bf16", "gnn_bf16",
-                "cnn_pe"} & groups:
+                "cnn_pe", "gnn_pre"} & groups:
             jobs["ks"] = splits(ks_cfg)
-        if {"mpnn_paths", "cnn2d", "cnn2d_bf16", "cnn_pe"} & groups:
+        if {"mpnn_paths", "cnn2d", "cnn2d_bf16", "cnn_pe",
+                "gnn_pre"} & groups:
             jobs["b2d"] = {split: pool.submit(
                 make_split, "B2D", MPNN_2D_DATA[f"n_{split}"], nt, res, seed=i)
                 for i, split in enumerate(SPLITS)}
-        if {"cnn2d", "cnn2d_bf16", "cnn_pe"} & groups:
+        if {"cnn2d", "cnn2d_bf16", "cnn_pe", "gnn_pre"} & groups:
             jobs["b2d_extra"] = pool.submit(make_split, "B2D",
                                             CNN2D_EXTRA_TRAIN, nt, res, seed=3)
         if "mpnn_paths" in groups:
             jobs["ce"] = splits({**DATAMODULE_GRAPH, **MPNN_1D_DATA})
         chunks = B2D_TRAJ // DATA_CHUNK
         nt2, res2 = DATAMODULE_2D["nt_train"], DATAMODULE_2D["res_train"]
-        if {"gnn2d", "gnn_bf16"} & groups:
+        if {"gnn2d", "gnn_bf16", "gnn_pre"} & groups:
             # the datamodule's own seeded irregular source, a chunk a task
             jobs["gnn2d_train"] = [pool.submit(synthetic_split, {
                 **gnn2d_cfg, "n_train": DATA_CHUNK, "data_seed": 100 + i},
                 "train") for i in range(chunks)]
-        if {"gnn2d", "fno", "gnn_bf16"} & groups:
+        if {"gnn2d", "fno", "gnn_bf16", "gnn_pre"} & groups:
             jobs["b2d64_eval"] = [pool.submit(make_split, "B2D", DATA_CHUNK,
                                               nt2, res2, seed=100 + chunks + i)
                                   for i in range(chunks)]
@@ -4769,17 +5271,24 @@ def make_data(groups) -> dict:
                 {**DATAMODULE_GRAPH, **MPNN_1D_DATA, "source": "h5",
                  **arrays(jobs["ce"])}, seed=0)
             data["ce_seconds"] = time.perf_counter() - t0
-        if {"gnn", "gnn_bf16"} & groups:
+        if {"gnn", "gnn_bf16", "gnn_pre"} & groups:
             # the cnn group's KS and Heat trajectories
+            ks = arrays(jobs["ks"])
             data["gnn_loaders"] = build_loaders(
                 {**DATAMODULE_IMPLICIT_GNN, **SMOKE_DATA, "source": "h5",
-                 **arrays(jobs["ks"])}, seed=0)
+                 **ks}, seed=0)
+            data["gnn_pre_loaders"] = build_loaders(
+                {**DATAMODULE_IMPLICIT_GNN, **SMOKE_DATA, "source": "h5",
+                 **ks, **{f"{split}_path": {k: v[:GNN_PRE_TRAJ]
+                                            for k, v in ks[f"{split}_path"]
+                                            .items()}
+                          for split in ("train", "val")}}, seed=0)
             data["gnn_eval"] = synthetic_test_batches(
                 "magnet_gnn", GNN_EVAL_TRAJ, GNN_EVAL_TRAJ, seed=0)
             data["gnn_seconds"] = time.perf_counter() - t0
         if "b2d64_eval" in jobs:
             eval64 = joined(jobs["b2d64_eval"])
-        if {"gnn2d", "gnn_bf16"} & groups:
+        if {"gnn2d", "gnn_bf16", "gnn_pre"} & groups:
             regular = regular_32(eval64)
             data["gnn2d_loaders"] = build_loaders(
                 {**gnn2d_cfg, "source": "h5",
@@ -4858,7 +5367,8 @@ def main(argv) -> int:
                                 (("cnn_bf16",), cnn_bf16_phases),
                                 (("cnn2d_bf16",), cnn2d_bf16_phases),
                                 (("gnn_bf16",), gnn_bf16_phases),
-                                (("cnn_pe",), cnn_pe_phases)):
+                                (("cnn_pe",), cnn_pe_phases),
+                                (("gnn_pre",), gnn_pre_phases)):
         if set(group_names) & set(groups):
             rc, entries, more = phases(dev, data, groups)
             kernels += entries

@@ -1,6 +1,6 @@
-// Fused InteractionNetwork edge pipeline, bf16 operands, width 128, in two
-// entries: fold at (Ce, H, C) = (128, 128, 128) and pe at (H, C) = (128,
-// 128), forward and backward, L1 in 0..3.
+// Fused InteractionNetwork edge pipeline, bf16 operands, width 128, in
+// three entries: fold at (Ce, H, C) = (128, 128, 128), pe and pregathered
+// at (H, C) = (128, 128), forward and backward, L1 in 0..3.
 //
 // Replaces the TPU kernels of magnet_tpu/ops/pallas_kernels.py on bf16
 // operands at MAgNet[GNN]'s width (its graph_dtype=bf16; ln_s and ln_b stay
@@ -11,12 +11,25 @@
 //     pxi, W_k, b_k, W_out, b_out);
 //   * pe: _fused2_fwd_pallas (#6) and _fused2_bwd_pallas (#7), the public
 //     entry fused_edge_tail_agg2 (operands pe = s e0 . W_e + (1 - s) b_e
-//     formed by the caller in bf16, pxj, pxi, W_k, b_k, W_out, b_out).
+//     formed by the caller in bf16, pxj, pxi, W_k, b_k, W_out, b_out);
+//   * pregathered: _fused_fwd_pallas (#2) and _fused_bwd_pallas (#3), the
+//     public entry fused_edge_tail_agg and its VJP _fused_bwd (operands
+//     h0 = bf16(pxj[s] + pe) formed by the caller, pxi, W_k, b_k, W_out,
+//     b_out).  Its rounding points, read from the Pallas bodies, are the pe
+//     entry's without the pxj term: h_0 = bf16(relu(f32(h0) + f32(pxi[i])))
+//     (the body's relu(h0 + onehot . pxi), exact in f32), d_h0 = bf16(dz)
+//     (the body's f32 dh0, cast by _fused_bwd), d_pxi the f32 sums of
+//     bf16(dz) (the body's onehot . bf16(d_h)), cast once.  Where they
+//     differ from the pe entry: no f32 dz is written, since d_pxj is not
+//     this kernel's (the caller's sender gather sums bf16(d_h0) over the
+//     sender CSR, as the JAX gather_sender VJP sums its bf16 cotangent),
+//     and neither pxj nor the senders are read.
 // The arithmetic is the TPU kernels', rounding where they round:
 //
 //   forward, for every edge j -> i of a receiver-grouped CSR graph
 //     z    = f32(e0[e] . W_e) + b_e + pxj[j] + pxi[i]      (fold, f32)
 //     z    = (f32(pe[e]) + f32(pxj[j])) + f32(pxi[i])       (pe, f32)
+//     z    = f32(h0[e]) + f32(pxi[i])                       (pregathered)
 //     h_0  = bf16(relu(z));  h_k = bf16(relu(f32(h_{k-1} . W_k) + b_k))
 //     y    = f32(h_L1 . W_out) + b_out;  y = LayerNorm(y)  (f32, two-pass)
 //     out[i] = sum over the edges of i of bf16(y), in f32     (N, C) f32
@@ -31,14 +44,16 @@
 //     pe:   dz written unrounded (E, H) f32, for the caller's f32 segment
 //           sum over the sender CSR (d_pxj = bf16 of that sum, as the JAX
 //           VJP reduces the f32 dz outside its kernel), and d_pe = bf16(dz);
+//     pregathered: d_h0 = bf16(dz);
 //     d_pxi[i] += bf16(dz) (f32 sums);
 //     d_ln_s = sum bf16(g) xhat, d_ln_b = sum bf16(g);
 // every product on bf16 operands with f32 accumulation, every weight
 // gradient summed in f32; the caller casts each gradient to its operand's
 // dtype, as the JAX VJPs do.  The plain versions are
 // magnet_tpu_torch/ops/fused_edge.py:fused_edge_tail_agg_bf16_plain /
-// _bwd_plain (fold, at any width) and fused_edge_tail_agg_pe_bf16_plain /
-// _bwd_plain.
+// _bwd_plain (fold), fused_edge_tail_agg_pe_bf16_plain / _bwd_plain and
+// fused_edge_tail_agg_pregathered_bf16_plain / _bwd_plain, each at any
+// width.
 //
 // Why not the width-64 bf16 design (csrc/fused_edge_tail_agg_bf16.cu),
 // which keeps every weight resident twice: a padded bf16 128 x 128 weight
@@ -54,31 +69,33 @@
 //     W^T by plain ldmatrix (the transposing form works on 16-bit
 //     elements, so no second copy); the weight gradients read both their
 //     (edge, width) tiles down their columns by ldmatrix.trans;
-//   * forward (#8, #6): a persistent block of 256 threads walks consecutive
+//   * forward (#8, #6, #2): a persistent block of 256 threads walks consecutive
 //     tiles of 64 CSR edges (tile128::block_tiles, tile_indices), warp w
 //     forming rows 32 (w & 1) .. + 31 and columns 32 (w >> 1) .. + 31 of
 //     each (64 x 128) product.  Each weight (W_e, W_1 .. W_L1, W_out) is
 //     streamed through shared memory in chunks of 64 rows (17 KB) by a
 //     cp.async double buffer, the next chunk (across layers and tiles)
 //     loading while this one's product runs, one barrier a chunk; the next
-//     tile's e0 / pe rows are staged in pieces over the chunk steps once
-//     the staging tile is free.  The fold's first accumulators start at
-//     b_e + (pxj[s] + pxi[i]), read through L2; the pe entry forms h_0
-//     elementwise from the staged pe rows and 16-byte loads of the node
-//     rows.  y stays in an f32 tile for LayerNorm and the receiver sums,
+//     tile's e0 / pe / h0 rows are staged in pieces over the chunk steps
+//     once the staging tile is free.  The fold's first accumulators start
+//     at b_e + (pxj[s] + pxi[i]), read through L2; the pe and pregathered
+//     entries form h_0 elementwise from the staged rows and 16-byte loads
+//     of the node rows.  y stays in an f32 tile for LayerNorm and the receiver sums,
 //     which run over each run of equal receivers in CSR order (csr_tile):
 //     no atomics, out has the same bits run to run.  104,448 bytes of
 //     shared memory: two blocks an SM;
-//   * backward (#9, #7): (a) one pass per layer over every edge
+//   * backward (#9, #7, #3): (a) one pass per layer over every edge
 //     (edge_pass_kernel, 64-edge tiles on a persistent grid, its weight
 //     resident, the next tile's rows fetched by cp.async): the recompute
-//     h_0 .. h_L1 (the pe entry's h_0 by an elementwise kernel), y and
+//     h_0 .. h_L1 (the pe and pregathered entries' h_0 by an elementwise
+//     kernel), y and
 //     LayerNorm's backward to dy, then da_L1 .. da_1 and dz through each
 //     W^T masked by h > 0, and, fold, d_e0 = bf16(bf16(dz) . W_e^T).  The
 //     recompute runs the forward's products in the forward's order, so its
 //     h_k have the forward's bits.  Each h_k (bf16, exact) and each
 //     bf16(da_k) is written once to a scratch plane of (E, 128) bf16,
-//     2 L1 + 3 planes (fold) or 2 L1 + 2 (pe, whose d_pe is its bf16(dz));
+//     2 L1 + 3 planes (fold) or 2 L1 + 2 (pe and pregathered, whose d_pe /
+//     d_h0 is its bf16(dz));
 //     the bias gradients, which sum the unrounded da_k, are summed in the
 //     pass that forms da_k (and d_ln_s, d_ln_b in the LayerNorm pass), per
 //     block in registers and written once a block; (b) wgrad_kernel, the
@@ -93,8 +110,8 @@
 //     memory: a pass 73,216 bytes (the LayerNorm pass 108,032), wgrad
 //     69,632.
 // What bounds it on an H100: at L1 = 3 the fold forward does Ce H + L1 H^2
-// + H C = 81,920 multiply-adds an edge (pe 65,536), the backward three
-// times that; at MAgNet[GNN]'s eval graph (84,256 edges) 13.8 GFLOP, 0.014
+// + H C = 81,920 multiply-adds an edge (pe and pregathered 65,536), the
+// backward three times that; at MAgNet[GNN]'s eval graph (84,256 edges) 13.8 GFLOP, 0.014
 // ms at the dense bf16 rate of 989 TFLOP/s, against 21.6 MB of e0 (0.0064
 // ms at 3.35 TB/s): bound by operations.  The backward's scratch planes
 // (9 x 256 bytes an edge written and read back at L1 = 3, fold) are
@@ -121,6 +138,7 @@ using bf16 = __nv_bfloat16;
 using tile128::Entry;
 using tile128::kFold;
 using tile128::kPe;
+using tile128::kPregathered;
 using tile128::kW;
 using tf32x3::cp_async16;
 using tf32x3::cp_async_commit;
@@ -191,6 +209,20 @@ __device__ __forceinline__ uint32_t relu_sum3(uint32_t a, uint32_t b,
                                               uint32_t c) {
   const float2 x = unpack(a), y = unpack(b), z = unpack(c);
   return pack_rn(fmaxf((x.x + y.x) + z.x, 0.f), fmaxf((x.y + y.y) + z.y, 0.f));
+}
+// bf16(relu(f32(a) + f32(c))) of two pairs of bf16 values
+__device__ __forceinline__ uint32_t relu_sum2(uint32_t a, uint32_t c) {
+  const float2 x = unpack(a), z = unpack(c);
+  return pack_rn(fmaxf(x.x + z.x, 0.f), fmaxf(x.y + z.y, 0.f));
+}
+// h_0 of 8 columns from 16 bytes of src, pxj (GATHERS) and pxi each
+template <bool GATHERS>
+__device__ __forceinline__ uint4 first_layer8(uint4 a, uint4 j, uint4 i) {
+  if (GATHERS)
+    return make_uint4(relu_sum3(a.x, j.x, i.x), relu_sum3(a.y, j.y, i.y),
+                      relu_sum3(a.z, j.z, i.z), relu_sum3(a.w, j.w, i.w));
+  return make_uint4(relu_sum2(a.x, i.x), relu_sum2(a.y, i.y),
+                    relu_sum2(a.z, i.z), relu_sum2(a.w, i.w));
 }
 
 __device__ __forceinline__ int lane_g() { return (threadIdx.x & 31) >> 2; }
@@ -406,7 +438,8 @@ __device__ __forceinline__ void layer_norm_bf16(float* s_y,
   }
 }
 
-// E: kFold (src is e0; we and be are read) or kPe (src is pe).
+// E: kFold (src is e0; we and be are read), kPe (src is pe) or
+// kPregathered (src is h0; pxj and senders are not read).
 template <Entry E>
 __global__ void __launch_bounds__(kThreads, 2)
 edge_tail_kernel(const bf16* __restrict__ src, const bf16* __restrict__ we,
@@ -422,7 +455,7 @@ edge_tail_kernel(const bf16* __restrict__ src, const bf16* __restrict__ we,
                  const float* __restrict__ ln_b, float* __restrict__ out,
                  float* __restrict__ part, int n_nodes, int n_edges, int l1) {
   using L = Layout;
-  constexpr bool kFoldE = E == kFold;
+  constexpr bool kFoldE = E == kFold, kGathers = E != kPregathered;
   extern __shared__ __align__(16) unsigned char bf16w_fwd_smem[];
   unsigned char* sm = bf16w_fwd_smem;
   bf16* s_act = reinterpret_cast<bf16*>(sm + L::act);
@@ -472,14 +505,15 @@ edge_tail_kernel(const bf16* __restrict__ src, const bf16* __restrict__ we,
   };
   // the next tile's rows arrive in pieces over the steps whose staging tile
   // is free: from W_1's first chunk on (the fold's first product reads e0
-  // there), or from the first step (the pe entry forms h_0 from it before)
+  // there), or from the first step (the pe and pregathered entries form h_0
+  // from it before)
   const int stage_from = first * kChunks;
   const int per_step =
       (kPieces + n_steps - stage_from - 1) / (n_steps - stage_from);
 
   if (warp < 2)
-    tile128::tile_indices<kTE, true>(s_rcv, s_snd, senders, rowptr, n_nodes,
-                                     n_edges, t_beg, -1);
+    tile128::tile_indices<kTE, kGathers>(s_rcv, s_snd, senders, rowptr,
+                                         n_nodes, n_edges, t_beg, -1);
   stage(t_beg, 0, kPieces);
   load_chunk(0);
   cp_async_commit();
@@ -499,18 +533,20 @@ edge_tail_kernel(const bf16* __restrict__ src, const bf16* __restrict__ we,
     } else {
       cp_async_wait<0>();
       __syncthreads();  // the rows are in; the last tile's sums are done
-      // h_0 = bf16(relu((pe + pxj[s]) + pxi[i])), zero past n_valid
+      // h_0 = bf16(relu((pe + pxj[s]) + pxi[i])) (pe), bf16(relu(h0 +
+      // pxi[i])) (pregathered), zero past n_valid
       for (int p = tid; p < kPieces; p += kThreads) {
         const int r = p >> 4, c = (p & 15) * 8;
         uint4 v = make_uint4(0u, 0u, 0u, 0u);
         if (r < n_valid) {
           const uint4 a = *reinterpret_cast<const uint4*>(s_src + r * kLd + c);
-          const uint4 j = __ldg(reinterpret_cast<const uint4*>(
-              pxj + (size_t)snd[r] * kW + c));
+          const uint4 j =
+              kGathers ? __ldg(reinterpret_cast<const uint4*>(
+                             pxj + (size_t)snd[r] * kW + c))
+                       : a;
           const uint4 i = __ldg(reinterpret_cast<const uint4*>(
               pxi + (size_t)rcv[r] * kW + c));
-          v = make_uint4(relu_sum3(a.x, j.x, i.x), relu_sum3(a.y, j.y, i.y),
-                         relu_sum3(a.z, j.z, i.z), relu_sum3(a.w, j.w, i.w));
+          v = first_layer8<kGathers>(a, j, i);
         }
         *reinterpret_cast<uint4*>(s_act + r * kLd + c) = v;
       }
@@ -524,7 +560,7 @@ edge_tail_kernel(const bf16* __restrict__ src, const bf16* __restrict__ we,
       // with the last tile's sums, and has written the last layer
       __syncthreads();
       if (s == 0 && more && warp < 2)
-        tile128::tile_indices<kTE, true>(
+        tile128::tile_indices<kTE, kGathers>(
             s_rcv + nxt * kTE, s_snd + nxt * kTE, senders, rowptr, n_nodes,
             n_edges, tile + 1, rcv[n_valid - 1]);
       if (s + 1 < n_steps)
@@ -866,10 +902,12 @@ __global__ void __launch_bounds__(kThreads, 2) edge_pass_kernel(PassArgs a) {
   }
 }
 
-// h_0 = bf16(relu((pe[e] + pxj[s]) + pxi[r])): the pe entry's first layer,
+// h_0 = bf16(relu((pe[e] + pxj[s]) + pxi[r])), the pe entry's first
+// layer (GATHERS), or bf16(relu(h0[e] + pxi[r])), the pregathered entry's:
 // one warp per edge, four columns a lane.
+template <bool GATHERS>
 __global__ void __launch_bounds__(kThreads) first_input_kernel(
-    const bf16* __restrict__ pe, const bf16* __restrict__ pxj,
+    const bf16* __restrict__ src, const bf16* __restrict__ pxj,
     const bf16* __restrict__ pxi, const int* __restrict__ senders,
     const int* __restrict__ rowptr, bf16* __restrict__ h0, int n_nodes,
     int n_edges) {
@@ -877,13 +915,19 @@ __global__ void __launch_bounds__(kThreads) first_input_kernel(
   for (int e = (blockIdx.x * kThreads + threadIdx.x) >> 5; e < n_edges;
        e += (gridDim.x * kThreads) >> 5) {
     const int r = tile128::receiver_of(rowptr, n_nodes, e);
-    const uint2 a = __ldg(reinterpret_cast<const uint2*>(pe + (size_t)e * kW) + lane);
-    const uint2 j = __ldg(
-        reinterpret_cast<const uint2*>(pxj + (size_t)senders[e] * kW) + lane);
+    const uint2 a =
+        __ldg(reinterpret_cast<const uint2*>(src + (size_t)e * kW) + lane);
     const uint2 i =
         __ldg(reinterpret_cast<const uint2*>(pxi + (size_t)r * kW) + lane);
-    reinterpret_cast<uint2*>(h0 + (size_t)e * kW)[lane] =
-        make_uint2(relu_sum3(a.x, j.x, i.x), relu_sum3(a.y, j.y, i.y));
+    uint2 v;
+    if (GATHERS) {
+      const uint2 j = __ldg(
+          reinterpret_cast<const uint2*>(pxj + (size_t)senders[e] * kW) + lane);
+      v = make_uint2(relu_sum3(a.x, j.x, i.x), relu_sum3(a.y, j.y, i.y));
+    } else {
+      v = make_uint2(relu_sum2(a.x, i.x), relu_sum2(a.y, i.y));
+    }
+    reinterpret_cast<uint2*>(h0 + (size_t)e * kW)[lane] = v;
   }
 }
 
@@ -1115,7 +1159,7 @@ int launch(const bf16* src, const bf16* we, const bf16* be, const bf16* pxj,
       if ((err = run_pass<kFirst>(a, blocks, stream)) != cudaSuccess)
         return (int)err;
     } else {
-      first_input_kernel<<<4 * n_sm, kThreads, 0, stream>>>(
+      first_input_kernel<E == kPe><<<4 * n_sm, kThreads, 0, stream>>>(
           src, pxj, pxi, senders, rowptr, act[0], n_nodes, n_edges);
       if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     }
@@ -1136,7 +1180,8 @@ int launch(const bf16* src, const bf16* we, const bf16* be, const bf16* pxj,
     a.sums = bias_part + bias_at(l1 + 1);
     if ((err = run_pass<kOutput>(a, blocks, stream)) != cudaSuccess)
       return (int)err;
-    // da_L1 .. da_0 = dz, each with its bias gradient (none for the pe's dz)
+    // da_L1 .. da_0 = dz, each with its bias gradient (none for the pe's
+    // or the pregathered entry's dz)
     for (int k = l1 + 1; k >= 1; --k) {
       a.x = grad[k];
       a.w = w_of[k];
@@ -1207,7 +1252,8 @@ extern "C" {
 // The forward.  Returns a cudaError_t; 0 is success.  Launches on `stream`
 // and does not synchronise.  entry (a tile128::Entry): kFold, src is e0
 // (n_edges, 128) and we, be are read; kPe, src is pe (n_edges, 128) and we,
-// be are ignored.  src, pxj and pxi (n_nodes, 128) are 16-byte aligned
+// be are ignored; kPregathered, src is h0 (n_edges, 128) and we, be, pxj,
+// senders are ignored.  src, pxj and pxi (n_nodes, 128) are 16-byte aligned
 // bf16; we, be, w_rest, b_rest, w_out, b_out bf16; ln_s, ln_b f32; out
 // (n_nodes, 128) f32 must arrive zeroed; part is f32 scratch of 2 *
 // ceil(n_edges / 64) rows of 128.  Built for l1 in 0..3; others return
@@ -1219,9 +1265,14 @@ int fused_edge_tail_agg_bf16_w128_fwd(
     const bf16* b_out, const float* ln_s, const float* ln_b, float* out,
     float* part, int n_nodes, int n_edges, int l1, int entry, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (l1 < 0 || l1 > kMaxL1 || part == nullptr || pxj == nullptr ||
-      senders == nullptr)
+  if (l1 < 0 || l1 > kMaxL1 || part == nullptr)
     return (int)cudaErrorInvalidValue;
+  if (entry == kPregathered)
+    return fwd::launch<kPregathered>(src, nullptr, nullptr, nullptr, pxi,
+                                     nullptr, rowptr, w_rest, b_rest, w_out,
+                                     b_out, ln_s, ln_b, out, part, n_nodes,
+                                     n_edges, l1, s);
+  if (pxj == nullptr || senders == nullptr) return (int)cudaErrorInvalidValue;
   if (entry == kFold && we != nullptr && be != nullptr)
     return fwd::launch<kFold>(src, we, be, pxj, pxi, senders, rowptr, w_rest,
                               b_rest, w_out, b_out, ln_s, ln_b, out, part,
@@ -1234,14 +1285,15 @@ int fused_edge_tail_agg_bf16_w128_fwd(
 }
 
 // The backward, its operands as the forward's, and g (n_nodes, 128) f32.
-// Writes d_src (n_edges, 128) bf16 (fold: d_e0; pe: d_pe = bf16(dz)) and,
-// pe, dz32 (n_edges, 128) f32, dz unrounded; adds into d_pxi and, fold,
-// d_pxj (n_nodes, 128) f32, which must arrive zeroed; wgrad (f32) holds,
+// Writes d_src (n_edges, 128) bf16 (fold: d_e0; pe: d_pe = bf16(dz);
+// pregathered: d_h0 = bf16(dz)) and, pe, dz32 (n_edges, 128) f32, dz
+// unrounded (pregathered ignores dz32 and d_pxj); adds into d_pxi and,
+// fold, d_pxj (n_nodes, 128) f32, which must arrive zeroed; wgrad (f32) holds,
 // packed, dW_e (fold), dW_rest (l1, 128, 128), dW_out, then db_e (fold),
 // db_rest (l1, 128), db_out, d_ln_s, d_ln_b.  partial is f32 scratch of
 // n_sm rows of the weights' floats, then 2 n_sm rows of the biases'
-// floats; scratch is bf16 of (2 l1 + 3) (fold) or (2 l1 + 2) (pe) planes of
-// n_edges x 128.  n_sm is the card's SM count.  Built for l1 in 0..3.
+// floats; scratch is bf16 of (2 l1 + 3) (fold) or (2 l1 + 2) (pe,
+// pregathered) planes of n_edges x 128.  n_sm is the card's SM count.  Built for l1 in 0..3.
 int fused_edge_tail_agg_bf16_w128_bwd(
     const bf16* src, const bf16* we, const bf16* be, const bf16* pxj,
     const bf16* pxi, const int* senders, const int* rowptr,
@@ -1251,9 +1303,16 @@ int fused_edge_tail_agg_bf16_w128_bwd(
     bf16* scratch, int n_nodes, int n_edges, int l1, int entry, int n_sm,
     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (l1 < 0 || l1 > kMaxL1 || n_sm < 1 || pxj == nullptr ||
-      senders == nullptr || scratch == nullptr || partial == nullptr)
+  if (l1 < 0 || l1 > kMaxL1 || n_sm < 1 || scratch == nullptr ||
+      partial == nullptr)
     return (int)cudaErrorInvalidValue;
+  if (entry == kPregathered)
+    return bwd::launch<kPregathered>(src, nullptr, nullptr, nullptr, pxi,
+                                     nullptr, rowptr, w_rest, b_rest, w_out,
+                                     b_out, ln_s, g, d_src, nullptr, nullptr,
+                                     d_pxi, wgrad, partial, scratch, n_nodes,
+                                     n_edges, l1, n_sm, s);
+  if (pxj == nullptr || senders == nullptr) return (int)cudaErrorInvalidValue;
   if (entry == kFold && we != nullptr && be != nullptr && d_pxj != nullptr)
     return bwd::launch<kFold>(src, we, be, pxj, pxi, senders, rowptr, w_rest,
                               b_rest, w_out, b_out, ln_s, g, d_src, dz32,

@@ -18,17 +18,20 @@ h0 = p_xj[senders] + e0·W_e + b_e per edge first (the gather's backward is
 the segment-sum kernel over the sender CSR) and runs the kernel on h0.
 The lane decides which kernel runs, never what is computed.
 
-``impl="kernel_pe"`` forces a third lane, which the lane rule never picks
-by itself: pe = e0·W_e + b_e is formed per edge and the ``pe`` entry
-gathers the sender rows in its kernel (#6; backward #7, with d_p_xj by the
-segment-sum kernel #1), at both widths: (H, C) = (64, 32) for MAgNet[CNN]
-1D and 2D, (128, 128) for MAgNet[GNN].  It is the lane the JAX GraphNet
-takes on the same graphs under ``MAGNET_TPU_NO_FUSED2R``
-(``fused_edge_tail_agg2``, wherever its ``_fused2_mode`` finds the
-sender-tile layout: MAgNet[CNN] 1D's graphs and 2D's eval graph), and it
-also computes what the JAX package's no-fold ragged lanes
-(``fused_edge_tail_agg2r`` / ``2h``) compute; the port sends those lanes
-to ``fold``.
+``impl="kernel_pe"`` is the JAX GraphNet's lane under
+``MAGNET_TPU_NO_FUSED2R`` (``ops.graph.graphnet_pe_lane``): a third lane,
+``pe``, where its ``_fused2_mode`` is not None (the graph has the
+sender-tile and the sender-transpose layouts: MAgNet[CNN] 1D's graphs, 2D's
+eval graph, every MAgNet[GNN] graph), and ``pregathered`` where it is None
+(MAgNet[CNN] 2D's training graph).  On ``pe``, pe = e0·W_e + b_e is formed
+per edge and the ``pe`` entry gathers the sender rows in its kernel (#6;
+backward #7, with d_p_xj by the segment-sum kernel #1), at both widths:
+(H, C) = (64, 32) for MAgNet[CNN] 1D and 2D, (128, 128) for MAgNet[GNN].
+It is ``fused_edge_tail_agg2``, and it also computes what the JAX
+package's no-fold ragged lanes (``fused_edge_tail_agg2r`` / ``2h``)
+compute; the port sends those lanes to ``fold``.  ``impl=
+"kernel_pregathered"`` (the JAX lane under ``MAGNET_TPU_NO_FUSED2``) runs
+``pregathered`` on every graph, at (64, 32) and (128, 128) in f32 and bf16.
 
 Every module takes a compute ``dtype`` (None: f32), the JAX models'
 ``graph_dtype``.  In bf16 (``magnet_tpu/nn/graphnet.py``, the flax modules'
@@ -70,10 +73,22 @@ from magnet_tpu_torch.ops.fused_edge import (
 from magnet_tpu_torch.ops.graph import CSRGraph, lane_of
 from magnet_tpu_torch.ops.segment import gather_rows
 
-#: ``kernel``: the graph's lane; ``kernel_fold`` / ``kernel_pregathered`` /
-#: ``kernel_pe``: that lane whatever the graph; ``plain``: the plain
-#: PyTorch version (in bf16, of the graph's lane).
+#: ``kernel``: the graph's lane; ``kernel_fold`` / ``kernel_pregathered``:
+#: that lane whatever the graph; ``kernel_pe``: the pe lane rule's;
+#: ``plain``: the plain PyTorch version (in bf16, of the graph's lane).
 IMPLS = ("kernel", "kernel_fold", "kernel_pregathered", "plain", "kernel_pe")
+
+
+def step_lane(graph: CSRGraph, impl: str, hidden: int) -> str:
+    """The lane a step of width ``hidden`` takes on ``graph`` under
+    ``impl``: the graph's (``kernel``, ``plain``), the pe lane rule's
+    (``kernel_pe``: ``pe`` or ``pregathered``, as the JAX step decides
+    under ``MAGNET_TPU_NO_FUSED2R``), or the one named."""
+    if impl in ("kernel", "plain"):
+        return lane_of(graph, "graphnet", hidden)
+    if impl == "kernel_pe":
+        return lane_of(graph, "graphnet_pe", hidden)
+    return impl.removeprefix("kernel_")
 
 
 class GraphEncoder(nn.Module):
@@ -177,9 +192,7 @@ class InteractionNetwork(nn.Module):
         f32, so that autograd's ``index_add_`` sums its backward in f32 and
         rounds once, as the segment sum does)."""
         w0 = self.edge_fn[0].linears[0].weight                   # (H, 3C)
-        lane = (lane_of(graph, "graphnet", w0.shape[0])
-                if impl in ("kernel", "plain")
-                else impl.removeprefix("kernel_"))
+        lane = step_lane(graph, impl, w0.shape[0])
         plain = impl == "plain"
         c = self.latent
         p_xi = x @ w0[:, :c].t().to(self.dtype)                  # (N, H)
@@ -217,15 +230,16 @@ class InteractionNetwork(nn.Module):
         p_xi = x @ w0[:, :c].t()                                 # (N, H)
         p_xj = x @ w0[:, c:2 * c].t()                            # (N, H)
         we, be, *tail = self.edge_weights(e_scale)
-        if impl == "plain":
+        lane = "plain" if impl == "plain" else step_lane(graph, impl,
+                                                         w0.shape[0])
+        if lane == "plain":
             agg_sum = fused_edge_tail_agg_plain(
                 e0, we, be, p_xj, p_xi, graph.senders, graph.rowptr, *tail)
-        elif impl == "kernel_pe":
+        elif lane == "pe":
             agg_sum = fused_edge_tail_agg_pe(
                 e0 @ we + be, p_xj, p_xi, graph.senders, graph.rowptr,
                 graph.snd_ptr, graph.snd_perm, *tail)
-        elif (lane_of(graph, "graphnet", w0.shape[0]) if impl == "kernel"
-              else impl.removeprefix("kernel_")) == "fold":
+        elif lane == "fold":
             agg_sum = fused_edge_tail_agg(e0, we, be, p_xj, p_xi,
                                           graph.senders, graph.rowptr, *tail)
         else:

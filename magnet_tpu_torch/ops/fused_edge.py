@@ -59,10 +59,11 @@ y = LN(h·W_out + b_out); the result is out[i] = Σ y over the edges of i,
   pre-activation z = f32(h0) + f32(p_xi[i]); backward, d_h0 is the
   unrounded d_h rounded once to bf16 and d_pxi the f32 sum of bf16(d_h)
   rounded once.  ``fused_edge_tail_agg_pregathered_bf16_plain`` and
-  ``_bwd_plain`` are its plain versions; the kernels are the pregathered
-  entry of ``csrc/fused_edge_tail_agg_bf16.cu``
-  (``FusedEdgeTailAggPregatheredBf16``), compiled for (H, C) = (64, 32)
-  only.
+  ``_bwd_plain`` are its plain versions (width-agnostic); the kernels
+  (``FusedEdgeTailAggPregatheredBf16``) are the pregathered entry of
+  ``csrc/fused_edge_tail_agg_bf16.cu`` at (H, C) = (64, 32) (MAgNet[CNN]
+  2D's training graph) and of ``csrc/fused_edge_tail_agg_bf16_w128.cu`` at
+  (128, 128) (MAgNet[GNN] on ``impl="kernel_pregathered"``).
 * ``fused_edge_tail_agg_pe_bf16`` is the pe entry in the bf16 lane, the JAX
   package's ``fused_edge_tail_agg2`` on bf16 operands (``_fused2_fwd_pallas``,
   ``pallas_kernels.py:929``; ``_fused2_bwd_pallas``, 1046, and its VJP
@@ -93,7 +94,7 @@ Compiled builds (``KERNEL_WIDTHS``), keyed by what each entry reads: fold
 (Ce, H, C) = (32, 64, 32) (MAgNet[CNN]) and (128, 128, 128) (MAgNet[GNN]);
 pregathered (H, C) = (64, 32) and (128, 128); pe (H, C) = (64, 32) and
 (128, 128); in bf16 fold (32, 64, 32) and (128, 128, 128), pregathered (64,
-32), pe (64, 32) and (128, 128).  Every forward build walks tiles of
+32) and (128, 128), pe (64, 32) and (128, 128).  Every forward build walks tiles of
 ``FWD_TILE`` consecutive CSR edges with its products on the tensor cores
 (in 3xTF32, or bf16) and leaves partial rows
 (``ops.graph.part_rows``) for the receivers that cross a tile; the width-64
@@ -121,7 +122,7 @@ KERNEL_WIDTHS = {"fold": {(32, 64, 32), (128, 128, 128)},
                  "pregathered": {(64, 32), (128, 128)},
                  "pe": {(64, 32), (128, 128)},
                  "fold_bf16": {(32, 64, 32), (128, 128, 128)},
-                 "pregathered_bf16": {(64, 32)},
+                 "pregathered_bf16": {(64, 32), (128, 128)},
                  "pe_bf16": {(64, 32), (128, 128)}}
 #: the C entry's ``entry`` argument
 ENTRY = {"pregathered": 0, "fold": 1, "pe": 2}
@@ -146,8 +147,8 @@ GRAD_F32_BF16 = ("ln_s", "ln_b")
 
 FWD, BWD = "fused_edge_tail_agg", "fused_edge_tail_agg_bwd"
 #: the bf16 lane's libraries and their C functions: at width 64 fold,
-#: pregathered and pe; at width 128 fold and pe (one function each way, by
-#: entry)
+#: pregathered and pe; at width 128 fold, pregathered and pe (one function
+#: each way, by entry)
 BF16 = "fused_edge_tail_agg_bf16"
 BF16_FWD, BF16_BWD = f"{BF16}_fwd", f"{BF16}_bwd"
 BF16_PRE_FWD, BF16_PRE_BWD = f"{BF16}_pregathered_fwd", f"{BF16}_pregathered_bwd"
@@ -177,11 +178,13 @@ _ARGTYPES = {
 
 #: Launches of each kernel so far (one per launch, nowhere else): the fold
 #: entry at width 64 (``launches``) and 128 (``launches_fold128``), the
-#: pregathered entry at either width, the pe entry at width 128
+#: pregathered entry at width 64 (``launches_pregathered``) and 128
+#: (``launches_pregathered128``), the pe entry at width 128
 #: (``launches_pe``) and 64 (``launches_pe64``), and the bf16 builds of the
 #: fold entry at width 64 (``launches_bf16``) and 128
-#: (``launches_fold128_bf16``), of the pregathered entry
-#: (``launches_pregathered_bf16``) and of the pe entry at width 128
+#: (``launches_fold128_bf16``), of the pregathered entry at width 64
+#: (``launches_pregathered_bf16``) and 128
+#: (``launches_pregathered128_bf16``) and of the pe entry at width 128
 #: (``launches_pe_bf16``) and 64 (``launches_pe64_bf16``); ``*_bwd`` the
 #: backward's.
 launches = 0
@@ -190,12 +193,16 @@ launches_fold128 = 0
 launches_fold128_bwd = 0
 launches_pregathered = 0
 launches_pregathered_bwd = 0
+launches_pregathered128 = 0
+launches_pregathered128_bwd = 0
 launches_pe = 0
 launches_pe_bwd = 0
 launches_bf16 = 0
 launches_bf16_bwd = 0
 launches_pregathered_bf16 = 0
 launches_pregathered_bf16_bwd = 0
+launches_pregathered128_bf16 = 0
+launches_pregathered128_bf16_bwd = 0
 launches_fold128_bf16 = 0
 launches_fold128_bf16_bwd = 0
 launches_pe_bf16 = 0
@@ -210,6 +217,8 @@ _COUNTERS = {"launches": "fused_edge_fwd", "launches_bwd": "fused_edge_bwd",
              "launches_fold128_bwd": "fused_edge_fold128_bwd",
              "launches_pregathered": "fused_edge_pregathered_fwd",
              "launches_pregathered_bwd": "fused_edge_pregathered_bwd",
+             "launches_pregathered128": "fused_edge_pregathered128_fwd",
+             "launches_pregathered128_bwd": "fused_edge_pregathered128_bwd",
              "launches_pe": "fused_edge_pe_fwd",
              "launches_pe_bwd": "fused_edge_pe_bwd",
              "launches_bf16": "fused_edge_bf16_fwd",
@@ -217,6 +226,10 @@ _COUNTERS = {"launches": "fused_edge_fwd", "launches_bwd": "fused_edge_bwd",
              "launches_pregathered_bf16": "fused_edge_pregathered_bf16_fwd",
              "launches_pregathered_bf16_bwd":
                  "fused_edge_pregathered_bf16_bwd",
+             "launches_pregathered128_bf16":
+                 "fused_edge_pregathered128_bf16_fwd",
+             "launches_pregathered128_bf16_bwd":
+                 "fused_edge_pregathered128_bf16_bwd",
              "launches_fold128_bf16": "fused_edge_fold128_bf16_fwd",
              "launches_fold128_bf16_bwd": "fused_edge_fold128_bf16_bwd",
              "launches_pe_bf16": "fused_edge_pe_bf16_fwd",
@@ -241,6 +254,8 @@ def _count(entry: str, widths: tuple, bwd: bool) -> None:
     name = ("launches_fold128" if entry == "fold" and widths[1] == 128
             else "launches" if entry == "fold"
             else "launches_pe64" if entry == "pe" and widths[0] == 64
+            else "launches_pregathered128"
+            if entry == "pregathered" and widths[0] == 128
             else f"launches_{entry}")
     globals()[name + ("_bwd" if bwd else "")] += 1
 
@@ -1050,11 +1065,15 @@ def fused_edge_tail_agg_bf16_bwd(e0, we, be, pxj, pxi, senders, rowptr,
 # ---- the pregathered entry's bf16 lane ----------------------------------
 
 def _launch_pregathered_bf16_fwd(h0, pxi, rowptr, *tail):
-    """The bf16 pregathered forward kernel; (N, C) f32."""
+    """The bf16 pregathered forward kernel (width 64, or width 128's);
+    (N, C) f32."""
     E, widths, l1, n = _check_pregathered_bf16(h0, pxi, rowptr, *tail)
     _check_build_bf16("pregathered", widths, l1)
     _check_device(h0)
     _check_aligned(h0=h0, pxi=pxi)
+    if widths == (128, 128):
+        return _launch_bf16_w128_fwd("pregathered", h0, None, None, None, pxi,
+                                     None, rowptr, *tail)
     h, c = widths
     dev = h0.device
     out = torch.zeros(n, c, dtype=torch.float32, device=dev)
@@ -1073,8 +1092,9 @@ def _launch_pregathered_bf16_fwd(h0, pxi, rowptr, *tail):
 
 
 def _launch_pregathered_bf16_bwd(h0, pxi, rowptr, *tail_and_g):
-    """The bf16 pregathered backward kernel: the gradients in
-    ``GRAD_NAMES_PREGATHERED`` order, each in its operand's dtype."""
+    """The bf16 pregathered backward kernel (width 64, or width 128's
+    launch sequence): the gradients in ``GRAD_NAMES_PREGATHERED`` order,
+    each in its operand's dtype."""
     *tail, g = tail_and_g
     E, widths, l1, n = _check_pregathered_bf16(h0, pxi, rowptr, *tail)
     _check_build_bf16("pregathered", widths, l1)
@@ -1082,6 +1102,9 @@ def _launch_pregathered_bf16_bwd(h0, pxi, rowptr, *tail_and_g):
     _check_aligned(h0=h0, pxi=pxi)
     h, c = widths
     _check_g(g, h0.device, n, c)
+    if h == 128:
+        return _launch_bf16_w128_bwd("pregathered", h0, None, None, None, pxi,
+                                     None, rowptr, *tail, g)
     dev = h0.device
     sizes = [l1 * h * h, l1 * h, h * c, c, c, c]
     n_blocks = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -1138,8 +1161,8 @@ def fused_edge_tail_agg_pregathered_bf16(h0, pxi, rowptr, w_rest, b_rest,
     """``fused_edge_tail_agg_pregathered`` in the bf16 lane: the same
     operands, all bf16 but ln_s and ln_b (f32); (N, C) f32, differentiable
     in every float operand with its gradient in that operand's dtype.  CUDA
-    tensors launch the bf16 kernels (or raise: only (H, C) = (64, 32) is
-    built); CPU tensors, or ``plain``, take the plain versions."""
+    tensors launch the bf16 kernels (or raise: (H, C) = (64, 32) and (128,
+    128) are built); CPU tensors, or ``plain``, take the plain versions."""
     operands = (h0, pxi, rowptr, w_rest, b_rest, w_out, b_out, ln_s, ln_b)
     _check_pregathered_bf16(*operands)
     return FusedEdgeTailAggPregatheredBf16.apply(
@@ -1160,7 +1183,7 @@ def fused_edge_tail_agg_pregathered_bf16_bwd(h0, pxi, rowptr, w_rest, b_rest,
     return _launch_pregathered_bf16_bwd(*operands, g.contiguous())
 
 
-# ---- the bf16 lane at width 128: the fold and pe entries ------------------
+# ---- the bf16 lane at width 128: the fold, pe and pregathered entries -----
 
 def _bf16_pe_chain(pe, pxj, pxi, senders, rowptr, w_rest, b_rest, w_out,
                    b_out):
@@ -1204,11 +1227,17 @@ def fused_edge_tail_agg_pe_bf16_bwd_plain(pe, pxj, pxi, senders, rowptr,
     return tuple(d.to(t.dtype) for d, t in zip((dz, *nodes, *tail), operands))
 
 
+#: the counter of each entry's width-128 bf16 build
+_W128_COUNTER = {"fold": "launches_fold128_bf16", "pe": "launches_pe_bf16",
+                 "pregathered": "launches_pregathered128_bf16"}
+
+
 def _launch_bf16_w128_fwd(entry, src, we, be, pxj, pxi, senders, rowptr,
                           *tail):
     """The width-128 bf16 forward of ``entry`` (``fold``: src is e0;
-    ``pe``: pe, and ``we``, ``be`` are None), its operands checked by the
-    caller; (N, 128) f32."""
+    ``pe``: pe, and ``we``, ``be`` are None; ``pregathered``: h0, and
+    ``we``, ``be``, ``pxj``, ``senders`` are None), its operands checked by
+    the caller; (N, 128) f32."""
     E, n, l1 = src.shape[0], rowptr.numel() - 1, tail[0].shape[0]
     dev = src.device
     out = torch.zeros(n, 128, dtype=torch.float32, device=dev)
@@ -1218,14 +1247,13 @@ def _launch_bf16_w128_fwd(entry, src, we, be, pxj, pxi, senders, rowptr,
                              symbol=BF16_W128_FWD)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(src.data_ptr(), _ptr(we), _ptr(be),
-                 *(t.data_ptr() for t in (pxj, pxi, senders, rowptr, *tail,
-                                          out, part)),
+        err = fn(src.data_ptr(), _ptr(we), _ptr(be), _ptr(pxj),
+                 pxi.data_ptr(), _ptr(senders),
+                 *(t.data_ptr() for t in (rowptr, *tail, out, part)),
                  n, E, l1, ENTRY[entry], stream)
     if err != 0:
         raise RuntimeError(f"{BF16_W128_FWD} launch failed: cudaError {err}")
-    globals()["launches_fold128_bf16" if entry == "fold"
-              else "launches_pe_bf16"] += 1
+    globals()[_W128_COUNTER[entry]] += 1
     return out
 
 
@@ -1236,7 +1264,8 @@ def _launch_bf16_w128_bwd(entry, src, we, be, pxj, pxi, senders, rowptr,
     fold: the gradients in ``GRAD_NAMES`` order, each in its operand's
     dtype; pe: (d_pe, dz, d_pxi, d_w_rest, d_b_rest, d_w_out, d_b_out,
     d_ln_s, d_ln_b), dz the unrounded f32 (E, 128) from which the caller
-    sums d_pxj."""
+    sums d_pxj; pregathered: the gradients in ``GRAD_NAMES_PREGATHERED``
+    order, each in its operand's dtype."""
     *tail, g = tail_and_g
     fold, h = entry == "fold", 128
     E, n, l1 = src.shape[0], rowptr.numel() - 1, tail[0].shape[0]
@@ -1245,7 +1274,8 @@ def _launch_bf16_w128_bwd(entry, src, we, be, pxj, pxi, senders, rowptr,
     n_w = int(fold) + l1 + 1  # the weights with a gradient, then their biases
     weights, biases = n_w * h * h, (n_w + 2) * h
     d_src = torch.empty_like(src)
-    dz = None if fold else torch.empty(E, h, dtype=torch.float32, device=dev)
+    dz = (torch.empty(E, h, dtype=torch.float32, device=dev)
+          if entry == "pe" else None)
     # the kernels add into these with atomics (one fill for both)
     d_nodes = torch.zeros(2 if fold else 1, n, h, dtype=torch.float32,
                           device=dev)
@@ -1262,17 +1292,16 @@ def _launch_bf16_w128_bwd(entry, src, we, be, pxj, pxi, senders, rowptr,
     w_rest, b_rest, w_out, b_out, ln_s, _ = tail
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(src.data_ptr(), _ptr(we), _ptr(be),
-                 *(t.data_ptr() for t in (pxj, pxi, senders, rowptr, w_rest,
-                                          b_rest, w_out, b_out, ln_s, g,
-                                          d_src)),
+        err = fn(src.data_ptr(), _ptr(we), _ptr(be), _ptr(pxj),
+                 pxi.data_ptr(), _ptr(senders),
+                 *(t.data_ptr() for t in (rowptr, w_rest, b_rest, w_out,
+                                          b_out, ln_s, g, d_src)),
                  _ptr(dz), d_nodes[0].data_ptr() if fold else None,
                  d_nodes[-1].data_ptr(), wgrad.data_ptr(), partial.data_ptr(),
                  scratch.data_ptr(), n, E, l1, ENTRY[entry], n_sm, stream)
     if err != 0:
         raise RuntimeError(f"{BF16_W128_BWD} launch failed: cudaError {err}")
-    globals()["launches_fold128_bf16_bwd" if fold
-              else "launches_pe_bf16_bwd"] += 1
+    globals()[_W128_COUNTER[entry] + "_bwd"] += 1
     bf = torch.bfloat16
     d_w = wgrad[:weights].view(n_w, h, h)
     d_b = wgrad[weights:].view(n_w + 2, h)
@@ -1282,6 +1311,8 @@ def _launch_bf16_w128_bwd(entry, src, we, be, pxj, pxi, senders, rowptr,
     if fold:
         return (d_src, d_w[0].to(bf), d_b[0].to(bf), d_nodes[0].to(bf),
                 d_nodes[1].to(bf), *tail_grads)
+    if entry == "pregathered":
+        return (d_src, d_nodes[0].to(bf), *tail_grads)
     return (d_src, dz, d_nodes[0].to(bf), *tail_grads)
 
 

@@ -188,6 +188,16 @@ def graphnet_lane(layout: TileLayout, hidden: int) -> str:
     return "pregathered"
 
 
+def graphnet_pe_lane(layout: TileLayout, hidden: int) -> str:
+    """The lane of ``impl="kernel_pe"``, the JAX GraphNet's under
+    ``MAGNET_TPU_NO_FUSED2R``: ``pe`` where its ``_fused2_mode`` is not
+    None, else ``pregathered``.  Under that flag the mode is None without
+    the sender-tile layout and without the sender-transpose layout, and
+    'vmem' or 'hbm' (its chunk list exists) where both exist, whatever the
+    width."""
+    return "pe" if layout.snd2 and layout.snd_transpose else "pregathered"
+
+
 def mpnn_lane(layout: TileLayout, hidden: int) -> str:
     """``gather`` where the JAX MPNN layer's ``use_v2r`` holds (the
     sender-tile layout exists and the f32 sender table fits its budget),
@@ -197,14 +207,17 @@ def mpnn_lane(layout: TileLayout, hidden: int) -> str:
     return "pregathered"
 
 
-LANE_RULES = {"graphnet": graphnet_lane, "mpnn": mpnn_lane}
+LANE_RULES = {"graphnet": graphnet_lane, "graphnet_pe": graphnet_pe_lane,
+              "mpnn": mpnn_lane}
 
 
 def lane_of(graph: "CSRGraph", family: str, hidden: int) -> str:
-    """The lane of a ``family`` (``graphnet`` or ``mpnn``) layer of width
-    ``hidden`` on ``graph``: the one cached with the graph, else decided
-    from its layout."""
-    if graph.lane is not None:
+    """The lane of a ``family`` (``graphnet``, ``graphnet_pe`` for
+    ``impl="kernel_pe"``, or ``mpnn``) layer of width ``hidden`` on
+    ``graph``: the one cached with the graph, else decided from its layout.
+    The cached lane is ``impl="kernel"``'s, so ``graphnet_pe`` is always
+    decided from the layout, and raises on a graph without one."""
+    if graph.lane is not None and family != "graphnet_pe":
         return graph.lane
     if graph.layout is None:
         raise ValueError("the graph has no tile layout to decide a lane from "

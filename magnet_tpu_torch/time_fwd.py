@@ -223,8 +223,8 @@ def runner_bf16(ops):
 
 def runner_bf16_w128(entry, ops):
     """A closure that launches the width-128 bf16 forward's C entry for
-    ``entry`` (fold or pe) on ``ops`` (``to_bf16``) as its wrapper does and
-    returns out."""
+    ``entry`` (fold, pe or pregathered) on ``ops`` (``to_bf16``) as its
+    wrapper does and returns out."""
     fn = cuda_build.function(fe.BF16_W128, fe._ARGTYPES[fe.BF16_W128_FWD],
                              symbol=fe.BF16_W128_FWD)
     src, we, be, pxj, pxi, senders, rowptr, *tail = ops
@@ -233,9 +233,9 @@ def runner_bf16_w128(entry, ops):
 
     def run():
         out = torch.zeros(n, 128, device=src.device)
-        err = fn(src.data_ptr(), fe._ptr(we), fe._ptr(be),
-                 *(t.data_ptr() for t in (pxj, pxi, senders, rowptr, *tail,
-                                          out, part)),
+        err = fn(src.data_ptr(), fe._ptr(we), fe._ptr(be), fe._ptr(pxj),
+                 pxi.data_ptr(), fe._ptr(senders),
+                 *(t.data_ptr() for t in (rowptr, *tail, out, part)),
                  n, e, l1, fe.ENTRY[entry],
                  torch.cuda.current_stream().cuda_stream)
         if err:

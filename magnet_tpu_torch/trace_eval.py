@@ -8,7 +8,9 @@ Evaluates ``model`` at full width on test batches made from the seed at the
 shape of its datamodule's test split (the model's own unless
 ``datamodule=`` names another; for ``mpnn_2d`` and ``magnet_cnn_2d`` pass
 ``batch_size=4``); ``impl`` sets the model's kernel lane (``kernel_pe``
-for the pe lane of ``magnet_cnn``, ``magnet_cnn_2d`` or ``magnet_gnn``).  Runs ``evaluate`` once to warm up, once
+for the pe lane of ``magnet_cnn``, ``magnet_cnn_2d`` or ``magnet_gnn``,
+``kernel_pregathered`` for the pre-gathered lane of any GraphNet model).
+Runs ``evaluate`` once to warm up, once
 timed with no profiler, then once under ``torch.profiler`` (CPU and CUDA
 activities).  Prints one JSON line: wall seconds per batch of both timed
 runs, the device's busy time (the sum of device-side events: kernels and

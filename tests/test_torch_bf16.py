@@ -431,9 +431,9 @@ def test_bf16_raises_where_there_is_no_bf16_build():
     """MAgNet[GNN] and MAgNet[CNN] 2D build in bf16; a step runs it on the
     fold, pregathered and pe lanes (on CPU tensors their plain versions);
     the pe entry's bf16 kernels are built at width 64 and refuse L1 = 4 and
-    an unbuilt width there, the pregathered entry's refuse the width-128
-    form and L1 = 4, which have no build, and CPU tensors at the built
-    one."""
+    an unbuilt width there, the pregathered entry's are built at (64, 32)
+    and (128, 128) and refuse an unbuilt width ((128, 64)) and L1 = 4,
+    which have no build, and CPU tensors at the built ones."""
     for name in ("magnet_cnn_2d", "magnet_gnn"):
         assert create_model(name, {"graph_dtype": "float32"}, device="cpu")
         model = create_model(name, {"graph_dtype": "bf16"}, device="cpu")
@@ -451,21 +451,28 @@ def test_bf16_raises_where_there_is_no_bf16_build():
     for widths, l1 in (((64, 32), 4), ((64, 64), 3)):
         with pytest.raises(NotImplementedError, match="no bf16 build"):
             fe._check_build_bf16("pe", widths, l1)
-    assert (64, 32) in fe.KERNEL_WIDTHS["pregathered_bf16"]
-    fe._check_build_bf16("pregathered", (64, 32), 3)
-    for widths, l1 in (((128, 128), 3), ((64, 32), 4)):
+    for widths in ((64, 32), (128, 128)):
+        assert widths in fe.KERNEL_WIDTHS["pregathered_bf16"]
+        fe._check_build_bf16("pregathered", widths, 3)
+    for widths, l1 in (((128, 64), 3), ((64, 32), 4), ((128, 128), 4)):
         with pytest.raises(NotImplementedError, match="no bf16 build"):
             fe._check_build_bf16("pregathered", widths, l1)
     bf, z = torch.bfloat16, torch.zeros
     graph = csr_from_edges(torch.tensor([1, 2, 0]), torch.tensor([0, 1, 2]),
                            3)
-    ops = (z(3, 64, dtype=bf), z(3, 64, dtype=bf), graph.rowptr,
-           z(3, 64, 64, dtype=bf), z(3, 64, dtype=bf), z(64, 32, dtype=bf),
-           z(32, dtype=bf), z(32), z(32))
-    with pytest.raises(ValueError, match="no fused edge kernel"):
+    for h, c in ((64, 32), (128, 128)):
+        ops = (z(3, h, dtype=bf), z(3, h, dtype=bf), graph.rowptr,
+               z(3, h, h, dtype=bf), z(3, h, dtype=bf), z(h, c, dtype=bf),
+               z(c, dtype=bf), z(c), z(c))
+        with pytest.raises(ValueError, match="no fused edge kernel"):
+            fe._launch_pregathered_bf16_fwd(*ops)
+        with pytest.raises(ValueError, match="no fused edge kernel"):
+            fe._launch_pregathered_bf16_bwd(*ops, z(3, c))
+    ops = (z(3, 128, dtype=bf), z(3, 128, dtype=bf), graph.rowptr,
+           z(1, 128, 128, dtype=bf), z(1, 128, dtype=bf),
+           z(128, 64, dtype=bf), z(64, dtype=bf), z(64), z(64))
+    with pytest.raises(NotImplementedError, match="no bf16 build"):
         fe._launch_pregathered_bf16_fwd(*ops)
-    with pytest.raises(ValueError, match="no fused edge kernel"):
-        fe._launch_pregathered_bf16_bwd(*ops, z(3, 32))
 
 
 def test_graph_dtype_override_through_the_entry_points(tmp_path):

@@ -60,14 +60,25 @@ from magnet_tpu.models.common import batch_vmap  # noqa: E402
 from magnet_tpu.models.factory import create_model as jax_create_model  # noqa: E402
 from magnet_tpu.nn import graphnet as jax_graphnet  # noqa: E402
 from magnet_tpu.ops import pallas_kernels as pk  # noqa: E402
+from magnet_tpu_torch.data.datasets import DatasetImplicit2D  # noqa: E402
 from magnet_tpu_torch.data.heat import heat_batches  # noqa: E402
+from magnet_tpu_torch.data.loader import collate  # noqa: E402
 from magnet_tpu_torch.models.factory import create_model  # noqa: E402
 from magnet_tpu_torch.nn.graphnet import InteractionNetwork  # noqa: E402
 from magnet_tpu_torch.ops import fused_edge as fe  # noqa: E402
 from magnet_tpu_torch.ops import segment as seg  # noqa: E402
+from magnet_tpu_torch.ops.graph import (  # noqa: E402
+    GraphCache,
+    TileLayout,
+    csr_from_edges,
+    lane_of,
+)
 from magnet_tpu_torch.utils import to_device  # noqa: E402
 from magnet_tpu_torch.weights import _processor, state_dict_from_jax  # noqa: E402
+from test_torch_bf16_gnn import LANE_CASES as GNN_GRAPHS  # noqa: E402
 from test_torch_cnn2d import HP as CNN2D_HP  # noqa: E402
+from test_torch_cnn2d import NT as CNN2D_NT  # noqa: E402
+from test_torch_cnn2d import _arrays as cnn2d_arrays  # noqa: E402
 from test_torch_cnn2d import _batch as cnn2d_batch  # noqa: E402
 from test_torch_lane import _cnn_coords, _jax_graph  # noqa: E402
 from test_torch_modules import _graph_pair  # noqa: E402
@@ -352,6 +363,80 @@ def test_jax_step_under_no_fused2r_takes_fused2_on_cnn_graphs(monkeypatch,
         assert gs.blk_snd2_tids is None
 
 
+def _jax_lane_no_fused2r(coords, r, hidden, c, dtype):
+    """The JAX step's mode under ``MAGNET_TPU_NO_FUSED2R`` on ``coords`` (an
+    ``eval_shape`` of its init on one sample of the graph, width ``hidden``
+    and latent ``c``)."""
+    gs = _jax_graph(coords, r, loop=True)
+    t, et = gs.blk_recv_local.shape
+    jdt = BF if dtype == "bf16" else jnp.float32
+    net = jax_graphnet.InteractionNetwork(
+        node_out=c, edge_out=c, mlp_layers=4, mlp_hidden=hidden,
+        dtype=BF if dtype == "bf16" else None)
+    x = jax.ShapeDtypeStruct((coords.shape[1], c), jdt)
+    e = jax.ShapeDtypeStruct((t * et, c), jdt)
+    jax_graphnet.LAST_FUSED_LANE.update(mode="unset")
+    jax.eval_shape(lambda a, b: net.init(jax.random.PRNGKey(0), a, b, gs,
+                                         jnp.asarray(2.0, jdt)), x, e)
+    return dict(jax_graphnet.LAST_FUSED_LANE)
+
+
+def _lane_case(case):
+    """(coordinates, radius, width, latent) of a MAgNet[CNN] graph
+    (``CNN_GRAPHS``) or a MAgNet[GNN] one (``tests/test_torch_bf16_gnn.py``
+    ``LANE_CASES``: 1D eval, training and LR graphs, 2D training and eval
+    graphs)."""
+    if case in CNN_GRAPHS:
+        support, queries, batch, r, _ = CNN_GRAPHS[case]
+        return _cnn_coords(support, queries, batch, seed=5), r, H, C
+    coords, r = GNN_GRAPHS[case]()
+    return coords, r, 128, 128
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bf16"])
+@pytest.mark.parametrize("case", sorted(CNN_GRAPHS) + sorted(GNN_GRAPHS))
+def test_pe_lane_rule_names_the_jax_lane_under_no_fused2r(monkeypatch, case,
+                                                         dtype):
+    """The port's lane for ``impl="kernel_pe"`` (``lane_of(graph,
+    "graphnet_pe", H)``) is the JAX step's under ``MAGNET_TPU_NO_FUSED2R``
+    on every MAgNet[CNN] and MAgNet[GNN] graph: ``pe`` where its
+    ``_fused2_mode`` is not None (the sender-tile and sender-transpose
+    layouts both exist), ``pregathered`` where it is None (MAgNet[CNN] 2D's
+    training graph, no sender-tile layout); from the layout alone, whatever
+    lane the graph carries for ``impl="kernel"``."""
+    coords, r, hidden, c = _lane_case(case)
+    coords = np.ascontiguousarray(coords, np.float32)
+    monkeypatch.setenv("MAGNET_TPU_NO_FUSED2R", "1")
+    mode = _jax_lane_no_fused2r(coords, r, hidden, c, dtype)["mode"]
+    assert mode != "unset"
+    graph = GraphCache(lane_rule=("graphnet", hidden)).radius_graph_batch(
+        coords, r, loop=True)
+    want = "pregathered" if mode is None else "pe"
+    assert lane_of(graph, "graphnet_pe", hidden) == want
+    assert want == ("pe" if graph.layout.snd2 and graph.layout.snd_transpose
+                    else "pregathered")
+    assert (case == "2d_train") is (want == "pregathered")
+    bare = csr_from_edges(graph.senders, graph.receivers, graph.n_node,
+                          layout=graph.layout)
+    assert lane_of(bare, "graphnet_pe", hidden) == want
+
+
+def test_pe_lane_rule_refuses_a_graph_without_a_layout():
+    """A graph that carries a cached lane but no tile layout cannot answer
+    for the pe lane (its cached lane is ``impl="kernel"``'s): the rule
+    raises, as it does for a bare graph, and never falls back."""
+    graph = csr_from_edges(torch.tensor([0, 1]), torch.tensor([0, 1]), 2)
+    graph.lane = "fold"
+    assert lane_of(graph, "graphnet", H) == "fold"
+    with pytest.raises(ValueError, match="layout"):
+        lane_of(graph, "graphnet_pe", H)
+    for snd2, snd_t, want in ((True, True, "pe"), (True, False, "pregathered"),
+                              (False, True, "pregathered"),
+                              (False, False, "pregathered")):
+        graph.layout = TileLayout(n_pad=256, snd2=snd2, snd_transpose=snd_t)
+        assert lane_of(graph, "graphnet_pe", H) == want
+
+
 # ---- the models ---------------------------------------------------------------
 
 def _perturbed(params, seed):
@@ -498,3 +583,59 @@ def test_magnet_cnn_2d_kernel_pe_matches_jax_no_fused2r(monkeypatch, dtype):
         np.testing.assert_allclose(loss, float(want_loss), **MODEL_F32)
     for name, prm in tm.named_parameters():
         assert torch.isfinite(prm.grad).all(), name
+
+
+# ---- C.6: impl="kernel_pe" on MAgNet[CNN] 2D's training graph ----------------
+
+# MAgNet[CNN] 2D at the published GraphNet widths and radius (0.1), two
+# samples of a 64² mesh: the 32² support ∪ 32 queries of "2d_train"
+HP_2D_TRAIN = dict(HP_2D, radius=0.1)
+
+
+def _cnn2d_train_batch(seed):
+    ds = DatasetImplicit2D(cnn2d_arrays(2, seed, nt=CNN2D_NT, res=64),
+                           "train", nt=CNN2D_NT, res=64, samples=32)
+    ds.set_epoch(seed)
+    return collate([ds[0], ds[1]])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bf16"])
+def test_magnet_cnn_2d_kernel_pe_training_step_on_its_training_graph(
+        monkeypatch, dtype):
+    """C.6: one MAgNet[CNN] 2D training step on ``impl="kernel_pe"`` at the
+    ``"2d_train"`` node set (no sender-tile layout, so the JAX step under
+    ``MAGNET_TPU_NO_FUSED2R`` has mode None and runs the pre-gathered lane:
+    h0 = bf16(p_xj[s] + pe), d_p_xj from ``gather_nodes``' VJP, which sums
+    in f32 here since the graph has the sender-transpose layout) against
+    that JAX step, in interpret mode in bf16: the training loss and every
+    parameter's gradient, the weights carried by
+    ``weights.state_dict_from_jax``.  The port names the same lane."""
+    bf16 = dtype == "bf16"
+    hp = dict(HP_2D_TRAIN, graph_dtype=dtype)
+    batch = _cnn2d_train_batch(seed=11)
+    jm = jax_create_model("magnet_cnn_2d", hp)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    jg = jm.build_graph(batch)
+    params = _perturbed(jax.jit(jm.init)(jax.random.PRNGKey(4), jb, jg), 9)
+    tm = create_model("magnet_cnn_2d", hp, device="cpu")
+    tm.load_state_dict(state_dict_from_jax(params, HP_2D_TRAIN,
+                                           model="magnet_cnn_2d"))
+    tb = to_device(batch, "cpu")
+    tg = tm.build_graph(tb)
+    assert not tg.layout.snd2 and tg.layout.snd_transpose
+    assert tg.lane == lane_of(tg, "graphnet_pe", H) == "pregathered"
+    if bf16:
+        monkeypatch.setenv("MAGNET_TPU_PALLAS_INTERPRET", "1")
+    monkeypatch.setenv("MAGNET_TPU_NO_FUSED2R", "1")
+    jax_graphnet.LAST_FUSED_LANE.update(mode="unset")
+    want_loss, d_p = jax.jit(jax.value_and_grad(
+        lambda p: jm.loss(p, jb, jg, train=True)[0]))(params)
+    assert jax_graphnet.LAST_FUSED_LANE["mode"] is None
+    before = (fe.launch_counts(), seg.launches)
+    loss = _train_loss_and_grads(tm, tb)
+    assert (fe.launch_counts(), seg.launches) == before  # CPU: plain pairs
+    if bf16:
+        assert abs(loss - float(want_loss)) < LOSS_RTOL * float(want_loss)
+    else:
+        np.testing.assert_allclose(loss, float(want_loss), **MODEL_F32)
+    _grads_close(tm, d_p, HP_2D_TRAIN, "magnet_cnn_2d", bf16)
