@@ -1721,20 +1721,99 @@ def pe_bf16_bound(kernel: str, graph, h, c, l1) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def bf16_w128_build() -> dict:
-    """The width-128 bf16 library's ptxas lines and each kernel's dynamic
-    shared memory."""
+def bf16_w128_build(l1: int) -> dict:
+    """The width-128 bf16 library's ptxas lines, each kernel's dynamic
+    shared memory, and for each entry at depth ``l1`` its backward's cluster
+    on this card: CTAs a cluster (one a weight), the clusters the card
+    holds at once (``cudaOccupancyMaxActiveClusters``) and the SMs they
+    take."""
     import ctypes
 
     from magnet_tpu_torch.ops import cuda_build
     from magnet_tpu_torch.ops import fused_edge as fe
 
-    lib = cuda_build.build(fe.BF16_W128)
-    smem = ctypes.CDLL(str(lib)).fused_edge_tail_agg_bf16_w128_smem
+    lib = ctypes.CDLL(str(cuda_build.build(fe.BF16_W128)))
+    smem = lib.fused_edge_tail_agg_bf16_w128_smem
     smem.argtypes, smem.restype = [ctypes.c_int], ctypes.c_int
-    return {"ptxas": ptxas_lines(lib),
-            "smem_bytes": {which: smem(i) for i, which in enumerate((
-                "fwd", "bwd_pass", "bwd_layer_norm_pass", "bwd_wgrad"))}}
+    clusters = lib.fused_edge_tail_agg_bf16_w128_bwd_clusters
+    clusters.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                         ctypes.c_void_p]
+    clusters.restype = ctypes.c_int
+    bwd = {}
+    for entry in ("fold", "pe", "pregathered"):
+        ctas, active = ctypes.c_int(), ctypes.c_int()
+        err = clusters(fe.ENTRY[entry], l1, ctypes.byref(ctas),
+                       ctypes.byref(active))
+        bwd[entry] = {"ctas_a_cluster": ctas.value,
+                      "active_clusters": active.value,
+                      "sms_used": ctas.value * active.value,
+                      "sms": torch.cuda.get_device_properties(0)
+                      .multi_processor_count, "cuda_error": err}
+    return {"ptxas": ptxas_lines(cuda_build.build(fe.BF16_W128)),
+            "smem_bytes": {"fwd": smem(0), "bwd_cluster_cta": smem(1)},
+            "bwd_clusters": bwd}
+
+
+def bwd128_call(entry, ops_bf, g) -> dict:
+    """One call of the width-128 bf16 backward of ``entry`` through its
+    launcher on the C entry's operands ``ops_bf``: the kernels the C entry
+    launched (its own count, and the port's kernels torch.profiler saw over
+    three calls, not PyTorch's fills and casts around them) and the call's
+    peak allocation, in (E, 128) bf16 planes (its outputs and partial rows;
+    no scratch plane)."""
+    import ctypes
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from magnet_tpu_torch.ops import cuda_build
+    from magnet_tpu_torch.ops import fused_edge as fe
+
+    count = ctypes.CDLL(str(cuda_build.build(fe.BF16_W128))) \
+        .fused_edge_tail_agg_bf16_w128_bwd_launches
+    count.restype = ctypes.c_int
+    fe._launch_bf16_w128_bwd(entry, *ops_bf, g)
+    torch.cuda.synchronize()
+    launches = count()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fe._launch_bf16_w128_bwd(entry, *ops_bf, g)
+        torch.cuda.synchronize()
+    seen = {}
+    for ev in prof.events():
+        if (ev.device_type == torch.autograd.DeviceType.CUDA
+                and "(anonymous namespace)::" in ev.name):
+            seen[ev.name[:80]] = seen.get(ev.name[:80], 0) + 1
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = fe._launch_bf16_w128_bwd(entry, *ops_bf, g)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del got
+    plane = ops_bf[0].shape[0] * 128 * 2
+    return {"launches_per_call": launches,
+            "profiled_kernels_in_three_calls": seen,
+            "peak_bytes": peak, "plane_bytes": plane,
+            "peak_in_planes": peak / plane}
+
+
+def cluster_ptxas(lines) -> list[str]:
+    """ptxas's lines (entry, spills, registers) of the width-128 bf16
+    backward's cluster kernel, a group an entry."""
+    out, keep = [], False
+    for ln in lines:
+        if "entry function" in ln:
+            keep = "cluster_bwd_kernel" in ln
+        if keep:
+            out.append(ln)
+    return out
+
+
+def one_edge_graph():
+    """E = 1: node 1 sends to node 0; node 2 receives nothing."""
+    from magnet_tpu_torch.ops.graph import csr_from_edges
+
+    return csr_from_edges(torch.tensor([1], dtype=torch.int32),
+                          torch.tensor([0], dtype=torch.int32), 3)
 
 
 def gnn_bf16_phases(dev, data, groups) -> tuple[int, list, dict]:
@@ -1779,7 +1858,7 @@ def gnn_bf16_phases(dev, data, groups) -> tuple[int, list, dict]:
     small = gnn_small_graph()
     tiles = tile_edges_graph(fe.FWD_TILE, seed=51)
     fn32 = bind(cuda_build.build(fe.FWD), fe.FWD)
-    build = bf16_w128_build()
+    build = bf16_w128_build(l1)
 
     def wrapper_ops(entry, ops, graph):
         """The wrapper's operands of the C entry's ``ops``."""
@@ -1872,25 +1951,33 @@ def gnn_bf16_phases(dev, data, groups) -> tuple[int, list, dict]:
     # gnn_bf16_kernel_bwd: the width-128 bf16 #9 and #7 (+ the f32 #1 for
     # the pe entry's d_pxj) vs their bf16 plain versions, every gradient in
     # its operand's dtype, and vs the f32 kernels, at the training graphs (g
-    # zero on the receivers of relu ties, counted), the small graph and the
-    # tile graph; bit-equal launches; times in turns with the f32 builds
+    # zero on the receivers of relu ties, counted), the small graph, the
+    # tile graph, a tile graph of more tiles than the backward's clusters
+    # (ties guarded as at the training graphs) and E = 1; bit-equal
+    # launches; times in turns with the f32 builds; the backward's launches
+    # a call and peak allocation
     t_phase = time.perf_counter()
     gen = torch.Generator().manual_seed(53)
-    bwd = {}
+    cluster_tiles, cluster_tiles_info = bwd_tile_edges(
+        torch.cuda.get_device_properties(0).multi_processor_count, seed=55)
+    one = one_edge_graph()
+    bwd, calls = {}, {}
     for entry, (*_, fn_bwd, plain_bwd, fn32_bwd, plain32_bwd,
                 names) in fns.items():
         rows = {}
         for label, gr, l1c in (("train_all", tg.all, l1),
                                ("train_lr", tg.lr, l1),
                                ("small_case", small, GNN_SMALL_L1),
-                               ("tile_edges", tiles, l1)):
+                               ("tile_edges", tiles, l1),
+                               ("tile_edges_clusters", cluster_tiles, l1),
+                               ("one_edge", one, l1)):
             ops32 = c_operands(entry, gr, h, h, h, l1c, seed=54, dev=dev)
             ops_bf = to_bf16(ops32)
             wops32 = wrapper_ops(entry, ops32, gr)
             wops_bf = wrapper_ops(entry, ops_bf, gr)
             g = torch.randn(gr.n_node, h, generator=gen).to(dev)
             res = {}
-            if label.startswith("train"):
+            if label.startswith("train") or label == "tile_edges_clusters":
                 ties = tie_receivers_bf16(wops_bf, l1c, entry)
                 g[ties] = 0.0
                 res["tie_receivers_zeroed"] = int(ties.numel())
@@ -1925,6 +2012,7 @@ def gnn_bf16_phases(dev, data, groups) -> tuple[int, list, dict]:
             if label == "train_all":
                 res["bits_equal_run_to_run"] = bits_equal_bwd(
                     fn_bwd, wops_bf, g, names)
+                calls[entry] = bwd128_call(entry, ops_bf, g)
                 order, times, mean = in_turns(
                     {"f32": lambda: fe._launch_bwd(entry, *ops32, g),
                      "bf16": lambda: fe._launch_bf16_w128_bwd(entry, *ops_bf,
@@ -1945,8 +2033,14 @@ def gnn_bf16_phases(dev, data, groups) -> tuple[int, list, dict]:
     bwd_ok = all(
         all(v["ok"] for v in r.values() if isinstance(v, dict) and "ok" in v)
         and r["dtypes_ok"] and r["vs_f32_kernel_ok"] and r["degree0_rows_zero"]
-        for rows in bwd.values() for r in rows.values())
+        and r.get("bits_equal_run_to_run", {"ok": True})["ok"]
+        for rows in bwd.values() for r in rows.values()) and all(
+        c["launches_per_call"] <= 3 for c in calls.values())
     emit({"phase": "gnn_bf16_kernel_bwd", "l1": l1,
+          "tile_edges_clusters_graph": cluster_tiles_info,
+          "bwd_clusters": build["bwd_clusters"],
+          "bwd_ptxas": cluster_ptxas(build["ptxas"]),
+          "bwd_calls_at_train_all": calls,
           "tolerance": {"vs_plain": {"max_rel_l2": BF16_BWD_L2,
                                      "counted_outside": {
                                          "rtol": BF16_RTOL,
@@ -2237,7 +2331,7 @@ def gnn_pre_phases(dev, data, groups) -> tuple[int, list, dict]:
     small = gnn_small_graph()
     tiles = tile_edges_graph(fe.FWD_TILE, seed=61)
     fn32 = bind(cuda_build.build(fe.FWD), fe.FWD)
-    build = bf16_w128_build()
+    build = bf16_w128_build(l1)
     # every MAgNet[GNN] graph has both sender layouts: the JAX package sums
     # the sender gather's cotangent in f32 there, as the port's #1 does
     layouts_ok = all(gr.layout.snd2 and gr.layout.snd_transpose
@@ -2326,21 +2420,28 @@ def gnn_pre_phases(dev, data, groups) -> tuple[int, list, dict]:
     # every gradient in its operand's dtype, and vs the f32 #3 at width
     # 128, the f32 #3 vs its plain version, at the training LR ∪ HR and LR
     # graphs (g zero on the receivers of relu ties of either recompute,
-    # counted), the small graph and the tile graph; bit-equal launches;
-    # times in turns with the f32 build
+    # counted), the small graph, the tile graph, a tile graph of more tiles
+    # than the bf16 backward's clusters (ties guarded as at the training
+    # graphs) and E = 1; bit-equal launches; times in turns with the f32
+    # build; the bf16 backward's launches a call and peak allocation
     t_phase = time.perf_counter()
     gen = torch.Generator().manual_seed(63)
     names = fe.GRAD_NAMES_PREGATHERED
-    bwd = {}
+    cluster_tiles, cluster_tiles_info = bwd_tile_edges(
+        torch.cuda.get_device_properties(0).multi_processor_count, seed=65)
+    bwd, calls = {}, {}
     for label, gr, l1c in (("train_all", tg.all, l1), ("train_lr", tg.lr, l1),
                            ("small_case", small, GNN_SMALL_L1),
-                           ("tile_edges", tiles, l1)):
+                           ("tile_edges", tiles, l1),
+                           ("tile_edges_clusters", cluster_tiles, l1),
+                           ("one_edge", one_edge_graph(), l1)):
         ops32 = c_operands("pregathered", gr, h, h, h, l1c, seed=64, dev=dev)
         ops_bf = to_bf16(ops32)
         w32, wbf = wrapper_ops(ops32), wrapper_ops(ops_bf)
         g = torch.randn(gr.n_node, h, generator=gen).to(dev)
         res = {}
-        if label.startswith("train"):
+        guarded = label.startswith("train") or label == "tile_edges_clusters"
+        if guarded:
             ties = torch.unique(torch.cat([
                 tie_receivers_bf16(wbf, l1c, "pregathered"),
                 tie_receivers("pregathered", w32, l1c)]))
@@ -2351,7 +2452,7 @@ def gnn_pre_phases(dev, data, groups) -> tuple[int, list, dict]:
         want = fe.fused_edge_tail_agg_pregathered_bf16_bwd_plain(*wbf, g)
         got32 = fe.fused_edge_tail_agg_pregathered_bwd(*w32, g)
         plain32 = fe.fused_edge_tail_agg_pregathered_bwd_plain(*w32, g)
-        elementwise32 = not label.startswith("train")
+        elementwise32 = not guarded
         deep = l1c > BF16_VS_F32_DEPTH
         for name, a, b, a32, p32 in zip(names, got, want, got32, plain32):
             res[name] = compare_grad(a, b, elementwise=False, rtol=BF16_RTOL,
@@ -2383,6 +2484,7 @@ def gnn_pre_phases(dev, data, groups) -> tuple[int, list, dict]:
                                wbf, g, names)["ok"]
                 and bits_equal_bwd(fe.fused_edge_tail_agg_pregathered_bwd,
                                    w32, g, names)["ok"])
+            calls["pregathered"] = bwd128_call("pregathered", ops_bf, g)
             order, times, mean = in_turns(
                 {"f32": lambda: fe._launch_bwd("pregathered", *ops32, g),
                  "bf16": lambda: fe._launch_bf16_w128_bwd("pregathered",
@@ -2406,8 +2508,13 @@ def gnn_pre_phases(dev, data, groups) -> tuple[int, list, dict]:
         all(v["ok"] for v in r.values() if isinstance(v, dict) and "ok" in v)
         and r["dtypes_ok"] and r["vs_f32_kernel_ok"] and r["f32_vs_plain_ok"]
         and r["degree0_rows_zero"] and r.get("bits_equal_run_to_run", True)
-        for r in bwd.values())
+        for r in bwd.values()) and all(
+        c["launches_per_call"] <= 3 for c in calls.values())
     emit({"phase": "gnn_pre_kernel_bwd", "l1": l1,
+          "tile_edges_clusters_graph": cluster_tiles_info,
+          "bwd_clusters": build["bwd_clusters"],
+          "bwd_ptxas": cluster_ptxas(build["ptxas"]),
+          "bwd_calls_at_train_all": calls,
           "tolerance": {"vs_plain": {"max_rel_l2": BF16_BWD_L2,
                                      "counted_outside": {
                                          "rtol": BF16_RTOL,

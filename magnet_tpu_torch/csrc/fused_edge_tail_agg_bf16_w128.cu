@@ -56,11 +56,13 @@
 // width.
 //
 // Why not the width-64 bf16 design (csrc/fused_edge_tail_agg_bf16.cu),
-// which keeps every weight resident twice: a padded bf16 128 x 128 weight
-// is 34,816 bytes, five of them 174 KB once and 348 KB twice, against a
-// block's 227 KB.  So the forward streams its weights and the backward is
-// the f32 width-128 build's launch sequence (csrc/fused_edge_tail_agg_bwd.cu
-// namespace w128), each on bf16 tensor-core products:
+// which keeps every weight resident twice in one block: a padded bf16 128 x
+// 128 weight is 34,816 bytes, five of them 174 KB once and 348 KB twice,
+// against a block's 227 KB, and five 128 x 128 f32 weight gradients are 320
+// KB.  So the forward streams its weights through one block, and the
+// backward gives each weight a block of its own, the blocks of one thread
+// block cluster passing activations and gradients through distributed
+// shared memory:
 //   * every product is mma.sync.aligned.m16n8k16 bf16 x bf16 -> f32, its
 //     fragments read by ldmatrix from shared tiles whose bf16 rows are
 //     padded to 136 elements (272 bytes: the eight rows of an ldmatrix
@@ -84,39 +86,50 @@
 //     which run over each run of equal receivers in CSR order (csr_tile):
 //     no atomics, out has the same bits run to run.  104,448 bytes of
 //     shared memory: two blocks an SM;
-//   * backward (#9, #7, #3): (a) one pass per layer over every edge
-//     (edge_pass_kernel, 64-edge tiles on a persistent grid, its weight
-//     resident, the next tile's rows fetched by cp.async): the recompute
-//     h_0 .. h_L1 (the pe and pregathered entries' h_0 by an elementwise
-//     kernel), y and
-//     LayerNorm's backward to dy, then da_L1 .. da_1 and dz through each
-//     W^T masked by h > 0, and, fold, d_e0 = bf16(bf16(dz) . W_e^T).  The
-//     recompute runs the forward's products in the forward's order, so its
-//     h_k have the forward's bits.  Each h_k (bf16, exact) and each
-//     bf16(da_k) is written once to a scratch plane of (E, 128) bf16,
-//     2 L1 + 3 planes (fold) or 2 L1 + 2 (pe and pregathered, whose d_pe /
-//     d_h0 is its bf16(dz));
-//     the bias gradients, which sum the unrounded da_k, are summed in the
-//     pass that forms da_k (and d_ln_s, d_ln_b in the LayerNorm pass), per
-//     block in registers and written once a block; (b) wgrad_kernel, the
-//     tall-skinny dW = sum_e A[e]^T D[e] of every weight over edge ranges,
-//     A and D read from the planes in 64-edge slabs by a cp.async double
-//     buffer, each block's (128 x 128) partial in 64 f32 accumulators a
-//     thread; (c) the partials of (a) and (b) added in block order, so the
-//     weight and bias gradients are the same from run to run.  The scatter
-//     of bf16(dz) into d_pxi (one atomicAdd per run of equal receivers in
-//     half a tile) and, fold, d_pxj (one per element) uses f32 atomics,
-//     whose last bits vary before the caller's rounding to bf16.  Shared
-//     memory: a pass 73,216 bytes (the LayerNorm pass 108,032), wgrad
-//     69,632.
+//   * backward (#9, #7, #3), two launches (bwd::launch): (a) a grid of
+//     clusters of n CTAs, one a weight (fold: W_e, W_1 .. W_L1, W_out, n =
+//     L1 + 2; pe and pregathered: W_1 .. W_L1, W_out, n = L1 + 1), as many
+//     clusters as the card holds at once (cudaOccupancyMaxActiveClusters),
+//     each over a range of consecutive 64-edge tiles; (b) the clusters'
+//     partial rows added in cluster order, so that the weight and bias
+//     gradients are the same from run to run.  In step s CTA p runs the
+//     forward of tile s - p (h_p = bf16(relu(h_{p-1} . W + b)) from the
+//     forward's initial values in the forward's product order, so the h_k
+//     have the forward's bits, sent into CTA p + 1's ring) and the backward
+//     of tile s - (2 n - 2 - p) (dW += h_{p-1}^T . d on the ring's h_{p-1},
+//     da = (d . W^T) masked by h_{p-1} > 0, its unrounded column sums the
+//     bias gradient of the layer before, bf16(da) sent into CTA p - 1's two
+//     gradient tiles); then the cluster meets at one barrier.  A tile's
+//     h_{p-1} waits in CTA p's ring from its forward to its backward, 2 (n
+//     - p) tiles (the first CTA's 2 n); each CTA's dW stays in 64 f32
+//     accumulators a thread for its whole range (tests/
+//     test_torch_bwd128_bf16.py emulates the truncation: far inside the
+//     tolerances).  The output CTA forms y = h_L1 . W_out + b_out and
+//     LayerNorm's backward to bf16(dy) in the same step as its backward.
+//     The first CTA forms h_0 (pe, pregathered: elementwise from staged
+//     rows; fold: e0 . W_e from b_e + (pxj[s] + pxi[i])), re-reads e0 for
+//     dW_e and d_e0 = bf16(bf16(dz) . W_e^T), writes d_src (and the pe's f32
+//     dz), and adds bf16(dz) into d_pxi (one atomicAdd per run of equal
+//     receivers in half a tile) and, fold, d_pxj (one per element): f32
+//     atomics, whose last bits vary before the caller's rounding to bf16.
+//     The rows a step reads from global memory (e0, the node rows, g) are
+//     staged by cp.async in the step before, the tile indices two tiles
+//     ahead (IndexLoad), so no step waits on a load it issued.  No (E, 128)
+//     plane leaves the chip: HBM sees e0 / pe / h0 (and e0 twice), the node
+//     rows, g and the outputs.  231,936 bytes of shared memory: one CTA an
+//     SM; 22 clusters of 5 (fold) and 30 of 4 (pe, pregathered) on an H100.
 // What bounds it on an H100: at L1 = 3 the fold forward does Ce H + L1 H^2
 // + H C = 81,920 multiply-adds an edge (pe and pregathered 65,536), the
-// backward three times that; at MAgNet[GNN]'s eval graph (84,256 edges) 13.8 GFLOP, 0.014
-// ms at the dense bf16 rate of 989 TFLOP/s, against 21.6 MB of e0 (0.0064
-// ms at 3.35 TB/s): bound by operations.  The backward's scratch planes
-// (9 x 256 bytes an edge written and read back at L1 = 3, fold) are
-// traffic the bound does not count.  mma.sync and not wgmma: the products
-// read their operands from padded tiles, transposed or not.
+// backward three times that; at MAgNet[GNN]'s training graph (67,572 edges)
+// 33.2 GFLOP, 0.034 ms at the dense bf16 rate of 989 TFLOP/s: bound by
+// operations.  The pipeline runs far from it: a (64 x 128 x 128) mma.sync
+// product takes ~1,500 cycles of an SM (its ldmatrix traffic, 128 KB, near
+// the SM's shared-memory rate), and the steps go at the pace of the first
+// and the output CTAs, which add to their three products the staging, the
+// atomics and d_src, and LayerNorm, about twice a middle CTA's work
+// (magnet_tpu_torch/probe_bwd128.py times each part; PERF.md keeps the
+// numbers).  mma.sync and not wgmma: the products read their operands
+// from padded tiles, transposed or not.
 // Registers, bytes and spills of each kernel (ptxas -v, one build for
 // sm_90a): see fused_edge_tail_agg_bf16_w128_smem and chip_smoke.py's
 // gnn_bf16_kernel phase, which prints ptxas's lines; PERF.md keeps them.
@@ -310,6 +323,31 @@ __device__ __forceinline__ void fold_init(float (&acc)[2][4][4],
         const float2 b = ld_bf16x2(be + n);
         const float2 j = ld_bf16x2(pj + n);
         const float2 i = ld_bf16x2(pi + n);
+        acc[mi][ni][2 * h] = valid ? b.x + (j.x + i.x) : 0.f;
+        acc[mi][ni][2 * h + 1] = valid ? b.y + (j.y + i.y) : 0.f;
+      }
+    }
+}
+
+// fold_init from the tile's staged node rows: acc = b_e + (pxj[sender] +
+// pxi[receiver]), zero past n_valid
+__device__ __forceinline__ void fold_init_rows(float (&acc)[2][4][4],
+                                               const bf16* __restrict__ be,
+                                               const bf16* pj_rows,
+                                               const bf16* pi_rows,
+                                               int n_valid) {
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int e = acc_row(mi, 2 * h);
+      const bool valid = e < n_valid;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int n = acc_col(ni, 0);
+        const float2 b = ld_bf16x2(be + n);
+        const float2 j = ld_bf16x2(pj_rows + e * kLd + n);
+        const float2 i = ld_bf16x2(pi_rows + e * kLd + n);
         acc[mi][ni][2 * h] = valid ? b.x + (j.x + i.x) : 0.f;
         acc[mi][ni][2 * h + 1] = valid ? b.y + (j.y + i.y) : 0.f;
       }
@@ -632,250 +670,586 @@ int launch(const bf16* src, const bf16* we, const bf16* be, const bf16* pxj,
 
 namespace bwd {
 
-// The passes of kernel (a), each one product of one layer over every edge.
-enum Pass : int {
-  kFirst,      // h_0 = bf16(relu(e0 . W_e + b_e + (pxj[s] + pxi[r])))  (fold)
-  kForward,    // h_k = bf16(relu(h_{k-1} . W_k + b_k))
-  kOutput,     // y = h_L1 . W_out + b_out, then bf16(dy) (LayerNorm backward)
-  kBack,       // da_{k-1} = (bf16(da_k) . W_k^T) where h_{k-1} > 0
-  kBackPlain,  // d_e0 = bf16(bf16(dz) . W_e^T)                         (fold)
+constexpr int kMaxCtas = kMaxL1 + 2;        // W_e (fold), W_1 .. W_L1, W_out
+constexpr int kRing = 2 * (kMaxL1 + 1);     // the deepest stash, in tiles
+constexpr int kIdxRing = 2 * kMaxCtas + 1;  // tiles of indices kept
+constexpr int kTileBytes = kTE * kLd * 2;   // one padded bf16 (kTE, kW) tile
+
+// Offsets, in bytes, into a CTA's dynamic shared memory (231,936 bytes: one
+// CTA an SM): its weight, its ring of input tiles, the two tiles of the
+// gradient the next CTA sends back, a staging tile (the pre-gathered first
+// CTA's pxi rows) and the ring of tile indices.  The output CTA keeps in
+// its ring past its two slots the f32 y tile, two tiles of g rows (this
+// step's and the next's, f32) and LayerNorm's row statistics, and bf16(dy)
+// in its first gradient tile (no CTA sends it one); the fold's first CTA
+// stages in its ring e0 (slots 0-1 for the forward's tiles, 2-3 for the
+// backward's) and the node rows pxj[s] (4-5) and pxi[r] (6-7).  The sums'
+// halves go at the end into the gradient tiles.
+struct Layout {
+  static constexpr int w = 0;                               // bf16 (kW, kLd)
+  static constexpr int ring = w + kW * kLd * 2;             // kRing tiles
+  static constexpr int in = ring + kRing * kTileBytes;      // 2 tiles
+  static constexpr int stage = in + 2 * kTileBytes;         // 1 tile
+  static constexpr int idx = stage + kTileBytes;   // kIdxRing x 2 kTE int
+  static constexpr int bytes = idx + kIdxRing * 2 * kTE * 4;
+  static constexpr int y = ring + 2 * kTileBytes;           // f32 (kTE, kLdF)
+  static constexpr int g = y + kTE * kLdF * 4;              // 2 f32 tiles
+  static constexpr int stat = g + 2 * kTE * kLdF * 4;       // 4 kTE f32
+  static constexpr int part = in;                           // 8 kW f32, last
+};
+static_assert(Layout::stat + 4 * kTE * 4 <= Layout::in, "y, g in the ring");
+static_assert(8 * kW * 4 <= 2 * kTileBytes, "the sums in the gradient tiles");
+
+// A warp's share of tile128::tile_indices (its 32 edges from base), split
+// around the step's products so that the loads' latency hides under them:
+// issue() loads the 32 row starts after the receiver `hint` of an edge
+// before base (>= 0) and the senders; finish() forms the receivers as
+// tile128::warp_receiver does from that hint (the count of row starts at or
+// before each edge by a five-step search over the sorted starts in place of
+// its 32 comparisons) and stores both.
+struct IndexLoad {
+  int start, snd;
+
+  template <bool GATHERS>
+  __device__ __forceinline__ void issue(const int* __restrict__ rowptr,
+                                        const int* __restrict__ senders,
+                                        int n_nodes, int base, int n_valid,
+                                        int hint) {
+    const int lane = threadIdx.x & 31;
+    const int j = hint + 1 + lane;
+    start = j <= n_nodes ? __ldg(rowptr + j) : 0x7fffffff;
+    snd = GATHERS && lane < n_valid ? __ldg(senders + base + lane) : 0;
+  }
+
+  template <bool GATHERS>
+  __device__ __forceinline__ void finish(int* s_rcv, int* s_snd,
+                                         const int* __restrict__ rowptr,
+                                         int n_nodes, int base, int n_valid,
+                                         int hint) const {
+    const int lane = threadIdx.x & 31;
+    const int e = base + lane;
+    int below = 0;  // starts at or before e, of the first 31 (sorted)
+#pragma unroll
+    for (int step = 16; step > 0; step >>= 1)
+      if (__shfl_sync(0xffffffffu, start, below + step - 1) <= e) below += step;
+    int r = hint + below;
+    const int window_end = __shfl_sync(0xffffffffu, start, 31);
+    if (lane < n_valid && e >= window_end)
+      r = tile128::receiver_of(rowptr, n_nodes, e);
+    s_rcv[lane] = lane < n_valid ? r : 0;
+    if (GATHERS) s_snd[lane] = snd;
+  }
 };
 
-struct PassArgs {
-  const bf16* x;      // (E, kW) the product's input rows
-  const bf16* w;      // (kW, kW) the weight, as stored (in, out)
-  const bf16* bias;   // (kW) kFirst, kForward, kOutput
-  const bf16* mask;   // (E, kW) kBack: the output is kept where mask > 0
-  bf16* out;          // (E, kW) the output, rounded to bf16
-  float* out32;       // kBack, or null: the output unrounded (the pe's dz)
-  float* sums;        // kOutput, kBack, or null: block b's column sums of the
-                      // unrounded output at sums + b * stride (kOutput: then
-                      // d_ln_s and d_ln_b, 2 kW more)
-  int stride;
-  const bf16* pxj;     // kFirst
-  const bf16* pxi;     // kFirst
-  const int* senders;  // kFirst
-  const int* rowptr;   // kFirst, kOutput
-  const float* g;      // kOutput: (N, kW) the output's cotangent
-  const float* ln_s;   // kOutput
-  int n_nodes, n_edges;
-};
+// ---- thread block clusters ----------------------------------------------
 
-__host__ __device__ constexpr bool backward(Pass p) {
-  return p == kBack || p == kBackPlain;
+__device__ __forceinline__ int cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
+// Every thread of every CTA of the cluster arrives, its shared-memory
+// writes (local and remote) released; then waits for all, acquiring them.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// The shared::cluster address of `p`'s place in CTA `rank`'s shared memory
+__device__ __forceinline__ uint32_t remote(const void* p, int rank) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void st_remote(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;\n" :: "r"(addr), "r"(v)
+               : "memory");
 }
 
-// Offsets, in bytes, into a pass's dynamic shared memory: the weight, two
-// input tiles, the tile's indices and the column sums' halves; the
-// LayerNorm pass also y and the rows' statistics.
-template <Pass P>
-struct PassLayout {
-  static constexpr int w = 0;                        // bf16 (kW, kLd)
-  static constexpr int x = w + kW * kLd * 2;         // 2 x bf16 (kTE, kLd)
-  static constexpr int rcv = x + 2 * kTE * kLd * 2;  // (kTE) int
-  static constexpr int snd = rcv + kTE * 4;          // (kTE) int
-  static constexpr int part = snd + kTE * 4;         // 2 x 3 kW f32
-  static constexpr int y = part + 2 * 3 * kW * 4;    // kOutput: f32 (kTE, kLdF)
-  static constexpr int stat = y + (P == kOutput ? kTE * kLdF * 4 : 0);
-  static constexpr int bytes = stat + (P == kOutput ? 4 * kTE * 4 : 0);
+// acc += x^T . d over a tile's kTE edges, x and d (kTE, kW) bf16 tiles both
+// read down their columns by ldmatrix.trans: warp w forms rows 32 (w & 3)
+// .. + 31 and columns 64 (w >> 2) .. + 63 of the (kW x kW) weight gradient,
+// 64 f32 accumulators a thread.
+__device__ __forceinline__ void wgrad_tile(float (&acc)[2][8][4],
+                                           const bf16* x, const bf16* d) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int m0 = 32 * (warp & 3), n0 = 64 * (warp >> 2);
+  // lane addresses of the ldmatrix.trans blocks: A(m, k) = x[k kLd + m],
+  // B(k, n) = d[k kLd + n]
+  const int a_off = ((lane & 7) + ((lane >> 4) << 3)) * kLd + m0 +
+                    (((lane >> 3) & 1) << 3);
+  const int d_off = ((lane & 7) + (((lane >> 3) & 1) << 3)) * kLd + n0 +
+                    ((lane >> 4) << 3);
+#pragma unroll
+  for (int k0 = 0; k0 < kTE; k0 += 16) {
+    uint32_t fa[2][4], fb[4][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+      ldsm_t(fa[mi], x + a_off + k0 * kLd + 16 * mi);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) ldsm_t(fb[j], d + d_off + k0 * kLd + 16 * j);
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni)
+        mma(acc[mi][ni], fa[mi], fb[ni >> 1][2 * (ni & 1)],
+            fb[ni >> 1][2 * (ni & 1) + 1]);
+  }
+}
+
+struct Args {
+  const bf16* src;     // (E, kW) e0 (fold), pe (pe) or h0 (pregathered)
+  const bf16* we;      // fold
+  const bf16* be;      // fold
+  const bf16* pxj;     // fold, pe
+  const bf16* pxi;
+  const int* senders;  // fold, pe
+  const int* rowptr;
+  const bf16* w_rest;
+  const bf16* b_rest;
+  const bf16* w_out;
+  const bf16* b_out;
+  const float* ln_s;
+  const float* g;      // (N, kW) the output's cotangent
+  bf16* d_src;         // (E, kW) d_e0, d_pe or d_h0
+  float* dz32;         // pe: (E, kW) dz unrounded
+  float* d_pxj;        // fold: (N, kW), added into
+  float* d_pxi;        // (N, kW), added into
+  float* partial;      // a row of `total` floats a cluster
+  int total;
+  int n_nodes, n_edges, l1;
 };
 
-// One pass: a persistent block keeps the layer's weight in shared memory
-// for the whole launch and walks 64-edge tiles (block b: tiles b, b +
-// gridDim.x, ...), each tile's rows fetched with cp.async while the one
-// before computes.  The products start from the bias (or the fold's node
-// rows) as the forward's do and run in the forward's order, so the
-// recomputed activations have the forward's bits.
-template <Pass P>
-__global__ void __launch_bounds__(kThreads, 2) edge_pass_kernel(PassArgs a) {
-  using L = PassLayout<P>;
-  extern __shared__ __align__(16) unsigned char bf16w_pass_smem[];
-  unsigned char* sm = bf16w_pass_smem;
+// The backward of one call as a pipeline over a cluster of n CTAs, one a
+// weight (CTA p holds packed weight p: W_e (fold), W_1 .. W_L1, W_out), each
+// on one SM, its weight resident.  Cluster c walks its consecutive tiles
+// t = 0 .. cnt - 1 in steps; in step s CTA p runs
+//   * the forward of tile s - p: h_p = bf16(relu(x . W + b)) of its input
+//     x = h_{p-1} (or, the output CTA, y = x . W_out + b_out and LayerNorm's
+//     backward to bf16(dy)), sent on into CTA p + 1's ring;
+//   * the backward of tile s - (2 n - 2 - p), whose bf16 gradient d CTA p +
+//     1 sent in the step before: dW += x^T . d on the x of its ring, and da
+//     = (d . W^T) masked by x > 0, sent back into CTA p - 1's gradient
+//     tiles;
+// then all n meet at one cluster barrier.  A tile's x waits in the ring of
+// CTA p from its forward to its backward, 2 (n - p) slots (the first CTA's
+// 2 n, counting the tile its rows are staged for); the first CTA also forms
+// h_0 (pe, pregathered) or re-reads e0 (fold), writes d_src (and the pe's
+// dz32), and adds bf16(dz) into d_pxi (and, fold, d_pxj) with atomics.
+// The recompute runs the forward's products in its order from the same
+// initial values, so the h_k have the forward's bits.  At the end each CTA
+// writes its dW (and its bias sums) once into the cluster's row of
+// `partial`.
+template <Entry E>
+__global__ void __launch_bounds__(kThreads, 1) cluster_bwd_kernel(Args a) {
+  using L = Layout;
+  constexpr bool FOLD = E == kFold, GATHERS = E != kPregathered;
+  extern __shared__ __align__(16) unsigned char bf16w_bwd_smem[];
+  unsigned char* sm = bf16w_bwd_smem;
   bf16* s_w = reinterpret_cast<bf16*>(sm + L::w);
-  bf16* s_x = reinterpret_cast<bf16*>(sm + L::x);
-  int* s_rcv = reinterpret_cast<int*>(sm + L::rcv);
-  int* s_snd = reinterpret_cast<int*>(sm + L::snd);
+  bf16* s_ring = reinterpret_cast<bf16*>(sm + L::ring);
+  bf16* s_in = reinterpret_cast<bf16*>(sm + L::in);
+  bf16* s_stage = reinterpret_cast<bf16*>(sm + L::stage);
+  int* s_idx = reinterpret_cast<int*>(sm + L::idx);
   float* s_part = reinterpret_cast<float*>(sm + L::part);
-  float* s_y = reinterpret_cast<float*>(sm + L::y);
   float* s_stat = reinterpret_cast<float*>(sm + L::stat);
+  float* s_y = reinterpret_cast<float*>(sm + L::y);
   const int tid = threadIdx.x, warp = tid >> 5;
 
-  for (int p = tid; p < kW * kW / 8; p += kThreads) {
-    const int r = p >> 4, c = (p & 15) * 8;
-    cp_async16(s_w + r * kLd + c, a.w + r * kW + c, true);
+  const int n = (FOLD ? 1 : 0) + a.l1 + 1;  // CTAs a cluster, weights
+  const int p = cluster_rank();
+  const bool first = p == 0, out = p == n - 1;
+  const bf16* w = FOLD && first ? a.we
+                  : out         ? a.w_out
+                                : a.w_rest + (size_t)(p - FOLD) * kW * kW;
+  const bf16* bias = FOLD && first ? a.be
+                     : out         ? a.b_out
+                                   : a.b_rest + (size_t)(p - FOLD) * kW;
+  const int depth = first ? 2 * n : 2 * (n - p);  // this CTA's ring
+  const int depth_next = 2 * (n - p - 1);         // CTA p + 1's
+  const int lag = 2 * n - 2;  // steps from a tile's forward on CTA 0 to its
+                              // backward there
+  const int n_tiles = (a.n_edges + kTE - 1) / kTE;
+  const int c = blockIdx.x / n, nc = gridDim.x / n;
+  const int t_beg = (int)((long long)c * n_tiles / nc);
+  const int cnt = (int)((long long)(c + 1) * n_tiles / nc) - t_beg;
+  const int n_steps = cnt > 0 ? cnt + lag : 0;
+
+  auto tile_at = [&](bf16* base, int slot) { return base + slot * kTE * kLd; };
+  auto ring = [&](int t) { return tile_at(s_ring, t % depth); };
+  // fold, first CTA: e0 of forward tile t, of backward tile t
+  auto e0_fwd = [&](int t) { return tile_at(s_ring, t & 1); };
+  auto e0_bwd = [&](int t) { return tile_at(s_ring, 2 + (t & 1)); };
+  // fold, first CTA: the pxj[s] and pxi[r] rows of forward tile t
+  auto pxj_rows = [&](int t) { return tile_at(s_ring, 4 + (t & 1)); };
+  auto pxi_rows = [&](int t) { return tile_at(s_ring, 6 + (t & 1)); };
+  // out: the g rows of tile t
+  auto g_rows = [&](int t) {
+    return reinterpret_cast<float*>(sm + L::g) + (t & 1) * kTE * kLdF;
+  };
+  auto rcv_of = [&](int t) { return s_idx + (t % kIdxRing) * 2 * kTE; };
+  auto snd_of = [&](int t) { return rcv_of(t) + kTE; };
+  auto valid_rows = [&](int t) {
+    return min(kTE, a.n_edges - (t_beg + t) * kTE);
+  };
+  // tile t's rows of src into dst by cp.async, zeros past the edge count
+  auto stage = [&](bf16* dst, int t) {
+    const int base = (t_beg + t) * kTE, nv = valid_rows(t);
+    for (int q = tid; q < kPieces; q += kThreads) {
+      const int r = q >> 4, col = (q & 15) * 8;
+      piece_async(dst + r * kLd + col,
+                  r < nv ? a.src + (size_t)(base + r) * kW + col : nullptr,
+                  a.src);
+    }
+  };
+  // tile t's node rows of `table` (rows of kW bf16) at its receivers or
+  // senders `at` into dst by cp.async, zeros past the edge count
+  auto stage_nodes = [&](bf16* dst, const bf16* table, const int* at, int t) {
+    const int nv = valid_rows(t);
+    for (int q = tid; q < kPieces; q += kThreads) {
+      const int r = q >> 4, col = (q & 15) * 8;
+      piece_async(dst + r * kLd + col,
+                  r < nv ? table + (size_t)at[r] * kW + col : nullptr, table);
+    }
+  };
+  // out: tile t's g rows (f32) at its receivers into g_rows(t)
+  auto stage_g = [&](int t) {
+    const int nv = valid_rows(t);
+    const int* rcv = rcv_of(t);
+    float* dst = g_rows(t);
+    for (int q = tid; q < kTE * kW / 4; q += kThreads) {
+      const int r = q >> 5, col = (q & 31) * 4;
+      cp_async16(dst + r * kLdF + col,
+                 a.g + (r < nv ? (size_t)rcv[r] * kW + col : 0), r < nv);
+    }
+  };
+  // the cp.async copies of tile t's rows that the first and the output
+  // CTAs read in its forward (the pre-gathered first CTA's pxi rows apart)
+  auto stage_forward = [&](int t) {
+    if (first) stage(FOLD ? e0_fwd(t) : ring(t), t);
+    if (FOLD && first) {
+      stage_nodes(pxj_rows(t), a.pxj, snd_of(t), t);
+      stage_nodes(pxi_rows(t), a.pxi, rcv_of(t), t);
+    }
+    if (out) stage_g(t);
+  };
+  // warp w < 2's edges of tile t: the first and their count
+  auto warp_base = [&](int t) { return (t_beg + t) * kTE + 32 * warp; };
+  auto warp_valid = [&](int t) { return min(32, a.n_edges - warp_base(t)); };
+  // d_pxi[r] += d over each run of equal receivers in each half of the
+  // tile (one atomicAdd a run and column), fold also d_pxj[s] += d (one an
+  // element): d is bf16(dz) of tile t
+  auto scatter = [&](const bf16* d, int t, int nv) {
+    const int* rcv = rcv_of(t);
+    const int* snd = snd_of(t);
+    const int col = tid & (kW - 1);
+    const int e_beg = (tid >> 7) * (kTE / 2);
+    const int e_end = min(e_beg + kTE / 2, nv);
+    if (e_beg >= e_end) return;
+    int at = rcv[e_beg];
+    float sum = 0.f;
+    for (int e = e_beg; e < e_end; ++e) {
+      const float v = __bfloat162float(d[e * kLd + col]);
+      if (FOLD) atomicAdd(a.d_pxj + (size_t)snd[e] * kW + col, v);
+      if (rcv[e] != at) {
+        atomicAdd(a.d_pxi + (size_t)at * kW + col, sum);
+        sum = 0.f;
+        at = rcv[e];
+      }
+      sum += v;
+    }
+    atomicAdd(a.d_pxi + (size_t)at * kW + col, sum);
+  };
+
+  // the weight; the indices of tiles 0 and 1 (tile 0's searched afresh)
+  // and tile 0's rows
+  for (int q = tid; q < kW * kW / 8; q += kThreads) {
+    const int r = q >> 4, col = (q & 15) * 8;
+    cp_async16(s_w + r * kLd + col, w + r * kW + col, true);
+  }
+  const bool indexer = (first || out) && warp < 2;
+  if (n_steps > 0 && indexer)
+    tile128::tile_indices<kTE, GATHERS>(rcv_of(0), snd_of(0), a.senders,
+                                        a.rowptr, a.n_nodes, a.n_edges, t_beg,
+                                        -1);
+  __syncthreads();
+  if (cnt > 1 && indexer)
+    tile128::tile_indices<kTE, GATHERS>(rcv_of(1), snd_of(1), a.senders,
+                                        a.rowptr, a.n_nodes, a.n_edges,
+                                        t_beg + 1, rcv_of(0)[kTE - 1]);
+  if (n_steps > 0) {
+    stage_forward(0);
+    if (first && E == kPregathered) stage_nodes(s_stage, a.pxi, rcv_of(0), 0);
   }
   cp_async_commit();
-  const int n_tiles = (a.n_edges + kTE - 1) / kTE;
-  auto prefetch = [&](int tile, int buf) {
-    const int base = tile * kTE, n_valid = min(kTE, a.n_edges - base);
-    bf16* dst = s_x + buf * kTE * kLd;
-    for (int p = tid; p < kPieces; p += kThreads) {
-      const int r = p >> 4, c = (p & 15) * 8;
-      piece_async(dst + r * kLd + c,
-                  r < n_valid ? a.x + (size_t)(base + r) * kW + c : nullptr,
-                  a.x);
-    }
-    cp_async_commit();
-  };
-  // the unrounded output's column sums over the thread's rows of every
-  // tile (kBack), or the LayerNorm pass's db_out, d_ln_s, d_ln_b over
-  // column tid & 127 and half tid >> 7 of each tile's rows (kOutput)
-  float sums[4][2] = {};
-  float ln_sums[3] = {};
-  float ls = 0.f;
-  if (P == kOutput) ls = __ldg(a.ln_s + (tid & (kW - 1)));
+  cp_async_wait<0>();
+  __syncthreads();
+  cluster_sync();  // every CTA runs before any writes into another
 
-  if ((int)blockIdx.x < n_tiles) prefetch(blockIdx.x, 0);
-  int it = 0;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++it) {
-    const int cur = it & 1;
-    const int base = tile * kTE, n_valid = min(kTE, a.n_edges - base);
-    const bf16* x = s_x + cur * kTE * kLd;
-    if (tile + (int)gridDim.x < n_tiles)
-      prefetch(tile + gridDim.x, cur ^ 1);
-    else
-      cp_async_commit();  // an empty group keeps the count
-    if ((P == kFirst || P == kOutput) && warp < 2)
-      tile128::tile_indices<kTE, P == kFirst>(s_rcv, s_snd, a.senders,
-                                              a.rowptr, a.n_nodes, a.n_edges,
-                                              tile, -1);
-    cp_async_wait<1>();
-    __syncthreads();
+  float dw[2][8][4] = {};  // dW over the cluster's tiles
+  float sums[4][2] = {};   // p >= 1: column sums of the unrounded da
+  float ln_sums[3] = {};   // out: db_out, d_ln_s, d_ln_b, column tid & 127
+  const float ls = out ? __ldg(a.ln_s + (tid & (kW - 1))) : 0.f;
 
-    float acc[2][4][4];
-    if (P == kFirst)
-      fold_init(acc, a.bias, a.pxj, a.pxi, s_snd, s_rcv, n_valid);
-    else if (P == kForward || P == kOutput)
-      bias_init(acc, a.bias);
-    else
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-          for (int c = 0; c < 4; ++c) acc[mi][ni][c] = 0.f;
-    // kBack: the mask, loaded before the product so that its latency hides
-    uint32_t mask[2][4][2];
-    if (P == kBack)
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int e = acc_row(mi, 2 * h);
-            mask[mi][ni][h] =
-                e < n_valid
-                    ? __ldg(reinterpret_cast<const unsigned*>(
-                          a.mask + (size_t)(base + e) * kW + acc_col(ni, 0)))
-                    : 0u;
+  for (int s = 0; s < n_steps; ++s) {
+    const int tf = s - p, tb = s - (lag - p);
+    // this step's rows are in (staged in the step before); the next step's
+    // are staged in this one, from the next tile's indices (found in the
+    // step before); the pre-gathered first CTA stages its next pxi rows once
+    // it has formed h_0
+    cp_async_wait<0>();
+    if (first || out) __syncthreads();
+    if (tf >= 0 && tf + 1 < cnt) stage_forward(tf + 1);
+    if (FOLD && first && tb + 1 >= 0 && tb + 1 < cnt)
+      stage(e0_bwd(tb + 1), tb + 1);
+    // the indices of the tile after the next, warps 0 and 1, from the
+    // receiver of the next tile's last edge (a whole tile: only the graph's
+    // last is short)
+    const int t_idx = tf + 2;
+    const bool next_idx = indexer && tf >= 0 && t_idx < cnt;
+    const int hint = next_idx ? rcv_of(t_idx - 1)[kTE - 1] : 0;
+    IndexLoad next;
+    if (next_idx)
+      next.issue<GATHERS>(a.rowptr, a.senders, a.n_nodes, warp_base(t_idx),
+                          warp_valid(t_idx), hint);
+
+    // ---- the forward of tile tf
+    if (tf >= 0 && tf < cnt) {
+      const int nv = valid_rows(tf);
+      const int* rcv = rcv_of(tf);
+      const int* snd = snd_of(tf);
+      if (first && !FOLD) {
+        // h_0 = bf16(relu((pe + pxj[s]) + pxi[r])) (pe), bf16(relu(h0 +
+        // pxi[r])) (pregathered), in place over the staged rows, zero past
+        // the edge count
+        bf16* h = ring(tf);
+        for (int q = tid; q < kPieces; q += kThreads) {
+          const int r = q >> 4, col = (q & 15) * 8;
+          uint4 v = make_uint4(0u, 0u, 0u, 0u);
+          if (r < nv) {
+            const uint4 x0 = *reinterpret_cast<const uint4*>(h + r * kLd + col);
+            const uint4 j =
+                GATHERS ? __ldg(reinterpret_cast<const uint4*>(
+                              a.pxj + (size_t)snd[r] * kW + col))
+                        : x0;
+            const uint4 i =
+                GATHERS ? __ldg(reinterpret_cast<const uint4*>(
+                              a.pxi + (size_t)rcv[r] * kW + col))
+                        : *reinterpret_cast<const uint4*>(s_stage + r * kLd +
+                                                          col);
+            v = first_layer8<GATHERS>(x0, j, i);
           }
-    mm_tile<kW, backward(P)>(acc, x, s_w);
+          *reinterpret_cast<uint4*>(h + r * kLd + col) = v;
+        }
+        __syncthreads();
+      }
+      if (first && E == kPregathered && tf + 1 < cnt)
+        stage_nodes(s_stage, a.pxi, rcv_of(tf + 1), tf + 1);
+      float acc[2][4][4];
+      if (FOLD && first)
+        fold_init_rows(acc, a.be, pxj_rows(tf), pxi_rows(tf), nv);
+      else
+        bias_init(acc, bias);
+      mm_tile<kW, false>(acc, FOLD && first ? e0_fwd(tf) : ring(tf), s_w);
+      if (!out) {
+        const uint32_t dst =
+            remote(tile_at(s_ring, tf % depth_next), p + 1);
+        acc_pairs(acc, [&](int r, int col, float v0, float v1) {
+          st_remote(dst + 2 * (r * kLd + col),
+                    pack_rn(fmaxf(v0, 0.f), fmaxf(v1, 0.f)));
+        });
+      } else {
+        acc_pairs(acc, [&](int r, int col, float v0, float v1) {
+          *reinterpret_cast<float2*>(s_y + r * kLdF + col) =
+              make_float2(v0, v1);
+        });
+        __syncthreads();  // y written
+        // LayerNorm's row statistics, four threads an edge (thread q holds
+        // columns q + 4 j): mean, rstd, and m1 = mean(dx), m2 = mean(dx
+        // xhat) of dx = bf16(g[i]) ln_s; bf16(g) in place of g (zero past
+        // the edge count)
+        {
+          constexpr int CP = kW / 4;
+          const int e = tid >> 2, q = tid & 3;
+          const bool valid = e < nv;
+          const float* row = s_y + e * kLdF;
+          float* grow = g_rows(tf) + e * kLdF;
+          float v[CP];
+          float mu = 0.f;
+#pragma unroll
+          for (int j = 0; j < CP; ++j) {
+            v[j] = row[q + 4 * j];
+            mu += v[j];
+          }
+          mu += __shfl_xor_sync(0xffffffffu, mu, 1);
+          mu += __shfl_xor_sync(0xffffffffu, mu, 2);
+          mu *= 1.f / kW;
+          float var = 0.f;
+#pragma unroll
+          for (int j = 0; j < CP; ++j) {
+            const float d = v[j] - mu;
+            var = fmaf(d, d, var);
+          }
+          var += __shfl_xor_sync(0xffffffffu, var, 1);
+          var += __shfl_xor_sync(0xffffffffu, var, 2);
+          var *= 1.f / kW;
+          const float rstd = rsqrtf(var + kLnEps);
+          float m1 = 0.f, m2 = 0.f;
+#pragma unroll
+          for (int j = 0; j < CP; ++j) {
+            const int col = q + 4 * j;
+            const float gv = valid ? round_bf16(grow[col]) : 0.f;
+            grow[col] = gv;
+            const float dx = gv * __ldg(a.ln_s + col);
+            m1 += dx;
+            m2 = fmaf(dx, (v[j] - mu) * rstd, m2);
+          }
+          m1 += __shfl_xor_sync(0xffffffffu, m1, 1);
+          m1 += __shfl_xor_sync(0xffffffffu, m1, 2);
+          m2 += __shfl_xor_sync(0xffffffffu, m2, 1);
+          m2 += __shfl_xor_sync(0xffffffffu, m2, 2);
+          if (q == 0) {
+            s_stat[4 * e] = mu;
+            s_stat[4 * e + 1] = rstd;
+            s_stat[4 * e + 2] = m1 * (1.f / kW);
+            s_stat[4 * e + 3] = m2 * (1.f / kW);
+          }
+        }
+        __syncthreads();
+        // dy = rstd (dx - m1 - xhat m2), a thread a column over half the
+        // tile's rows, eight rows a batch (their loads before their
+        // stores): bf16(dy) into the first gradient tile (zero past the
+        // edge count), and the sums of dy, bf16(g) xhat and bf16(g)
+        {
+          const int col = tid & (kW - 1);
+          const int e_beg = (tid >> 7) * (kTE / 2);
+          const float* gt = g_rows(tf);
+          for (int e0 = e_beg; e0 < e_beg + kTE / 2; e0 += 8) {
+            float yv[8], gv[8];
+            float4 st[8];
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              yv[i] = s_y[(e0 + i) * kLdF + col];
+              gv[i] = gt[(e0 + i) * kLdF + col];
+              st[i] = *reinterpret_cast<const float4*>(s_stat + 4 * (e0 + i));
+            }
+#pragma unroll
+            for (int i = 0; i < 8; ++i) {
+              float dy = 0.f;
+              if (e0 + i < nv) {
+                const float xhat = (yv[i] - st[i].x) * st[i].y;
+                dy = st[i].y * (gv[i] * ls - st[i].z - xhat * st[i].w);
+                ln_sums[0] += dy;
+                ln_sums[1] += gv[i] * xhat;
+                ln_sums[2] += gv[i];
+              }
+              s_in[(e0 + i) * kLd + col] = __float2bfloat16_rn(dy);
+            }
+          }
+        }
+        __syncthreads();  // bf16(dy) written
+      }
+    }
 
-    if (P != kOutput) {
+    cp_async_commit();
+
+    // ---- the backward of tile tb
+    if (tb >= 0 && tb < cnt) {
+      const int nv = valid_rows(tb);
+      const size_t base = (size_t)(t_beg + tb) * kTE;
+      bf16* d = out ? s_in : tile_at(s_in, tb & 1);
+      const bf16* x = FOLD && first ? e0_bwd(tb) : ring(tb);
+      wgrad_tile(dw, x, d);
+      float acc[2][4][4];
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
         for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {  // elements 2h, 2h + 1: one row
-            const int e = acc_row(mi, 2 * h);
-            float v0 = acc[mi][ni][2 * h], v1 = acc[mi][ni][2 * h + 1];
-            if (P == kFirst || P == kForward) {
-              v0 = fmaxf(v0, 0.f);
-              v1 = fmaxf(v1, 0.f);
-            } else if (P == kBack) {
-              const float2 m = unpack(mask[mi][ni][h]);
+          for (int q = 0; q < 4; ++q) acc[mi][ni][q] = 0.f;
+      mm_tile<kW, true>(acc, d, s_w);
+      if (FOLD && first) {
+        // d_e0 = bf16(bf16(dz) . W_e^T)
+        acc_pairs(acc, [&](int r, int col, float v0, float v1) {
+          if (r < nv)
+            *reinterpret_cast<uint32_t*>(a.d_src + (base + r) * kW + col) =
+                pack_rn(v0, v1);
+        });
+        scatter(d, tb, nv);
+      } else {
+        // da = (d . W^T) where x > 0; its unrounded column sums (the bias
+        // gradient of the layer before, p >= 1)
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float2 m = unpack(*reinterpret_cast<const uint32_t*>(
+                  x + acc_row(mi, 2 * h) * kLd + acc_col(ni, 0)));
+              float& v0 = acc[mi][ni][2 * h];
+              float& v1 = acc[mi][ni][2 * h + 1];
               v0 = m.x > 0.f ? v0 : 0.f;
               v1 = m.y > 0.f ? v1 : 0.f;
               sums[ni][0] += v0;
               sums[ni][1] += v1;
             }
-            if (e >= n_valid) continue;
-            const size_t o = (size_t)(base + e) * kW + acc_col(ni, 0);
-            *reinterpret_cast<uint32_t*>(a.out + o) = pack_rn(v0, v1);
-            if (P == kBack && a.out32 != nullptr)
-              *reinterpret_cast<float2*>(a.out32 + o) = make_float2(v0, v1);
+        if (!first) {
+          const uint32_t dst = remote(tile_at(s_in, tb & 1), p - 1);
+          acc_pairs(acc, [&](int r, int col, float v0, float v1) {
+            st_remote(dst + 2 * (r * kLd + col), pack_rn(v0, v1));
+          });
+        } else {
+          // dz: the pe's dz32; bf16(dz) over d (every warp has read it),
+          // then d_src and the scatter from it
+          if (E == kPe)
+            acc_pairs(acc, [&](int r, int col, float v0, float v1) {
+              if (r < nv)
+                *reinterpret_cast<float2*>(a.dz32 + (base + r) * kW + col) =
+                    make_float2(v0, v1);
+            });
+          __syncthreads();
+          acc_pairs(acc, [&](int r, int col, float v0, float v1) {
+            *reinterpret_cast<uint32_t*>(d + r * kLd + col) = pack_rn(v0, v1);
+          });
+          __syncthreads();
+          for (int q = tid; q < kPieces; q += kThreads) {
+            const int r = q >> 4, col = (q & 15) * 8;
+            if (r < nv)
+              *reinterpret_cast<uint4*>(a.d_src + (base + r) * kW + col) =
+                  *reinterpret_cast<const uint4*>(d + r * kLd + col);
           }
-    } else {
-      acc_pairs(acc, [&](int r, int col, float v0, float v1) {
-        *reinterpret_cast<float2*>(s_y + r * kLdF + col) = make_float2(v0, v1);
-      });
-      __syncthreads();  // y written
-      // LayerNorm's row statistics, four threads an edge (thread q holds
-      // columns q + 4 j): mean, rstd, and m1 = mean(dx), m2 = mean(dx xhat)
-      // of dx = bf16(g[i]) ln_s
-      {
-        constexpr int CP = kW / 4;
-        const int e = tid >> 2, q = tid & 3;
-        const bool valid = e < n_valid;
-        const float* row = s_y + e * kLdF;
-        const float* gp = a.g + (size_t)s_rcv[e] * kW;
-        float v[CP];
-        float mu = 0.f;
-#pragma unroll
-        for (int j = 0; j < CP; ++j) {
-          v[j] = row[q + 4 * j];
-          mu += v[j];
-        }
-        mu += __shfl_xor_sync(0xffffffffu, mu, 1);
-        mu += __shfl_xor_sync(0xffffffffu, mu, 2);
-        mu *= 1.f / kW;
-        float var = 0.f;
-#pragma unroll
-        for (int j = 0; j < CP; ++j) {
-          const float d = v[j] - mu;
-          var = fmaf(d, d, var);
-        }
-        var += __shfl_xor_sync(0xffffffffu, var, 1);
-        var += __shfl_xor_sync(0xffffffffu, var, 2);
-        var *= 1.f / kW;
-        const float rstd = rsqrtf(var + kLnEps);
-        float m1 = 0.f, m2 = 0.f;
-#pragma unroll
-        for (int j = 0; j < CP; ++j) {
-          const int c = q + 4 * j;
-          const float gv = valid ? round_bf16(__ldg(gp + c)) : 0.f;
-          const float dx = gv * __ldg(a.ln_s + c);
-          m1 += dx;
-          m2 = fmaf(dx, (v[j] - mu) * rstd, m2);
-        }
-        m1 += __shfl_xor_sync(0xffffffffu, m1, 1);
-        m1 += __shfl_xor_sync(0xffffffffu, m1, 2);
-        m2 += __shfl_xor_sync(0xffffffffu, m2, 1);
-        m2 += __shfl_xor_sync(0xffffffffu, m2, 2);
-        if (q == 0) {
-          s_stat[4 * e] = mu;
-          s_stat[4 * e + 1] = rstd;
-          s_stat[4 * e + 2] = m1 * (1.f / kW);
-          s_stat[4 * e + 3] = m2 * (1.f / kW);
-        }
-      }
-      __syncthreads();
-      // dy = rstd (dx - m1 - xhat m2), a thread a column over half the
-      // tile's rows: bf16(dy) out (coalesced along the row), and the sums
-      // of dy, bf16(g) xhat and bf16(g)
-      {
-        const int c = tid & (kW - 1);
-        const int e_end = min(n_valid, (tid >> 7) * (kTE / 2) + kTE / 2);
-        for (int e = (tid >> 7) * (kTE / 2); e < e_end; ++e) {
-          const float* st = s_stat + 4 * e;
-          const float xhat = (s_y[e * kLdF + c] - st[0]) * st[1];
-          const float gv = round_bf16(__ldg(a.g + (size_t)s_rcv[e] * kW + c));
-          const float dy = st[1] * (gv * ls - st[2] - xhat * st[3]);
-          a.out[(size_t)(base + e) * kW + c] = __float2bfloat16_rn(dy);
-          ln_sums[0] += dy;
-          ln_sums[1] += gv * xhat;
-          ln_sums[2] += gv;
+          scatter(d, tb, nv);
         }
       }
     }
-    __syncthreads();  // before the next prefetch overwrites this tile
+    if (next_idx)
+      next.finish<GATHERS>(rcv_of(t_idx) + 32 * warp,
+                           snd_of(t_idx) + 32 * warp, a.rowptr, a.n_nodes,
+                           warp_base(t_idx), warp_valid(t_idx), hint);
+    cluster_sync();
   }
-  cp_async_wait<0>();
 
-  // this block's sums, the two halves of the rows added in order
-  if (P == kBack && a.sums != nullptr) {
+  // this CTA's partials, once, into the cluster's row: dW at packed weight
+  // p, the bias sums in the bias row after the n weights
+  float* row = a.partial + (size_t)c * a.total;
+  {
+    const int m0 = 32 * (warp & 3), n0 = 64 * (warp >> 2);
+    float* pw = row + (size_t)p * kW * kW;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          pw[(m0 + 16 * mi + lane_g() + 8 * (q >> 1)) * kW + n0 + 8 * ni +
+             2 * lane_t() + (q & 1)] = dw[mi][ni][q];
+  }
+  float* pb = row + (size_t)n * kW * kW;
+  if (p >= 1) {
+    // the two halves of the rows (warps w, w ^ 1) added in order
 #pragma unroll
     for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
@@ -889,357 +1263,115 @@ __global__ void __launch_bounds__(kThreads, 2) edge_pass_kernel(PassArgs a) {
 #pragma unroll
         for (int k = 0; k < 2; ++k)
           s_part[(warp & 1) * kW + acc_col(ni, k)] = sums[ni][k];
-    __syncthreads();
-    if (tid < kW)
-      a.sums[(size_t)blockIdx.x * a.stride + tid] = s_part[tid] + s_part[kW + tid];
-  } else if (P == kOutput) {
+  }
+  if (out)  // the halves of the rows, added in order below
 #pragma unroll
     for (int k = 0; k < 3; ++k)
-      s_part[(tid >> 7) * 3 * kW + k * kW + (tid & (kW - 1))] = ln_sums[k];
-    __syncthreads();
-    for (int p = tid; p < 3 * kW; p += kThreads)
-      a.sums[(size_t)blockIdx.x * a.stride + p] = s_part[p] + s_part[3 * kW + p];
+      s_part[2 * kW + (tid >> 7) * 3 * kW + k * kW + (tid & (kW - 1))] =
+          ln_sums[k];
+  __syncthreads();
+  if (p >= 1 && tid < kW)
+    pb[(size_t)(p - 1) * kW + tid] = s_part[tid] + s_part[kW + tid];
+  if (out)
+    for (int q = tid; q < 3 * kW; q += kThreads)
+      pb[(size_t)(n - 1) * kW + q] =
+          s_part[2 * kW + q] + s_part[2 * kW + 3 * kW + q];
+}
+
+// The active clusters of n CTAs the card holds at once, with the
+// shared-memory opt-in, once per device and n (`cache`, zeros: unset).
+template <Entry E>
+cudaError_t max_clusters(int n, int* clusters) {
+  static std::atomic<int> cache[kMaxDevices][kMaxCtas + 1];
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  int v = device < kMaxDevices
+              ? cache[device][n].load(std::memory_order_relaxed)
+              : 0;
+  if (v == 0) {
+    int optin = 0;
+    if ((err = cudaDeviceGetAttribute(
+             &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device)) !=
+        cudaSuccess)
+      return err;
+    if (Layout::bytes > optin) return cudaErrorInvalidValue;
+    if ((err = cudaFuncSetAttribute(
+             cluster_bwd_kernel<E>,
+             cudaFuncAttributeMaxDynamicSharedMemorySize, Layout::bytes)) !=
+        cudaSuccess)
+      return err;
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = n;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(n);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = Layout::bytes;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    if ((err = cudaOccupancyMaxActiveClusters(&v, cluster_bwd_kernel<E>,
+                                              &cfg)) != cudaSuccess)
+      return err;
+    if (v < 1) return cudaErrorInvalidConfiguration;
+    if (device < kMaxDevices)
+      cache[device][n].store(v, std::memory_order_relaxed);
   }
+  *clusters = v;
+  return cudaSuccess;
 }
 
-// h_0 = bf16(relu((pe[e] + pxj[s]) + pxi[r])), the pe entry's first
-// layer (GATHERS), or bf16(relu(h0[e] + pxi[r])), the pregathered entry's:
-// one warp per edge, four columns a lane.
-template <bool GATHERS>
-__global__ void __launch_bounds__(kThreads) first_input_kernel(
-    const bf16* __restrict__ src, const bf16* __restrict__ pxj,
-    const bf16* __restrict__ pxi, const int* __restrict__ senders,
-    const int* __restrict__ rowptr, bf16* __restrict__ h0, int n_nodes,
-    int n_edges) {
-  const int lane = threadIdx.x & 31;
-  for (int e = (blockIdx.x * kThreads + threadIdx.x) >> 5; e < n_edges;
-       e += (gridDim.x * kThreads) >> 5) {
-    const int r = tile128::receiver_of(rowptr, n_nodes, e);
-    const uint2 a =
-        __ldg(reinterpret_cast<const uint2*>(src + (size_t)e * kW) + lane);
-    const uint2 i =
-        __ldg(reinterpret_cast<const uint2*>(pxi + (size_t)r * kW) + lane);
-    uint2 v;
-    if (GATHERS) {
-      const uint2 j = __ldg(
-          reinterpret_cast<const uint2*>(pxj + (size_t)senders[e] * kW) + lane);
-      v = make_uint2(relu_sum3(a.x, j.x, i.x), relu_sum3(a.y, j.y, i.y));
-    } else {
-      v = make_uint2(relu_sum2(a.x, i.x), relu_sum2(a.y, i.y));
-    }
-    reinterpret_cast<uint2*>(h0 + (size_t)e * kW)[lane] = v;
-  }
-}
-
-// d_pxi[r] += bf16(dz) over the receivers (one atomicAdd per run of equal
-// receivers in each half of a 64-edge tile) and, fold, d_pxj[s] +=
-// bf16(dz) with one atomicAdd per element.
-template <bool FOLD>
-__global__ void __launch_bounds__(kThreads) scatter_kernel(
-    const bf16* __restrict__ dz, const int* __restrict__ senders,
-    const int* __restrict__ rowptr, float* __restrict__ d_pxj,
-    float* __restrict__ d_pxi, int n_nodes, int n_edges) {
-  __shared__ int s_snd[kTE], s_rcv[kTE];
-  const int tid = threadIdx.x, n = tid & (kW - 1);
-  const int n_tiles = (n_edges + kTE - 1) / kTE;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int base = tile * kTE, n_valid = min(kTE, n_edges - base);
-    if (tid < 64)  // warps 0 and 1
-      tile128::tile_indices<kTE, FOLD>(s_rcv, s_snd, senders, rowptr,
-                                       n_nodes, n_edges, tile, -1);
-    __syncthreads();
-    const int e_beg = (tid >> 7) * (kTE / 2);
-    const int e_end = min(e_beg + kTE / 2, n_valid);
-    if (e_beg < e_end) {
-      int at = s_rcv[e_beg];
-      float s = 0.f;
-      for (int e = e_beg; e < e_end; ++e) {
-        const float v = __bfloat162float(dz[(size_t)(base + e) * kW + n]);
-        if (FOLD) atomicAdd(d_pxj + (size_t)s_snd[e] * kW + n, v);
-        if (s_rcv[e] != at) {
-          atomicAdd(d_pxi + (size_t)at * kW + n, s);
-          s = 0.f;
-          at = s_rcv[e];
-        }
-        s += v;
-      }
-      atomicAdd(d_pxi + (size_t)at * kW + n, s);
-    }
-    __syncthreads();
-  }
-}
-
-constexpr int kMaxPairs = 5;  // W_e, three tail weights, W_out
-constexpr int kSlab = 64;     // edges a slab of kernel (b)
-
-// Kernel (b): dW = sum_e A[e]^T D[e] for each weight (blockIdx.y) over one
-// edge range (blockIdx.x); the block writes its (kW x kW) partial at
-// partial + blockIdx.x * stride + off[pair].
-struct WgradArgs {
-  const bf16* a[kMaxPairs];  // (E, kW) the layer's input rows
-  const bf16* d[kMaxPairs];  // (E, kW) bf16 of its output's gradient rows
-  int off[kMaxPairs];
-  float* partial;
-  int stride, chunk, n_edges;
-};
-
-constexpr int wgrad_smem() { return 4 * kSlab * kLd * 2; }
-
-// A (128 x 128) product over each 64-edge slab, both slabs read down their
-// columns by ldmatrix.trans: warp w forms rows 32 (w & 3) .. + 31 and
-// columns 64 (w >> 2) .. + 63 of dW in 64 f32 accumulators a thread over
-// the block's whole edge range; slabs double-buffered with cp.async
-// (69,632 bytes).
-__global__ void __launch_bounds__(kThreads, 2) wgrad_kernel(WgradArgs args) {
-  extern __shared__ __align__(16) unsigned char bf16w_wgrad_smem[];
-  bf16* s_a = reinterpret_cast<bf16*>(bf16w_wgrad_smem);  // two slabs
-  bf16* s_d = s_a + 2 * kSlab * kLd;                      // two slabs
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int pair = blockIdx.y;
-  const bf16* A = args.a[pair];
-  const bf16* D = args.d[pair];
-  const int e_beg = blockIdx.x * args.chunk;
-  const int e_end = min(args.n_edges, e_beg + args.chunk);
-  const int n_slabs = e_end > e_beg ? (e_end - e_beg + kSlab - 1) / kSlab : 0;
-  auto prefetch = [&](int slab, int buf) {
-    const int base = e_beg + slab * kSlab;
-    for (int p = tid; p < 2 * kSlab * (kW / 8); p += kThreads) {
-      const int which = p / (kSlab * (kW / 8)), q = p % (kSlab * (kW / 8));
-      const int r = q >> 4, c = (q & 15) * 8;
-      const bf16* src = which ? D : A;
-      bf16* dst = (which ? s_d : s_a) + buf * kSlab * kLd + r * kLd + c;
-      piece_async(dst, base + r < e_end ? src + (size_t)(base + r) * kW + c
-                                        : nullptr, src);
-    }
-    cp_async_commit();
-  };
-  const int m0 = 32 * (warp & 3), n0 = 64 * (warp >> 2);
-  // lane addresses of the ldmatrix.trans blocks: A(m, k) = a[k kLd + m],
-  // B(k, n) = d[k kLd + n]
-  const int a_off = ((lane & 7) + ((lane >> 4) << 3)) * kLd + m0 +
-                    (((lane >> 3) & 1) << 3);
-  const int d_off = ((lane & 7) + (((lane >> 3) & 1) << 3)) * kLd + n0 +
-                    ((lane >> 4) << 3);
-  float acc[2][8][4] = {};
-  if (n_slabs > 0) prefetch(0, 0);
-  for (int slab = 0; slab < n_slabs; ++slab) {
-    const int cur = slab & 1;
-    if (slab + 1 < n_slabs)
-      prefetch(slab + 1, cur ^ 1);
-    else
-      cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    const bf16* sa = s_a + cur * kSlab * kLd;
-    const bf16* sd = s_d + cur * kSlab * kLd;
-#pragma unroll
-    for (int k0 = 0; k0 < kSlab; k0 += 16) {
-      uint32_t fa[2][4], fb[4][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        ldsm_t(fa[mi], sa + a_off + k0 * kLd + 16 * mi);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        ldsm_t(fb[j], sd + d_off + k0 * kLd + 16 * j);
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni)
-          mma(acc[mi][ni], fa[mi], fb[ni >> 1][2 * (ni & 1)],
-              fb[ni >> 1][2 * (ni & 1) + 1]);
-    }
-    __syncthreads();  // before the next prefetch overwrites this slab
-  }
-  cp_async_wait<0>();
-  float* pw = args.partial + (size_t)blockIdx.x * args.stride + args.off[pair];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        pw[(m0 + 16 * mi + lane_g() + 8 * (c >> 1)) * kW + n0 + 8 * ni +
-           2 * lane_t() + (c & 1)] = acc[mi][ni][c];
-}
-
-// One pass over every edge on a persistent grid of `blocks` blocks.
-template <Pass P>
-cudaError_t run_pass(const PassArgs& a, int blocks, cudaStream_t stream) {
-  static std::atomic<int> cache[kMaxDevices];
-  int per_sm = 0, n_sm = 0;
-  cudaError_t err = residency(edge_pass_kernel<P>, PassLayout<P>::bytes,
-                              cache, &per_sm, &n_sm);
-  if (err != cudaSuccess || blocks == 0) return err;
-  edge_pass_kernel<P><<<blocks, kThreads, PassLayout<P>::bytes, stream>>>(a);
-  return cudaGetLastError();
-}
-
-// The packed gradient buffer, in floats: the weights' gradients (dW_e
+// The packed gradient buffer, in floats: the n weights' gradients (dW_e
 // (fold), dW_1 .. dW_L1, dW_out), then the bias row (db_e (fold), db_1 ..
 // db_L1, db_out, d_ln_s, d_ln_b).
-struct Packed {
-  int n_w, n_b;  // weights, and rows of kW floats in the bias row
-  Packed(bool fold, int l1) {
-    n_w = (fold ? 1 : 0) + l1 + 1;
-    n_b = n_w + 2;
-  }
-  int weights() const { return n_w * kW * kW; }
-  int biases() const { return n_b * kW; }
-};
+__host__ __device__ constexpr int packed_floats(int n) {
+  return n * kW * kW + (n + 2) * kW;
+}
 
-// The backward as one launch sequence: kernel (a) as 2 L1 + 4 passes
-// (pe: an elementwise first layer and 2 L1 + 2 passes) that recompute
-// h_0..h_L1, run LayerNorm's backward and the data gradients down to dz,
-// each h_k and each bf16(da_k) written to `scratch`, the bias gradients
-// summed per block; the scatter of bf16(dz); kernel (b) for every weight
-// gradient; the block-ordered sums of the partials.  Every pass runs on a
-// grid of 2 n_sm blocks (or one a tile), so the bias partials have one
-// row count.
+// The backward as two launches: the cluster pipeline (one cluster of n
+// CTAs per range of consecutive tiles, as many clusters as the card holds
+// at once, at most one a tile and n_sm / n in all), then the clusters'
+// partial rows added in cluster order, so that the weight and bias
+// gradients are the same from run to run.
+// the kernels the last call of launch() launched
+std::atomic<int> last_launches{0};
+
 template <Entry E>
-int launch(const bf16* src, const bf16* we, const bf16* be, const bf16* pxj,
-           const bf16* pxi, const int* senders, const int* rowptr,
-           const bf16* w_rest, const bf16* b_rest, const bf16* w_out,
-           const bf16* b_out, const float* ln_s, const float* g, bf16* d_src,
-           float* dz32, float* d_pxj, float* d_pxi, float* wgrad,
-           float* partial, bf16* scratch, int n_nodes, int n_edges, int l1,
-           int n_sm, cudaStream_t stream) {
-  constexpr bool FOLD = E == kFold;
-  const Packed P(FOLD, l1);
-  const size_t plane = (size_t)n_edges * kW;
-  if (n_nodes == 0) n_edges = 0;
-  // act[k] = h_k, k = 0..L1; grad[k] = bf16 of the gradient of W_of[k]'s
-  // output (grad[0]: dz, the pe entry's d_src; grad[L1 + 1]: dy)
-  bf16* act[kMaxL1 + 1];
-  bf16* grad[kMaxL1 + 2];
-  bf16* next = scratch;
-  for (int k = 0; k <= l1; ++k, next += plane) act[k] = next;
-  for (int k = 0; k <= l1 + 1; ++k) {
-    if (k == 0 && !FOLD) {
-      grad[0] = d_src;
-      continue;
-    }
-    grad[k] = next;
-    next += plane;
-  }
-  const bf16* w_of[kMaxL1 + 2];
-  const bf16* b_of[kMaxL1 + 2];
-  w_of[0] = we;
-  b_of[0] = be;
-  for (int k = 1; k <= l1; ++k) {
-    w_of[k] = w_rest + (size_t)(k - 1) * kW * kW;
-    b_of[k] = b_rest + (size_t)(k - 1) * kW;
-  }
-  w_of[l1 + 1] = w_out;
-  b_of[l1 + 1] = b_out;
-  // weight k's place among the packed weights, and its bias's in the row
-  auto weight_at = [&](int k) { return (FOLD ? k : k - 1) * kW * kW; };
-  auto bias_at = [&](int k) { return (FOLD ? k : k - 1) * kW; };
-
-  const int n_tiles = (n_edges + kTE - 1) / kTE;
-  const int blocks = n_tiles < 2 * n_sm ? n_tiles : 2 * n_sm;
-  float* bias_part = partial + (size_t)n_sm * P.weights();
-  PassArgs a{};
-  a.pxj = pxj;
-  a.pxi = pxi;
-  a.senders = senders;
-  a.rowptr = rowptr;
-  a.g = g;
-  a.ln_s = ln_s;
-  a.stride = P.biases();
-  a.n_nodes = n_nodes;
-  a.n_edges = n_edges;
+int launch(Args a, float* wgrad, int n_sm, cudaStream_t stream) {
+  const int n = (E == kFold ? 1 : 0) + a.l1 + 1;
+  int launches = 0;
+  a.total = packed_floats(n);
+  if (a.n_nodes == 0) a.n_edges = 0;
+  const int n_tiles = (a.n_edges + kTE - 1) / kTE;
+  int nc = 0;
   cudaError_t err = cudaSuccess;
-  if (n_edges > 0) {
-    // recompute h_0
-    if (FOLD) {
-      a.x = src;
-      a.w = we;
-      a.bias = be;
-      a.out = act[0];
-      if ((err = run_pass<kFirst>(a, blocks, stream)) != cudaSuccess)
-        return (int)err;
-    } else {
-      first_input_kernel<E == kPe><<<4 * n_sm, kThreads, 0, stream>>>(
-          src, pxj, pxi, senders, rowptr, act[0], n_nodes, n_edges);
-      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    }
-    // h_1..h_L1
-    for (int k = 1; k <= l1; ++k) {
-      a.x = act[k - 1];
-      a.w = w_of[k];
-      a.bias = b_of[k];
-      a.out = act[k];
-      if ((err = run_pass<kForward>(a, blocks, stream)) != cudaSuccess)
-        return (int)err;
-    }
-    // y, then bf16(dy) and the blocks' db_out, d_ln_s, d_ln_b
-    a.x = act[l1];
-    a.w = w_out;
-    a.bias = b_out;
-    a.out = grad[l1 + 1];
-    a.sums = bias_part + bias_at(l1 + 1);
-    if ((err = run_pass<kOutput>(a, blocks, stream)) != cudaSuccess)
-      return (int)err;
-    // da_L1 .. da_0 = dz, each with its bias gradient (none for the pe's
-    // or the pregathered entry's dz)
-    for (int k = l1 + 1; k >= 1; --k) {
-      a.x = grad[k];
-      a.w = w_of[k];
-      a.mask = act[k - 1];
-      a.out = grad[k - 1];
-      a.out32 = k == 1 && !FOLD ? dz32 : nullptr;
-      a.sums = k == 1 && !FOLD ? nullptr : bias_part + bias_at(k - 1);
-      if ((err = run_pass<kBack>(a, blocks, stream)) != cudaSuccess)
-        return (int)err;
-    }
-    if (FOLD) {  // d_e0 = bf16(bf16(dz) . W_e^T)
-      a.x = grad[0];
-      a.w = we;
-      a.out = d_src;
-      a.out32 = nullptr;
-      a.sums = nullptr;
-      if ((err = run_pass<kBackPlain>(a, blocks, stream)) != cudaSuccess)
-        return (int)err;
-    }
-    const int sblocks = n_tiles < 4 * n_sm ? n_tiles : 4 * n_sm;
-    scatter_kernel<FOLD><<<sblocks, kThreads, 0, stream>>>(
-        grad[0], senders, rowptr, d_pxj, d_pxi, n_nodes, n_edges);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
-
-  // kernel (b): one partial row per edge range, as many ranges as fill the
-  // card once (at most n_sm rows)
-  WgradArgs wa{};
-  int pairs = 0;
-  for (int k = FOLD ? 0 : 1; k <= l1 + 1; ++k, ++pairs) {
-    wa.a[pairs] = k == 0 ? src : act[k - 1];
-    wa.d[pairs] = grad[k];
-    wa.off[pairs] = weight_at(k);
-  }
-  int splits = 0;
-  if (n_edges > 0) {
-    static std::atomic<int> cache[kMaxDevices];
-    int per_sm = 0, sms = 0;
-    if ((err = residency(wgrad_kernel, wgrad_smem(), cache, &per_sm, &sms)) !=
+  if (n_tiles > 0) {
+    if ((err = max_clusters<E>(n, &nc)) != cudaSuccess) return (int)err;
+    if (nc > n_tiles) nc = n_tiles;
+    if (nc > n_sm / n) nc = n_sm / n > 1 ? n_sm / n : 1;
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = n;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(n * nc);
+    cfg.blockDim = dim3(kThreads);
+    cfg.dynamicSmemBytes = Layout::bytes;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    if ((err = cudaLaunchKernelEx(&cfg, cluster_bwd_kernel<E>, a)) !=
         cudaSuccess)
       return (int)err;
-    int want = per_sm * sms / pairs;
-    if (want > n_sm) want = n_sm;
-    if (want < 1) want = 1;
-    const int n_slabs = (n_edges + kSlab - 1) / kSlab;
-    wa.chunk = (n_slabs + want - 1) / want * kSlab;
-    splits = (n_edges + wa.chunk - 1) / wa.chunk;
-    wa.partial = partial;
-    wa.stride = P.weights();
-    wa.n_edges = n_edges;
-    wgrad_kernel<<<dim3(splits, pairs), kThreads, wgrad_smem(), stream>>>(wa);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    ++launches;
   }
-  reduce_partials_kernel<<<(P.weights() + 255) / 256, 256, 0, stream>>>(
-      partial, wgrad, splits, P.weights());
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  reduce_partials_kernel<<<(P.biases() + 255) / 256, 256, 0, stream>>>(
-      bias_part, wgrad + P.weights(), n_edges > 0 ? blocks : 0, P.biases());
+  reduce_partials_kernel<<<(a.total + 255) / 256, 256, 0, stream>>>(
+      a.partial, wgrad, nc, a.total);
+  last_launches.store(++launches, std::memory_order_relaxed);
   return (int)cudaGetLastError();
 }
 
@@ -1291,9 +1423,11 @@ int fused_edge_tail_agg_bf16_w128_fwd(
 // fold, d_pxj (n_nodes, 128) f32, which must arrive zeroed; wgrad (f32) holds,
 // packed, dW_e (fold), dW_rest (l1, 128, 128), dW_out, then db_e (fold),
 // db_rest (l1, 128), db_out, d_ln_s, d_ln_b.  partial is f32 scratch of
-// n_sm rows of the weights' floats, then 2 n_sm rows of the biases'
-// floats; scratch is bf16 of (2 l1 + 3) (fold) or (2 l1 + 2) (pe,
-// pregathered) planes of n_edges x 128.  n_sm is the card's SM count.  Built for l1 in 0..3.
+// max(1, n_sm / n) rows of those packed floats, n = (fold) + l1 + 1 the
+// CTAs of a cluster.  scratch is not read and may be null (it stays in the
+// argument list so that a timing script calls builds of other trees the
+// same way).  n_sm is the card's SM count.  Two launches.  Built for l1 in
+// 0..3.
 int fused_edge_tail_agg_bf16_w128_bwd(
     const bf16* src, const bf16* we, const bf16* be, const bf16* pxj,
     const bf16* pxi, const int* senders, const int* rowptr,
@@ -1302,40 +1436,74 @@ int fused_edge_tail_agg_bf16_w128_bwd(
     float* dz32, float* d_pxj, float* d_pxi, float* wgrad, float* partial,
     bf16* scratch, int n_nodes, int n_edges, int l1, int entry, int n_sm,
     void* stream) {
+  (void)scratch;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (l1 < 0 || l1 > kMaxL1 || n_sm < 1 || scratch == nullptr ||
-      partial == nullptr)
+  if (l1 < 0 || l1 > kMaxL1 || n_sm < 1 || partial == nullptr)
     return (int)cudaErrorInvalidValue;
+  bwd::Args a{};
+  a.src = src;
+  a.pxi = pxi;
+  a.rowptr = rowptr;
+  a.w_rest = w_rest;
+  a.b_rest = b_rest;
+  a.w_out = w_out;
+  a.b_out = b_out;
+  a.ln_s = ln_s;
+  a.g = g;
+  a.d_src = d_src;
+  a.d_pxi = d_pxi;
+  a.partial = partial;
+  a.n_nodes = n_nodes;
+  a.n_edges = n_edges;
+  a.l1 = l1;
   if (entry == kPregathered)
-    return bwd::launch<kPregathered>(src, nullptr, nullptr, nullptr, pxi,
-                                     nullptr, rowptr, w_rest, b_rest, w_out,
-                                     b_out, ln_s, g, d_src, nullptr, nullptr,
-                                     d_pxi, wgrad, partial, scratch, n_nodes,
-                                     n_edges, l1, n_sm, s);
+    return bwd::launch<kPregathered>(a, wgrad, n_sm, s);
   if (pxj == nullptr || senders == nullptr) return (int)cudaErrorInvalidValue;
-  if (entry == kFold && we != nullptr && be != nullptr && d_pxj != nullptr)
-    return bwd::launch<kFold>(src, we, be, pxj, pxi, senders, rowptr, w_rest,
-                              b_rest, w_out, b_out, ln_s, g, d_src, dz32,
-                              d_pxj, d_pxi, wgrad, partial, scratch, n_nodes,
-                              n_edges, l1, n_sm, s);
-  if (entry == kPe && dz32 != nullptr)
-    return bwd::launch<kPe>(src, we, be, pxj, pxi, senders, rowptr, w_rest,
-                            b_rest, w_out, b_out, ln_s, g, d_src, dz32,
-                            d_pxj, d_pxi, wgrad, partial, scratch, n_nodes,
-                            n_edges, l1, n_sm, s);
+  a.pxj = pxj;
+  a.senders = senders;
+  if (entry == kFold && we != nullptr && be != nullptr && d_pxj != nullptr) {
+    a.we = we;
+    a.be = be;
+    a.d_pxj = d_pxj;
+    return bwd::launch<kFold>(a, wgrad, n_sm, s);
+  }
+  if (entry == kPe && dz32 != nullptr) {
+    a.dz32 = dz32;
+    return bwd::launch<kPe>(a, wgrad, n_sm, s);
+  }
   return (int)cudaErrorInvalidValue;
 }
 
-// Dynamic shared memory a block takes: the forward (which = 0), a pass of
-// the backward (1), its LayerNorm pass (2), its weight-gradient kernel (3);
-// -1 for any other.
+// Dynamic shared memory a block takes: the forward (which = 0), a CTA of
+// the backward's cluster (1); -1 for any other.
 int fused_edge_tail_agg_bf16_w128_smem(int which) {
   switch (which) {
     case 0: return fwd::Layout::bytes;
-    case 1: return bwd::PassLayout<bwd::kForward>::bytes;
-    case 2: return bwd::PassLayout<bwd::kOutput>::bytes;
-    case 3: return bwd::wgrad_smem();
+    case 1: return bwd::Layout::bytes;
     default: return -1;
+  }
+}
+
+// The kernels the last backward call launched (the cluster pipeline and the
+// sum of its partial rows: 2; 1 when there was no edge).
+int fused_edge_tail_agg_bf16_w128_bwd_launches(void) {
+  return bwd::last_launches.load(std::memory_order_relaxed);
+}
+
+// The backward's cluster on this device for `entry` and l1: its CTAs (one
+// a weight) and the clusters the card holds at once, into *ctas and
+// *clusters.  Returns a cudaError_t.
+int fused_edge_tail_agg_bf16_w128_bwd_clusters(int entry, int l1, int* ctas,
+                                               int* clusters) {
+  if (l1 < 0 || l1 > kMaxL1 || ctas == nullptr || clusters == nullptr)
+    return (int)cudaErrorInvalidValue;
+  *ctas = (entry == kFold ? 1 : 0) + l1 + 1;
+  switch (entry) {
+    case kFold: return (int)bwd::max_clusters<kFold>(*ctas, clusters);
+    case kPe: return (int)bwd::max_clusters<kPe>(*ctas, clusters);
+    case kPregathered:
+      return (int)bwd::max_clusters<kPregathered>(*ctas, clusters);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 

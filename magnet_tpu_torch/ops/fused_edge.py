@@ -1280,13 +1280,11 @@ def _launch_bf16_w128_bwd(entry, src, we, be, pxj, pxi, senders, rowptr,
     d_nodes = torch.zeros(2 if fold else 1, n, h, dtype=torch.float32,
                           device=dev)
     wgrad = torch.empty(weights + biases, dtype=torch.float32, device=dev)
-    # the weight-gradient ranges' partials (n_sm rows), then the passes'
-    # bias partials (2 n_sm rows)
-    partial = torch.empty(n_sm * weights + 2 * n_sm * biases,
+    # a row of partial sums of every packed gradient per cluster of n_w CTAs
+    # (at most n_sm / n_w clusters); the kernel keeps h_k and da_k on chip,
+    # so no scratch plane
+    partial = torch.empty(max(1, n_sm // n_w), weights + biases,
                           dtype=torch.float32, device=dev)
-    # each h_k and each bf16(da_k), one (E, H) bf16 plane each
-    scratch = torch.empty(max(1, bwd_scratch_planes(entry, l1) * E * h),
-                          dtype=torch.bfloat16, device=dev)
     fn = cuda_build.function(BF16_W128, _ARGTYPES[BF16_W128_BWD],
                              symbol=BF16_W128_BWD)
     w_rest, b_rest, w_out, b_out, ln_s, _ = tail
@@ -1298,7 +1296,7 @@ def _launch_bf16_w128_bwd(entry, src, we, be, pxj, pxi, senders, rowptr,
                                           b_out, ln_s, g, d_src)),
                  _ptr(dz), d_nodes[0].data_ptr() if fold else None,
                  d_nodes[-1].data_ptr(), wgrad.data_ptr(), partial.data_ptr(),
-                 scratch.data_ptr(), n, E, l1, ENTRY[entry], n_sm, stream)
+                 None, n, E, l1, ENTRY[entry], n_sm, stream)
     if err != 0:
         raise RuntimeError(f"{BF16_W128_BWD} launch failed: cudaError {err}")
     globals()[_W128_COUNTER[entry] + "_bwd"] += 1

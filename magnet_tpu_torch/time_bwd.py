@@ -28,18 +28,42 @@ training graphs (``time_fwd``'s), the f32 launch sequence
 (``csrc/fused_edge_tail_agg_bwd.cu``) against the bf16 one
 (``csrc/fused_edge_tail_agg_bf16_w128.cu``) through their launchers (#7
 without the segment sum of its d_pxj), in the same turns, the bf16 one
-against its plain version by relative L2 per gradient.  Shares its graphs,
-libraries and timing with ``time_fwd``.
+against its plain version by relative L2 per gradient.  With
+``baseline=DIR dtype=bf16``: the width-128 bf16 backward alone
+(``csrc/fused_edge_tail_agg_bf16_w128.cu``, #9 fold, #7 pe without its
+segment sum, #3 pre-gathered) of DIR against this checkout's, through
+their C entries with the same arguments, in turns (baseline, this, this,
+baseline), at MAgNet[GNN]'s 1D training graph, a 2D training graph of the
+published 512-node irregular configuration and the 1D eval graph, each
+build against the plain version (relative L2 per gradient), with the
+plain version's time and the bf16 bound; then MAgNet[GNN] 1D bf16
+training steps (``Trainer.train_step`` on one batch of 32 KS trajectories
+from the datamodule's synthetic source) on the fold, pe and pre-gathered
+lanes, the backward through DIR's build and this one's in the same turns.
+Shares its graphs, libraries and timing with ``time_fwd``.
 """
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import json
 import sys
+import tempfile
+import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from magnet_tpu_torch.config import MAGNET_CNN, MAGNET_CNN_2D, MAGNET_GNN
+from magnet_tpu_torch.config import (
+    DATAMODULE_IMPLICIT_GNN,
+    MAGNET_CNN,
+    MAGNET_CNN_2D,
+    MAGNET_GNN,
+)
+from magnet_tpu_torch.data.datamodule import build_loaders
+from magnet_tpu_torch.data.synthetic import irregular_nodes
+from magnet_tpu_torch.models.factory import create_model
 from magnet_tpu_torch.ops import cuda_build
 from magnet_tpu_torch.ops import fused_edge as fe
 from magnet_tpu_torch.ops import segment as seg
@@ -245,6 +269,8 @@ def main(argv) -> int:
     card()
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
+    if args.get("dtype") == "bf16" and "baseline" in args:
+        return main_bf16_w128_baseline(Path(args["baseline"]), dev)
     fns = libraries(fe.BWD, args)
     if args.get("dtype") == "bf16":
         return main_bf16(fns["this"], dev)
@@ -408,6 +434,246 @@ def main_bf16_w128(dev) -> int:
                 "device": torch.cuda.get_device_name(0)}), flush=True)
             del ops, ops_bf, runs
     return 0
+
+
+def gnn2d_train_graph():
+    """A MAgNet[GNN] 2D training batch's LR ∪ HR graph at the published
+    512-node irregular configuration (``res_train`` 512, ``samples`` 256):
+    32 samples, each 512 nodes of the 64 x 64 grid drawn from a seed as the
+    synthetic irregular split draws them (``irregular_nodes``), scaled to
+    [-1, 1] per axis; the support every second node, the queries the other
+    256 (``DatasetImplicitGNN2D`` in train mode)."""
+    rng = np.random.default_rng(0)
+    x = np.arange(64, dtype=np.float32)
+    lr, hr = [], []
+    for _ in range(32):
+        coords = irregular_nodes(rng, x, x, 512, concentrated=False)[1]
+        coords = 2 * (coords - coords.min(0)) / (coords.max(0)
+                                                  - coords.min(0)) - 1
+        lr.append(coords[::2])
+        hr.append(coords[1::2])
+    model = create_model("magnet_gnn", {**MAGNET_GNN, "time_slice": 10},
+                         device="cpu", seed=0, kind="h5_implicit_gnn_2d")
+    return model.build_graph({"coords_lr": torch.as_tensor(np.stack(lr)),
+                              "coords_hr": torch.as_tensor(np.stack(hr))}).all
+
+
+def bf16_w128_bwd_bound(entry, graph, w, l1) -> dict:
+    """Least time on the card for one width-128 bf16 backward call: three
+    times the forward's products at the dense bf16 rate, against each input
+    read once and each output written once (bf16 operands and gradients at
+    2 bytes; g, d_ln, the indices and the pe's dz at 4)."""
+    n, e = graph.n_node, graph.n_edge
+    fold, pe = entry == "fold", entry == "pe"
+    macs = (w * w if fold else 0) + l1 * w * w + w * w
+    weights = (w * w + w if fold else 0) + l1 * (w * w + w) + w * w + w
+    tables = 2 if entry != "pregathered" else 1   # pxj and pxi, or pxi
+    src_in = 2.0 * (e * w + tables * n * w + weights)
+    nbytes = (src_in + 4.0 * (2 * w + (e if entry != "pregathered" else 0)
+                              + n + 1)
+              + 4.0 * n * w                      # g
+              + 2.0 * (e * w + tables * n * w + weights) + 4.0 * 2 * w
+              + (4.0 * e * w if pe else 0.0))    # dz32
+    flops = 3 * 2.0 * e * macs
+    t_ops, t_bytes = flops / BF16_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+    return {"bf16_bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
+def runner_bf16_w128_bwd(fn, entry, ops, g):
+    """A closure that launches a width-128 bf16 backward C entry ``fn``
+    (this checkout's or another tree's, the same arguments) for ``entry``
+    on ``ops`` (``to_bf16``) and g as a wrapper does, with partial rows and
+    scratch planes enough for the launch sequence of per-layer planes too
+    (``fe.bwd_scratch_planes``; the cluster pipeline reads no scratch), and
+    returns (d_src, d_pxi, the packed weight and bias gradients), all in
+    f32."""
+    src, we, be, pxj, pxi, senders, rowptr, *tail = ops
+    n, e, l1, h = rowptr.numel() - 1, src.shape[0], tail[0].shape[0], 128
+    fold, pe = entry == "fold", entry == "pe"
+    dev = src.device
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_w = int(fold) + l1 + 1
+    weights, biases = n_w * h * h, (n_w + 2) * h
+    partial = torch.empty(n_sm * weights + 2 * n_sm * biases, device=dev)
+    scratch = torch.empty(fe.bwd_scratch_planes(entry, l1) * e * h,
+                          dtype=torch.bfloat16, device=dev)
+    d_src = torch.empty_like(src)
+    dz = torch.empty(e, h, device=dev) if pe else None
+    wgrad = torch.empty(weights + biases, device=dev)
+    w_rest, b_rest, w_out, b_out, ln_s, _ = tail
+
+    def run():
+        d_nodes = torch.zeros(2 if fold else 1, n, h, device=dev)
+        err = fn(src.data_ptr(), fe._ptr(we), fe._ptr(be), fe._ptr(pxj),
+                 pxi.data_ptr(), fe._ptr(senders),
+                 *(t.data_ptr() for t in (rowptr, w_rest, b_rest, w_out,
+                                          b_out, ln_s, g, d_src)),
+                 fe._ptr(dz), d_nodes[0].data_ptr() if fold else None,
+                 d_nodes[-1].data_ptr(), wgrad.data_ptr(), partial.data_ptr(),
+                 scratch.data_ptr(), n, e, l1, fe.ENTRY[entry], n_sm,
+                 torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"launch failed: cudaError {err}")
+        return d_src.float(), d_nodes[-1].clone(), wgrad.clone()
+    return run
+
+
+def plain_bf16_w128(entry, ops, g):
+    """(d_src, d_pxi, the packed weight and bias gradients) of the width-128
+    bf16 plain version of ``entry`` on the C entry's ``ops``, in f32."""
+    src, we, be, pxj, pxi, senders, rowptr, *tail = ops
+    if entry == "fold":
+        d = fe.fused_edge_tail_agg_bf16_bwd_plain(*ops, g)
+        d_src, d_pxi, head, rest = d[0], d[4], (d[1], d[2]), d[5:]
+    elif entry == "pe":
+        d = fe.fused_edge_tail_agg_pe_bf16_bwd_plain(
+            src, pxj, pxi, senders, rowptr, None, None, *tail, g)
+        d_src, d_pxi, head, rest = d[0], d[2], (), d[3:]
+    else:
+        d = fe.fused_edge_tail_agg_pregathered_bf16_bwd_plain(
+            src, pxi, rowptr, *tail, g)
+        d_src, d_pxi, head, rest = d[0], d[1], (), d[2:]
+    w_rest, b_rest, w_out, b_out, ln_s, ln_b = rest
+    packed = torch.cat([t.float().reshape(-1) for t in (
+        *head[:1], w_rest, w_out, *head[1:], b_rest, b_out, ln_s, ln_b)])
+    return d_src.float(), d_pxi.float(), packed
+
+
+def main_bf16_w128_baseline(baseline: Path, dev) -> int:
+    """The width-128 bf16 backward of the tree at ``baseline`` (its
+    ``csrc/``) against this checkout's, in turns, fold, pe and
+    pre-gathered, at the GNN 1D and 2D training graphs and the 1D eval
+    graph."""
+    fns = {"baseline": cuda_build.build(fe.BF16_W128, csrc=baseline),
+           "this": cuda_build.build(fe.BF16_W128)}
+    for k, lib in fns.items():
+        fn = getattr(ctypes.CDLL(str(lib)), fe.BF16_W128_BWD)
+        fn.argtypes = fe._ARGTYPES[fe.BF16_W128_BWD]
+        fn.restype = ctypes.c_int
+        fns[k] = fn
+    w, l1 = MAGNET_GNN["mlp_hidden"], MAGNET_GNN["mlp_layers"] - 1
+    for label, graph in (("gnn_train_all", gnn_train_graph()),
+                         ("gnn2d_train_all", gnn2d_train_graph()),
+                         ("gnn_eval_all", graphs()[3][2])):
+        g = torch.randn(graph.n_node, w,
+                        generator=torch.Generator().manual_seed(44)).to(dev)
+        for entry in ("fold", "pe", "pregathered"):
+            ops = to_bf16(operands(entry, graph, w, w, w, l1, seed=43,
+                                   dev=dev))
+            runs = {k: runner_bf16_w128_bwd(fn, entry, ops, g)
+                    for k, fn in fns.items()}
+            want = plain_bf16_w128(entry, ops, g)
+            err = {}
+            for k, run in runs.items():
+                err[k] = {name: float((a - b).double().norm()
+                                      / b.double().norm().clamp_min(1e-30))
+                          for name, a, b in zip(
+                              ("d_src", "d_pxi", "packed_weights_biases"),
+                              run(), want)}
+            order, times, mean = in_turns(runs)
+            print(json.dumps({
+                "kernel": KERNEL_NUMBER[entry], "entry": entry,
+                "widths": [w, w, w] if entry == "fold" else [w, w],
+                "shape": label, "n_node": graph.n_node,
+                "n_edge": graph.n_edge, "l1": l1, "reps": REPS,
+                "order": order, "ms": times, "mean_ms": mean,
+                "baseline": str(baseline),
+                "plain_ms": cuda_ms(lambda: plain_bf16_w128(entry, ops, g)),
+                **bf16_w128_bwd_bound(entry, graph, w, l1),
+                "vs_plain_rel_l2": err,
+                "device": torch.cuda.get_device_name(0)}), flush=True)
+            del ops, runs, want
+    train_steps_in_turns(fns["baseline"], dev)
+    return 0
+
+
+@contextlib.contextmanager
+def backward_of(fn):
+    """Inside the block the width-128 bf16 backward's launcher runs another
+    tree's C entry ``fn`` (the same arguments): its cached C function is
+    swapped for a shim that hands ``fn`` partial rows and scratch planes
+    enough for the launch sequence of per-layer planes
+    (``fe.bwd_scratch_planes``), allocated at the first call of a size."""
+    buffers = {}
+    names = {v: k for k, v in fe.ENTRY.items()}
+
+    def shim(*args):
+        args = list(args)
+        n_edges, l1, entry, n_sm = args[21:25]
+        n_w = (names[entry] == "fold") + l1 + 1
+        key = (n_sm * n_w * 128 * 128 + 2 * n_sm * (n_w + 2) * 128,
+               fe.bwd_scratch_planes(names[entry], l1) * n_edges * 128)
+        if key not in buffers:
+            buffers.clear()
+            buffers[key] = (torch.empty(key[0], device="cuda"),
+                            torch.empty(max(1, key[1]), dtype=torch.bfloat16,
+                                        device="cuda"))
+        args[18], args[19] = (t.data_ptr() for t in buffers[key])
+        return fn(*args)
+
+    cuda_build.function(fe.BF16_W128, fe._ARGTYPES[fe.BF16_W128_BWD],
+                        symbol=fe.BF16_W128_BWD)
+    saved = cuda_build._FUNCTIONS[fe.BF16_W128_BWD]
+    cuda_build._FUNCTIONS[fe.BF16_W128_BWD] = (saved[0], shim)
+    try:
+        yield
+    finally:
+        cuda_build._FUNCTIONS[fe.BF16_W128_BWD] = saved
+
+
+def train_steps_in_turns(baseline_fn, dev, steps=5) -> None:
+    """Seconds a MAgNet[GNN] 1D bf16 training step on each GraphNet lane
+    (fold: ``kernel``; pe: ``kernel_pe``; pre-gathered:
+    ``kernel_pregathered``), the width-128 bf16 backward through the
+    baseline's build and this one's in turns (baseline, this, this,
+    baseline), each the mean of ``steps`` steps on one batch of 32 KS
+    trajectories after two steps of warm-up."""
+    from magnet_tpu_torch.train.trainer import Trainer
+
+    loaders = build_loaders({**DATAMODULE_IMPLICIT_GNN,
+                             "source": "synthetic_ks", "n_train": 32,
+                             "n_val": 1, "n_test": 1, "burn_in": 10.0,
+                             "data_seed": 0}, seed=0)
+    batch = next(iter(loaders["train"]))
+    for lane in ("kernel", "kernel_pe", "kernel_pregathered"):
+        model = create_model("magnet_gnn", {**MAGNET_GNN,
+                                            "graph_dtype": "bf16"},
+                             device=dev, seed=0)
+        model.impl = lane
+        with tempfile.TemporaryDirectory() as workdir:
+            trainer = Trainer(model, workdir=workdir, device=dev)
+            trainer.setup(1)
+
+            def run():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    trainer.train_step(batch)
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t0) / steps
+
+            with backward_of(baseline_fn):
+                run()
+            run()
+            order = ["baseline", "this", "this", "baseline"]
+            secs = []
+            for k in order:
+                if k == "baseline":
+                    with backward_of(baseline_fn):
+                        secs.append(run())
+                else:
+                    secs.append(run())
+        print(json.dumps({
+            "train_step": "magnet_gnn 1D bf16", "impl": lane,
+            "batch_size": 32, "steps_a_turn": steps, "order": order,
+            "seconds": secs,
+            "mean_s": {k: float(np.mean([t for o, t in zip(order, secs)
+                                         if o == k]))
+                       for k in ("baseline", "this")},
+            "device": torch.cuda.get_device_name(0)}), flush=True)
+        del model, trainer
 
 
 if __name__ == "__main__":
