@@ -875,6 +875,121 @@ def bf16_ptxas() -> dict:
                                "pregathered_bwd", "pe_fwd", "pe_bwd"))}}
 
 
+def wgmma_ptxas(lines) -> list[str]:
+    """ptxas's lines (entry, spills, registers) of the width-64 bf16
+    backward's wgmma kernel, a group an entry and L1."""
+    out, keep = [], False
+    for ln in lines:
+        if "entry function" in ln:
+            keep = "wgmma_bwd_kernel" in ln
+        if keep:
+            out.append(ln)
+    return out
+
+
+def bwd64_bf16_launches() -> int:
+    """Kernels the width-64 bf16 backward's last call launched (the
+    library's own count)."""
+    import ctypes
+
+    from magnet_tpu_torch.ops import cuda_build
+    from magnet_tpu_torch.ops import fused_edge as fe
+
+    count = ctypes.CDLL(str(cuda_build.build(fe.BF16))) \
+        .fused_edge_tail_agg_bf16_bwd_launches
+    count.restype = ctypes.c_int
+    return count()
+
+
+def bwd64_bf16_checks(entry, dev, sms, seed) -> dict:
+    """The width-64 bf16 backward of ``entry`` (fold #9, pregathered #3 or
+    pe #7 with the f32 #1 for d_pxj; the wgmma kernel, two warpgroups a
+    block) against its bf16 plain version at L1 = 0..3 on the small graph
+    (a degree-0 receiver, fewer tiles than blocks: one tile a block, its
+    second warpgroup idle), at E = 1 and on a tile graph
+    (``tile_edges_graph`` with more than four tiles a block: both
+    warpgroups walk two tiles or more, the receiver hint carried from tile
+    to tile), every gradient by relative L2 within BF16_BWD_L2 (the
+    elements outside BF16_RTOL |want| + BF16_BWD_ATOL_REL max|want|
+    counted), in its operand's dtype, the degree-0 rows of d_pxi
+    zero, the same bits from run to run in every gradient but d_pxj / d_pxi
+    (f32 atomics), and the kernels a call launches (at most 2).  Returns
+    the results; ``ok`` gates them all."""
+    from magnet_tpu_torch.ops import fused_edge as fe
+    from magnet_tpu_torch.time_fwd import operands as c_operands
+    from magnet_tpu_torch.time_fwd import to_bf16
+
+    h, c = 64, 32
+    fn, plain, names = {
+        "fold": (fe.fused_edge_tail_agg_bf16_bwd,
+                 fe.fused_edge_tail_agg_bf16_bwd_plain, fe.GRAD_NAMES),
+        "pregathered": (fe.fused_edge_tail_agg_pregathered_bf16_bwd,
+                        fe.fused_edge_tail_agg_pregathered_bf16_bwd_plain,
+                        fe.GRAD_NAMES_PREGATHERED),
+        "pe": (fe.fused_edge_tail_agg_pe_bf16_bwd,
+               fe.fused_edge_tail_agg_pe_bf16_bwd_plain,
+               fe.GRAD_NAMES_PE)}[entry]
+
+    def operands(graph, l1, s):
+        if entry == "fold":
+            return to_bf16(kernel_operands(graph, c, h, c, l1, s, dev))
+        if entry == "pregathered":
+            return to_bf16(pregathered_operands(graph, h, c, l1, s, dev))
+        src, _, _, pxj, pxi, senders, rowptr, *tail = to_bf16(
+            c_operands("pe", graph, h, h, c, l1, s, dev))
+        return (src, pxj, pxi, senders, rowptr, graph.snd_ptr.to(dev),
+                graph.snd_perm.to(dev), *tail)
+
+    gen = torch.Generator().manual_seed(seed)
+    # more than 4 sms tiles: each warpgroup walks two tiles at least, the
+    # receiver hint carried from tile to tile
+    tiles = tile_edges_graph(fe.BWD_TILE, seed + 1,
+                             n_edge_min=4 * sms * fe.BWD_TILE + 1)
+    n_tiles = -(-tiles.n_edge // fe.BWD_TILE)
+    blocks = min(sms, n_tiles)
+    per_group = [(b1 - b0 + g) // 2 for b in range(blocks)
+                 for b0, b1 in [(b * n_tiles // blocks,
+                                 (b + 1) * n_tiles // blocks)]
+                 for g in (0, 1)]
+    tiles_info = {"n_edge": tiles.n_edge, "tile": fe.BWD_TILE,
+                  "n_tiles": n_tiles, "blocks": blocks,
+                  "tiles_per_warpgroup": [min(per_group), max(per_group)],
+                  "max_degree": int(tiles.degree.max())}
+    out, ok, calls = {}, True, set()
+    for label, graph in (("small_case", small_line_graph()),
+                         ("one_edge", one_edge_graph()),
+                         ("tile_edges", tiles)):
+        for l1 in range(4):
+            ops = operands(graph, l1, seed + 2 + l1)
+            g = torch.randn(graph.n_node, c, generator=gen).to(dev)
+            got = fn(*ops, g)
+            torch.cuda.synchronize()
+            calls.add(bwd64_bf16_launches())
+            want = plain(*ops, g)
+            res = {name: compare_grad(a, b, elementwise=False,
+                                      rtol=BF16_RTOL,
+                                      atol_rel=BF16_BWD_ATOL_REL,
+                                      max_l2=BF16_BWD_L2)
+                   for name, a, b in zip(names, got, want) if b.numel()}
+            zero = graph.degree.to(dev) == 0
+            res["dtypes_ok"] = ([a.dtype for a in got]
+                                == [b.dtype for b in want])
+            res["degree0_rows_zero"] = bool(
+                (got[names.index("pxi")][zero] == 0).all())
+            res["bits_equal_run_to_run"] = bits_equal_bwd(fn, ops, g, names)
+            res["n_edge"] = graph.n_edge
+            ok = ok and res["dtypes_ok"] and res["degree0_rows_zero"] \
+                and res["bits_equal_run_to_run"]["ok"] and all(
+                    v["ok"] for v in res.values()
+                    if isinstance(v, dict) and "ok" in v)
+            out[f"{label}_l1_{l1}"] = res
+            del ops, got, want
+    out["tile_edges_graph"] = tiles_info
+    out["launches_per_call"] = sorted(calls)
+    out["ok"] = ok and max(calls) <= 2
+    return out
+
+
 def cnn_bf16_phases(dev, data, groups) -> tuple[int, list, dict]:
     """Phases ``bf16_kernel``, ``bf16_kernel_bwd``, ``bf16_slice`` and
     ``bf16_train``: MAgNet[CNN] 1D's bf16 lane (``graph_dtype=bf16``), its
@@ -1035,6 +1150,10 @@ def cnn_bf16_phases(dev, data, groups) -> tuple[int, list, dict]:
         all(v["ok"] for v in r.values() if isinstance(v, dict) and "ok" in v)
         and r["dtypes_ok"] and r["vs_f32_kernel_ok"] and r["degree0_rows_zero"]
         for r in bwd.values())
+    # the wgmma kernel at L1 = 0..3 on the small, E = 1 and tile graphs
+    wgmma = bwd64_bf16_checks("fold", dev, sms, seed=300)
+    bwd_ok = (bwd_ok and bwd["train_shape"]["bits_equal_run_to_run"]["ok"]
+              and wgmma["ok"])
     emit({"phase": "bf16_kernel_bwd", "l1": l1,
           "tolerance": {"vs_plain": {"max_rel_l2": BF16_BWD_L2,
                                      "counted_outside": {
@@ -1044,6 +1163,7 @@ def cnn_bf16_phases(dev, data, groups) -> tuple[int, list, dict]:
                         "vs_f32_kernel_deeper_than_l1": BF16_VS_F32_DEPTH,
                         "vs_f32_kernel_deep_times_plain": BF16_VS_F32_DEEP},
           **bwd, "timing": bwd_timing, "library_ms": None,
+          "wgmma_checks": wgmma, "wgmma_ptxas": wgmma_ptxas(build["ptxas"]),
           "seconds": time.perf_counter() - t_phase, "ok": bwd_ok})
     if not bwd_ok:
         return 25, [], {}
@@ -1419,6 +1539,9 @@ def cnn2d_bf16_kernel_phases(dev) -> tuple[int, dict]:
         all(v["ok"] for v in r.values() if isinstance(v, dict) and "ok" in v)
         and r["dtypes_ok"] and r["degree0_rows_zero"] for r in bwd.values())
     bwd_ok = bwd_ok and bwd["train_shape"]["bits_equal_run_to_run"]["ok"]
+    # the wgmma kernel at L1 = 0..3 on the small, E = 1 and tile graphs
+    wgmma = bwd64_bf16_checks("pregathered", dev, sms, seed=320)
+    bwd_ok = bwd_ok and wgmma["ok"]
 
     # #1 bf16: the sender gather's backward at the training graph
     ptr, perm = graph.snd_ptr.to(dev), graph.snd_perm.to(dev)
@@ -1470,6 +1593,7 @@ def cnn2d_bf16_kernel_phases(dev) -> tuple[int, dict]:
                                          "rtol": BF16_RTOL,
                                          "atol_rel_to_max": BF16_BWD_ATOL_REL}}},
           **bwd, "timing": bwd_timing, "library_ms": None,
+          "wgmma_checks": wgmma, "wgmma_ptxas": wgmma_ptxas(build["ptxas"]),
           "segment_sum_bf16": {**seg_cmp, "timing": seg_timing,
                                "ok": seg_ok},
           "seconds": time.perf_counter() - t_phase,
@@ -3021,6 +3145,11 @@ def cnn_pe_phases(dev, data, groups) -> tuple[int, list, dict]:
         all(v["ok"] for v in r.values() if isinstance(v, dict) and "ok" in v)
         and r["dtypes_ok"] and r["vs_f32_kernel_ok"] and r["degree0_rows_zero"]
         for r in bwd_bf.values())
+    # the bf16 build's wgmma kernel at L1 = 0..3 on the small, E = 1 and
+    # tile graphs
+    wgmma = bwd64_bf16_checks("pe", dev, sms, seed=340)
+    bwd_ok = (bwd_ok and bwd_bf["train_shape"]["bits_equal_run_to_run"]["ok"]
+              and wgmma["ok"])
     emit({"phase": "pe64_kernel_bwd", "l1": l1,
           "tolerance": {"f32_vs_plain": {
                             "rtol": BWD_RTOL, "atol_rel_to_max": BWD_ATOL_REL,
@@ -3037,6 +3166,7 @@ def cnn_pe_phases(dev, data, groups) -> tuple[int, list, dict]:
                             BF16_VS_F32_DEEP},
           "pe64_bwd": bwd32, "pe64_bf16_bwd": bwd_bf, "library_ms": None,
           "build": bwd_w64_build(), "bf16_build": bf16_ptxas(),
+          "wgmma_checks": wgmma,
           "seconds": time.perf_counter() - t_phase, "ok": bwd_ok})
     if not bwd_ok:
         return 41, [], {}

@@ -46,55 +46,73 @@
 // _bwd_plain (fold), fused_edge_tail_agg_pregathered_bf16_plain /
 // _bwd_plain and fused_edge_tail_agg_pe_bf16_plain / _bwd_plain.
 //
-// Design: the f32 builds' walk (csrc/fused_edge_tail_agg.cu and
-// fused_edge_tail_agg_bwd.cu, namespace w64), with bf16 products; one
-// template per kernel holds the three entries (an Entry value):
-//   * persistent blocks walk consecutive tiles of TE = 64 CSR edges
-//     (tile128::block_tiles); warps 0 and 1 find the next tile's receivers
-//     and senders from the last receiver of this one (tile_indices); the
-//     forward sums each run of equal receivers in CSR order and leaves
-//     partial rows for the receivers that cross a tile (csr_tile), so its
-//     result has the same bits from run to run;
-//   * every product is mma.sync.aligned.m16n8k16 bf16 x bf16 -> f32, one
-//     product where the f32 builds issue three TF32 ones; warp w forms 16
-//     rows and 8 NI columns of each (64 x N) result (Prod);
-//   * every weight stays in shared memory as bf16 for the whole launch,
-//     half the f32 builds' footprint: transposed (row n holds column n)
-//     for the products h . W, and, in the backward, also as stored for the
-//     data gradients da . W^T, so that every weight fragment is one 32-bit
-//     load of two neighbouring bf16 values;
-//   * the shared tiles' rows are padded by 16 bytes (bf16 rows of 72 or 40
-//     elements, f32 rows of 68 or 36), which spreads a warp's fragment
-//     loads over the 32 banks; fragments of a tile read down its columns
-//     (the weight gradients' A and B) are gathered by 16-bit loads;
-//   * activations h_k are bf16 tiles; the data gradients, which the bias
-//     gradients sum unrounded, are f32 tiles rounded to bf16 as the
-//     products load them (two tiles, one read while the other is written);
-//     LayerNorm and the receiver sums are f32;
-//   * backward: each tile's weight gradient is formed in fresh
-//     accumulators and added to f32 running sums in registers; a block
-//     writes its partial sums once and a second kernel adds the blocks'
-//     partials in block order, so the weight gradients and d_e0 are the
-//     same from run to run; d_pxj and d_pxi are f32 atomics (one per
-//     element for d_pxj, one per run of equal receivers in an eighth of a
-//     tile for d_pxi), whose last f32 bits vary before the caller's
-//     rounding to bf16;
-//   * pregathered: h_0 is formed elementwise from the tile's h0 rows and
-//     its receivers' pxi rows (16-byte loads), in place of the fold's
-//     first product; there is no W_e, e0, pxj or sender, and the backward
-//     writes d_h0 = bf16(dz) per edge with plain stores (its d_pxi as the
-//     fold's);
-//   * pe: as pregathered, with the sender row of pxj added to each pe row
-//     before pxi's (16-byte loads of all three, the order of the TPU
-//     kernel's pe + g0 + gath); the sender ids are staged beside the
-//     receivers, as the fold's; the backward writes d_pe = bf16(dz) and the
-//     unrounded dz with plain stores (no d_pxj atomics: the caller's
-//     segment sum over the sender CSR reads dz).
-// Forward: 256 threads, 63,104 bytes of shared memory at L1 = 3 (every
-// entry: the pre-gathered and pe ones leave the fold's W_e and e0 tiles
-// unused), two blocks an SM.  Backward: 512 threads, 172,288 bytes at L1
-// = 3 (fold) and 152,064 (pregathered and pe), one block an SM.
-// fused_edge_tail_agg_bf16_smem reports each for each L1.
+// Forward (fwd::): the f32 builds' walk (csrc/fused_edge_tail_agg.cu,
+// namespace w64) with bf16 products; one template holds the three entries
+// (an Entry value):
+//   * persistent blocks of 256 threads walk consecutive tiles of TE = 64
+//     CSR edges (tile128::block_tiles); warps 0 and 1 find the next tile's
+//     receivers and senders from the last receiver of this one
+//     (tile128::tile_indices); each run of equal receivers is summed in CSR
+//     order, partial rows left for the receivers that cross a tile
+//     (csr_tile): the same bits from run to run;
+//   * every product is mma.sync.aligned.m16n8k16 bf16 x bf16 -> f32, warp
+//     w forming 16 rows and 8 NI columns of each (64 x N) result (Prod),
+//     every weight resident as bf16, transposed, in padded rows (72 or 40
+//     elements) so that a fragment is one 32-bit load; h_k bf16 tiles, y
+//     and LayerNorm f32;
+//   * pregathered and pe form h_0 elementwise from 16-byte loads of the
+//     tile's h0 / pe rows and their node rows (pe: (pe + pxj[s]) + pxi[i],
+//     the TPU kernel's order).
+//   63,104 bytes of shared memory at L1 = 3, two blocks an SM.
+// Backward (bwd::wgmma_bwd_kernel): Hopper's warpgroup products, two tiles
+// in flight an SM:
+//   * one block of 256 threads an SM, block b over tiles [b T / B, (b + 1)
+//     T / B) of the grid's B = min(T, SMs) blocks; its two warpgroups each
+//     walk half of them (the first the first half, rounded up), with their
+//     own tiles in shared memory and named barriers of their own (bar.sync
+//     1 + group, 128), so one group's epilogues run under the other's
+//     products; a group without a tile reaches only the block's barriers at
+//     the start and the end;
+//   * every product is wgmma.mma_async m64n64k16 / m64n32k16 bf16 x bf16 ->
+//     f32 (csrc/wgmma.cuh): the 64-edge tile is the M of the recompute and
+//     the data gradients, the width H = 64 the M of the weight gradients
+//     (dW_e formed as dW_e^T = bf16(dz)^T . e0); each weight lies once in
+//     shared memory as stored (in, out), the MN-major B of h . W and the
+//     K-major B of da . W^T; the weight gradients x^T . d read both (edge,
+//     width) tiles as MN-major operands; 64-wide bf16 rows (128 bytes) take
+//     the 128-byte swizzle, 32-wide ones the 64-byte swizzle;
+//   * the forward layers after the first, y and every data gradient read
+//     their A operand from registers (the accumulators of the product
+//     before, rounded to bf16 in place: the pairs of an m64nN accumulator
+//     are the A fragments of the next product), so no barrier comes between
+//     the forward layers and a data-gradient product is issued before its
+//     layer's barrier; each weight-gradient product runs on under the next
+//     epilogue, retired by the next data gradient's wait before the barrier
+//     that precedes any write of its tiles;
+//   * epilogues in the accumulator layout: LayerNorm's statistics and its
+//     backward by quad shuffles (no f32 y tile); each data gradient masked
+//     by h > 0 (its bf16 bits), stored once as a bf16 tile; the bias
+//     gradients from the unrounded f32 accumulators, summed over each warp's
+//     rows by shuffle rounds into that warp's row of shared memory (fixed
+//     order, no shared-memory atomics); the pe entry's f32 dz from the
+//     accumulators to global memory;
+//   * a tile's e0 / h0 / pe rows, its node rows (pxj[s], pxi[i]) and g[i]
+//     are staged a tile ahead by cp.async into swizzled tiles, the next
+//     tile's indices loaded at the start of a tile and searched after h_0
+//     (IndexLoad), so no product waits on a load it issued;
+//   * dW summed over a warpgroup's tiles in its products' accumulators
+//     (tests/test_torch_bwd64_bf16.py emulates the truncation: far inside
+//     the tolerances); at the end warpgroup 0's sums and then warpgroup 1's
+//     go into the block's partial row, the eight warps' bias rows in warp
+//     order, and a second launch adds the blocks' rows in block order: the
+//     weight and bias gradients, d_src and dz have the same bits from run
+//     to run; d_pxj (fold: 16-byte vector atomics of bf16(dz)) and d_pxi
+//     (one atomic a run of equal receivers in each half of a tile) are f32
+//     atomics, whose last bits vary before the caller's rounding to bf16.
+//   221,440 / 215,040 / 198,656 bytes of shared memory at L1 = 3 (fold /
+//   pe / pregathered), one block an SM; fused_edge_tail_agg_bf16_smem
+//   reports each for each L1, fused_edge_tail_agg_bf16_bwd_launches a
+//   call's launches (2).
 // What bounds it on an H100: Ce H + L1 H^2 + H C = 16,384 multiply-adds an
 // edge at L1 = 3 in the fold forward, three times that in the backward; at
 // MAgNet[CNN] 1D's eval graph (186,624 edges) 6.1 GFLOP, 0.0062 ms at the
@@ -104,10 +122,14 @@
 // training graph (299,894 edges) 8.6 GFLOP (0.0087 ms) against 38.4 MB of
 // h0 (0.0115 ms): bound by bytes.  The pe forward does the same work and
 // reads an (E, 64) bf16 pe: at 1D's eval graph 23.9 MB (0.0071 ms) against
-// 5.35 GFLOP (0.0054 ms), bound by bytes; its backward moves ~512 B an edge
-// (pe, d_pe, dz), 0.010 ms at 1D's training graph (67,680 edges).  mma.sync and not wgmma, as in the f32
-// builds: the products read their operands from padded tiles at any
-// stride, transposed or not.
+// 5.35 GFLOP (0.0054 ms), bound by bytes.  The backward's bounds: #9 at
+// 1D's training graph (67,680 edges) 6.65 GFLOP, 0.0067 ms (operations);
+// #7 there ~512 B an edge (pe, d_pe, dz), 0.0112 ms (bytes); #3 at the 2D
+// training graph of 32 samples (299,894 edges) 0.0268 ms (bytes).  The
+// backward runs far from them: a tile is 14,800-18,600 cycles of a
+// warpgroup, ~1,500 of them its products, the rest the epilogues' latency
+// between dependent products (magnet_tpu_torch/probe_bwd64.py times each
+// part; PERF.md keeps the numbers).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (magnet_tpu_torch/ops/cuda_build.py does this).
@@ -119,6 +141,7 @@
 #include <cstdint>
 
 #include "tile_mm.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -135,7 +158,6 @@ constexpr int kH = 64;          // hidden width
 constexpr int kC = 32;          // output width
 constexpr int kLdH = kH + 8;    // bf16 rows of kH, padded
 constexpr int kLdC = kC + 8;    // bf16 rows of kCe = kC, padded
-constexpr int kLdHf = kH + 4;   // f32 rows of kH, padded
 constexpr int kLdCf = kC + 4;   // f32 rows of kC, padded
 constexpr int kMaxDevices = 64;
 constexpr int kMaxL1 = 3;
@@ -160,10 +182,6 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__device__ __forceinline__ uint32_t pack(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
 // two f32 values rounded to bf16 (to nearest, ties to even), lo first
 __device__ __forceinline__ uint32_t pack_rn(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -174,9 +192,6 @@ __device__ __forceinline__ uint32_t ld32(const bf16* p) {
 }
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
-}
-__device__ __forceinline__ float2 ld_bf16x2(const bf16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 __device__ __forceinline__ float2 unpack(uint32_t a) {
   return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&a));
@@ -209,34 +224,6 @@ struct ARows {  // A(m, k) = p[m ld + k], bf16
     r[3] = ld32(q + 8 * ld + 8);
   }
 };
-struct ACols {  // A(m, k) = p[k ld + m], bf16 (a tile read down its columns)
-  const bf16* p;
-  int ld;
-  __device__ __forceinline__ void load(uint32_t (&r)[4], int m0,
-                                       int k0) const {
-    const bf16* q = p + (k0 + 2 * lane_t()) * ld + m0 + lane_g();
-    r[0] = pack(q[0], q[ld]);
-    r[1] = pack(q[8], q[ld + 8]);
-    r[2] = pack(q[8 * ld], q[9 * ld]);
-    r[3] = pack(q[8 * ld + 8], q[9 * ld + 8]);
-  }
-};
-struct ARowsF {  // A(m, k) = bf16(p[m ld + k]), f32 in shared memory
-  const float* p;
-  int ld;
-  __device__ __forceinline__ void load(uint32_t (&r)[4], int m0,
-                                       int k0) const {
-    const float* q = p + (m0 + lane_g()) * ld + k0 + 2 * lane_t();
-    const float2 v0 = *reinterpret_cast<const float2*>(q);
-    const float2 v1 = *reinterpret_cast<const float2*>(q + 8 * ld);
-    const float2 v2 = *reinterpret_cast<const float2*>(q + 8);
-    const float2 v3 = *reinterpret_cast<const float2*>(q + 8 * ld + 8);
-    r[0] = pack_rn(v0.x, v0.y);
-    r[1] = pack_rn(v1.x, v1.y);
-    r[2] = pack_rn(v2.x, v2.y);
-    r[3] = pack_rn(v3.x, v3.y);
-  }
-};
 // B operands: rows k0.. (16), columns n0.. (8) of B(k, n).
 struct BNK {  // B(k, n) = p[n ld + k], bf16 (a weight transposed, or W^T)
   const bf16* p;
@@ -248,17 +235,6 @@ struct BNK {  // B(k, n) = p[n ld + k], bf16 (a weight transposed, or W^T)
     r[1] = ld32(q + 8);
   }
 };
-struct BKNF {  // B(k, n) = bf16(p[k ld + n]), f32 in shared memory
-  const float* p;
-  int ld;
-  __device__ __forceinline__ void load(uint32_t (&r)[2], int k0,
-                                       int n0) const {
-    const float* q = p + (k0 + 2 * lane_t()) * ld + n0 + lane_g();
-    r[0] = pack_rn(q[0], q[ld]);
-    r[1] = pack_rn(q[8 * ld], q[9 * ld]);
-  }
-};
-
 // The part of an (R x N) product that a warp of a block of WARPS forms:
 // rows m0 .. m0 + 15 with m0 = 16 (w % (R / 16)), and NI tiles of 8
 // columns from n0 = 8 NI (w / (R / 16)); acc[ni] is the 16 x 8 tile at
@@ -327,48 +303,24 @@ struct Prod {
           pack_rn(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
     });
   }
-  // an f32 tile (rows of ld) <- acc, or where mask > 0 (a bf16 tile of
-  // rows of mld) when mask is set
-  __device__ __forceinline__ void store(float* t, int ld,
-                                        const bf16* mask = nullptr,
-                                        int mld = 0) const {
+  // an f32 tile (rows of ld) <- acc
+  __device__ __forceinline__ void store(float* t, int ld) const {
     pairs([&](int r, int c, float v0, float v1) {
-      if (mask != nullptr) {
-        const float2 m = ld_bf16x2(mask + r * mld + c);
-        v0 = m.x > 0.f ? v0 : 0.f;
-        v1 = m.y > 0.f ? v1 : 0.f;
-      }
       *reinterpret_cast<float2*>(t + r * ld + c) = make_float2(v0, v1);
     });
-  }
-  // run += acc: a tile's weight gradient into the running sums
-  __device__ __forceinline__ void add_to(float (&run)[NI][4]) const {
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) run[ni][c] += acc[ni][c];
-  }
-  // out[row * N + column] = run, the running sums in this part's places
-  __device__ __forceinline__ void write(float* out,
-                                        const float (&run)[NI][4]) const {
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) out[row(c) * N + col(ni, c)] = run[ni][c];
   }
 };
 
 // dst <- n_mat (K x N) bf16 weights w, transposed (row n of a matrix holds
-// its column n) when TRANSPOSE, else as stored; rows of ld, matrices
-// `stride` elements apart.
-template <int K, int N, bool TRANSPOSE>
+// its column n); rows of ld, matrices `stride` elements apart.
+template <int K, int N>
 __device__ __forceinline__ void load_weights(bf16* dst,
                                              const bf16* __restrict__ w,
                                              int n_mat, int ld, int stride,
                                              int threads) {
   for (int i = threadIdx.x; i < n_mat * K * N; i += threads) {
     const int m = i / (K * N), k = (i / N) % K, n = i % N;
-    dst[m * stride + (TRANSPOSE ? n * ld + k : k * ld + n)] = w[i];
+    dst[m * stride + n * ld + k] = w[i];
   }
 }
 
@@ -575,11 +527,11 @@ edge_tail_kernel(const bf16* __restrict__ src, const bf16* __restrict__ we,
   constexpr bool FOLD = E == kFold, GATHERS = E != kPregathered;
 
   if constexpr (FOLD) {
-    load_weights<kCe, kH, true>(s_wte, we, 1, kLdC, 0, kThreads);
+    load_weights<kCe, kH>(s_wte, we, 1, kLdC, 0, kThreads);
     load_f32(s_be, be, kH, kThreads);
   }
-  load_weights<kH, kH, true>(s_wtr, w_rest, l1, kLdH, kH * kLdH, kThreads);
-  load_weights<kH, kC, true>(s_wto, w_out, 1, kLdH, 0, kThreads);
+  load_weights<kH, kH>(s_wtr, w_rest, l1, kLdH, kH * kLdH, kThreads);
+  load_weights<kH, kC>(s_wto, w_out, 1, kLdH, 0, kThreads);
   load_f32(s_br, b_rest, l1 * kH, kThreads);
   load_f32(s_bo, b_out, kC, kThreads);
 
@@ -694,35 +646,53 @@ int launch(const bf16* src, const bf16* we, const bf16* be, const bf16* pxj,
 
 namespace bwd {
 
-constexpr int kThreads = 512;  // 16 warps, one block an SM
-constexpr int kWarps = kThreads / 32;
+constexpr int kGroups = 2;                // warpgroups a block, each its tiles
+constexpr int kThreads = 128 * kGroups;   // one block an SM
+constexpr int kTileH = kTE * kH * 2;      // a bf16 (kTE, kH) tile, 128-byte rows
+constexpr int kTileC = kTE * kC * 2;      // a bf16 (kTE, kC) tile, 64-byte rows
+constexpr int kTileG = kTE * kC * 4;      // an f32 (kTE, kC) tile, 128-byte rows
 
-// Offsets, in bytes, into dynamic shared memory, and, in floats, into the
-// packed weight-gradient buffer; the fold's W_e, e0 tiles, dW_e and db_e
-// take no room in the pregathered and pe entries'.
+__host__ __device__ constexpr int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
+
+// Offsets, in bytes, into dynamic shared memory (from its first 1,024-byte
+// boundary), and, in floats, into the packed weight-gradient buffer.  The
+// block's weights come first, then one part a warpgroup, then the f32
+// vectors; every tile lies on a 1,024-byte boundary (the swizzles' repeat).
 template <int L1, Entry E>
 struct Layout {
   static constexpr int F = E == kFold ? 1 : 0;     // the fold's parts
-  static constexpr int plane = kTE * kLdH * 2;     // a bf16 (kTE, kLdH) tile
-  static constexpr int gplane = kTE * kLdHf * 4;   // an f32 (kTE, kLdHf) tile
-  static constexpr int wte = 0;                    // W_e^T (kH, kLdC)
-  static constexpr int we = wte + F * kH * kLdC * 2;   // W_e (kCe, kLdH)
-  static constexpr int wtr = we + F * kCe * kLdH * 2;  // L1 x W_k^T
-  static constexpr int wr = wtr + L1 * plane;      // L1 x W_k (kH, kLdH)
-  static constexpr int wto = wr + L1 * plane;      // W_out^T (kC, kLdH)
-  static constexpr int wo = wto + kC * kLdH * 2;   // W_out (kH, kLdC)
-  static constexpr int be = wo + kH * kLdC * 2;    // f32 (kH)
-  static constexpr int br = be + F * kH * 4;       // f32 (L1, kH)
-  static constexpr int bo = br + L1 * kH * 4;      // f32 (kC)
-  static constexpr int ls = bo + kC * 4;           // f32 (kC)
-  static constexpr int act = ls + kC * 4;          // L1 + 1 bf16 planes
-  static constexpr int grad = act + (L1 + 1) * plane;  // 2 f32 planes
-  static constexpr int y = grad + 2 * gplane;      // f32 (kTE, kLdCf): y, dy
-  static constexpr int src = y + kTE * kLdCf * 4;  // 2 x bf16 (kTE, kLdC)
-  static constexpr int ln = src + F * 2 * kTE * kLdC * 2;  // kWarps x 2 kC
-  static constexpr int rcv = ln + kWarps * 2 * kC * 4;  // 2 x (kTE) int
-  static constexpr int snd = rcv + 2 * kTE * 4;    // 2 x (kTE) int
-  static constexpr int bytes = snd + 2 * kTE * 4;
+  static constexpr int J = E != kPregathered ? 1 : 0;  // pxj rows staged
+  static constexpr int we = 0;                     // W_e (kCe, kH)
+  static constexpr int wr = we + F * kCe * kH * 2;  // L1 x W_k (kH, kH)
+  static constexpr int wo = wr + L1 * kH * kH * 2;  // W_out (kH, kC)
+  static constexpr int group = wo + kH * kC * 2;   // warpgroup 0's part
+  // a warpgroup's part, from its start
+  static constexpr int act = 0;                    // h_0 .. h_L1 (kTE, kH)
+  static constexpr int da = act + (L1 + 1) * kTileH;  // 2 x bf16(da) (kTE, kH)
+  static constexpr int dy = da + 2 * kTileH;       // bf16(dy) (kTE, kC)
+  static constexpr int src = dy + kTileC;  // 2 x e0 (kTE, kCe), or h0 / pe
+  static constexpr int pxj = src + (F ? 2 * kTileC : kTileH);  // pxj[s] rows
+  static constexpr int pxi = pxj + J * kTileH;     // pxi[i] rows
+  static constexpr int g = pxi + kTileH;           // g[i] rows, f32 (kTE, kC)
+  static constexpr int idx = g + kTileG;           // 2 x rcv, 2 x snd (kTE)
+  static constexpr int sums = idx + 4 * kTE * 4;   // 4 warps x kSums f32
+  // a warp's row of bias-gradient sums: db_e, db_1 .. db_L1, db_out,
+  // d_ln_s, d_ln_b
+  static constexpr int s_be = 0;
+  static constexpr int s_br = s_be + F * kH;
+  static constexpr int s_bo = s_br + L1 * kH;
+  static constexpr int s_ls = s_bo + kC;
+  static constexpr int s_lb = s_ls + kC;
+  static constexpr int kSums = s_lb + kC;
+  static constexpr int group_bytes = round_up(sums + 4 * kSums * 4, 1024);
+  static constexpr int vec = group + kGroups * group_bytes;  // f32 b_e,
+  static constexpr int v_be = vec;                 // b_1 .. b_L1, b_out, ln_s
+  static constexpr int v_br = v_be + F * kH * 4;
+  static constexpr int v_bo = v_br + L1 * kH * 4;
+  static constexpr int v_ls = v_bo + kC * 4;
+  static constexpr int bytes = v_ls + kC * 4 + 1024;  // + the base's alignment
 
   static constexpr int g_we = 0;
   static constexpr int g_be = g_we + F * kCe * kH;
@@ -733,93 +703,267 @@ struct Layout {
   static constexpr int g_ls = g_bo + kC;
   static constexpr int g_lb = g_ls + kC;
   static constexpr int g_total = g_lb + kC;
+
+  static_assert(bytes <= 232448, "one block an SM");
+  static_assert((32 * (L1 > 0 ? L1 : 1) + 32) * 128 * 4 <= idx,
+                "warpgroup 0's weight gradients fit in its tiles");
 };
 
-// The thread's column sum over its part of an f32 (kTE, W) tile of rows of
-// ld: column tid % W, rows (tid / W) R .. + R - 1, R = kTE W / kThreads.
-template <int W>
-__device__ __forceinline__ float column_part(const float* t, int ld) {
-  constexpr int R = kTE * W / kThreads;
-  const int c = threadIdx.x % W, r0 = (threadIdx.x / W) * R;
-  float s = 0.f;
-#pragma unroll
-  for (int r = 0; r < R; ++r) s += t[(r0 + r) * ld + c];
-  return s;
+// The warpgroup's named barrier (1 + its index; 0 is __syncthreads).
+__device__ __forceinline__ void group_sync(int grp) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + grp) : "memory");
 }
 
-// The sum, in row-part order, of column c's parts that column_part<W> left
-// at sums[tid].
-template <int W>
-__device__ __forceinline__ float column_total(const float* sums, int c) {
-  float s = 0.f;
-  for (int q = 0; q < kThreads / W; ++q) s += sums[q * W + c];
-  return s;
+__device__ __forceinline__ float2 ld_pair(const unsigned char* tile,
+                                          uint32_t off) {
+  return unpack(*reinterpret_cast<const uint32_t*>(tile + off));
 }
 
-// LayerNorm's backward over the tile's y (rows of kLdCf), in place: dy =
-// rstd (dx - mean(dx) - xhat mean(dx xhat)), dx = bf16(g) ln_s, the row's
-// mean and rstd recomputed (two-pass variance).  Eight threads an edge,
-// thread q of edge e holding columns q + 8 j; gv holds bf16(g[i]) on them
-// (zero past the tile's edges).  The tile's g xhat and g, summed over each
-// warp's four edges, are added to the warp's row of s_ln.
-__device__ __forceinline__ void layer_norm_bwd(float* s_y, const float* s_ls,
-                                               const float (&gv)[kC / 8],
-                                               float* s_ln) {
-  constexpr int CP = kC / 8;
-  const int e = threadIdx.x >> 3, q = threadIdx.x & 7;
-  float* row = s_y + e * kLdCf;
-  float v[CP];
-  float mu = 0.f;
+// A warp's column sums over its 16 rows of an m64n64 accumulator: s[2 j +
+// p] holds the thread's two rows' sum at column 8 j + 2 t + p; the eight
+// lanes of a t share out the columns in three halving shuffle rounds, so
+// that lane 4 g + t returns the sums of columns 8 g + 2 t and + 1.
+__device__ __forceinline__ float2 warp_column_sums64(const float (&s)[16]) {
+  const int lane = threadIdx.x & 31;
+  float a[8], b[4], c[2];
+  bool hi = lane & 16;
 #pragma unroll
-  for (int j = 0; j < CP; ++j) {
-    v[j] = row[q + 8 * j];
-    mu += v[j];
-  }
+  for (int i = 0; i < 8; ++i)
+    a[i] = (hi ? s[i + 8] : s[i]) +
+           __shfl_xor_sync(0xffffffffu, hi ? s[i] : s[i + 8], 16);
+  hi = lane & 8;
 #pragma unroll
-  for (int o = 1; o < 8; o <<= 1) mu += __shfl_xor_sync(0xffffffffu, mu, o);
-  mu *= 1.f / kC;
-  float var = 0.f;
+  for (int i = 0; i < 4; ++i)
+    b[i] = (hi ? a[i + 4] : a[i]) +
+           __shfl_xor_sync(0xffffffffu, hi ? a[i] : a[i + 4], 8);
+  hi = lane & 4;
 #pragma unroll
-  for (int j = 0; j < CP; ++j) {
-    const float d = v[j] - mu;
-    var = fmaf(d, d, var);
-  }
+  for (int i = 0; i < 2; ++i)
+    c[i] = (hi ? b[i + 2] : b[i]) +
+           __shfl_xor_sync(0xffffffffu, hi ? b[i] : b[i + 2], 4);
+  return make_float2(c[0], c[1]);
+}
+// As warp_column_sums64 for an m64n32 accumulator (s[8]): lane 4 g + t
+// returns the sum of column 8 (g / 2) + 2 t + g % 2.
+__device__ __forceinline__ float warp_column_sums32(const float (&s)[8]) {
+  const int lane = threadIdx.x & 31;
+  float a[4], b[2];
+  bool hi = lane & 16;
 #pragma unroll
-  for (int o = 1; o < 8; o <<= 1) var += __shfl_xor_sync(0xffffffffu, var, o);
-  var *= 1.f / kC;
-  const float rstd = rsqrtf(var + kLnEps);
-  float m1 = 0.f, m2 = 0.f, dx[CP], gx[CP], gs[CP];
+  for (int i = 0; i < 4; ++i)
+    a[i] = (hi ? s[i + 4] : s[i]) +
+           __shfl_xor_sync(0xffffffffu, hi ? s[i] : s[i + 4], 16);
+  hi = lane & 8;
 #pragma unroll
-  for (int j = 0; j < CP; ++j) {
-    v[j] = (v[j] - mu) * rstd;  // xhat
-    dx[j] = gv[j] * s_ls[q + 8 * j];
-    m1 += dx[j];
-    m2 = fmaf(dx[j], v[j], m2);
-    gx[j] = gv[j] * v[j];
-    gs[j] = gv[j];
-  }
+  for (int i = 0; i < 2; ++i)
+    b[i] = (hi ? a[i + 2] : a[i]) +
+           __shfl_xor_sync(0xffffffffu, hi ? a[i] : a[i + 2], 8);
+  hi = lane & 4;
+  return (hi ? b[1] : b[0]) +
+         __shfl_xor_sync(0xffffffffu, hi ? b[0] : b[1], 4);
+}
+// row[column] += this warp's column sums (each lane its own columns)
+__device__ __forceinline__ void add_column_sums64(float* row,
+                                                  const float (&s)[16]) {
+  const int lane = threadIdx.x & 31;
+  const float2 v = warp_column_sums64(s);
+  const int col = 8 * (lane >> 2) + 2 * (lane & 3);
+  row[col] += v.x;
+  row[col + 1] += v.y;
+}
+__device__ __forceinline__ void add_column_sums32(float* row,
+                                                  const float (&s)[8]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2;
+  row[8 * (g >> 1) + 2 * (lane & 3) + (g & 1)] += warp_column_sums32(s);
+}
+
+// The accumulator's rows of this thread: r0 and r0 + 8 (wgmma.cuh).
+__device__ __forceinline__ int acc_row0() {
+  return 16 * ((threadIdx.x & 127) >> 5) + ((threadIdx.x & 31) >> 2);
+}
+__device__ __forceinline__ int acc_col0() { return 2 * (threadIdx.x & 3); }
+
+// A data gradient's epilogue: the m64n64 accumulator d (da = d . W^T of
+// the layer above) masked where h (the layer's input tile, bf16) is not
+// positive, in place; bf16(d) into the tile `out` and into a, the A
+// fragments of the product that reads it next; the masked column sums
+// added to the warp's row `sums` (null: not kept).
+__device__ __forceinline__ void mask_store(float (&d)[32],
+                                           const unsigned char* h,
+                                           unsigned char* out, float* sums,
+                                           uint32_t (&a)[4][4]) {
+  const int r0 = acc_row0(), c0 = acc_col0();
+  float s[16];
 #pragma unroll
-  for (int o = 1; o < 8; o <<= 1) {
-    m1 += __shfl_xor_sync(0xffffffffu, m1, o);
-    m2 += __shfl_xor_sync(0xffffffffu, m2, o);
-  }
-  m1 *= 1.f / kC;
-  m2 *= 1.f / kC;
+  for (int j = 0; j < 8; ++j) {
+    s[2 * j] = s[2 * j + 1] = 0.f;
 #pragma unroll
-  for (int j = 0; j < CP; ++j) row[q + 8 * j] = rstd * (dx[j] - m1 - v[j] * m2);
-#pragma unroll
-  for (int j = 0; j < CP; ++j)
-#pragma unroll
-    for (int o = 8; o < 32; o <<= 1) {
-      gx[j] += __shfl_xor_sync(0xffffffffu, gx[j], o);
-      gs[j] += __shfl_xor_sync(0xffffffffu, gs[j], o);
+    for (int hh = 0; hh < 2; ++hh) {
+      const int i = 4 * j + 2 * hh;
+      const uint32_t off = wg::at<128>(r0 + 8 * hh, 8 * j + c0);
+      const uint32_t m = *reinterpret_cast<const uint32_t*>(h + off);
+      d[i] = (m & 0xffffu) != 0 ? d[i] : 0.f;  // h > 0: h is bf16(relu(.))
+      d[i + 1] = (m >> 16) != 0 ? d[i + 1] : 0.f;
+      const uint32_t v = pack_rn(d[i], d[i + 1]);
+      *reinterpret_cast<uint32_t*>(out + off) = v;
+      a[i >> 3][(i >> 1) & 3] = v;
+      s[2 * j] += d[i];
+      s[2 * j + 1] += d[i + 1];
     }
-  if ((threadIdx.x & 31) < 8) {
-    float* part = s_ln + (threadIdx.x >> 5) * 2 * kC;
+  }
+  if (sums != nullptr) add_column_sums64(sums, s);
+}
+
+// bf16(relu(d)) of an m64n64 accumulator into the tile `out` and into a,
+// the A fragments of the product that reads it next (wgmma.cuh).
+__device__ __forceinline__ void store_relu(const float (&d)[32],
+                                           unsigned char* out,
+                                           uint32_t (&a)[4][4]) {
+  const int r0 = acc_row0(), c0 = acc_col0();
 #pragma unroll
-    for (int j = 0; j < CP; ++j) {
-      part[q + 8 * j] += gx[j];
-      part[kC + q + 8 * j] += gs[j];
+  for (int i = 0; i < 32; i += 2) {
+    const uint32_t v = pack_rn(fmaxf(d[i], 0.f), fmaxf(d[i + 1], 0.f));
+    *reinterpret_cast<uint32_t*>(
+        out + wg::at<128>(r0 + 8 * ((i >> 1) & 1), 8 * (i >> 2) + c0)) = v;
+    a[i >> 3][(i >> 1) & 3] = v;
+  }
+}
+
+// d = v[column] (f32 in shared memory) on every element of an accumulator.
+template <int R>
+__device__ __forceinline__ void init_columns(float (&d)[R], const float* v) {
+  const int c0 = acc_col0();
+#pragma unroll
+  for (int i = 0; i < R; ++i) d[i] = v[8 * (i >> 2) + c0 + (i & 1)];
+}
+
+// `n_valid` rows row(r) (global, 16-byte aligned, RB bytes each) into a
+// tile of RB-byte rows in the 128- or 64-byte swizzle, zeros past n_valid,
+// by the warpgroup's threads through cp.async; the caller commits.
+template <int RB, class Row>
+__device__ __forceinline__ void stage_rows(unsigned char* tile, int n_valid,
+                                           const void* any, Row row) {
+  constexpr int kChunks = RB / 16;
+  for (int p = threadIdx.x & 127; p < kTE * kChunks; p += 128) {
+    const int r = p / kChunks, c = p % kChunks;
+    const bool valid = r < n_valid;
+    const unsigned char* s =
+        valid ? reinterpret_cast<const unsigned char*>(row(r)) + 16 * c
+              : reinterpret_cast<const unsigned char*>(any);
+    tf32x3::cp_async16(tile + wg::swz<RB>(r * RB + 16 * c), s, valid);
+  }
+}
+
+// `rows` rows of RB bytes of a weight (global, 16-byte aligned) into its
+// tile in the RB-byte swizzle, by the block's threads through cp.async; the
+// caller commits.
+template <int RB>
+__device__ __forceinline__ void copy_weight(unsigned char* dst,
+                                            const bf16* __restrict__ w,
+                                            int rows) {
+  constexpr int kChunks = RB / 16;
+  const unsigned char* src = reinterpret_cast<const unsigned char*>(w);
+  for (int p = threadIdx.x; p < rows * kChunks; p += kThreads)
+    tf32x3::cp_async16(dst + wg::swz<RB>(16 * p), src + 16 * p, true);
+}
+
+// A warp's share of the next tile's indices (its 32 edges from base),
+// split around the tile's first product so that the loads' latency hides
+// under it: issue() loads the 32 row starts after `hint`, the receiver of
+// an edge before base (>= 0), and the senders; finish() forms the receivers
+// as tile128::warp_receiver does from that hint (the count of row starts at
+// or before each edge by a five-step search over the sorted starts in place
+// of its 32 comparisons) and stores both.  The width-128 source's
+// IndexLoad.
+struct IndexLoad {
+  int start, snd;
+
+  template <bool GATHERS>
+  __device__ __forceinline__ void issue(const int* __restrict__ rowptr,
+                                        const int* __restrict__ senders,
+                                        int n_nodes, int base, int n_valid,
+                                        int hint) {
+    const int lane = threadIdx.x & 31;
+    const int j = hint + 1 + lane;
+    start = j <= n_nodes ? __ldg(rowptr + j) : 0x7fffffff;
+    snd = GATHERS && lane < n_valid ? __ldg(senders + base + lane) : 0;
+  }
+
+  template <bool GATHERS>
+  __device__ __forceinline__ void finish(int* s_rcv, int* s_snd,
+                                         const int* __restrict__ rowptr,
+                                         int n_nodes, int base, int n_valid,
+                                         int hint) const {
+    const int lane = threadIdx.x & 31;
+    const int e = base + lane;
+    int below = 0;  // starts at or before e, of the first 31 (sorted)
+#pragma unroll
+    for (int step = 16; step > 0; step >>= 1)
+      if (__shfl_sync(0xffffffffu, start, below + step - 1) <= e) below += step;
+    int r = hint + below;
+    const int window_end = __shfl_sync(0xffffffffu, start, 31);
+    if (lane < n_valid && e >= window_end)
+      r = tile128::receiver_of(rowptr, n_nodes, e);
+    s_rcv[lane] = lane < n_valid ? r : 0;
+    if (GATHERS) s_snd[lane] = snd;
+  }
+};
+
+// The bias-gradient row of layer `k`'s input gradient da_k (k >= 1: b_k;
+// k = 0: the fold's b_e), or -1 where none is kept (da_0 off the fold).
+template <int L1, Entry E>
+__host__ __device__ constexpr int sums_of(int k) {
+  using L = Layout<L1, E>;
+  return k >= 1 ? L::s_br + (k - 1) * kH : (E == kFold ? L::s_be : -1);
+}
+
+// The thread's running weight-gradient sums, dW_k (in x out), dW_out (kH x
+// kC) and the fold's dW_e^T (kH x kCe), into its slots: slot j of thread t
+// at slots[j 128 + t] (free of bank conflicts), j = 32 k + i for dW_k's
+// d[i], 32 NL + i for dW_out's, 32 NL + 16 + i for dW_e^T's.
+template <int NL>
+__device__ __forceinline__ void store_slots(float* slots,
+                                            const float (&run_w)[NL][32],
+                                            const float (&run_wo)[16],
+                                            const float (&run_we)[16]) {
+  const int t = threadIdx.x & 127;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+#pragma unroll
+    for (int k = 0; k < NL; ++k) slots[(32 * k + i) * 128 + t] = run_w[k][i];
+    if (i < 16) {
+      slots[(32 * NL + i) * 128 + t] = run_wo[i];
+      slots[(32 * NL + 16 + i) * 128 + t] = run_we[i];
+    }
+  }
+}
+
+// The block's weight gradients into its partial row p (the packed layout):
+// warpgroup 0's slots s0 plus warpgroup 1's s1 (store_slots), in that order;
+// thread t of warpgroup grp writes the accumulator pairs (i, i + 1) of its
+// place with (i / 2) % 2 == grp, a pair of neighbouring columns a store.
+template <int L1, bool FOLD>
+__device__ __forceinline__ void write_partial(float* p, const float* s0,
+                                              const float* s1, int grp) {
+  using L = Layout<L1, FOLD ? kFold : kPe>;
+  constexpr int NL = L1 > 0 ? L1 : 1;
+  const int t = threadIdx.x & 127;
+  auto sum = [&](int slot) { return s0[slot * 128 + t] + s1[slot * 128 + t]; };
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    if (((i >> 1) & 1) != grp) continue;
+    const int m = wg::acc_row(i), n = wg::acc_col(i);  // n even
+#pragma unroll
+    for (int k = 0; k < L1; ++k)
+      *reinterpret_cast<float2*>(p + L::g_wr + k * kH * kH + m * kH + n) =
+          make_float2(sum(32 * k + i), sum(32 * k + i + 1));
+    if (i < 16) {
+      *reinterpret_cast<float2*>(p + L::g_wo + m * kC + n) =
+          make_float2(sum(32 * NL + i), sum(32 * NL + i + 1));
+      if constexpr (FOLD) {
+        p[L::g_we + n * kH + m] = sum(32 * NL + 16 + i);
+        p[L::g_we + (n + 1) * kH + m] = sum(32 * NL + 16 + i + 1);
+      }
     }
   }
 }
@@ -830,270 +974,474 @@ __device__ __forceinline__ void layer_norm_bwd(float* s_y, const float* s_ls,
 // d_pxj are null).  dz_out is null but for pe.
 template <int L1, Entry E>
 __global__ void __launch_bounds__(kThreads, 1)
-edge_tail_bwd_kernel(const bf16* __restrict__ src, const bf16* __restrict__ we,
-                     const bf16* __restrict__ be, const bf16* __restrict__ pxj,
-                     const bf16* __restrict__ pxi,
-                     const int* __restrict__ senders,
-                     const int* __restrict__ rowptr,
-                     const bf16* __restrict__ w_rest,
-                     const bf16* __restrict__ b_rest,
-                     const bf16* __restrict__ w_out,
-                     const bf16* __restrict__ b_out,
-                     const float* __restrict__ ln_s,
-                     const float* __restrict__ g, bf16* __restrict__ d_src,
-                     float* __restrict__ dz_out, float* __restrict__ d_pxj,
-                     float* __restrict__ d_pxi, float* __restrict__ partial,
-                     int n_nodes, int n_edges) {
+wgmma_bwd_kernel(const bf16* __restrict__ src, const bf16* __restrict__ we,
+                 const bf16* __restrict__ be, const bf16* __restrict__ pxj,
+                 const bf16* __restrict__ pxi, const int* __restrict__ senders,
+                 const int* __restrict__ rowptr,
+                 const bf16* __restrict__ w_rest,
+                 const bf16* __restrict__ b_rest,
+                 const bf16* __restrict__ w_out,
+                 const bf16* __restrict__ b_out,
+                 const float* __restrict__ ln_s, const float* __restrict__ g,
+                 bf16* __restrict__ d_src, float* __restrict__ dz_out,
+                 float* __restrict__ d_pxj, float* __restrict__ d_pxi,
+                 float* __restrict__ partial, int n_nodes, int n_edges) {
   using L = Layout<L1, E>;
   constexpr bool FOLD = E == kFold, GATHERS = E != kPregathered;
   constexpr int NL = L1 > 0 ? L1 : 1;
   extern __shared__ __align__(16) unsigned char bf16_bwd_smem[];
-  unsigned char* sm = bf16_bwd_smem;
-  bf16* s_wte = reinterpret_cast<bf16*>(sm + L::wte);
-  bf16* s_we = reinterpret_cast<bf16*>(sm + L::we);
-  bf16* s_wtr = reinterpret_cast<bf16*>(sm + L::wtr);
-  bf16* s_wr = reinterpret_cast<bf16*>(sm + L::wr);
-  bf16* s_wto = reinterpret_cast<bf16*>(sm + L::wto);
-  bf16* s_wo = reinterpret_cast<bf16*>(sm + L::wo);
-  float* s_be = reinterpret_cast<float*>(sm + L::be);
-  float* s_br = reinterpret_cast<float*>(sm + L::br);
-  float* s_bo = reinterpret_cast<float*>(sm + L::bo);
-  float* s_ls = reinterpret_cast<float*>(sm + L::ls);
-  float* s_y = reinterpret_cast<float*>(sm + L::y);
-  float* s_ln = reinterpret_cast<float*>(sm + L::ln);
-  int* s_rcv = reinterpret_cast<int*>(sm + L::rcv);
-  int* s_snd = reinterpret_cast<int*>(sm + L::snd);
-  // plane k: h_k (bf16); grad(a): a data gradient (f32)
-  auto plane = [&](int k) {
-    return reinterpret_cast<bf16*>(sm + L::act + k * L::plane);
-  };
-  auto grad = [&](int a) {
-    return reinterpret_cast<float*>(sm + L::grad + a * L::gplane);
-  };
-  auto staged = [&](int buf) {
-    return reinterpret_cast<bf16*>(sm + L::src + buf * kTE * kLdC * 2);
-  };
-  const int tid = threadIdx.x, warp = tid >> 5;
+  unsigned char* sm = bf16_bwd_smem + ((1024 - (wg::smem_addr(bf16_bwd_smem)
+                                                & 1023)) & 1023);
+  const int tid = threadIdx.x, grp = tid >> 7, t = tid & 127, w = t >> 5;
+  unsigned char* s_we = sm + L::we;
+  unsigned char* s_wr = sm + L::wr;
+  unsigned char* s_wo = sm + L::wo;
+  const float* v_be = reinterpret_cast<const float*>(sm + L::v_be);
+  const float* v_br = reinterpret_cast<const float*>(sm + L::v_br);
+  const float* v_bo = reinterpret_cast<const float*>(sm + L::v_bo);
+  const float* v_ls = reinterpret_cast<const float*>(sm + L::v_ls);
+  unsigned char* gp = sm + L::group + grp * L::group_bytes;
+  auto act = [&](int k) { return gp + L::act + k * kTileH; };
+  auto da = [&](int a) { return gp + L::da + a * kTileH; };
+  unsigned char* s_dy = gp + L::dy;
+  auto e0_tile = [&](int buf) { return gp + L::src + buf * kTileC; };
+  unsigned char* s_src = gp + L::src;
+  unsigned char* s_pxj = gp + L::pxj;
+  unsigned char* s_pxi = gp + L::pxi;
+  unsigned char* s_g = gp + L::g;
+  int* s_rcv = reinterpret_cast<int*>(gp + L::idx);
+  int* s_snd = s_rcv + 2 * kTE;
+  float* sums = reinterpret_cast<float*>(gp + L::sums) + w * L::kSums;
 
+  // the weights by cp.async, each once in its swizzle as stored (in, out);
+  // the f32 vectors; the warps' sums rows zeroed
   if constexpr (FOLD) {
-    load_weights<kCe, kH, true>(s_wte, we, 1, kLdC, 0, kThreads);
-    load_weights<kCe, kH, false>(s_we, we, 1, kLdH, 0, kThreads);
-    load_f32(s_be, be, kH, kThreads);
+    copy_weight<128>(s_we, we, kCe);
+    for (int i = tid; i < kH; i += kThreads)
+      reinterpret_cast<float*>(sm + L::v_be)[i] = __bfloat162float(be[i]);
   }
-  load_weights<kH, kH, true>(s_wtr, w_rest, L1, kLdH, kH * kLdH, kThreads);
-  load_weights<kH, kH, false>(s_wr, w_rest, L1, kLdH, kH * kLdH, kThreads);
-  load_weights<kH, kC, true>(s_wto, w_out, 1, kLdH, 0, kThreads);
-  load_weights<kH, kC, false>(s_wo, w_out, 1, kLdC, 0, kThreads);
-  load_f32(s_br, b_rest, L1 * kH, kThreads);
-  load_f32(s_bo, b_out, kC, kThreads);
-  for (int k = tid; k < kC; k += kThreads) s_ls[k] = __ldg(ln_s + k);
-  for (int k = tid; k < kWarps * 2 * kC; k += kThreads) s_ln[k] = 0.f;
+  copy_weight<128>(s_wr, w_rest, L1 * kH);  // L1 tiles of kH rows
+  copy_weight<64>(s_wo, w_out, kH);
+  tf32x3::cp_async_commit();
+  for (int i = tid; i < L1 * kH; i += kThreads)
+    reinterpret_cast<float*>(sm + L::v_br)[i] = __bfloat162float(b_rest[i]);
+  for (int i = tid; i < kC; i += kThreads) {
+    reinterpret_cast<float*>(sm + L::v_bo)[i] = __bfloat162float(b_out[i]);
+    reinterpret_cast<float*>(sm + L::v_ls)[i] = __ldg(ln_s + i);
+  }
+  for (int i = t; i < 4 * L::kSums; i += 128)
+    reinterpret_cast<float*>(gp + L::sums)[i] = 0.f;
 
-  // the thread's parts of the weight gradients, summed over its tiles in
-  // f32 (Prod's places), and of the bias gradients (column_part's)
-  float run_wr[NL][Prod<kH, kH, kWarps>::NI][4] = {};
-  float run_wo[Prod<kH, kC, kWarps>::NI][4] = {};
-  float run_we[Prod<kCe, kH, kWarps>::NI][4] = {};
-  float run_br[NL] = {}, run_bo = 0.f, run_be = 0.f;
+  // the block's tiles [b0, b1), balanced over the grid; warpgroup 0 walks
+  // the first half (rounded up), warpgroup 1 the rest
+  const int n_tiles = (n_edges + kTE - 1) / kTE;
+  const int b0 = (int)((long long)blockIdx.x * n_tiles / gridDim.x);
+  const int b1 = (int)((long long)(blockIdx.x + 1) * n_tiles / gridDim.x);
+  const int mid = b0 + (b1 - b0 + 1) / 2;
+  const int t_beg = grp == 0 ? b0 : mid, t_end = grp == 0 ? mid : b1;
 
-  int t_beg, t_end;
-  tile128::block_tiles<kTE>(n_edges, &t_beg, &t_end);
+  // the warpgroup's weight gradients, summed over its tiles in the
+  // products' accumulators: dW_k (in x out), dW_out (kH x kC), dW_e^T (kH
+  // x kCe)
+  float run_w[NL][32], run_wo[16], run_we[16];
+#pragma unroll
+  for (int k = 0; k < NL; ++k)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) run_w[k][i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) run_wo[i] = run_we[i] = 0.f;
+
+  // this tile's rows (e0 / h0 / pe, and the node rows), staged by cp.async
+  auto stage_tile = [&](int tile, int buf, const int* rcv, const int* snd) {
+    const int base = tile * kTE, n_valid = min(kTE, n_edges - base);
+    if constexpr (FOLD)
+      stage_rows<64>(e0_tile(buf), n_valid, src,
+                     [&](int r) { return src + (size_t)(base + r) * kCe; });
+    else
+      stage_rows<128>(s_src, n_valid, src,
+                      [&](int r) { return src + (size_t)(base + r) * kH; });
+    if constexpr (GATHERS)
+      stage_rows<128>(s_pxj, n_valid, pxj,
+                      [&](int r) { return pxj + (size_t)snd[r] * kH; });
+    stage_rows<128>(s_pxi, n_valid, pxi,
+                    [&](int r) { return pxi + (size_t)rcv[r] * kH; });
+  };
+  auto stage_g = [&](int tile, const int* rcv) {
+    const int n_valid = min(kTE, n_edges - tile * kTE);
+    stage_rows<128>(s_g, n_valid, g,
+                    [&](int r) { return g + (size_t)rcv[r] * kC; });
+  };
+
+  // while the weights arrive: the first tile's indices (a full search) and
+  // rows; a warpgroup without a tile commits two empty groups, so that
+  // every thread's wait below covers the weights alone
   if (t_beg < t_end) {
-    if (warp < 2)
+    if (w < 2)
       tile128::tile_indices<kTE, GATHERS>(s_rcv, s_snd, senders, rowptr,
                                           n_nodes, n_edges, t_beg, -1);
-    if constexpr (FOLD) {
-      stage_e0(staged(0), src, n_edges, t_beg, kThreads);
-      tf32x3::cp_async_commit();
-    }
+    group_sync(grp);  // the first tile's indices
+    stage_tile(t_beg, 0, s_rcv, s_snd);
   }
-  __syncthreads();  // the weights and the first tile's indices
+  tf32x3::cp_async_commit();
+  if (t_beg < t_end) stage_g(t_beg, s_rcv);
+  tf32x3::cp_async_commit();
+  tf32x3::cp_async_wait<2>();
+  wg::fence_async_smem();
+  __syncthreads();  // the weights
 
+  const int r0 = acc_row0(), c0 = acc_col0();
   for (int tile = t_beg, it = 0; tile < t_end; ++tile, ++it) {
     const int cur = it & 1, nxt = cur ^ 1;
     const int base = tile * kTE, n_valid = min(kTE, n_edges - base);
     const int* rcv = s_rcv + cur * kTE;
     const int* snd = s_snd + cur * kTE;
     const bool more = tile + 1 < t_end;
+    float acc[32];
+    // bf16 A fragments of the products that read A from registers: the
+    // layer below's output (K = kH), bf16(dy) (K = kC); each stays alive
+    // until the wait that covers its product (fence_operand)
+    uint32_t a[kH / 16][4], a_dy[kC / 16][4];
 
-    if constexpr (!FOLD) {
-      // h_0 = bf16(relu(h0 + pxi[i])) or bf16(relu((pe + pxj[s]) + pxi[i]))
-      first_h0<kThreads, E == kPe>(plane(0), src, pxj, pxi, snd, rcv,
-                                   n_valid, base);
-      __syncthreads();  // h_0 written; the last tile is done
-      if (more && warp < 2)
-        tile128::tile_indices<kTE, GATHERS>(
-            s_rcv + nxt * kTE, s_snd + nxt * kTE, senders, rowptr, n_nodes,
-            n_edges, tile + 1, rcv[n_valid - 1]);
-    } else {
-      // h_0 = bf16(relu(e0 . W_e + z)), z loaded while the rows arrive
-      {
-        Prod<kTE, kH, kWarps> p;
-        p.init([&](int e, int n) {
-          return fold_z(s_be, pxj, pxi, snd, rcv, n_valid, e, n);
-        });
-        tf32x3::cp_async_wait<0>();
-        __syncthreads();  // the rows are in; the last tile is done
-        if (more && warp < 2)
-          tile128::tile_indices<kTE, true>(
-              s_rcv + nxt * kTE, s_snd + nxt * kTE, senders, rowptr, n_nodes,
-              n_edges, tile + 1, rcv[n_valid - 1]);
-        if (more) {  // into the buffer the last tile's dW_e read
-          stage_e0(staged(nxt), src, n_edges, tile + 1, kThreads);
-          tf32x3::cp_async_commit();
-        }
-        p.template run<kCe>(ARows{staged(cur), kLdC}, BNK{s_wte, kLdC});
-        p.store_relu(plane(0), kLdH);
+    tf32x3::cp_async_wait<1>();  // this tile's rows (its g may still fly)
+    wg::fence_async_smem();
+    group_sync(grp);
+    // warps 0 and 1: the next tile's indices, loads issued now, the search
+    // finished after h_0
+    const int next_base = (tile + 1) * kTE + 32 * w;
+    const int next_valid = min(32, n_edges - next_base);
+    IndexLoad next;
+    if (more && w < 2)
+      next.issue<GATHERS>(rowptr, senders, n_nodes, next_base, next_valid,
+                          rcv[n_valid - 1]);
+
+    // h_0: fold bf16(relu(e0 . W_e + (b_e + (pxj[s] + pxi[i])))), the
+    // accumulators started at z from the staged node rows; pe / pregathered
+    // elementwise from the staged rows
+    if constexpr (FOLD) {
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int r = r0 + 8 * ((i >> 1) & 1), c = 8 * (i >> 2) + c0;
+        const uint32_t off = wg::at<128>(r, c);
+        const float2 j = ld_pair(s_pxj, off), p = ld_pair(s_pxi, off);
+        acc[i] = r < n_valid ? v_be[c] + (j.x + p.x) : 0.f;
+        acc[i + 1] = r < n_valid ? v_be[c + 1] + (j.y + p.y) : 0.f;
       }
-      __syncthreads();
+      wg::fence_operand(acc);
+      wg::fence();
+      wg::product<kCe / 16, 0, 1, 64, 128>(acc, e0_tile(cur), s_we, true);
+      wg::commit();
+    } else {
+      for (int p = t; p < kTE * 8; p += 128) {
+        const uint32_t off = wg::swz<128>(16 * p);  // row p / 8, chunk p % 8
+        const uint4 a = *reinterpret_cast<const uint4*>(s_src + off);
+        const uint4 b = *reinterpret_cast<const uint4*>(s_pxi + off);
+        uint4 v;
+        if constexpr (E == kPe) {
+          const uint4 j = *reinterpret_cast<const uint4*>(s_pxj + off);
+          v = make_uint4(relu_sum3(a.x, j.x, b.x), relu_sum3(a.y, j.y, b.y),
+                         relu_sum3(a.z, j.z, b.z), relu_sum3(a.w, j.w, b.w));
+        } else {
+          v = make_uint4(relu_sum(a.x, b.x), relu_sum(a.y, b.y),
+                         relu_sum(a.z, b.z), relu_sum(a.w, b.w));
+        }
+        *reinterpret_cast<uint4*>(act(0) + off) = v;
+      }
     }
+    if (more && w < 2)
+      next.finish<GATHERS>(s_rcv + nxt * kTE + 32 * w,
+                           s_snd + nxt * kTE + 32 * w, rowptr, n_nodes,
+                           next_base, next_valid, rcv[n_valid - 1]);
+    __syncwarp();  // the lanes meet before the warpgroup's wait
+    if constexpr (FOLD) {
+      wg::wait<0>();
+      wg::fence_operand(acc);
+      store_relu(acc, act(0), a);
+    }
+    tf32x3::cp_async_wait<0>();  // this tile's g rows
+    wg::fence_async_smem();
+    group_sync(grp);  // h_0 and the next indices written, the rows read
+    if (more)  // into the buffers this tile has read
+      stage_tile(tile + 1, nxt, s_rcv + nxt * kTE, s_snd + nxt * kTE);
+    tf32x3::cp_async_commit();
 
-    // h_1 .. h_L1
+    // h_k = bf16(relu(h_{k-1} . W_k + b_k)), k = 1 .. L1: h_0 from its
+    // tile, each later layer from the registers the layer below left, so
+    // no barrier comes between them (the tiles are read from the output
+    // layer on, past its barrier)
 #pragma unroll
     for (int k = 1; k <= L1; ++k) {
-      Prod<kTE, kH, kWarps> p;
-      const float* b = s_br + (k - 1) * kH;
-      p.init([&](int, int n) { return b[n]; });
-      p.template run<kH>(ARows{plane(k - 1), kLdH},
-                         BNK{s_wtr + (k - 1) * kH * kLdH, kLdH});
-      p.store_relu(plane(k), kLdH);
-      __syncthreads();
+      init_columns(acc, v_br + (k - 1) * kH);
+      wg::fence_operand(acc);
+      wg::fence();
+      if (k == 1)
+        wg::product<kH / 16, 0, 1, 128, 128>(acc, act(0), s_wr, true);
+      else
+        wg::product_rs<kH / 16, 1, 128>(acc, a, s_wr + (k - 1) * kTileH,
+                                        true);
+      wg::commit();
+      wg::wait<0>();
+      wg::fence_operand(acc);
+      wg::fence_operand(a);
+      store_relu(acc, act(k), a);
     }
 
-    // y = h_L1 . W_out + b_out; bf16(g[i]) for LayerNorm's backward, loaded
-    // before the product
-    float gv[kC / 8];
+    // y = h_L1 . W_out + b_out; LayerNorm's backward in its accumulators:
+    // dy = rstd (dx - mean dx - xhat mean(dx xhat)), dx = bf16(g[i]) ln_s,
+    // each row's statistics over the four threads of its quad (two-pass
+    // variance); bf16(dy) into its tile; the column sums of dy, bf16(g)
+    // xhat and bf16(g) into the warp's row
     {
-      const int e = tid >> 3, q = tid & 7;
+      float y[16];
+      init_columns(y, v_bo);
+      wg::fence_operand(y);
+      wg::fence();
+      if constexpr (L1 == 0)
+        wg::product<kH / 16, 0, 1, 128, 64>(y, act(0), s_wo, true);
+      else
+        wg::product_rs<kH / 16, 1, 64>(y, a, s_wo, true);
+      wg::commit();
+      wg::wait<0>();
+      wg::fence_operand(y);
+      wg::fence_operand(a);
+      float col_dy[8], col_gx[8], col_g[8];
 #pragma unroll
-      for (int j = 0; j < kC / 8; ++j)
-        gv[j] = e < n_valid
-                    ? round_bf16(__ldg(g + (size_t)rcv[e] * kC + q + 8 * j))
-                    : 0.f;
-      Prod<kTE, kC, kWarps> p;
-      p.init([&](int, int c) { return s_bo[c]; });
-      p.template run<kH>(ARows{plane(L1), kLdH}, BNK{s_wto, kLdH});
-      p.store(s_y, kLdCf);
+      for (int hh = 0; hh < 2; ++hh) {
+        const int r = r0 + 8 * hh;
+        float v[8], gv[8];
+        float mu = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          v[2 * j] = y[4 * j + 2 * hh];
+          v[2 * j + 1] = y[4 * j + 2 * hh + 1];
+          const float2 gg = *reinterpret_cast<const float2*>(
+              s_g + wg::swz<128>(r * 128 + (8 * j + c0) * 4));
+          gv[2 * j] = round_bf16(gg.x);
+          gv[2 * j + 1] = round_bf16(gg.y);
+        }
+#pragma unroll
+        for (int q = 0; q < 8; ++q) mu += v[q];
+        mu += __shfl_xor_sync(0xffffffffu, mu, 1);
+        mu += __shfl_xor_sync(0xffffffffu, mu, 2);
+        mu *= 1.f / kC;
+        float var = 0.f;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const float dv = v[q] - mu;
+          var = fmaf(dv, dv, var);
+        }
+        var += __shfl_xor_sync(0xffffffffu, var, 1);
+        var += __shfl_xor_sync(0xffffffffu, var, 2);
+        var *= 1.f / kC;
+        const float rstd = rsqrtf(var + kLnEps);
+        float m1 = 0.f, m2 = 0.f, dx[8];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          v[q] = (v[q] - mu) * rstd;  // xhat
+          dx[q] = gv[q] * v_ls[8 * (q >> 1) + c0 + (q & 1)];
+          m1 += dx[q];
+          m2 = fmaf(dx[q], v[q], m2);
+        }
+        m1 += __shfl_xor_sync(0xffffffffu, m1, 1);
+        m1 += __shfl_xor_sync(0xffffffffu, m1, 2);
+        m2 += __shfl_xor_sync(0xffffffffu, m2, 1);
+        m2 += __shfl_xor_sync(0xffffffffu, m2, 2);
+        m1 *= 1.f / kC;
+        m2 *= 1.f / kC;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const float d = rstd * (dx[q] - m1 - v[q] * m2);
+          if (hh == 0) {
+            col_dy[q] = d;
+            col_gx[q] = gv[q] * v[q];
+            col_g[q] = gv[q];
+          } else {
+            col_dy[q] += d;
+            col_gx[q] += gv[q] * v[q];
+            col_g[q] += gv[q];
+          }
+          dx[q] = d;
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const uint32_t v = pack_rn(dx[2 * j], dx[2 * j + 1]);
+          *reinterpret_cast<uint32_t*>(s_dy + wg::at<64>(r, 8 * j + c0)) = v;
+          a_dy[j >> 1][2 * (j & 1) + hh] = v;  // pair 4 j + 2 hh
+        }
+      }
+      add_column_sums32(sums + L::s_bo, col_dy);
+      add_column_sums32(sums + L::s_ls, col_gx);
+      add_column_sums32(sums + L::s_lb, col_g);
+      // the output layer: da_L1 = bf16(dy) . W_out^T from registers, issued
+      // before the barrier
+      wg::fence();
+      wg::product_rs<kC / 16, 0, 64>(acc, a_dy, s_wo, false);
+      wg::commit();
     }
-    __syncthreads();
-    layer_norm_bwd(s_y, s_ls, gv, s_ln);  // dy over y
-    __syncthreads();
+    wg::fence_async_smem();
+    group_sync(grp);  // bf16(dy) and h_1 .. h_L1 written, the g rows read
+    if (more) stage_g(tile + 1, s_rcv + nxt * kTE);
+    tf32x3::cp_async_commit();
 
-    // the output layer: dW_out += h_L1^T . bf16(dy), db_out += sum dy, and
-    // da_L1 = (bf16(dy) . W_out^T) where h_L1 > 0, into grad(0)
+    // dW_out += h_L1^T . bf16(dy), a group of its own that runs on under
+    // the epilogue (every weight-gradient product does: the next data
+    // gradient's wait retires it, before that layer's barrier); da_L1
+    // masked where h_L1 > 0, into da(0)
+    wg::product<kTE / 16, 1, 1, 128, 64>(run_wo, act(L1), s_dy, true);
+    wg::commit();
+    wg::wait<1>();
+    wg::fence_operand(acc);
+    wg::fence_operand(a_dy);
     {
-      Prod<kH, kC, kWarps> w;
-      w.template run<kTE>(ACols{plane(L1), kLdH}, BKNF{s_y, kLdCf});
-      w.add_to(run_wo);
-      run_bo += column_part<kC>(s_y, kLdCf);
-      Prod<kTE, kH, kWarps> d;
-      d.template run<kC>(ARowsF{s_y, kLdCf}, BNK{s_wo, kLdC});
-      d.store(grad(0), kLdHf, plane(L1), kLdH);
+      constexpr int row = sums_of<L1, E>(L1);
+      mask_store(acc, act(L1), da(0), row < 0 ? nullptr : sums + row, a);
     }
-    __syncthreads();
 
-    // the tail layers, last to first: dW_k += h_{k-1}^T . bf16(da_k), db_k
-    // += sum da_k, and da_{k-1} = (bf16(da_k) . W_k^T) where h_{k-1} > 0
+    // the tail layers, last to first: dW_k += h_{k-1}^T . bf16(da_k), and
+    // da_{k-1} = (bf16(da_k) . W_k^T) where h_{k-1} > 0
 #pragma unroll
     for (int k = L1; k >= 1; --k) {
-      const int a = (L1 - k) & 1;  // da_k is in grad(a)
-      Prod<kH, kH, kWarps> w;
-      w.template run<kTE>(ACols{plane(k - 1), kLdH}, BKNF{grad(a), kLdHf});
-      w.add_to(run_wr[k - 1]);
-      run_br[k - 1] += column_part<kH>(grad(a), kLdHf);
-      Prod<kTE, kH, kWarps> d;
-      d.template run<kH>(ARowsF{grad(a), kLdHf},
-                         BNK{s_wr + (k - 1) * kH * kLdH, kLdH});
-      d.store(grad(a ^ 1), kLdHf, plane(k - 1), kLdH);
-      __syncthreads();
+      const int b = (L1 - k) & 1;  // da_k is in da(b)
+      // da_{k-1} = bf16(da_k) . W_k^T from registers; the wait retires the
+      // layer above's dW (every warp's, by the barrier) before da(b ^ 1),
+      // which it read, is written again
+      wg::fence();
+      wg::product_rs<kH / 16, 0, 128>(acc, a, s_wr + (k - 1) * kTileH,
+                                      false);
+      wg::commit();
+      wg::wait<1>();
+      wg::fence_async_smem();
+      group_sync(grp);  // da(b) written; the dW above retired
+      wg::product<kTE / 16, 1, 1, 128, 128>(run_w[k - 1], act(k - 1), da(b),
+                                            true);
+      wg::commit();
+      wg::wait<1>();
+      wg::fence_operand(acc);
+      wg::fence_operand(a);
+      const int row = sums_of<L1, E>(k - 1);
+      mask_store(acc, act(k - 1), da(b ^ 1), row < 0 ? nullptr : sums + row,
+                 a);
     }
 
-    const float* dz = grad(L1 & 1);
-    if constexpr (!FOLD) {
-      // dz = da_0: d_h0 / d_pe = bf16(dz), and (pe) dz itself, a pair of
-      // columns a thread per step
-      for (int k = tid; k < n_valid * (kH / 2); k += kThreads) {
-        const int e = k / (kH / 2), n = 2 * (k % (kH / 2));
-        const float2 v = *reinterpret_cast<const float2*>(dz + e * kLdHf + n);
-        *reinterpret_cast<uint32_t*>(d_src + (size_t)(base + e) * kH + n) =
-            pack_rn(v.x, v.y);
-        if constexpr (E == kPe)
-          *reinterpret_cast<float2*>(dz_out + (size_t)(base + e) * kH + n) = v;
+    // dz = da_0: acc (f32, masked) and bf16(dz) in da(L1 & 1)
+    const unsigned char* dz = da(L1 & 1);
+    auto dz_at = [&](int e, int n) {
+      return __bfloat162float(
+          *reinterpret_cast<const bf16*>(dz + wg::at<128>(e, n)));
+    };
+    float de[16];
+    if constexpr (FOLD) {
+      // d_e0 = bf16(bf16(dz) . W_e^T) from registers, and dW_e^T +=
+      // bf16(dz)^T . e0, while the atomics below run
+      wg::fence();
+      wg::product_rs<kH / 16, 0, 128>(de, a, s_we, false);
+      wg::commit();
+      wg::fence_async_smem();
+      group_sync(grp);  // bf16(dz) written
+      wg::product<kTE / 16, 1, 1, 128, 64>(run_we, dz, e0_tile(cur), true);
+      wg::commit();
+      // d_pxj[s] += bf16(dz), four columns an atomic add
+      for (int k = t; k < n_valid * (kH / 4); k += 128) {
+        const int e = k >> 4, n = 4 * (k & 15);
+        const uint2 v =
+            *reinterpret_cast<const uint2*>(dz + wg::at<128>(e, n));
+        const float2 a = unpack(v.x), b = unpack(v.y);
+        atomicAdd(reinterpret_cast<float4*>(d_pxj + (size_t)snd[e] * kH + n),
+                  make_float4(a.x, a.y, b.x, b.y));
       }
     } else {
-      // dz = da_0: dW_e += e0^T . bf16(dz), db_e += sum dz, d_e0 =
-      // bf16(bf16(dz) . W_e^T), d_pxj[s] += bf16(dz)
-      {
-        Prod<kCe, kH, kWarps> w;
-        w.template run<kTE>(ACols{staged(cur), kLdC}, BKNF{dz, kLdHf});
-        w.add_to(run_we);
-        run_be += column_part<kH>(dz, kLdHf);
-        Prod<kTE, kCe, kWarps> d;
-        d.template run<kH>(ARowsF{dz, kLdHf}, BNK{s_we, kLdH});
-        d.pairs([&](int e, int c, float v0, float v1) {
-          if (e < n_valid)
-            *reinterpret_cast<uint32_t*>(d_src + (size_t)(base + e) * kCe +
-                                         c) = pack_rn(v0, v1);
-        });
-      }
-      for (int k = tid; k < n_valid * kH; k += kThreads) {
-        const int e = k >> 6, n = k & (kH - 1);
-        atomicAdd(d_pxj + (size_t)snd[e] * kH + n,
-                  round_bf16(dz[e * kLdHf + n]));
+      group_sync(grp);  // bf16(dz) written
+      // d_h0 / d_pe = bf16(dz), 16-byte rows pieces; pe: dz itself
+      for (int p = t; p < n_valid * 8; p += 128)
+        *reinterpret_cast<uint4*>(d_src + (size_t)(base + (p >> 3)) * kH +
+                                  8 * (p & 7)) =
+            *reinterpret_cast<const uint4*>(dz + wg::swz<128>(16 * p));
+      if constexpr (E == kPe) {
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {
+          const int r = r0 + 8 * ((i >> 1) & 1);
+          if (r < n_valid)
+            *reinterpret_cast<float2*>(dz_out + (size_t)(base + r) * kH +
+                                       8 * (i >> 2) + c0) =
+                make_float2(acc[i], acc[i + 1]);
+        }
       }
     }
-    {  // d_pxi[i] += bf16(dz), a sum a run of equal receivers
-      constexpr int kPart = kTE * kH / kThreads;  // edges of an eighth
-      const int n = tid & (kH - 1);
-      const int e_beg = (tid / kH) * kPart;
-      const int e_end = min(e_beg + kPart, n_valid);
+    {  // d_pxi[i] += bf16(dz), a sum a run of equal receivers in each
+       // half, eight edges' loads at a time
+      const int n = t & (kH - 1);
+      const int e_beg = (t >> 6) * (kTE / 2);
+      const int e_end = min(e_beg + kTE / 2, n_valid);
       if (e_beg < e_end) {
         int at = rcv[e_beg];
         float s = 0.f;
-        for (int e = e_beg; e < e_end; ++e) {
-          if (rcv[e] != at) {
-            atomicAdd(d_pxi + (size_t)at * kH + n, s);
-            s = 0.f;
-            at = rcv[e];
+        for (int e0 = e_beg; e0 < e_end; e0 += 8) {
+          int rr[8];
+          float vv[8];
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            const bool valid = e0 + q < e_end;
+            rr[q] = valid ? rcv[e0 + q] : at;
+            vv[q] = valid ? dz_at(e0 + q, n) : 0.f;
           }
-          s += round_bf16(dz[e * kLdHf + n]);
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            if (rr[q] != at) {
+              atomicAdd(d_pxi + (size_t)at * kH + n, s);
+              s = 0.f;
+              at = rr[q];
+            }
+            s += vv[q];
+          }
         }
         atomicAdd(d_pxi + (size_t)at * kH + n, s);
       }
     }
-  }
-  tf32x3::cp_async_wait<0>();
-  __syncthreads();  // every tile is done: the bias parts go through grad(0)
-
-  // this block's partial gradients, in the packed layout
-  float* p = partial + (size_t)blockIdx.x * L::g_total;
-  float* sums = grad(0);  // one row of kThreads parts a bias gradient
+    if constexpr (FOLD) {
+      __syncwarp();
+      wg::wait<1>();
+      wg::fence_operand(de);
+      wg::fence_operand(a);
 #pragma unroll
-  for (int k = 0; k < L1; ++k) {
-    Prod<kH, kH, kWarps>().write(p + L::g_wr + k * kH * kH, run_wr[k]);
-    sums[k * kThreads + tid] = run_br[k];
+      for (int i = 0; i < 16; i += 2) {
+        const int r = r0 + 8 * ((i >> 1) & 1);
+        if (r < n_valid)
+          *reinterpret_cast<uint32_t*>(d_src + (size_t)(base + r) * kCe +
+                                       8 * (i >> 2) + c0) =
+              pack_rn(de[i], de[i + 1]);
+      }
+    }
+    __syncwarp();
+    wg::wait<0>();  // the weight-gradient products: their tiles are reused
   }
-  Prod<kH, kC, kWarps>().write(p + L::g_wo, run_wo);
-  sums[L1 * kThreads + tid] = run_bo;
-  if constexpr (FOLD) {
-    Prod<kCe, kH, kWarps>().write(p + L::g_we, run_we);
-    sums[(L1 + 1) * kThreads + tid] = run_be;
-  }
+#pragma unroll
+  for (int k = 0; k < NL; ++k) wg::fence_operand(run_w[k]);
+  wg::fence_operand(run_wo);
+  wg::fence_operand(run_we);
+  tf32x3::cp_async_wait<0>();
+  __syncthreads();  // both warpgroups are done; their tiles are free
+
+  // the block's partial row: each warpgroup's weight gradients through its
+  // own tiles (store_slots), then both write the sums, warpgroup 0's plus
+  // warpgroup 1's, half the places each; the bias sums of the eight warps'
+  // rows added in warp order
+  float* p = partial + (size_t)blockIdx.x * L::g_total;
+  store_slots(reinterpret_cast<float*>(gp), run_w, run_wo, run_we);
   __syncthreads();
-  if (tid < L1 * kH) {
-    p[L::g_br + tid] =
-        column_total<kH>(sums + (tid / kH) * kThreads, tid % kH);
-  } else if (tid < L1 * kH + kC) {
-    p[L::g_bo + tid - L1 * kH] =
-        column_total<kC>(sums + L1 * kThreads, tid - L1 * kH);
-  } else if (tid < L1 * kH + 3 * kC) {  // d_ln_s, then d_ln_b
-    const int c = tid - L1 * kH - kC;
+  write_partial<L1, FOLD>(p, reinterpret_cast<const float*>(sm + L::group),
+                          reinterpret_cast<const float*>(sm + L::group +
+                                                         L::group_bytes),
+                          grp);
+  const float* rows = reinterpret_cast<const float*>(sm + L::group + L::sums);
+  for (int c = tid; c < L::kSums; c += kThreads) {
     float s = 0.f;
-    for (int w = 0; w < kWarps; ++w) s += s_ln[w * 2 * kC + c];
-    p[L::g_ls + c] = s;
-  } else if (FOLD && tid < L1 * kH + 3 * kC + kH) {
-    const int c = tid - L1 * kH - 3 * kC;
-    p[L::g_be + c] = column_total<kH>(sums + (L1 + 1) * kThreads, c);
+    for (int q = 0; q < kGroups * 4; ++q)
+      s += rows[(q >> 2) * (L::group_bytes / 4) + (q & 3) * L::kSums + c];
+    const int at = c < L::s_br   ? L::g_be + c
+                   : c < L::s_bo ? L::g_br + c - L::s_br
+                   : c < L::s_ls ? L::g_bo + c - L::s_bo
+                   : c < L::s_lb ? L::g_ls + c - L::s_ls
+                                 : L::g_lb + c - L::s_lb;
+    p[at] = s;
   }
 }
 
@@ -1108,9 +1456,12 @@ __global__ void reduce_partials_kernel(const float* __restrict__ partial,
   wgrad[p] = s;
 }
 
-// The kernel on a persistent grid of at most scratch_blocks blocks, each a
-// run of consecutive tiles (every block at least one), then the
-// fixed-order sum of the blocks' partials.
+// kernels the last call launched (its own count, for the checks)
+std::atomic<int> last_launches{0};
+
+// The kernel on a grid of at most scratch_blocks blocks (one an SM), block
+// b over tiles [b T / B, (b + 1) T / B), then the fixed-order sum of the
+// blocks' partials: two launches.
 template <int L1, Entry E>
 int launch(const bf16* src, const bf16* we, const bf16* be, const bf16* pxj,
            const bf16* pxi, const int* senders, const int* rowptr,
@@ -1121,24 +1472,25 @@ int launch(const bf16* src, const bf16* we, const bf16* be, const bf16* pxj,
            cudaStream_t stream) {
   using L = Layout<L1, E>;
   static std::atomic<int> cache[kMaxDevices];
-  int cap = 0;
-  const cudaError_t err = grid_cap(edge_tail_bwd_kernel<L1, E>, kThreads,
+  int cap = 0, launches = 0;
+  const cudaError_t err = grid_cap(wgmma_bwd_kernel<L1, E>, kThreads,
                                    (size_t)L::bytes, cache, &cap);
   if (err != cudaSuccess) return (int)err;
   if (cap > scratch_blocks) cap = scratch_blocks;
   const int n_tiles = n_nodes > 0 ? (n_edges + kTE - 1) / kTE : 0;
   if (n_tiles > 0 && cap < 1) return (int)cudaErrorInvalidValue;
-  const int per_block = n_tiles > 0 ? (n_tiles + cap - 1) / cap : 1;
-  const int blocks = (n_tiles + per_block - 1) / per_block;
+  const int blocks = n_tiles < cap ? n_tiles : cap;
   if (blocks > 0) {
-    edge_tail_bwd_kernel<L1, E><<<blocks, kThreads, L::bytes, stream>>>(
+    wgmma_bwd_kernel<L1, E><<<blocks, kThreads, L::bytes, stream>>>(
         src, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest, w_out, b_out,
         ln_s, g, d_src, dz_out, d_pxj, d_pxi, partial, n_nodes, n_edges);
     const cudaError_t launched = cudaGetLastError();
     if (launched != cudaSuccess) return (int)launched;
+    ++launches;
   }
   reduce_partials_kernel<<<(L::g_total + 255) / 256, 256, 0, stream>>>(
       partial, wgrad, blocks, L::g_total);
+  last_launches.store(++launches, std::memory_order_relaxed);
   return (int)cudaGetLastError();
 }
 
@@ -1317,6 +1669,12 @@ int fused_edge_tail_agg_bf16_smem(int which, int l1) {
   return which == 1   ? bwd::smem_bytes<kFold>(l1)
          : which == 3 ? bwd::smem_bytes<kPregathered>(l1)
                       : bwd::smem_bytes<kPe>(l1);
+}
+
+// Kernels the last backward call launched, its own count: the walk and the
+// sum of the blocks' partial rows (the sum alone when there is no edge).
+int fused_edge_tail_agg_bf16_bwd_launches(void) {
+  return bwd::last_launches.load(std::memory_order_relaxed);
 }
 
 }  // extern "C"

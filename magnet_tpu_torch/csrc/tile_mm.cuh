@@ -81,8 +81,9 @@ __device__ __forceinline__ void block_tiles(int n_edges, int* t_beg,
 
 // The receivers (and, GATHERS, the senders) of tile `tile`'s TE = 64
 // edges into s_rcv / s_snd (zero past the edge count), found from `hint`, a
-// receiver of an edge before the tile (or -1).  Warps 0 and 1, 32 edges
-// each; every lane of both enters.
+// receiver of an edge before the tile (or -1).  Two warps 2k and 2k + 1
+// (warps 0 and 1, or a warpgroup's first two), 32 edges each; every lane of
+// both enters.
 template <int TE, bool GATHERS>
 __device__ __forceinline__ void tile_indices(int* s_rcv, int* s_snd,
                                              const int* __restrict__ senders,
@@ -90,7 +91,7 @@ __device__ __forceinline__ void tile_indices(int* s_rcv, int* s_snd,
                                              int n_nodes, int n_edges,
                                              int tile, int hint) {
   static_assert(TE == 64, "two warps of 32 edges");
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warp = (threadIdx.x >> 5) & 1, lane = threadIdx.x & 31;
   const int base = tile * TE + 32 * warp;
   const int n_valid = min(32, n_edges - base);
   const int rv = warp_receiver(rowptr, n_nodes, base, n_valid, hint);

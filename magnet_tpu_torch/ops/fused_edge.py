@@ -966,6 +966,13 @@ def _launch_bf16_fwd(e0, we, be, pxj, pxi, senders, rowptr, *tail):
     return out
 
 
+def _bf16_bwd64_blocks(dev, n_edges):
+    """Partial rows of the width-64 bf16 backward: its grid's blocks, one an
+    SM and at most one a tile of ``BWD_TILE`` edges."""
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    return min(n_sm, -(-n_edges // BWD_TILE))
+
+
 def _launch_bf16_bwd(e0, we, be, pxj, pxi, senders, rowptr, *tail_and_g):
     """The bf16 backward kernel (width 64, or width 128's launch
     sequence): the gradients in ``GRAD_NAMES`` order, each in its operand's
@@ -981,9 +988,10 @@ def _launch_bf16_bwd(e0, we, be, pxj, pxi, senders, rowptr, *tail_and_g):
     if h == 128:
         return _launch_bf16_w128_bwd("fold", e0, we, be, pxj, pxi, senders,
                                      rowptr, *tail, g)
+    _check_aligned(g=g, we=we, w_rest=tail[0], w_out=tail[2])  # cp.async
     dev = e0.device
     sizes = [ce * h, h, l1 * h * h, l1 * h, h * c, c, c, c]
-    n_blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_blocks = _bf16_bwd64_blocks(dev, E)
     d_e0 = torch.empty_like(e0)
     # the kernel adds into these with atomics (one fill for both)
     d_nodes = torch.zeros(2, n, h, dtype=torch.float32, device=dev)
@@ -1105,9 +1113,10 @@ def _launch_pregathered_bf16_bwd(h0, pxi, rowptr, *tail_and_g):
     if h == 128:
         return _launch_bf16_w128_bwd("pregathered", h0, None, None, None, pxi,
                                      None, rowptr, *tail, g)
+    _check_aligned(g=g, w_rest=tail[0], w_out=tail[2])  # cp.async
     dev = h0.device
     sizes = [l1 * h * h, l1 * h, h * c, c, c, c]
-    n_blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_blocks = _bf16_bwd64_blocks(dev, E)
     d_h0 = torch.empty_like(h0)
     d_pxi = torch.zeros(n, h, dtype=torch.float32, device=dev)  # atomics
     wgrad = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
@@ -1345,7 +1354,8 @@ def _launch_pe64_bf16_bwd(pe, pxj, pxi, senders, rowptr, *tail_and_g):
     c = tail[2].shape[1]
     dev = pe.device
     sizes = [l1 * h * h, l1 * h, h * c, c, c, c]
-    n_blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+    _check_aligned(g=g, w_rest=tail[0], w_out=tail[2])  # cp.async
+    n_blocks = _bf16_bwd64_blocks(dev, E)
     d_pe = torch.empty_like(pe)
     dz = torch.empty(E, h, dtype=torch.float32, device=dev)
     d_pxi = torch.zeros(n, h, dtype=torch.float32, device=dev)  # atomics

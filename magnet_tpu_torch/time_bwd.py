@@ -56,6 +56,8 @@ import numpy as np
 import torch
 
 from magnet_tpu_torch.config import (
+    DATAMODULE_IMPLICIT,
+    DATAMODULE_IMPLICIT_2D,
     DATAMODULE_IMPLICIT_GNN,
     MAGNET_CNN,
     MAGNET_CNN_2D,
@@ -132,12 +134,15 @@ def runner(fn, entry, ops, g, widths):
     return run
 
 
-def runner_bf16(ops, g):
-    """A closure that launches the bf16 backward's C entry on ``ops``
-    (``to_bf16``) and g as its wrapper does and returns (d_e0, d_pxi, the
-    packed weight gradients), all in f32."""
-    fn = cuda_build.function(fe.BF16, fe._ARGTYPES[fe.BF16_BWD],
-                             symbol=fe.BF16_BWD)
+def runner_bf16(ops, g, fn=None):
+    """A closure that launches the bf16 backward's C entry ``fn`` (this
+    checkout's unless given) on ``ops`` (``to_bf16``) and g as its wrapper
+    does and returns (d_e0 bf16, d_pxi and the packed weight gradients
+    f32): buffers allocated once and reused by every call (the node
+    gradients zeroed before each), so that a timed run of calls is not
+    held by the host's allocations."""
+    fn = fn or cuda_build.function(fe.BF16, fe._ARGTYPES[fe.BF16_BWD],
+                                   symbol=fe.BF16_BWD)
     e0, we, _, _, _, _, rowptr, *tail = ops
     ce, h = we.shape
     n, e = rowptr.numel() - 1, e0.shape[0]
@@ -146,28 +151,31 @@ def runner_bf16(ops, g):
     total = ce * h + h + l1 * (h * h + h) + h * c + 3 * c
     blocks = torch.cuda.get_device_properties(dev).multi_processor_count
     partial = torch.empty(blocks, total, device=dev)
+    d_e0 = torch.empty_like(e0)
+    d_nodes = torch.zeros(2, n, h, device=dev)
+    wgrad = torch.empty(total, device=dev)
+    args = (*(t.data_ptr() for t in ops[:12]), g.data_ptr(),
+            d_e0.data_ptr(), d_nodes[0].data_ptr(), d_nodes[1].data_ptr(),
+            wgrad.data_ptr(), partial.data_ptr(), n, e, ce, h, c, l1, blocks,
+            torch.cuda.current_stream(dev).cuda_stream)
 
     def run():
-        d_e0 = torch.empty_like(e0)
-        d_nodes = torch.zeros(2, n, h, device=dev)
-        wgrad = torch.empty(total, device=dev)
-        err = fn(*(t.data_ptr() for t in ops[:12]), g.data_ptr(),
-                 d_e0.data_ptr(), d_nodes[0].data_ptr(),
-                 d_nodes[1].data_ptr(), wgrad.data_ptr(), partial.data_ptr(),
-                 n, e, ce, h, c, l1, blocks,
-                 torch.cuda.current_stream().cuda_stream)
+        d_nodes.zero_()
+        err = fn(*args)
         if err:
             raise RuntimeError(f"launch failed: cudaError {err}")
-        return d_e0.float(), d_nodes[1], wgrad
+        return d_e0, d_nodes[1], wgrad
     return run
 
 
-def runner_pregathered_bf16(ops, g):
-    """A closure that launches the bf16 pregathered backward's C entry on
-    ``ops`` (``pregathered_bf16``) and g as its wrapper does and returns
-    (d_h0, d_pxi, the packed weight gradients), all in f32."""
-    fn = cuda_build.function(fe.BF16, fe._ARGTYPES[fe.BF16_PRE_BWD],
-                             symbol=fe.BF16_PRE_BWD)
+def runner_pregathered_bf16(ops, g, fn=None):
+    """A closure that launches the bf16 pregathered backward's C entry
+    ``fn`` (this checkout's unless given) on ``ops`` (``pregathered_bf16``)
+    and g as its wrapper does and returns (d_h0 bf16, d_pxi and the packed
+    weight gradients f32), in buffers reused by every call
+    (``runner_bf16``)."""
+    fn = fn or cuda_build.function(fe.BF16, fe._ARGTYPES[fe.BF16_PRE_BWD],
+                                   symbol=fe.BF16_PRE_BWD)
     h0, pxi, rowptr, *tail = ops
     n, e, h = rowptr.numel() - 1, h0.shape[0], h0.shape[1]
     l1, c = tail[0].shape[0], tail[2].shape[1]
@@ -175,29 +183,32 @@ def runner_pregathered_bf16(ops, g):
     total = l1 * (h * h + h) + h * c + 3 * c
     blocks = torch.cuda.get_device_properties(dev).multi_processor_count
     partial = torch.empty(blocks, total, device=dev)
+    d_h0 = torch.empty_like(h0)
+    d_pxi = torch.zeros(n, h, device=dev)
+    wgrad = torch.empty(total, device=dev)
+    args = (*(t.data_ptr() for t in (h0, pxi, rowptr, *tail[:5])),
+            g.data_ptr(), d_h0.data_ptr(), d_pxi.data_ptr(),
+            wgrad.data_ptr(), partial.data_ptr(), n, e, h, c, l1, blocks,
+            torch.cuda.current_stream(dev).cuda_stream)
 
     def run():
-        d_h0 = torch.empty_like(h0)
-        d_pxi = torch.zeros(n, h, device=dev)
-        wgrad = torch.empty(total, device=dev)
-        err = fn(*(t.data_ptr() for t in (h0, pxi, rowptr, *tail[:5])),
-                 g.data_ptr(), d_h0.data_ptr(), d_pxi.data_ptr(),
-                 wgrad.data_ptr(), partial.data_ptr(), n, e, h, c, l1,
-                 blocks, torch.cuda.current_stream().cuda_stream)
+        d_pxi.zero_()
+        err = fn(*args)
         if err:
             raise RuntimeError(f"launch failed: cudaError {err}")
-        return d_h0.float(), d_pxi, wgrad
+        return d_h0, d_pxi, wgrad
     return run
 
 
-def runner_pe64_bf16(ops, g):
+def runner_pe64_bf16(ops, g, fn=None):
     """A closure that launches the width-64 bf16 pe backward's C entry
-    (#7 alone, without the caller's segment sum) on the C-entry operands
-    ``ops`` (``operands("pe", ...)`` through ``to_bf16``) and g as its
-    wrapper does and returns (d_pe, dz, d_pxi, the packed weight
-    gradients), all in f32."""
-    fn = cuda_build.function(fe.BF16, fe._ARGTYPES[fe.BF16_PE_BWD],
-                             symbol=fe.BF16_PE_BWD)
+    ``fn`` (#7 alone, without the caller's segment sum; this checkout's
+    unless given) on the C-entry operands ``ops`` (``operands("pe", ...)``
+    through ``to_bf16``) and g as its wrapper does and returns (d_pe bf16,
+    dz, d_pxi and the packed weight gradients f32), in buffers reused by
+    every call (``runner_bf16``)."""
+    fn = fn or cuda_build.function(fe.BF16, fe._ARGTYPES[fe.BF16_PE_BWD],
+                                   symbol=fe.BF16_PE_BWD)
     pe, _, _, pxj, pxi, senders, rowptr, *tail = ops
     n, (e, h) = rowptr.numel() - 1, pe.shape
     l1, c = tail[0].shape[0], tail[2].shape[1]
@@ -205,20 +216,22 @@ def runner_pe64_bf16(ops, g):
     total = l1 * (h * h + h) + h * c + 3 * c
     blocks = torch.cuda.get_device_properties(dev).multi_processor_count
     partial = torch.empty(blocks, total, device=dev)
+    d_pe = torch.empty_like(pe)
+    dz = torch.empty(e, h, device=dev)
+    d_pxi = torch.zeros(n, h, device=dev)
+    wgrad = torch.empty(total, device=dev)
+    args = (*(t.data_ptr() for t in (pe, pxj, pxi, senders, rowptr,
+                                     *tail[:5])),
+            g.data_ptr(), d_pe.data_ptr(), dz.data_ptr(), d_pxi.data_ptr(),
+            wgrad.data_ptr(), partial.data_ptr(), n, e, h, c, l1, blocks,
+            torch.cuda.current_stream(dev).cuda_stream)
 
     def run():
-        d_pe = torch.empty_like(pe)
-        dz = torch.empty(e, h, device=dev)
-        d_pxi = torch.zeros(n, h, device=dev)
-        wgrad = torch.empty(total, device=dev)
-        err = fn(*(t.data_ptr() for t in (pe, pxj, pxi, senders, rowptr,
-                                          *tail[:5])),
-                 g.data_ptr(), d_pe.data_ptr(), dz.data_ptr(),
-                 d_pxi.data_ptr(), wgrad.data_ptr(), partial.data_ptr(), n,
-                 e, h, c, l1, blocks, torch.cuda.current_stream().cuda_stream)
+        d_pxi.zero_()
+        err = fn(*args)
         if err:
             raise RuntimeError(f"launch failed: cudaError {err}")
-        return d_pe.float(), dz, d_pxi, wgrad
+        return d_pe, dz, d_pxi, wgrad
     return run
 
 
@@ -270,6 +283,7 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     if args.get("dtype") == "bf16" and "baseline" in args:
+        main_bf16_w64_baseline(Path(args["baseline"]), dev)
         return main_bf16_w128_baseline(Path(args["baseline"]), dev)
     fns = libraries(fe.BWD, args)
     if args.get("dtype") == "bf16":
@@ -587,6 +601,195 @@ def main_bf16_w128_baseline(baseline: Path, dev) -> int:
             del ops, runs, want
     train_steps_in_turns(fns["baseline"], dev)
     return 0
+
+
+#: the width-64 bf16 backward's C entry of each entry
+BF16_W64_SYMBOL = {"fold": fe.BF16_BWD, "pe": fe.BF16_PE_BWD,
+                   "pregathered": fe.BF16_PRE_BWD}
+
+
+def bf16_w64_bwd_bound(entry, graph, l1) -> dict:
+    """Least time on the card for one width-64 bf16 backward call
+    (``chip_smoke.py``'s ``bf16_bound``, ``pregathered_bf16_bound`` and
+    ``pe_bf16_bound``): three times the forward's operations at the dense
+    bf16 rate, against each input read once and each output written once
+    (bf16 operands and gradients at 2 bytes; g, ln_s, ln_b, d_ln, the
+    indices and the pe's dz at 4)."""
+    n, e = graph.n_node, graph.n_edge
+    ce, h, c = 32, 64, 32
+    fold = entry == "fold"
+    flops = 3 * 2.0 * e * ((ce * h if fold else 0) + l1 * h * h + h * c)
+    weights = (ce * h + h if fold else 0) + l1 * (h * h + h) + h * c + c
+    src = e * (ce if fold else h)
+    tables = 1 if entry == "pregathered" else 2
+    ints = e if entry != "pregathered" else 0
+    inputs = 2.0 * (src + tables * n * h + weights) \
+        + 4.0 * (2 * c + ints + n + 1)
+    out = 2.0 * (src + tables * n * h + weights) + 4.0 * 2 * c
+    if entry == "pe":
+        out = 2.0 * (e * h + n * h + weights) + 4.0 * (e * h + 2 * c)
+    elif entry == "pregathered":
+        out = 2.0 * (e * h + n * h + weights) + 4.0 * 2 * c
+    nbytes = inputs + 4.0 * n * c + out
+    t_ops, t_bytes = flops / BF16_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+    return {"bf16_bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
+def bf16_w64_functions(lib) -> dict:
+    """{entry: the width-64 bf16 backward's C entry} of a library built from
+    any tree (the same arguments in both)."""
+    out = {}
+    for entry, symbol in BF16_W64_SYMBOL.items():
+        fn = getattr(ctypes.CDLL(str(lib)), symbol)
+        fn.argtypes = fe._ARGTYPES[symbol]
+        fn.restype = ctypes.c_int
+        out[entry] = fn
+    return out
+
+
+def main_bf16_w64_baseline(baseline: Path, dev) -> None:
+    """The width-64 bf16 backward of the tree at ``baseline`` (its
+    ``csrc/fused_edge_tail_agg_bf16.cu``) against this checkout's, in turns
+    (baseline, this, this, baseline): #9 (fold) and #7 (pe, without its
+    segment sum) at a MAgNet[CNN] 1D training batch, #3 (pre-gathered) at
+    the MAgNet[CNN] 2D training graphs of 32 and 8 samples, each build
+    against the plain version (relative L2 of d_src, d_pxi and the packed
+    weight and bias gradients), with the plain version's time and the bf16
+    bound; then MAgNet[CNN] 1D and 2D bf16 training steps in turns, the
+    backward through either build."""
+    fns = {"baseline": bf16_w64_functions(
+               cuda_build.build(fe.BF16, csrc=baseline)),
+           "this": bf16_w64_functions(cuda_build.build(fe.BF16))}
+    for label, entry, hp, graph in cases():
+        h, c = hp["mlp_hidden"], hp["latent_dim"]
+        l1 = hp["mlp_layers"] - 1
+        g = torch.randn(graph.n_node, c,
+                        generator=torch.Generator().manual_seed(44)).to(dev)
+        for kind in (("fold", "pe") if entry == "fold" else ("pregathered",)):
+            ops = to_bf16(operands(kind, graph, c if kind == "fold" else h,
+                                   h, c, l1, seed=43, dev=dev))
+            if kind == "fold":
+                make, want = runner_bf16, plain_grads("fold_bf16", ops, g)
+            elif kind == "pe":
+                make = runner_pe64_bf16
+                src, _, _, pxj, pxi, senders, rowptr, *tail = ops
+                d = fe.fused_edge_tail_agg_pe_bf16_bwd_plain(
+                    src, pxj, pxi, senders, rowptr, graph.snd_ptr.to(dev),
+                    graph.snd_perm.to(dev), *tail, g)
+                want = (d[0].float(), d[2].float(),
+                        torch.cat([t.float().reshape(-1) for t in d[3:]]))
+            else:
+                ops = pregathered_bf16(ops)
+                make = runner_pregathered_bf16
+                want = plain_grads("pregathered_bf16", ops, g)
+            runs = {k: make(ops, g, fn[kind]) for k, fn in fns.items()}
+            err = {}
+            for k, run in runs.items():
+                got = run()
+                got = (got[0], got[-2], got[-1])  # d_src, d_pxi, packed
+                err[k] = {name: float((a.double() - b.double()).norm()
+                                      / b.double().norm().clamp_min(1e-30))
+                          for name, a, b in zip(
+                              ("d_src", "d_pxi", "packed_weights_biases"),
+                              got, want)}
+            order, times, mean = in_turns(runs)
+            if kind == "fold":
+                plain = lambda: plain_grads("fold_bf16", ops, g)  # noqa: E731
+            elif kind == "pe":
+                plain = lambda: fe.fused_edge_tail_agg_pe_bf16_bwd_plain(  # noqa: E731
+                    src, pxj, pxi, senders, rowptr, graph.snd_ptr.to(dev),
+                    graph.snd_perm.to(dev), *tail, g)
+            else:
+                plain = lambda: plain_grads("pregathered_bf16", ops, g)  # noqa: E731
+            print(json.dumps({
+                "kernel": KERNEL_NUMBER[kind], "entry": kind,
+                "widths": [c, h, c] if kind == "fold" else [h, c],
+                "shape": label, "n_node": graph.n_node,
+                "n_edge": graph.n_edge, "l1": l1, "reps": REPS,
+                "order": order, "ms": times, "mean_ms": mean,
+                "baseline": str(baseline), "plain_ms": cuda_ms(plain),
+                **bf16_w64_bwd_bound(kind, graph, l1),
+                "vs_plain_rel_l2": err,
+                "device": torch.cuda.get_device_name(0)}), flush=True)
+            del ops, runs, want
+    cnn_train_steps_in_turns(fns["baseline"], dev)
+
+
+@contextlib.contextmanager
+def bf16_w64_backward_of(fns):
+    """Inside the block the width-64 bf16 backward's launchers run another
+    tree's C entries ``fns`` ({entry: function}, the same arguments): the
+    cached C functions are swapped for them."""
+    saved = {}
+    for entry, symbol in BF16_W64_SYMBOL.items():
+        cuda_build.function(fe.BF16, fe._ARGTYPES[symbol], symbol=symbol)
+        saved[symbol] = cuda_build._FUNCTIONS[symbol]
+        cuda_build._FUNCTIONS[symbol] = (saved[symbol][0], fns[entry])
+    try:
+        yield
+    finally:
+        cuda_build._FUNCTIONS.update(saved)
+
+
+def cnn_train_steps_in_turns(baseline_fns, dev, steps=5) -> None:
+    """Seconds a MAgNet[CNN] bf16 training step, the width-64 bf16 backward
+    through the baseline's build and this one's in turns (baseline, this,
+    this, baseline), each the mean of ``steps`` steps on one batch after two
+    steps of warm-up: 1D on one batch of 32 KS trajectories on the fold
+    lane (``kernel``: #9) and the pe lane (``kernel_pe``: #7), 2D on one
+    batch of 8 Burgers-2D trajectories (``kernel``: the training graph's
+    pre-gathered lane, #3), each from the datamodule's synthetic source."""
+    from magnet_tpu_torch.train.trainer import Trainer
+
+    one_d = build_loaders({**DATAMODULE_IMPLICIT, "source": "synthetic_ks",
+                           "n_train": 32, "n_val": 1, "n_test": 1,
+                           "burn_in": 10.0, "data_seed": 0}, seed=0)
+    two_d = build_loaders({**DATAMODULE_IMPLICIT_2D,
+                           "source": "synthetic_burgers_2d", "n_train": 8,
+                           "n_val": 1, "n_test": 1, "batch_size": 8,
+                           "data_seed": 0}, seed=0)
+    for name, hp, loaders, lane in (
+            ("magnet_cnn", MAGNET_CNN, one_d, "kernel"),
+            ("magnet_cnn", MAGNET_CNN, one_d, "kernel_pe"),
+            ("magnet_cnn_2d", MAGNET_CNN_2D, two_d, "kernel")):
+        batch = next(iter(loaders["train"]))
+        model = create_model(name, {**hp, "graph_dtype": "bf16"}, device=dev,
+                             seed=0)
+        model.impl = lane
+        with tempfile.TemporaryDirectory() as workdir:
+            trainer = Trainer(model, workdir=workdir, device=dev)
+            trainer.setup(1)
+
+            def run():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    trainer.train_step(batch)
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t0) / steps
+
+            with bf16_w64_backward_of(baseline_fns):
+                run()
+            run()
+            order = ["baseline", "this", "this", "baseline"]
+            secs = []
+            for k in order:
+                if k == "baseline":
+                    with bf16_w64_backward_of(baseline_fns):
+                        secs.append(run())
+                else:
+                    secs.append(run())
+        print(json.dumps({
+            "train_step": f"{name} bf16", "impl": lane,
+            "batch_size": len(batch["coords"]) if "coords" in batch else None,
+            "steps_a_turn": steps, "order": order, "seconds": secs,
+            "mean_s": {k: float(np.mean([t for o, t in zip(order, secs)
+                                         if o == k]))
+                       for k in ("baseline", "this")},
+            "device": torch.cuda.get_device_name(0)}), flush=True)
+        del model, trainer
 
 
 @contextlib.contextmanager

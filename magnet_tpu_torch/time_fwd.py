@@ -62,6 +62,7 @@ from magnet_tpu_torch.utils import make_coord_np
 F32_PEAK, TF32_PEAK, BF16_PEAK = 67e12, 495e12, 989e12
 HBM_RATE = 3.35e12
 REPS = 20  # launches a timed run
+BUSY_CYCLES = 6_000_000  # ~3 ms of the device: REPS launches' host time
 #: each entry's TPU kernel (magnet_tpu/ops/pallas_kernels.py)
 KERNEL_NUMBER = {"fold": "#8", "pe": "#6", "pregathered": "#2"}
 
@@ -295,11 +296,17 @@ def runner_pregathered_bf16(ops):
 
 
 def cuda_ms(fn):
+    """Device ms of one call of ``fn``, the mean of ``REPS`` calls between
+    CUDA events after three of warm-up.  The device sleeps ``BUSY_CYCLES``
+    before the first event while the host enqueues the calls, so that a
+    call whose launches take the host longer than the device takes to run
+    them is timed by the device."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(BUSY_CYCLES)
     start.record()
     for _ in range(REPS):
         fn()
