@@ -990,6 +990,139 @@ def bwd64_bf16_checks(entry, dev, sms, seed) -> dict:
     return out
 
 
+def fwd_bf16_library(width):
+    """The bf16 forward's library at ``width`` (64 or 128), loaded, and the
+    prefix of its C entries."""
+    import ctypes
+
+    from magnet_tpu_torch.ops import cuda_build
+    from magnet_tpu_torch.ops import fused_edge as fe
+
+    name = fe.BF16 if width == 64 else fe.BF16_W128
+    return ctypes.CDLL(str(cuda_build.build(name))), name
+
+
+def fwd_bf16_ptxas(width) -> dict:
+    """ptxas's lines (entry, spills, registers) of the bf16 forward's wgmma
+    kernel at ``width``, one group an entry, whether any spills, and each
+    entry's dynamic shared memory at L1 = 0..3."""
+    import ctypes
+
+    from magnet_tpu_torch.ops import cuda_build
+    from magnet_tpu_torch.ops import fused_edge as fe
+
+    lib, name = fwd_bf16_library(width)
+    lines, keep = [], False
+    for ln in ptxas_lines(cuda_build.build(name)):
+        if "entry function" in ln:
+            keep = "wgmma_fwd_kernel" in ln
+        if keep:
+            lines.append(ln)
+    spills = [ln for ln in lines if "spill" in ln and not (
+        "0 bytes spill stores" in ln and "0 bytes spill loads" in ln)]
+    if width == 64:
+        smem = lib.fused_edge_tail_agg_bf16_smem
+        which = {"fold": 0, "pregathered": 2, "pe": 4}
+        get = lambda entry, l1: smem(which[entry], l1)  # noqa: E731
+    else:
+        smem = lib.fused_edge_tail_agg_bf16_w128_fwd_smem
+        get = lambda entry, l1: smem(fe.ENTRY[entry], l1)  # noqa: E731
+    smem.argtypes, smem.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    return {"ptxas": lines, "spills": spills, "no_spill": not spills,
+            "kernels": sum("entry function" in ln for ln in lines),
+            "smem_bytes": {entry: {l1: get(entry, l1) for l1 in range(4)}
+                           for entry in ("fold", "pe", "pregathered")}}
+
+
+def fwd_bf16_checks(entry, width, dev, seed, paths=(), smalls=True) -> dict:
+    """The bf16 forward of ``entry`` (fold #8, pregathered #2 or pe #6; the
+    wgmma kernel, two warpgroups a block, every weight resident) at width
+    64 ((32, 64, 32) / (64, 32)) or 128 against its bf16 plain version at
+    L1 = 0..3 on the small graph (a degree-0 receiver, receivers of up to
+    64 edges, fewer tiles than blocks: the second warpgroup of a block
+    idle), at E = 1, on a tile graph (``tile_edges_graph`` with more than
+    four tiles a block: both warpgroups walk two tiles or more, receivers
+    crossing tile and warpgroup boundaries) and on the path graphs
+    ``paths`` ((label, graph) pairs; ``smalls`` False: those alone), each
+    within ``compare_bf16``'s tolerance, the degree-0 rows zero; out
+    bit-equal over two calls; the kernels a call launches (its library's
+    own count: 2, 1 for one tile); the blocks of a call and the blocks an
+    SM holds; ptxas (no spill).  Returns the results; ``ok`` gates them
+    all."""
+    import ctypes
+
+    from magnet_tpu_torch.ops import fused_edge as fe
+    from magnet_tpu_torch.time_fwd import operands as c_operands
+    from magnet_tpu_torch.time_fwd import to_bf16
+
+    ce, h, c = (32, 64, 32) if width == 64 else (128, 128, 128)
+    fn, plain = {
+        "fold": (fe.fused_edge_tail_agg_bf16,
+                 fe.fused_edge_tail_agg_bf16_plain),
+        "pregathered": (fe.fused_edge_tail_agg_pregathered_bf16,
+                        fe.fused_edge_tail_agg_pregathered_bf16_plain),
+        "pe": (fe.fused_edge_tail_agg_pe_bf16,
+               fe.fused_edge_tail_agg_pe_bf16_plain)}[entry]
+    lib, name = fwd_bf16_library(width)
+    launches = getattr(lib, f"{name}_fwd_launches")
+    launches.restype = ctypes.c_int
+    blocks = getattr(lib, f"{name}_fwd_blocks")
+    blocks.argtypes, blocks.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+
+    def operands(graph, l1, s):
+        if entry == "fold":
+            return to_bf16(kernel_operands(graph, ce, h, c, l1, s, dev))
+        if entry == "pregathered":
+            return to_bf16(pregathered_operands(graph, h, c, l1, s, dev))
+        src, _, _, pxj, pxi, senders, rowptr, *tail = to_bf16(
+            c_operands("pe", graph, h, h, c, l1, s, dev))
+        return (src, pxj, pxi, senders, rowptr, graph.snd_ptr.to(dev),
+                graph.snd_perm.to(dev), *tail)
+
+    cap = blocks(fe.ENTRY[entry], 1 << 30)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tiles = tile_edges_graph(fe.FWD_TILE, seed + 1,
+                             n_edge_min=4 * cap * fe.FWD_TILE + 1)
+    n_tiles = -(-tiles.n_edge // fe.FWD_TILE)
+    per_group = [(b1 - b0 + g) // 2 for b in range(cap)
+                 for b0, b1 in [(b * n_tiles // cap, (b + 1) * n_tiles // cap)]
+                 for g in (0, 1)]
+    out = {"widths": [ce, h, c] if entry == "fold" else [h, c],
+           "grid_cap_blocks": cap, "sms": sms, "blocks_an_sm": cap / sms,
+           "tile_edges_graph": {
+               "n_edge": tiles.n_edge, "n_tiles": n_tiles,
+               "tiles_per_warpgroup": [min(per_group), max(per_group)],
+               "max_degree": int(tiles.degree.max())}}
+    ok, calls = True, {}
+    cases = [("small_case", small_line_graph()), ("one_edge", one_edge_graph()),
+             ("tile_edges", tiles)] if smalls else []
+    cases += list(paths)
+    for label, graph in cases:
+        for l1 in range(4):
+            ops = operands(graph, l1, seed + 2 + l1)
+            got = fn(*ops)
+            torch.cuda.synchronize()
+            n_launch = launches()
+            res = compare_bf16(got, plain(*ops))
+            zero = graph.degree.to(dev) == 0
+            res.update(n_edge=graph.n_edge, launches_a_call=n_launch,
+                       blocks=blocks(fe.ENTRY[entry], graph.n_edge),
+                       degree0_rows_zero=bool((got[zero] == 0).all()),
+                       bits_equal_run_to_run=torch.equal(got, fn(*ops)))
+            want_launches = 1 if graph.n_edge <= fe.FWD_TILE else 2
+            calls[n_launch] = calls.get(n_launch, 0) + 1
+            ok = (ok and res["ok"] and res["degree0_rows_zero"]
+                  and res["bits_equal_run_to_run"]
+                  and n_launch == want_launches)
+            out[f"{label}_l1_{l1}"] = res
+            del ops, got
+    build = fwd_bf16_ptxas(width)
+    out.update(launches_per_call=calls, ptxas_no_spill=build["no_spill"],
+               smem_bytes=build["smem_bytes"][entry],
+               ok=ok and build["no_spill"] and cap >= sms)
+    return out
+
+
 def cnn_bf16_phases(dev, data, groups) -> tuple[int, list, dict]:
     """Phases ``bf16_kernel``, ``bf16_kernel_bwd``, ``bf16_slice`` and
     ``bf16_train``: MAgNet[CNN] 1D's bf16 lane (``graph_dtype=bf16``), its
@@ -1071,7 +1204,11 @@ def cnn_bf16_phases(dev, data, groups) -> tuple[int, list, dict]:
             "plain_ms": cuda_ms(
                 lambda: fe.fused_edge_tail_agg_bf16_plain(*ops_bf), reps=20),
             **bf16_bound("fwd", graph, ce, h, c, l1)}
-    fwd_ok = bits_equal and all(
+    # the wgmma kernel at L1 = 0..3 on the small, E = 1 and tile graphs and
+    # at the 1D eval and training graphs
+    wgmma_fwd = fwd_bf16_checks("fold", 64, dev, seed=400, paths=(
+        ("eval_shape", egraph), ("train_shape", tgraph)))
+    fwd_ok = bits_equal and wgmma_fwd["ok"] and all(
         r["ok"] and r["vs_f32_kernel"]["ok"] and r["degree0_rows_zero"]
         for r in fwd.values())
     emit({"phase": "bf16_kernel", "ce": ce, "h": h, "c": c,
@@ -1080,7 +1217,8 @@ def cnn_bf16_phases(dev, data, groups) -> tuple[int, list, dict]:
                         "vs_f32_kernel": {"rtol": BF16_VS_F32_RTOL,
                                           "atol": BF16_VS_F32_ATOL}},
           **fwd, "bits_equal_run_to_run": bits_equal, "timing": timing,
-          "library_ms": None, **build,
+          "library_ms": None, **build, "wgmma_fwd_checks": wgmma_fwd,
+          "wgmma_fwd_ptxas": fwd_bf16_ptxas(64),
           "seconds": time.perf_counter() - t_phase, "ok": fwd_ok})
     if not fwd_ok:
         return 24, [], {}
@@ -1464,7 +1602,16 @@ def cnn2d_bf16_kernel_phases(dev) -> tuple[int, dict]:
                        *ops_e_bf), reps=5),
                    **bf16_bound("fwd", egraph, c, h, c, l1))
     del ops_e, ops_e_bf, got
+    # the wgmma kernel: #2 at L1 = 0..3 on the small, E = 1 and tile graphs
+    # and at the training graph; #8 at L1 = 0..3 at the 2D eval graph
+    wgmma_fwd = {
+        "pregathered": fwd_bf16_checks("pregathered", 64, dev, seed=420,
+                                       paths=(("train_shape", graph),)),
+        "fold_2d_eval": fwd_bf16_checks("fold", 64, dev, seed=430,
+                                        paths=(("eval_2d", egraph),),
+                                        smalls=False)}
     fwd_ok = (graph.lane == "pregathered" and egraph.lane == "fold"
+              and all(r["ok"] for r in wgmma_fwd.values())
               and bits_equal and fold_2d["ok"]
               and fold_2d["bits_equal_run_to_run"]
               and all(r["ok"] and r["vs_f32_kernel"]["ok"]
@@ -1480,6 +1627,7 @@ def cnn2d_bf16_kernel_phases(dev) -> tuple[int, dict]:
           **fwd, "bits_equal_run_to_run": bits_equal,
           "timing": pre_timing, "library_ms": None,
           "fold_bf16_at_2d_eval_shape": fold_2d, **build,
+          "wgmma_fwd_checks": wgmma_fwd, "wgmma_fwd_ptxas": fwd_bf16_ptxas(64),
           "seconds": time.perf_counter() - t_phase, "ok": fwd_ok})
     if not fwd_ok:
         return 28, {}
@@ -2055,10 +2203,17 @@ def gnn_bf16_phases(dev, data, groups) -> tuple[int, list, dict]:
             rows[label] = res
             del ops32, ops_bf, wops_bf, got, got32
         fwd[entry] = rows
+    # the wgmma kernels at L1 = 0..3 on the small, E = 1 and tile graphs
+    # and at the eval and training LR ∪ HR graphs
+    wgmma_fwd = {entry: fwd_bf16_checks(
+        entry, 128, dev, seed=440 + 10 * i,
+        paths=(("eval_all", eg.all), ("train_all", tg.all)))
+        for i, entry in enumerate(("fold", "pe"))}
     fwd_ok = all(r["ok"] and r["vs_f32_kernel"]["ok"] and r["degree0_rows_zero"]
                  and r.get("bits_equal_run_to_run", True)
                  for rows in fwd.values() for r in rows.values()) and all(
-        gr.lane == "fold" for gr in graphs.values())
+        gr.lane == "fold" for gr in graphs.values()) and all(
+        r["ok"] for r in wgmma_fwd.values())
     emit({"phase": "gnn_bf16_kernel", "ce": h, "h": h, "c": h, "l1": l1,
           "small_case_l1": GNN_SMALL_L1,
           "tolerance": {"vs_plain": {"rtol": BF16_RTOL, "atol": BF16_ATOL,
@@ -2067,7 +2222,8 @@ def gnn_bf16_phases(dev, data, groups) -> tuple[int, list, dict]:
                                           "atol": BF16_VS_F32_ATOL,
                                           "of": "receiver means"}},
           "fold_bf16_w128": fwd["fold"], "pe_bf16": fwd["pe"],
-          "library_ms": None, **build,
+          "library_ms": None, **build, "wgmma_fwd_checks": wgmma_fwd,
+          "wgmma_fwd_ptxas": fwd_bf16_ptxas(128),
           "seconds": time.perf_counter() - t_phase, "ok": fwd_ok})
     if not fwd_ok:
         return 34, [], {}
@@ -2522,7 +2678,11 @@ def gnn_pre_phases(dev, data, groups) -> tuple[int, list, dict]:
                                 fe.fused_edge_tail_agg_pregathered(*w32)))
         fwd[label] = res
         del ops32, ops_bf, w32, wbf, got, got32
-    fwd_ok = layouts_ok and all(
+    # the wgmma kernel at L1 = 0..3 on the small, E = 1 and tile graphs and
+    # at the eval and training LR ∪ HR graphs
+    wgmma_fwd = fwd_bf16_checks("pregathered", 128, dev, seed=470, paths=(
+        ("eval_all", eg.all), ("train_all", tg.all)))
+    fwd_ok = layouts_ok and wgmma_fwd["ok"] and all(
         r["ok"] and r["f32_vs_plain"]["ok"] and r["vs_f32_kernel"]["ok"]
         and r["degree0_rows_zero"] and r.get("bits_equal_run_to_run", True)
         for r in fwd.values())
@@ -2536,6 +2696,8 @@ def gnn_pre_phases(dev, data, groups) -> tuple[int, list, dict]:
                                           "atol": BF16_VS_F32_ATOL,
                                           "of": "receiver means"}},
           "pregathered_bf16_w128": fwd, "library_ms": None, **build,
+          "wgmma_fwd_checks": wgmma_fwd,
+          "wgmma_fwd_ptxas": fwd_bf16_ptxas(128),
           "seconds": time.perf_counter() - t_phase, "ok": fwd_ok})
     if not fwd_ok:
         return 41, [], {}
@@ -3039,10 +3201,15 @@ def cnn_pe_phases(dev, data, groups) -> tuple[int, list, dict]:
                 **pe_bf16_bound("fwd", graph, h, c, l1c)}
         fwd["f32"][label], fwd["bf16"][label] = r32, rbf
         del ops, wops, wops_bf, got, got32
-    fwd_ok = all(r["ok"] and r["degree0_rows_zero"]
-                 and r.get("bits_equal_run_to_run", True)
-                 and r.get("vs_f32_kernel", {"ok": True})["ok"]
-                 for rows in fwd.values() for r in rows.values())
+    # the wgmma kernel at L1 = 0..3 on the small, E = 1 and tile graphs and
+    # at the 1D eval and training and the 2D eval graphs
+    wgmma_fwd = fwd_bf16_checks("pe", 64, dev, seed=480, paths=(
+        ("eval_1d", egraph), ("train_1d", tgraph), ("eval_2d", egraph2d)))
+    fwd_ok = wgmma_fwd["ok"] and all(
+        r["ok"] and r["degree0_rows_zero"]
+        and r.get("bits_equal_run_to_run", True)
+        and r.get("vs_f32_kernel", {"ok": True})["ok"]
+        for rows in fwd.values() for r in rows.values())
     emit({"phase": "pe64_kernel", "h": h, "c": c, "l1": l1,
           "tolerance": {"f32_vs_plain": {"rtol": KERNEL_RTOL,
                                          "atol": KERNEL_ATOL},
@@ -3053,6 +3220,7 @@ def cnn_pe_phases(dev, data, groups) -> tuple[int, list, dict]:
                                                "atol": BF16_VS_F32_ATOL,
                                                "of": "receiver means"}},
           "pe64": fwd["f32"], "pe64_bf16": fwd["bf16"], "library_ms": None,
+          "wgmma_fwd_checks": wgmma_fwd, "wgmma_fwd_ptxas": fwd_bf16_ptxas(64),
           "seconds": time.perf_counter() - t_phase, "ok": fwd_ok})
     if not fwd_ok:
         return 40, [], {}

@@ -46,24 +46,45 @@
 // _bwd_plain (fold), fused_edge_tail_agg_pregathered_bf16_plain /
 // _bwd_plain and fused_edge_tail_agg_pe_bf16_plain / _bwd_plain.
 //
-// Forward (fwd::): the f32 builds' walk (csrc/fused_edge_tail_agg.cu,
-// namespace w64) with bf16 products; one template holds the three entries
-// (an Entry value):
-//   * persistent blocks of 256 threads walk consecutive tiles of TE = 64
-//     CSR edges (tile128::block_tiles); warps 0 and 1 find the next tile's
-//     receivers and senders from the last receiver of this one
-//     (tile128::tile_indices); each run of equal receivers is summed in CSR
-//     order, partial rows left for the receivers that cross a tile
-//     (csr_tile): the same bits from run to run;
-//   * every product is mma.sync.aligned.m16n8k16 bf16 x bf16 -> f32, warp
-//     w forming 16 rows and 8 NI columns of each (64 x N) result (Prod),
-//     every weight resident as bf16, transposed, in padded rows (72 or 40
-//     elements) so that a fragment is one 32-bit load; h_k bf16 tiles, y
-//     and LayerNorm f32;
-//   * pregathered and pe form h_0 elementwise from 16-byte loads of the
-//     tile's h0 / pe rows and their node rows (pe: (pe + pxj[s]) + pxi[i],
-//     the TPU kernel's order).
-//   63,104 bytes of shared memory at L1 = 3, two blocks an SM.
+// Forward (fwd::wgmma_fwd_kernel): Hopper's warpgroup products, one
+// template for the three entries (an Entry value):
+//   * blocks of 256 threads, two an SM (three for the pre-gathered entry),
+//     block b over tiles [b T / B, (b + 1) T / B) of TE = 64 CSR edges of
+//     the grid's B = min(T, the blocks the card holds) blocks; its two
+//     warpgroups each walk half of them (the first the first half, rounded
+//     up) with their own tiles and named barriers (bar.sync 1 + group,
+//     128); a group without a tile reaches only the block's barrier after
+//     the weights;
+//   * every weight lies once in shared memory as stored (in, out), loaded
+//     by cp.async before the walk: W_e and W_1 .. W_L1 in the 128-byte
+//     swizzle (the MN-major B of h . W), W_out in the 64-byte one;
+//   * every product is wgmma.mma_async m64n64k16 / m64n32k16 bf16 x bf16
+//     -> f32 (csrc/wgmma.cuh): the fold's first, e0 . W_e, from the staged
+//     e0 tile (K-major A) onto accumulators started at b_e + (pxj[s] +
+//     pxi[i]); pe and pre-gathered form h_0 = bf16(relu((pe + pxj[s]) +
+//     pxi[i])) / bf16(relu(h0 + pxi[i])) elementwise from the staged rows
+//     straight into the A fragments of the first tail product; each later
+//     product reads A from registers (the accumulators of the one before,
+//     bias added first, relu and rounded to bf16 in place), so no barrier
+//     comes between the layers;
+//   * y + b_out and LayerNorm (two-pass, f32) in the accumulators, each
+//     row's statistics over the four threads of its quad; bf16(y) into the
+//     warpgroup's tile; the receiver sums are one more product, D = S . Y
+//     (wgmma.cuh: S the 0/1 matrix of the tile's runs of equal receivers,
+//     from a ballot; Y the bf16(y) tile), as the TPU kernel sums by a
+//     one-hot product; each run's row of D goes to out, or for a receiver
+//     that crosses a tile to its partial row, added in tile order by
+//     cross_tile_sum_kernel: no atomics, out has the same bits run to run;
+//   * a tile's e0 / pe / h0 rows and its node rows are staged by cp.async
+//     into the tiles the tile before has read, issued while its first tail
+//     product runs; the next tile's indices are loaded at the start of a
+//     tile and searched there (IndexLoad), the row starts that tell whether
+//     its first and last runs cross it before y (csr_tile::edge_ends), each
+//     load where written (tile128::ldg_ahead).
+//   87,424 / 91,264 / 74,880 bytes of shared memory at L1 = 3 (fold / pe /
+//   pregathered); fused_edge_tail_agg_bf16_smem reports each for each L1,
+//   fused_edge_tail_agg_bf16_fwd_launches a call's launches (2, or 1 for
+//   one tile) and fused_edge_tail_agg_bf16_fwd_blocks its grid.
 // Backward (bwd::wgmma_bwd_kernel): Hopper's warpgroup products, two tiles
 // in flight an SM:
 //   * one block of 256 threads an SM, block b over tiles [b T / B, (b + 1)
@@ -156,39 +177,13 @@ constexpr int kTE = 64;         // edges per tile
 constexpr int kCe = 32;         // the edge-latent width
 constexpr int kH = 64;          // hidden width
 constexpr int kC = 32;          // output width
-constexpr int kLdH = kH + 8;    // bf16 rows of kH, padded
-constexpr int kLdC = kC + 8;    // bf16 rows of kCe = kC, padded
-constexpr int kLdCf = kC + 4;   // f32 rows of kC, padded
 constexpr int kMaxDevices = 64;
 constexpr int kMaxL1 = 3;
-
-static_assert(kCe == kC, "the e0 tiles and the (., kC) tiles share a stride");
-
-// ---- bf16 products on the tensor cores -----------------------------------
-//
-// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, lane = 4 g + t:
-//   A (16 x 16): a0 (g, 2t..2t+1), a1 (g + 8, 2t..), a2 (g, 2t + 8..),
-//                a3 (g + 8, 2t + 8..)
-//   B (16 x 8):  b0 (2t..2t+1, g), b1 (2t + 8.., g)
-//   C (16 x 8):  c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1)
-// each register holding two bf16 values, the lower index in its low half.
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // two f32 values rounded to bf16 (to nearest, ties to even), lo first
 __device__ __forceinline__ uint32_t pack_rn(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
-}
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -206,192 +201,6 @@ __device__ __forceinline__ uint32_t relu_sum3(uint32_t a, uint32_t j,
                                               uint32_t b) {
   const float2 x = unpack(a), z = unpack(j), y = unpack(b);
   return pack_rn(fmaxf((x.x + z.x) + y.x, 0.f), fmaxf((x.y + z.y) + y.y, 0.f));
-}
-
-__device__ __forceinline__ int lane_g() { return (threadIdx.x & 31) >> 2; }
-__device__ __forceinline__ int lane_t() { return threadIdx.x & 3; }
-
-// A operands: rows m0.., columns k0.. (16 x 16) of A(m, k).
-struct ARows {  // A(m, k) = p[m ld + k], bf16
-  const bf16* p;
-  int ld;
-  __device__ __forceinline__ void load(uint32_t (&r)[4], int m0,
-                                       int k0) const {
-    const bf16* q = p + (m0 + lane_g()) * ld + k0 + 2 * lane_t();
-    r[0] = ld32(q);
-    r[1] = ld32(q + 8 * ld);
-    r[2] = ld32(q + 8);
-    r[3] = ld32(q + 8 * ld + 8);
-  }
-};
-// B operands: rows k0.. (16), columns n0.. (8) of B(k, n).
-struct BNK {  // B(k, n) = p[n ld + k], bf16 (a weight transposed, or W^T)
-  const bf16* p;
-  int ld;
-  __device__ __forceinline__ void load(uint32_t (&r)[2], int k0,
-                                       int n0) const {
-    const bf16* q = p + (n0 + lane_g()) * ld + k0 + 2 * lane_t();
-    r[0] = ld32(q);
-    r[1] = ld32(q + 8);
-  }
-};
-// The part of an (R x N) product that a warp of a block of WARPS forms:
-// rows m0 .. m0 + 15 with m0 = 16 (w % (R / 16)), and NI tiles of 8
-// columns from n0 = 8 NI (w / (R / 16)); acc[ni] is the 16 x 8 tile at
-// column n0 + 8 ni.
-template <int R, int N, int WARPS>
-struct Prod {
-  static constexpr int NI = R * N / (WARPS * 128);
-  static_assert(NI >= 1 && R % 16 == 0 && WARPS % (R / 16) == 0 &&
-                    NI * 8 * (WARPS / (R / 16)) == N,
-                "the warps cover the result");
-  float acc[NI][4];
-  int m0, n0;
-
-  __device__ __forceinline__ Prod() {
-    const int w = threadIdx.x >> 5;
-    m0 = 16 * (w % (R / 16));
-    n0 = 8 * NI * (w / (R / 16));
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[ni][c] = 0.f;
-  }
-  __device__ __forceinline__ int row(int c) const {
-    return m0 + lane_g() + 8 * (c >> 1);
-  }
-  __device__ __forceinline__ int col(int ni, int c) const {
-    return n0 + 8 * ni + 2 * lane_t() + (c & 1);
-  }
-  // acc = f(row, column)
-  template <class F>
-  __device__ __forceinline__ void init(F f) {
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) acc[ni][c] = f(row(c), col(ni, c));
-  }
-  // acc += A . B, A (R x K), B (K x N)
-  template <int K, class OA, class OB>
-  __device__ __forceinline__ void run(const OA& a, const OB& b) {
-    static_assert(K % 16 == 0, "K in steps of 16");
-#pragma unroll 2
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      uint32_t fa[4];
-      a.load(fa, m0, k0);
-#pragma unroll
-      for (int ni = 0; ni < NI; ++ni) {
-        uint32_t fb[2];
-        b.load(fb, k0, n0 + 8 * ni);
-        mma(acc[ni], fa, fb);
-      }
-    }
-  }
-  // f(row, column, v0, v1) on the thread's pairs of neighbouring columns
-  template <class F>
-  __device__ __forceinline__ void pairs(F f) const {
-#pragma unroll
-    for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        f(row(2 * h), col(ni, 0), acc[ni][2 * h], acc[ni][2 * h + 1]);
-  }
-  // a bf16 tile (rows of ld) <- bf16(relu(acc))
-  __device__ __forceinline__ void store_relu(bf16* t, int ld) const {
-    pairs([&](int r, int c, float v0, float v1) {
-      *reinterpret_cast<uint32_t*>(t + r * ld + c) =
-          pack_rn(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
-    });
-  }
-  // an f32 tile (rows of ld) <- acc
-  __device__ __forceinline__ void store(float* t, int ld) const {
-    pairs([&](int r, int c, float v0, float v1) {
-      *reinterpret_cast<float2*>(t + r * ld + c) = make_float2(v0, v1);
-    });
-  }
-};
-
-// dst <- n_mat (K x N) bf16 weights w, transposed (row n of a matrix holds
-// its column n); rows of ld, matrices `stride` elements apart.
-template <int K, int N>
-__device__ __forceinline__ void load_weights(bf16* dst,
-                                             const bf16* __restrict__ w,
-                                             int n_mat, int ld, int stride,
-                                             int threads) {
-  for (int i = threadIdx.x; i < n_mat * K * N; i += threads) {
-    const int m = i / (K * N), k = (i / N) % K, n = i % N;
-    dst[m * stride + n * ld + k] = w[i];
-  }
-}
-
-// n bf16 values to f32 in shared memory
-__device__ __forceinline__ void load_f32(float* dst,
-                                         const bf16* __restrict__ src, int n,
-                                         int threads) {
-  for (int i = threadIdx.x; i < n; i += threads)
-    dst[i] = __bfloat162float(src[i]);
-}
-
-// Tile `tile`'s e0 rows (kCe bf16, 64 bytes each) into dst (rows of kLdC),
-// zeros past the edge count, by cp.async; the caller commits.
-__device__ __forceinline__ void stage_e0(bf16* dst,
-                                         const bf16* __restrict__ e0,
-                                         int n_edges, int tile, int threads) {
-  constexpr int kPieces = kCe * 2 / 16;  // 16-byte pieces a row
-  const int base = tile * kTE, n_valid = min(kTE, n_edges - base);
-  for (int p = threadIdx.x; p < kTE * kPieces; p += threads) {
-    const int r = p / kPieces, c = (p % kPieces) * 8;
-    const bool valid = r < n_valid;
-    tf32x3::cp_async16(dst + r * kLdC + c,
-                       valid ? e0 + (size_t)(base + r) * kCe + c : e0, valid);
-  }
-}
-
-// z = b_e + pxj[sender] + pxi[receiver] at (e, n), zero past n_valid: the
-// start of the first product's accumulators (bf16 rows of kH).
-__device__ __forceinline__ float fold_z(const float* s_be,
-                                        const bf16* __restrict__ pxj,
-                                        const bf16* __restrict__ pxi,
-                                        const int* snd, const int* rcv,
-                                        int n_valid, int e, int n) {
-  if (e >= n_valid) return 0.f;
-  return s_be[n] + (__bfloat162float(pxj[(size_t)snd[e] * kH + n]) +
-                    __bfloat162float(pxi[(size_t)rcv[e] * kH + n]));
-}
-
-// The pregathered entry's h_0 = bf16(relu(f32(h0[e]) + f32(pxi[rcv[e]]))),
-// or (PE) the pe entry's bf16(relu((f32(pe[e]) + f32(pxj[snd[e]])) +
-// f32(pxi[rcv[e]]))), of the tile's edges into dst (bf16 rows of kLdH),
-// zeros past n_valid: 16-byte pieces of 8 columns, by a block of THREADS
-// threads.  The rows of src, pxj and pxi start 16-byte aligned.
-template <int THREADS, bool PE>
-__device__ __forceinline__ void first_h0(bf16* dst,
-                                         const bf16* __restrict__ src,
-                                         const bf16* __restrict__ pxj,
-                                         const bf16* __restrict__ pxi,
-                                         const int* snd, const int* rcv,
-                                         int n_valid, int base) {
-  constexpr int kPieces = kH / 8;  // 16-byte pieces a row
-  for (int p = threadIdx.x; p < kTE * kPieces; p += THREADS) {
-    const int e = p / kPieces, c = (p % kPieces) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (e < n_valid) {
-      const uint4 a = __ldg(
-          reinterpret_cast<const uint4*>(src + (size_t)(base + e) * kH + c));
-      const uint4 b = __ldg(
-          reinterpret_cast<const uint4*>(pxi + (size_t)rcv[e] * kH + c));
-      if constexpr (PE) {
-        const uint4 j = __ldg(
-            reinterpret_cast<const uint4*>(pxj + (size_t)snd[e] * kH + c));
-        v = make_uint4(relu_sum3(a.x, j.x, b.x), relu_sum3(a.y, j.y, b.y),
-                       relu_sum3(a.z, j.z, b.z), relu_sum3(a.w, j.w, b.w));
-      } else {
-        v = make_uint4(relu_sum(a.x, b.x), relu_sum(a.y, b.y),
-                       relu_sum(a.z, b.z), relu_sum(a.w, b.w));
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + e * kLdH + c) = v;
-  }
 }
 
 // The persistent grid's cap (SMs x resident blocks per SM) of `kernel` on
@@ -428,76 +237,193 @@ cudaError_t grid_cap(Kernel kernel, int threads, size_t smem,
   return cudaSuccess;
 }
 
+// ---- warpgroup tiles: shared by the forward and the backward ---------------
+
+constexpr int kGroups = 2;                // warpgroups a block, each its tiles
+constexpr int kThreads = 128 * kGroups;   // 8 warps a block
+constexpr int kTileH = kTE * kH * 2;      // a bf16 (kTE, kH) tile, 128-byte rows
+constexpr int kTileC = kTE * kC * 2;      // a bf16 (kTE, kC) tile, 64-byte rows
+constexpr int kTileG = kTE * kC * 4;      // an f32 (kTE, kC) tile, 128-byte rows
+
+__host__ __device__ constexpr int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
+
+// The warpgroup's named barrier (1 + its index; 0 is __syncthreads).
+__device__ __forceinline__ void group_sync(int grp) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + grp) : "memory");
+}
+
+__device__ __forceinline__ float2 ld_pair(const unsigned char* tile,
+                                          uint32_t off) {
+  return unpack(*reinterpret_cast<const uint32_t*>(tile + off));
+}
+
+// The accumulator's rows of this thread: r0 and r0 + 8 (wgmma.cuh).
+__device__ __forceinline__ int acc_row0() {
+  return 16 * ((threadIdx.x & 127) >> 5) + ((threadIdx.x & 31) >> 2);
+}
+__device__ __forceinline__ int acc_col0() { return 2 * (threadIdx.x & 3); }
+
+// d = v[column] (f32 in shared memory, 8-byte aligned) on every element of
+// an accumulator, a pair of columns a load.
+template <int R>
+__device__ __forceinline__ void init_columns(float (&d)[R], const float* v) {
+  const int c0 = acc_col0();
+#pragma unroll
+  for (int j = 0; j < R / 4; ++j) {
+    const float2 b = *reinterpret_cast<const float2*>(v + 8 * j + c0);
+    d[4 * j] = d[4 * j + 2] = b.x;
+    d[4 * j + 1] = d[4 * j + 3] = b.y;
+  }
+}
+
+// bf16(relu(d)) of an accumulator into a, the A fragments of the product
+// that reads it next (wgmma.cuh: the pair d[i], d[i + 1] is a[i / 8][(i /
+// 2) % 4]).
+template <int R>
+__device__ __forceinline__ void relu_pack(const float (&d)[R],
+                                          uint32_t (&a)[R / 8][4]) {
+#pragma unroll
+  for (int i = 0; i < R; i += 2)
+    a[i >> 3][(i >> 1) & 3] = pack_rn(fmaxf(d[i], 0.f), fmaxf(d[i + 1], 0.f));
+}
+
+// `n_valid` rows row(r) (global, 16-byte aligned, RB bytes each) into a
+// tile of RB-byte rows in the 128- or 64-byte swizzle, zeros past n_valid,
+// by the warpgroup's threads through cp.async; the caller commits.
+template <int RB, class Row>
+__device__ __forceinline__ void stage_rows(unsigned char* tile, int n_valid,
+                                           const void* any, Row row) {
+  constexpr int kChunks = RB / 16;
+  for (int p = threadIdx.x & 127; p < kTE * kChunks; p += 128) {
+    const int r = p / kChunks, c = p % kChunks;
+    const bool valid = r < n_valid;
+    const unsigned char* s =
+        valid ? reinterpret_cast<const unsigned char*>(row(r)) + 16 * c
+              : reinterpret_cast<const unsigned char*>(any);
+    tf32x3::cp_async16(tile + wg::swz<RB>(r * RB + 16 * c), s, valid);
+  }
+}
+
+// `rows` rows of RB bytes of a weight (global, 16-byte aligned) into its
+// tile in the RB-byte swizzle, by the block's threads through cp.async; the
+// caller commits.
+template <int RB>
+__device__ __forceinline__ void copy_weight(unsigned char* dst,
+                                            const bf16* __restrict__ w,
+                                            int rows) {
+  constexpr int kChunks = RB / 16;
+  const unsigned char* src = reinterpret_cast<const unsigned char*>(w);
+  for (int p = threadIdx.x; p < rows * kChunks; p += kThreads)
+    tf32x3::cp_async16(dst + wg::swz<RB>(16 * p), src + 16 * p, true);
+}
+
+// A warp's share of the next tile's indices (its 32 edges from base),
+// split around the tile's first product so that the loads' latency hides
+// under it: issue() loads the 32 row starts after `hint`, the receiver of
+// an edge before base (>= 0), and the senders; finish() forms the receivers
+// as tile128::warp_receiver does from that hint (the count of row starts at
+// or before each edge by a five-step search over the sorted starts in place
+// of its 32 comparisons) and stores both.  The width-128 source's
+// IndexLoad.
+struct IndexLoad {
+  int start, snd;
+
+  // AHEAD: the loads issued here (tile128::ldg_ahead), not where the
+  // compiler would sink them
+  template <bool GATHERS, bool AHEAD = false>
+  __device__ __forceinline__ void issue(const int* __restrict__ rowptr,
+                                        const int* __restrict__ senders,
+                                        int n_nodes, int base, int n_valid,
+                                        int hint) {
+    const int lane = threadIdx.x & 31;
+    const int j = hint + 1 + lane;
+    if constexpr (AHEAD) {
+      start = tile128::ldg_ahead(rowptr + (j <= n_nodes ? j : n_nodes));
+      if (j > n_nodes) start = 0x7fffffff;
+      snd = GATHERS ? tile128::ldg_ahead(
+                          senders + (lane < n_valid ? base + lane : 0))
+                    : 0;
+      if (lane >= n_valid) snd = 0;
+    } else {
+      start = j <= n_nodes ? __ldg(rowptr + j) : 0x7fffffff;
+      snd = GATHERS && lane < n_valid ? __ldg(senders + base + lane) : 0;
+    }
+  }
+
+  template <bool GATHERS>
+  __device__ __forceinline__ void finish(int* s_rcv, int* s_snd,
+                                         const int* __restrict__ rowptr,
+                                         int n_nodes, int base, int n_valid,
+                                         int hint) const {
+    const int lane = threadIdx.x & 31;
+    const int e = base + lane;
+    int below = 0;  // starts at or before e, of the first 31 (sorted)
+#pragma unroll
+    for (int step = 16; step > 0; step >>= 1)
+      if (__shfl_sync(0xffffffffu, start, below + step - 1) <= e) below += step;
+    int r = hint + below;
+    const int window_end = __shfl_sync(0xffffffffu, start, 31);
+    if (lane < n_valid && e >= window_end)
+      r = tile128::receiver_of(rowptr, n_nodes, e);
+    s_rcv[lane] = lane < n_valid ? r : 0;
+    if (GATHERS) s_snd[lane] = snd;
+  }
+};
+
 // ---- forward ---------------------------------------------------------------
 
 namespace fwd {
 
-constexpr int kThreads = 256;  // 8 warps, two blocks an SM
-constexpr int kWarps = kThreads / 32;
-
-// Offsets, in bytes, into dynamic shared memory; the tail weights last, so
-// that the others do not move with L1.
+// Offsets, in bytes, into dynamic shared memory (from its first 1,024-byte
+// boundary): one part a warpgroup, then the weights (W_1 .. W_L1 last, so
+// that nothing else moves with L1), then the f32 vectors; every tile on a
+// 1,024-byte boundary (the swizzles' repeat).
+template <Entry E>
 struct Layout {
-  static constexpr int act = 0;                          // (kTE, kLdH) bf16
-  static constexpr int src = act + kTE * kLdH * 2;       // (kTE, kLdC) bf16
-  static constexpr int y = src + kTE * kLdC * 2;         // (kTE, kLdCf) f32
-  static constexpr int wte = y + kTE * kLdCf * 4;        // W_e^T (kH, kLdC)
-  static constexpr int wto = wte + kH * kLdC * 2;        // W_out^T (kC, kLdH)
-  static constexpr int be = wto + kC * kLdH * 2;         // (kH) f32
-  static constexpr int bo = be + kH * 4;                 // (kC) f32
-  static constexpr int rcv = bo + kC * 4;                // 2 x (kTE) int
-  static constexpr int snd = rcv + 2 * kTE * 4;          // 2 x (kTE) int
-  static constexpr int br = snd + 2 * kTE * 4;           // (L1, kH) f32
-  __host__ __device__ static size_t bytes(int l1) {
-    return (size_t)br + (size_t)l1 * (kH * 4 + kH * kLdH * 2);
+  static constexpr int F = E == kFold ? 1 : 0;         // e0 and W_e
+  static constexpr int J = E != kPregathered ? 1 : 0;  // pxj rows staged
+  // a warpgroup's part, from its start
+  static constexpr int src = 0;             // e0 (kTE, kCe), or h0 / pe
+  static constexpr int pxj = src + (F ? kTileC : kTileH);  // pxj[s] rows
+  static constexpr int pxi = pxj + J * kTileH;      // pxi[i] rows
+  static constexpr int y = pxi + kTileH;            // bf16(y) (kTE, kC)
+  static constexpr int idx = y + kTileC;            // 2 x rcv, 2 x snd
+  static constexpr int group_bytes = round_up(idx + 4 * kTE * 4, 1024);
+  static constexpr int we = kGroups * group_bytes;  // W_e (kCe, kH)
+  static constexpr int wo = we + F * kCe * kH * 2;  // W_out (kH, kC)
+  static constexpr int wr = wo + kH * kC * 2;       // W_k (kH, kH) ...
+  // the f32 vectors b_e, b_out, ln_s, ln_b, b_1 .. b_L1, after the weights
+  __host__ __device__ static constexpr int v_be(int l1) {
+    return wr + l1 * kH * kH * 2;
   }
-  __host__ __device__ static size_t wtr(int l1) {
-    return (size_t)br + (size_t)l1 * kH * 4;
+  __host__ __device__ static constexpr int v_bo(int l1) {
+    return v_be(l1) + F * kH * 4;
+  }
+  __host__ __device__ static constexpr int v_ls(int l1) {
+    return v_bo(l1) + kC * 4;
+  }
+  __host__ __device__ static constexpr int v_lb(int l1) {
+    return v_ls(l1) + kC * 4;
+  }
+  __host__ __device__ static constexpr int v_br(int l1) {
+    return v_lb(l1) + kC * 4;
+  }
+  // + the base's alignment
+  __host__ __device__ static constexpr int bytes(int l1) {
+    return v_br(l1) + l1 * kH * 4 + 1024;
   }
 };
-
-// LayerNorm (two-pass variance) of the tile's rows y (rows of kLdCf), in
-// place, each result rounded to bf16: four threads an edge, thread q of
-// edge e holding columns q, q + 4, ...
-__device__ __forceinline__ void layer_norm_bf16(float* s_y,
-                                                const float* __restrict__ ln_s,
-                                                const float* __restrict__ ln_b) {
-  static_assert(kTE * 4 == kThreads, "four threads an edge");
-  constexpr int CP = kC / 4;
-  const int e = threadIdx.x >> 2, q = threadIdx.x & 3;
-  float* row = s_y + e * kLdCf;
-  float v[CP];
-  float mu = 0.f;
-#pragma unroll
-  for (int j = 0; j < CP; ++j) {
-    v[j] = row[q + 4 * j];
-    mu += v[j];
-  }
-  mu += __shfl_xor_sync(0xffffffffu, mu, 1);
-  mu += __shfl_xor_sync(0xffffffffu, mu, 2);
-  mu *= 1.f / kC;
-  float var = 0.f;
-#pragma unroll
-  for (int j = 0; j < CP; ++j) {
-    const float d = v[j] - mu;
-    var = fmaf(d, d, var);
-  }
-  var += __shfl_xor_sync(0xffffffffu, var, 1);
-  var += __shfl_xor_sync(0xffffffffu, var, 2);
-  var *= 1.f / kC;
-  const float rstd = rsqrtf(var + kLnEps);
-#pragma unroll
-  for (int j = 0; j < CP; ++j) {
-    const int c = q + 4 * j;
-    row[c] = round_bf16((v[j] - mu) * rstd * __ldg(ln_s + c) + __ldg(ln_b + c));
-  }
-}
+static_assert(2 * Layout<kPe>::bytes(kMaxL1) <= 232448 &&
+                  2 * Layout<kFold>::bytes(kMaxL1) <= 232448,
+              "two blocks an SM");
 
 // E: the fold entry (src is e0), the pregathered entry (src is h0; we, be,
 // pxj, senders are null) or the pe entry (src is pe; we, be are null).
 template <Entry E>
 __global__ void __launch_bounds__(kThreads, 2)
-edge_tail_kernel(const bf16* __restrict__ src, const bf16* __restrict__ we,
+wgmma_fwd_kernel(const bf16* __restrict__ src, const bf16* __restrict__ we,
                  const bf16* __restrict__ be, const bf16* __restrict__ pxj,
                  const bf16* __restrict__ pxi,
                  const int* __restrict__ senders,
@@ -509,111 +435,268 @@ edge_tail_kernel(const bf16* __restrict__ src, const bf16* __restrict__ we,
                  const float* __restrict__ ln_s,
                  const float* __restrict__ ln_b, float* __restrict__ out,
                  float* __restrict__ part, int n_nodes, int n_edges, int l1) {
-  using L = Layout;
-  extern __shared__ __align__(16) unsigned char bf16_fwd_smem[];
-  unsigned char* sm = bf16_fwd_smem;
-  bf16* s_act = reinterpret_cast<bf16*>(sm + L::act);
-  bf16* s_src = reinterpret_cast<bf16*>(sm + L::src);
-  float* s_y = reinterpret_cast<float*>(sm + L::y);
-  bf16* s_wte = reinterpret_cast<bf16*>(sm + L::wte);
-  bf16* s_wto = reinterpret_cast<bf16*>(sm + L::wto);
-  float* s_be = reinterpret_cast<float*>(sm + L::be);
-  float* s_bo = reinterpret_cast<float*>(sm + L::bo);
-  int* s_rcv = reinterpret_cast<int*>(sm + L::rcv);
-  int* s_snd = reinterpret_cast<int*>(sm + L::snd);
-  float* s_br = reinterpret_cast<float*>(sm + L::br);
-  bf16* s_wtr = reinterpret_cast<bf16*>(sm + L::wtr(l1));
-  const int tid = threadIdx.x, warp = tid >> 5;
+  using L = Layout<E>;
   constexpr bool FOLD = E == kFold, GATHERS = E != kPregathered;
+  extern __shared__ __align__(16) unsigned char bf16_fwd_smem[];
+  unsigned char* sm = bf16_fwd_smem + ((1024 - (wg::smem_addr(bf16_fwd_smem)
+                                                & 1023)) & 1023);
+  const int tid = threadIdx.x, grp = tid >> 7, t = tid & 127, w = t >> 5;
+  unsigned char* s_we = sm + L::we;
+  unsigned char* s_wr = sm + L::wr;
+  unsigned char* s_wo = sm + L::wo;
+  float* v_be = reinterpret_cast<float*>(sm + L::v_be(l1));
+  float* v_bo = reinterpret_cast<float*>(sm + L::v_bo(l1));
+  float* v_ls = reinterpret_cast<float*>(sm + L::v_ls(l1));
+  float* v_lb = reinterpret_cast<float*>(sm + L::v_lb(l1));
+  float* v_br = reinterpret_cast<float*>(sm + L::v_br(l1));
+  unsigned char* gp = sm + grp * L::group_bytes;
+  unsigned char* s_src = gp + L::src;
+  unsigned char* s_pxj = gp + L::pxj;
+  unsigned char* s_pxi = gp + L::pxi;
+  unsigned char* s_y = gp + L::y;
+  int* s_rcv = reinterpret_cast<int*>(gp + L::idx);
+  int* s_snd = s_rcv + 2 * kTE;
 
+  // the weights by cp.async, each once in its swizzle as stored (in, out);
+  // the f32 vectors
   if constexpr (FOLD) {
-    load_weights<kCe, kH>(s_wte, we, 1, kLdC, 0, kThreads);
-    load_f32(s_be, be, kH, kThreads);
+    copy_weight<128>(s_we, we, kCe);
+    for (int i = tid; i < kH; i += kThreads) v_be[i] = __bfloat162float(be[i]);
   }
-  load_weights<kH, kH>(s_wtr, w_rest, l1, kLdH, kH * kLdH, kThreads);
-  load_weights<kH, kC>(s_wto, w_out, 1, kLdH, 0, kThreads);
-  load_f32(s_br, b_rest, l1 * kH, kThreads);
-  load_f32(s_bo, b_out, kC, kThreads);
+  copy_weight<128>(s_wr, w_rest, l1 * kH);  // l1 tiles of kH rows
+  copy_weight<64>(s_wo, w_out, kH);
+  tf32x3::cp_async_commit();
+  for (int i = tid; i < l1 * kH; i += kThreads)
+    v_br[i] = __bfloat162float(b_rest[i]);
+  for (int i = tid; i < kC; i += kThreads) {
+    v_bo[i] = __bfloat162float(b_out[i]);
+    v_ls[i] = __ldg(ln_s + i);
+    v_lb[i] = __ldg(ln_b + i);
+  }
 
-  int t_beg, t_end;
-  tile128::block_tiles<kTE>(n_edges, &t_beg, &t_end);
+  // the block's tiles [b0, b1), balanced over the grid; warpgroup 0 walks
+  // the first half (rounded up), warpgroup 1 the rest
+  const int n_tiles = (n_edges + kTE - 1) / kTE;
+  const int b0 = (int)((long long)blockIdx.x * n_tiles / gridDim.x);
+  const int b1 = (int)((long long)(blockIdx.x + 1) * n_tiles / gridDim.x);
+  const int mid = b0 + (b1 - b0 + 1) / 2;
+  const int t_beg = grp == 0 ? b0 : mid, t_end = grp == 0 ? mid : b1;
+
+  // a tile's rows (e0 / h0 / pe, and the node rows), staged by cp.async
+  auto stage_tile = [&](int tile, const int* rcv, const int* snd) {
+    const int base = tile * kTE, n_valid = min(kTE, n_edges - base);
+    if constexpr (FOLD)
+      stage_rows<64>(s_src, n_valid, src,
+                     [&](int r) { return src + (size_t)(base + r) * kCe; });
+    else
+      stage_rows<128>(s_src, n_valid, src,
+                      [&](int r) { return src + (size_t)(base + r) * kH; });
+    if constexpr (GATHERS)
+      stage_rows<128>(s_pxj, n_valid, pxj,
+                      [&](int r) { return pxj + (size_t)snd[r] * kH; });
+    stage_rows<128>(s_pxi, n_valid, pxi,
+                    [&](int r) { return pxi + (size_t)rcv[r] * kH; });
+  };
+
+  // while the weights arrive: the first tile's indices (a full search) and
+  // rows; a warpgroup without a tile commits an empty group, so that every
+  // thread's wait below covers the weights alone
   if (t_beg < t_end) {
-    if (warp < 2)
+    if (w < 2)
       tile128::tile_indices<kTE, GATHERS>(s_rcv, s_snd, senders, rowptr,
                                           n_nodes, n_edges, t_beg, -1);
-    if constexpr (FOLD) {
-      stage_e0(s_src, src, n_edges, t_beg, kThreads);
-      tf32x3::cp_async_commit();
-    }
+    group_sync(grp);  // the first tile's indices
+    stage_tile(t_beg, s_rcv, s_snd);
   }
-  __syncthreads();  // the weights and the first tile's indices
+  tf32x3::cp_async_commit();
+  tf32x3::cp_async_wait<1>();
+  wg::fence_async_smem();
+  __syncthreads();  // the weights and the vectors
 
+  const int r0 = acc_row0(), c0 = acc_col0();
   for (int tile = t_beg, it = 0; tile < t_end; ++tile, ++it) {
     const int cur = it & 1, nxt = cur ^ 1;
-    const int n_valid = min(kTE, n_edges - tile * kTE);
+    const int base = tile * kTE, n_valid = min(kTE, n_edges - base);
     const int* rcv = s_rcv + cur * kTE;
-    const int* snd = s_snd + cur * kTE;
     const bool more = tile + 1 < t_end;
+    float acc[32];
+    // bf16 A fragments of the chain's products (K = kH), each layer's
+    // output rounded in place; alive until the wait that covers the
+    // product that reads them (fence_operand)
+    uint32_t a[kH / 16][4];
 
-    if constexpr (!FOLD) {
-      // h_0 = bf16(relu(h0 + pxi[i])) or bf16(relu((pe + pxj[s]) + pxi[i]))
-      first_h0<kThreads, E == kPe>(s_act, src, pxj, pxi, snd, rcv, n_valid,
-                                   tile * kTE);
-      __syncthreads();  // h_0 written; the last tile's sums are done
-      if (more && warp < 2)
-        tile128::tile_indices<kTE, GATHERS>(
-            s_rcv + nxt * kTE, s_snd + nxt * kTE, senders, rowptr, n_nodes,
-            n_edges, tile + 1, rcv[n_valid - 1]);
+    tf32x3::cp_async_wait<0>();  // this tile's rows
+    wg::fence_async_smem();
+    group_sync(grp);  // the rows are in; the last tile's sums are done
+    // warps 0 and 1: the next tile's indices, loads issued now, the search
+    // finished under the first tail product
+    const int next_base = (tile + 1) * kTE + 32 * w;
+    const int next_valid = min(32, n_edges - next_base);
+    IndexLoad next;
+    if (more && w < 2)
+      next.issue<GATHERS, true>(rowptr, senders, n_nodes, next_base,
+                                next_valid, rcv[n_valid - 1]);
+    // the next tile's indices stored, then its rows staged into the tiles
+    // this one has read: issued while a product runs
+    auto advance = [&]() {
+      if (more && w < 2)
+        next.finish<GATHERS>(s_rcv + nxt * kTE + 32 * w,
+                             s_snd + nxt * kTE + 32 * w, rowptr, n_nodes,
+                             next_base, next_valid, rcv[n_valid - 1]);
+      __syncwarp();  // the lanes meet before the warpgroup's barrier
+      group_sync(grp);  // every warp has read the rows (the fold's product
+                        // retired by its wait); the next indices written
+      if (more)
+        stage_tile(tile + 1, s_rcv + nxt * kTE, s_snd + nxt * kTE);
+      tf32x3::cp_async_commit();
+    };
+
+    // h_0: fold bf16(relu(e0 . W_e + (b_e + (pxj[s] + pxi[i])))), the
+    // accumulators started at z from the staged node rows (zero past
+    // n_valid); pe bf16(relu((pe + pxj[s]) + pxi[i])) and pregathered
+    // bf16(relu(h0 + pxi[i])) elementwise from the staged rows straight
+    // into the A fragments
+    if constexpr (FOLD) {
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int r = r0 + 8 * ((i >> 1) & 1), c = 8 * (i >> 2) + c0;
+        const uint32_t off = wg::at<128>(r, c);
+        const float2 j = ld_pair(s_pxj, off), p = ld_pair(s_pxi, off);
+        acc[i] = r < n_valid ? v_be[c] + (j.x + p.x) : 0.f;
+        acc[i + 1] = r < n_valid ? v_be[c + 1] + (j.y + p.y) : 0.f;
+      }
+      wg::fence_operand(acc);
+      wg::fence();
+      wg::product<kCe / 16, 0, 1, 64, 128>(acc, s_src, s_we, true);
+      wg::commit();
     } else {
-      // h_0 = bf16(relu(z + e0 . W_e)); z loaded while the rows arrive
-      {
-        Prod<kTE, kH, kWarps> p;
-        p.init([&](int e, int n) {
-          return fold_z(s_be, pxj, pxi, snd, rcv, n_valid, e, n);
-        });
-        tf32x3::cp_async_wait<0>();
-        __syncthreads();  // the rows are in; the last tile's sums are done
-        p.run<kCe>(ARows{s_src, kLdC}, BNK{s_wte, kLdC});
-        p.store_relu(s_act, kLdH);
-      }
-      if (more && warp < 2)
-        tile128::tile_indices<kTE, true>(s_rcv + nxt * kTE,
-                                         s_snd + nxt * kTE, senders, rowptr,
-                                         n_nodes, n_edges, tile + 1,
-                                         rcv[n_valid - 1]);
-      __syncthreads();  // h_0 written, the staging rows free
-      if (more) {
-        stage_e0(s_src, src, n_edges, tile + 1, kThreads);
-        tf32x3::cp_async_commit();
-      }
+#pragma unroll
+      for (int j = 0; j < kH / 16; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const uint32_t off =
+              wg::at<128>(r0 + 8 * (q & 1), 16 * j + 8 * (q >> 1) + c0);
+          const uint32_t x = *reinterpret_cast<const uint32_t*>(s_src + off);
+          const uint32_t i = *reinterpret_cast<const uint32_t*>(s_pxi + off);
+          if constexpr (E == kPe)
+            a[j][q] = relu_sum3(
+                x, *reinterpret_cast<const uint32_t*>(s_pxj + off), i);
+          else
+            a[j][q] = relu_sum(x, i);
+        }
+    }
+    if constexpr (FOLD) {
+      wg::wait<0>();
+      wg::fence_operand(acc);
+      relu_pack(acc, a);
     }
 
-    // h_k = bf16(relu(h_{k-1} . W_k + b_k))
-    for (int k = 0; k < l1; ++k) {
-      Prod<kTE, kH, kWarps> p;
-      const float* b = s_br + k * kH;
-      p.init([&](int, int n) { return b[n]; });
-      p.run<kH>(ARows{s_act, kLdH}, BNK{s_wtr + k * kH * kLdH, kLdH});
-      __syncthreads();  // every warp has read h_{k-1}
-      p.store_relu(s_act, kLdH);
-      __syncthreads();
+    // h_k = bf16(relu(h_{k-1} . W_k + b_k)), k = 1 .. L1, each from the
+    // registers the layer below left: no barrier between them but the one
+    // of advance() under the first
+    for (int k = 1; k <= l1; ++k) {
+      init_columns(acc, v_br + (k - 1) * kH);
+      wg::fence_operand(acc);
+      wg::fence();
+      wg::product_rs<kH / 16, 1, 128>(acc, a, s_wr + (k - 1) * kH * kH * 2,
+                                      true);
+      wg::commit();
+      if (k == 1) advance();
+      wg::wait<0>();
+      wg::fence_operand(acc);
+      wg::fence_operand(a);
+      relu_pack(acc, a);
     }
-    // y = h_L1 . W_out + b_out, then LayerNorm, rounded to bf16
-    {
-      Prod<kTE, kC, kWarps> p;
-      p.init([&](int, int c) { return s_bo[c]; });
-      p.run<kH>(ARows{s_act, kLdH}, BNK{s_wto, kLdH});
-      p.store(s_y, kLdCf);
+
+    // y = h_L1 . W_out + b_out; LayerNorm in the accumulators, each row's
+    // statistics over the four threads of its quad (two-pass variance);
+    // bf16(y) into the warpgroup's tile; then the receiver sums as one
+    // product of it, D = S . Y (wgmma.cuh: S the tile's runs of equal
+    // receivers, each warp's own copy from a ballot), D's rows to out or,
+    // for the receivers that cross a tile boundary, to the partial rows
+    // (the row starts that decide it loaded now, used after LayerNorm)
+    const int2 ends = csr_tile::edge_ends(rowptr, rcv, n_valid);
+    float y[16];
+    init_columns(y, v_bo);
+    wg::fence_operand(y);
+    wg::fence();
+    wg::product_rs<kH / 16, 1, 64>(y, a, s_wo, true);
+    wg::commit();
+    // the tile's runs of equal receivers while y's product runs
+    const uint64_t starts = wg::run_starts(rcv, n_valid);
+    wg::wait<0>();
+    wg::fence_operand(y);
+    wg::fence_operand(a);
+    if (l1 == 0) advance();
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float v[8];
+      float mu = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        v[2 * j] = y[4 * j + 2 * hh];
+        v[2 * j + 1] = y[4 * j + 2 * hh + 1];
+      }
+#pragma unroll
+      for (int q = 0; q < 8; ++q) mu += v[q];
+      mu += __shfl_xor_sync(0xffffffffu, mu, 1);
+      mu += __shfl_xor_sync(0xffffffffu, mu, 2);
+      mu *= 1.f / kC;
+      float var = 0.f;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const float d = v[q] - mu;
+        var = fmaf(d, d, var);
+      }
+      var += __shfl_xor_sync(0xffffffffu, var, 1);
+      var += __shfl_xor_sync(0xffffffffu, var, 2);
+      var *= 1.f / kC;
+      const float rstd = rsqrtf(var + kLnEps);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = 8 * j + c0;
+        *reinterpret_cast<uint32_t*>(s_y + wg::at<64>(r0 + 8 * hh, c)) =
+            pack_rn((v[2 * j] - mu) * rstd * v_ls[c] + v_lb[c],
+                    (v[2 * j + 1] - mu) * rstd * v_ls[c + 1] + v_lb[c + 1]);
+      }
     }
-    __syncthreads();
-    layer_norm_bf16(s_y, ln_s, ln_b);
-    __syncthreads();
-    csr_tile::receiver_sums<kTE, kC>(
-        [&](int e, int c) -> float& { return s_y[e * kLdCf + c]; }, rcv,
-        rowptr, n_edges, tile, n_valid, out, part);
+    uint32_t s_a[kTE / 16][4];
+    wg::run_matrix(s_a, starts, n_valid);
+    wg::fence_async_smem();
+    group_sync(grp);  // bf16(y) written
+    wg::fence();
+    wg::product_rs<kTE / 16, 1, 64>(y, s_a, s_y, false);
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_operand(y);
+    wg::fence_operand(s_a);
+    wg::store_runs<kC, kTE>(y, starts, rcv, ends.x, ends.y, n_edges, tile,
+                            n_valid, out, part);
   }
 }
 
+// kernels the last call launched (its own count, for the checks)
+std::atomic<int> last_launches{0};
+
+// The grid's blocks a call of n_edges takes on this device, min(tiles, the
+// blocks the card holds at once), or a negative cudaError_t; the
+// shared-memory opt-in with the first call.
+template <Entry E>
+int grid_blocks(int n_edges) {
+  static std::atomic<int> cache[kMaxDevices];
+  int cap = 0;
+  // one opt-in and one cap for every l1
+  const cudaError_t err = grid_cap(wgmma_fwd_kernel<E>, kThreads,
+                                   (size_t)Layout<E>::bytes(kMaxL1), cache,
+                                   &cap);
+  if (err != cudaSuccess) return -(int)err;
+  const int n_tiles = (n_edges + kTE - 1) / kTE;
+  return n_tiles < cap ? n_tiles : cap;
+}
+
+// The kernel, block b over tiles [b T / B, (b + 1) T / B), then the sum of
+// the partial rows of the receivers that cross a tile: two launches (one
+// for a single tile).
 template <Entry E>
 int launch(const bf16* src, const bf16* we, const bf16* be, const bf16* pxj,
            const bf16* pxi, const int* senders, const int* rowptr,
@@ -621,22 +704,24 @@ int launch(const bf16* src, const bf16* we, const bf16* be, const bf16* pxj,
            const bf16* b_out, const float* ln_s, const float* ln_b, float* out,
            float* part, int n_nodes, int n_edges, int l1,
            cudaStream_t stream) {
-  static std::atomic<int> cache[kMaxDevices];
-  const size_t smem = Layout::bytes(kMaxL1);  // one opt-in for every l1
-  int cap = 0;
-  cudaError_t err =
-      grid_cap(edge_tail_kernel<E>, kThreads, smem, cache, &cap);
-  if (err != cudaSuccess) return (int)err;
-  if (n_nodes == 0 || n_edges <= 0) return (int)cudaSuccess;
-  const int n_tiles = (n_edges + kTE - 1) / kTE;
-  const int blocks = n_tiles < cap ? n_tiles : cap;
-  edge_tail_kernel<E><<<blocks, kThreads, Layout::bytes(l1), stream>>>(
-      src, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest, w_out, b_out,
-      ln_s, ln_b, out, part, n_nodes, n_edges, l1);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if (n_tiles > 1)
-    csr_tile::cross_tile_sum_kernel<kTE, kC>
-        <<<n_tiles - 1, kC, 0, stream>>>(rowptr, part, out, n_nodes, n_edges);
+  int launches = 0;
+  const int blocks = grid_blocks<E>(n_edges > 0 ? n_edges : 0);
+  if (blocks < 0) return -blocks;
+  if (n_nodes > 0 && n_edges > 0) {
+    const int n_tiles = (n_edges + kTE - 1) / kTE;
+    wgmma_fwd_kernel<E><<<blocks, kThreads, Layout<E>::bytes(l1), stream>>>(
+        src, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest, w_out, b_out,
+        ln_s, ln_b, out, part, n_nodes, n_edges, l1);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    ++launches;
+    if (n_tiles > 1) {
+      csr_tile::cross_tile_sum_kernel<kTE, kC><<<n_tiles - 1, kC, 0, stream>>>(
+          rowptr, part, out, n_nodes, n_edges);
+      ++launches;
+    }
+  }
+  last_launches.store(launches, std::memory_order_relaxed);
   return (int)cudaGetLastError();
 }
 
@@ -645,16 +730,6 @@ int launch(const bf16* src, const bf16* we, const bf16* be, const bf16* pxj,
 // ---- backward --------------------------------------------------------------
 
 namespace bwd {
-
-constexpr int kGroups = 2;                // warpgroups a block, each its tiles
-constexpr int kThreads = 128 * kGroups;   // one block an SM
-constexpr int kTileH = kTE * kH * 2;      // a bf16 (kTE, kH) tile, 128-byte rows
-constexpr int kTileC = kTE * kC * 2;      // a bf16 (kTE, kC) tile, 64-byte rows
-constexpr int kTileG = kTE * kC * 4;      // an f32 (kTE, kC) tile, 128-byte rows
-
-__host__ __device__ constexpr int round_up(int x, int m) {
-  return (x + m - 1) / m * m;
-}
 
 // Offsets, in bytes, into dynamic shared memory (from its first 1,024-byte
 // boundary), and, in floats, into the packed weight-gradient buffer.  The
@@ -708,16 +783,6 @@ struct Layout {
   static_assert((32 * (L1 > 0 ? L1 : 1) + 32) * 128 * 4 <= idx,
                 "warpgroup 0's weight gradients fit in its tiles");
 };
-
-// The warpgroup's named barrier (1 + its index; 0 is __syncthreads).
-__device__ __forceinline__ void group_sync(int grp) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + grp) : "memory");
-}
-
-__device__ __forceinline__ float2 ld_pair(const unsigned char* tile,
-                                          uint32_t off) {
-  return unpack(*reinterpret_cast<const uint32_t*>(tile + off));
-}
 
 // A warp's column sums over its 16 rows of an m64n64 accumulator: s[2 j +
 // p] holds the thread's two rows' sum at column 8 j + 2 t + p; the eight
@@ -777,12 +842,6 @@ __device__ __forceinline__ void add_column_sums32(float* row,
   row[8 * (g >> 1) + 2 * (lane & 3) + (g & 1)] += warp_column_sums32(s);
 }
 
-// The accumulator's rows of this thread: r0 and r0 + 8 (wgmma.cuh).
-__device__ __forceinline__ int acc_row0() {
-  return 16 * ((threadIdx.x & 127) >> 5) + ((threadIdx.x & 31) >> 2);
-}
-__device__ __forceinline__ int acc_col0() { return 2 * (threadIdx.x & 3); }
-
 // A data gradient's epilogue: the m64n64 accumulator d (da = d . W^T of
 // the layer above) masked where h (the layer's input tile, bf16) is not
 // positive, in place; bf16(d) into the tile `out` and into a, the A
@@ -828,86 +887,6 @@ __device__ __forceinline__ void store_relu(const float (&d)[32],
     a[i >> 3][(i >> 1) & 3] = v;
   }
 }
-
-// d = v[column] (f32 in shared memory) on every element of an accumulator.
-template <int R>
-__device__ __forceinline__ void init_columns(float (&d)[R], const float* v) {
-  const int c0 = acc_col0();
-#pragma unroll
-  for (int i = 0; i < R; ++i) d[i] = v[8 * (i >> 2) + c0 + (i & 1)];
-}
-
-// `n_valid` rows row(r) (global, 16-byte aligned, RB bytes each) into a
-// tile of RB-byte rows in the 128- or 64-byte swizzle, zeros past n_valid,
-// by the warpgroup's threads through cp.async; the caller commits.
-template <int RB, class Row>
-__device__ __forceinline__ void stage_rows(unsigned char* tile, int n_valid,
-                                           const void* any, Row row) {
-  constexpr int kChunks = RB / 16;
-  for (int p = threadIdx.x & 127; p < kTE * kChunks; p += 128) {
-    const int r = p / kChunks, c = p % kChunks;
-    const bool valid = r < n_valid;
-    const unsigned char* s =
-        valid ? reinterpret_cast<const unsigned char*>(row(r)) + 16 * c
-              : reinterpret_cast<const unsigned char*>(any);
-    tf32x3::cp_async16(tile + wg::swz<RB>(r * RB + 16 * c), s, valid);
-  }
-}
-
-// `rows` rows of RB bytes of a weight (global, 16-byte aligned) into its
-// tile in the RB-byte swizzle, by the block's threads through cp.async; the
-// caller commits.
-template <int RB>
-__device__ __forceinline__ void copy_weight(unsigned char* dst,
-                                            const bf16* __restrict__ w,
-                                            int rows) {
-  constexpr int kChunks = RB / 16;
-  const unsigned char* src = reinterpret_cast<const unsigned char*>(w);
-  for (int p = threadIdx.x; p < rows * kChunks; p += kThreads)
-    tf32x3::cp_async16(dst + wg::swz<RB>(16 * p), src + 16 * p, true);
-}
-
-// A warp's share of the next tile's indices (its 32 edges from base),
-// split around the tile's first product so that the loads' latency hides
-// under it: issue() loads the 32 row starts after `hint`, the receiver of
-// an edge before base (>= 0), and the senders; finish() forms the receivers
-// as tile128::warp_receiver does from that hint (the count of row starts at
-// or before each edge by a five-step search over the sorted starts in place
-// of its 32 comparisons) and stores both.  The width-128 source's
-// IndexLoad.
-struct IndexLoad {
-  int start, snd;
-
-  template <bool GATHERS>
-  __device__ __forceinline__ void issue(const int* __restrict__ rowptr,
-                                        const int* __restrict__ senders,
-                                        int n_nodes, int base, int n_valid,
-                                        int hint) {
-    const int lane = threadIdx.x & 31;
-    const int j = hint + 1 + lane;
-    start = j <= n_nodes ? __ldg(rowptr + j) : 0x7fffffff;
-    snd = GATHERS && lane < n_valid ? __ldg(senders + base + lane) : 0;
-  }
-
-  template <bool GATHERS>
-  __device__ __forceinline__ void finish(int* s_rcv, int* s_snd,
-                                         const int* __restrict__ rowptr,
-                                         int n_nodes, int base, int n_valid,
-                                         int hint) const {
-    const int lane = threadIdx.x & 31;
-    const int e = base + lane;
-    int below = 0;  // starts at or before e, of the first 31 (sorted)
-#pragma unroll
-    for (int step = 16; step > 0; step >>= 1)
-      if (__shfl_sync(0xffffffffu, start, below + step - 1) <= e) below += step;
-    int r = hint + below;
-    const int window_end = __shfl_sync(0xffffffffu, start, 31);
-    if (lane < n_valid && e >= window_end)
-      r = tile128::receiver_of(rowptr, n_nodes, e);
-    s_rcv[lane] = lane < n_valid ? r : 0;
-    if (GATHERS) s_snd[lane] = snd;
-  }
-};
 
 // The bias-gradient row of layer `k`'s input gradient da_k (k >= 1: b_k;
 // k = 0: the fold's b_e), or -1 where none is kept (da_0 off the fold).
@@ -1665,7 +1644,10 @@ int fused_edge_tail_agg_bf16_pe_bwd(
 // built.
 int fused_edge_tail_agg_bf16_smem(int which, int l1) {
   if (l1 < 0 || l1 > kMaxL1 || which < 0 || which > 5) return -1;
-  if (which % 2 == 0) return (int)fwd::Layout::bytes(l1);
+  if (which % 2 == 0)
+    return which == 0   ? fwd::Layout<kFold>::bytes(l1)
+           : which == 2 ? fwd::Layout<kPregathered>::bytes(l1)
+                        : fwd::Layout<kPe>::bytes(l1);
   return which == 1   ? bwd::smem_bytes<kFold>(l1)
          : which == 3 ? bwd::smem_bytes<kPregathered>(l1)
                       : bwd::smem_bytes<kPe>(l1);
@@ -1675,6 +1657,25 @@ int fused_edge_tail_agg_bf16_smem(int which, int l1) {
 // sum of the blocks' partial rows (the sum alone when there is no edge).
 int fused_edge_tail_agg_bf16_bwd_launches(void) {
   return bwd::last_launches.load(std::memory_order_relaxed);
+}
+
+// Kernels the last forward call launched, its own count: the walk and the
+// sum of the partial rows (the walk alone for one tile; none without an
+// edge).
+int fused_edge_tail_agg_bf16_fwd_launches(void) {
+  return fwd::last_launches.load(std::memory_order_relaxed);
+}
+
+// The blocks a forward call of `entry` (a tile128::Entry) over n_edges
+// launches on this device: min(tiles, SMs x the blocks an SM holds), or a
+// negative cudaError_t.
+int fused_edge_tail_agg_bf16_fwd_blocks(int entry, int n_edges) {
+  switch (entry) {
+    case kFold: return fwd::grid_blocks<kFold>(n_edges);
+    case kPe: return fwd::grid_blocks<kPe>(n_edges);
+    case kPregathered: return fwd::grid_blocks<kPregathered>(n_edges);
+    default: return -(int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

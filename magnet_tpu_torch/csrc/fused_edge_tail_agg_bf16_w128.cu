@@ -55,37 +55,49 @@
 // fused_edge_tail_agg_pregathered_bf16_plain / _bwd_plain, each at any
 // width.
 //
-// Why not the width-64 bf16 design (csrc/fused_edge_tail_agg_bf16.cu),
-// which keeps every weight resident twice in one block: a padded bf16 128 x
-// 128 weight is 34,816 bytes, five of them 174 KB once and 348 KB twice,
-// against a block's 227 KB, and five 128 x 128 f32 weight gradients are 320
-// KB.  So the forward streams its weights through one block, and the
-// backward gives each weight a block of its own, the blocks of one thread
-// block cluster passing activations and gradients through distributed
-// shared memory:
-//   * every product is mma.sync.aligned.m16n8k16 bf16 x bf16 -> f32, its
-//     fragments read by ldmatrix from shared tiles whose bf16 rows are
-//     padded to 136 elements (272 bytes: the eight rows of an ldmatrix
-//     block fall on distinct banks).  One copy of a weight, as stored (in,
-//     out), serves both products: h . W reads it by ldmatrix.trans, da .
-//     W^T by plain ldmatrix (the transposing form works on 16-bit
-//     elements, so no second copy); the weight gradients read both their
-//     (edge, width) tiles down their columns by ldmatrix.trans;
-//   * forward (#8, #6, #2): a persistent block of 256 threads walks consecutive
-//     tiles of 64 CSR edges (tile128::block_tiles, tile_indices), warp w
-//     forming rows 32 (w & 1) .. + 31 and columns 32 (w >> 1) .. + 31 of
-//     each (64 x 128) product.  Each weight (W_e, W_1 .. W_L1, W_out) is
-//     streamed through shared memory in chunks of 64 rows (17 KB) by a
-//     cp.async double buffer, the next chunk (across layers and tiles)
-//     loading while this one's product runs, one barrier a chunk; the next
-//     tile's e0 / pe / h0 rows are staged in pieces over the chunk steps
-//     once the staging tile is free.  The fold's first accumulators start
-//     at b_e + (pxj[s] + pxi[i]), read through L2; the pe and pregathered
-//     entries form h_0 elementwise from the staged rows and 16-byte loads
-//     of the node rows.  y stays in an f32 tile for LayerNorm and the receiver sums,
-//     which run over each run of equal receivers in CSR order (csr_tile):
-//     no atomics, out has the same bits run to run.  104,448 bytes of
-//     shared memory: two blocks an SM;
+// The forward keeps every weight resident once, unpadded, in one block;
+// the backward, whose five 128 x 128 f32 weight gradients (320 KB) exceed a
+// block's 227 KB, gives each weight a block of its own, the blocks of one
+// thread block cluster passing activations and gradients through
+// distributed shared memory:
+//   * forward (#8, #6, #2; fwd::wgmma_fwd_kernel): one block of 256
+//     threads an SM, block b over tiles [b T / B, (b + 1) T / B) of 64 CSR
+//     edges; its two warpgroups each walk half of them (the first the first
+//     half, rounded up) with their own tiles and named barriers.  Every
+//     weight (W_e, W_1 .. W_L1, W_out) lies once in shared memory as stored
+//     (in, out), in two 64-column halves of 128-byte rows in the 128-byte
+//     swizzle, loaded by cp.async before the walk: the MN-major B of an
+//     m64n128k16 wgmma (csrc/wgmma.cuh), its descriptor's LBO the step
+//     from one half to the other.  The fold's first product, e0 . W_e,
+//     reads the staged e0 tile (K-major A, two halves) onto accumulators
+//     started at b_e + (pxj[s] + pxi[i]); pe and pregathered form h_0
+//     elementwise from the staged rows straight into the A fragments of the
+//     first tail product; every later product reads A from registers (the
+//     accumulators of the one before, bias first, relu and rounded to bf16
+//     in place), k ascending, so no barrier comes between the layers.  y +
+//     b_out and LayerNorm (two-pass, f32) run in the accumulators (each
+//     row's statistics over the four threads of its quad); bf16(y) goes to
+//     the warpgroup's tile, and the receiver sums are one more product, D =
+//     S . Y (wgmma.cuh: S the 0/1 matrix of the tile's runs of equal
+//     receivers), each run's row of D to out, or for a receiver that
+//     crosses a tile to its partial row, added in tile order by
+//     cross_tile_sum_kernel: no atomics, out has the same bits run to run.
+//     A tile's e0 / pe / h0 rows are staged by cp.async into the tile the
+//     one before has read, and its node rows (pxj[s], pxi[i]) loaded into
+//     registers, while that tile's first tail product runs; the next
+//     indices are loaded at the start of a tile and searched there
+//     (IndexLoad).
+//     232,448 bytes of shared memory for the fold at L1 = 3 (199,680 pe
+//     and pregathered): one block an SM;
+//   * the backward's products are mma.sync.aligned.m16n8k16 bf16 x bf16 ->
+//     f32, their fragments read by ldmatrix from shared tiles whose bf16
+//     rows are padded to 136 elements (272 bytes: the eight rows of an
+//     ldmatrix block fall on distinct banks).  One copy of a weight, as
+//     stored (in, out), serves both products: h . W reads it by
+//     ldmatrix.trans, da . W^T by plain ldmatrix (the transposing form
+//     works on 16-bit elements, so no second copy); the weight gradients
+//     read both their (edge, width) tiles down their columns by
+//     ldmatrix.trans;
 //   * backward (#9, #7, #3), two launches (bwd::launch): (a) a grid of
 //     clusters of n CTAs, one a weight (fold: W_e, W_1 .. W_L1, W_out, n =
 //     L1 + 2; pe and pregathered: W_1 .. W_L1, W_out, n = L1 + 1), as many
@@ -128,11 +140,12 @@
 // and the output CTAs, which add to their three products the staging, the
 // atomics and d_src, and LayerNorm, about twice a middle CTA's work
 // (magnet_tpu_torch/probe_bwd128.py times each part; PERF.md keeps the
-// numbers).  mma.sync and not wgmma: the products read their operands
-// from padded tiles, transposed or not.
+// numbers).  mma.sync and not wgmma there: the products read their
+// operands from padded tiles, transposed or not.
 // Registers, bytes and spills of each kernel (ptxas -v, one build for
-// sm_90a): see fused_edge_tail_agg_bf16_w128_smem and chip_smoke.py's
-// gnn_bf16_kernel phase, which prints ptxas's lines; PERF.md keeps them.
+// sm_90a): see fused_edge_tail_agg_bf16_w128_smem, _fwd_smem and
+// chip_smoke.py's gnn_bf16_kernel phase, which prints ptxas's lines;
+// PERF.md keeps them.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (magnet_tpu_torch/ops/cuda_build.py does this).
@@ -144,6 +157,7 @@
 #include <cstdint>
 
 #include "tile_mm.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -301,36 +315,8 @@ __device__ __forceinline__ void bias_init(float (&acc)[2][4][4],
   }
 }
 
-// acc = b_e + (pxj[sender] + pxi[receiver]), zero past n_valid: the fold's
-// first accumulators (the node rows read through L2)
-__device__ __forceinline__ void fold_init(float (&acc)[2][4][4],
-                                          const bf16* __restrict__ be,
-                                          const bf16* __restrict__ pxj,
-                                          const bf16* __restrict__ pxi,
-                                          const int* snd, const int* rcv,
-                                          int n_valid) {
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int e = acc_row(mi, 2 * h);
-      const bool valid = e < n_valid;
-      const bf16* pj = pxj + (size_t)snd[e] * kW;
-      const bf16* pi = pxi + (size_t)rcv[e] * kW;
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int n = acc_col(ni, 0);
-        const float2 b = ld_bf16x2(be + n);
-        const float2 j = ld_bf16x2(pj + n);
-        const float2 i = ld_bf16x2(pi + n);
-        acc[mi][ni][2 * h] = valid ? b.x + (j.x + i.x) : 0.f;
-        acc[mi][ni][2 * h + 1] = valid ? b.y + (j.y + i.y) : 0.f;
-      }
-    }
-}
-
-// fold_init from the tile's staged node rows: acc = b_e + (pxj[sender] +
-// pxi[receiver]), zero past n_valid
+// The fold's first accumulators from the tile's staged node rows: acc =
+// b_e + (pxj[sender] + pxi[receiver]), zero past n_valid
 __device__ __forceinline__ void fold_init_rows(float (&acc)[2][4][4],
                                                const bf16* __restrict__ be,
                                                const bf16* pj_rows,
@@ -420,67 +406,177 @@ __global__ void reduce_partials_kernel(const float* __restrict__ partial,
   wgrad[p] = s;
 }
 
+// A warp's share of tile128::tile_indices (its 32 edges from base), split
+// around the step's products so that the loads' latency hides under them:
+// issue() loads the 32 row starts after the receiver `hint` of an edge
+// before base (>= 0) and the senders; finish() forms the receivers as
+// tile128::warp_receiver does from that hint (the count of row starts at or
+// before each edge by a five-step search over the sorted starts in place of
+// its 32 comparisons) and stores both.
+struct IndexLoad {
+  int start, snd;
+
+  // AHEAD: the loads issued here (tile128::ldg_ahead), not where the
+  // compiler would sink them
+  template <bool GATHERS, bool AHEAD = false>
+  __device__ __forceinline__ void issue(const int* __restrict__ rowptr,
+                                        const int* __restrict__ senders,
+                                        int n_nodes, int base, int n_valid,
+                                        int hint) {
+    const int lane = threadIdx.x & 31;
+    const int j = hint + 1 + lane;
+    if constexpr (AHEAD) {
+      start = tile128::ldg_ahead(rowptr + (j <= n_nodes ? j : n_nodes));
+      if (j > n_nodes) start = 0x7fffffff;
+      snd = GATHERS ? tile128::ldg_ahead(
+                          senders + (lane < n_valid ? base + lane : 0))
+                    : 0;
+      if (lane >= n_valid) snd = 0;
+    } else {
+      start = j <= n_nodes ? __ldg(rowptr + j) : 0x7fffffff;
+      snd = GATHERS && lane < n_valid ? __ldg(senders + base + lane) : 0;
+    }
+  }
+
+  template <bool GATHERS>
+  __device__ __forceinline__ void finish(int* s_rcv, int* s_snd,
+                                         const int* __restrict__ rowptr,
+                                         int n_nodes, int base, int n_valid,
+                                         int hint) const {
+    const int lane = threadIdx.x & 31;
+    const int e = base + lane;
+    int below = 0;  // starts at or before e, of the first 31 (sorted)
+#pragma unroll
+    for (int step = 16; step > 0; step >>= 1)
+      if (__shfl_sync(0xffffffffu, start, below + step - 1) <= e) below += step;
+    int r = hint + below;
+    const int window_end = __shfl_sync(0xffffffffu, start, 31);
+    if (lane < n_valid && e >= window_end)
+      r = tile128::receiver_of(rowptr, n_nodes, e);
+    s_rcv[lane] = lane < n_valid ? r : 0;
+    if (GATHERS) s_snd[lane] = snd;
+  }
+};
+
+// The warpgroup's named barrier (1 + its index; 0 is __syncthreads).
+__device__ __forceinline__ void group_sync(int grp) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + grp) : "memory");
+}
+
 // ---- forward ---------------------------------------------------------------
 
 namespace fwd {
 
-constexpr int kKC = 64;             // weight rows a streamed chunk
-constexpr int kChunks = kW / kKC;   // chunks a weight
+constexpr int kGroups = 2;            // warpgroups a block, each its tiles
+constexpr int kHalf = kTE * 128;      // a 64-column half of a (kTE, kW) tile
+constexpr int kTileW = 2 * kHalf;     // a bf16 (kTE, kW) tile
+constexpr int kWHalf = kW * 128;      // a 64-column half of a (kW, kW) weight
+constexpr int kWeight = 2 * kWHalf;   // a bf16 (kW, kW) weight
+static_assert(kGroups * 128 == kThreads, "two warpgroups a block");
 
-// Offsets, in bytes, into dynamic shared memory: 104,448 bytes, so that two
-// blocks share an SM.
+__host__ __device__ constexpr int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
+
+// Byte offset of (r, c) of a bf16 tile of R rows of kW stored as two
+// 64-column halves, each of 128-byte rows in the 128-byte swizzle
+// (wgmma.cuh).
+template <int R>
+__host__ __device__ __forceinline__ uint32_t at2(int r, int c) {
+  return (c >> 6) * (R * 128) + wg::at<128>(r, c & 63);
+}
+
+// Offsets, in bytes, into dynamic shared memory (from its first 1,024-byte
+// boundary): one part a warpgroup, then the weights, each resident once
+// as stored (in, out) in two 64-column halves (W_1 .. W_L1 last, so that
+// nothing else moves with L1): 231,424 bytes for the fold at L1 = 3, one
+// block an SM.
+template <Entry E>
 struct Layout {
-  static constexpr int act = 0;                      // bf16 (kTE, kLd)
-  static constexpr int src = act + kTE * kLd * 2;    // staged e0 / pe rows
-  static constexpr int w = src + kTE * kLd * 2;      // 2 x bf16 (kKC, kLd)
-  static constexpr int y = w + 2 * kKC * kLd * 2;    // f32 (kTE, kLdF)
-  static constexpr int rcv = y + kTE * kLdF * 4;     // 2 x (kTE) int
-  static constexpr int snd = rcv + 2 * kTE * 4;      // 2 x (kTE) int
-  static constexpr int bytes = snd + 2 * kTE * 4;
+  static constexpr int F = E == kFold ? 1 : 0;  // e0 and W_e
+  // a warpgroup's part, from its start
+  static constexpr int src = 0;               // e0 / pe / h0 (kTE, kW)
+  static constexpr int y = src + kTileW;      // bf16(y) (kTE, kW)
+  static constexpr int idx = y + kTileW;      // 2 x rcv, 2 x snd (kTE)
+  static constexpr int group_bytes = round_up(idx + 4 * kTE * 4, 1024);
+  static constexpr int we = kGroups * group_bytes;  // W_e
+  static constexpr int wo = we + F * kWeight;       // W_out
+  static constexpr int wr = wo + kWeight;           // W_1 .. W_L1
+  // + the base's alignment
+  __host__ __device__ static constexpr int bytes(int l1) {
+    return wr + l1 * kWeight + 1024;
+  }
 };
+static_assert(Layout<kFold>::bytes(kMaxL1) <= 232448, "one block an SM");
 
-// LayerNorm (two-pass variance) of the tile's rows y, in place, each result
-// rounded to bf16: four threads an edge, thread q of edge e holding columns
-// q, q + 4, ... (free of bank conflicts at the row stride kLdF).
-__device__ __forceinline__ void layer_norm_bf16(float* s_y,
-                                                const float* __restrict__ ln_s,
-                                                const float* __restrict__ ln_b) {
-  static_assert(kTE * 4 == kThreads, "four threads an edge");
-  constexpr int CP = kW / 4;
-  const int e = threadIdx.x >> 2, q = threadIdx.x & 3;
-  float* row = s_y + e * kLdF;
-  float v[CP];
-  float mu = 0.f;
-#pragma unroll
-  for (int j = 0; j < CP; ++j) {
-    v[j] = row[q + 4 * j];
-    mu += v[j];
+// `rows` rows of kW bf16 (global, 16-byte aligned) into a tile of two
+// 64-column halves of `rows` rows each (at2), zeros from row n_valid on,
+// by the 128 threads of a warpgroup (t) or the block's (kThreads) through
+// cp.async; the caller commits.
+template <int THREADS, class Row>
+__device__ __forceinline__ void stage_w128(unsigned char* tile, int rows,
+                                           int n_valid, int t,
+                                           const void* any, Row row) {
+  for (int p = t; p < rows * 16; p += THREADS) {
+    const int r = p >> 4, k = p & 15;
+    const bool valid = r < n_valid;
+    const unsigned char* s =
+        valid ? reinterpret_cast<const unsigned char*>(row(r)) + 16 * k
+              : reinterpret_cast<const unsigned char*>(any);
+    cp_async16(tile + (k >> 3) * (rows * 128) +
+                   wg::swz<128>(r * 128 + (k & 7) * 16),
+               s, valid);
   }
-  mu += __shfl_xor_sync(0xffffffffu, mu, 1);
-  mu += __shfl_xor_sync(0xffffffffu, mu, 2);
-  mu *= 1.f / kW;
-  float var = 0.f;
+}
+
+// The thread's pairs of node rows in the accumulator layout: v[h][j] holds
+// columns 8 j + 2 t, + 1 of row r0 + 8 h of the tile, row(r) the node row
+// of edge r (zeros past n_valid).  They are both the fold's z addends
+// (accumulator pair i: h = (i / 2) % 2, j = i / 4) and h_0's A fragments
+// (a[j][q]: h = q % 2, j = 2 j + q / 2).
+template <class Row>
+__device__ __forceinline__ void node_pairs(uint32_t (&v)[2][16], int r0,
+                                           int c0, int n_valid, Row row) {
 #pragma unroll
-  for (int j = 0; j < CP; ++j) {
-    const float d = v[j] - mu;
-    var = fmaf(d, d, var);
-  }
-  var += __shfl_xor_sync(0xffffffffu, var, 1);
-  var += __shfl_xor_sync(0xffffffffu, var, 2);
-  var *= 1.f / kW;
-  const float rstd = rsqrtf(var + kLnEps);
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + 8 * h;
+    const bf16* p = row(r < n_valid ? r : 0);
 #pragma unroll
-  for (int j = 0; j < CP; ++j) {
-    const int c = q + 4 * j;
-    row[c] = round_bf16((v[j] - mu) * rstd * __ldg(ln_s + c) + __ldg(ln_b + c));
+    for (int j = 0; j < 16; ++j) {
+      v[h][j] = tile128::ldg_ahead(
+          reinterpret_cast<const unsigned*>(p + 8 * j + c0));
+      if (r >= n_valid) v[h][j] = 0u;
+    }
   }
+}
+
+// acc = v[column] of a bf16 vector (global) on every element of an m64n128
+// accumulator
+__device__ __forceinline__ void init_bias(float (&d)[64],
+                                          const bf16* __restrict__ v,
+                                          int c0) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const float2 b = ld_bf16x2(v + 8 * j + c0);
+    d[4 * j] = d[4 * j + 2] = b.x;
+    d[4 * j + 1] = d[4 * j + 3] = b.y;
+  }
+}
+
+// bf16(relu(d)) of an m64n128 accumulator into the A fragments of the
+// product that reads it next (wgmma.cuh)
+__device__ __forceinline__ void relu_pack(const float (&d)[64],
+                                          uint32_t (&a)[8][4]) {
+#pragma unroll
+  for (int i = 0; i < 64; i += 2)
+    a[i >> 3][(i >> 1) & 3] = pack_rn(fmaxf(d[i], 0.f), fmaxf(d[i + 1], 0.f));
 }
 
 // E: kFold (src is e0; we and be are read), kPe (src is pe) or
 // kPregathered (src is h0; pxj and senders are not read).
 template <Entry E>
-__global__ void __launch_bounds__(kThreads, 2)
-edge_tail_kernel(const bf16* __restrict__ src, const bf16* __restrict__ we,
+__global__ void __launch_bounds__(kThreads, 1)
+wgmma_fwd_kernel(const bf16* __restrict__ src, const bf16* __restrict__ we,
                  const bf16* __restrict__ be, const bf16* __restrict__ pxj,
                  const bf16* __restrict__ pxi,
                  const int* __restrict__ senders,
@@ -492,153 +588,251 @@ edge_tail_kernel(const bf16* __restrict__ src, const bf16* __restrict__ we,
                  const float* __restrict__ ln_s,
                  const float* __restrict__ ln_b, float* __restrict__ out,
                  float* __restrict__ part, int n_nodes, int n_edges, int l1) {
-  using L = Layout;
-  constexpr bool kFoldE = E == kFold, kGathers = E != kPregathered;
+  using L = Layout<E>;
+  constexpr bool FOLD = E == kFold, GATHERS = E != kPregathered;
   extern __shared__ __align__(16) unsigned char bf16w_fwd_smem[];
-  unsigned char* sm = bf16w_fwd_smem;
-  bf16* s_act = reinterpret_cast<bf16*>(sm + L::act);
-  bf16* s_src = reinterpret_cast<bf16*>(sm + L::src);
-  bf16* s_w = reinterpret_cast<bf16*>(sm + L::w);
-  float* s_y = reinterpret_cast<float*>(sm + L::y);
-  int* s_rcv = reinterpret_cast<int*>(sm + L::rcv);
-  int* s_snd = reinterpret_cast<int*>(sm + L::snd);
-  const int tid = threadIdx.x, warp = tid >> 5;
+  unsigned char* sm = bf16w_fwd_smem + ((1024 - (wg::smem_addr(bf16w_fwd_smem)
+                                                 & 1023)) & 1023);
+  const int tid = threadIdx.x, grp = tid >> 7, t = tid & 127, w = t >> 5;
+  unsigned char* s_we = sm + L::we;
+  unsigned char* s_wr = sm + L::wr;
+  unsigned char* s_wo = sm + L::wo;
+  unsigned char* gp = sm + grp * L::group_bytes;
+  unsigned char* s_src = gp + L::src;
+  unsigned char* s_y = gp + L::y;
+  int* s_rcv = reinterpret_cast<int*>(gp + L::idx);
+  int* s_snd = s_rcv + 2 * kTE;
 
-  int t_beg, t_end;
-  tile128::block_tiles<kTE>(n_edges, &t_beg, &t_end);
-  if (t_beg >= t_end) return;  // the whole block
-
-  // The weight chain, two chunk steps a weight: W_e (fold), W_1 .. W_L1,
-  // W_out.  n_steps is even, so chunk s of every tile lands in buffer s & 1.
-  const int first = kFoldE ? 1 : 0;  // W_1's place in the chain
-  const int n_mats = l1 + 1 + first;
-  const int n_steps = n_mats * kChunks;
-  auto weight = [&](int m) {
-    return kFoldE && m == 0 ? we
-           : m - first < l1 ? w_rest + (size_t)(m - first) * kW * kW
-                            : w_out;
+  // every weight by cp.async, once, resident for the whole walk
+  auto weight_rows = [](const bf16* m) {
+    return [m](int r) { return m + (size_t)r * kW; };
   };
-  auto bias = [&](int m) {
-    return kFoldE && m == 0 ? be
-           : m - first < l1 ? b_rest + (size_t)(m - first) * kW
-                            : b_out;
-  };
-  auto load_chunk = [&](int s) {
-    const bf16* w = weight(s / kChunks) + (size_t)(s % kChunks) * kKC * kW;
-    bf16* dst = s_w + (s & 1) * kKC * kLd;
-    for (int p = tid; p < kKC * kW / 8; p += kThreads) {
-      const int r = p >> 4, c = (p & 15) * 8;
-      cp_async16(dst + r * kLd + c, w + r * kW + c, true);
-    }
-  };
-  // pieces [p0, p1) of tile `tile`'s input rows into the staging tile
-  auto stage = [&](int tile, int p0, int p1) {
-    const int base = tile * kTE, n_valid = min(kTE, n_edges - base);
-    for (int p = p0 + tid; p < p1; p += kThreads) {
-      const int r = p >> 4, c = (p & 15) * 8;
-      piece_async(s_src + r * kLd + c,
-                  r < n_valid ? src + (size_t)(base + r) * kW + c : nullptr,
-                  src);
-    }
-  };
-  // the next tile's rows arrive in pieces over the steps whose staging tile
-  // is free: from W_1's first chunk on (the fold's first product reads e0
-  // there), or from the first step (the pe and pregathered entries form h_0
-  // from it before)
-  const int stage_from = first * kChunks;
-  const int per_step =
-      (kPieces + n_steps - stage_from - 1) / (n_steps - stage_from);
-
-  if (warp < 2)
-    tile128::tile_indices<kTE, kGathers>(s_rcv, s_snd, senders, rowptr,
-                                         n_nodes, n_edges, t_beg, -1);
-  stage(t_beg, 0, kPieces);
-  load_chunk(0);
+  if constexpr (FOLD)
+    stage_w128<kThreads>(s_we, kW, kW, tid, we, weight_rows(we));
+  for (int k = 0; k < l1; ++k)
+    stage_w128<kThreads>(s_wr + k * kWeight, kW, kW, tid, w_rest,
+                         weight_rows(w_rest + (size_t)k * kW * kW));
+  stage_w128<kThreads>(s_wo, kW, kW, tid, w_out, weight_rows(w_out));
   cp_async_commit();
-  __syncthreads();  // the first tile's indices
+
+  // the block's tiles [b0, b1), balanced over the grid; warpgroup 0 walks
+  // the first half (rounded up), warpgroup 1 the rest
+  const int n_tiles = (n_edges + kTE - 1) / kTE;
+  const int b0 = (int)((long long)blockIdx.x * n_tiles / gridDim.x);
+  const int b1 = (int)((long long)(blockIdx.x + 1) * n_tiles / gridDim.x);
+  const int mid = b0 + (b1 - b0 + 1) / 2;
+  const int t_beg = grp == 0 ? b0 : mid, t_end = grp == 0 ? mid : b1;
+
+  const int r0 = 16 * w + ((t & 31) >> 2), c0 = 2 * (t & 3);
+  // a tile's e0 / pe / h0 rows, staged by cp.async; its node rows, loaded
+  // into registers (nj: pxj[s], ni: pxi[i]) a tile ahead of their use
+  uint32_t nj[2][16], ni[2][16];
+  auto stage_tile = [&](int tile, const int* rcv, const int* snd) {
+    const int base = tile * kTE, n_valid = min(kTE, n_edges - base);
+    stage_w128<128>(s_src, kTE, n_valid, t, src,
+                    [&](int r) { return src + (size_t)(base + r) * kW; });
+    if constexpr (GATHERS)
+      node_pairs(nj, r0, c0, n_valid,
+                 [&](int r) { return pxj + (size_t)snd[r] * kW; });
+    node_pairs(ni, r0, c0, n_valid,
+               [&](int r) { return pxi + (size_t)rcv[r] * kW; });
+  };
+
+  // while the weights arrive: the first tile's indices (a full search) and
+  // rows; a warpgroup without a tile commits an empty group, so that every
+  // thread's wait below covers the weights alone
+  if (t_beg < t_end) {
+    if (w < 2)
+      tile128::tile_indices<kTE, GATHERS>(s_rcv, s_snd, senders, rowptr,
+                                          n_nodes, n_edges, t_beg, -1);
+    group_sync(grp);  // the first tile's indices
+    stage_tile(t_beg, s_rcv, s_snd);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();
+  wg::fence_async_smem();
+  __syncthreads();  // the weights
 
   for (int tile = t_beg, it = 0; tile < t_end; ++tile, ++it) {
     const int cur = it & 1, nxt = cur ^ 1;
-    const int n_valid = min(kTE, n_edges - tile * kTE);
+    const int base = tile * kTE, n_valid = min(kTE, n_edges - base);
     const int* rcv = s_rcv + cur * kTE;
-    const int* snd = s_snd + cur * kTE;
     const bool more = tile + 1 < t_end;
-    float acc[2][4][4];
-    if (kFoldE) {
-      // z = b_e + (pxj[s] + pxi[i]) (+ e0 . W_e below), loaded while the
-      // block waits for its rows
-      fold_init(acc, be, pxj, pxi, snd, rcv, n_valid);
-    } else {
-      cp_async_wait<0>();
-      __syncthreads();  // the rows are in; the last tile's sums are done
-      // h_0 = bf16(relu((pe + pxj[s]) + pxi[i])) (pe), bf16(relu(h0 +
-      // pxi[i])) (pregathered), zero past n_valid
-      for (int p = tid; p < kPieces; p += kThreads) {
-        const int r = p >> 4, c = (p & 15) * 8;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (r < n_valid) {
-          const uint4 a = *reinterpret_cast<const uint4*>(s_src + r * kLd + c);
-          const uint4 j =
-              kGathers ? __ldg(reinterpret_cast<const uint4*>(
-                             pxj + (size_t)snd[r] * kW + c))
-                       : a;
-          const uint4 i = __ldg(reinterpret_cast<const uint4*>(
-              pxi + (size_t)rcv[r] * kW + c));
-          v = first_layer8<kGathers>(a, j, i);
-        }
-        *reinterpret_cast<uint4*>(s_act + r * kLd + c) = v;
+    float acc[64];
+    // bf16 A fragments of the chain's products (K = kW), each layer's
+    // output rounded in place; alive until the wait that covers the
+    // product that reads them (fence_operand)
+    uint32_t a[kW / 16][4];
+
+    cp_async_wait<0>();  // this tile's rows
+    wg::fence_async_smem();
+    group_sync(grp);  // the rows are in; the last tile's sums are done
+    // the row starts the receiver sums read, loaded now; warps 0 and 1: the
+    // next tile's indices, loads issued now, the search finished under the
+    // first tail product
+    const int2 ends = csr_tile::edge_ends(rowptr, rcv, n_valid);
+    const int next_base = (tile + 1) * kTE + 32 * w;
+    const int next_valid = min(32, n_edges - next_base);
+    IndexLoad next;
+    if (more && w < 2)
+      next.issue<GATHERS, true>(rowptr, senders, n_nodes, next_base,
+                                next_valid, rcv[n_valid - 1]);
+    // the next tile's indices stored, then its rows staged into the tiles
+    // this one has read and its node rows loaded into registers: issued
+    // while a product runs
+    auto advance = [&]() {
+      if (more && w < 2)
+        next.finish<GATHERS>(s_rcv + nxt * kTE + 32 * w,
+                             s_snd + nxt * kTE + 32 * w, rowptr, n_nodes,
+                             next_base, next_valid, rcv[n_valid - 1]);
+      __syncwarp();  // the lanes meet before the warpgroup's barrier
+      group_sync(grp);  // every warp has read the rows (the fold's product
+                        // retired by its wait); the next indices written
+      if (more)
+        stage_tile(tile + 1, s_rcv + nxt * kTE, s_snd + nxt * kTE);
+      cp_async_commit();
+    };
+
+    // h_0: fold bf16(relu(e0 . W_e + (b_e + (pxj[s] + pxi[i])))), the
+    // accumulators started at z (zero past n_valid); pe
+    // bf16(relu((pe + pxj[s]) + pxi[i])) and pregathered bf16(relu(h0 +
+    // pxi[i])) elementwise from the staged rows straight into the A
+    // fragments
+    if constexpr (FOLD) {
+#pragma unroll
+      for (int i = 0; i < 64; i += 2) {
+        const int h = (i >> 1) & 1, j = i >> 2;
+        const float2 b = ld_bf16x2(be + 8 * j + c0);
+        const float2 pj = unpack(nj[h][j]), pi = unpack(ni[h][j]);
+        const bool valid = r0 + 8 * h < n_valid;
+        acc[i] = valid ? b.x + (pj.x + pi.x) : 0.f;
+        acc[i + 1] = valid ? b.y + (pj.y + pi.y) : 0.f;
       }
+      wg::fence_operand(acc);
+      wg::fence();
+      wg::product_w128(acc, s_src, kHalf, s_we, kWHalf, true);
+      wg::commit();
+    } else {
+#pragma unroll
+      for (int j = 0; j < kW / 16; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int h = q & 1, jj = 2 * j + (q >> 1);
+          const uint32_t x = *reinterpret_cast<const uint32_t*>(
+              s_src + at2<kTE>(r0 + 8 * h, 8 * jj + c0));
+          const uint32_t i = ni[h][jj];
+          if constexpr (E == kPe)
+            a[j][q] = relu_sum3(x, nj[h][jj], i);
+          else
+            a[j][q] = relu_sum2(x, i);
+        }
+    }
+    if constexpr (FOLD) {
+      wg::wait<0>();
+      wg::fence_operand(acc);
+      relu_pack(acc, a);
     }
 
-    for (int s = 0; s < n_steps; ++s) {
-      const int m = s / kChunks, c = s % kChunks;
-      if (c == 0 && !(kFoldE && m == 0)) bias_init(acc, bias(m));
-      cp_async_wait<0>();
-      // chunk s is in; every warp is done with chunk s - 1's buffer and
-      // with the last tile's sums, and has written the last layer
-      __syncthreads();
-      if (s == 0 && more && warp < 2)
-        tile128::tile_indices<kTE, kGathers>(
-            s_rcv + nxt * kTE, s_snd + nxt * kTE, senders, rowptr, n_nodes,
-            n_edges, tile + 1, rcv[n_valid - 1]);
-      if (s + 1 < n_steps)
-        load_chunk(s + 1);
-      else if (more)
-        load_chunk(0);
-      if (more && s >= stage_from) {
-        const int p0 = (s - stage_from) * per_step;
-        stage(tile + 1, p0, min(kPieces, p0 + per_step));
+    // h_k = bf16(relu(h_{k-1} . W_k + b_k)), k = 1 .. L1, each from the
+    // registers the layer below left: no barrier between them but the one
+    // of advance() under the first; k ascending as the backward's recompute
+    for (int k = 1; k <= l1; ++k) {
+      init_bias(acc, b_rest + (size_t)(k - 1) * kW, c0);
+      wg::fence_operand(acc);
+      wg::fence();
+      wg::product_rs<kW / 16, 1, 128>(acc, a, s_wr + (k - 1) * kWeight, true,
+                                      kWHalf);
+      wg::commit();
+      if (k == 1) advance();
+      wg::wait<0>();
+      wg::fence_operand(acc);
+      wg::fence_operand(a);
+      relu_pack(acc, a);
+    }
+
+    // y = h_L1 . W_out + b_out; LayerNorm in the accumulators, each row's
+    // statistics over the four threads of its quad (two-pass variance);
+    // bf16(y) into the warpgroup's tile; then the receiver sums as one
+    // product of it, D = S . Y (wgmma.cuh: S the tile's runs of equal
+    // receivers, each warp's own copy from a ballot), D's rows to out or,
+    // for the receivers that cross a tile boundary, to the partial rows
+    init_bias(acc, b_out, c0);
+    wg::fence_operand(acc);
+    wg::fence();
+    wg::product_rs<kW / 16, 1, 128>(acc, a, s_wo, true, kWHalf);
+    wg::commit();
+    // the tile's runs of equal receivers and S's fragments while y's
+    // product runs
+    const uint64_t starts = wg::run_starts(rcv, n_valid);
+    uint32_t s_a[kTE / 16][4];
+    wg::run_matrix(s_a, starts, n_valid);
+    wg::wait<0>();
+    wg::fence_operand(acc);
+    wg::fence_operand(a);
+    if (l1 == 0) advance();
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float mu = 0.f;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        mu += acc[4 * j + 2 * hh] + acc[4 * j + 2 * hh + 1];
+      mu += __shfl_xor_sync(0xffffffffu, mu, 1);
+      mu += __shfl_xor_sync(0xffffffffu, mu, 2);
+      mu *= 1.f / kW;
+      float var = 0.f;
+#pragma unroll
+      for (int q = 0; q < 32; ++q) {
+        const float d = acc[4 * (q >> 1) + 2 * hh + (q & 1)] - mu;
+        var = fmaf(d, d, var);
       }
-      cp_async_commit();
-      const bf16* a = kFoldE && m == 0 ? s_src : s_act;
-      mm_tile<kKC, false>(acc, a + c * kKC, s_w + (s & 1) * kKC * kLd);
-      if (c == kChunks - 1) {
-        if (m == n_mats - 1) {
-          // y, into its own tile (free since this tile's first barrier)
-          acc_pairs(acc, [&](int r, int col, float v0, float v1) {
-            *reinterpret_cast<float2*>(s_y + r * kLdF + col) =
-                make_float2(v0, v1);
-          });
-        } else {
-          if (!(kFoldE && m == 0)) __syncthreads();  // every warp read act
-          acc_pairs(acc, [&](int r, int col, float v0, float v1) {
-            *reinterpret_cast<uint32_t*>(s_act + r * kLd + col) =
-                pack_rn(fmaxf(v0, 0.f), fmaxf(v1, 0.f));
-          });
-        }
+      var += __shfl_xor_sync(0xffffffffu, var, 1);
+      var += __shfl_xor_sync(0xffffffffu, var, 2);
+      var *= 1.f / kW;
+      const float rstd = rsqrtf(var + kLnEps);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int c = 8 * j + c0;
+        const float2 s = __ldg(reinterpret_cast<const float2*>(ln_s + c));
+        const float2 b = __ldg(reinterpret_cast<const float2*>(ln_b + c));
+        *reinterpret_cast<uint32_t*>(s_y + at2<kTE>(r0 + 8 * hh, c)) =
+            pack_rn((acc[4 * j + 2 * hh] - mu) * rstd * s.x + b.x,
+                    (acc[4 * j + 2 * hh + 1] - mu) * rstd * s.y + b.y);
       }
     }
-    __syncthreads();  // y written
-    layer_norm_bf16(s_y, ln_s, ln_b);
-    __syncthreads();
-    // the receiver sums over each run of equal receivers; partial rows for
-    // the receivers that cross a tile boundary
-    csr_tile::receiver_sums<kTE, kW>(
-        [&](int e, int col) -> float& { return s_y[e * kLdF + col]; }, rcv,
-        rowptr, n_edges, tile, n_valid, out, part);
+    wg::fence_async_smem();
+    group_sync(grp);  // bf16(y) written
+    wg::fence();
+    wg::product_rs<kTE / 16, 1, 128>(acc, s_a, s_y, false, kHalf);
+    wg::commit();
+    wg::wait<0>();
+    wg::fence_operand(acc);
+    wg::fence_operand(s_a);
+    wg::store_runs<kW, kTE>(acc, starts, rcv, ends.x, ends.y, n_edges, tile,
+                            n_valid, out, part);
   }
 }
 
+// kernels the last call launched (its own count, for the checks)
+std::atomic<int> last_launches{0};
+
+// The blocks a call of n_edges takes (min(tiles, SMs x the blocks an SM
+// holds)) into *blocks.
+template <Entry E>
+cudaError_t grid(int n_edges, int* blocks) {
+  static std::atomic<int> cache[kMaxDevices];
+  int per_sm = 0, n_sm = 0;
+  const cudaError_t err =
+      residency(wgmma_fwd_kernel<E>, (size_t)Layout<E>::bytes(kMaxL1), cache,
+                &per_sm, &n_sm);
+  if (err != cudaSuccess) return err;
+  const int n_tiles = (n_edges + kTE - 1) / kTE;
+  *blocks = n_tiles < per_sm * n_sm ? n_tiles : per_sm * n_sm;
+  return cudaSuccess;
+}
+
+// The kernel, block b over tiles [b T / B, (b + 1) T / B), then the sum of
+// the partial rows of the receivers that cross a tile: two launches (one
+// for a single tile).
 template <Entry E>
 int launch(const bf16* src, const bf16* we, const bf16* be, const bf16* pxj,
            const bf16* pxi, const int* senders, const int* rowptr,
@@ -646,21 +840,23 @@ int launch(const bf16* src, const bf16* we, const bf16* be, const bf16* pxj,
            const bf16* b_out, const float* ln_s, const float* ln_b, float* out,
            float* part, int n_nodes, int n_edges, int l1,
            cudaStream_t stream) {
-  static std::atomic<int> cache[kMaxDevices];
-  int per_sm = 0, n_sm = 0;
-  cudaError_t err = residency(edge_tail_kernel<E>, Layout::bytes, cache,
-                              &per_sm, &n_sm);
+  int blocks = 0, launches = 0;
+  cudaError_t err = grid<E>(n_edges, &blocks);
   if (err != cudaSuccess) return (int)err;
-  if (n_nodes == 0 || n_edges <= 0) return (int)cudaSuccess;
-  const int n_tiles = (n_edges + kTE - 1) / kTE;
-  const int blocks = n_tiles < per_sm * n_sm ? n_tiles : per_sm * n_sm;
-  edge_tail_kernel<E><<<blocks, kThreads, Layout::bytes, stream>>>(
-      src, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest, w_out, b_out,
-      ln_s, ln_b, out, part, n_nodes, n_edges, l1);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if (n_tiles > 1)
-    csr_tile::cross_tile_sum_kernel<kTE, kW>
-        <<<n_tiles - 1, kW, 0, stream>>>(rowptr, part, out, n_nodes, n_edges);
+  if (n_nodes > 0 && n_edges > 0) {
+    const int n_tiles = (n_edges + kTE - 1) / kTE;
+    wgmma_fwd_kernel<E><<<blocks, kThreads, Layout<E>::bytes(l1), stream>>>(
+        src, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest, w_out, b_out,
+        ln_s, ln_b, out, part, n_nodes, n_edges, l1);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    ++launches;
+    if (n_tiles > 1) {
+      csr_tile::cross_tile_sum_kernel<kTE, kW><<<n_tiles - 1, kW, 0, stream>>>(
+          rowptr, part, out, n_nodes, n_edges);
+      ++launches;
+    }
+  }
+  last_launches.store(launches, std::memory_order_relaxed);
   return (int)cudaGetLastError();
 }
 
@@ -700,46 +896,6 @@ struct Layout {
 static_assert(Layout::stat + 4 * kTE * 4 <= Layout::in, "y, g in the ring");
 static_assert(8 * kW * 4 <= 2 * kTileBytes, "the sums in the gradient tiles");
 
-// A warp's share of tile128::tile_indices (its 32 edges from base), split
-// around the step's products so that the loads' latency hides under them:
-// issue() loads the 32 row starts after the receiver `hint` of an edge
-// before base (>= 0) and the senders; finish() forms the receivers as
-// tile128::warp_receiver does from that hint (the count of row starts at or
-// before each edge by a five-step search over the sorted starts in place of
-// its 32 comparisons) and stores both.
-struct IndexLoad {
-  int start, snd;
-
-  template <bool GATHERS>
-  __device__ __forceinline__ void issue(const int* __restrict__ rowptr,
-                                        const int* __restrict__ senders,
-                                        int n_nodes, int base, int n_valid,
-                                        int hint) {
-    const int lane = threadIdx.x & 31;
-    const int j = hint + 1 + lane;
-    start = j <= n_nodes ? __ldg(rowptr + j) : 0x7fffffff;
-    snd = GATHERS && lane < n_valid ? __ldg(senders + base + lane) : 0;
-  }
-
-  template <bool GATHERS>
-  __device__ __forceinline__ void finish(int* s_rcv, int* s_snd,
-                                         const int* __restrict__ rowptr,
-                                         int n_nodes, int base, int n_valid,
-                                         int hint) const {
-    const int lane = threadIdx.x & 31;
-    const int e = base + lane;
-    int below = 0;  // starts at or before e, of the first 31 (sorted)
-#pragma unroll
-    for (int step = 16; step > 0; step >>= 1)
-      if (__shfl_sync(0xffffffffu, start, below + step - 1) <= e) below += step;
-    int r = hint + below;
-    const int window_end = __shfl_sync(0xffffffffu, start, 31);
-    if (lane < n_valid && e >= window_end)
-      r = tile128::receiver_of(rowptr, n_nodes, e);
-    s_rcv[lane] = lane < n_valid ? r : 0;
-    if (GATHERS) s_snd[lane] = snd;
-  }
-};
 
 // ---- thread block clusters ----------------------------------------------
 
@@ -1474,14 +1630,47 @@ int fused_edge_tail_agg_bf16_w128_bwd(
   return (int)cudaErrorInvalidValue;
 }
 
-// Dynamic shared memory a block takes: the forward (which = 0), a CTA of
-// the backward's cluster (1); -1 for any other.
+// Dynamic shared memory a block takes: the fold forward at L1 = 3 (which =
+// 0), a CTA of the backward's cluster (1); -1 for any other.
 int fused_edge_tail_agg_bf16_w128_smem(int which) {
   switch (which) {
-    case 0: return fwd::Layout::bytes;
+    case 0: return fwd::Layout<kFold>::bytes(kMaxL1);
     case 1: return bwd::Layout::bytes;
     default: return -1;
   }
+}
+
+// Dynamic shared memory a forward block of `entry` takes at l1 tail
+// layers; -1 for an entry or l1 not built.
+int fused_edge_tail_agg_bf16_w128_fwd_smem(int entry, int l1) {
+  if (l1 < 0 || l1 > kMaxL1) return -1;
+  switch (entry) {
+    case kFold: return fwd::Layout<kFold>::bytes(l1);
+    case kPe: return fwd::Layout<kPe>::bytes(l1);
+    case kPregathered: return fwd::Layout<kPregathered>::bytes(l1);
+    default: return -1;
+  }
+}
+
+// Kernels the last forward call launched, its own count: the walk and the
+// sum of the partial rows (the walk alone for one tile; none without an
+// edge).
+int fused_edge_tail_agg_bf16_w128_fwd_launches(void) {
+  return fwd::last_launches.load(std::memory_order_relaxed);
+}
+
+// The blocks a forward call of `entry` over n_edges launches on this
+// device: min(tiles, SMs x the blocks an SM holds), or a negative
+// cudaError_t.
+int fused_edge_tail_agg_bf16_w128_fwd_blocks(int entry, int n_edges) {
+  int blocks = 0;
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (entry) {
+    case kFold: err = fwd::grid<kFold>(n_edges, &blocks); break;
+    case kPe: err = fwd::grid<kPe>(n_edges, &blocks); break;
+    case kPregathered: err = fwd::grid<kPregathered>(n_edges, &blocks); break;
+  }
+  return err == cudaSuccess ? blocks : -(int)err;
 }
 
 // The kernels the last backward call launched (the cluster pipeline and the

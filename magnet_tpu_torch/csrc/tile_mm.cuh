@@ -11,7 +11,8 @@
 //
 // csr_tile (every forward that walks a CSR graph in tiles of consecutive
 // edges): the receiver sums of a tile and the sum of the partial rows that
-// a receiver leaves in each tile it crosses.
+// a receiver leaves in each tile it crosses (the bf16 forwards form their
+// tiles' sums on the tensor cores, wgmma.cuh, into the same partial rows).
 #pragma once
 
 #include <cstdint>
@@ -22,6 +23,21 @@ namespace tile128 {
 enum Entry : int { kPregathered = 0, kFold = 1, kPe = 2 };
 
 constexpr int kW = 128;          // Ce = H = C of the width-128 builds
+
+// A 32-bit load through the read-only path, issued where it is written: an
+// asm volatile statement, which the compiler neither moves past the others
+// nor sinks to its first use, so a value loaded a phase ahead of its use
+// is in flight under that phase.
+__device__ __forceinline__ int ldg_ahead(const int* p) {
+  int v;
+  asm volatile("ld.global.nc.b32 %0, [%1];\n" : "=r"(v) : "l"(p));
+  return v;
+}
+__device__ __forceinline__ unsigned ldg_ahead(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.global.nc.b32 %0, [%1];\n" : "=r"(v) : "l"(p));
+  return v;
+}
 
 // The receiver of edge e: the last i with rowptr[i] <= e.
 __device__ __forceinline__ int receiver_of(const int* __restrict__ rowptr,
@@ -559,6 +575,17 @@ __device__ __forceinline__ void receiver_sums(Ref ref, const int* s_rcv,
     }
     if (cur >= 0) flush(cur, acc);
   }
+}
+
+// The row starts that tell whether a tile's first and last runs of equal
+// receivers cross it (the others cannot), for a tile whose receivers are
+// s_rcv (n_valid >= 1 edges): (rowptr[s_rcv[0]], rowptr[s_rcv[n_valid - 1]
+// + 1]), loaded where called, without waiting (ldg_ahead); wg::store_runs
+// reads them.
+__device__ __forceinline__ int2 edge_ends(const int* __restrict__ rowptr,
+                                          const int* s_rcv, int n_valid) {
+  return make_int2(tile128::ldg_ahead(rowptr + s_rcv[0]),
+                   tile128::ldg_ahead(rowptr + s_rcv[n_valid - 1] + 1));
 }
 
 // The receiver that crosses the boundary at edge TE (b + 1) (block b) and

@@ -945,7 +945,9 @@ def _launch_bf16_fwd(e0, we, be, pxj, pxi, senders, rowptr, *tail):
                                    *tail)
     _check_build_bf16("fold", widths, l1)
     _check_device(e0)
-    _check_aligned(e0=e0, pxj=pxj, pxi=pxi)
+    # rows and weights by cp.async
+    _check_aligned(e0=e0, pxj=pxj, pxi=pxi, we=we, w_rest=tail[0],
+                   w_out=tail[2])
     if widths[1] == 128:
         return _launch_bf16_w128_fwd("fold", e0, we, be, pxj, pxi, senders,
                                      rowptr, *tail)
@@ -1078,7 +1080,7 @@ def _launch_pregathered_bf16_fwd(h0, pxi, rowptr, *tail):
     E, widths, l1, n = _check_pregathered_bf16(h0, pxi, rowptr, *tail)
     _check_build_bf16("pregathered", widths, l1)
     _check_device(h0)
-    _check_aligned(h0=h0, pxi=pxi)
+    _check_aligned(h0=h0, pxi=pxi, w_rest=tail[0], w_out=tail[2])
     if widths == (128, 128):
         return _launch_bf16_w128_fwd("pregathered", h0, None, None, None, pxi,
                                      None, rowptr, *tail)
@@ -1388,7 +1390,7 @@ def _launch_pe_bf16_fwd(pe, pxj, pxi, senders, rowptr, snd_ptr, snd_perm,
                                  snd_perm, *tail, dtype=torch.bfloat16)
     _check_build_bf16("pe", widths, l1)
     _check_device(pe)
-    _check_aligned(pe=pe, pxj=pxj, pxi=pxi)
+    _check_aligned(pe=pe, pxj=pxj, pxi=pxi, w_rest=tail[0], w_out=tail[2])
     if widths[0] == 64:
         return _launch_pe64_bf16_fwd(pe, pxj, pxi, senders, rowptr, *tail)
     return _launch_bf16_w128_fwd("pe", pe, None, None, pxj, pxi, senders,

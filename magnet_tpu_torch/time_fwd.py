@@ -29,21 +29,36 @@ product at 989 TFLOP/s; the pregathered forward is bound by bytes); then
 at MAgNet[GNN]'s eval LR ∪ HR graph and a training batch's (32 samples of
 32 queries from a seed) the fold and pe entries at width 128, the f32
 build (``csrc/fused_edge_tail_agg.cu``) against the bf16 one
-(``csrc/fused_edge_tail_agg_bf16_w128.cu``) in the same turns.  Its
-graphs, library binding and in-turn timing serve ``time_bwd`` too.
+(``csrc/fused_edge_tail_agg_bf16_w128.cu``) in the same turns.  With
+``baseline=DIR dtype=bf16`` it times the bf16 forwards of DIR against this
+checkout's instead, in turns baseline, this, this, baseline: #8 and #6 at
+width 64 at MAgNet[CNN] 1D's eval and training graphs and 2D's eval
+graph, #2 at 2D's training graphs of 32 and 8 samples, #8, #6 and #2 at
+width 128 at MAgNet[GNN]'s eval and training graphs, each with the plain
+version's time, its bf16 bound and its share of it; then the bf16 eval
+batches and training steps of MAgNet[CNN] 1D / 2D and MAgNet[GNN] 1D / 2D
+with the forwards through either build.  Its graphs, library binding and
+in-turn timing serve ``time_bwd`` too.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import subprocess
 import sys
+import tempfile
+import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from magnet_tpu_torch.config import (
+    DATAMODULE_IMPLICIT,
+    DATAMODULE_IMPLICIT_2D,
+    DATAMODULE_IMPLICIT_GNN,
+    DATAMODULE_IMPLICIT_GNN_2D,
     HEAT_TEST,
     MAGNET_CNN,
     MAGNET_CNN_2D,
@@ -201,11 +216,12 @@ def to_bf16(ops):
                  and i < len(ops) - 2 else t for i, t in enumerate(ops))
 
 
-def runner_bf16(ops):
-    """A closure that launches the bf16 forward's C entry on ``ops`` (bf16,
-    ``to_bf16``) as its wrapper does and returns out."""
-    fn = cuda_build.function(fe.BF16, fe._ARGTYPES[fe.BF16_FWD],
-                             symbol=fe.BF16_FWD)
+def runner_bf16(ops, fn=None):
+    """A closure that launches the bf16 forward's C entry (``fn``, or this
+    checkout's) on ``ops`` (bf16, ``to_bf16``) as its wrapper does and
+    returns out."""
+    fn = fn or cuda_build.function(fe.BF16, fe._ARGTYPES[fe.BF16_FWD],
+                                   symbol=fe.BF16_FWD)
     e0, we, _, _, _, _, rowptr, *tail = ops
     n, e, l1 = rowptr.numel() - 1, e0.shape[0], tail[0].shape[0]
     c = tail[2].shape[1]
@@ -222,12 +238,13 @@ def runner_bf16(ops):
     return run
 
 
-def runner_bf16_w128(entry, ops):
-    """A closure that launches the width-128 bf16 forward's C entry for
-    ``entry`` (fold, pe or pregathered) on ``ops`` (``to_bf16``) as its
-    wrapper does and returns out."""
-    fn = cuda_build.function(fe.BF16_W128, fe._ARGTYPES[fe.BF16_W128_FWD],
-                             symbol=fe.BF16_W128_FWD)
+def runner_bf16_w128(entry, ops, fn=None):
+    """A closure that launches the width-128 bf16 forward's C entry (``fn``,
+    or this checkout's) for ``entry`` (fold, pe or pregathered) on ``ops``
+    (``to_bf16``) as its wrapper does and returns out."""
+    fn = fn or cuda_build.function(fe.BF16_W128,
+                                   fe._ARGTYPES[fe.BF16_W128_FWD],
+                                   symbol=fe.BF16_W128_FWD)
     src, we, be, pxj, pxi, senders, rowptr, *tail = ops
     n, e, l1 = rowptr.numel() - 1, src.shape[0], tail[0].shape[0]
     part = torch.empty(part_rows(e, fe.FWD_TILE), 128, device=src.device)
@@ -245,12 +262,13 @@ def runner_bf16_w128(entry, ops):
     return run
 
 
-def runner_pe64_bf16(ops):
-    """A closure that launches the width-64 bf16 pe forward's C entry on the
-    C-entry operands ``ops`` (``operands("pe", ...)`` through ``to_bf16``)
-    as its wrapper does and returns out."""
-    fn = cuda_build.function(fe.BF16, fe._ARGTYPES[fe.BF16_PE_FWD],
-                             symbol=fe.BF16_PE_FWD)
+def runner_pe64_bf16(ops, fn=None):
+    """A closure that launches the width-64 bf16 pe forward's C entry
+    (``fn``, or this checkout's) on the C-entry operands ``ops``
+    (``operands("pe", ...)`` through ``to_bf16``) as its wrapper does and
+    returns out."""
+    fn = fn or cuda_build.function(fe.BF16, fe._ARGTYPES[fe.BF16_PE_FWD],
+                                   symbol=fe.BF16_PE_FWD)
     pe, _, _, pxj, pxi, senders, rowptr, *tail = ops
     n, (e, h), l1 = rowptr.numel() - 1, pe.shape, tail[0].shape[0]
     c = tail[2].shape[1]
@@ -274,11 +292,12 @@ def pregathered_bf16(ops):
     return to_bf16((src, pxi, rowptr, *tail))
 
 
-def runner_pregathered_bf16(ops):
-    """A closure that launches the bf16 pregathered forward's C entry on
-    ``ops`` (``pregathered_bf16``) as its wrapper does and returns out."""
-    fn = cuda_build.function(fe.BF16, fe._ARGTYPES[fe.BF16_PRE_FWD],
-                             symbol=fe.BF16_PRE_FWD)
+def runner_pregathered_bf16(ops, fn=None):
+    """A closure that launches the bf16 pregathered forward's C entry
+    (``fn``, or this checkout's) on ``ops`` (``pregathered_bf16``) as its
+    wrapper does and returns out."""
+    fn = fn or cuda_build.function(fe.BF16, fe._ARGTYPES[fe.BF16_PRE_FWD],
+                                   symbol=fe.BF16_PRE_FWD)
     h0, _, rowptr, *tail = ops
     n, e, l1 = rowptr.numel() - 1, h0.shape[0], tail[0].shape[0]
     c = tail[2].shape[1]
@@ -333,6 +352,8 @@ def main(argv) -> int:
     card()
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
+    if args.get("dtype") == "bf16" and "baseline" in args:
+        return main_bf16_baseline(Path(args["baseline"]), dev)
     fns = libraries(fe.FWD, args)
     if args.get("dtype") == "bf16":
         return main_bf16(fns["this"], dev)
@@ -460,6 +481,245 @@ def main_bf16(fn32, dev) -> int:
                 "device": torch.cuda.get_device_name(0)}), flush=True)
             del ops, ops_bf, runs, want, want32
     return 0
+
+
+#: the bf16 forward's C entry of each entry at width 64 (width 128: one,
+#: BF16_W128_FWD, by entry)
+BF16_W64_FWD_SYMBOL = {"fold": fe.BF16_FWD, "pe": fe.BF16_PE_FWD,
+                       "pregathered": fe.BF16_PRE_FWD}
+
+
+def bf16_fwd_functions(lib64, lib128) -> dict:
+    """{(width, entry): the bf16 forward's C entry} of the libraries of any
+    tree (the same arguments in both)."""
+    def bound(lib, symbol):
+        fn = getattr(ctypes.CDLL(str(lib)), symbol)
+        fn.argtypes = fe._ARGTYPES[symbol]
+        fn.restype = ctypes.c_int
+        return fn
+    out = {(64, e): bound(lib64, s) for e, s in BF16_W64_FWD_SYMBOL.items()}
+    w128 = bound(lib128, fe.BF16_W128_FWD)
+    out.update({(128, e): w128 for e in BF16_W64_FWD_SYMBOL})
+    return out
+
+
+def bf16_fwd_bound(entry, graph, widths, l1) -> dict:
+    """Least time on the card for one bf16 forward call of ``entry``
+    (``chip_smoke.py``'s ``bf16_bound``, ``pe_bf16_bound`` and
+    ``pregathered_bf16_bound``): 2 E (Ce H (fold) + L1 H^2 + H C)
+    operations at the dense bf16 rate, against each input read once and the
+    output written once (e0 / pe / h0, the node tables and the weights at
+    2 bytes; ln_s, ln_b, the indices and out at 4)."""
+    n, e = graph.n_node, graph.n_edge
+    ce, h, c = widths
+    fold = entry == "fold"
+    flops = 2.0 * e * ((ce * h if fold else 0) + l1 * h * h + h * c)
+    weights = (ce * h + h if fold else 0) + l1 * (h * h + h) + h * c + c
+    tables = 1 if entry == "pregathered" else 2
+    ints = 0 if entry == "pregathered" else e
+    nbytes = (2.0 * (e * (ce if fold else h) + tables * n * h + weights)
+              + 4.0 * (2 * c + ints + n + 1 + n * c))
+    t_ops, t_bytes = flops / BF16_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+    return {"bf16_bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
+def bf16_fwd_cases():
+    """(label, width, entries, graph) of the bf16 forwards' main paths:
+    MAgNet[CNN] 1D's eval and training graphs and 2D's eval graph (fold and
+    pe at width 64), 2D's training graphs of 32 and 8 samples (pre-gathered
+    at width 64), MAgNet[GNN]'s eval LR ∪ HR and training graphs (all three
+    at width 128)."""
+    main_graphs = graphs()
+    cases = [(label, 64, ("fold", "pe"), graph)
+             for label, _, graph in main_graphs[:3]]
+    cases += [("cnn_2d_train_b32", 64, ("pregathered",),
+               cnn_2d_train_graph(32, seed=7)),
+              ("cnn_2d_train_b8", 64, ("pregathered",),
+               cnn_2d_train_graph(8, seed=7))]
+    cases += [(label, 128, ("fold", "pe", "pregathered"), graph)
+              for label, graph in (("gnn_eval_all", main_graphs[3][2]),
+                                   ("gnn_train_all", gnn_train_graph()))]
+    return cases
+
+
+def bf16_fwd_run(entry, width, ops, fn):
+    """A closure of the bf16 forward of ``entry`` at ``width`` through the
+    C entry ``fn``, on the C-entry operands ``ops`` (``to_bf16``)."""
+    if width == 128:
+        return runner_bf16_w128(entry, ops, fn)
+    if entry == "fold":
+        return runner_bf16(ops, fn)
+    if entry == "pe":
+        return runner_pe64_bf16(ops, fn)
+    return runner_pregathered_bf16(pregathered_bf16(ops), fn)
+
+
+def bf16_fwd_plain(entry, ops):
+    """The bf16 plain version of ``entry`` on the C-entry operands ``ops``."""
+    src, _, _, pxj, pxi, senders, rowptr, *tail = ops
+    if entry == "fold":
+        return fe.fused_edge_tail_agg_bf16_plain(*ops)
+    if entry == "pe":
+        return fe.fused_edge_tail_agg_pe_bf16_plain(
+            src, pxj, pxi, senders, rowptr, None, None, *tail)
+    return fe.fused_edge_tail_agg_pregathered_bf16_plain(src, pxi, rowptr,
+                                                         *tail)
+
+
+def main_bf16_baseline(baseline: Path, dev) -> int:
+    """The bf16 forwards of the tree at ``baseline`` (its ``csrc/``) against
+    this checkout's, in turns (baseline, this, this, baseline): #8 and #6 at
+    width 64 at MAgNet[CNN] 1D's eval and training graphs and 2D's eval
+    graph, #2 at width 64 at 2D's training graphs (32 and 8 samples), #8,
+    #6 and #2 at width 128 at MAgNet[GNN]'s eval and training graphs (L1 =
+    3 everywhere), each build against the plain version (max abs error),
+    with the plain version's time and the bf16 bound; then the MAgNet[CNN]
+    and MAgNet[GNN] bf16 eval batches and training steps in turns, the
+    forwards through either build."""
+    fns = {"baseline": bf16_fwd_functions(
+               cuda_build.build(fe.BF16, csrc=baseline),
+               cuda_build.build(fe.BF16_W128, csrc=baseline)),
+           "this": bf16_fwd_functions(cuda_build.build(fe.BF16),
+                                      cuda_build.build(fe.BF16_W128))}
+    hps = {64: MAGNET_CNN, 128: MAGNET_GNN}
+    for label, width, entries, graph in bf16_fwd_cases():
+        hp = hps[width]
+        h, l1 = hp["mlp_hidden"], hp["mlp_layers"] - 1
+        c = hp["latent_dim"]
+        for entry in entries:
+            widths = (c, h, c) if entry == "fold" else (h, h, c)
+            ops = to_bf16(operands(entry, graph, *widths, l1, seed=41,
+                                   dev=dev))
+            want = bf16_fwd_plain(entry, ops)
+            runs = {k: bf16_fwd_run(entry, width, ops, fn[(width, entry)])
+                    for k, fn in fns.items()}
+            err = {k: float((run() - want).abs().max())
+                   for k, run in runs.items()}
+            order, times, mean = in_turns(runs)
+            print(json.dumps({
+                "kernel": KERNEL_NUMBER[entry], "entry": entry,
+                "widths": list(widths) if entry == "fold" else [h, c],
+                "shape": label, "n_node": graph.n_node,
+                "n_edge": graph.n_edge, "l1": l1, "reps": REPS,
+                "order": order, "ms": times, "mean_ms": mean,
+                "speedup": mean["baseline"] / mean["this"],
+                "baseline": str(baseline),
+                "plain_ms": cuda_ms(lambda: bf16_fwd_plain(entry, ops)),
+                **bf16_fwd_bound(entry, graph, widths, l1),
+                "share_of_bound": bf16_fwd_bound(
+                    entry, graph, widths, l1)["bf16_bound_ms"] / mean["this"],
+                "max_abs_err_vs_plain": err,
+                "device": torch.cuda.get_device_name(0)}), flush=True)
+            del ops, runs, want
+    end_to_end_in_turns(fns["baseline"], dev)
+    return 0
+
+
+@contextlib.contextmanager
+def bf16_forward_of(fns):
+    """Inside the block the bf16 forwards' launchers run another tree's C
+    entries ``fns`` (``bf16_fwd_functions``: the same arguments): the cached
+    C functions are swapped for them."""
+    swap = {fe.BF16_FWD: (fe.BF16, fns[(64, "fold")]),
+            fe.BF16_PE_FWD: (fe.BF16, fns[(64, "pe")]),
+            fe.BF16_PRE_FWD: (fe.BF16, fns[(64, "pregathered")]),
+            fe.BF16_W128_FWD: (fe.BF16_W128, fns[(128, "fold")])}
+    saved = {}
+    for symbol, (name, fn) in swap.items():
+        cuda_build.function(name, fe._ARGTYPES[symbol], symbol=symbol)
+        saved[symbol] = cuda_build._FUNCTIONS[symbol]
+        cuda_build._FUNCTIONS[symbol] = (saved[symbol][0], fn)
+    try:
+        yield
+    finally:
+        cuda_build._FUNCTIONS.update(saved)
+
+
+def end_to_end_cells():
+    """(label, model name, hp, lane, datamodule config) of the bf16 lanes
+    whose eval batches and training steps run the bf16 forwards: MAgNet[CNN]
+    1D on the fold and pe lanes, 2D (eval fold, training pre-gathered),
+    MAgNet[GNN] 1D on the fold, pe and pre-gathered lanes, 2D (the
+    published 512-node script's training graph, the 32 x 32 eval grid),
+    each from the datamodule's synthetic source."""
+    one_d = {**DATAMODULE_IMPLICIT, "source": "synthetic_ks", "n_train": 32,
+             "n_val": 1, "n_test": 16, "burn_in": 10.0, "data_seed": 0}
+    two_d = {**DATAMODULE_IMPLICIT_2D, "source": "synthetic_burgers_2d",
+             "n_train": 8, "n_val": 1, "n_test": 4, "batch_size": 8,
+             "data_seed": 0}
+    gnn = {**DATAMODULE_IMPLICIT_GNN, "source": "synthetic_ks",
+           "n_train": 32, "n_val": 1, "n_test": 16, "burn_in": 10.0,
+           "data_seed": 0}
+    gnn_2d = {**DATAMODULE_IMPLICIT_GNN_2D, "source": "synthetic_burgers_2d",
+              "n_train": 8, "n_val": 1, "n_test": 8, "batch_size": 8,
+              "res_train": 512, "samples": 256, "data_seed": 0}
+    gnn_2d_hp = {**MAGNET_GNN, "time_slice": 10}
+    return [("magnet_cnn 1D", "magnet_cnn", MAGNET_CNN, "kernel", one_d),
+            ("magnet_cnn 1D", "magnet_cnn", MAGNET_CNN, "kernel_pe", one_d),
+            ("magnet_cnn 2D", "magnet_cnn_2d", MAGNET_CNN_2D, "kernel",
+             two_d),
+            ("magnet_gnn 1D", "magnet_gnn", MAGNET_GNN, "kernel", gnn),
+            ("magnet_gnn 1D", "magnet_gnn", MAGNET_GNN, "kernel_pe", gnn),
+            ("magnet_gnn 1D", "magnet_gnn", MAGNET_GNN,
+             "kernel_pregathered", gnn),
+            ("magnet_gnn 2D", "magnet_gnn", gnn_2d_hp, "kernel", gnn_2d)]
+
+
+def end_to_end_in_turns(baseline_fns, dev, reps=5) -> None:
+    """Seconds a bf16 eval batch (``evaluate`` on one test batch) and a bf16
+    training step of each ``end_to_end_cells`` cell, the forwards through
+    the baseline's build and this one's in turns (baseline, this, this,
+    baseline), each the mean of ``reps`` after two of warm-up."""
+    from magnet_tpu_torch.data.datamodule import build_loaders
+    from magnet_tpu_torch.eval import evaluate
+    from magnet_tpu_torch.train.trainer import Trainer
+
+    loaders = {}
+    for label, name, hp, lane, dm in end_to_end_cells():
+        key = id(dm)
+        if key not in loaders:
+            loaders[key] = build_loaders(dm, seed=0)
+        batch = next(iter(loaders[key]["train"]))
+        test = [next(iter(loaders[key]["test"]))]
+        model = create_model(name, {**hp, "graph_dtype": "bf16"}, device=dev,
+                             seed=0, kind=dm["kind"])
+        model.impl = lane
+        with tempfile.TemporaryDirectory() as workdir:
+            trainer = Trainer(model, workdir=workdir, device=dev)
+            trainer.setup(1)
+            for what, fn in (("eval_batch", lambda: evaluate(model, test,
+                                                             device=dev)),
+                             ("train_step",
+                              lambda: trainer.train_step(batch))):
+                def run():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(reps):
+                        fn()
+                    torch.cuda.synchronize()
+                    return (time.perf_counter() - t0) / reps
+
+                with bf16_forward_of(baseline_fns):
+                    run()
+                run()
+                order = ["baseline", "this", "this", "baseline"]
+                secs = []
+                for k in order:
+                    if k == "baseline":
+                        with bf16_forward_of(baseline_fns):
+                            secs.append(run())
+                    else:
+                        secs.append(run())
+                print(json.dumps({
+                    what: f"{label} bf16", "impl": lane,
+                    "reps_a_turn": reps, "order": order, "seconds": secs,
+                    "mean_s": {k: float(np.mean([t for o, t in zip(order, secs)
+                                                 if o == k]))
+                               for k in ("baseline", "this")},
+                    "device": torch.cuda.get_device_name(0)}), flush=True)
+        del model, trainer
 
 
 if __name__ == "__main__":

@@ -73,6 +73,7 @@ from test_torch_gnn import HP as GNN_HP  # noqa: E402
 from test_torch_lane import _gnn_coords, _jax_graph  # noqa: E402
 from test_torch_modules import _graph_pair  # noqa: E402
 from test_torch_pe_edge import _graphs as pe_graphs  # noqa: E402
+from test_torch_gnn2d import load_native_neighbours  # noqa: E402
 
 BF = jnp.bfloat16
 W = 128  # the width of the kernels under test
@@ -87,6 +88,13 @@ VS_F32_RTOL = 5e-2
 FOLD_BF16 = ("e0", "we", "be", "pxj", "pxi", "w_rest", "b_rest", "w_out",
              "b_out")
 TAIL = ("w_rest", "b_rest", "w_out", "b_out", "ln_s", "ln_b")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def native_neighbours():
+    """The JAX side's MAgNet[GNN] 2D graphs take their k-NN tables from the
+    native neighbour search (``test_torch_gnn2d.load_native_neighbours``)."""
+    return load_native_neighbours()
 
 
 def rel_l2(got, want):

@@ -68,6 +68,7 @@ from magnet_tpu_torch.ops import fused_edge as fe  # noqa: E402
 from test_torch_fold_tiles import truncating_mma, warp_receiver  # noqa: E402
 from test_torch_fused_edge import _jax_side, _port_args, _problem  # noqa: E402
 from test_torch_fwd_tiles import KINDS, degrees  # noqa: E402
+from test_torch_gnn2d import load_native_neighbours  # noqa: E402
 from test_torch_pregathered128 import _bf16_case, _pallas_fwd_bwd  # noqa: E402
 
 TE = 64                       # edges a tile (kTE)
@@ -83,6 +84,13 @@ ENTRIES = ("fold", "pe", "pregathered")
 #: chip_smoke.py's gnn_bf16_kernel_bwd): 5-CTA (fold at L1 = 3), 4-CTA
 #: (pe, pre-gathered)
 H100_CLUSTERS = (22, 30)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def native_neighbours():
+    """The JAX side's MAgNet[GNN] 2D graphs take their k-NN tables from the
+    native neighbour search (``test_torch_gnn2d.load_native_neighbours``)."""
+    return load_native_neighbours()
 
 
 def n_ctas(entry, l1):

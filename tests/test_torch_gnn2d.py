@@ -19,6 +19,12 @@ Tolerances are ``tests/test_torch_gnn.py``'s: a module rtol 1e-4, atol
 datasets' and the sources' arrays and the eval batches are compared
 exactly.
 """
+import fcntl
+import importlib
+import os
+import sys
+import tempfile
+
 import numpy as np
 import pytest
 
@@ -51,6 +57,43 @@ HP = dict(time_slice=4, latent_dim=16, num_message_passing_steps=2,
           teacher_forcing=True, loss="l1")
 NT, RES, N_NODES, SAMPLES = 16, 16, 64, 16
 KIND = "h5_implicit_gnn_2d"
+
+
+def load_native_neighbours():
+    """``magnet_tpu.ops.graph``'s native neighbour search, loaded.  Its
+    module rebuilds ``libneighbors.so`` with ``make`` when the library is
+    older than ``neighbors.cpp`` (a fresh checkout); pytest-xdist's workers
+    import it at once, and an import that meets another worker's rebuild
+    fails and leaves ``_native`` None: the numpy k-NN then takes its place,
+    whose ties go another way.  Such a worker imports it again here, one
+    process at a time (a file lock), after every worker's collection, so
+    after the rebuilds; a library left unloadable is rebuilt under the
+    lock."""
+    if jax_graph._native is None:
+        path = os.path.join(tempfile.gettempdir(),
+                            "magnet_tpu_libneighbors.lock")
+        with open(path, "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            name = "magnet_tpu.runtime.neighbors"
+            sys.modules.pop(name, None)
+            try:
+                native = importlib.import_module(name)
+            except Exception:
+                so = os.path.join(os.path.dirname(jax_graph.__file__),
+                                  os.pardir, "runtime", "libneighbors.so")
+                if os.path.exists(so):
+                    os.remove(so)
+                sys.modules.pop(name, None)
+                native = importlib.import_module(name)
+            jax_graph._native = native
+    return jax_graph._native
+
+
+@pytest.fixture(scope="module", autouse=True)
+def native_neighbours():
+    """Every test here compares k-NN tables, or what follows from them,
+    with the native search's tie order."""
+    return load_native_neighbours()
 
 
 @pytest.fixture(scope="module")

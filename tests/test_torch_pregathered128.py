@@ -71,6 +71,7 @@ from magnet_tpu_torch.utils import to_device  # noqa: E402
 from magnet_tpu_torch.weights import _processor, state_dict_from_jax  # noqa: E402
 from test_torch_bf16_gnn import MODEL_HP, _model_grads_close  # noqa: E402
 from test_torch_fused_edge import _problem  # noqa: E402
+from test_torch_gnn2d import load_native_neighbours  # noqa: E402
 from test_torch_modules import _graph_pair  # noqa: E402
 from test_torch_pregathered_edge import _slots, _tail  # noqa: E402
 
@@ -89,6 +90,13 @@ BF16_OPERANDS = ("h0", "pxi", "w_rest", "b_rest", "w_out", "b_out")
 WIDE = dict(latent_dim=W, mlp_hidden=W, mlp_layers=4,
             num_message_passing_steps=2)
 HP = {pos_dim: dict(hp, **WIDE) for pos_dim, hp in MODEL_HP.items()}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def native_neighbours():
+    """The JAX side's MAgNet[GNN] 2D graphs take their k-NN tables from the
+    native neighbour search (``test_torch_gnn2d.load_native_neighbours``)."""
+    return load_native_neighbours()
 
 
 def rel_l2(got, want):
