@@ -6,7 +6,8 @@
                                         cnn, mpnn_kernels, mpnn_paths, cnn2d,
                                         gnn, gnn2d, fno, no_interaction,
                                         cnn_bf16, cnn2d_bf16, gnn_bf16,
-                                        cnn_pe, gnn_pre
+                                        cnn_pe, gnn_pre, par (par_local and
+                                        par_dist), par_dist (alone)
 
 Builds the port's seven CUDA sources from the checkout (all eleven TPU
 kernels: the fused GraphNet edge pipeline's forward and backward, each
@@ -39,7 +40,11 @@ package's lane under ``MAGNET_TPU_NO_FUSED2``) at (H, C) = (128, 128), in
 f32 and bf16: 1D and 2D through ``evaluate`` and ``Trainer.fit``
 (checkpoint, resume) on #2/#3 with #1 for the sender gather, and one
 MAgNet[CNN] 2D ``kernel_pe`` step at its training graph, which the pe
-lane rule sends to the pre-gathered (64, 32) builds.
+lane rule sends to the pre-gathered (64, 32) builds, and data and graph
+parallelism: MAgNet[CNN] 1D, MAgNet[GNN] 1D and MPNN-2D edge-partitioned
+over a graph axis with every shard on the card (each step against the
+whole graph's), and ``Trainer.fit`` over NCCL ranks, one a card, resumed
+from rank 0's checkpoint.
 It checks that each path went through its kernels by their launch counts.
 Prints one JSON line per phase (``device``, ``build``, ``kernel``,
 ``slice``, ``kernel_bwd``, ``train``, ``mpnn_kernel``, ``mpnn_kernel_bwd``,
@@ -54,7 +59,7 @@ Prints one JSON line per phase (``device``, ``build``, ``kernel``,
 ``gnn2d_bf16_train``, ``pe64_kernel``, ``pe64_kernel_bwd``,
 ``pe64_slice``, ``pe64_train``, ``gnn_pre_kernel``,
 ``gnn_pre_kernel_bwd``, ``gnn_pre_slice``, ``gnn_pre_train``,
-``gnn_pre_c6``), the
+``gnn_pre_c6``, ``par_local``, ``par_dist``), the
 card's name and power limit, a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero, and
 with no CUDA device it exits 1 before printing any result.
@@ -201,9 +206,30 @@ BF16_SEG_RTOL = 1e-2
 # trajectories (one batch of the GNN datamodule's 32, one step an epoch)
 # and validates on 32
 GNN_PRE_TRAJ = 32
+# data and graph parallelism (par): MPNN-2D's partitioned step at this
+# depth (the model's 5 layers, cut); par_dist's launch of its ranks, each
+# a fresh process on its card, within this many seconds
+PAR_MPNN_LAYERS, PAR_DIST_TIMEOUT = 2, 300
+# par_dist's fit over ranks against one process's on the same global
+# batches (PAR_FIT_EPOCHS epochs of 3 Adam steps; a step timed in the last,
+# warm one): each epoch's train and val losses within PAR_FIT_RTOL, and
+# the whole model's update within
+# PAR_UPDATE_L2 relative L2 of the one process's.  Not per parameter:
+# the backward kernels add with atomics, so two fits differ in a
+# gradient's last bits even on one card, and Adam's lr g / (|g| + eps)
+# moves a weight whose gradient is near eps by up to lr for such a change
+# (one bias's update differed by 0.13 of itself on an H100)
+PAR_FIT_EPOCHS, PAR_FIT_RTOL, PAR_UPDATE_L2 = 2, 1e-3, 1e-2
 GROUPS = ("cnn", "mpnn_kernels", "mpnn_paths", "cnn2d", "gnn", "gnn2d",
           "fno", "no_interaction", "cnn_bf16", "cnn2d_bf16", "gnn_bf16",
-          "cnn_pe", "gnn_pre")
+          "cnn_pe", "gnn_pre", "par", "par_dist")
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
 def emit(obj) -> None:
@@ -5301,6 +5327,261 @@ def gnn2d_phases(dev, data, groups) -> tuple[int, list, dict]:
     return (0 if train_ok else 20), [], extra
 
 
+def par_train_step(model, batch, graph):
+    """One training step's loss and backward (no optimizer)."""
+    model.train()
+    model.zero_grad(set_to_none=True)
+    loss, _ = model.loss(batch, graph, train=True)
+    loss.backward()
+    return loss.detach()
+
+
+def par_loss_and_grads(model, batch, graph) -> dict:
+    """One training step's loss and every parameter's gradient, and the
+    validation loss."""
+    out = {"loss": par_train_step(model, batch, graph)}
+    out["grads"] = {k: p.grad.clone() for k, p in model.named_parameters()}
+    model.eval()
+    out["val_loss"] = model.loss(batch, graph, train=False)[0]
+    return out
+
+
+def par_seconds(model, batch, whole, part) -> dict:
+    """Host seconds of a training step (loss and backward, device drained)
+    on the whole graph and on the partitioned one, in turns (whole, part,
+    part, whole), both having run once before."""
+    times = {"seconds_step_whole": [], "seconds_step": []}
+    for key, graph in (("seconds_step_whole", whole), ("seconds_step", part),
+                       ("seconds_step", part), ("seconds_step_whole", whole)):
+        times[key].append(timed(lambda: par_train_step(model, batch, graph)))
+    return times
+
+
+def par_vs_whole(got: dict, want: dict) -> dict:
+    """A partitioned step against the unpartitioned one on the card: the
+    training loss within TRAIN_LOSS_RTOL and each gradient within
+    TRAIN_GRAD_L2 relative L2 (the ``*train`` phases' bounds), the
+    validation loss, a free rollout, within SLICE_RTOL (the eval phases')."""
+    l2 = {k: float((got["grads"][k].double() - g.double()).norm()
+                   / g.double().norm().clamp_min(1e-30))
+          for k, g in want["grads"].items()}
+    worst = max(l2, key=l2.get)
+    rel = {k: float((got[k] - want[k]).abs() / want[k].abs())
+           for k in ("loss", "val_loss")}
+    fin = all(bool(torch.isfinite(g).all()) for g in got["grads"].values())
+    return {"loss": float(got["loss"]), "loss_whole": float(want["loss"]),
+            "loss_rel_err": rel["loss"], "loss_rtol": TRAIN_LOSS_RTOL,
+            "val_loss": float(got["val_loss"]),
+            "val_loss_whole": float(want["val_loss"]),
+            "val_loss_rel_err": rel["val_loss"], "val_loss_rtol": SLICE_RTOL,
+            "worst_grad_rel_l2": l2[worst], "worst_grad": worst,
+            "grad_rel_l2_tol": TRAIN_GRAD_L2, "grads_finite": fin,
+            "ok": (fin and l2[worst] <= TRAIN_GRAD_L2
+                   and rel["loss"] <= TRAIN_LOSS_RTOL
+                   and rel["val_loss"] <= SLICE_RTOL)}
+
+
+def par_shards(graph) -> list:
+    """Each shard graph's edge count and lane (both graphs of MAgNet[GNN])."""
+    parts = (graph.lr, graph.all) if hasattr(graph, "nbr") else (graph,)
+    return [{"edges": p.edge_counts(), "lanes": p.lanes()} for p in parts]
+
+
+def par_phases(dev, data, groups) -> tuple[int, list, dict]:
+    """Phases ``par_local`` and ``par_dist``: graph and data parallelism.
+
+    ``par_local``: the single-process graph axis on the card (every shard
+    of a sample there, the all-gather and the all-to-all index copies),
+    weights from seed 0: MAgNet[CNN] 1D at its published config on the KS
+    batch, G = 2 and 4, all-gather and halo; MAgNet[GNN] 1D at width 128,
+    G = 2, halo; MPNN-2D at PAR_MPNN_LAYERS layers, G = 2.  Each partitioned
+    step (loss, every gradient, validation loss) against the unpartitioned
+    one on the card; the kernels' launches on the shard graphs (#8/#9 at
+    widths 64 and 128, the MPNN edge kernels of the shards' lane), each
+    shard's edges and lane, the seconds of a step of each.
+
+    ``par_dist`` (alone: group ``par_dist``): ``Trainer.fit`` of
+    MAgNet[CNN] 1D over NCCL, one rank a card (``parallel.launch.
+    run_ranks``), devices = every card, against this process's fit on the
+    global batches (PAR_FIT_RTOL); rank 0's checkpoint read back and
+    resumed by this process; with two cards or more also graph_shards = 2
+    with the halo exchange.  No fallback: a rank that fails, or NCCL that
+    does not start, fails the phase."""
+    extra = {}
+    if "par" in groups:
+        rc, extra = par_local(dev, data)
+        if rc:
+            return rc, [], {}
+    return par_dist(dev, data), [], extra
+
+
+def par_local(dev, data) -> tuple[int, dict]:
+    """Phase ``par_local`` (``par_phases``); the exit code and the launches
+    on the shard graphs by kernel row."""
+    from magnet_tpu_torch.config import MAGNET_CNN, MAGNET_GNN, MPNN_2D
+    from magnet_tpu_torch.models.factory import create_model
+    from magnet_tpu_torch.utils import to_device
+
+    cases = [("magnet_cnn", MAGNET_CNN, data["ks_loaders"], g, halo)
+             for g, halo in ((2, False), (2, True), (4, False), (4, True))]
+    cases += [("magnet_gnn", MAGNET_GNN, data["gnn_loaders"], 2, True),
+              ("mpnn_2d", {**MPNN_2D, "hidden_layer": PAR_MPNN_LAYERS},
+               data["b2d_loaders"], 2, False)]
+    records, launches, ok = [], {}, True
+    whole = {}
+    for name, hp, loaders, shards, halo in cases:
+        if name not in whole:
+            # one batch a model (a loader draws new queries every batch)
+            model = create_model(name, hp, device=dev, seed=0)
+            batch = to_device(next(iter(loaders["train"])), dev)
+            whole[name] = par_loss_and_grads(model, batch,
+                                             model.build_graph(batch))
+        t0 = time.perf_counter()
+        part = model.build_graph_partitioned(batch, shards, halo=halo)
+        build_s = time.perf_counter() - t0
+        reset_every_launch()
+        got = par_loss_and_grads(model, batch, part)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in every_launch().items() if v}
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        rec = {"model": name, "graph_shards": shards, "halo": halo,
+               "batch": len(batch[next(iter(batch))]),
+               "shards": par_shards(part), "launches": counts,
+               "seconds_partition": build_s,
+               **par_vs_whole(got, whole[name]),
+               **par_seconds(model, batch, model.build_graph(batch), part)}
+        ok = ok and rec["ok"] and bool(counts)
+        records.append(rec)
+    need = ("fused_edge_fwd", "fused_edge_bwd", "fused_edge_fold128_fwd",
+            "fused_edge_fold128_bwd")
+    mpnn = [k for k in launches if k.startswith(("fwd_", "bwd_"))]
+    ok = ok and all(launches.get(k) for k in need) and len(mpnn) == 2
+    emit({"phase": "par_local", "cases": records, "launches": launches,
+          "gpu": torch.cuda.get_device_name(0), "ok": ok})
+    smi = card()
+    for r in records:
+        print(f"par_local {r['model']} G={r['graph_shards']} "
+              f"halo={r['halo']}: s a step {r['seconds_step']} (whole "
+              f"graph {r['seconds_step_whole']}; {smi})", flush=True)
+    if not ok:
+        return 21, {}
+    extra = {}
+    for row, key in (("fused_edge_tail_agg", "fused_edge_fwd"),
+                     ("fused_edge_tail_agg_bwd", "fused_edge_bwd"),
+                     ("fused_edge_tail_agg_w128", "fused_edge_fold128_fwd"),
+                     ("fused_edge_tail_agg_bwd_w128",
+                      "fused_edge_fold128_bwd"),
+                     ("fused_mpnn_edge_agg2r", "fwd_gather"),
+                     ("fused_mpnn_edge_agg2r_bwd", "bwd_gather"),
+                     ("fused_mpnn_edge_agg", "fwd_pregathered"),
+                     ("fused_mpnn_edge_agg_bwd", "bwd_pregathered")):
+        if launches.get(key):
+            extra[row] = {"launches_par": launches[key]}
+    return 0, extra
+
+
+def par_dist(dev, data) -> int:
+    """Phase ``par_dist`` (``par_phases``); its exit code."""
+    from magnet_tpu_torch.config import MAGNET_CNN
+    from magnet_tpu_torch.models.factory import create_model
+    from magnet_tpu_torch.parallel.launch import fit_rank, run_ranks
+    from magnet_tpu_torch.train.checkpoint import load_checkpoint
+    from magnet_tpu_torch.train.trainer import Trainer
+
+    n = torch.cuda.device_count()
+    hp = dict(MAGNET_CNN)
+    state = {k: v.cpu() for k, v in
+             create_model("magnet_cnn", hp, device=dev, seed=0)
+             .state_dict().items()}
+    loaders = data["ks_loaders"]
+    steps = len(loaders["train"])
+
+    def model():
+        m = create_model("magnet_cnn", hp, device=dev)
+        m.load_state_dict(state)
+        return m
+
+    def rows_of(workdir):
+        with open(os.path.join(workdir, "metrics.jsonl")) as f:
+            return [json.loads(line) for line in f]
+
+    # this process's fit from the same weights on the same global batches
+    with tempfile.TemporaryDirectory() as workdir:
+        one = Trainer(model(), max_epochs=PAR_FIT_EPOCHS, lr=hp["lr"],
+                      workdir=workdir, device=dev)
+        one.fit(loaders["train"], loaders["val"])
+        one_rows = rows_of(workdir)
+    one_state = {k: v.cpu().numpy() for k, v in one.model.state_dict().items()}
+
+    smi = card()
+    runs = [(n, False)] + ([(n // 2, True)] if n >= 2 else [])
+    dist_records = []
+    for dp, halo in runs:
+        with tempfile.TemporaryDirectory() as workdir:
+            spec = {"model": "magnet_cnn", "hp": hp, "state": state,
+                    "dp": dp, "halo": halo, "loaders": loaders,
+                    "max_epochs": PAR_FIT_EPOCHS, "lr": hp["lr"],
+                    "workdir": workdir,
+                    "device": "cuda"}
+            t0 = time.perf_counter()
+            out = run_ranks(fit_rank, n, (spec,), device="cuda",
+                            timeout_s=PAR_DIST_TIMEOUT)
+            fit_s = time.perf_counter() - t0
+            last = os.path.join(workdir, "checkpoints", "last.pt")
+            saved, meta = load_checkpoint(last, require=("model",
+                                                         "optimizer"))
+            same = all(np.array_equal(v.numpy(), out[0]["state"][k])
+                       for k, v in saved["model"].items())
+            agree = all(np.array_equal(r["state"][k], out[0]["state"][k])
+                        for r in out for k in out[0]["state"])
+            rows = rows_of(workdir)
+            resumed = Trainer(create_model("magnet_cnn", hp, device=dev),
+                              max_epochs=PAR_FIT_EPOCHS + 1, lr=hp["lr"],
+                              workdir=workdir, device=dev)
+            resumed.fit(loaders["train"], loaders["val"], resume=last)
+            epochs = [r["epoch"] for r in rows_of(workdir)]
+        # the ranks' update of the whole model against this process's
+        keys = sorted(one_state)
+        flat = lambda d: np.concatenate([np.ravel(d[k]) for k in keys])  # noqa: E731
+        init = flat({k: v.numpy() for k, v in state.items()})
+        upd = float(np.linalg.norm(flat(out[0]["state"]) - flat(one_state))
+                    / np.linalg.norm(flat(one_state) - init))
+        loss_rel = {f"{k}_{e}": abs(rows[e][k] - one_rows[e][k])
+                    / abs(one_rows[e][k])
+                    for k in ("train_loss", "val_mae_loss")
+                    for e in range(PAR_FIT_EPOCHS)}
+        rec = {"ranks": n, "devices": dp, "graph_shards": n // dp,
+               "halo": halo, "seconds_launch_and_fit": fit_s,
+               "seconds_step": rows[-1]["time"] / steps,
+               "seconds_step_one_process": one_rows[-1]["time"] / steps,
+               "rank0_rows": rows, "one_process_rows": one_rows,
+               "loss_rel_err": loss_rel, "loss_rtol": PAR_FIT_RTOL,
+               "update_rel_l2": upd, "update_rel_l2_tol": PAR_UPDATE_L2,
+               "checkpoint_is_rank0": same, "ranks_agree": agree,
+               "writers": [r["metrics_written"] for r in out],
+               "checkpoint_epoch": meta.get("epoch"),
+               "resumed_epochs": epochs,
+               "resumed_steps": resumed.optimizer.step_count,
+               "finite": all(np.isfinite(v) for r in rows
+                             for v in r.values())}
+        rec["ok"] = (same and agree and rec["finite"]
+                     and rec["writers"] == [True] + [False] * (n - 1)
+                     and meta.get("epoch") == PAR_FIT_EPOCHS - 1
+                     and epochs == list(range(PAR_FIT_EPOCHS + 1))
+                     and resumed.optimizer.step_count
+                     == (PAR_FIT_EPOCHS + 1) * steps
+                     and max(loss_rel.values()) <= PAR_FIT_RTOL
+                     and upd <= PAR_UPDATE_L2)
+        print(f"par_dist ranks={n} dp={dp} graph={n // dp} halo={halo}: s a "
+              f"step of the last epoch {rec['seconds_step']} (one process "
+              f"{rec['seconds_step_one_process']}; {smi})", flush=True)
+        dist_records.append(rec)
+    ok = all(r["ok"] for r in dist_records)
+    emit({"phase": "par_dist", "runs": dist_records, "ok": ok})
+    return 0 if ok else 22
+
+
 def reset_every_launch() -> None:
     """Set the launch count of every kernel of the port to 0."""
     from magnet_tpu_torch.ops import fused_edge as fe
@@ -5617,10 +5898,10 @@ def make_data(groups) -> dict:
         nt, res = DATAMODULE_GRAPH_2D["nt_train"], DATAMODULE_GRAPH_2D["res_train"]
         jobs = {}
         if {"cnn", "gnn", "no_interaction", "cnn_bf16", "gnn_bf16",
-                "cnn_pe", "gnn_pre"} & groups:
+                "cnn_pe", "gnn_pre", "par", "par_dist"} & groups:
             jobs["ks"] = splits(ks_cfg)
         if {"mpnn_paths", "cnn2d", "cnn2d_bf16", "cnn_pe",
-                "gnn_pre"} & groups:
+                "gnn_pre", "par"} & groups:
             jobs["b2d"] = {split: pool.submit(
                 make_split, "B2D", MPNN_2D_DATA[f"n_{split}"], nt, res, seed=i)
                 for i, split in enumerate(SPLITS)}
@@ -5650,7 +5931,8 @@ def make_data(groups) -> dict:
                                       seed=200 + i, n_steps=CE_STEPS)
                           for i in range(CE_TRAJ // DATA_CHUNK)]
 
-        if {"cnn", "no_interaction", "cnn_bf16", "cnn_pe"} & groups:
+        if {"cnn", "no_interaction", "cnn_bf16", "cnn_pe", "par",
+                "par_dist"} & groups:
             data["heat"] = heat_batches(16, 16, nt=HEAT_TEST["nt"],
                                         nx=HEAT_TEST["nx"])
             data["ks_loaders"] = build_loaders(
@@ -5676,7 +5958,7 @@ def make_data(groups) -> dict:
                 {**DATAMODULE_GRAPH, **MPNN_1D_DATA, "source": "h5",
                  **arrays(jobs["ce"])}, seed=0)
             data["ce_seconds"] = time.perf_counter() - t0
-        if {"gnn", "gnn_bf16", "gnn_pre"} & groups:
+        if {"gnn", "gnn_bf16", "gnn_pre", "par"} & groups:
             # the cnn group's KS and Heat trajectories
             ks = arrays(jobs["ks"])
             data["gnn_loaders"] = build_loaders(
@@ -5732,9 +6014,7 @@ def main(argv) -> int:
     dev = torch.device("cuda")
 
     # 1. device
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    smi = card()
     print(smi, flush=True)
     emit({"phase": "device", "nvidia_smi": smi,
           "kind": torch.cuda.get_device_name(0),
@@ -5773,7 +6053,8 @@ def main(argv) -> int:
                                 (("cnn2d_bf16",), cnn2d_bf16_phases),
                                 (("gnn_bf16",), gnn_bf16_phases),
                                 (("cnn_pe",), cnn_pe_phases),
-                                (("gnn_pre",), gnn_pre_phases)):
+                                (("gnn_pre",), gnn_pre_phases),
+                                (("par", "par_dist"), par_phases)):
         if set(group_names) & set(groups):
             rc, entries, more = phases(dev, data, groups)
             kernels += entries

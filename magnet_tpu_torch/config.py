@@ -13,7 +13,9 @@ implicit_gnn,implicit_gnn_2d}.yaml``, ``h5_datamodule.yaml`` and
 ``h5_datamodule_2d.yaml`` (each plus the keys of its synthetic source,
 which stands in for the files; ``num_workers`` is not ported),
 ``TRAINER`` is ``trainer/default.yaml`` without the keys of what is not
-ported (``devices``, ``steps_per_call``, ``precision``, ``log_every``),
+ported (``steps_per_call``, ``precision``, ``log_every``), with the JAX
+``run.py``'s ``graph_shards`` and ``graph_halo``
+(``magnet_tpu_torch.run`` launches the mesh),
 ``CALLBACKS`` the early-stopping patience of ``callbacks/default.yaml``.
 ``HEAT_TEST`` is the datamodule's test split (Heat).
 """
@@ -324,6 +326,9 @@ HEAT_TEST = {"nt": DATAMODULE_IMPLICIT["nt_test"],
 
 TRAINER = {
     "max_epochs": 100,
+    "devices": 1,           # dp size; -1: every rank the graph axis leaves
+    "graph_shards": 1,      # graph axis size: each sample's graph split
+    "graph_halo": False,    # false: all-gather; true / fused: halo exchange
     "check_val_every": 1,
     "skip_nonfinite": False,
     "grad_clip": 0.0,
@@ -337,10 +342,14 @@ RUN = {"seed": 42, "name": "run", "ckpt_path": "", "workdir": "runs/${name}",
        "device": "cuda"}
 
 
+#: bool keys that also take a word (``graph_halo=fused``)
+BOOL_OR_WORD = ("graph_halo",)
+
+
 def parse_overrides(argv: list[str], defaults: dict) -> dict:
     """``key=value`` strings over ``defaults``; each value takes the type
-    of the default it replaces (bool from true/false); a default of None
-    takes null or an int."""
+    of the default it replaces (bool from true/false; a ``BOOL_OR_WORD``
+    key also any other word); a default of None takes null or an int."""
     out = dict(defaults)
     for arg in argv:
         key, sep, val = arg.partition("=")
@@ -348,9 +357,12 @@ def parse_overrides(argv: list[str], defaults: dict) -> dict:
             raise ValueError(f"unknown override {arg!r} (keys: {sorted(defaults)})")
         old = defaults[key]
         if isinstance(old, bool):
-            if val.lower() not in ("true", "false"):
+            if val.lower() in ("true", "false"):
+                out[key] = val.lower() == "true"
+            elif key in BOOL_OR_WORD:
+                out[key] = val
+            else:
                 raise ValueError(f"{key} takes true or false, got {val!r}")
-            out[key] = val.lower() == "true"
         elif old is None:
             out[key] = None if val.lower() in ("null", "none") else int(val)
         else:

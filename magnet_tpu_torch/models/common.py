@@ -57,6 +57,20 @@ class OwnGenerator:
     seeded with ``GENERATOR_SEED`` when first asked for."""
 
     _generator = None
+    #: (index, count): this process's block of a batch split ``count`` ways
+    #: over the data-parallel axis (set by the trainer).  Each draw covers
+    #: the whole batch and the block is taken, so the numbers a sample
+    #: gets do not depend on the split.
+    batch_block = (0, 1)
+
+    def block_draw(self, draw, shape, generator: torch.Generator):
+        """``draw(shape, generator)`` for this process's block of the batch
+        (shape[0] samples) of a draw for the whole batch."""
+        i, n = self.batch_block
+        if n == 1:
+            return draw(shape, generator)
+        b = shape[0]
+        return draw((n * b, *shape[1:]), generator)[i * b:(i + 1) * b]
 
     def default_generator(self) -> torch.Generator:
         dev = next(self.parameters()).device

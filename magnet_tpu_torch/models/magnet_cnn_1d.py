@@ -9,8 +9,9 @@ decoder) over the LR ∪ HR nodes -> per-node Euler update.
 
 The radius graph over LR ∪ HR coords is built once per batch on the host
 (coords do not change over the rollout) and flattened over the batch, so
-every processor step is one fused-edge kernel launch for the whole batch.
-The rollout over windows is a Python loop.
+every processor step is one fused-edge kernel launch for the whole batch;
+or it is edge-partitioned over a graph axis (``build_graph_partitioned``),
+one launch a shard.  The rollout over windows is a Python loop.
 """
 from __future__ import annotations
 
@@ -25,6 +26,10 @@ from magnet_tpu_torch.models.common import (
     l1_loss,
     parse_dtype,
     time_windows,
+)
+from magnet_tpu_torch.models.partitioned_mixin import (
+    PartitionedGraphMixin,
+    encode_process,
 )
 from magnet_tpu_torch.nn.core import MLP
 from magnet_tpu_torch.nn.edsr import EDSR
@@ -74,7 +79,8 @@ class MAgNetCNN1DCore(nn.Module):
     def forward(self, x_t, coords, cell, t, hr_last, graph: CSRGraph):
         """x_t (B, T, C, L) LR frames, T == time_slice; coords, cell
         (B, N, 1); t (B, 2T) the window's times; hr_last (B, N, 1) last
-        known HR values; graph over the B*(L+N) nodes.  Returns (out_hr
+        known HR values; graph over the B*(L+N) nodes (a ``CSRGraph`` or
+        a ``PartitionedGraph``).  Returns (out_hr
         (B, T, N, 1), out_lr (B, T, L, 1), hr_points (B, T, N, 1))."""
         B, T, C, L = x_t.shape
         N = coords.shape[1]
@@ -90,15 +96,8 @@ class MAgNetCNN1DCore(nn.Module):
         all_coords = torch.cat([lr_coords, coords], dim=1).reshape(B * M, 1)
         all_feats = torch.cat([lr_flat, hr_flat], dim=1).reshape(B * M, T * C)
         t_last = t[:, T - 1:T, None].expand(B, M, 1).reshape(B * M, 1)
-        node_feats = torch.cat([all_feats, all_coords, t_last], dim=-1)
-
-        s, r = graph.senders, graph.receivers
-        edge_feats = torch.cat(
-            [all_feats.index_select(0, s) - all_feats.index_select(0, r),
-             all_coords.index_select(0, s) - all_coords.index_select(0, r)],
-            dim=-1)
-        nf, ef = self._encoder(node_feats, edge_feats)
-        nf = self._processor(nf, ef, graph, impl=self.impl)
+        nf = encode_process(self._encoder, self._processor, all_feats,
+                            all_coords, t_last, graph, self.impl)
         ret = self._decoder(nf).reshape(B, M, -1)                  # (B, M, T_out)
 
         # Euler update
@@ -110,11 +109,13 @@ class MAgNetCNN1DCore(nn.Module):
         return outputs[:, :, L:], outputs[:, :, :L], hr_points.transpose(1, 2)
 
 
-class MAgNetCNNTask:
+class MAgNetCNNTask(PartitionedGraphMixin):
     """The task side shared by MAgNet[CNN] 1D and 2D: host graph building,
     the rollout with its three feedback branches, and the losses.  The
     class it is mixed into is the core (an ``nn.Module`` whose forward is
-    one window) and gives ``ndim`` and the three shape hooks below.
+    one window) and gives ``ndim`` and the three shape hooks below.  The
+    graph may be partitioned (``build_graph_partitioned``, the
+    ``PartitionedGraphMixin``): the rollout and losses are the same.
 
     Batch dict of tensors: t (B, nt), lr_frames (B, nt, 1, *grid),
     hr_points (B, nt, N, 1), coords (B, N, ndim), cells (B, N, ndim).
@@ -146,17 +147,20 @@ class MAgNetCNNTask:
         """The core's LR output as node values (B, T, L, 1)."""
         raise NotImplementedError
 
+    def _graph_coords(self, batch) -> np.ndarray:
+        """Every sample's LR grid ∪ HR query coordinates, (B, L + N, d)."""
+        coords = batch["coords"].detach().cpu().numpy()            # (B, N, d)
+        lr = make_coord_np([batch["lr_frames"].shape[-1]] * self.ndim)
+        return np.concatenate(
+            [np.broadcast_to(lr[None], (coords.shape[0],) + lr.shape), coords],
+            axis=1)
+
     def build_graph(self, batch) -> CSRGraph:
         """The radius graph over LR ∪ HR coords of every sample, flattened
         over the batch, with its GraphNet lane, on the model's device (and
         cached by its coordinates)."""
-        coords = batch["coords"].detach().cpu().numpy()            # (B, N, d)
-        lr = make_coord_np([batch["lr_frames"].shape[-1]] * self.ndim)
-        all_coords = np.concatenate(
-            [np.broadcast_to(lr[None], (coords.shape[0],) + lr.shape), coords],
-            axis=1)
         return self.graphs.radius_graph_batch(
-            all_coords, self.radius, loop=True,
+            self._graph_coords(batch), self.radius, loop=True,
             device=next(self.parameters()).device)
 
     def _rollout(self, batch, graph: CSRGraph, teacher_forcing: bool,

@@ -18,6 +18,7 @@ from torch import nn
 
 from magnet_tpu_torch.models.common import parse_dtype
 from magnet_tpu_torch.models.magnet_cnn_1d import MAgNetCNNTask
+from magnet_tpu_torch.models.partitioned_mixin import encode_process
 from magnet_tpu_torch.nn.core import MLP
 from magnet_tpu_torch.nn.edsr import EDSR
 from magnet_tpu_torch.nn.graphnet import (
@@ -65,8 +66,9 @@ class MAgNetCNN2DCore(nn.Module):
     def forward(self, x_t, coords, cell, t, hr_last, graph: CSRGraph):
         """x_t (B, T, C, W, W) LR frames, T == time_slice; coords, cell
         (B, N, 2); t (B, 2T) the window's times; hr_last (B, N, 1) last
-        known HR values; graph over the B*(W*W+N) nodes.  Returns (out_hr
-        (B, T, N, 1), out_lr (B, T, C, W, W), hr_points (B, T, N, 1))."""
+        known HR values; graph over the B*(W*W+N) nodes (or partitioned).
+        Returns (out_hr (B, T, N, 1), out_lr (B, T, C, W, W), hr_points
+        (B, T, N, 1))."""
         B, T, C, W, _ = x_t.shape
         N = coords.shape[1]
         WW = W * W
@@ -82,15 +84,8 @@ class MAgNetCNN2DCore(nn.Module):
         all_coords = torch.cat([lr_coords, coords], dim=1).reshape(B * M, 2)
         all_feats = torch.cat([lr_flat, hr_flat], dim=1).reshape(B * M, T * C)
         t_last = t[:, T - 1:T, None].expand(B, M, 1).reshape(B * M, 1)
-        node_feats = torch.cat([all_feats, all_coords, t_last], dim=-1)
-
-        s, r = graph.senders, graph.receivers
-        edge_feats = torch.cat(
-            [all_feats.index_select(0, s) - all_feats.index_select(0, r),
-             all_coords.index_select(0, s) - all_coords.index_select(0, r)],
-            dim=-1)
-        nf, ef = self._encoder(node_feats, edge_feats)
-        nf = self._processor(nf, ef, graph, impl=self.impl)
+        nf = encode_process(self._encoder, self._processor, all_feats,
+                            all_coords, t_last, graph, self.impl)
         ret = self._decoder(nf).reshape(B, M, -1)                  # (B, M, T_out)
 
         # Euler update

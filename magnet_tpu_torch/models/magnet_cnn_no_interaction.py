@@ -183,7 +183,8 @@ class MAgNetCNNNoInteraction(OwnGenerator, NoInteractionCore):
         ys = []
         for w in range(n_win):
             y = self(inp, batch["coords"], batch["cells"], t_win[:, w],
-                     hr_last, self.draw_latent((b, n, self.lstm_hidden),
+                     hr_last, self.block_draw(self.draw_latent,
+                                               (b, n, self.lstm_hidden),
                                                generator))  # (B, ts, N, 1)
             if teacher_forcing:
                 inp = u[:, (w + 1) * ts:(w + 2) * ts]

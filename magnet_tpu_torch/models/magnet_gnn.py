@@ -13,12 +13,13 @@ coordinates -> the projector seeds HR values -> a second GraphNet pass
 Both radius graphs and the k-NN table are built once per batch on the host
 (coordinates do not change over the rollout) and flattened over the batch,
 so every processor step is one fused-edge kernel launch for the whole
-batch.  ``graph_dtype`` (None: f32; bf16) is the compute dtype of both
-GraphNet stages (the two encoders, the two processors and the decoder),
-as the JAX core's ``gk``/``pk`` pass it; the k-NN head and the projector
-stay f32.  Not ported: the graph-partitioned path
-(``build_graph_partitioned``, ``forward_partitioned``,
-``loss_partitioned``) and ``remat``.
+batch.  ``build_graph_partitioned`` partitions both radius graphs over a
+graph axis instead (``PartitionedGraphMixin``; the k-NN table stays whole,
+the INR decode being node-local): the rollout and losses are the same.
+``graph_dtype`` (None: f32; bf16) is the compute dtype of both GraphNet
+stages (the two encoders, the two processors and the decoder), as the JAX
+core's ``gk``/``pk`` pass it; the k-NN head and the projector stay f32.
+Not ported: ``remat``.
 """
 from __future__ import annotations
 
@@ -36,6 +37,11 @@ from magnet_tpu_torch.models.common import (
     parse_dtype,
     time_windows,
 )
+from magnet_tpu_torch.models.partitioned_mixin import (
+    PartitionedGraphMixin,
+    encode_process,
+    partition,
+)
 from magnet_tpu_torch.nn.core import MLP
 from magnet_tpu_torch.nn.graphnet import (
     GraphDecoder,
@@ -44,6 +50,7 @@ from magnet_tpu_torch.nn.graphnet import (
 )
 from magnet_tpu_torch.nn.inr import KNNDecoder
 from magnet_tpu_torch.ops.graph import CSRGraph, GraphCache, knn
+from magnet_tpu_torch.parallel.graph_partition import PartitionedGraph
 
 N_FIELDS = 1  # one scalar field
 
@@ -51,11 +58,12 @@ N_FIELDS = 1  # one scalar field
 @dataclass
 class GNNGraphs:
     """A batch's graphs: the radius graph over the B·L LR nodes, the one
-    over the B·(L+N) LR ∪ HR nodes (both flattened over the batch), and
-    ``nbr`` (B, N, k) int64, the k nearest LR nodes of each HR query."""
+    over the B·(L+N) LR ∪ HR nodes (both flattened over the batch, or both
+    partitioned), and ``nbr`` (B, N, k) int64, the k nearest LR nodes of
+    each HR query."""
 
-    lr: CSRGraph
-    all: CSRGraph
+    lr: CSRGraph | PartitionedGraph
+    all: CSRGraph | PartitionedGraph
     nbr: torch.Tensor
 
 
@@ -91,18 +99,6 @@ class MAgNetGNNCore(nn.Module):
         self._decoder = GraphDecoder(latent_dim, time_slice, mlp_layers,
                                      mlp_hidden, graph_dtype)
 
-    @staticmethod
-    def _features(feats, coords, t_last, graph: CSRGraph):
-        """Node features [values | coords | t] and edge features [value and
-        coordinate differences, sender minus receiver] of the flattened
-        node rows."""
-        s, r = graph.senders, graph.receivers
-        nodes = torch.cat([feats, coords, t_last], dim=-1)
-        edges = torch.cat([feats.index_select(0, s) - feats.index_select(0, r),
-                           coords.index_select(0, s)
-                           - coords.index_select(0, r)], dim=-1)
-        return nodes, edges
-
     def forward(self, x_lr, lr_coords, hr_coords, t, hr_last,
                 graphs: GNNGraphs):
         """x_lr (B, T, C, L) LR frames, T == time_slice; lr_coords (B, L, P),
@@ -116,11 +112,11 @@ class MAgNetGNNCore(nn.Module):
 
         # first pass over the LR nodes
         u_lr = x_lr.permute(0, 3, 1, 2).reshape(B, L, T * C)
-        nf, ef = self._features(
-            u_lr.reshape(B * L, -1), lr_coords.reshape(B * L, -1),
-            t_last[:, None].expand(B, L, 1).reshape(B * L, 1), graphs.lr)
-        nf, ef = self.encoder(nf, ef)
-        lr_encoded = self.processor(nf, ef, graphs.lr, impl=self.impl)
+        lr_encoded = encode_process(
+            self.encoder, self.processor, u_lr.reshape(B * L, -1),
+            lr_coords.reshape(B * L, -1),
+            t_last[:, None].expand(B, L, 1).reshape(B * L, 1), graphs.lr,
+            self.impl)
 
         # k-NN INR decode and projector
         z = self.proj_head(x_lr, lr_encoded.float().reshape(B, L, -1),
@@ -130,11 +126,11 @@ class MAgNetGNNCore(nn.Module):
         # second pass over LR ∪ HR
         all_feats = torch.cat([u_lr, hr_points.reshape(B, N, T * C)], dim=1)
         all_coords = torch.cat([lr_coords, hr_coords], dim=1)
-        nf, ef = self._features(
-            all_feats.reshape(B * M, -1), all_coords.reshape(B * M, -1),
-            t_last[:, None].expand(B, M, 1).reshape(B * M, 1), graphs.all)
-        nf, ef = self._encoder(nf, ef)
-        nf = self._processor(nf, ef, graphs.all, impl=self.impl)
+        nf = encode_process(
+            self._encoder, self._processor, all_feats.reshape(B * M, -1),
+            all_coords.reshape(B * M, -1),
+            t_last[:, None].expand(B, M, 1).reshape(B * M, 1), graphs.all,
+            self.impl)
         ret = self._decoder(nf).float().reshape(B, M, -1)          # (B, M, T_out)
 
         # Euler update
@@ -146,7 +142,7 @@ class MAgNetGNNCore(nn.Module):
         return outputs[:, :, L:], outputs[:, :, :L], hr_points.transpose(1, 2)
 
 
-class MAgNetGNN(OwnGenerator, MAgNetGNNCore):
+class MAgNetGNN(OwnGenerator, PartitionedGraphMixin, MAgNetGNNCore):
     """MAgNet[GNN]: the core with the task side.  Batch dict of tensors
     (``DatasetImplicitGNN1D`` at ``pos_dim`` 1, ``DatasetImplicitGNN2D`` at
     2): t (B, nt), lr_frames (B, nt, 1, L), hr_points (B, nt, N, 1),
@@ -191,9 +187,23 @@ class MAgNetGNN(OwnGenerator, MAgNetGNNCore):
         g_all = self.graphs.radius_graph_batch(
             np.concatenate([lr, hr], axis=1), self.radius, loop=True,
             device=dev)
-        nbr = torch.stack([knn(lr[b], hr[b], self.codec_neighbors)
-                           for b in range(lr.shape[0])]).long().to(dev)
-        return GNNGraphs(g_lr, g_all, nbr)
+        return GNNGraphs(g_lr, g_all, self._knn(lr, hr, dev))
+
+    def _knn(self, lr, hr, dev):
+        return torch.stack([knn(lr[b], hr[b], self.codec_neighbors)
+                            for b in range(lr.shape[0])]).long().to(dev)
+
+    def build_graph_partitioned(self, batch, n_shards: int, halo=False,
+                                axis=None) -> GNNGraphs:
+        """Both radius graphs (LR, and LR ∪ HR) partitioned over
+        ``n_shards`` (``PartitionedGraphMixin``); the k-NN table whole."""
+        dev = next(self.parameters()).device
+        lr = batch["coords_lr"].detach().cpu().numpy()             # (B, L, P)
+        hr = batch["coords_hr"].detach().cpu().numpy()             # (B, N, P)
+        parts = [partition(c, self.radius, True, n_shards, halo, axis, dev,
+                           self.graphs.lane_rule)
+                 for c in (lr, np.concatenate([lr, hr], axis=1))]
+        return GNNGraphs(*parts, self._knn(lr, hr, dev))
 
     # ---------- device-side ----------
     def draw_noise(self, shape, generator: torch.Generator):
@@ -219,9 +229,10 @@ class MAgNetGNN(OwnGenerator, MAgNetGNNCore):
         hr_seq, lr_seq, pts_seq = [], [], []
         for w in range(n_win):
             if use_noise:
-                inp = inp + self.noise * self.draw_noise(inp.shape, generator)
-                hr_last = hr_last + self.noise * self.draw_noise(
-                    hr_last.shape, generator)
+                inp = inp + self.noise * self.block_draw(
+                    self.draw_noise, inp.shape, generator)
+                hr_last = hr_last + self.noise * self.block_draw(
+                    self.draw_noise, hr_last.shape, generator)
             out_hr, out_lr, hr_pts = self(inp, batch["coords_lr"],
                                           batch["coords_hr"], t_win[:, w],
                                           hr_last, graphs)

@@ -14,8 +14,11 @@ Reference quirks kept:
 The radius graph is built once per batch on the host, flattened over the
 batch (one kernel launch per layer covers every sample) and cached by its
 coordinates: a regular grid asks for the same graph at every step.  The
-rollout over windows is a Python loop.  The edge-partitioned execution path
-of the JAX package (graph parallelism) is not ported.
+rollout over windows is a Python loop.  ``build_graph_partitioned``
+edge-partitions the graph over a graph axis instead (the all-gather layout
+alone, as in the JAX package: the sender-side projections are exchanged,
+``parallel.graph_partition.mpnn_processor``); the rollout and losses are
+the same.
 """
 from __future__ import annotations
 
@@ -26,8 +29,16 @@ import torch
 from torch import nn
 
 from magnet_tpu_torch.models.common import LOSSES, l1_loss
+from magnet_tpu_torch.models.partitioned_mixin import (
+    PartitionedGraphMixin,
+    partition,
+)
 from magnet_tpu_torch.nn.gnn_layer import MPNNLayer, TemporalBundlingDecoder
 from magnet_tpu_torch.ops.graph import CSRGraph, GraphCache
+from magnet_tpu_torch.parallel.graph_partition import (
+    PartitionedGraph,
+    mpnn_processor,
+)
 
 
 class MPNNCore(nn.Module):
@@ -59,18 +70,23 @@ class MPNNCore(nn.Module):
 
     def forward(self, u, pos_x, variables, dt, graph: CSRGraph):
         """u (B, N, tw) node time histories; pos_x (B, N, P) positions
-        over L; variables (B, N, 1) time over tmax; dt a scalar tensor.
-        Returns the (B, N, tw) bundled predictions."""
+        over L; variables (B, N, 1) time over tmax; dt a scalar tensor;
+        graph a ``CSRGraph`` or a ``PartitionedGraph``.  Returns the
+        (B, N, tw) bundled predictions."""
         B, N, tw = u.shape
         u, pos_x, variables = (a.reshape(B * N, -1)
                                for a in (u, pos_x, variables))
         h = self.embed(u, pos_x, variables)
-        for layer in self.gnn_layers:
-            h = layer(h, u, pos_x, variables, graph, B, impl=self.impl)
+        if isinstance(graph, PartitionedGraph):
+            h = mpnn_processor(self.gnn_layers, h, u, pos_x, variables, graph,
+                               self.impl)
+        else:
+            for layer in self.gnn_layers:
+                h = layer(h, u, pos_x, variables, graph, B, impl=self.impl)
         return self.decode(h, u, dt).view(B, N, tw)
 
 
-class MPNN(MPNNCore):
+class MPNN(PartitionedGraphMixin, MPNNCore):
     """1D task wrapper.  Batch dict of tensors: u (B, N, nt), x (B, N, 1),
     t (B, nt)."""
 
@@ -105,6 +121,16 @@ class MPNN(MPNNCore):
         return self.graphs.radius_graph_batch(
             x, self._radius(x), loop=False,
             device=next(self.parameters()).device)
+
+    def build_graph_partitioned(self, batch, n_shards: int, halo=False,
+                                axis=None) -> PartitionedGraph:
+        """The radius graph partitioned over ``n_shards`` in the all-gather
+        layout (``halo`` is not read: the MPNN step exchanges the sender
+        projections, as in the JAX package)."""
+        x = batch["x"].detach().cpu().numpy()
+        return partition(x, self._radius(x), False, n_shards, False, axis,
+                         next(self.parameters()).device,
+                         self.graphs.lane_rule)
 
     def _time_variable(self, t, window: int):
         """(B,) time variable of rollout window ``window``: 1D always reads

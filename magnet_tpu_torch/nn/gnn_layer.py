@@ -65,30 +65,40 @@ class MPNNLayer(nn.Module):
         send_side = x @ w_xj.t() - p_up
         return recv_side, send_side
 
-    def forward(self, x, u, pos, variables, graph: CSRGraph, batch_size: int,
-                impl: str = "kernel"):
-        """x (B*N, H), u (B*N, tw), pos (B*N, P), variables (B*N, 1)."""
+    def messages(self, send_side, recv_side, graph: CSRGraph,
+                 impl: str = "kernel"):
+        """The per-receiver sums of the message tail over ``graph``'s edges,
+        (N, H), by the graph's lane (``impl``)."""
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
-        recv_side, send_side = self.project(x, u, pos, variables)
         lin2 = self.message_net_2[0]
         w2 = lin2.weight.t().contiguous()                     # (in, out)
         lane = (lane_of(graph, "mpnn", self.hidden) if impl == "kernel"
                  else impl.removeprefix("kernel_"))
         if lane == "pregathered":
-            sums = fused_mpnn_edge_agg(gather_rows(send_side, graph),
+            return fused_mpnn_edge_agg(gather_rows(send_side, graph),
                                        recv_side, w2, lin2.bias, graph.rowptr)
-        else:
-            fn = (fused_mpnn_edge_agg2r if lane == "gather"
-                  else fused_mpnn_edge_agg2r_plain)
-            sums = fn(send_side, recv_side, w2, lin2.bias, graph.senders,
-                      graph.rowptr)
-        agg = sums / torch.clamp(graph.degree, min=1.0)[:, None]
+        fn = (fused_mpnn_edge_agg2r if lane == "gather"
+              else fused_mpnn_edge_agg2r_plain)
+        return fn(send_side, recv_side, w2, lin2.bias, graph.senders,
+                  graph.rowptr)
+
+    def update(self, x, agg, variables):
+        """The update MLP on (x, mean message, variables), residual when
+        in == out; before the InstanceNorm."""
         upd = torch.cat([x, agg, variables], dim=-1)
         upd = nn.functional.silu(self.update_net_1(upd))
         upd = nn.functional.silu(self.update_net_2(upd))
-        out = x + upd if x.shape[-1] == self.out_features else upd
-        return segment_instance_norm(out, batch_size)
+        return x + upd if x.shape[-1] == self.out_features else upd
+
+    def forward(self, x, u, pos, variables, graph: CSRGraph, batch_size: int,
+                impl: str = "kernel"):
+        """x (B*N, H), u (B*N, tw), pos (B*N, P), variables (B*N, 1)."""
+        recv_side, send_side = self.project(x, u, pos, variables)
+        sums = self.messages(send_side, recv_side, graph, impl)
+        agg = sums / torch.clamp(graph.degree, min=1.0)[:, None]
+        return segment_instance_norm(self.update(x, agg, variables),
+                                     batch_size)
 
 
 class TemporalBundlingDecoder(nn.Sequential):

@@ -91,6 +91,13 @@ def step_lane(graph: CSRGraph, impl: str, hidden: int) -> str:
     return impl.removeprefix("kernel_")
 
 
+def _rows(t, n: int):
+    """t padded with zero rows to n rows: the receiver table of a graph
+    whose receivers are its first rows."""
+    return t if t.shape[0] == n else nn.functional.pad(
+        t, (0, 0, 0, n - t.shape[0]))
+
+
 class GraphEncoder(nn.Module):
     """Independent node and edge embedders, each MLP + LayerNorm."""
 
@@ -185,7 +192,7 @@ class InteractionNetwork(nn.Module):
         s = torch.tensor(e_scale, dtype=dt, device=e0.device)
         return s * pe + (1 - s) * b
 
-    def _forward_bf16(self, x, e0, graph: CSRGraph, e_scale, impl):
+    def _forward_bf16(self, x, e0, graph: CSRGraph, e_scale, impl, n_recv):
         """The bf16 step: x and e0 bf16; the fold, pregathered and pe
         lanes.  In bf16 the lanes round differently, so ``plain`` runs the
         plain versions of the graph's own lane (the sender gather through
@@ -195,7 +202,8 @@ class InteractionNetwork(nn.Module):
         lane = step_lane(graph, impl, w0.shape[0])
         plain = impl == "plain"
         c = self.latent
-        p_xi = x @ w0[:, :c].t().to(self.dtype)                  # (N, H)
+        x_r = x[:n_recv]
+        p_xi = _rows(x_r @ w0[:, :c].t().to(self.dtype), x.shape[0])
         p_xj = x @ w0[:, c:2 * c].t().to(self.dtype)             # (N, H)
         if lane == "pe":
             agg_sum = fused_edge_tail_agg_pe_bf16(
@@ -214,20 +222,29 @@ class InteractionNetwork(nn.Module):
             agg_sum = fused_edge_tail_agg_bf16(
                 e0, we, be, p_xj, p_xi, graph.senders, graph.rowptr, *tail,
                 plain=plain)
-        agg = agg_sum / torch.clamp(graph.degree, min=1.0)[:, None]
-        return x + self.node_fn(torch.cat([agg.to(x.dtype), x], dim=-1))
+        return self._update(x_r, agg_sum, graph)
+
+    def _update(self, x_r, agg_sum, graph: CSRGraph):
+        """The node update of the receiver rows x_r from their sums."""
+        n = x_r.shape[0]
+        agg = agg_sum[:n] / torch.clamp(graph.degree[:n], min=1.0)[:, None]
+        return x_r + self.node_fn(torch.cat([agg.to(x_r.dtype), x_r], dim=-1))
 
     def forward(self, x, e0, graph: CSRGraph, e_scale: float = 1.0,
-                impl: str = "kernel"):
+                impl: str = "kernel", n_recv: int | None = None):
         """x (N, C) node latents; e0 (E, C) step-0 edge latents, the step's
-        edge input being e_scale·e0.  Returns the updated node latents."""
+        edge input being e_scale·e0.  Returns the updated node latents.
+        ``n_recv``: only x's first n_recv rows receive (a shard of a
+        partitioned graph, ``parallel.graph_partition``, whose other rows
+        are the senders it reads); the step returns those rows updated."""
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
         if self.dtype is not None:
-            return self._forward_bf16(x, e0, graph, e_scale, impl)
+            return self._forward_bf16(x, e0, graph, e_scale, impl, n_recv)
         w0 = self.edge_fn[0].linears[0].weight                   # (H, 3C)
         c = self.latent
-        p_xi = x @ w0[:, :c].t()                                 # (N, H)
+        x_r = x[:n_recv]
+        p_xi = _rows(x_r @ w0[:, :c].t(), x.shape[0])            # (N, H)
         p_xj = x @ w0[:, c:2 * c].t()                            # (N, H)
         we, be, *tail = self.edge_weights(e_scale)
         lane = "plain" if impl == "plain" else step_lane(graph, impl,
@@ -246,8 +263,7 @@ class InteractionNetwork(nn.Module):
             h0 = gather_rows(p_xj, graph) + (e0 @ we + be)       # (E, H)
             agg_sum = fused_edge_tail_agg_pregathered(h0, p_xi, graph.rowptr,
                                                       *tail)
-        agg = agg_sum / torch.clamp(graph.degree, min=1.0)[:, None]
-        return x + self.node_fn(torch.cat([agg, x], dim=-1))
+        return self._update(x_r, agg_sum, graph)
 
 
 class GraphProcessor(nn.Module):
