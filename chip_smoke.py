@@ -7,7 +7,7 @@
                                         gnn, gnn2d, fno, no_interaction,
                                         cnn_bf16, cnn2d_bf16, gnn_bf16,
                                         cnn_pe, gnn_pre, par (par_local and
-                                        par_dist), par_dist (alone)
+                                        par_dist), par_dist (alone), tune
 
 Builds the port's seven CUDA sources from the checkout (all eleven TPU
 kernels: the fused GraphNet edge pipeline's forward and backward, each
@@ -43,8 +43,11 @@ MAgNet[CNN] 2D ``kernel_pe`` step at its training graph, which the pe
 lane rule sends to the pre-gathered (64, 32) builds, and data and graph
 parallelism: MAgNet[CNN] 1D, MAgNet[GNN] 1D and MPNN-2D edge-partitioned
 over a graph axis with every shard on the card (each step against the
-whole graph's), and ``Trainer.fit`` over NCCL ranks, one a card, resumed
-from rank 0's checkpoint.
+whole graph's; all-gather, halo, and the halo exchange in flight behind
+the interior edges' kernels; MAgNet[CNN] 1D in bf16 too), and
+``Trainer.fit`` over NCCL ranks, one a card (the all-to-all, the overlap
+split, its ring), resumed from rank 0's checkpoint, and a two-trial
+sweep of ``magnet_tpu_torch.tune``.
 It checks that each path went through its kernels by their launch counts.
 Prints one JSON line per phase (``device``, ``build``, ``kernel``,
 ``slice``, ``kernel_bwd``, ``train``, ``mpnn_kernel``, ``mpnn_kernel_bwd``,
@@ -220,9 +223,20 @@ PAR_MPNN_LAYERS, PAR_DIST_TIMEOUT = 2, 300
 # moves a weight whose gradient is near eps by up to lr for such a change
 # (one bias's update differed by 0.13 of itself on an H100)
 PAR_FIT_EPOCHS, PAR_FIT_RTOL, PAR_UPDATE_L2 = 2, 1e-3, 1e-2
+# par_local's graph with a shard whose boundary region has no edge: B
+# samples of PAR_EMPTY_NODES 1D nodes, the first third apart from the rest,
+# over G = 3; the overlap processor against the halo one on the card, the
+# output and every gradient within TRAIN_GRAD_L2 relative L2 (the same
+# kernels, the sums of a receiver split over two launches)
+PAR_EMPTY_BATCH, PAR_EMPTY_NODES = 2, 3072
+# the tune group: a sweep of TUNE_TRIALS trials of MAgNet[CNN] 1D at its
+# published widths, one epoch each, on the seeded KS source cut to these
+# sizes (one training batch of 32 an epoch)
+TUNE_TRIALS = 2
+TUNE_DATA = {"n_train": 32, "n_val": 8, "n_test": 1, "burn_in": 10.0}
 GROUPS = ("cnn", "mpnn_kernels", "mpnn_paths", "cnn2d", "gnn", "gnn2d",
           "fno", "no_interaction", "cnn_bf16", "cnn2d_bf16", "gnn_bf16",
-          "cnn_pe", "gnn_pre", "par", "par_dist")
+          "cnn_pe", "gnn_pre", "par", "par_dist", "tune")
 
 
 def card() -> str:
@@ -5346,13 +5360,15 @@ def par_loss_and_grads(model, batch, graph) -> dict:
     return out
 
 
-def par_seconds(model, batch, whole, part) -> dict:
+def par_seconds(model, batch, other, part,
+                other_key="seconds_step_whole") -> dict:
     """Host seconds of a training step (loss and backward, device drained)
-    on the whole graph and on the partitioned one, in turns (whole, part,
-    part, whole), both having run once before."""
-    times = {"seconds_step_whole": [], "seconds_step": []}
-    for key, graph in (("seconds_step_whole", whole), ("seconds_step", part),
-                       ("seconds_step", part), ("seconds_step_whole", whole)):
+    on another graph (the whole one, or the halo partition) and on the
+    partitioned one, in turns (other, part, part, other), both having run
+    once before."""
+    times = {other_key: [], "seconds_step": []}
+    for key, graph in ((other_key, other), ("seconds_step", part),
+                       ("seconds_step", part), (other_key, other)):
         times[key].append(timed(lambda: par_train_step(model, batch, graph)))
     return times
 
@@ -5382,9 +5398,129 @@ def par_vs_whole(got: dict, want: dict) -> dict:
 
 
 def par_shards(graph) -> list:
-    """Each shard graph's edge count and lane (both graphs of MAgNet[GNN])."""
+    """Each shard graph's edge count and lane (both graphs of MAgNet[GNN];
+    overlap and ring: each region's, interior then boundary)."""
     parts = (graph.lr, graph.all) if hasattr(graph, "nbr") else (graph,)
     return [{"edges": p.edge_counts(), "lanes": p.lanes()} for p in parts]
+
+
+def par_bf16(dev, model, batch, want: dict) -> dict:
+    """MAgNet[CNN] 1D with ``graph_dtype=bf16`` on ``model``'s weights,
+    G = 2 with the halo exchange, against the whole graph's f32 step
+    ``want`` at the bf16 lane's bounds against f32: the training and the
+    validation loss within BF16_LOSS_RTOL, each gradient within
+    BF16_VS_F32_GRAD_L2 relative L2 or, past it, within BF16_VS_F32_DEEP
+    times the whole-graph bf16 step's distance from ``want``.  The
+    partitioned processor computes in f32, as the JAX package's does: the
+    f32 #8/#9 run on the shard graphs, and no bf16 kernel in the step."""
+    from magnet_tpu_torch.config import MAGNET_CNN
+    from magnet_tpu_torch.models.factory import create_model
+
+    bf = create_model("magnet_cnn", {**MAGNET_CNN, "graph_dtype": "bf16"},
+                      device=dev)
+    bf.load_state_dict(model.state_dict())
+    whole = par_loss_and_grads(bf, batch, bf.build_graph(batch))
+    part = bf.build_graph_partitioned(batch, 2, halo=True)
+    reset_every_launch()
+    got = par_loss_and_grads(bf, batch, part)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in every_launch().items() if v}
+    l2 = {k: rel_l2(got["grads"][k], g) for k, g in want["grads"].items()}
+    l2_whole = {k: rel_l2(whole["grads"][k], g)
+                for k, g in want["grads"].items()}
+    worst = max(l2, key=l2.get)
+    past = {k: [l2[k], l2_whole[k]] for k in l2
+            if l2[k] >= BF16_VS_F32_GRAD_L2
+            and l2[k] > BF16_VS_F32_DEEP * l2_whole[k]}
+    rel = {k: float((got[k] - want[k]).abs() / want[k].abs())
+           for k in ("loss", "val_loss")}
+    fin = all(bool(torch.isfinite(g).all()) for g in got["grads"].values())
+    bf16_launches = {k: v for k, v in counts.items() if "bf16" in k}
+    return {"model": "magnet_cnn", "graph_dtype": "bf16", "graph_shards": 2,
+            "halo": True, "shards": par_shards(part), "launches": counts,
+            "loss": float(got["loss"]), "loss_whole_f32": float(want["loss"]),
+            "loss_whole_bf16": float(whole["loss"]),
+            "loss_rel_err": rel["loss"], "val_loss_rel_err": rel["val_loss"],
+            "loss_rtol": BF16_LOSS_RTOL, "worst_grad_rel_l2": l2[worst],
+            "worst_grad": worst,
+            "worst_grad_rel_l2_whole_bf16": max(l2_whole.values()),
+            "grad_rel_l2_tol": BF16_VS_F32_GRAD_L2,
+            "grad_deep_factor": BF16_VS_F32_DEEP, "grads_past_tol": past,
+            "grads_finite": fin,
+            "ok": (fin and not past and max(rel.values()) <= BF16_LOSS_RTOL
+                   and bool(counts.get("fused_edge_fwd"))
+                   and bool(counts.get("fused_edge_bwd"))
+                   and not bf16_launches)}
+
+
+def par_empty_boundary(dev) -> dict:
+    """MAgNet[CNN] 1D's processor (published widths, seed 0) on a graph
+    whose shard 0 has no boundary edge (``PAR_EMPTY_*``), G = 3: the
+    overlap processor against the halo one, forward and backward, on the
+    card, beside the halo processor against itself run again (the backward
+    kernels' atomics); the region graphs' edges and lanes, and the
+    launches."""
+    from magnet_tpu_torch.config import MAGNET_CNN
+    from magnet_tpu_torch.models.factory import create_model
+    from magnet_tpu_torch.parallel import graph_partition as gp
+    from magnet_tpu_torch.parallel.mesh import LocalGraphAxis
+
+    model = create_model("magnet_cnn", MAGNET_CNN, device=dev, seed=0)
+    n, dx = PAR_EMPTY_NODES, 1.0 / PAR_EMPTY_NODES
+    x = np.arange(n) * dx + np.where(np.arange(n) < n // 3, 0.0, 0.5)
+    pos = np.stack([x, np.zeros_like(x)], -1)[None].repeat(PAR_EMPTY_BATCH,
+                                                           0)
+    raw = gp.radius_edges(pos, 1.5 * dx, True)
+    c = MAGNET_CNN["latent_dim"]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = PAR_EMPTY_BATCH * n
+    nf = torch.randn(rows, c, device=dev, generator=gen)
+    p_tab, q_tab = (torch.randn(rows, c, device=dev, generator=gen)
+                    for _ in range(2))
+    runs = {}
+    for run, mode in (("halo", True), ("halo_again", True),
+                      ("overlap", "overlap")):
+        pg = gp.build_partition_buffers(raw, n, 3, halo=mode)
+        part = gp.partitioned_graph(pg, LocalGraphAxis(3), dev,
+                                    model.graphs.lane_rule)
+        efs = []
+        for sg in part.shards:
+            s, r = sg.edge_endpoints()
+            efs.append(p_tab[s] - q_tab[r])
+        x0 = nf.clone().requires_grad_()
+        model.zero_grad(set_to_none=True)
+        reset_every_launch()
+        y = gp.graphnet_processor(model._processor, x0, efs, part)
+        (y * torch.cos(y)).sum().backward()
+        torch.cuda.synchronize()
+        runs[run] = {"y": y.detach(), "dx": x0.grad,
+                     "grads": {k: p.grad.clone() for k, p in
+                               model._processor.named_parameters()},
+                     "edges": part.edge_counts(), "lanes": part.lanes(),
+                     "launches": {k: v for k, v in every_launch().items()
+                                  if v}}
+    want, got = runs["halo"], runs["overlap"]
+
+    def rel(a, b):
+        return float((a.double() - b.double()).norm()
+                     / b.double().norm().clamp_min(1e-30))
+
+    def worst_of(a, b):
+        l2 = {"y": rel(a["y"], b["y"]), "dx": rel(a["dx"], b["dx"]),
+              **{k: rel(a["grads"][k], g) for k, g in b["grads"].items()}}
+        worst = max(l2, key=l2.get)
+        return l2[worst], worst
+
+    (l2, worst), (again, _) = (worst_of(got, want),
+                               worst_of(runs["halo_again"], want))
+    return {"batch": PAR_EMPTY_BATCH, "nodes": n, "graph_shards": 3,
+            "edges": got["edges"], "lanes": got["lanes"],
+            "edges_halo": want["edges"], "launches": got["launches"],
+            "worst_rel_l2": l2, "worst": worst,
+            "halo_again_worst_rel_l2": again,
+            "rel_l2_tol": TRAIN_GRAD_L2,
+            "ok": (got["edges"][0][1] == 0 and l2 <= TRAIN_GRAD_L2
+                   and bool(got["launches"]))}
 
 
 def par_phases(dev, data, groups) -> tuple[int, list, dict]:
@@ -5393,20 +5529,29 @@ def par_phases(dev, data, groups) -> tuple[int, list, dict]:
     ``par_local``: the single-process graph axis on the card (every shard
     of a sample there, the all-gather and the all-to-all index copies),
     weights from seed 0: MAgNet[CNN] 1D at its published config on the KS
-    batch, G = 2 and 4, all-gather and halo; MAgNet[GNN] 1D at width 128,
-    G = 2, halo; MPNN-2D at PAR_MPNN_LAYERS layers, G = 2.  Each partitioned
-    step (loss, every gradient, validation loss) against the unpartitioned
-    one on the card; the kernels' launches on the shard graphs (#8/#9 at
+    batch, G = 2 and 4, all-gather and halo, and G = 4 overlap;
+    MAgNet[GNN] 1D at width 128, G = 2, halo and overlap; MPNN-2D at
+    PAR_MPNN_LAYERS layers, G = 2.  Each partitioned step (loss, every
+    gradient, validation loss) against the unpartitioned one on the card;
+    the kernels' launches on the shard graphs and region graphs (#8/#9 at
     widths 64 and 128, the MPNN edge kernels of the shards' lane), each
-    shard's edges and lane, the seconds of a step of each.
+    shard's (each region's) edges and lane, the seconds to partition, the
+    seconds of a step of each (the overlap split's in turns with the halo
+    exchange's).  The ring is not run here: in one process it moves the
+    same blocks as the all-to-all (``LocalGraphAxis``).  Then MAgNet[CNN]
+    1D with graph_dtype=bf16, G = 2 halo, against the whole graph's f32
+    step (``par_bf16``), and its processor on a graph with an empty
+    boundary region (``par_empty_boundary``).
 
     ``par_dist`` (alone: group ``par_dist``): ``Trainer.fit`` of
     MAgNet[CNN] 1D over NCCL, one rank a card (``parallel.launch.
     run_ranks``), devices = every card, against this process's fit on the
     global batches (PAR_FIT_RTOL); rank 0's checkpoint read back and
     resumed by this process; with two cards or more also graph_shards = 2
-    with the halo exchange.  No fallback: a rank that fails, or NCCL that
-    does not start, fails the phase."""
+    with the halo exchange, the overlap split and its ring, and with four
+    or more graph_shards = 4 with the overlap split and its ring.  No
+    fallback: a rank that fails, or NCCL that does not start, fails the
+    phase."""
     extra = {}
     if "par" in groups:
         rc, extra = par_local(dev, data)
@@ -5423,47 +5568,73 @@ def par_local(dev, data) -> tuple[int, dict]:
     from magnet_tpu_torch.utils import to_device
 
     cases = [("magnet_cnn", MAGNET_CNN, data["ks_loaders"], g, halo)
-             for g, halo in ((2, False), (2, True), (4, False), (4, True))]
+             for g, halo in ((2, False), (2, True), (4, False), (4, True),
+                             (4, "overlap"))]
     cases += [("magnet_gnn", MAGNET_GNN, data["gnn_loaders"], 2, True),
+              ("magnet_gnn", MAGNET_GNN, data["gnn_loaders"], 2, "overlap"),
               ("mpnn_2d", {**MPNN_2D, "hidden_layer": PAR_MPNN_LAYERS},
                data["b2d_loaders"], 2, False)]
     records, launches, ok = [], {}, True
-    whole = {}
+    whole, parts, models = {}, {}, {}
     for name, hp, loaders, shards, halo in cases:
         if name not in whole:
             # one batch a model (a loader draws new queries every batch)
             model = create_model(name, hp, device=dev, seed=0)
             batch = to_device(next(iter(loaders["train"])), dev)
+            models[name] = model, batch
             whole[name] = par_loss_and_grads(model, batch,
                                              model.build_graph(batch))
         t0 = time.perf_counter()
         part = model.build_graph_partitioned(batch, shards, halo=halo)
         build_s = time.perf_counter() - t0
+        parts[name, shards, halo] = part
         reset_every_launch()
         got = par_loss_and_grads(model, batch, part)
         torch.cuda.synchronize()
         counts = {k: v for k, v in every_launch().items() if v}
         for k, v in counts.items():
             launches[k] = launches.get(k, 0) + v
+        # the overlap split timed in turns with the halo exchange
+        other = (("seconds_step_halo", parts[name, shards, True])
+                 if halo == "overlap"
+                 else ("seconds_step_whole", model.build_graph(batch)))
         rec = {"model": name, "graph_shards": shards, "halo": halo,
                "batch": len(batch[next(iter(batch))]),
                "shards": par_shards(part), "launches": counts,
                "seconds_partition": build_s,
                **par_vs_whole(got, whole[name]),
-               **par_seconds(model, batch, model.build_graph(batch), part)}
+               **par_seconds(model, batch, other[1], part, other[0])}
         ok = ok and rec["ok"] and bool(counts)
         records.append(rec)
+    bf16 = par_bf16(dev, *models["magnet_cnn"], whole["magnet_cnn"])
+    empty = par_empty_boundary(dev)
+    for k, v in (*bf16["launches"].items(), *empty["launches"].items()):
+        launches[k] = launches.get(k, 0) + v
     need = ("fused_edge_fwd", "fused_edge_bwd", "fused_edge_fold128_fwd",
             "fused_edge_fold128_bwd")
     mpnn = [k for k in launches if k.startswith(("fwd_", "bwd_"))]
-    ok = ok and all(launches.get(k) for k in need) and len(mpnn) == 2
-    emit({"phase": "par_local", "cases": records, "launches": launches,
+    ok = (ok and bf16["ok"] and empty["ok"]
+          and all(launches.get(k) for k in need) and len(mpnn) == 2)
+    emit({"phase": "par_local", "cases": records, "bf16": bf16,
+          "empty_boundary": empty, "launches": launches,
           "gpu": torch.cuda.get_device_name(0), "ok": ok})
     smi = card()
     for r in records:
+        other = ("halo exchange" if "seconds_step_halo" in r
+                 else "whole graph")
         print(f"par_local {r['model']} G={r['graph_shards']} "
-              f"halo={r['halo']}: s a step {r['seconds_step']} (whole "
-              f"graph {r['seconds_step_whole']}; {smi})", flush=True)
+              f"halo={r['halo']}: s a step {r['seconds_step']} ({other} "
+              f"{r.get('seconds_step_halo', r.get('seconds_step_whole'))}); "
+              f"s to partition {r['seconds_partition']} ({smi})", flush=True)
+    print(f"par_local magnet_cnn bf16 G=2 halo=True: losses "
+          f"{bf16['loss_rel_err']}, {bf16['val_loss_rel_err']} from the "
+          f"whole graph's f32 step, worst gradient "
+          f"{bf16['worst_grad_rel_l2']} ({bf16['worst_grad']}; whole-graph "
+          f"bf16 {bf16['worst_grad_rel_l2_whole_bf16']}); launches "
+          f"{bf16['launches']} ({smi})", flush=True)
+    print(f"par_local empty boundary: edges {empty['edges']}, worst rel L2 "
+          f"{empty['worst_rel_l2']} ({empty['worst']}; the halo processor "
+          f"run again {empty['halo_again_worst_rel_l2']}; {smi})", flush=True)
     if not ok:
         return 21, {}
     extra = {}
@@ -5515,7 +5686,12 @@ def par_dist(dev, data) -> int:
     one_state = {k: v.cpu().numpy() for k, v in one.model.state_dict().items()}
 
     smi = card()
-    runs = [(n, False)] + ([(n // 2, True)] if n >= 2 else [])
+    # graph = 2 on two cards or more; graph = 4 on four or more, so that
+    # the ring runs several rotations (and their reverse in the backward)
+    runs = ([(n, False)]
+            + [(n // 2, halo) for halo in (True, "overlap", "ring")
+               if n >= 2]
+            + [(n // 4, halo) for halo in ("overlap", "ring") if n >= 4])
     dist_records = []
     for dp, halo in runs:
         with tempfile.TemporaryDirectory() as workdir:
@@ -5580,6 +5756,50 @@ def par_dist(dev, data) -> int:
     ok = all(r["ok"] for r in dist_records)
     emit({"phase": "par_dist", "runs": dist_records, "ok": ok})
     return 0 if ok else 22
+
+
+def tune_phases(dev, data, groups) -> tuple[int, list, dict]:
+    """Phase ``tune``: ``magnet_tpu_torch.tune.main``, TUNE_TRIALS trials of
+    MAgNet[CNN] 1D at its published widths on the seeded KS source
+    (``TUNE_DATA``), one epoch a trial, over model.params.lr=1e-4:1e-2:log,
+    each trial in a work directory of its own under a temporary one.
+    Checks: a finite line a trial, the best their minimum, a directory
+    each, #8/#9 at width 64 launched (the counts set to 0 before the sweep
+    and read after it)."""
+    from magnet_tpu_torch import tune
+
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["model=magnet_cnn", "datamodule.source=synthetic_ks",
+                *[f"datamodule.{k}={v}" for k, v in TUNE_DATA.items()],
+                "trainer.max_epochs=1", f"sweep.n_trials={TUNE_TRIALS}",
+                "name=tune", f"workdir={tmp}/${{name}}",
+                "--space", "model.params.lr=1e-4:1e-2:log"]
+        reset_every_launch()
+        t0 = time.perf_counter()
+        out = tune.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = {k: v for k, v in every_launch().items() if v}
+        dirs = out["workdirs"]
+        own = (len(set(dirs)) == TUNE_TRIALS
+               and all(os.path.exists(os.path.join(d, "metrics.jsonl"))
+                       for d in dirs))
+    vals = [t["val_mae_loss"] for t in out["trials"]]
+    ok = (len(vals) == TUNE_TRIALS and all(np.isfinite(vals))
+          and out["best"]["best_value"] == min(vals) and own
+          and bool(counts.get("fused_edge_fwd"))
+          and bool(counts.get("fused_edge_bwd")))
+    smi = card()
+    emit({"phase": "tune", "trials": out["trials"], "best": out["best"],
+          "workdirs_own": own, "launches": counts, "seconds": seconds,
+          "nvidia_smi": smi, "ok": ok})
+    print(f"tune: {TUNE_TRIALS} trials in {seconds} s ({smi})", flush=True)
+    if not ok:
+        return 23, [], {}
+    return 0, [], {"fused_edge_tail_agg": {
+                       "launches_tune": counts["fused_edge_fwd"]},
+                   "fused_edge_tail_agg_bwd": {
+                       "launches_tune": counts["fused_edge_bwd"]}}
 
 
 def reset_every_launch() -> None:
@@ -6054,7 +6274,8 @@ def main(argv) -> int:
                                 (("gnn_bf16",), gnn_bf16_phases),
                                 (("cnn_pe",), cnn_pe_phases),
                                 (("gnn_pre",), gnn_pre_phases),
-                                (("par", "par_dist"), par_phases)):
+                                (("par", "par_dist"), par_phases),
+                                (("tune",), tune_phases)):
         if set(group_names) & set(groups):
             rc, entries, more = phases(dev, data, groups)
             kernels += entries

@@ -16,7 +16,8 @@ which stands in for the files; ``num_workers`` is not ported),
 ported (``steps_per_call``, ``precision``, ``log_every``), with the JAX
 ``run.py``'s ``graph_shards`` and ``graph_halo``
 (``magnet_tpu_torch.run`` launches the mesh),
-``CALLBACKS`` the early-stopping patience of ``callbacks/default.yaml``.
+``CALLBACKS`` the early-stopping patience of ``callbacks/default.yaml``,
+``SWEEP`` the root config's ``sweep`` keys.
 ``HEAT_TEST`` is the datamodule's test split (Heat).
 """
 from __future__ import annotations
@@ -328,7 +329,9 @@ TRAINER = {
     "max_epochs": 100,
     "devices": 1,           # dp size; -1: every rank the graph axis leaves
     "graph_shards": 1,      # graph axis size: each sample's graph split
-    "graph_halo": False,    # false: all-gather; true / fused: halo exchange
+    "graph_halo": False,    # false: all-gather; true / fused: halo exchange;
+                            # overlap: halo behind the interior edges; ring:
+                            # overlap, the exchange as G - 1 rotations
     "check_val_every": 1,
     "skip_nonfinite": False,
     "grad_clip": 0.0,
@@ -337,6 +340,10 @@ TRAINER = {
 }
 
 CALLBACKS = {"patience": 35}
+
+#: ``magnet_tpu_torch.tune``'s sweep (``magnet_tpu/config/defaults/
+#: config.yaml:11-14``): trials, and the checkpoint metric it minimizes
+SWEEP = {"n_trials": 15, "direction": "minimize", "metric": "val_mae_loss"}
 
 RUN = {"seed": 42, "name": "run", "ckpt_path": "", "workdir": "runs/${name}",
        "device": "cuda"}
@@ -422,13 +429,13 @@ def compose(argv: list[str]) -> dict:
     (``magnet_cnn`` by default) and ``datamodule=<name>`` (the model's own
     by default) choose the defaults; then ``model.params.<k>`` (or
     ``model.<k>``), ``datamodule.<k>``, ``trainer.<k>``,
-    ``callbacks.early_stopping.patience`` and the top-level ``seed``,
-    ``name``, ``ckpt_path``, ``workdir``, ``device``.  The model's name is
-    returned as ``model_name``."""
+    ``callbacks.early_stopping.patience``, ``sweep.<k>`` and the top-level
+    ``seed``, ``name``, ``ckpt_path``, ``workdir``, ``device``.  The
+    model's name is returned as ``model_name``."""
     model_name, argv = split_model(argv)
     dm_defaults, rest = split_datamodule(model_name, argv)
     sections = {"model": MODELS[model_name][0], "datamodule": dm_defaults,
-                "trainer": TRAINER, "callbacks": CALLBACKS}
+                "trainer": TRAINER, "callbacks": CALLBACKS, "sweep": SWEEP}
     split: dict[str, list[str]] = {k: [] for k in (*sections, "run")}
     for arg in rest:
         key, _, val = arg.partition("=")

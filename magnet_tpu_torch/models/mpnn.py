@@ -125,8 +125,9 @@ class MPNN(PartitionedGraphMixin, MPNNCore):
     def build_graph_partitioned(self, batch, n_shards: int, halo=False,
                                 axis=None) -> PartitionedGraph:
         """The radius graph partitioned over ``n_shards`` in the all-gather
-        layout (``halo`` is not read: the MPNN step exchanges the sender
-        projections, as in the JAX package)."""
+        layout whatever ``halo`` is (True, "fused", "overlap", "ring"
+        alike: the MPNN step exchanges the sender projections, as in the
+        JAX package, ``magnet_tpu/models/mpnn.py:217-232``)."""
         x = batch["x"].detach().cpu().numpy()
         return partition(x, self._radius(x), False, n_shards, False, axis,
                          next(self.parameters()).device,

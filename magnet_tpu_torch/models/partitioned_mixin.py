@@ -46,8 +46,10 @@ def edge_features(feats, coords, senders, receivers):
 
 
 def partitioned_edge_feats(feats, coords, part: PartitionedGraph) -> list:
-    """Each held shard's edge features, in its graph's edge order."""
-    return [edge_features(feats, coords, sg.senders_glob, sg.receivers_glob)
+    """Each held shard's edge features, in its graph's edge order (overlap
+    and ring: the interior region's, then the boundary's, as the JAX
+    package's interior/boundary pair)."""
+    return [edge_features(feats, coords, *sg.edge_endpoints())
             for sg in part.shards]
 
 
@@ -83,7 +85,7 @@ def partition(coords: np.ndarray, radius: float, loop: bool, n_shards: int,
     raw = radius_edges(coords, radius, loop)
     pg = build_partition_buffers(raw, coords.shape[1], n_shards, halo=halo)
     return partitioned_graph(pg, axis or LocalGraphAxis(n_shards), device,
-                             lane_rule)
+                             lane_rule, ring=halo == "ring")
 
 
 class PartitionedGraphMixin:
@@ -96,8 +98,10 @@ class PartitionedGraphMixin:
                                 axis=None) -> PartitionedGraph:
         """The batch's radius graph (self loops) partitioned over
         ``n_shards``; ``halo`` False (all-gather), True or "fused" (the
-        halo exchange); ``axis`` the graph axis (``parallel.mesh``; None:
-        all shards here)."""
+        halo exchange), "overlap" (the halo exchange in flight behind the
+        interior edges) or "ring" (overlap, the exchange as rotations);
+        ``axis`` the graph axis (``parallel.mesh``; None: all shards
+        here)."""
         return partition(self._graph_coords(batch), self.radius, True,
                          n_shards, halo, axis, next(self.parameters()).device,
                          self.graphs.lane_rule)

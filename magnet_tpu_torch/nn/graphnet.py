@@ -192,8 +192,9 @@ class InteractionNetwork(nn.Module):
         s = torch.tensor(e_scale, dtype=dt, device=e0.device)
         return s * pe + (1 - s) * b
 
-    def _forward_bf16(self, x, e0, graph: CSRGraph, e_scale, impl, n_recv):
-        """The bf16 step: x and e0 bf16; the fold, pregathered and pe
+    def _edge_sums_bf16(self, x, e0, graph: CSRGraph, e_scale, impl,
+                        n_recv):
+        """The bf16 step's sums: x and e0 bf16; the fold, pregathered and pe
         lanes.  In bf16 the lanes round differently, so ``plain`` runs the
         plain versions of the graph's own lane (the sender gather through
         f32, so that autograd's ``index_add_`` sums its backward in f32 and
@@ -222,25 +223,29 @@ class InteractionNetwork(nn.Module):
             agg_sum = fused_edge_tail_agg_bf16(
                 e0, we, be, p_xj, p_xi, graph.senders, graph.rowptr, *tail,
                 plain=plain)
-        return self._update(x_r, agg_sum, graph)
+        return agg_sum
 
-    def _update(self, x_r, agg_sum, graph: CSRGraph):
-        """The node update of the receiver rows x_r from their sums."""
-        n = x_r.shape[0]
-        agg = agg_sum[:n] / torch.clamp(graph.degree[:n], min=1.0)[:, None]
+    def node_update(self, x_r, agg_sum, degree):
+        """The node update of the receiver rows x_r (n, C) from their sums
+        agg_sum (n, C) f32 and their in-degree (n,), clamped at 1."""
+        agg = agg_sum / torch.clamp(degree, min=1.0)[:, None]
         return x_r + self.node_fn(torch.cat([agg.to(x_r.dtype), x_r], dim=-1))
 
-    def forward(self, x, e0, graph: CSRGraph, e_scale: float = 1.0,
-                impl: str = "kernel", n_recv: int | None = None):
-        """x (N, C) node latents; e0 (E, C) step-0 edge latents, the step's
-        edge input being e_scale·e0.  Returns the updated node latents.
-        ``n_recv``: only x's first n_recv rows receive (a shard of a
-        partitioned graph, ``parallel.graph_partition``, whose other rows
-        are the senders it reads); the step returns those rows updated."""
+    def edge_sums(self, x, e0, graph: CSRGraph, e_scale: float = 1.0,
+                  impl: str = "kernel", n_recv: int | None = None):
+        """The fused edge kernel's per-receiver sums of the step's edge
+        messages on ``graph`` (``forward``'s arguments): (n_recv, C) f32.
+        A graph with no edges (a region of a partitioned graph,
+        ``parallel.graph_partition.overlap_step``) sums to zero; no kernel
+        runs for it."""
         if impl not in IMPLS:
             raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+        n = x.shape[0] if n_recv is None else n_recv
+        if graph.n_edge == 0:
+            return x.new_zeros(n, self.latent, dtype=torch.float32)
         if self.dtype is not None:
-            return self._forward_bf16(x, e0, graph, e_scale, impl, n_recv)
+            return self._edge_sums_bf16(x, e0, graph, e_scale, impl,
+                                        n_recv)[:n]
         w0 = self.edge_fn[0].linears[0].weight                   # (H, 3C)
         c = self.latent
         x_r = x[:n_recv]
@@ -263,7 +268,30 @@ class InteractionNetwork(nn.Module):
             h0 = gather_rows(p_xj, graph) + (e0 @ we + be)       # (E, H)
             agg_sum = fused_edge_tail_agg_pregathered(h0, p_xi, graph.rowptr,
                                                       *tail)
-        return self._update(x_r, agg_sum, graph)
+        return agg_sum[:n]
+
+    def forward(self, x, e0, graph: CSRGraph, e_scale: float = 1.0,
+                impl: str = "kernel", n_recv: int | None = None):
+        """x (N, C) node latents; e0 (E, C) step-0 edge latents, the step's
+        edge input being e_scale·e0.  Returns the updated node latents.
+        ``n_recv``: only x's first n_recv rows receive (a shard of a
+        partitioned graph, ``parallel.graph_partition``, whose other rows
+        are the senders it reads); the step returns those rows updated."""
+        sums = self.edge_sums(x, e0, graph, e_scale, impl, n_recv)
+        n = sums.shape[0]
+        return self.node_update(x[:n], sums, graph.degree[:n])
+
+    def f32_twin(self) -> "InteractionNetwork":
+        """This step as an f32 module over the same parameters (not a
+        child of this one: no state of its own)."""
+        lin = self.edge_fn[0].linears
+        with torch.device("meta"):
+            twin = InteractionNetwork(self.latent, len(lin) - 1,
+                                      lin[0].weight.shape[0])
+        for name, p in self.named_parameters():
+            owner, _, leaf = name.rpartition(".")
+            setattr(twin.get_submodule(owner), leaf, p)
+        return twin
 
 
 class GraphProcessor(nn.Module):
@@ -278,6 +306,19 @@ class GraphProcessor(nn.Module):
         self.gnn_stacks = nn.ModuleList(
             InteractionNetwork(latent, mlp_layers, mlp_hidden, dtype)
             for _ in range(num_steps))
+        self._f32 = (), []
+
+    def f32_steps(self) -> list:
+        """The steps in f32 over the same parameters: ``gnn_stacks`` itself
+        without a compute dtype, else each step's ``f32_twin`` (kept while
+        the parameters are the same tensors).  The graph-partitioned
+        processor runs these (``parallel.graph_partition``)."""
+        if self.dtype is None:
+            return list(self.gnn_stacks)
+        key = tuple(map(id, self.parameters()))
+        if self._f32[0] != key:
+            self._f32 = key, [step.f32_twin() for step in self.gnn_stacks]
+        return self._f32[1]
 
     def forward(self, x, e0, graph: CSRGraph, impl: str = "kernel"):
         """Returns the node latents.  The reference's edge output,

@@ -16,8 +16,12 @@ Host side (numpy, a copy of the JAX package's ``:38-108, 209-284,
 bit.  ``graph_halo="fused"`` is the JAX package's blocked TPU layout of the
 same halo exchange (``build_partition_buffers_fused``); the port's shard
 graph is CSR in every case, so "fused" builds and runs the halo buffers.
-``"overlap"`` (the interior/boundary split) and the ppermute ring of the
-JAX package are not ported (ROADMAP A.6) and raise.
+``"overlap"`` is the halo exchange with each shard's edges split into an
+interior region (local senders) and a boundary region (halo senders,
+``partition_graph_halo_overlap``, ``:304-439, 980-1027``); ``"ring"`` is
+the same split with the all-to-all decomposed into G - 1 rotations (the
+JAX package's ``MAGNET_TPU_HALO_RING=1``, ``_halo_exchange_ring``) and
+builds the same buffers.
 
 Device side: each shard's buffers become a ``ShardGraph``, a CSR graph
 flattened over the batch whose receivers are the shard's B * ns local
@@ -29,7 +33,20 @@ the lane ``ops.graph.lane_of`` gives it as for any graph
 (``nn.graphnet.InteractionNetwork.forward`` with ``n_recv``, and the MPNN
 layer's ``messages``).  ``graphnet_processor`` and ``mpnn_processor`` run
 the step loop over the shards a process holds (``parallel.mesh``: one a
-rank, or all of them on one device).
+rank, or all of them on one device).  Under ``overlap`` / ``ring`` a shard
+has two CSR region graphs: the interior one, square over its own block,
+and the boundary one over its own block and the halo rows; each step
+starts the exchange, runs the interior edges' kernel while it is in
+flight, finishes it and runs the boundary edges' kernel, then divides the
+two regions' sums by the total in-degree (``interaction_step_halo_overlap``).
+
+A GraphNet model's partitioned steps compute in f32 whatever its
+``graph_dtype``: the JAX package builds the partitioned processor's
+``InteractionNetwork`` with no dtype (``magnet_tpu/models/
+partitioned_mixin.py:46-49, 73-76``), so flax promotes the bf16 latents
+against the f32 parameters.  ``graphnet_processor`` casts the latents up at
+its entry and runs ``GraphProcessor.f32_steps`` (the f32 kernels' lane on
+each shard graph).
 """
 from __future__ import annotations
 
@@ -48,10 +65,12 @@ from magnet_tpu_torch.ops.graph import (
     tile_layout,
 )
 
-#: the ``graph_halo`` values with a port: all-gather, halo, and the JAX
-#: package's blocked layout of the halo exchange (run as ``True``)
-HALO_MODES = (False, True, "fused")
-NOT_PORTED = ("overlap", "ring")
+#: the ``graph_halo`` values: all-gather, halo, the JAX package's blocked
+#: layout of the halo exchange (run as ``True``), the interior/boundary
+#: overlap split, and that split with the exchange as a ring of rotations
+HALO_MODES = (False, True, "fused", "overlap", "ring")
+#: the modes that build the overlap buffers
+OVERLAP_MODES = ("overlap", "ring")
 
 
 def round_up(x: int, m: int) -> int:
@@ -59,11 +78,7 @@ def round_up(x: int, m: int) -> int:
 
 
 def check_halo(halo):
-    """``halo`` if it is a ported mode, else raise."""
-    if halo in NOT_PORTED:
-        raise NotImplementedError(
-            f"graph_halo={halo!r} (the interior/boundary overlap split and "
-            "its ppermute ring) is not ported: ROADMAP A.6")
+    """``halo`` if it is one of ``HALO_MODES``, else raise."""
     if halo not in HALO_MODES:
         raise ValueError(f"graph_halo must be one of {HALO_MODES}, got "
                          f"{halo!r}")
@@ -200,15 +215,133 @@ def partition_graph_halo(senders: np.ndarray, receivers: np.ndarray,
         halo_idx=halo_idx, senders_remap=remap)
 
 
+@dataclasses.dataclass
+class HaloOverlapGraph(HaloGraph):
+    """HaloGraph with the edge buffer repacked [interior | boundary].
+
+    e_int:  static split: edges [0, e_int) have local senders
+            (senders_remap < ns), edges [e_int, E) reference halo rows.
+    t_int:  (G, ns, K_i) int32, ids into the interior region (pad e_int).
+    t_bnd:  (G, ns, K_b) int32, ids into the boundary region, 0-based
+            within it (pad E - e_int).
+    degree: (G, ns, 1) float32, TOTAL in-degree over both regions.
+    """
+
+    e_int: int = 0
+    t_int: np.ndarray | None = None
+    t_bnd: np.ndarray | None = None
+    degree: np.ndarray | None = None
+
+
+def _region_table(recv_loc, ns, e_pad, k_max=None):
+    """Receiver table for one shard region: local receiver ids (E,) ->
+    (ns, K) ids; padded slots = e_pad."""
+    e = len(recv_loc)
+    k_req = int(np.bincount(recv_loc, minlength=ns).max()) if e else 0
+    if k_max is None:
+        k_max = max(k_req, 1)
+    assert k_req <= k_max
+    tbl = np.full((ns, k_max), e_pad, np.int32)
+    if e:
+        order = np.argsort(recv_loc, kind="stable")
+        rs = recv_loc[order]
+        starts = np.zeros(ns + 1, np.int64)
+        np.cumsum(np.bincount(rs, minlength=ns), out=starts[1:])
+        slot = np.arange(e) - starts[rs]
+        tbl[rs, slot] = order
+    return tbl, k_req
+
+
+def partition_graph_halo_overlap(senders: np.ndarray, receivers: np.ndarray,
+                                 n_node: int, n_shards: int,
+                                 e_int: int | None = None,
+                                 e_bnd: int | None = None,
+                                 k_int: int | None = None,
+                                 k_bnd: int | None = None,
+                                 h_pad: int | None = None) -> HaloOverlapGraph:
+    """``partition_graph_halo`` with each shard's edges repacked into an
+    interior region (local senders) and a boundary region (halo senders),
+    each padded to a multiple of 8 edges, at least 8."""
+    hg = partition_graph_halo(senders, receivers, n_node, n_shards,
+                              h_pad=h_pad)
+    g = n_shards
+    ns = hg.n_node_pad // g
+
+    sel_int, sel_bnd = [], []
+    for d in range(g):
+        m = hg.edge_mask[d] > 0
+        rem = hg.senders_remap[d]
+        sel_int.append(np.nonzero(m & (rem < ns))[0])
+        sel_bnd.append(np.nonzero(m & (rem >= ns))[0])
+    if e_int is None:
+        e_int = max(8, max(len(s) for s in sel_int))
+        e_int = ((e_int + 7) // 8) * 8
+    if e_bnd is None:
+        e_bnd = max(8, max(len(s) for s in sel_bnd))
+        e_bnd = ((e_bnd + 7) // 8) * 8
+    assert max(len(s) for s in sel_int) <= e_int
+    assert max(len(s) for s in sel_bnd) <= e_bnd
+    e_tot = e_int + e_bnd
+
+    S = np.zeros((g, e_tot), np.int32)        # global sender (edge feats)
+    R = np.zeros((g, e_tot), np.int32)        # local receiver
+    M = np.zeros((g, e_tot), np.float32)
+    REM = np.zeros((g, e_tot), np.int32)      # remapped sender index
+    ti_list, tb_list = [], []
+    ki_req = kb_req = 1
+    for d in range(g):
+        si, sb = sel_int[d], sel_bnd[d]
+        ni, nb = len(si), len(sb)
+        S[d, :ni] = hg.senders[d, si]
+        R[d, :ni] = hg.receivers_loc[d, si]
+        M[d, :ni] = 1.0
+        REM[d, :ni] = hg.senders_remap[d, si]
+        S[d, e_int:e_int + nb] = hg.senders[d, sb]
+        R[d, e_int:e_int + nb] = hg.receivers_loc[d, sb]
+        M[d, e_int:e_int + nb] = 1.0
+        REM[d, e_int:e_int + nb] = hg.senders_remap[d, sb] - ns
+        ti, ki = _region_table(hg.receivers_loc[d, si], ns, e_int, None)
+        tb, kb = _region_table(hg.receivers_loc[d, sb], ns, e_bnd, None)
+        ti_list.append(ti)
+        tb_list.append(tb)
+        ki_req = max(ki_req, ki)
+        kb_req = max(kb_req, kb)
+    if k_int is None:
+        k_int = ki_req
+    if k_bnd is None:
+        k_bnd = kb_req
+    assert ki_req <= k_int and kb_req <= k_bnd
+    TI = np.stack([
+        np.pad(t, ((0, 0), (0, k_int - t.shape[1])), constant_values=e_int)
+        for t in ti_list])
+    TB = np.stack([
+        np.pad(t, ((0, 0), (0, k_bnd - t.shape[1])), constant_values=e_bnd)
+        for t in tb_list])
+    deg = np.zeros((g, ns, 1), np.float32)
+    for d in range(g):
+        real = M[d] > 0
+        deg[d, :, 0] = np.bincount(R[d][real], minlength=ns)
+
+    return HaloOverlapGraph(
+        senders=S, receivers_loc=R, edge_mask=M,
+        recv_edge_ids=hg.recv_edge_ids, n_node_pad=hg.n_node_pad,
+        n_node=hg.n_node, halo_idx=hg.halo_idx, senders_remap=REM,
+        e_int=int(e_int), t_int=TI, t_bnd=TB, degree=deg)
+
+
 def build_partition_buffers(raw, n_node: int, n_shards: int, halo=False):
     """Batch a list of per-sample raw edge lists [(senders, receivers),
     ...] into batch-uniform fixed-shape partition buffers (numpy; the JAX
     package's ``pg`` dict, key for key).  ``halo``: False = all-gather;
     True = halo all-to-all; "fused" = the JAX package's blocked layout of
     the halo exchange, built here as True (the port's shard graphs are CSR
-    whatever the layout)."""
-    halo = bool(check_halo(halo))
+    whatever the layout); "overlap" and "ring" = the interior/boundary
+    split (``_build_overlap_buffers``)."""
+    halo = check_halo(halo)
     bsz = len(raw)
+    if halo in OVERLAP_MODES:
+        return _build_overlap_buffers(raw, n_node, n_shards, bsz)
+    halo = bool(halo)
     e_shard = k_max = 1
     for s, t in raw:
         sg = partition_graph(s, t, n_node, n_shards)
@@ -252,6 +385,49 @@ def build_partition_buffers(raw, n_node: int, n_shards: int, halo=False):
     return out
 
 
+def _build_overlap_buffers(raw, n_node, n_shards, bsz):
+    """Two-pass [interior | boundary] partition: measure per-sample sizes,
+    then rebuild batch-uniform."""
+    part = partition_graph_halo_overlap
+    probe = [part(s, t, n_node, n_shards) for s, t in raw]
+    e_int = max(g.e_int for g in probe)
+    e_bnd = max(g.senders.shape[1] - g.e_int for g in probe)
+    k_int = max(g.t_int.shape[2] for g in probe)
+    k_bnd = max(g.t_bnd.shape[2] for g in probe)
+    h_pad = max(g.halo_idx.shape[2] for g in probe)
+    sgs = [part(s, t, n_node, n_shards, e_int=e_int, e_bnd=e_bnd,
+                k_int=k_int, k_bnd=k_bnd, h_pad=h_pad)
+           for s, t in raw]
+    ns = sgs[0].n_node_pad // n_shards
+    shard_off = (np.arange(n_shards, dtype=np.int32) * ns)[None, :, None]
+    senders = np.stack([g.senders for g in sgs])      # (B, G, Ei+Eb)
+    recv_loc = np.stack([g.receivers_loc for g in sgs])
+    remap = np.stack([g.senders_remap for g in sgs])
+    mask = np.stack([g.edge_mask for g in sgs])
+    recv_glob = recv_loc + shard_off
+    c = e_int
+    return {
+        "remap_int": remap[:, :, :c],
+        "recv_int": recv_loc[:, :, :c],
+        "mask_int": mask[:, :, :c],
+        "t_int": np.stack([g.t_int for g in sgs]),
+        "remap_bnd": remap[:, :, c:],
+        "recv_bnd": recv_loc[:, :, c:],
+        "mask_bnd": mask[:, :, c:],
+        "t_bnd": np.stack([g.t_bnd for g in sgs]),
+        "degree": np.stack([g.degree for g in sgs]),
+        "halo_idx": np.stack([g.halo_idx for g in sgs]),
+        # per-region GLOBAL edge endpoints for edge-feature builds
+        "senders_flat_int": senders[:, :, :c].reshape(bsz, -1),
+        "receivers_flat_int": recv_glob[:, :, :c].reshape(bsz, -1),
+        "senders_flat_bnd": senders[:, :, c:].reshape(bsz, -1),
+        "receivers_flat_bnd": recv_glob[:, :, c:].reshape(bsz, -1),
+        "n_node": n_node,
+        "n_node_pad": sgs[0].n_node_pad,
+        "n_shards": n_shards,
+    }
+
+
 def radius_edges(pos: np.ndarray, r: float, loop: bool):
     """Per-sample radius graphs of pos (B, N, D): [(senders, receivers),
     ...] int32, receiver-sorted, senders ascending (``radius_graph``'s)."""
@@ -267,17 +443,31 @@ def radius_edges(pos: np.ndarray, r: float, loop: bool):
 
 
 @dataclasses.dataclass
+class Region:
+    """A region graph of an overlap shard: its CSR graph, and each edge's
+    endpoints as rows b * n_node + node of the batch-flattened nodes."""
+
+    graph: CSRGraph
+    senders_glob: torch.Tensor
+    receivers_glob: torch.Tensor
+
+
+@dataclasses.dataclass
 class ShardGraph:
     """One shard's graph flattened over the batch.
 
     graph: CSR over the shard's sender table (all-gather: the G blocks of
       B * ns rows, its own first, then the next shards in order; halo: its
-      own block, then B * h_pad rows from each source shard), square over
-      it; the receivers are its first ``n_recv`` = B * ns rows.
+      own block, then B * h_pad rows from each source shard; overlap: the
+      interior region, square over its own block), square over it; the
+      receivers are its first ``n_recv`` = B * ns rows.
     senders_glob, receivers_glob: (E,) int64, each edge's endpoints as rows
       b * n_node + node of the batch-flattened nodes (for edge features).
-    send_idx: halo only, for each destination shard the (B * h_pad,) rows
-      of the local block it is sent.
+    send_idx: halo and overlap, for each destination shard the (B * h_pad,)
+      rows of the local block it is sent.
+    boundary: overlap only, the boundary region: CSR over the halo
+      layout's table (own block, then the halo rows), its receivers the
+      first B * ns rows.
     """
 
     shard: int
@@ -286,12 +476,25 @@ class ShardGraph:
     senders_glob: torch.Tensor
     receivers_glob: torch.Tensor
     send_idx: Optional[list] = None
+    boundary: Optional[Region] = None
+
+    def edge_endpoints(self) -> tuple:
+        """(senders, receivers) of every edge in the order of the edge
+        latents the processor takes: the interior edges, then the
+        boundary's."""
+        if self.boundary is None:
+            return self.senders_glob, self.receivers_glob
+        return (torch.cat([self.senders_glob, self.boundary.senders_glob]),
+                torch.cat([self.receivers_glob,
+                           self.boundary.receivers_glob]))
 
 
 @dataclasses.dataclass
 class PartitionedGraph:
     """A batch's graph partitioned over ``axis`` (``parallel.mesh``): the
-    shards this process holds, and the sizes every shard shares."""
+    shards this process holds, the sizes every shard shares, and the
+    exchange of sender rows (``all_gather``, ``halo``, ``overlap`` or
+    ``ring``)."""
 
     shards: list
     axis: object
@@ -299,13 +502,52 @@ class PartitionedGraph:
     n_node: int
     ns: int
     batch: int
-    halo: bool
+    exchange: str
+
+    @property
+    def halo(self) -> bool:
+        return self.exchange != "all_gather"
 
     def lanes(self) -> list:
-        return [sg.graph.lane for sg in self.shards]
+        """Each held shard graph's lane; overlap: (interior, boundary)."""
+        return [sg.graph.lane if sg.boundary is None
+                else (sg.graph.lane, sg.boundary.graph.lane)
+                for sg in self.shards]
 
     def edge_counts(self) -> list:
-        return [sg.graph.n_edge for sg in self.shards]
+        """Each held shard graph's edges; overlap: (interior, boundary)."""
+        return [sg.graph.n_edge if sg.boundary is None
+                else (sg.graph.n_edge, sg.boundary.graph.n_edge)
+                for sg in self.shards]
+
+
+def _region(snd, rcv, sglob, rglob, samples, n_tab: int, n_local: int,
+            device, lane_rule) -> Region:
+    """A CSR region graph over a table of ``n_tab`` rows from per-sample
+    lists of table rows (senders ``snd``, receivers ``rcv``) and global
+    endpoints, grouped by receiver, each receiver's edges in the buffers'
+    order; its tile layout from ``samples`` over ``n_local`` nodes a sample,
+    its lane from ``lane_rule``."""
+    order = np.argsort(np.concatenate(rcv), kind="stable")
+    snd, rcv, sglob, rglob = (np.concatenate(a)[order]
+                              for a in (snd, rcv, sglob, rglob))
+    graph = csr_from_edges(torch.from_numpy(snd), torch.from_numpy(rcv),
+                           n_tab, layout=tile_layout(samples, n_local))
+    if lane_rule is not None:
+        graph.lane = lane_of(graph, *lane_rule)
+    return Region(graph.to(device), torch.from_numpy(sglob).to(device),
+                  torch.from_numpy(rglob).to(device))
+
+
+def _send_idx(pg: dict, g: int, device) -> list:
+    """For each destination shard, the rows of shard g's block (B * ns) it
+    is sent: (B * h_pad,) int64 each."""
+    bsz = pg["halo_idx"].shape[0]
+    ns = pg["n_node_pad"] // pg["n_shards"]
+    base = (np.arange(bsz) * ns)[:, None]
+    return [torch.from_numpy((base + pg["halo_idx"][:, g, d])
+                             .reshape(-1).astype(np.int64)).to(device)
+            for d in range(pg["n_shards"])]
 
 
 def _shard_graph(pg: dict, g: int, halo: bool, device,
@@ -335,41 +577,77 @@ def _shard_graph(pg: dict, g: int, halo: bool, device,
         sglob.append(b * n_node + s)
         rglob.append(b * n_node + g * ns + r)
     n_tab = bsz * ns + (G * bsz * h_pad if halo else (G - 1) * bsz * ns)
-    # CSR: grouped by receiver, each receiver's edges in the buffers' order
-    order = np.argsort(np.concatenate(rcv), kind="stable")
-    snd, rcv, sglob, rglob = (np.concatenate(a)[order]
-                              for a in (snd, rcv, sglob, rglob))
-    graph = csr_from_edges(
-        torch.from_numpy(snd), torch.from_numpy(rcv), n_tab,
-        layout=tile_layout(samples, ns + G * h_pad if halo else G * ns))
-    if lane_rule is not None:
-        graph.lane = lane_of(graph, *lane_rule)
-    send_idx = None
-    if halo:
-        base = (np.arange(bsz) * ns)[:, None]
-        send_idx = [torch.from_numpy((base + pg["halo_idx"][:, g, d])
-                                     .reshape(-1).astype(np.int64)).to(device)
-                    for d in range(G)]
-    return ShardGraph(g, graph.to(device), bsz * ns,
-                      torch.from_numpy(sglob).to(device),
-                      torch.from_numpy(rglob).to(device), send_idx)
+    reg = _region(snd, rcv, sglob, rglob, samples, n_tab,
+                  ns + G * h_pad if halo else G * ns, device, lane_rule)
+    return ShardGraph(g, reg.graph, bsz * ns, reg.senders_glob,
+                      reg.receivers_glob,
+                      _send_idx(pg, g, device) if halo else None)
 
 
-def partitioned_graph(pg: dict, axis, device="cpu",
-                      lane_rule=None) -> PartitionedGraph:
+def _overlap_shard_graph(pg: dict, g: int, device, lane_rule) -> ShardGraph:
+    """Shard ``g``'s interior and boundary region graphs from the overlap
+    buffers ``pg``: the interior over its own block (B * ns rows), the
+    boundary over the halo layout's table (own block, then B * h_pad rows
+    from each source shard)."""
+    G, n_node = pg["n_shards"], pg["n_node"]
+    bsz = pg["remap_int"].shape[0]
+    ns = pg["n_node_pad"] // G
+    h_pad = pg["halo_idx"].shape[-1]
+    regions = []
+    for key in ("int", "bnd"):
+        snd, rcv, sglob, rglob, samples = [], [], [], [], []
+        glob = pg[f"senders_flat_{key}"].reshape(bsz, G, -1)
+        for b in range(bsz):
+            sel = pg[f"mask_{key}"][b, g] > 0
+            rem = pg[f"remap_{key}"][b, g, sel].astype(np.int64)
+            r = pg[f"recv_{key}"][b, g, sel].astype(np.int64)
+            if key == "int":
+                snd.append(b * ns + rem)
+                samples.append((rem, r))
+            else:
+                src, slot = np.divmod(rem, h_pad)
+                snd.append(bsz * ns + src * bsz * h_pad + b * h_pad + slot)
+                samples.append((ns + rem, r))
+            rcv.append(b * ns + r)
+            sglob.append(b * n_node + glob[b, g, sel].astype(np.int64))
+            rglob.append(b * n_node + g * ns + r)
+        n_tab, n_local = ((bsz * ns, ns) if key == "int" else
+                          (bsz * ns + G * bsz * h_pad, ns + G * h_pad))
+        regions.append(_region(snd, rcv, sglob, rglob, samples, n_tab,
+                               n_local, device, lane_rule))
+    interior, boundary = regions
+    return ShardGraph(g, interior.graph, bsz * ns, interior.senders_glob,
+                      interior.receivers_glob, _send_idx(pg, g, device),
+                      boundary)
+
+
+def partitioned_graph(pg: dict, axis, device="cpu", lane_rule=None,
+                      ring: bool = False) -> PartitionedGraph:
     """The shards of the buffers ``pg`` that ``axis`` holds, on ``device``;
-    ``lane_rule`` (family, hidden) gives each shard graph its layer's
-    lane."""
+    ``lane_rule`` (family, hidden) gives each shard graph (each region
+    graph) its layer's lane; ``ring``: overlap buffers whose exchange runs
+    as the ring of rotations."""
     if axis.size != pg["n_shards"]:
         raise ValueError(f"the buffers hold {pg['n_shards']} shards, the "
                          f"graph axis {axis.size}")
-    halo = "halo_idx" in pg
+    overlap = "t_int" in pg
+    if ring and not overlap:
+        raise ValueError("the ring exchange runs on the overlap buffers "
+                         "(graph_halo='ring')")
+    if overlap:
+        exchange = "ring" if ring else "overlap"
+        shards = [_overlap_shard_graph(pg, g, device, lane_rule)
+                  for g in axis.shards]
+    else:
+        halo = "halo_idx" in pg
+        exchange = "halo" if halo else "all_gather"
+        shards = [_shard_graph(pg, g, halo, device, lane_rule)
+                  for g in axis.shards]
     return PartitionedGraph(
-        shards=[_shard_graph(pg, g, halo, device, lane_rule)
-                for g in axis.shards],
-        axis=axis, n_shards=pg["n_shards"], n_node=pg["n_node"],
-        ns=pg["n_node_pad"] // pg["n_shards"], batch=pg["senders"].shape[0],
-        halo=halo)
+        shards=shards, axis=axis, n_shards=pg["n_shards"],
+        n_node=pg["n_node"], ns=pg["n_node_pad"] // pg["n_shards"],
+        batch=pg["halo_idx" if overlap else "senders"].shape[0],
+        exchange=exchange)
 
 
 # ---- device side: the processors ----------------------------------------
@@ -408,23 +686,56 @@ def sender_tables(xs: list, part: PartitionedGraph) -> list:
             for g in (sg.shard for sg in part.shards)]
 
 
+def overlap_step(step, xs: list, efs: list, part: PartitionedGraph,
+                 e_scale: float, impl: str) -> list:
+    """One ``InteractionNetwork`` step on each held shard under the overlap
+    split (``interaction_step_halo_overlap``): the send rows gathered, the
+    exchange started, the interior edges' kernel run while it is in flight,
+    the exchange finished, then the boundary edges' kernel on the own block
+    and the halo rows; the node update from the two regions' sums over the
+    total in-degree.  xs the held blocks (B * ns, C), efs each shard's edge
+    latents, interior then boundary."""
+    sends = [[x.index_select(0, idx) for idx in sg.send_idx]
+             for x, sg in zip(xs, part.shards)]
+    exchange = part.axis.start_all_to_all(sends,
+                                          ring=part.exchange == "ring")
+    sums = [step.edge_sums(x, e[:sg.graph.n_edge], sg.graph, e_scale, impl,
+                           sg.n_recv)
+            for x, e, sg in zip(xs, efs, part.shards)]
+    out = []
+    for x, e, sg, recv, s_int in zip(xs, efs, part.shards, exchange.wait(),
+                                     sums):
+        bnd, n = sg.boundary.graph, sg.n_recv
+        s_bnd = step.edge_sums(torch.cat([x, *recv]), e[sg.graph.n_edge:],
+                               bnd, e_scale, impl, n)
+        out.append(step.node_update(x, s_int + s_bnd,
+                                    sg.graph.degree[:n] + bnd.degree[:n]))
+    return out
+
+
 def graphnet_processor(processor, nf: torch.Tensor, efs: list,
                        part: PartitionedGraph, impl: str = "kernel"):
     """``nn.graphnet.GraphProcessor`` partitioned: nf (B * n_node, C) every
     node's latents, efs each held shard's (E, C) edge latents in its graph's
-    order.  Each step brings the sender rows (``sender_tables``) and runs
-    the port's ``InteractionNetwork`` on each held shard graph, its
-    receivers the local rows; the result, (B * n_node, C), is gathered."""
-    if processor.dtype is not None:
-        nf = nf.to(processor.dtype)
-        efs = [e.to(processor.dtype).contiguous() for e in efs]
+    order (overlap: interior, then boundary).  The steps are the processor's
+    f32 steps on the latents cast up to f32, as the JAX package's
+    partitioned processor computes them (module docstring).  Each step
+    brings the sender rows (``sender_tables``) and runs the port's
+    ``InteractionNetwork`` on each held shard graph, its receivers the local
+    rows, or, overlap and ring, runs ``overlap_step``; the result,
+    (B * n_node, C), is gathered."""
+    nf = nf.float()
+    efs = [e.float().contiguous() for e in efs]
     xs = node_blocks(nf, part)
     scale = 1.0
-    for step in processor.gnn_stacks:
-        tables = sender_tables(xs, part)
-        xs = [step(t, e, sg.graph, e_scale=scale, impl=impl,
-                   n_recv=sg.n_recv)
-              for t, e, sg in zip(tables, efs, part.shards)]
+    for step in processor.f32_steps():
+        if part.exchange in OVERLAP_MODES:
+            xs = overlap_step(step, xs, efs, part, scale, impl)
+        else:
+            tables = sender_tables(xs, part)
+            xs = [step(t, e, sg.graph, e_scale=scale, impl=impl,
+                       n_recv=sg.n_recv)
+                  for t, e, sg in zip(tables, efs, part.shards)]
         scale *= 2.0
     return gather_nodes(xs, part)
 

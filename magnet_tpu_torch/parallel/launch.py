@@ -50,10 +50,10 @@ def _rank_main(rank, fn, world, args, device, tmp, timeout_s):
             dist.destroy_process_group()
 
 
-def run_ranks(fn, world: int, args: tuple = (), device="cpu",
+def run_ranks(fn, world: int, args: tuple = (), device="cuda",
               timeout_s: float = TIMEOUT_S) -> list:
-    """``fn(rank, world, *args)`` on ``world`` spawned ranks over gloo
-    (``device`` cpu) or NCCL (cuda, rank r on card r); returns each rank's
+    """``fn(rank, world, *args)`` on ``world`` spawned ranks over NCCL
+    (``device`` cuda, rank r on card r) or gloo (cpu); returns each rank's
     result in rank order.  Raises the first failure of a rank, and
     ``TimeoutError`` (the ranks killed) when they have not all finished
     within ``timeout_s`` seconds."""
@@ -79,8 +79,10 @@ def run_ranks(fn, world: int, args: tuple = (), device="cpu",
 # ---- rank functions (``run_ranks``' fn) ----------------------------------
 
 
-def _rank_device(device, rank: int) -> torch.device:
-    device = torch.device(device)
+def _rank_device(spec: dict, rank: int) -> torch.device:
+    """Rank ``rank``'s device: ``spec["device"]``, cuda (card ``rank``)
+    unless the caller asks for the CPU."""
+    device = torch.device(spec.get("device", "cuda"))
     return torch.device("cuda", rank) if device.type == "cuda" else device
 
 
@@ -106,7 +108,7 @@ def loss_rank(rank: int, world: int, cases: list) -> list:
     from magnet_tpu_torch.train.trainer import all_reduce_mean
     from magnet_tpu_torch.utils import to_device
 
-    device = _rank_device(cases[0].get("device", "cpu"), rank)
+    device = _rank_device(cases[0], rank)
     mesh = make_mesh(1, world, device)
     out = []
     for case in cases:
@@ -143,7 +145,7 @@ def fit_rank(rank: int, world: int, spec: dict) -> dict:
     from magnet_tpu_torch.parallel.mesh import make_mesh
     from magnet_tpu_torch.train.trainer import Trainer
 
-    device = _rank_device(spec.get("device", "cpu"), rank)
+    device = _rank_device(spec, rank)
     dp = spec["dp"]
     mesh = make_mesh(dp, world // dp, device)
     model = _model(spec, device)

@@ -9,16 +9,25 @@ sample's graph (``parallel.graph_partition``).  The backend is NCCL for
 
 The graph axis has two forms with one interface (``shards``, the shards
 this process holds; ``all_gather``, ``all_to_all``, ``all_reduce``, each
-over a list with one entry per held shard):
+over a list with one entry per held shard; ``start_all_to_all``, the
+all-to-all started and finished by the ``Exchange`` it returns, as one
+collective or, ``ring=True``, as G - 1 rotations):
 
 * ``DistGraphAxis``: one shard a rank, the collectives autograd Functions
   that carry gradients (the all-gather's backward is a reduce-scatter, the
-  all-to-all's the reverse all-to-all, the all-reduce's an all-reduce);
+  all-to-all's the reverse all-to-all, the ring's the rotations reversed,
+  the all-reduce's an all-reduce);
 * ``LocalGraphAxis``: all G shards of a sample in one process on one
-  device, the collectives index copies there.  It is the counterpart of
+  device, the collectives index copies there (the ring as the
+  all-to-all: the same blocks reach the same slots).  It is the counterpart of
   the virtual CPU devices the JAX tests run their mesh on: NCCL refuses two
   ranks on one card, so tests and ``chip_smoke.py`` run G = 2 and 4 on one
   card this way.  ``run.py`` never selects it.
+
+A started exchange is in flight until ``Exchange.wait()``: on NCCL it runs
+on NCCL's stream, which the current stream waits for at ``wait()``; on
+gloo ``wait()`` blocks the host until it is done.  Its result may be read
+only after ``wait()``, and a failed collective raises there.
 """
 from __future__ import annotations
 
@@ -82,6 +91,12 @@ class LocalGraphAxis:
         shard d, the blocks it receives in source order."""
         return [[sends[s][d] for s in self.shards] for d in self.shards]
 
+    def start_all_to_all(self, sends, ring: bool = False) -> "Exchange":
+        """``all_to_all`` as an exchange to finish.  ``ring`` moves the
+        same blocks to the same slots: in one process the order of the
+        copies is not observable, so it takes the all-to-all."""
+        return Exchange(self.all_to_all(sends))
+
     def all_reduce(self, xs):
         total = xs[0]
         for x in xs[1:]:
@@ -132,6 +147,73 @@ class _AllToAll(torch.autograd.Function):
         return None, _AllToAll.apply(ctx.group, g.contiguous())
 
 
+class Exchange:
+    """An exchange in flight: ``blocks``, for each shard this process
+    holds, the blocks it receives in source order, readable once ``wait()``
+    has finished the collective's handles ``works``; ``tensors``, what the
+    collective reads and writes, kept alive until then."""
+
+    def __init__(self, blocks=None):
+        self.blocks, self.works, self.tensors = blocks, [], ()
+
+    def wait(self) -> list:
+        for work in self.works:
+            work.wait()
+        self.works, self.tensors = [], ()
+        return self.blocks
+
+
+def _ring(group, x, out, backward: bool = False) -> list:
+    """x's i-th of n equal row blocks to rank i of ``group``, out's i-th
+    block from rank i, as n - 1 rotations: rotation k sends the block for
+    rank (r + k) mod n and receives from (r - k) mod n, r this rank; with
+    ``backward`` each rotation runs the other way (the adjoint).  Returns
+    the rotations' handles, not waited on."""
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    sign = -1 if backward else 1
+    src, dst = x.chunk(n), out.chunk(n)
+    dst[r].copy_(src[r])
+    works = []
+    for k in range(1, n):
+        to, frm = (r + sign * k) % n, (r - sign * k) % n
+        works += dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, src[to], dist.get_global_rank(group, to),
+                       group),
+            dist.P2POp(dist.irecv, dst[frm],
+                       dist.get_global_rank(group, frm), group)])
+    return works
+
+
+class _AllToAllStart(torch.autograd.Function):
+    """``_AllToAll`` (``ring``: as ``_ring``'s rotations) started and left in
+    flight in ``exchange``: the result may be read only after
+    ``exchange.wait()``.  The backward runs the adjoint and waits for it
+    before it hands the gradient to the sender block."""
+
+    @staticmethod
+    def forward(ctx, group, exchange, ring, x):
+        ctx.group, ctx.ring = group, ring
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        if ring:
+            exchange.works = _ring(group, x, out)
+        else:
+            exchange.works = [dist.all_to_all_single(out, x, group=group,
+                                                     async_op=True)]
+        exchange.tensors = (x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous()
+        if not ctx.ring:
+            return None, None, None, _AllToAll.apply(ctx.group, g)
+        out = torch.empty_like(g)
+        for work in _ring(ctx.group, g, out, backward=True):
+            work.wait()
+        return None, None, None, out
+
+
 class DistGraphAxis:
     """The graph axis over the process group ``group``, in which this rank
     holds shard ``index`` of ``size``.  The all-gather and the all-to-all
@@ -151,6 +233,13 @@ class DistGraphAxis:
     def all_to_all(self, sends):
         recv = _AllToAll.apply(self.group, torch.cat(sends[0]))
         return [list(recv.chunk(self.size))]
+
+    def start_all_to_all(self, sends, ring: bool = False) -> Exchange:
+        exchange = Exchange()
+        recv = _AllToAllStart.apply(self.group, exchange, ring,
+                                    torch.cat(sends[0]))
+        exchange.blocks = [list(recv.chunk(self.size))]
+        return exchange
 
     def all_reduce(self, xs):
         from torch.distributed.nn.functional import all_reduce

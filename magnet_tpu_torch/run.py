@@ -11,11 +11,18 @@ Usage (on the card; ``device=cpu`` runs the plain PyTorch path):
 
 Data and graph parallelism, one rank a card:
   torchrun --nproc_per_node=N -m magnet_tpu_torch.run \\
-      trainer.devices=D trainer.graph_shards=G [trainer.graph_halo=true] ...
+      trainer.devices=D trainer.graph_shards=G \\
+      [trainer.graph_halo=false|true|fused|overlap|ring] ...
 
 with N = D x G (``trainer.devices=-1``: N / G): the batch splits over D,
 each sample's graph over G (MAgNet[CNN], MAgNet[GNN], MPNN).  Any other
-world size raises.  ``device=cpu`` runs the ranks on gloo.
+world size raises.  ``device=cpu`` runs the ranks on gloo.  Each
+message-passing step brings the sender rows a shard reads from the others:
+``false`` all-gathers the node blocks; ``true`` (and ``fused``) sends only
+the halo rows, all-to-all; ``overlap`` splits each shard's edges into
+interior and boundary and runs the interior edges while the all-to-all is
+in flight; ``ring`` is ``overlap`` with the all-to-all as G - 1 rotations.
+MPNN always all-gathers.
 
 Composes the config from ``magnet_tpu_torch.config`` and the overrides,
 builds loaders, model and trainer, saves the config under a time-stamped

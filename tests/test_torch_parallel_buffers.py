@@ -1,9 +1,10 @@
 """The port's partition buffers against the JAX package's, bit for bit
 (``partition_graph``, ``partition_graph_halo``, ``build_partition_buffers``
 with halo False and True, three seeded random radius graphs, G = 2, 3, 4),
-the ``graph_halo`` modes (``fused`` builds the halo buffers; ``overlap``
-and ``ring`` are not ported and raise), the trainer's config keys and
-``run.py``'s world-size check.  Tolerance: equal.
+the ``graph_halo`` modes (``fused`` builds the halo buffers; ``ring``
+builds the ``overlap`` buffers, which ``tests/test_torch_parallel_overlap.py``
+holds against the JAX package's; any other value raises), the trainer's
+config keys and ``run.py``'s world-size check.  Tolerance: equal.
 """
 import numpy as np
 import pytest
@@ -49,15 +50,17 @@ def test_partition_buffers_equal_jax(seed, shards):
 
 
 def test_fused_builds_the_halo_buffers_and_overlap_raises():
+    """``fused`` builds the halo buffers and ``ring`` the overlap ones
+    (both modes are ported now: neither raises); a mode that is none of
+    ``HALO_MODES`` raises."""
     raw = _raw(5)
-    fused = tgp.build_partition_buffers(raw, 48, 4, halo="fused")
-    halo = tgp.build_partition_buffers(raw, 48, 4, halo=True)
-    assert sorted(fused) == sorted(halo)
-    for k in halo:
-        np.testing.assert_array_equal(fused[k], halo[k])
-    for mode in ("overlap", "ring"):
-        with pytest.raises(NotImplementedError, match="A.6"):
-            tgp.build_partition_buffers(raw, 48, 4, halo=mode)
+    for mode, same_as in (("fused", True), ("ring", "overlap")):
+        got = tgp.build_partition_buffers(raw, 48, 4, halo=mode)
+        want = tgp.build_partition_buffers(raw, 48, 4, halo=same_as)
+        assert sorted(got) == sorted(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k])
+    assert "t_int" in want and "table" not in want
     with pytest.raises(ValueError):
         tgp.build_partition_buffers(raw, 48, 4, halo="blocked")
 
@@ -68,6 +71,9 @@ def test_config_keys_and_the_world_size_check():
     assert (tr["devices"], tr["graph_shards"], tr["graph_halo"]) == (-1, 2,
                                                                     "fused")
     assert compose(["trainer.graph_halo=true"])["trainer"]["graph_halo"] is True
+    for mode in ("overlap", "ring"):
+        assert compose([f"trainer.graph_halo={mode}"])["trainer"][
+            "graph_halo"] == mode
     assert compose([])["trainer"]["graph_halo"] is False
     with pytest.raises(ValueError):
         compose(["trainer.skip_nonfinite=fused"])

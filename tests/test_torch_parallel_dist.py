@@ -1,14 +1,19 @@
 """The port's data and graph parallelism over gloo ranks on the CPU, each
 launch a group of spawned processes (``parallel.launch.run_ranks``, whose
 rank functions import torch alone): MAgNet[CNN] 1D's ``loss_partitioned``
-over 2 and 4 ranks, train and validation, against the JAX package's
+over 2 and 4 ranks (all-gather, halo, and the overlap split with its
+all-to-all or its ring), train and validation, against the JAX package's
 ``loss_partitioned`` on a (1, 2) mesh (its all-gather layout, the same
 function as its halo one) and against the port's unpartitioned
 loss, with every parameter's gradient (summed over the ranks and divided
 by their number, as the trainer reduces them) against the unpartitioned
-one; one MAgNet[GNN] and one MPNN partitioned step; ``Trainer`` steps over
-dp = 2 and over dp = 2 x graph = 2 against one process on the global
-batch; a checkpoint written by 2 ranks resumed by 1.
+one; the ring equal to the all-to-all bit for bit; the overlap step's
+order (the exchange started before the interior edges' kernel, waited on
+only before the boundary's); one MAgNet[GNN] and one MPNN partitioned
+step; ``Trainer`` steps over dp = 2 and over dp = 2 x graph = 2 against
+one process on the global batch; a checkpoint written by 2 ranks resumed
+by 1.  Every launch passes ``device="cpu"`` (gloo): the launcher's
+default is the card.
 
 Tolerances.  Against JAX: loss rtol 1e-4, atol 1e-5 (the port's MAgNet[CNN]
 1D training parity test, ``tests/test_torch_train.py``).  Partitioned
@@ -47,6 +52,7 @@ from magnet_tpu_torch.parallel.launch import (  # noqa: E402
 from magnet_tpu_torch.train.checkpoint import load_checkpoint  # noqa: E402
 from magnet_tpu_torch.train.trainer import Trainer  # noqa: E402
 from magnet_tpu_torch.utils import to_device  # noqa: E402
+from torch_ranks import ordered_loss_rank  # noqa: E402
 
 JAX_TOL = dict(rtol=1e-4, atol=1e-5)
 LOSS_RTOL, GRAD_RTOL, GRAD_ATOL_REL = 1e-5, 1e-4, 1e-4
@@ -54,6 +60,16 @@ STEP_ATOL = 1e-5
 HP = dict(time_slice=16, latent_dim=8, num_message_passing_steps=2,
           mlp_layers=2, mlp_hidden=16, n_chan=16, res_layers=1,
           kernel_size=3, res_scale=1, radius=0.08)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread in this process too, as in each rank: the models
+    are small, and the suite runs several workers on the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _heat(n, seed=3):
@@ -126,36 +142,81 @@ def jax_losses(cnn):
     return float(fn(params, jb, True)), float(fn(params, jb, False))
 
 
+HALOS = (False, True, "overlap", "ring")
+
+
+def _cases(tm, batch, halos=HALOS):
+    """One ``loss_rank`` case a mode of ``halos``."""
+    return [{"model": "magnet_cnn", "hp": HP, "state": _state(tm),
+             "batch": batch, "halo": halo, "device": "cpu"}
+            for halo in halos]
+
+
 @pytest.fixture(scope="module")
 def cnn_two_ranks(cnn):
-    """MAgNet[CNN] 1D over 2 ranks, all-gather and halo, in one launch."""
+    """MAgNet[CNN] 1D over 2 ranks in every mode of ``HALOS``, in one
+    launch, each case with its order of exchanges and kernels
+    (``tests/torch_ranks.py``)."""
     *_, tm, batch, _ = cnn
-    cases = [{"model": "magnet_cnn", "hp": HP, "state": _state(tm),
-              "batch": batch, "halo": halo} for halo in (False, True)]
-    return run_ranks(loss_rank, 2, (cases,))
+    return run_ranks(ordered_loss_rank, 2, (_cases(tm, batch),),
+                     device="cpu")
 
 
-@pytest.mark.parametrize("halo", [False, True])
+@pytest.mark.parametrize("halo", HALOS)
 def test_cnn1d_two_ranks_match_jax_and_unpartitioned(cnn, cnn_two_ranks,
                                                      jax_losses, halo):
     *_, tm, batch, ref = cnn
-    out = [r[int(halo)] for r in cnn_two_ranks]
+    out = [r[HALOS.index(halo)] for r in cnn_two_ranks]
+    overlap = halo in ("overlap", "ring")
     for rank in out:
         _assert_matches(rank, ref)
-        assert rank["lanes"] == [["fold"]]
-    assert sum(r["edges"][0][0] for r in out) == tm.build_graph(
+        assert rank["lanes"] == [[("fold", "fold") if overlap else "fold"]]
+    edges = [r["edges"][0][0] for r in out]
+    assert sum(sum(e) if overlap else e for e in edges) == tm.build_graph(
         to_device(batch, "cpu")).n_edge
     want_train, want_val = jax_losses
     np.testing.assert_allclose(out[0]["loss"], want_train, **JAX_TOL)
     np.testing.assert_allclose(out[0]["val_loss"], want_val, **JAX_TOL)
 
 
+def _assert_ring_equals_overlap(ranks, halos=HALOS):
+    """Each rank's ring case equals its overlap case bit for bit: losses
+    and reduced gradients."""
+    for rank in ranks:
+        ring, overlap = (rank[halos.index(h)] for h in ("ring", "overlap"))
+        for k in ("loss", "val_loss", "mae_loss", "val_mae_loss"):
+            assert ring[k] == overlap[k], k
+        for k, g in overlap["grads"].items():
+            np.testing.assert_array_equal(ring["grads"][k], g, err_msg=k)
+
+
+def test_ring_equals_overlap_over_two_ranks(cnn_two_ranks):
+    _assert_ring_equals_overlap(cnn_two_ranks)
+
+
+def test_overlap_starts_the_exchange_before_the_interior_kernel(
+        cnn_two_ranks):
+    """On each rank every message-passing step of the training and the
+    validation forward starts the all-to-all, runs the interior edges'
+    sums while it is in flight, waits on it, then runs the boundary
+    edges' sums."""
+    for rank in cnn_two_ranks:
+        order = rank[HALOS.index("overlap")]["order"]
+        steps = len(order) // 4
+        assert steps >= HP["num_message_passing_steps"]
+        assert order == ["start", "interior", "wait", "boundary"] * steps
+
+
 def test_cnn1d_four_ranks_halo(cnn):
+    """Four ranks: halo, overlap and ring against the unpartitioned step,
+    ring equal to overlap bit for bit."""
     *_, tm, batch, ref = cnn
-    spec = {"model": "magnet_cnn", "hp": HP, "state": _state(tm),
-            "batch": batch, "halo": True}
-    for rank in run_ranks(loss_rank, 4, ([spec],)):
-        _assert_matches(rank[0], ref)
+    halos = HALOS[1:]
+    out = run_ranks(loss_rank, 4, (_cases(tm, batch, halos),), device="cpu")
+    for rank in out:
+        for case in rank:
+            _assert_matches(case, ref)
+    _assert_ring_equals_overlap(out, halos)
 
 
 def _gnn_case():
@@ -197,8 +258,8 @@ def gnn_and_mpnn_steps():
         state = _state(tm)
         refs.append(_unpartitioned(tm, to_device(batch, "cpu")))
         cases.append({"model": name, "hp": hp, "kind": kind, "state": state,
-                      "batch": batch, "halo": halo})
-    return run_ranks(loss_rank, 2, (cases,)), refs
+                      "batch": batch, "halo": halo, "device": "cpu"})
+    return run_ranks(loss_rank, 2, (cases,), device="cpu"), refs
 
 
 @pytest.mark.parametrize("case", [0, 1], ids=["magnet_gnn_halo", "mpnn_2d"])
@@ -250,8 +311,8 @@ def test_trainer_step_over_ranks_equals_one_process(tmp_path, one_process,
     workdir = str(tmp_path / "ranks")
     spec = {"model": "magnet_cnn", "hp": HP, "state": state, "dp": dp,
             "halo": halo, "loaders": _loaders(), "max_epochs": 1,
-            "workdir": workdir}
-    out = run_ranks(fit_rank, world, (spec,))
+            "workdir": workdir, "device": "cpu"}
+    out = run_ranks(fit_rank, world, (spec,), device="cpu")
     assert [r["metrics_written"] for r in out] == [True] + [False] * (
         world - 1)
     for rank in out:
@@ -290,4 +351,5 @@ def test_a_rank_that_fails_fails_the_launch():
     no batch: KeyError in each rank)."""
     with pytest.raises(Exception, match="KeyError"):
         run_ranks(loss_rank, 2, ([{"model": "magnet_cnn", "hp": HP,
-                                    "halo": False}],), timeout_s=30)
+                                    "halo": False, "device": "cpu"}],),
+                  device="cpu", timeout_s=30)

@@ -95,9 +95,10 @@ def test_port_imports_no_jax_and_nothing_of_magnet_tpu():
         "import magnet_tpu_torch.parallel.mesh, magnet_tpu_torch.parallel.launch\n"
         "import magnet_tpu_torch.parallel.graph_partition\n"
         "import magnet_tpu_torch.models.partitioned_mixin\n"
+        "import magnet_tpu_torch.tune\n"
         "for m in pkgutil.walk_packages(magnet_tpu_torch.__path__, 'magnet_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'h5py', 'magnet_tpu')]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'h5py', 'magnet_tpu', 'tune', 'run')]\n"
         "assert not bad, bad\n"
         "print('clean', len([m for m in sys.modules if m.startswith('magnet_tpu_torch')]))\n"
     )
