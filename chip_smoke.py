@@ -7,7 +7,8 @@
                                         gnn, gnn2d, fno, no_interaction,
                                         cnn_bf16, cnn2d_bf16, gnn_bf16,
                                         cnn_pe, gnn_pre, par (par_local and
-                                        par_dist), par_dist (alone), tune
+                                        par_dist), par_dist (alone), tune,
+                                        remat, spc
 
 Builds the port's seven CUDA sources from the checkout (all eleven TPU
 kernels: the fused GraphNet edge pipeline's forward and backward, each
@@ -47,7 +48,16 @@ whole graph's; all-gather, halo, and the halo exchange in flight behind
 the interior edges' kernels; MAgNet[CNN] 1D in bf16 too), and
 ``Trainer.fit`` over NCCL ranks, one a card (the all-to-all, the overlap
 split, its ring), resumed from rank 0's checkpoint, and a two-trial
-sweep of ``magnet_tpu_torch.tune``.
+sweep of ``magnet_tpu_torch.tune``, and ``remat`` (MAgNet[CNN] 2D at batch
+32 and MAgNet[GNN] 1D in f32 and bf16, a training step with each processor
+step recomputed in the backward against the step without: the same loss,
+twice the forward kernels' launches, the backward's unchanged, peak memory
+each way), and ``steps_per_call`` (MPNN 1D on #10 / #11 and FNO-1D fitted
+with 4 steps a call at batch 32, the chunks as replays of a captured CUDA
+graph, against one step a call: losses, weights, #10 / #11 launches in a
+profiler trace of each fit, seconds a step and the device's idle share;
+the optimizer, which decides on the device, against a plain Adam that
+decides on the host).
 It checks that each path went through its kernels by their launch counts.
 Prints one JSON line per phase (``device``, ``build``, ``kernel``,
 ``slice``, ``kernel_bwd``, ``train``, ``mpnn_kernel``, ``mpnn_kernel_bwd``,
@@ -62,7 +72,7 @@ Prints one JSON line per phase (``device``, ``build``, ``kernel``,
 ``gnn2d_bf16_train``, ``pe64_kernel``, ``pe64_kernel_bwd``,
 ``pe64_slice``, ``pe64_train``, ``gnn_pre_kernel``,
 ``gnn_pre_kernel_bwd``, ``gnn_pre_slice``, ``gnn_pre_train``,
-``gnn_pre_c6``, ``par_local``, ``par_dist``), the
+``gnn_pre_c6``, ``par_local``, ``par_dist``, ``remat``, ``spc``), the
 card's name and power limit, a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero, and
 with no CUDA device it exits 1 before printing any result.
@@ -234,9 +244,39 @@ PAR_EMPTY_BATCH, PAR_EMPTY_NODES = 2, 3072
 # sizes (one training batch of 32 an epoch)
 TUNE_TRIALS = 2
 TUNE_DATA = {"n_train": 32, "n_val": 8, "n_test": 1, "burn_in": 10.0}
+# the remat group: a step with each processor step recomputed in the
+# backward against the step without, the same forward kernels on the same
+# operands (bit for bit: the loss), the backward kernels' atomics in
+# another order (every gradient within REMAT_GRAD_L2 relative L2);
+# MAgNet[CNN] 2D at the datamodule's batch
+REMAT_GRAD_L2, REMAT_CNN2D_BATCH = 1e-6, 32
+# the spc group: MPNN 1D and FNO-1D fits of SPC_EPOCHS epochs at the
+# datamodules' batch 32 over SPC_TRAJ E3 trajectories (the fno group's 32
+# and more from the same solver; 4 steps an epoch), validated on the fno
+# group's 32, SPC_K steps a call against one; MPNN 1D's per-step losses
+# within SPC_MPNN_LOSS_RTOL and its weights within SPC_MPNN_WEIGHT_L2
+# relative L2 of the one-step fit (#11 adds with atomics), FNO-1D's bit
+# for bit.  The optimizer, which decides on the device, against a plain
+# Adam that decides on the host (a float rate, the finite check read
+# back), with non-finite gradients: on the same gradients, SPC_UPDATES
+# updates of FNO-1D's parameters, the weights' change from their start
+# within SPC_PLAIN_UPDATE_RTOL relative L2 of the plain one's (the
+# capturable Adam computes its bias corrections in f32 on the device:
+# 1 - f32(0.999) is 0.001 within 1.3e-5, so the first update is the plain
+# one within 6.4e-6, the later ones closer); and FNO-1D's fit with a
+# planted NaN, the same updates dropped, the losses up to the first
+# applied update bit-equal, then per-step losses within
+# SPC_PLAIN_FIT_LOSS_RTOL and weights within SPC_PLAIN_FIT_WEIGHT_L2: a
+# fit feeds each update's rounding back into the next gradients, and
+# Adam moves a weight whose gradient is rounding noise by about the rate
+# either way
+SPC_MODELS, SPC_K, SPC_TRAJ, SPC_EPOCHS = ("mpnn", "fno_1d"), 4, 128, 2
+SPC_MPNN_LOSS_RTOL, SPC_MPNN_WEIGHT_L2 = 1e-5, 1e-5
+SPC_UPDATES, SPC_PLAIN_UPDATE_RTOL = 8, 2e-5
+SPC_PLAIN_FIT_LOSS_RTOL, SPC_PLAIN_FIT_WEIGHT_L2 = 1e-3, 1e-3
 GROUPS = ("cnn", "mpnn_kernels", "mpnn_paths", "cnn2d", "gnn", "gnn2d",
           "fno", "no_interaction", "cnn_bf16", "cnn2d_bf16", "gnn_bf16",
-          "cnn_pe", "gnn_pre", "par", "par_dist", "tune")
+          "cnn_pe", "gnn_pre", "par", "par_dist", "tune", "remat", "spc")
 
 
 def card() -> str:
@@ -734,14 +774,14 @@ def cnn_phases(dev, data, groups) -> tuple[int, list, dict]:
     step_losses = []
 
     def record_steps(trainer):
-        inner_step = trainer.train_step
+        inner_step = trainer.device_step
 
-        def recording_step(batch):
-            metrics = inner_step(batch)
+        def recording_step(batch, graph):
+            metrics = inner_step(batch, graph)
             step_losses.append(metrics["loss"])
             return metrics
 
-        trainer.train_step = recording_step
+        trainer.device_step = recording_step
 
     def reset():
         fe.launches = fe.launches_bwd = 0
@@ -1422,14 +1462,14 @@ def cnn_bf16_phases(dev, data, groups) -> tuple[int, list, dict]:
     step_losses = []
 
     def record_steps(trainer):
-        inner = trainer.train_step
+        inner = trainer.device_step
 
-        def recording_step(batch):
-            metrics = inner(batch)
+        def recording_step(batch, graph):
+            metrics = inner(batch, graph)
             step_losses.append(float(metrics["loss"]))
             return metrics
 
-        trainer.train_step = recording_step
+        trainer.device_step = recording_step
 
     n_epochs, steps = 2, len(loaders["train"])
     fit, resumed = fit_checkpoint_resume(
@@ -1917,14 +1957,14 @@ def cnn2d_bf16_phases(dev, data, groups) -> tuple[int, list, dict]:
     step_losses = []
 
     def record_steps(trainer):
-        inner = trainer.train_step
+        inner = trainer.device_step
 
-        def recording_step(batch):
-            m = inner(batch)
+        def recording_step(batch, graph):
+            m = inner(batch, graph)
             step_losses.append(float(m["loss"]))
             return m
 
-        trainer.train_step = recording_step
+        trainer.device_step = recording_step
 
     n_epochs, steps = 2, len(loaders["train"])
     val_batches = len(loaders["val"])
@@ -3988,14 +4028,14 @@ def mpnn_phases(dev, data, groups) -> tuple[int, list, dict]:
                 weight_decay=hp2["weight_decay"], factor=hp2["factor"],
                 step_size=hp2["step_size"], workdir=workdir, device=dev)
             step_losses = []
-            inner_step = trainer.train_step
+            inner_step = trainer.device_step
 
-            def recording_step(batch):
-                m = inner_step(batch)
+            def recording_step(batch, graph):
+                m = inner_step(batch, graph)
                 step_losses.append(m["loss"])
                 return m
 
-            trainer.train_step = recording_step
+            trainer.device_step = recording_step
             me.reset_launches()
             torch.cuda.reset_peak_memory_stats()
             fit_s = timed(lambda: trainer.fit(loaders["train"],
@@ -4020,10 +4060,11 @@ def mpnn_phases(dev, data, groups) -> tuple[int, list, dict]:
                        and all(torch.equal(v.cpu(), state["model"][k])
                                for k, v in trainer.model.state_dict().items()))
             host_batches = list(loaders["train"])
-            step_s = timed(lambda: [inner_step(b)
+            trainer.device_step = inner_step
+            step_s = timed(lambda: [trainer.train_step(b)
                                     for b in host_batches]) / steps
             trainer.model.impl = "plain"
-            step_plain_s = timed(lambda: [inner_step(b)
+            step_plain_s = timed(lambda: [trainer.train_step(b)
                                           for b in host_batches]) / steps
             trainer.model.impl = "kernel"
 
@@ -4433,10 +4474,11 @@ def cnn2d_phases(dev, data, groups) -> tuple[int, list, dict]:
     step_losses, lanes = [], []
 
     def record_steps_and_lanes(trainer):
-        inner_step, inner_build = trainer.train_step, trainer.model.build_graph
+        inner_step = trainer.device_step
+        inner_build = trainer.model.build_graph
 
-        def recording_step(batch):
-            m = inner_step(batch)
+        def recording_step(batch, graph):
+            m = inner_step(batch, graph)
             step_losses.append(m["loss"])
             return m
 
@@ -4445,7 +4487,7 @@ def cnn2d_phases(dev, data, groups) -> tuple[int, list, dict]:
             lanes.append(gr.lane)
             return gr
 
-        trainer.train_step = recording_step
+        trainer.device_step = recording_step
         trainer.model.build_graph = recording_build
 
     def reset():
@@ -6053,6 +6095,633 @@ def no_interaction_phases(dev, data, groups) -> tuple[int, list, dict]:
     return 0, [], {}
 
 
+def rel_l2_of(got: dict, want: dict) -> tuple[float, str]:
+    """The worst relative L2 distance over a dict of tensors, and its key."""
+    l2 = {k: float((got[k].double() - want[k].double()).norm()
+                   / want[k].double().norm().clamp_min(1e-30)) for k in want}
+    worst_k = max(l2, key=l2.get)
+    return l2[worst_k], worst_k
+
+
+def remat_step(model, batch, graphs, remat: bool) -> dict:
+    """One training step's forward and backward (``loss(train=True)``, every
+    parameter's gradient) with each GraphNet processor's ``remat`` set to
+    ``remat``, from the launch counts at 0: the loss, the gradients, the
+    launches, the step's host seconds and its peak device memory."""
+    from magnet_tpu_torch.nn.graphnet import GraphProcessor
+
+    for proc in model.modules():
+        if isinstance(proc, GraphProcessor):
+            proc.remat = remat
+    model.zero_grad(set_to_none=True)
+    reset_every_launch()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    loss, _ = model.loss(batch, graphs, train=True)
+    loss.backward()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    return {"loss": loss.detach(), "launches": every_launch(),
+            "grads": {k: p.grad.clone() for k, p in model.named_parameters()},
+            "seconds": secs, "peak": peak, "peak_over_start": peak - base}
+
+
+def remat_case(label, model, batch, graphs, fwd_key, bwd_key,
+               calls_per_step) -> dict:
+    """``remat`` off against on for one model and batch: a warm-up step
+    each way, then off, on, on, off (times in turns).  Holds the loss bit for bit,
+    every gradient within REMAT_GRAD_L2 relative L2 of the first step
+    without ``remat`` (reporting the second one's distance, the atomics'
+    noise), the forward kernel's launches at twice the ``calls_per_step``
+    processor-step calls a step, the backward kernel's and every other
+    count unchanged."""
+    for remat in (False, True):
+        remat_step(model, batch, graphs, remat)
+    runs = [remat_step(model, batch, graphs, r)
+            for r in (False, True, True, False)]
+    off, on = runs[0], runs[1]
+    total = {}
+    for r in runs:
+        for k, v in r["launches"].items():
+            total[k] = total.get(k, 0) + v
+    l2, worst = rel_l2_of(on["grads"], off["grads"])
+    noise, noise_k = rel_l2_of(runs[3]["grads"], off["grads"])
+    want_on = dict(off["launches"], **{fwd_key: 2 * calls_per_step})
+    launches_ok = (off["launches"][fwd_key] == calls_per_step
+                   and off["launches"][bwd_key] == calls_per_step
+                   and all(r["launches"] == want_on for r in runs[1:3])
+                   and runs[3]["launches"] == off["launches"])
+    loss_equal = all(torch.equal(r["loss"], off["loss"]) for r in runs[1:])
+    fin = all(bool(torch.isfinite(v).all()) for v in on["grads"].values())
+    out = {
+        "case": label, "loss": float(off["loss"]),
+        "loss_bit_equal": loss_equal,
+        "worst_grad_rel_l2": l2, "worst_grad": worst,
+        "grad_rel_l2_tol": REMAT_GRAD_L2,
+        "off_again_worst_grad_rel_l2": noise, "off_again_worst_grad": noise_k,
+        "grads_finite": fin,
+        "launches_off": {k: v for k, v in off["launches"].items() if v},
+        "launches_on": {k: v for k, v in on["launches"].items() if v},
+        "predicted": {fwd_key: {"off": calls_per_step,
+                                "on": 2 * calls_per_step},
+                      bwd_key: {"off": calls_per_step,
+                                "on": calls_per_step}},
+        "launches_as_predicted": launches_ok,
+        "peak_mem_bytes": {"off": off["peak"], "on": on["peak"]},
+        "peak_mem_bytes_over_start": {"off": off["peak_over_start"],
+                                      "on": on["peak_over_start"]},
+        "seconds_step": {"off": [runs[0]["seconds"], runs[3]["seconds"]],
+                         "on": [runs[1]["seconds"], runs[2]["seconds"]]},
+        "launches_total": total,
+        "ok": (loss_equal and fin and launches_ok and l2 <= REMAT_GRAD_L2)}
+    return out
+
+
+def remat_phases(dev, data, groups) -> tuple[int, list, dict]:
+    """Phase ``remat``: one training step's forward and backward with each
+    GraphNet processor step recomputed in the backward (``remat``) against
+    the same step without it, from the same weights and batch, at full
+    width and depth: MAgNet[CNN] 2D at the datamodule's batch of 32 (the
+    pre-gathered lane: #2, #3 and #1), MAgNet[GNN] 1D in f32 (#8 / #9 at
+    width 128) and in bf16 (their bf16 builds).  Returns the launches of
+    its steps as extra counts of those kernels' rows."""
+    from magnet_tpu_torch.config import (
+        DATAMODULE_IMPLICIT_2D,
+        DATAMODULE_IMPLICIT_GNN,
+        MAGNET_CNN_2D,
+        MAGNET_GNN,
+    )
+    from magnet_tpu_torch.data.loader import collate
+    from magnet_tpu_torch.models.factory import create_model
+    from magnet_tpu_torch.utils import to_device
+
+    t_phase = time.perf_counter()
+    smi = card()
+    records = []
+    # MAgNet[CNN] 2D: 32 samples of the cnn2d group's training trajectories
+    # (its 24, then 8 of them again with other queries)
+    ds = data["cnn2d_loaders"]["train"].dataset
+    ds.set_epoch(0)
+    items = [ds[i] for i in range(len(ds))]
+    ds.set_epoch(1)
+    items += [ds[i] for i in range(REMAT_CNN2D_BATCH - len(items))]
+    hp = dict(MAGNET_CNN_2D)
+    model = create_model("magnet_cnn_2d", hp, device=dev, seed=0)
+    batch = to_device(collate(items), dev)
+    graph = model.build_graph(batch)
+    ts, mp = hp["time_slice"], hp["num_message_passing_steps"]
+    windows = (DATAMODULE_IMPLICIT_2D["nt_train"] - ts) // ts
+    key = ("fused_edge_pregathered" if graph.lane == "pregathered"
+           else "fused_edge")
+    records.append(dict(remat_case(
+        "magnet_cnn_2d", model, batch, graph, f"{key}_fwd", f"{key}_bwd",
+        windows * mp),
+        batch_size=REMAT_CNN2D_BATCH, lane=graph.lane, n_edge=graph.n_edge))
+    del model, batch, graph
+    # MAgNet[GNN] 1D: the gnn group's first training batch (32), f32 and bf16
+    loader = data["gnn_loaders"]["train"]
+    loader.set_epoch(0)
+    host = next(iter(loader))
+    ts, mp = MAGNET_GNN["time_slice"], MAGNET_GNN["num_message_passing_steps"]
+    windows = (DATAMODULE_IMPLICIT_GNN["nt_train"] - ts) // ts
+    for dtype, suffix in (("float32", ""), ("bf16", "_bf16")):
+        hp = {**MAGNET_GNN, "graph_dtype": dtype}
+        model = create_model("magnet_gnn", hp, device=dev, seed=0)
+        batch = to_device(host, dev)
+        graphs = model.build_graph(batch)
+        records.append(dict(remat_case(
+            f"magnet_gnn_{dtype}", model, batch, graphs,
+            f"fused_edge_fold128{suffix}_fwd",
+            f"fused_edge_fold128{suffix}_bwd", windows * 2 * mp),
+            batch_size=loader.batch_size, lane=graphs.all.lane,
+            n_edge=graphs.all.n_edge + graphs.lr.n_edge))
+        del model, batch, graphs
+    ok = all(r["ok"] for r in records)
+    for r in records:
+        print(f"remat {r['case']}: loss {r['loss']} bit-equal "
+              f"{r['loss_bit_equal']}, worst gradient {r['worst_grad_rel_l2']}"
+              f" ({r['worst_grad']}; off again "
+              f"{r['off_again_worst_grad_rel_l2']}), launches off "
+              f"{r['launches_off']} on {r['launches_on']}, peak "
+              f"MB off {r['peak_mem_bytes']['off'] / 2**20:.1f} on "
+              f"{r['peak_mem_bytes']['on'] / 2**20:.1f}, s a step off "
+              f"{r['seconds_step']['off']} on {r['seconds_step']['on']} "
+              f"({smi})", flush=True)
+    emit({"phase": "remat", "nvidia_smi": smi, "cases": [
+        {k: v for k, v in r.items() if k != "launches_total"}
+        for r in records], "seconds": time.perf_counter() - t_phase,
+        "ok": ok})
+    if not ok:
+        return 46, [], {}
+    extra = {}
+    for row, key in (
+            ("fused_edge_tail_agg_pregathered", "fused_edge_pregathered_fwd"),
+            ("fused_edge_tail_agg_pregathered_bwd",
+             "fused_edge_pregathered_bwd"),
+            ("fused_edge_tail_agg", "fused_edge_fwd"),
+            ("fused_edge_tail_agg_bwd", "fused_edge_bwd"),
+            ("segment_sum", "segment_sum"),
+            ("fused_edge_tail_agg_w128", "fused_edge_fold128_fwd"),
+            ("fused_edge_tail_agg_bwd_w128", "fused_edge_fold128_bwd"),
+            ("fused_edge_tail_agg_bf16_w128", "fused_edge_fold128_bf16_fwd"),
+            ("fused_edge_tail_agg_bf16_w128_bwd",
+             "fused_edge_fold128_bf16_bwd")):
+        n = sum(r["launches_total"].get(key, 0) for r in records)
+        if n:
+            extra[row] = {"launches_remat": n}
+    return 0, [], extra
+
+
+class PlainAdam:
+    """The plain reference of ``train.optim.StepDecayAdam``: a
+    non-capturable ``torch.optim.Adam`` whose rate is set as a Python float
+    before each update and whose finite check is read back to the host, a
+    dropped update not reaching Adam at all."""
+
+    def __init__(self, params, lr, weight_decay, factor, step_size,
+                 steps_per_epoch, skip_nonfinite):
+        self.params, self.skip = list(params), skip_nonfinite
+        self.rate = lambda s: lr * factor ** (s // steps_per_epoch
+                                              // step_size)
+        self.adam = torch.optim.Adam(self.params, lr=lr, betas=(0.9, 0.999),
+                                     eps=1e-8, weight_decay=weight_decay)
+        self.step_count = self.notfinite_count = 0
+
+    def zero_grad(self):
+        self.adam.zero_grad(set_to_none=True)
+
+    def step(self):
+        from magnet_tpu_torch.train.optim import MAX_CONSECUTIVE_NONFINITE
+
+        if self.skip:
+            finite = all(bool(torch.isfinite(p.grad).all())
+                         for p in self.params if p.grad is not None)
+            if not finite and self.notfinite_count < MAX_CONSECUTIVE_NONFINITE:
+                self.notfinite_count += 1
+                return False
+            self.notfinite_count = 0
+        for group in self.adam.param_groups:
+            group["lr"] = self.rate(self.step_count)
+        self.adam.step()
+        self.step_count += 1
+        return True
+
+    def state_dict(self):
+        return {"adam": self.adam.state_dict(), "step": self.step_count,
+                "notfinite_count": self.notfinite_count}
+
+
+#: the symbols of #10 and #11 in a profiler trace, by launch counter
+MPNN_SYMBOLS = {"fwd_gather": "fused_mpnn_edge_agg_kernel",
+                "bwd_gather": "fused_mpnn_edge_agg_bwd_kernel"}
+
+
+def spc_fit(name, hp, loaders, dev, k, workdir, skip_nonfinite=False,
+            profiled=False, plain_adam=False) -> tuple[object, dict]:
+    """``Trainer.fit`` of ``name`` (seed 0) for SPC_EPOCHS epochs with
+    ``k`` steps a call (``plain_adam``: with ``PlainAdam`` in place of the
+    trainer's optimizer): the trainer and its record (each step's metrics
+    in order, the launches its wrappers counted, eager / captured /
+    replayed steps, the last epoch's seconds a step and, ``profiled``, the
+    launches of #10 and #11 in a ``torch.profiler`` trace of the fit)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from magnet_tpu_torch.models.factory import create_model
+    from magnet_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(create_model(name, hp, device=dev, seed=0),
+                      max_epochs=SPC_EPOCHS, lr=hp["lr"],
+                      weight_decay=hp["weight_decay"], factor=hp["factor"],
+                      step_size=hp["step_size"], workdir=workdir, device=dev,
+                      steps_per_call=k, skip_nonfinite=skip_nonfinite)
+    steps = []
+    run_chunk, setup = trainer._run_chunk, trainer.setup
+
+    def recorded(chunk):
+        out = run_chunk(chunk)
+        steps.extend(out)
+        return out
+
+    def plain_setup(steps_per_epoch):
+        setup(steps_per_epoch)
+        trainer.optimizer = PlainAdam(
+            trainer.optimizer.params, hp["lr"], hp["weight_decay"],
+            hp["factor"], hp["step_size"], steps_per_epoch, skip_nonfinite)
+
+    trainer._run_chunk = recorded
+    if plain_adam:
+        trainer.setup = plain_setup
+    fit = lambda: trainer.fit(loaders["train"], loaders["val"])  # noqa: E731
+    traced = {}
+    reset_every_launch()
+    if profiled:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fit_s = timed(fit)
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        traced = {key: sum(e.count for e in events if sym in e.key)
+                  for key, sym in MPNN_SYMBOLS.items()}
+    else:
+        fit_s = timed(fit)
+    counted = every_launch()
+    with open(os.path.join(workdir, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    per_epoch = len(loaders["train"])
+    return trainer, {
+        "k": k, "step_losses": [float(m["loss"]) for m in steps],
+        "launches_counted": {n: v for n, v in counted.items() if v},
+        "launches_traced": traced, "fit_profiled": profiled,
+        "steps": dict(trainer.step_counts), "captures": len(trainer.captured),
+        "seconds_fit": fit_s,
+        "seconds_per_step_last_epoch": rows[-1]["time"] / per_epoch,
+        "rows": rows}
+
+
+def spc_nonfinite(hp, loaders, dev) -> dict:
+    """FNO-1D fits with ``skip_nonfinite`` on training data with a NaN in
+    one trajectory, one step a call and SPC_K, and one step a call with
+    ``PlainAdam``: the update of the NaN's batch is dropped each epoch, on
+    the device in the eager step as in the captured one, so the step
+    counts, the per-step losses (NaN where the NaN's batch was) and the
+    final weights of SPC_K are those of one step a call, bit for bit; and
+    within SPC_PLAIN_FIT_LOSS_RTOL / SPC_PLAIN_FIT_WEIGHT_L2 of the plain
+    Adam's, which drops the update on the host (``spc_plain_updates``
+    compares the two on the same gradients)."""
+    fits = {}
+    with tempfile.TemporaryDirectory() as workdir:
+        for label, k, plain in (("k1", 1, False), (f"k{SPC_K}", SPC_K, False),
+                                ("plain", 1, True)):
+            fits[label] = spc_fit("fno_1d", hp, loaders, dev, k,
+                                  os.path.join(workdir, label),
+                                  skip_nonfinite=True, plain_adam=plain)
+    (one, f1), (kk, fk) = fits["k1"], fits[f"k{SPC_K}"]
+    plain, fp = fits["plain"]
+    steps = SPC_EPOCHS * len(loaders["train"])
+    a, b = np.array(f1["step_losses"]), np.array(fk["step_losses"])
+    c = np.array(fp["step_losses"])
+    weights_equal = all(torch.equal(p, q) for p, q in
+                        zip(one.model.parameters(), kk.model.parameters()))
+    finite = all(bool(torch.isfinite(p).all())
+                 for p in kk.model.parameters())
+    counts = (one.optimizer.step_count, kk.optimizer.step_count,
+              plain.optimizer.step_count)
+    live = ~np.isnan(c)
+    plain_loss_rel = float(np.max(np.abs(a[live] - c[live])
+                                  / np.abs(c[live])))
+    flat = [flat_weights(t.model.parameters()) for t in (one, plain)]
+    diff = (flat[0] - flat[1]).abs()
+    plain_l2 = float(diff.norm() / flat[1].norm())
+    first = int(np.argmax(~np.isnan(c)))     # the first applied update
+    first_equal = bool(np.array_equal(a[:first + 1], c[:first + 1],
+                                      equal_nan=True))
+    plain_ok = (bool(np.array_equal(np.isnan(a), np.isnan(c)))
+                and first_equal
+                and plain_loss_rel <= SPC_PLAIN_FIT_LOSS_RTOL
+                and plain_l2 <= SPC_PLAIN_FIT_WEIGHT_L2)
+    ok = (bool(np.array_equal(a, b, equal_nan=True)) and weights_equal
+          and finite and counts == (steps - SPC_EPOCHS,) * 3
+          and fk["steps"]["replayed"] == steps - 1
+          and int(np.isnan(a).sum()) == SPC_EPOCHS and plain_ok)
+    return {"applied_updates": counts, "steps": steps,
+            "nan_steps": int(np.isnan(a).sum()),
+            "losses_equal": bool(np.array_equal(a, b, equal_nan=True)),
+            "weights_bit_equal": weights_equal, "weights_finite": finite,
+            "k_steps": fk["steps"],
+            "vs_plain_adam": {"step_losses_plain": fp["step_losses"],
+                              "losses_to_first_update_bit_equal":
+                                  first_equal,
+                              "max_step_loss_rel_err": plain_loss_rel,
+                              "weights_rel_l2": plain_l2,
+                              "max_weight_diff_over_lr":
+                                  float(diff.max()) / hp["lr"],
+                              "weights_off_by_over_a_tenth_of_lr":
+                                  int((diff > 0.1 * hp["lr"]).sum()),
+                              "weights": diff.numel(),
+                              "loss_rtol": SPC_PLAIN_FIT_LOSS_RTOL,
+                              "weights_rel_l2_tol": SPC_PLAIN_FIT_WEIGHT_L2,
+                              "ok": plain_ok},
+            "ok": ok}
+
+
+def flat_weights(params) -> torch.Tensor:
+    """Every weight in one f64 vector (a complex one as its two parts)."""
+    return torch.cat([(torch.view_as_real(p) if p.is_complex() else p)
+                      .detach().reshape(-1).double() for p in params])
+
+
+def spc_plain_updates(hp, dev) -> dict:
+    """``train.optim.StepDecayAdam`` (capturable, deciding on the device)
+    against ``PlainAdam`` on the same gradients: FNO-1D's parameters (seed
+    0), SPC_UPDATES seeded gradients (a NaN in two, an inf in one) with
+    ``skip_nonfinite``, the rate decayed every second update; after each
+    update the weights' change from their start within
+    SPC_PLAIN_UPDATE_RTOL relative L2 of the plain one's, and the same
+    updates dropped."""
+    from magnet_tpu_torch.models.factory import create_model
+    from magnet_tpu_torch.train.optim import make_optimizer
+
+    model = create_model("fno_1d", hp, device=dev, seed=0)
+    ours = [p.detach().clone().requires_grad_() for p in model.parameters()]
+    theirs = [p.detach().clone().requires_grad_() for p in ours]
+    args = (hp["lr"], hp["weight_decay"], hp["factor"], 1, 2)
+    opt = make_optimizer(ours, *args, skip_nonfinite=True, max_epochs=8)
+    plain = PlainAdam(theirs, *args, skip_nonfinite=True)
+    start = flat_weights(ours)
+    gen = torch.Generator().manual_seed(5)
+    errs, dropped = [], []
+    for i in range(SPC_UPDATES):
+        grads = [torch.randn(p.shape, dtype=p.dtype, generator=gen) * 1e-2
+                 for p in ours]
+        if i in (2, 5):
+            grads[0].view(-1)[0] = float("nan")
+        if i == 6:
+            grads[-1].view(-1)[-1] = float("inf")
+        for p, q, g in zip(ours, theirs, grads):
+            p.grad, q.grad = g.to(dev), g.to(dev)
+        opt.step()
+        dropped.append(not plain.step())
+        a, b = flat_weights(ours), flat_weights(theirs)
+        errs.append(float((a - b).norm() / (b - start).norm()))
+    ok = (max(errs) <= SPC_PLAIN_UPDATE_RTOL and dropped.count(True) == 3
+          and opt.step_count == plain.step_count == SPC_UPDATES - 3)
+    return {"change_rel_l2_after_each_update": errs,
+            "dropped": dropped, "applied": (opt.step_count,
+                                            plain.step_count),
+            "tol": SPC_PLAIN_UPDATE_RTOL, "ok": ok}
+
+
+def spc_epoch(trainer, loader, epoch: int, profiled: bool) -> dict:
+    """One more epoch of ``trainer``'s chunks on ``loader`` (its batches and
+    graphs made first), timed on the host clock, under ``torch.profiler``
+    when ``profiled``: seconds a step and, traced, the device's busy time
+    and idle share (as ``trace_train.py`` sums device events), device
+    events, CUDA runtime calls and the MPNN kernels (#10, #11) a step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    loader.set_epoch(epoch)
+    pairs = [trainer._host_pair(b) for b in loader]
+    k = trainer.steps_per_call
+    chunks = [pairs[i:i + k] for i in range(0, len(pairs), k)]
+    n = len(pairs)
+    torch.cuda.synchronize()
+    if not profiled:
+        t0 = time.perf_counter()
+        for c in chunks:
+            trainer._run_chunk(c)
+        torch.cuda.synchronize()
+        return {"seconds_per_step": (time.perf_counter() - t0) / n}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for c in chunks:
+            trainer._run_chunk(c)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    devs = [(e.key, e.self_device_time_total / 1e3, e.count) for e in events
+            if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+    busy_ms = sum(ms for _, ms, _ in devs)
+    runtime = {e.key: e.count / n for e in events
+               if e.key.startswith("cuda") and e.count}
+    kernels = {label: sum(c for key, _, c in devs if sym in key) / n
+               for label, sym in (("fused_mpnn_edge_agg_kernel (#10)",
+                                   "fused_mpnn_edge_agg_kernel"),
+                                  ("fused_mpnn_edge_agg_bwd_kernel (#11)",
+                                   "fused_mpnn_edge_agg_bwd_kernel"))}
+    return {"seconds_per_step_traced": wall / n,
+            "device_busy_ms_per_step": busy_ms / n,
+            "device_idle_share_traced": 1.0 - busy_ms / 1e3 / wall,
+            "device_events_per_step": sum(c for _, _, c in devs) / n,
+            "cuda_runtime_calls_per_step": runtime,
+            "mpnn_kernels_per_step_in_trace": kernels}
+
+
+def spc_phases(dev, data, groups) -> tuple[int, list, dict]:
+    """Phase ``spc``: ``Trainer.fit`` of MPNN 1D (its gather lane, #10 and
+    #11) and FNO-1D (cuFFT and cuDNN, no kernel of the port) at their
+    published widths with ``steps_per_call`` = 1, again 1 (the noise), and
+    SPC_K, from the same seed: with SPC_K every chunk shares one graph and
+    runs as replays of a captured CUDA graph.  Per-step losses and final
+    weights against the first k = 1 fit (FNO-1D bit for bit; MPNN 1D within
+    #11's atomics); the MPNN kernels' launches in a profiler trace of each
+    MPNN fit (held against the wrappers' counts of the k = 1 fits, and for
+    SPC_K against the wrappers' eager launches plus a captured step's
+    launches for each replay) and in a profiler trace of an epoch of
+    replays; seconds a step (an epoch each way, in turns), the device's
+    idle share and launches a step, each way.  Returns the MPNN kernels'
+    launches in the fits' traces as extra counts of their rows."""
+    from magnet_tpu_torch.config import FNO_1D, MPNN
+
+    t_phase = time.perf_counter()
+    smi = card()
+    records, extra = [], {}
+    for name in SPC_MODELS:
+        hp = dict(MPNN if name == "mpnn" else FNO_1D)
+        loaders = data[f"spc_{name}_loaders"]
+        per_epoch = len(loaders["train"])
+        fits, trainers = {}, {}
+        t_model = time.perf_counter()
+        with tempfile.TemporaryDirectory() as workdir:
+            for label, k in (("k1", 1), ("k1_again", 1), (f"k{SPC_K}", SPC_K)):
+                d = os.path.join(workdir, label)
+                trainers[label], fits[label] = spc_fit(
+                    name, hp, loaders, dev, k, d,
+                    profiled=name == "mpnn" and label != "k1_again")
+        base, again = fits["k1"], fits["k1_again"]
+        got = fits[f"k{SPC_K}"]
+        w = {lbl: {n: p.detach() for n, p in t.model.named_parameters()}
+             for lbl, t in trainers.items()}
+        flat = {lbl: torch.cat([v.reshape(-1).double() if not v.is_complex()
+                                else torch.view_as_real(v).reshape(-1)
+                                .double() for v in ws.values()])
+                for lbl, ws in w.items()}
+
+        def weights_l2(lbl):
+            return float((flat[lbl] - flat["k1"]).norm()
+                         / flat["k1"].norm())
+
+        worst_p, worst_n = rel_l2_of(
+            {n: torch.view_as_real(v) if v.is_complex() else v
+             for n, v in w[f"k{SPC_K}"].items()},
+            {n: torch.view_as_real(v) if v.is_complex() else v
+             for n, v in w["k1"].items()})
+        bit_equal = all(torch.equal(w[f"k{SPC_K}"][n], w["k1"][n])
+                        for n in w["k1"])
+        losses = np.array(got["step_losses"])
+        want_losses = np.array(base["step_losses"])
+        loss_rel = float(np.max(np.abs(losses - want_losses)
+                                / np.abs(want_losses)))
+        n_steps = SPC_EPOCHS * per_epoch
+        steps = got["steps"]
+        captured = (steps["captured"] == 1 and got["captures"] == 1
+                    and steps["replayed"] == n_steps - steps["eager"]
+                    and steps["eager"] == 1)
+        rec = {"model": name, "batch_size": loaders["train"].batch_size,
+               "steps_per_epoch": per_epoch, "epochs": SPC_EPOCHS,
+               "k": SPC_K, "steps": steps, "captured_as_expected": captured,
+               "step_losses": {"k1": base["step_losses"],
+                               "k1_again": again["step_losses"],
+                               f"k{SPC_K}": got["step_losses"]},
+               "max_step_loss_rel_err": loss_rel,
+               "weights_rel_l2": weights_l2(f"k{SPC_K}"),
+               "weights_rel_l2_k1_again": weights_l2("k1_again"),
+               "worst_param_rel_l2": worst_p, "worst_param": worst_n,
+               "weights_bit_equal": bit_equal,
+               "seconds_per_step_last_epoch": {
+                   "k1": base["seconds_per_step_last_epoch"],
+                   f"k{SPC_K}": got["seconds_per_step_last_epoch"]}}
+        if name == "mpnn":
+            loader = loaders["train"]
+            loader.set_epoch(0)
+            lane = trainers["k1"]._host_pair(next(iter(loader)))[1].lane
+            # #10 and #11 in each fit's profiler trace (training and
+            # validation): the wrappers count every launch of a k = 1 fit,
+            # but of the k = SPC_K fit only its eager steps' and its
+            # validation's (no launch while a step is captured, and a
+            # replay passes no wrapper); cross-check: the trace has a
+            # captured step's launches for each replay besides
+            per_step = base["launches_counted"].get("bwd_gather", 0) // n_steps
+            counted, traced = got["launches_counted"], got["launches_traced"]
+            cross = {key: counted.get(key, 0) + per_step * steps["replayed"]
+                     for key in MPNN_SYMBOLS}
+            k1_traced_as_counted = base["launches_traced"] == {
+                key: base["launches_counted"].get(key, 0)
+                for key in MPNN_SYMBOLS}
+            launches_ok = (lane == "gather" and per_step > 0
+                           and k1_traced_as_counted and traced == cross
+                           and traced == base["launches_traced"]
+                           and counted.get("bwd_gather")
+                           == per_step * steps["eager"])
+            ok = (captured and launches_ok
+                  and loss_rel <= SPC_MPNN_LOSS_RTOL
+                  and rec["weights_rel_l2"] <= SPC_MPNN_WEIGHT_L2)
+            rec.update(lane=lane, launches_per_step=per_step,
+                       launches_traced={lbl: f["launches_traced"]
+                                        for lbl, f in fits.items()
+                                        if f["fit_profiled"]},
+                       launches_counted={lbl: f["launches_counted"]
+                                         for lbl, f in fits.items()},
+                       launches_counted_plus_replays=cross,
+                       k1_traced_as_counted=k1_traced_as_counted,
+                       launches_ok=launches_ok,
+                       loss_rtol=SPC_MPNN_LOSS_RTOL,
+                       weights_rel_l2_tol=SPC_MPNN_WEIGHT_L2)
+            # the k = 1 fits' wrappers' counts (the first one's equal to
+            # its trace) and the k = SPC_K fit's trace
+            for row, key in (("fused_mpnn_edge_agg2r", "fwd_gather"),
+                             ("fused_mpnn_edge_agg2r_bwd", "bwd_gather")):
+                extra[row] = {"launches_spc": base["launches_counted"][key]
+                              + again["launches_counted"][key]
+                              + traced[key]}
+            print(f"spc mpnn: #10 / #11 launches in the fits' traces "
+                  f"{rec['launches_traced']}; k={SPC_K} fit's wrappers "
+                  f"{counted} + {per_step} a replay x {steps['replayed']} "
+                  f"replays = {cross}", flush=True)
+        else:
+            no_kernels = not any(f["launches_counted"] for f in fits.values())
+            nan = spc_nonfinite(hp, data["spc_fno_1d_nan_loaders"], dev)
+            updates = spc_plain_updates(hp, dev)
+            ok = (captured and no_kernels and bit_equal and nan["ok"]
+                  and updates["ok"] and np.array_equal(losses, want_losses))
+            rec.update(no_kernel_launches=no_kernels,
+                       losses_bit_equal=bool(np.array_equal(losses,
+                                                            want_losses)),
+                       skip_nonfinite=nan, vs_plain_adam_updates=updates)
+            print(f"spc optimizer vs plain Adam: same gradients "
+                  f"{updates['change_rel_l2_after_each_update']} (dropped "
+                  f"{updates['dropped']}); fit with a NaN "
+                  f"{nan['vs_plain_adam']}", flush=True)
+        # an epoch each way on the host clock, in turns, then one traced
+        rec["seconds_checks"] = time.perf_counter() - t_model
+        one, kk = trainers["k1"], trainers[f"k{SPC_K}"]
+        turns = {"k1": [], f"k{SPC_K}": []}
+        for i, (lbl, t) in enumerate((("k1", one), (f"k{SPC_K}", kk),
+                                      (f"k{SPC_K}", kk), ("k1", one))):
+            turns[lbl].append(spc_epoch(t, loaders["train"], SPC_EPOCHS + i,
+                                        False)["seconds_per_step"])
+        rec["seconds_per_step_in_turns"] = turns
+        rec["traced"] = {lbl: spc_epoch(t, loaders["train"], SPC_EPOCHS + 4,
+                                        True)
+                         for lbl, t in (("k1", one), (f"k{SPC_K}", kk))}
+        if name == "mpnn":
+            traced = rec["traced"][f"k{SPC_K}"]["mpnn_kernels_per_step_in_trace"]
+            in_replays = all(v == per_step for v in traced.values())
+            rec["mpnn_kernels_in_replays"] = in_replays
+            ok = ok and in_replays
+        rec["ok"] = bool(ok)
+        rec["seconds"] = time.perf_counter() - t_model
+        records.append(rec)
+        tr = rec["traced"]
+        print(f"spc {name} (batch {rec['batch_size']}, {per_epoch} steps an "
+              f"epoch): k=1 / k={SPC_K} s a step "
+              f"{rec['seconds_per_step_in_turns']}, idle share traced "
+              f"{tr['k1']['device_idle_share_traced']} / "
+              f"{tr[f'k{SPC_K}']['device_idle_share_traced']}, device events "
+              f"a step {tr['k1']['device_events_per_step']} / "
+              f"{tr[f'k{SPC_K}']['device_events_per_step']}; losses "
+              f"{rec['max_step_loss_rel_err']} from k=1, weights "
+              f"{rec['weights_rel_l2']} (k=1 again "
+              f"{rec['weights_rel_l2_k1_again']}) ({smi})", flush=True)
+        del trainers, one, kk
+        if not ok:
+            break
+    ok = (len(records) == len(SPC_MODELS)
+          and all(r["ok"] for r in records))
+    emit({"phase": "spc", "nvidia_smi": smi, "torch": torch.__version__,
+          "records": records, "seconds": time.perf_counter() - t_phase,
+          "ok": ok})
+    if not ok:
+        return 47, [], {}
+    return 0, [], extra
+
+
 def regular_32(eval64: dict) -> dict:
     """MAgNet[GNN] 2D's eval split: every second row and column of the eval
     solves' 64 x 64 grid, the solver's own 32 x 32 output."""
@@ -6118,14 +6787,14 @@ def make_data(groups) -> dict:
         nt, res = DATAMODULE_GRAPH_2D["nt_train"], DATAMODULE_GRAPH_2D["res_train"]
         jobs = {}
         if {"cnn", "gnn", "no_interaction", "cnn_bf16", "gnn_bf16",
-                "cnn_pe", "gnn_pre", "par", "par_dist"} & groups:
+                "cnn_pe", "gnn_pre", "par", "par_dist", "remat"} & groups:
             jobs["ks"] = splits(ks_cfg)
         if {"mpnn_paths", "cnn2d", "cnn2d_bf16", "cnn_pe",
-                "gnn_pre", "par"} & groups:
+                "gnn_pre", "par", "remat"} & groups:
             jobs["b2d"] = {split: pool.submit(
                 make_split, "B2D", MPNN_2D_DATA[f"n_{split}"], nt, res, seed=i)
                 for i, split in enumerate(SPLITS)}
-        if {"cnn2d", "cnn2d_bf16", "cnn_pe", "gnn_pre"} & groups:
+        if {"cnn2d", "cnn2d_bf16", "cnn_pe", "gnn_pre", "remat"} & groups:
             jobs["b2d_extra"] = pool.submit(make_split, "B2D",
                                             CNN2D_EXTRA_TRAIN, nt, res, seed=3)
         if "mpnn_paths" in groups:
@@ -6145,11 +6814,16 @@ def make_data(groups) -> dict:
             jobs["b2d64_train"] = [pool.submit(make_split, "B2D", DATA_CHUNK,
                                                nt2, res2, seed=100 + i)
                                    for i in range(chunks)]
-        if "fno" in groups:
+        if {"fno", "spc"} & groups:
             nt1, nx1 = DATAMODULE_1D["nt_train"], DATAMODULE_1D["nx_train"]
             jobs["e3"] = [pool.submit(make_split, "E3", DATA_CHUNK, nt1, nx1,
                                       seed=200 + i, n_steps=CE_STEPS)
                           for i in range(CE_TRAJ // DATA_CHUNK)]
+        if "spc" in groups:
+            jobs["e3_spc"] = [pool.submit(make_split, "E3", DATA_CHUNK, nt1,
+                                          nx1, seed=200 + i, n_steps=CE_STEPS)
+                              for i in range(CE_TRAJ // DATA_CHUNK,
+                                             SPC_TRAJ // DATA_CHUNK)]
 
         if {"cnn", "no_interaction", "cnn_bf16", "cnn_pe", "par",
                 "par_dist"} & groups:
@@ -6178,7 +6852,7 @@ def make_data(groups) -> dict:
                 {**DATAMODULE_GRAPH, **MPNN_1D_DATA, "source": "h5",
                  **arrays(jobs["ce"])}, seed=0)
             data["ce_seconds"] = time.perf_counter() - t0
-        if {"gnn", "gnn_bf16", "gnn_pre", "par"} & groups:
+        if {"gnn", "gnn_bf16", "gnn_pre", "par", "remat"} & groups:
             # the cnn group's KS and Heat trajectories
             ks = arrays(jobs["ks"])
             data["gnn_loaders"] = build_loaders(
@@ -6214,6 +6888,22 @@ def make_data(groups) -> dict:
                 {**DATAMODULE_1D, **{f"{split}_path": e3 for split in SPLITS}},
                 seed=0, shuffle_eval=False)
             data["fno_seconds"] = time.perf_counter() - t0
+        if "spc" in groups:
+            # SPC_TRAJ E3 trajectories for training, the fno group's 32 for
+            # validation and test, in the MPNN-1D and the FNO-1D datamodules
+            e3 = {f"{split}_path": joined(jobs["e3"]) for split in SPLITS}
+            e3["train_path"] = joined(jobs["e3"] + jobs["e3_spc"])
+            for key, dm in (("spc_mpnn_loaders", DATAMODULE_GRAPH),
+                            ("spc_fno_1d_loaders", DATAMODULE_1D)):
+                data[key] = build_loaders({**dm, **e3}, seed=0,
+                                          shuffle_eval=False)
+            # and with a NaN in one training trajectory's targets
+            nan = joined(jobs["e3"] + jobs["e3_spc"])
+            nan[f"pde_{nt1}-{nx1}"][5, 30, 7] = np.nan
+            data["spc_fno_1d_nan_loaders"] = build_loaders(
+                {**DATAMODULE_1D, **e3, "train_path": nan}, seed=0,
+                shuffle_eval=False)
+            data["spc_seconds"] = time.perf_counter() - t0
     return data
 
 
@@ -6275,7 +6965,9 @@ def main(argv) -> int:
                                 (("cnn_pe",), cnn_pe_phases),
                                 (("gnn_pre",), gnn_pre_phases),
                                 (("par", "par_dist"), par_phases),
-                                (("tune",), tune_phases)):
+                                (("tune",), tune_phases),
+                                (("remat",), remat_phases),
+                                (("spc",), spc_phases)):
         if set(group_names) & set(groups):
             rc, entries, more = phases(dev, data, groups)
             kernels += entries

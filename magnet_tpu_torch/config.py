@@ -11,11 +11,12 @@ the JAX model);
 ``datamodule/h5_datamodule_{implicit,implicit_2d,graph,graph_2d,
 implicit_gnn,implicit_gnn_2d}.yaml``, ``h5_datamodule.yaml`` and
 ``h5_datamodule_2d.yaml`` (each plus the keys of its synthetic source,
-which stands in for the files; ``num_workers`` is not ported),
-``TRAINER`` is ``trainer/default.yaml`` without the keys of what is not
-ported (``steps_per_call``, ``precision``, ``log_every``), with the JAX
-``run.py``'s ``graph_shards`` and ``graph_halo``
-(``magnet_tpu_torch.run`` launches the mesh),
+which stands in for the files; ``num_workers`` > 0 collates on a prefetch
+thread, ``data.loader``), ``TRAINER`` is ``trainer/default.yaml``
+(``steps_per_call``: captured CUDA graphs of training steps, ``precision``:
+TF32 or not for cuBLAS and cuDNN, ``log_every``: read nowhere, as in the
+JAX trainer), with the JAX ``run.py``'s ``graph_shards`` and
+``graph_halo`` (``magnet_tpu_torch.run`` launches the mesh),
 ``CALLBACKS`` the early-stopping patience of ``callbacks/default.yaml``,
 ``SWEEP`` the root config's ``sweep`` keys.
 ``HEAT_TEST`` is the datamodule's test split (Heat).
@@ -145,6 +146,7 @@ DATAMODULE_IMPLICIT = {
     "sampling": "uniform",
     "samples": 32,
     "batch_size": 32,
+    "num_workers": 0,
     "eval_support": "lr",
     # synthetic_ks only: trajectories per split, their seed, KS burn-in
     "n_train": 64,
@@ -175,6 +177,7 @@ DATAMODULE_IMPLICIT_2D = {
     "res_test": 64,
     "samples": 32,
     "batch_size": 32,
+    "num_workers": 3,
     # synthetic_burgers_2d only: trajectories per split and their seed
     "n_train": 64,
     "n_val": 8,
@@ -196,6 +199,7 @@ DATAMODULE_GRAPH = {
     "nt_test": 250,
     "nx_test": 50,
     "batch_size": 32,
+    "num_workers": 0,
     # synthetic_ce only: trajectories per split, their seed, the combined
     # equation's preset and its solver's time steps
     "n_train": 64,
@@ -223,6 +227,7 @@ DATAMODULE_GRAPH_2D = {
     "val_regular": True,
     "test_regular": True,
     "batch_size": 4,
+    "num_workers": 3,
     # synthetic_burgers_2d only: trajectories per split and their seed
     "n_train": 16,
     "n_val": 4,
@@ -252,6 +257,7 @@ DATAMODULE_IMPLICIT_GNN_2D = {
     # res_train=512)
     "n_nodes_train": None,
     "batch_size": 32,
+    "num_workers": 3,
     # synthetic_burgers_2d only: trajectories per split and their seed; an
     # irregular split's nodes are drawn from a 64 x 64 grid, uniform or
     # concentrated around a random point
@@ -282,6 +288,7 @@ DATAMODULE_2D = {
     "nt_test": 50,
     "res_test": 64,
     "batch_size": 32,
+    "num_workers": 3,
     # synthetic_burgers_2d only: trajectories per split and their seed
     "n_train": 64,
     "n_val": 8,
@@ -304,9 +311,10 @@ MODELS = {
 #: hp keys a model reads beyond its YAML, with their defaults (the JAX
 #: ``run.py`` takes any dotted key, ``magnet_tpu/config/core.py``): the
 #: GraphNet models' compute dtype ``graph_dtype`` (float32 or bf16,
-#: ``models.common.parse_dtype``).  A run's model config holds such a key
-#: only where it was given.
-MODEL_EXTRAS = {name: {"graph_dtype": "float32"}
+#: ``models.common.parse_dtype``) and ``remat`` (each processor step
+#: recomputed in the backward).  A run's model config holds such a key only
+#: where it was given.
+MODEL_EXTRAS = {name: {"graph_dtype": "float32", "remat": False}
                 for name in ("magnet_cnn", "magnet_cnn_2d", "magnet_gnn")}
 #: every datamodule ``datamodule=<name>`` reaches, the models' own and
 #: MAgNet[GNN]'s 2D one
@@ -327,12 +335,16 @@ HEAT_TEST = {"nt": DATAMODULE_IMPLICIT["nt_test"],
 
 TRAINER = {
     "max_epochs": 100,
+    "precision": "default",  # tensorfloat32 | high: TF32 in cuBLAS / cuDNN
     "devices": 1,           # dp size; -1: every rank the graph axis leaves
     "graph_shards": 1,      # graph axis size: each sample's graph split
     "graph_halo": False,    # false: all-gather; true / fused: halo exchange;
                             # overlap: halo behind the interior edges; ring:
                             # overlap, the exchange as G - 1 rotations
+    "log_every": 10,
     "check_val_every": 1,
+    "steps_per_call": 1,    # k > 1: chunks of k steps, as replays of a
+                            # captured CUDA graph where the chunk allows it
     "skip_nonfinite": False,
     "grad_clip": 0.0,
     "best_weights_only": False,

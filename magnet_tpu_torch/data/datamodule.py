@@ -126,12 +126,17 @@ def build_loaders(cfg: dict[str, Any], seed: int = 0,
                   shuffle_eval: bool = True) -> dict:
     ds = build_datasets(cfg)
     bs = int(cfg.get("batch_size", 32))
+    # num_workers > 0: a prefetch thread, as the JAX datamodule's
+    prefetch = 2 if cfg.get("num_workers", 0) else 0
     return {
-        "train": DataLoader(ds["train"], bs, shuffle=True, seed=seed),
+        "train": DataLoader(ds["train"], bs, shuffle=True, seed=seed,
+                            prefetch=prefetch),
         "val": DataLoader(ds["val"], min(bs, len(ds["val"])),
-                          shuffle=shuffle_eval, seed=seed + 1),
+                          shuffle=shuffle_eval, seed=seed + 1,
+                          prefetch=prefetch),
         "test": DataLoader(ds["test"], min(bs, len(ds["test"])),
-                           shuffle=shuffle_eval, seed=seed + 2),
+                           shuffle=shuffle_eval, seed=seed + 2,
+                           prefetch=prefetch),
     }
 
 

@@ -44,7 +44,7 @@ class MAgNetCNN2DCore(nn.Module):
                  num_message_passing_steps: int = 10, mlp_layers: int = 4,
                  mlp_hidden: int = 64, n_chan: int = 128, kernel_size: int = 3,
                  res_scale: float = 1.0, res_layers: int = 16,
-                 graph_dtype=None):
+                 graph_dtype=None, remat: bool = False):
         super().__init__()
         tc = time_slice * N_FIELDS
         self.time_slice = time_slice
@@ -59,7 +59,8 @@ class MAgNetCNN2DCore(nn.Module):
         self._encoder = GraphEncoder(tc + 3, tc + 2, latent_dim, latent_dim,
                                      mlp_layers, mlp_hidden, graph_dtype)
         self._processor = GraphProcessor(latent_dim, num_message_passing_steps,
-                                         mlp_layers, mlp_hidden, graph_dtype)
+                                         mlp_layers, mlp_hidden, graph_dtype,
+                                         remat)
         self._decoder = GraphDecoder(latent_dim, time_slice, mlp_layers,
                                      mlp_hidden, graph_dtype)
 
@@ -119,6 +120,7 @@ class MAgNetCNN2D(MAgNetCNNTask, MAgNetCNN2DCore):
             res_scale=float(hp.get("res_scale", 1.0)),
             res_layers=int(hp.get("res_layers", 16)),
             graph_dtype=parse_dtype(hp.get("graph_dtype")),
+            remat=bool(hp.get("remat", False)),
         )
         self._task_init(hp, radius=0.1)
 

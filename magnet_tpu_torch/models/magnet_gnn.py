@@ -19,7 +19,8 @@ the INR decode being node-local): the rollout and losses are the same.
 ``graph_dtype`` (None: f32; bf16) is the compute dtype of both GraphNet
 stages (the two encoders, the two processors and the decoder), as the JAX
 core's ``gk``/``pk`` pass it; the k-NN head and the projector stay f32.
-Not ported: ``remat``.
+``remat`` (hp key, as the JAX model reads it) recomputes each step of both
+processors in the backward (``nn.graphnet.GraphProcessor``).
 """
 from __future__ import annotations
 
@@ -79,7 +80,7 @@ class MAgNetGNNCore(nn.Module):
                  num_message_passing_steps: int = 5, mlp_layers: int = 4,
                  mlp_hidden: int = 128, n_chan: int = 128,
                  interpolation: str = "area", pos_dim: int = 1,
-                 graph_dtype=None):
+                 graph_dtype=None, remat: bool = False):
         super().__init__()
         tc = time_slice * N_FIELDS
         self.time_slice = time_slice
@@ -88,7 +89,7 @@ class MAgNetGNNCore(nn.Module):
         enc = (tc + pos_dim + 1, tc + pos_dim, latent_dim, latent_dim,
                mlp_layers, mlp_hidden, graph_dtype)
         proc = (latent_dim, num_message_passing_steps, mlp_layers, mlp_hidden,
-                graph_dtype)
+                graph_dtype, remat)
         self.encoder = GraphEncoder(*enc)
         self.processor = GraphProcessor(*proc)
         self.proj_head = KNNDecoder(latent_dim + N_FIELDS + pos_dim + 1,
@@ -165,6 +166,7 @@ class MAgNetGNN(OwnGenerator, PartitionedGraphMixin, MAgNetGNNCore):
             interpolation=hp.get("interpolation", "area"),
             pos_dim=pos_dim,
             graph_dtype=parse_dtype(hp.get("graph_dtype")),
+            remat=bool(hp.get("remat", False)),
         )
         self.radius = float(hp.get("radius", 0.08))
         self.teacher_forcing = bool(hp.get("teacher_forcing", True))

@@ -59,6 +59,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from magnet_tpu_torch.nn.core import MLP, LayerNorm
 from magnet_tpu_torch.ops.fused_edge import (
@@ -297,12 +298,22 @@ class InteractionNetwork(nn.Module):
 class GraphProcessor(nn.Module):
     """A stack of InteractionNetworks; step k gets the edge scale 2^k.  In
     a compute ``dtype`` the node and edge latents are cast to it at the
-    entry."""
+    entry.
+
+    ``remat`` (the JAX processor's ``fnn.remat`` of each step,
+    ``magnet_tpu/nn/graphnet.py:432-440``) keeps no step's activations for
+    the backward: each step runs under ``torch.utils.checkpoint`` and is
+    run again, on the same lane and the same kernel, when the backward
+    reaches it, so each step's forward kernel launches twice a training
+    step and its backward kernel once.  The partitioned processor
+    (``parallel.graph_partition``) ignores it, as the JAX package's does.
+    """
 
     def __init__(self, latent: int, num_steps: int, mlp_layers: int,
-                 mlp_hidden: int, dtype=None):
+                 mlp_hidden: int, dtype=None, remat: bool = False):
         super().__init__()
         self.dtype = dtype
+        self.remat = bool(remat)
         self.gnn_stacks = nn.ModuleList(
             InteractionNetwork(latent, mlp_layers, mlp_hidden, dtype)
             for _ in range(num_steps))
@@ -325,10 +336,16 @@ class GraphProcessor(nn.Module):
         e0·2^num_steps, is read by no caller and is not formed."""
         if self.dtype is not None:
             x, e0 = x.to(self.dtype), e0.to(self.dtype).contiguous()
-        scale = 1.0
-        for step in self.gnn_stacks:
-            x = step(x, e0, graph, e_scale=scale, impl=impl)
-            scale *= 2.0
+        remat = self.remat and torch.is_grad_enabled()
+        for k, step in enumerate(self.gnn_stacks):
+            if remat:
+                # the step's scale 2^k is an argument, so the recompute
+                # takes the first pass's lane, kernel and edge scale; a step
+                # draws no random numbers, so no RNG state is kept for it
+                x = checkpoint(step, x, e0, graph, 2.0 ** k, impl,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = step(x, e0, graph, e_scale=2.0 ** k, impl=impl)
         return x
 
 

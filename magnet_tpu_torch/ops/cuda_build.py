@@ -15,6 +15,8 @@ import subprocess
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import torch
+
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 #: every kernel source of the port (``csrc/<name>.cu``).
@@ -81,3 +83,12 @@ def function(name: str, argtypes: list, symbol: str | None = None):
         fn.restype = ctypes.c_int
         _FUNCTIONS[symbol] = (lib, fn)  # the library stays referenced with it
     return _FUNCTIONS[symbol][1]
+
+
+def launching() -> bool:
+    """Whether a kernel enqueued now launches now: not while the current
+    stream is captured into a CUDA graph, where the kernel is recorded and
+    launches with each replay.  The wrappers' launch counters count only
+    such launches."""
+    return not (torch.cuda.is_initialized()
+                and torch.cuda.is_current_stream_capturing())

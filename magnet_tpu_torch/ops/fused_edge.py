@@ -257,7 +257,14 @@ def _count(entry: str, widths: tuple, bwd: bool) -> None:
             else "launches_pregathered128"
             if entry == "pregathered" and widths[0] == 128
             else f"launches_{entry}")
-    globals()[name + ("_bwd" if bwd else "")] += 1
+    _bump(name + ("_bwd" if bwd else ""))
+
+
+def _bump(counter: str) -> None:
+    """One launch on ``counter`` (none while a CUDA graph is captured:
+    ``cuda_build.launching``)."""
+    if cuda_build.launching():
+        globals()[counter] += 1
 
 
 def _receivers(rowptr):
@@ -964,7 +971,7 @@ def _launch_bf16_fwd(e0, we, be, pxj, pxi, senders, rowptr, *tail):
                  n, E, ce, h, c, l1, stream)
     if err != 0:
         raise RuntimeError(f"{BF16_FWD} launch failed: cudaError {err}")
-    globals()["launches_bf16"] += 1
+    _bump("launches_bf16")
     return out
 
 
@@ -1010,7 +1017,7 @@ def _launch_bf16_bwd(e0, we, be, pxj, pxi, senders, rowptr, *tail_and_g):
             n, E, ce, h, c, l1, n_blocks, stream)
     if err != 0:
         raise RuntimeError(f"{BF16_BWD} launch failed: cudaError {err}")
-    globals()["launches_bf16_bwd"] += 1
+    _bump("launches_bf16_bwd")
     d_we, d_be, d_wr, d_br, d_wo, d_bo, d_ls, d_lb = wgrad.split(sizes)
     bf = torch.bfloat16
     return (d_e0, d_we.view(ce, h).to(bf), d_be.to(bf), d_nodes[0].to(bf),
@@ -1097,7 +1104,7 @@ def _launch_pregathered_bf16_fwd(h0, pxi, rowptr, *tail):
                  n, E, h, c, l1, stream)
     if err != 0:
         raise RuntimeError(f"{BF16_PRE_FWD} launch failed: cudaError {err}")
-    globals()["launches_pregathered_bf16"] += 1
+    _bump("launches_pregathered_bf16")
     return out
 
 
@@ -1134,7 +1141,7 @@ def _launch_pregathered_bf16_bwd(h0, pxi, rowptr, *tail_and_g):
             d_pxi, wgrad, partial)), n, E, h, c, l1, n_blocks, stream)
     if err != 0:
         raise RuntimeError(f"{BF16_PRE_BWD} launch failed: cudaError {err}")
-    globals()["launches_pregathered_bf16_bwd"] += 1
+    _bump("launches_pregathered_bf16_bwd")
     d_wr, d_br, d_wo, d_bo, d_ls, d_lb = wgrad.split(sizes)
     bf = torch.bfloat16
     return (d_h0, d_pxi.to(bf), d_wr.view(l1, h, h).to(bf),
@@ -1264,7 +1271,7 @@ def _launch_bf16_w128_fwd(entry, src, we, be, pxj, pxi, senders, rowptr,
                  n, E, l1, ENTRY[entry], stream)
     if err != 0:
         raise RuntimeError(f"{BF16_W128_FWD} launch failed: cudaError {err}")
-    globals()[_W128_COUNTER[entry]] += 1
+    _bump(_W128_COUNTER[entry])
     return out
 
 
@@ -1310,7 +1317,7 @@ def _launch_bf16_w128_bwd(entry, src, we, be, pxj, pxi, senders, rowptr,
                  None, n, E, l1, ENTRY[entry], n_sm, stream)
     if err != 0:
         raise RuntimeError(f"{BF16_W128_BWD} launch failed: cudaError {err}")
-    globals()[_W128_COUNTER[entry] + "_bwd"] += 1
+    _bump(_W128_COUNTER[entry] + "_bwd")
     bf = torch.bfloat16
     d_w = wgrad[:weights].view(n_w, h, h)
     d_b = wgrad[weights:].view(n_w + 2, h)
@@ -1342,7 +1349,7 @@ def _launch_pe64_bf16_fwd(pe, pxj, pxi, senders, rowptr, *tail):
                  n, E, h, c, l1, stream)
     if err != 0:
         raise RuntimeError(f"{BF16_PE_FWD} launch failed: cudaError {err}")
-    globals()["launches_pe64_bf16"] += 1
+    _bump("launches_pe64_bf16")
     return out
 
 
@@ -1374,7 +1381,7 @@ def _launch_pe64_bf16_bwd(pe, pxj, pxi, senders, rowptr, *tail_and_g):
             stream)
     if err != 0:
         raise RuntimeError(f"{BF16_PE_BWD} launch failed: cudaError {err}")
-    globals()["launches_pe64_bf16_bwd"] += 1
+    _bump("launches_pe64_bf16_bwd")
     d_wr, d_br, d_wo, d_bo, d_ls, d_lb = wgrad.split(sizes)
     bf = torch.bfloat16
     return (d_pe, dz, d_pxi.to(bf), d_wr.view(l1, h, h).to(bf),

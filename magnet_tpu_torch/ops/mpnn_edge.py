@@ -176,7 +176,8 @@ def _launch_fwd(src, pr, w, b, senders, rowptr):
                  part.data_ptr(), n, e, h, int(gather), stream)
     if err != 0:
         raise RuntimeError(f"fused_mpnn_edge_agg launch failed: cudaError {err}")
-    launches["fwd_gather" if gather else "fwd_pregathered"] += 1
+    if cuda_build.launching():
+        launches["fwd_gather" if gather else "fwd_pregathered"] += 1
     return out
 
 
@@ -212,7 +213,8 @@ def _launch_bwd(src, pr, w, b, senders, rowptr, g):
     if err != 0:
         raise RuntimeError(
             f"fused_mpnn_edge_agg_bwd launch failed: cudaError {err}")
-    launches["bwd_gather" if gather else "bwd_pregathered"] += 1
+    if cuda_build.launching():
+        launches["bwd_gather" if gather else "bwd_pregathered"] += 1
     return d_src, d_pr, wgrad[:h * h].view(h, h), wgrad[h * h:]
 
 

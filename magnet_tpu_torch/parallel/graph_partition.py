@@ -723,7 +723,10 @@ def graphnet_processor(processor, nf: torch.Tensor, efs: list,
     brings the sender rows (``sender_tables``) and runs the port's
     ``InteractionNetwork`` on each held shard graph, its receivers the local
     rows, or, overlap and ring, runs ``overlap_step``; the result,
-    (B * n_node, C), is gathered."""
+    (B * n_node, C), is gathered.  The processor's ``remat`` is not read:
+    the JAX package's partitioned processor
+    (``magnet_tpu/models/partitioned_mixin.py``) keeps every step's
+    activations too."""
     nf = nf.float()
     efs = [e.float().contiguous() for e in efs]
     xs = node_blocks(nf, part)

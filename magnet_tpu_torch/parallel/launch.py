@@ -22,17 +22,17 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from magnet_tpu_torch.parallel.mesh import backend_of
+from magnet_tpu_torch.utils import set_precision
 
 #: seconds a launch may take, the group's timeout too
 TIMEOUT_S = 60
 
 
-def _rank_main(rank, fn, world, args, device, tmp, timeout_s):
-    # f32 throughout, as the entry points set it; the host's cores shared
-    # by the ranks (torchrun likewise starts each with few threads), and a
-    # gloo rank's work is small: one thread
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+def _rank_main(rank, fn, world, args, device, tmp, timeout_s, precision):
+    # f32 unless ``precision`` asks for TF32, as the entry points set it;
+    # the host's cores shared by the ranks (torchrun likewise starts each
+    # with few threads), and a gloo rank's work is small: one thread
+    set_precision(precision)
     if torch.device(device).type == "cuda":
         torch.cuda.set_device(rank)
         torch.set_num_threads(max(1, min(4, (os.cpu_count() or 1)
@@ -51,15 +51,18 @@ def _rank_main(rank, fn, world, args, device, tmp, timeout_s):
 
 
 def run_ranks(fn, world: int, args: tuple = (), device="cuda",
-              timeout_s: float = TIMEOUT_S) -> list:
+              timeout_s: float = TIMEOUT_S, precision="default") -> list:
     """``fn(rank, world, *args)`` on ``world`` spawned ranks over NCCL
-    (``device`` cuda, rank r on card r) or gloo (cpu); returns each rank's
-    result in rank order.  Raises the first failure of a rank, and
-    ``TimeoutError`` (the ranks killed) when they have not all finished
-    within ``timeout_s`` seconds."""
+    (``device`` cuda, rank r on card r) or gloo (cpu), each with cuBLAS's
+    and cuDNN's f32 products as ``precision`` (``trainer.precision``:
+    ``utils.set_precision``) sets them; returns each rank's result in rank
+    order.  Raises the first failure of a rank, and ``TimeoutError`` (the
+    ranks killed) when they have not all finished within ``timeout_s``
+    seconds."""
     with tempfile.TemporaryDirectory(prefix="magnet_ranks_") as tmp:
         ctx = mp.start_processes(
-            _rank_main, args=(fn, world, args, str(device), tmp, timeout_s),
+            _rank_main, args=(fn, world, args, str(device), tmp, timeout_s,
+                              precision),
             nprocs=world, join=False, start_method="spawn")
         deadline = time.monotonic() + timeout_s
         try:

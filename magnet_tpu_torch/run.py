@@ -7,7 +7,18 @@ Usage (on the card; ``device=cpu`` runs the plain PyTorch path):
       [datamodule=NAME] \\
       [datamodule.source=synthetic_ks|synthetic_ce|synthetic_burgers_2d] \\
       [model.params.lr=1e-4] [seed=21] [trainer.max_epochs=250] [name=run] \\
-      [ckpt_path=.../last.pt]
+      [ckpt_path=.../last.pt] [model.params.remat=true] \\
+      [trainer.steps_per_call=4] [trainer.precision=tensorfloat32] \\
+      [datamodule.num_workers=3]
+
+``trainer.steps_per_call=k`` runs k steps a chunk, as replays of a captured
+CUDA graph where the chunk allows it (``train.trainer``);
+``trainer.precision`` ``tensorfloat32`` or ``high`` lets cuBLAS and cuDNN
+use TF32 (any other value: f32; the port's own kernels are not affected);
+``trainer.log_every`` is accepted and read nowhere, as in the repo;
+``datamodule.num_workers`` > 0 collates the batches on a prefetch thread;
+``model.params.remat`` recomputes the GraphNet processors' steps in the
+backward.
 
 Data and graph parallelism, one rank a card:
   torchrun --nproc_per_node=N -m magnet_tpu_torch.run \\
@@ -43,6 +54,7 @@ from magnet_tpu_torch.data.datamodule import build_loaders
 from magnet_tpu_torch.models.factory import create_model, resolve_device
 from magnet_tpu_torch.parallel.mesh import init_distributed, make_mesh
 from magnet_tpu_torch.train.trainer import Trainer
+from magnet_tpu_torch.utils import set_precision
 
 
 def launch_mesh(tr: dict, device):
@@ -68,9 +80,9 @@ def main(argv=None) -> Trainer:
     tr = cfg["trainer"]
     own_group = not dist.is_initialized()
     mesh, device = launch_mesh(tr, resolve_device(cfg["device"]))
-    # f32 throughout, as the reference: no TF32 in matmuls or convolutions
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # f32 in matmuls and convolutions, as the reference, unless
+    # trainer.precision asks for TF32
+    set_precision(tr["precision"])
     if mesh.rank == 0:
         print(f"training {cfg['model_name']} on {cfg['datamodule']['name']} "
               f"(dp={mesh.dp}, graph={mesh.graph})", flush=True)
@@ -99,7 +111,8 @@ def main(argv=None) -> Trainer:
         save_last_every=tr["save_last_every"],
         best_weights_only=tr["best_weights_only"],
         mesh=mesh if mesh.world > 1 else None,
-        graph_shards=mesh.graph, graph_halo=tr["graph_halo"])
+        graph_shards=mesh.graph, graph_halo=tr["graph_halo"],
+        steps_per_call=tr["steps_per_call"], log_every=tr["log_every"])
     trainer.fit(loaders["train"], loaders["val"],
                 resume=cfg["ckpt_path"] or None)
     if mesh.rank == 0:

@@ -18,12 +18,34 @@ explicit all-reduce): the mean over dp blocks, each graph axis's ranks
 counting their shared loss once.  Metrics are averaged over the ranks.
 Rank 0 alone writes ``metrics.jsonl`` and the checkpoints, in the
 single-process format, so a run saved on any mesh resumes on any other.
+
+``steps_per_call`` = k (JAX ``trainer.py:98-114, 269-328, 388-401``, a
+``lax.scan`` over k stacked batches a jit call) buffers k (batch, graph)
+pairs an epoch, the graphs built on the host from the host batches.  On
+one CUDA device, a full chunk whose batches share shapes and whose pairs
+share one graph object (the JAX ``train_scan_shared`` condition: the
+models' graph caches return one object a coordinate set) runs as replays
+of a CUDA graph of one training step, captured once per (shapes, graph)
+after one eager step of warm-up on a side stream: each replay is
+preceded by the copy of its batch into the graph's input tensors and
+followed by a copy of its metrics, with no read from the device between
+them.  The step reads nothing back (``train.optim``: the optimizer decides
+on the device), so a replay is the eager step, and the trajectory, the
+draws of a model's own generator (registered with the graph) and the
+checkpoints are the same whatever k.  Any other chunk (short, on the CPU,
+over a mesh of ranks, or of graphs that differ) runs its steps one by
+one, as the JAX package runs a chunk it cannot scan; a chunk of graphs
+that differ is scanned there but not captured here, because the port's
+kernels take their tile layouts and grids from each graph on the host.
+With ``graph_shards`` > 1, k falls back to 1, with the JAX trainer's
+warning.  ``log_every`` is stored and read nowhere, as in the JAX trainer.
 """
 from __future__ import annotations
 
 import json
 import os
 import time
+import warnings
 from typing import Iterable, Optional
 
 import torch
@@ -74,6 +96,48 @@ class EarlyStopping:
         return self.count >= self.patience
 
 
+#: captured steps a trainer keeps (each holds its graph and a memory pool
+#: of the step's activations); the oldest goes first
+MAX_CAPTURED = 4
+
+
+def batch_signature(batch: dict) -> tuple:
+    """The keys, shapes and dtypes of a batch's arrays."""
+    return tuple((k, tuple(v.shape), str(v.dtype)) for k, v in batch.items())
+
+
+class CapturedStep:
+    """A training step (``Trainer.device_step``) on one graph, captured as a
+    CUDA graph over input tensors of one batch's shapes; ``replay(batch)``
+    is that step on ``batch``.  The model's own generator, where it has one
+    (``models.common.OwnGenerator``), is registered with the graph, so a
+    replay draws what the eager step would."""
+
+    def __init__(self, trainer: "Trainer", batch: dict, graph):
+        self.inputs = {k: v.clone() for k, v in batch.items()}
+        self.graph = graph      # held, so that its tensors outlive the graph
+        self.cuda_graph = torch.cuda.CUDAGraph()
+        if hasattr(trainer.model, "default_generator"):
+            self.cuda_graph.register_generator_state(
+                trainer.model.default_generator())
+        with torch.cuda.graph(self.cuda_graph):
+            self.metrics = trainer.device_step(self.inputs, graph)
+        self.params = trainer.optimizer.params
+        self.grads = [p.grad for p in self.params]
+
+    def replay(self, batch: dict) -> dict:
+        """Enqueue the step on ``batch`` (device tensors of the captured
+        shapes); its metrics, copied out of the graph's tensors.  The
+        parameters' ``.grad`` are the graph's gradients again, as after
+        the eager step."""
+        for k, v in batch.items():
+            self.inputs[k].copy_(v)
+        self.cuda_graph.replay()
+        for p, g in zip(self.params, self.grads):
+            p.grad = g
+        return {k: v.clone() for k, v in self.metrics.items()}
+
+
 class Trainer:
     def __init__(self, model, max_epochs: int = 100, lr: float = 1e-3,
                  weight_decay: float = 0.0, factor: float = 0.3,
@@ -82,7 +146,8 @@ class Trainer:
                  check_val_every: int = 1, skip_nonfinite: bool = False,
                  grad_clip: float = 0.0, save_last_every: int = 1,
                  best_weights_only: bool = False, mesh=None,
-                 graph_shards: int = 1, graph_halo=False):
+                 graph_shards: int = 1, graph_halo=False,
+                 steps_per_call: int = 1, log_every: int = 10):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
         self.mesh = mesh
@@ -107,6 +172,17 @@ class Trainer:
         self.check_val_every = check_val_every
         self.skip_nonfinite = bool(skip_nonfinite)
         self.grad_clip = float(grad_clip)
+        self.log_every = int(log_every)
+        self.steps_per_call = max(1, int(steps_per_call))
+        if self.steps_per_call > 1 and self.graph_shards > 1:
+            warnings.warn("steps_per_call > 1 unsupported with graph_shards "
+                          "> 1; using 1")
+            self.steps_per_call = 1
+        #: the captured steps of this trainer's fit, by (batch shapes,
+        #: graph), and the training steps run eagerly, captured and replayed
+        self.captured: dict = {}
+        self.step_counts = {"eager": 0, "captured": 0, "replayed": 0}
+        self._noted: set = set()
         self.ckpt = CheckpointManager(os.path.join(workdir, "checkpoints"),
                                       last_every=save_last_every,
                                       best_weights_only=best_weights_only)
@@ -121,10 +197,12 @@ class Trainer:
                 "optimizer": self.optimizer.state_dict(),
                 "step": self.optimizer.step_count}
 
-    def _local(self, batch):
-        """This rank's dp block of a host batch, on its device, and the
-        block's graph (partitioned over the mesh's graph axis when
+    def _host_pair(self, batch):
+        """This rank's dp block of a batch, as tensors where they were
+        given (host arrays as host tensors), and the block's graph built
+        from them (partitioned over the mesh's graph axis when
         ``graph_shards`` > 1)."""
+        batch = {k: torch.as_tensor(v) for k, v in batch.items()}
         if self.mesh is not None and self.mesh.dp > 1:
             n, i = self.mesh.dp, self.mesh.dp_index
             size = len(next(iter(batch.values())))
@@ -133,12 +211,16 @@ class Trainer:
                                  f"dp={n}")
             b = size // n
             batch = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
-        batch = to_device(batch, self.device)
         if self.graph_shards > 1:
             return batch, self.model.build_graph_partitioned(
                 batch, self.graph_shards, halo=self.graph_halo,
                 axis=self.mesh.graph_axis())
         return batch, self.model.build_graph(batch)
+
+    def _local(self, batch):
+        """``_host_pair``'s block on this rank's device, and its graph."""
+        batch, graph = self._host_pair(batch)
+        return to_device(batch, self.device), graph
 
     def _world_mean(self, metrics: dict) -> dict:
         """Host metrics averaged over the ranks."""
@@ -151,7 +233,12 @@ class Trainer:
 
     def train_step(self, batch) -> dict:
         """One optimizer step on a host batch; the metrics, on the device."""
-        batch, graph = self._local(batch)
+        return self.device_step(*self._local(batch))
+
+    def device_step(self, batch, graph) -> dict:
+        """One optimizer step on a device batch and its graph, reading
+        nothing back from the device (over a mesh: with the gradients'
+        all-reduce); the metrics, on the device."""
         self.model.train()
         self.optimizer.zero_grad()
         loss, metrics = self.model.loss(batch, graph, train=True)
@@ -172,7 +259,8 @@ class Trainer:
         self.optimizer = make_optimizer(
             self.model.parameters(), self.lr, self.weight_decay, self.factor,
             self.step_size, steps_per_epoch,
-            skip_nonfinite=self.skip_nonfinite)
+            skip_nonfinite=self.skip_nonfinite, max_epochs=self.max_epochs)
+        self.captured, self._noted = {}, set()
 
     def fit(self, train_loader: Iterable, val_loader: Optional[Iterable] = None,
             resume: Optional[str] = None):
@@ -190,7 +278,14 @@ class Trainer:
         for epoch in range(start_epoch, self.max_epochs):
             train_loader.set_epoch(epoch)
             t0 = time.time()
-            pending = [self.train_step(batch) for batch in train_loader]
+            pending, chunk = [], []
+            for batch in train_loader:
+                chunk.append(self._host_pair(batch))
+                if len(chunk) == self.steps_per_call:
+                    pending += self._run_chunk(chunk)
+                    chunk = []
+            if chunk:
+                pending += self._run_chunk(chunk)
             tm = self._world_mean(mean_metrics(pending))  # waits for the device
             train_time = time.time() - t0
             row = {"epoch": epoch, "time": train_time,
@@ -230,6 +325,60 @@ class Trainer:
                     if self._last_val is not None else {})
             self.ckpt.save_last(self.state(), epoch, meta)
         return self.model
+
+    def _uncaptured(self, chunk: list) -> Optional[str]:
+        """Why ``chunk`` cannot run as replays of a captured step (None: it
+        can)."""
+        k = len(chunk)
+        if k < self.steps_per_call or k == 1:
+            return "a short chunk" if k > 1 else "one step a call"
+        if self.device.type != "cuda":
+            return f"no CUDA graph on {self.device.type}"
+        if self.world > 1:
+            return f"the gradients' all-reduce over {self.world} ranks"
+        graph = chunk[0][1]
+        if any(g is not graph for _, g in chunk[1:]):
+            return "the chunk's graphs differ"
+        sig = batch_signature(chunk[0][0])
+        if any(batch_signature(b) != sig for b, _ in chunk[1:]):
+            return "the chunk's batch shapes differ"
+        return None
+
+    def _run_chunk(self, chunk: list) -> list:
+        """Train on the buffered (host batch, graph) pairs: as replays of a
+        captured step where ``_uncaptured`` finds no reason against it,
+        else one eager step each (noted once a fit per reason).  Returns
+        each step's metrics, on the device."""
+        why = self._uncaptured(chunk)
+        if why is not None:
+            if len(chunk) > 1 and why not in self._noted:
+                self._noted.add(why)
+                self._print(f"steps_per_call={self.steps_per_call}: a chunk "
+                            f"of {len(chunk)} steps runs step by step ({why})")
+            self.step_counts["eager"] += len(chunk)
+            return [self.device_step(to_device(b, self.device), g)
+                    for b, g in chunk]
+        batches = [to_device(b, self.device) for b, _ in chunk]
+        graph = chunk[0][1]
+        key = (batch_signature(chunk[0][0]), id(graph))
+        out = []
+        if key not in self.captured:
+            # warm-up: the chunk's first step runs eagerly on a side stream
+            # (kernel builds, lazy state, workspaces), then the capture
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                out.append(self.device_step(batches.pop(0), graph))
+            torch.cuda.current_stream(self.device).wait_stream(side)
+            self.step_counts["eager"] += 1
+            if len(self.captured) >= MAX_CAPTURED:
+                self.captured.pop(next(iter(self.captured)))
+            self.captured[key] = CapturedStep(self, batches[0], graph)
+            self.step_counts["captured"] += 1
+        step = self.captured[key]
+        out += [step.replay(b) for b in batches]
+        self.step_counts["replayed"] += len(batches)
+        return out
 
     def _print(self, text: str) -> None:
         if self.writer:

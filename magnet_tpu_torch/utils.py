@@ -1,5 +1,5 @@
-"""Coordinate helpers (counterpart of ``magnet_tpu/utils.py:24-62``) and
-the host-batch-to-device copy."""
+"""Coordinate helpers (counterpart of ``magnet_tpu/utils.py:24-62``), the
+host-batch-to-device copy and the ``trainer.precision`` switch."""
 from __future__ import annotations
 
 from typing import Sequence
@@ -34,3 +34,21 @@ def make_coord(shape: Sequence[int], ranges=None, flatten: bool = True,
 def to_device(batch: dict, device) -> dict:
     """A host batch (numpy arrays or tensors) as tensors on ``device``."""
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+#: ``trainer.precision`` values that let cuBLAS and cuDNN compute f32
+#: products in TF32 (the repo's ``run.py:50-54`` maps them to the matmul
+#: precision ``high``)
+TF32_PRECISIONS = ("tensorfloat32", "high")
+
+
+def set_precision(precision="default") -> None:
+    """cuBLAS's and cuDNN's f32 products: TF32 for ``tensorfloat32`` and
+    ``high``, full f32 for ``default``, ``float32``, ``highest`` and any
+    other value (the repo's ``run.py`` changes nothing for another value,
+    and its ``default`` is f32 on the CPU the tests run on).  The port's
+    own kernels do not read it: they always compute in 3xTF32 (f32) or
+    bf16."""
+    tf32 = str(precision) in TF32_PRECISIONS
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32

@@ -90,6 +90,16 @@ FOLD_BF16 = ("e0", "we", "be", "pxj", "pxi", "w_rest", "b_rest", "w_out",
 TAIL = ("w_rest", "b_rest", "w_out", "b_out", "ln_s", "ln_b")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread for this module: its ops are small, and the suite
+    runs several workers on the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module", autouse=True)
 def native_neighbours():
     """The JAX side's MAgNet[GNN] 2D graphs take their k-NN tables from the

@@ -439,6 +439,16 @@ def test_pe_lane_rule_refuses_a_graph_without_a_layout():
 
 # ---- the models ---------------------------------------------------------------
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread for this module: its ops are small, and the suite
+    runs several workers on the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _perturbed(params, seed):
     """``params`` with noise, so that no LayerNorm affine is ones and
     zeros."""
@@ -447,13 +457,57 @@ def _perturbed(params, seed):
         size=a.shape)).astype(np.float32), params)
 
 
-def _jax_call(fn):
-    """``fn()`` traced anew (a fresh closure under ``jax.jit``), with the
-    JAX step's lane of that trace."""
-    jax_graphnet.LAST_FUSED_LANE.update(mode="unset")
-    out = jax.jit(fn)()
-    lane = dict(jax_graphnet.LAST_FUSED_LANE)
-    assert lane["mode"] == "vmem" and not lane["ragged"] and not lane["fold"]
+_INIT: dict = {}
+
+
+def _init(name, hp, key, jb, jg):
+    """The JAX model ``name``'s initial parameters at ``hp``'s widths from
+    PRNG key ``key``, made once a module: the tree and its f32 values do
+    not depend on ``graph_dtype`` (the float32 and bf16 cases of a test
+    share them)."""
+    widths = tuple(sorted((k, v) for k, v in hp.items() if k != "graph_dtype"))
+    if (name, widths, key) not in _INIT:
+        jm = jax_create_model(name, dict(widths))
+        _INIT[name, widths, key] = jax.tree.map(np.asarray, jax.jit(jm.init)(
+            jax.random.PRNGKey(key), jb, jg))
+    return _INIT[name, widths, key]
+
+
+class _LaneLog(dict):
+    """``LAST_FUSED_LANE`` that keeps every update: the lanes that each
+    GraphNet call of a trace took, in order."""
+
+    def __init__(self):
+        super().__init__(mode=None, snd2_only=None, ragged=None, fold=None)
+        self.updates = []
+
+    def update(self, *args, **kw):
+        super().update(*args, **kw)
+        self.updates.append(dict(*args, **kw))
+
+
+def _jax_call(monkeypatch, *fns):
+    """Every ``fn()`` of ``fns`` traced anew in one ``jax.jit`` (a fresh
+    closure), the outputs in order; each call's GraphNet steps must all
+    have taken the JAX step's vmem lane (not ragged, not fold)."""
+    log = _LaneLog()
+    monkeypatch.setattr(jax_graphnet, "LAST_FUSED_LANE", log)
+    marks = []
+
+    def calls():
+        out = []
+        for fn in fns:
+            marks.append(len(log.updates))
+            out.append(fn())
+        return tuple(out)
+
+    out = jax.jit(calls)()
+    marks.append(len(log.updates))
+    for i, (a, b) in enumerate(zip(marks, marks[1:])):
+        assert b > a, f"call {i} traced no GraphNet step"
+        for lane in log.updates[a:b]:
+            assert lane["mode"] == "vmem" and not lane["ragged"] \
+                and not lane["fold"], (i, lane)
     return out
 
 
@@ -511,7 +565,7 @@ def test_magnet_cnn_1d_kernel_pe_matches_jax_no_fused2r(monkeypatch, dtype):
     jm = jax_create_model("magnet_cnn", hp)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     jg = jm.build_graph(batch)
-    params = _perturbed(jax.jit(jm.init)(jax.random.PRNGKey(3), jb, jg), 7)
+    params = _perturbed(_init("magnet_cnn", hp, 3, jb, jg), 7)
     tm = create_model("magnet_cnn", hp, device="cpu")
     tm.load_state_dict(state_dict_from_jax(params, HP_1D))
     tb = to_device(batch, "cpu")
@@ -519,11 +573,12 @@ def test_magnet_cnn_1d_kernel_pe_matches_jax_no_fused2r(monkeypatch, dtype):
     if bf16:
         monkeypatch.setenv("MAGNET_TPU_PALLAS_INTERPRET", "1")
     monkeypatch.setenv("MAGNET_TPU_NO_FUSED2R", "1")
-    want_hr, _ = _jax_call(lambda: jm.predict(params, jb, jg))
-    want_eval, _ = _jax_call(lambda: jm.loss(params, jb, jg, train=False))
     rng = jax.random.PRNGKey(0)
-    want_loss, d_p = _jax_call(lambda: jax.value_and_grad(
-        lambda p: jm.loss(p, jb, jg, rng=rng, train=True)[0])(params))
+    (want_hr, _), (want_eval, _), (want_loss, d_p) = _jax_call(
+        monkeypatch, lambda: jm.predict(params, jb, jg),
+        lambda: jm.loss(params, jb, jg, train=False),
+        lambda: jax.value_and_grad(
+            lambda p: jm.loss(p, jb, jg, rng=rng, train=True)[0])(params))
     tm.impl = "kernel_pe"
     try:
         got_hr, _ = tm.predict(tb, tg)
@@ -554,7 +609,7 @@ def test_magnet_cnn_2d_kernel_pe_matches_jax_no_fused2r(monkeypatch, dtype):
     train, test = cnn2d_batch("train", seed=9), cnn2d_batch("test", seed=10)
     jb = {k: jnp.asarray(v) for k, v in train.items()}
     jg = jm.build_graph(train)
-    params = _perturbed(jax.jit(jm.init)(jax.random.PRNGKey(4), jb, jg), 8)
+    params = _perturbed(_init("magnet_cnn_2d", hp, 4, jb, jg), 8)
     tm = create_model("magnet_cnn_2d", hp, device="cpu")
     tm.load_state_dict(state_dict_from_jax(params, HP_2D,
                                            model="magnet_cnn_2d"))
@@ -564,9 +619,10 @@ def test_magnet_cnn_2d_kernel_pe_matches_jax_no_fused2r(monkeypatch, dtype):
     if bf16:
         monkeypatch.setenv("MAGNET_TPU_PALLAS_INTERPRET", "1")
     monkeypatch.setenv("MAGNET_TPU_NO_FUSED2R", "1")
-    want_hr, _ = _jax_call(lambda: jm.predict(params, jt, jgt))
-    want_eval, _ = _jax_call(lambda: jm.loss(params, jt, jgt, train=False))
-    want_loss, _ = _jax_call(lambda: jm.loss(params, jb, jg, train=True))
+    (want_hr, _), (want_eval, _), (want_loss, _) = _jax_call(
+        monkeypatch, lambda: jm.predict(params, jt, jgt),
+        lambda: jm.loss(params, jt, jgt, train=False),
+        lambda: jm.loss(params, jb, jg, train=True))
     tm.impl = "kernel_pe"
     try:
         tg = tm.build_graph(tt)
@@ -616,7 +672,7 @@ def test_magnet_cnn_2d_kernel_pe_training_step_on_its_training_graph(
     jm = jax_create_model("magnet_cnn_2d", hp)
     jb = {k: jnp.asarray(v) for k, v in batch.items()}
     jg = jm.build_graph(batch)
-    params = _perturbed(jax.jit(jm.init)(jax.random.PRNGKey(4), jb, jg), 9)
+    params = _perturbed(_init("magnet_cnn_2d", hp, 4, jb, jg), 9)
     tm = create_model("magnet_cnn_2d", hp, device="cpu")
     tm.load_state_dict(state_dict_from_jax(params, HP_2D_TRAIN,
                                            model="magnet_cnn_2d"))

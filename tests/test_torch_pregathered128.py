@@ -92,6 +92,16 @@ WIDE = dict(latent_dim=W, mlp_hidden=W, mlp_layers=4,
 HP = {pos_dim: dict(hp, **WIDE) for pos_dim, hp in MODEL_HP.items()}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One torch thread for this module: its ops are small, and the suite
+    runs several workers on the host's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module", autouse=True)
 def native_neighbours():
     """The JAX side's MAgNet[GNN] 2D graphs take their k-NN tables from the
