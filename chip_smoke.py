@@ -8,7 +8,8 @@
                                         cnn_bf16, cnn2d_bf16, gnn_bf16,
                                         cnn_pe, gnn_pre, par (par_local and
                                         par_dist), par_dist (alone), tune,
-                                        remat, spc
+                                        remat, spc (with spc_graph),
+                                        spc_graph (alone)
 
 Builds the port's seven CUDA sources from the checkout (all eleven TPU
 kernels: the fused GraphNet edge pipeline's forward and backward, each
@@ -57,7 +58,13 @@ with 4 steps a call at batch 32, the chunks as replays of a captured CUDA
 graph, against one step a call: losses, weights, #10 / #11 launches in a
 profiler trace of each fit, seconds a step and the device's idle share;
 the optimizer, which decides on the device, against a plain Adam that
-decides on the host).
+decides on the host), and ``steps_per_call`` over graphs that differ
+(#8/#9 at both widths on MAgNet[CNN] 1D's and MAgNet[GNN] 1D's training
+graphs padded past their CSR, against the unpadded launch bit for bit and
+against the plain version; both models fitted with new queries every
+batch, 4 steps a call replayed on padded graphs against one step a call:
+losses, #8/#9 in the trace, seconds a step, idle share, the host's
+seconds building and padding graphs).
 It checks that each path went through its kernels by their launch counts.
 Prints one JSON line per phase (``device``, ``build``, ``kernel``,
 ``slice``, ``kernel_bwd``, ``train``, ``mpnn_kernel``, ``mpnn_kernel_bwd``,
@@ -72,7 +79,8 @@ Prints one JSON line per phase (``device``, ``build``, ``kernel``,
 ``gnn2d_bf16_train``, ``pe64_kernel``, ``pe64_kernel_bwd``,
 ``pe64_slice``, ``pe64_train``, ``gnn_pre_kernel``,
 ``gnn_pre_kernel_bwd``, ``gnn_pre_slice``, ``gnn_pre_train``,
-``gnn_pre_c6``, ``par_local``, ``par_dist``, ``remat``, ``spc``), the
+``gnn_pre_c6``, ``par_local``, ``par_dist``, ``remat``, ``spc``,
+``spc_graph``), the
 card's name and power limit, a ``{"kernels": [...]}`` line, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero, and
 with no CUDA device it exits 1 before printing any result.
@@ -274,9 +282,32 @@ SPC_MODELS, SPC_K, SPC_TRAJ, SPC_EPOCHS = ("mpnn", "fno_1d"), 4, 128, 2
 SPC_MPNN_LOSS_RTOL, SPC_MPNN_WEIGHT_L2 = 1e-5, 1e-5
 SPC_UPDATES, SPC_PLAIN_UPDATE_RTOL = 8, 2e-5
 SPC_PLAIN_FIT_LOSS_RTOL, SPC_PLAIN_FIT_WEIGHT_L2 = 1e-3, 1e-3
+# the spc_graph phase (in the spc group): MAgNet[CNN] 1D and MAgNet[GNN] 1D
+# fits of SPC_EPOCHS epochs at the datamodules' batch 32 over SPC_GRAPH_TRAJ
+# KS trajectories (the cnn group's 96 and 32 more from their source; 4
+# steps an epoch, new queries every batch, so a new graph every step), one
+# step a call twice and SPC_K, the SPC_K chunks as replays on graphs padded
+# to the trainer's edge buckets; per-step losses of the SPC_K fit and of
+# the second one-step fit within SPC_GRAPH_LOSS_RTOL of the first one-step
+# fit.  The node gradients add with atomics (#9's d_pxj / d_pxi, autograd's
+# index_add_ and the k-NN gather's), so two fits part in their last bits
+# after the first update, and Adam magnifies a change where |g| is near
+# eps (PAR_FIT_RTOL's reason): MAgNet[CNN] 1D's repeated one-step fit
+# stayed within 3.0e-6 of the first over 8 steps, MAgNet[GNN] 1D's within
+# 6.0e-5 to 2.1e-4 (four runs, H100 80GB HBM3, 700 W), so the GNN is held
+# at PAR_FIT_RTOL and the CNN at 1e-5 (the edge MLPs also run cuBLAS over
+# the padded rows, in another blocking).  The f32 fold
+# kernels #8/#9 at both widths on those training graphs with a dead tail
+# (NaN in e0's dead rows): forward, weight gradients and d_e0's live rows
+# bit-equal to the unpadded launch, its dead rows zero, d_pxj and d_pxi
+# (atomics) within SPC_GRAPH_ATOMICS_L2 relative L2 of it, and the padded
+# launch against the plain version at the kernel phases' bounds
+SPC_GRAPH_TRAJ, SPC_GRAPH_ATOMICS_L2 = 128, 1e-6
+SPC_GRAPH_LOSS_RTOL = {"magnet_cnn": 1e-5, "magnet_gnn": PAR_FIT_RTOL}
 GROUPS = ("cnn", "mpnn_kernels", "mpnn_paths", "cnn2d", "gnn", "gnn2d",
           "fno", "no_interaction", "cnn_bf16", "cnn2d_bf16", "gnn_bf16",
-          "cnn_pe", "gnn_pre", "par", "par_dist", "tune", "remat", "spc")
+          "cnn_pe", "gnn_pre", "par", "par_dist", "tune", "remat", "spc",
+          "spc_graph")
 
 
 def card() -> str:
@@ -6314,19 +6345,29 @@ class PlainAdam:
                 "notfinite_count": self.notfinite_count}
 
 
-#: the symbols of #10 and #11 in a profiler trace, by launch counter
-MPNN_SYMBOLS = {"fwd_gather": "fused_mpnn_edge_agg_kernel",
-                "bwd_gather": "fused_mpnn_edge_agg_bwd_kernel"}
+#: the kernels of #10 and #11 in a profiler trace, by launch counter: the
+#: parts every name of one of them holds
+MPNN_SYMBOLS = {"fwd_gather": ("fused_mpnn_edge_agg_kernel",),
+                "bwd_gather": ("fused_mpnn_edge_agg_bwd_kernel",)}
+
+
+def traced_launches(events, symbols: dict) -> dict:
+    """Launches of each kernel of ``symbols`` (counter -> parts of its
+    name) among a profiler's device ``events``."""
+    return {key: sum(e.count for e in events if all(p in e.key for p in parts))
+            for key, parts in symbols.items()}
 
 
 def spc_fit(name, hp, loaders, dev, k, workdir, skip_nonfinite=False,
-            profiled=False, plain_adam=False) -> tuple[object, dict]:
+            profiled=False, plain_adam=False,
+            symbols=MPNN_SYMBOLS) -> tuple[object, dict]:
     """``Trainer.fit`` of ``name`` (seed 0) for SPC_EPOCHS epochs with
     ``k`` steps a call (``plain_adam``: with ``PlainAdam`` in place of the
     trainer's optimizer): the trainer and its record (each step's metrics
     in order, the launches its wrappers counted, eager / captured /
     replayed steps, the last epoch's seconds a step and, ``profiled``, the
-    launches of #10 and #11 in a ``torch.profiler`` trace of the fit)."""
+    launches of the kernels of ``symbols`` in a ``torch.profiler`` trace of
+    the fit)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -6359,13 +6400,11 @@ def spc_fit(name, hp, loaders, dev, k, workdir, skip_nonfinite=False,
     traced = {}
     reset_every_launch()
     if profiled:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fit_s = timed(fit)
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA]
-        traced = {key: sum(e.count for e in events if sym in e.key)
-                  for key, sym in MPNN_SYMBOLS.items()}
+        traced = traced_launches(
+            [e for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA], symbols)
     else:
         fit_s = timed(fit)
     counted = every_launch()
@@ -6495,32 +6534,41 @@ def spc_plain_updates(hp, dev) -> dict:
             "tol": SPC_PLAIN_UPDATE_RTOL, "ok": ok}
 
 
-def spc_epoch(trainer, loader, epoch: int, profiled: bool) -> dict:
+def spc_epoch(trainer, loader, epoch: int, profiled: bool,
+              symbols=MPNN_SYMBOLS, with_graphs=False, host_ops=True) -> dict:
     """One more epoch of ``trainer``'s chunks on ``loader`` (its batches and
-    graphs made first), timed on the host clock, under ``torch.profiler``
-    when ``profiled``: seconds a step and, traced, the device's busy time
-    and idle share (as ``trace_train.py`` sums device events), device
-    events, CUDA runtime calls and the MPNN kernels (#10, #11) a step."""
+    graphs made first, or with ``with_graphs`` a chunk's as it comes, on
+    the clock), timed on the host clock, under ``torch.profiler`` when
+    ``profiled`` (tracing the host's operators too with ``host_ops``):
+    seconds a step and, traced, the device's busy time and idle share (as
+    ``trace_train.py`` sums device events), device events, CUDA runtime
+    calls and the kernels of ``symbols`` a step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     loader.set_epoch(epoch)
-    pairs = [trainer._host_pair(b) for b in loader]
     k = trainer.steps_per_call
-    chunks = [pairs[i:i + k] for i in range(0, len(pairs), k)]
-    n = len(pairs)
+    batches = list(loader)
+    chunks = [batches[i:i + k] for i in range(0, len(batches), k)]
+    if not with_graphs:
+        chunks = [[trainer._host_pair(b) for b in c] for c in chunks]
+    n = len(batches)
+
+    def run():
+        for c in chunks:
+            trainer._run_chunk([trainer._host_pair(b) for b in c]
+                               if with_graphs else c)
+
     torch.cuda.synchronize()
     if not profiled:
         t0 = time.perf_counter()
-        for c in chunks:
-            trainer._run_chunk(c)
+        run()
         torch.cuda.synchronize()
         return {"seconds_per_step": (time.perf_counter() - t0) / n}
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * host_ops
+                 + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for c in chunks:
-            trainer._run_chunk(c)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
@@ -6530,17 +6578,15 @@ def spc_epoch(trainer, loader, epoch: int, profiled: bool) -> dict:
     busy_ms = sum(ms for _, ms, _ in devs)
     runtime = {e.key: e.count / n for e in events
                if e.key.startswith("cuda") and e.count}
-    kernels = {label: sum(c for key, _, c in devs if sym in key) / n
-               for label, sym in (("fused_mpnn_edge_agg_kernel (#10)",
-                                   "fused_mpnn_edge_agg_kernel"),
-                                  ("fused_mpnn_edge_agg_bwd_kernel (#11)",
-                                   "fused_mpnn_edge_agg_bwd_kernel"))}
+    kernels = {key: c / n for key, c in traced_launches(
+        [e for e in events if e.device_type == DeviceType.CUDA],
+        symbols).items()}
     return {"seconds_per_step_traced": wall / n,
             "device_busy_ms_per_step": busy_ms / n,
             "device_idle_share_traced": 1.0 - busy_ms / 1e3 / wall,
             "device_events_per_step": sum(c for _, _, c in devs) / n,
             "cuda_runtime_calls_per_step": runtime,
-            "mpnn_kernels_per_step_in_trace": kernels}
+            "kernels_per_step_in_trace": kernels}
 
 
 def spc_phases(dev, data, groups) -> tuple[int, list, dict]:
@@ -6691,7 +6737,7 @@ def spc_phases(dev, data, groups) -> tuple[int, list, dict]:
                                         True)
                          for lbl, t in (("k1", one), (f"k{SPC_K}", kk))}
         if name == "mpnn":
-            traced = rec["traced"][f"k{SPC_K}"]["mpnn_kernels_per_step_in_trace"]
+            traced = rec["traced"][f"k{SPC_K}"]["kernels_per_step_in_trace"]
             in_replays = all(v == per_step for v in traced.values())
             rec["mpnn_kernels_in_replays"] = in_replays
             ok = ok and in_replays
@@ -6719,6 +6765,248 @@ def spc_phases(dev, data, groups) -> tuple[int, list, dict]:
           "ok": ok})
     if not ok:
         return 47, [], {}
+    return 0, [], extra
+
+
+#: the f32 fold kernels (#8, #9) of the spc_graph fits in a profiler trace,
+#: by launch counter: the parts every name of one of them holds (the
+#: width-128 backward by its weight-gradient kernel, once a launch)
+FOLD_SYMBOLS = {
+    "magnet_cnn": {"fused_edge_fwd": ("w64", "edge_tail_kernel"),
+                   "fused_edge_bwd": ("edge_tail_bwd_kernel",)},
+    "magnet_gnn": {"fused_edge_fold128_fwd": ("w128", "edge_tail_kernel"),
+                   "fused_edge_fold128_bwd": ("wgrad_kernel",)}}
+#: their rows in the kernels line
+FOLD_ROWS = {"fused_edge_fwd": "fused_edge_tail_agg",
+             "fused_edge_bwd": "fused_edge_tail_agg_bwd",
+             "fused_edge_fold128_fwd": "fused_edge_tail_agg_w128",
+             "fused_edge_fold128_bwd": "fused_edge_tail_agg_bwd_w128"}
+
+
+def replay_ms(fn, reps: int) -> float:
+    """Device ms of one ``fn()``: a CUDA graph of it (after one eager call)
+    replayed ``reps`` times between two events, so that no host time of
+    the wrapper stands between the launches."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, reps)
+
+
+def spc_graph_kernels(graph, widths, l1, seed, dev) -> dict:
+    """#8 and #9 of ``widths`` on ``graph`` padded to its edge bucket
+    (``ops.graph.EdgeBuckets``; a dead tail of 1-1,023 rows, NaN in e0's
+    dead rows) against the same launch unpadded, and against the plain
+    version (the relu ties' receivers zeroed in g, as ``check_bwd_w64``
+    does at a training shape); each timed padded and unpadded in turns,
+    as replays of a captured launch (``replay_ms``)."""
+    from magnet_tpu_torch.ops import fused_edge as fe
+    from magnet_tpu_torch.ops.graph import EdgeBuckets, pad_edges
+
+    ce, h, c = widths
+    E = graph.n_edge
+    e_pad = EdgeBuckets().grow("all", E)
+    padded = pad_edges(graph, e_pad if e_pad > E else E + 1)
+    ops = kernel_operands(graph, ce, h, c, l1, seed, dev)
+    dead = torch.full((padded.n_edge - E, ce), float("nan"), device=dev)
+    ops_p = (torch.cat([ops[0], dead]), *ops[1:5], padded.senders,
+             padded.rowptr, *ops[7:])
+    gen = torch.Generator().manual_seed(seed + 1)
+    g = torch.randn(graph.n_node, c, generator=gen).to(dev)
+    ties = tie_receivers("fold", ops, l1)
+    g[ties] = 0.0
+    out_u, out_p = fe.fused_edge_tail_agg(*ops), fe.fused_edge_tail_agg(*ops_p)
+    grads_u = fe.fused_edge_tail_agg_bwd(*ops, g)
+    grads_u2 = fe.fused_edge_tail_agg_bwd(*ops, g)
+    grads_p = fe.fused_edge_tail_agg_bwd(*ops_p, g)
+    torch.cuda.synchronize()
+    plain_out = fe.fused_edge_tail_agg_plain(*ops_p)
+    plain = fe.fused_edge_tail_agg_bwd_plain(*ops_p, g)
+    bits, atomics, vs_plain = {}, {}, {}
+    for name, a, u, u2, w in zip(fe.GRAD_NAMES, grads_p, grads_u, grads_u2,
+                                 plain):
+        if name in ("pxj", "pxi"):
+            atomics[name] = {"rel_l2_vs_unpadded": rel_l2(a, u),
+                             "rel_l2_unpadded_run_to_run": rel_l2(u2, u)}
+        elif name == "e0":
+            bits[name] = bool(torch.equal(a[:E], u))
+            bits["e0_dead_rows_zero"] = bool((a[E:] == 0).all())
+        else:
+            bits[name] = bool(torch.equal(a, u))
+        vs_plain[name] = compare_grad(a, w, elementwise=False)
+    fwd_vs_plain = compare(out_p, plain_out, KERNEL_RTOL, KERNEL_ATOL)
+    turns = {"unpadded": {"fwd": [], "bwd": []},
+             "padded": {"fwd": [], "bwd": []}}
+    for label, o in (("unpadded", ops), ("padded", ops_p), ("padded", ops_p),
+                     ("unpadded", ops)):
+        turns[label]["fwd"].append(replay_ms(
+            lambda: fe.fused_edge_tail_agg(*o), 50))
+        turns[label]["bwd"].append(replay_ms(
+            lambda: fe.fused_edge_tail_agg_bwd(*o, g), 50))
+    ok = (bool(torch.equal(out_u, out_p)) and all(bits.values())
+          and all(v["rel_l2_vs_unpadded"] <= SPC_GRAPH_ATOMICS_L2
+                  for v in atomics.values())
+          and fwd_vs_plain["ok"] and all(v["ok"] for v in vs_plain.values()))
+    return {"widths": list(widths), "l1": l1, "n_node": graph.n_node,
+            "live_edges": E, "rows": padded.n_edge,
+            "dead_tail": padded.n_edge - E,
+            "fwd_bit_equal": bool(torch.equal(out_u, out_p)),
+            "bwd_bit_equal": bits, "atomic_node_grads": atomics,
+            "atomics_rel_l2_tol": SPC_GRAPH_ATOMICS_L2,
+            "fwd_vs_plain": fwd_vs_plain, "bwd_vs_plain": vs_plain,
+            "tie_receivers_zeroed": int(ties.numel()),
+            "ms_in_turns": turns,
+            "bound_fwd": bound("fwd", graph, ce, h, c, l1),
+            "bound_bwd": bound("bwd", graph, ce, h, c, l1), "ok": ok}
+
+
+def spc_graph_phases(dev, data, groups) -> tuple[int, list, dict]:
+    """Phase ``spc_graph``: #8/#9 at both widths on the padded training
+    graphs of MAgNet[CNN] 1D (one graph) and MAgNet[GNN] 1D (its LR and LR
+    ∪ HR graphs) at batch 32 (``spc_graph_kernels``); then ``Trainer.fit``
+    of each at its published widths with one and SPC_K steps a call from
+    the same seed, new queries every batch: the SPC_K fit as replays of a
+    captured step over graphs padded to the trainer's edge buckets (step
+    counts, captures, buckets), per-step losses against the one-step fit,
+    #8/#9 in a profiler trace of the SPC_K fit against its wrappers' eager
+    launches plus a captured step's for each replay, and the host's
+    seconds a batch building and padding graphs; then seconds a step (an
+    epoch each way, in turns, graphs built on the clock), the device's
+    idle share and launches a step, each way.  Returns #8/#9's launches in
+    the fits (the one-step fit's wrappers', the SPC_K fit's trace) as
+    extra counts of their rows."""
+    from magnet_tpu_torch.config import MAGNET_CNN, MAGNET_GNN
+    from magnet_tpu_torch.models.factory import create_model
+
+    t_phase = time.perf_counter()
+    smi = card()
+    models = (("magnet_cnn", MAGNET_CNN, 70), ("magnet_gnn", MAGNET_GNN, 40))
+    kernels, records, extra = {}, [], {}
+    for name, hp, _ in models:
+        loader = data[f"spc_graph_{name}_loaders"]["train"]
+        loader.set_epoch(0)
+        model = create_model(name, hp, device=dev)
+        graph = model.build_graph({k: torch.as_tensor(v) for k, v in
+                                   next(iter(loader)).items()})
+        widths = ((hp["latent_dim"], hp["mlp_hidden"], hp["latent_dim"]))
+        for role, part in model.graph_parts(graph).items():
+            kernels[f"{name} {role}"] = spc_graph_kernels(
+                part, widths, hp["mlp_layers"] - 1, 7, dev)
+        del model, graph
+    kernels_ok = all(v["ok"] for v in kernels.values())
+    print("spc_graph kernels on padded graphs: " + "; ".join(
+        f"{lbl} ({v['live_edges']} + {v['dead_tail']} dead): fwd bits "
+        f"{v['fwd_bit_equal']}, bwd bits {v['bwd_bit_equal']}, atomics "
+        f"{v['atomic_node_grads']}, ms {v['ms_in_turns']}"
+        for lbl, v in kernels.items()) + f" ({smi})", flush=True)
+
+    for name, hp, per_step in models:
+        hp = dict(hp)
+        loaders = data[f"spc_graph_{name}_loaders"]
+        symbols = FOLD_SYMBOLS[name]
+        n_steps = SPC_EPOCHS * len(loaders["train"])
+        t_model = time.perf_counter()
+        fits, trainers = {}, {}
+        with tempfile.TemporaryDirectory() as workdir:
+            for label, k in (("k1", 1), ("k1_again", 1), (f"k{SPC_K}", SPC_K)):
+                trainers[label], fits[label] = spc_fit(
+                    name, hp, loaders, dev, k, os.path.join(workdir, label),
+                    profiled=k > 1, symbols=symbols)
+        base, got = fits["k1"], fits[f"k{SPC_K}"]
+        kk = trainers[f"k{SPC_K}"]
+        want = np.array(base["step_losses"])
+        rel = {lbl: (np.abs(np.array(fits[lbl]["step_losses"]) - want)
+                     / np.abs(want)).tolist()
+               for lbl in ("k1_again", f"k{SPC_K}")}
+        losses = np.array(got["step_losses"])
+        loss_rel = max(rel[f"k{SPC_K}"])
+        steps = got["steps"]
+        counted, traced = got["launches_counted"], got["launches_traced"]
+        cross = {key: counted.get(key, 0) + per_step * steps["replayed"]
+                 for key in symbols}
+        host = {lbl: {**t.host_graph,
+                      "build_s_per_batch": t.host_graph["build_s"]
+                      / max(t.host_graph["built"], 1),
+                      "pad_s_per_graph": t.host_graph["pad_s"]
+                      / max(t.host_graph["padded"], 1)}
+                for lbl, t in trainers.items()}
+        ok = (steps["captured"] >= 1 and steps["replayed"] > 0
+              and steps["eager"] + steps["replayed"] == n_steps
+              and traced == cross and all(cross.values())
+              and base["steps"]["eager"] == n_steps
+              and np.isfinite(losses).all()
+              and loss_rel <= SPC_GRAPH_LOSS_RTOL[name]
+              and max(rel["k1_again"]) <= SPC_GRAPH_LOSS_RTOL[name]
+              and kk.host_graph["padded"] > 0
+              and trainers["k1"].host_graph["padded"] == 0)
+        rec = {"model": name, "batch_size": loaders["train"].batch_size,
+               "steps_per_epoch": len(loaders["train"]),
+               "epochs": SPC_EPOCHS, "k": SPC_K, "steps": steps,
+               "captures": got["captures"],
+               "edge_buckets": dict(kk.buckets.edges),
+               "step_losses": {lbl: f["step_losses"]
+                               for lbl, f in fits.items()},
+               "step_loss_rel_err_vs_k1": rel,
+               "max_step_loss_rel_err": loss_rel,
+               "loss_rtol": SPC_GRAPH_LOSS_RTOL[name],
+               "launches_per_step": per_step,
+               "launches_counted": {lbl: f["launches_counted"]
+                                    for lbl, f in fits.items()},
+               "launches_traced": traced,
+               "launches_counted_plus_replays": cross,
+               "host_graph": host,
+               "seconds_per_step_last_epoch": {
+                   lbl: f["seconds_per_step_last_epoch"]
+                   for lbl, f in fits.items()},
+               "seconds_checks": time.perf_counter() - t_model}
+        for key in symbols:
+            extra[FOLD_ROWS[key]] = {"launches_spc_graph":
+                                     base["launches_counted"].get(key, 0)
+                                     + fits["k1_again"]["launches_counted"]
+                                     .get(key, 0) + traced[key]}
+        # an epoch each way on the host clock, in turns, then one traced;
+        # graphs built on the clock, as the fit builds them
+        one = trainers["k1"]
+        turns = {"k1": [], f"k{SPC_K}": []}
+        for i, (lbl, t) in enumerate((("k1", one), (f"k{SPC_K}", kk),
+                                      (f"k{SPC_K}", kk), ("k1", one))):
+            turns[lbl].append(spc_epoch(
+                t, loaders["train"], SPC_EPOCHS + i, False, symbols,
+                with_graphs=True)["seconds_per_step"])
+        rec["seconds_per_step_in_turns"] = turns
+        rec["traced"] = {lbl: spc_epoch(t, loaders["train"], SPC_EPOCHS + 4,
+                                        True, symbols, with_graphs=True,
+                                        host_ops=False)
+                         for lbl, t in (("k1", one), (f"k{SPC_K}", kk))}
+        rec["steps_after_turns"] = dict(kk.step_counts)
+        rec["host_graph_after_turns"] = dict(kk.host_graph)
+        rec["ok"] = bool(ok)
+        rec["seconds"] = time.perf_counter() - t_model
+        records.append(rec)
+        tr = rec["traced"]
+        print(f"spc_graph {name} (batch {rec['batch_size']}, "
+              f"{rec['steps_per_epoch']} steps an epoch): steps {steps}, "
+              f"buckets {rec['edge_buckets']}; k=1 / k={SPC_K} s a step "
+              f"{turns}, idle share traced "
+              f"{tr['k1']['device_idle_share_traced']} / "
+              f"{tr[f'k{SPC_K}']['device_idle_share_traced']}, runtime "
+              f"calls a step {tr['k1']['cuda_runtime_calls_per_step']} / "
+              f"{tr[f'k{SPC_K}']['cuda_runtime_calls_per_step']}; losses "
+              f"{loss_rel} from k=1 (k=1 again {max(rel['k1_again'])}); "
+              f"#8/#9 traced {traced} = counted "
+              f"{counted} + {per_step} x {steps['replayed']} replays; host "
+              f"graph {host} ({smi})", flush=True)
+        del trainers, one, kk
+    ok = (kernels_ok and len(records) == len(models)
+          and all(r["ok"] for r in records))
+    emit({"phase": "spc_graph", "nvidia_smi": smi,
+          "torch": torch.__version__, "kernels": kernels,
+          "records": records, "seconds": time.perf_counter() - t_phase,
+          "ok": ok})
+    if not ok:
+        return 48, [], {}
     return 0, [], extra
 
 
@@ -6787,8 +7075,14 @@ def make_data(groups) -> dict:
         nt, res = DATAMODULE_GRAPH_2D["nt_train"], DATAMODULE_GRAPH_2D["res_train"]
         jobs = {}
         if {"cnn", "gnn", "no_interaction", "cnn_bf16", "gnn_bf16",
-                "cnn_pe", "gnn_pre", "par", "par_dist", "remat"} & groups:
+                "cnn_pe", "gnn_pre", "par", "par_dist", "remat", "spc",
+                "spc_graph"} & groups:
             jobs["ks"] = splits(ks_cfg)
+        if {"spc", "spc_graph"} & groups:
+            # the spc_graph fits' trajectories past the cnn group's 96
+            jobs["ks_more"] = pool.submit(synthetic_split, {
+                **ks_cfg, "data_seed": 5,
+                "n_train": SPC_GRAPH_TRAJ - ks_cfg["n_train"]}, "train")
         if {"mpnn_paths", "cnn2d", "cnn2d_bf16", "cnn_pe",
                 "gnn_pre", "par", "remat"} & groups:
             jobs["b2d"] = {split: pool.submit(
@@ -6904,6 +7198,20 @@ def make_data(groups) -> dict:
                 {**DATAMODULE_1D, **e3, "train_path": nan}, seed=0,
                 shuffle_eval=False)
             data["spc_seconds"] = time.perf_counter() - t0
+        if {"spc", "spc_graph"} & groups:
+            # SPC_GRAPH_TRAJ KS trajectories for training (4 batches of 32),
+            # the cnn group's 32 for validation, through the MAgNet[CNN] 1D
+            # and the MAgNet[GNN] 1D datamodules
+            ks = arrays(jobs["ks"])
+            more = jobs["ks_more"].result()
+            train = {k: np.concatenate([ks["train_path"][k], more[k]])
+                     for k in more}
+            for name, dm in (("magnet_cnn", DATAMODULE_IMPLICIT),
+                             ("magnet_gnn", DATAMODULE_IMPLICIT_GNN)):
+                data[f"spc_graph_{name}_loaders"] = build_loaders(
+                    {**dm, **SMOKE_DATA, "source": "h5", **ks,
+                     "train_path": train}, seed=0)
+            data["spc_graph_seconds"] = time.perf_counter() - t0
     return data
 
 
@@ -6967,7 +7275,8 @@ def main(argv) -> int:
                                 (("par", "par_dist"), par_phases),
                                 (("tune",), tune_phases),
                                 (("remat",), remat_phases),
-                                (("spc",), spc_phases)):
+                                (("spc",), spc_phases),
+                                (("spc", "spc_graph"), spc_graph_phases)):
         if set(group_names) & set(groups):
             rc, entries, more = phases(dev, data, groups)
             kernels += entries

@@ -23,7 +23,13 @@
 //   out[i] = sum of y over the edges of i          (N, C) f32
 //
 // The mean over the degree is taken by the caller.  A receiver of degree 0
-// gets a zero row; every edge range is clamped to the E rows given.
+// gets a zero row; every edge range is clamped to the E rows given.  The
+// edges are the first rowptr[N] <= E rows, read on the card
+// (tile128::live_edges): a graph padded to a fixed E for a captured
+// training step (ops/graph.py pad_edges) has dead rows past rowptr[N],
+// which set the grid and are neither read nor summed, so the result is
+// that of the graph without them, bit for bit.  Tiles past the live edges
+// exit whole blocks at a time, and so do the partial-row sum's blocks.
 //
 // Compiled builds, keyed by what each entry reads: fold (Ce, H, C) =
 // (32, 64, 32) (MAgNet[CNN]) and (128, 128, 128) (MAgNet[GNN]);
@@ -343,9 +349,11 @@ edge_tail_kernel(const float* __restrict__ src, const float* __restrict__ we,
                  const float* __restrict__ b_out,
                  const float* __restrict__ ln_s,
                  const float* __restrict__ ln_b, float* __restrict__ out,
-                 float* __restrict__ part, int n_nodes, int n_edges, int l1) {
+                 float* __restrict__ part, int n_nodes, int n_rows, int l1) {
   using L = Layout;
   using namespace tf32x3;
+  // the live edges; the rows past them (a padded graph's) are not read
+  const int n_edges = tile128::live_edges(rowptr, n_nodes, n_rows);
   constexpr bool kFoldE = E == kFold;
   constexpr bool kGathers = E != kPregathered;  // reads senders and pxj
   extern __shared__ __align__(16) float w128_smem[];
@@ -572,9 +580,11 @@ edge_tail_kernel(const float* __restrict__ src, const float* __restrict__ we,
                  const float* __restrict__ b_out,
                  const float* __restrict__ ln_s,
                  const float* __restrict__ ln_b, float* __restrict__ out,
-                 float* __restrict__ part, int n_nodes, int n_edges, int l1) {
+                 float* __restrict__ part, int n_nodes, int n_rows, int l1) {
   using L = Layout<E>;
   using namespace tf32x3;
+  // the live edges; the rows past them (a padded graph's) are not read
+  const int n_edges = tile128::live_edges(rowptr, n_nodes, n_rows);
   constexpr bool kFoldE = E == kFold;
   constexpr bool kGathers = L::gathers;   // reads senders and pxj
   constexpr int kIn = kFoldE ? kCe : kH;  // the staged rows' width

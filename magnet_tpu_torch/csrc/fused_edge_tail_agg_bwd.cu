@@ -38,6 +38,17 @@
 // pregathered and pe (H, C) = (64, 32) and (128, 128); L1 in 0..3.  The
 // width-64 and width-128 builds are two designs.
 //
+// The edges are the first rowptr[N] <= E rows, read on the card
+// (tile128::live_edges), as in the forward: a graph padded to a fixed E
+// for a captured training step has dead rows past rowptr[N].  Every grid
+// is sized for the E rows; every kernel splits the live edges over the
+// blocks it would take for them alone (TileBlocks, StridedBlocks,
+// RangeBlocks below), a block past that split exits whole, and the
+// fixed-order sums read the partials of those blocks alone.  So the
+// weight gradients and d_src's live rows are those of the graph without
+// the padding, bit for bit; d_src's dead rows are zero, and nothing of
+// them reaches d_pxj, d_pxi or a weight gradient.
+//
 // Design at width 64 (namespace w64; fold (32, 64, 32), pregathered and
 // pe (64, 32)): one kernel, every product on the tensor cores.
 //   * A persistent block of 512 threads (16 warps, one block per SM) walks
@@ -165,15 +176,70 @@ namespace {
 constexpr float kLnEps = 1e-5f;
 constexpr int kMaxDevices = 64;
 
-// wgrad[p] = sum over blocks, in block order, of partial[b][p].
+// The blocks of a launch that hold partial sums, as a function of the live
+// edges (tile128::live_edges): each launch splits the live edges alone,
+// so that on a padded graph its partials, and their sum, are those of the
+// graph without the padding.
+//
+// TileBlocks: runs of consecutive 64-edge tiles on at most `cap` blocks,
+// the fewest tiles a block, then the fewest blocks (the width-64 backward).
+struct TileBlocks {
+  int cap;
+  __host__ __device__ int operator()(int live) const {
+    const int n_tiles = (live + 63) / 64;
+    if (n_tiles == 0) return 0;
+    const int per = (n_tiles + cap - 1) / cap;
+    return (n_tiles + per - 1) / per;
+  }
+};
+// StridedBlocks: 32-edge tiles strided over the grid's `grid` blocks, or
+// over one block a tile where there are fewer tiles (the LayerNorm pass).
+struct StridedBlocks {
+  int grid;
+  __host__ __device__ int operator()(int live) const {
+    const int n_tiles = (live + 31) / 32;
+    return n_tiles < grid ? n_tiles : grid;
+  }
+};
+// RangeBlocks: ranges of `chunk(live)` edges, whole 32-edge slabs, enough
+// of them for `want` blocks (the width-128 weight gradients).
+struct RangeBlocks {
+  int want;
+  __host__ __device__ int chunk(int live) const {
+    const int n_slabs = (live + 31) / 32;
+    return (n_slabs + want - 1) / want * 32;
+  }
+  __host__ __device__ int operator()(int live) const {
+    return live > 0 ? (live + chunk(live) - 1) / chunk(live) : 0;
+  }
+};
+
+// wgrad[p] = sum over the first count(live) blocks, in block order, of
+// partial[b][p].
+template <class Count>
 __global__ void reduce_partials_kernel(const float* __restrict__ partial,
                                        float* __restrict__ wgrad,
-                                       int n_blocks, int total) {
+                                       const int* __restrict__ rowptr,
+                                       int n_nodes, int n_rows, Count count,
+                                       int total) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= total) return;
+  const int n_blocks = count(tile128::live_edges(rowptr, n_nodes, n_rows));
   float s = 0.f;
   for (int b = 0; b < n_blocks; ++b) s += partial[(size_t)b * total + p];
   wgrad[p] = s;
+}
+
+// Rows [live, n_rows) of the (n_rows, width) array d_src set to zero, by
+// every thread of the grid: a padded graph's dead rows get no gradient.
+__device__ __forceinline__ void zero_dead_rows(float* __restrict__ d_src,
+                                               int live, int n_rows,
+                                               int width) {
+  const size_t n = (size_t)(n_rows - live) * width / 4;
+  float4* dst = reinterpret_cast<float4*>(d_src + (size_t)live * width);
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x)
+    dst[i] = make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
 namespace w64 {
@@ -429,12 +495,18 @@ edge_tail_bwd_kernel(const float* __restrict__ src,
                      const float* __restrict__ ln_s,
                      const float* __restrict__ g, float* __restrict__ d_src,
                      float* __restrict__ d_pxj, float* __restrict__ d_pxi,
-                     float* __restrict__ partial, int n_nodes, int n_edges) {
+                     float* __restrict__ partial, int n_nodes, int n_rows,
+                     int cap) {
   using L = Layout<L1, E>;
   using namespace tf32x3;
   constexpr bool FOLD = L::FOLD, GATHERS = L::GATHERS;
   constexpr int NL = L1 > 0 ? L1 : 1;
   constexpr int kIn = FOLD ? kCe : kH;  // the staged rows' width
+  // the live edges (read while the weights load), split over the blocks
+  // the launch would take for them alone (TileBlocks); the dead rows'
+  // d_src is zero, and a block past that split holds no tile and writes
+  // no partial
+  const int n_edges = tile128::live_edges(rowptr, n_nodes, n_rows);
   extern __shared__ __align__(16) float w64_smem[];
   float* s_we = w64_smem + L::we;
   float* s_wr = w64_smem + L::wr;
@@ -467,6 +539,9 @@ edge_tail_bwd_kernel(const float* __restrict__ src,
     s_ls[tid] = __ldg(ln_s + tid);
   }
   for (int k = tid; k < kWarps * 2 * kC; k += kThreads) s_ln[k] = 0.f;
+  const int n_split = TileBlocks{cap}(n_edges);
+  zero_dead_rows(d_src, n_edges, n_rows, kIn);
+  if ((int)blockIdx.x >= n_split) return;  // the whole block
 
   // the thread's parts of the weight gradients, summed over its tiles in
   // f32 (Prod's places), and of the bias gradients (column_part's)
@@ -476,7 +551,7 @@ edge_tail_bwd_kernel(const float* __restrict__ src,
   float run_br[NL] = {}, run_bo = 0.f, run_be = 0.f;
 
   int t_beg, t_end;
-  tile128::block_tiles<kTE>(n_edges, &t_beg, &t_end);
+  tile128::block_tiles<kTE>(n_edges, &t_beg, &t_end, n_split);
   // tile `tile`'s input rows (e0, h0 or pe) into `dst`, one committed group
   auto stage = [&](int tile, float* dst) {
     const int base = tile * kTE, n_valid = min(kTE, n_edges - base);
@@ -724,15 +799,17 @@ size_t smem_bytes() {
 }
 
 // The kernel on a persistent grid of at most scratch_blocks blocks, each a
-// run of consecutive tiles (every block at least one), then the
-// fixed-order sum of the blocks' partials.
+// run of consecutive tiles of the live edges (TileBlocks: every block that
+// holds a partial at least one tile), then the fixed-order sum of those
+// blocks' partials.  The grid is sized for all n_rows rows, and so holds
+// the live edges' split whatever their count.
 template <int L1, Entry E>
 int launch(const float* src, const float* we, const float* be,
            const float* pxj, const float* pxi, const int* senders,
            const int* rowptr, const float* w_rest, const float* b_rest,
            const float* w_out, const float* b_out, const float* ln_s,
            const float* g, float* d_src, float* d_pxj, float* d_pxi,
-           float* wgrad, float* partial, int n_nodes, int n_edges,
+           float* wgrad, float* partial, int n_nodes, int n_rows,
            int scratch_blocks, cudaStream_t stream) {
   using L = Layout<L1, E>;
   const size_t smem = smem_bytes<L1, E>();
@@ -740,19 +817,19 @@ int launch(const float* src, const float* we, const float* be,
   const cudaError_t err = grid_cap<L1, E>(smem, &cap);
   if (err != cudaSuccess) return (int)err;
   if (cap > scratch_blocks) cap = scratch_blocks;
-  const int n_tiles = n_nodes > 0 ? (n_edges + kTE - 1) / kTE : 0;
+  const int n_tiles = n_nodes > 0 ? (n_rows + kTE - 1) / kTE : 0;
   if (n_tiles > 0 && cap < 1) return (int)cudaErrorInvalidValue;
-  const int per_block = n_tiles > 0 ? (n_tiles + cap - 1) / cap : 1;
-  const int blocks = (n_tiles + per_block - 1) / per_block;
+  const int blocks = n_tiles < cap ? n_tiles : cap;
   if (blocks > 0) {
     edge_tail_bwd_kernel<L1, E><<<blocks, kThreads, smem, stream>>>(
         src, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest, w_out, b_out,
-        ln_s, g, d_src, d_pxj, d_pxi, partial, n_nodes, n_edges);
+        ln_s, g, d_src, d_pxj, d_pxi, partial, n_nodes, n_rows, cap);
     const cudaError_t launched = cudaGetLastError();
     if (launched != cudaSuccess) return (int)launched;
   }
   reduce_partials_kernel<<<(L::g_total + 255) / 256, 256, 0, stream>>>(
-      partial, wgrad, blocks, L::g_total);
+      partial, wgrad, rowptr, n_nodes, n_tiles > 0 ? n_rows : 0,
+      TileBlocks{cap > 0 ? cap : 1}, L::g_total);
   return (int)cudaGetLastError();
 }
 
@@ -789,12 +866,13 @@ struct PassArgs {
   const float* pxj;   // kFirst
   const float* pxi;   // kFirst
   const int* senders;  // kFirst
-  const int* rowptr;   // kFirst, kOutput
+  const int* rowptr;   // the live edges; kFirst, kOutput: the receivers
   const float* g;      // kOutput: (N, kW) the output's cotangent
   const float* ln_s;   // kOutput
   float* ln_part;      // kOutput: block b writes its d_ln_s, d_ln_b sums
                        // (2 kW floats) at ln_part + b * 2 kW
-  int n_nodes, n_edges;
+  bool zero_dead;      // out's rows past the live edges set to zero
+  int n_nodes, n_rows;
 };
 
 // the weight's row stride: forward passes read W[k][n] down the rows of k,
@@ -813,10 +891,13 @@ __host__ __device__ constexpr int pass_smem_floats() {
 }
 
 // One pass: a persistent block keeps the layer's weight in shared memory
-// for the whole launch and walks 32-edge tiles, each tile's input rows
-// fetched with cp.async into a second buffer while the previous tile
-// computes; the product is a tf32x3 32 x 128 tile (a warp owns 16
-// columns), split as its fragments are loaded.
+// for the whole launch and walks 32-edge tiles of the live edges, strided
+// over as many blocks as the launch would take for them alone
+// (StridedBlocks), each tile's input rows fetched with cp.async into a
+// second buffer while the previous tile computes; the product is a tf32x3
+// 32 x 128 tile (a warp owns 16 columns), split as its fragments are
+// loaded.  A block past that stride takes no tile (kOutput: its d_ln_s,
+// d_ln_b row is not summed).
 template <Pass P>
 __global__ void __launch_bounds__(kThreads, 2) edge_pass_kernel(PassArgs a) {
   using namespace tf32x3;
@@ -829,29 +910,32 @@ __global__ void __launch_bounds__(kThreads, 2) edge_pass_kernel(PassArgs a) {
   int* s_rcv = s_snd + kTE;
   const int tid = threadIdx.x, warp = tid >> 5;
   const Raw w_op = kBwd ? Raw{s_w, 1, ldw} : Raw{s_w, ldw, 1};  // W^T or W
+  const int n_edges = tile128::live_edges(a.rowptr, a.n_nodes, a.n_rows);
 
   for (int k = tid; k < kW * kW / 4; k += kThreads)
     *reinterpret_cast<float4*>(s_w + (k >> 5) * ldw + (k & 31) * 4) =
         __ldg(reinterpret_cast<const float4*>(a.w) + k);
 
-  const int n_tiles = (a.n_edges + kTE - 1) / kTE;
+  const int n_tiles = (n_edges + kTE - 1) / kTE;
+  const int stride = StridedBlocks{(int)gridDim.x}(n_edges);
   auto prefetch = [&](int tile, int buf) {
-    const int base = tile * kTE, n_valid = min(kTE, a.n_edges - base);
+    const int base = tile * kTE, n_valid = min(kTE, n_edges - base);
     rows_async<kTE>(s_x + buf * kTile, kLd, a.x, [&](int r) {
       return r < n_valid ? a.x + (size_t)(base + r) * kW : nullptr;
     });
     cp_async_commit();
   };
   float acc_ln = 0.f;  // kOutput: tid < kW d_ln_s[tid], else d_ln_b[tid - kW]
+  if (a.zero_dead) zero_dead_rows(a.out, n_edges, a.n_rows, kW);
 
   if ((int)blockIdx.x < n_tiles) prefetch(blockIdx.x, 0);
   int it = 0;
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, ++it) {
+  for (int tile = blockIdx.x; tile < n_tiles; tile += stride, ++it) {
     const int cur = it & 1;
-    const int base = tile * kTE, n_valid = min(kTE, a.n_edges - base);
+    const int base = tile * kTE, n_valid = min(kTE, n_edges - base);
     const float* x = s_x + cur * kTile;
-    if (tile + (int)gridDim.x < n_tiles)
-      prefetch(tile + gridDim.x, cur ^ 1);
+    if (tile + stride < n_tiles)
+      prefetch(tile + stride, cur ^ 1);
     else
       cp_async_commit();  // an empty group keeps the count
     if ((P == kFirst || P == kOutput) && warp == 0) {
@@ -1012,8 +1096,9 @@ __global__ void __launch_bounds__(kThreads) first_input_kernel(
     const float* __restrict__ src, const float* __restrict__ pxj,
     const float* __restrict__ pxi, const int* __restrict__ senders,
     const int* __restrict__ rowptr, float* __restrict__ h0, int n_nodes,
-    int n_edges) {
+    int n_rows) {
   const int lane = threadIdx.x & 31;
+  const int n_edges = tile128::live_edges(rowptr, n_nodes, n_rows);
   for (int e = (blockIdx.x * kThreads + threadIdx.x) >> 5; e < n_edges;
        e += (gridDim.x * kThreads) >> 5) {
     const int r = tile128::receiver_of(rowptr, n_nodes, e);
@@ -1047,9 +1132,10 @@ template <bool FOLD>
 __global__ void __launch_bounds__(kThreads) scatter_kernel(
     const float* __restrict__ dz, const int* __restrict__ senders,
     const int* __restrict__ rowptr, float* __restrict__ d_pxj,
-    float* __restrict__ d_pxi, int n_nodes, int n_edges) {
+    float* __restrict__ d_pxi, int n_nodes, int n_rows) {
   __shared__ int s_snd[kTE], s_rcv[kTE];
   const int tid = threadIdx.x, n = tid & (kW - 1);
+  const int n_edges = tile128::live_edges(rowptr, n_nodes, n_rows);
   const int n_tiles = (n_edges + kTE - 1) / kTE;
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int base = tile * kTE, n_valid = min(kTE, n_edges - base);
@@ -1101,14 +1187,17 @@ struct Packed {
 constexpr int kMaxPairs = 5;  // W_e, three tail weights, W_out
 
 // Kernel (b): dW = sum_e A[e]^T D[e] and db = sum_e D[e] for each weight
-// (blockIdx.y) over one edge range (blockIdx.x); the block writes its
-// partial at partial + blockIdx.x * stride + off_w / off_b.
+// (blockIdx.y) over one range of the live edges (blockIdx.x; RangeBlocks:
+// the ranges the launch would take for the live edges alone, a block past
+// them exits whole); the block writes its partial at partial + blockIdx.x
+// * stride + off_w / off_b.
 struct WgradArgs {
   const float* a[kMaxPairs];  // (E, kW) the layer's input rows
   const float* d[kMaxPairs];  // (E, kW) its output's gradient rows
   int off_w[kMaxPairs], off_b[kMaxPairs];
   float* partial;
-  int stride, chunk, n_edges;
+  const int* rowptr;
+  int stride, want, n_nodes, n_rows;
 };
 
 constexpr int kSlab = 32;  // edges per slab of kernel (b)
@@ -1127,8 +1216,12 @@ __global__ void __launch_bounds__(kThreads, 1) wgrad_kernel(WgradArgs args) {
   const int tid = threadIdx.x, warp = tid >> 5, pair = blockIdx.y;
   const float* A = args.a[pair];
   const float* D = args.d[pair];
-  const int e_beg = blockIdx.x * args.chunk;
-  const int e_end = min(args.n_edges, e_beg + args.chunk);
+  const int n_edges =
+      tile128::live_edges(args.rowptr, args.n_nodes, args.n_rows);
+  const RangeBlocks ranges{args.want};
+  if ((int)blockIdx.x >= ranges(n_edges)) return;  // the whole block
+  const int e_beg = blockIdx.x * ranges.chunk(n_edges);
+  const int e_end = min(n_edges, e_beg + ranges.chunk(n_edges));
   const int n_slabs = e_end > e_beg ? (e_end - e_beg + kSlab - 1) / kSlab : 0;
   auto prefetch = [&](int slab, int buf) {
     const int base = e_beg + slab * kSlab;
@@ -1206,7 +1299,8 @@ cudaError_t resident(size_t smem, int* per_sm, int* n_sm) {
 }
 
 // One pass over every edge on a persistent grid of at most `max_blocks`
-// blocks (0: as many as are resident); returns the blocks launched.
+// blocks (0: as many as are resident), sized for all a.n_rows rows;
+// returns the blocks launched.
 template <Pass P>
 cudaError_t run_pass(const PassArgs& a, int max_blocks, cudaStream_t stream,
                      int* launched = nullptr) {
@@ -1214,7 +1308,7 @@ cudaError_t run_pass(const PassArgs& a, int max_blocks, cudaStream_t stream,
   int per_sm = 0, n_sm = 0;
   cudaError_t err = resident<edge_pass_kernel<P>>(smem, &per_sm, &n_sm);
   if (err != cudaSuccess) return err;
-  const int n_tiles = (a.n_edges + kTE - 1) / kTE;
+  const int n_tiles = (a.n_rows + kTE - 1) / kTE;
   int blocks = per_sm * n_sm;
   if (max_blocks > 0 && blocks > max_blocks) blocks = max_blocks;
   if (blocks > n_tiles) blocks = n_tiles;
@@ -1229,7 +1323,10 @@ cudaError_t run_pass(const PassArgs& a, int max_blocks, cudaStream_t stream,
 // recompute h_0..h_L1, run LayerNorm's backward and the data gradients down
 // to dz, each h_k and each layer's output gradient written to `scratch`;
 // the scatter of dz; kernel (b) for every weight gradient; the fixed-order
-// sums of the block partials.
+// sums of the block partials.  Every grid is sized for the n_rows rows;
+// every kernel walks the live edges (tile128::live_edges) and splits them
+// as it would split them alone, so a padded graph's dead rows change no
+// sum; the pass that writes d_src zeroes its dead rows.
 template <Entry E>
 int launch(const float* src, const float* we, const float* be,
            const float* pxj, const float* pxi, const int* senders,
@@ -1237,11 +1334,11 @@ int launch(const float* src, const float* we, const float* be,
            const float* w_out, const float* b_out, const float* ln_s,
            const float* g, float* d_src, float* d_pxj, float* d_pxi,
            float* wgrad_out, float* partial, float* scratch, int n_nodes,
-           int n_edges, int l1, int scratch_blocks, cudaStream_t stream) {
+           int n_rows, int l1, int scratch_blocks, cudaStream_t stream) {
   constexpr bool FOLD = E == kFold;
   const Packed L(FOLD, l1);
-  const size_t plane = (size_t)n_edges * kW;
-  if (n_nodes == 0) n_edges = 0;
+  const size_t plane = (size_t)n_rows * kW;
+  if (n_nodes == 0) n_rows = 0;
   // act[k] = h_k, k = 0..L1; grad[k] = da_k (grad[0] = dz, grad[L1 + 1] =
   // dy); the pregathered and pe entries' dz is their d_src
   float* act[4];
@@ -1278,10 +1375,10 @@ int launch(const float* src, const float* we, const float* be,
   float* ln_part = next;
   a.ln_part = ln_part;
   a.n_nodes = n_nodes;
-  a.n_edges = n_edges;
+  a.n_rows = n_rows;
   cudaError_t err = cudaSuccess;
   int ln_blocks = 0;
-  if (n_edges > 0) {
+  if (n_rows > 0) {
     // recompute h_0
     if (FOLD) {
       a.x = src;
@@ -1296,7 +1393,7 @@ int launch(const float* src, const float* we, const float* be,
           cudaSuccess)
         return (int)err;
       first_input_kernel<E><<<per_sm * n_sm, kThreads, 0, stream>>>(
-          src, pxj, pxi, senders, rowptr, act[0], n_nodes, n_edges);
+          src, pxj, pxi, senders, rowptr, act[0], n_nodes, n_rows);
       if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     }
     // h_1..h_L1
@@ -1317,12 +1414,13 @@ int launch(const float* src, const float* we, const float* be,
                                  &ln_blocks)) !=
         cudaSuccess)
       return (int)err;
-    // da_L1 .. da_0 = dz
+    // da_L1 .. da_0 = dz (pregathered, pe: d_src)
     for (int k = l1 + 1; k >= 1; --k) {
       a.x = grad[k];
       a.w = w_of[k];
       a.mask = act[k - 1];
       a.out = grad[k - 1];
+      a.zero_dead = !FOLD && k == 1;
       if ((err = run_pass<kBack>(a, 0, stream)) != cudaSuccess)
         return (int)err;
     }
@@ -1330,6 +1428,7 @@ int launch(const float* src, const float* we, const float* be,
       a.x = grad[0];
       a.w = we;
       a.out = d_src;
+      a.zero_dead = true;
       if ((err = run_pass<kBackPlain>(a, 0, stream)) != cudaSuccess)
         return (int)err;
     }
@@ -1337,15 +1436,15 @@ int launch(const float* src, const float* we, const float* be,
     if ((err = resident<scatter_kernel<FOLD>>(0, &per_sm, &n_sm)) !=
         cudaSuccess)
       return (int)err;
-    const int n_tiles = (n_edges + kTE - 1) / kTE;
+    const int n_tiles = (n_rows + kTE - 1) / kTE;
     const int sblocks = n_tiles < per_sm * n_sm ? n_tiles : per_sm * n_sm;
     scatter_kernel<FOLD><<<sblocks, kThreads, 0, stream>>>(
-        grad[0], senders, rowptr, d_pxj, d_pxi, n_nodes, n_edges);
+        grad[0], senders, rowptr, d_pxj, d_pxi, n_nodes, n_rows);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
 
   // kernel (b): one partial row per edge range, as many ranges as fill the
-  // card once (at most scratch_blocks rows)
+  // card once (at most scratch_blocks rows); a grid of RangeBlocks' most
   WgradArgs wa{};
   int pairs = 0;
   for (int k = FOLD ? 0 : 1; k <= l1 + 1; ++k, ++pairs) {
@@ -1354,8 +1453,8 @@ int launch(const float* src, const float* we, const float* be,
     wa.off_w[pairs] = k == 0 ? L.we : k <= l1 ? L.wr + (k - 1) * kW * kW : L.wo;
     wa.off_b[pairs] = k == 0 ? L.be : k <= l1 ? L.br + (k - 1) * kW : L.bo;
   }
-  int splits = 0;
-  if (n_edges > 0) {
+  RangeBlocks ranges{1};
+  if (n_rows > 0) {
     const size_t smem = sizeof(float) * 4 * (size_t)kSlabTile;
     int per_sm = 0, n_sm = 0;
     if ((err = resident<wgrad_kernel>(smem, &per_sm, &n_sm)) != cudaSuccess)
@@ -1363,20 +1462,24 @@ int launch(const float* src, const float* we, const float* be,
     int want = per_sm * n_sm / pairs;
     if (want > scratch_blocks) want = scratch_blocks;
     if (want < 1) want = 1;
-    const int n_slabs = (n_edges + kSlab - 1) / kSlab;
-    wa.chunk = (n_slabs + want - 1) / want * kSlab;
-    splits = (n_edges + wa.chunk - 1) / wa.chunk;
+    ranges.want = want;
+    const int n_slabs = (n_rows + kSlab - 1) / kSlab;
     wa.partial = partial;
+    wa.rowptr = rowptr;
     wa.stride = L.ls;
-    wa.n_edges = n_edges;
-    wgrad_kernel<<<dim3(splits, pairs), kThreads, smem, stream>>>(wa);
+    wa.want = want;
+    wa.n_nodes = n_nodes;
+    wa.n_rows = n_rows;
+    wgrad_kernel<<<dim3(n_slabs < want ? n_slabs : want, pairs), kThreads,
+                   smem, stream>>>(wa);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   reduce_partials_kernel<<<(L.ls + 255) / 256, 256, 0, stream>>>(
-      partial, wgrad_out, splits, L.ls);
+      partial, wgrad_out, rowptr, n_nodes, n_rows, ranges, L.ls);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   reduce_partials_kernel<<<1, 2 * kW, 0, stream>>>(
-      ln_part, wgrad_out + L.ls, ln_blocks, 2 * kW);
+      ln_part, wgrad_out + L.ls, rowptr, n_nodes, n_rows,
+      StridedBlocks{ln_blocks}, 2 * kW);
   return (int)cudaGetLastError();
 }
 

@@ -83,14 +83,28 @@ __device__ __forceinline__ int warp_receiver(const int* __restrict__ rowptr,
   return r;
 }
 
+// The live edges of a graph given as n_edges rows: rowptr[n_nodes], read on
+// the card (a graph padded to a fixed row count for a captured step ends
+// its CSR before its rows: ops/graph.py pad_edges), clamped to the rows.
+// On a graph without padding it is n_edges.  The f32 GraphNet kernels walk
+// these edges alone: the rows past them set no grid and add to no sum.
+// The load is issued where this is called (ldg_ahead), so that its latency
+// runs under what the caller does before it reads the count.
+__device__ __forceinline__ int live_edges(const int* __restrict__ rowptr,
+                                          int n_nodes, int n_edges) {
+  return min(ldg_ahead(rowptr + n_nodes), n_edges);
+}
+
 // The tiles of TE edges of a persistent block: consecutive, [*t_beg,
 // *t_end), so that each tile's receivers are found from the last receiver
-// of the tile before.
+// of the tile before; the n_edges edges split over n_split blocks (the
+// grid, by default), so that a block's tiles do not depend on the grid.
 template <int TE>
 __device__ __forceinline__ void block_tiles(int n_edges, int* t_beg,
-                                            int* t_end) {
+                                            int* t_end, int n_split = -1) {
+  if (n_split < 0) n_split = gridDim.x;
   const int n_tiles = (n_edges + TE - 1) / TE;
-  const int per_block = (n_tiles + gridDim.x - 1) / gridDim.x;
+  const int per_block = (n_tiles + n_split - 1) / n_split;
   *t_beg = blockIdx.x * per_block;
   *t_end = min(n_tiles, *t_beg + per_block);
 }
@@ -591,18 +605,21 @@ __device__ __forceinline__ int2 edge_ends(const int* __restrict__ rowptr,
 // The receiver that crosses the boundary at edge TE (b + 1) (block b) and
 // starts in the tile before it: out[r] = its partial rows added in tile
 // order.  A receiver that crosses several boundaries is summed by the
-// block of its first; a block whose boundary starts a receiver writes
-// nothing.  Launched with n_tiles - 1 blocks of C threads.
+// block of its first; a block whose boundary starts a receiver, or lies
+// at or past the live edges (tile128::live_edges), writes nothing.
+// Launched with n_tiles - 1 blocks of C threads, n_tiles those of the
+// n_edges rows.
 template <int TE, int C>
 __global__ void __launch_bounds__(C)
 cross_tile_sum_kernel(const int* __restrict__ rowptr,
                       const float* __restrict__ part, float* __restrict__ out,
                       int n_nodes, int n_edges) {
   const int e = (blockIdx.x + 1) * TE;
+  const int live = tile128::live_edges(rowptr, n_nodes, n_edges);
   const int r = tile128::receiver_of(rowptr, n_nodes, e);
   const int beg = rowptr[r];
-  if (beg >= e || beg < e - TE) return;
-  const int t0 = beg / TE, t1 = (min(rowptr[r + 1], n_edges) - 1) / TE;
+  if (e >= live || beg >= e || beg < e - TE) return;  // the whole block
+  const int t0 = beg / TE, t1 = (min(rowptr[r + 1], live) - 1) / TE;
   const int c = threadIdx.x;
   float s = part[(size_t)(2 * t0 + 1) * C + c];
   for (int t = t0 + 1; t <= t1; ++t) s += part[(size_t)(2 * t) * C + c];

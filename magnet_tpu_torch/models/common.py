@@ -1,9 +1,12 @@
 """Shared model plumbing: the losses, the ``graph_dtype`` knob, nRMSE and
 time windows (counterpart of ``magnet_tpu/models/common.py:85-116,
-289-295``), and a model's own random generator."""
+289-295``), a model's own random generator, and the hooks by which a
+trainer pads a GraphNet model's graphs for a captured chunk of steps."""
 from __future__ import annotations
 
 import torch
+
+from magnet_tpu_torch.nn.graphnet import GraphProcessor, step_lane
 
 
 def l1_loss(pred, target):
@@ -41,10 +44,11 @@ def nrmse(pred, target, eps: float = 1e-12):
 
 
 def time_windows(t: torch.Tensor, n_windows: int, slice_len: int) -> torch.Tensor:
-    """(B, nt) -> (B, n, 2*slice_len); window i covers [i*ts, (i+2)*ts)."""
-    idx = (torch.arange(n_windows)[:, None] * slice_len
-           + torch.arange(2 * slice_len)[None, :])
-    return t[:, idx.to(t.device)]
+    """(B, nt) -> (B, n, 2*slice_len); window i covers [i*ts, (i+2)*ts).
+    The index is made on t's device (no copy from the host)."""
+    idx = (torch.arange(n_windows, device=t.device)[:, None] * slice_len
+           + torch.arange(2 * slice_len, device=t.device)[None, :])
+    return t[:, idx]
 
 
 GENERATOR_SEED = 0  # the seed of a model's own generator
@@ -78,3 +82,38 @@ class OwnGenerator:
             self._generator = torch.Generator(device=dev).manual_seed(
                 GENERATOR_SEED)
         return self._generator
+
+
+class PaddedGraphMixin:
+    """Mixin for a GraphNet model whose graphs differ from batch to batch
+    (new query points) and which a captured chunk of training steps pads to
+    fixed edge rows (``train.trainer``, ``ops.graph.pad_edges``): the model
+    names its CSR graphs by role (``graph_parts``) and rebuilds its graph
+    from padded ones (``with_graph_parts``); ``graph_lanes`` says which
+    lanes its processors take on them (only the f32 fold lane's kernels
+    read a padded graph's end on the card)."""
+
+    def graph_parts(self, graph) -> dict:
+        """The model's graph's ``CSRGraph``s by role."""
+        raise NotImplementedError
+
+    def with_graph_parts(self, graph, parts: dict):
+        """The model's graph with its ``CSRGraph``s replaced by ``parts``
+        (by role)."""
+        raise NotImplementedError
+
+    def graph_lanes(self, graph) -> set[str]:
+        """The lanes of this model's processor steps on ``graph``'s parts
+        under its ``impl``, as ``nn.graphnet.step_lane`` decides them
+        (``plain``: the plain versions), ``bf16`` added for a bf16
+        processor."""
+        lanes = set()
+        for proc in self.modules():
+            if not isinstance(proc, GraphProcessor) or not proc.gnn_stacks:
+                continue
+            hidden = proc.gnn_stacks[0].edge_fn[0].linears[0].weight.shape[0]
+            for part in self.graph_parts(graph).values():
+                lane = ("plain" if self.impl == "plain"
+                        else step_lane(part, self.impl, hidden))
+                lanes.add(lane if proc.dtype is None else f"{lane} bf16")
+        return lanes

@@ -23,6 +23,7 @@ from torch import nn
 
 from magnet_tpu_torch.models.common import (
     LOSSES,
+    PaddedGraphMixin,
     l1_loss,
     parse_dtype,
     time_windows,
@@ -110,13 +111,15 @@ class MAgNetCNN1DCore(nn.Module):
         return outputs[:, :, L:], outputs[:, :, :L], hr_points.transpose(1, 2)
 
 
-class MAgNetCNNTask(PartitionedGraphMixin):
+class MAgNetCNNTask(PaddedGraphMixin, PartitionedGraphMixin):
     """The task side shared by MAgNet[CNN] 1D and 2D: host graph building,
     the rollout with its three feedback branches, and the losses.  The
     class it is mixed into is the core (an ``nn.Module`` whose forward is
     one window) and gives ``ndim`` and the three shape hooks below.  The
     graph may be partitioned (``build_graph_partitioned``, the
-    ``PartitionedGraphMixin``): the rollout and losses are the same.
+    ``PartitionedGraphMixin``), or padded for a captured chunk of steps
+    (its one graph, role ``all``: ``PaddedGraphMixin``): the rollout and
+    losses are the same.
 
     Batch dict of tensors: t (B, nt), lr_frames (B, nt, 1, *grid),
     hr_points (B, nt, N, 1), coords (B, N, ndim), cells (B, N, ndim).
@@ -163,6 +166,12 @@ class MAgNetCNNTask(PartitionedGraphMixin):
         return self.graphs.radius_graph_batch(
             self._graph_coords(batch), self.radius, loop=True,
             device=next(self.parameters()).device)
+
+    def graph_parts(self, graph: CSRGraph) -> dict:
+        return {"all": graph}
+
+    def with_graph_parts(self, graph: CSRGraph, parts: dict) -> CSRGraph:
+        return parts["all"]
 
     def _rollout(self, batch, graph: CSRGraph, teacher_forcing: bool,
                  val_feedback: bool):

@@ -34,6 +34,7 @@ from torch import nn
 from magnet_tpu_torch.models.common import (
     LOSSES,
     OwnGenerator,
+    PaddedGraphMixin,
     l1_loss,
     parse_dtype,
     time_windows,
@@ -143,7 +144,8 @@ class MAgNetGNNCore(nn.Module):
         return outputs[:, :, L:], outputs[:, :, :L], hr_points.transpose(1, 2)
 
 
-class MAgNetGNN(OwnGenerator, PartitionedGraphMixin, MAgNetGNNCore):
+class MAgNetGNN(OwnGenerator, PaddedGraphMixin, PartitionedGraphMixin,
+                MAgNetGNNCore):
     """MAgNet[GNN]: the core with the task side.  Batch dict of tensors
     (``DatasetImplicitGNN1D`` at ``pos_dim`` 1, ``DatasetImplicitGNN2D`` at
     2): t (B, nt), lr_frames (B, nt, 1, L), hr_points (B, nt, N, 1),
@@ -152,7 +154,10 @@ class MAgNetGNN(OwnGenerator, PartitionedGraphMixin, MAgNetGNNCore):
     ``noise`` > 0 adds Gaussian noise of that scale to each training
     window's input frames and last HR values (reference magnet_gnn.py:
     401-426), drawn from ``loss``'s ``generator`` (by default the model's
-    own, ``default_generator``) through ``draw_noise``."""
+    own, ``default_generator``) through ``draw_noise``.  For a captured
+    chunk of steps the trainer pads both radius graphs (roles ``lr`` and
+    ``all``, ``PaddedGraphMixin``); the k-NN table keeps its shape (B, N,
+    k) and is copied with them."""
 
     def __init__(self, hparams: dict[str, Any], pos_dim: int = 1):
         hp = dict(hparams)
@@ -190,6 +195,12 @@ class MAgNetGNN(OwnGenerator, PartitionedGraphMixin, MAgNetGNNCore):
             np.concatenate([lr, hr], axis=1), self.radius, loop=True,
             device=dev)
         return GNNGraphs(g_lr, g_all, self._knn(lr, hr, dev))
+
+    def graph_parts(self, graphs: GNNGraphs) -> dict:
+        return {"lr": graphs.lr, "all": graphs.all}
+
+    def with_graph_parts(self, graphs: GNNGraphs, parts: dict) -> GNNGraphs:
+        return GNNGraphs(parts["lr"], parts["all"], graphs.nbr)
 
     def _knn(self, lr, hr, dev):
         return torch.stack([knn(lr[b], hr[b], self.codec_neighbors)

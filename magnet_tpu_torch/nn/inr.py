@@ -14,7 +14,7 @@ from torch import nn
 
 from magnet_tpu_torch.nn.core import MLP
 from magnet_tpu_torch.ops.interp import _nearest_index
-from magnet_tpu_torch.utils import make_coord
+from magnet_tpu_torch.utils import device_constant, make_coord
 
 
 class INRDecoder1D(nn.Sequential):
@@ -39,7 +39,7 @@ class INRDecoder1D(nn.Sequential):
         dev = x_t.device
         feat_coord = make_coord([L], device=dev)[:, 0]              # (L,)
         dx = 1.0 / L
-        vx = torch.tensor([-1.0, 1.0], device=dev)
+        vx = device_constant([-1.0, 1.0], dev)
         gx = torch.clamp(
             coord_hr[:, None, :, 0] + vx[None, :, None] * dx + 1e-6,
             -1 + 1e-6, 1 - 1e-6)                                    # (B, 2, N)
@@ -93,8 +93,8 @@ class INRDecoder2D(nn.Sequential):
         dx = 1.0 / W
         dev = x_t.device
         feat_coord = make_coord([W, W], device=dev)                 # (W*W, 2)
-        vx = torch.tensor([-1.0, -1.0, 1.0, 1.0], device=dev)[None, :, None]
-        vy = torch.tensor([-1.0, 1.0, -1.0, 1.0], device=dev)[None, :, None]
+        vx = device_constant([-1.0, -1.0, 1.0, 1.0], dev)[None, :, None]
+        vy = device_constant([-1.0, 1.0, -1.0, 1.0], dev)[None, :, None]
         g0 = torch.clamp(coord_hr[:, None, :, 0] + vx * dx + 1e-6,
                          -1 + 1e-6, 1 - 1e-6)                       # (B, 4, N)
         g1 = torch.clamp(coord_hr[:, None, :, 1] + vy * dx + 1e-6,
@@ -115,7 +115,7 @@ class INRDecoder2D(nn.Sequential):
         inp = torch.cat(
             [bt(q_feat), q_inp, bt(final_coord), bt(final_cell), tcol], dim=-1)
         preds = super().forward(inp)                                # (B,4,N,T,nc)
-        weight = area[:, [3, 2, 1, 0]] / area.sum(1, keepdim=True)  # (B, 4, N)
+        weight = area.flip(1) / area.sum(1, keepdim=True)  # (B, 4, N)
         return (preds * weight[..., None, None]).sum(1)
 
 

@@ -290,9 +290,12 @@ def _tail_sum(z, receivers, n, w_rest, b_rest, w_out, b_out, ln_s, ln_b):
 def fused_edge_tail_agg_plain(e0, we, be, pxj, pxi, senders, rowptr,
                               w_rest, b_rest, w_out, b_out, ln_s, ln_b):
     """Plain PyTorch version of the fold entry: same arguments and result
-    as the kernel."""
+    as the kernel.  Its edges are the first rowptr[-1] rows, as the
+    kernel's: the rows past them (a padded graph's, ``ops.graph.
+    pad_edges``) add nothing, and so get a zero gradient."""
     receivers = _receivers(rowptr)
-    z = (e0 @ we + be + pxj.index_select(0, senders)
+    live = receivers.numel()
+    z = (e0[:live] @ we + be + pxj.index_select(0, senders[:live])
          + pxi.index_select(0, receivers))
     return _tail_sum(z, receivers, rowptr.numel() - 1, w_rest, b_rest,
                      w_out, b_out, ln_s, ln_b)
@@ -300,9 +303,11 @@ def fused_edge_tail_agg_plain(e0, we, be, pxj, pxi, senders, rowptr,
 
 def fused_edge_tail_agg_pregathered_plain(h0, pxi, rowptr, w_rest, b_rest,
                                           w_out, b_out, ln_s, ln_b):
-    """Plain PyTorch version of the pregathered entry."""
+    """Plain PyTorch version of the pregathered entry (its edges the first
+    rowptr[-1] rows, as the fold entry's)."""
     receivers = _receivers(rowptr)
-    return _tail_sum(h0 + pxi.index_select(0, receivers), receivers,
+    return _tail_sum(h0[:receivers.numel()] + pxi.index_select(0, receivers),
+                     receivers,
                      rowptr.numel() - 1, w_rest, b_rest, w_out, b_out, ln_s,
                      ln_b)
 
@@ -311,9 +316,12 @@ def fused_edge_tail_agg_pe_plain(pe, pxj, pxi, senders, rowptr, snd_ptr,
                                  snd_perm, w_rest, b_rest, w_out, b_out, ln_s,
                                  ln_b):
     """Plain PyTorch version of the pe entry (the sender CSR ``snd_ptr``,
-    ``snd_perm`` is read only by the kernel path's backward)."""
+    ``snd_perm`` is read only by the kernel path's backward; its edges the
+    first rowptr[-1] rows, as the fold entry's)."""
     receivers = _receivers(rowptr)
-    z = pe + pxj.index_select(0, senders) + pxi.index_select(0, receivers)
+    live = receivers.numel()
+    z = (pe[:live] + pxj.index_select(0, senders[:live])
+         + pxi.index_select(0, receivers))
     return _tail_sum(z, receivers, rowptr.numel() - 1, w_rest, b_rest, w_out,
                      b_out, ln_s, ln_b)
 
@@ -395,12 +403,19 @@ def _tail_shapes(w_rest, w_out, h):
                        b_out=(c,), ln_s=(c,), ln_b=(c,))
 
 
-def _check_rows(src, rowptr, E):
-    # on the card this would cost a read from the device per launch: there
-    # the kernels clamp every edge range to the E rows they were given
-    if src.device.type == "cpu" and int(rowptr[-1]) != E:
-        raise ValueError(f"rowptr ends at {int(rowptr[-1])}, but there are "
-                         f"{E} edge rows")
+def _check_rows(src, rowptr, E, padded: bool = True):
+    """The CSR's edges fit the E rows: rowptr[-1] <= E, the rows past it
+    the dead tail of a padded graph (``ops.graph.pad_edges``), which the
+    f32 entries read past; ``padded`` False (the bf16 builds, which take
+    the host's E as the edge count): rowptr[-1] == E.  On the card this
+    would cost a read from the device per launch: there the kernels clamp
+    every edge range to the E rows they were given."""
+    if src.device.type != "cpu":
+        return
+    end = int(rowptr[-1])
+    if end > E or (end != E and not padded):
+        raise ValueError(f"rowptr ends at {end}, but there are {E} edge "
+                         f"rows")
 
 
 def _check(e0, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest, w_out,
@@ -418,6 +433,7 @@ def _check(e0, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest, w_out,
         dict(we=(ce, h), be=(h,), pxj=(n, h), pxi=(n, h), senders=(E,),
              **tail),
         {name: dtype for name in GRAD_NAMES if name not in GRAD_F32_BF16})
+    _check_rows(e0, rowptr, E, padded=dtype == torch.float32)
     return E, (ce, h, c), l1, n
 
 
@@ -436,7 +452,7 @@ def _check_pregathered(h0, pxi, rowptr, w_rest, b_rest, w_out, b_out, ln_s,
         dict(rowptr=rowptr), dict(pxi=(n, h), **tail),
         {name: dtype for name in GRAD_NAMES_PREGATHERED
          if name not in GRAD_F32_BF16})
-    _check_rows(h0, rowptr, E)
+    _check_rows(h0, rowptr, E, padded=dtype == torch.float32)
     return E, (h, c), l1, n
 
 
@@ -459,7 +475,7 @@ def _check_pe(pe, pxj, pxi, senders, rowptr, snd_ptr, snd_perm, w_rest,
         dict(pe=pe, pxj=pxj, pxi=pxi, w_rest=w_rest, b_rest=b_rest,
              w_out=w_out, b_out=b_out, ln_s=ln_s, ln_b=ln_b), ints, want,
         {name: dtype for name in GRAD_NAMES_PE if name not in GRAD_F32_BF16})
-    _check_rows(pe, rowptr, E)
+    _check_rows(pe, rowptr, E, padded=dtype == torch.float32)
     return E, (h, c), l1, n
 
 
@@ -688,9 +704,12 @@ def fused_edge_tail_agg(e0, we, be, pxj, pxi, senders, rowptr, w_rest,
     and rowptr (N+1,) int32; w_rest (L1, H, H), b_rest (L1, H); w_out
     (H, C), b_out (C,); ln_s, ln_b (C,).  Weights are (in, out).
 
-    The kernels trust the CSR (rowptr from 0 up to E, senders in [0, N)):
-    ``ops.graph.csr_from_edges`` checks that when the graph is built, so
-    no launch pays a device-to-host read for it.
+    The kernels trust the CSR (rowptr from 0 up to at most E, senders in
+    [0, N)): ``ops.graph.csr_from_edges`` checks that when the graph is
+    built, so no launch pays a device-to-host read for it.  The edges are
+    the first rowptr[-1] rows, which the kernels read on the card: a graph
+    padded for a captured step (``ops.graph.pad_edges``) has dead rows
+    past them, which add nothing and get zero gradients.
     """
     operands = (e0, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest,
                 w_out, b_out, ln_s, ln_b)

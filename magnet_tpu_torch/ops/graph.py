@@ -24,9 +24,15 @@ kernel lane a layer takes is decided from that layout with a copy of the
 JAX package's gates (``lane_of``), so the port runs the kernel the JAX
 package runs on the same graph.  The lane decides which kernel runs, never
 what is computed.
+
+A captured training step (``train.trainer``) fixes its graph's shapes.
+``pad_edges`` extends a graph's edge rows to a bucket (``EdgeBuckets``,
+sticky, as the JAX package's edge buckets are) past the end of its CSR,
+and ``graph_signature`` says which graphs can share one capture.
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 from dataclasses import dataclass
 from typing import Optional
@@ -62,6 +68,11 @@ class CSRGraph:
     layout: the JAX package's tile layout of the batch (None for a graph
     not built from coordinates); lane: the kernel lane of the model that
     built it (``fold``, ``pregathered`` or ``gather``), or None.
+
+    ``n_edge`` is the edge rows; a graph padded by ``pad_edges`` has dead
+    rows past rowptr[-1], its live edges, which only the f32 fold, pe and
+    pre-gathered kernels and their plain versions take (the trainer pads
+    the fold lane's alone).
     """
 
     senders: torch.Tensor
@@ -398,3 +409,75 @@ class GraphCache:
             self._graphs.pop(next(iter(self._graphs)))
         self._graphs[key] = graph
         return graph
+
+
+#: a padded graph's edge rows are a multiple of this: 16 tiles of 64 edges
+EDGE_BUCKET = 1024
+
+
+def pad_edges(graph: CSRGraph, e_pad: int) -> CSRGraph:
+    """``graph`` with its edge rows extended to ``e_pad`` past the end of
+    its CSR.  ``rowptr``, ``degree`` and ``snd_ptr`` are the graph's own,
+    so its edges are still the first rowptr[-1] rows, the only rows the
+    fused edge kernels and their plain versions read (the dead rows add
+    nothing and get zero gradients).  The dead rows' ``senders`` and
+    ``receivers`` are self loops of the last node, so that what is formed
+    per edge row before the kernel (the edge features, the edge MLP) stays
+    finite, and ``snd_perm`` lists them after the live edges, outside every
+    sender's range.  The layout and lane are the graph's."""
+    n_edge = graph.n_edge
+    if e_pad < n_edge:
+        raise ValueError(f"cannot pad {n_edge} edges to {e_pad}")
+    if e_pad == n_edge:
+        return graph
+    if graph.n_node == 0:
+        raise ValueError("a graph without nodes has no node to pad with")
+    dev = graph.senders.device
+    loops = torch.full((e_pad - n_edge,), graph.n_node - 1,
+                       dtype=torch.int32, device=dev)
+    dead = torch.arange(n_edge, e_pad, dtype=torch.int32, device=dev)
+    return dataclasses.replace(
+        graph, senders=torch.cat([graph.senders, loops]),
+        receivers=torch.cat([graph.receivers, loops]),
+        snd_perm=torch.cat([graph.snd_perm, dead]))
+
+
+class EdgeBuckets:
+    """The edge rows a padded graph takes, one bucket per graph role (a
+    model's ``graph_parts``: ``all``, ``lr``): the most edges a graph of
+    that role has had, rounded up to ``EDGE_BUCKET``, never shrinking (the
+    JAX host builder's sticky ``_E_TILE_CACHE``,
+    ``magnet_tpu/models/common.py:167-190``).  A trainer keeps one a fit;
+    a larger bucket means another signature, and so another capture."""
+
+    def __init__(self):
+        self.edges: dict[str, int] = {}
+
+    def grow(self, role: str, n_edge: int) -> int:
+        """The bucket of ``role`` once it holds ``n_edge`` edges."""
+        need = -(-n_edge // EDGE_BUCKET) * EDGE_BUCKET
+        self.edges[role] = max(self.edges.get(role, 0), need)
+        return self.edges[role]
+
+    def pad(self, role: str, graph: CSRGraph) -> CSRGraph:
+        """``graph`` padded to its role's bucket (grown to hold it)."""
+        return pad_edges(graph, self.grow(role, graph.n_edge))
+
+
+def graph_signature(graph, edges: bool = True) -> tuple:
+    """What a captured step fixes of a model's graph, so that two graphs
+    of one signature can share a capture: of a ``CSRGraph`` its node rows,
+    its edge rows (``edges`` False: left out, as two graphs padded to one
+    bucket share them), its lane and its layout's gates; of a tensor (the
+    k-NN table) its shape and dtype; of a dataclass of them (``GNNGraphs``)
+    each field's; of anything else (no graph) its type."""
+    if isinstance(graph, CSRGraph):
+        return ("csr", graph.n_node, graph.n_edge if edges else None,
+                graph.lane, graph.layout)
+    if isinstance(graph, torch.Tensor):
+        return ("tensor", tuple(graph.shape), str(graph.dtype))
+    if dataclasses.is_dataclass(graph) and not isinstance(graph, type):
+        return (type(graph).__name__,) + tuple(
+            graph_signature(getattr(graph, f.name), edges)
+            for f in dataclasses.fields(graph))
+    return (type(graph).__name__,)

@@ -1,5 +1,5 @@
-"""The width-64 GraphNet backward of this checkout against another tree's,
-in turns on one card: #9 at width 64 (the fold entry) and #3 (the
+"""The GraphNet backward of this checkout against another tree's, in
+turns on one card: #9 at width 64 and 128 (the fold entry) and #3 (the
 pre-gathered entry); or, with ``dtype=bf16``, the bf16 builds of #9 (both
 widths), #7, #3 and #1 (the segment sum) against their f32 builds.
 
@@ -10,12 +10,15 @@ checkout and, with ``baseline=DIR``, of the ``csrc/`` directory DIR of
 another tree of the repo (a parent commit unpacked with ``git archive``;
 its C entry must take the same arguments).  The graphs are those of the
 main paths that launch the two: #9 at a MAgNet[CNN] 1D training batch (32
-samples of 32 queries), #3 at MAgNet[CNN] 2D training graphs of 32 samples
+samples of 32 queries) and at width 128 at a MAgNet[GNN] 1D training
+batch's LR ∪ HR graph, #3 at MAgNet[CNN] 2D training graphs of 32 samples
 (the ``chip_smoke.py`` kernel phase's batch) and of 8 (the trainer's batch
 there), with operands and g drawn from a seed at ``chip_smoke.py``'s
 scales.  Holds each library against the plain version there (the largest
-error and relative L2 error over every gradient) and times it with CUDA
-events over ``REPS`` launches, in turns: baseline, this, this, baseline.
+error and relative L2 error over every gradient), this checkout's d_src
+and weight gradients against the baseline's bit for bit (d_pxi adds with
+atomics), and times it with CUDA events over ``REPS`` launches, in turns:
+baseline, this, this, baseline.
 Prints the card's name and power limit, then one JSON line per kernel and
 shape.  With ``dtype=bf16``: #9 at the MAgNet[CNN] 1D training batch and
 #3 at the two MAgNet[CNN] 2D training graphs, this checkout's f32 build
@@ -95,6 +98,7 @@ KERNEL_NUMBER = {"fold": "#9", "pregathered": "#3", "pe": "#7"}
 def cases():
     """(label, entry, hyperparameters, graph), on the CPU."""
     return [("cnn_1d_train", "fold", MAGNET_CNN, cnn_1d_train_graph()),
+            ("gnn_1d_train", "fold", MAGNET_GNN, gnn_train_graph()),
             ("cnn_2d_train_b32", "pregathered", MAGNET_CNN_2D,
              cnn_2d_train_graph(32, seed=7)),
             ("cnn_2d_train_b8", "pregathered", MAGNET_CNN_2D,
@@ -103,8 +107,8 @@ def cases():
 
 def runner(fn, entry, ops, g, widths):
     """A closure that launches ``fn`` on ``ops`` and g as the wrapper does
-    (the node gradients zeroed, a partial row per SM) and returns (d_src,
-    d_pxi, the packed weight gradients)."""
+    (the node gradients zeroed, a partial row per SM, width 128's scratch)
+    and returns (d_src, d_pxi, the packed weight gradients)."""
     src, we, be, pxj, pxi, senders, rowptr, *tail = ops
     ce, h, c = widths
     n, e, l1 = rowptr.numel() - 1, src.shape[0], tail[0].shape[0]
@@ -113,6 +117,9 @@ def runner(fn, entry, ops, g, widths):
     total = (ce * h + h if fold else 0) + l1 * (h * h + h) + h * c + 3 * c
     blocks = torch.cuda.get_device_properties(dev).multi_processor_count
     partial = torch.empty(blocks, total, device=dev)
+    scratch = (torch.empty(fe.bwd_scratch_planes(entry, l1) * e * h
+                           + 2 * blocks * 2 * h, device=dev)
+               if h == 128 else None)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -126,7 +133,7 @@ def runner(fn, entry, ops, g, widths):
                  *(t.data_ptr() for t in tail[:5]), g.data_ptr(),
                  d_src.data_ptr(), d_nodes[0].data_ptr() if fold else None,
                  d_nodes[1].data_ptr(), wgrad.data_ptr(), partial.data_ptr(),
-                 None, n, e, ce, h, c, l1, fe.ENTRY[entry], blocks,
+                 ptr(scratch), n, e, ce, h, c, l1, fe.ENTRY[entry], blocks,
                  torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"launch failed: cudaError {err}")
@@ -298,14 +305,17 @@ def main(argv) -> int:
         want = plain_grads(entry, ops, g)
         runs = {k: runner(fn, entry, ops, g, (ce, h, c))
                 for k, fn in fns.items()}
-        err = {}
+        err, outs = {}, {}
         for k, run in runs.items():
-            got = run()
+            got = outs[k] = run()
             err[k] = {name: {"max_abs": float((a - b).abs().max()),
                              "rel_l2": float((a - b).double().norm()
                                              / b.double().norm())}
                       for name, a, b in zip(("d_src", "d_pxi", "weights"),
                                             got, want)}
+        bits = ({name: bool(torch.equal(outs["this"][i], outs["baseline"][i]))
+                 for i, name in ((0, "d_src"), (2, "weights"))}
+                if "baseline" in outs else None)
         order, times, mean = in_turns(runs)
         macs = (ce * h if entry == "fold" else 0) + l1 * h * h + h * c
         flops = 3 * 2.0 * graph.n_edge * macs
@@ -315,11 +325,12 @@ def main(argv) -> int:
             "shape": label, "n_node": graph.n_node, "n_edge": graph.n_edge,
             "l1": l1, "reps": REPS, "order": order, "ms": times,
             "mean_ms": mean, "baseline": args.get("baseline"),
+            "bit_equal_to_baseline": bits,
             "f32_bound_ms": flops / F32_PEAK * 1e3,
             "tc_bound_ms": 3 * flops / TF32_PEAK * 1e3,
             "vs_plain": err,
             "device": torch.cuda.get_device_name(0)}), flush=True)
-        del ops, g, want, runs
+        del ops, g, want, runs, outs
     return 0
 
 

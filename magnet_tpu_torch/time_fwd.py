@@ -14,11 +14,12 @@ training batch (32 samples of 32 queries drawn from a seed), MAgNet[CNN]
 2D's eval batch (4 samples at 64²), MAgNet[GNN]'s eval LR ∪ HR graph (16
 trajectories; #6 and #2 there too), with operands drawn from a seed at
 ``chip_smoke.py``'s scales.  Holds each library against the plain version
-there (max abs error) and times it with CUDA events over ``REPS``
-launches, in turns: baseline, this, this, baseline.  Prints the card's
-name and power limit, then one JSON line per kernel and shape: the edge
-count, the times, each library's mean, the bounds (f32 CUDA cores and
-three TF32 products on the tensor cores) and the errors.  With
+there (max abs error), this checkout's output against the baseline's
+bit for bit, and times it with CUDA events over ``REPS`` launches, in
+turns: baseline, this, this, baseline.  Prints the card's name and power
+limit, then one JSON line per kernel and shape: the edge count, the
+times, each library's mean, the bounds (f32 CUDA cores and three TF32
+products on the tensor cores), the errors and the bit check.  With
 ``dtype=bf16`` it times, at MAgNet[CNN] 1D's eval and training graphs and
 MAgNet[CNN] 2D's eval graph, this checkout's f32 fold build (``f32``) and
 its bf16 build (``csrc/fused_edge_tail_agg_bf16.cu``, ``bf16``, on the
@@ -375,8 +376,11 @@ def main(argv) -> int:
                     src, pxi, rowptr, *tail)
             runs = {k: runner(fn, entry, ops, (ce, h, c))
                     for k, fn in fns.items()}
-            err = {k: float((run() - want).abs().max())
-                   for k, run in runs.items()}
+            outs = {k: run() for k, run in runs.items()}
+            err = {k: float((out - want).abs().max())
+                   for k, out in outs.items()}
+            bits = (bool(torch.equal(outs["this"], outs["baseline"]))
+                    if "baseline" in outs else None)
             order, times, mean = in_turns(runs)
             macs = (ce * h if entry == "fold" else 0) + l1 * h * h + h * c
             flops = 2.0 * graph.n_edge * macs
@@ -389,8 +393,9 @@ def main(argv) -> int:
                 "f32_bound_ms": flops / F32_PEAK * 1e3,
                 "tc_bound_ms": 3 * flops / TF32_PEAK * 1e3,
                 "max_abs_err_vs_plain": err,
+                "bit_equal_to_baseline": bits,
                 "device": torch.cuda.get_device_name(0)}), flush=True)
-            del ops, want, runs
+            del ops, want, runs, outs
     return 0
 
 

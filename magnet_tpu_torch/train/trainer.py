@@ -19,29 +19,43 @@ counting their shared loss once.  Metrics are averaged over the ranks.
 Rank 0 alone writes ``metrics.jsonl`` and the checkpoints, in the
 single-process format, so a run saved on any mesh resumes on any other.
 
-``steps_per_call`` = k (JAX ``trainer.py:98-114, 269-328, 388-401``, a
-``lax.scan`` over k stacked batches a jit call) buffers k (batch, graph)
-pairs an epoch, the graphs built on the host from the host batches.  On
-one CUDA device, a full chunk whose batches share shapes and whose pairs
+``steps_per_call`` = k (JAX ``trainer.py:98-114, 186-193, 256-327,
+388-401``, a ``lax.scan`` over k stacked batches and graphs a jit call)
+buffers k (batch, graph) pairs an epoch, the graphs built on the host from
+the host batches.  On one CUDA device, a full chunk whose batches share
+shapes runs as replays of a CUDA graph of one training step when its pairs
 share one graph object (the JAX ``train_scan_shared`` condition: the
-models' graph caches return one object a coordinate set) runs as replays
-of a CUDA graph of one training step, captured once per (shapes, graph)
-after one eager step of warm-up on a side stream: each replay is
-preceded by the copy of its batch into the graph's input tensors and
-followed by a copy of its metrics, with no read from the device between
-them.  The step reads nothing back (``train.optim``: the optimizer decides
-on the device), so a replay is the eager step, and the trajectory, the
-draws of a model's own generator (registered with the graph) and the
+models' graph caches return one object a coordinate set), or when its
+graphs differ but pad to one signature (the JAX ``train_scan`` over
+stacked graphs, which share a static shape because the JAX host builder
+pads edges to sticky buckets): a model with ``graph_parts``
+(``models.common.PaddedGraphMixin``: MAgNet[CNN] and MAgNet[GNN]) whose
+processors all take the f32 fold lane on the chunk's graphs gets them
+padded to the trainer's edge buckets (``ops.graph.EdgeBuckets``: one a
+graph role, the most edges seen in the fit rounded up to 1,024, never
+shrinking), past the end of their CSR, which the f32 fold kernels read on
+the card, so a padded graph computes what it would unpadded.  A step is
+captured once per (batch signature, graph signature) (``ops.graph.
+graph_signature``: node and edge rows, lane and layout of each CSR graph,
+the k-NN table's shape) after one eager step of warm-up on a side stream,
+over static copies of the batch and of the graph; each replay is preceded
+by the copy of its batch, and of its graph where it is another, into them
+and followed by a copy of its metrics, with no read from the device
+between them.  The step reads nothing back (``train.optim``: the optimizer
+decides on the device), so a replay is the eager step, and the trajectory,
+the draws of a model's own generator (registered with the graph) and the
 checkpoints are the same whatever k.  Any other chunk (short, on the CPU,
-over a mesh of ranks, or of graphs that differ) runs its steps one by
-one, as the JAX package runs a chunk it cannot scan; a chunk of graphs
-that differ is scanned there but not captured here, because the port's
-kernels take their tile layouts and grids from each graph on the host.
-With ``graph_shards`` > 1, k falls back to 1, with the JAX trainer's
-warning.  ``log_every`` is stored and read nowhere, as in the JAX trainer.
+over a mesh of ranks, of graphs that differ on another lane or in another
+signature, or of a model without ``graph_parts``) runs its steps one by
+one on its unpadded graphs, as the JAX package runs a chunk it cannot
+scan, and says why once a fit.  With ``graph_shards`` > 1, k falls back to
+1, with the JAX trainer's warning.  ``host_graph`` counts the host's
+seconds building and padding graphs.  ``log_every`` is stored and read
+nowhere, as in the JAX trainer.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import time
@@ -52,6 +66,7 @@ import torch
 import torch.distributed as dist
 
 from magnet_tpu_torch.models.factory import resolve_device
+from magnet_tpu_torch.ops.graph import EdgeBuckets, graph_signature
 from magnet_tpu_torch.parallel.graph_partition import check_halo
 from magnet_tpu_torch.train.checkpoint import CheckpointManager, load_checkpoint
 from magnet_tpu_torch.train.optim import clip_grad_global_norm, make_optimizer
@@ -106,32 +121,62 @@ def batch_signature(batch: dict) -> tuple:
     return tuple((k, tuple(v.shape), str(v.dtype)) for k, v in batch.items())
 
 
+def graph_tensors(graph) -> list:
+    """A model's graph's tensors in field order (a tensor, a dataclass of
+    them such as ``CSRGraph`` or ``GNNGraphs``; anything else has none)."""
+    if isinstance(graph, torch.Tensor):
+        return [graph]
+    if dataclasses.is_dataclass(graph) and not isinstance(graph, type):
+        return [t for f in dataclasses.fields(graph)
+                for t in graph_tensors(getattr(graph, f.name))]
+    return []
+
+
+def clone_graph(graph):
+    """A model's graph with every tensor of it copied."""
+    if isinstance(graph, torch.Tensor):
+        return graph.clone()
+    if dataclasses.is_dataclass(graph) and not isinstance(graph, type):
+        return dataclasses.replace(graph, **{
+            f.name: clone_graph(getattr(graph, f.name))
+            for f in dataclasses.fields(graph)})
+    return graph
+
+
 class CapturedStep:
-    """A training step (``Trainer.device_step``) on one graph, captured as a
-    CUDA graph over input tensors of one batch's shapes; ``replay(batch)``
-    is that step on ``batch``.  The model's own generator, where it has one
-    (``models.common.OwnGenerator``), is registered with the graph, so a
-    replay draws what the eager step would."""
+    """A training step (``Trainer.device_step``) captured as a CUDA graph
+    over static copies of one batch and one graph of their signatures;
+    ``replay(batch, graph)`` is that step on ``batch`` and ``graph``.  The
+    model's own generator, where it has one (``models.common.
+    OwnGenerator``), is registered with the graph, so a replay draws what
+    the eager step would."""
 
     def __init__(self, trainer: "Trainer", batch: dict, graph):
         self.inputs = {k: v.clone() for k, v in batch.items()}
-        self.graph = graph      # held, so that its tensors outlive the graph
+        self.graph = clone_graph(graph)
+        self.source = graph     # the graph whose tensors self.graph holds
         self.cuda_graph = torch.cuda.CUDAGraph()
         if hasattr(trainer.model, "default_generator"):
             self.cuda_graph.register_generator_state(
                 trainer.model.default_generator())
         with torch.cuda.graph(self.cuda_graph):
-            self.metrics = trainer.device_step(self.inputs, graph)
+            self.metrics = trainer.device_step(self.inputs, self.graph)
         self.params = trainer.optimizer.params
         self.grads = [p.grad for p in self.params]
 
-    def replay(self, batch: dict) -> dict:
-        """Enqueue the step on ``batch`` (device tensors of the captured
-        shapes); its metrics, copied out of the graph's tensors.  The
-        parameters' ``.grad`` are the graph's gradients again, as after
-        the eager step."""
+    def replay(self, batch: dict, graph) -> dict:
+        """Enqueue the step on ``batch`` and ``graph`` (device tensors of
+        the captured signatures); its metrics, copied out of the graph's
+        tensors.  The graph is copied in unless it is the one already
+        there.  The parameters' ``.grad`` are the graph's gradients again,
+        as after the eager step."""
         for k, v in batch.items():
             self.inputs[k].copy_(v)
+        if graph is not self.source:
+            for dst, src in zip(graph_tensors(self.graph),
+                                graph_tensors(graph)):
+                dst.copy_(src)
+            self.source = graph
         self.cuda_graph.replay()
         for p, g in zip(self.params, self.grads):
             p.grad = g
@@ -178,10 +223,15 @@ class Trainer:
             warnings.warn("steps_per_call > 1 unsupported with graph_shards "
                           "> 1; using 1")
             self.steps_per_call = 1
-        #: the captured steps of this trainer's fit, by (batch shapes,
-        #: graph), and the training steps run eagerly, captured and replayed
+        #: the captured steps of this trainer's fit, by (batch signature,
+        #: graph signature), the edge buckets of its padded graphs, and the
+        #: training steps run eagerly, captured and replayed
         self.captured: dict = {}
+        self.buckets = EdgeBuckets()
         self.step_counts = {"eager": 0, "captured": 0, "replayed": 0}
+        #: the host's graphs: built (batches) and padded (graphs), seconds
+        self.host_graph = {"built": 0, "build_s": 0.0, "padded": 0,
+                           "pad_s": 0.0}
         self._noted: set = set()
         self.ckpt = CheckpointManager(os.path.join(workdir, "checkpoints"),
                                       last_every=save_last_every,
@@ -211,11 +261,16 @@ class Trainer:
                                  f"dp={n}")
             b = size // n
             batch = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
+        t0 = time.perf_counter()
         if self.graph_shards > 1:
-            return batch, self.model.build_graph_partitioned(
+            graph = self.model.build_graph_partitioned(
                 batch, self.graph_shards, halo=self.graph_halo,
                 axis=self.mesh.graph_axis())
-        return batch, self.model.build_graph(batch)
+        else:
+            graph = self.model.build_graph(batch)
+        self.host_graph["built"] += 1
+        self.host_graph["build_s"] += time.perf_counter() - t0
+        return batch, graph
 
     def _local(self, batch):
         """``_host_pair``'s block on this rank's device, and its graph."""
@@ -261,6 +316,7 @@ class Trainer:
             self.step_size, steps_per_epoch,
             skip_nonfinite=self.skip_nonfinite, max_epochs=self.max_epochs)
         self.captured, self._noted = {}, set()
+        self.buckets = EdgeBuckets()
 
     def fit(self, train_loader: Iterable, val_loader: Optional[Iterable] = None,
             resume: Optional[str] = None):
@@ -336,19 +392,52 @@ class Trainer:
             return f"no CUDA graph on {self.device.type}"
         if self.world > 1:
             return f"the gradients' all-reduce over {self.world} ranks"
-        graph = chunk[0][1]
-        if any(g is not graph for _, g in chunk[1:]):
-            return "the chunk's graphs differ"
+        graphs = [g for _, g in chunk]
+        if any(g is not graphs[0] for g in graphs[1:]):
+            why = self._unpadded(graphs)
+            if why is not None:
+                return why
         sig = batch_signature(chunk[0][0])
         if any(batch_signature(b) != sig for b, _ in chunk[1:]):
             return "the chunk's batch shapes differ"
         return None
 
+    def _unpadded(self, graphs: list) -> Optional[str]:
+        """Why a chunk's graphs, which differ, cannot be padded to one
+        signature (None: they can).  Only the f32 fold lane's kernels read
+        a padded graph's end on the card."""
+        if not hasattr(self.model, "graph_parts"):
+            return "the chunk's graphs differ"
+        lanes = set().union(*map(self.model.graph_lanes, graphs))
+        other = sorted(lanes - {"fold"})
+        if other:
+            return f"the chunk's graphs differ, on the {other[0]} lane"
+        sig = graph_signature(graphs[0], edges=False)
+        if any(graph_signature(g, edges=False) != sig for g in graphs[1:]):
+            return "the chunk's graph signatures differ"
+        return None
+
+    def _padded(self, graphs: list) -> list:
+        """The chunk's graphs, each of their parts padded to its role's
+        bucket, the buckets grown first to hold every one of them."""
+        t0 = time.perf_counter()
+        parts = [self.model.graph_parts(g) for g in graphs]
+        for p in parts:
+            for role, csr in p.items():
+                self.buckets.grow(role, csr.n_edge)
+        out = [self.model.with_graph_parts(
+            g, {role: self.buckets.pad(role, csr) for role, csr in p.items()})
+            for g, p in zip(graphs, parts)]
+        self.host_graph["padded"] += len(graphs)
+        self.host_graph["pad_s"] += time.perf_counter() - t0
+        return out
+
     def _run_chunk(self, chunk: list) -> list:
         """Train on the buffered (host batch, graph) pairs: as replays of a
-        captured step where ``_uncaptured`` finds no reason against it,
-        else one eager step each (noted once a fit per reason).  Returns
-        each step's metrics, on the device."""
+        captured step where ``_uncaptured`` finds no reason against it (the
+        graphs padded where they differ), else one eager step each on its
+        own graph (noted once a fit per reason).  Returns each step's
+        metrics, on the device."""
         why = self._uncaptured(chunk)
         if why is not None:
             if len(chunk) > 1 and why not in self._noted:
@@ -359,8 +448,10 @@ class Trainer:
             return [self.device_step(to_device(b, self.device), g)
                     for b, g in chunk]
         batches = [to_device(b, self.device) for b, _ in chunk]
-        graph = chunk[0][1]
-        key = (batch_signature(chunk[0][0]), id(graph))
+        graphs = [g for _, g in chunk]
+        if any(g is not graphs[0] for g in graphs[1:]):
+            graphs = self._padded(graphs)
+        key = (batch_signature(chunk[0][0]), graph_signature(graphs[0]))
         out = []
         if key not in self.captured:
             # warm-up: the chunk's first step runs eagerly on a side stream
@@ -368,15 +459,15 @@ class Trainer:
             side = torch.cuda.Stream(self.device)
             side.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(side):
-                out.append(self.device_step(batches.pop(0), graph))
+                out.append(self.device_step(batches.pop(0), graphs.pop(0)))
             torch.cuda.current_stream(self.device).wait_stream(side)
             self.step_counts["eager"] += 1
             if len(self.captured) >= MAX_CAPTURED:
                 self.captured.pop(next(iter(self.captured)))
-            self.captured[key] = CapturedStep(self, batches[0], graph)
+            self.captured[key] = CapturedStep(self, batches[0], graphs[0])
             self.step_counts["captured"] += 1
         step = self.captured[key]
-        out += [step.replay(b) for b in batches]
+        out += [step.replay(b, g) for b, g in zip(batches, graphs)]
         self.step_counts["replayed"] += len(batches)
         return out
 

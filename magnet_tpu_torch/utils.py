@@ -25,10 +25,32 @@ def make_coord_np(shape: Sequence[int], ranges=None,
     return ret
 
 
+#: constant tensors by what made them and their device, each made once and
+#: kept: a step captured as a CUDA graph reads them with no copy from the
+#: host (a capture refuses one from pageable memory)
+_KEPT: dict = {}
+
+
 def make_coord(shape: Sequence[int], ranges=None, flatten: bool = True,
                device=None) -> torch.Tensor:
-    """:func:`make_coord_np` as a tensor on ``device``."""
-    return torch.from_numpy(make_coord_np(shape, ranges, flatten)).to(device)
+    """:func:`make_coord_np` as a tensor on ``device``, made once per
+    arguments and kept (read-only)."""
+    key = ("coord", tuple(shape),
+           None if ranges is None else tuple(map(tuple, ranges)), flatten,
+           torch.device(device or "cpu"))
+    if key not in _KEPT:
+        _KEPT[key] = torch.from_numpy(
+            make_coord_np(shape, ranges, flatten)).to(device)
+    return _KEPT[key]
+
+
+def device_constant(values: Sequence[float], device) -> torch.Tensor:
+    """``torch.tensor(values)`` (float32) on ``device``, made once and
+    kept (read-only)."""
+    key = ("constant", tuple(values), torch.device(device))
+    if key not in _KEPT:
+        _KEPT[key] = torch.tensor(values, dtype=torch.float32, device=device)
+    return _KEPT[key]
 
 
 def to_device(batch: dict, device) -> dict:

@@ -1,8 +1,9 @@
 """``trainer.steps_per_call`` and the other trainer keys of the port:
 ``Trainer.fit`` with chunks of k = 3 steps against k = 1, bit for bit (a
 short last chunk, a resume across k either way, ``skip_nonfinite`` with a
-planted NaN); the rule that picks a captured chunk; ``graph_shards`` > 1
-falling back to k = 1 with the JAX trainer's warning; the optimizer,
+planted NaN); the rule that picks a captured chunk (graphs that differ
+included, where the model pads them to one signature); ``graph_shards`` >
+1 falling back to k = 1 with the JAX trainer's warning; the optimizer,
 which decides in tensors (what a captured step runs), against a plain
 Adam whose rate is a float and whose skip is read back, bit for bit, with
 non-finite gradients; ``precision`` mapped to the cuBLAS / cuDNN TF32
@@ -11,7 +12,7 @@ flags; ``log_every`` accepted.
 Every comparison is exact: on the CPU a chunk runs its steps one by one,
 the same arithmetic in the same order as k = 1, and the optimizer computes
 the plain Adam's update with the rate and the skip decided in tensors.  The captured CUDA graphs themselves run on the card
-only (``chip_smoke.py spc``).
+only (``chip_smoke.py spc``, ``spc_graph``).
 """
 import json
 import os
@@ -24,6 +25,9 @@ torch = pytest.importorskip("torch")
 from magnet_tpu_torch import run as port_run  # noqa: E402
 from magnet_tpu_torch.config import compose  # noqa: E402
 from magnet_tpu_torch.data.datamodule import build_loaders  # noqa: E402
+from magnet_tpu_torch.data.datasets import DatasetImplicit1D  # noqa: E402
+from magnet_tpu_torch.data.loader import collate  # noqa: E402
+from magnet_tpu_torch.data.synthetic import make_split  # noqa: E402
 from magnet_tpu_torch.models.factory import create_model  # noqa: E402
 from magnet_tpu_torch.parallel import launch  # noqa: E402
 from magnet_tpu_torch.parallel.mesh import Mesh  # noqa: E402
@@ -253,10 +257,30 @@ def test_on_device_optimizer_equals_the_host_path(monkeypatch, skip):
         assert torch.equal(_bits(a), _bits(b))
 
 
+def _magnet_cnn_chunk(k):
+    """A tiny MAgNet[CNN] 1D trainer and a chunk of ``k`` (batch, graph)
+    pairs with new queries a batch: graphs that differ, on its fold lane."""
+    hp = dict(time_slice=8, latent_dim=8, num_message_passing_steps=2,
+              mlp_layers=2, mlp_hidden=16, n_chan=8, res_layers=1)
+    tr = Trainer(create_model("magnet_cnn", hp, device="cpu", seed=0),
+                 max_epochs=1, workdir="unused", device="cpu",
+                 steps_per_call=k)
+    ds = DatasetImplicit1D(make_split("Heat", 2, 24, 64, seed=1), "train",
+                           nt=24, nx=64, samples=8)
+    chunk = []
+    for i in range(k):
+        ds.set_epoch(i)
+        chunk.append(tr._host_pair(collate([ds[0], ds[1]])))
+    return tr, chunk
+
+
 def test_the_rule_that_captures_a_chunk():
-    """A full chunk of batches of one shape on one graph object, on one
-    CUDA device, is captured; a short chunk, a CPU device, a mesh of ranks,
-    graphs that differ and shapes that differ are not."""
+    """A full chunk of batches of one shape on one graph object, or on
+    graphs that differ but pad to one signature (MAgNet[CNN] 1D's new
+    queries a batch, on its f32 fold lane), on one CUDA device, is
+    captured; a short chunk, a CPU device, a mesh of ranks, graphs that
+    differ of a model that pads none (MPNN) and shapes that differ are
+    not."""
     model = create_model("mpnn", HP, device="cpu", seed=0)
     tr = Trainer(model, max_epochs=1, workdir="unused", device="cpu",
                  steps_per_call=3)
@@ -276,6 +300,19 @@ def test_the_rule_that_captures_a_chunk():
         == "the chunk's batch shapes differ"
     tr.world = 2
     assert tr._uncaptured(full) == "the gradients' all-reduce over 2 ranks"
+
+    tr, chunk = _magnet_cnn_chunk(3)
+    assert len({g.n_edge for _, g in chunk}) == 3    # the graphs differ
+    assert tr._uncaptured(chunk) == "no CUDA graph on cpu"
+    tr.device = torch.device("cuda")
+    assert tr._uncaptured(chunk) is None
+    assert tr._uncaptured(chunk[:2]) == "a short chunk"
+    b, g = chunk[1]
+    wide = {k: torch.cat([v, v]) for k, v in b.items()}
+    assert tr._uncaptured([chunk[0], (wide, g), chunk[2]]) \
+        == "the chunk's batch shapes differ"
+    tr.world = 2
+    assert tr._uncaptured(chunk) == "the gradients' all-reduce over 2 ranks"
 
 
 def test_graph_shards_fall_back_to_one_step_a_call():
