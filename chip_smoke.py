@@ -59,12 +59,16 @@ graph, against one step a call: losses, weights, #10 / #11 launches in a
 profiler trace of each fit, seconds a step and the device's idle share;
 the optimizer, which decides on the device, against a plain Adam that
 decides on the host), and ``steps_per_call`` over graphs that differ
-(#8/#9 at both widths on MAgNet[CNN] 1D's and MAgNet[GNN] 1D's training
-graphs padded past their CSR, against the unpadded launch bit for bit and
-against the plain version; both models fitted with new queries every
-batch, 4 steps a call replayed on padded graphs against one step a call:
-losses, #8/#9 in the trace, seconds a step, idle share, the host's
-seconds building and padding graphs).
+(the fold, pe and pre-gathered kernels in f32 at both widths and in bf16
+at width 64, and #1 in f32 and bf16, on MAgNet[CNN] 1D's and 2D's and
+MAgNet[GNN] 1D's training graphs padded past their CSR, against the
+unpadded launch bit for bit and against the plain version; MAgNet[CNN] 1D
+(f32, bf16, ``kernel_pe``), MAgNet[CNN] 2D (f32, bf16), MAgNet[GNN] 1D
+(f32, ``kernel_pregathered``) and MAgNet[GNN] 2D fitted with new queries
+every batch, 4 steps a call replayed on padded graphs against one step a
+call: losses, one step padded against unpadded, the lane's kernels in the
+trace, seconds a step, idle share, the host's seconds building and
+padding graphs).  Each group's seconds go to stderr.
 It checks that each path went through its kernels by their launch counts.
 Prints one JSON line per phase (``device``, ``build``, ``kernel``,
 ``slice``, ``kernel_bwd``, ``train``, ``mpnn_kernel``, ``mpnn_kernel_bwd``,
@@ -181,6 +185,12 @@ DATA_WORKERS, DATA_CHUNK = 6, 4
 # cuFFT against pocketfft and the 1x1 convolutions summed in another order,
 # carried over 9 (1D) or 4 (2D) autoregressive windows
 FNO_LOSS_RTOL = 1e-4
+# depth cuts of earlier paths that keep the full run inside its time limit
+# beside spc_graph's eight fits: FNO-2D (no kernel of the port; its CPU
+# eval comparison dominates its phase) and the spc phase's MPNN 1D and
+# FNO-1D fits run at these depths, their widths the published ones
+FNO_2D_SMOKE_LAYERS = 2
+SPC_DEPTH = {"mpnn": {"hidden_layer": 2}, "fno_1d": {"num_layers": 2}}
 # MAgNet[CNN] no-interaction at its published width: eval on the cnn
 # group's 16 Heat trajectories (one batch, 15 windows), and against the CPU
 # path on a cut of that batch (NI_CPU_TRAJ trajectories, the first
@@ -304,6 +314,23 @@ SPC_PLAIN_FIT_LOSS_RTOL, SPC_PLAIN_FIT_WEIGHT_L2 = 1e-3, 1e-3
 # launch against the plain version at the kernel phases' bounds
 SPC_GRAPH_TRAJ, SPC_GRAPH_ATOMICS_L2 = 128, 1e-6
 SPC_GRAPH_LOSS_RTOL = {"magnet_cnn": 1e-5, "magnet_gnn": PAR_FIT_RTOL}
+# The same checks on every lane a captured chunk now pads: the f32 pe and
+# pre-gathered entries at both widths, the bf16 fold, pe and pre-gathered
+# entries at width 64 and the segment sum #1 (f32 and bf16) over a padded
+# sender CSR, bit for bit where no atomics add.  The bf16 node gradients
+# are f32 atomic sums rounded once to bf16: a last-bit change of a sum
+# that lies at a rounding boundary moves that element by one bf16 step
+# (2^-8 relative), so they are held at SPC_GRAPH_ATOMICS_BF16_L2 (a few in
+# 10^5 elements so moved give ~2e-5), the unpadded launch's repeat beside
+# it.  The fits: MAgNet[CNN] 2D (pre-gathered lane) and 1D on kernel_pe
+# at 1e-5 as MAgNet[CNN] 1D; MAgNet[GNN] 2D, MAgNet[GNN] 1D on
+# kernel_pregathered and the bf16 fits (MAgNet[CNN] 1D, 2D) at
+# PAR_FIT_RTOL beside their repeated one-step fit's spread (the k-NN
+# gather's and the backward kernels' atomics; bf16 roundings that such a
+# change flips).  MAgNet[CNN] 2D and MAgNet[GNN] 2D fit SPC_GRAPH_TRAJ
+# trajectories made by repeating the cnn2d and gnn2d groups' solves
+# (queries drawn anew for every sample), so that no new solve is made
+SPC_GRAPH_ATOMICS_BF16_L2 = 1e-4
 GROUPS = ("cnn", "mpnn_kernels", "mpnn_paths", "cnn2d", "gnn", "gnn2d",
           "fno", "no_interaction", "cnn_bf16", "cnn2d_bf16", "gnn_bf16",
           "cnn_pe", "gnn_pre", "par", "par_dist", "tune", "remat", "spc",
@@ -5906,7 +5933,8 @@ def fno_phases(dev, data, groups) -> tuple[int, list, dict]:
     from magnet_tpu_torch.models.factory import create_model
     from magnet_tpu_torch.utils import to_device
 
-    for name, hp in (("fno_1d", FNO_1D), ("fno_2d", FNO_2D)):
+    for name, hp in (("fno_1d", FNO_1D),
+                     ("fno_2d", {**FNO_2D, "num_layers": FNO_2D_SMOKE_LAYERS})):
         t_phase = time.perf_counter()
         loaders = data[f"{name}_loaders"]
         eval_batches = list(loaders["test"])
@@ -6359,22 +6387,25 @@ def traced_launches(events, symbols: dict) -> dict:
 
 
 def spc_fit(name, hp, loaders, dev, k, workdir, skip_nonfinite=False,
-            profiled=False, plain_adam=False,
-            symbols=MPNN_SYMBOLS) -> tuple[object, dict]:
-    """``Trainer.fit`` of ``name`` (seed 0) for SPC_EPOCHS epochs with
-    ``k`` steps a call (``plain_adam``: with ``PlainAdam`` in place of the
-    trainer's optimizer): the trainer and its record (each step's metrics
-    in order, the launches its wrappers counted, eager / captured /
-    replayed steps, the last epoch's seconds a step and, ``profiled``, the
-    launches of the kernels of ``symbols`` in a ``torch.profiler`` trace of
-    the fit)."""
+            profiled=False, plain_adam=False, symbols=MPNN_SYMBOLS,
+            kind=None, impl="kernel") -> tuple[object, dict]:
+    """``Trainer.fit`` of ``name`` (seed 0; ``kind`` the datamodule's,
+    ``impl`` the GraphNet lane) for SPC_EPOCHS epochs with ``k`` steps a
+    call (``plain_adam``: with ``PlainAdam`` in place of the trainer's
+    optimizer): the trainer and its record (each step's metrics in order,
+    the launches its wrappers counted, eager / captured / replayed steps,
+    the last epoch's seconds a step and, ``profiled``, the launches of the
+    kernels of ``symbols`` in a ``torch.profiler`` trace of the fit)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from magnet_tpu_torch.models.factory import create_model
     from magnet_tpu_torch.train.trainer import Trainer
 
-    trainer = Trainer(create_model(name, hp, device=dev, seed=0),
+    model = create_model(name, hp, device=dev, seed=0, kind=kind)
+    if impl != "kernel":
+        model.impl = impl
+    trainer = Trainer(model,
                       max_epochs=SPC_EPOCHS, lr=hp["lr"],
                       weight_decay=hp["weight_decay"], factor=hp["factor"],
                       step_size=hp["step_size"], workdir=workdir, device=dev,
@@ -6609,7 +6640,7 @@ def spc_phases(dev, data, groups) -> tuple[int, list, dict]:
     smi = card()
     records, extra = [], {}
     for name in SPC_MODELS:
-        hp = dict(MPNN if name == "mpnn" else FNO_1D)
+        hp = {**(MPNN if name == "mpnn" else FNO_1D), **SPC_DEPTH[name]}
         loaders = data[f"spc_{name}_loaders"]
         per_epoch = len(loaders["train"])
         fits, trainers = {}, {}
@@ -6768,19 +6799,101 @@ def spc_phases(dev, data, groups) -> tuple[int, list, dict]:
     return 0, [], extra
 
 
-#: the f32 fold kernels (#8, #9) of the spc_graph fits in a profiler trace,
-#: by launch counter: the parts every name of one of them holds (the
-#: width-128 backward by its weight-gradient kernel, once a launch)
-FOLD_SYMBOLS = {
-    "magnet_cnn": {"fused_edge_fwd": ("w64", "edge_tail_kernel"),
-                   "fused_edge_bwd": ("edge_tail_bwd_kernel",)},
-    "magnet_gnn": {"fused_edge_fold128_fwd": ("w128", "edge_tail_kernel"),
-                   "fused_edge_fold128_bwd": ("wgrad_kernel",)}}
-#: their rows in the kernels line
-FOLD_ROWS = {"fused_edge_fwd": "fused_edge_tail_agg",
-             "fused_edge_bwd": "fused_edge_tail_agg_bwd",
-             "fused_edge_fold128_fwd": "fused_edge_tail_agg_w128",
-             "fused_edge_fold128_bwd": "fused_edge_tail_agg_bwd_w128"}
+#: the kernels of the spc_graph fits in a profiler trace, a group for each
+#: kernel template the lanes share: the parts every name of the group's
+#: kernels holds and the launch counters (``every_launch``) of the wrappers
+#: that launch it (the width-128 f32 backward counted by its
+#: weight-gradient kernel, once a launch)
+TRACE_GROUPS = {
+    "f32_w64_fwd": (("w64", "edge_tail_kernel"),
+                    ("fused_edge_fwd", "fused_edge_pregathered_fwd",
+                     "fused_edge_pe64_fwd")),
+    "f32_w64_bwd": (("edge_tail_bwd_kernel",),
+                    ("fused_edge_bwd", "fused_edge_pregathered_bwd",
+                     "fused_edge_pe64_bwd")),
+    "f32_w128_fwd": (("w128", "edge_tail_kernel"),
+                     ("fused_edge_fold128_fwd", "fused_edge_pregathered128_fwd",
+                      "fused_edge_pe_fwd")),
+    "f32_w128_bwd": (("wgrad_kernel",),
+                     ("fused_edge_fold128_bwd", "fused_edge_pregathered128_bwd",
+                      "fused_edge_pe_bwd")),
+    "bf16_w64_fwd": (("wgmma_fwd_kernel",),
+                     ("fused_edge_bf16_fwd", "fused_edge_pregathered_bf16_fwd",
+                      "fused_edge_pe64_bf16_fwd")),
+    "bf16_w64_bwd": (("wgmma_bwd_kernel",),
+                     ("fused_edge_bf16_bwd", "fused_edge_pregathered_bf16_bwd",
+                      "fused_edge_pe64_bf16_bwd")),
+    "segment_sum": (("segment_sum_kernel",), ("segment_sum",
+                                              "segment_sum_bf16"))}
+#: the kernels line's row of each counter
+COUNTER_ROWS = {
+    "fused_edge_fwd": "fused_edge_tail_agg",
+    "fused_edge_bwd": "fused_edge_tail_agg_bwd",
+    "fused_edge_fold128_fwd": "fused_edge_tail_agg_w128",
+    "fused_edge_fold128_bwd": "fused_edge_tail_agg_bwd_w128",
+    "fused_edge_pregathered_fwd": "fused_edge_tail_agg_pregathered",
+    "fused_edge_pregathered_bwd": "fused_edge_tail_agg_pregathered_bwd",
+    "fused_edge_pregathered128_fwd": "fused_edge_tail_agg_pregathered_w128",
+    "fused_edge_pregathered128_bwd":
+        "fused_edge_tail_agg_pregathered_bwd_w128",
+    "fused_edge_pe64_fwd": "fused_edge_tail_agg_pe64",
+    "fused_edge_pe64_bwd": "fused_edge_tail_agg_pe64_bwd",
+    "fused_edge_pe_fwd": "fused_edge_tail_agg_pe",
+    "fused_edge_pe_bwd": "fused_edge_tail_agg_pe_bwd",
+    "fused_edge_bf16_fwd": "fused_edge_tail_agg_bf16",
+    "fused_edge_bf16_bwd": "fused_edge_tail_agg_bf16_bwd",
+    "fused_edge_pregathered_bf16_fwd": "fused_edge_tail_agg_pregathered_bf16",
+    "fused_edge_pregathered_bf16_bwd":
+        "fused_edge_tail_agg_pregathered_bf16_bwd",
+    "fused_edge_pe64_bf16_fwd": "fused_edge_tail_agg_pe64_bf16",
+    "fused_edge_pe64_bf16_bwd": "fused_edge_tail_agg_pe64_bf16_bwd",
+    "segment_sum": "segment_sum", "segment_sum_bf16": "segment_sum_bf16"}
+
+
+def spc_graph_fits() -> list[dict]:
+    """The spc_graph fits: model, hyperparameters, data, lane, the
+    counters of the lane's training kernels (forward, backward, the
+    segment sum where the lane has one), the loss bound against the
+    one-step fit and whether that fit runs twice (its spread: where the
+    bound rests on it, and MAgNet[CNN] 1D's, the first fit's own
+    check)."""
+    from magnet_tpu_torch.config import MAGNET_CNN, MAGNET_CNN_2D, MAGNET_GNN
+
+    bf16 = {"graph_dtype": "bf16"}
+    par = SPC_GRAPH_LOSS_RTOL["magnet_gnn"]
+
+    def fit(label, name, hp, data, train, rtol, kind=None, impl="kernel",
+            repeat=None):
+        return {"label": label, "name": name, "hp": hp, "data": data,
+                "train": train, "rtol": rtol, "kind": kind, "impl": impl,
+                "repeat": rtol > 1e-5 if repeat is None else repeat}
+
+    return [
+        fit("magnet_cnn", "magnet_cnn", MAGNET_CNN, "magnet_cnn",
+            ("fused_edge_fwd", "fused_edge_bwd"), 1e-5, repeat=True),
+        fit("magnet_gnn", "magnet_gnn", MAGNET_GNN, "magnet_gnn",
+            ("fused_edge_fold128_fwd", "fused_edge_fold128_bwd"), par),
+        fit("magnet_cnn_2d", "magnet_cnn_2d", MAGNET_CNN_2D, "magnet_cnn_2d",
+            ("fused_edge_pregathered_fwd", "fused_edge_pregathered_bwd",
+             "segment_sum"), par),
+        fit("magnet_cnn_2d bf16", "magnet_cnn_2d", {**MAGNET_CNN_2D, **bf16},
+            "magnet_cnn_2d",
+            ("fused_edge_pregathered_bf16_fwd",
+             "fused_edge_pregathered_bf16_bwd", "segment_sum_bf16"), par),
+        fit("magnet_gnn_2d", "magnet_gnn", {**MAGNET_GNN, **GNN2D_HP},
+            "magnet_gnn_2d",
+            ("fused_edge_fold128_fwd", "fused_edge_fold128_bwd"), par,
+            kind="h5_implicit_gnn_2d"),
+        fit("magnet_cnn bf16", "magnet_cnn", {**MAGNET_CNN, **bf16},
+            "magnet_cnn", ("fused_edge_bf16_fwd", "fused_edge_bf16_bwd"),
+            par),
+        fit("magnet_cnn kernel_pe", "magnet_cnn", MAGNET_CNN, "magnet_cnn",
+            ("fused_edge_pe64_fwd", "fused_edge_pe64_bwd", "segment_sum"),
+            1e-5, impl="kernel_pe"),
+        fit("magnet_gnn kernel_pregathered", "magnet_gnn", MAGNET_GNN,
+            "magnet_gnn",
+            ("fused_edge_pregathered128_fwd", "fused_edge_pregathered128_bwd",
+             "segment_sum"), par, impl="kernel_pregathered")]
 
 
 def replay_ms(fn, reps: int) -> float:
@@ -6795,211 +6908,426 @@ def replay_ms(fn, reps: int) -> float:
     return cuda_ms(graph.replay, reps)
 
 
-def spc_graph_kernels(graph, widths, l1, seed, dev) -> dict:
-    """#8 and #9 of ``widths`` on ``graph`` padded to its edge bucket
-    (``ops.graph.EdgeBuckets``; a dead tail of 1-1,023 rows, NaN in e0's
-    dead rows) against the same launch unpadded, and against the plain
-    version (the relu ties' receivers zeroed in g, as ``check_bwd_w64``
-    does at a training shape); each timed padded and unpadded in turns,
-    as replays of a captured launch (``replay_ms``)."""
+def padded_turns(fns: dict, reps: int = 50) -> dict:
+    """Each of ``fns`` ({direction: (unpadded call, padded call)}) timed as
+    replays of a captured call (``replay_ms``) in turns: unpadded, padded,
+    padded, unpadded."""
+    turns = {"unpadded": {d: [] for d in fns}, "padded": {d: [] for d in fns}}
+    for label, i in (("unpadded", 0), ("padded", 1), ("padded", 1),
+                     ("unpadded", 0)):
+        for d, pair in fns.items():
+            turns[label][d].append(replay_ms(pair[i], reps))
+    return turns
+
+
+#: the edge source of each entry's operands and its integer operands'
+#: places, by the graph field each one is
+PAD_INTS = {"fold": {5: "senders", 6: "rowptr"},
+            "pregathered": {2: "rowptr"},
+            "pe": {3: "senders", 4: "rowptr", 5: "snd_ptr", 6: "snd_perm"}}
+
+
+def pad_entry(entry, dtype):
+    """(forward, backward, plain forward, plain backward, gradient names)
+    of ``entry``'s wrappers in ``dtype``."""
     from magnet_tpu_torch.ops import fused_edge as fe
-    from magnet_tpu_torch.ops.graph import EdgeBuckets, pad_edges
+
+    stem = {"fold": "fused_edge_tail_agg",
+            "pregathered": "fused_edge_tail_agg_pregathered",
+            "pe": "fused_edge_tail_agg_pe"}[entry]
+    stem += "_bf16" if dtype == "bf16" else ""
+    names = {"fold": fe.GRAD_NAMES, "pregathered": fe.GRAD_NAMES_PREGATHERED,
+             "pe": fe.GRAD_NAMES_PE}[entry]
+    return (getattr(fe, stem), getattr(fe, f"{stem}_bwd"),
+            getattr(fe, f"{stem}_plain"), getattr(fe, f"{stem}_bwd_plain"),
+            names)
+
+
+def pad_operands(entry, dtype, graph, widths, l1, seed, dev):
+    """The wrapper's operands of ``entry`` on ``graph`` (fold: (Ce, H, C)
+    widths; pe and pre-gathered: (H, H, C)) at the kernel phases' scales,
+    rounded to bf16 in the bf16 lane."""
+    from magnet_tpu_torch.time_fwd import operands as c_operands
+    from magnet_tpu_torch.time_fwd import to_bf16
 
     ce, h, c = widths
+    if entry == "fold":
+        ops = kernel_operands(graph, ce, h, c, l1, seed, dev)
+    elif entry == "pregathered":
+        ops = pregathered_operands(graph, h, c, l1, seed, dev)
+    else:
+        src, _, _, pxj, pxi, senders, rowptr, *tail = c_operands(
+            "pe", graph, h, h, c, l1, seed, dev)
+        ops = (src, pxj, pxi, senders, rowptr, graph.snd_ptr.to(dev),
+               graph.snd_perm.to(dev), *tail)
+    return to_bf16(ops) if dtype == "bf16" else ops
+
+
+def padded_graph(graph):
+    """``graph`` padded to its edge bucket (``ops.graph.EdgeBuckets``), by
+    one row where it fills its bucket."""
+    from magnet_tpu_torch.ops.graph import EdgeBuckets, pad_edges
+
+    e_pad = EdgeBuckets().grow("all", graph.n_edge)
+    return pad_edges(graph, e_pad if e_pad > graph.n_edge else
+                     graph.n_edge + 1)
+
+
+def spc_graph_kernels(entry, dtype, graph, widths, l1, seed, dev) -> dict:
+    """``entry``'s forward and backward in ``dtype`` (f32 at either width;
+    bf16 at width 64) on ``graph`` padded to its edge bucket (a dead tail
+    of 1-1,023 rows, NaN in the edge source's dead rows) against the same
+    launch unpadded: output, weight gradients and d_src's live rows bit for
+    bit, d_src's dead rows zero, the node gradients summed with atomics
+    (fold: d_pxj and d_pxi; pe, pre-gathered: d_pxi) within
+    SPC_GRAPH_ATOMICS_L2 relative L2 (bf16: SPC_GRAPH_ATOMICS_BF16_L2); the
+    padded launch against the plain version at the kernel phases' bounds
+    (the relu ties' receivers zeroed in g); each timed padded and unpadded
+    in turns, as replays of a captured launch."""
+    fwd, bwd, plain_fwd, plain_bwd, names = pad_entry(entry, dtype)
+    bf16 = dtype == "bf16"
+    c = widths[2]
     E = graph.n_edge
-    e_pad = EdgeBuckets().grow("all", E)
-    padded = pad_edges(graph, e_pad if e_pad > E else E + 1)
-    ops = kernel_operands(graph, ce, h, c, l1, seed, dev)
-    dead = torch.full((padded.n_edge - E, ce), float("nan"), device=dev)
-    ops_p = (torch.cat([ops[0], dead]), *ops[1:5], padded.senders,
-             padded.rowptr, *ops[7:])
+    padded = padded_graph(graph)
+    ops = pad_operands(entry, dtype, graph, widths, l1, seed, dev)
+    src = ops[0]
+    dead = torch.full((padded.n_edge - E, src.shape[1]), float("nan"),
+                      dtype=src.dtype, device=dev)
+    ops_p = [torch.cat([src, dead]), *ops[1:]]
+    for i, field in PAD_INTS[entry].items():
+        ops_p[i] = getattr(padded, field).to(dev)
     gen = torch.Generator().manual_seed(seed + 1)
     g = torch.randn(graph.n_node, c, generator=gen).to(dev)
-    ties = tie_receivers("fold", ops, l1)
+    ties = (tie_receivers_bf16(ops, l1, entry) if bf16
+            else tie_receivers(entry, ops, l1))
     g[ties] = 0.0
-    out_u, out_p = fe.fused_edge_tail_agg(*ops), fe.fused_edge_tail_agg(*ops_p)
-    grads_u = fe.fused_edge_tail_agg_bwd(*ops, g)
-    grads_u2 = fe.fused_edge_tail_agg_bwd(*ops, g)
-    grads_p = fe.fused_edge_tail_agg_bwd(*ops_p, g)
+    out_u, out_p = fwd(*ops), fwd(*ops_p)
+    grads_u, grads_u2 = bwd(*ops, g), bwd(*ops, g)
+    grads_p = bwd(*ops_p, g)
     torch.cuda.synchronize()
-    plain_out = fe.fused_edge_tail_agg_plain(*ops_p)
-    plain = fe.fused_edge_tail_agg_bwd_plain(*ops_p, g)
+    plain_out = plain_fwd(*ops_p)
+    plain = plain_bwd(*ops_p, g)
+    atomic = {"pxi"} | ({"pxj"} if entry == "fold" else set())
+    atomics_l2 = SPC_GRAPH_ATOMICS_BF16_L2 if bf16 else SPC_GRAPH_ATOMICS_L2
     bits, atomics, vs_plain = {}, {}, {}
-    for name, a, u, u2, w in zip(fe.GRAD_NAMES, grads_p, grads_u, grads_u2,
-                                 plain):
-        if name in ("pxj", "pxi"):
+    for name, a, u, u2, w in zip(names, grads_p, grads_u, grads_u2, plain):
+        if name in atomic:
             atomics[name] = {"rel_l2_vs_unpadded": rel_l2(a, u),
                              "rel_l2_unpadded_run_to_run": rel_l2(u2, u)}
-        elif name == "e0":
+        elif name == names[0]:
             bits[name] = bool(torch.equal(a[:E], u))
-            bits["e0_dead_rows_zero"] = bool((a[E:] == 0).all())
+            bits[f"{name}_dead_rows_zero"] = bool((a[E:] == 0).all())
         else:
             bits[name] = bool(torch.equal(a, u))
-        vs_plain[name] = compare_grad(a, w, elementwise=False)
-    fwd_vs_plain = compare(out_p, plain_out, KERNEL_RTOL, KERNEL_ATOL)
-    turns = {"unpadded": {"fwd": [], "bwd": []},
-             "padded": {"fwd": [], "bwd": []}}
-    for label, o in (("unpadded", ops), ("padded", ops_p), ("padded", ops_p),
-                     ("unpadded", ops)):
-        turns[label]["fwd"].append(replay_ms(
-            lambda: fe.fused_edge_tail_agg(*o), 50))
-        turns[label]["bwd"].append(replay_ms(
-            lambda: fe.fused_edge_tail_agg_bwd(*o, g), 50))
-    ok = (bool(torch.equal(out_u, out_p)) and all(bits.values())
-          and all(v["rel_l2_vs_unpadded"] <= SPC_GRAPH_ATOMICS_L2
+        if w.numel():
+            vs_plain[name] = (compare_grad(a, w, elementwise=False,
+                                           rtol=BF16_RTOL,
+                                           atol_rel=BF16_BWD_ATOL_REL,
+                                           max_l2=BF16_BWD_L2) if bf16
+                              else compare_grad(a, w, elementwise=False))
+    fwd_vs_plain = (compare_bf16(out_p, plain_out) if bf16
+                    else compare(out_p, plain_out, KERNEL_RTOL, KERNEL_ATOL))
+    turns = padded_turns({
+        "fwd": (lambda: fwd(*ops), lambda: fwd(*ops_p)),
+        "bwd": (lambda: bwd(*ops, g), lambda: bwd(*ops_p, g))})
+    fwd_bits = bool(torch.equal(out_u, out_p))
+    ok = (fwd_bits and all(bits.values())
+          and all(v["rel_l2_vs_unpadded"] <= atomics_l2
                   for v in atomics.values())
           and fwd_vs_plain["ok"] and all(v["ok"] for v in vs_plain.values()))
-    return {"widths": list(widths), "l1": l1, "n_node": graph.n_node,
-            "live_edges": E, "rows": padded.n_edge,
-            "dead_tail": padded.n_edge - E,
-            "fwd_bit_equal": bool(torch.equal(out_u, out_p)),
-            "bwd_bit_equal": bits, "atomic_node_grads": atomics,
-            "atomics_rel_l2_tol": SPC_GRAPH_ATOMICS_L2,
+    ce, h, _ = widths
+    if entry == "fold":
+        bounds = ((bf16_bound if bf16 else bound)(k, graph, ce, h, c, l1)
+                  for k in ("fwd", "bwd"))
+    elif bf16:
+        fn = pe_bf16_bound if entry == "pe" else pregathered_bf16_bound
+        bounds = (fn(k, graph, h, c, l1) for k in ("fwd", "bwd"))
+    else:
+        bounds = (pregathered_bound(k, graph, h, c, l1, pe=entry == "pe")
+                  for k in ("fwd", "bwd"))
+    b_fwd, b_bwd = bounds
+    return {"entry": entry, "dtype": dtype,
+            "widths": list(widths) if entry == "fold" else [h, c],
+            "l1": l1, "n_node": graph.n_node, "live_edges": E,
+            "rows": padded.n_edge, "dead_tail": padded.n_edge - E,
+            "fwd_bit_equal": fwd_bits, "bwd_bit_equal": bits,
+            "atomic_node_grads": atomics, "atomics_rel_l2_tol": atomics_l2,
             "fwd_vs_plain": fwd_vs_plain, "bwd_vs_plain": vs_plain,
             "tie_receivers_zeroed": int(ties.numel()),
+            "ms_in_turns": turns, "bound_fwd": b_fwd, "bound_bwd": b_bwd,
+            "ok": bool(ok)}
+
+
+def spc_graph_segment(dtype, graph, h, seed, dev) -> dict:
+    """The segment sum #1 over ``graph``'s sender CSR padded to its edge
+    bucket (``snd_perm`` listing the dead rows after the live edges, NaN in
+    x's dead rows) against the unpadded sum bit for bit and against the
+    plain version (SEG_RTOL, or BF16_SEG_RTOL in bf16, of |want| plus
+    SEG_ATOL_REL of its largest), timed padded and unpadded in turns."""
+    from magnet_tpu_torch.ops import segment as seg
+
+    E = graph.n_edge
+    padded = padded_graph(graph)
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(E, h, generator=gen).to(dev)
+    x = x.bfloat16() if dtype == "bf16" else x
+    x_p = torch.cat([x, torch.full((padded.n_edge - E, h), float("nan"),
+                                   dtype=x.dtype, device=dev)])
+    ptr, perm = graph.snd_ptr.to(dev), graph.snd_perm.to(dev)
+    perm_p = padded.snd_perm.to(dev)
+    got_u = seg.segment_sum(x, ptr, perm)
+    got_p = seg.segment_sum(x_p, ptr, perm_p)
+    want = seg.segment_sum_plain(x_p, ptr, perm_p)
+    err = (got_p.double() - want.double()).abs()
+    rtol = BF16_SEG_RTOL if dtype == "bf16" else SEG_RTOL
+    tol = rtol * want.double().abs() + SEG_ATOL_REL * float(
+        want.double().abs().max())
+    bits = bool(torch.equal(got_p, got_u))
+    turns = padded_turns({"sum": (lambda: seg.segment_sum(x, ptr, perm),
+                                  lambda: seg.segment_sum(x_p, ptr, perm_p))})
+    return {"dtype": dtype, "h": h, "n_node": graph.n_node,
+            "live_edges": E, "rows": padded.n_edge,
+            "dead_tail": padded.n_edge - E, "bit_equal": bits,
+            "vs_plain": {"max_abs_err": float(err.max()), "rtol": rtol,
+                         "ok": bool((err <= tol).all())},
             "ms_in_turns": turns,
-            "bound_fwd": bound("fwd", graph, ce, h, c, l1),
-            "bound_bwd": bound("bwd", graph, ce, h, c, l1), "ok": ok}
+            "bound": segment_bound(graph, h, 2.0 if dtype == "bf16" else 4.0),
+            "ok": bits and bool((err <= tol).all())}
+
+
+def spc_graph_kernel_cases(dev, data) -> dict:
+    """The kernel forms of the captured lanes on padded graphs: the f32
+    fold (#8/#9), pe (#6/#7) and pre-gathered (#2/#3) entries at (64, 32)
+    (fold (32, 64, 32)) on MAgNet[CNN] 1D's batch-32 training graph (fold,
+    pe) and MAgNet[CNN] 2D's (pre-gathered), at width 128 on MAgNet[GNN]
+    1D's LR and LR ∪ HR training graphs, the bf16 entries at width 64 on
+    the same MAgNet[CNN] graphs, and #1 in f32 (the pe lane's d_pxj,
+    MAgNet[CNN] 1D's graph) and bf16 (the bf16 pre-gathered lane's sender
+    gather, MAgNet[CNN] 2D's) on their padded sender CSRs."""
+    from magnet_tpu_torch.config import MAGNET_CNN, MAGNET_CNN_2D, MAGNET_GNN
+    from magnet_tpu_torch.models.factory import create_model
+
+    def train_graph(name, hp, key, kind=None):
+        loader = data[f"spc_graph_{key}_loaders"]["train"]
+        loader.set_epoch(0)
+        model = create_model(name, hp, device=dev, kind=kind)
+        graph = model.build_graph({k: torch.as_tensor(v) for k, v in
+                                   next(iter(loader)).items()})
+        return model.graph_parts(graph)
+
+    l1 = MAGNET_CNN["mlp_layers"] - 1
+    cnn1d = train_graph("magnet_cnn", MAGNET_CNN, "magnet_cnn")["all"]
+    cnn2d = train_graph("magnet_cnn_2d", MAGNET_CNN_2D, "magnet_cnn_2d")["all"]
+    gnn = train_graph("magnet_gnn", MAGNET_GNN, "magnet_gnn")
+    w64, w128 = (32, 64, 32), (128, 128, 128)
+    cases = {}
+    for dtype in ("f32", "bf16"):
+        cases[f"{dtype} fold cnn_1d"] = ("fold", dtype, cnn1d, w64)
+        cases[f"{dtype} pe cnn_1d"] = ("pe", dtype, cnn1d, (64, 64, 32))
+        cases[f"{dtype} pregathered cnn_2d"] = ("pregathered", dtype, cnn2d,
+                                                (64, 64, 32))
+    for role, part in gnn.items():
+        for entry in ("fold", "pe", "pregathered"):
+            cases[f"f32 {entry} gnn_1d {role}"] = (entry, "f32", part, w128)
+    out = {label: spc_graph_kernels(entry, dtype, graph, widths, l1, 7, dev)
+           for label, (entry, dtype, graph, widths) in cases.items()}
+    out["f32 segment_sum cnn_1d"] = spc_graph_segment("f32", cnn1d, 64, 8,
+                                                      dev)
+    out["bf16 segment_sum cnn_2d"] = spc_graph_segment("bf16", cnn2d, 64, 8,
+                                                       dev)
+    return out
+
+
+def padded_step(spec, loader, dev) -> dict:
+    """One eager training step of ``spec``'s model (seed 0) on the first
+    batch of ``loader``, on its graph and on the graph padded to the
+    trainer's buckets: the loss's relative difference and each
+    gradient's relative L2 difference, the largest of them (what a fit on
+    padded graphs starts from)."""
+    from magnet_tpu_torch.models.factory import create_model
+    from magnet_tpu_torch.ops.graph import EdgeBuckets
+    from magnet_tpu_torch.utils import to_device
+
+    loader.set_epoch(0)
+    batch = {k: torch.as_tensor(v) for k, v in next(iter(loader)).items()}
+    model = create_model(spec["name"], spec["hp"], device=dev, seed=0,
+                         kind=spec["kind"])
+    if spec["impl"] != "kernel":
+        model.impl = spec["impl"]
+    model.train()
+    graph = model.build_graph(batch)
+    buckets = EdgeBuckets()
+    padded = model.with_graph_parts(graph, {
+        role: buckets.pad(role, csr)
+        for role, csr in model.graph_parts(graph).items()})
+    batch = to_device(batch, dev)
+    out = {}
+    for label, g in (("unpadded", graph), ("padded", padded)):
+        model.zero_grad()
+        loss, _ = model.loss(batch, g, train=True)
+        loss.backward()
+        out[label] = (loss.detach(), {n: p.grad.clone() for n, p in
+                                      model.named_parameters()
+                                      if p.grad is not None})
+    (lu, gu), (lp, gp) = out["unpadded"], out["padded"]
+    grads = {n: rel_l2(gp[n], gu[n]) for n in gu}
+    worst = max(grads, key=grads.get)
+    return {"loss_rel_diff": float(((lp - lu).abs() / lu.abs()).item()),
+            "loss_bit_equal": bool(torch.equal(lp, lu)),
+            "max_grad_rel_l2": grads[worst], "worst_param": worst,
+            "grads_bit_equal": sum(torch.equal(gp[n], gu[n]) for n in gu),
+            "n_grads": len(gu)}
 
 
 def spc_graph_phases(dev, data, groups) -> tuple[int, list, dict]:
-    """Phase ``spc_graph``: #8/#9 at both widths on the padded training
-    graphs of MAgNet[CNN] 1D (one graph) and MAgNet[GNN] 1D (its LR and LR
-    ∪ HR graphs) at batch 32 (``spc_graph_kernels``); then ``Trainer.fit``
-    of each at its published widths with one and SPC_K steps a call from
-    the same seed, new queries every batch: the SPC_K fit as replays of a
-    captured step over graphs padded to the trainer's edge buckets (step
-    counts, captures, buckets), per-step losses against the one-step fit,
-    #8/#9 in a profiler trace of the SPC_K fit against its wrappers' eager
-    launches plus a captured step's for each replay, and the host's
-    seconds a batch building and padding graphs; then seconds a step (an
-    epoch each way, in turns, graphs built on the clock), the device's
-    idle share and launches a step, each way.  Returns #8/#9's launches in
-    the fits (the one-step fit's wrappers', the SPC_K fit's trace) as
-    extra counts of their rows."""
-    from magnet_tpu_torch.config import MAGNET_CNN, MAGNET_GNN
-    from magnet_tpu_torch.models.factory import create_model
-
+    """Phase ``spc_graph``: the captured lanes' kernels on padded training
+    graphs at batch 32 (``spc_graph_kernel_cases``); then ``Trainer.fit``
+    of each ``spc_graph_fits`` fit at its published widths with one and
+    SPC_K steps a call from the same seed, new queries every batch (the
+    one-step fit twice where its loss bound needs the spread): the SPC_K
+    fit as replays of a captured step over graphs padded to the trainer's
+    edge buckets (step counts, captures, buckets), per-step losses against
+    the one-step fit, the lane's kernels in a profiler trace of the SPC_K
+    fit against its wrappers' eager launches plus a captured step's for
+    each replay, and the host's seconds a batch building and padding
+    graphs; then seconds a step (an epoch each way, in turns, graphs built
+    on the clock), the device's idle share and launches a step, each way.
+    Returns the lane kernels' launches in the fits (the one-step fits'
+    wrappers', the SPC_K fit's trace) as extra counts of their rows."""
     t_phase = time.perf_counter()
     smi = card()
-    models = (("magnet_cnn", MAGNET_CNN, 70), ("magnet_gnn", MAGNET_GNN, 40))
-    kernels, records, extra = {}, [], {}
-    for name, hp, _ in models:
-        loader = data[f"spc_graph_{name}_loaders"]["train"]
-        loader.set_epoch(0)
-        model = create_model(name, hp, device=dev)
-        graph = model.build_graph({k: torch.as_tensor(v) for k, v in
-                                   next(iter(loader)).items()})
-        widths = ((hp["latent_dim"], hp["mlp_hidden"], hp["latent_dim"]))
-        for role, part in model.graph_parts(graph).items():
-            kernels[f"{name} {role}"] = spc_graph_kernels(
-                part, widths, hp["mlp_layers"] - 1, 7, dev)
-        del model, graph
+    kernels = spc_graph_kernel_cases(dev, data)
     kernels_ok = all(v["ok"] for v in kernels.values())
     print("spc_graph kernels on padded graphs: " + "; ".join(
-        f"{lbl} ({v['live_edges']} + {v['dead_tail']} dead): fwd bits "
-        f"{v['fwd_bit_equal']}, bwd bits {v['bwd_bit_equal']}, atomics "
-        f"{v['atomic_node_grads']}, ms {v['ms_in_turns']}"
-        for lbl, v in kernels.items()) + f" ({smi})", flush=True)
+        f"{lbl} ({v['live_edges']} + {v['dead_tail']} dead): ok {v['ok']}, "
+        f"ms {v['ms_in_turns']}" for lbl, v in kernels.items())
+        + f" ({smi})", flush=True)
+    if not kernels_ok:
+        print("spc_graph kernels failing: " + json.dumps(
+            {k: v for k, v in kernels.items() if not v["ok"]}), flush=True)
 
-    for name, hp, per_step in models:
-        hp = dict(hp)
-        loaders = data[f"spc_graph_{name}_loaders"]
-        symbols = FOLD_SYMBOLS[name]
+    records, extra = [], {}
+    for spec in spc_graph_fits():
+        name, hp, label = spec["name"], dict(spec["hp"]), spec["label"]
+        loaders = data[f"spc_graph_{spec['data']}_loaders"]
+        train = spec["train"]
+        groups_of = {key for key, (_, counters) in TRACE_GROUPS.items()
+                     if set(counters) & set(train)}
+        symbols = {key: TRACE_GROUPS[key][0] for key in groups_of}
+        rtol, repeat = spec["rtol"], spec["repeat"]
         n_steps = SPC_EPOCHS * len(loaders["train"])
         t_model = time.perf_counter()
+        step = padded_step(spec, loaders["train"], dev)
         fits, trainers = {}, {}
+        runs = (("k1", 1),) + ((("k1_again", 1),) if repeat else ()) \
+            + ((f"k{SPC_K}", SPC_K),)
         with tempfile.TemporaryDirectory() as workdir:
-            for label, k in (("k1", 1), ("k1_again", 1), (f"k{SPC_K}", SPC_K)):
-                trainers[label], fits[label] = spc_fit(
-                    name, hp, loaders, dev, k, os.path.join(workdir, label),
-                    profiled=k > 1, symbols=symbols)
+            for run, k in runs:
+                trainers[run], fits[run] = spc_fit(
+                    name, hp, loaders, dev, k, os.path.join(workdir, run),
+                    profiled=k > 1, symbols=symbols, kind=spec["kind"],
+                    impl=spec["impl"])
         base, got = fits["k1"], fits[f"k{SPC_K}"]
         kk = trainers[f"k{SPC_K}"]
         want = np.array(base["step_losses"])
-        rel = {lbl: (np.abs(np.array(fits[lbl]["step_losses"]) - want)
+        rel = {run: (np.abs(np.array(fits[run]["step_losses"]) - want)
                      / np.abs(want)).tolist()
-               for lbl in ("k1_again", f"k{SPC_K}")}
+               for run in fits if run != "k1"}
         losses = np.array(got["step_losses"])
         loss_rel = max(rel[f"k{SPC_K}"])
         steps = got["steps"]
         counted, traced = got["launches_counted"], got["launches_traced"]
-        cross = {key: counted.get(key, 0) + per_step * steps["replayed"]
-                 for key in symbols}
-        host = {lbl: {**t.host_graph,
+        # a training step's launches of the lane's kernels: the backward's
+        # in the one-step fit (every forward of a training step has one)
+        per_step = base["launches_counted"].get(train[1], 0) // n_steps
+        cross = {key: counted.get(key, 0)
+                 + (per_step * steps["replayed"] if key in train else 0)
+                 for key in COUNTER_ROWS}
+        traced_want = {grp: sum(cross[key] for key in TRACE_GROUPS[grp][1])
+                       for grp in symbols}
+        host = {run: {**t.host_graph,
                       "build_s_per_batch": t.host_graph["build_s"]
                       / max(t.host_graph["built"], 1),
                       "pad_s_per_graph": t.host_graph["pad_s"]
                       / max(t.host_graph["padded"], 1)}
-                for lbl, t in trainers.items()}
+                for run, t in trainers.items()}
         ok = (steps["captured"] >= 1 and steps["replayed"] > 0
               and steps["eager"] + steps["replayed"] == n_steps
-              and traced == cross and all(cross.values())
+              and per_step > 0
+              and all(base["launches_counted"].get(key, 0)
+                      == per_step * n_steps for key in train[1:])
+              and traced == traced_want and all(traced.values())
               and base["steps"]["eager"] == n_steps
               and np.isfinite(losses).all()
-              and loss_rel <= SPC_GRAPH_LOSS_RTOL[name]
-              and max(rel["k1_again"]) <= SPC_GRAPH_LOSS_RTOL[name]
+              and all(max(r) <= rtol for r in rel.values())
               and kk.host_graph["padded"] > 0
               and trainers["k1"].host_graph["padded"] == 0)
-        rec = {"model": name, "batch_size": loaders["train"].batch_size,
+        rec = {"fit": label, "model": name, "impl": spec["impl"],
+               "graph_dtype": hp.get("graph_dtype", "float32"),
+               "batch_size": loaders["train"].batch_size,
                "steps_per_epoch": len(loaders["train"]),
                "epochs": SPC_EPOCHS, "k": SPC_K, "steps": steps,
                "captures": got["captures"],
                "edge_buckets": dict(kk.buckets.edges),
-               "step_losses": {lbl: f["step_losses"]
-                               for lbl, f in fits.items()},
+               "step_losses": {run: f["step_losses"]
+                               for run, f in fits.items()},
                "step_loss_rel_err_vs_k1": rel,
                "max_step_loss_rel_err": loss_rel,
-               "loss_rtol": SPC_GRAPH_LOSS_RTOL[name],
+               "max_step_loss_rel_err_k1_again": (max(rel["k1_again"])
+                                                  if repeat else None),
+               "loss_rtol": rtol, "padded_first_step_vs_unpadded": step,
                "launches_per_step": per_step,
-               "launches_counted": {lbl: f["launches_counted"]
-                                    for lbl, f in fits.items()},
+               "launches_counted": {run: f["launches_counted"]
+                                    for run, f in fits.items()},
                "launches_traced": traced,
-               "launches_counted_plus_replays": cross,
+               "launches_counted_plus_replays": traced_want,
                "host_graph": host,
                "seconds_per_step_last_epoch": {
-                   lbl: f["seconds_per_step_last_epoch"]
-                   for lbl, f in fits.items()},
+                   run: f["seconds_per_step_last_epoch"]
+                   for run, f in fits.items()},
                "seconds_checks": time.perf_counter() - t_model}
-        for key in symbols:
-            extra[FOLD_ROWS[key]] = {"launches_spc_graph":
-                                     base["launches_counted"].get(key, 0)
-                                     + fits["k1_again"]["launches_counted"]
-                                     .get(key, 0) + traced[key]}
+        for key in train:
+            row = extra.setdefault(COUNTER_ROWS[key], {})
+            row["launches_spc_graph"] = (
+                row.get("launches_spc_graph", 0) + cross[key]
+                + sum(fits[run]["launches_counted"].get(key, 0)
+                      for run in fits if run.startswith("k1")))
         # an epoch each way on the host clock, in turns, then one traced;
         # graphs built on the clock, as the fit builds them
         one = trainers["k1"]
         turns = {"k1": [], f"k{SPC_K}": []}
-        for i, (lbl, t) in enumerate((("k1", one), (f"k{SPC_K}", kk),
+        for i, (run, t) in enumerate((("k1", one), (f"k{SPC_K}", kk),
                                       (f"k{SPC_K}", kk), ("k1", one))):
-            turns[lbl].append(spc_epoch(
+            turns[run].append(spc_epoch(
                 t, loaders["train"], SPC_EPOCHS + i, False, symbols,
                 with_graphs=True)["seconds_per_step"])
         rec["seconds_per_step_in_turns"] = turns
-        rec["traced"] = {lbl: spc_epoch(t, loaders["train"], SPC_EPOCHS + 4,
+        rec["traced"] = {run: spc_epoch(t, loaders["train"], SPC_EPOCHS + 4,
                                         True, symbols, with_graphs=True,
                                         host_ops=False)
-                         for lbl, t in (("k1", one), (f"k{SPC_K}", kk))}
+                         for run, t in (("k1", one), (f"k{SPC_K}", kk))}
         rec["steps_after_turns"] = dict(kk.step_counts)
         rec["host_graph_after_turns"] = dict(kk.host_graph)
         rec["ok"] = bool(ok)
         rec["seconds"] = time.perf_counter() - t_model
         records.append(rec)
         tr = rec["traced"]
-        print(f"spc_graph {name} (batch {rec['batch_size']}, "
-              f"{rec['steps_per_epoch']} steps an epoch): steps {steps}, "
-              f"buckets {rec['edge_buckets']}; k=1 / k={SPC_K} s a step "
-              f"{turns}, idle share traced "
+        print(f"spc_graph {label} (batch {rec['batch_size']}, "
+              f"{rec['steps_per_epoch']} steps an epoch): ok {rec['ok']}, "
+              f"steps {steps}, buckets {rec['edge_buckets']}; k=1 / "
+              f"k={SPC_K} s a step {turns}, idle share traced "
               f"{tr['k1']['device_idle_share_traced']} / "
               f"{tr[f'k{SPC_K}']['device_idle_share_traced']}, runtime "
               f"calls a step {tr['k1']['cuda_runtime_calls_per_step']} / "
               f"{tr[f'k{SPC_K}']['cuda_runtime_calls_per_step']}; losses "
-              f"{loss_rel} from k=1 (k=1 again {max(rel['k1_again'])}); "
-              f"#8/#9 traced {traced} = counted "
-              f"{counted} + {per_step} x {steps['replayed']} replays; host "
-              f"graph {host} ({smi})", flush=True)
+              f"{loss_rel} from k=1 (k=1 again "
+              f"{rec['max_step_loss_rel_err_k1_again']}, bound {rtol}; "
+              f"first step padded vs unpadded {step}); "
+              f"traced {traced} = counted + {per_step} x "
+              f"{steps['replayed']} replays {traced_want}; host graph "
+              f"{host} ({smi})", flush=True)
         del trainers, one, kk
-    ok = (kernels_ok and len(records) == len(models)
+    ok = (kernels_ok and len(records) == len(spc_graph_fits())
           and all(r["ok"] for r in records))
     emit({"phase": "spc_graph", "nvidia_smi": smi,
           "torch": torch.__version__, "kernels": kernels,
@@ -7084,23 +7412,25 @@ def make_data(groups) -> dict:
                 **ks_cfg, "data_seed": 5,
                 "n_train": SPC_GRAPH_TRAJ - ks_cfg["n_train"]}, "train")
         if {"mpnn_paths", "cnn2d", "cnn2d_bf16", "cnn_pe",
-                "gnn_pre", "par", "remat"} & groups:
+                "gnn_pre", "par", "remat", "spc", "spc_graph"} & groups:
             jobs["b2d"] = {split: pool.submit(
                 make_split, "B2D", MPNN_2D_DATA[f"n_{split}"], nt, res, seed=i)
                 for i, split in enumerate(SPLITS)}
-        if {"cnn2d", "cnn2d_bf16", "cnn_pe", "gnn_pre", "remat"} & groups:
+        if {"cnn2d", "cnn2d_bf16", "cnn_pe", "gnn_pre", "remat", "spc",
+                "spc_graph"} & groups:
             jobs["b2d_extra"] = pool.submit(make_split, "B2D",
                                             CNN2D_EXTRA_TRAIN, nt, res, seed=3)
         if "mpnn_paths" in groups:
             jobs["ce"] = splits({**DATAMODULE_GRAPH, **MPNN_1D_DATA})
         chunks = B2D_TRAJ // DATA_CHUNK
         nt2, res2 = DATAMODULE_2D["nt_train"], DATAMODULE_2D["res_train"]
-        if {"gnn2d", "gnn_bf16", "gnn_pre"} & groups:
+        if {"gnn2d", "gnn_bf16", "gnn_pre", "spc", "spc_graph"} & groups:
             # the datamodule's own seeded irregular source, a chunk a task
             jobs["gnn2d_train"] = [pool.submit(synthetic_split, {
                 **gnn2d_cfg, "n_train": DATA_CHUNK, "data_seed": 100 + i},
                 "train") for i in range(chunks)]
-        if {"gnn2d", "fno", "gnn_bf16", "gnn_pre"} & groups:
+        if {"gnn2d", "fno", "gnn_bf16", "gnn_pre", "spc",
+                "spc_graph"} & groups:
             jobs["b2d64_eval"] = [pool.submit(make_split, "B2D", DATA_CHUNK,
                                               nt2, res2, seed=100 + chunks + i)
                                   for i in range(chunks)]
@@ -7163,7 +7493,7 @@ def make_data(groups) -> dict:
             data["gnn_seconds"] = time.perf_counter() - t0
         if "b2d64_eval" in jobs:
             eval64 = joined(jobs["b2d64_eval"])
-        if {"gnn2d", "gnn_bf16", "gnn_pre"} & groups:
+        if {"gnn2d", "gnn_bf16", "gnn_pre", "spc", "spc_graph"} & groups:
             regular = regular_32(eval64)
             data["gnn2d_loaders"] = build_loaders(
                 {**gnn2d_cfg, "source": "h5",
@@ -7211,6 +7541,26 @@ def make_data(groups) -> dict:
                 data[f"spc_graph_{name}_loaders"] = build_loaders(
                     {**dm, **SMOKE_DATA, "source": "h5", **ks,
                      "train_path": train}, seed=0)
+            # MAgNet[CNN] 2D and MAgNet[GNN] 2D: the cnn2d group's 24
+            # Burgers-2D trajectories and the gnn2d group's 32 irregular
+            # ones, each repeated to SPC_GRAPH_TRAJ (their datasets draw
+            # every sample's queries anew), validated as those groups do
+            def repeated(arrays):
+                return {k: np.resize(v, (SPC_GRAPH_TRAJ, *v.shape[1:]))
+                        for k, v in arrays.items()}
+
+            b2d_train = {k: np.concatenate([paths["train_path"][k],
+                                            jobs["b2d_extra"].result()[k]])
+                         for k in paths["train_path"]}
+            data["spc_graph_magnet_cnn_2d_loaders"] = build_loaders(
+                {**DATAMODULE_IMPLICIT_2D, **paths,
+                 "train_path": repeated(b2d_train)}, seed=0,
+                shuffle_eval=False)
+            data["spc_graph_magnet_gnn_2d_loaders"] = build_loaders(
+                {**gnn2d_cfg, "source": "h5",
+                 "train_path": repeated(joined(jobs["gnn2d_train"])),
+                 "val_path": regular, "test_path": regular},
+                seed=0, shuffle_eval=False)
             data["spc_graph_seconds"] = time.perf_counter() - t0
     return data
 
@@ -7278,7 +7628,11 @@ def main(argv) -> int:
                                 (("spc",), spc_phases),
                                 (("spc", "spc_graph"), spc_graph_phases)):
         if set(group_names) & set(groups):
+            t_group = time.perf_counter()
             rc, entries, more = phases(dev, data, groups)
+            print(f"chip_smoke: {'/'.join(group_names)} took "
+                  f"{time.perf_counter() - t_group:.1f} s", file=sys.stderr,
+                  flush=True)
             kernels += entries
             for name, counts in more.items():
                 extra.setdefault(name, {}).update(counts)

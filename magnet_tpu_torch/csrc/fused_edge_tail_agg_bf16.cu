@@ -46,6 +46,18 @@
 // _bwd_plain (fold), fused_edge_tail_agg_pregathered_bf16_plain /
 // _bwd_plain and fused_edge_tail_agg_pe_bf16_plain / _bwd_plain.
 //
+// The edges are the first rowptr[N] <= E rows, read on the card
+// (tile128::live_edges), as in the f32 sources: a graph padded to a fixed E
+// for a captured training step (ops/graph.py pad_edges) has dead rows past
+// rowptr[N].  E sets the grids and the scratch; every walk splits the live
+// edges over the blocks a launch would take for them alone (T below counts
+// their tiles), a block past that split exits whole (no warpgroup product
+// or warp shuffle is reached by part of its threads), the partial-row and
+// weight-gradient sums read those blocks alone, and the backward writes
+// zeros into d_src's dead rows (and the pe entry's dz's).  So a padded
+// launch computes, bit for bit, what the launch without the padding does;
+// on a graph without padding T and the split are the host's, as before.
+//
 // Forward (fwd::wgmma_fwd_kernel): Hopper's warpgroup products, one
 // template for the three entries (an Entry value):
 //   * blocks of 256 threads, two an SM (three for the pre-gathered entry),
@@ -249,6 +261,29 @@ __host__ __device__ constexpr int round_up(int x, int m) {
   return (x + m - 1) / m * m;
 }
 
+// The blocks of a launch over the live edges (tile128::live_edges): their
+// tiles, or `cap` (the blocks the card holds, or the partial rows) where
+// there are more; block b walks tiles [b T / B, (b + 1) T / B).
+__host__ __device__ __forceinline__ int split_blocks(int n_edges, int cap) {
+  const int n_tiles = (n_edges + kTE - 1) / kTE;
+  return n_tiles < cap ? n_tiles : cap;
+}
+
+// Rows [live, n_rows) of an array of RB-byte rows set to zero, 16 bytes a
+// store, by every thread of the grid: a padded graph's dead rows get no
+// gradient.
+template <int RB>
+__device__ __forceinline__ void zero_dead_rows(void* rows, int live,
+                                               int n_rows) {
+  static_assert(RB % 16 == 0, "16-byte stores");
+  const size_t n = (size_t)(n_rows - live) * (RB / 16);
+  uint4* dst = reinterpret_cast<uint4*>(static_cast<unsigned char*>(rows) +
+                                        (size_t)live * RB);
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x)
+    dst[i] = make_uint4(0u, 0u, 0u, 0u);
+}
+
 // The warpgroup's named barrier (1 + its index; 0 is __syncthreads).
 __device__ __forceinline__ void group_sync(int grp) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + grp) : "memory");
@@ -434,9 +469,13 @@ wgmma_fwd_kernel(const bf16* __restrict__ src, const bf16* __restrict__ we,
                  const bf16* __restrict__ b_out,
                  const float* __restrict__ ln_s,
                  const float* __restrict__ ln_b, float* __restrict__ out,
-                 float* __restrict__ part, int n_nodes, int n_edges, int l1) {
+                 float* __restrict__ part, int n_nodes, int n_rows, int l1,
+                 int cap) {
   using L = Layout<E>;
   constexpr bool FOLD = E == kFold, GATHERS = E != kPregathered;
+  // the live edges, the load issued now and read after the weights' copies
+  // are issued; the rows past them (a padded graph's) are not read
+  const int n_edges = tile128::live_edges(rowptr, n_nodes, n_rows);
   extern __shared__ __align__(16) unsigned char bf16_fwd_smem[];
   unsigned char* sm = bf16_fwd_smem + ((1024 - (wg::smem_addr(bf16_fwd_smem)
                                                 & 1023)) & 1023);
@@ -474,11 +513,18 @@ wgmma_fwd_kernel(const bf16* __restrict__ src, const bf16* __restrict__ we,
     v_lb[i] = __ldg(ln_b + i);
   }
 
-  // the block's tiles [b0, b1), balanced over the grid; warpgroup 0 walks
-  // the first half (rounded up), warpgroup 1 the rest
+  // the block's tiles [b0, b1) of the live edges, balanced over the blocks
+  // the launch takes for them alone (split_blocks); a block past those
+  // exits whole once its copies have landed; warpgroup 0 walks the first
+  // half (rounded up), warpgroup 1 the rest
   const int n_tiles = (n_edges + kTE - 1) / kTE;
-  const int b0 = (int)((long long)blockIdx.x * n_tiles / gridDim.x);
-  const int b1 = (int)((long long)(blockIdx.x + 1) * n_tiles / gridDim.x);
+  const int n_split = split_blocks(n_edges, cap);
+  if ((int)blockIdx.x >= n_split) {
+    tf32x3::cp_async_wait<0>();
+    return;
+  }
+  const int b0 = (int)((long long)blockIdx.x * n_tiles / n_split);
+  const int b1 = (int)((long long)(blockIdx.x + 1) * n_tiles / n_split);
   const int mid = b0 + (b1 - b0 + 1) / 2;
   const int t_beg = grp == 0 ? b0 : mid, t_end = grp == 0 ? mid : b1;
 
@@ -678,46 +724,52 @@ wgmma_fwd_kernel(const bf16* __restrict__ src, const bf16* __restrict__ we,
 // kernels the last call launched (its own count, for the checks)
 std::atomic<int> last_launches{0};
 
-// The grid's blocks a call of n_edges takes on this device, min(tiles, the
-// blocks the card holds at once), or a negative cudaError_t; the
-// shared-memory opt-in with the first call.
+// The blocks the card holds at once of the kernel (SMs x the blocks an SM
+// holds), the shared-memory opt-in with the first call; one for every l1.
 template <Entry E>
-int grid_blocks(int n_edges) {
+cudaError_t fwd_cap(int* cap) {
   static std::atomic<int> cache[kMaxDevices];
-  int cap = 0;
-  // one opt-in and one cap for every l1
-  const cudaError_t err = grid_cap(wgmma_fwd_kernel<E>, kThreads,
-                                   (size_t)Layout<E>::bytes(kMaxL1), cache,
-                                   &cap);
-  if (err != cudaSuccess) return -(int)err;
-  const int n_tiles = (n_edges + kTE - 1) / kTE;
-  return n_tiles < cap ? n_tiles : cap;
+  return grid_cap(wgmma_fwd_kernel<E>, kThreads,
+                  (size_t)Layout<E>::bytes(kMaxL1), cache, cap);
 }
 
-// The kernel, block b over tiles [b T / B, (b + 1) T / B), then the sum of
-// the partial rows of the receivers that cross a tile: two launches (one
-// for a single tile).
+// The grid's blocks a call of n_edges rows takes on this device, min(tiles,
+// the blocks the card holds at once), or a negative cudaError_t.
+template <Entry E>
+int grid_blocks(int n_edges) {
+  int cap = 0;
+  const cudaError_t err = fwd_cap<E>(&cap);
+  if (err != cudaSuccess) return -(int)err;
+  return split_blocks(n_edges, cap);
+}
+
+// The kernel, block b over tiles [b T / B, (b + 1) T / B) of the live
+// edges, on a grid sized for all n_rows rows (so it holds their split
+// whatever their count), then the sum of the partial rows of the receivers
+// that cross a tile (its blocks at or past the live edges exit): two
+// launches (one for a single tile).
 template <Entry E>
 int launch(const bf16* src, const bf16* we, const bf16* be, const bf16* pxj,
            const bf16* pxi, const int* senders, const int* rowptr,
            const bf16* w_rest, const bf16* b_rest, const bf16* w_out,
            const bf16* b_out, const float* ln_s, const float* ln_b, float* out,
-           float* part, int n_nodes, int n_edges, int l1,
+           float* part, int n_nodes, int n_rows, int l1,
            cudaStream_t stream) {
-  int launches = 0;
-  const int blocks = grid_blocks<E>(n_edges > 0 ? n_edges : 0);
-  if (blocks < 0) return -blocks;
-  if (n_nodes > 0 && n_edges > 0) {
-    const int n_tiles = (n_edges + kTE - 1) / kTE;
-    wgmma_fwd_kernel<E><<<blocks, kThreads, Layout<E>::bytes(l1), stream>>>(
+  int launches = 0, cap = 0;
+  const cudaError_t capped = fwd_cap<E>(&cap);
+  if (capped != cudaSuccess) return (int)capped;
+  if (n_nodes > 0 && n_rows > 0) {
+    const int n_tiles = (n_rows + kTE - 1) / kTE;
+    wgmma_fwd_kernel<E><<<split_blocks(n_rows, cap), kThreads,
+                          Layout<E>::bytes(l1), stream>>>(
         src, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest, w_out, b_out,
-        ln_s, ln_b, out, part, n_nodes, n_edges, l1);
+        ln_s, ln_b, out, part, n_nodes, n_rows, l1, cap);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     ++launches;
     if (n_tiles > 1) {
       csr_tile::cross_tile_sum_kernel<kTE, kC><<<n_tiles - 1, kC, 0, stream>>>(
-          rowptr, part, out, n_nodes, n_edges);
+          rowptr, part, out, n_nodes, n_rows);
       ++launches;
     }
   }
@@ -964,10 +1016,14 @@ wgmma_bwd_kernel(const bf16* __restrict__ src, const bf16* __restrict__ we,
                  const float* __restrict__ ln_s, const float* __restrict__ g,
                  bf16* __restrict__ d_src, float* __restrict__ dz_out,
                  float* __restrict__ d_pxj, float* __restrict__ d_pxi,
-                 float* __restrict__ partial, int n_nodes, int n_edges) {
+                 float* __restrict__ partial, int n_nodes, int n_rows,
+                 int cap) {
   using L = Layout<L1, E>;
   constexpr bool FOLD = E == kFold, GATHERS = E != kPregathered;
   constexpr int NL = L1 > 0 ? L1 : 1;
+  // the live edges, the load issued now and read after the weights' copies
+  // are issued; the rows past them (a padded graph's) are not read
+  const int n_edges = tile128::live_edges(rowptr, n_nodes, n_rows);
   extern __shared__ __align__(16) unsigned char bf16_bwd_smem[];
   unsigned char* sm = bf16_bwd_smem + ((1024 - (wg::smem_addr(bf16_bwd_smem)
                                                 & 1023)) & 1023);
@@ -1011,11 +1067,21 @@ wgmma_bwd_kernel(const bf16* __restrict__ src, const bf16* __restrict__ we,
   for (int i = t; i < 4 * L::kSums; i += 128)
     reinterpret_cast<float*>(gp + L::sums)[i] = 0.f;
 
-  // the block's tiles [b0, b1), balanced over the grid; warpgroup 0 walks
-  // the first half (rounded up), warpgroup 1 the rest
+  // the dead rows' d_src (and dz) zero, every block a share; the block's
+  // tiles [b0, b1) of the live edges, balanced over the blocks the launch
+  // takes for them alone (split_blocks): a block past those holds no tile,
+  // writes no partial row and exits whole once its copies have landed;
+  // warpgroup 0 walks the first half (rounded up), warpgroup 1 the rest
+  zero_dead_rows<(FOLD ? kCe : kH) * 2>(d_src, n_edges, n_rows);
+  if constexpr (E == kPe) zero_dead_rows<kH * 4>(dz_out, n_edges, n_rows);
   const int n_tiles = (n_edges + kTE - 1) / kTE;
-  const int b0 = (int)((long long)blockIdx.x * n_tiles / gridDim.x);
-  const int b1 = (int)((long long)(blockIdx.x + 1) * n_tiles / gridDim.x);
+  const int n_split = split_blocks(n_edges, cap);
+  if ((int)blockIdx.x >= n_split) {
+    tf32x3::cp_async_wait<0>();
+    return;
+  }
+  const int b0 = (int)((long long)blockIdx.x * n_tiles / n_split);
+  const int b1 = (int)((long long)(blockIdx.x + 1) * n_tiles / n_split);
   const int mid = b0 + (b1 - b0 + 1) / 2;
   const int t_beg = grp == 0 ? b0 : mid, t_end = grp == 0 ? mid : b1;
 
@@ -1424,12 +1490,17 @@ wgmma_bwd_kernel(const bf16* __restrict__ src, const bf16* __restrict__ we,
   }
 }
 
-// wgrad[p] = sum over blocks, in block order, of partial[b][p].
+// wgrad[p] = sum over the blocks that hold a partial row (split_blocks of
+// the live edges), in block order, of partial[b][p].
 __global__ void reduce_partials_kernel(const float* __restrict__ partial,
                                        float* __restrict__ wgrad,
-                                       int n_blocks, int total) {
+                                       const int* __restrict__ rowptr,
+                                       int n_nodes, int n_rows, int cap,
+                                       int total) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= total) return;
+  const int n_blocks =
+      split_blocks(tile128::live_edges(rowptr, n_nodes, n_rows), cap);
   float s = 0.f;
   for (int b = 0; b < n_blocks; ++b) s += partial[(size_t)b * total + p];
   wgrad[p] = s;
@@ -1438,16 +1509,17 @@ __global__ void reduce_partials_kernel(const float* __restrict__ partial,
 // kernels the last call launched (its own count, for the checks)
 std::atomic<int> last_launches{0};
 
-// The kernel on a grid of at most scratch_blocks blocks (one an SM), block
-// b over tiles [b T / B, (b + 1) T / B), then the fixed-order sum of the
-// blocks' partials: two launches.
+// The kernel on a grid of at most scratch_blocks blocks (one an SM), sized
+// for all n_rows rows, block b over tiles [b T / B, (b + 1) T / B) of the
+// live edges, then the fixed-order sum of the partials of the blocks that
+// hold one: two launches.
 template <int L1, Entry E>
 int launch(const bf16* src, const bf16* we, const bf16* be, const bf16* pxj,
            const bf16* pxi, const int* senders, const int* rowptr,
            const bf16* w_rest, const bf16* b_rest, const bf16* w_out,
            const bf16* b_out, const float* ln_s, const float* g, bf16* d_src,
            float* dz_out, float* d_pxj, float* d_pxi, float* wgrad,
-           float* partial, int n_nodes, int n_edges, int scratch_blocks,
+           float* partial, int n_nodes, int n_rows, int scratch_blocks,
            cudaStream_t stream) {
   using L = Layout<L1, E>;
   static std::atomic<int> cache[kMaxDevices];
@@ -1456,19 +1528,19 @@ int launch(const bf16* src, const bf16* we, const bf16* be, const bf16* pxj,
                                    (size_t)L::bytes, cache, &cap);
   if (err != cudaSuccess) return (int)err;
   if (cap > scratch_blocks) cap = scratch_blocks;
-  const int n_tiles = n_nodes > 0 ? (n_edges + kTE - 1) / kTE : 0;
-  if (n_tiles > 0 && cap < 1) return (int)cudaErrorInvalidValue;
-  const int blocks = n_tiles < cap ? n_tiles : cap;
+  if (n_nodes == 0) n_rows = 0;
+  const int blocks = split_blocks(n_rows, cap);
+  if (n_rows > 0 && cap < 1) return (int)cudaErrorInvalidValue;
   if (blocks > 0) {
     wgmma_bwd_kernel<L1, E><<<blocks, kThreads, L::bytes, stream>>>(
         src, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest, w_out, b_out,
-        ln_s, g, d_src, dz_out, d_pxj, d_pxi, partial, n_nodes, n_edges);
+        ln_s, g, d_src, dz_out, d_pxj, d_pxi, partial, n_nodes, n_rows, cap);
     const cudaError_t launched = cudaGetLastError();
     if (launched != cudaSuccess) return (int)launched;
     ++launches;
   }
   reduce_partials_kernel<<<(L::g_total + 255) / 256, 256, 0, stream>>>(
-      partial, wgrad, blocks, L::g_total);
+      partial, wgrad, rowptr, n_nodes, n_rows, cap, L::g_total);
   last_launches.store(++launches, std::memory_order_relaxed);
   return (int)cudaGetLastError();
 }
@@ -1523,9 +1595,11 @@ extern "C" {
 // `stream` and does not synchronise.  e0 (n_edges, ce), pxj and pxi
 // (n_nodes, h) are 16-byte aligned bf16; we, be, w_rest, b_rest, w_out,
 // b_out bf16; ln_s, ln_b f32; out (n_nodes, c) f32 must arrive zeroed;
-// part is f32 scratch of 2 * ceil(n_edges / 64) rows of c.  Built for (ce,
-// h, c) = (32, 64, 32) and l1 in 0..3; others return
-// cudaErrorInvalidValue.
+// part is f32 scratch of 2 * ceil(n_edges / 64) rows of c.  The edges are
+// the first rowptr[n_nodes] <= n_edges rows, read on the card: the rows
+// after them (a padded graph's) are not read, and every backward writes
+// zeros into their gradient rows.  Built for (ce, h, c) = (32, 64, 32) and
+// l1 in 0..3; others return cudaErrorInvalidValue.
 int fused_edge_tail_agg_bf16_fwd(const bf16* e0, const bf16* we,
                                  const bf16* be, const bf16* pxj,
                                  const bf16* pxi, const int* senders,

@@ -90,8 +90,10 @@ class PaddedGraphMixin:
     fixed edge rows (``train.trainer``, ``ops.graph.pad_edges``): the model
     names its CSR graphs by role (``graph_parts``) and rebuilds its graph
     from padded ones (``with_graph_parts``); ``graph_lanes`` says which
-    lanes its processors take on them (only the f32 fold lane's kernels
-    read a padded graph's end on the card)."""
+    lanes, in which dtype and at which width, its processors take on them
+    (the trainer pads a chunk's graphs where every one of those kernels
+    reads a padded graph's end on the card: the f32 fold, pe and
+    pre-gathered entries at either width, the bf16 ones at width 64)."""
 
     def graph_parts(self, graph) -> dict:
         """The model's graph's ``CSRGraph``s by role."""
@@ -102,18 +104,20 @@ class PaddedGraphMixin:
         (by role)."""
         raise NotImplementedError
 
-    def graph_lanes(self, graph) -> set[str]:
-        """The lanes of this model's processor steps on ``graph``'s parts
-        under its ``impl``, as ``nn.graphnet.step_lane`` decides them
-        (``plain``: the plain versions), ``bf16`` added for a bf16
-        processor."""
+    def graph_lanes(self, graph) -> set[tuple[str, str, int]]:
+        """The (lane, dtype, width) of this model's processor steps on
+        ``graph``'s parts under its ``impl``: the lane as
+        ``nn.graphnet.step_lane`` decides it (``plain``: the plain
+        versions), ``f32`` or ``bf16``, and the edge MLP's hidden width H,
+        which picks the kernels' build."""
         lanes = set()
         for proc in self.modules():
             if not isinstance(proc, GraphProcessor) or not proc.gnn_stacks:
                 continue
             hidden = proc.gnn_stacks[0].edge_fn[0].linears[0].weight.shape[0]
+            dtype = "f32" if proc.dtype is None else "bf16"
             for part in self.graph_parts(graph).values():
                 lane = ("plain" if self.impl == "plain"
                         else step_lane(part, self.impl, hidden))
-                lanes.add(lane if proc.dtype is None else f"{lane} bf16")
+                lanes.add((lane, dtype, hidden))
         return lanes

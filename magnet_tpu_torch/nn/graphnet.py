@@ -73,6 +73,7 @@ from magnet_tpu_torch.ops.fused_edge import (
 )
 from magnet_tpu_torch.ops.graph import CSRGraph, lane_of
 from magnet_tpu_torch.ops.segment import gather_rows
+from magnet_tpu_torch.utils import device_constant
 
 #: ``kernel``: the graph's lane; ``kernel_fold`` / ``kernel_pregathered``:
 #: that lane whatever the graph; ``kernel_pe``: the pe lane rule's;
@@ -185,12 +186,14 @@ class InteractionNetwork(nn.Module):
     def _pe_bf16(self, e0, e_scale):
         """The JAX step's bf16 ``_project_edges``: pe = bf16 Dense(e0)
         (product, then bias, each rounded), then s·pe + (1 − s)·b_e with s
-        and b_e in bf16, every operation rounded to bf16: (E, H) bf16."""
+        and b_e in bf16, every operation rounded to bf16: (E, H) bf16.  s
+        is kept on the device (``utils.device_constant``): a captured step
+        copies nothing from the host."""
         lin = self.edge_fn[0].linears[0]
         c, dt = self.latent, self.dtype
         b = lin.bias.to(dt)
         pe = e0 @ lin.weight[:, 2 * c:].t().to(dt) + b
-        s = torch.tensor(e_scale, dtype=dt, device=e0.device)
+        s = device_constant((e_scale,), e0.device, dt)
         return s * pe + (1 - s) * b
 
     def _edge_sums_bf16(self, x, e0, graph: CSRGraph, e_scale, impl,

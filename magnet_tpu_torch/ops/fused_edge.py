@@ -405,17 +405,25 @@ def _tail_shapes(w_rest, w_out, h):
 
 def _check_rows(src, rowptr, E, padded: bool = True):
     """The CSR's edges fit the E rows: rowptr[-1] <= E, the rows past it
-    the dead tail of a padded graph (``ops.graph.pad_edges``), which the
-    f32 entries read past; ``padded`` False (the bf16 builds, which take
-    the host's E as the edge count): rowptr[-1] == E.  On the card this
-    would cost a read from the device per launch: there the kernels clamp
-    every edge range to the E rows they were given."""
+    the dead tail of a padded graph (``ops.graph.pad_edges``); ``padded``
+    False (a build that does not ``reads_live_edges``): rowptr[-1] == E.
+    On the card this would cost a read from the device per launch: there
+    the kernels clamp every edge range to the E rows they were given."""
     if src.device.type != "cpu":
         return
     end = int(rowptr[-1])
     if end > E or (end != E and not padded):
         raise ValueError(f"rowptr ends at {end}, but there are {E} edge "
                          f"rows")
+
+
+def reads_live_edges(dtype, h: int) -> bool:
+    """Whether the builds of ``dtype`` (torch.float32 or torch.bfloat16) at
+    width ``h`` read the live edge count rowptr[-1] on the card, and so
+    take a padded graph (``ops.graph.pad_edges``): every f32 build and the
+    width-64 bf16 builds; not the width-128 bf16 ones, which take the
+    host's E as the edge count."""
+    return dtype == torch.float32 or h != 128
 
 
 def _check(e0, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest, w_out,
@@ -433,7 +441,7 @@ def _check(e0, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest, w_out,
         dict(we=(ce, h), be=(h,), pxj=(n, h), pxi=(n, h), senders=(E,),
              **tail),
         {name: dtype for name in GRAD_NAMES if name not in GRAD_F32_BF16})
-    _check_rows(e0, rowptr, E, padded=dtype == torch.float32)
+    _check_rows(e0, rowptr, E, padded=reads_live_edges(dtype, h))
     return E, (ce, h, c), l1, n
 
 
@@ -452,7 +460,7 @@ def _check_pregathered(h0, pxi, rowptr, w_rest, b_rest, w_out, b_out, ln_s,
         dict(rowptr=rowptr), dict(pxi=(n, h), **tail),
         {name: dtype for name in GRAD_NAMES_PREGATHERED
          if name not in GRAD_F32_BF16})
-    _check_rows(h0, rowptr, E, padded=dtype == torch.float32)
+    _check_rows(h0, rowptr, E, padded=reads_live_edges(dtype, h))
     return E, (h, c), l1, n
 
 
@@ -475,7 +483,7 @@ def _check_pe(pe, pxj, pxi, senders, rowptr, snd_ptr, snd_perm, w_rest,
         dict(pe=pe, pxj=pxj, pxi=pxi, w_rest=w_rest, b_rest=b_rest,
              w_out=w_out, b_out=b_out, ln_s=ln_s, ln_b=ln_b), ints, want,
         {name: dtype for name in GRAD_NAMES_PE if name not in GRAD_F32_BF16})
-    _check_rows(pe, rowptr, E, padded=dtype == torch.float32)
+    _check_rows(pe, rowptr, E, padded=reads_live_edges(dtype, h))
     return E, (h, c), l1, n
 
 
@@ -811,20 +819,25 @@ def _bf16_tail(z, w_rest, b_rest, w_out, b_out):
 
 def _bf16_chain(e0, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest,
                 w_out, b_out):
-    """The fold entry's bf16 recompute: (receivers, [h_0 .. h_L1] bf16, y
-    f32 before LayerNorm)."""
+    """The fold entry's bf16 recompute over its edges, the first rowptr[-1]
+    rows (as the f32 plain versions read them): (receivers, [h_0 .. h_L1]
+    bf16, y f32 before LayerNorm)."""
     f = torch.Tensor.float
     receivers = _receivers(rowptr)
-    z = ((f(e0) @ f(we) + f(be))
-         + (f(pxj).index_select(0, senders) + f(pxi).index_select(0, receivers)))
+    live = receivers.numel()
+    z = ((f(e0[:live]) @ f(we) + f(be))
+         + (f(pxj).index_select(0, senders[:live])
+            + f(pxi).index_select(0, receivers)))
     return (receivers, *_bf16_tail(z, w_rest, b_rest, w_out, b_out))
 
 
 def _bf16_pregathered_chain(h0, pxi, rowptr, w_rest, b_rest, w_out, b_out):
-    """The pregathered entry's bf16 recompute, z = f32(h0) + f32(pxi[i]):
-    (receivers, [h_0 .. h_L1] bf16, y f32 before LayerNorm)."""
+    """The pregathered entry's bf16 recompute, z = f32(h0) + f32(pxi[i])
+    over the first rowptr[-1] rows: (receivers, [h_0 .. h_L1] bf16, y f32
+    before LayerNorm)."""
     receivers = _receivers(rowptr)
-    z = h0.float() + pxi.float().index_select(0, receivers)
+    z = h0[:receivers.numel()].float() + pxi.float().index_select(
+        0, receivers)
     return (receivers, *_bf16_tail(z, w_rest, b_rest, w_out, b_out))
 
 
@@ -847,6 +860,12 @@ def _bf16_out(receivers, y, n, ln_s, ln_b):
 def _rnd(t):
     """t rounded to bf16, as f32."""
     return t.bfloat16().float()
+
+
+def _rows_of(d, n_rows: int):
+    """The gradient d of the live edges' rows, with zero rows after them to
+    ``n_rows``: a padded graph's dead rows get no gradient."""
+    return torch.nn.functional.pad(d, (0, 0, 0, n_rows - d.shape[0]))
 
 
 def _bf16_tail_bwd(receivers, hs, y, g, w_rest, w_out, ln_s):
@@ -895,11 +914,12 @@ def fused_edge_tail_agg_bf16_bwd_plain(e0, we, be, pxj, pxi, senders, rowptr,
     d_h, tail = _bf16_tail_bwd(receivers, hs, y, g, w_rest, w_out, ln_s)
     d16 = _rnd(d_h)
     n, h = rowptr.numel() - 1, we.shape[1]
+    live = receivers.numel()
     nodes = torch.zeros(2, n, h, dtype=torch.float32, device=d16.device)
-    nodes[0].index_add_(0, senders.long(), d16)
+    nodes[0].index_add_(0, senders[:live].long(), d16)
     nodes[1].index_add_(0, receivers, d16)
-    grads = (d16 @ f(we).t(), f(e0).t() @ d16, d_h.sum(0), nodes[0],
-             nodes[1], *tail)
+    grads = (_rows_of(d16 @ f(we).t(), e0.shape[0]), f(e0[:live]).t() @ d16,
+             d_h.sum(0), nodes[0], nodes[1], *tail)
     operands = (e0, we, be, pxj, pxi, w_rest, b_rest, w_out, b_out, ln_s,
                 ln_b)
     return tuple(d.to(t.dtype) for d, t in zip(grads, operands))
@@ -929,8 +949,8 @@ def fused_edge_tail_agg_pregathered_bf16_bwd_plain(h0, pxi, rowptr, w_rest,
     d_pxi = torch.zeros(rowptr.numel() - 1, h0.shape[1], dtype=torch.float32,
                         device=d_h.device).index_add_(0, receivers, _rnd(d_h))
     operands = (h0, pxi, w_rest, b_rest, w_out, b_out, ln_s, ln_b)
-    return tuple(d.to(t.dtype)
-                 for d, t in zip((d_h, d_pxi, *tail), operands))
+    return tuple(d.to(t.dtype) for d, t in zip(
+        (_rows_of(d_h, h0.shape[0]), d_pxi, *tail), operands))
 
 
 def _check_bf16(*operands):
@@ -1225,12 +1245,14 @@ def fused_edge_tail_agg_pregathered_bf16_bwd(h0, pxi, rowptr, w_rest, b_rest,
 def _bf16_pe_chain(pe, pxj, pxi, senders, rowptr, w_rest, b_rest, w_out,
                    b_out):
     """The pe entry's bf16 recompute, z = (f32(pe) + f32(pxj[j])) +
-    f32(pxi[i]) as ``_fused2_fwd_pallas`` sums it (``pe + g0 + gath``):
-    (receivers, [h_0 .. h_L1] bf16, y f32 before LayerNorm)."""
+    f32(pxi[i]) as ``_fused2_fwd_pallas`` sums it (``pe + g0 + gath``),
+    over the first rowptr[-1] rows: (receivers, [h_0 .. h_L1] bf16, y f32
+    before LayerNorm)."""
     f = torch.Tensor.float
     receivers = _receivers(rowptr)
-    z = (f(pe) + f(pxj).index_select(0, senders)) + f(pxi).index_select(
-        0, receivers)
+    live = receivers.numel()
+    z = ((f(pe[:live]) + f(pxj).index_select(0, senders[:live]))
+         + f(pxi).index_select(0, receivers))
     return (receivers, *_bf16_tail(z, w_rest, b_rest, w_out, b_out))
 
 
@@ -1258,10 +1280,11 @@ def fused_edge_tail_agg_pe_bf16_bwd_plain(pe, pxj, pxi, senders, rowptr,
     dz, tail = _bf16_tail_bwd(receivers, hs, y, g, w_rest, w_out, ln_s)
     nodes = torch.zeros(2, rowptr.numel() - 1, pe.shape[1],
                         dtype=torch.float32, device=dz.device)
-    nodes[0].index_add_(0, senders.long(), dz)
+    nodes[0].index_add_(0, senders[:dz.shape[0]].long(), dz)
     nodes[1].index_add_(0, receivers, _rnd(dz))
     operands = (pe, pxj, pxi, w_rest, b_rest, w_out, b_out, ln_s, ln_b)
-    return tuple(d.to(t.dtype) for d, t in zip((dz, *nodes, *tail), operands))
+    return tuple(d.to(t.dtype) for d, t in zip(
+        (_rows_of(dz, pe.shape[0]), *nodes, *tail), operands))
 
 
 #: the counter of each entry's width-128 bf16 build

@@ -70,9 +70,11 @@ class CSRGraph:
     built it (``fold``, ``pregathered`` or ``gather``), or None.
 
     ``n_edge`` is the edge rows; a graph padded by ``pad_edges`` has dead
-    rows past rowptr[-1], its live edges, which only the f32 fold, pe and
-    pre-gathered kernels and their plain versions take (the trainer pads
-    the fold lane's alone).
+    rows past rowptr[-1], its live edges, which the fold, pe and
+    pre-gathered kernels in f32 at either width and in bf16 at width 64,
+    their plain versions and the segment sum over the sender CSR take (the
+    trainer pads a chunk's graphs where its steps run those kernels alone:
+    ``train.trainer.takes_padding``).
     """
 
     senders: torch.Tensor
@@ -419,12 +421,15 @@ def pad_edges(graph: CSRGraph, e_pad: int) -> CSRGraph:
     """``graph`` with its edge rows extended to ``e_pad`` past the end of
     its CSR.  ``rowptr``, ``degree`` and ``snd_ptr`` are the graph's own,
     so its edges are still the first rowptr[-1] rows, the only rows the
-    fused edge kernels and their plain versions read (the dead rows add
-    nothing and get zero gradients).  The dead rows' ``senders`` and
-    ``receivers`` are self loops of the last node, so that what is formed
-    per edge row before the kernel (the edge features, the edge MLP) stays
-    finite, and ``snd_perm`` lists them after the live edges, outside every
-    sender's range.  The layout and lane are the graph's."""
+    fused edge kernels (those that read the live count: ``CSRGraph``) and
+    their plain versions read (the dead rows add nothing and get zero
+    gradients).  The dead rows' ``senders`` and ``receivers`` are self
+    loops of the last node, so that what is formed per edge row before the
+    kernel (the edge features, the edge MLP, the pre-gathered lane's sender
+    gather) stays finite, and ``snd_perm`` lists them after the live edges,
+    outside every sender's range, so that the sender gather's backward
+    (``ops.segment.segment_sum`` over the sender CSR) sums none of them.
+    The layout and lane are the graph's."""
     n_edge = graph.n_edge
     if e_pad < n_edge:
         raise ValueError(f"cannot pad {n_edge} edges to {e_pad}")

@@ -12,6 +12,13 @@ gather, the counterpart of ``gather_sender``'s VJP
 (``magnet_tpu/ops/segment.py:113-181``): ``ptr`` and ``perm`` are then the
 graph's sender CSR (``CSRGraph.snd_ptr``, ``snd_perm``).
 
+The items are the first ``ptr[-1] <= n_items`` of ``perm`` (of x's rows
+without it): a graph padded for a captured training step
+(``ops.graph.pad_edges``) ends its sender CSR at its live edges, and its
+``snd_perm`` lists the dead rows after them, outside every segment.  The
+kernel reads only the segments' ranges; the plain version sums only those
+items, so a padded graph's sums are its unpadded graph's, bit for bit.
+
 * ``segment_sum_plain`` is the same sum in plain PyTorch (gather,
   ``index_add_``): the CPU path and the card-side reference.
 * On CUDA tensors ``segment_sum`` launches ``csrc/segment_sum.cu``
@@ -47,11 +54,13 @@ launches_bf16 = 0
 
 def segment_sum_plain(x, ptr, perm=None):
     """Plain PyTorch version: same arguments and result as the kernel (the
-    sums in f32, rounded once to x's dtype)."""
+    sums in f32, rounded once to x's dtype), over the first ptr[-1] items
+    (module docstring)."""
     n_seg = ptr.numel() - 1
     seg = torch.repeat_interleave(torch.arange(n_seg, device=ptr.device),
                                   (ptr[1:] - ptr[:-1]).long())
-    rows = x if perm is None else x.index_select(0, perm)
+    live = seg.numel()
+    rows = x[:live] if perm is None else x.index_select(0, perm[:live])
     out = torch.zeros(n_seg, x.shape[1], dtype=torch.float32, device=x.device)
     return out.index_add_(0, seg, rows.float()).to(x.dtype)
 
@@ -70,9 +79,10 @@ def _check(x, ptr, perm):
         if t.dtype != torch.int32 or t.dim() != 1:
             raise TypeError(f"{name} must be a 1-D int32 tensor")
     n_items = x.shape[0] if perm is None else perm.shape[0]
-    # on the card this would cost a read from the device per launch: there
-    # the kernel clamps every segment to the n_items rows it was given
-    if x.device.type == "cpu" and int(ptr[-1]) != n_items:
+    # ptr may end before the items (a padded graph's dead tail), not past
+    # them; on the card this would cost a read from the device per launch:
+    # there the kernel clamps every segment to the n_items rows it was given
+    if x.device.type == "cpu" and int(ptr[-1]) > n_items:
         raise ValueError(f"ptr ends at {int(ptr[-1])}, but there are "
                          f"{n_items} items")
     return n_items

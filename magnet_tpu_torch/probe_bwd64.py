@@ -161,10 +161,13 @@ def new_source(text: str, n_sm: int):
     their waits to slot 10, the waits for its products to slot 11; the
     first thread of each warpgroup writes its sums past n_sm partial
     rows."""
+    kernel = text.index("namespace bwd {")  # the forward shares comments
+    head, text = text[:kernel], text[kernel:]
     for old, new in NEW_EDITS:
         if text.count(old) != 1:
-            raise RuntimeError(f"probe: {old!r} is not once in the source")
+            raise RuntimeError(f"probe: {old!r} is not once in the backward")
         text = text.replace(old, new)
+    text = head + text
     beg = text.index("  for (int tile = t_beg, it = 0;",
                      text.index("wgmma_bwd_kernel("))
     end = text.index("  __syncthreads();  // both warpgroups are done", beg)

@@ -3,7 +3,7 @@ turns on one card: #9 at width 64 and 128 (the fold entry) and #3 (the
 pre-gathered entry); or, with ``dtype=bf16``, the bf16 builds of #9 (both
 widths), #7, #3 and #1 (the segment sum) against their f32 builds.
 
-  python -m magnet_tpu_torch.time_bwd [baseline=DIR] [dtype=bf16]
+  python -m magnet_tpu_torch.time_bwd [baseline=DIR] [dtype=bf16] [width=64]
 
 On the card only.  Builds ``csrc/fused_edge_tail_agg_bwd.cu`` of this
 checkout and, with ``baseline=DIR``, of the ``csrc/`` directory DIR of
@@ -32,7 +32,11 @@ training graphs (``time_fwd``'s), the f32 launch sequence
 (``csrc/fused_edge_tail_agg_bf16_w128.cu``) through their launchers (#7
 without the segment sum of its d_pxj), in the same turns, the bf16 one
 against its plain version by relative L2 per gradient.  With
-``baseline=DIR dtype=bf16``: the width-128 bf16 backward alone
+``baseline=DIR dtype=bf16``: the width-64 bf16 backward (#9 and #7 at
+the MAgNet[CNN] 1D training batch, #3 at the 2D training graphs; d_src,
+dz and the weight gradients held bit for bit against DIR's; then
+MAgNet[CNN] 1D and 2D bf16 steps) of DIR against this checkout's in turns,
+then (unless ``width=64``) the width-128 bf16 backward
 (``csrc/fused_edge_tail_agg_bf16_w128.cu``, #9 fold, #7 pe without its
 segment sum, #3 pre-gathered) of DIR against this checkout's, through
 their C entries with the same arguments, in turns (baseline, this, this,
@@ -291,6 +295,8 @@ def main(argv) -> int:
     dev = torch.device("cuda")
     if args.get("dtype") == "bf16" and "baseline" in args:
         main_bf16_w64_baseline(Path(args["baseline"]), dev)
+        if args.get("width") == "64":
+            return 0
         return main_bf16_w128_baseline(Path(args["baseline"]), dev)
     fns = libraries(fe.BWD, args)
     if args.get("dtype") == "bf16":
@@ -668,13 +674,17 @@ def main_bf16_w64_baseline(baseline: Path, dev) -> None:
     the MAgNet[CNN] 2D training graphs of 32 and 8 samples, each build
     against the plain version (relative L2 of d_src, d_pxi and the packed
     weight and bias gradients), with the plain version's time and the bf16
-    bound; then MAgNet[CNN] 1D and 2D bf16 training steps in turns, the
-    backward through either build."""
+    bound, and this build's d_src, packed gradients and (pe) dz against the
+    baseline's bit for bit (d_pxi adds with atomics); then MAgNet[CNN] 1D
+    and 2D bf16 training steps in turns, the backward through either
+    build."""
     fns = {"baseline": bf16_w64_functions(
                cuda_build.build(fe.BF16, csrc=baseline)),
            "this": bf16_w64_functions(cuda_build.build(fe.BF16))}
     for label, entry, hp, graph in cases():
         h, c = hp["mlp_hidden"], hp["latent_dim"]
+        if h != 64:  # the width-128 cases: main_bf16_w128_baseline's
+            continue
         l1 = hp["mlp_layers"] - 1
         g = torch.randn(graph.n_node, c,
                         generator=torch.Generator().manual_seed(44)).to(dev)
@@ -696,6 +706,20 @@ def main_bf16_w64_baseline(baseline: Path, dev) -> None:
                 make = runner_pregathered_bf16
                 want = plain_grads("pregathered_bf16", ops, g)
             runs = {k: make(ops, g, fn[kind]) for k, fn in fns.items()}
+
+            def exact(got):
+                """d_src, dz (pe) and the packed gradients: all but d_pxi
+                (atomics), copied out of the reused buffers."""
+                return [t.clone() for i, t in enumerate(got)
+                        if i != len(got) - 2]
+
+            # each build twice, in turns (its own repeat, and the bits of
+            # its last call against the other's)
+            calls = {k: [] for k in runs}
+            for k in ("baseline", "this", "this", "baseline"):
+                calls[k].append(exact(runs[k]()))
+            kept = {k: c[-1] for k, c in calls.items()}
+            again = {k: c[0] for k, c in calls.items()}
             err = {}
             for k, run in runs.items():
                 got = run()
@@ -723,8 +747,22 @@ def main_bf16_w64_baseline(baseline: Path, dev) -> None:
                 "baseline": str(baseline), "plain_ms": cuda_ms(plain),
                 **bf16_w64_bwd_bound(kind, graph, l1),
                 "vs_plain_rel_l2": err,
+                "bit_equal_run_to_run": {
+                    k: all(torch.equal(a, b) for a, b in zip(kept[k],
+                                                             again[k]))
+                    for k in kept},
+                "bit_equal_to_baseline": {
+                    name: {"equal": bool(torch.equal(a, b)),
+                           "n_differing": int((a != b).sum()),
+                           "max_abs_diff": float((a.double() - b.double())
+                                                 .abs().max())}
+                    for name, a, b in zip(
+                        ("d_src", "dz", "packed_weights_biases")
+                        if kind == "pe" else ("d_src",
+                                              "packed_weights_biases"),
+                        kept["this"], kept["baseline"])},
                 "device": torch.cuda.get_device_name(0)}), flush=True)
-            del ops, runs, want
+            del ops, runs, want, kept, again
     cnn_train_steps_in_turns(fns["baseline"], dev)
 
 

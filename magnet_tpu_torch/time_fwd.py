@@ -3,7 +3,7 @@ turns on one card: #8 at width 64 and 128, #6, and #2 at width 128; or,
 with ``dtype=bf16``, the bf16 builds of #8 (both widths), #6 and #2 against
 their f32 builds.
 
-  python -m magnet_tpu_torch.time_fwd [baseline=DIR] [dtype=bf16]
+  python -m magnet_tpu_torch.time_fwd [baseline=DIR] [dtype=bf16] [width=64]
 
 On the card only.  Builds ``csrc/fused_edge_tail_agg.cu`` of this checkout
 and, with ``baseline=DIR``, of the ``csrc/`` directory DIR of another tree
@@ -36,9 +36,11 @@ checkout's instead, in turns baseline, this, this, baseline: #8 and #6 at
 width 64 at MAgNet[CNN] 1D's eval and training graphs and 2D's eval
 graph, #2 at 2D's training graphs of 32 and 8 samples, #8, #6 and #2 at
 width 128 at MAgNet[GNN]'s eval and training graphs, each with the plain
-version's time, its bf16 bound and its share of it; then the bf16 eval
-batches and training steps of MAgNet[CNN] 1D / 2D and MAgNet[GNN] 1D / 2D
-with the forwards through either build.  Its graphs, library binding and
+version's time, its bf16 bound and its share of it and the output held
+bit for bit against DIR's; then the bf16 eval batches and training steps
+of MAgNet[CNN] 1D / 2D and MAgNet[GNN] 1D / 2D with the forwards through
+either build (``width=64``: the width-64 kernels and MAgNet[CNN]'s cells
+alone).  Its graphs, library binding and
 in-turn timing serve ``time_bwd`` too.
 """
 from __future__ import annotations
@@ -354,7 +356,8 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     if args.get("dtype") == "bf16" and "baseline" in args:
-        return main_bf16_baseline(Path(args["baseline"]), dev)
+        return main_bf16_baseline(Path(args["baseline"]), dev,
+                                  int(args.get("width", 0)) or None)
     fns = libraries(fe.FWD, args)
     if args.get("dtype") == "bf16":
         return main_bf16(fns["this"], dev)
@@ -573,16 +576,18 @@ def bf16_fwd_plain(entry, ops):
                                                          *tail)
 
 
-def main_bf16_baseline(baseline: Path, dev) -> int:
+def main_bf16_baseline(baseline: Path, dev, width_only=None) -> int:
     """The bf16 forwards of the tree at ``baseline`` (its ``csrc/``) against
     this checkout's, in turns (baseline, this, this, baseline): #8 and #6 at
     width 64 at MAgNet[CNN] 1D's eval and training graphs and 2D's eval
     graph, #2 at width 64 at 2D's training graphs (32 and 8 samples), #8,
     #6 and #2 at width 128 at MAgNet[GNN]'s eval and training graphs (L1 =
     3 everywhere), each build against the plain version (max abs error),
-    with the plain version's time and the bf16 bound; then the MAgNet[CNN]
-    and MAgNet[GNN] bf16 eval batches and training steps in turns, the
-    forwards through either build."""
+    with the plain version's time and the bf16 bound, and this build's
+    output against the baseline's bit for bit; then the MAgNet[CNN] and
+    MAgNet[GNN] bf16 eval batches and training steps in turns, the forwards
+    through either build.  ``width_only`` (``width=64`` on the command
+    line): the kernels and cells of that width alone."""
     fns = {"baseline": bf16_fwd_functions(
                cuda_build.build(fe.BF16, csrc=baseline),
                cuda_build.build(fe.BF16_W128, csrc=baseline)),
@@ -590,6 +595,8 @@ def main_bf16_baseline(baseline: Path, dev) -> int:
                                       cuda_build.build(fe.BF16_W128))}
     hps = {64: MAGNET_CNN, 128: MAGNET_GNN}
     for label, width, entries, graph in bf16_fwd_cases():
+        if width_only not in (None, width):
+            continue
         hp = hps[width]
         h, l1 = hp["mlp_hidden"], hp["mlp_layers"] - 1
         c = hp["latent_dim"]
@@ -600,8 +607,10 @@ def main_bf16_baseline(baseline: Path, dev) -> int:
             want = bf16_fwd_plain(entry, ops)
             runs = {k: bf16_fwd_run(entry, width, ops, fn[(width, entry)])
                     for k, fn in fns.items()}
-            err = {k: float((run() - want).abs().max())
-                   for k, run in runs.items()}
+            outs = {k: run() for k, run in runs.items()}
+            err = {k: float((out - want).abs().max())
+                   for k, out in outs.items()}
+            bits = bool(torch.equal(outs["this"], outs["baseline"]))
             order, times, mean = in_turns(runs)
             print(json.dumps({
                 "kernel": KERNEL_NUMBER[entry], "entry": entry,
@@ -615,10 +624,10 @@ def main_bf16_baseline(baseline: Path, dev) -> int:
                 **bf16_fwd_bound(entry, graph, widths, l1),
                 "share_of_bound": bf16_fwd_bound(
                     entry, graph, widths, l1)["bf16_bound_ms"] / mean["this"],
-                "max_abs_err_vs_plain": err,
+                "max_abs_err_vs_plain": err, "bit_equal_to_baseline": bits,
                 "device": torch.cuda.get_device_name(0)}), flush=True)
-            del ops, runs, want
-    end_to_end_in_turns(fns["baseline"], dev)
+            del ops, runs, want, outs
+    end_to_end_in_turns(fns["baseline"], dev, width_only=width_only)
     return 0
 
 
@@ -672,17 +681,20 @@ def end_to_end_cells():
             ("magnet_gnn 2D", "magnet_gnn", gnn_2d_hp, "kernel", gnn_2d)]
 
 
-def end_to_end_in_turns(baseline_fns, dev, reps=5) -> None:
+def end_to_end_in_turns(baseline_fns, dev, reps=5, width_only=None) -> None:
     """Seconds a bf16 eval batch (``evaluate`` on one test batch) and a bf16
-    training step of each ``end_to_end_cells`` cell, the forwards through
-    the baseline's build and this one's in turns (baseline, this, this,
-    baseline), each the mean of ``reps`` after two of warm-up."""
+    training step of each ``end_to_end_cells`` cell (``width_only`` 64:
+    MAgNet[CNN]'s alone), the forwards through the baseline's build and
+    this one's in turns (baseline, this, this, baseline), each the mean of
+    ``reps`` after two of warm-up."""
     from magnet_tpu_torch.data.datamodule import build_loaders
     from magnet_tpu_torch.eval import evaluate
     from magnet_tpu_torch.train.trainer import Trainer
 
     loaders = {}
     for label, name, hp, lane, dm in end_to_end_cells():
+        if width_only not in (None, hp["mlp_hidden"]):
+            continue
         key = id(dm)
         if key not in loaders:
             loaders[key] = build_loaders(dm, seed=0)

@@ -29,12 +29,14 @@ models' graph caches return one object a coordinate set), or when its
 graphs differ but pad to one signature (the JAX ``train_scan`` over
 stacked graphs, which share a static shape because the JAX host builder
 pads edges to sticky buckets): a model with ``graph_parts``
-(``models.common.PaddedGraphMixin``: MAgNet[CNN] and MAgNet[GNN]) whose
-processors all take the f32 fold lane on the chunk's graphs gets them
-padded to the trainer's edge buckets (``ops.graph.EdgeBuckets``: one a
-graph role, the most edges seen in the fit rounded up to 1,024, never
-shrinking), past the end of their CSR, which the f32 fold kernels read on
-the card, so a padded graph computes what it would unpadded.  A step is
+(``models.common.PaddedGraphMixin``: MAgNet[CNN] 1D and 2D, MAgNet[GNN]
+1D and 2D) whose processors take, on the chunk's graphs, lanes whose
+kernels read the live edge count on the card (``takes_padding``: the
+fold, pe and pre-gathered entries in f32 at either width and in bf16 at
+width 64) gets them padded to the trainer's edge buckets
+(``ops.graph.EdgeBuckets``: one a graph role, the most edges seen in the
+fit rounded up to 1,024, never shrinking), past the end of their CSR, so
+a padded graph computes what it would unpadded.  A step is
 captured once per (batch signature, graph signature) (``ops.graph.
 graph_signature``: node and edge rows, lane and layout of each CSR graph,
 the k-NN table's shape) after one eager step of warm-up on a side stream,
@@ -45,11 +47,13 @@ between them.  The step reads nothing back (``train.optim``: the optimizer
 decides on the device), so a replay is the eager step, and the trajectory,
 the draws of a model's own generator (registered with the graph) and the
 checkpoints are the same whatever k.  Any other chunk (short, on the CPU,
-over a mesh of ranks, of graphs that differ on another lane or in another
-signature, or of a model without ``graph_parts``) runs its steps one by
-one on its unpadded graphs, as the JAX package runs a chunk it cannot
-scan, and says why once a fit.  With ``graph_shards`` > 1, k falls back to
-1, with the JAX trainer's warning.  ``host_graph`` counts the host's
+over a mesh of ranks, of graphs that differ on the plain versions or the
+width-128 bf16 lanes or in another signature, or of a model without
+``graph_parts``) runs its steps one by one on its unpadded graphs, as the
+JAX package runs a chunk it cannot scan, and says why once a fit, naming
+the lane, its dtype and its width where those are the reason.  With
+``graph_shards`` > 1, k falls back to 1, with the JAX trainer's
+warning.  ``host_graph`` counts the host's
 seconds building and padding graphs.  ``log_every`` is stored and read
 nowhere, as in the JAX trainer.
 """
@@ -66,6 +70,7 @@ import torch
 import torch.distributed as dist
 
 from magnet_tpu_torch.models.factory import resolve_device
+from magnet_tpu_torch.ops.fused_edge import reads_live_edges
 from magnet_tpu_torch.ops.graph import EdgeBuckets, graph_signature
 from magnet_tpu_torch.parallel.graph_partition import check_halo
 from magnet_tpu_torch.train.checkpoint import CheckpointManager, load_checkpoint
@@ -114,6 +119,21 @@ class EarlyStopping:
 #: captured steps a trainer keeps (each holds its graph and a memory pool
 #: of the step's activations); the oldest goes first
 MAX_CAPTURED = 4
+
+
+#: the GraphNet lanes whose kernels can read a padded graph's live edge
+#: count on the card (``ops.graph.pad_edges``); the plain versions read it
+#: on the host, which a capture refuses
+PADDED_LANES = ("fold", "pe", "pregathered")
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def takes_padding(lane: str, dtype: str, width: int) -> bool:
+    """Whether a processor step of ``lane`` in ``dtype`` at ``width`` (a
+    model's ``graph_lanes``) computes on a padded graph what it computes on
+    the graph unpadded, inside a captured step: a lane of ``PADDED_LANES``
+    whose build ``reads_live_edges``."""
+    return lane in PADDED_LANES and reads_live_edges(DTYPES[dtype], width)
 
 
 def batch_signature(batch: dict) -> tuple:
@@ -404,14 +424,15 @@ class Trainer:
 
     def _unpadded(self, graphs: list) -> Optional[str]:
         """Why a chunk's graphs, which differ, cannot be padded to one
-        signature (None: they can).  Only the f32 fold lane's kernels read
-        a padded graph's end on the card."""
+        signature (None: they can): every processor step on them must
+        ``takes_padding``."""
         if not hasattr(self.model, "graph_parts"):
             return "the chunk's graphs differ"
         lanes = set().union(*map(self.model.graph_lanes, graphs))
-        other = sorted(lanes - {"fold"})
-        if other:
-            return f"the chunk's graphs differ, on the {other[0]} lane"
+        for lane, dtype, width in sorted(lanes):
+            if not takes_padding(lane, dtype, width):
+                return (f"the chunk's graphs differ, on the {lane} lane in "
+                        f"{dtype} at width {width}")
         sig = graph_signature(graphs[0], edges=False)
         if any(graph_signature(g, edges=False) != sig for g in graphs[1:]):
             return "the chunk's graph signatures differ"

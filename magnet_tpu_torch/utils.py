@@ -44,12 +44,13 @@ def make_coord(shape: Sequence[int], ranges=None, flatten: bool = True,
     return _KEPT[key]
 
 
-def device_constant(values: Sequence[float], device) -> torch.Tensor:
-    """``torch.tensor(values)`` (float32) on ``device``, made once and
+def device_constant(values: Sequence[float], device,
+                    dtype=torch.float32) -> torch.Tensor:
+    """``torch.tensor(values, dtype=dtype)`` on ``device``, made once and
     kept (read-only)."""
-    key = ("constant", tuple(values), torch.device(device))
+    key = ("constant", tuple(values), torch.device(device), dtype)
     if key not in _KEPT:
-        _KEPT[key] = torch.tensor(values, dtype=torch.float32, device=device)
+        _KEPT[key] = torch.tensor(values, dtype=dtype, device=device)
     return _KEPT[key]
 
 

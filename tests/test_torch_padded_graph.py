@@ -8,7 +8,8 @@ to sticky edge buckets (``EdgeBuckets``), on the CPU.
     against the same graphs unpadded: output, weight and node gradients
     and d_e0's live rows bit-equal, d_e0's dead rows exactly 0 (the plain
     versions read the first rowptr[-1] rows, as the kernels do on the
-    card); the row check takes rowptr[-1] <= E and still raises past E.
+    card); the row check takes rowptr[-1] <= E and still raises past E,
+    and on any dead tail of a width-128 bf16 build.
 (b) A MAgNet[CNN] 1D and a MAgNet[GNN] 1D training step on graphs padded
     by the trainer against the same step unpadded: loss and every gradient
     within 1e-6 relative L2 (the encoders' edge MLPs run over more rows,
@@ -24,8 +25,8 @@ to sticky edge buckets (``EdgeBuckets``), on the CPU.
     ``test_steps_per_call_parity``.
 (e) The bucket rule (sticky, multiples of 1,024, a larger bucket another
     signature and so another capture key), the graph signature (what
-    shares a capture, lanes that differ give a reason) and k = 1 leaving
-    graphs unpadded.
+    shares a capture; a lane that differs is another signature, the plain
+    lane a reason) and k = 1 leaving graphs unpadded.
 
 Small widths; the port's wrappers take their plain versions on CPU
 tensors, the JAX models their plain references.
@@ -162,11 +163,16 @@ def test_row_check_takes_a_dead_tail_and_raises_past_the_rows():
     with pytest.raises(ValueError, match="edge rows"):
         fe.fused_edge_tail_agg_pregathered(h0[:E - 1], floats[4],
                                            padded.rowptr, *tail)
-    # the bf16 builds take the host's E as the edge count: no dead tail
+    # the width-64 bf16 builds read the live count too; the width-128 ones
+    # take the host's E as the edge count: no dead tail
     bf = [t.bfloat16() if i not in (9, 10) else t
           for i, t in enumerate(floats)]
+    fe.fused_edge_tail_agg_bf16(*_fold(bf, padded))
+    wide, _ = _operands(padded, 128, 128, 128, E + 5, seed=0)
+    wide = [t.bfloat16() if i not in (9, 10) else t
+            for i, t in enumerate(wide)]
     with pytest.raises(ValueError, match="edge rows"):
-        fe.fused_edge_tail_agg_bf16(*_fold(bf, padded))
+        fe.fused_edge_tail_agg_bf16(*_fold(wide, padded))
 
 
 def test_pad_edges_keeps_the_csr_and_pads_with_self_loops():
@@ -268,7 +274,7 @@ def test_padded_step_equals_unpadded_and_jax(name, tmp_path):
             assert p.n_edge % EDGE_BUCKET == 0
             assert int(p.rowptr[-1]) == g.n_edge < p.n_edge
             assert p.n_edge == tr.buckets.edges[role]
-        assert model.graph_lanes(pgraph) == {"fold"}
+        assert model.graph_lanes(pgraph) == {("fold", "f32", 16)}
         want_loss, want = _loss_and_grads(model, batch, graph)
         loss, grads = _loss_and_grads(model, batch, pgraph)
         assert _rel_l2(loss, want_loss) <= STEP_L2
@@ -345,16 +351,18 @@ def test_edge_buckets_are_sticky_multiples_that_rekey():
 def test_graphs_on_another_lane_or_signature_give_a_reason(tmp_path):
     """A chunk of MAgNet[CNN] 1D graphs with new queries, on a CUDA device
     (``tests/test_torch_steps_per_call.py`` holds the rule's other
-    reasons): a graph on another lane, or with other node rows, and a
-    model on the plain versions, each give their reason."""
+    reasons): a graph on another lane (another signature), or with other
+    node rows, and a model on the plain versions, each give their
+    reason."""
     tr = _trainer("magnet_cnn", tmp_path)
     pairs = [tr._host_pair(b) for b in _batches("magnet_cnn", K)]
     tr.device = torch.device("cuda")      # the rule reads nothing else of it
     assert tr._uncaptured(pairs) is None
     batch, graph = pairs[1]
     other = dataclasses.replace(graph, lane="pregathered")
+    # a lane that reads the live count too, but another signature
     assert tr._uncaptured(pairs[:1] + [(batch, other)] + pairs[2:]) == (
-        "the chunk's graphs differ, on the pregathered lane")
+        "the chunk's graph signatures differ")
     wide = tr._host_pair(_batches("magnet_cnn", 1, seed=9)[0])
     wide = (wide[0], dataclasses.replace(
         csr_from_edges(wide[1].senders, wide[1].receivers,
@@ -364,7 +372,7 @@ def test_graphs_on_another_lane_or_signature_give_a_reason(tmp_path):
         "the chunk's graph signatures differ")
     tr.model.impl = "plain"
     assert tr._uncaptured(pairs) == (
-        "the chunk's graphs differ, on the plain lane")
+        "the chunk's graphs differ, on the plain lane in f32 at width 16")
 
 
 @pytest.mark.parametrize("k", [1, K])

@@ -2,7 +2,8 @@
 ``Trainer.fit`` with chunks of k = 3 steps against k = 1, bit for bit (a
 short last chunk, a resume across k either way, ``skip_nonfinite`` with a
 planted NaN); the rule that picks a captured chunk (graphs that differ
-included, where the model pads them to one signature); ``graph_shards`` >
+included, where the model pads them to one signature: MAgNet[CNN] 1D and
+2D, in f32 and in bf16 at width 64, not at width 128); ``graph_shards`` >
 1 falling back to k = 1 with the JAX trainer's warning; the optimizer,
 which decides in tensors (what a captured step runs), against a plain
 Adam whose rate is a float and whose skip is read back, bit for bit, with
@@ -25,7 +26,10 @@ torch = pytest.importorskip("torch")
 from magnet_tpu_torch import run as port_run  # noqa: E402
 from magnet_tpu_torch.config import compose  # noqa: E402
 from magnet_tpu_torch.data.datamodule import build_loaders  # noqa: E402
-from magnet_tpu_torch.data.datasets import DatasetImplicit1D  # noqa: E402
+from magnet_tpu_torch.data.datasets import (  # noqa: E402
+    DatasetImplicit1D,
+    DatasetImplicit2D,
+)
 from magnet_tpu_torch.data.loader import collate  # noqa: E402
 from magnet_tpu_torch.data.synthetic import make_split  # noqa: E402
 from magnet_tpu_torch.models.factory import create_model  # noqa: E402
@@ -274,13 +278,39 @@ def _magnet_cnn_chunk(k):
     return tr, chunk
 
 
+def _magnet_cnn_2d_chunk(k, hp=None):
+    """A tiny MAgNet[CNN] 2D trainer and a chunk of ``k`` pairs with new
+    queries a batch (its graphs' lane forced to the pre-gathered one, its
+    published training graph's)."""
+    hp = hp or dict(time_slice=4, latent_dim=8, num_message_passing_steps=2,
+                    mlp_layers=2, mlp_hidden=16, n_chan=8, res_layers=1,
+                    radius=0.5)
+    model = create_model("magnet_cnn_2d", hp, device="cpu", seed=0)
+    model.impl = "kernel_pregathered"
+    tr = Trainer(model, max_epochs=1, workdir="unused", device="cpu",
+                 steps_per_call=k)
+    rng = np.random.default_rng(2)
+    g = np.tile((np.arange(8) / 8).astype(np.float32), (2, 1))
+    ds = DatasetImplicit2D(
+        {"t": np.tile(np.linspace(0, 1, 12, dtype=np.float32), (2, 1)),
+         "x": g, "y": g.copy(),
+         "pde_12-8": rng.normal(size=(2, 12, 8, 8)).astype(np.float32)},
+        "train", nt=12, res=8, samples=6)
+    chunk = []
+    for i in range(k):
+        ds.set_epoch(i)
+        chunk.append(tr._host_pair(collate([ds[0], ds[1]])))
+    return tr, chunk
+
+
 def test_the_rule_that_captures_a_chunk():
     """A full chunk of batches of one shape on one graph object, or on
-    graphs that differ but pad to one signature (MAgNet[CNN] 1D's new
-    queries a batch, on its f32 fold lane), on one CUDA device, is
+    graphs that differ but pad to one signature (new queries a batch:
+    MAgNet[CNN] 1D on its f32 fold lane, MAgNet[CNN] 2D on the pre-gathered
+    lane, MAgNet[CNN] 1D in bf16 at width 64), on one CUDA device, is
     captured; a short chunk, a CPU device, a mesh of ranks, graphs that
-    differ of a model that pads none (MPNN) and shapes that differ are
-    not."""
+    differ of a model that pads none (MPNN), of the bf16 lanes at width
+    128 and shapes that differ are not."""
     model = create_model("mpnn", HP, device="cpu", seed=0)
     tr = Trainer(model, max_epochs=1, workdir="unused", device="cpu",
                  steps_per_call=3)
@@ -313,6 +343,24 @@ def test_the_rule_that_captures_a_chunk():
         == "the chunk's batch shapes differ"
     tr.world = 2
     assert tr._uncaptured(chunk) == "the gradients' all-reduce over 2 ranks"
+
+    tr, chunk = _magnet_cnn_2d_chunk(3)
+    assert len({g.n_edge for _, g in chunk}) == 3
+    assert tr._uncaptured(chunk) == "no CUDA graph on cpu"
+    tr.device = torch.device("cuda")
+    assert tr._uncaptured(chunk) is None
+    assert tr._uncaptured(chunk[:2]) == "a short chunk"
+
+    # bf16: the width-64 builds read the live count, the width-128 ones not
+    for width, why in ((64, None), (128, "the chunk's graphs differ, on the "
+                                         "pregathered lane in bf16 at width "
+                                         "128")):
+        tr, chunk = _magnet_cnn_2d_chunk(3, dict(
+            time_slice=4, latent_dim=8, num_message_passing_steps=2,
+            mlp_layers=2, mlp_hidden=width, n_chan=8, res_layers=1,
+            radius=0.5, graph_dtype="bf16"))
+        tr.device = torch.device("cuda")
+        assert tr._uncaptured(chunk) == why, width
 
 
 def test_graph_shards_fall_back_to_one_step_a_call():
