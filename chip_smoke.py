@@ -7,9 +7,10 @@
                                         gnn, gnn2d, fno, no_interaction,
                                         cnn_bf16, cnn2d_bf16, gnn_bf16,
                                         cnn_pe, gnn_pre, par (par_local and
-                                        par_dist), par_dist (alone), tune,
-                                        remat, spc (with spc_graph),
-                                        spc_graph (alone)
+                                        par_dist), par_dist (alone),
+                                        par_spc (par_dist's steps_per_call
+                                        runs alone), tune, remat, spc (with
+                                        spc_graph), spc_graph (alone)
 
 Builds the port's seven CUDA sources from the checkout (all eleven TPU
 kernels: the fused GraphNet edge pipeline's forward and backward, each
@@ -59,16 +60,20 @@ graph, against one step a call: losses, weights, #10 / #11 launches in a
 profiler trace of each fit, seconds a step and the device's idle share;
 the optimizer, which decides on the device, against a plain Adam that
 decides on the host), and ``steps_per_call`` over graphs that differ
-(the fold, pe and pre-gathered kernels in f32 at both widths and in bf16
-at width 64, and #1 in f32 and bf16, on MAgNet[CNN] 1D's and 2D's and
-MAgNet[GNN] 1D's training graphs padded past their CSR, against the
-unpadded launch bit for bit and against the plain version; MAgNet[CNN] 1D
-(f32, bf16, ``kernel_pe``), MAgNet[CNN] 2D (f32, bf16), MAgNet[GNN] 1D
-(f32, ``kernel_pregathered``) and MAgNet[GNN] 2D fitted with new queries
-every batch, 4 steps a call replayed on padded graphs against one step a
-call: losses, one step padded against unpadded, the lane's kernels in the
-trace, seconds a step, idle share, the host's seconds building and
-padding graphs).  Each group's seconds go to stderr.
+(the fold, pe and pre-gathered kernels in f32 and bf16 at both widths,
+and #1 in f32 and bf16, on MAgNet[CNN] 1D's and 2D's and MAgNet[GNN] 1D's
+training graphs padded past their CSR, against the unpadded launch bit
+for bit and against the plain version; MAgNet[CNN] 1D (f32, bf16,
+``kernel_pe``), MAgNet[CNN] 2D (f32, bf16), MAgNet[GNN] 1D (f32, bf16,
+``kernel_pregathered``) and MAgNet[GNN] 2D (f32, bf16) fitted with new
+queries every batch, 4 steps a call replayed on padded graphs against one
+step a call: losses, one step padded against unpadded, the lane's kernels
+in the trace, seconds a step, idle share, the host's seconds building and
+padding graphs), and on hosts of two cards or more ``Trainer.fit`` over
+dp ranks with 4 steps a call, the chunks captured with the gradients'
+NCCL all-reduce inside the graph (one rank's buckets grown mid-fit in a
+second run), against one step a call and one process.  Each group's
+seconds go to stderr.
 It checks that each path went through its kernels by their launch counts.
 Prints one JSON line per phase (``device``, ``build``, ``kernel``,
 ``slice``, ``kernel_bwd``, ``train``, ``mpnn_kernel``, ``mpnn_kernel_bwd``,
@@ -251,6 +256,14 @@ PAR_MPNN_LAYERS, PAR_DIST_TIMEOUT = 2, 300
 # moves a weight whose gradient is near eps by up to lr for such a change
 # (one bias's update differed by 0.13 of itself on an H100)
 PAR_FIT_EPOCHS, PAR_FIT_RTOL, PAR_UPDATE_L2 = 2, 1e-3, 1e-2
+# par_dist's steps_per_call runs (group par_spc alone): the same fit on the
+# spc_graph phase's SPC_GRAPH_TRAJ KS trajectories (4 steps an epoch, new
+# queries every batch) in one process, over dp = every card at one step a
+# call and at SPC_K, the chunks captured with the gradients' all-reduce in
+# the graph, and at SPC_K with one rank's edge buckets grown by one
+# EDGE_BUCKET before its second chunk (it captures anew while the others
+# replay), each held as the fits above, and the SPC_K fit's losses within
+# PAR_FIT_RTOL of the dp fit's at one step a call
 # par_local's graph with a shard whose boundary region has no edge: B
 # samples of PAR_EMPTY_NODES 1D nodes, the first third apart from the rest,
 # over G = 3; the overlap processor against the halo one on the card, the
@@ -316,25 +329,51 @@ SPC_GRAPH_TRAJ, SPC_GRAPH_ATOMICS_L2 = 128, 1e-6
 SPC_GRAPH_LOSS_RTOL = {"magnet_cnn": 1e-5, "magnet_gnn": PAR_FIT_RTOL}
 # The same checks on every lane a captured chunk now pads: the f32 pe and
 # pre-gathered entries at both widths, the bf16 fold, pe and pre-gathered
-# entries at width 64 and the segment sum #1 (f32 and bf16) over a padded
-# sender CSR, bit for bit where no atomics add.  The bf16 node gradients
+# entries at widths 64 and 128 and the segment sum #1 (f32 and bf16) over a
+# padded sender CSR, bit for bit where no atomics add.  The bf16 node gradients
 # are f32 atomic sums rounded once to bf16: a last-bit change of a sum
 # that lies at a rounding boundary moves that element by one bf16 step
 # (2^-8 relative), so they are held at SPC_GRAPH_ATOMICS_BF16_L2 (a few in
 # 10^5 elements so moved give ~2e-5), the unpadded launch's repeat beside
 # it.  The fits: MAgNet[CNN] 2D (pre-gathered lane) and 1D on kernel_pe
-# at 1e-5 as MAgNet[CNN] 1D; MAgNet[GNN] 2D, MAgNet[GNN] 1D on
-# kernel_pregathered and the bf16 fits (MAgNet[CNN] 1D, 2D) at
-# PAR_FIT_RTOL beside their repeated one-step fit's spread (the k-NN
-# gather's and the backward kernels' atomics; bf16 roundings that such a
-# change flips).  MAgNet[CNN] 2D and MAgNet[GNN] 2D fit SPC_GRAPH_TRAJ
+# at 1e-5 as MAgNet[CNN] 1D; MAgNet[GNN] 1D on kernel_pregathered and
+# the bf16 MAgNet[CNN] fits (1D, 2D) at PAR_FIT_RTOL, as their repeated
+# one-step fit is (the backward kernels' atomics; bf16 roundings that
+# such a change flips); MAgNet[GNN] 2D and the bf16 MAgNet[GNN] fits
+# below.  MAgNet[CNN] 2D and MAgNet[GNN] 2D fit SPC_GRAPH_TRAJ
 # trajectories made by repeating the cnn2d and gnn2d groups' solves
 # (queries drawn anew for every sample), so that no new solve is made
 SPC_GRAPH_ATOMICS_BF16_L2 = 1e-4
+# Every fit's first step on the padded graph against the unpadded one: the
+# loss bit-equal and every gradient within SPC_GRAPH_FIRST_STEP_L2 relative
+# L2 of the graph's dtype.  The edge encoder's MLP runs cuBLAS over the
+# padded rows, which sums its weight gradient in another order: 1.3e-7 to
+# 2.7e-7 in f32; in bf16 some of its elements round to the neighbouring
+# bf16 number, 1.4e-5 (MAgNet[GNN] 1D) to 1.1e-3 (MAgNet[GNN] 2D), and one
+# such step on every element would be 2^-8 to 2^-7 (H100 80GB HBM3, 700 W)
+SPC_GRAPH_FIRST_STEP_L2 = {"float32": 1e-6, "bf16": 2.0 ** -8}
+# MAgNet[GNN] 2D's repeated one-step fit lay 2.4e-4 to 8.9e-4 from the
+# first in six runs and 1.1e-3 and 1.45e-3 in two more (the k-NN gather's
+# and the backward kernels' atomics through Adam), its SPC_K fit 1.1e-4 to
+# 9.2e-4 (H100 80GB HBM3, 700 W): both are held at SPC_GRAPH_GNN2D_RTOL
+SPC_GRAPH_GNN2D_RTOL = 3e-3
+# The bf16 MAgNet[GNN] 1D (its one-step fit twice) and 2D fold fits: the
+# width-128 bf16 kernels are bit-equal padded and unpadded, but the edge
+# encoder's bf16 weight gradient differs in its roundings (above), and
+# Adam turns those into per-step losses 3.73e-3 (1D) and 5.74e-3 (2D) from
+# the one-step fit's after 8 steps, the same in three runs (H100 80GB HBM3,
+# 700 W), beyond PAR_FIT_RTOL.  So the SPC_K fit is held against the same
+# fit with its chunks run eagerly on the same padded graphs (``EagerStep``:
+# what the capture replays, without it) within PAR_FIT_RTOL, the repeat
+# within PAR_FIT_RTOL, and the SPC_K fit against the one-step fit on
+# unpadded graphs within SPC_GRAPH_BF16_GNN_RTOL, a bound that the bf16
+# one-step fit's distance from the f32 one's (the same weights and data)
+# must exceed, so that it tells the two precisions apart
+SPC_GRAPH_BF16_GNN_RTOL = 1e-2
 GROUPS = ("cnn", "mpnn_kernels", "mpnn_paths", "cnn2d", "gnn", "gnn2d",
           "fno", "no_interaction", "cnn_bf16", "cnn2d_bf16", "gnn_bf16",
-          "cnn_pe", "gnn_pre", "par", "par_dist", "tune", "remat", "spc",
-          "spc_graph")
+          "cnn_pe", "gnn_pre", "par", "par_dist", "par_spc", "tune", "remat",
+          "spc", "spc_graph")
 
 
 def card() -> str:
@@ -5649,15 +5688,20 @@ def par_phases(dev, data, groups) -> tuple[int, list, dict]:
     global batches (PAR_FIT_RTOL); rank 0's checkpoint read back and
     resumed by this process; with two cards or more also graph_shards = 2
     with the halo exchange, the overlap split and its ring, and with four
-    or more graph_shards = 4 with the overlap split and its ring.  No
-    fallback: a rank that fails, or NCCL that does not start, fails the
-    phase."""
+    or more graph_shards = 4 with the overlap split and its ring.  Then
+    (alone: group ``par_spc``) the dp fit at one step a call and at SPC_K,
+    its chunks captured with the NCCL all-reduce inside the CUDA graph, and
+    with two cards or more the SPC_K fit with one rank's buckets grown
+    mid-fit, against one process and the dp fit at one step a call, each
+    rank's eager, captured and replayed steps.  No fallback: a rank that
+    fails, or NCCL that does not start or capture, fails the phase."""
     extra = {}
     if "par" in groups:
         rc, extra = par_local(dev, data)
         if rc:
             return rc, [], {}
-    return par_dist(dev, data), [], extra
+    spc_only = not {"par", "par_dist"} & set(groups)
+    return par_dist(dev, data, spc_only), [], extra
 
 
 def par_local(dev, data) -> tuple[int, dict]:
@@ -5752,11 +5796,13 @@ def par_local(dev, data) -> tuple[int, dict]:
     return 0, extra
 
 
-def par_dist(dev, data) -> int:
-    """Phase ``par_dist`` (``par_phases``); its exit code."""
+def par_dist(dev, data, spc_only=False) -> int:
+    """Phase ``par_dist`` (``par_phases``); its exit code.  ``spc_only``:
+    its steps_per_call runs alone."""
     from magnet_tpu_torch.config import MAGNET_CNN
     from magnet_tpu_torch.models.factory import create_model
-    from magnet_tpu_torch.parallel.launch import fit_rank, run_ranks
+    from magnet_tpu_torch.parallel.launch import run_ranks
+    from magnet_tpu_torch.train.capture_checks import grown_bucket_fit_rank
     from magnet_tpu_torch.train.checkpoint import load_checkpoint
     from magnet_tpu_torch.train.trainer import Trainer
 
@@ -5765,8 +5811,7 @@ def par_dist(dev, data) -> int:
     state = {k: v.cpu() for k, v in
              create_model("magnet_cnn", hp, device=dev, seed=0)
              .state_dict().items()}
-    loaders = data["ks_loaders"]
-    steps = len(loaders["train"])
+    smi = card()
 
     def model():
         m = create_model("magnet_cnn", hp, device=dev)
@@ -5777,32 +5822,31 @@ def par_dist(dev, data) -> int:
         with open(os.path.join(workdir, "metrics.jsonl")) as f:
             return [json.loads(line) for line in f]
 
-    # this process's fit from the same weights on the same global batches
-    with tempfile.TemporaryDirectory() as workdir:
-        one = Trainer(model(), max_epochs=PAR_FIT_EPOCHS, lr=hp["lr"],
-                      workdir=workdir, device=dev)
-        one.fit(loaders["train"], loaders["val"])
-        one_rows = rows_of(workdir)
-    one_state = {k: v.cpu().numpy() for k, v in one.model.state_dict().items()}
+    def one_process(loaders):
+        """This process's fit from the same weights on the same global
+        batches: its rows and final weights."""
+        with tempfile.TemporaryDirectory() as workdir:
+            one = Trainer(model(), max_epochs=PAR_FIT_EPOCHS, lr=hp["lr"],
+                          workdir=workdir, device=dev)
+            one.fit(loaders["train"], loaders["val"])
+            return rows_of(workdir), {k: v.cpu().numpy() for k, v in
+                                      one.model.state_dict().items()}
 
-    smi = card()
-    # graph = 2 on two cards or more; graph = 4 on four or more, so that
-    # the ring runs several rotations (and their reverse in the backward)
-    runs = ([(n, False)]
-            + [(n // 2, halo) for halo in (True, "overlap", "ring")
-               if n >= 2]
-            + [(n // 4, halo) for halo in ("overlap", "ring") if n >= 4])
-    dist_records = []
-    for dp, halo in runs:
+    def run(loaders, one, dp, halo, k=1, grow_rank=None):
+        """The fit over n ranks (dp x graph), k steps a call (``grow_rank``:
+        that rank's buckets grown mid-fit), against ``one``; rank 0's
+        checkpoint read back and resumed by this process."""
+        one_rows, one_state = one
+        steps = len(loaders["train"])
         with tempfile.TemporaryDirectory() as workdir:
             spec = {"model": "magnet_cnn", "hp": hp, "state": state,
                     "dp": dp, "halo": halo, "loaders": loaders,
                     "max_epochs": PAR_FIT_EPOCHS, "lr": hp["lr"],
-                    "workdir": workdir,
-                    "device": "cuda"}
+                    "workdir": workdir, "device": dev.type,
+                    "steps_per_call": k, "grow_rank": grow_rank}
             t0 = time.perf_counter()
-            out = run_ranks(fit_rank, n, (spec,), device="cuda",
-                            timeout_s=PAR_DIST_TIMEOUT)
+            out = run_ranks(grown_bucket_fit_rank, n, (spec,),
+                            device=dev.type, timeout_s=PAR_DIST_TIMEOUT)
             fit_s = time.perf_counter() - t0
             last = os.path.join(workdir, "checkpoints", "last.pt")
             saved, meta = load_checkpoint(last, require=("model",
@@ -5823,12 +5867,28 @@ def par_dist(dev, data) -> int:
         init = flat({k: v.numpy() for k, v in state.items()})
         upd = float(np.linalg.norm(flat(out[0]["state"]) - flat(one_state))
                     / np.linalg.norm(flat(one_state) - init))
-        loss_rel = {f"{k}_{e}": abs(rows[e][k] - one_rows[e][k])
-                    / abs(one_rows[e][k])
-                    for k in ("train_loss", "val_mae_loss")
+        loss_rel = {f"{key}_{e}": abs(rows[e][key] - one_rows[e][key])
+                    / abs(one_rows[e][key])
+                    for key in ("train_loss", "val_mae_loss")
                     for e in range(PAR_FIT_EPOCHS)}
+        counts = [r["step_counts"] for r in out]
+        n_steps = PAR_FIT_EPOCHS * steps
+        if k == 1:
+            counts_ok = all(c == {"eager": n_steps, "captured": 0,
+                                  "replayed": 0} for c in counts)
+        else:
+            # every rank replays, each capture after one warm-up step; the
+            # grown rank captures at least twice (a rank whose own graphs
+            # outgrow its bucket captures anew too)
+            counts_ok = all(
+                c["eager"] + c["replayed"] == n_steps and c["replayed"] > 0
+                and c["captured"] == c["eager"]
+                and c["captured"] >= 1 + (r == grow_rank)
+                for r, c in enumerate(counts))
         rec = {"ranks": n, "devices": dp, "graph_shards": n // dp,
-               "halo": halo, "seconds_launch_and_fit": fit_s,
+               "halo": halo, "steps_per_call": k, "grow_rank": grow_rank,
+               "steps_per_epoch": steps, "step_counts": counts,
+               "seconds_launch_and_fit": fit_s,
                "seconds_step": rows[-1]["time"] / steps,
                "seconds_step_one_process": one_rows[-1]["time"] / steps,
                "rank0_rows": rows, "one_process_rows": one_rows,
@@ -5841,7 +5901,7 @@ def par_dist(dev, data) -> int:
                "resumed_steps": resumed.optimizer.step_count,
                "finite": all(np.isfinite(v) for r in rows
                              for v in r.values())}
-        rec["ok"] = (same and agree and rec["finite"]
+        rec["ok"] = (same and agree and rec["finite"] and counts_ok
                      and rec["writers"] == [True] + [False] * (n - 1)
                      and meta.get("epoch") == PAR_FIT_EPOCHS - 1
                      and epochs == list(range(PAR_FIT_EPOCHS + 1))
@@ -5849,12 +5909,50 @@ def par_dist(dev, data) -> int:
                      == (PAR_FIT_EPOCHS + 1) * steps
                      and max(loss_rel.values()) <= PAR_FIT_RTOL
                      and upd <= PAR_UPDATE_L2)
-        print(f"par_dist ranks={n} dp={dp} graph={n // dp} halo={halo}: s a "
-              f"step of the last epoch {rec['seconds_step']} (one process "
-              f"{rec['seconds_step_one_process']}; {smi})", flush=True)
-        dist_records.append(rec)
-    ok = all(r["ok"] for r in dist_records)
-    emit({"phase": "par_dist", "runs": dist_records, "ok": ok})
+        print(f"par_dist ranks={n} dp={dp} graph={n // dp} halo={halo} "
+              f"k={k} grow_rank={grow_rank}: s a step of the last epoch "
+              f"{rec['seconds_step']} (one process "
+              f"{rec['seconds_step_one_process']}); step counts {counts}; "
+              f"losses {max(loss_rel.values())}, update {upd} from one "
+              f"process; ok {rec['ok']} ({smi})", flush=True)
+        return rec
+
+    records = []
+    if not spc_only:
+        one = one_process(data["ks_loaders"])
+        # graph = 2 on two cards or more; graph = 4 on four or more, so
+        # that the ring runs several rotations (and their reverse in the
+        # backward)
+        runs = ([(n, False)]
+                + [(n // 2, halo) for halo in (True, "overlap", "ring")
+                   if n >= 2]
+                + [(n // 4, halo) for halo in ("overlap", "ring") if n >= 4])
+        records += [run(data["ks_loaders"], one, dp, halo)
+                    for dp, halo in runs]
+    # steps_per_call over dp ranks (two cards or more): the gradients'
+    # all-reduce captured with the step, every rank one a step whatever the
+    # others decided
+    spc = []
+    if n >= 2:
+        loaders = data["spc_graph_magnet_cnn_loaders"]
+        one = one_process(loaders)
+        spc = [run(loaders, one, n, False), run(loaders, one, n, False, SPC_K),
+               run(loaders, one, n, False, SPC_K, grow_rank=n - 1)]
+    else:
+        print("par_dist: the steps_per_call runs over dp ranks need two "
+              "cards or more", flush=True)
+    for rec in spc[1:]:
+        base = spc[0]["rank0_rows"]
+        rec["loss_rel_err_vs_k1"] = {
+            f"{key}_{e}": abs(rec["rank0_rows"][e][key] - base[e][key])
+            / abs(base[e][key])
+            for key in ("train_loss", "val_mae_loss")
+            for e in range(PAR_FIT_EPOCHS)}
+        rec["ok"] = rec["ok"] and max(
+            rec["loss_rel_err_vs_k1"].values()) <= PAR_FIT_RTOL
+    records += spc
+    ok = all(r["ok"] for r in records)
+    emit({"phase": "par_dist", "runs": records, "ok": ok})
     return 0 if ok else 22
 
 
@@ -6388,11 +6486,12 @@ def traced_launches(events, symbols: dict) -> dict:
 
 def spc_fit(name, hp, loaders, dev, k, workdir, skip_nonfinite=False,
             profiled=False, plain_adam=False, symbols=MPNN_SYMBOLS,
-            kind=None, impl="kernel") -> tuple[object, dict]:
+            kind=None, impl="kernel", eager=False) -> tuple[object, dict]:
     """``Trainer.fit`` of ``name`` (seed 0; ``kind`` the datamodule's,
     ``impl`` the GraphNet lane) for SPC_EPOCHS epochs with ``k`` steps a
     call (``plain_adam``: with ``PlainAdam`` in place of the trainer's
-    optimizer): the trainer and its record (each step's metrics in order,
+    optimizer; ``eager``: with ``EagerStep`` in place of the capture): the
+    trainer and its record (each step's metrics in order,
     the launches its wrappers counted, eager / captured / replayed steps,
     the last epoch's seconds a step and, ``profiled``, the launches of the
     kernels of ``symbols`` in a ``torch.profiler`` trace of the fit)."""
@@ -6400,8 +6499,13 @@ def spc_fit(name, hp, loaders, dev, k, workdir, skip_nonfinite=False,
     from torch.profiler import ProfilerActivity, profile
 
     from magnet_tpu_torch.models.factory import create_model
+    from magnet_tpu_torch.train.capture_checks import EagerStep
     from magnet_tpu_torch.train.trainer import Trainer
 
+    # on standard error, so that the end of a failed run names its fit
+    print(f"chip_smoke: fit {name} {hp.get('graph_dtype', 'float32')} "
+          f"{kind or ''} impl={impl} k={k} profiled={profiled} "
+          f"eager={eager}", file=sys.stderr, flush=True)
     model = create_model(name, hp, device=dev, seed=0, kind=kind)
     if impl != "kernel":
         model.impl = impl
@@ -6430,6 +6534,8 @@ def spc_fit(name, hp, loaders, dev, k, workdir, skip_nonfinite=False,
     fit = lambda: trainer.fit(loaders["train"], loaders["val"])  # noqa: E731
     traced = {}
     reset_every_launch()
+    if eager:
+        trainer.step_capture = EagerStep
     if profiled:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fit_s = timed(fit)
@@ -6803,7 +6909,8 @@ def spc_phases(dev, data, groups) -> tuple[int, list, dict]:
 #: kernel template the lanes share: the parts every name of the group's
 #: kernels holds and the launch counters (``every_launch``) of the wrappers
 #: that launch it (the width-128 f32 backward counted by its
-#: weight-gradient kernel, once a launch)
+#: weight-gradient kernel, once a launch).  The bf16 forwards of both
+#: widths share one demangled name: no fit runs both widths
 TRACE_GROUPS = {
     "f32_w64_fwd": (("w64", "edge_tail_kernel"),
                     ("fused_edge_fwd", "fused_edge_pregathered_fwd",
@@ -6823,6 +6930,14 @@ TRACE_GROUPS = {
     "bf16_w64_bwd": (("wgmma_bwd_kernel",),
                      ("fused_edge_bf16_bwd", "fused_edge_pregathered_bf16_bwd",
                       "fused_edge_pe64_bf16_bwd")),
+    "bf16_w128_fwd": (("wgmma_fwd_kernel",),
+                      ("fused_edge_fold128_bf16_fwd",
+                       "fused_edge_pregathered128_bf16_fwd",
+                       "fused_edge_pe_bf16_fwd")),
+    "bf16_w128_bwd": (("cluster_bwd_kernel",),
+                      ("fused_edge_fold128_bf16_bwd",
+                       "fused_edge_pregathered128_bf16_bwd",
+                       "fused_edge_pe_bf16_bwd")),
     "segment_sum": (("segment_sum_kernel",), ("segment_sum",
                                               "segment_sum_bf16"))}
 #: the kernels line's row of each counter
@@ -6847,6 +6962,14 @@ COUNTER_ROWS = {
         "fused_edge_tail_agg_pregathered_bf16_bwd",
     "fused_edge_pe64_bf16_fwd": "fused_edge_tail_agg_pe64_bf16",
     "fused_edge_pe64_bf16_bwd": "fused_edge_tail_agg_pe64_bf16_bwd",
+    "fused_edge_fold128_bf16_fwd": "fused_edge_tail_agg_bf16_w128",
+    "fused_edge_fold128_bf16_bwd": "fused_edge_tail_agg_bf16_w128_bwd",
+    "fused_edge_pregathered128_bf16_fwd":
+        "fused_edge_tail_agg_pregathered_bf16_w128",
+    "fused_edge_pregathered128_bf16_bwd":
+        "fused_edge_tail_agg_pregathered_bf16_w128_bwd",
+    "fused_edge_pe_bf16_fwd": "fused_edge_tail_agg_pe_bf16",
+    "fused_edge_pe_bf16_bwd": "fused_edge_tail_agg_pe_bf16_bwd",
     "segment_sum": "segment_sum", "segment_sum_bf16": "segment_sum_bf16"}
 
 
@@ -6854,19 +6977,21 @@ def spc_graph_fits() -> list[dict]:
     """The spc_graph fits: model, hyperparameters, data, lane, the
     counters of the lane's training kernels (forward, backward, the
     segment sum where the lane has one), the loss bound against the
-    one-step fit and whether that fit runs twice (its spread: where the
-    bound rests on it, and MAgNet[CNN] 1D's, the first fit's own
-    check)."""
+    one-step fit, whether that fit runs twice and the bound of its repeat
+    (the fit's bound unless given) and, for a bf16 MAgNet[GNN] fit, the
+    f32 fit of its model (SPC_GRAPH_BF16_GNN_RTOL's)."""
     from magnet_tpu_torch.config import MAGNET_CNN, MAGNET_CNN_2D, MAGNET_GNN
 
     bf16 = {"graph_dtype": "bf16"}
-    par = SPC_GRAPH_LOSS_RTOL["magnet_gnn"]
+    par, bf16_gnn = SPC_GRAPH_LOSS_RTOL["magnet_gnn"], SPC_GRAPH_BF16_GNN_RTOL
 
     def fit(label, name, hp, data, train, rtol, kind=None, impl="kernel",
-            repeat=None):
+            repeat=None, repeat_rtol=None, f32_of=None):
         return {"label": label, "name": name, "hp": hp, "data": data,
                 "train": train, "rtol": rtol, "kind": kind, "impl": impl,
-                "repeat": rtol > 1e-5 if repeat is None else repeat}
+                "repeat": rtol > 1e-5 if repeat is None else repeat,
+                "repeat_rtol": rtol if repeat_rtol is None else repeat_rtol,
+                "f32_of": f32_of}
 
     return [
         fit("magnet_cnn", "magnet_cnn", MAGNET_CNN, "magnet_cnn",
@@ -6882,8 +7007,8 @@ def spc_graph_fits() -> list[dict]:
              "fused_edge_pregathered_bf16_bwd", "segment_sum_bf16"), par),
         fit("magnet_gnn_2d", "magnet_gnn", {**MAGNET_GNN, **GNN2D_HP},
             "magnet_gnn_2d",
-            ("fused_edge_fold128_fwd", "fused_edge_fold128_bwd"), par,
-            kind="h5_implicit_gnn_2d"),
+            ("fused_edge_fold128_fwd", "fused_edge_fold128_bwd"),
+            SPC_GRAPH_GNN2D_RTOL, kind="h5_implicit_gnn_2d"),
         fit("magnet_cnn bf16", "magnet_cnn", {**MAGNET_CNN, **bf16},
             "magnet_cnn", ("fused_edge_bf16_fwd", "fused_edge_bf16_bwd"),
             par),
@@ -6893,7 +7018,16 @@ def spc_graph_fits() -> list[dict]:
         fit("magnet_gnn kernel_pregathered", "magnet_gnn", MAGNET_GNN,
             "magnet_gnn",
             ("fused_edge_pregathered128_fwd", "fused_edge_pregathered128_bwd",
-             "segment_sum"), par, impl="kernel_pregathered")]
+             "segment_sum"), par, impl="kernel_pregathered"),
+        fit("magnet_gnn bf16", "magnet_gnn", {**MAGNET_GNN, **bf16},
+            "magnet_gnn",
+            ("fused_edge_fold128_bf16_fwd", "fused_edge_fold128_bf16_bwd"),
+            bf16_gnn, repeat=True, repeat_rtol=par, f32_of="magnet_gnn"),
+        fit("magnet_gnn_2d bf16", "magnet_gnn",
+            {**MAGNET_GNN, **GNN2D_HP, **bf16}, "magnet_gnn_2d",
+            ("fused_edge_fold128_bf16_fwd", "fused_edge_fold128_bf16_bwd"),
+            bf16_gnn, kind="h5_implicit_gnn_2d", repeat=False,
+            f32_of="magnet_gnn_2d")]
 
 
 def replay_ms(fn, reps: int) -> float:
@@ -6974,8 +7108,8 @@ def padded_graph(graph):
 
 
 def spc_graph_kernels(entry, dtype, graph, widths, l1, seed, dev) -> dict:
-    """``entry``'s forward and backward in ``dtype`` (f32 at either width;
-    bf16 at width 64) on ``graph`` padded to its edge bucket (a dead tail
+    """``entry``'s forward and backward in ``dtype`` (f32 or bf16, at either
+    width) on ``graph`` padded to its edge bucket (a dead tail
     of 1-1,023 rows, NaN in the edge source's dead rows) against the same
     launch unpadded: output, weight gradients and d_src's live rows bit for
     bit, d_src's dead rows zero, the node gradients summed with atomics
@@ -7095,13 +7229,30 @@ def spc_graph_segment(dtype, graph, h, seed, dev) -> dict:
             "ok": bits and bool((err <= tol).all())}
 
 
+def small_graphs() -> dict:
+    """Graphs of 1 and 300 edges (dead tails of 1,023 and 724 rows once
+    padded), on which most of a launch's blocks and clusters lie past the
+    live split and exit whole: receiver-grouped, seeded."""
+    from magnet_tpu_torch.ops.graph import csr_from_edges
+
+    rng = np.random.default_rng(11)
+    out = {"one_edge": csr_from_edges(torch.tensor([3]), torch.tensor([5]),
+                                      64)}
+    recv = np.sort(rng.integers(0, 100, size=300))
+    send = rng.integers(0, 100, size=300)
+    out["small"] = csr_from_edges(torch.from_numpy(send),
+                                  torch.from_numpy(recv), 100)
+    return out
+
+
 def spc_graph_kernel_cases(dev, data) -> dict:
     """The kernel forms of the captured lanes on padded graphs: the f32
     fold (#8/#9), pe (#6/#7) and pre-gathered (#2/#3) entries at (64, 32)
     (fold (32, 64, 32)) on MAgNet[CNN] 1D's batch-32 training graph (fold,
     pe) and MAgNet[CNN] 2D's (pre-gathered), at width 128 on MAgNet[GNN]
     1D's LR and LR ∪ HR training graphs, the bf16 entries at width 64 on
-    the same MAgNet[CNN] graphs, and #1 in f32 (the pe lane's d_pxj,
+    the same MAgNet[CNN] graphs and at width 128 on the same MAgNet[GNN]
+    graphs and on ``small_graphs``, and #1 in f32 (the pe lane's d_pxj,
     MAgNet[CNN] 1D's graph) and bf16 (the bf16 pre-gathered lane's sender
     gather, MAgNet[CNN] 2D's) on their padded sender CSRs."""
     from magnet_tpu_torch.config import MAGNET_CNN, MAGNET_CNN_2D, MAGNET_GNN
@@ -7127,8 +7278,13 @@ def spc_graph_kernel_cases(dev, data) -> dict:
         cases[f"{dtype} pregathered cnn_2d"] = ("pregathered", dtype, cnn2d,
                                                 (64, 64, 32))
     for role, part in gnn.items():
+        for dtype in ("f32", "bf16"):
+            for entry in ("fold", "pe", "pregathered"):
+                cases[f"{dtype} {entry} gnn_1d {role}"] = (entry, dtype, part,
+                                                           w128)
+    for label, graph in small_graphs().items():
         for entry in ("fold", "pe", "pregathered"):
-            cases[f"f32 {entry} gnn_1d {role}"] = (entry, "f32", part, w128)
+            cases[f"bf16 {entry} {label}"] = (entry, "bf16", graph, w128)
     out = {label: spc_graph_kernels(entry, dtype, graph, widths, l1, 7, dev)
            for label, (entry, dtype, graph, widths) in cases.items()}
     out["f32 segment_sum cnn_1d"] = spc_graph_segment("f32", cnn1d, 64, 8,
@@ -7219,20 +7375,37 @@ def spc_graph_phases(dev, data, groups) -> tuple[int, list, dict]:
         t_model = time.perf_counter()
         step = padded_step(spec, loaders["train"], dev)
         fits, trainers = {}, {}
-        runs = (("k1", 1),) + ((("k1_again", 1),) if repeat else ()) \
-            + ((f"k{SPC_K}", SPC_K),)
+        f32 = spec["f32_of"]
+        runs = (("k1", 1, False),) \
+            + ((("k1_again", 1, False),) if repeat else ()) \
+            + ((f"k{SPC_K}", SPC_K, False),) \
+            + (((f"k{SPC_K}_eager", SPC_K, True),) if f32 else ())
         with tempfile.TemporaryDirectory() as workdir:
-            for run, k in runs:
+            for run, k, eager in runs:
                 trainers[run], fits[run] = spc_fit(
                     name, hp, loaders, dev, k, os.path.join(workdir, run),
-                    profiled=k > 1, symbols=symbols, kind=spec["kind"],
-                    impl=spec["impl"])
+                    profiled=k > 1 and not eager, symbols=symbols,
+                    kind=spec["kind"], impl=spec["impl"], eager=eager)
         base, got = fits["k1"], fits[f"k{SPC_K}"]
         kk = trainers[f"k{SPC_K}"]
         want = np.array(base["step_losses"])
         rel = {run: (np.abs(np.array(fits[run]["step_losses"]) - want)
                      / np.abs(want)).tolist()
-               for run in fits if run != "k1"}
+               for run in fits if run not in ("k1", f"k{SPC_K}_eager")}
+        bounds = {f"k{SPC_K}": rtol, "k1_again": spec["repeat_rtol"]}
+        step_l2 = SPC_GRAPH_FIRST_STEP_L2[
+            "bf16" if hp.get("graph_dtype") == "bf16" else "float32"]
+        rel_eager = from_f32 = None
+        if f32:
+            # the captured chunks against the same steps run eagerly, and
+            # the one-step fit's distance from the f32 one, which the bound
+            # against it must stay below
+            twin = np.array(fits[f"k{SPC_K}_eager"]["step_losses"])
+            rel_eager = (np.abs(np.array(got["step_losses"]) - twin)
+                         / np.abs(twin)).tolist()
+            of = next(r for r in records if r["fit"] == f32)
+            from_f32 = float(np.max(np.abs(
+                want - np.array(of["step_losses"]["k1"])) / np.abs(want)))
         losses = np.array(got["step_losses"])
         loss_rel = max(rel[f"k{SPC_K}"])
         steps = got["steps"]
@@ -7259,7 +7432,11 @@ def spc_graph_phases(dev, data, groups) -> tuple[int, list, dict]:
               and traced == traced_want and all(traced.values())
               and base["steps"]["eager"] == n_steps
               and np.isfinite(losses).all()
-              and all(max(r) <= rtol for r in rel.values())
+              and all(max(r) <= bounds[run] for run, r in rel.items())
+              and (rel_eager is None or max(rel_eager) <= PAR_FIT_RTOL)
+              and (from_f32 is None or from_f32 > rtol)
+              and step["loss_bit_equal"]
+              and step["max_grad_rel_l2"] <= step_l2
               and kk.host_graph["padded"] > 0
               and trainers["k1"].host_graph["padded"] == 0)
         rec = {"fit": label, "model": name, "impl": spec["impl"],
@@ -7275,7 +7452,12 @@ def spc_graph_phases(dev, data, groups) -> tuple[int, list, dict]:
                "max_step_loss_rel_err": loss_rel,
                "max_step_loss_rel_err_k1_again": (max(rel["k1_again"])
                                                   if repeat else None),
-               "loss_rtol": rtol, "padded_first_step_vs_unpadded": step,
+               "loss_rtol": rtol, "repeat_loss_rtol": spec["repeat_rtol"],
+               "step_loss_rel_err_vs_eager_on_padded": rel_eager,
+               "eager_on_padded_rtol": PAR_FIT_RTOL,
+               "max_step_loss_rel_dist_k1_from_f32_k1": from_f32,
+               "padded_first_step_vs_unpadded": step,
+               "padded_first_step_grad_l2_bound": step_l2,
                "launches_per_step": per_step,
                "launches_counted": {run: f["launches_counted"]
                                     for run, f in fits.items()},
@@ -7320,9 +7502,12 @@ def spc_graph_phases(dev, data, groups) -> tuple[int, list, dict]:
               f"{tr[f'k{SPC_K}']['device_idle_share_traced']}, runtime "
               f"calls a step {tr['k1']['cuda_runtime_calls_per_step']} / "
               f"{tr[f'k{SPC_K}']['cuda_runtime_calls_per_step']}; losses "
-              f"{loss_rel} from k=1 (k=1 again "
-              f"{rec['max_step_loss_rel_err_k1_again']}, bound {rtol}; "
-              f"first step padded vs unpadded {step}); "
+              f"{loss_rel} from k=1, bound {rtol} (k=1 again "
+              f"{rec['max_step_loss_rel_err_k1_again']}, bound "
+              f"{spec['repeat_rtol']}; vs the same chunks eagerly on padded "
+              f"graphs {None if rel_eager is None else max(rel_eager)}, "
+              f"bound {PAR_FIT_RTOL}; k=1 from f32 k=1 {from_f32}; first "
+              f"step padded vs unpadded {step}, bound {step_l2}); "
               f"traced {traced} = counted + {per_step} x "
               f"{steps['replayed']} replays {traced_want}; host graph "
               f"{host} ({smi})", flush=True)
@@ -7402,11 +7587,11 @@ def make_data(groups) -> dict:
                      "source": "synthetic_burgers_2d"}
         nt, res = DATAMODULE_GRAPH_2D["nt_train"], DATAMODULE_GRAPH_2D["res_train"]
         jobs = {}
+        ks_spc = {"par", "par_dist", "par_spc", "spc", "spc_graph"}
         if {"cnn", "gnn", "no_interaction", "cnn_bf16", "gnn_bf16",
-                "cnn_pe", "gnn_pre", "par", "par_dist", "remat", "spc",
-                "spc_graph"} & groups:
+                "cnn_pe", "gnn_pre", "remat"} & groups or ks_spc & groups:
             jobs["ks"] = splits(ks_cfg)
-        if {"spc", "spc_graph"} & groups:
+        if ks_spc & groups:
             # the spc_graph fits' trajectories past the cnn group's 96
             jobs["ks_more"] = pool.submit(synthetic_split, {
                 **ks_cfg, "data_seed": 5,
@@ -7450,7 +7635,7 @@ def make_data(groups) -> dict:
                                              SPC_TRAJ // DATA_CHUNK)]
 
         if {"cnn", "no_interaction", "cnn_bf16", "cnn_pe", "par",
-                "par_dist"} & groups:
+                "par_dist", "par_spc"} & groups:
             data["heat"] = heat_batches(16, 16, nt=HEAT_TEST["nt"],
                                         nx=HEAT_TEST["nx"])
             data["ks_loaders"] = build_loaders(
@@ -7528,10 +7713,10 @@ def make_data(groups) -> dict:
                 {**DATAMODULE_1D, **e3, "train_path": nan}, seed=0,
                 shuffle_eval=False)
             data["spc_seconds"] = time.perf_counter() - t0
-        if {"spc", "spc_graph"} & groups:
+        if ks_spc & groups:
             # SPC_GRAPH_TRAJ KS trajectories for training (4 batches of 32),
             # the cnn group's 32 for validation, through the MAgNet[CNN] 1D
-            # and the MAgNet[GNN] 1D datamodules
+            # and the MAgNet[GNN] 1D datamodules (par_dist's dp fits too)
             ks = arrays(jobs["ks"])
             more = jobs["ks_more"].result()
             train = {k: np.concatenate([ks["train_path"][k], more[k]])
@@ -7541,6 +7726,7 @@ def make_data(groups) -> dict:
                 data[f"spc_graph_{name}_loaders"] = build_loaders(
                     {**dm, **SMOKE_DATA, "source": "h5", **ks,
                      "train_path": train}, seed=0)
+        if {"spc", "spc_graph"} & groups:
             # MAgNet[CNN] 2D and MAgNet[GNN] 2D: the cnn2d group's 24
             # Burgers-2D trajectories and the gnn2d group's 32 irregular
             # ones, each repeated to SPC_GRAPH_TRAJ (their datasets draw
@@ -7622,7 +7808,8 @@ def main(argv) -> int:
                                 (("gnn_bf16",), gnn_bf16_phases),
                                 (("cnn_pe",), cnn_pe_phases),
                                 (("gnn_pre",), gnn_pre_phases),
-                                (("par", "par_dist"), par_phases),
+                                (("par", "par_dist", "par_spc"),
+                                 par_phases),
                                 (("tune",), tune_phases),
                                 (("remat",), remat_phases),
                                 (("spc",), spc_phases),

@@ -147,6 +147,21 @@
 // chip_smoke.py's gnn_bf16_kernel phase, which prints ptxas's lines;
 // PERF.md keeps them.
 //
+// The edges are the first rowptr[N] <= E rows, read on the card
+// (tile128::live_edges), as in the f32 sources and the width-64 bf16 one: a
+// graph padded to a fixed E for a captured training step (ops/graph.py
+// pad_edges) has dead rows past rowptr[N].  E sets the grids and the
+// scratch; the forward splits the live tiles over the blocks a launch would
+// take for them alone, and the backward the live tiles over the clusters an
+// unpadded launch would run, so every block's (every cluster's) tiles, its
+// partial row and the fixed-order sums of the partial rows are those of the
+// launch without the padding.  A forward block past that split exits whole
+// once its copies have landed; a cluster past it exits with all its CTAs
+// together before their first cluster barrier.  The backward writes zeros
+// into d_src's dead rows (and the pe entry's dz's).  So a padded launch
+// computes, bit for bit, what the launch without the padding does (the f32
+// node gradients up to the order of their atomics).
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (magnet_tpu_torch/ops/cuda_build.py does this).
 
@@ -395,12 +410,40 @@ cudaError_t residency(Kernel kernel, size_t smem,
   return cudaSuccess;
 }
 
-// wgrad[p] = sum over blocks, in block order, of partial[b][p].
+// The blocks (or clusters) a launch over n_edges live edges splits them
+// over: their tiles, or `cap` where there are more; block b walks tiles
+// [b T / B, (b + 1) T / B).
+__host__ __device__ __forceinline__ int split_blocks(int n_edges, int cap) {
+  const int n_tiles = (n_edges + kTE - 1) / kTE;
+  return n_tiles < cap ? n_tiles : cap;
+}
+
+// Rows [live, n_rows) of an array of RB-byte rows set to zero, 16 bytes a
+// store, by every thread of the grid: a padded graph's dead rows get no
+// gradient.
+template <int RB>
+__device__ __forceinline__ void zero_dead_rows(void* rows, int live,
+                                               int n_rows) {
+  static_assert(RB % 16 == 0, "16-byte stores");
+  const size_t n = (size_t)(n_rows - live) * (RB / 16);
+  uint4* dst = reinterpret_cast<uint4*>(static_cast<unsigned char*>(rows) +
+                                        (size_t)live * RB);
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x)
+    dst[i] = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// wgrad[p] = sum over the clusters that hold a partial row (split_blocks of
+// the live edges), in cluster order, of partial[c][p].
 __global__ void reduce_partials_kernel(const float* __restrict__ partial,
                                        float* __restrict__ wgrad,
-                                       int n_blocks, int total) {
+                                       const int* __restrict__ rowptr,
+                                       int n_nodes, int n_rows, int cap,
+                                       int total) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= total) return;
+  const int n_blocks =
+      split_blocks(tile128::live_edges(rowptr, n_nodes, n_rows), cap);
   float s = 0.f;
   for (int b = 0; b < n_blocks; ++b) s += partial[(size_t)b * total + p];
   wgrad[p] = s;
@@ -587,9 +630,13 @@ wgmma_fwd_kernel(const bf16* __restrict__ src, const bf16* __restrict__ we,
                  const bf16* __restrict__ b_out,
                  const float* __restrict__ ln_s,
                  const float* __restrict__ ln_b, float* __restrict__ out,
-                 float* __restrict__ part, int n_nodes, int n_edges, int l1) {
+                 float* __restrict__ part, int n_nodes, int n_rows, int l1,
+                 int cap) {
   using L = Layout<E>;
   constexpr bool FOLD = E == kFold, GATHERS = E != kPregathered;
+  // the live edges, the load issued now and read after the weights' copies
+  // are issued; the rows past them (a padded graph's) are not read
+  const int n_edges = tile128::live_edges(rowptr, n_nodes, n_rows);
   extern __shared__ __align__(16) unsigned char bf16w_fwd_smem[];
   unsigned char* sm = bf16w_fwd_smem + ((1024 - (wg::smem_addr(bf16w_fwd_smem)
                                                  & 1023)) & 1023);
@@ -615,11 +662,18 @@ wgmma_fwd_kernel(const bf16* __restrict__ src, const bf16* __restrict__ we,
   stage_w128<kThreads>(s_wo, kW, kW, tid, w_out, weight_rows(w_out));
   cp_async_commit();
 
-  // the block's tiles [b0, b1), balanced over the grid; warpgroup 0 walks
-  // the first half (rounded up), warpgroup 1 the rest
+  // the block's tiles [b0, b1) of the live edges, balanced over the blocks
+  // the launch takes for them alone (split_blocks); a block past those
+  // exits whole once its copies (the resident weights) have landed;
+  // warpgroup 0 walks the first half (rounded up), warpgroup 1 the rest
   const int n_tiles = (n_edges + kTE - 1) / kTE;
-  const int b0 = (int)((long long)blockIdx.x * n_tiles / gridDim.x);
-  const int b1 = (int)((long long)(blockIdx.x + 1) * n_tiles / gridDim.x);
+  const int n_split = split_blocks(n_edges, cap);
+  if ((int)blockIdx.x >= n_split) {
+    cp_async_wait<0>();
+    return;
+  }
+  const int b0 = (int)((long long)blockIdx.x * n_tiles / n_split);
+  const int b1 = (int)((long long)(blockIdx.x + 1) * n_tiles / n_split);
   const int mid = b0 + (b1 - b0 + 1) / 2;
   const int t_beg = grp == 0 ? b0 : mid, t_end = grp == 0 ? mid : b1;
 
@@ -815,44 +869,57 @@ wgmma_fwd_kernel(const bf16* __restrict__ src, const bf16* __restrict__ we,
 // kernels the last call launched (its own count, for the checks)
 std::atomic<int> last_launches{0};
 
-// The blocks a call of n_edges takes (min(tiles, SMs x the blocks an SM
-// holds)) into *blocks.
+// The blocks the card holds at once of the kernel (SMs x the blocks an SM
+// holds) into *cap, the shared-memory opt-in with the first call; one for
+// every l1.
 template <Entry E>
-cudaError_t grid(int n_edges, int* blocks) {
+cudaError_t fwd_cap(int* cap) {
   static std::atomic<int> cache[kMaxDevices];
   int per_sm = 0, n_sm = 0;
   const cudaError_t err =
       residency(wgmma_fwd_kernel<E>, (size_t)Layout<E>::bytes(kMaxL1), cache,
                 &per_sm, &n_sm);
+  *cap = per_sm * n_sm;
+  return err;
+}
+
+// The blocks a call of n_edges rows takes (min(tiles, the blocks the card
+// holds at once)) into *blocks.
+template <Entry E>
+cudaError_t grid(int n_edges, int* blocks) {
+  int cap = 0;
+  const cudaError_t err = fwd_cap<E>(&cap);
   if (err != cudaSuccess) return err;
-  const int n_tiles = (n_edges + kTE - 1) / kTE;
-  *blocks = n_tiles < per_sm * n_sm ? n_tiles : per_sm * n_sm;
+  *blocks = split_blocks(n_edges, cap);
   return cudaSuccess;
 }
 
-// The kernel, block b over tiles [b T / B, (b + 1) T / B), then the sum of
-// the partial rows of the receivers that cross a tile: two launches (one
-// for a single tile).
+// The kernel, block b over tiles [b T / B, (b + 1) T / B) of the live
+// edges, on a grid sized for all n_rows rows (so it holds their split
+// whatever their count), then the sum of the partial rows of the receivers
+// that cross a tile (its blocks at or past the live edges exit): two
+// launches (one for a single tile).
 template <Entry E>
 int launch(const bf16* src, const bf16* we, const bf16* be, const bf16* pxj,
            const bf16* pxi, const int* senders, const int* rowptr,
            const bf16* w_rest, const bf16* b_rest, const bf16* w_out,
            const bf16* b_out, const float* ln_s, const float* ln_b, float* out,
-           float* part, int n_nodes, int n_edges, int l1,
+           float* part, int n_nodes, int n_rows, int l1,
            cudaStream_t stream) {
-  int blocks = 0, launches = 0;
-  cudaError_t err = grid<E>(n_edges, &blocks);
+  int cap = 0, launches = 0;
+  cudaError_t err = fwd_cap<E>(&cap);
   if (err != cudaSuccess) return (int)err;
-  if (n_nodes > 0 && n_edges > 0) {
-    const int n_tiles = (n_edges + kTE - 1) / kTE;
-    wgmma_fwd_kernel<E><<<blocks, kThreads, Layout<E>::bytes(l1), stream>>>(
+  if (n_nodes > 0 && n_rows > 0) {
+    const int n_tiles = (n_rows + kTE - 1) / kTE;
+    wgmma_fwd_kernel<E><<<split_blocks(n_rows, cap), kThreads,
+                          Layout<E>::bytes(l1), stream>>>(
         src, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest, w_out, b_out,
-        ln_s, ln_b, out, part, n_nodes, n_edges, l1);
+        ln_s, ln_b, out, part, n_nodes, n_rows, l1, cap);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     ++launches;
     if (n_tiles > 1) {
       csr_tile::cross_tile_sum_kernel<kTE, kW><<<n_tiles - 1, kW, 0, stream>>>(
-          rowptr, part, out, n_nodes, n_edges);
+          rowptr, part, out, n_nodes, n_rows);
       ++launches;
     }
   }
@@ -975,7 +1042,10 @@ struct Args {
   float* d_pxi;        // (N, kW), added into
   float* partial;      // a row of `total` floats a cluster
   int total;
-  int n_nodes, n_edges, l1;
+  int n_nodes;
+  int n_rows;          // E, the edge rows: the live edges and a dead tail
+  int l1;
+  int cap;             // the clusters a launch of many tiles runs
 };
 
 // The backward of one call as a pipeline over a cluster of n CTAs, one a
@@ -989,7 +1059,10 @@ struct Args {
 //     1 sent in the step before: dW += x^T . d on the x of its ring, and da
 //     = (d . W^T) masked by x > 0, sent back into CTA p - 1's gradient
 //     tiles;
-// then all n meet at one cluster barrier.  A tile's x waits in the ring of
+// then all n meet at one cluster barrier.  The clusters split the live
+// edges' tiles as an unpadded launch would (split_blocks over a.cap); a
+// cluster past that split exits, every CTA of it together, before its first
+// barrier.  A tile's x waits in the ring of
 // CTA p from its forward to its backward, 2 (n - p) slots (the first CTA's
 // 2 n, counting the tile its rows are staged for); the first CTA also forms
 // h_0 (pe, pregathered) or re-reads e0 (fold), writes d_src (and the pe's
@@ -1013,6 +1086,9 @@ __global__ void __launch_bounds__(kThreads, 1) cluster_bwd_kernel(Args a) {
   float* s_stat = reinterpret_cast<float*>(sm + L::stat);
   float* s_y = reinterpret_cast<float*>(sm + L::y);
   const int tid = threadIdx.x, warp = tid >> 5;
+  // the live edges, the load issued now and read after the weight's copies
+  // are issued; the rows past them (a padded graph's) are not read
+  const int n_edges = tile128::live_edges(a.rowptr, a.n_nodes, a.n_rows);
 
   const int n = (FOLD ? 1 : 0) + a.l1 + 1;  // CTAs a cluster, weights
   const int p = cluster_rank();
@@ -1023,12 +1099,30 @@ __global__ void __launch_bounds__(kThreads, 1) cluster_bwd_kernel(Args a) {
   const bf16* bias = FOLD && first ? a.be
                      : out         ? a.b_out
                                    : a.b_rest + (size_t)(p - FOLD) * kW;
+  // the weight, by cp.async (committed with tile 0's rows below)
+  for (int q = tid; q < kW * kW / 8; q += kThreads) {
+    const int r = q >> 4, col = (q & 15) * 8;
+    cp_async16(s_w + r * kLd + col, w + r * kW + col, true);
+  }
+  // the dead rows' d_src (and the pe's dz32) zero, every CTA a share; the
+  // cluster's tiles [t_beg, t_beg + cnt) of the live edges, balanced over
+  // the clusters the launch takes for them alone (split_blocks): a cluster
+  // past those holds no tile and writes no partial row, and all its CTAs
+  // exit here, before their first cluster barrier, once their copies have
+  // landed
+  zero_dead_rows<kW * 2>(a.d_src, n_edges, a.n_rows);
+  if constexpr (E == kPe) zero_dead_rows<kW * 4>(a.dz32, n_edges, a.n_rows);
+  const int n_tiles = (n_edges + kTE - 1) / kTE;
+  const int c = blockIdx.x / n, nc = split_blocks(n_edges, a.cap);
+  if (c >= nc) {
+    cp_async_commit();  // the weight's copies, a group of their own here
+    cp_async_wait<0>();
+    return;
+  }
   const int depth = first ? 2 * n : 2 * (n - p);  // this CTA's ring
   const int depth_next = 2 * (n - p - 1);         // CTA p + 1's
   const int lag = 2 * n - 2;  // steps from a tile's forward on CTA 0 to its
                               // backward there
-  const int n_tiles = (a.n_edges + kTE - 1) / kTE;
-  const int c = blockIdx.x / n, nc = gridDim.x / n;
   const int t_beg = (int)((long long)c * n_tiles / nc);
   const int cnt = (int)((long long)(c + 1) * n_tiles / nc) - t_beg;
   const int n_steps = cnt > 0 ? cnt + lag : 0;
@@ -1048,7 +1142,7 @@ __global__ void __launch_bounds__(kThreads, 1) cluster_bwd_kernel(Args a) {
   auto rcv_of = [&](int t) { return s_idx + (t % kIdxRing) * 2 * kTE; };
   auto snd_of = [&](int t) { return rcv_of(t) + kTE; };
   auto valid_rows = [&](int t) {
-    return min(kTE, a.n_edges - (t_beg + t) * kTE);
+    return min(kTE, n_edges - (t_beg + t) * kTE);
   };
   // tile t's rows of src into dst by cp.async, zeros past the edge count
   auto stage = [&](bf16* dst, int t) {
@@ -1093,7 +1187,7 @@ __global__ void __launch_bounds__(kThreads, 1) cluster_bwd_kernel(Args a) {
   };
   // warp w < 2's edges of tile t: the first and their count
   auto warp_base = [&](int t) { return (t_beg + t) * kTE + 32 * warp; };
-  auto warp_valid = [&](int t) { return min(32, a.n_edges - warp_base(t)); };
+  auto warp_valid = [&](int t) { return min(32, n_edges - warp_base(t)); };
   // d_pxi[r] += d over each run of equal receivers in each half of the
   // tile (one atomicAdd a run and column), fold also d_pxj[s] += d (one an
   // element): d is bf16(dz) of tile t
@@ -1119,21 +1213,17 @@ __global__ void __launch_bounds__(kThreads, 1) cluster_bwd_kernel(Args a) {
     atomicAdd(a.d_pxi + (size_t)at * kW + col, sum);
   };
 
-  // the weight; the indices of tiles 0 and 1 (tile 0's searched afresh)
-  // and tile 0's rows
-  for (int q = tid; q < kW * kW / 8; q += kThreads) {
-    const int r = q >> 4, col = (q & 15) * 8;
-    cp_async16(s_w + r * kLd + col, w + r * kW + col, true);
-  }
+  // the indices of tiles 0 and 1 (tile 0's searched afresh) and tile 0's
+  // rows
   const bool indexer = (first || out) && warp < 2;
   if (n_steps > 0 && indexer)
     tile128::tile_indices<kTE, GATHERS>(rcv_of(0), snd_of(0), a.senders,
-                                        a.rowptr, a.n_nodes, a.n_edges, t_beg,
+                                        a.rowptr, a.n_nodes, n_edges, t_beg,
                                         -1);
   __syncthreads();
   if (cnt > 1 && indexer)
     tile128::tile_indices<kTE, GATHERS>(rcv_of(1), snd_of(1), a.senders,
-                                        a.rowptr, a.n_nodes, a.n_edges,
+                                        a.rowptr, a.n_nodes, n_edges,
                                         t_beg + 1, rcv_of(0)[kTE - 1]);
   if (n_steps > 0) {
     stage_forward(0);
@@ -1487,10 +1577,12 @@ __host__ __device__ constexpr int packed_floats(int n) {
 }
 
 // The backward as two launches: the cluster pipeline (one cluster of n
-// CTAs per range of consecutive tiles, as many clusters as the card holds
-// at once, at most one a tile and n_sm / n in all), then the clusters'
-// partial rows added in cluster order, so that the weight and bias
-// gradients are the same from run to run.
+// CTAs per range of consecutive tiles of the live edges, as many clusters as
+// the card holds at once, at most one a tile and n_sm / n in all: the cap,
+// the grid sized for all n_rows rows so that it holds the live edges' split
+// whatever their count), then the live clusters' partial rows added in
+// cluster order, so that the weight and bias gradients are the same from
+// run to run.
 // the kernels the last call of launch() launched
 std::atomic<int> last_launches{0};
 
@@ -1499,14 +1591,14 @@ int launch(Args a, float* wgrad, int n_sm, cudaStream_t stream) {
   const int n = (E == kFold ? 1 : 0) + a.l1 + 1;
   int launches = 0;
   a.total = packed_floats(n);
-  if (a.n_nodes == 0) a.n_edges = 0;
-  const int n_tiles = (a.n_edges + kTE - 1) / kTE;
-  int nc = 0;
+  if (a.n_nodes == 0) a.n_rows = 0;
   cudaError_t err = cudaSuccess;
-  if (n_tiles > 0) {
-    if ((err = max_clusters<E>(n, &nc)) != cudaSuccess) return (int)err;
-    if (nc > n_tiles) nc = n_tiles;
-    if (nc > n_sm / n) nc = n_sm / n > 1 ? n_sm / n : 1;
+  if (a.n_rows > 0) {
+    int cap = 0;
+    if ((err = max_clusters<E>(n, &cap)) != cudaSuccess) return (int)err;
+    const int per_sms = n_sm / n > 1 ? n_sm / n : 1;
+    a.cap = cap < per_sms ? cap : per_sms;
+    const int nc = split_blocks(a.n_rows, a.cap);
     cudaLaunchConfig_t cfg = {};
     cudaLaunchAttribute attr[1];
     attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -1526,7 +1618,7 @@ int launch(Args a, float* wgrad, int n_sm, cudaStream_t stream) {
     ++launches;
   }
   reduce_partials_kernel<<<(a.total + 255) / 256, 256, 0, stream>>>(
-      a.partial, wgrad, nc, a.total);
+      a.partial, wgrad, a.rowptr, a.n_nodes, a.n_rows, a.cap, a.total);
   last_launches.store(++launches, std::memory_order_relaxed);
   return (int)cudaGetLastError();
 }
@@ -1544,7 +1636,10 @@ extern "C" {
 // senders are ignored.  src, pxj and pxi (n_nodes, 128) are 16-byte aligned
 // bf16; we, be, w_rest, b_rest, w_out, b_out bf16; ln_s, ln_b f32; out
 // (n_nodes, 128) f32 must arrive zeroed; part is f32 scratch of 2 *
-// ceil(n_edges / 64) rows of 128.  Built for l1 in 0..3; others return
+// ceil(n_edges / 64) rows of 128.  The edges are the first
+// rowptr[n_nodes] <= n_edges rows, read on the card: the rows after them (a
+// padded graph's) are not read, and the backward writes zeros into their
+// gradient rows.  Built for l1 in 0..3; others return
 // cudaErrorInvalidValue.
 int fused_edge_tail_agg_bf16_w128_fwd(
     const bf16* src, const bf16* we, const bf16* be, const bf16* pxj,
@@ -1610,7 +1705,7 @@ int fused_edge_tail_agg_bf16_w128_bwd(
   a.d_pxi = d_pxi;
   a.partial = partial;
   a.n_nodes = n_nodes;
-  a.n_edges = n_edges;
+  a.n_rows = n_edges;
   a.l1 = l1;
   if (entry == kPregathered)
     return bwd::launch<kPregathered>(a, wgrad, n_sm, s);

@@ -92,8 +92,8 @@ class PaddedGraphMixin:
     from padded ones (``with_graph_parts``); ``graph_lanes`` says which
     lanes, in which dtype and at which width, its processors take on them
     (the trainer pads a chunk's graphs where every one of those kernels
-    reads a padded graph's end on the card: the f32 fold, pe and
-    pre-gathered entries at either width, the bf16 ones at width 64)."""
+    reads a padded graph's end on the card: the fold, pe and pre-gathered
+    entries, in f32 and bf16 at either width)."""
 
     def graph_parts(self, graph) -> dict:
         """The model's graph's ``CSRGraph``s by role."""

@@ -403,27 +403,18 @@ def _tail_shapes(w_rest, w_out, h):
                        b_out=(c,), ln_s=(c,), ln_b=(c,))
 
 
-def _check_rows(src, rowptr, E, padded: bool = True):
+def _check_rows(src, rowptr, E):
     """The CSR's edges fit the E rows: rowptr[-1] <= E, the rows past it
-    the dead tail of a padded graph (``ops.graph.pad_edges``); ``padded``
-    False (a build that does not ``reads_live_edges``): rowptr[-1] == E.
-    On the card this would cost a read from the device per launch: there
-    the kernels clamp every edge range to the E rows they were given."""
+    the dead tail of a padded graph (``ops.graph.pad_edges``), which every
+    build reads on the card as its live edge count.  On the card this
+    would cost a read from the device per launch: there the kernels clamp
+    every edge range to the E rows they were given."""
     if src.device.type != "cpu":
         return
     end = int(rowptr[-1])
-    if end > E or (end != E and not padded):
+    if end > E:
         raise ValueError(f"rowptr ends at {end}, but there are {E} edge "
                          f"rows")
-
-
-def reads_live_edges(dtype, h: int) -> bool:
-    """Whether the builds of ``dtype`` (torch.float32 or torch.bfloat16) at
-    width ``h`` read the live edge count rowptr[-1] on the card, and so
-    take a padded graph (``ops.graph.pad_edges``): every f32 build and the
-    width-64 bf16 builds; not the width-128 bf16 ones, which take the
-    host's E as the edge count."""
-    return dtype == torch.float32 or h != 128
 
 
 def _check(e0, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest, w_out,
@@ -441,7 +432,7 @@ def _check(e0, we, be, pxj, pxi, senders, rowptr, w_rest, b_rest, w_out,
         dict(we=(ce, h), be=(h,), pxj=(n, h), pxi=(n, h), senders=(E,),
              **tail),
         {name: dtype for name in GRAD_NAMES if name not in GRAD_F32_BF16})
-    _check_rows(e0, rowptr, E, padded=reads_live_edges(dtype, h))
+    _check_rows(e0, rowptr, E)
     return E, (ce, h, c), l1, n
 
 
@@ -460,7 +451,7 @@ def _check_pregathered(h0, pxi, rowptr, w_rest, b_rest, w_out, b_out, ln_s,
         dict(rowptr=rowptr), dict(pxi=(n, h), **tail),
         {name: dtype for name in GRAD_NAMES_PREGATHERED
          if name not in GRAD_F32_BF16})
-    _check_rows(h0, rowptr, E, padded=reads_live_edges(dtype, h))
+    _check_rows(h0, rowptr, E)
     return E, (h, c), l1, n
 
 
@@ -483,7 +474,7 @@ def _check_pe(pe, pxj, pxi, senders, rowptr, snd_ptr, snd_perm, w_rest,
         dict(pe=pe, pxj=pxj, pxi=pxi, w_rest=w_rest, b_rest=b_rest,
              w_out=w_out, b_out=b_out, ln_s=ln_s, ln_b=ln_b), ints, want,
         {name: dtype for name in GRAD_NAMES_PE if name not in GRAD_F32_BF16})
-    _check_rows(pe, rowptr, E, padded=reads_live_edges(dtype, h))
+    _check_rows(pe, rowptr, E)
     return E, (h, c), l1, n
 
 

@@ -71,10 +71,10 @@ class CSRGraph:
 
     ``n_edge`` is the edge rows; a graph padded by ``pad_edges`` has dead
     rows past rowptr[-1], its live edges, which the fold, pe and
-    pre-gathered kernels in f32 at either width and in bf16 at width 64,
-    their plain versions and the segment sum over the sender CSR take (the
-    trainer pads a chunk's graphs where its steps run those kernels alone:
-    ``train.trainer.takes_padding``).
+    pre-gathered kernels in every dtype and at every width, their plain
+    versions and the segment sum over the sender CSR take (the trainer
+    pads a chunk's graphs where its steps run those kernels alone:
+    ``train.trainer.PADDED_LANES``).
     """
 
     senders: torch.Tensor

@@ -142,9 +142,11 @@ def loss_rank(rank: int, world: int, cases: list) -> list:
 def fit_rank(rank: int, world: int, spec: dict) -> dict:
     """``Trainer.fit`` of ``spec["model"]`` (weights ``state``) on
     ``spec["loaders"]`` over a mesh of dp = ``spec["dp"]`` x graph =
-    ``world / dp`` ranks (``halo``), ``max_epochs`` epochs, in
-    ``workdir`` (rank 0 writes there).  Returns the final weights and the
-    last step's reduced gradients (numpy), and whether this rank wrote."""
+    ``world / dp`` ranks (``halo``), ``max_epochs`` epochs with
+    ``steps_per_call`` steps a call (default 1), in ``workdir`` (rank 0
+    writes there).  Returns the final weights and the last step's reduced
+    gradients (numpy), whether this rank wrote, and its trainer's
+    ``step_counts`` (eager, captured, replayed)."""
     from magnet_tpu_torch.parallel.mesh import make_mesh
     from magnet_tpu_torch.train.trainer import Trainer
 
@@ -155,10 +157,12 @@ def fit_rank(rank: int, world: int, spec: dict) -> dict:
     trainer = Trainer(model, max_epochs=spec["max_epochs"],
                       lr=spec.get("lr", 1e-3), workdir=spec["workdir"],
                       device=device, mesh=mesh, graph_shards=mesh.graph,
-                      graph_halo=spec.get("halo", False))
+                      graph_halo=spec.get("halo", False),
+                      steps_per_call=spec.get("steps_per_call", 1))
     trainer.fit(spec["loaders"]["train"], spec["loaders"].get("val"))
     return {"state": {k: v.cpu().numpy()
                       for k, v in model.state_dict().items()},
             "grads": {k: p.grad.cpu().numpy()
                       for k, p in model.named_parameters()},
-            "metrics_written": trainer.writer}
+            "metrics_written": trainer.writer,
+            "step_counts": dict(trainer.step_counts)}

@@ -3,7 +3,8 @@ turns on one card: #9 at width 64 and 128 (the fold entry) and #3 (the
 pre-gathered entry); or, with ``dtype=bf16``, the bf16 builds of #9 (both
 widths), #7, #3 and #1 (the segment sum) against their f32 builds.
 
-  python -m magnet_tpu_torch.time_bwd [baseline=DIR] [dtype=bf16] [width=64]
+  python -m magnet_tpu_torch.time_bwd [baseline=DIR] [dtype=bf16] \
+      [width=64|128]
 
 On the card only.  Builds ``csrc/fused_edge_tail_agg_bwd.cu`` of this
 checkout and, with ``baseline=DIR``, of the ``csrc/`` directory DIR of
@@ -35,15 +36,17 @@ against its plain version by relative L2 per gradient.  With
 ``baseline=DIR dtype=bf16``: the width-64 bf16 backward (#9 and #7 at
 the MAgNet[CNN] 1D training batch, #3 at the 2D training graphs; d_src,
 dz and the weight gradients held bit for bit against DIR's; then
-MAgNet[CNN] 1D and 2D bf16 steps) of DIR against this checkout's in turns,
-then (unless ``width=64``) the width-128 bf16 backward
-(``csrc/fused_edge_tail_agg_bf16_w128.cu``, #9 fold, #7 pe without its
-segment sum, #3 pre-gathered) of DIR against this checkout's, through
-their C entries with the same arguments, in turns (baseline, this, this,
-baseline), at MAgNet[GNN]'s 1D training graph, a 2D training graph of the
-published 512-node irregular configuration and the 1D eval graph, each
-build against the plain version (relative L2 per gradient), with the
-plain version's time and the bf16 bound; then MAgNet[GNN] 1D bf16
+MAgNet[CNN] 1D and 2D bf16 steps) of DIR against this checkout's in turns
+(skipped with ``width=128``), then (unless ``width=64``) the width-128
+bf16 backward (``csrc/fused_edge_tail_agg_bf16_w128.cu``, #9 fold, #7 pe
+without its segment sum, #3 pre-gathered) of DIR against this checkout's,
+through their C entries with the same arguments, in turns (baseline, this,
+this, baseline), at MAgNet[GNN]'s 1D training graph, a 2D training graph
+of the published 512-node irregular configuration and the 1D eval graph,
+each build against the plain version (relative L2 per gradient), with the
+plain version's time and the bf16 bound, and this build's d_src, packed
+gradients and (pe) dz against the baseline's bit for bit (d_pxi adds with
+atomics); then MAgNet[GNN] 1D bf16
 training steps (``Trainer.train_step`` on one batch of 32 KS trajectories
 from the datamodule's synthetic source) on the fold, pe and pre-gathered
 lanes, the backward through DIR's build and this one's in the same turns.
@@ -294,7 +297,8 @@ def main(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
     if args.get("dtype") == "bf16" and "baseline" in args:
-        main_bf16_w64_baseline(Path(args["baseline"]), dev)
+        if args.get("width") != "128":
+            main_bf16_w64_baseline(Path(args["baseline"]), dev)
         if args.get("width") == "64":
             return 0
         return main_bf16_w128_baseline(Path(args["baseline"]), dev)
@@ -518,8 +522,8 @@ def runner_bf16_w128_bwd(fn, entry, ops, g):
     on ``ops`` (``to_bf16``) and g as a wrapper does, with partial rows and
     scratch planes enough for the launch sequence of per-layer planes too
     (``fe.bwd_scratch_planes``; the cluster pipeline reads no scratch), and
-    returns (d_src, d_pxi, the packed weight and bias gradients), all in
-    f32."""
+    returns (d_src, d_pxi, the packed weight and bias gradients and, pe,
+    the unrounded dz), all in f32."""
     src, we, be, pxj, pxi, senders, rowptr, *tail = ops
     n, e, l1, h = rowptr.numel() - 1, src.shape[0], tail[0].shape[0], 128
     fold, pe = entry == "fold", entry == "pe"
@@ -547,7 +551,8 @@ def runner_bf16_w128_bwd(fn, entry, ops, g):
                  torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"launch failed: cudaError {err}")
-        return d_src.float(), d_nodes[-1].clone(), wgrad.clone()
+        out = (d_src.float(), d_nodes[-1].clone(), wgrad.clone())
+        return out + (dz.clone(),) if pe else out
     return run
 
 
@@ -576,7 +581,8 @@ def main_bf16_w128_baseline(baseline: Path, dev) -> int:
     """The width-128 bf16 backward of the tree at ``baseline`` (its
     ``csrc/``) against this checkout's, in turns, fold, pe and
     pre-gathered, at the GNN 1D and 2D training graphs and the 1D eval
-    graph."""
+    graph; this build's d_src, packed gradients and (pe) dz against the
+    baseline's bit for bit, each build's first call against its last."""
     fns = {"baseline": cuda_build.build(fe.BF16_W128, csrc=baseline),
            "this": cuda_build.build(fe.BF16_W128)}
     for k, lib in fns.items():
@@ -596,6 +602,14 @@ def main_bf16_w128_baseline(baseline: Path, dev) -> int:
             runs = {k: runner_bf16_w128_bwd(fn, entry, ops, g)
                     for k, fn in fns.items()}
             want = plain_bf16_w128(entry, ops, g)
+            # each build twice, in turns: d_src, the packed gradients and
+            # (pe) dz, all but d_pxi (atomics)
+            calls = {k: [] for k in runs}
+            for k in ("baseline", "this", "this", "baseline"):
+                got = runs[k]()
+                calls[k].append([t for i, t in enumerate(got) if i != 1])
+            exact = ("d_src", "packed_weights_biases") + (
+                ("dz",) if entry == "pe" else ())
             err = {}
             for k, run in runs.items():
                 err[k] = {name: float((a - b).double().norm()
@@ -614,8 +628,18 @@ def main_bf16_w128_baseline(baseline: Path, dev) -> int:
                 "plain_ms": cuda_ms(lambda: plain_bf16_w128(entry, ops, g)),
                 **bf16_w128_bwd_bound(entry, graph, w, l1),
                 "vs_plain_rel_l2": err,
+                "bit_equal_run_to_run": {
+                    k: all(torch.equal(a, b) for a, b in zip(*c))
+                    for k, c in calls.items()},
+                "bit_equal_to_baseline": {
+                    name: {"equal": bool(torch.equal(a, b)),
+                           "n_differing": int((a != b).sum()),
+                           "max_abs_diff": float((a.double() - b.double())
+                                                 .abs().max())}
+                    for name, a, b in zip(exact, calls["this"][-1],
+                                          calls["baseline"][-1])},
                 "device": torch.cuda.get_device_name(0)}), flush=True)
-            del ops, runs, want
+            del ops, runs, want, calls
     train_steps_in_turns(fns["baseline"], dev)
     return 0
 

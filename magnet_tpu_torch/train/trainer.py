@@ -22,7 +22,7 @@ single-process format, so a run saved on any mesh resumes on any other.
 ``steps_per_call`` = k (JAX ``trainer.py:98-114, 186-193, 256-327,
 388-401``, a ``lax.scan`` over k stacked batches and graphs a jit call)
 buffers k (batch, graph) pairs an epoch, the graphs built on the host from
-the host batches.  On one CUDA device, a full chunk whose batches share
+the host batches.  On CUDA devices, a full chunk whose batches share
 shapes runs as replays of a CUDA graph of one training step when its pairs
 share one graph object (the JAX ``train_scan_shared`` condition: the
 models' graph caches return one object a coordinate set), or when its
@@ -31,9 +31,9 @@ stacked graphs, which share a static shape because the JAX host builder
 pads edges to sticky buckets): a model with ``graph_parts``
 (``models.common.PaddedGraphMixin``: MAgNet[CNN] 1D and 2D, MAgNet[GNN]
 1D and 2D) whose processors take, on the chunk's graphs, lanes whose
-kernels read the live edge count on the card (``takes_padding``: the
-fold, pe and pre-gathered entries in f32 at either width and in bf16 at
-width 64) gets them padded to the trainer's edge buckets
+kernels read the live edge count on the card (``PADDED_LANES``: the
+fold, pe and pre-gathered entries, in f32 and bf16 at either width) gets
+them padded to the trainer's edge buckets
 (``ops.graph.EdgeBuckets``: one a graph role, the most edges seen in the
 fit rounded up to 1,024, never shrinking), past the end of their CSR, so
 a padded graph computes what it would unpadded.  A step is
@@ -46,14 +46,18 @@ and followed by a copy of its metrics, with no read from the device
 between them.  The step reads nothing back (``train.optim``: the optimizer
 decides on the device), so a replay is the eager step, and the trajectory,
 the draws of a model's own generator (registered with the graph) and the
-checkpoints are the same whatever k.  Any other chunk (short, on the CPU,
-over a mesh of ranks, of graphs that differ on the plain versions or the
-width-128 bf16 lanes or in another signature, or of a model without
-``graph_parts``) runs its steps one by one on its unpadded graphs, as the
-JAX package runs a chunk it cannot scan, and says why once a fit, naming
-the lane, its dtype and its width where those are the reason.  With
-``graph_shards`` > 1, k falls back to 1, with the JAX trainer's
-warning.  ``host_graph`` counts the host's
+checkpoints are the same whatever k.  Over a mesh of dp ranks (the JAX
+trainer's ``_put_stacked`` on ``P(None, "dp")``) each rank decides alone
+and the gradients' all-reduce is captured with the step: an eager step
+runs one, the warm-up step before a capture one, the capture none and a
+replay one, so every rank runs one all-reduce a training step, in step
+order, whatever the others decided.  Any other chunk (short, on the CPU,
+of graphs that differ on the plain versions or in another signature, or
+of a model without ``graph_parts``) runs its steps one by one on its
+unpadded graphs, as the JAX package runs a chunk it cannot scan, and says
+why once a fit, naming the lane, its dtype and its width where the lane
+is the reason.  With ``graph_shards`` > 1, k falls back to 1, with the
+JAX trainer's warning.  ``host_graph`` counts the host's
 seconds building and padding graphs.  ``log_every`` is stored and read
 nowhere, as in the JAX trainer.
 """
@@ -70,7 +74,6 @@ import torch
 import torch.distributed as dist
 
 from magnet_tpu_torch.models.factory import resolve_device
-from magnet_tpu_torch.ops.fused_edge import reads_live_edges
 from magnet_tpu_torch.ops.graph import EdgeBuckets, graph_signature
 from magnet_tpu_torch.parallel.graph_partition import check_halo
 from magnet_tpu_torch.train.checkpoint import CheckpointManager, load_checkpoint
@@ -121,19 +124,12 @@ class EarlyStopping:
 MAX_CAPTURED = 4
 
 
-#: the GraphNet lanes whose kernels can read a padded graph's live edge
-#: count on the card (``ops.graph.pad_edges``); the plain versions read it
-#: on the host, which a capture refuses
+#: the GraphNet lanes whose processor step computes on a padded graph
+#: (``ops.graph.pad_edges``) what it computes on the graph unpadded, inside
+#: a captured step: their kernels read the live edge count on the card, in
+#: every dtype and at every width; the plain versions read it on the host,
+#: which a capture refuses
 PADDED_LANES = ("fold", "pe", "pregathered")
-DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
-
-
-def takes_padding(lane: str, dtype: str, width: int) -> bool:
-    """Whether a processor step of ``lane`` in ``dtype`` at ``width`` (a
-    model's ``graph_lanes``) computes on a padded graph what it computes on
-    the graph unpadded, inside a captured step: a lane of ``PADDED_LANES``
-    whose build ``reads_live_edges``."""
-    return lane in PADDED_LANES and reads_live_edges(DTYPES[dtype], width)
 
 
 def batch_signature(batch: dict) -> tuple:
@@ -169,7 +165,27 @@ class CapturedStep:
     ``replay(batch, graph)`` is that step on ``batch`` and ``graph``.  The
     model's own generator, where it has one (``models.common.
     OwnGenerator``), is registered with the graph, so a replay draws what
-    the eager step would."""
+    the eager step would.  Over a mesh the step's all-reduce is in the
+    graph: the capture runs none, each replay one.  The capture refuses an
+    unsafe CUDA call (a malloc, a sync) from its own thread only
+    (``thread_local``): the trainer's other threads (the loader's prefetch,
+    NCCL's watchdog, a profiler's buffer flushes) never enqueue on the
+    capturing stream, and under the default global mode a call of theirs
+    that lands inside the capture would invalidate it."""
+
+    @staticmethod
+    def warm_up(trainer: "Trainer", batch: dict, graph) -> dict:
+        """The eager step before a capture, on a side stream, so that the
+        kernels' builds, lazy state, workspaces and (over a mesh) the NCCL
+        communicator exist before the capture.  Its metrics, on the
+        device."""
+        dev = trainer.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            metrics = trainer.device_step(batch, graph)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        return metrics
 
     def __init__(self, trainer: "Trainer", batch: dict, graph):
         self.inputs = {k: v.clone() for k, v in batch.items()}
@@ -179,7 +195,8 @@ class CapturedStep:
         if hasattr(trainer.model, "default_generator"):
             self.cuda_graph.register_generator_state(
                 trainer.model.default_generator())
-        with torch.cuda.graph(self.cuda_graph):
+        with torch.cuda.graph(self.cuda_graph,
+                              capture_error_mode="thread_local"):
             self.metrics = trainer.device_step(self.inputs, self.graph)
         self.params = trainer.optimizer.params
         self.grads = [p.grad for p in self.params]
@@ -204,6 +221,10 @@ class CapturedStep:
 
 
 class Trainer:
+    #: what captures a chunk's step: ``warm_up(trainer, batch, graph)``, the
+    #: constructor ``(trainer, batch, graph)`` and ``replay(batch, graph)``
+    step_capture = CapturedStep
+
     def __init__(self, model, max_epochs: int = 100, lr: float = 1e-3,
                  weight_decay: float = 0.0, factor: float = 0.3,
                  step_size: int = 50, patience: int = 35,
@@ -410,8 +431,6 @@ class Trainer:
             return "a short chunk" if k > 1 else "one step a call"
         if self.device.type != "cuda":
             return f"no CUDA graph on {self.device.type}"
-        if self.world > 1:
-            return f"the gradients' all-reduce over {self.world} ranks"
         graphs = [g for _, g in chunk]
         if any(g is not graphs[0] for g in graphs[1:]):
             why = self._unpadded(graphs)
@@ -424,13 +443,13 @@ class Trainer:
 
     def _unpadded(self, graphs: list) -> Optional[str]:
         """Why a chunk's graphs, which differ, cannot be padded to one
-        signature (None: they can): every processor step on them must
-        ``takes_padding``."""
+        signature (None: they can): every processor step on them must take
+        a lane of ``PADDED_LANES``."""
         if not hasattr(self.model, "graph_parts"):
             return "the chunk's graphs differ"
         lanes = set().union(*map(self.model.graph_lanes, graphs))
         for lane, dtype, width in sorted(lanes):
-            if not takes_padding(lane, dtype, width):
+            if lane not in PADDED_LANES:
                 return (f"the chunk's graphs differ, on the {lane} lane in "
                         f"{dtype} at width {width}")
         sig = graph_signature(graphs[0], edges=False)
@@ -475,17 +494,14 @@ class Trainer:
         key = (batch_signature(chunk[0][0]), graph_signature(graphs[0]))
         out = []
         if key not in self.captured:
-            # warm-up: the chunk's first step runs eagerly on a side stream
-            # (kernel builds, lazy state, workspaces), then the capture
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(side):
-                out.append(self.device_step(batches.pop(0), graphs.pop(0)))
-            torch.cuda.current_stream(self.device).wait_stream(side)
+            # the chunk's first step eagerly, then the capture
+            out.append(self.step_capture.warm_up(self, batches.pop(0),
+                                                 graphs.pop(0)))
             self.step_counts["eager"] += 1
             if len(self.captured) >= MAX_CAPTURED:
                 self.captured.pop(next(iter(self.captured)))
-            self.captured[key] = CapturedStep(self, batches[0], graphs[0])
+            self.captured[key] = self.step_capture(self, batches[0],
+                                                   graphs[0])
             self.step_counts["captured"] += 1
         step = self.captured[key]
         out += [step.replay(b, g) for b, g in zip(batches, graphs)]

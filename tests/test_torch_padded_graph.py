@@ -9,7 +9,7 @@ to sticky edge buckets (``EdgeBuckets``), on the CPU.
     and d_e0's live rows bit-equal, d_e0's dead rows exactly 0 (the plain
     versions read the first rowptr[-1] rows, as the kernels do on the
     card); the row check takes rowptr[-1] <= E and still raises past E,
-    and on any dead tail of a width-128 bf16 build.
+    in every build (the bf16 ones at both widths too).
 (b) A MAgNet[CNN] 1D and a MAgNet[GNN] 1D training step on graphs padded
     by the trainer against the same step unpadded: loss and every gradient
     within 1e-6 relative L2 (the encoders' edge MLPs run over more rows,
@@ -163,16 +163,18 @@ def test_row_check_takes_a_dead_tail_and_raises_past_the_rows():
     with pytest.raises(ValueError, match="edge rows"):
         fe.fused_edge_tail_agg_pregathered(h0[:E - 1], floats[4],
                                            padded.rowptr, *tail)
-    # the width-64 bf16 builds read the live count too; the width-128 ones
-    # take the host's E as the edge count: no dead tail
+    # the bf16 builds read the live count too, at both widths
     bf = [t.bfloat16() if i not in (9, 10) else t
           for i, t in enumerate(floats)]
     fe.fused_edge_tail_agg_bf16(*_fold(bf, padded))
     wide, _ = _operands(padded, 128, 128, 128, E + 5, seed=0)
     wide = [t.bfloat16() if i not in (9, 10) else t
             for i, t in enumerate(wide)]
+    fe.fused_edge_tail_agg_bf16(*_fold(wide, padded))
     with pytest.raises(ValueError, match="edge rows"):
-        fe.fused_edge_tail_agg_bf16(*_fold(wide, padded))
+        fe.fused_edge_tail_agg_bf16(wide[0][:E - 1], *_fold(wide, padded)[1:5],
+                                    padded.senders[:E - 1], padded.rowptr,
+                                    *wide[5:])
 
 
 def test_pad_edges_keeps_the_csr_and_pads_with_self_loops():

@@ -12,7 +12,8 @@ the CPU.
     (128, 128) and the plain bf16 fold, pre-gathered and pe entries at
     width 64 on dead tails of 1, 64 and 65 rows: output, every gradient and
     d_src's live rows bit-equal to the graph unpadded, d_src's dead rows
-    exactly 0; a bf16 width-128 entry still refuses a dead tail.
+    exactly 0; a bf16 width-128 entry takes a dead tail too (its kernels
+    read the live count) and still raises past the rows.
 (c) Training steps on graphs padded by the trainer against the same steps
     unpadded (loss and every gradient within 1e-6 relative L2: the edge
     MLPs run over more rows) and against the JAX model on its own graph at
@@ -32,8 +33,8 @@ the CPU.
     asserted taken): each step's loss within atol 1e-5, the fit bound of
     ``tests/test_train.py``'s ``test_steps_per_call_parity``.
 (e) The rule: chunks on the f32 fold, pe and pre-gathered lanes and on the
-    bf16 lanes at width 64 are padded (no reason); the bf16 lanes at width
-    128 and the plain versions give a reason naming lane, dtype and width.
+    bf16 lanes at widths 64 and 128 are padded (no reason); the plain
+    versions give a reason naming lane, dtype and width.
 
 Small widths, a few trajectories made with numpy from a seed; the port's
 wrappers take their plain versions on CPU tensors, the JAX models their
@@ -215,6 +216,10 @@ def test_plain_entries_on_a_dead_tail_equal_the_graph_unpadded(tail):
 
 
 def test_a_bf16_width_128_entry_refuses_a_dead_tail():
+    """Since the width-128 bf16 kernels read the live count, their entries
+    take a dead tail (the plain versions' bits on it: ``tests/
+    test_torch_padded_bf16w128.py``) and refuse only rows short of the
+    CSR."""
     graph = _graph(7)
     E = graph.n_edge
     padded = pad_edges(graph, E + 3)
@@ -224,10 +229,16 @@ def test_a_bf16_width_128_entry_refuses_a_dead_tail():
         if entry == "fold":
             ops[0] = ops[0].new_zeros(E + 3, 128)
             ops[1] = ops[1].new_zeros(128, 128)
+        fwd(*ops)
+        bwd(*ops, g)
+        # as many senders (and pe: sender CSR items) as rows
+        short = list(ops)
+        for at in {"fold": (0, 5), "pe": (0, 3, 6), "pregathered": (0,)}[entry]:
+            short[at] = short[at][:E - 1]
         with pytest.raises(ValueError, match="edge rows"):
-            fwd(*ops)
+            fwd(*short)
         with pytest.raises(ValueError, match="edge rows"):
-            bwd(*ops, g)
+            bwd(*short, g)
         unpadded, g = _entry_operands(entry, graph, 64, 32, E, 0, True)
         fwd(*unpadded)                       # width 64: live count read
 
@@ -423,9 +434,9 @@ def test_chunk_of_padded_2d_steps_equals_the_jax_scan(tmp_path):
 def test_the_lanes_a_chunk_is_padded_on(tmp_path):
     """On a CUDA device (the rule reads nothing else of it): chunks of
     MAgNet[CNN] 2D (pre-gathered), MAgNet[CNN] 1D on kernel_pe and
-    MAgNet[GNN] 1D on kernel_pregathered in f32 and of MAgNet[CNN] 1D in
-    bf16 at width 64 are padded; bf16 at width 128 and the plain versions
-    give their reason."""
+    MAgNet[GNN] 1D on kernel_pregathered in f32, of MAgNet[CNN] 1D in bf16
+    at width 64 and of MAgNet[GNN] 1D in bf16 at width 128 are padded; the
+    plain versions give their reason."""
     cases = {"cnn_2d": None, "cnn_1d_pe": None, "gnn_1d_pregathered": None}
     for case in cases:
         tr = _trainer(case, tmp_path / case)
@@ -436,9 +447,7 @@ def test_the_lanes_a_chunk_is_padded_on(tmp_path):
     # bf16 at width 64 (MAgNet[CNN]'s build) and at width 128 (MAgNet[GNN]'s)
     for name, hp, width, why in (
             ("magnet_cnn", dict(CNN_HP, mlp_hidden=64), 64, None),
-            ("magnet_gnn", dict(GNN_HP, mlp_hidden=128), 128,
-             "the chunk's graphs differ, on the fold lane in bf16 at width "
-             "128")):
+            ("magnet_gnn", dict(GNN_HP, mlp_hidden=128), 128, None)):
         model = create_model(name, dict(hp, graph_dtype="bf16"),
                              device="cpu", seed=0)
         tr = Trainer(model, max_epochs=1, workdir=str(tmp_path / name),

@@ -1,7 +1,10 @@
-"""A rank function for ``tests/test_torch_parallel_dist.py`` that records
-the order of the overlap step's exchange and kernels.  It imports torch
-and the port alone: every spawned rank imports this module anew (the
-tests' directory is on the path the ranks inherit).
+"""Rank functions of the tests: ``ordered_loss_rank``
+(``tests/test_torch_parallel_dist.py``) records the order of the overlap
+step's exchange and kernels; ``captured_fit_rank``
+(``tests/test_torch_padded_bf16w128.py``) runs a fit as it runs on CUDA
+devices, captured chunks and all, on the CPU.  They import torch and the
+port alone: every spawned rank imports this module anew (the tests'
+directory is on the path the ranks inherit).
 """
 import contextlib
 import inspect
@@ -55,4 +58,42 @@ def ordered_loss_rank(rank: int, world: int, cases: list) -> list:
         with exchange_order(log):
             (result,) = loss_rank(rank, world, [case])
         out.append({**result, "order": log})
+    return out
+
+
+def captured_fit_rank(rank: int, world: int, specs: list) -> list:
+    """``train.capture_checks.grown_bucket_fit_rank`` of each spec
+    (``fit_rank``, rank ``spec["grow_rank"]``'s buckets grown before its
+    second padded chunk) as the fit runs on CUDA devices, on the CPU: the
+    capture rule read as on a CUDA device and ``EagerStep`` for the capture
+    (the warm-up runs the step, the capture executes nothing, as a CUDA
+    graph's capture does, and a replay runs the step).  Each result also
+    holds the rank's calls of ``torch.distributed.all_reduce`` in that
+    fit."""
+    from unittest import mock
+
+    import torch
+    import torch.distributed as dist
+
+    from magnet_tpu_torch.train import trainer as tr
+    from magnet_tpu_torch.train.capture_checks import (EagerStep,
+                                                        grown_bucket_fit_rank)
+
+    uncaptured = tr.Trainer._uncaptured
+
+    def on_cuda(self, chunk):
+        device, self.device = self.device, torch.device("cuda")
+        try:
+            return uncaptured(self, chunk)
+        finally:
+            self.device = device
+
+    out = []
+    for spec in specs:
+        with mock.patch.object(tr.Trainer, "step_capture", EagerStep), \
+                mock.patch.object(tr.Trainer, "_uncaptured", on_cuda), \
+                mock.patch.object(dist, "all_reduce",
+                                  wraps=dist.all_reduce) as all_reduce:
+            result = grown_bucket_fit_rank(rank, world, spec)
+        out.append({**result, "all_reduces": all_reduce.call_count})
     return out
